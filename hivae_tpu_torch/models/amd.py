@@ -1,0 +1,240 @@
+"""AMD_N: frequency-decoupled motion autoencoding with a rectified-flow DiT
+decoder (port of ``AMDModelNew``, ``sample`` and ``_euler_decode`` of
+``hivae_tpu/models/amd.py``).
+
+The camera stream is the temporal-cross encoder on the low-pass (grey)
+band, the object stream the spatial encoder on RGB, the decoder
+``VelocityDiTImgSpatialTempMotion``. ``AMDConfig`` keeps the JAX package's
+schema so its ``config.json`` files load unchanged; options that only shape
+JAX compilation (``remat``, ``scan_layers``, ``attn_impl``) are accepted and
+have no effect here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..ops import frequency
+from ..ops import rectified_flow as rf
+from ..utils.device import resolve_device
+from .dit import VelocityDiTImgSpatialTempMotion
+from .motion_encoders import MotionEncoderSpatial, MotionEncoderTemporalCross
+
+
+@dataclasses.dataclass(frozen=True)
+class AMDConfig:
+    """Mirror of the JAX package's ``AMDConfig`` (same fields, defaults and
+    dict schema)."""
+
+    image_inchannel: int = 4
+    image_height: int = 32
+    image_width: int = 32
+    video_frames: int = 16
+    scheduler_num_step: int = 1000
+    use_filter: bool = False
+    filter_num: float = 0.4
+    high_filter_num: float = 0.6
+    use_grey: bool = False
+    use_camera_down: bool = False
+    use_regularizers: bool = False
+    use_motiontemporal: bool = True
+    klloss_weight: float = 0.005
+    use_mask: bool = False
+    motion_type: str = "plus"
+    use_camera: bool = True
+    use_object: bool = True
+    object_motion_token_num: int = 12
+    object_motion_token_channel: int = 128
+    object_enc_num_layers: int = 8
+    enc_nhead: int = 8
+    enc_ndim: int = 64
+    motion_need_norm_out: bool = False
+    camera_motion_token_num: int = 12
+    camera_motion_token_channel: int = 128
+    camera_enc_num_layers: int = 8
+    motion_token_num: int = 12
+    motion_token_channel: int = 128
+    need_motion_transformer: bool = False
+    motion_transformer_attn_head_dim: int = 64
+    motion_transformer_attn_num_heads: int = 16
+    motion_transformer_num_layers: int = 4
+    diffusion_model_type: str = "default"
+    diffusion_attn_head_dim: int = 64
+    diffusion_attn_num_heads: int = 16
+    diffusion_out_channels: int = 4
+    diffusion_num_layers: int = 16
+    image_patch_size: int = 2
+    motion_patch_size: int = 1
+    extract_motion_with_motion_transformer: bool = False
+    remat: bool = False
+    remat_policy: str = "full"
+    scan_layers: bool = False
+    attn_impl: str = "auto"
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AMDConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+def _band_split(x_nthw: torch.Tensor, d_low: float, d_high: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N,T,C,H,W) -> (low(d_low), high(d_high)) band videos, split over
+    (T, H, W)."""
+    x = x_nthw.transpose(1, 2)  # n c t h w
+    low, _ = frequency.freq_3d_split(x, d_low, d_low)
+    _, high = frequency.freq_3d_split(x, d_high, d_high)
+    return low.transpose(1, 2), high.transpose(1, 2)
+
+
+def _check_supported(c: AMDConfig) -> None:
+    unported = {"diffusion_model_type": c.diffusion_model_type != "spatial",
+                "use_camera_down": c.use_camera_down,
+                "use_mask": c.use_mask,
+                "need_motion_transformer": c.need_motion_transformer}
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"AMDModelNew: {bad} are not ported yet; the port runs "
+            "diffusion_model_type='spatial' without camera_down, mask or "
+            "motion transformer")
+
+
+class AMDModelNew(nn.Module):
+    """Decoupled-motion video model (camera + object streams)."""
+
+    def __init__(self, cfg: AMDConfig,
+                 device: Optional[Union[str, torch.device]] = None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = c = cfg
+        dev = resolve_device(device)
+        with torch.device(dev):
+            if c.use_camera:
+                self.camera_motion_encoder = MotionEncoderTemporalCross(
+                    img_height=c.image_height, img_width=c.image_width,
+                    img_inchannel=c.image_inchannel,
+                    img_patch_size=c.image_patch_size,
+                    motion_token_num=c.camera_motion_token_num,
+                    motion_channel=c.camera_motion_token_channel,
+                    need_norm_out=c.motion_need_norm_out,
+                    video_frames=c.video_frames, heads=c.enc_nhead,
+                    head_dim=c.enc_ndim, num_layers=c.camera_enc_num_layers)
+            if c.use_object:
+                self.object_motion_encoder = MotionEncoderSpatial(
+                    img_height=c.image_height, img_width=c.image_width,
+                    img_inchannel=c.image_inchannel,
+                    img_patch_size=c.image_patch_size,
+                    motion_token_num=c.object_motion_token_num,
+                    motion_channel=c.object_motion_token_channel,
+                    need_norm_out=c.motion_need_norm_out,
+                    heads=c.enc_nhead, head_dim=c.enc_ndim,
+                    num_layers=c.object_enc_num_layers)
+            self.diffusion_transformer = VelocityDiTImgSpatialTempMotion(
+                heads=c.diffusion_attn_num_heads,
+                head_dim=c.diffusion_attn_head_dim,
+                out_channels=c.diffusion_out_channels,
+                num_layers=c.diffusion_num_layers,
+                image_height=c.image_height, image_width=c.image_width,
+                image_patch_size=c.image_patch_size,
+                image_in_channels=c.image_inchannel * 2,
+                motion_token_num=c.motion_token_num,
+                motion_target_num_frame=c.video_frames,
+                use_camera=c.use_camera, use_object=c.use_object,
+                camera_motion_in_channels=c.camera_motion_token_channel,
+                object_motion_in_channels=c.object_motion_token_channel)
+        # position tables are built on the host; move them with the weights
+        self.to(device=dev, dtype=dtype)
+
+    def encode(self, video, ref_img, video_grey=None, ref_img_grey=None,
+               low_cut: float = 0.6, high_cut: float = 0.6):
+        """-> (camera_target (N,T,S,Dc), object_source (N*T,L,Do),
+        object_target (N*T,L,Do)); video/ref_img: (N,T,C,H,W) latents."""
+        c = self.cfg
+        n, t = video.shape[:2]
+        refimg_and_video = torch.cat([ref_img, video], dim=1)
+        if c.use_filter:
+            grey = (torch.cat([ref_img_grey, video_grey], dim=1)
+                    if c.use_grey else refimg_and_video)
+            lf, _ = _band_split(grey, low_cut, high_cut)
+            lf_video = lf[:, t:]
+        else:
+            lf_video = video_grey if c.use_grey else video
+
+        camera_target = object_source = object_target = None
+        if c.use_camera:
+            camera_target = self.camera_motion_encoder(lf_video)
+        if c.use_object:
+            om = self.object_motion_encoder(refimg_and_video)
+            object_source = om[:, :t].reshape((n * t,) + om.shape[2:])
+            object_target = om[:, t:].reshape((n * t,) + om.shape[2:])
+        return camera_target, object_source, object_target
+
+    def velocity(self, image_hidden_states, timestep, camera_target=None,
+                 object_source=None, object_target=None):
+        return self.diffusion_transformer(
+            image_hidden_states, timestep,
+            camera_motion_target=camera_target,
+            object_motion_source=object_source,
+            object_motion_target=object_target)
+
+
+def AMD_N(device: Optional[Union[str, torch.device]] = None,
+          dtype: torch.dtype = torch.float32, **kw) -> AMDModelNew:
+    """AMD_N factory with the JAX package's fixed widths."""
+    cfg = AMDConfig(enc_nhead=8, enc_ndim=64, diffusion_attn_head_dim=64,
+                    diffusion_attn_num_heads=16, diffusion_out_channels=4,
+                    diffusion_num_layers=12, **kw)
+    return AMDModelNew(cfg, device=device, dtype=dtype)
+
+
+def _euler_decode(model: AMDModelNew, zi, z0, motions, sample_step: int,
+                  start_step: int, z1=None):
+    """Euler-walk the DiT from ``start_step`` down to step 0."""
+    num_steps = model.cfg.scheduler_num_step
+    step_seq = rf.sample_step_sequence(sample_step, start_step, num_steps)
+    z_start = rf.euler_start(z0, z1, start_step, num_steps)
+
+    def vel_fn(zt, tstep):
+        return model.velocity(torch.cat([zi, zt], dim=1), tstep, **motions)
+
+    return rf.euler_sample(vel_fn, z_start, step_seq)
+
+
+@torch.no_grad()
+def sample(model: AMDModelNew, video, ref_img, video_grey=None,
+           ref_img_grey=None, sample_step: int = 50,
+           start_step: Optional[int] = None,
+           generator: Optional[torch.Generator] = None,
+           noise: Optional[torch.Tensor] = None):
+    """Reconstruction: motion from ``video`` (N,T,C,H,W latents), then an
+    Euler decode from noise. The start noise is ``noise`` (N*T,C,H,W) when
+    given, else drawn from ``generator``. Returns (zi, sample, zj), each
+    (N,T,C,H,W)."""
+    cfg = model.cfg
+    n, t = video.shape[:2]
+    start = cfg.scheduler_num_step if start_step is None else start_step
+    camera_target, object_source, object_target = model.encode(
+        video, ref_img, video_grey, ref_img_grey)
+    motions = dict(camera_target=camera_target, object_source=object_source,
+                   object_target=object_target)
+    zi = ref_img.reshape((n * t,) + ref_img.shape[2:])
+    zj = video.reshape((n * t,) + video.shape[2:])
+    if noise is None:
+        noise = torch.randn(zj.shape, generator=generator, dtype=zj.dtype,
+                            device=zj.device)
+    zt = _euler_decode(model, zi, noise.to(zj), motions, sample_step, start,
+                       z1=zj)
+
+    def unflat(x):
+        return x.reshape((n, t) + x.shape[1:])
+
+    return unflat(zi), unflat(zt), unflat(zj)

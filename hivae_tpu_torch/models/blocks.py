@@ -1,0 +1,260 @@
+"""Transformer blocks of the clip-reconstruction path (port of
+``hivae_tpu/models/blocks.py``).
+
+Parameter names follow the reference's diffusers modules (``to_out.0``,
+``net.0.proj``, ``net.2``), which ``utils/params.py`` maps the JAX trees
+onto. Attention runs through ``ops.attention.sdpa`` on (B, H, S, D)
+tensors, so long sequences reach the hand-written kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import attention as attn_ops
+from ..ops import embeddings as emb_ops
+
+
+def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.view(b, s, heads, -1).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def modulate(x: torch.Tensor, scale: torch.Tensor,
+             shift: torch.Tensor) -> torch.Tensor:
+    """AdaLN modulation ``x * (1 + scale) + shift``."""
+    return x * (1.0 + scale) + shift
+
+
+class Attention(nn.Module):
+    """Multi-head attention with diffusers ``Attention`` semantics; the
+    optional per-head q/k LayerNorm (eps 1e-6) is applied inside ``sdpa``,
+    ``norm_q``/``norm_k`` only hold its parameters."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 qk_norm: bool = True, qkv_bias: bool = True,
+                 out_bias: bool = True, eps: float = 1e-6):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.eps, self.qk_norm = heads, eps, qk_norm
+        self.to_q = nn.Linear(dim, inner, bias=qkv_bias)
+        self.to_k = nn.Linear(dim, inner, bias=qkv_bias)
+        self.to_v = nn.Linear(dim, inner, bias=qkv_bias)
+        if qk_norm:
+            self.norm_q = nn.LayerNorm(head_dim, eps=eps)
+            self.norm_k = nn.LayerNorm(head_dim, eps=eps)
+        self.to_out = nn.ModuleList([nn.Linear(inner, dim, bias=out_bias)])
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ctx = x if context is None else context
+        q = _split_heads(self.to_q(x), self.heads)
+        k = _split_heads(self.to_k(ctx), self.heads)
+        v = _split_heads(self.to_v(ctx), self.heads)
+        qk = None
+        if self.qk_norm:
+            qk = (self.norm_q.weight, self.norm_q.bias,
+                  self.norm_k.weight, self.norm_k.bias)
+        out = attn_ops.sdpa(q, k, v, key_mask=key_mask, qk_norm=qk,
+                            qk_norm_eps=self.eps)
+        return self.to_out[0](_merge_heads(out))
+
+
+class _GELUProj(nn.Module):
+    """diffusers ``GELU(approximate='tanh')``: projection then tanh-GELU."""
+
+    def __init__(self, dim: int, inner: int, bias: bool):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(self.proj(x), approximate="tanh")
+
+
+class FeedForward(nn.Module):
+    """MLP with tanh-approximate GELU; ``net.1`` is diffusers' dropout
+    slot, kept so the parameter names match."""
+
+    def __init__(self, dim: int, inner_dim: Optional[int] = None,
+                 use_bias: bool = True):
+        super().__init__()
+        inner = inner_dim or 4 * dim
+        self.net = nn.ModuleList([_GELUProj(dim, inner, use_bias),
+                                  nn.Identity(),
+                                  nn.Linear(inner, dim, bias=use_bias)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.net:
+            x = layer(x)
+        return x
+
+
+class TimestepEmbedding(nn.Module):
+    """Sinusoid (flip_sin_to_cos, shift 0) + 2-layer SiLU MLP."""
+
+    def __init__(self, sinusoid_dim: int, time_embed_dim: int):
+        super().__init__()
+        self.sinusoid_dim = sinusoid_dim
+        self.linear_1 = nn.Linear(sinusoid_dim, time_embed_dim)
+        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+
+    def forward(self, timesteps: torch.Tensor) -> torch.Tensor:
+        emb = emb_ops.timestep_embedding(timesteps, self.sinusoid_dim)
+        emb = self.linear_1(emb.to(self.linear_1.weight.dtype))
+        return self.linear_2(F.silu(emb))
+
+
+class PatchEmbed(nn.Module):
+    """Non-overlapping patchify as reshape + matmul: (N, C, H, W) ->
+    (N, H/p * W/p, embed_dim), channel-major patch layout."""
+
+    def __init__(self, patch_size: int, in_channels: int, embed_dim: int,
+                 use_bias: bool = True):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Linear(in_channels * patch_size ** 2, embed_dim,
+                              bias=use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        p = self.patch_size
+        x = x.reshape(n, c, h // p, p, w // p, p).permute(0, 2, 4, 1, 3, 5)
+        x = x.reshape(n, (h // p) * (w // p), c * p * p)
+        return self.proj(x.to(self.proj.weight.dtype))
+
+
+class AdaLNZero(nn.Module):
+    """Joint two-stream AdaLN-Zero: one linear -> 6 chunks, one shared
+    affine LayerNorm for both streams."""
+
+    def __init__(self, embed_dim: int, cond_dim: int):
+        super().__init__()
+        self.linear = nn.Linear(cond_dim, 6 * embed_dim)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
+
+    def forward(self, hidden, encoder, temb):
+        (shift, scale, gate, e_shift, e_scale,
+         e_gate) = self.linear(F.silu(temb)).chunk(6, dim=-1)
+        hidden = modulate(self.norm(hidden), scale[:, None], shift[:, None])
+        encoder = modulate(self.norm(encoder), e_scale[:, None],
+                           e_shift[:, None])
+        return hidden, encoder, gate[:, None], e_gate[:, None]
+
+
+class AdaLNZeroSingle(nn.Module):
+    """One-stream AdaLN-Zero: linear -> (shift, scale, gate)."""
+
+    def __init__(self, embed_dim: int, cond_dim: int):
+        super().__init__()
+        self.linear = nn.Linear(cond_dim, 3 * embed_dim)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
+
+    def forward(self, hidden, temb):
+        shift, scale, gate = self.linear(F.silu(temb)).chunk(3, dim=-1)
+        return (modulate(self.norm(hidden), scale[:, None], shift[:, None]),
+                gate[:, None])
+
+
+class AdaLayerNorm(nn.Module):
+    """Shift/scale AdaLN of the DiT output head."""
+
+    def __init__(self, embed_dim: int, cond_dim: int):
+        super().__init__()
+        self.linear = nn.Linear(cond_dim, 2 * embed_dim)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
+
+    def forward(self, x, temb):
+        shift, scale = self.linear(F.silu(temb)).chunk(2, dim=-1)
+        return modulate(self.norm(x), scale[:, None], shift[:, None])
+
+
+class BasicTransformerBlock(nn.Module):
+    """Pre-LN self-attention block."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, key_mask=None):
+        x = x + self.attn1(self.norm1(x), key_mask=key_mask)
+        return x + self.ff(self.norm2(x))
+
+
+class BasicCrossTransformerBlock(nn.Module):
+    """Pre-LN cross-attention block: Q from ``x``, K/V from ``context``."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context):
+        x = x + self.attn1(self.norm1(x), context)
+        return x + self.ff(self.norm2(x))
+
+
+class JointTransformerBlock(nn.Module):
+    """Two-stream joint block: AdaLN-Zero both streams, self-attend over
+    [encoder, hidden], gated residuals, the same for the FF. Returns
+    (hidden, encoder)."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, cond_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = AdaLNZero(dim, cond_dim)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm2 = AdaLNZero(dim, cond_dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, hidden, encoder, temb, hidden_key_mask=None):
+        enc_len = encoder.shape[1]
+        mask = None
+        if hidden_key_mask is not None:
+            # joint order is [encoder, hidden]; only hidden tokens are masked
+            mask = torch.cat([torch.ones(encoder.shape[:2], dtype=torch.bool,
+                                         device=encoder.device),
+                              hidden_key_mask], dim=1)
+        h, e, gate, e_gate = self.norm1(hidden, encoder, temb)
+        out = self.attn1(torch.cat([e, h], dim=1), key_mask=mask)
+        hidden = hidden + gate * out[:, enc_len:]
+        encoder = encoder + e_gate * out[:, :enc_len]
+
+        h, e, gate, e_gate = self.norm2(hidden, encoder, temb)
+        out = self.ff(torch.cat([e, h], dim=1))
+        hidden = hidden + gate * out[:, enc_len:]
+        encoder = encoder + e_gate * out[:, :enc_len]
+        return hidden, encoder
+
+
+class DiTBlock(nn.Module):
+    """Single-stream AdaLN-Zero DiT block."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, cond_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = AdaLNZeroSingle(dim, cond_dim)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm2 = AdaLNZeroSingle(dim, cond_dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, temb):
+        h, gate = self.norm1(x, temb)
+        x = x + gate * self.attn1(h)
+        h, gate = self.norm2(x, temb)
+        return x + gate * self.ff(h)

@@ -1,0 +1,121 @@
+"""Motion encoders of AMD_N (port of ``hivae_tpu/models/motion_encoders.py``),
+without token masking (``mask_ratio=None``):
+
+  * ``MotionEncoderSpatial`` - object branch: learnable motion tokens
+    prepended to each frame's patch tokens, N self-attention layers, tokens
+    projected out. At the flagship's 4 + 256 tokens its attention runs the
+    full-block kernel.
+  * ``MotionEncoderTemporalCross`` - camera branch: per-site temporal
+    query tokens cross-attend to the per-pixel temporal tubes (S = frames).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops import embeddings as emb_ops
+from .blocks import BasicCrossTransformerBlock, BasicTransformerBlock, PatchEmbed
+
+
+def _table(arr) -> torch.Tensor:
+    return torch.from_numpy(arr.copy())
+
+
+class MotionEncoderSpatial(nn.Module):
+    """(N, T, C, H, W) -> motion tokens (N, T, L, motion_channel)."""
+
+    def __init__(self, img_height: int = 32, img_width: int = 32,
+                 img_inchannel: int = 4, img_patch_size: int = 2,
+                 motion_token_num: int = 12, motion_channel: int = 128,
+                 need_norm_out: bool = True, heads: int = 12,
+                 head_dim: int = 64, num_layers: int = 8):
+        super().__init__()
+        hidden = heads * head_dim
+        self.motion_token_num, self.motion_channel = motion_token_num, motion_channel
+        self.motion_token = nn.Parameter(
+            0.02 * torch.randn(1, motion_token_num, motion_channel))
+        self.motion_embed = nn.Linear(motion_channel, hidden)
+        self.patch_embed = PatchEmbed(img_patch_size, img_inchannel, hidden)
+        grid = (img_height // img_patch_size, img_width // img_patch_size)
+        self.register_buffer(
+            "pos", _table(emb_ops.get_2d_sincos_pos_embed(hidden, grid))[None],
+            persistent=False)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(hidden, heads, head_dim)
+             for _ in range(num_layers)])
+        self.norm_final = nn.LayerNorm(hidden, eps=1e-5)
+        self.proj_out = nn.Linear(hidden, motion_channel)
+        self.norm_out = (nn.LayerNorm(motion_channel, eps=1e-5,
+                                      elementwise_affine=False)
+                         if need_norm_out else nn.Identity())
+
+    def forward(self, video: torch.Tensor) -> torch.Tensor:
+        n, t, c, h, w = video.shape
+        mtok = self.motion_embed(self.motion_token)
+        mtok = mtok.expand(n * t, -1, -1)
+        x = self.patch_embed(video.reshape(n * t, c, h, w)) + self.pos
+        hstate = torch.cat([mtok, x], dim=1)
+        for blk in self.transformer_blocks:
+            hstate = blk(hstate)
+        mtok = self.norm_final(hstate[:, :self.motion_token_num])
+        mtok = self.norm_out(self.proj_out(mtok))
+        return mtok.reshape(n, t, self.motion_token_num, self.motion_channel)
+
+
+class MotionEncoderTemporalCross(nn.Module):
+    """(N, T, C, H, W) low-pass video -> camera tokens (N, T, S, channel),
+    one token per spatial site per frame."""
+
+    def __init__(self, img_height: int = 32, img_width: int = 32,
+                 img_inchannel: int = 4, img_patch_size: int = 2,
+                 motion_token_num: int = 12, motion_channel: int = 128,
+                 need_norm_out: bool = True, video_frames: int = 16,
+                 heads: int = 12, head_dim: int = 64, num_layers: int = 8):
+        super().__init__()
+        hidden = heads * head_dim
+        self.hidden = hidden
+        self.motion_token_num, self.motion_channel = motion_token_num, motion_channel
+        self.patch_embed = PatchEmbed(img_patch_size, img_inchannel, hidden)
+        grid = (img_height // img_patch_size, img_width // img_patch_size)
+        self.register_buffer(
+            "spos", _table(emb_ops.get_2d_sincos_pos_embed(hidden, grid))[None],
+            persistent=False)
+        self.register_buffer(
+            "tpos", _table(emb_ops.get_1d_sincos_pos_embed(hidden, video_frames)),
+            persistent=False)
+        self.motion_token = nn.Parameter(
+            0.02 * torch.randn(1, motion_token_num, motion_channel))
+        self.motion_embed = nn.Linear(motion_channel, hidden)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicCrossTransformerBlock(hidden, heads, head_dim)
+             for _ in range(num_layers)])
+        self.norm_final = nn.LayerNorm(hidden, eps=1e-5)
+        self.proj_out = nn.Linear(hidden, motion_channel)
+        self.norm_out = (nn.LayerNorm(motion_channel, eps=1e-5,
+                                      elementwise_affine=False)
+                         if need_norm_out else nn.Identity())
+
+    def forward(self, video: torch.Tensor) -> torch.Tensor:
+        n, t, c, h, w = video.shape
+        hidden, ltok = self.hidden, self.motion_token_num
+        x = self.patch_embed(video.reshape(n * t, c, h, w)) + self.spos
+        s = x.shape[1]
+        x = x.reshape(n, t, s, hidden) + self.tpos[None, :t, None, :]
+
+        mtok = self.motion_embed(self.motion_token)
+        mtok = mtok[:, None].expand(n, s, ltok, hidden)
+        if ltok != t:
+            if t < ltok or t % ltok:
+                raise ValueError(
+                    f"camera encoder: frame count {t} must be a multiple of "
+                    f"motion_token_num {ltok} (the tokens are stretched to "
+                    f"T by repetition)")
+            mtok = mtok.repeat_interleave(t // ltok, dim=2)
+        mtok = mtok.reshape(n * s, t, hidden) + self.tpos[None, :t]
+
+        kv = x.transpose(1, 2).reshape(n * s, t, hidden)
+        for blk in self.transformer_blocks:
+            mtok = blk(mtok, kv)
+        mtok = self.norm_out(self.proj_out(self.norm_final(mtok)))
+        return mtok.reshape(n, s, t, self.motion_channel).transpose(1, 2)

@@ -1,0 +1,64 @@
+"""Rectified-flow sampling (port of ``hivae_tpu/ops/rectified_flow.py``).
+
+Integer steps in [0, num_steps] map to time ``t = (num_steps - step) /
+num_steps``; Euler walks a precomputed high-to-low step sequence with
+``dt = 1 / len(step_seq)``. The walk is a Python loop.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+DEFAULT_NUM_STEPS = 1000
+
+
+def timestep_to_time(timestep: torch.Tensor,
+                     num_steps: int = DEFAULT_NUM_STEPS,
+                     ndim: int = 4) -> torch.Tensor:
+    """Integer step(s) -> continuous time; a 1-D batch broadcasts against
+    an ``ndim``-dimensional batch of samples."""
+    t = (num_steps - timestep.float()) / num_steps
+    if t.dim() == 1:
+        t = t.reshape((-1,) + (1,) * (ndim - 1))
+    return t
+
+
+def euler_start(z0: torch.Tensor, z1: Optional[torch.Tensor],
+                start_step: int,
+                num_steps: int = DEFAULT_NUM_STEPS) -> torch.Tensor:
+    """Initial Euler state: pure noise at ``start_step == num_steps``, else
+    the partially noised target ``t0*z1 + (1-t0)*z0``."""
+    if start_step >= num_steps:
+        return z0
+    if z1 is None:
+        raise ValueError(
+            f"start_step={start_step} < num_steps={num_steps} requires the "
+            "target sample z1 to seed the partially-noised start state")
+    t0 = (num_steps - start_step) / num_steps
+    return t0 * z1 + (1.0 - t0) * z0
+
+
+def sample_step_sequence(sample_steps: int, start_step: Optional[int] = None,
+                         num_steps: int = DEFAULT_NUM_STEPS) -> np.ndarray:
+    """``np.linspace(0, start_step, steps+1)[1:]`` as integers, high->low."""
+    if start_step is None:
+        start_step = num_steps
+    seq = np.linspace(0, start_step, num=sample_steps + 1, endpoint=True,
+                      dtype=np.int64)[1:]
+    return seq[::-1].copy()
+
+
+def euler_sample(velocity_fn: Callable[[torch.Tensor, torch.Tensor],
+                                       torch.Tensor],
+                 z0: torch.Tensor, step_seq: Sequence[int]) -> torch.Tensor:
+    """Euler-integrate ``velocity_fn(z, timestep)`` from ``z0``."""
+    dt = 1.0 / len(step_seq)
+    z = z0
+    for step in step_seq:
+        t = torch.full((z.shape[0],), float(step), dtype=torch.float32,
+                       device=z.device)
+        z = z + velocity_fn(z, t) * dt
+    return z

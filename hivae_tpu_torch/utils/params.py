@@ -1,0 +1,109 @@
+"""JAX parameter tree -> the port's PyTorch ``state_dict``.
+
+The port's modules carry the reference's diffusers parameter names (the
+same names ``hivae_tpu/utils/torch_convert.py`` maps flax paths onto), so
+one name map serves both the JAX checkpoints and the reference's torch
+ones. Layouts:
+
+  * Dense kernel (in, out)   -> Linear weight (out, in)   [transpose]
+  * Conv kernel  (kh,kw,I,O) -> Conv2d weight (O,I,kh,kw)
+  * LayerNorm/GroupNorm ``scale`` -> ``weight``
+  * the ``nn.scan``-stacked ``layers/{object,camera,spatial}_block`` tree
+    (``scan_layers=True``, leading dim L) -> per-layer ModuleList entries.
+
+Input is the flax tree as nested mappings of numpy arrays (with or without
+the top-level ``params`` collection).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, List, Mapping, Tuple
+
+import numpy as np
+import torch
+
+# flax path piece -> torch name piece (applied to the joined dotted name)
+_RULES: List[Tuple[str, str]] = [
+    (r"\bblocks_(\d+)\b", r"transformer_blocks.\1"),
+    (r"\bobject_blocks_(\d+)\b", r"object_transformer_blocks.\1"),
+    (r"\bcamera_blocks_(\d+)\b", r"camera_transformer_blocks.\1"),
+    (r"\bspatial_blocks_(\d+)\b", r"spatial_blocks.\1"),
+    (r"\bresnets_(\d+)\b", r"resnets.\1"),
+    (r"\battentions_(\d+)\b", r"attentions.\1"),
+    (r"\bdownsamplers_(\d+)\b", r"downsamplers.\1"),
+    (r"\bupsamplers_(\d+)\b", r"upsamplers.\1"),
+    (r"\bdown_blocks_(\d+)\b", r"down_blocks.\1"),
+    (r"\bup_blocks_(\d+)\b", r"up_blocks.\1"),
+    (r"\bnet_0\b", "net.0.proj"),
+    (r"\bnet_2\b", "net.2"),
+    (r"\bto_out\b", "to_out.0"),
+]
+
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+# nn.scan stack member -> the unrolled per-layer name it stands for
+_SCAN_BLOCK_NAMES = {
+    "object_block": "object_blocks",
+    "camera_block": "camera_blocks",
+    "spatial_block": "spatial_blocks",
+}
+
+
+def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
+    """('encoder','down_blocks_0','resnets_1','conv1','kernel') ->
+    'encoder.down_blocks.0.resnets.1.conv1.weight'."""
+    *mods, leaf = path
+    name = ".".join(mods)
+    for pat, rep in _RULES:
+        name = re.sub(pat, rep, name)
+    leaf_name = _LEAF.get(leaf, leaf)
+    return f"{name}.{leaf_name}" if name else leaf_name
+
+
+def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+             ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for name, val in tree.items():
+        path = prefix + (str(name),)
+        if isinstance(val, Mapping):
+            yield from _flatten(val, path)
+        else:
+            yield path, np.asarray(val)
+
+
+def _unstack(path: Tuple[str, ...], arr: np.ndarray):
+    """Split a scanned (L, ...) leaf into per-layer (path, array) pairs."""
+    if "layers" in path:
+        i = path.index("layers")
+        if i + 1 < len(path) and path[i + 1] in _SCAN_BLOCK_NAMES:
+            block = _SCAN_BLOCK_NAMES[path[i + 1]]
+            for layer in range(arr.shape[0]):
+                yield (path[:i] + (f"{block}_{layer}",) + path[i + 2:],
+                       arr[layer])
+            return
+    yield path, arr
+
+
+def _torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            return arr.T
+        if arr.ndim == 4:
+            return arr.transpose(3, 2, 0, 1)
+        raise ValueError(f"unexpected kernel rank {arr.ndim}")
+    return arr
+
+
+def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax parameter tree -> state dict for the port's matching module."""
+    if set(params.keys()) == {"params"}:
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params):
+        for p, a in _unstack(path, arr):
+            key = flax_path_to_torch_key(p)
+            if key in out:
+                raise ValueError(f"two flax leaves map onto {key}")
+            out[key] = torch.from_numpy(
+                np.array(_torch_layout(p[-1], a), order="C", copy=True))
+    return out

@@ -1,0 +1,92 @@
+"""The hand-written CUDA attention kernels vs their plain PyTorch versions
+on the card. Every test here needs an NVIDIA card (``cuda`` marker) and
+skips without one. The file imports no JAX, so it runs where only PyTorch
+is installed:
+
+    python -m pytest tests/test_torch_cuda.py -q --noconftest
+
+Tolerance: bf16 inputs on both sides, outputs of unit scale; the kernel
+and the plain version round P to bf16 at different points of the sum
+(atol 2e-2). LSE is fp32 summed in another order (atol 1e-3)."""
+
+import numpy as np
+import pytest
+import torch
+
+from hivae_tpu_torch.ops.kernels import flash_attention as tfa
+
+ATOL = 2e-2
+LSE_ATOL = 1e-3
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def _qkv(shape, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
+            .bfloat16() for _ in range(3)]
+
+
+def _bias(b, sk, seed=1, full_row=None):
+    keep = np.random.RandomState(seed).rand(b, sk) > 0.3
+    if full_row is not None:
+        keep[full_row] = False
+    return torch.from_numpy(
+        np.where(keep, 0.0, -1e30).astype(np.float32)).cuda()
+
+
+def _err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", [
+    ((32, 8, 260, 64), False), ((16, 16, 266, 64), False),
+    ((16, 16, 512, 64), False), ((16, 16, 512, 64), True),
+    ((2, 3, 100, 128), True)])
+def test_full_block_kernel_matches_plain(shape, masked):
+    _cuda_or_skip()
+    q, k, v = _qkv(shape, seed=11)
+    bias = _bias(shape[0], shape[2], full_row=0) if masked else None
+    before = tfa.full_block_attention.launches
+    got = tfa.full_block_attention(q, k, v, scale=0.125, bias=bias)
+    want = tfa.full_block_attention_plain(q, k, v, scale=0.125, bias=bias)
+    torch.cuda.synchronize()
+    assert tfa.full_block_attention.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, want) <= ATOL
+    if masked:  # a fully masked row is the uniform average of its values
+        assert _err(got[0], v[0].float().mean(dim=1, keepdim=True)
+                    .expand(got[0].shape)) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", [
+    ((17, 1, 1024, 512), False), ((1, 2, 600, 64), True),
+    ((2, 1, 300, 256), True)])
+def test_stream_kernel_matches_plain(shape, masked):
+    _cuda_or_skip()
+    q, k, v = _qkv(shape, seed=12)
+    scale = shape[3] ** -0.5
+    bias = _bias(shape[0], shape[2]) if masked else None
+    before = tfa.stream_attention.launches
+    out, lse = tfa.stream_attention(q, k, v, scale=scale, bias=bias)
+    wo, wl = tfa.stream_attention_plain(q, k, v, scale=scale, bias=bias)
+    torch.cuda.synchronize()
+    assert tfa.stream_attention.launches == before + 1
+    assert _err(out, wo) <= ATOL
+    assert _err(lse, wl) <= LSE_ATOL
+
+
+@pytest.mark.cuda
+def test_kernels_reject_what_they_do_not_take():
+    _cuda_or_skip()
+    q, k, v = _qkv((1, 2, 300, 64), seed=13)
+    with pytest.raises(TypeError):
+        tfa.full_block_attention(q.float(), k.float(), v.float(), scale=0.1)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.stream_attention(q[..., :48], k[..., :48], v[..., :48],
+                             scale=0.1)

@@ -1,0 +1,182 @@
+"""The port's attention kernels: plain versions vs the JAX Pallas kernels
+(interpret mode on the CPU) and the ``sdpa`` dispatch rule. The CUDA
+kernels themselves are held against their plain versions on the card by
+``tests/test_torch_cuda.py``.
+
+Tolerance: fp32 inputs on the CPU, so the two sides differ only by the
+order of fp32 sums (atol 2e-5 on unit-scale outputs)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hivae_tpu.ops.pallas import flash_attention as jfa
+from hivae_tpu_torch.ops import attention as tattn
+from hivae_tpu_torch.ops.kernels import flash_attention as tfa
+
+ATOL = 2e-5
+
+
+def _qkv(shape, seed=0, sk=None):
+    rng = np.random.RandomState(seed)
+    b, h, s, d = shape
+    sk = s if sk is None else sk
+    q = rng.randn(b, h, s, d).astype(np.float32)
+    k = rng.randn(b, h, sk, d).astype(np.float32)
+    v = rng.randn(b, h, sk, d).astype(np.float32)
+    return q, k, v
+
+
+def _bias(b, sk, seed=1, full_row=None):
+    rng = np.random.RandomState(seed)
+    keep = rng.rand(b, sk) > 0.3
+    if full_row is not None:
+        keep[full_row] = False
+    return np.where(keep, 0.0, -1e30).astype(np.float32)
+
+
+@pytest.mark.parametrize("s", [260, 266])
+@pytest.mark.parametrize("masked", [False, True])
+def test_full_block_plain_matches_pallas(s, masked):
+    q, k, v = _qkv((2, 2, s, 64), seed=s)
+    bias = _bias(2, s, full_row=1) if masked else None
+    scale = 64 ** -0.5
+    want = np.asarray(jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale,
+        bias=None if bias is None else jnp.asarray(bias)))
+    got = tfa.full_block_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        scale=scale, bias=None if bias is None else torch.from_numpy(bias))
+    if not masked:
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    else:
+        # batch 0 has keys to attend to and matches the Pallas kernel
+        np.testing.assert_allclose(got[0].numpy(), want[0], atol=ATOL,
+                                   rtol=0)
+        # batch 1 is fully masked: uniform over its real keys, as the
+        # JAX package's XLA path gives. (The Pallas kernel averages over its
+        # 16-aligned padded keys as well, zeros included: sum(v) / 272 at
+        # S = 260; the port keeps the XLA path's semantics.)
+        uniform = v[1].mean(axis=1, keepdims=True)
+        np.testing.assert_allclose(got[1].numpy(),
+                                   np.broadcast_to(uniform, got[1].shape),
+                                   atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_stream_plain_matches_pallas(masked):
+    q, k, v = _qkv((1, 2, 640, 64), seed=7)
+    bias = _bias(1, 640) if masked else None
+    scale = 0.125
+    jo, jl = jfa.stream_fwd_lse(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v),
+                                jnp.zeros((1, 640), jnp.float32)
+                                if bias is None else jnp.asarray(bias),
+                                scale)
+    to, tl = tfa.stream_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        scale=scale, bias=None if bias is None else torch.from_numpy(bias))
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("q_shape,k_shape", [
+    ((32, 8, 260, 64), (32, 8, 260, 64)),
+    ((16, 16, 266, 64), (16, 16, 266, 64)),
+    ((16, 16, 512, 64), (16, 16, 512, 64)),
+    ((17, 1, 1024, 512), (17, 1, 1024, 512)),
+    ((1, 4, 2048, 64), (1, 4, 2048, 64)),
+])
+def test_full_block_fits_matches_jax(q_shape, k_shape):
+    assert tattn.full_block_fits(q_shape, k_shape) == \
+        jfa._full_block_fits(q_shape, k_shape)
+
+
+def test_path_dispatch():
+    """The serving path's shapes reach the kernels the JAX package's
+    dispatch gives them: the joint/encoder attentions the full-block
+    kernel, the VAE mid-block the streaming one, S = frames the plain
+    path."""
+    seen = []
+
+    def spy(name):
+        def fn(q, k, v, *, scale, bias=None):
+            seen.append((name, tuple(q.shape)))
+            out = torch.zeros_like(q)
+            return out if name == "full" else (out, None)
+        return fn
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tfa, "full_block_attention", spy("full"))
+    mp.setattr(tfa, "stream_attention", spy("stream"))
+    try:
+        for shape in [(32, 8, 260, 64), (16, 16, 266, 64),
+                      (16, 16, 512, 64), (17, 1, 1024, 512),
+                      (256, 16, 16, 64)]:
+            x = torch.zeros(shape[:2] + (1, shape[3])).expand(shape)
+            tattn.sdpa(x, x, x)
+    finally:
+        mp.undo()
+    assert seen == [("full", (32, 8, 260, 64)), ("full", (16, 16, 266, 64)),
+                    ("full", (16, 16, 512, 64)),
+                    ("stream", (17, 1, 1024, 512))]
+
+
+def test_sdpa_plain_matches_jax_with_mask_and_qknorm():
+    q, k, v = _qkv((2, 3, 20, 16), seed=3)
+    rng = np.random.RandomState(4)
+    keep = rng.rand(2, 20) > 0.4
+    keep[0] = False
+    norms = [rng.randn(16).astype(np.float32) for _ in range(4)]
+    from hivae_tpu.ops import attention as jattn
+    want = np.asarray(jattn.sdpa(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), key_mask=jnp.asarray(keep),
+                                 qk_norm=tuple(map(jnp.asarray, norms)),
+                                 implementation="xla"))
+    got = tattn.sdpa(torch.from_numpy(q), torch.from_numpy(k),
+                     torch.from_numpy(v), key_mask=torch.from_numpy(keep),
+                     qk_norm=tuple(map(torch.from_numpy, norms)))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("s", [260, 300])
+def test_sdpa_kernel_path_matches_jax_with_mask(s):
+    """Above 256^2 logits on the CPU: the key mask travels as the -1e30
+    bias into the full-block plain version."""
+    q, k, v = _qkv((2, 2, s, 32), seed=s)
+    keep = np.random.RandomState(5).rand(2, s) > 0.5
+    keep[1] = False
+    from hivae_tpu.ops import attention as jattn
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = np.array(jattn.sdpa(*args, key_mask=jnp.asarray(keep)))
+    # the fully masked batch row against the XLA path (see
+    # test_full_block_plain_matches_pallas)
+    want[1] = np.asarray(jattn.sdpa(*args, key_mask=jnp.asarray(keep),
+                                    implementation="xla"))[1]
+    got = tattn.sdpa(torch.from_numpy(q), torch.from_numpy(k),
+                     torch.from_numpy(v), key_mask=torch.from_numpy(keep))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_qk_layernorm_matches_jax():
+    rng = np.random.RandomState(9)
+    x = rng.randn(2, 3, 5, 16).astype(np.float32) * 3 + 1
+    g, b = rng.randn(16).astype(np.float32), rng.randn(16).astype(np.float32)
+    want = np.asarray(jfa.qk_layernorm(jnp.asarray(x), jnp.asarray(g),
+                                       jnp.asarray(b), 1e-6))
+    got = tattn.qk_layernorm(torch.from_numpy(x), torch.from_numpy(g),
+                             torch.from_numpy(b), 1e-6)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fn", [tfa.full_block_attention,
+                                tfa.stream_attention])
+def test_wrapper_raises_off_cpu_without_kernel(fn):
+    """A tensor that is neither on the CPU nor on a CUDA card gets no
+    silent plain fallback."""
+    x = torch.empty((1, 1, 300, 64), device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="no kernel"):
+        fn(x, x, x, scale=0.125)
+    assert fn.launches == 0
