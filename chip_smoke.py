@@ -7,11 +7,15 @@ Phases (any failure exits non-zero without the final result line):
 
 1. build the hand-written CUDA kernels from ``hivae_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) into ``hivae_tpu_torch/build/``;
-2. hold each kernel against its plain PyTorch version in bf16 at the shapes
-   the clip-reconstruction path gives it, plus a masked camera case with a
-   fully masked key row (must give the uniform average, not NaN); time the
-   kernel, the plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it) with CUDA events;
+2. hold each kernel against its plain PyTorch version in bf16: the forward
+   kernels at the shapes the clip-reconstruction path gives them, plus a
+   masked camera case with a fully masked key row (must give the uniform
+   average, not NaN); the backward kernels at every training shape for
+   N = 4 and N = 1 clips, plus masked cases. Each kernel, its plain
+   version and one PyTorch call that computes the same function (a
+   yardstick only: the port never calls it; for a backward, the time of
+   ``F.scaled_dot_product_attention`` forward plus backward minus its
+   forward) are timed with CUDA events;
 3. build the full-width flagship AMD_N (``configs/amd/amd_n_t1d512_spatial.json``)
    and the SD-VAE in bf16 on seeded random weights and reconstruct one
    synthetic 17 x 3 x 256 x 256 clip at ``sample_step=10`` through
@@ -21,14 +25,28 @@ Phases (any failure exits non-zero without the final result line):
    must be finite before quantisation, uint8 of the expected shape, and
    agree with the same clip run with the plain attention versions in
    place of the kernels;
-4. print the card's name and power limit, one JSON line of per-kernel
+4. training run A, the flagship script's settings on one card: AMD_N with
+   fp32 master weights and bf16 compute, remat ``full``, AdamW (lr 1e-4,
+   decay 1e-2, clip 1.0, bf16 first moment) on N = 4 synthetic clips with
+   the MSE loss; one warm-up step, then 3 timed steps with exact launch
+   counts; finite loss and grad_norm, parameters that moved, and one step
+   with the plain attention versions in place of the kernels from the same
+   state, batch and draws (loss and gradient against the kernel step);
+5. training run B: N = 1 with the perceptual loss (weight 0.5, seeded
+   random LPIPS weights) and both mask ratios at 0.5, one warm-up step and
+   2 timed steps with exact launch counts (now with the streaming backward
+   kernels), the same plain-step check, then a checkpoint save, a resume
+   in a new trainer, and one more step from each that must agree bit for
+   bit;
+6. print the card's name and power limit, one JSON line of per-kernel
    numbers, and as the last line the device record.
 
 Float32 matmuls and convolutions run without TF32 here
 (``torch.backends.cuda.matmul.allow_tf32`` and
-``torch.backends.cudnn.allow_tf32`` both False); the model runs in bf16.
-``--profile DIR`` also writes a ``torch.profiler`` table of one clip to
-``DIR/profile_clip.txt``.
+``torch.backends.cudnn.allow_tf32`` both False), and cuDNN picks
+deterministic algorithms. ``--profile DIR`` also writes a
+``torch.profiler`` table of one clip to ``DIR/profile_clip.txt`` and of one
+run-A training step to ``DIR/profile_train.txt``.
 """
 
 from __future__ import annotations
@@ -38,6 +56,8 @@ import json
 import os
 import subprocess
 import sys
+import math
+import re
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -67,6 +87,32 @@ FULL_BLOCK_CASES = [
 ]
 STREAM_CASES = [("SD-VAE mid-block", (17, 1, 1024, 512), 3)]
 
+# training: clips per step in runs A and B, timed steps, frames per clip
+RUN_A_CLIPS, RUN_A_STEPS = 4, 3
+RUN_B_CLIPS, RUN_B_STEPS = 1, 2
+# Gradients of bf16 attention, held relative to their largest element: both
+# sides round P and dS to bf16 from sums taken in another order, and the
+# full-block kernel takes delta = rowsum(dO * O) from the bf16 output where
+# its plain version takes rowsum(dP * P) in fp32.
+BWD_RTOL = 2e-2
+# A training step with the kernels against the same step with the plain
+# attention versions, from the same state, batch and draws. The two differ
+# only by where bf16 rounds inside ~120 attentions of a random-weight
+# model; over one step that moves the fp32 loss by well under 1% and
+# leaves the 696 M-element gradient pointing the same way.
+STEP_LOSS_RTOL = 1e-2
+STEP_GRAD_COS = 0.99
+
+
+def full_block_bwd_cases(clips):
+    """(label, q shape, launches per training step) at N clips of 16
+    frames: 8 object-encoder layers over 2T frames, 12 DiT layers with an
+    object and a camera joint block."""
+    nt = clips * WINDOW
+    return [(f"object encoder N={clips}", (2 * nt, 8, 260, 64), 8),
+            (f"DiT object joint N={clips}", (nt, 16, 266, 64), 12),
+            (f"DiT camera joint N={clips}", (nt, 16, 512, 64), 12)]
+
 
 def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
@@ -78,6 +124,24 @@ def _card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def _ptxas_summary(log: str):
+    """One line per compiled kernel from ``nvcc -Xptxas -v`` output:
+    kernel<D>, registers, spills."""
+    kernel, spill = "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN2hv(\d+)(\w+)'", line)
+        if m:
+            d = re.search(r"ILi(\d+)E", m.group(2))
+            kernel = m.group(2)[:int(m.group(1))] + (f"<{d.group(1)}>" if d
+                                                      else "")
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            yield (f"{kernel}: {regs.group(1) if regs else '?'} registers, "
+                   f"{spill}")
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -95,16 +159,180 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(shape, with_bias: bool, with_lse: bool):
-    """(bytes ms, operations ms): q, k, v read and o written once in bf16
-    (+ the fp32 bias row, + the fp32 LSE), and the 4*B*H*Sq*Sk*D matmul
-    operations of Q.K^T and P.V at the bf16 tensor-core peak."""
+def _bound(shape, with_bias: bool, with_lse: bool, tensors: int = 4,
+           stats: int = 0, flop_factor: int = 4):
+    """(bytes ms, operations ms) of one attention call at the card's peaks.
+    Bytes: ``tensors`` (B, H, S, D) bf16 tensors each read or written once
+    (forward: q, k, v, o), the fp32 bias row, the fp32 LSE and ``stats``
+    more fp32 (B, H, S) rows. Operations: ``flop_factor``*B*H*Sq*Sk*D matmul
+    flops (forward: 4, Q.K^T and P.V) at the bf16 tensor-core peak."""
     b, h, s, d = shape
-    nbytes = 4 * b * h * s * d * 2
+    nbytes = tensors * b * h * s * d * 2
     nbytes += b * s * 4 if with_bias else 0
-    nbytes += b * h * s * 4 if with_lse else 0
-    flops = 4 * b * h * s * s * d
+    nbytes += b * h * s * 4 * ((1 if with_lse else 0) + stats)
+    flops = flop_factor * b * h * s * s * d
     return nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+
+
+def _library_bwd_ms(q, k, v, do, mask, scale, iters):
+    """F.scaled_dot_product_attention forward + backward minus forward."""
+    import torch
+    import torch.nn.functional as F
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                             scale=scale)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                           scale=scale)
+    return _time_ms(fwd_bwd, iters) - _time_ms(fwd, iters)
+
+
+def _abs_err(got, want):
+    return (got.float() - want.float()).abs().max().item()
+
+
+def _rel_err(got, want):
+    return _abs_err(got, want) / want.float().abs().max().item()
+
+
+def check_bwd_kernels(fa, failures):
+    """Phase 2, backward kernels. Returns the per-kernel records."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    def masked_bias(b, s, full_row=True):
+        keep = torch.rand((b, s), generator=gen, device="cuda") > 0.3
+        keep[:, 0] = True
+        if full_row:
+            keep[0] = False   # one fully masked row
+        return torch.where(keep, 0.0, -1e30).to(torch.float32)
+
+    cases = []
+    for clips in (RUN_A_CLIPS, RUN_B_CLIPS):
+        cases += [(label, shape, per_step, clips)
+                  for label, shape, per_step in full_block_bwd_cases(clips)]
+    cases += [("object encoder N=1, masked", (32, 8, 260, 64), 0, 0),
+              ("DiT camera joint N=1, masked", (16, 16, 512, 64), 0, 0)]
+    fb = []
+    for label, shape, per_step, clips in cases:
+        q, k, v, do = (rand(shape) for _ in range(4))
+        scale = shape[3] ** -0.5
+        bias = masked_bias(shape[0], shape[2]) if per_step == 0 else None
+        out, m, l = fa._full_block_fwd(q, k, v, bias, scale, stats=True)
+        got = fa.full_block_attention_bwd(q, k, v, do, out, m, l,
+                                          scale=scale, bias=bias)
+        want = fa.full_block_attention_bwd_plain(q, k, v, do, scale=scale,
+                                                 bias=bias)
+        torch.cuda.synchronize()
+        errs = [_rel_err(g, w) for g, w in zip(got, want)]
+        abs_err = max(_abs_err(g, w) for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        if not (finite and max(errs) <= BWD_RTOL):
+            failures.append(f"full_block_bwd {label}: rel err dq/dk/dv "
+                            f"{errs} finite {finite}")
+        mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+        ms = _time_ms(lambda: fa.full_block_attention_bwd(
+            q, k, v, do, out, m, l, scale=scale, bias=bias), 20)
+        plain_ms = _time_ms(lambda: fa.full_block_attention_bwd_plain(
+            q, k, v, do, scale=scale, bias=bias), 5)
+        lib_ms = _library_bwd_ms(q, k, v, do, mask, scale, 20)
+        bytes_ms, ops_ms = _bound(shape, bias is not None, False, tensors=7,
+                                  stats=3, flop_factor=10)
+        fb.append(dict(label=label, shape=list(shape), clips=clips,
+                       per_step=per_step,
+                       weight=per_step if clips == RUN_A_CLIPS else 0,
+                       max_abs_err=abs_err, max_rel_err=max(errs), ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       bytes_ms=bytes_ms, ops_ms=ops_ms,
+                       err_dq_dk_dv=errs))
+        _log(f"  full_block_bwd {label} {shape}: rel err dq {errs[0]:.3g} "
+             f"dk {errs[1]:.3g} dv {errs[2]:.3g}  kernel {ms:.4f} ms  plain "
+             f"{plain_ms:.4f} ms  sdpa bwd {lib_ms:.4f} ms  bound "
+             f"{max(bytes_ms, ops_ms):.4f} ms")
+
+    dq_cases, dkv_cases = [], []
+    for label, shape, per_step, clips in [
+            ("SD-VAE decoder mid-block N=1", (16, 1, 1024, 512), 1,
+             RUN_B_CLIPS),
+            ("SD-VAE mid-block, masked", (4, 1, 1024, 512), 0, 0)]:
+        q, k, v, do = (rand(shape) for _ in range(4))
+        scale = shape[3] ** -0.5
+        bias = None
+        if per_step == 0:
+            # a masked key row and a fully masked key block, in rows that
+            # attend to some key: the streaming backward takes P from the
+            # LSE, as the TPU kernels do, and a row with no key to attend
+            # to has no LSE that keeps its 1/l at -1e30
+            bias = masked_bias(shape[0], shape[2], full_row=False)
+            bias[:, 64:96] = -1e30
+        out, lse = fa.stream_attention(q, k, v, scale=scale, bias=bias)
+        delta = (do.float() * out.float()).sum(-1)
+        dq = fa.stream_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale,
+                                        bias=bias)
+        dk, dv = fa.stream_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                             scale=scale, bias=bias)
+        want = fa.stream_attention_bwd_plain(q, k, v, do, out, lse,
+                                             scale=scale, bias=bias)
+        torch.cuda.synchronize()
+        errs = [_rel_err(g, w) for g, w in zip((dq, dk, dv), want)]
+        abs_errs = [_abs_err(g, w) for g, w in zip((dq, dk, dv), want)]
+        finite = all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+        if not (finite and max(errs) <= BWD_RTOL):
+            failures.append(f"stream_bwd {label}: rel err dq/dk/dv {errs} "
+                            f"finite {finite}")
+        if bias is not None and max(dk[:, :, 64:96].abs().max().item(),
+                                    dv[:, :, 64:96].abs().max().item()) != 0:
+            failures.append(f"stream_bwd {label}: a fully masked key block "
+                            f"got a gradient")
+        mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+        dq_ms = _time_ms(lambda: fa.stream_attention_bwd_dq(
+            q, k, v, do, lse, delta, scale=scale, bias=bias), 10)
+        dkv_ms = _time_ms(lambda: fa.stream_attention_bwd_dkv(
+            q, k, v, do, lse, delta, scale=scale, bias=bias), 10)
+        plain_ms = _time_ms(lambda: fa.stream_attention_bwd_plain(
+            q, k, v, do, out, lse, scale=scale, bias=bias), 5)
+        lib_ms = _library_bwd_ms(q, k, v, do, mask, scale, 10)
+        common = dict(label=label, shape=list(shape), clips=clips,
+                      per_step=per_step, weight=per_step, plain_ms=plain_ms,
+                      library_ms=lib_ms)
+        b_ms, o_ms = _bound(shape, bias is not None, True, tensors=5,
+                            stats=1, flop_factor=6)
+        dq_cases.append(dict(common, max_abs_err=abs_errs[0],
+                             max_rel_err=errs[0], ms=dq_ms, bytes_ms=b_ms,
+                             ops_ms=o_ms))
+        b_ms2, o_ms2 = _bound(shape, bias is not None, True, tensors=6,
+                              stats=1, flop_factor=8)
+        dkv_cases.append(dict(common, max_abs_err=max(abs_errs[1:]),
+                              max_rel_err=max(errs[1:]), ms=dkv_ms,
+                              bytes_ms=b_ms2, ops_ms=o_ms2))
+        _log(f"  stream_bwd {label} {shape}: rel err dq {errs[0]:.3g} dk "
+             f"{errs[1]:.3g} dv {errs[2]:.3g}  dq kernel {dq_ms:.4f} ms "
+             f"(bound {max(b_ms, o_ms):.4f})  dkv kernel {dkv_ms:.4f} ms "
+             f"(bound {max(b_ms2, o_ms2):.4f})  plain {plain_ms:.4f} ms  "
+             f"sdpa bwd {lib_ms:.4f} ms")
+
+    src = "hivae_tpu_torch/csrc/"
+    tpu = "hivae_tpu/ops/pallas/flash_attention.py:"
+
+    def record(name, source, line, cs):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": tpu + line, "cases": cs}
+    return [record("full_block_attention_bwd", "flash_full_block_bwd.cu",
+                   "188", fb),
+            record("stream_attention_bwd_dq", "flash_stream_bwd.cu", "512",
+                   dq_cases),
+            record("stream_attention_bwd_dkv", "flash_stream_bwd.cu", "552",
+                   dkv_cases)]
 
 
 def check_kernels(fa, failures):
@@ -159,7 +387,8 @@ def check_kernels(fa, failures):
             q, k, v, attn_mask=mask, scale=scale), iters)
         bytes_ms, ops_ms = _bound(shape, bias is not None, False)
         fb_cases.append(dict(label=label, shape=list(shape),
-                             per_clip=per_clip, max_abs_err=err, ms=ms,
+                             per_clip=per_clip, weight=per_clip,
+                             max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms,
                              bytes_ms=bytes_ms, ops_ms=ops_ms))
         _log(f"  full_block {label} {shape}: max|err| {err:.3g}  kernel "
@@ -186,7 +415,8 @@ def check_kernels(fa, failures):
             q, k, v, scale=scale), 20)
         bytes_ms, ops_ms = _bound(shape, False, True)
         st_cases.append(dict(label=label, shape=list(shape),
-                             per_clip=per_clip, max_abs_err=max(err, err_lse),
+                             per_clip=per_clip, weight=per_clip,
+                             max_abs_err=max(err, err_lse),
                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bytes_ms=bytes_ms, ops_ms=ops_ms))
         _log(f"  stream {label} {shape}: max|err| O {err:.3g} LSE "
@@ -204,17 +434,21 @@ def check_kernels(fa, failures):
 
 def summarise(rec, launches):
     """One kernel's line entry. Times and bounds are per launch, averaged
-    over the clip's launch mix (launches per clip as weights); the
-    per-shape numbers stay under ``cases``."""
+    over the launch mix of the path the kernel's weights describe (the clip
+    for the forward kernels, training run A for the full-block backward,
+    run B for the streaming backward); the per-shape numbers stay under
+    ``cases``. ``launches`` is the sum over the timed paths, which are
+    listed per path under ``launches_per_path``."""
     cases = rec.pop("cases")
-    weighted = [c for c in cases if c["per_clip"] > 0]
-    n = sum(c["per_clip"] for c in weighted)
+    weighted = [c for c in cases if c["weight"] > 0]
+    n = sum(c["weight"] for c in weighted)
 
     def avg(key):
-        return sum(c[key] * c["per_clip"] for c in weighted) / n
+        return sum(c[key] * c["weight"] for c in weighted) / n
 
     bytes_ms, ops_ms = avg("bytes_ms"), avg("ops_ms")
-    rec.update(launches=launches,
+    rec.update(launches=sum(launches.values()),
+               launches_per_path=launches,
                max_abs_err=max(c["max_abs_err"] for c in cases),
                ms=avg("ms"), plain_ms=avg("plain_ms"),
                bound_ms=max(bytes_ms, ops_ms),
@@ -223,11 +457,11 @@ def summarise(rec, launches):
     return rec
 
 
-def synthetic_clip():
+def synthetic_clip(seed: int = SEED):
     """(17, 3, 256, 256) RGB in [-1, 1] (drifting smooth colour waves with
     seeded noise) and its grey clip (ITU-R 601 luma in all 3 channels)."""
     import numpy as np
-    rng = np.random.RandomState(SEED)
+    rng = np.random.RandomState(seed)
     yy, xx = np.meshgrid(np.linspace(0, 1, SIZE), np.linspace(0, 1, SIZE),
                          indexing="ij")
     frames = []
@@ -281,14 +515,12 @@ def run_clip(fa, args, failures):
     clip()  # warm-up
     torch.cuda.synchronize()
     decoded.clear()
-    fa.full_block_attention.launches = 0
-    fa.stream_attention.launches = 0
+    _zero_counts(fa)
     t0 = time.perf_counter()
     out = clip()
     torch.cuda.synchronize()
     latency = time.perf_counter() - t0
-    launches = {"full_block_attention": fa.full_block_attention.launches,
-                "stream_attention": fa.stream_attention.launches}
+    launches = _read_counts(fa)
     hook.remove()
 
     if tuple(out.shape) != (WINDOW + 1, 3, SIZE, SIZE) or \
@@ -296,7 +528,8 @@ def run_clip(fa, args, failures):
         failures.append(f"clip: got {tuple(out.shape)} {out.dtype}")
     if not (decoded and all(bool(x) for x in decoded)):
         failures.append("clip: decoded pixels not finite before quantisation")
-    if launches != {"full_block_attention": 248, "stream_attention": 3}:
+    if launches != dict(_no_launches(), full_block_attention=248,
+                        stream_attention=3):
         failures.append(f"clip: launches {launches}, want 248 full-block "
                         f"and 3 streaming")
     o = out.float()
@@ -307,13 +540,8 @@ def run_clip(fa, args, failures):
 
     # reference: the same clip with the plain attention versions in place
     # of the kernels, on the same card and weights
-    kernels = (fa.full_block_attention, fa.stream_attention)
-    fa.full_block_attention = fa.full_block_attention_plain
-    fa.stream_attention = fa.stream_attention_plain
-    try:
+    with _plain_attention(fa):
         ref = clip()
-    finally:
-        fa.full_block_attention, fa.stream_attention = kernels
     diff = (out.int() - ref.int()).abs().float()
     mean_d = diff.mean().item()
     p99 = torch.quantile(diff.flatten(), 0.99).item()
@@ -325,6 +553,216 @@ def run_clip(fa, args, failures):
     if args.profile:
         profile_clip(pipe, clip, args.profile)
     return launches, latency
+
+
+COUNTERS = ("full_block_attention", "full_block_attention_bwd",
+            "stream_attention", "stream_attention_bwd_dq",
+            "stream_attention_bwd_dkv")
+
+
+def _no_launches():
+    return {name: 0 for name in COUNTERS}
+
+
+def _zero_counts(fa):
+    for name in COUNTERS:
+        getattr(fa, name).launches = 0
+
+
+def _read_counts(fa):
+    return {name: getattr(fa, name).launches for name in COUNTERS}
+
+
+class _plain_attention:
+    """The plain attention versions in place of the kernels (the sdpa
+    dispatch calls them through the module), for a reference run."""
+
+    def __init__(self, fa):
+        self.fa = fa
+
+    def __enter__(self):
+        fa = self.fa
+        self.kernels = (fa.full_block_attention, fa.stream_attention)
+        fa.full_block_attention = fa.full_block_attention_plain
+        fa.stream_attention = fa.stream_attention_plain
+
+    def __exit__(self, *exc):
+        self.fa.full_block_attention, self.fa.stream_attention = self.kernels
+
+
+def build_training_models():
+    """Full-width AMD_N with fp32 master weights (remat on, from the JSON),
+    the SD-VAE in bf16 (frozen) and LPIPS (fp32, frozen), seeded random
+    weights."""
+    import torch
+    from hivae_tpu_torch.losses.lpips import LPIPS
+    from hivae_tpu_torch.models import amd as amd_mod
+    from hivae_tpu_torch.models import vae as vae_mod
+
+    with open(CONFIG) as f:
+        cfg = amd_mod.AMDConfig.from_dict(json.load(f))
+    torch.manual_seed(SEED + 2)
+    amd = amd_mod.AMDModelNew(cfg, device="cuda", dtype=torch.float32)
+    vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
+                                dtype=torch.bfloat16).eval()
+    lpips = LPIPS().cuda().eval()
+    for mod in (vae, lpips):
+        mod.requires_grad_(False)
+    return amd, vae, lpips
+
+
+def _expected_step_launches(cfg, perceptual: bool):
+    """Kernel launches of one training step of the flagship: the object
+    encoder's layers and the DiT's two joint blocks per layer run the
+    full-block kernels, the DiT's forward twice under remat; each of the 4
+    VAE encodes runs one streaming forward, and the perceptual leg's decode
+    one more streaming forward and its two backward kernels."""
+    enc, dit = cfg.object_enc_num_layers, 2 * cfg.diffusion_num_layers
+    return dict(full_block_attention=enc + dit * (2 if cfg.remat else 1),
+                full_block_attention_bwd=enc + dit,
+                stream_attention=4 + int(perceptual),
+                stream_attention_bwd_dq=int(perceptual),
+                stream_attention_bwd_dkv=int(perceptual))
+
+
+def run_training(fa, models, failures, *, label, clips, steps,
+                 perceptual=False, mask_ratio=None, resume_check=False,
+                 profile_dir=None):
+    """Phases 4 and 5. Returns (launches in the timed steps, step ms)."""
+    import dataclasses
+    import shutil
+    import torch
+    from hivae_tpu_torch.training.trainer import (AMDTrainer, TrainConfig,
+                                                  batch_from_clips)
+
+    amd, vae, lpips = models
+    ckpt_dir = os.path.join(ROOT, "hivae_tpu_torch", "build",
+                            "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tc = TrainConfig(output_dir=ckpt_dir, learning_rate=1e-4,
+                     weight_decay=1e-2, max_grad_norm=1.0,
+                     mixed_precision="bf16", mu_dtype="bf16", seed=SEED,
+                     perceptual_weight=0.5 if perceptual else 0.0,
+                     camera_mask_ratio=mask_ratio,
+                     object_mask_ratio=mask_ratio, checkpoint_total_limit=1)
+    trainer = AMDTrainer(amd, vae, tc, lpips=lpips if perceptual else None)
+    pairs = [synthetic_clip(SEED + 10 + i) for i in range(clips)]
+    batch = trainer._to_device(batch_from_clips([p[0] for p in pairs],
+                                                [p[1] for p in pairs]))
+    params = list(trainer.state.params.values())
+
+    t0 = time.perf_counter()
+    trainer.train_step(batch)   # warm-up
+    torch.cuda.synchronize()
+    _log(f"  {label}: warm-up step {time.perf_counter() - t0:.2f} s")
+    before = [p.detach().clone() for p in params]
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fa)
+    t0 = time.perf_counter()
+    metrics = [trainer.train_step(batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = _read_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * steps for k, v in
+            _expected_step_launches(amd.cfg, perceptual).items()}
+    if launches != want:
+        failures.append(f"{label}: launches {launches}, want {want}")
+    for m in metrics:
+        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
+            failures.append(f"{label}: non-finite metrics {m}")
+    moved = sum(bool((p.detach() != b).any()) for p, b in zip(params, before))
+    if moved != len(params):
+        failures.append(f"{label}: {len(params) - moved} of {len(params)} "
+                        f"parameter tensors did not change")
+    del before
+    frames = clips * WINDOW
+    _log(f"  {label}: {steps} steps, losses "
+         f"{[round(m['loss'], 5) for m in metrics]}, grad_norm "
+         f"{[round(m['grad_norm'], 4) for m in metrics]}; step "
+         f"{step_s * 1e3:.2f} ms, {clips / step_s:.3f} clips/s, "
+         f"{frames / step_s:.2f} frames/s, peak memory "
+         f"{peak / 2**30:.2f} GiB; {moved} parameter tensors moved; "
+         f"launches {launches}")
+    _log(f"  {label}: metrics of the last step {metrics[-1]}")
+
+    # the same step with the plain attention versions, from the same state,
+    # batch and draws
+    draws = trainer.draw(batch)
+    mk, gk = trainer.loss_and_grads(batch, draws)
+    with _plain_attention(fa):
+        mp, gp = trainer.loss_and_grads(batch, draws)
+    rel = abs(mk["loss"].item() - mp["loss"].item()) / abs(mp["loss"].item())
+    dot = sum((a * b).sum() for a, b in zip(gk, gp)).item()
+    nk = sum(a.square().sum() for a in gk).item() ** 0.5
+    npl = sum(b.square().sum() for b in gp).item() ** 0.5
+    cos = dot / (nk * npl)
+    del gk, gp
+    _log(f"  {label}: kernel step vs plain-attention step: loss "
+         f"{mk['loss'].item():.6f} vs {mp['loss'].item():.6f} (rel "
+         f"{rel:.3g}), grad norm {nk:.5f} vs {npl:.5f}, cosine {cos:.6f}")
+    if not (rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS):
+        failures.append(f"{label}: kernel vs plain step: loss rel {rel}, "
+                        f"gradient cosine {cos}")
+
+    if profile_dir:
+        profile_step(trainer, batch, profile_dir)
+
+    if resume_check:
+        t0 = time.perf_counter()
+        path = trainer.save()
+        save_s = time.perf_counter() - t0
+        trainer.train_step(batch)
+        live = [p.detach().clone() for p in params]
+        live_step = trainer.global_step
+        del trainer
+        t0 = time.perf_counter()
+        resumed = AMDTrainer(amd, vae, dataclasses.replace(tc, resume=True),
+                             lpips=lpips if perceptual else None)
+        load_s = time.perf_counter() - t0
+        if resumed.global_step != live_step - 1:
+            failures.append(f"{label}: resumed at step {resumed.global_step},"
+                            f" want {live_step - 1}")
+        resumed.train_step(batch)
+        diff = max((p.detach() - q).abs().max().item()
+                   for p, q in zip(resumed.state.params.values(), live))
+        _log(f"  {label}: checkpoint {os.path.basename(path)} saved in "
+             f"{save_s:.1f} s, resumed in {load_s:.1f} s; one more step from "
+             f"each: max |param diff| {diff}")
+        if diff != 0:
+            failures.append(f"{label}: resumed step differs from the live "
+                            f"step by {diff}")
+        del live, resumed
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return launches, step_s * 1e3
+
+
+def profile_step(trainer, batch, out_dir):
+    """One training step under torch.profiler: the kernel table by device
+    time and the device's busy share of the step's wall time, written to
+    DIR/profile_train.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    line = (f"profiled training step wall {wall * 1e3:.2f} ms, device busy "
+            f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e6 / wall:.1f}%)")
+    _log("  " + line)
+    path = os.path.join(out_dir, "profile_train.txt")
+    with open(path, "w") as f:
+        f.write(f"card: {_card_line()}\n{line}\n\n")
+        f.write(events.table(sort_by="self_device_time_total",
+                             row_limit=50))
+    _log(f"  profile written to {path}")
 
 
 def profile_clip(pipe, clip, out_dir):
@@ -417,6 +855,9 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    start = time.perf_counter()
     failures = []
     card = _card_line()
     _log(f"card: {card}; torch {torch.__version__} CUDA {torch.version.cuda}")
@@ -427,22 +868,44 @@ def main() -> int:
     _log(f"  built {', '.join(_build.KERNEL_SOURCES)} in "
          f"{time.perf_counter() - t0:.1f} s")
     for name, log in _build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                _log(f"  {name}: {line.strip()}")
+        for line in _ptxas_summary(log):
+            _log(f"  {name}: {line}")
 
     _log("phase 2: kernels vs plain versions (bf16)")
-    records = check_kernels(fa, failures)
+    records = check_kernels(fa, failures) + check_bwd_kernels(fa, failures)
 
     _log("phase 3: full-width AMD_N + SD-VAE clip reconstruction")
-    launches, _ = run_clip(fa, args, failures)
+    paths = {"clip": run_clip(fa, args, failures)[0]}
+    torch.cuda.empty_cache()
 
+    _log(f"phase 4: training run A, N={RUN_A_CLIPS}, MSE loss")
+    models = build_training_models()
+    paths["train_A"], _ = run_training(
+        fa, models, failures, label="run A", clips=RUN_A_CLIPS,
+        steps=RUN_A_STEPS, profile_dir=args.profile)
+    torch.cuda.empty_cache()
+
+    _log(f"phase 5: training run B, N={RUN_B_CLIPS}, perceptual loss, "
+         f"mask ratios 0.5")
+    paths["train_B"], _ = run_training(
+        fa, models, failures, label="run B", clips=RUN_B_CLIPS,
+        steps=RUN_B_STEPS, perceptual=True, mask_ratio=0.5,
+        resume_check=True)
+    del models
+    torch.cuda.empty_cache()
+
+    for rec in records:
+        if not any(p[rec["name"]] for p in paths.values()):
+            failures.append(f"{rec['name']}: launched by no timed path")
+    _log(f"total {time.perf_counter() - start:.1f} s")
     if failures:
         _log("FAILED:\n  " + "\n  ".join(failures))
         return 1
     print(card)
-    print(json.dumps({"kernels": [summarise(r, launches[r["name"]])
-                                  for r in records]}))
+    print(json.dumps({"kernels": [
+        summarise(r, {path: counts[r["name"]]
+                      for path, counts in paths.items()})
+        for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

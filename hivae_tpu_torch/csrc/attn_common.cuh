@@ -118,6 +118,17 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
   }
 }
 
+// Element strides (batch, head, row) of one (B, H, S, D) tensor whose last
+// dimension is contiguous.
+struct Rows {
+  long b, h, s;
+};
+
+template <typename T>
+__device__ __forceinline__ T* head_ptr(T* base, Rows r, int b, int h) {
+  return base + b * r.b + h * r.h;
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -146,6 +157,23 @@ __device__ __forceinline__ void logits_epilogue(float c[4], int col0,
       c[2 + e] = -INFINITY;
     }
   }
+}
+
+// Two bf16 values of the fp32 accumulator pair (c0, c1) scaled by s, stored
+// at p (4-byte aligned).
+__device__ __forceinline__ void store_bf16x2(bf16* p, float c0, float c1,
+                                             float s) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(c0 * s, c1 * s);
+}
+
+// The A fragment over a 16-wide k step built from two adjacent fp32 C tiles
+// (columns k 0..7 in c_lo, 8..15 in c_hi), rounded to bf16.
+__device__ __forceinline__ void c_to_a(uint32_t a[4], const float c_lo[4],
+                                       const float c_hi[4]) {
+  a[0] = pack_bf16(c_lo[0], c_lo[1]);
+  a[1] = pack_bf16(c_lo[2], c_lo[3]);
+  a[2] = pack_bf16(c_hi[0], c_hi[1]);
+  a[3] = pack_bf16(c_hi[2], c_hi[3]);
 }
 
 }  // namespace hv

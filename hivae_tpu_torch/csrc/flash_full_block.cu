@@ -54,7 +54,8 @@ __global__ void __launch_bounds__(FB_THREADS)
 full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
                       const float* __restrict__ bias, bf16* __restrict__ o,
-                      int Sq, int Sk, float scale, long qsb, long qsh,
+                      float* __restrict__ m_out, float* __restrict__ l_out,
+                      int H, int Sq, int Sk, float scale, long qsb, long qsh,
                       long qss, long ksb, long ksh, long kss, long vsb,
                       long vsh, long vss, long osb, long osh, long oss) {
   constexpr int LD = D + 8;  // +16 bytes per row: conflict-free fragments
@@ -152,12 +153,19 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<__nv_bfloat162*>(op + (long)r1 * oss + col) =
           __floats2bfloat162_rn(acc[dt][2], acc[dt][3]);
   }
+  // softmax statistics for the backward: every lane of a quad holds them
+  if (m_out && t == 0) {
+    const long rb = ((long)b * H + h) * Sq;
+    if (r0 < Sq) { m_out[rb + r0] = m0; l_out[rb + r0] = l0; }
+    if (r1 < Sq) { m_out[rb + r1] = m1; l_out[rb + r1] = l1; }
+  }
 }
 
 template <int D>
 cudaError_t launch_full_block(const void* q, const void* k, const void* v,
-                              const float* bias, void* o, int B, int H,
-                              int Sq, int Sk, float scale, const long* st,
+                              const float* bias, void* o, float* m_out,
+                              float* l_out, int B, int H, int Sq, int Sk,
+                              float scale, const long* st,
                               cudaStream_t stream) {
   const size_t smem = (size_t)(FB_BQ + 2 * FB_BK) * (D + 8) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(
@@ -167,7 +175,8 @@ cudaError_t launch_full_block(const void* q, const void* k, const void* v,
   const dim3 grid((Sq + FB_BQ - 1) / FB_BQ, H, B);
   full_block_fwd_kernel<D><<<grid, FB_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), Sq, Sk, scale,
+      static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), m_out, l_out,
+      H, Sq, Sk, scale,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11]);
   return cudaGetLastError();
@@ -177,17 +186,20 @@ cudaError_t launch_full_block(const void* q, const void* k, const void* v,
 
 // Plain C entry point. `strides` holds 12 element strides: (batch, head,
 // row) for q, k, v and o in that order; the last dimension is contiguous.
+// `m_out` and `l_out` are null, or contiguous (B, H, Sq) fp32 buffers that
+// receive each row's logit max and softmax denominator for the backward.
 // Returns a cudaError_t, or -1 for an unsupported head dim.
 extern "C" int hv_full_block_fwd(const void* q, const void* k, const void* v,
-                                 const float* bias, void* o, int B, int H,
-                                 int Sq, int Sk, int D, float scale,
-                                 const long* strides, void* stream) {
+                                 const float* bias, void* o, float* m_out,
+                                 float* l_out, int B, int H, int Sq, int Sk,
+                                 int D, float scale, const long* strides,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return hv::launch_full_block<32>(q, k, v, bias, o, B, H, Sq, Sk, scale, strides, s);
-    case 64: return hv::launch_full_block<64>(q, k, v, bias, o, B, H, Sq, Sk, scale, strides, s);
-    case 96: return hv::launch_full_block<96>(q, k, v, bias, o, B, H, Sq, Sk, scale, strides, s);
-    case 128: return hv::launch_full_block<128>(q, k, v, bias, o, B, H, Sq, Sk, scale, strides, s);
+    case 32: return hv::launch_full_block<32>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    case 64: return hv::launch_full_block<64>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    case 96: return hv::launch_full_block<96>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    case 128: return hv::launch_full_block<128>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
     default: return -1;
   }
 }

@@ -1,13 +1,19 @@
 """AMD_N: frequency-decoupled motion autoencoding with a rectified-flow DiT
-decoder (port of ``AMDModelNew``, ``sample`` and ``_euler_decode`` of
-``hivae_tpu/models/amd.py``).
+decoder (port of ``AMDModelNew`` with its training forward, ``sample`` and
+``_euler_decode`` of ``hivae_tpu/models/amd.py``).
 
 The camera stream is the temporal-cross encoder on the low-pass (grey)
 band, the object stream the spatial encoder on RGB, the decoder
 ``VelocityDiTImgSpatialTempMotion``. ``AMDConfig`` keeps the JAX package's
-schema so its ``config.json`` files load unchanged; options that only shape
-JAX compilation (``remat``, ``scan_layers``, ``attn_impl``) are accepted and
-have no effect here.
+schema so its ``config.json`` files load unchanged. ``remat`` (policy
+``full``) checkpoints the DiT layers under autograd; the options that only
+shape JAX compilation (``scan_layers``, ``attn_impl``) are accepted and have
+no effect here.
+
+Every random draw of the training forward (mask-ratio jitter, token
+permutations, timesteps, flow noise) can be injected through
+``TrainDraws``; what is not injected is drawn from the caller's
+``torch.Generator`` in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from ..losses.losses import l2
 from ..ops import frequency
 from ..ops import rectified_flow as rf
 from ..utils.device import resolve_device
@@ -84,6 +91,23 @@ class AMDConfig:
         return dataclasses.asdict(self)
 
 
+@dataclasses.dataclass
+class TrainDraws:
+    """The random draws of one training forward; ``None`` entries are
+    drawn from the generator. ``time_step`` (N*T,) integer steps in
+    [0, num_steps], repeated over each clip's frames; ``z0`` the flow noise
+    (N*T, C, h, w); ``camera_u``/``object_u`` the uniforms of the mask-ratio
+    jitter; ``camera_perm`` (N, sites) and ``object_perm`` (N*2T, patches)
+    the token shuffles."""
+
+    time_step: Optional[torch.Tensor] = None
+    z0: Optional[torch.Tensor] = None
+    camera_u: Optional[torch.Tensor] = None
+    object_u: Optional[torch.Tensor] = None
+    camera_perm: Optional[torch.Tensor] = None
+    object_perm: Optional[torch.Tensor] = None
+
+
 def _band_split(x_nthw: torch.Tensor, d_low: float, d_high: float
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N,T,C,H,W) -> (low(d_low), high(d_high)) band videos, split over
@@ -98,13 +122,14 @@ def _check_supported(c: AMDConfig) -> None:
     unported = {"diffusion_model_type": c.diffusion_model_type != "spatial",
                 "use_camera_down": c.use_camera_down,
                 "use_mask": c.use_mask,
+                "use_regularizers": c.use_regularizers,
                 "need_motion_transformer": c.need_motion_transformer}
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
             f"AMDModelNew: {bad} are not ported yet; the port runs "
-            "diffusion_model_type='spatial' without camera_down, mask or "
-            "motion transformer")
+            "diffusion_model_type='spatial' without camera_down, mask, "
+            "regularizers or motion transformer")
 
 
 class AMDModelNew(nn.Module):
@@ -150,14 +175,19 @@ class AMDModelNew(nn.Module):
                 motion_target_num_frame=c.video_frames,
                 use_camera=c.use_camera, use_object=c.use_object,
                 camera_motion_in_channels=c.camera_motion_token_channel,
-                object_motion_in_channels=c.object_motion_token_channel)
+                object_motion_in_channels=c.object_motion_token_channel,
+                remat=c.remat, remat_policy=c.remat_policy)
         # position tables are built on the host; move them with the weights
         self.to(device=dev, dtype=dtype)
 
     def encode(self, video, ref_img, video_grey=None, ref_img_grey=None,
-               low_cut: float = 0.6, high_cut: float = 0.6):
+               camera_mask_ratio=None, object_mask_ratio=None,
+               low_cut: float = 0.6, high_cut: float = 0.6, *,
+               camera_perm=None, object_perm=None, generator=None):
         """-> (camera_target (N,T,S,Dc), object_source (N*T,L,Do),
-        object_target (N*T,L,Do)); video/ref_img: (N,T,C,H,W) latents."""
+        object_target (N*T,L,Do)); video/ref_img: (N,T,C,H,W) latents.
+        With a ``camera_mask_ratio`` (0-d tensor) a fourth entry, the
+        camera site keep-mask (N, S), follows."""
         c = self.cfg
         n, t = video.shape[:2]
         refimg_and_video = torch.cat([ref_img, video], dim=1)
@@ -169,22 +199,94 @@ class AMDModelNew(nn.Module):
         else:
             lf_video = video_grey if c.use_grey else video
 
-        camera_target = object_source = object_target = None
+        camera_target = object_source = object_target = site_mask = None
         if c.use_camera:
-            camera_target = self.camera_motion_encoder(lf_video)
+            camera_target = self.camera_motion_encoder(
+                lf_video, camera_mask_ratio, perm=camera_perm,
+                generator=generator)
+            if isinstance(camera_target, tuple):
+                camera_target, site_mask = camera_target
         if c.use_object:
-            om = self.object_motion_encoder(refimg_and_video)
+            om = self.object_motion_encoder(
+                refimg_and_video, object_mask_ratio, perm=object_perm,
+                generator=generator)
             object_source = om[:, :t].reshape((n * t,) + om.shape[2:])
             object_target = om[:, t:].reshape((n * t,) + om.shape[2:])
+        if site_mask is not None:
+            return camera_target, object_source, object_target, site_mask
         return camera_target, object_source, object_target
 
     def velocity(self, image_hidden_states, timestep, camera_target=None,
-                 object_source=None, object_target=None):
+                 object_source=None, object_target=None,
+                 camera_site_mask=None):
         return self.diffusion_transformer(
             image_hidden_states, timestep,
             camera_motion_target=camera_target,
             object_motion_source=object_source,
-            object_motion_target=object_target)
+            object_motion_target=object_target,
+            camera_site_mask=camera_site_mask)
+
+    def forward(self, video, ref_img, video_grey=None, ref_img_grey=None,
+                camera_mask_ratio=None, object_mask_ratio=None,
+                return_meta_info: bool = False, *,
+                draws: Optional[TrainDraws] = None,
+                generator: Optional[torch.Generator] = None):
+        """Training forward (JAX ``AMDModelNew.__call__``): the mask-ratio
+        jitter (camera ``(0.6 + 0.4u) r``, object ``0.5u r``), motion
+        encoding with band cutoffs (0.6, 0.5), a rectified-flow train tuple
+        at per-clip timesteps, the DiT velocity and the l2 losses.
+        Returns (pre, vel, loss_dict); ``return_meta_info`` adds zi, zj, zt,
+        pre, rec_zj and time_step to the dict."""
+        c = self.cfg
+        d = draws or TrainDraws()
+        n, t = video.shape[:2]
+        dev = video.device
+
+        def uniform(u):
+            if u is None:
+                u = torch.rand((), generator=generator, device=dev)
+            return torch.as_tensor(u, dtype=torch.float32, device=dev)
+
+        if camera_mask_ratio is not None:
+            camera_mask_ratio = (0.6 + 0.4 * uniform(d.camera_u)) * \
+                camera_mask_ratio
+        if object_mask_ratio is not None:
+            object_mask_ratio = (0.5 * uniform(d.object_u)) * object_mask_ratio
+        encoded = self.encode(video, ref_img, video_grey, ref_img_grey,
+                              camera_mask_ratio, object_mask_ratio,
+                              low_cut=0.6, high_cut=0.5,
+                              camera_perm=d.camera_perm,
+                              object_perm=d.object_perm, generator=generator)
+        camera_target, object_source, object_target = encoded[:3]
+        site_mask = encoded[3] if len(encoded) == 4 else None
+
+        zi = ref_img.reshape((n * t,) + ref_img.shape[2:])
+        zj = video.reshape((n * t,) + video.shape[2:])
+        time_step = d.time_step
+        if time_step is None:
+            time_step = torch.randint(0, c.scheduler_num_step + 1, (n,),
+                                      generator=generator, device=dev)
+            time_step = time_step.repeat_interleave(t)
+        time_step = time_step.to(dev)
+        z0 = d.z0
+        if z0 is None:
+            z0 = torch.randn(zj.shape, generator=generator, dtype=zj.dtype,
+                             device=dev)
+        zt, vel = rf.get_train_tuple(zj, time_step, z0.to(zj),
+                                     num_steps=c.scheduler_num_step)
+        pre = self.velocity(torch.cat([zi, zt], dim=1), time_step.float(),
+                            camera_target, object_source, object_target,
+                            camera_site_mask=site_mask)
+        diff_loss = l2(pre, vel)
+        rec_zj = rf.get_target_with_zt_vel(zt, pre, time_step,
+                                           num_steps=c.scheduler_num_step)
+        rec_loss = l2(rec_zj, zj)
+        loss_dict = {"loss": diff_loss, "diff_loss": diff_loss,
+                     "rec_loss": rec_loss}
+        if return_meta_info:
+            loss_dict.update(zi=zi, zj=zj, zt=zt, pre=pre, rec_zj=rec_zj,
+                             time_step=time_step)
+        return pre, vel, loss_dict
 
 
 def AMD_N(device: Optional[Union[str, torch.device]] = None,

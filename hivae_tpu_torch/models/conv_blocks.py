@@ -46,14 +46,20 @@ class Downsample2D(nn.Module):
 
 
 class Upsample2D(nn.Module):
-    """2x nearest-neighbour upsample + conv3x3."""
+    """2x nearest-neighbour upsample + conv3x3. The upsample is a broadcast
+    and reshape: the same values as ``F.interpolate(mode='nearest')``, and
+    its backward is a sum over each 2x2 block rather than the atomic
+    scatter of the interpolate backward, so a training step through the
+    decoder repeats bit for bit."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.conv = nn.Conv2d(channels, channels, 3, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        n, c, h, w = x.shape
+        x = x[:, :, :, None, :, None].expand(n, c, h, 2, w, 2)
+        return self.conv(x.reshape(n, c, 2 * h, 2 * w))
 
 
 class AttentionBlock2D(nn.Module):

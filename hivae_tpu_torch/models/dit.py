@@ -5,12 +5,19 @@ Each layer runs an object joint block ([10 motion tokens, 256 patches] at
 the flagship: full-block kernel), a camera joint block ([256 site tokens,
 256 patches]: full-block kernel) and a per-pixel temporal ``DiTBlock``
 (S = frames: plain attention).
+
+``remat=True`` (with ``remat_policy='full'``) is the counterpart of the JAX
+package's ``nn.remat(_SpatialTempLayer)``: under autograd each layer of the
+loop runs inside ``torch.utils.checkpoint`` (non-reentrant), which keeps only
+the layer's inputs and recomputes the rest in the backward. Without grad
+(serving) the layers run directly.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import embeddings as emb_ops
 from .blocks import (AdaLayerNorm, DiTBlock, JointTransformerBlock, PatchEmbed,
@@ -48,8 +55,10 @@ class VelocityDiTImgSpatialTempMotion(nn.Module):
                  use_camera: bool = True, use_object: bool = True,
                  camera_motion_in_channels: int = 16,
                  object_motion_in_channels: int = 64,
-                 motion_target_num_frame: int = 16):
+                 motion_target_num_frame: int = 16, remat: bool = False,
+                 remat_policy: str = "full"):
         super().__init__()
+        self.remat, self.remat_policy = remat, remat_policy
         hidden = heads * head_dim
         self.hidden, self.heads, self.head_dim = hidden, heads, head_dim
         self.out_channels, self.patch = out_channels, image_patch_size
@@ -119,19 +128,36 @@ class VelocityDiTImgSpatialTempMotion(nn.Module):
                 dim=1)
             motion = motion + _pos1d(hidden, msl).to(motion)
 
+        remat = self.remat and torch.is_grad_enabled()
+        if remat and self.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy {self.remat_policy!r} is not ported; only "
+                "'full' is")
         for i in range(len(self.spatial_blocks)):
-            if motion is not None:
-                motion, img = self.object_transformer_blocks[i](motion, img,
-                                                                emb)
-            if cam is not None:
-                cam, img = self.camera_transformer_blocks[i](
-                    cam, img, emb, hidden_key_mask=cam_mask)
-            img = img.reshape(n, t, s, hidden).transpose(1, 2).reshape(
-                n * s, t, hidden)
-            img = self.spatial_blocks[i](img, emb_s)
-            img = img.reshape(n, s, t, hidden).transpose(1, 2).reshape(
-                n_t, s, hidden)
+            args = (i, motion, cam, img, emb, emb_s, cam_mask)
+            if remat:
+                motion, cam, img = checkpoint(self._layer, *args,
+                                              use_reentrant=False)
+            else:
+                motion, cam, img = self._layer(*args)
         return self._head(img, emb, hi, wi)
+
+    def _layer(self, i, motion, cam, img, emb, emb_s, cam_mask):
+        """Layer i: object joint, camera joint, per-pixel temporal block."""
+        n_t, s, hidden = img.shape
+        t = self.frames
+        n = n_t // t
+        if motion is not None:
+            motion, img = self.object_transformer_blocks[i](motion, img, emb)
+        if cam is not None:
+            cam, img = self.camera_transformer_blocks[i](
+                cam, img, emb, hidden_key_mask=cam_mask)
+        img = img.reshape(n, t, s, hidden).transpose(1, 2).reshape(
+            n * s, t, hidden)
+        img = self.spatial_blocks[i](img, emb_s)
+        img = img.reshape(n, s, t, hidden).transpose(1, 2).reshape(
+            n_t, s, hidden)
+        return motion, cam, img
 
     def _head(self, img_tokens, emb, height, width):
         x = self.norm_out(self.norm_final(img_tokens), emb)

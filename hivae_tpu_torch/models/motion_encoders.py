@@ -1,5 +1,4 @@
-"""Motion encoders of AMD_N (port of ``hivae_tpu/models/motion_encoders.py``),
-without token masking (``mask_ratio=None``):
+"""Motion encoders of AMD_N (port of ``hivae_tpu/models/motion_encoders.py``):
 
   * ``MotionEncoderSpatial`` - object branch: learnable motion tokens
     prepended to each frame's patch tokens, N self-attention layers, tokens
@@ -7,9 +6,17 @@ without token masking (``mask_ratio=None``):
     full-block kernel.
   * ``MotionEncoderTemporalCross`` - camera branch: per-site temporal
     query tokens cross-attend to the per-pixel temporal tubes (S = frames).
+
+Token masking is the training path's per-step jitter branch (a ratio given
+as a tensor): tokens are shuffled at full length and the dropped ones are
+hidden as attention keys (``shuffle_mask_tokens``). The JAX package's
+static-ratio branch, which gathers a shorter sequence, is not ported and a
+Python float ratio raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -20,6 +27,34 @@ from .blocks import BasicCrossTransformerBlock, BasicTransformerBlock, PatchEmbe
 
 def _table(arr) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
+
+
+def shuffle_mask_tokens(x: torch.Tensor, mask_ratio: torch.Tensor,
+                        axis: int = 1, *, perm: Optional[torch.Tensor] = None,
+                        generator: Optional[torch.Generator] = None):
+    """Per-sample shuffle of ``x`` along ``axis`` (full length kept) and a
+    keep-mask over the first ``floor(L * (1 - ratio))`` slots, the ratio a
+    0-d fp32 tensor. ``perm`` (N, L) is the permutation; without it one is
+    drawn as the argsort of uniform noise from ``generator``, as the JAX
+    package draws it. Returns (x_shuffled, keep (N, L) bool)."""
+    n, length = x.shape[0], x.shape[axis]
+    if perm is None:
+        noise = torch.rand((n, length), generator=generator, device=x.device)
+        perm = torch.argsort(noise, dim=1, stable=True)
+    idx = perm.to(x.device).reshape((n,) + (1,) * (axis - 1) + (length,) +
+                                    (1,) * (x.dim() - axis - 1))
+    x = torch.take_along_dim(x, idx, dim=axis)
+    ratio = torch.as_tensor(mask_ratio, dtype=torch.float32, device=x.device)
+    len_keep = torch.floor(length * (1.0 - ratio))
+    keep = torch.arange(length, device=x.device)[None, :] < len_keep
+    return x, keep.expand(n, length)
+
+
+def _check_ratio(mask_ratio):
+    if not torch.is_tensor(mask_ratio):
+        raise NotImplementedError(
+            "static-ratio token dropping is not ported: pass the ratio as a "
+            "0-d tensor (the per-step jitter branch)")
 
 
 class MotionEncoderSpatial(nn.Module):
@@ -50,14 +85,28 @@ class MotionEncoderSpatial(nn.Module):
                                       elementwise_affine=False)
                          if need_norm_out else nn.Identity())
 
-    def forward(self, video: torch.Tensor) -> torch.Tensor:
+    def forward(self, video: torch.Tensor,
+                mask_ratio: Optional[torch.Tensor] = None, *,
+                perm: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``mask_ratio`` (0-d tensor) shuffles the patch tokens (``perm``
+        (N*T, L) or drawn from ``generator``) and hides the dropped ones as
+        attention keys."""
         n, t, c, h, w = video.shape
         mtok = self.motion_embed(self.motion_token)
         mtok = mtok.expand(n * t, -1, -1)
         x = self.patch_embed(video.reshape(n * t, c, h, w)) + self.pos
+        key_mask = None
+        if mask_ratio is not None:
+            _check_ratio(mask_ratio)
+            x, keep = shuffle_mask_tokens(x, mask_ratio, perm=perm,
+                                          generator=generator)
+            key_mask = torch.cat(
+                [torch.ones((n * t, self.motion_token_num), dtype=torch.bool,
+                            device=x.device), keep], dim=1)
         hstate = torch.cat([mtok, x], dim=1)
         for blk in self.transformer_blocks:
-            hstate = blk(hstate)
+            hstate = blk(hstate, key_mask)
         mtok = self.norm_final(hstate[:, :self.motion_token_num])
         mtok = self.norm_out(self.proj_out(mtok))
         return mtok.reshape(n, t, self.motion_token_num, self.motion_channel)
@@ -65,7 +114,8 @@ class MotionEncoderSpatial(nn.Module):
 
 class MotionEncoderTemporalCross(nn.Module):
     """(N, T, C, H, W) low-pass video -> camera tokens (N, T, S, channel),
-    one token per spatial site per frame."""
+    one token per spatial site per frame; with a ``mask_ratio`` ->
+    (tokens, site_keep (N, S) bool), the sites shuffled."""
 
     def __init__(self, img_height: int = 32, img_width: int = 32,
                  img_inchannel: int = 4, img_patch_size: int = 2,
@@ -96,12 +146,22 @@ class MotionEncoderTemporalCross(nn.Module):
                                       elementwise_affine=False)
                          if need_norm_out else nn.Identity())
 
-    def forward(self, video: torch.Tensor) -> torch.Tensor:
+    def forward(self, video: torch.Tensor,
+                mask_ratio: Optional[torch.Tensor] = None, *,
+                perm: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         n, t, c, h, w = video.shape
         hidden, ltok = self.hidden, self.motion_token_num
         x = self.patch_embed(video.reshape(n * t, c, h, w)) + self.spos
         s = x.shape[1]
         x = x.reshape(n, t, s, hidden) + self.tpos[None, :t, None, :]
+        site_keep = None
+        if mask_ratio is not None:
+            # every site stays (each is its own batch row here); the dropped
+            # ones are flagged for the DiT's key mask
+            _check_ratio(mask_ratio)
+            x, site_keep = shuffle_mask_tokens(x, mask_ratio, axis=2,
+                                               perm=perm, generator=generator)
 
         mtok = self.motion_embed(self.motion_token)
         mtok = mtok[:, None].expand(n, s, ltok, hidden)
@@ -118,4 +178,5 @@ class MotionEncoderTemporalCross(nn.Module):
         for blk in self.transformer_blocks:
             mtok = blk(mtok, kv)
         mtok = self.norm_out(self.proj_out(self.norm_final(mtok)))
-        return mtok.reshape(n, s, t, self.motion_channel).transpose(1, 2)
+        out = mtok.reshape(n, s, t, self.motion_channel).transpose(1, 2)
+        return out if site_keep is None else (out, site_keep)

@@ -109,15 +109,27 @@ def _dtype(vae: AutoencoderKL) -> torch.dtype:
 @torch.no_grad()
 def vae_encode(vae: AutoencoderKL, video: torch.Tensor,
                generator: Optional[torch.Generator] = None,
-               scale: float = SD_VAE_SCALE) -> torch.Tensor:
-    """(N,T,C,H,W) pixels -> (N,T,latent,h,w) scaled latents; the posterior
-    mode, or a sample drawn from ``generator`` when one is given."""
+               scale: float = SD_VAE_SCALE,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N,T,C,H,W) pixels -> (N,T,latent,h,w) scaled latents: the posterior
+    mode, or a posterior sample when ``noise`` (N*T, latent, h, w) or a
+    ``generator`` is given."""
     n, t = video.shape[:2]
     flat = video.reshape((n * t,) + video.shape[2:]).to(_dtype(vae))
     dist = DiagonalGaussian.from_params(vae.encode_moments(flat), dim=1)
-    z = (dist.sample(generator) if generator is not None else dist.mode())
+    if noise is None and generator is None:
+        z = dist.mode()
+    else:
+        z = dist.sample(generator, noise)
     z = z * scale
     return z.reshape((n, t) + z.shape[1:])
+
+
+def decode_latents(vae: AutoencoderKL, latents: torch.Tensor,
+                   scale: float = SD_VAE_SCALE) -> torch.Tensor:
+    """(M, latent, h, w) scaled latents -> (M, C, H, W) pixels, with
+    gradients: the perceptual loss decodes the predicted latents here."""
+    return vae.decode(latents.to(_dtype(vae)) / scale)
 
 
 @torch.no_grad()
@@ -125,8 +137,8 @@ def vae_decode(vae: AutoencoderKL, latents: torch.Tensor,
                scale: float = SD_VAE_SCALE) -> torch.Tensor:
     """(N,T,latent,h,w) scaled latents -> (N,T,C,H,W) pixels in [-1, 1]."""
     n, t = latents.shape[:2]
-    flat = latents.reshape((n * t,) + latents.shape[2:]).to(_dtype(vae))
-    img = vae.decode(flat / scale)
+    img = decode_latents(vae, latents.reshape((n * t,) + latents.shape[2:]),
+                         scale)
     return img.reshape((n, t) + img.shape[1:])
 
 

@@ -1,20 +1,33 @@
 """Attention kernels for Hopper with their plain PyTorch versions.
 
-Two TPU kernels of ``hivae_tpu/ops/pallas/flash_attention.py`` are on the
-clip-reconstruction path and are ported here as hand-written CUDA
-(``hivae_tpu_torch/csrc``):
+Five TPU kernels of ``hivae_tpu/ops/pallas/flash_attention.py`` are on the
+clip-reconstruction and training paths and are ported here as hand-written
+CUDA (``hivae_tpu_torch/csrc``):
 
 * ``full_block_attention`` replaces ``_fwd_kernel`` (``_flash_fwd_impl``):
   the joint and motion-encoder attentions, S of 260-512, D = 64.
   Source note and bound: ``csrc/flash_full_block.cu``.
+* ``full_block_attention_bwd`` replaces ``_bwd_kernel`` (``_flash_bwd``):
+  its dQ, dK and dV in one launch (``csrc/flash_full_block_bwd.cu``).
 * ``stream_attention`` replaces ``_stream_fwd_kernel``
   (``_stream_fwd_impl`` / ``stream_fwd_lse``): the SD-VAE mid-block
-  attention, (17, 1, 1024, 512), returning O and the per-row LSE.
+  attention, (B, 1, 1024, 512), returning O and the per-row LSE.
   Source note and bound: ``csrc/flash_stream.cu``.
+* ``stream_attention_bwd_dq`` and ``stream_attention_bwd_dkv`` replace
+  ``_stream_dq_kernel`` and ``_stream_dkv_kernel`` (``stream_bwd``)
+  (``csrc/flash_stream_bwd.cu``).
 
-Each wrapper runs its plain version for a tensor on the CPU (the tests) and
+``full_block_attention`` and ``stream_attention`` are differentiable: on a
+CUDA tensor that requires grad they run a ``torch.autograd.Function`` whose
+forward launches the forward kernel and whose backward launches the
+backward kernel(s); the bias is the non-differentiable key mask and gets no
+gradient, as in the JAX package. Each wrapper runs its plain version for a
+tensor on the CPU (the tests; autograd differentiates it there) and
 launches its kernel for a CUDA tensor, or raises; there is no fallback from
-one to the other. ``<wrapper>.launches`` counts kernel launches.
+one to the other. ``<wrapper>.launches`` counts kernel launches: forward and
+backward kernels have separate counters. The ``*_bwd_plain`` functions
+write each backward out by hand, as the TPU kernels compute it, so that the
+card and the tests can hold the backward kernels against them.
 """
 
 from __future__ import annotations
@@ -37,10 +50,16 @@ _STREAM_DIMS = (64, 128, 256, 512)
 # ---------------------------------------------------------------------------
 
 
+def _f(x):
+    """x in fp32 for the sums, or in fp64 when it is fp64 (the tests' exact
+    reference)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _logits(q, k, scale, bias):
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = torch.matmul(_f(q), _f(k).transpose(-1, -2)) * scale
     if bias is not None:
-        logits = logits + bias.float()[:, None, None, :]
+        logits = logits + _f(bias)[:, None, None, :]
     return logits
 
 
@@ -51,7 +70,7 @@ def full_block_attention_plain(q: torch.Tensor, k: torch.Tensor,
     """softmax(q.k^T * scale + bias) . v with fp32 logits and softmax, the
     normalised probabilities cast to v's dtype, fp32 accumulation."""
     p = torch.softmax(_logits(q, k, scale, bias), dim=-1).to(v.dtype)
-    return torch.matmul(p.float(), v.float()).to(q.dtype)
+    return torch.matmul(_f(p), _f(v)).to(q.dtype)
 
 
 def stream_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,8 +83,41 @@ def stream_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     denom = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(v.dtype).float(), v.float()) / denom
+    out = torch.matmul(_f(p.to(v.dtype)), _f(v)) / denom
     return out.to(q.dtype), m + torch.log(denom)
+
+
+def _grads_from_p(p, dp, delta, q, k, v, do, scale):
+    """dq, dk, dv from fp32 P and dP: dV = P^T.dO with P cast to dO's
+    dtype, dS = P * (dP - delta) cast to q's dtype, dQ = dS.K * scale,
+    dK = dS^T.Q * scale, fp32 accumulation."""
+    dv = torch.matmul(_f(p.to(do.dtype)).transpose(-1, -2), _f(do))
+    ds = _f((p * (dp - delta)).to(q.dtype))
+    dq = torch.matmul(ds, _f(k)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), _f(q)) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def full_block_attention_bwd_plain(q, k, v, do, *, scale: float,
+                                   bias: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of ``full_block_attention_plain`` for the output
+    cotangent ``do``, as the TPU kernel computes them: P recomputed in
+    fp32, dP = dO.V^T, delta = rowsum(dP * P)."""
+    p = torch.softmax(_logits(q, k, scale, bias), dim=-1)
+    dp = torch.matmul(_f(do), _f(v).transpose(-1, -2))
+    delta = (dp * p).sum(dim=-1, keepdim=True)
+    return _grads_from_p(p, dp, delta, q, k, v, do, scale)
+
+
+def stream_attention_bwd_plain(q, k, v, do, out, lse, *, scale: float,
+                               bias: Optional[torch.Tensor] = None):
+    """(dq, dk, dv) of ``stream_attention_plain``'s output from the
+    forward's ``out`` and ``lse`` (B, H, Sq, 1), as the TPU kernels compute
+    them: P = exp(s - lse), delta = rowsum(dO * O)."""
+    p = torch.exp(_logits(q, k, scale, bias) - lse)
+    dp = torch.matmul(_f(do), _f(v).transpose(-1, -2))
+    delta = (_f(do) * _f(out)).sum(dim=-1, keepdim=True)
+    return _grads_from_p(p, dp, delta, q, k, v, do, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -82,13 +134,10 @@ def _check(name, q, k, v, bias, dims):
         if x.dtype not in _KERNEL_DTYPES:
             raise TypeError(f"{name}: the CUDA kernel takes bfloat16, "
                             f"got {x.dtype}")
-        if x.dim() != 4 or x.stride(-1) != 1:
+        if x.dim() != 4 or not _aligned(x):
             raise ValueError(f"{name}: want (B, H, S, D) with a contiguous "
-                             f"last dim, got {tuple(x.shape)} strides "
-                             f"{x.stride()}")
-        if any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(f"{name}: rows must be 16-byte aligned "
-                             f"(strides {x.stride()})")
+                             f"last dim and 16-byte aligned rows, got "
+                             f"{tuple(x.shape)} strides {x.stride()}")
     b, h, _, d = q.shape
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(f"{name}: shape mismatch q {tuple(q.shape)} "
@@ -103,13 +152,29 @@ def _check(name, q, k, v, bias, dims):
                          f"tensor on the device of q")
 
 
+def _aligned(x):
+    return (x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3])
+            and x.data_ptr() % 16 == 0)
+
+
+def _kernel_layout(x):
+    """x itself when the kernels can read it, else a contiguous copy (an
+    incoming gradient may have any strides)."""
+    return x if _aligned(x) else x.contiguous()
+
+
 def _strides(*xs):
-    vals = [s for x in xs for s in x.stride()[:3]]
-    return (ctypes.c_long * len(vals))(*vals)
+    vals = [s for x in xs for s in (x.stride()[:3] if x is not None
+                                    else (0, 0, 0))]
+    return ctypes.cast((ctypes.c_long * len(vals))(*vals), ctypes.c_void_p)
 
 
 def _ptr(x):
     return ctypes.c_void_p(0 if x is None else x.data_ptr())
+
+
+def _stream_of(x):
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def _empty_out(q):
@@ -120,48 +185,208 @@ def _empty_out(q):
                        device=q.device).transpose(1, 2)
 
 
-@functools.lru_cache(maxsize=None)
-def _full_block_fn():
-    lib = _build.load("flash_full_block")
-    fn = lib.hv_full_block_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+def _row_stats(q):
+    b, h, sq, _ = q.shape
+    return torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+
+
+def _delta(do, out):
+    """rowsum(dO * O) in fp32, contiguous (B, H, Sq)."""
+    return (do.float() * out.float()).sum(dim=-1).contiguous()
+
+
+def _fn(lib_name, sym, n_ptr, n_int):
+    """The C entry point ``sym`` of ``csrc/<lib_name>.cu`` (n_ptr pointers,
+    n_int ints, the scale, the strides and the stream) and the library's
+    error-string function ``hv_<lib_name less "flash_">_error_string``."""
+    lib = _build.load(lib_name)
+    fn = getattr(lib, sym)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
         ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.hv_full_block_error_string.restype = ctypes.c_char_p
-    return fn, lib.hv_full_block_error_string
+    err = getattr(lib, f"hv_{lib_name[6:]}_error_string")
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+@functools.lru_cache(maxsize=None)
+def _full_block_fn():
+    return _fn("flash_full_block", "hv_full_block_fwd", 7, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_block_bwd_fn():
+    return _fn("flash_full_block_bwd", "hv_full_block_bwd", 11, 5)
 
 
 @functools.lru_cache(maxsize=None)
 def _stream_fn():
-    lib = _build.load("flash_stream")
-    fn = lib.hv_stream_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.hv_stream_error_string.restype = ctypes.c_char_p
-    return fn, lib.hv_stream_error_string
+    return _fn("flash_stream", "hv_stream_fwd", 6, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_dq_fn():
+    return _fn("flash_stream_bwd", "hv_stream_bwd_dq", 8, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_dkv_fn():
+    return _fn("flash_stream_bwd", "hv_stream_bwd_dkv", 9, 5)
+
+
+def _launch(name, fn_err, *args):
+    fn, err_str = fn_err
+    rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: {err_str(rc).decode()}")
+
+
+def _full_block_fwd(q, k, v, bias, scale, stats):
+    """Forward launch -> (out, m, l); m and l (the row max and softmax
+    denominator, (B, H, Sq) fp32) only when ``stats``, else None."""
+    _check("full_block_attention", q, k, v, bias, _FULL_BLOCK_DIMS)
+    b, h, sq, d = q.shape
+    out = _empty_out(q)
+    m, l = (_row_stats(q), _row_stats(q)) if stats else (None, None)
+    _launch("full_block_attention", _full_block_fn(), _ptr(q), _ptr(k),
+            _ptr(v), _ptr(bias), _ptr(out), _ptr(m), _ptr(l), b, h, sq,
+            k.shape[2], d, float(scale), _strides(q, k, v, out), _stream_of(q))
+    full_block_attention.launches += 1
+    return out, m, l
+
+
+def full_block_attention_bwd(q, k, v, do, out, m, l, *, scale: float,
+                             bias: Optional[torch.Tensor] = None):
+    """Backward kernel: (dq, dk, dv) from the output cotangent ``do``, the
+    forward's ``out`` and its row statistics ``m``, ``l`` (B, H, Sq)."""
+    _check("full_block_attention_bwd", q, k, v, bias, _FULL_BLOCK_DIMS)
+    do = _kernel_layout(do)
+    b, h, sq, d = q.shape
+    delta = _delta(do, out)
+    dq, dk, dv = _empty_out(q), _empty_out(k), _empty_out(v)
+    _launch("full_block_attention_bwd", _full_block_bwd_fn(), _ptr(q),
+            _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(m), _ptr(l),
+            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), b, h, sq, k.shape[2],
+            d, float(scale), _strides(q, k, v, do, dq, dk, dv), _stream_of(q))
+    full_block_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+full_block_attention_bwd.launches = 0
+
+
+def _stream_fwd(q, k, v, bias, scale):
+    _check("stream_attention", q, k, v, bias, _STREAM_DIMS)
+    b, h, sq, d = q.shape
+    out = _empty_out(q)
+    lse = _row_stats(q)
+    _launch("stream_attention", _stream_fn(), _ptr(q), _ptr(k), _ptr(v),
+            _ptr(bias), _ptr(out), _ptr(lse), b, h, sq, k.shape[2], d,
+            float(scale), _strides(q, k, v, out), _stream_of(q))
+    stream_attention.launches += 1
+    return out, lse[..., None]
+
+
+def _stream_bwd_args(name, q, k, v, do, lse, delta, bias):
+    _check(name, q, k, v, bias, _STREAM_DIMS)
+    b, h, sq, d = q.shape
+    lse = lse.reshape(b, h, sq).contiguous()
+    return _kernel_layout(do), lse, delta.reshape(b, h, sq).contiguous()
+
+
+def stream_attention_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
+                            bias: Optional[torch.Tensor] = None):
+    """dQ kernel: dq from the cotangent ``do``, the forward's ``lse`` and
+    ``delta`` = rowsum(dO * O), each (B, H, Sq) or (B, H, Sq, 1) fp32."""
+    do, lse, delta = _stream_bwd_args("stream_attention_bwd_dq", q, k, v, do,
+                                      lse, delta, bias)
+    b, h, sq, d = q.shape
+    dq = _empty_out(q)
+    _launch("stream_attention_bwd_dq", _stream_dq_fn(), _ptr(q), _ptr(k),
+            _ptr(v), _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
+            b, h, sq, k.shape[2], d, float(scale),
+            _strides(q, k, v, do, dq, None, None), _stream_of(q))
+    stream_attention_bwd_dq.launches += 1
+    return dq
+
+
+stream_attention_bwd_dq.launches = 0
+
+
+def stream_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
+                             bias: Optional[torch.Tensor] = None):
+    """dK/dV kernel: (dk, dv), inputs as ``stream_attention_bwd_dq``."""
+    do, lse, delta = _stream_bwd_args("stream_attention_bwd_dkv", q, k, v,
+                                      do, lse, delta, bias)
+    b, h, sq, d = q.shape
+    dk, dv = _empty_out(k), _empty_out(v)
+    _launch("stream_attention_bwd_dkv", _stream_dkv_fn(), _ptr(q), _ptr(k),
+            _ptr(v), _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
+            _ptr(dv), b, h, sq, k.shape[2], d, float(scale),
+            _strides(q, k, v, do, None, dk, dv), _stream_of(q))
+    stream_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+stream_attention_bwd_dkv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class _FullBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out, m, l = _full_block_fwd(q, k, v, bias, scale, stats=True)
+        ctx.save_for_backward(q, k, v, bias, out, m, l)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, out, m, l = ctx.saved_tensors
+        dq, dk, dv = full_block_attention_bwd(q, k, v, do, out, m, l,
+                                              scale=ctx.scale, bias=bias)
+        return dq, dk, dv, None, None
+
+
+class _Stream(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        out, lse = _stream_fwd(q, k, v, bias, scale)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.scale = scale
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        do = _kernel_layout(do)
+        delta = _delta(do, out)
+        kw = dict(scale=ctx.scale, bias=bias)
+        dq = stream_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = stream_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None
+
+
+def _needs_grad(*xs):
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
 def full_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: float,
                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-block fused attention. q, k, v: (B, H, S, D); bias: optional
-    (B, Sk) fp32 additive key bias (0 attend, -1e30 drop) -> (B, H, Sq, D)."""
+    (B, Sk) fp32 additive key bias (0 attend, -1e30 drop) -> (B, H, Sq, D).
+    Differentiable in q, k and v."""
     if q.device.type == "cpu":
         return full_block_attention_plain(q, k, v, scale=scale, bias=bias)
-    _check("full_block_attention", q, k, v, bias, _FULL_BLOCK_DIMS)
-    b, h, sq, d = q.shape
-    out = _empty_out(q)
-    fn, err_str = _full_block_fn()
-    strides = _strides(q, k, v, out)
-    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), b, h, sq,
-            k.shape[2], d, float(scale), ctypes.cast(strides, ctypes.c_void_p),
-            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"full_block_attention launch failed: "
-                           f"{err_str(rc).decode()}")
-    full_block_attention.launches += 1
-    return out
+    if _needs_grad(q, k, v):
+        return _FullBlock.apply(q, k, v, bias, scale)
+    return _full_block_fwd(q, k, v, bias, scale, stats=False)[0]
 
 
 full_block_attention.launches = 0
@@ -171,24 +396,13 @@ def stream_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float, bias: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming online-softmax attention -> (out (B, H, Sq, D),
-    lse (B, H, Sq, 1) fp32)."""
+    lse (B, H, Sq, 1) fp32). ``out`` is differentiable in q, k and v;
+    ``lse`` carries no gradient."""
     if q.device.type == "cpu":
         return stream_attention_plain(q, k, v, scale=scale, bias=bias)
-    _check("stream_attention", q, k, v, bias, _STREAM_DIMS)
-    b, h, sq, d = q.shape
-    out = _empty_out(q)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn, err_str = _stream_fn()
-    strides = _strides(q, k, v, out)
-    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), b, h,
-            sq, k.shape[2], d, float(scale),
-            ctypes.cast(strides, ctypes.c_void_p),
-            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"stream_attention launch failed: "
-                           f"{err_str(rc).decode()}")
-    stream_attention.launches += 1
-    return out, lse[..., None]
+    if _needs_grad(q, k, v):
+        return _Stream.apply(q, k, v, bias, scale)
+    return _stream_fwd(q, k, v, bias, scale)
 
 
 stream_attention.launches = 0

@@ -1,8 +1,9 @@
-"""Rectified-flow sampling (port of ``hivae_tpu/ops/rectified_flow.py``).
+"""Rectified flow (port of ``hivae_tpu/ops/rectified_flow.py``).
 
 Integer steps in [0, num_steps] map to time ``t = (num_steps - step) /
-num_steps``; Euler walks a precomputed high-to-low step sequence with
-``dt = 1 / len(step_seq)``. The walk is a Python loop.
+num_steps``. Training interpolates ``z_t = t * z1 + (1 - t) * z0`` with the
+velocity target ``z1 - z0``; Euler walks a precomputed high-to-low step
+sequence with ``dt = 1 / len(step_seq)``. The walk is a Python loop.
 """
 
 from __future__ import annotations
@@ -24,6 +25,22 @@ def timestep_to_time(timestep: torch.Tensor,
     if t.dim() == 1:
         t = t.reshape((-1,) + (1,) * (ndim - 1))
     return t
+
+
+def get_train_tuple(z1: torch.Tensor, timestep: torch.Tensor,
+                    z0: torch.Tensor, num_steps: int = DEFAULT_NUM_STEPS):
+    """(z_t, target = z1 - z0) at integer steps ``timestep`` (batch,) from
+    the source sample ``z0``."""
+    t = timestep_to_time(timestep, num_steps, ndim=z1.dim())
+    return t * z1 + (1.0 - t) * z0, z1 - z0
+
+
+def get_target_with_zt_vel(z_t: torch.Tensor, vel: torch.Tensor,
+                           timestep: torch.Tensor,
+                           num_steps: int = DEFAULT_NUM_STEPS) -> torch.Tensor:
+    """The predicted clean sample ``z_t + (1 - t) * vel``."""
+    t = timestep_to_time(timestep, num_steps, ndim=z_t.dim())
+    return z_t + (1.0 - t) * vel
 
 
 def euler_start(z0: torch.Tensor, z1: Optional[torch.Tensor],

@@ -23,11 +23,14 @@ class DiagonalGaussian(NamedTuple):
     def std(self) -> torch.Tensor:
         return torch.exp(0.5 * self.logvar)
 
-    def sample(self, generator: Optional[torch.Generator] = None
-               ) -> torch.Tensor:
-        noise = torch.randn(self.mean.shape, generator=generator,
-                            dtype=self.mean.dtype, device=self.mean.device)
-        return self.mean + self.std * noise
+    def sample(self, generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """mean + std * noise; ``noise`` drawn from ``generator`` unless
+        given."""
+        if noise is None:
+            noise = torch.randn(self.mean.shape, generator=generator,
+                                dtype=self.mean.dtype, device=self.mean.device)
+        return self.mean + self.std * noise.to(self.mean)
 
     def mode(self) -> torch.Tensor:
         return self.mean

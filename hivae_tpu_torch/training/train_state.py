@@ -1,0 +1,194 @@
+"""Optimizer and train state of the port (port of ``make_optimizer`` and
+``TrainState`` of ``hivae_tpu/training/train_state.py``).
+
+``AdamW`` mirrors the optax chain the JAX package builds, step for step:
+
+* ``clip_by_global_norm(max_norm)``: the gradients are scaled by
+  ``max_norm / norm`` only when ``norm >= max_norm``, as ``(g / norm) *
+  max_norm`` (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm and
+  is not used);
+* ``adamw``: bias-corrected moments, ``mu_dtype`` for the first moment only
+  (``torch.bfloat16`` stores mu in bf16 after each update, as optax casts
+  it), decoupled weight decay on every parameter, the update scaled by
+  ``-lr`` from the schedule at optax's count (0 on the first step, so a
+  warm-up starts at lr 0);
+* ``MultiSteps(every_k=accumulate_steps)``: the running mean of k
+  gradients, one inner update every k calls and a zero update otherwise.
+
+Schedules: ``constant`` (with an optional linear warm-up from 0) and
+``cosine`` (optax ``warmup_cosine_decay_schedule`` from 0 to 0), evaluated in
+fp32 as optax evaluates them. The parameters are updated in place (the JAX
+package's state is immutable and its step donates the buffers instead).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+_F = np.float32
+
+
+def make_schedule(learning_rate: float, warmup_steps: int = 0,
+                  total_steps: Optional[int] = None,
+                  schedule: str = "constant") -> Callable[[int], float]:
+    """count -> learning rate, in fp32 as optax computes it."""
+
+    def linear(count, steps):
+        c = _F(min(max(count, 0), steps))
+        frac = _F(1) - c / _F(steps)
+        return _F(0.0 - learning_rate) * frac + _F(learning_rate)
+
+    if schedule == "constant":
+        if warmup_steps <= 0:
+            return lambda count: float(_F(learning_rate))
+        return lambda count: float(
+            linear(count, warmup_steps) if count < warmup_steps
+            else _F(learning_rate))
+    if schedule == "cosine":
+        decay = float((total_steps or 10 ** 6) - warmup_steps)
+
+        def cosine(count):
+            if count < warmup_steps:
+                return float(linear(count, warmup_steps))
+            c = _F(min(count - warmup_steps, decay))
+            cos = _F(0.5) * (_F(1) + np.cos(_F(math.pi) * c / _F(decay)))
+            return float(_F(learning_rate) * cos)
+        return cosine
+    raise ValueError(schedule)
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over every element, fp32 (optax
+    ``global_norm``)."""
+    return torch.sqrt(torch.stack([t.float().square().sum()
+                                   for t in tensors]).sum())
+
+
+class AdamW:
+    """The JAX package's ``make_optimizer`` over a list of fp32 parameters.
+    ``step(grads)`` applies one update in place."""
+
+    def __init__(self, params: List[torch.Tensor], learning_rate: float = 1e-4,
+                 warmup_steps: int = 0, total_steps: Optional[int] = None,
+                 schedule: str = "constant", weight_decay: float = 1e-2,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 max_grad_norm: float = 1.0, accumulate_steps: int = 1,
+                 mu_dtype: Optional[torch.dtype] = None):
+        self.params = list(params)
+        self.lr = make_schedule(learning_rate, warmup_steps, total_steps,
+                                schedule)
+        self.weight_decay, self.b1, self.b2, self.eps = (weight_decay, b1,
+                                                         b2, eps)
+        self.max_grad_norm = max_grad_norm
+        self.k = accumulate_steps
+        self.count = 0          # inner (optax) update count
+        self.mini_step = 0      # MultiSteps position within k
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype)
+                   for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.acc = ([torch.zeros_like(p) for p in self.params]
+                    if self.k > 1 else None)
+
+    @torch.no_grad()
+    def step(self, grads: List[torch.Tensor]) -> None:
+        grads = [g.float() for g in grads]
+        if self.k > 1:
+            n = self.mini_step
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (n + 1))
+            if n < self.k - 1:
+                self.mini_step += 1
+                return
+            grads = [a.clone() for a in self.acc]
+            for a in self.acc:
+                a.zero_()
+            self.mini_step = 0
+        self._update(grads)
+
+    def _update(self, grads):
+        norm = global_norm(grads)
+        if not bool(norm < self.max_grad_norm):
+            grads = [(g / norm) * self.max_grad_norm for g in grads]
+        lr = self.lr(self.count)
+        self.count += 1
+        b1, b2 = self.b1, self.b2
+        bc1 = float(_F(1) - _F(b1) ** _F(self.count))
+        bc2 = float(_F(1) - _F(b2) ** _F(self.count))
+        for i, (p, g) in enumerate(zip(self.params, grads)):
+            # (1 - b1) * g + b1 * mu with b1 rounded to mu's dtype and the
+            # product in it, as a weakly typed scalar behaves in JAX
+            b1_t = torch.tensor(b1, dtype=self.mu[i].dtype, device=g.device)
+            mu = (1 - b1) * g + self.mu[i] * b1_t
+            nu = (1 - b2) * torch.square(g) + b2 * self.nu[i]
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            u = (u + self.weight_decay * p) * (-lr)
+            p.add_(u.to(p.dtype))
+            self.mu[i] = mu.to(self.mu[i].dtype)
+            self.nu[i] = nu
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": self.mu, "nu": self.nu, "acc": self.acc}
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.count, self.mini_step = state["count"], state["mini_step"]
+        for name in ("mu", "nu", "acc"):
+            if state[name] is not None:
+                for dst, src in zip(getattr(self, name), state[name]):
+                    dst.copy_(src)
+
+
+def make_optimizer(params: List[torch.Tensor], learning_rate: float = 1e-4,
+                   warmup_steps: int = 0, total_steps: Optional[int] = None,
+                   schedule: str = "constant", weight_decay: float = 1e-2,
+                   b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                   max_grad_norm: float = 1.0, accumulate_steps: int = 1,
+                   mu_dtype: Optional[torch.dtype] = None) -> AdamW:
+    """The JAX package's ``make_optimizer`` signature, over ``params``."""
+    return AdamW(params, learning_rate, warmup_steps, total_steps, schedule,
+                 weight_decay, b1, b2, eps, max_grad_norm, accumulate_steps,
+                 mu_dtype)
+
+
+class TrainState:
+    """Step count, the trained parameters (by name, updated in place), the
+    optimizer and the optional EMA of the parameters."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], tx: AdamW,
+                 ema_decay: float = 0.0):
+        self.step = 0
+        self.params = params
+        self.tx = tx
+        self.ema_decay = ema_decay
+        self.ema_params = ({k: p.detach().clone() for k, p in params.items()}
+                           if ema_decay > 0 else None)
+
+    @torch.no_grad()
+    def apply_gradients(self, grads: List[torch.Tensor]) -> None:
+        self.tx.step(grads)
+        if self.ema_params is not None:
+            d = self.ema_decay
+            for k, p in self.params.items():
+                e = self.ema_params[k]
+                e.copy_(e * d + p.to(e.dtype) * (1.0 - d))
+        self.step += 1
+
+    def state_dict(self) -> Dict:
+        return {"step": self.step,
+                "params": {k: p.detach() for k, p in self.params.items()},
+                "opt_state": self.tx.state_dict(),
+                "ema_params": self.ema_params}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        self.step = state["step"]
+        for k, p in self.params.items():
+            p.copy_(state["params"][k])
+        self.tx.load_state_dict(state["opt_state"])
+        if self.ema_params is not None:
+            for k, e in self.ema_params.items():
+                e.copy_(state["ema_params"][k])

@@ -1,0 +1,293 @@
+"""AMD training driver (port of ``TrainConfig`` and ``AMDTrainer`` of
+``hivae_tpu/training/trainer.py``).
+
+One step, as in the JAX package: four frozen-VAE encodes outside autograd
+(videos, reference frames and, with ``use_grey``, their grey versions, each
+a posterior sample), the AMD training forward and its l2 loss, optionally
+the perceptual leg (the VAE decode of the predicted latents with gradients
+on, then LPIPS against the ground-truth frames), the backward, and the
+optimizer update with the global norm of the raw gradients as ``grad_norm``.
+
+Mixed precision. The trained parameters stay fp32 (the master weights, as
+flax's fp32 ``param_dtype``); with ``mixed_precision='bf16'`` the forward
+and the perceptual leg run under ``torch.autocast(dtype=torch.bfloat16)``,
+so matmuls, convolutions and the attention kernels compute in bf16 while
+autocast keeps norms and softmax statistics in fp32. Loss, gradients and
+metrics are fp32. The frozen VAE and LPIPS run in the dtype they are given.
+
+Randomness. Every draw of a step comes from a ``torch.Generator`` seeded
+with ``(config.seed, state.step)`` (the counterpart of the JAX step's
+``fold_in(rng, step)``), so a resumed run repeats the draws of the run it
+continues. ``draw`` returns them as ``StepDraws``, and ``train_step`` takes
+them as an input, so a caller can replay one step exactly.
+
+``TrainConfig`` keeps the JAX package's fields. ``mesh_shape``,
+``profile_steps``, ``profile_start``, ``transfer_dtype``, ``sync_every`` and
+``eval_every`` are accepted and have no effect on one card: there is no
+mesh, the profiler is driven from outside (``chip_smoke.py --profile``), a
+batch is moved to the card as given, and each step's loss is read on the
+host.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import time
+from typing import Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from ..models import amd as amd_mod
+from ..models import vae as vae_mod
+from . import checkpoint as ckpt_lib
+from .train_state import TrainState, global_norm, make_optimizer
+
+_ENCODED = ("videos", "ref_img", "grey_videos", "ref_grey_img")
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    output_dir: str = "exp/amd"
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-2
+    warmup_steps: int = 0
+    lr_schedule: str = "constant"
+    max_grad_norm: float = 1.0
+    max_steps: int = 100_000
+    log_every: int = 50
+    save_every: int = 2000
+    eval_every: int = 2000
+    checkpoint_total_limit: int = 2
+    seed: int = 0
+    mixed_precision: str = "bf16"          # 'bf16' | 'no'
+    mesh_shape: Optional[tuple] = None
+    camera_mask_ratio: Optional[float] = None
+    object_mask_ratio: Optional[float] = None
+    resume: bool = False
+    sync_every: int = 1
+    # velocity MSE + w * LPIPS(decoded rec_zj, ground-truth frames)
+    perceptual_weight: float = 0.0
+    profile_steps: int = 0
+    profile_start: int = 5
+    mu_dtype: Optional[str] = None         # 'bf16' stores Adam's mu in bf16
+    accumulate_steps: int = 1
+    ema_decay: float = 0.0
+    transfer_dtype: str = "fp32"
+    # 'none': raise on a non-finite loss; 'halt': also dump the batch to
+    # <output_dir>/nan_batch_step<N>.npz first; 'skip': drop the step
+    # (state kept) and count it in metrics['nan_skipped']
+    nan_policy: str = "none"
+
+
+@dataclasses.dataclass
+class StepDraws:
+    """The random draws of one step: the posterior noise of each VAE
+    encode (keyed as the batch) and the model forward's draws."""
+
+    posterior: Dict[str, torch.Tensor]
+    model: amd_mod.TrainDraws
+
+
+class AMDTrainer:
+    """Trains an ``AMDModelNew`` (fp32 parameters) against a frozen VAE on
+    batches of pixel clips: dicts with ``videos`` and ``ref_img``
+    (N, T, 3, H, W) in [-1, 1], plus ``grey_videos`` and ``ref_grey_img``
+    when the model's config has ``use_grey``."""
+
+    def __init__(self, model: amd_mod.AMDModelNew, vae: vae_mod.AutoencoderKL,
+                 config: TrainConfig, lpips=None):
+        bad = [n for n, p in model.named_parameters()
+               if p.dtype != torch.float32]
+        if bad:
+            raise ValueError(f"AMDTrainer trains fp32 master parameters; "
+                             f"{bad[:3]} are not fp32 (build the model with "
+                             f"dtype=torch.float32)")
+        if config.nan_policy not in ("none", "halt", "skip"):
+            raise ValueError(f"nan_policy {config.nan_policy!r}")
+        self.model, self.vae, self.lpips, self.config = (model, vae, lpips,
+                                                         config)
+        self.device = next(model.parameters()).device
+        params = dict(model.named_parameters())
+        tx = make_optimizer(
+            list(params.values()), config.learning_rate, config.warmup_steps,
+            config.max_steps, config.lr_schedule, config.weight_decay,
+            max_grad_norm=config.max_grad_norm,
+            accumulate_steps=config.accumulate_steps,
+            mu_dtype=torch.bfloat16 if config.mu_dtype == "bf16" else None)
+        self.state = TrainState(params, tx, ema_decay=config.ema_decay)
+        self.ckpt = ckpt_lib.CheckpointManager(
+            os.path.join(config.output_dir, "checkpoints"),
+            max_to_keep=config.checkpoint_total_limit)
+        self.global_step = 0
+        if config.resume and self.ckpt.latest_step() is not None:
+            self.restore()
+
+    # -- one step --------------------------------------------------------------
+
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                   else v).to(self.device)
+                for k, v in batch.items() if not isinstance(v, list)}
+
+    def draw(self, batch) -> StepDraws:
+        """This step's draws, from the generator of (seed, state.step)."""
+        cfg, mcfg = self.config, self.model.cfg
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(cfg.seed * 1_000_003 + self.state.step)
+        n, t, _, h, w = batch["videos"].shape
+        f = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
+        lat = (n * t, self.vae.cfg.latent_channels, h // f, w // f)
+        keys = _ENCODED if mcfg.use_grey else _ENCODED[:2]
+        posterior = {k: torch.randn(lat, generator=gen, device=self.device)
+                     for k in keys}
+        sites = (h // f // mcfg.image_patch_size) * \
+            (w // f // mcfg.image_patch_size)
+
+        def uniform():
+            return torch.rand((), generator=gen, device=self.device)
+
+        def perm(rows):
+            noise = torch.rand((rows, sites), generator=gen,
+                               device=self.device)
+            return torch.argsort(noise, dim=1, stable=True)
+
+        d = amd_mod.TrainDraws()
+        if cfg.camera_mask_ratio is not None:
+            d.camera_u = uniform()
+        if cfg.object_mask_ratio is not None:
+            d.object_u = uniform()
+        if cfg.camera_mask_ratio is not None:
+            d.camera_perm = perm(n)
+        if cfg.object_mask_ratio is not None:
+            d.object_perm = perm(n * 2 * t)
+        steps = torch.randint(0, mcfg.scheduler_num_step + 1, (n,),
+                              generator=gen, device=self.device)
+        d.time_step = steps.repeat_interleave(t)
+        d.z0 = torch.randn(lat, generator=gen, device=self.device)
+        return StepDraws(posterior, d)
+
+    def _autocast(self):
+        if self.config.mixed_precision == "bf16":
+            return torch.autocast(device_type=self.device.type,
+                                  dtype=torch.bfloat16)
+        return contextlib.nullcontext()
+
+    def loss_and_grads(self, batch, draws: StepDraws):
+        """(loss_dict of fp32 scalars, fp32 grads in parameter order)."""
+        cfg = self.config
+        with torch.no_grad():
+            lat = {k: vae_mod.vae_encode(self.vae, batch[k],
+                                         noise=draws.posterior[k]).float()
+                   for k in draws.posterior}
+        use_lpips = cfg.perceptual_weight > 0 and self.lpips is not None
+        ratio = {}
+        for name in ("camera_mask_ratio", "object_mask_ratio"):
+            r = getattr(cfg, name)
+            ratio[name] = None if r is None else torch.tensor(
+                r, dtype=torch.float32, device=self.device)
+        with self._autocast():
+            _, _, loss_dict = self.model(
+                lat["videos"], lat["ref_img"], lat.get("grey_videos"),
+                lat.get("ref_grey_img"), return_meta_info=use_lpips,
+                draws=draws.model, **ratio)
+            loss = loss_dict["loss"]
+            if use_lpips:
+                decoded = vae_mod.decode_latents(self.vae, loss_dict["rec_zj"])
+                videos = batch["videos"]
+                gt = videos.reshape((-1,) + videos.shape[2:])
+                p_loss = self.lpips(decoded, gt.to(decoded.dtype)).float() \
+                    .mean()
+                loss = loss + cfg.perceptual_weight * p_loss
+                loss_dict = {k: v for k, v in loss_dict.items()
+                             if v.dim() == 0}
+                loss_dict.update(lpips_loss=p_loss, loss=loss)
+        params = list(self.state.params.values())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g.float()
+                 for p, g in zip(params, grads)]
+        return {k: v.detach().float() for k, v in loss_dict.items()}, grads
+
+    def train_step(self, batch, draws: Optional[StepDraws] = None
+                   ) -> Dict[str, float]:
+        """One optimizer step on a pixel batch -> metrics (floats)."""
+        batch = self._to_device(batch)
+        if draws is None:
+            draws = self.draw(batch)
+        metrics, grads = self.loss_and_grads(batch, draws)
+        metrics["grad_norm"] = global_norm(grads)
+        finite = bool(torch.isfinite(metrics["loss"]) &
+                      torch.isfinite(metrics["grad_norm"]))
+        if finite or self.config.nan_policy != "skip":
+            self.state.apply_gradients(grads)
+        out = {k: float(v) for k, v in metrics.items()}
+        if self.config.nan_policy == "skip":
+            out["nan_skipped"] = 0.0 if finite else 1.0
+        self.global_step += 1
+        return out
+
+    # -- loop ----------------------------------------------------------------
+
+    def fit(self, batches: Iterable[Dict[str, np.ndarray]],
+            max_steps: Optional[int] = None) -> Dict[str, float]:
+        cfg = self.config
+        limit = max_steps or cfg.max_steps
+        last: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        for batch in batches:
+            if self.global_step >= limit:
+                break
+            metrics = self.train_step(batch)
+            finite = np.isfinite(metrics["loss"])
+            if cfg.nan_policy == "halt" and not finite:
+                os.makedirs(cfg.output_dir, exist_ok=True)
+                dump = os.path.join(cfg.output_dir,
+                                    f"nan_batch_step{self.global_step}.npz")
+                np.savez(dump, **{k: np.asarray(torch.as_tensor(v).cpu())
+                                  for k, v in batch.items()
+                                  if not isinstance(v, list)})
+                raise FloatingPointError(
+                    f"non-finite loss {metrics['loss']} at step "
+                    f"{self.global_step}; offending batch dumped to {dump}")
+            if self.global_step % cfg.log_every == 0 or \
+                    self.global_step >= limit:
+                if cfg.nan_policy != "skip" and not finite:
+                    raise FloatingPointError(
+                        f"non-finite loss at step {self.global_step}: "
+                        f"{metrics}")
+                dt = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                last = dict(metrics, steps_per_sec=cfg.log_every /
+                            max(dt, 1e-9))
+            if self.global_step % cfg.save_every == 0:
+                self.save()
+        return last
+
+    def save(self) -> str:
+        """Write ``checkpoint-{global_step}`` (rotating old ones)."""
+        return self.ckpt.save(self.global_step, self.state.state_dict())
+
+    def restore(self, path: Optional[str] = None) -> None:
+        """Load the newest checkpoint (or ``path``) into the live state."""
+        self.state.load_state_dict(
+            self.ckpt.restore(path, map_location=self.device))
+        self.global_step = self.state.step
+
+
+def batch_from_clips(clips: List[np.ndarray],
+                     grey: Optional[List[np.ndarray]] = None
+                     ) -> Dict[str, np.ndarray]:
+    """(T+1, 3, H, W) clips in [-1, 1] (frame 0 the reference) -> a training
+    batch: ``videos`` the T target frames, ``ref_img`` frame 0 repeated T
+    times, and the same for ``grey`` clips."""
+    def split(cs):
+        x = np.stack(cs)
+        ref = np.repeat(x[:, :1], x.shape[1] - 1, axis=1)
+        return np.ascontiguousarray(x[:, 1:]), np.ascontiguousarray(ref)
+
+    batch = dict(zip(("videos", "ref_img"), split(clips)))
+    if grey is not None:
+        batch.update(zip(("grey_videos", "ref_grey_img"), split(grey)))
+    return batch

@@ -12,7 +12,9 @@ ones. Layouts:
     (``scan_layers=True``, leading dim L) -> per-layer ModuleList entries.
 
 Input is the flax tree as nested mappings of numpy arrays (with or without
-the top-level ``params`` collection).
+the top-level ``params`` collection). ``lpips_flax_to_torch`` maps the
+JAX ``LPIPS`` tree (``net/features_<i>``, Dense heads ``lin<k>``) onto the
+port's ``losses.lpips.LPIPS``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ _RULES: List[Tuple[str, str]] = [
     (r"\bnet_0\b", "net.0.proj"),
     (r"\bnet_2\b", "net.2"),
     (r"\bto_out\b", "to_out.0"),
+    (r"\bfeatures_(\d+)\b", r"features.\1"),
 ]
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
@@ -106,4 +109,14 @@ def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"two flax leaves map onto {key}")
             out[key] = torch.from_numpy(
                 np.array(_torch_layout(p[-1], a), order="C", copy=True))
+    return out
+
+
+def lpips_flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``LPIPS`` tree -> state dict of the port's ``LPIPS``: the Dense
+    heads (C, 1) become 1x1 conv weights (1, C, 1, 1)."""
+    out = flax_to_torch(params)
+    for k in range(5):
+        key = f"lin{k}.weight"
+        out[key] = out[key].reshape(1, -1, 1, 1).contiguous()
     return out

@@ -7,7 +7,11 @@ is installed:
 
 Tolerance: bf16 inputs on both sides, outputs of unit scale; the kernel
 and the plain version round P to bf16 at different points of the sum
-(atol 2e-2). LSE is fp32 summed in another order (atol 1e-3)."""
+(atol 2e-2). LSE is fp32 summed in another order (atol 1e-3). Gradients
+are held relative to their largest element (``BWD_RTOL`` 2e-2): both sides
+round P and dS to bf16, but from sums taken in another order, and the
+full-block kernel takes delta = rowsum(dO * O) from the bf16 output where
+its plain version takes rowsum(dP * P) in fp32."""
 
 import numpy as np
 import pytest
@@ -17,6 +21,7 @@ from hivae_tpu_torch.ops.kernels import flash_attention as tfa
 
 ATOL = 2e-2
 LSE_ATOL = 1e-3
+BWD_RTOL = 2e-2
 
 
 def _cuda_or_skip():
@@ -40,6 +45,10 @@ def _bias(b, sk, seed=1, full_row=None):
 
 def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def _rel(a, b):
+    return _err(a, b) / b.float().abs().max().item()
 
 
 @pytest.mark.cuda
@@ -90,3 +99,81 @@ def test_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError, match="head dim"):
         tfa.stream_attention(q[..., :48], k[..., :48], v[..., :48],
                              scale=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", [
+    ((32, 8, 260, 64), False), ((16, 16, 266, 64), False),
+    ((16, 16, 512, 64), False), ((16, 16, 512, 64), True),
+    ((32, 8, 260, 64), True), ((2, 3, 100, 128), True)])
+def test_full_block_bwd_kernel_matches_plain(shape, masked):
+    _cuda_or_skip()
+    q, k, v = _qkv(shape, seed=14)
+    do = _qkv(shape, seed=15)[0]
+    bias = _bias(shape[0], shape[2], full_row=0) if masked else None
+    out, m, l = tfa._full_block_fwd(q, k, v, bias, 0.125, stats=True)
+    before = tfa.full_block_attention_bwd.launches
+    got = tfa.full_block_attention_bwd(q, k, v, do, out, m, l, scale=0.125,
+                                       bias=bias)
+    want = tfa.full_block_attention_bwd_plain(q, k, v, do, scale=0.125,
+                                              bias=bias)
+    torch.cuda.synchronize()
+    assert tfa.full_block_attention_bwd.launches == before + 1
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= BWD_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", [
+    ((16, 1, 1024, 512), False), ((4, 1, 1024, 512), True),
+    ((1, 2, 600, 64), True), ((2, 1, 300, 256), True)])
+def test_stream_bwd_kernels_match_plain(shape, masked):
+    _cuda_or_skip()
+    q, k, v = _qkv(shape, seed=16)
+    do = _qkv(shape, seed=17)[0]
+    scale = shape[3] ** -0.5
+    bias = None
+    if masked:  # and one whole key block of 32 masked in every row
+        bias = _bias(shape[0], shape[2])
+        bias[:, 64:96] = -1e30
+    out, lse = tfa.stream_attention(q, k, v, scale=scale, bias=bias)
+    delta = (do.float() * out.float()).sum(-1)
+    n_dq = tfa.stream_attention_bwd_dq.launches
+    n_dkv = tfa.stream_attention_bwd_dkv.launches
+    dq = tfa.stream_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale,
+                                     bias=bias)
+    dk, dv = tfa.stream_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                          scale=scale, bias=bias)
+    want = tfa.stream_attention_bwd_plain(q, k, v, do, out, lse, scale=scale,
+                                          bias=bias)
+    torch.cuda.synchronize()
+    assert tfa.stream_attention_bwd_dq.launches == n_dq + 1
+    assert tfa.stream_attention_bwd_dkv.launches == n_dkv + 1
+    for g, w in zip((dq, dk, dv), want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= BWD_RTOL
+    if masked:  # the masked key block gets no gradient
+        assert dk[:, :, 64:96].abs().max().item() == 0
+        assert dv[:, :, 64:96].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 8, 260, 64), (2, 1, 1024, 512)])
+def test_sdpa_gradient_runs_the_backward_kernels(shape):
+    """On a CUDA tensor that requires grad, sdpa's output has a grad_fn and
+    its backward launches the port's backward kernel(s), once each."""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops import attention as tattn
+    q, k, v = [x.requires_grad_() for x in _qkv(shape, seed=18)]
+    counters = [tfa.full_block_attention_bwd, tfa.stream_attention_bwd_dq,
+                tfa.stream_attention_bwd_dkv]
+    before = [c.launches for c in counters]
+    out = tattn.sdpa(q, k, v)
+    assert out.grad_fn is not None
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    ran = [c.launches - b for c, b in zip(counters, before)]
+    assert ran == ([1, 0, 0] if shape[3] == 64 else [0, 1, 1])
+    assert all(x.grad is not None and bool(torch.isfinite(x.grad).all())
+               for x in (q, k, v))
