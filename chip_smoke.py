@@ -7,15 +7,20 @@ Phases (any failure exits non-zero without the final result line):
 
 1. build the hand-written CUDA kernels from ``hivae_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) into ``hivae_tpu_torch/build/``;
-2. hold each kernel against its plain PyTorch version in bf16: the forward
-   kernels at the shapes the clip-reconstruction path gives them, plus a
-   masked camera case with a fully masked key row (must give the uniform
-   average, not NaN); the backward kernels at every training shape for
+2. hold each kernel against its plain PyTorch version: the forward
+   kernels (bf16) at the shapes the clip-reconstruction path gives them,
+   plus a masked camera case with a fully masked key row (must give the
+   uniform average, not NaN); the fused qk-norm forward at the same shapes
+   and its autograd gradients at the camera-joint shape; the int8 fused
+   FFN-up + GELU + requantise kernel at the three FFN row counts of the
+   int8 clip; the backward kernels at every training shape for
    N = 4 and N = 1 clips, plus masked cases. Each kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
    ``F.scaled_dot_product_attention`` forward plus backward minus its
-   forward) are timed with CUDA events;
+   forward; for the qk-norm kernel two ``F.layer_norm`` and one SDPA; for the
+   FFN kernel ``torch._int_mm`` of its GEMM alone) are timed with CUDA
+   events;
 3. build the full-width flagship AMD_N (``configs/amd/amd_n_t1d512_spatial.json``)
    and the SD-VAE in bf16 on seeded random weights and reconstruct one
    synthetic 17 x 3 x 256 x 256 clip at ``sample_step=10`` through
@@ -25,6 +30,19 @@ Phases (any failure exits non-zero without the final result line):
    must be finite before quantisation, uint8 of the expected shape, and
    agree with the same clip run with the plain attention versions in
    place of the kernels;
+   3c. the same clip with ``ops.attention.QKNORM_FUSE = True``: 248 launches
+   of the fused qk-norm kernel, none of the plain full-block one, 3
+   streaming; it must agree with phase 3's clip; then both clips timed in
+   turns, 4 of each;
+   3b. (run after 3c, since it strips the models' float weights) the int8
+   clip through ``AMDReconstructionPipeline(vae, amd, quant="int8")`` on
+   the same weights: 360 fused FFN-up launches (36 FFNs x 10 Euler steps),
+   248 full-block and 3 streaming; uint8, finite before quantisation, and
+   in agreement with the same int8 clip run with the plain FFN-up version
+   and with the plain versions of all kernels (see ``CLIP_INT8_NOISE_RATIO``
+   for how each reference is held); its distance and PSNR to phase 3's
+   bf16 clip and the serving models' device memory, bf16 against stripped
+   int8, are printed;
 4. training run A, the flagship script's settings on one card: AMD_N with
    fp32 master weights and bf16 compute, remat ``full``, AdamW (lr 1e-4,
    decay 1e-2, clip 1.0, bf16 first moment) on N = 4 synthetic clips with
@@ -45,8 +63,9 @@ Float32 matmuls and convolutions run without TF32 here
 (``torch.backends.cuda.matmul.allow_tf32`` and
 ``torch.backends.cudnn.allow_tf32`` both False), and cuDNN picks
 deterministic algorithms. ``--profile DIR`` also writes a
-``torch.profiler`` table of one clip to ``DIR/profile_clip.txt`` and of one
-run-A training step to ``DIR/profile_train.txt``.
+``torch.profiler`` table of one clip to ``DIR/profile_clip.txt``, of one
+int8 clip to ``DIR/profile_clip_int8.txt`` and of one run-A training step
+to ``DIR/profile_train.txt``.
 """
 
 from __future__ import annotations
@@ -69,6 +88,7 @@ SAMPLE_STEP = 10
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 KERNEL_ATOL = 2e-2   # bf16 outputs of unit scale: P rounded at other points
@@ -78,6 +98,33 @@ LSE_ATOL = 1e-3      # fp32 LSE, sums in another order
 # decoded pixel by a few uint8 levels. Mean |diff| stays well below one.
 CLIP_MEAN_ATOL = 1.0
 CLIP_P99_ATOL = 8
+# An int8 network carries a rounding flip on: an activation one step off on
+# its grid moves the next layer's inputs, which flips more values there, and
+# so on. Against its run with the plain attention versions (P rounded to
+# bf16 at other points) the int8 clip therefore differs by about as much as
+# int8 differs from bf16 on these random weights (measured on an H100 80GB
+# HBM3 at 700 W: 4.61 levels mean against 3.61). So that run is held to a
+# multiple of its own distance from phase 3's bf16 clip, a scale that does
+# not depend on the clip under test; the run with only the FFN kernel's
+# plain version in place, which the kernel matches bit for bit, to
+# CLIP_MEAN_ATOL and CLIP_P99_ATOL.
+CLIP_INT8_NOISE_RATIO = 2.0
+# bf16 and qk-norm clips timed in turns, this many of each
+QKNORM_TURNS = 4
+# The fused FFN kernel against its plain version: the kernel spells out the
+# plain version's roundings and gives its bits (against PyTorch's fused
+# GELU and a division by a Python number it was 2 elements of 33.5 M one
+# step off); the tolerance stays at one step on 0.1% of the elements.
+FFN_MAX_STEP = 1
+FFN_OFF_BY_ONE_SHARE = 1e-3
+FFN_SCALE_RTOL = 1e-6
+FFN_DEQUANT_RTOL = 1e-3
+# (name, rows M, launches per int8 clip) of the FFN-up at K 1024, N 4096:
+# 12 layers x 10 Euler steps each
+FFN_CASES = [("DiT object joint", 16 * 266, 12 * SAMPLE_STEP),
+             ("DiT camera joint", 16 * 512, 12 * SAMPLE_STEP),
+             ("DiT per-pixel temporal", 256 * 16, 12 * SAMPLE_STEP)]
+FFN_K, FFN_N = 1024, 4096
 
 # (name, q shape, launches per clip at sample_step=10)
 FULL_BLOCK_CASES = [
@@ -133,9 +180,10 @@ def _ptxas_summary(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2hv(\d+)(\w+)'", line)
         if m:
-            d = re.search(r"ILi(\d+)E", m.group(2))
-            kernel = m.group(2)[:int(m.group(1))] + (f"<{d.group(1)}>" if d
-                                                      else "")
+            d = re.search(r"ILi(\d+)E(Lb1E)?", m.group(2))
+            kernel = m.group(2)[:int(m.group(1))] + (
+                f"<{d.group(1)}{', qknorm' if d.group(2) else ''}>" if d
+                else "")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line:
@@ -432,6 +480,162 @@ def check_kernels(fa, failures):
     ]
 
 
+def _norm_params(gen, d):
+    """gamma/beta of q and k, fp32, drawn away from (1, 0)."""
+    import torch
+
+    def draw(mean, std):
+        return mean + std * torch.randn((d,), generator=gen, device="cuda")
+    return [draw(1.0, 0.5), draw(0.0, 0.3), draw(1.0, 0.5), draw(0.0, 0.3)]
+
+
+def check_qknorm(fa, failures):
+    """Phase 2, the fused qk-norm forward at the full-block shapes (raw q
+    and k far from normalised), its autograd gradients at the camera-joint
+    shape, and its times. Returns the kernel's record."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def rand(shape, mean=0.0, std=1.0):
+        return (mean + std * torch.randn(shape, generator=gen,
+                                         device="cuda")).bfloat16()
+
+    cases = []
+    for label, shape, per_clip in FULL_BLOCK_CASES + [
+            ("DiT camera joint, masked", (16, 16, 512, 64), 0)]:
+        q, k, v = rand(shape, 1.0, 3.0), rand(shape, -1.0, 2.0), rand(shape)
+        norms = _norm_params(gen, shape[3])
+        scale = shape[3] ** -0.5
+        bias = None
+        if per_clip == 0:
+            keep = torch.rand((shape[0], shape[2]), generator=gen,
+                              device="cuda") > 0.3
+            keep[0] = False   # one fully masked row
+            bias = torch.where(keep, 0.0, -1e30).to(torch.float32)
+        kw = dict(scale=scale, bias=bias)
+        got = fa.full_block_attention_qknorm(q, k, v, *norms, **kw)
+        want = fa.full_block_attention_qknorm_plain(q, k, v, *norms, **kw)
+        torch.cuda.synchronize()
+        err = _abs_err(got, want)
+        finite = bool(torch.isfinite(got).all())
+        if not (finite and err <= KERNEL_ATOL):
+            failures.append(f"full_block_qknorm {label}: max|err| {err} "
+                            f"finite {finite}")
+        mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+        d = shape[3]
+
+        def library():
+            qn = F.layer_norm(q, (d,), norms[0].bfloat16(),
+                              norms[1].bfloat16(), 1e-6)
+            kn = F.layer_norm(k, (d,), norms[2].bfloat16(),
+                              norms[3].bfloat16(), 1e-6)
+            return F.scaled_dot_product_attention(qn, kn, v, attn_mask=mask,
+                                                  scale=scale)
+        ms = _time_ms(lambda: fa.full_block_attention_qknorm(
+            q, k, v, *norms, **kw), 50)
+        plain_ms = _time_ms(lambda: fa.full_block_attention_qknorm_plain(
+            q, k, v, *norms, **kw), 10)
+        lib_ms = _time_ms(library, 50)
+        bytes_ms, ops_ms = _bound(shape, bias is not None, False)
+        cases.append(dict(label=label, shape=list(shape), per_clip=per_clip,
+                          weight=per_clip, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bytes_ms=bytes_ms, ops_ms=ops_ms))
+        _log(f"  full_block_qknorm {label} {shape}: max|err| {err:.3g}  "
+             f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  layer_norm x2 + "
+             f"sdpa {lib_ms:.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms")
+
+    # gradients: autograd through the fused kernel (its backward recomputes
+    # the unfused composition on the full-block kernels) against autograd
+    # through the plain version. beta_k's gradient is zero in exact
+    # arithmetic (softmax ignores a shift shared by all keys): both sides
+    # hold rounding noise there, held against gamma_k's scale.
+    shape = (16, 16, 512, 64)
+    base = [rand(shape), rand(shape), rand(shape)] + _norm_params(gen, 64)
+    do = rand(shape)
+    grads = []
+    for fn in (fa.full_block_attention_qknorm,
+               fa.full_block_attention_qknorm_plain):
+        leaves = [x.detach().requires_grad_() for x in base]
+        fn(*leaves, scale=0.125).backward(do)
+        grads.append([x.grad for x in leaves])
+    torch.cuda.synchronize()
+    errs = [_rel_err(g, w) for g, w in zip(grads[0][:6], grads[1][:6])]
+    errs.append(_abs_err(grads[0][6], grads[1][6])
+                / grads[1][5].float().abs().max().item())
+    finite = all(bool(torch.isfinite(g).all()) for g in grads[0])
+    _log(f"  full_block_qknorm gradients {shape}: rel err q/k/v/gq/bq/gk/bk "
+         + " ".join(f"{e:.3g}" for e in errs))
+    if not (finite and max(errs) <= BWD_RTOL):
+        failures.append(f"full_block_qknorm gradients: rel err {errs} "
+                        f"finite {finite}")
+    return {"name": "full_block_attention_qknorm", "route": "cuda",
+            "source": "hivae_tpu_torch/csrc/flash_full_block.cu",
+            "replaces": "hivae_tpu/ops/pallas/flash_attention.py:140",
+            "cases": cases, "grad_rel_err": errs}
+
+
+def _ffn_bound(m, k, n):
+    """(bytes ms, operations ms) of one FFN-up call: xq (M K), w8 (K N)
+    and yq (M N) int8 once each, the fp32 sx read and sy written (8 M), ws
+    and bias (8 N); 2 M K N int8 operations at the int8 tensor-core peak."""
+    nbytes = m * k + k * n + m * n + 8 * m + 8 * n
+    return (nbytes / PEAK_HBM_BYTES * 1e3,
+            2 * m * k * n / PEAK_INT8_OPS * 1e3)
+
+
+def check_quant_ffn(qf, failures):
+    """Phase 2, the fused int8 FFN-up kernel at the int8 clip's three row
+    counts, on per-token int8 of a random bf16 activation and a
+    per-channel int8 weight. Returns the kernel's record."""
+    import torch
+    from hivae_tpu_torch.ops import quant as quant_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    w = torch.randn((FFN_N, FFN_K), generator=gen, device="cuda") / 32
+    w8, ws = quant_ops._quantize_kernel(w)
+    bias = 0.1 * torch.randn((FFN_N,), generator=gen, device="cuda")
+    cases = []
+    for label, m, per_clip in FFN_CASES:
+        x = torch.randn((m, FFN_K), generator=gen, device="cuda").bfloat16()
+        xq, sx = quant_ops.quant_act(x)
+        args = (xq, sx, w8, ws, bias)
+        yq, sy = qf.fused_ffn_up_quant(*args)
+        wq, wsy = qf.fused_ffn_up_quant_plain(*args)
+        torch.cuda.synchronize()
+        step = (yq.int() - wq.int()).abs()
+        worst, off = step.max().item(), (step == 1).float().mean().item()
+        rel_s = ((sy - wsy).abs() / wsy).max().item()
+        want = wq.float() * wsy
+        l2 = ((yq.float() * sy - want).norm() / want.norm()).item()
+        if not (worst <= FFN_MAX_STEP and off <= FFN_OFF_BY_ONE_SHARE
+                and rel_s <= FFN_SCALE_RTOL and l2 <= FFN_DEQUANT_RTOL):
+            failures.append(f"fused_ffn_up_quant {label} M={m}: max step "
+                            f"{worst}, off by one {off}, scale rel {rel_s}, "
+                            f"dequant L2 {l2}")
+        ms = _time_ms(lambda: qf.fused_ffn_up_quant(*args), 20)
+        plain_ms = _time_ms(lambda: qf.fused_ffn_up_quant_plain(*args), 5)
+        lib_ms = _time_ms(lambda: torch._int_mm(xq, w8.t()), 20)
+        bytes_ms, ops_ms = _ffn_bound(m, FFN_K, FFN_N)
+        cases.append(dict(label=label, shape=[m, FFN_K, FFN_N],
+                          per_clip=per_clip, weight=per_clip,
+                          max_abs_err=worst, off_by_one_share=off,
+                          scale_rel_err=rel_s, dequant_rel_l2=l2, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bytes_ms=bytes_ms, ops_ms=ops_ms))
+        _log(f"  fused_ffn_up_quant {label} ({m}, {FFN_K}) x ({FFN_K}, "
+             f"{FFN_N}): max step {worst}, off by one {off:.3g}, scale rel "
+             f"{rel_s:.3g}, dequant L2 {l2:.3g}  kernel {ms:.4f} ms  plain "
+             f"{plain_ms:.4f} ms  _int_mm {lib_ms:.4f} ms  bound "
+             f"{max(bytes_ms, ops_ms):.4f} ms")
+    return {"name": "fused_ffn_up_quant", "route": "cuda",
+            "source": "hivae_tpu_torch/csrc/quant_ffn.cu",
+            "replaces": "hivae_tpu/ops/pallas/quant_ffn.py:78",
+            "cases": cases}
+
+
 def summarise(rec, launches):
     """One kernel's line entry. Times and bounds are per launch, averaged
     over the launch mix of the path the kernel's weights describe (the clip
@@ -477,12 +681,12 @@ def synthetic_clip(seed: int = SEED):
     return rgb, grey
 
 
-def run_clip(fa, args, failures):
-    """Phase 3. Returns (launches per kernel name, latency s)."""
+def build_serving_models():
+    """Full-width flagship AMD_N and the SD-VAE in bf16, seeded random
+    weights, on the card."""
     import torch
     from hivae_tpu_torch.models import amd as amd_mod
     from hivae_tpu_torch.models import vae as vae_mod
-    from hivae_tpu_torch.pipelines import AMDReconstructionPipeline
 
     with open(CONFIG) as f:
         cfg = amd_mod.AMDConfig.from_dict(json.load(f))
@@ -495,16 +699,21 @@ def run_clip(fa, args, failures):
     n_vae = sum(p.numel() for p in vae.parameters())
     _log(f"  AMD_N {n_amd / 1e6:.1f} M params, SD-VAE {n_vae / 1e6:.1f} M, "
          f"bf16, built in {time.perf_counter() - t0:.1f} s")
+    return amd, vae
 
+
+def _timed_clip(pipe, label, failures, want_launches):
+    """One warm-up clip, then a timed one with the launch counters set to 0
+    just before and read just after. Checks the uint8 shape, finite decoded
+    pixels before quantisation (the decoder's last conv, observed from
+    outside the port) and the launches. Returns (clip fn, clip, launches,
+    latency s)."""
+    import torch
     rgb, grey = synthetic_clip()
     pixels = torch.from_numpy(rgb).cuda()
     grey = torch.from_numpy(grey).cuda()
-    pipe = AMDReconstructionPipeline(vae, amd, window=WINDOW)
-
-    # finiteness of the decoded pixels before quantisation, observed from
-    # outside the port: the decoder's last conv output
     decoded = []
-    hook = vae.decoder.conv_out.register_forward_hook(
+    hook = pipe.vae.decoder.conv_out.register_forward_hook(
         lambda _m, _i, out: decoded.append(torch.isfinite(out).all()))
 
     def clip():
@@ -515,79 +724,219 @@ def run_clip(fa, args, failures):
     clip()  # warm-up
     torch.cuda.synchronize()
     decoded.clear()
-    _zero_counts(fa)
+    _zero_counts()
     t0 = time.perf_counter()
     out = clip()
     torch.cuda.synchronize()
     latency = time.perf_counter() - t0
-    launches = _read_counts(fa)
+    launches = _read_counts()
     hook.remove()
 
     if tuple(out.shape) != (WINDOW + 1, 3, SIZE, SIZE) or \
             out.dtype != torch.uint8:
-        failures.append(f"clip: got {tuple(out.shape)} {out.dtype}")
+        failures.append(f"{label}: got {tuple(out.shape)} {out.dtype}")
     if not (decoded and all(bool(x) for x in decoded)):
-        failures.append("clip: decoded pixels not finite before quantisation")
-    if launches != dict(_no_launches(), full_block_attention=248,
-                        stream_attention=3):
-        failures.append(f"clip: launches {launches}, want 248 full-block "
-                        f"and 3 streaming")
+        failures.append(f"{label}: decoded pixels not finite before "
+                        "quantisation")
+    want = dict(_no_launches(), **want_launches)
+    if launches != want:
+        failures.append(f"{label}: launches {launches}, want {want}")
     o = out.float()
-    _log(f"  clip {tuple(out.shape)} {out.dtype}: mean {o.mean():.2f} std "
+    _log(f"  {label} {tuple(out.shape)} {out.dtype}: mean {o.mean():.2f} std "
          f"{o.std():.2f}; latency {latency * 1e3:.2f} ms, "
          f"{WINDOW / latency:.2f} reconstructed frames/s; launches "
-         f"{launches}")
+         f"{ {k: v for k, v in launches.items() if v} }")
+    return clip, out, launches, latency
 
-    # reference: the same clip with the plain attention versions in place
-    # of the kernels, on the same card and weights
-    with _plain_attention(fa):
-        ref = clip()
-    diff = (out.int() - ref.int()).abs().float()
+
+def _clip_diff(label, got, want, failures=None):
+    """Mean, p99 and max |diff| in uint8 levels and the PSNR of ``got``
+    against ``want``; with ``failures``, gated by CLIP_MEAN_ATOL and
+    CLIP_P99_ATOL."""
+    import torch
+    diff = (got.int() - want.int()).abs().float()
     mean_d = diff.mean().item()
     p99 = torch.quantile(diff.flatten(), 0.99).item()
-    _log(f"  clip vs plain-attention clip: mean|diff| {mean_d:.4f} levels, "
-         f"p99 {p99:.0f}, max {diff.max().item():.0f}")
-    if not (mean_d <= CLIP_MEAN_ATOL and p99 <= CLIP_P99_ATOL):
-        failures.append(f"clip vs plain: mean {mean_d} p99 {p99}")
+    mse = diff.square().mean().item()
+    psnr = 10 * math.log10(255.0 ** 2 / mse) if mse else float("inf")
+    _log(f"  {label}: mean|diff| {mean_d:.4f} levels, p99 {p99:.0f}, max "
+         f"{diff.max().item():.0f}, PSNR {psnr:.2f} dB")
+    if failures is not None and not (mean_d <= CLIP_MEAN_ATOL
+                                     and p99 <= CLIP_P99_ATOL):
+        failures.append(f"{label}: mean {mean_d} p99 {p99}")
+    return mean_d, psnr
 
+
+def run_clip(models, args, failures):
+    """Phase 3. Returns (launches per kernel name, latency s, clip)."""
+    from hivae_tpu_torch.pipelines import AMDReconstructionPipeline
+
+    amd, vae = models
+    pipe = AMDReconstructionPipeline(vae, amd, window=WINDOW)
+    clip, out, launches, latency = _timed_clip(
+        pipe, "clip", failures,
+        dict(full_block_attention=248, stream_attention=3))
+    # reference: the same clip with the plain attention versions in place
+    # of the kernels, on the same card and weights
+    with _plain_kernels():
+        ref = clip()
+    _clip_diff("clip vs plain-attention clip", out, ref, failures)
     if args.profile:
         profile_clip(pipe, clip, args.profile)
+    return launches, latency, out
+
+
+def run_qknorm_clip(models, bf16_clip, failures):
+    """Phase 3c: phase 3's clip with the q/k LayerNorm fused into the
+    full-block kernel, then both clips timed in turns (the host-side spread
+    of one clip is larger than their difference). Returns (launches,
+    latency s)."""
+    import statistics
+    import torch
+    from hivae_tpu_torch.ops import attention as attn_ops
+    from hivae_tpu_torch.pipelines import AMDReconstructionPipeline
+
+    amd, vae = models
+    pipe = AMDReconstructionPipeline(vae, amd, window=WINDOW)
+    attn_ops.QKNORM_FUSE = True
+    try:
+        clip, out, launches, latency = _timed_clip(
+            pipe, "qk-norm clip", failures,
+            dict(full_block_attention_qknorm=248, stream_attention=3))
+        _clip_diff("qk-norm clip vs phase 3 clip", out, bf16_clip, failures)
+        turns = {False: [], True: []}
+        for _ in range(QKNORM_TURNS):
+            for fuse in (False, True):
+                attn_ops.QKNORM_FUSE = fuse
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                clip()
+                torch.cuda.synchronize()
+                turns[fuse].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        attn_ops.QKNORM_FUSE = False
+    _log("  clip latency ms in turns: q/k LayerNorm outside the kernel "
+         + " ".join(f"{x:.2f}" for x in turns[False])
+         + f" (median {statistics.median(turns[False]):.2f}); fused "
+         + " ".join(f"{x:.2f}" for x in turns[True])
+         + f" (median {statistics.median(turns[True]):.2f})")
     return launches, latency
 
 
-COUNTERS = ("full_block_attention", "full_block_attention_bwd",
-            "stream_attention", "stream_attention_bwd_dq",
-            "stream_attention_bwd_dkv")
+def _model_bytes(*mods):
+    return sum(t.numel() * t.element_size() for m in mods
+               for t in list(m.parameters()) + list(m.buffers()))
+
+
+def _table_bytes(*tables):
+    return sum(t.numel() * t.element_size() for table in tables
+               for e in table.values() for t in e.values())
+
+
+def run_int8_clip(models, bf16_clip, bf16_latency, args, failures):
+    """Phase 3b: the int8 clip through AMDReconstructionPipeline(quant=
+    "int8"), which strips the models' covered float weights. Returns
+    (launches, latency s)."""
+    import gc
+    import torch
+    from hivae_tpu_torch.pipelines import AMDReconstructionPipeline
+
+    amd, vae = models
+    gc.collect()
+    torch.cuda.synchronize()
+    before, model_bf16 = torch.cuda.memory_allocated(), _model_bytes(amd, vae)
+    t0 = time.perf_counter()
+    pipe = AMDReconstructionPipeline(vae, amd, window=WINDOW, quant="int8")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    after = torch.cuda.memory_allocated()
+    model_int8 = _model_bytes(amd, vae) + _table_bytes(pipe.quant_table,
+                                                       pipe.vae_quant_table)
+    gib = 2.0 ** 30
+    _log(f"  int8 tables: DiT {len(pipe.quant_table)} layers, VAE decoder "
+         f"{len(pipe.vae_quant_table)}, built and stripped in {build_s:.2f} "
+         f"s; serving models bf16 {model_bf16 / gib:.3f} GiB vs int8 "
+         f"{model_int8 / gib:.3f} GiB; torch.cuda.memory_allocated "
+         f"{before / gib:.3f} -> {after / gib:.3f} GiB")
+    clip, out, launches, latency = _timed_clip(
+        pipe, "int8 clip", failures,
+        dict(fused_ffn_up_quant=360, full_block_attention=248,
+             stream_attention=3))
+    with _plain_kernels(("fused_ffn_up_quant",)):
+        ref = clip()
+    _clip_diff("int8 clip vs the int8 clip with the plain FFN-up version",
+               out, ref, failures)
+    _clip_diff("int8 clip vs phase 3 bf16 clip (random weights)", out,
+               bf16_clip)
+    with _plain_kernels():
+        ref = clip()
+    to_plain, _ = _clip_diff("int8 clip vs the int8 clip on all plain "
+                             "versions", out, ref)
+    noise, _ = _clip_diff("int8 clip on all plain versions vs phase 3 bf16 "
+                          "clip", ref, bf16_clip)
+    if not to_plain <= CLIP_INT8_NOISE_RATIO * noise:
+        failures.append(f"int8 clip vs all plain versions: mean {to_plain}, "
+                        f"more than {CLIP_INT8_NOISE_RATIO} x their run's "
+                        f"distance {noise} from the bf16 clip")
+    _log(f"  latency: bf16 clip {bf16_latency * 1e3:.2f} ms, int8 clip "
+         f"{latency * 1e3:.2f} ms")
+    if args.profile:
+        profile_clip(pipe, clip, args.profile, "profile_clip_int8.txt")
+    return launches, latency
+
+
+COUNTERS = ("full_block_attention", "full_block_attention_qknorm",
+            "full_block_attention_bwd", "stream_attention",
+            "stream_attention_bwd_dq", "stream_attention_bwd_dkv",
+            "fused_ffn_up_quant")
+
+
+def _wrappers():
+    """Each counted kernel wrapper by its counter's name."""
+    from hivae_tpu_torch.ops.kernels import flash_attention as fa
+    from hivae_tpu_torch.ops.kernels import quant_ffn as qf
+    return {name: getattr(qf if name == "fused_ffn_up_quant" else fa, name)
+            for name in COUNTERS}
 
 
 def _no_launches():
     return {name: 0 for name in COUNTERS}
 
 
-def _zero_counts(fa):
-    for name in COUNTERS:
-        getattr(fa, name).launches = 0
+def _zero_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
-def _read_counts(fa):
-    return {name: getattr(fa, name).launches for name in COUNTERS}
+def _read_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-class _plain_attention:
-    """The plain attention versions in place of the kernels (the sdpa
-    dispatch calls them through the module), for a reference run."""
+class _plain_kernels:
+    """The plain versions in place of the forward kernels named (default
+    all of them; the sdpa dispatch and the int8 FFN call them through their
+    modules), for a reference run."""
 
-    def __init__(self, fa):
-        self.fa = fa
+    FORWARD = ("full_block_attention", "full_block_attention_qknorm",
+               "stream_attention", "fused_ffn_up_quant")
+
+    def __init__(self, names=FORWARD):
+        self.names = names
 
     def __enter__(self):
-        fa = self.fa
-        self.kernels = (fa.full_block_attention, fa.stream_attention)
-        fa.full_block_attention = fa.full_block_attention_plain
-        fa.stream_attention = fa.stream_attention_plain
+        from hivae_tpu_torch.ops.kernels import flash_attention as fa
+        from hivae_tpu_torch.ops.kernels import quant_ffn as qf
+        self.mods = [qf if n == "fused_ffn_up_quant" else fa
+                     for n in self.names]
+        self.kernels = [getattr(m, n) for m, n in zip(self.mods, self.names)]
+        for m, n in zip(self.mods, self.names):
+            setattr(m, n, getattr(m, n + "_plain"))
 
     def __exit__(self, *exc):
-        self.fa.full_block_attention, self.fa.stream_attention = self.kernels
+        for m, n, fn in zip(self.mods, self.names, self.kernels):
+            setattr(m, n, fn)
 
 
 def build_training_models():
@@ -618,7 +967,8 @@ def _expected_step_launches(cfg, perceptual: bool):
     VAE encodes runs one streaming forward, and the perceptual leg's decode
     one more streaming forward and its two backward kernels."""
     enc, dit = cfg.object_enc_num_layers, 2 * cfg.diffusion_num_layers
-    return dict(full_block_attention=enc + dit * (2 if cfg.remat else 1),
+    return dict(_no_launches(),
+                full_block_attention=enc + dit * (2 if cfg.remat else 1),
                 full_block_attention_bwd=enc + dit,
                 stream_attention=4 + int(perceptual),
                 stream_attention_bwd_dq=int(perceptual),
@@ -657,12 +1007,12 @@ def run_training(fa, models, failures, *, label, clips, steps,
     _log(f"  {label}: warm-up step {time.perf_counter() - t0:.2f} s")
     before = [p.detach().clone() for p in params]
     torch.cuda.reset_peak_memory_stats()
-    _zero_counts(fa)
+    _zero_counts()
     t0 = time.perf_counter()
     metrics = [trainer.train_step(batch) for _ in range(steps)]
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
-    launches = _read_counts(fa)
+    launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     want = {k: v * steps for k, v in
             _expected_step_launches(amd.cfg, perceptual).items()}
@@ -690,7 +1040,7 @@ def run_training(fa, models, failures, *, label, clips, steps,
     # batch and draws
     draws = trainer.draw(batch)
     mk, gk = trainer.loss_and_grads(batch, draws)
-    with _plain_attention(fa):
+    with _plain_kernels():
         mp, gp = trainer.loss_and_grads(batch, draws)
     rel = abs(mk["loss"].item() - mp["loss"].item()) / abs(mp["loss"].item())
     dot = sum((a * b).sum() for a, b in zip(gk, gp)).item()
@@ -765,11 +1115,11 @@ def profile_step(trainer, batch, out_dir):
     _log(f"  profile written to {path}")
 
 
-def profile_clip(pipe, clip, out_dir):
+def profile_clip(pipe, clip, out_dir, filename="profile_clip.txt"):
     """Five timed clips (the spread of the latency), the stream time spent
     in each stage's module (CUDA events at its forward hooks), and one clip
     under torch.profiler: the kernel table by device time and the device's
-    busy share of the clip's wall time. Written to DIR/profile_clip.txt."""
+    busy share of the clip's wall time. Written to DIR/``filename``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
@@ -831,7 +1181,7 @@ def profile_clip(pipe, clip, out_dir):
                  f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e6 / wall:.1f}%)")
     for line in lines:
         _log("  " + line)
-    path = os.path.join(out_dir, "profile_clip.txt")
+    path = os.path.join(out_dir, filename)
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n\n")
         f.write(events.table(sort_by="self_device_time_total",
@@ -852,6 +1202,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from hivae_tpu_torch.ops.kernels import _build
     from hivae_tpu_torch.ops.kernels import flash_attention as fa
+    from hivae_tpu_torch.ops.kernels import quant_ffn as qf
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -871,11 +1222,21 @@ def main() -> int:
         for line in _ptxas_summary(log):
             _log(f"  {name}: {line}")
 
-    _log("phase 2: kernels vs plain versions (bf16)")
-    records = check_kernels(fa, failures) + check_bwd_kernels(fa, failures)
+    _log("phase 2: kernels vs plain versions")
+    records = (check_kernels(fa, failures) + [check_qknorm(fa, failures),
+                                              check_quant_ffn(qf, failures)]
+               + check_bwd_kernels(fa, failures))
 
     _log("phase 3: full-width AMD_N + SD-VAE clip reconstruction")
-    paths = {"clip": run_clip(fa, args, failures)[0]}
+    serving = build_serving_models()
+    paths = {}
+    paths["clip"], latency, bf16_clip = run_clip(serving, args, failures)
+    _log("phase 3c: the same clip with the fused qk-norm kernel")
+    paths["clip_qknorm"], _ = run_qknorm_clip(serving, bf16_clip, failures)
+    _log("phase 3b: the int8 (w8a8) clip")
+    paths["clip_int8"], _ = run_int8_clip(serving, bf16_clip, latency,
+                                          args, failures)
+    del serving
     torch.cuda.empty_cache()
 
     _log(f"phase 4: training run A, N={RUN_A_CLIPS}, MSE loss")

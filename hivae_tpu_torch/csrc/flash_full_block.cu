@@ -24,6 +24,15 @@
 // K/V per 64-row query tile from L2. Each tile arrives by cp.async in one
 // batch, but loads do not overlap compute (one buffer); wgmma/TMA
 // pipelining is later work.
+//
+// The same kernel with QKN = true replaces _fwd_kernel_qknorm (driven by
+// _flash_qknorm_fwd_impl): q and k arrive raw and each staged Q and K tile
+// is normalised in shared memory by a per-head LayerNorm over D (ln_rows,
+// the operation order of _ln_block) and rounded to bf16 before Q.K^T. Every
+// query CTA normalises every K tile it loads, in both passes: redundant
+// work (about 2*(Sq/64) normalisations of each K row) but cheap next to the
+// two Q.K^T products; normalising K once per head is a later optimisation.
+// The LayerNorm reads and writes shared memory only, so the bound is row 1's.
 #include "attn_common.cuh"
 
 namespace hv {
@@ -49,11 +58,50 @@ __device__ __forceinline__ void fb_scores(float s[FB_BK / 8][4],
   }
 }
 
-template <int D>
+// Per-head LayerNorm over D of the NROWS rows of a shared bf16 tile, in
+// place, as hivae_tpu/ops/pallas/flash_attention.py::_ln_block (flax fast
+// variance): fp32 mean and mean of squares, var = max(mean2 - mean^2, 0),
+// mul = rsqrt(var + eps) * gamma, y = (x - mean) * mul + beta, rounded to
+// bf16. Two threads per row, each summing one half of D. The _rn
+// intrinsics keep the plain version's separate roundings (no fused
+// multiply-add). Rows past the sequence (zero-filled) become beta; their
+// logits are masked and their outputs are not stored.
+template <int D, int NROWS, int NTHREADS>
+__device__ __forceinline__ void ln_rows(bf16* T, int ld, const float* gamma,
+                                        const float* beta, float eps,
+                                        int tid) {
+  static_assert(NTHREADS == 2 * NROWS, "two threads per row");
+  constexpr int HALF = D / 2;
+  const int r = tid >> 1, c0 = (tid & 1) * HALF;
+  bf16* p = T + r * ld + c0;
+  float s = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float x = __bfloat162float(p[i]);
+    s = __fadd_rn(s, x);
+    s2 = __fadd_rn(s2, __fmul_rn(x, x));
+  }
+  s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, 1));
+  s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, 1));
+  const float mean = __fdiv_rn(s, (float)D), mean2 = __fdiv_rn(s2, (float)D);
+  const float var = fmaxf(__fsub_rn(mean2, __fmul_rn(mean, mean)), 0.f);
+  const float rs = rsqrtf(__fadd_rn(var, eps));
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float x = __bfloat162float(p[i]);
+    const float mul = __fmul_rn(rs, gamma[c0 + i]);
+    p[i] = __float2bfloat16_rn(
+        __fadd_rn(__fmul_rn(__fsub_rn(x, mean), mul), beta[c0 + i]));
+  }
+}
+
+template <int D, bool QKN>
 __global__ void __launch_bounds__(FB_THREADS)
 full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
-                      const float* __restrict__ bias, bf16* __restrict__ o,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ norms, float eps,
+                      bf16* __restrict__ o,
                       float* __restrict__ m_out, float* __restrict__ l_out,
                       int H, int Sq, int Sk, float scale, long qsb, long qsh,
                       long qss, long ksb, long ksh, long kss, long vsb,
@@ -66,6 +114,8 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* Ks = Qs + FB_BQ * LD;
   bf16* Vs = Ks + FB_BK * LD;
+  // QKN: gamma_q, beta_q, gamma_k, beta_k, D floats each
+  float* Ns = reinterpret_cast<float*>(Vs + FB_BK * LD);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -76,7 +126,13 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* brow = bias ? bias + (long)b * Sk : nullptr;
 
   load_tile<D, FB_BQ, FB_THREADS>(Qs, LD, qp, qss, q0, Sq, tid);
+  if (QKN)
+    for (int i = tid; i < 4 * D; i += FB_THREADS) Ns[i] = norms[i];
   tile_barrier();
+  if (QKN) {
+    ln_rows<D, FB_BQ, FB_THREADS>(Qs, LD, Ns, Ns + D, eps, tid);
+    __syncthreads();
+  }
   uint32_t qa[KS][4];
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
@@ -90,6 +146,10 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
     load_tile<D, FB_BK, FB_THREADS>(Ks, LD, kp, kss, j * FB_BK, Sk, tid);
     tile_barrier();
+    if (QKN) {
+      ln_rows<D, FB_BK, FB_THREADS>(Ks, LD, Ns + 2 * D, Ns + 3 * D, eps, tid);
+      __syncthreads();
+    }
     fb_scores<D>(s, qa, Ks, lane);
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
@@ -121,6 +181,10 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile<D, FB_BK, FB_THREADS>(Ks, LD, kp, kss, j * FB_BK, Sk, tid);
     load_tile<D, FB_BK, FB_THREADS>(Vs, LD, vp, vss, j * FB_BK, Sk, tid);
     tile_barrier();
+    if (QKN) {
+      ln_rows<D, FB_BK, FB_THREADS>(Ks, LD, Ns + 2 * D, Ns + 3 * D, eps, tid);
+      __syncthreads();
+    }
     fb_scores<D>(s, qa, Ks, lane);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
@@ -161,22 +225,23 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool QKN>
 cudaError_t launch_full_block(const void* q, const void* k, const void* v,
-                              const float* bias, void* o, float* m_out,
-                              float* l_out, int B, int H, int Sq, int Sk,
-                              float scale, const long* st,
-                              cudaStream_t stream) {
-  const size_t smem = (size_t)(FB_BQ + 2 * FB_BK) * (D + 8) * sizeof(bf16);
+                              const float* bias, const float* norms, float eps,
+                              void* o, float* m_out, float* l_out, int B,
+                              int H, int Sq, int Sk, float scale,
+                              const long* st, cudaStream_t stream) {
+  const size_t smem = (size_t)(FB_BQ + 2 * FB_BK) * (D + 8) * sizeof(bf16) +
+                      (QKN ? 4 * D * sizeof(float) : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      full_block_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      full_block_fwd_kernel<D, QKN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + FB_BQ - 1) / FB_BQ, H, B);
-  full_block_fwd_kernel<D><<<grid, FB_THREADS, smem, stream>>>(
+  full_block_fwd_kernel<D, QKN><<<grid, FB_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), m_out, l_out,
-      H, Sq, Sk, scale,
+      static_cast<const bf16*>(v), bias, norms, eps, static_cast<bf16*>(o),
+      m_out, l_out, H, Sq, Sk, scale,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11]);
   return cudaGetLastError();
@@ -184,11 +249,11 @@ cudaError_t launch_full_block(const void* q, const void* k, const void* v,
 
 }  // namespace hv
 
-// Plain C entry point. `strides` holds 12 element strides: (batch, head,
+// Plain C entry points. `strides` holds 12 element strides: (batch, head,
 // row) for q, k, v and o in that order; the last dimension is contiguous.
 // `m_out` and `l_out` are null, or contiguous (B, H, Sq) fp32 buffers that
 // receive each row's logit max and softmax denominator for the backward.
-// Returns a cudaError_t, or -1 for an unsupported head dim.
+// Return a cudaError_t, or -1 for an unsupported head dim.
 extern "C" int hv_full_block_fwd(const void* q, const void* k, const void* v,
                                  const float* bias, void* o, float* m_out,
                                  float* l_out, int B, int H, int Sq, int Sk,
@@ -196,10 +261,29 @@ extern "C" int hv_full_block_fwd(const void* q, const void* k, const void* v,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return hv::launch_full_block<32>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
-    case 64: return hv::launch_full_block<64>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
-    case 96: return hv::launch_full_block<96>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
-    case 128: return hv::launch_full_block<128>(q, k, v, bias, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    case 32: return hv::launch_full_block<32, false>(q, k, v, bias, nullptr, 0.f, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    case 64: return hv::launch_full_block<64, false>(q, k, v, bias, nullptr, 0.f, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    case 96: return hv::launch_full_block<96, false>(q, k, v, bias, nullptr, 0.f, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    case 128: return hv::launch_full_block<128, false>(q, k, v, bias, nullptr, 0.f, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    default: return -1;
+  }
+}
+
+// The qk-norm variant: q and k raw; `norms` is a contiguous (4, D) fp32
+// array (gamma_q, beta_q, gamma_k, beta_k) and `eps` the LayerNorm epsilon.
+extern "C" int hv_full_block_qknorm_fwd(const void* q, const void* k,
+                                        const void* v, const float* bias,
+                                        const float* norms, void* o,
+                                        float* m_out, float* l_out, int B,
+                                        int H, int Sq, int Sk, int D,
+                                        float scale, float eps,
+                                        const long* strides, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return hv::launch_full_block<32, true>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    case 64: return hv::launch_full_block<64, true>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    case 96: return hv::launch_full_block<96, true>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
+    case 128: return hv::launch_full_block<128, true>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, scale, strides, s);
     default: return -1;
   }
 }

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..losses.losses import l2
 from ..ops import frequency
+from ..ops import quant as quant_ops
 from ..ops import rectified_flow as rf
 from ..utils.device import resolve_device
 from .dit import VelocityDiTImgSpatialTempMotion
@@ -299,8 +300,10 @@ def AMD_N(device: Optional[Union[str, torch.device]] = None,
 
 
 def _euler_decode(model: AMDModelNew, zi, z0, motions, sample_step: int,
-                  start_step: int, z1=None):
-    """Euler-walk the DiT from ``start_step`` down to step 0."""
+                  start_step: int, z1=None, quant_table=None):
+    """Euler-walk the DiT from ``start_step`` down to step 0. With a
+    ``quant_table`` (``ops.quant.quantize_params`` of the model) the
+    velocity calls run the table's layers in int8."""
     num_steps = model.cfg.scheduler_num_step
     step_seq = rf.sample_step_sequence(sample_step, start_step, num_steps)
     z_start = rf.euler_start(z0, z1, start_step, num_steps)
@@ -308,7 +311,8 @@ def _euler_decode(model: AMDModelNew, zi, z0, motions, sample_step: int,
     def vel_fn(zt, tstep):
         return model.velocity(torch.cat([zi, zt], dim=1), tstep, **motions)
 
-    return rf.euler_sample(vel_fn, z_start, step_seq)
+    with quant_ops.maybe_quantized(model, quant_table):
+        return rf.euler_sample(vel_fn, z_start, step_seq)
 
 
 @torch.no_grad()
@@ -316,11 +320,12 @@ def sample(model: AMDModelNew, video, ref_img, video_grey=None,
            ref_img_grey=None, sample_step: int = 50,
            start_step: Optional[int] = None,
            generator: Optional[torch.Generator] = None,
-           noise: Optional[torch.Tensor] = None):
+           noise: Optional[torch.Tensor] = None, quant_table=None):
     """Reconstruction: motion from ``video`` (N,T,C,H,W latents), then an
     Euler decode from noise. The start noise is ``noise`` (N*T,C,H,W) when
-    given, else drawn from ``generator``. Returns (zi, sample, zj), each
-    (N,T,C,H,W)."""
+    given, else drawn from ``generator``. ``quant_table`` runs the Euler
+    loop's velocity calls in int8; the motion encoding stays in the compute
+    dtype. Returns (zi, sample, zj), each (N,T,C,H,W)."""
     cfg = model.cfg
     n, t = video.shape[:2]
     start = cfg.scheduler_num_step if start_step is None else start_step
@@ -334,7 +339,7 @@ def sample(model: AMDModelNew, video, ref_img, video_grey=None,
         noise = torch.randn(zj.shape, generator=generator, dtype=zj.dtype,
                             device=zj.device)
     zt = _euler_decode(model, zi, noise.to(zj), motions, sample_step, start,
-                       z1=zj)
+                       z1=zj, quant_table=quant_table)
 
     def unflat(x):
         return x.reshape((n, t) + x.shape[1:])

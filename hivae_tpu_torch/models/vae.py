@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import quant as quant_ops
 from ..ops.regularizers import DiagonalGaussian
 from ..utils.device import resolve_device
 from .conv_blocks import DownEncoderBlock2D, UNetMidBlock2D, UpDecoderBlock2D
@@ -134,11 +135,15 @@ def decode_latents(vae: AutoencoderKL, latents: torch.Tensor,
 
 @torch.no_grad()
 def vae_decode(vae: AutoencoderKL, latents: torch.Tensor,
-               scale: float = SD_VAE_SCALE) -> torch.Tensor:
-    """(N,T,latent,h,w) scaled latents -> (N,T,C,H,W) pixels in [-1, 1]."""
+               scale: float = SD_VAE_SCALE, quant_table=None) -> torch.Tensor:
+    """(N,T,latent,h,w) scaled latents -> (N,T,C,H,W) pixels in [-1, 1].
+    ``quant_table`` (``ops.quant.quantize_params(vae, scope=("decoder",))``)
+    runs the decoder's large convolutions and mid-block projections in
+    int8; the encode leg is never quantised."""
     n, t = latents.shape[:2]
-    img = decode_latents(vae, latents.reshape((n * t,) + latents.shape[2:]),
-                         scale)
+    with quant_ops.maybe_quantized(vae, quant_table):
+        img = decode_latents(
+            vae, latents.reshape((n * t,) + latents.shape[2:]), scale)
     return img.reshape((n, t) + img.shape[1:])
 
 
@@ -149,6 +154,8 @@ def latents_to_rgb(img: torch.Tensor) -> torch.Tensor:
 
 
 def vae_decode_rgb(vae: AutoencoderKL, latents: torch.Tensor,
-                   scale: float = SD_VAE_SCALE) -> torch.Tensor:
+                   scale: float = SD_VAE_SCALE,
+                   quant_table=None) -> torch.Tensor:
     """Decode + quantise to uint8."""
-    return latents_to_rgb(vae_decode(vae, latents, scale))
+    return latents_to_rgb(vae_decode(vae, latents, scale,
+                                     quant_table=quant_table))

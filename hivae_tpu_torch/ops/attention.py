@@ -14,7 +14,10 @@ Dispatch on (B, H, S, D) arrays, the same rule as the JAX package:
 The (B, Sk) key mask enters the kernels as an additive fp32 bias of
 ``MASK_NEG``, so a fully masked row degrades to uniform attention over its
 keys rather than NaN. The per-head q/k LayerNorm (flax fast variance) is
-applied before any kernel.
+applied before any kernel, unless ``QKNORM_FUSE`` is True: then, where the
+full-block kernel takes the call, q and k go raw with their norm parameters
+to the fused qk-norm kernel (``full_block_attention_qknorm``), as the JAX
+package's ``_QKNORM_FUSE`` does; everywhere else they are normalised first.
 """
 
 from __future__ import annotations
@@ -24,11 +27,17 @@ from typing import Optional
 import torch
 
 from .kernels import flash_attention as fa
+from .kernels.flash_attention import qk_layernorm
 
 KERNEL_MIN_LOGITS = 256 * 256
 MASK_NEG = -1e30
 SEQ_ALIGN = 16
 MIN_ALIGN = 8
+
+# When True, sdpa folds the per-head q/k LayerNorm into the full-block
+# kernel; False (the default, as in the JAX package) normalises q and k
+# outside the kernel.
+QKNORM_FUSE = False
 
 
 def _round_up(x: int, m: int) -> int:
@@ -45,18 +54,6 @@ def full_block_fits(q_shape, k_shape) -> bool:
     sqp, skp = _round_up(sq, SEQ_ALIGN), _round_up(sk, SEQ_ALIGN)
     worst = 3 * sqp * skp * 4 + (2 * sqp * d + 4 * skp * d) * 4
     return worst <= 14_500_000
-
-
-def qk_layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
-                 eps: float) -> torch.Tensor:
-    """Per-head LayerNorm over the head dim with flax's fast variance
-    (mean(x^2) - mean^2), fp32 statistics, output in x's dtype."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True)
-    mean2 = (xf * xf).mean(dim=-1, keepdim=True)
-    var = torch.clamp(mean2 - mean * mean, min=0.0)
-    mul = torch.rsqrt(var + eps) * g.float()
-    return ((xf - mean) * mul + b.float()).to(x.dtype)
 
 
 def _sdpa_plain(q, k, v, scale, key_mask):
@@ -77,18 +74,23 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     each (D,), applied to the raw q and k."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    kernel = (q.shape[2] * k.shape[2] > KERNEL_MIN_LOGITS
+              and q.shape[3] % MIN_ALIGN == 0)
+    bias = None
+    if kernel and key_mask is not None:
+        bias = torch.zeros(key_mask.shape, dtype=torch.float32,
+                           device=key_mask.device)
+        bias = bias.masked_fill(~key_mask, MASK_NEG)
+    fits = kernel and full_block_fits(q.shape, k.shape)
     if qk_norm is not None:
+        if fits and QKNORM_FUSE:
+            return fa.full_block_attention_qknorm(
+                q, k, v, *qk_norm, scale=scale, eps=qk_norm_eps, bias=bias)
         gq, bq, gk, bk = qk_norm
         q = qk_layernorm(q, gq, bq, qk_norm_eps)
         k = qk_layernorm(k, gk, bk, qk_norm_eps)
-    if (q.shape[2] * k.shape[2] > KERNEL_MIN_LOGITS
-            and q.shape[3] % MIN_ALIGN == 0):
-        bias = None
-        if key_mask is not None:
-            bias = torch.zeros(key_mask.shape, dtype=torch.float32,
-                               device=key_mask.device)
-            bias = bias.masked_fill(~key_mask, MASK_NEG)
-        if full_block_fits(q.shape, k.shape):
-            return fa.full_block_attention(q, k, v, scale=scale, bias=bias)
+    if fits:
+        return fa.full_block_attention(q, k, v, scale=scale, bias=bias)
+    if kernel:
         return fa.stream_attention(q, k, v, scale=scale, bias=bias)[0]
     return _sdpa_plain(q, k, v, scale, key_mask)

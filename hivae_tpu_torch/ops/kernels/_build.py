@@ -25,7 +25,7 @@ BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNEL_SOURCES = ("flash_full_block", "flash_full_block_bwd", "flash_stream",
-                  "flash_stream_bwd")
+                  "flash_stream_bwd", "quant_ffn")
 
 # nvcc's stderr per source from this process's builds (ptxas register and
 # shared-memory report); empty for a library found already built

@@ -1,8 +1,7 @@
 """Attention kernels for Hopper with their plain PyTorch versions.
 
-Five TPU kernels of ``hivae_tpu/ops/pallas/flash_attention.py`` are on the
-clip-reconstruction and training paths and are ported here as hand-written
-CUDA (``hivae_tpu_torch/csrc``):
+The six TPU kernels of ``hivae_tpu/ops/pallas/flash_attention.py`` are
+ported here as hand-written CUDA (``hivae_tpu_torch/csrc``):
 
 * ``full_block_attention`` replaces ``_fwd_kernel`` (``_flash_fwd_impl``):
   the joint and motion-encoder attentions, S of 260-512, D = 64.
@@ -16,8 +15,16 @@ CUDA (``hivae_tpu_torch/csrc``):
 * ``stream_attention_bwd_dq`` and ``stream_attention_bwd_dkv`` replace
   ``_stream_dq_kernel`` and ``_stream_dkv_kernel`` (``stream_bwd``)
   (``csrc/flash_stream_bwd.cu``).
+* ``full_block_attention_qknorm`` replaces ``_fwd_kernel_qknorm``
+  (``_flash_qknorm_fwd_impl``): the full-block forward on raw q and k with
+  the per-head LayerNorm (``qk_layernorm``) applied to each tile inside the
+  kernel (``csrc/flash_full_block.cu``, its ``QKN`` variant). Its backward
+  recomputes the unfused composition, ``qk_layernorm`` then the full-block
+  forward and backward kernels, as ``_flash_qknorm_vjp_bwd`` does, and
+  gives gradients to q, k, v and the four norm parameters.
 
-``full_block_attention`` and ``stream_attention`` are differentiable: on a
+``full_block_attention``, ``full_block_attention_qknorm`` and
+``stream_attention`` are differentiable: on a
 CUDA tensor that requires grad they run a ``torch.autograd.Function`` whose
 forward launches the forward kernel and whose backward launches the
 backward kernel(s); the bias is the non-differentiable key mask and gets no
@@ -63,6 +70,19 @@ def _logits(q, k, scale, bias):
     return logits
 
 
+def qk_layernorm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """Per-head LayerNorm over the head dim with flax's fast variance
+    (mean(x^2) - mean^2), fp32 statistics, output in x's dtype: the JAX
+    package's ``qk_layernorm`` and ``_ln_block``."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    mean2 = (xf * xf).mean(dim=-1, keepdim=True)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    mul = torch.rsqrt(var + eps) * g.float()
+    return ((xf - mean) * mul + b.float()).to(x.dtype)
+
+
 def full_block_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, scale: float,
                                bias: Optional[torch.Tensor] = None
@@ -71,6 +91,17 @@ def full_block_attention_plain(q: torch.Tensor, k: torch.Tensor,
     normalised probabilities cast to v's dtype, fp32 accumulation."""
     p = torch.softmax(_logits(q, k, scale, bias), dim=-1).to(v.dtype)
     return torch.matmul(_f(p), _f(v)).to(q.dtype)
+
+
+def full_block_attention_qknorm_plain(q, k, v, gq, bq, gk, bk, *,
+                                      scale: float, eps: float = 1e-6,
+                                      bias: Optional[torch.Tensor] = None
+                                      ) -> torch.Tensor:
+    """``qk_layernorm`` of the raw q and k, then
+    ``full_block_attention_plain``."""
+    return full_block_attention_plain(qk_layernorm(q, gq, bq, eps),
+                                      qk_layernorm(k, gk, bk, eps), v,
+                                      scale=scale, bias=bias)
 
 
 def stream_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -195,14 +226,15 @@ def _delta(do, out):
     return (do.float() * out.float()).sum(dim=-1).contiguous()
 
 
-def _fn(lib_name, sym, n_ptr, n_int):
+def _fn(lib_name, sym, n_ptr, n_int, n_float=1):
     """The C entry point ``sym`` of ``csrc/<lib_name>.cu`` (n_ptr pointers,
-    n_int ints, the scale, the strides and the stream) and the library's
-    error-string function ``hv_<lib_name less "flash_">_error_string``."""
+    n_int ints, n_float floats (the scale, ...), the strides and the stream)
+    and the library's error-string function
+    ``hv_<lib_name less "flash_">_error_string``."""
     lib = _build.load(lib_name)
     fn = getattr(lib, sym)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
-        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_float] * n_float + [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = getattr(lib, f"hv_{lib_name[6:]}_error_string")
     err.restype = ctypes.c_char_p
@@ -212,6 +244,11 @@ def _fn(lib_name, sym, n_ptr, n_int):
 @functools.lru_cache(maxsize=None)
 def _full_block_fn():
     return _fn("flash_full_block", "hv_full_block_fwd", 7, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_block_qknorm_fn():
+    return _fn("flash_full_block", "hv_full_block_qknorm_fwd", 8, 5, 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -253,6 +290,25 @@ def _full_block_fwd(q, k, v, bias, scale, stats):
             k.shape[2], d, float(scale), _strides(q, k, v, out), _stream_of(q))
     full_block_attention.launches += 1
     return out, m, l
+
+
+def _full_block_qknorm_fwd(q, k, v, norms, bias, scale, eps):
+    """qk-norm forward launch -> out; ``norms`` = (gq, bq, gk, bk)."""
+    _check("full_block_attention_qknorm", q, k, v, bias, _FULL_BLOCK_DIMS)
+    b, h, sq, d = q.shape
+    for x in norms:
+        if x.shape != (d,) or x.device != q.device:
+            raise ValueError(f"full_block_attention_qknorm: norm parameters "
+                             f"must be ({d},) on {q.device}, got "
+                             f"{tuple(x.shape)} on {x.device}")
+    packed = torch.stack([x.detach().float() for x in norms]).contiguous()
+    out = _empty_out(q)
+    _launch("full_block_attention_qknorm", _full_block_qknorm_fn(), _ptr(q),
+            _ptr(k), _ptr(v), _ptr(bias), _ptr(packed), _ptr(out), _ptr(None),
+            _ptr(None), b, h, sq, k.shape[2], d, float(scale), float(eps),
+            _strides(q, k, v, out), _stream_of(q))
+    full_block_attention_qknorm.launches += 1
+    return out
 
 
 def full_block_attention_bwd(q, k, v, do, out, m, l, *, scale: float,
@@ -352,6 +408,34 @@ class _FullBlock(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class _FullBlockQKNorm(torch.autograd.Function):
+    """Forward: the fused qk-norm kernel. Backward: the gradient of the
+    unfused composition (``qk_layernorm``, then ``_FullBlock``: forward and
+    backward kernels), as ``_flash_qknorm_vjp_bwd`` computes it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, gq, bq, gk, bk, scale, eps):
+        out = _full_block_qknorm_fwd(q, k, v, (gq, bq, gk, bk), bias, scale,
+                                     eps)
+        ctx.save_for_backward(q, k, v, bias, gq, bq, gk, bk)
+        ctx.scale, ctx.eps = scale, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, gq, bq, gk, bk = ctx.saved_tensors
+        inputs = [x.detach().requires_grad_() for x in (q, k, v, gq, bq, gk,
+                                                         bk)]
+        qd, kd, vd, gqd, bqd, gkd, bkd = inputs
+        with torch.enable_grad():
+            out = _FullBlock.apply(qk_layernorm(qd, gqd, bqd, ctx.eps),
+                                   qk_layernorm(kd, gkd, bkd, ctx.eps), vd,
+                                   bias, ctx.scale)
+            dq, dk, dv, dgq, dbq, dgk, dbk = torch.autograd.grad(out, inputs,
+                                                                 do)
+        return dq, dk, dv, None, dgq, dbq, dgk, dbk, None, None
+
+
 class _Stream(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
@@ -390,6 +474,29 @@ def full_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 full_block_attention.launches = 0
+
+
+def full_block_attention_qknorm(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, gq: torch.Tensor,
+                                bq: torch.Tensor, gk: torch.Tensor,
+                                bk: torch.Tensor, *, scale: float,
+                                eps: float = 1e-6,
+                                bias: Optional[torch.Tensor] = None
+                                ) -> torch.Tensor:
+    """Full-block attention on raw q and k with the per-head LayerNorm
+    (``qk_layernorm`` with gamma/beta (D,) and ``eps``) fused into the
+    kernel. Differentiable in q, k, v and the four norm parameters."""
+    if q.device.type == "cpu":
+        return full_block_attention_qknorm_plain(q, k, v, gq, bq, gk, bk,
+                                                 scale=scale, eps=eps,
+                                                 bias=bias)
+    if _needs_grad(q, k, v, gq, bq, gk, bk):
+        return _FullBlockQKNorm.apply(q, k, v, bias, gq, bq, gk, bk, scale,
+                                      eps)
+    return _full_block_qknorm_fwd(q, k, v, (gq, bq, gk, bk), bias, scale, eps)
+
+
+full_block_attention_qknorm.launches = 0
 
 
 def stream_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,0 +1,157 @@
+"""Fused int8 FFN-up + tanh-GELU + per-token requantise for Hopper, with
+its plain PyTorch version.
+
+Replaces ``hivae_tpu/ops/pallas/quant_ffn.py::_kernel`` (driven by
+``fused_ffn_up_quant``): for per-token int8 activations ``xq`` (M, K) with
+scales ``sx`` (M, 1) and per-output-channel int8 weights, it computes
+
+    y  = float(xq @ w) * (sx * ws) + b          (int32 accumulate, fp32)
+    y  = gelu_tanh(y)                           (fp32)
+    sy = max(max_n |y|, 1e-8) / 127             (per row, over all N)
+    yq = clip(round_half_even(y / sy), -127, 127) as int8
+
+and returns ``(yq, sy)``, the FFN-down's int8 input, so the (M, N) GELU
+output never reaches device memory. The hand-written kernel is
+``hivae_tpu_torch/csrc/quant_ffn.cu`` (source note and bound there).
+
+The weight is stored as the port's quantisation table stores every dense
+weight: ``w8`` (N, K) int8, row-major, the layout of a ``torch.nn.Linear``
+weight (its transpose is the column-major (K, N) operand the int8 tensor
+cores and ``torch._int_mm`` take).
+
+``fused_ffn_up_quant`` runs the plain version for tensors on the CPU and
+launches the kernel for CUDA tensors, or raises; there is no fallback from
+one to the other. It is forward-only, as in the JAX package (the int8 path
+serves samplers, which never differentiate). ``fused_ffn_up_quant.launches``
+counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+LANE = 128  # K and N multiples of this (the JAX gate; also the kernel's tiles)
+
+
+def supports(m: int, k: int, n: int) -> bool:
+    """True when the fused schedule handles the geometry: K and N multiples
+    of 128 (the JAX package's lane gate, and the CUDA kernel's K chunk and
+    N tile). M is unrestricted (the kernel masks the ragged last rows); the
+    TPU's VMEM row-tile budget (``_pick_mt``) does not apply on the card."""
+    return m > 0 and k > 0 and n > 0 and k % LANE == 0 and n % LANE == 0
+
+
+def int8_mm(a: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """Exact int32 (M, N) = a (M, K) int8 @ w8 (N, K) int8 transposed, via
+    ``torch._int_mm`` (cuBLASLt int8 on the card, which takes the weight's
+    transpose column-major, as it is here, and needs M > 16 and K, N
+    multiples of 8)."""
+    return torch._int_mm(a.contiguous(), w8.t())
+
+
+def int8_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """max(absmax, 1e-8) / 127, the symmetric int8 scale, as the IEEE
+    quotient the JAX package and the kernel take: PyTorch divides a CUDA
+    tensor by a Python number as a product with its reciprocal, which can
+    be an ulp off, so the divisor here is a tensor."""
+    m = torch.clamp_min(absmax, 1e-8)
+    return m / torch.full_like(m, 127.0)
+
+
+def requant_rows(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 of fp32 ``y`` (..., N): scale
+    max(max |y|, 1e-8) / 127, values rounded half to even and clipped to
+    +-127 -> (int8 values, fp32 scales (..., 1))."""
+    s = int8_scale(y.abs().amax(dim=-1, keepdim=True))
+    return torch.clamp(torch.round(y / s), -127, 127).to(torch.int8), s
+
+
+def gelu_tanh(y: torch.Tensor) -> torch.Tensor:
+    """tanh-GELU, 0.5 y (1 + tanh(sqrt(2/pi) (y + 0.044715 y^3))), written
+    one fp32 operation at a time: each rounds on its own, so the kernel,
+    which spells out the same operations with round-to-nearest intrinsics
+    and the same ``tanhf``, gives the same bits on the card."""
+    inner = 0.7978845608028654 * (y + 0.044715 * (y * y * y))
+    return 0.5 * y * (1.0 + torch.tanh(inner))
+
+
+def fused_ffn_up_quant_plain(xq: torch.Tensor, sx: torch.Tensor,
+                             w8: torch.Tensor, wscale: torch.Tensor,
+                             bias: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in the TPU kernel's order: int32 accumulate,
+    fp32 dequant ``acc * (sx * ws) + b``, fp32 tanh-GELU (``gelu_tanh``),
+    per-row abs-max, divide, round half to even, clip. ``xq`` (M, K) int8,
+    ``sx`` (M, 1) fp32, ``w8`` (N, K) int8, ``wscale`` and ``bias`` (N,)
+    fp32 -> (yq (M, N) int8, sy (M, 1) fp32)."""
+    acc = int8_mm(xq, w8)
+    y = acc.float() * (sx.float() * wscale.float()) + bias.float()
+    return requant_rows(gelu_tanh(y))
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fn():
+    lib = _build.load("quant_ffn")
+    fn = lib.hv_quant_ffn_up
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = lib.hv_quant_ffn_error_string
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def _check(xq, sx, w8, wscale, bias):
+    if xq.device.type != "cuda":
+        raise ValueError(f"fused_ffn_up_quant: no kernel for device "
+                         f"{xq.device}")
+    m, k = xq.shape
+    n = w8.shape[0]
+    want = {"xq": (xq, torch.int8, (m, k)), "sx": (sx, torch.float32, (m, 1)),
+            "w8": (w8, torch.int8, (n, k)),
+            "wscale": (wscale, torch.float32, (n,)),
+            "bias": (bias, torch.float32, (n,))}
+    for name, (x, dtype, shape) in want.items():
+        if (x.device != xq.device or x.dtype != dtype
+                or tuple(x.shape) != shape or not x.is_contiguous()):
+            raise ValueError(f"fused_ffn_up_quant: {name} must be a "
+                             f"contiguous {dtype} {shape} tensor on "
+                             f"{xq.device}, got {x.dtype} {tuple(x.shape)} "
+                             f"on {x.device}")
+    if not supports(m, k, n):
+        raise ValueError(f"fused_ffn_up_quant: K {k} and N {n} must be "
+                         f"multiples of {LANE}")
+
+
+def fused_ffn_up_quant(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
+                       wscale: torch.Tensor, bias: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(quantised x) -> int8 activations + per-row scales for the FFN-down;
+    arguments and result as ``fused_ffn_up_quant_plain``. The bias is
+    required (pass zeros for a layer without one)."""
+    if xq.device.type == "cpu":
+        return fused_ffn_up_quant_plain(xq, sx, w8, wscale, bias)
+    _check(xq, sx, w8, wscale, bias)
+    m, k = xq.shape
+    n = w8.shape[0]
+    yq = torch.empty((m, n), dtype=torch.int8, device=xq.device)
+    sy = torch.empty((m, 1), dtype=torch.float32, device=xq.device)
+    fn, err = _kernel_fn()
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    rc = fn(*(ctypes.c_void_p(t.data_ptr())
+              for t in (xq, sx, w8, wscale, bias, yq, sy)), m, k, n,
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"fused_ffn_up_quant launch failed: "
+                           f"{err(rc).decode()}")
+    fused_ffn_up_quant.launches += 1
+    return yq, sy
+
+
+fused_ffn_up_quant.launches = 0

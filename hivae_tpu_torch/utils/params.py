@@ -14,7 +14,9 @@ ones. Layouts:
 Input is the flax tree as nested mappings of numpy arrays (with or without
 the top-level ``params`` collection). ``lpips_flax_to_torch`` maps the
 JAX ``LPIPS`` tree (``net/features_<i>``, Dense heads ``lin<k>``) onto the
-port's ``losses.lpips.LPIPS``.
+port's ``losses.lpips.LPIPS``; ``flax_quant_table_to_torch`` carries a JAX
+int8 quantisation table (``hivae_tpu/ops/quant.py::quantize_params``) over
+to the port's table (``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -119,4 +121,25 @@ def lpips_flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for k in range(5):
         key = f"lin{k}.weight"
         out[key] = out[key].reshape(1, -1, 1, 1).contiguous()
+    return out
+
+
+def flax_quant_table_to_torch(table: Mapping[str, Mapping[str, Any]]
+                              ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """JAX quantisation table (keys ``"a/b/to_q"``, ``w8`` (K, N) or HWIO
+    int8, ``scale`` (N,), optional ``bias``) -> the port's table: keys are
+    the port's module names (the flax path mapped as a ``kernel`` leaf),
+    a dense ``w8`` becomes (N, K) and a conv's (kh, kw, out, in), and the
+    bias is fp32, as ``ops.quant.quantize_params`` stores it."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for path, entry in table.items():
+        key = flax_path_to_torch_key(tuple(path.split("/")) + ("kernel",))
+        w8 = np.asarray(entry["w8"])
+        w8 = w8.T if w8.ndim == 2 else w8.transpose(0, 1, 3, 2)
+        converted = {"w8": w8, "scale": np.asarray(entry["scale"])}
+        if "bias" in entry:
+            converted["bias"] = np.asarray(entry["bias"], np.float32)
+        out[key[:-len(".weight")]] = {
+            k: torch.from_numpy(np.array(v, order="C", copy=True))
+            for k, v in converted.items()}
     return out

@@ -177,3 +177,130 @@ def test_sdpa_gradient_runs_the_backward_kernels(shape):
     assert ran == ([1, 0, 0] if shape[3] == 64 else [0, 1, 1])
     assert all(x.grad is not None and bool(torch.isfinite(x.grad).all())
                for x in (q, k, v))
+
+
+def _ffn_inputs(m, k, n, seed):
+    """Seeded FFN-up inputs on the card: per-token int8 of a random bf16
+    activation, a per-channel int8 weight, fp32 scales and bias."""
+    from hivae_tpu_torch.ops import quant as tq
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32)).cuda().bfloat16()
+    w = torch.from_numpy((rng.randn(n, k) / np.sqrt(k)).astype(np.float32))
+    w8, ws = tq._quantize_kernel(w.cuda())
+    bias = torch.from_numpy((0.1 * rng.randn(n)).astype(np.float32)).cuda()
+    xq, sx = tq.quant_act(x)
+    return xq, sx, w8, ws, bias
+
+
+def _int8_agreement(yq, sy, wq, ws):
+    """(max |yq - want|, share of elements off by one, max relative error of
+    the scales, relative L2 error of the dequantised values)."""
+    d = (yq.int() - wq.int()).abs()
+    rel_s = ((sy - ws).abs() / ws).max().item()
+    got, want = yq.float() * sy, wq.float() * ws
+    l2 = ((got - want).norm() / want.norm()).item()
+    return d.max().item(), (d == 1).float().mean().item(), rel_s, l2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(4256, 1024, 4096), (8192, 1024, 4096),
+                                   (4096, 1024, 4096), (70, 128, 512)])
+def test_quant_ffn_kernel_matches_plain(m, k, n):
+    """int8 within +-1 everywhere and off by one in at most 0.1% of the
+    elements, scales within 1e-6 relative, dequantised values within 1e-3
+    relative L2. (The kernel spells out the plain version's roundings and
+    gives its bits on the H100; the tolerance allows one rounding edge
+    crossed by an ulp of another tanhf.)"""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops.kernels import quant_ffn as tqf
+    args = _ffn_inputs(m, k, n, seed=19)
+    before = tqf.fused_ffn_up_quant.launches
+    yq, sy = tqf.fused_ffn_up_quant(*args)
+    wq, ws = tqf.fused_ffn_up_quant_plain(*args)
+    torch.cuda.synchronize()
+    assert tqf.fused_ffn_up_quant.launches == before + 1
+    assert yq.dtype == torch.int8 and yq.shape == (m, n) and sy.shape == (m, 1)
+    worst, off_by_one, rel_s, l2 = _int8_agreement(yq, sy, wq, ws)
+    assert worst <= 1 and off_by_one <= 1e-3
+    assert rel_s <= 1e-6 and l2 <= 1e-3
+
+
+@pytest.mark.cuda
+def test_quant_ffn_kernel_rejects_unaligned():
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops.kernels import quant_ffn as tqf
+    xq, sx, w8, ws, bias = _ffn_inputs(64, 96, 512, seed=20)
+    with pytest.raises(ValueError, match="multiples"):
+        tqf.fused_ffn_up_quant(xq, sx, w8, ws, bias)
+
+
+def _norms(d, seed):
+    """gamma, beta away from (1, 0), fp32 on the card."""
+    rng = np.random.RandomState(seed)
+    vals = [1 + 0.5 * rng.randn(d), 0.3 * rng.randn(d),
+            1 + 0.5 * rng.randn(d), 0.3 * rng.randn(d)]
+    return [torch.from_numpy(x.astype(np.float32)).cuda() for x in vals]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", [
+    ((32, 8, 260, 64), False), ((16, 16, 266, 64), False),
+    ((16, 16, 512, 64), False), ((16, 16, 512, 64), True),
+    ((2, 3, 100, 128), True)])
+def test_full_block_qknorm_kernel_matches_plain(shape, masked):
+    _cuda_or_skip()
+    q, k, v = _qkv(shape, seed=21)
+    q, k = 3 * q + 1, 2 * k - 1   # raw, far from normalised
+    norms = _norms(shape[3], seed=22)
+    bias = _bias(shape[0], shape[2], full_row=0) if masked else None
+    before = tfa.full_block_attention_qknorm.launches
+    got = tfa.full_block_attention_qknorm(q, k, v, *norms, scale=0.125,
+                                          bias=bias)
+    want = tfa.full_block_attention_qknorm_plain(q, k, v, *norms, scale=0.125,
+                                                 bias=bias)
+    torch.cuda.synchronize()
+    assert tfa.full_block_attention_qknorm.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, want) <= ATOL
+
+
+@pytest.mark.cuda
+def test_full_block_qknorm_gradients_match_plain():
+    """Autograd through the fused kernel (its backward recomputes the
+    unfused composition on the full-block kernels) against autograd through
+    the plain version: q, k, v and the four norm parameters. beta_k's
+    gradient is zero in exact arithmetic (a shift of every key by one vector
+    adds a constant to each row of logits, which the softmax ignores), so
+    both sides hold only rounding noise there: it is held to ``BWD_RTOL``
+    of gamma_k's largest gradient instead of its own."""
+    _cuda_or_skip()
+    shape = (16, 16, 512, 64)
+    q, k, v = _qkv(shape, seed=23)
+    do = _qkv(shape, seed=24)[0]
+    norms = _norms(64, seed=25)
+    leaves = [x.detach().requires_grad_() for x in [q, k, v] + norms]
+    tfa.full_block_attention_qknorm(*leaves, scale=0.125).backward(do)
+    got = [x.grad for x in leaves]
+    leaves = [x.detach().requires_grad_() for x in [q, k, v] + norms]
+    tfa.full_block_attention_qknorm_plain(*leaves, scale=0.125).backward(do)
+    want = [x.grad for x in leaves]
+    for g, w in zip(got[:6], want[:6]):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= BWD_RTOL
+    assert _err(got[6], want[6]) <= BWD_RTOL * want[5].abs().max().item()
+
+
+@pytest.mark.cuda
+def test_sdpa_qknorm_fuse_launches_the_fused_kernel(monkeypatch):
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops import attention as tattn
+    q, k, v = _qkv((4, 8, 260, 64), seed=26)
+    norms = tuple(_norms(64, seed=27))
+    want = tattn.sdpa(q, k, v, qk_norm=norms)
+    monkeypatch.setattr(tattn, "QKNORM_FUSE", True)
+    counters = [tfa.full_block_attention_qknorm, tfa.full_block_attention]
+    before = [c.launches for c in counters]
+    got = tattn.sdpa(q, k, v, qk_norm=norms)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 0]
+    assert _err(got, want) <= ATOL
