@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``hivae_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--parent DIR]
 
 Phases (any failure exits non-zero without the final result line):
 
@@ -9,8 +9,12 @@ Phases (any failure exits non-zero without the final result line):
    ``nvcc`` per source, all at once) into ``hivae_tpu_torch/build/``;
 2. hold each kernel against its plain PyTorch version: the forward
    kernels (bf16) at the shapes the clip-reconstruction path gives them,
-   plus a masked camera case with a fully masked key row (must give the
-   uniform average, not NaN); the fused qk-norm forward at the same shapes
+   plus check-only cases (a masked camera case with a fully masked key row,
+   which must give the uniform average, not NaN; the largest full-block
+   shape, (4, 16, 1024, 64); q of 300 rows against 700 keys, masked and
+   not), each full-block forward and backward launched twice and held to
+   the same bits; the delta pre-pass of the backward against its plain
+   version; the fused qk-norm forward at the same shapes
    and its autograd gradients at the camera-joint shape; the int8 fused
    FFN-up + GELU + requantise kernel at the three FFN row counts of the
    int8 clip; the backward kernels at every training shape for
@@ -65,12 +69,16 @@ Float32 matmuls and convolutions run without TF32 here
 deterministic algorithms. ``--profile DIR`` also writes a
 ``torch.profiler`` table of one clip to ``DIR/profile_clip.txt``, of one
 int8 clip to ``DIR/profile_clip_int8.txt`` and of one run-A training step
-to ``DIR/profile_train.txt``.
+to ``DIR/profile_train.txt``. ``--parent DIR`` builds the kernels of
+another checkout too (the parent commit unpacked with ``git archive``) and
+times its full-block forward, qk-norm forward and backward in phase 2 beside
+this checkout's, in the same process.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -90,6 +98,7 @@ SAMPLE_STEP = 10
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12
 
 KERNEL_ATOL = 2e-2   # bf16 outputs of unit scale: P rounded at other points
 LSE_ATOL = 1e-3      # fp32 LSE, sums in another order
@@ -133,6 +142,15 @@ FULL_BLOCK_CASES = [
     ("DiT camera joint", (16, 16, 512, 64), 12 * SAMPLE_STEP),
 ]
 STREAM_CASES = [("SD-VAE mid-block", (17, 1, 1024, 512), 3)]
+# check-only full-block cases (label, q shape, Sk or None, weight 0,
+# masked): a fully masked key row; the largest shape ``full_block_fits``
+# admits at D = 64, which runs the streamed copy ring; Sq != Sk
+FULL_BLOCK_CHECKS = [
+    ("DiT camera joint, masked", (16, 16, 512, 64), None, 0, True),
+    ("largest full-block shape", (4, 16, 1024, 64), None, 0, False),
+    ("Sq 300, Sk 700", (2, 4, 300, 64), 700, 0, False),
+    ("Sq 300, Sk 700, masked", (2, 4, 300, 64), 700, 0, True),
+]
 
 # training: clips per step in runs A and B, timed steps, frames per clip
 RUN_A_CLIPS, RUN_A_STEPS = 4, 3
@@ -142,6 +160,9 @@ RUN_B_CLIPS, RUN_B_STEPS = 1, 2
 # full-block kernel takes delta = rowsum(dO * O) from the bf16 output where
 # its plain version takes rowsum(dP * P) in fp32.
 BWD_RTOL = 2e-2
+# delta = rowsum(dO * O) against its plain version: fp32 sums over D in
+# another order, held relative to the row's sum of |dO * O|
+DELTA_RTOL = 1e-5
 # A training step with the kernels against the same step with the plain
 # attention versions, from the same state, batch and draws. The two differ
 # only by where bf16 rounds inside ~120 attentions of a random-weight
@@ -175,7 +196,9 @@ def _card_line() -> str:
 
 def _ptxas_summary(log: str):
     """One line per compiled kernel from ``nvcc -Xptxas -v`` output:
-    kernel<D>, registers, spills."""
+    kernel<D>, registers, static shared memory, spills. (The full-block
+    kernels' dynamic shared memory is their launch plan's, logged per shape
+    in phase 2.)"""
     kernel, spill = "?", ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2hv(\d+)(\w+)'", line)
@@ -188,7 +211,9 @@ def _ptxas_summary(log: str):
             spill = line.strip()
         elif "registers" in line:
             regs = re.search(r"Used (\d+) registers", line)
+            smem = re.search(r"(\d+) bytes smem", line)
             yield (f"{kernel}: {regs.group(1) if regs else '?'} registers, "
+                   f"{smem.group(1) if smem else 0} bytes static smem, "
                    f"{spill}")
 
 
@@ -208,17 +233,19 @@ def _time_ms(fn, iters: int) -> float:
 
 
 def _bound(shape, with_bias: bool, with_lse: bool, tensors: int = 4,
-           stats: int = 0, flop_factor: int = 4):
+           stats: int = 0, flop_factor: int = 4, sk=None):
     """(bytes ms, operations ms) of one attention call at the card's peaks.
-    Bytes: ``tensors`` (B, H, S, D) bf16 tensors each read or written once
-    (forward: q, k, v, o), the fp32 bias row, the fp32 LSE and ``stats``
-    more fp32 (B, H, S) rows. Operations: ``flop_factor``*B*H*Sq*Sk*D matmul
-    flops (forward: 4, Q.K^T and P.V) at the bf16 tensor-core peak."""
+    Bytes: ``tensors`` bf16 tensors each read or written once, half of them
+    (B, H, Sq, D) and half (B, H, Sk, D) (forward: q, o and k, v), the fp32
+    bias row, the fp32 LSE and ``stats`` more fp32 (B, H, Sq) rows.
+    Operations: ``flop_factor``*B*H*Sq*Sk*D matmul flops (forward: 4, Q.K^T
+    and P.V) at the bf16 tensor-core peak."""
     b, h, s, d = shape
-    nbytes = tensors * b * h * s * d * 2
-    nbytes += b * s * 4 if with_bias else 0
+    sk = s if sk is None else sk
+    nbytes = tensors * b * h * (s + sk) * d
+    nbytes += b * sk * 4 if with_bias else 0
     nbytes += b * h * s * 4 * ((1 if with_lse else 0) + stats)
-    flops = flop_factor * b * h * s * s * d
+    flops = flop_factor * b * h * s * sk * d
     return nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
 
 
@@ -240,6 +267,12 @@ def _library_bwd_ms(q, k, v, do, mask, scale, iters):
     return _time_ms(fwd_bwd, iters) - _time_ms(fwd, iters)
 
 
+def _plan_str(plan):
+    return (f"forward {plan.fwd_stages} slots"
+            f"{' resident' if plan.resident else ''} {plan.fwd_smem} B, "
+            f"backward {plan.bwd_stages} slots {plan.bwd_smem} B")
+
+
 def _abs_err(got, want):
     return (got.float() - want.float()).abs().max().item()
 
@@ -248,8 +281,9 @@ def _rel_err(got, want):
     return _abs_err(got, want) / want.float().abs().max().item()
 
 
-def check_bwd_kernels(fa, failures):
-    """Phase 2, backward kernels. Returns the per-kernel records."""
+def check_bwd_kernels(fa, failures, parent=None):
+    """Phase 2, backward kernels. Returns the per-kernel records. With
+    ``parent``, its full-block backward is timed beside this one's."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -265,22 +299,30 @@ def check_bwd_kernels(fa, failures):
             keep[0] = False   # one fully masked row
         return torch.where(keep, 0.0, -1e30).to(torch.float32)
 
+    # (label, q shape, Sk or None, launches per step, clips, masked)
     cases = []
     for clips in (RUN_A_CLIPS, RUN_B_CLIPS):
-        cases += [(label, shape, per_step, clips)
+        cases += [(label, shape, None, per_step, clips, False)
                   for label, shape, per_step in full_block_bwd_cases(clips)]
-    cases += [("object encoder N=1, masked", (32, 8, 260, 64), 0, 0),
-              ("DiT camera joint N=1, masked", (16, 16, 512, 64), 0, 0)]
-    fb = []
-    for label, shape, per_step, clips in cases:
-        q, k, v, do = (rand(shape) for _ in range(4))
+    cases += [("object encoder N=1, masked", (32, 8, 260, 64), None, 0, 0,
+               True)]
+    cases += [(label, shape, sk, 0, 0, masked)
+              for label, shape, sk, _, masked in FULL_BLOCK_CHECKS]
+    fb, deltas = [], []
+    for label, shape, sk, per_step, clips, masked in cases:
+        kv = shape if sk is None else shape[:2] + (sk, shape[3])
+        q, k, v, do = rand(shape), rand(kv), rand(kv), rand(shape)
         scale = shape[3] ** -0.5
-        bias = masked_bias(shape[0], shape[2]) if per_step == 0 else None
+        bias = masked_bias(shape[0], kv[2]) if masked else None
         out, m, l = fa._full_block_fwd(q, k, v, bias, scale, stats=True)
         got = fa.full_block_attention_bwd(q, k, v, do, out, m, l,
                                           scale=scale, bias=bias)
+        again = fa.full_block_attention_bwd(q, k, v, do, out, m, l,
+                                            scale=scale, bias=bias)
         want = fa.full_block_attention_bwd_plain(q, k, v, do, scale=scale,
                                                  bias=bias)
+        delta, inv_l = fa.full_block_attention_delta(do, out, l)
+        want_delta, want_il = fa.full_block_attention_delta_plain(do, out, l)
         torch.cuda.synchronize()
         errs = [_rel_err(g, w) for g, w in zip(got, want)]
         abs_err = max(_abs_err(g, w) for g, w in zip(got, want))
@@ -288,24 +330,53 @@ def check_bwd_kernels(fa, failures):
         if not (finite and max(errs) <= BWD_RTOL):
             failures.append(f"full_block_bwd {label}: rel err dq/dk/dv "
                             f"{errs} finite {finite}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            failures.append(f"full_block_bwd {label}: two launches differ")
+        # delta: fp32 sums over D in another order; 1/l the same reciprocal
+        d_err = _abs_err(delta, want_delta)
+        d_scale = (do.float().abs() * out.float().abs()).sum(-1).max().item()
+        if not (d_err <= DELTA_RTOL * d_scale and torch.equal(inv_l, want_il)):
+            failures.append(f"full_block_delta {label}: max|err| {d_err} "
+                            f"(scale {d_scale}), 1/l equal "
+                            f"{torch.equal(inv_l, want_il)}")
         mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
         ms = _time_ms(lambda: fa.full_block_attention_bwd(
             q, k, v, do, out, m, l, scale=scale, bias=bias), 20)
         plain_ms = _time_ms(lambda: fa.full_block_attention_bwd_plain(
             q, k, v, do, scale=scale, bias=bias), 5)
         lib_ms = _library_bwd_ms(q, k, v, do, mask, scale, 20)
+        parent_ms = None
+        if parent is not None:
+            pout, pm, pl = parent._full_block_fwd(q, k, v, bias, scale,
+                                                  stats=True)
+            parent_ms = _time_ms(lambda: parent.full_block_attention_bwd(
+                q, k, v, do, pout, pm, pl, scale=scale, bias=bias), 20)
         bytes_ms, ops_ms = _bound(shape, bias is not None, False, tensors=7,
-                                  stats=3, flop_factor=10)
-        fb.append(dict(label=label, shape=list(shape), clips=clips,
-                       per_step=per_step,
-                       weight=per_step if clips == RUN_A_CLIPS else 0,
+                                  stats=3, flop_factor=10, sk=kv[2])
+        weight = per_step if clips == RUN_A_CLIPS else 0
+        fb.append(dict(label=label, shape=list(shape), sk=kv[2], clips=clips,
+                       per_step=per_step, weight=weight,
                        max_abs_err=abs_err, max_rel_err=max(errs), ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms,
-                       bytes_ms=bytes_ms, ops_ms=ops_ms,
+                       parent_ms=parent_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
                        err_dq_dk_dv=errs))
-        _log(f"  full_block_bwd {label} {shape}: rel err dq {errs[0]:.3g} "
-             f"dk {errs[1]:.3g} dv {errs[2]:.3g}  kernel {ms:.4f} ms  plain "
-             f"{plain_ms:.4f} ms  sdpa bwd {lib_ms:.4f} ms  bound "
+        d_ms = _time_ms(lambda: fa.full_block_attention_delta(do, out, l), 20)
+        d_plain = _time_ms(lambda: fa.full_block_attention_delta_plain(
+            do, out, l), 20)
+        b, h, sq, d = shape
+        # dO and O read once, l read, delta and 1/l written; 2 B H Sq D
+        # fp32 operations
+        d_bytes = (2 * b * h * sq * d * 2 + 3 * b * h * sq * 4)
+        deltas.append(dict(label=label, shape=list(shape), weight=weight,
+                           max_abs_err=d_err, ms=d_ms, plain_ms=d_plain,
+                           library_ms=None,
+                           bytes_ms=d_bytes / PEAK_HBM_BYTES * 1e3,
+                           ops_ms=2 * b * h * sq * d / PEAK_FP32_FLOPS * 1e3))
+        _log(f"  full_block_bwd {label} {shape} Sk {kv[2]}: rel err dq "
+             f"{errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g}  kernel "
+             f"{ms:.4f} ms (delta pre-pass {d_ms:.4f}, plain {d_plain:.4f}) "
+             f" parent {parent_ms} ms"
+             f" plain {plain_ms:.4f} ms  sdpa bwd {lib_ms:.4f} ms  bound "
              f"{max(bytes_ms, ops_ms):.4f} ms")
 
     dq_cases, dkv_cases = [], []
@@ -375,46 +446,58 @@ def check_bwd_kernels(fa, failures):
     def record(name, source, line, cs):
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": tpu + line, "cases": cs}
-    return [record("full_block_attention_bwd", "flash_full_block_bwd.cu",
-                   "188", fb),
+    bwd = record("full_block_attention_bwd", "flash_full_block_bwd.cu", "188",
+                 fb)
+    # the backward's delta pre-pass: its own launch and counter, listed
+    # under the backward's record
+    bwd["delta"] = record("full_block_attention_delta",
+                          "flash_full_block_bwd.cu", "188", deltas)
+    return [bwd,
             record("stream_attention_bwd_dq", "flash_stream_bwd.cu", "512",
                    dq_cases),
             record("stream_attention_bwd_dkv", "flash_stream_bwd.cu", "552",
                    dkv_cases)]
 
 
-def check_kernels(fa, failures):
-    """Phase 2. Returns the per-kernel records (before launches)."""
+def check_kernels(fa, failures, parent=None):
+    """Phase 2. Returns the per-kernel records (before launches). With
+    ``parent`` (another checkout's flash_attention module) its full-block
+    forward is timed beside this one's."""
     import torch
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def qkv(shape):
-        return [torch.randn(shape, generator=gen, device="cuda",
-                            dtype=torch.bfloat16) for _ in range(3)]
+    def qkv(shape, sk=None):
+        kv = shape if sk is None else shape[:2] + (sk, shape[3])
+        return [torch.randn(x, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for x in (shape, kv, kv)]
 
     def record(name, src, replaces, cases):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "cases": cases}
 
     fb_cases = []
-    for label, shape, per_clip in FULL_BLOCK_CASES + [
-            ("DiT camera joint, masked", (16, 16, 512, 64), 0)]:
-        q, k, v = qkv(shape)
+    for label, shape, sk, per_clip, masked in [
+            (lab, shape, None, n, False) for lab, shape, n in FULL_BLOCK_CASES
+    ] + FULL_BLOCK_CHECKS:
+        q, k, v = qkv(shape, sk)
         scale = shape[3] ** -0.5
         bias = None
-        if per_clip == 0:
-            keep = torch.rand((shape[0], shape[2]), generator=gen,
+        if masked:
+            keep = torch.rand((shape[0], k.shape[2]), generator=gen,
                               device="cuda") > 0.3
             keep[0] = False   # one fully masked row
             bias = torch.where(keep, 0.0, -1e30).to(torch.float32)
         got = fa.full_block_attention(q, k, v, scale=scale, bias=bias)
+        again = fa.full_block_attention(q, k, v, scale=scale, bias=bias)
         want = fa.full_block_attention_plain(q, k, v, scale=scale, bias=bias)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         finite = bool(torch.isfinite(got).all())
-        if per_clip == 0:
+        if not torch.equal(got, again):
+            failures.append(f"full_block {label}: two launches differ")
+        if masked:
             uniform = v[0].float().mean(dim=1, keepdim=True)
             err_u = (got[0].float() - uniform).abs().max().item()
             _log(f"  {label}: fully masked row vs uniform average "
@@ -423,8 +506,8 @@ def check_kernels(fa, failures):
                 failures.append(f"full_block {label}: masked row not uniform "
                                 f"({err_u})")
         if not (finite and err <= KERNEL_ATOL):
-            failures.append(f"full_block {shape}: max|err| {err} finite "
-                            f"{finite}")
+            failures.append(f"full_block {label} {shape}: max|err| {err} "
+                            f"finite {finite}")
         mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
         iters = 50
         ms = _time_ms(lambda: fa.full_block_attention(q, k, v, scale=scale,
@@ -433,15 +516,24 @@ def check_kernels(fa, failures):
             q, k, v, scale=scale, bias=bias), 10)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale), iters)
-        bytes_ms, ops_ms = _bound(shape, bias is not None, False)
-        fb_cases.append(dict(label=label, shape=list(shape),
+        parent_ms = None if parent is None else _time_ms(
+            lambda: parent.full_block_attention(q, k, v, scale=scale,
+                                                bias=bias), iters)
+        bytes_ms, ops_ms = _bound(shape, bias is not None, False,
+                                  sk=k.shape[2])
+        plan = fa._full_block_plan(shape[2], k.shape[2], shape[3])
+        fb_cases.append(dict(label=label, shape=list(shape), sk=k.shape[2],
                              per_clip=per_clip, weight=per_clip,
                              max_abs_err=err, ms=ms,
                              plain_ms=plain_ms, library_ms=lib_ms,
-                             bytes_ms=bytes_ms, ops_ms=ops_ms))
-        _log(f"  full_block {label} {shape}: max|err| {err:.3g}  kernel "
-             f"{ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
-             f"bound {max(bytes_ms, ops_ms):.4f} ms")
+                             parent_ms=parent_ms,
+                             bytes_ms=bytes_ms, ops_ms=ops_ms,
+                             plan=dataclasses.asdict(plan)))
+        _log(f"  full_block {label} {shape} Sk {k.shape[2]}: max|err| "
+             f"{err:.3g}  kernel {ms:.4f} ms  parent {parent_ms} ms  plain "
+             f"{plain_ms:.4f} ms  sdpa "
+             f"{lib_ms:.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms  "
+             f"({_plan_str(plan)})")
 
     st_cases = []
     for label, shape, per_clip in STREAM_CASES:
@@ -480,6 +572,24 @@ def check_kernels(fa, failures):
     ]
 
 
+def _load_kernels(root):
+    """``hivae_tpu_torch.ops.kernels.flash_attention`` of the checkout at
+    ``root``, imported as its own package (``parent_kernels``) so that it
+    builds and loads that checkout's sources into that checkout's build
+    directory."""
+    import importlib
+    import importlib.util
+    kdir = os.path.join(os.path.abspath(root), "hivae_tpu_torch", "ops",
+                        "kernels")
+    spec = importlib.util.spec_from_file_location(
+        "parent_kernels", os.path.join(kdir, "__init__.py"),
+        submodule_search_locations=[kdir])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_kernels"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("parent_kernels.flash_attention")
+
+
 def _norm_params(gen, d):
     """gamma/beta of q and k, fp32, drawn away from (1, 0)."""
     import torch
@@ -489,10 +599,11 @@ def _norm_params(gen, d):
     return [draw(1.0, 0.5), draw(0.0, 0.3), draw(1.0, 0.5), draw(0.0, 0.3)]
 
 
-def check_qknorm(fa, failures):
+def check_qknorm(fa, failures, parent=None):
     """Phase 2, the fused qk-norm forward at the full-block shapes (raw q
     and k far from normalised), its autograd gradients at the camera-joint
-    shape, and its times. Returns the kernel's record."""
+    shape, and its times (with ``parent``'s beside them). Returns the
+    kernel's record."""
     import torch
     import torch.nn.functional as F
 
@@ -538,13 +649,18 @@ def check_qknorm(fa, failures):
         plain_ms = _time_ms(lambda: fa.full_block_attention_qknorm_plain(
             q, k, v, *norms, **kw), 10)
         lib_ms = _time_ms(library, 50)
+        parent_ms = None if parent is None else _time_ms(
+            lambda: parent.full_block_attention_qknorm(q, k, v, *norms, **kw),
+            50)
         bytes_ms, ops_ms = _bound(shape, bias is not None, False)
         cases.append(dict(label=label, shape=list(shape), per_clip=per_clip,
                           weight=per_clip, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms,
-                          bytes_ms=bytes_ms, ops_ms=ops_ms))
+                          parent_ms=parent_ms, bytes_ms=bytes_ms,
+                          ops_ms=ops_ms))
         _log(f"  full_block_qknorm {label} {shape}: max|err| {err:.3g}  "
-             f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  layer_norm x2 + "
+             f"kernel {ms:.4f} ms  parent {parent_ms} ms  plain "
+             f"{plain_ms:.4f} ms  layer_norm x2 + "
              f"sdpa {lib_ms:.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms")
 
     # gradients: autograd through the fused kernel (its backward recomputes
@@ -657,7 +773,8 @@ def summarise(rec, launches):
                ms=avg("ms"), plain_ms=avg("plain_ms"),
                bound_ms=max(bytes_ms, ops_ms),
                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               library_ms=avg("library_ms"), cases=cases)
+               library_ms=None if any(c["library_ms"] is None for c in weighted)
+               else avg("library_ms"), cases=cases)
     return rec
 
 
@@ -888,7 +1005,8 @@ def run_int8_clip(models, bf16_clip, bf16_latency, args, failures):
 
 
 COUNTERS = ("full_block_attention", "full_block_attention_qknorm",
-            "full_block_attention_bwd", "stream_attention",
+            "full_block_attention_bwd", "full_block_attention_delta",
+            "stream_attention",
             "stream_attention_bwd_dq", "stream_attention_bwd_dkv",
             "fused_ffn_up_quant")
 
@@ -970,6 +1088,7 @@ def _expected_step_launches(cfg, perceptual: bool):
     return dict(_no_launches(),
                 full_block_attention=enc + dit * (2 if cfg.remat else 1),
                 full_block_attention_bwd=enc + dit,
+                full_block_attention_delta=enc + dit,
                 stream_attention=4 + int(perceptual),
                 stream_attention_bwd_dq=int(perceptual),
                 stream_attention_bwd_dkv=int(perceptual))
@@ -1193,6 +1312,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile one clip and write the table here")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout (e.g. the parent commit unpacked "
+                         "under _archive/): build its kernels too and time "
+                         "its full-block forward, qk-norm forward and "
+                         "backward beside these")
     args = ap.parse_args()
 
     import torch
@@ -1221,11 +1345,17 @@ def main() -> int:
     for name, log in _build.BUILD_LOG.items():
         for line in _ptxas_summary(log):
             _log(f"  {name}: {line}")
+    parent = None
+    if args.parent:
+        parent = _load_kernels(args.parent)
+        parent._build.build()
+        _log(f"  built the kernels of {args.parent}")
 
     _log("phase 2: kernels vs plain versions")
-    records = (check_kernels(fa, failures) + [check_qknorm(fa, failures),
-                                              check_quant_ffn(qf, failures)]
-               + check_bwd_kernels(fa, failures))
+    records = (check_kernels(fa, failures, parent=parent)
+               + [check_qknorm(fa, failures, parent),
+                  check_quant_ffn(qf, failures)]
+               + check_bwd_kernels(fa, failures, parent=parent))
 
     _log("phase 3: full-width AMD_N + SD-VAE clip reconstruction")
     serving = build_serving_models()
@@ -1255,7 +1385,7 @@ def main() -> int:
     del models
     torch.cuda.empty_cache()
 
-    for rec in records:
+    for rec in records + [r["delta"] for r in records if "delta" in r]:
         if not any(p[rec["name"]] for p in paths.values()):
             failures.append(f"{rec['name']}: launched by no timed path")
     _log(f"total {time.perf_counter() - start:.1f} s")
@@ -1263,10 +1393,13 @@ def main() -> int:
         _log("FAILED:\n  " + "\n  ".join(failures))
         return 1
     print(card)
-    print(json.dumps({"kernels": [
-        summarise(r, {path: counts[r["name"]]
-                      for path, counts in paths.items()})
-        for r in records]}))
+    def launches(name):
+        return {path: counts[name] for path, counts in paths.items()}
+    for r in records:
+        if "delta" in r:
+            summarise(r["delta"], launches(r["delta"]["name"]))
+    print(json.dumps({"kernels": [summarise(r, launches(r["name"]))
+                                  for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -176,4 +176,365 @@ __device__ __forceinline__ void c_to_a(uint32_t a[4], const float c_lo[4],
   a[3] = pack_bf16(c_hi[2], c_hi[3]);
 }
 
+// ---------------------------------------------------------------------------
+// Helpers of the pipelined full-block kernels (flash_full_block*.cu).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix x4: four 8x8 bf16 matrices from shared memory, one per register;
+// lanes 8i..8i+7 give the row addresses of matrix i (16-byte aligned).
+// Matrix i lands in r[i] in the mma fragment layout: lane holds row
+// lane / 4, elements 2 (lane % 4) and 2 (lane % 4) + 1 (.trans: the
+// transposed matrix, i.e. column lane / 4, rows 2 (lane % 4) and + 1).
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// This lane's element offset inside a 16 x 16 block of a row-major shared
+// tile (leading dimension ld) for ldsm_x4 / ldsm_x4_t:
+//  * ldsm_off_a: matrices (r, c), (r+8, c), (r, c+8), (r+8, c+8). With
+//    ldsm_x4 that is the A fragment of rows r..r+16, k c..c+16. With
+//    ldsm_x4_t on a (k, n) tile (keys x head dim) it is the B fragments of
+//    two 8-wide n tiles: {r[0], r[1]} for n c..c+8, {r[2], r[3]} for c+8..
+//  * ldsm_off_b: matrices (n, k), (n, k+8), (n+8, k), (n+8, k+8) of an
+//    (n, k) tile (keys x head dim): with ldsm_x4 the B fragments of
+//    B(k, n) = T[n][k] for two 8-wide n tiles, {r[0], r[1]} and {r[2], r[3]}.
+__device__ __forceinline__ int ldsm_off_a(int lane, int ld) {
+  return ((lane & 7) + (lane & 8)) * ld + ((lane & 16) >> 1);
+}
+
+__device__ __forceinline__ int ldsm_off_b(int lane, int ld) {
+  return ((lane & 7) + ((lane & 16) >> 1)) * ld + (lane & 8);
+}
+
+// A multi-stage copy ring on cp.async commit groups: every thread issues
+// its share of a job's copies with cp_async16 / cp_async4, then
+// ring_commit() closes the job's group; ring_wait_upto(n) returns
+// once at most n of this thread's groups are still in flight (groups
+// complete in order, so every older job has landed), and a __syncthreads()
+// after it publishes the job to the CTA.
+__device__ __forceinline__ void ring_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ring_wait_upto(int n) {
+  switch (n <= 0 ? 0 : n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+
+// 4 bytes global -> shared (cp.async.ca); zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Elements [i0, i0 + N) of an fp32 row of n elements into shared memory,
+// zero past n (4-byte copies: the rows of a (B, S) or (B, H, S) array are
+// not 16-byte aligned at S = 260 or 266).
+template <int N, int NTHREADS>
+__device__ __forceinline__ void load_row_f32(float* dst, const float* src,
+                                             int i0, int n, int tid) {
+  for (int i = tid; i < N; i += NTHREADS) {
+    const bool valid = i0 + i < n;
+    cp_async4(dst + i, src + (valid ? i0 + i : 0), valid);
+  }
+}
+
+// The softmax probability, as both full-block kernels form it, in base 2:
+// log2(e) is folded into the scale and the key bias, so one FMA gives the
+// base-2 logit t = s * scale * log2(e) + bias * log2(e) of the raw Q.K^T
+// product s, and P = 2^(t - m) * (1 / l) with m the row max of t and 1/l
+// the reciprocal of the row's denominator, computed once per row. A key
+// past Sk has bias_log2 = -inf and P = 0; under the -1e30 key mask every
+// key of a fully masked row has the same t, so its P stays uniform.
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float scale_log2(float scale) {
+  return __fmul_rn(scale, LOG2E);
+}
+
+__device__ __forceinline__ float bias_log2(float bias) {
+  return __fmul_rn(bias, LOG2E);
+}
+
+__device__ __forceinline__ float attn_logit2(float s, float sl2, float bl2) {
+  return fmaf(s, sl2, bl2);
+}
+
+__device__ __forceinline__ float attn_p(float s, float sl2, float bl2,
+                                        float m_log2, float inv_l) {
+  return ex2(attn_logit2(s, sl2, bl2) - m_log2) * inv_l;
+}
+
+// Two 8-wide n tiles (one 16-wide chunk starting at row n0 of T, an (n, k)
+// tile of leading dimension ld) of the product A . T^T over KS k steps:
+// s[i] += A . T[n0 + 8i .. n0 + 8i + 8]^T, A given as register fragments.
+template <int KS>
+__device__ __forceinline__ void mma_chunk_nk(float s[2][4],
+                                             const uint32_t a[KS][4],
+                                             const bf16* T, int ld, int n0,
+                                             int lane) {
+  const bf16* p = T + n0 * ld + ldsm_off_b(lane, ld);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t b[4];
+    ldsm_x4(b, p + kk * 16);
+    mma16816(s[0], a[kk], b);
+    mma16816(s[1], a[kk], b + 2);
+  }
+}
+
+// acc[dt] += A . T[k0 .. k0 + 16][8 dt .. 8 dt + 8] for every 8-wide n tile
+// of the head dim D: A is one 16-wide k step (P or dS), T a (k, n) tile
+// (keys x head dim) of leading dimension ld.
+template <int D>
+__device__ __forceinline__ void mma_rows_kn(float acc[D / 8][4],
+                                            const uint32_t a[4],
+                                            const bf16* T, int ld, int k0,
+                                            int lane) {
+  const bf16* p = T + k0 * ld + ldsm_off_a(lane, ld);
+#pragma unroll
+  for (int d2 = 0; d2 < D / 16; ++d2) {
+    uint32_t b[4];
+    ldsm_x4_t(b, p + d2 * 16);
+    mma16816(acc[2 * d2], a, b);
+    mma16816(acc[2 * d2 + 1], a, b + 2);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wgmma (sm_90a): a warpgroup's 64-row product from shared memory.
+// ---------------------------------------------------------------------------
+
+// A K-major tile for wgmma with the 128-byte swizzle: NROWS rows of D bf16
+// stored as ceil(D / 64) column blocks of NROWS x 128 bytes (64 elements a
+// row; D = 32 leaves half of each row unused); within a block, 16-byte chunk
+// j of row r sits at chunk j ^ (r % 8), so 8 threads writing one row, and
+// the hardware reading 8 rows of one chunk, touch distinct banks. Column
+// blocks must start 1024-byte aligned.
+template <int D, int NROWS>
+__host__ __device__ constexpr int sw128_bytes() {
+  return ((D + 63) / 64) * NROWS * 128;
+}
+
+template <int D, int NROWS, int NTHREADS>
+__device__ __forceinline__ void load_tile_sw128(bf16* dst, const bf16* src,
+                                                long rs, int row0, int S,
+                                                int tid) {
+  constexpr int VPR = D / 8;  // 16-byte vectors per row
+  static_assert((NROWS * VPR) % NTHREADS == 0, "tile not a whole number of "
+                                               "copies per thread");
+  unsigned char* base = reinterpret_cast<unsigned char*>(dst);
+#pragma unroll
+  for (int it = 0; it < NROWS * VPR / NTHREADS; ++it) {
+    const int i = tid + it * NTHREADS;
+    const int r = i / VPR, c8 = i % VPR;
+    const bool valid = row0 + r < S;
+    cp_async16(base + (c8 >> 3) * NROWS * 128 + r * 128 +
+                   (((c8 & 7) ^ (r & 7)) << 4),
+               src + (valid ? (long)(row0 + r) * rs + c8 * 8 : 0), valid);
+  }
+}
+
+// Matrix descriptor of a K-major 128-byte-swizzled operand whose first row
+// and first k element sit at p: start address >> 4, leading byte offset 1
+// (unused for a swizzled K-major operand), stride byte offset 1024 (one
+// 8-row group of 128-byte rows), layout type 1 (128-byte swizzle). The k
+// step kk of 16 elements starts at p + (kk / 4) * block + (kk % 4) * 32.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Shared memory written by cp.async (the generic proxy) made visible to the
+// async proxy that wgmma reads it through; each writing thread, before the
+// barrier that publishes the tile.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (+)= A . B^T for a 64 x N tile, k 16, A and B K-major in shared memory
+// (descriptors), fp32 accumulation; scale_d = 0 overwrites d. Warp w of the
+// warpgroup holds rows 16w.., in the mma.sync C layout for each 8-column
+// group j: d[4j + 0..1] = (row g, cols 8j + 2t, +1), d[4j + 2..3] = row g+8.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<48>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// Matrix descriptor of an MN-major 128-byte-swizzled B operand (a tile of
+// k rows of 128-byte swizzled n elements, as load_tile_sw128 stores V:
+// keys x head dim): leading byte offset `block` (the next 64-wide n
+// block), stride byte offset 1024 (the next 8 k rows), 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, int block) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)((block >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d += A . B for a 64 x 32 tile, k 16: A (the warp's 16 rows, mma.sync A
+// fragment layout) from registers, B an MN-major (transposed) operand in
+// shared memory; d[4j + e] as in wgmma_ss.
+__device__ __forceinline__ void wgmma_rs32(float (&d)[16], const uint32_t a[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d = Q . K^T over D for a warpgroup's 64 query rows (Q: a 128-byte-swizzled
+// tile of QROWS rows, the warpgroup's first row at row q_row0; K: one of
+// KROWS rows) against the first N keys of K, then waited for.
+template <int D, int N, int QROWS, int KROWS>
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], const bf16* Qs,
+                                         int q_row0, const bf16* Ks) {
+  const unsigned char* qb = reinterpret_cast<const unsigned char*>(Qs) + q_row0 * 128;
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(Ks);
+  fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk % 4) * 32;
+    wgmma_ss<N>(d, desc_sw128(qb + (kk / 4) * QROWS * 128 + off),
+                desc_sw128(kb + (kk / 4) * KROWS * 128 + off), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(d);
+}
+
+// The A fragments of rows [r0, r0 + 16) over all D columns of a shared tile.
+template <int D>
+__device__ __forceinline__ void load_a_rows(uint32_t a[D / 16][4],
+                                            const bf16* T, int ld, int r0,
+                                            int lane) {
+  const bf16* p = T + r0 * ld + ldsm_off_a(lane, ld);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(a[kk], p + kk * 16);
+}
+
 }  // namespace hv

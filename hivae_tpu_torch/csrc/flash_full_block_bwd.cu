@@ -8,132 +8,181 @@
 //
 // Two departures from the TPU kernel, both within rounding:
 //   * P is not recomputed from scratch over the whole row. The forward
-//     (flash_full_block.cu) saves each row's logit max m and denominator l,
-//     and this kernel forms P = exp(s - m) / l with the forward's own
-//     expression. m and l are kept apart rather than folded into one LSE:
-//     under the -1e30 key mask a fully masked row has m = -1e30, and
-//     m + log(l) rounds back to -1e30 in fp32, which would lose the 1/l.
-//   * delta = rowsum(dO * O) (FlashAttention-2), computed by the caller from
-//     the bf16 forward output, in place of the TPU kernel's rowsum(dP * P)
-//     over fp32 P. The two are equal in exact arithmetic; they differ by
-//     the bf16 rounding of O.
+//     (flash_full_block.cu) saves each row's base-2 logit max m and
+//     denominator l, and both sides here form P with the forward's own
+//     function (attn_p in attn_common.cuh), so P is the forward's P bit for
+//     bit. m and l are kept apart rather than folded into one LSE: under
+//     the -1e30 key mask a fully masked row has m = -1.44e30, and
+//     m + log2(l) rounds back to m in fp32, which would lose the 1/l.
+//   * delta = rowsum(dO * O) (FlashAttention-2), from the bf16 forward
+//     output, in place of the TPU kernel's rowsum(dP * P) over fp32 P. The
+//     two are equal in exact arithmetic; they differ by the bf16 rounding of
+//     O. A pre-pass kernel (full_block_delta_kernel) reads dO and O once,
+//     8 lanes a row with 16-byte loads, and writes delta and 1/l (the
+//     forward's own reciprocal) as (B, H, Sq) fp32.
 // The bf16 roundings of P (for dV) and of dS (for dQ and dK) are kept.
 //
 // Design. dK and dV need a sum over query rows, dQ a sum over keys. One
 // launch does both without atomics, so the result is deterministic: the
-// grid's x axis holds ceil(Sq/64) dQ CTAs followed by ceil(Sk/64) dK/dV
-// CTAs. A dQ CTA (4 warps, 16 query rows each) keeps its Q and dO rows and
-// walks every key tile; a dK/dV CTA (4 warps, 16 keys each) keeps its K and
-// V rows and walks every query tile. Both recompute Q.K^T and dO.V^T, so
-// the launch does 4 + 4 + 2 + 2 = 12 (not 10) B*H*Sq*Sk*D matmul flops
-// through mma.sync m16n8k16; the score tiles are worked in 16-column chunks
-// so that P and dS go from the accumulator straight into the next product's
-// A fragment without a trip through shared memory. No S x S buffer exists.
+// grid's x axis holds ceil(Sq/128) dQ CTAs followed by ceil(Sk/128) dK/dV
+// CTAs, 8 warps each. A dQ CTA keeps its 128 Q and dO rows as register
+// fragments (16 rows a warp) and walks the key tiles (64 keys); a dK/dV CTA
+// keeps its 128 K and V rows and walks the query tiles (64 rows). Both
+// recompute Q.K^T and dO.V^T, so the launch does 4 + 4 + 2 + 2 = 12 (not
+// 10) B*H*Sq*Sk*D matmul flops, all on mma.sync m16n8k16; score tiles are
+// worked in 16-column chunks so that P and dS go from the accumulator
+// straight into the next product's A fragment. No S x S buffer exists.
+// What held the first version back, and what this one does about it:
+//  * One buffer per tile (wait_all, every tile a full memory latency). The
+//    walked tiles now run through a ring of `stages` shared slots filled by
+//    cp.async commit groups, the next stages-1 in flight while one computes:
+//    K, V and the bias row for a dQ CTA; Q, dO and the m, 1/l and delta rows
+//    for a dK/dV CTA.
+//  * Scalar shared loads for the B fragments (load_b_kn): every fragment is
+//    now one ldmatrix x4 (.trans for dQ += dS.K, dV += P^T.dO and
+//    dK += dS^T.Q).
+//  * expf and a division per logit: attn_p, one FMA, one ex2 and a
+//    multiply by 1/l per logit.
+//  * Padding: 16-wide chunks past Sk (dQ side) or Sq (dK/dV side) are
+//    skipped, and a warp whose 16 rows lie wholly past the sequence
+//    computes nothing.
+//  * delta as four eager fp32 ops on the host side: the pre-pass kernel.
+//  * The bias row read from device memory in the inner loop: staged with
+//    each key tile, or held in registers for a dK/dV CTA's own keys.
 //
 // Bound on the H100 SXM: 10*B*H*Sq*Sk*D operations over the 7 bf16 tensors
-// (q, k, v, dO, dq, dk, dv) plus the fp32 row statistics. At the training
-// shapes, D = 64: (64, 16, 512, 64) is 0.174 ms of tensor time against
-// 0.140 ms of memory (operations bound); (64, 16, 266, 64) and
-// (128, 8, 260, 64) are bound by bytes (~0.07 ms). Loads do not overlap
-// compute (one buffer); wgmma/TMA pipelining is later work.
+// (q, k, v, dO, dq, dk, dv) plus the fp32 row statistics (chip_smoke.py's
+// bound; the delta pre-pass reads O in place of the delta row it writes).
+// At the training shapes, D = 64: (64, 16, 512, 64) is 0.174 ms of tensor
+// time against 0.140 ms of memory (operations bound); (64, 16, 266, 64) and
+// (128, 8, 260, 64) are bound by bytes (~0.07 ms).
 #include "attn_common.cuh"
 
 namespace hv {
 
-constexpr int FBB_BQ = 64;  // query rows per dQ CTA, per query tile
-constexpr int FBB_BK = 64;  // keys per dK/dV CTA, per key tile
-constexpr int FBB_THREADS = 128;
+constexpr int FBB_WARPS = 8;
+constexpr int FBB_THREADS = 32 * FBB_WARPS;
+constexpr int FBB_ROWS = 16 * FBB_WARPS;  // query rows / keys a CTA owns
+constexpr int FBB_T = 64;                 // rows of one walked tile job
+constexpr int FBB_NC = FBB_T / 16;        // 16-wide chunks per tile
 
 struct FbbArgs {
   const bf16 *q, *k, *v, *dout;
-  const float *bias, *m, *l, *delta;
+  const float *bias, *m, *il, *delta;
   bf16 *dq, *dk, *dv;
   Rows sq, sk, sv, sdo, sdq, sdk, sdv;
-  int H, Sq, Sk, nqt;
+  int H, Sq, Sk, nqb, stages;
   float scale;
 };
 
+// Shared bytes: the CTA's own two 128-row tiles (Q and dO, or K and V),
+// then `stages` slots of two 64-row tiles and three fp32 rows of 64.
 template <int D>
-__device__ void fbb_dq(const FbbArgs& a, unsigned char* smem, int qt) {
+__host__ __device__ constexpr int fbb_own_bytes() { return 2 * FBB_ROWS * (D + 8) * 2; }
+
+template <int D>
+__host__ __device__ constexpr int fbb_slot_bytes() { return 2 * FBB_T * (D + 8) * 2 + 3 * FBB_T * 4; }
+
+template <int D>
+__device__ void fbb_dq(const FbbArgs& a, unsigned char* smem, int qb) {
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;
   constexpr int DT = D / 8;
+  constexpr int TILE = FBB_T * LD;
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + FBB_BQ * LD;
-  bf16* Ks = Os + FBB_BQ * LD;
-  bf16* Vs = Ks + FBB_BK * LD;
+  bf16* Os = Qs + FBB_ROWS * LD;
+  unsigned char* ring = smem + fbb_own_bytes<D>();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = qt * FBB_BQ;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = qb * FBB_ROWS;
   const bf16* kp = head_ptr(a.k, a.sk, b, h);
   const bf16* vp = head_ptr(a.v, a.sv, b, h);
   const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
+  const float sl2 = scale_log2(a.scale);
+  const int nkt = (a.Sk + FBB_T - 1) / FBB_T;
+  const bool active = q0 + warp * 16 < a.Sq;
 
-  load_tile<D, FBB_BQ, FBB_THREADS>(Qs, LD, head_ptr(a.q, a.sq, b, h), a.sq.s,
-                                    q0, a.Sq, tid);
-  load_tile<D, FBB_BQ, FBB_THREADS>(Os, LD, head_ptr(a.dout, a.sdo, b, h),
-                                    a.sdo.s, q0, a.Sq, tid);
-  tile_barrier();
-  uint32_t qa[KS][4], da[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    load_a(qa[kk], Qs, LD, warp * 16, kk * 16, lane);
-    load_a(da[kk], Os, LD, warp * 16, kk * 16, lane);
-  }
+  auto slot = [&](int i) {
+    return reinterpret_cast<bf16*>(ring + (i % a.stages) * fbb_slot_bytes<D>());
+  };
+  auto issue = [&](int i) {  // K tile i, V tile i, their bias row
+    bf16* Ks = slot(i);
+    load_tile<D, FBB_T, FBB_THREADS>(Ks, LD, kp, a.sk.s, i * FBB_T, a.Sk, tid);
+    load_tile<D, FBB_T, FBB_THREADS>(Ks + TILE, LD, vp, a.sv.s, i * FBB_T,
+                                     a.Sk, tid);
+    if (brow)
+      load_row_f32<FBB_T, FBB_THREADS>(reinterpret_cast<float*>(Ks + 2 * TILE),
+                                       brow, i * FBB_T, a.Sk, tid);
+    ring_commit();
+  };
+
+  // the CTA's Q and dO rows ride in job 0's group
+  load_tile<D, FBB_ROWS, FBB_THREADS>(Qs, LD, head_ptr(a.q, a.sq, b, h),
+                                      a.sq.s, q0, a.Sq, tid);
+  load_tile<D, FBB_ROWS, FBB_THREADS>(Os, LD, head_ptr(a.dout, a.sdo, b, h),
+                                      a.sdo.s, q0, a.Sq, tid);
+  int issued = 0;
+  for (; issued < a.stages - 1 && issued < nkt; ++issued) issue(issued);
+
+  // this thread's two rows; a row past Sq gets 1/l = 0, so P = 0
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
   const long rb = ((long)b * a.H + h) * a.Sq;
-  // rows past Sq are never stored; give them harmless statistics
   const float m0 = r0 < a.Sq ? a.m[rb + r0] : 0.f;
   const float m1 = r1 < a.Sq ? a.m[rb + r1] : 0.f;
-  const float l0 = r0 < a.Sq ? a.l[rb + r0] : 1.f;
-  const float l1 = r1 < a.Sq ? a.l[rb + r1] : 1.f;
+  const float il0 = r0 < a.Sq ? a.il[rb + r0] : 0.f;
+  const float il1 = r1 < a.Sq ? a.il[rb + r1] : 0.f;
   const float d0 = r0 < a.Sq ? a.delta[rb + r0] : 0.f;
   const float d1 = r1 < a.Sq ? a.delta[rb + r1] : 0.f;
 
+  uint32_t qa[KS][4], da[KS][4];
   float acc[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
 
-  const int nkt = (a.Sk + FBB_BK - 1) / FBB_BK;
-  for (int j = 0; j < nkt; ++j) {
-    __syncthreads();  // the previous K/V tile is consumed
-    load_tile<D, FBB_BK, FBB_THREADS>(Ks, LD, kp, a.sk.s, j * FBB_BK, a.Sk, tid);
-    load_tile<D, FBB_BK, FBB_THREADS>(Vs, LD, vp, a.sv.s, j * FBB_BK, a.Sk, tid);
-    tile_barrier();
+  for (int i = 0; i < nkt; ++i) {
+    ring_wait_upto(issued - 1 - i);
+    __syncthreads();  // job i has landed; job i-1's slot is free
+    if (issued < nkt) issue(issued++);
+    if (i == 0) {
+      load_a_rows<D>(qa, Qs, LD, warp * 16, lane);
+      load_a_rows<D>(da, Os, LD, warp * 16, lane);
+    }
+    if (!active) continue;
+    const bf16* Ks = slot(i);
+    const bf16* Vs = Ks + TILE;
+    const float* Bs = reinterpret_cast<const float*>(Ks + 2 * TILE);
+    const int nc = min(FBB_NC, (a.Sk - i * FBB_T + 15) / 16);
 #pragma unroll
-    for (int c = 0; c < FBB_BK / 16; ++c) {
-      float s[2][4], dp[2][4];
+    for (int c = 0; c < FBB_NC; ++c) {
+      if (c < nc) {
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        mma_chunk_nk<KS>(s, qa, Ks, LD, c * 16, lane);
+        mma_chunk_nk<KS>(dp, da, Vs, LD, c * 16, lane);
 #pragma unroll
-      for (int n2 = 0; n2 < 2; ++n2) {
-        s[n2][0] = s[n2][1] = s[n2][2] = s[n2][3] = 0.f;
-        dp[n2][0] = dp[n2][1] = dp[n2][2] = dp[n2][3] = 0.f;
+        for (int n = 0; n < 2; ++n) {
+          const int col = c * 16 + n * 8 + 2 * t;
+          const float2 bb = brow ? *reinterpret_cast<const float2*>(Bs + col)
+                                 : make_float2(0.f, 0.f);
+          const int key = i * FBB_T + col;
+          const float bl[2] = {key < a.Sk ? bias_log2(bb.x) : -INFINITY,
+                               key + 1 < a.Sk ? bias_log2(bb.y) : -INFINITY};
+          // dS = P * (dP - delta), P as the forward forms it
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t bk[2], bv[2];
-          load_b_nk(bk, Ks, LD, c * 16 + n2 * 8, kk * 16, lane);
-          mma16816(s[n2], qa[kk], bk);
-          load_b_nk(bv, Vs, LD, c * 16 + n2 * 8, kk * 16, lane);
-          mma16816(dp[n2], da[kk], bv);
+          for (int e = 0; e < 2; ++e) {
+            s[n][e] = attn_p(s[n][e], sl2, bl[e], m0, il0) * (dp[n][e] - d0);
+            s[n][2 + e] =
+                attn_p(s[n][2 + e], sl2, bl[e], m1, il1) * (dp[n][2 + e] - d1);
+          }
         }
-        logits_epilogue(s[n2], j * FBB_BK + c * 16 + n2 * 8, lane, a.Sk,
-                        a.scale, brow);
-        // dS = P * (dP - delta), P = exp(s - m) / l as in the forward
-        s[n2][0] = expf(s[n2][0] - m0) / l0 * (dp[n2][0] - d0);
-        s[n2][1] = expf(s[n2][1] - m0) / l0 * (dp[n2][1] - d0);
-        s[n2][2] = expf(s[n2][2] - m1) / l1 * (dp[n2][2] - d1);
-        s[n2][3] = expf(s[n2][3] - m1) / l1 * (dp[n2][3] - d1);
-      }
-      uint32_t dsa[4];
-      c_to_a(dsa, s[0], s[1]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t bk[2];
-        load_b_kn(bk, Ks, LD, c * 16, dt * 8, lane);
-        mma16816(acc[dt], dsa, bk);
+        uint32_t dsa[4];
+        c_to_a(dsa, s[0], s[1]);
+        mma_rows_kn<D>(acc, dsa, Ks, LD, c * 16, lane);
       }
     }
   }
+  if (!active) return;
 
   bf16* dqp = head_ptr(a.dq, a.sdq, b, h);
 #pragma unroll
@@ -145,42 +194,57 @@ __device__ void fbb_dq(const FbbArgs& a, unsigned char* smem, int qt) {
 }
 
 template <int D>
-__device__ void fbb_dkv(const FbbArgs& a, unsigned char* smem, int kt) {
+__device__ void fbb_dkv(const FbbArgs& a, unsigned char* smem, int kb) {
   constexpr int LD = D + 8;
   constexpr int KS = D / 16;
   constexpr int DT = D / 8;
+  constexpr int TILE = FBB_T * LD;
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + FBB_BK * LD;
-  bf16* Qs = Vs + FBB_BK * LD;
-  bf16* Os = Qs + FBB_BQ * LD;
-  float* st_m = reinterpret_cast<float*>(Os + FBB_BQ * LD);
-  float* st_l = st_m + FBB_BQ;
-  float* st_d = st_l + FBB_BQ;
+  bf16* Vs = Ks + FBB_ROWS * LD;
+  unsigned char* ring = smem + fbb_own_bytes<D>();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = kt * FBB_BK;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = kb * FBB_ROWS;
   const bf16* qp = head_ptr(a.q, a.sq, b, h);
   const bf16* op = head_ptr(a.dout, a.sdo, b, h);
   const long rb = ((long)b * a.H + h) * a.Sq;
+  const float sl2 = scale_log2(a.scale);
+  const int nqt = (a.Sq + FBB_T - 1) / FBB_T;
+  const bool active = k0 + warp * 16 < a.Sk;
 
-  load_tile<D, FBB_BK, FBB_THREADS>(Ks, LD, head_ptr(a.k, a.sk, b, h), a.sk.s,
-                                    k0, a.Sk, tid);
-  load_tile<D, FBB_BK, FBB_THREADS>(Vs, LD, head_ptr(a.v, a.sv, b, h), a.sv.s,
-                                    k0, a.Sk, tid);
-  tile_barrier();
-  uint32_t ka[KS][4], va[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    load_a(ka[kk], Ks, LD, warp * 16, kk * 16, lane);
-    load_a(va[kk], Vs, LD, warp * 16, kk * 16, lane);
-  }
-  // this thread's two key rows: their bias, and whether they exist
+  auto slot = [&](int i) {
+    return reinterpret_cast<bf16*>(ring + (i % a.stages) * fbb_slot_bytes<D>());
+  };
+  // Q tile i, dO tile i and their m, 1/l and delta rows (zero past Sq: a
+  // query row there has 1/l = 0, so P = 0, and zero Q and dO rows)
+  auto issue = [&](int i) {
+    bf16* Qs = slot(i);
+    load_tile<D, FBB_T, FBB_THREADS>(Qs, LD, qp, a.sq.s, i * FBB_T, a.Sq, tid);
+    load_tile<D, FBB_T, FBB_THREADS>(Qs + TILE, LD, op, a.sdo.s, i * FBB_T,
+                                     a.Sq, tid);
+    float* R = reinterpret_cast<float*>(Qs + 2 * TILE);
+    load_row_f32<FBB_T, FBB_THREADS>(R, a.m + rb, i * FBB_T, a.Sq, tid);
+    load_row_f32<FBB_T, FBB_THREADS>(R + FBB_T, a.il + rb, i * FBB_T, a.Sq, tid);
+    load_row_f32<FBB_T, FBB_THREADS>(R + 2 * FBB_T, a.delta + rb, i * FBB_T,
+                                     a.Sq, tid);
+    ring_commit();
+  };
+
+  load_tile<D, FBB_ROWS, FBB_THREADS>(Ks, LD, head_ptr(a.k, a.sk, b, h),
+                                      a.sk.s, k0, a.Sk, tid);
+  load_tile<D, FBB_ROWS, FBB_THREADS>(Vs, LD, head_ptr(a.v, a.sv, b, h),
+                                      a.sv.s, k0, a.Sk, tid);
+  int issued = 0;
+  for (; issued < a.stages - 1 && issued < nqt; ++issued) issue(issued);
+
+  // this thread's two keys: their base-2 bias, -inf past Sk
   const int kr0 = k0 + warp * 16 + g, kr1 = kr0 + 8;
-  const bool kv0 = kr0 < a.Sk, kv1 = kr1 < a.Sk;
-  const float bk0 = kv0 && a.bias ? a.bias[(long)b * a.Sk + kr0] : 0.f;
-  const float bk1 = kv1 && a.bias ? a.bias[(long)b * a.Sk + kr1] : 0.f;
+  const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
+  const float bl0 = kr0 < a.Sk ? bias_log2(brow ? brow[kr0] : 0.f) : -INFINITY;
+  const float bl1 = kr1 < a.Sk ? bias_log2(brow ? brow[kr1] : 0.f) : -INFINITY;
 
+  uint32_t ka[KS][4], va[KS][4];
   float dka[DT][4], dva[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
@@ -188,70 +252,65 @@ __device__ void fbb_dkv(const FbbArgs& a, unsigned char* smem, int kt) {
     dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
   }
 
-  for (int i = 0; i < a.nqt; ++i) {
-    __syncthreads();  // the previous Q/dO tile and its statistics are consumed
-    load_tile<D, FBB_BQ, FBB_THREADS>(Qs, LD, qp, a.sq.s, i * FBB_BQ, a.Sq, tid);
-    load_tile<D, FBB_BQ, FBB_THREADS>(Os, LD, op, a.sdo.s, i * FBB_BQ, a.Sq, tid);
-    if (tid < FBB_BQ) {
-      const int r = i * FBB_BQ + tid;
-      // a query row past Sq gets m = +inf: its P is 0 and it adds nothing
-      st_m[tid] = r < a.Sq ? a.m[rb + r] : INFINITY;
-      st_l[tid] = r < a.Sq ? a.l[rb + r] : 1.f;
-      st_d[tid] = r < a.Sq ? a.delta[rb + r] : 0.f;
+  for (int i = 0; i < nqt; ++i) {
+    ring_wait_upto(issued - 1 - i);
+    __syncthreads();  // job i has landed; job i-1's slot is free
+    if (issued < nqt) issue(issued++);
+    if (i == 0) {
+      load_a_rows<D>(ka, Ks, LD, warp * 16, lane);
+      load_a_rows<D>(va, Vs, LD, warp * 16, lane);
     }
-    tile_barrier();
+    if (!active) continue;
+    const bf16* Qs = slot(i);
+    const bf16* Os = Qs + TILE;
+    const float* R = reinterpret_cast<const float*>(Qs + 2 * TILE);
+    const int nc = min(FBB_NC, (a.Sq - i * FBB_T + 15) / 16);
 #pragma unroll
-    for (int c = 0; c < FBB_BQ / 16; ++c) {
-      // transposed score tiles: rows are this warp's keys, columns queries
-      float s[2][4], dp[2][4];
+    for (int c = 0; c < FBB_NC; ++c) {
+      if (c < nc) {
+        // transposed score tiles: rows are this warp's keys, columns queries
+        float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        float dp[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        mma_chunk_nk<KS>(s, ka, Qs, LD, c * 16, lane);
+        mma_chunk_nk<KS>(dp, va, Os, LD, c * 16, lane);
 #pragma unroll
-      for (int n2 = 0; n2 < 2; ++n2) {
-        s[n2][0] = s[n2][1] = s[n2][2] = s[n2][3] = 0.f;
-        dp[n2][0] = dp[n2][1] = dp[n2][2] = dp[n2][3] = 0.f;
+        for (int n = 0; n < 2; ++n) {
+          const int qc = c * 16 + n * 8 + 2 * t;
+          const float2 mq = *reinterpret_cast<const float2*>(R + qc);
+          const float2 lq = *reinterpret_cast<const float2*>(R + FBB_T + qc);
+          const float2 dq = *reinterpret_cast<const float2*>(R + 2 * FBB_T + qc);
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t bq[2], bo[2];
-          load_b_nk(bq, Qs, LD, c * 16 + n2 * 8, kk * 16, lane);
-          mma16816(s[n2], ka[kk], bq);
-          load_b_nk(bo, Os, LD, c * 16 + n2 * 8, kk * 16, lane);
-          mma16816(dp[n2], va[kk], bo);
+          for (int e = 0; e < 2; ++e) {
+            const float mm = e ? mq.y : mq.x, ll = e ? lq.y : lq.x;
+            const float dd = e ? dq.y : dq.x;
+            const float p0 = attn_p(s[n][e], sl2, bl0, mm, ll);
+            const float p1 = attn_p(s[n][2 + e], sl2, bl1, mm, ll);
+            s[n][e] = p0;
+            s[n][2 + e] = p1;
+            dp[n][e] = p0 * (dp[n][e] - dd);
+            dp[n][2 + e] = p1 * (dp[n][2 + e] - dd);
+          }
         }
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qc = c * 16 + n2 * 8 + 2 * t + e;
-          const float mq = st_m[qc], lq = st_l[qc], dlt = st_d[qc];
-          const float p0 = kv0 ? expf(s[n2][e] * a.scale + bk0 - mq) / lq : 0.f;
-          const float p1 = kv1 ? expf(s[n2][2 + e] * a.scale + bk1 - mq) / lq : 0.f;
-          s[n2][e] = p0;
-          s[n2][2 + e] = p1;
-          dp[n2][e] = p0 * (dp[n2][e] - dlt);
-          dp[n2][2 + e] = p1 * (dp[n2][2 + e] - dlt);
-        }
-      }
-      uint32_t pa[4], dsa[4];
-      c_to_a(pa, s[0], s[1]);
-      c_to_a(dsa, dp[0], dp[1]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t bo[2], bq[2];
-        load_b_kn(bo, Os, LD, c * 16, dt * 8, lane);
-        mma16816(dva[dt], pa, bo);
-        load_b_kn(bq, Qs, LD, c * 16, dt * 8, lane);
-        mma16816(dka[dt], dsa, bq);
+        uint32_t pa[4], dsa[4];
+        c_to_a(pa, s[0], s[1]);
+        c_to_a(dsa, dp[0], dp[1]);
+        mma_rows_kn<D>(dva, pa, Os, LD, c * 16, lane);
+        mma_rows_kn<D>(dka, dsa, Qs, LD, c * 16, lane);
       }
     }
   }
+  if (!active) return;
 
   bf16* dkp = head_ptr(a.dk, a.sdk, b, h);
   bf16* dvp = head_ptr(a.dv, a.sdv, b, h);
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
     const int col = dt * 8 + 2 * t;
-    if (kv0) {
+    if (kr0 < a.Sk) {
       store_bf16x2(dkp + (long)kr0 * a.sdk.s + col, dka[dt][0], dka[dt][1], a.scale);
       store_bf16x2(dvp + (long)kr0 * a.sdv.s + col, dva[dt][0], dva[dt][1], 1.f);
     }
-    if (kv1) {
+    if (kr1 < a.Sk) {
       store_bf16x2(dkp + (long)kr1 * a.sdk.s + col, dka[dt][2], dka[dt][3], a.scale);
       store_bf16x2(dvp + (long)kr1 * a.sdv.s + col, dva[dt][2], dva[dt][3], 1.f);
     }
@@ -259,42 +318,129 @@ __device__ void fbb_dkv(const FbbArgs& a, unsigned char* smem, int kt) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(FBB_THREADS)
+__global__ void __launch_bounds__(FBB_THREADS, D <= 64 ? 2 : 1)
 full_block_bwd_kernel(const FbbArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  if ((int)blockIdx.x < a.nqt)
+  if ((int)blockIdx.x < a.nqb)
     fbb_dq<D>(a, smem_raw, blockIdx.x);
   else
-    fbb_dkv<D>(a, smem_raw, blockIdx.x - a.nqt);
+    fbb_dkv<D>(a, smem_raw, blockIdx.x - a.nqb);
+}
+
+// delta = rowsum(dO * O) in fp32 and 1/l for every row: 8 lanes a row,
+// 16-byte loads of both bf16 rows, a 3-step shuffle sum.
+constexpr int DELTA_THREADS = 256;
+
+template <int D>
+__global__ void __launch_bounds__(DELTA_THREADS)
+full_block_delta_kernel(const bf16* __restrict__ dout,
+                        const bf16* __restrict__ out,
+                        const float* __restrict__ l, float* __restrict__ delta,
+                        float* __restrict__ inv_l, int H, int Sq, long rows,
+                        Rows sdo, Rows so) {
+  const long row = ((long)blockIdx.x * DELTA_THREADS + threadIdx.x) >> 3;
+  const int sub = threadIdx.x & 7;
+  const bool valid = row < rows;
+  float acc = 0.f;
+  if (valid) {
+    const int s = (int)(row % Sq), h = (int)(row / Sq % H), b = (int)(row / Sq / H);
+    const bf16* dp = head_ptr(dout, sdo, b, h) + s * sdo.s;
+    const bf16* op = head_ptr(out, so, b, h) + s * so.s;
+#pragma unroll
+    for (int c = sub * 8; c < D; c += 64) {
+      const uint4 x = *reinterpret_cast<const uint4*>(dp + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(op + c);
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xf = __bfloat1622float2(xp[e]);
+        const float2 yf = __bfloat1622float2(yp[e]);
+        acc = fmaf(xf.x, yf.x, acc);
+        acc = fmaf(xf.y, yf.y, acc);
+      }
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (valid && sub == 0) {
+    delta[row] = acc;
+    inv_l[row] = __frcp_rn(l[row]);
+  }
+}
+
+constexpr int HV_BAD_PLAN = -2;
+constexpr int SMEM_MAX = 232448;  // bytes one block may use on the H100
+
+constexpr int FBB_STAGES = 3;     // slots of the ring
+
+// Takes only the plan flash_attention.py::_full_block_plan returns.
+template <int D>
+int launch_full_block_bwd(const FbbArgs& a, int B, int smem,
+                          cudaStream_t stream) {
+  if (a.stages != FBB_STAGES ||
+      smem != fbb_own_bytes<D>() + FBB_STAGES * fbb_slot_bytes<D>() ||
+      smem > SMEM_MAX)
+    return HV_BAD_PLAN;
+  cudaError_t err = cudaFuncSetAttribute(
+      full_block_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int nkb = (a.Sk + FBB_ROWS - 1) / FBB_ROWS;
+  const dim3 grid(a.nqb + nkb, a.H, B);
+  full_block_bwd_kernel<D><<<grid, FBB_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_full_block_bwd(const FbbArgs& a, int B, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * FBB_BQ + 2 * FBB_BK) * (D + 8) * sizeof(bf16) +
-                      3 * FBB_BQ * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      full_block_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int nkt = (a.Sk + FBB_BK - 1) / FBB_BK;
-  const dim3 grid(a.nqt + nkt, a.H, B);
-  full_block_bwd_kernel<D><<<grid, FBB_THREADS, smem, stream>>>(a);
+int launch_delta(const bf16* dout, const bf16* out, const float* l,
+                 float* delta, float* inv_l, int B, int H, int Sq,
+                 const long* st, cudaStream_t stream) {
+  const long rows = (long)B * H * Sq;
+  const long blocks = (rows * 8 + DELTA_THREADS - 1) / DELTA_THREADS;
+  full_block_delta_kernel<D><<<(unsigned)blocks, DELTA_THREADS, 0, stream>>>(
+      dout, out, l, delta, inv_l, H, Sq, rows, Rows{st[0], st[1], st[2]},
+      Rows{st[3], st[4], st[5]});
   return cudaGetLastError();
 }
 
 }  // namespace hv
 
-// Plain C entry point. `strides` holds 21 element strides: (batch, head,
-// row) for q, k, v, dout, dq, dk and dv in that order; the last dimension
-// of each is contiguous. `m`, `l` (from hv_full_block_fwd) and `delta`
-// (rowsum(dout * out)) are contiguous (B, H, Sq) fp32. Returns a
-// cudaError_t, or -1 for an unsupported head dim.
+// Plain C entry points. hv_full_block_delta: `strides` holds 6 element
+// strides, (batch, head, row) of dout and out; `l` is the forward's
+// (B, H, Sq) fp32 denominator; writes contiguous (B, H, Sq) fp32 `delta`
+// and `inv_l`. hv_full_block_bwd: `strides` holds 21 element strides,
+// (batch, head, row) for q, k, v, dout, dq, dk and dv in that order; the
+// last dimension of each is contiguous. `m` (from hv_full_block_fwd),
+// `inv_l` and `delta` (from hv_full_block_delta) are contiguous (B, H, Sq)
+// fp32; `stages` and `smem` are the launch plan of
+// flash_attention.py::_full_block_plan. Both return a cudaError_t, -1 for
+// an unsupported head dim, -2 for a plan the kernel does not take.
+extern "C" int hv_full_block_delta(const void* dout, const void* out,
+                                   const float* l, float* delta,
+                                   float* inv_l, int B, int H, int Sq, int D,
+                                   const long* st, void* stream) {
+  using hv::bf16;
+  const bf16* d = static_cast<const bf16*>(dout);
+  const bf16* o = static_cast<const bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return hv::launch_delta<32>(d, o, l, delta, inv_l, B, H, Sq, st, s);
+    case 64: return hv::launch_delta<64>(d, o, l, delta, inv_l, B, H, Sq, st, s);
+    case 96: return hv::launch_delta<96>(d, o, l, delta, inv_l, B, H, Sq, st, s);
+    case 128: return hv::launch_delta<128>(d, o, l, delta, inv_l, B, H, Sq, st, s);
+    default: return -1;
+  }
+}
+
 extern "C" int hv_full_block_bwd(const void* q, const void* k, const void* v,
                                  const float* bias, const void* dout,
-                                 const float* m, const float* l,
+                                 const float* m, const float* inv_l,
                                  const float* delta, void* dq, void* dk,
                                  void* dv, int B, int H, int Sq, int Sk, int D,
-                                 float scale, const long* st, void* stream) {
+                                 int stages, int smem, float scale,
+                                 const long* st, void* stream) {
   using hv::bf16;
   hv::FbbArgs a;
   a.q = static_cast<const bf16*>(q);
@@ -303,7 +449,7 @@ extern "C" int hv_full_block_bwd(const void* q, const void* k, const void* v,
   a.dout = static_cast<const bf16*>(dout);
   a.bias = bias;
   a.m = m;
-  a.l = l;
+  a.il = inv_l;
   a.delta = delta;
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
@@ -313,18 +459,21 @@ extern "C" int hv_full_block_bwd(const void* q, const void* k, const void* v,
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;
-  a.nqt = (Sq + hv::FBB_BQ - 1) / hv::FBB_BQ;
+  a.nqb = (Sq + hv::FBB_ROWS - 1) / hv::FBB_ROWS;
+  a.stages = stages;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 32: return hv::launch_full_block_bwd<32>(a, B, s);
-    case 64: return hv::launch_full_block_bwd<64>(a, B, s);
-    case 96: return hv::launch_full_block_bwd<96>(a, B, s);
-    case 128: return hv::launch_full_block_bwd<128>(a, B, s);
+    case 32: return hv::launch_full_block_bwd<32>(a, B, smem, s);
+    case 64: return hv::launch_full_block_bwd<64>(a, B, smem, s);
+    case 96: return hv::launch_full_block_bwd<96>(a, B, smem, s);
+    case 128: return hv::launch_full_block_bwd<128>(a, B, smem, s);
     default: return -1;
   }
 }
 
 extern "C" const char* hv_full_block_bwd_error_string(int code) {
-  return code < 0 ? "unsupported head dim" : cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (code == -1) return "unsupported head dim";
+  if (code == hv::HV_BAD_PLAN) return "launch plan not taken by the kernel";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

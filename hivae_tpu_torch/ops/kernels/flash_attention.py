@@ -7,7 +7,11 @@ ported here as hand-written CUDA (``hivae_tpu_torch/csrc``):
   the joint and motion-encoder attentions, S of 260-512, D = 64.
   Source note and bound: ``csrc/flash_full_block.cu``.
 * ``full_block_attention_bwd`` replaces ``_bwd_kernel`` (``_flash_bwd``):
-  its dQ, dK and dV in one launch (``csrc/flash_full_block_bwd.cu``).
+  its dQ, dK and dV in one launch (``csrc/flash_full_block_bwd.cu``),
+  after ``full_block_attention_delta``, a pre-pass kernel in the same
+  source that computes delta = rowsum(dO * O) and 1/l on the card.
+  Both full-block kernels take a launch plan (slots of their copy ring,
+  shared bytes) from ``_full_block_plan``.
 * ``stream_attention`` replaces ``_stream_fwd_kernel``
   (``_stream_fwd_impl`` / ``stream_fwd_lse``): the SD-VAE mid-block
   attention, (B, 1, 1024, 512), returning O and the per-row LSE.
@@ -40,6 +44,7 @@ card and the tests can hold the backward kernels against them.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional, Tuple
 
@@ -226,6 +231,78 @@ def _delta(do, out):
     return (do.float() * out.float()).sum(dim=-1).contiguous()
 
 
+def full_block_attention_delta_plain(do, out, l):
+    """(delta, 1/l), each (B, H, Sq) fp32: the plain version of the
+    backward's pre-pass kernel."""
+    return _delta(do, out), (1.0 / l).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# launch plans of the full-block kernels (csrc/flash_full_block*.cu)
+# ---------------------------------------------------------------------------
+
+SMEM_PER_BLOCK = 232_448     # bytes of shared memory a block may use (H100)
+# per block when two blocks share an SM: 228 KB a SM, 1 KB reserved a block
+SMEM_TWO_PER_SM = 233_472 // 2 - 1024
+FULL_BLOCK_ROWS = 128        # query rows (forward, dQ) or keys (dK/dV) a CTA
+FULL_BLOCK_TILE = 64         # rows of one tile in the copy ring
+FULL_BLOCK_STAGES = 3        # slots of a streaming ring
+
+
+@dataclasses.dataclass(frozen=True)
+class FullBlockPlan:
+    """Launch plan of the full-block forward and backward kernels.
+
+    Forward: ``fwd_stages`` ring slots of a K tile, a V tile and a bias row
+    each behind the Q tile, ``fwd_smem`` bytes in all. ``resident``: one
+    slot per key tile, so K is read once for both passes (chosen where it
+    still leaves room for two CTAs a SM); otherwise a ring of
+    ``FULL_BLOCK_STAGES`` slots streams K in pass 1 and K and V in pass 2.
+    Backward: the CTA's own two 128-row tiles and ``bwd_stages`` slots of
+    two tiles and three fp32 rows, ``bwd_smem`` bytes."""
+    fwd_stages: int
+    resident: bool
+    fwd_smem: int
+    bwd_stages: int
+    bwd_smem: int
+
+
+def _sw128_bytes(d, rows):
+    """A 128-byte-swizzled K-major tile: ceil(d / 64) blocks of rows x 128
+    bytes (``sw128_bytes`` in csrc/attn_common.cuh)."""
+    return -(-d // 64) * rows * 128
+
+
+def _full_block_fwd_smem(d: int, stages: int) -> int:
+    """Shared bytes of the forward with ``stages`` ring slots, as
+    ``fb_smem_bytes`` in flash_full_block.cu: 1 KB to align the base, the
+    swizzled Q tile, and slots of a swizzled K tile, a swizzled V tile and
+    a bias row, each rounded up to 1 KB."""
+    tile = FULL_BLOCK_TILE
+    slot = 2 * _sw128_bytes(d, tile) + tile * 4
+    return (1024 + _sw128_bytes(d, FULL_BLOCK_ROWS)
+            + stages * (-(-slot // 1024) * 1024))
+
+
+@functools.lru_cache(maxsize=None)
+def _full_block_plan(sq: int, sk: int, d: int) -> FullBlockPlan:
+    """The launch plan at Sq = ``sq``, Sk = ``sk``, head dim ``d``: resident
+    K and V where they leave room for two CTAs a SM, else a ring of
+    ``FULL_BLOCK_STAGES`` slots; the backward's layout is ``fbb_*_bytes``
+    in flash_full_block_bwd.cu (rows d + 8 elements apart). ``sq`` does
+    not change the plan."""
+    nkt = -(-sk // FULL_BLOCK_TILE)
+    resident = _full_block_fwd_smem(d, nkt) <= SMEM_TWO_PER_SM
+    stages = nkt if resident else FULL_BLOCK_STAGES
+    row = (d + 8) * 2
+    bwd_slot = 2 * FULL_BLOCK_TILE * row + 3 * FULL_BLOCK_TILE * 4
+    return FullBlockPlan(
+        fwd_stages=stages, resident=resident,
+        fwd_smem=_full_block_fwd_smem(d, stages),
+        bwd_stages=FULL_BLOCK_STAGES,
+        bwd_smem=2 * FULL_BLOCK_ROWS * row + FULL_BLOCK_STAGES * bwd_slot)
+
+
 def _fn(lib_name, sym, n_ptr, n_int, n_float=1):
     """The C entry point ``sym`` of ``csrc/<lib_name>.cu`` (n_ptr pointers,
     n_int ints, n_float floats (the scale, ...), the strides and the stream)
@@ -243,17 +320,17 @@ def _fn(lib_name, sym, n_ptr, n_int, n_float=1):
 
 @functools.lru_cache(maxsize=None)
 def _full_block_fn():
-    return _fn("flash_full_block", "hv_full_block_fwd", 7, 5)
-
-
-@functools.lru_cache(maxsize=None)
-def _full_block_qknorm_fn():
-    return _fn("flash_full_block", "hv_full_block_qknorm_fwd", 8, 5, 2)
+    return _fn("flash_full_block", "hv_full_block_fwd", 8, 8, 2)
 
 
 @functools.lru_cache(maxsize=None)
 def _full_block_bwd_fn():
-    return _fn("flash_full_block_bwd", "hv_full_block_bwd", 11, 5)
+    return _fn("flash_full_block_bwd", "hv_full_block_bwd", 11, 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_block_delta_fn():
+    return _fn("flash_full_block_bwd", "hv_full_block_delta", 5, 4, 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,16 +355,28 @@ def _launch(name, fn_err, *args):
         raise RuntimeError(f"{name} launch failed: {err_str(rc).decode()}")
 
 
-def _full_block_fwd(q, k, v, bias, scale, stats):
-    """Forward launch -> (out, m, l); m and l (the row max and softmax
-    denominator, (B, H, Sq) fp32) only when ``stats``, else None."""
-    _check("full_block_attention", q, k, v, bias, _FULL_BLOCK_DIMS)
+def _launch_full_block(name, q, k, v, bias, norms, m, l, scale, eps):
+    """One launch of the forward kernel under ``_full_block_plan`` -> out;
+    ``norms`` is None or the packed (4, D) qk-norm parameters."""
     b, h, sq, d = q.shape
+    sk = k.shape[2]
+    plan = _full_block_plan(sq, sk, d)
     out = _empty_out(q)
+    _launch(name, _full_block_fn(), _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
+            _ptr(norms), _ptr(out), _ptr(m), _ptr(l), b, h, sq, sk, d,
+            plan.fwd_stages, int(plan.resident), plan.fwd_smem, float(scale),
+            float(eps), _strides(q, k, v, out), _stream_of(q))
+    return out
+
+
+def _full_block_fwd(q, k, v, bias, scale, stats):
+    """Forward launch -> (out, m, l); m and l (the row max of the base-2
+    logits and the softmax denominator, (B, H, Sq) fp32, the backward
+    kernel's inputs) only when ``stats``, else None."""
+    _check("full_block_attention", q, k, v, bias, _FULL_BLOCK_DIMS)
     m, l = (_row_stats(q), _row_stats(q)) if stats else (None, None)
-    _launch("full_block_attention", _full_block_fn(), _ptr(q), _ptr(k),
-            _ptr(v), _ptr(bias), _ptr(out), _ptr(m), _ptr(l), b, h, sq,
-            k.shape[2], d, float(scale), _strides(q, k, v, out), _stream_of(q))
+    out = _launch_full_block("full_block_attention", q, k, v, bias, None, m,
+                             l, scale, 0.0)
     full_block_attention.launches += 1
     return out, m, l
 
@@ -295,35 +384,61 @@ def _full_block_fwd(q, k, v, bias, scale, stats):
 def _full_block_qknorm_fwd(q, k, v, norms, bias, scale, eps):
     """qk-norm forward launch -> out; ``norms`` = (gq, bq, gk, bk)."""
     _check("full_block_attention_qknorm", q, k, v, bias, _FULL_BLOCK_DIMS)
-    b, h, sq, d = q.shape
+    d = q.shape[3]
     for x in norms:
         if x.shape != (d,) or x.device != q.device:
             raise ValueError(f"full_block_attention_qknorm: norm parameters "
                              f"must be ({d},) on {q.device}, got "
                              f"{tuple(x.shape)} on {x.device}")
     packed = torch.stack([x.detach().float() for x in norms]).contiguous()
-    out = _empty_out(q)
-    _launch("full_block_attention_qknorm", _full_block_qknorm_fn(), _ptr(q),
-            _ptr(k), _ptr(v), _ptr(bias), _ptr(packed), _ptr(out), _ptr(None),
-            _ptr(None), b, h, sq, k.shape[2], d, float(scale), float(eps),
-            _strides(q, k, v, out), _stream_of(q))
+    out = _launch_full_block("full_block_attention_qknorm", q, k, v, bias,
+                             packed, None, None, scale, eps)
     full_block_attention_qknorm.launches += 1
     return out
 
 
+def full_block_attention_delta(do, out, l):
+    """Pre-pass kernel of the full-block backward: (delta = rowsum(dO * O),
+    1/l), each (B, H, Sq) fp32, from the bf16 ``do`` and ``out``
+    (B, H, Sq, D) and the forward's denominator ``l``."""
+    if do.device.type != "cuda":
+        raise ValueError(f"full_block_attention_delta: no kernel for device "
+                         f"{do.device}")
+    if do.dtype not in _KERNEL_DTYPES or out.dtype != do.dtype or \
+            do.shape != out.shape or not (_aligned(do) and _aligned(out)) \
+            or l.shape != do.shape[:3] or not l.is_contiguous():
+        raise ValueError("full_block_attention_delta: want bf16 (B, H, Sq, D) "
+                         "do and out with 16-byte aligned rows and a "
+                         "contiguous (B, H, Sq) l")
+    b, h, sq, d = do.shape
+    delta, inv_l = _row_stats(do), _row_stats(do)
+    _launch("full_block_attention_delta", _full_block_delta_fn(), _ptr(do),
+            _ptr(out), _ptr(l), _ptr(delta), _ptr(inv_l), b, h, sq, d,
+            _strides(do, out), _stream_of(do))
+    full_block_attention_delta.launches += 1
+    return delta, inv_l
+
+
+full_block_attention_delta.launches = 0
+
+
 def full_block_attention_bwd(q, k, v, do, out, m, l, *, scale: float,
                              bias: Optional[torch.Tensor] = None):
-    """Backward kernel: (dq, dk, dv) from the output cotangent ``do``, the
-    forward's ``out`` and its row statistics ``m``, ``l`` (B, H, Sq)."""
+    """Backward kernels: (dq, dk, dv) from the output cotangent ``do``, the
+    forward's ``out`` and its row statistics ``m``, ``l`` (B, H, Sq): the
+    delta pre-pass, then one backward launch."""
     _check("full_block_attention_bwd", q, k, v, bias, _FULL_BLOCK_DIMS)
     do = _kernel_layout(do)
     b, h, sq, d = q.shape
-    delta = _delta(do, out)
+    sk = k.shape[2]
+    plan = _full_block_plan(sq, sk, d)
+    delta, inv_l = full_block_attention_delta(do, out, l)
     dq, dk, dv = _empty_out(q), _empty_out(k), _empty_out(v)
     _launch("full_block_attention_bwd", _full_block_bwd_fn(), _ptr(q),
-            _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(m), _ptr(l),
-            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), b, h, sq, k.shape[2],
-            d, float(scale), _strides(q, k, v, do, dq, dk, dv), _stream_of(q))
+            _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(m), _ptr(inv_l),
+            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), b, h, sq, sk, d,
+            plan.bwd_stages, plan.bwd_smem, float(scale),
+            _strides(q, k, v, do, dq, dk, dv), _stream_of(q))
     full_block_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -29,10 +29,12 @@ def _cuda_or_skip():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
 
-def _qkv(shape, seed):
+def _qkv(shape, seed, sk=None):
+    """q, k, v on the card; k and v with ``sk`` rows when it is given."""
     rng = np.random.RandomState(seed)
-    return [torch.from_numpy(rng.randn(*shape).astype(np.float32)).cuda()
-            .bfloat16() for _ in range(3)]
+    kv = shape if sk is None else shape[:2] + (sk, shape[3])
+    return [torch.from_numpy(rng.randn(*x).astype(np.float32)).cuda()
+            .bfloat16() for x in (shape, kv, kv)]
 
 
 def _bias(b, sk, seed=1, full_row=None):
@@ -48,18 +50,36 @@ def _err(a, b):
 
 
 def _rel(a, b):
-    return _err(a, b) / b.float().abs().max().item()
+    """max |a - b| over max |b|; the plain max |a - b| where b is all zero
+    (the gradients of a softmax over one key)."""
+    return _err(a, b) / (b.float().abs().max().item() or 1.0)
+
+
+# (q shape, Sk or None for Sk = Sq, masked): every 16-key chunk boundary
+# and both sides of the resident/streamed plans at D = 64 (the largest S
+# that ``full_block_fits`` admits is ~1024), one ragged S at each other head
+# dim, Sq != Sk, and the main path's shapes. A masked case has a fully
+# masked row (batch 0).
+FULL_BLOCK_CASES = (
+    [((2, 4, s, 64), None, m) for s in (1, 63, 65, 129, 260, 266, 512, 700,
+                                        1024) for m in (False, True)]
+    + [((2, 3, 100, d), None, True) for d in (32, 96, 128)]
+    + [((2, 4, 300, 64), 700, m) for m in (False, True)]
+    + [((32, 8, 260, 64), None, False), ((16, 16, 266, 64), None, False),
+       ((16, 16, 512, 64), None, False), ((16, 16, 512, 64), None, True)])
+
+
+def _case(shape, sk, masked, seed):
+    q, k, v = _qkv(shape, seed=seed, sk=sk)
+    bias = _bias(shape[0], k.shape[2], full_row=0) if masked else None
+    return q, k, v, bias
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,masked", [
-    ((32, 8, 260, 64), False), ((16, 16, 266, 64), False),
-    ((16, 16, 512, 64), False), ((16, 16, 512, 64), True),
-    ((2, 3, 100, 128), True)])
-def test_full_block_kernel_matches_plain(shape, masked):
+@pytest.mark.parametrize("shape,sk,masked", FULL_BLOCK_CASES)
+def test_full_block_kernel_matches_plain(shape, sk, masked):
     _cuda_or_skip()
-    q, k, v = _qkv(shape, seed=11)
-    bias = _bias(shape[0], shape[2], full_row=0) if masked else None
+    q, k, v, bias = _case(shape, sk, masked, seed=11)
     before = tfa.full_block_attention.launches
     got = tfa.full_block_attention(q, k, v, scale=0.125, bias=bias)
     want = tfa.full_block_attention_plain(q, k, v, scale=0.125, bias=bias)
@@ -70,6 +90,30 @@ def test_full_block_kernel_matches_plain(shape, masked):
     if masked:  # a fully masked row is the uniform average of its values
         assert _err(got[0], v[0].float().mean(dim=1, keepdim=True)
                     .expand(got[0].shape)) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,resident", [
+    ((32, 8, 260, 64), True), ((16, 16, 266, 64), True),
+    ((16, 16, 512, 64), False), ((4, 16, 1024, 64), False)])
+def test_full_block_forward_plans_taken(shape, resident):
+    """Both launch plans that ``_full_block_plan`` takes on the main path,
+    K and V resident (Sk <= 320 at D = 64) and the streamed ring: the output
+    and the row statistics the backward reads (m, the max of the base-2
+    logits, and l, the denominator) against their plain values, with a
+    fully masked row (batch 0: m ~ -1.44e30, l = Sk)."""
+    _cuda_or_skip()
+    assert tfa._full_block_plan(shape[2], shape[2], 64).resident == resident
+    q, k, v, bias = _case(shape, None, True, seed=31)
+    out, m, l = tfa._full_block_fwd(q, k, v, bias, 0.125, stats=True)
+    t = tfa._logits(q, k, 0.125, bias) * 1.4426950408889634
+    want_m = t.amax(dim=-1)
+    want_l = torch.exp2(t - want_m[..., None]).sum(dim=-1)
+    want = tfa.full_block_attention_plain(q, k, v, scale=0.125, bias=bias)
+    torch.cuda.synchronize()
+    assert _err(out, want) <= ATOL
+    assert bool(((m - want_m).abs() <= LSE_ATOL + 1e-6 * want_m.abs()).all())
+    assert bool(((l - want_l).abs() <= 1e-4 * want_l).all())
 
 
 @pytest.mark.cuda
@@ -102,26 +146,59 @@ def test_kernels_reject_what_they_do_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,masked", [
-    ((32, 8, 260, 64), False), ((16, 16, 266, 64), False),
-    ((16, 16, 512, 64), False), ((16, 16, 512, 64), True),
-    ((32, 8, 260, 64), True), ((2, 3, 100, 128), True)])
-def test_full_block_bwd_kernel_matches_plain(shape, masked):
+@pytest.mark.parametrize("shape,sk,masked", FULL_BLOCK_CASES + [
+    ((32, 8, 260, 64), None, True)])
+def test_full_block_bwd_kernel_matches_plain(shape, sk, masked):
     _cuda_or_skip()
-    q, k, v = _qkv(shape, seed=14)
+    q, k, v, bias = _case(shape, sk, masked, seed=14)
     do = _qkv(shape, seed=15)[0]
-    bias = _bias(shape[0], shape[2], full_row=0) if masked else None
     out, m, l = tfa._full_block_fwd(q, k, v, bias, 0.125, stats=True)
-    before = tfa.full_block_attention_bwd.launches
+    before = [tfa.full_block_attention_bwd.launches,
+              tfa.full_block_attention_delta.launches]
     got = tfa.full_block_attention_bwd(q, k, v, do, out, m, l, scale=0.125,
                                        bias=bias)
     want = tfa.full_block_attention_bwd_plain(q, k, v, do, scale=0.125,
                                               bias=bias)
     torch.cuda.synchronize()
-    assert tfa.full_block_attention_bwd.launches == before + 1
+    assert [tfa.full_block_attention_bwd.launches,
+            tfa.full_block_attention_delta.launches] == [b + 1 for b in before]
     for g, w in zip(got, want):
         assert bool(torch.isfinite(g).all())
         assert _rel(g, w) <= BWD_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 260, 64), (3, 2, 100, 96)])
+def test_full_block_delta_kernel_matches_plain(shape):
+    """delta = rowsum(dO * O) and 1/l: fp32 sums in another order (rtol
+    1e-5 of the row's |dO| . |O|); 1/l is the same IEEE reciprocal."""
+    _cuda_or_skip()
+    do, out, _ = _qkv(shape, seed=28)
+    l = torch.rand(shape[:3], device="cuda") * 100 + 1
+    delta, inv_l = tfa.full_block_attention_delta(do, out, l)
+    want_d, want_il = tfa.full_block_attention_delta_plain(do, out, l)
+    scale = (do.float().abs() * out.float().abs()).sum(-1)
+    assert bool(((delta - want_d).abs() <= 1e-5 * scale + 1e-6).all())
+    assert torch.equal(inv_l, want_il)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sk,masked", [
+    ((16, 16, 512, 64), None, True), ((32, 8, 260, 64), None, False),
+    ((2, 4, 300, 64), 700, True), ((4, 16, 1024, 64), None, False)])
+def test_full_block_kernels_are_deterministic(shape, sk, masked):
+    """Two launches on the same inputs give the same bits, forward and
+    backward (no atomics; every sum in a fixed order)."""
+    _cuda_or_skip()
+    q, k, v, bias = _case(shape, sk, masked, seed=29)
+    do = _qkv(shape, seed=30)[0]
+    runs = []
+    for _ in range(2):
+        out, m, l = tfa._full_block_fwd(q, k, v, bias, 0.125, stats=True)
+        runs.append((out, m, l) + tfa.full_block_attention_bwd(
+            q, k, v, do, out, m, l, scale=0.125, bias=bias))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.cuda
@@ -243,16 +320,20 @@ def _norms(d, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,masked", [
-    ((32, 8, 260, 64), False), ((16, 16, 266, 64), False),
-    ((16, 16, 512, 64), False), ((16, 16, 512, 64), True),
-    ((2, 3, 100, 128), True)])
-def test_full_block_qknorm_kernel_matches_plain(shape, masked):
+@pytest.mark.parametrize("shape,sk,masked", [
+    ((32, 8, 260, 64), None, False), ((16, 16, 266, 64), None, False),
+    ((16, 16, 512, 64), None, False), ((16, 16, 512, 64), None, True),
+    ((4, 16, 1024, 64), None, False), ((2, 4, 300, 64), 700, True),
+    ((2, 3, 100, 32), None, True), ((2, 3, 100, 96), None, False),
+    ((2, 3, 100, 128), None, True)])
+def test_full_block_qknorm_kernel_matches_plain(shape, sk, masked):
+    """The qk-norm variant of the forward under both plans (resident at
+    260/266, the streamed ring at 512 and beyond), every head dim, Sq != Sk;
+    a fully masked row stays the uniform average of its values."""
     _cuda_or_skip()
-    q, k, v = _qkv(shape, seed=21)
+    q, k, v, bias = _case(shape, sk, masked, seed=21)
     q, k = 3 * q + 1, 2 * k - 1   # raw, far from normalised
     norms = _norms(shape[3], seed=22)
-    bias = _bias(shape[0], shape[2], full_row=0) if masked else None
     before = tfa.full_block_attention_qknorm.launches
     got = tfa.full_block_attention_qknorm(q, k, v, *norms, scale=0.125,
                                           bias=bias)
@@ -262,6 +343,9 @@ def test_full_block_qknorm_kernel_matches_plain(shape, masked):
     assert tfa.full_block_attention_qknorm.launches == before + 1
     assert bool(torch.isfinite(got).all())
     assert _err(got, want) <= ATOL
+    if masked:
+        assert _err(got[0], v[0].float().mean(dim=1, keepdim=True)
+                    .expand(got[0].shape)) <= ATOL
 
 
 @pytest.mark.cuda

@@ -180,3 +180,77 @@ def test_wrapper_raises_off_cpu_without_kernel(fn):
     with pytest.raises(ValueError, match="no kernel"):
         fn(x, x, x, scale=0.125)
     assert fn.launches == 0
+
+
+# -- the full-block kernels' launch plan and their P expression ------------
+
+SAMPLED_S = range(257, 1041, 7)
+
+
+@pytest.mark.parametrize("d", tfa._FULL_BLOCK_DIMS)
+def test_full_block_plan_fits_shared_memory(d):
+    """Every (Sq, Sk) that ``full_block_fits`` sends to the full-block
+    kernels at head dim d, sampled over S in [257, 1040], gets a plan within
+    the H100's 227 KB of shared memory a block; a resident forward keeps
+    one slot per key tile and leaves room for two CTAs a SM, a streaming
+    one and the backward run the ``FULL_BLOCK_STAGES``-slot ring (the only
+    plans the C entry points take)."""
+    admitted = 0
+    for sq in SAMPLED_S:
+        for sk in SAMPLED_S:
+            if not tattn.full_block_fits((1, 1, sq, d), (1, 1, sk, d)):
+                continue
+            admitted += 1
+            plan = tfa._full_block_plan(sq, sk, d)
+            assert plan.fwd_smem <= tfa.SMEM_PER_BLOCK
+            assert plan.bwd_smem <= tfa.SMEM_PER_BLOCK
+            nkt = -(-sk // tfa.FULL_BLOCK_TILE)
+            if plan.resident:
+                assert plan.fwd_stages == nkt
+                assert plan.fwd_smem <= tfa.SMEM_TWO_PER_SM
+            else:
+                assert plan.fwd_stages == tfa.FULL_BLOCK_STAGES
+            assert plan.bwd_stages == tfa.FULL_BLOCK_STAGES
+    assert admitted > 0
+    # the main path's shapes at D = 64: resident at 260/266, a ring at 512
+    if d == 64:
+        assert tfa._full_block_plan(266, 266, 64).resident
+        assert not tfa._full_block_plan(512, 512, 64).resident
+
+
+def _kernel_p(s, scale, bias):
+    """The kernels' P (``attn_p`` in csrc/attn_common.cuh) emulated in
+    torch: the base-2 logit t = fma(s, scale * log2 e, bias * log2 e) (the
+    fused multiply-add rounded once, emulated in fp64), m = max t,
+    l = sum 2^(t - m), P = 2^(t - m) * (1 / l) in fp32, rounded to bf16."""
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    sl2 = (torch.tensor(scale, dtype=torch.float32) * log2e).double()
+    bl2 = (bias * log2e).double()[:, None, None, :]
+    t = (s.double() * sl2 + bl2).float()
+    m = t.amax(dim=-1, keepdim=True)
+    e = torch.exp2(t - m)
+    inv_l = 1.0 / e.sum(dim=-1, keepdim=True)
+    return (e * inv_l).to(torch.bfloat16)
+
+
+def test_kernel_p_matches_softmax_within_one_bf16_step():
+    """The kernels' base-2 P against torch.softmax of the same fp32 logits
+    rounded to bf16: at most one bf16 step apart everywhere, and the same
+    bf16 value on at least 99.9% of the elements (the two differ by an ulp
+    or two of fp32 before rounding). Under the -1e30 key mask, a fully
+    masked row gives exactly uniform P."""
+    rng = np.random.RandomState(31)
+    b, h, sq, sk = 2, 3, 70, 266
+    s = torch.from_numpy(3 * rng.randn(b, h, sq, sk).astype(np.float32))
+    bias = torch.from_numpy(_bias(b, sk, seed=32, full_row=1))
+    scale = 0.125
+    got = _kernel_p(s, scale, bias)
+    want = torch.softmax(s * scale + bias[:, None, None, :], dim=-1).to(
+        torch.bfloat16)
+    # one bf16 step: the spacing of bf16 at each value
+    step = torch.nextafter(want, torch.full_like(want, float("inf"))) - want
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= step.float()).all())
+    assert (got == want).float().mean().item() >= 0.999
+    # batch 1 is fully masked: P = 1 / Sk on every key, bit for bit
+    assert bool((got[1] == torch.tensor(1.0 / sk).to(torch.bfloat16)).all())
