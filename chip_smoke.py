@@ -15,9 +15,13 @@ Phases (any failure exits non-zero without the final result line):
    not), each full-block forward and backward launched twice and held to
    the same bits; the delta pre-pass of the backward against its plain
    version; the fused qk-norm forward at the same shapes
-   and its autograd gradients at the camera-joint shape; the int8 fused
-   FFN-up + GELU + requantise kernel at the three FFN row counts of the
-   int8 clip; the backward kernels at every training shape for
+   and its autograd gradients at the camera-joint shape; the streaming
+   forward at the serving shape and check-only cases (a fully masked key
+   row, D 64 and 256); the int8 fused FFN-up + GELU + requantise kernel at
+   the three FFN row counts of the int8 clip and check-only cases (M 1, 70
+   and a ragged 200, N 8192 past one portable cluster), with its
+   epilogue's floor counted from its SASS; the backward kernels at every
+   training shape for
    N = 4 and N = 1 clips, plus masked cases. Each kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
@@ -71,8 +75,8 @@ deterministic algorithms. ``--profile DIR`` also writes a
 int8 clip to ``DIR/profile_clip_int8.txt`` and of one run-A training step
 to ``DIR/profile_train.txt``. ``--parent DIR`` builds the kernels of
 another checkout too (the parent commit unpacked with ``git archive``) and
-times its full-block forward, qk-norm forward and backward in phase 2 beside
-this checkout's, in the same process.
+times its full-block forward, qk-norm forward, backward, streaming forward
+and int8 FFN-up in phase 2 beside this checkout's, in the same process.
 """
 
 from __future__ import annotations
@@ -142,6 +146,14 @@ FULL_BLOCK_CASES = [
     ("DiT camera joint", (16, 16, 512, 64), 12 * SAMPLE_STEP),
 ]
 STREAM_CASES = [("SD-VAE mid-block", (17, 1, 1024, 512), 3)]
+# check-only streaming cases (label, q shape, masked): a fully masked key
+# row (batch 0) at the serving width, and the other head dims of the body
+STREAM_CHECKS = [
+    ("SD-VAE mid-block, masked, a fully masked key row", (4, 1, 1024, 512),
+     True),
+    ("D 64", (4, 8, 1024, 64), False),
+    ("D 256", (4, 2, 1024, 256), True),
+]
 # check-only full-block cases (label, q shape, Sk or None, weight 0,
 # masked): a fully masked key row; the largest shape ``full_block_fits``
 # admits at D = 64, which runs the streamed copy ring; Sq != Sk
@@ -209,7 +221,7 @@ def _ptxas_summary(log: str):
                 else "")
         elif "spill" in line:
             spill = line.strip()
-        elif "registers" in line:
+        elif re.search(r"Used \d+ registers", line):
             regs = re.search(r"Used (\d+) registers", line)
             smem = re.search(r"(\d+) bytes smem", line)
             yield (f"{kernel}: {regs.group(1) if regs else '?'} registers, "
@@ -462,7 +474,7 @@ def check_bwd_kernels(fa, failures, parent=None):
 def check_kernels(fa, failures, parent=None):
     """Phase 2. Returns the per-kernel records (before launches). With
     ``parent`` (another checkout's flash_attention module) its full-block
-    forward is timed beside this one's."""
+    and streaming forwards are timed beside this one's."""
     import torch
     import torch.nn.functional as F
 
@@ -536,32 +548,52 @@ def check_kernels(fa, failures, parent=None):
              f"({_plan_str(plan)})")
 
     st_cases = []
-    for label, shape, per_clip in STREAM_CASES:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, shape, per_clip, masked in [
+            (lab, shape, n, False) for lab, shape, n in STREAM_CASES] + [
+            (lab, shape, 0, masked) for lab, shape, masked in STREAM_CHECKS]:
         q, k, v = qkv(shape)
         scale = shape[3] ** -0.5
-        out, lse = fa.stream_attention(q, k, v, scale=scale)
-        wo, wl = fa.stream_attention_plain(q, k, v, scale=scale)
+        bias = None
+        if masked:
+            keep = torch.rand((shape[0], shape[2]), generator=gen,
+                              device="cuda") > 0.3
+            keep[0] = False   # one fully masked key row
+            bias = torch.where(keep, 0.0, -1e30).to(torch.float32)
+        kw = dict(scale=scale, bias=bias)
+        out, lse = fa.stream_attention(q, k, v, **kw)
+        wo, wl = fa.stream_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (out.float() - wo.float()).abs().max().item()
         err_lse = (lse - wl).abs().max().item()
         finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
         if not (finite and err <= KERNEL_ATOL and err_lse <= LSE_ATOL):
-            failures.append(f"stream {shape}: max|err| {err} lse {err_lse} "
-                            f"finite {finite}")
-        ms = _time_ms(lambda: fa.stream_attention(q, k, v, scale=scale), 20)
-        plain_ms = _time_ms(lambda: fa.stream_attention_plain(
-            q, k, v, scale=scale), 10)
+            failures.append(f"stream {label} {shape}: max|err| {err} lse "
+                            f"{err_lse} finite {finite}")
+        mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+        ms = _time_ms(lambda: fa.stream_attention(q, k, v, **kw), 20)
+        plain_ms = _time_ms(lambda: fa.stream_attention_plain(q, k, v, **kw),
+                            10)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale), 20)
-        bytes_ms, ops_ms = _bound(shape, False, True)
+            q, k, v, attn_mask=mask, scale=scale), 20)
+        parent_ms = None if parent is None else _time_ms(
+            lambda: parent.stream_attention(q, k, v, **kw), 20)
+        bytes_ms, ops_ms = _bound(shape, masked, True)
+        plan = fa._stream_plan(shape[3])
+        ctas = -(-shape[2] // fa.STREAM_ROWS) * shape[0] * shape[1]
         st_cases.append(dict(label=label, shape=list(shape),
                              per_clip=per_clip, weight=per_clip,
                              max_abs_err=max(err, err_lse),
                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bytes_ms=bytes_ms, ops_ms=ops_ms))
+                             parent_ms=parent_ms, bytes_ms=bytes_ms,
+                             ops_ms=ops_ms, plan=dataclasses.asdict(plan),
+                             ctas=ctas, waves=ctas / sms))
         _log(f"  stream {label} {shape}: max|err| O {err:.3g} LSE "
-             f"{err_lse:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-             f"sdpa {lib_ms:.4f} ms  bound {max(bytes_ms, ops_ms):.4f} ms")
+             f"{err_lse:.3g}  kernel {ms:.4f} ms  parent {parent_ms} ms  "
+             f"plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound "
+             f"{max(bytes_ms, ops_ms):.4f} ms  ({plan.stages} slots, "
+             f"{plan.smem} B, {ctas} CTAs, {ctas / sms:.2f} waves of one a "
+             f"SM on {sms} SMs)")
 
     return [
         record("full_block_attention",
@@ -573,10 +605,10 @@ def check_kernels(fa, failures, parent=None):
 
 
 def _load_kernels(root):
-    """``hivae_tpu_torch.ops.kernels.flash_attention`` of the checkout at
-    ``root``, imported as its own package (``parent_kernels``) so that it
-    builds and loads that checkout's sources into that checkout's build
-    directory."""
+    """``hivae_tpu_torch.ops.kernels`` ``flash_attention`` and ``quant_ffn``
+    of the checkout at ``root``, imported as their own package
+    (``parent_kernels``) so that they build and load that checkout's sources
+    into that checkout's build directory."""
     import importlib
     import importlib.util
     kdir = os.path.join(os.path.abspath(root), "hivae_tpu_torch", "ops",
@@ -587,7 +619,8 @@ def _load_kernels(root):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["parent_kernels"] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("parent_kernels.flash_attention")
+    return (importlib.import_module("parent_kernels.flash_attention"),
+            importlib.import_module("parent_kernels.quant_ffn"))
 
 
 def _norm_params(gen, d):
@@ -702,24 +735,101 @@ def _ffn_bound(m, k, n):
             2 * m * k * n / PEAK_INT8_OPS * 1e3)
 
 
-def check_quant_ffn(qf, failures):
+# check-only FFN-up cases (label, M, N) at K 1024: one row, a row count
+# below one CTA's 64, a ragged row count past one cluster's rows, and an N
+# wider than one portable cluster of 8 CTAs x 512 columns
+FFN_CHECKS = [("one row", 1, FFN_N), ("70 rows", 70, FFN_N),
+              ("200 rows (ragged)", 200, FFN_N),
+              ("N 8192 (two column chunks)", 16 * 266, 2 * FFN_N)]
+# SASS opcodes by the pipe that issues them, for the epilogue's floor
+SASS_PIPES = {"fp32": ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL",
+                       "FCHK"),
+              "mufu": ("MUFU",), "conv": ("I2F", "F2I", "FRND", "F2F")}
+# issue rate a SM a clock of each pipe (H100: 128 fp32 lanes, 16 MUFU and
+# 16 conversion lanes)
+SASS_RATES = {"fp32": 128, "mufu": 16, "conv": 16}
+
+
+def _ffn_epilogue_counts():
+    """SASS instructions of the FFN-up kernel by pipe (``cuobjdump -sass``
+    of the built library, static counts), per element of its epilogue: the
+    unrolled epilogue covers a thread's 128 accumulators once for the GELU
+    and once for the requantise, and the main loop issues no float work.
+    None where cuobjdump is missing."""
+    from hivae_tpu_torch.ops.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build._lib_path("quant_ffn"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    body = sass[sass.index("quant_ffn_up_kernel"):]
+    counts = {pipe: 0 for pipe in SASS_PIPES}
+    for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                         body):
+        for pipe, ops in SASS_PIPES.items():
+            if m.group(1) in ops:
+                counts[pipe] += 1
+    return {pipe: n / 128 for pipe, n in counts.items()}
+
+
+def _max_sm_clock_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def _ffn_plain(qf, xq, sx, w8, ws, bias):
+    """The plain version; fewer than 17 rows (``torch._int_mm`` needs
+    more) are padded with zero rows, which change no other row."""
+    import torch
+    m = xq.shape[0]
+    if m > 16:
+        return qf.fused_ffn_up_quant_plain(xq, sx, w8, ws, bias)
+    pad = 17 - m
+    xq = torch.cat([xq, xq.new_zeros((pad, xq.shape[1]))])
+    sx = torch.cat([sx, sx.new_ones((pad, 1))])
+    yq, sy = qf.fused_ffn_up_quant_plain(xq, sx, w8, ws, bias)
+    return yq[:m], sy[:m]
+
+
+def check_quant_ffn(qf, failures, parent=None):
     """Phase 2, the fused int8 FFN-up kernel at the int8 clip's three row
-    counts, on per-token int8 of a random bf16 activation and a
-    per-channel int8 weight. Returns the kernel's record."""
+    counts and the check-only ``FFN_CHECKS``, on per-token int8 of a random
+    bf16 activation and a per-channel int8 weight, with ``parent``'s
+    (another checkout's quant_ffn module) time beside it, and the
+    epilogue's floor from the kernel's SASS. Returns the kernel's record."""
     import torch
     from hivae_tpu_torch.ops import quant as quant_ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    w = torch.randn((FFN_N, FFN_K), generator=gen, device="cuda") / 32
-    w8, ws = quant_ops._quantize_kernel(w)
-    bias = 0.1 * torch.randn((FFN_N,), generator=gen, device="cuda")
+    weights = {}
+
+    def weight(n):
+        if n not in weights:
+            w = torch.randn((n, FFN_K), generator=gen, device="cuda") / 32
+            w8, ws = quant_ops._quantize_kernel(w)
+            bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+            weights[n] = (w8, ws, bias)
+        return weights[n]
+
+    per_elem = _ffn_epilogue_counts()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = _max_sm_clock_hz()
+    _log(f"  fused_ffn_up_quant epilogue, SASS instructions an element: "
+         f"{per_elem} at {clock / 1e6:.0f} MHz on {sms} SMs")
     cases = []
-    for label, m, per_clip in FFN_CASES:
+    for label, m, n, per_clip in [(lab, m, FFN_N, c)
+                                  for lab, m, c in FFN_CASES] + [
+            (lab, m, n, 0) for lab, m, n in FFN_CHECKS]:
+        w8, ws, bias = weight(n)
         x = torch.randn((m, FFN_K), generator=gen, device="cuda").bfloat16()
         xq, sx = quant_ops.quant_act(x)
         args = (xq, sx, w8, ws, bias)
         yq, sy = qf.fused_ffn_up_quant(*args)
-        wq, wsy = qf.fused_ffn_up_quant_plain(*args)
+        wq, wsy = _ffn_plain(qf, *args)
         torch.cuda.synchronize()
         step = (yq.int() - wq.int()).abs()
         worst, off = step.max().item(), (step == 1).float().mean().item()
@@ -728,28 +838,39 @@ def check_quant_ffn(qf, failures):
         l2 = ((yq.float() * sy - want).norm() / want.norm()).item()
         if not (worst <= FFN_MAX_STEP and off <= FFN_OFF_BY_ONE_SHARE
                 and rel_s <= FFN_SCALE_RTOL and l2 <= FFN_DEQUANT_RTOL):
-            failures.append(f"fused_ffn_up_quant {label} M={m}: max step "
-                            f"{worst}, off by one {off}, scale rel {rel_s}, "
-                            f"dequant L2 {l2}")
+            failures.append(f"fused_ffn_up_quant {label} M={m} N={n}: max "
+                            f"step {worst}, off by one {off}, scale rel "
+                            f"{rel_s}, dequant L2 {l2}")
         ms = _time_ms(lambda: qf.fused_ffn_up_quant(*args), 20)
-        plain_ms = _time_ms(lambda: qf.fused_ffn_up_quant_plain(*args), 5)
-        lib_ms = _time_ms(lambda: torch._int_mm(xq, w8.t()), 20)
-        bytes_ms, ops_ms = _ffn_bound(m, FFN_K, FFN_N)
-        cases.append(dict(label=label, shape=[m, FFN_K, FFN_N],
+        plain_ms = _time_ms(lambda: _ffn_plain(qf, *args), 5)
+        lib_ms = None if m <= 16 else _time_ms(
+            lambda: torch._int_mm(xq, w8.t()), 20)
+        parent_ms = None if parent is None else _time_ms(
+            lambda: parent.fused_ffn_up_quant(*args), 20)
+        bytes_ms, ops_ms = _ffn_bound(m, FFN_K, n)
+        floor = None if per_elem is None else {
+            pipe: m * n * cnt / (sms * SASS_RATES[pipe] * clock) * 1e3
+            for pipe, cnt in per_elem.items()}
+        plan = qf._ffn_plan(m, FFN_K, n)
+        cases.append(dict(label=label, shape=[m, FFN_K, n],
                           per_clip=per_clip, weight=per_clip,
                           max_abs_err=worst, off_by_one_share=off,
                           scale_rel_err=rel_s, dequant_rel_l2=l2, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms,
-                          bytes_ms=bytes_ms, ops_ms=ops_ms))
+                          parent_ms=parent_ms, bytes_ms=bytes_ms,
+                          ops_ms=ops_ms, epilogue_floor_ms=floor,
+                          plan=dataclasses.asdict(plan)))
         _log(f"  fused_ffn_up_quant {label} ({m}, {FFN_K}) x ({FFN_K}, "
-             f"{FFN_N}): max step {worst}, off by one {off:.3g}, scale rel "
-             f"{rel_s:.3g}, dequant L2 {l2:.3g}  kernel {ms:.4f} ms  plain "
-             f"{plain_ms:.4f} ms  _int_mm {lib_ms:.4f} ms  bound "
-             f"{max(bytes_ms, ops_ms):.4f} ms")
+             f"{n}): max step {worst}, off by one {off:.3g}, scale rel "
+             f"{rel_s:.3g}, dequant L2 {l2:.3g}  kernel {ms:.4f} ms  parent "
+             f"{parent_ms} ms  plain {plain_ms:.4f} ms  _int_mm {lib_ms} ms"
+             f"  bound {max(bytes_ms, ops_ms):.4f} ms  epilogue floor "
+             f"{floor} ms  (cluster {plan.cluster}, {plan.chunks} chunk(s), "
+             f"{plan.smem} B)")
     return {"name": "fused_ffn_up_quant", "route": "cuda",
             "source": "hivae_tpu_torch/csrc/quant_ffn.cu",
             "replaces": "hivae_tpu/ops/pallas/quant_ffn.py:78",
-            "cases": cases}
+            "cases": cases, "epilogue_sass_per_element": per_elem}
 
 
 def summarise(rec, launches):
@@ -1315,8 +1436,9 @@ def main() -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout (e.g. the parent commit unpacked "
                          "under _archive/): build its kernels too and time "
-                         "its full-block forward, qk-norm forward and "
-                         "backward beside these")
+                         "its full-block forward, qk-norm forward, "
+                         "backward, streaming forward and int8 FFN-up "
+                         "beside these")
     args = ap.parse_args()
 
     import torch
@@ -1345,16 +1467,16 @@ def main() -> int:
     for name, log in _build.BUILD_LOG.items():
         for line in _ptxas_summary(log):
             _log(f"  {name}: {line}")
-    parent = None
+    parent = parent_qf = None
     if args.parent:
-        parent = _load_kernels(args.parent)
+        parent, parent_qf = _load_kernels(args.parent)
         parent._build.build()
         _log(f"  built the kernels of {args.parent}")
 
     _log("phase 2: kernels vs plain versions")
     records = (check_kernels(fa, failures, parent=parent)
                + [check_qknorm(fa, failures, parent),
-                  check_quant_ffn(qf, failures)]
+                  check_quant_ffn(qf, failures, parent_qf)]
                + check_bwd_kernels(fa, failures, parent=parent))
 
     _log("phase 3: full-width AMD_N + SD-VAE clip reconstruction")

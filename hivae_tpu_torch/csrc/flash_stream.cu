@@ -5,201 +5,354 @@
 // (driven by _stream_fwd_impl / stream_fwd_lse): a loop over KV tiles with a
 // running row max m, denominator l and output accumulator; the
 // unnormalised p = exp(s - m) is rounded to bf16 for P.V, l sums the fp32 p,
-// and the epilogue writes O = acc / l and LSE = m + log(l).
+// and the epilogue writes O = acc / l and LSE = m + log(l) (natural log: the
+// streaming backward forms P = exp(s - lse) from it).
 //
-// Design. On the serving path this kernel runs the SD-VAE mid-block
-// attention: (B, H, S, D) = (17, 1, 1024, 512). At D = 512 one 16-row fp32
-// accumulator is 256 registers per lane, too many for one warp, so the
-// accumulator is split over D: a CTA of 8 warps takes 32 query rows as 2
-// row groups x 4 D-slices of D/4 columns. Each warp multiplies its 16 rows
-// by a KV tile of 32 keys over its own D-slice only, the 4 partial score
-// tiles of a row group are summed through shared memory, every warp of the
-// group then runs the identical online-softmax update on the full scores,
-// and multiplies P by its own D-slice of V. Per KV step shared memory holds
-// Q (32 x D), K and V tiles (32 x D) and the partial scores: 116 KB at
-// D = 512, so one CTA per SM.
+// Bound on the H100 SXM at the serving shape (17, 1, 1024, 512): 4*B*H*S*S*D
+// = 36.5 GFLOP of matmul, 36.9 us at 989 TFLOP/s, against 71.4 MB of q, k,
+// v, o and LSE, 21.3 us at 3.35 TB/s, so the bound is operations.
 //
-// Bound on the H100 SXM at (17, 1, 1024, 512): 4*B*H*S*S*D = 36.5 GFLOP of
-// matmul, 36.9 us at 989 TFLOP/s, against 71.4 MB of q, k, v, o and LSE,
-// 21.3 us at 3.35 TB/s, so the bound is operations. This simple kernel
-// issues mma.sync from registers; each K/V tile arrives by cp.async in one
-// batch, but loads do not overlap compute (one buffer). Double buffering,
-// wgmma and TMA are later work.
+// Design. A CTA of two consumer warpgroups takes 64 query rows of one
+// (batch, head). At D = 512 the 64 x 512 fp32 output accumulator is 256
+// registers a thread for one warpgroup, so it is split over D: warpgroup w
+// owns output columns [w D/2, (w + 1) D/2), 128 registers a thread at
+// D = 512, as m64n64 blocks (m64n32 at D = 64). Both need the probabilities
+// of every key for their columns, so the score tile is split over keys
+// instead: warpgroup w computes the 64 rows' scores against keys
+// [32 w, 32 w + 32) of the tile (wgmma m64n32k16, Q and K both K-major in
+// 128-byte-swizzled shared memory), the two exchange their row maxima
+// through shared memory (one barrier), each writes its half of bf16(P) into
+// a shared 64 x 64 tile (a second barrier), and each reads the whole tile
+// back as A fragments (ldmatrix). Each keeps its half of the denominator;
+// the halves are summed once, at the end. The tensor cores do each Q.K^T
+// once (computing the whole tile in each warpgroup, without the exchange,
+// measured slower: 1.5x the matmul work at D = 512).
+// P is the register A operand of P.V; V, stored swizzled as it arrives, is
+// read transposed (MN-major), one 64-column swizzle atom a wgmma.
+// Loads overlap compute: K and V tiles of 64 keys travel as separate jobs
+// (K_j, V_j, K_j+1, ...) through a ring of `stages` slots filled by TMA and
+// completed on mbarriers, so V_j lands while S_j and its softmax run and
+// K_j+1 while P_j.V_j runs (a cp.async ring issued by every thread was
+// slower). At D = 512 a K or V tile is 64 KB, so the Q tile and two slots
+// fill 195 KB: one CTA a SM. The plan (slots, shared bytes) comes from
+// flash_attention.py::_stream_plan, which the CPU tests check; the C entry
+// point refuses any other.
+//
+// The softmax runs on natural-unit logits t = s * scale + bias (one FMA):
+// p = 2^((t - m) log2 e), so a fully masked row (bias -1e30 on every key)
+// keeps m = -1e30 and p = 1 on every key, the uniform average, and its LSE
+// is the plain version's. Keys past Sk are -inf; the last tile's Q.K^T is
+// m64n16/32/48/64 up to the next multiple of 16 past Sk, and its P.V skips
+// the chunks past it. Rows past Sq are zero-filled and not stored.
+//
+// Grid: ceil(Sq / 64) x H x B CTAs, 16 x 1 x 17 = 272 at the serving shape,
+// 2.06 waves of one CTA a SM on 132 SMs. The third wave is nearly empty, so
+// the launch takes about three CTA times where 2.06 would do; the plan does
+// not avoid it (a split over keys merged by LSE, or a persistent schedule,
+// would).
 #include "attn_common.cuh"
 
 namespace hv {
 
-constexpr int ST_BQ = 32;        // query rows per CTA (2 row groups of 16)
-constexpr int ST_BK = 32;        // keys per KV tile
-constexpr int ST_SLICES = 4;     // D-slices per row group
-constexpr int ST_THREADS = 256;  // 8 warps
-constexpr int ST_SLD = ST_BK + 4;  // leading dim of the partial-score tiles
+constexpr int SF_BQ = 64;        // query rows a CTA (one wgmma M)
+constexpr int SF_BK = 64;        // keys a K or V tile
+constexpr int SF_NC = SF_BK / 16;
+constexpr int SF_THREADS = 256;  // two warpgroups
+constexpr int SF_MAX_STAGES = 4;
+constexpr int SF_SMEM_MAX = 232448;
+constexpr int SF_PLD = SF_BK + 8;  // row stride of the shared P tile
+// static shared bytes: the mbarriers, the P tile and the row partials
+constexpr int SF_STATIC = 8 * (SF_MAX_STAGES + 1) + SF_BQ * SF_PLD * 2 +
+                          2 * SF_BQ * 4;
+
+// Shared bytes, from a 1024-byte aligned base: the swizzled Q tile, then
+// `stages` slots of one swizzled K or V tile and a tile's fp32 bias row,
+// each rounded up to 1024 bytes.
+template <int D>
+__host__ __device__ constexpr int sf_q_bytes() { return sw128_bytes<D, SF_BQ>(); }
 
 template <int D>
-__global__ void __launch_bounds__(ST_THREADS)
-stream_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const float* __restrict__ bias,
-                  bf16* __restrict__ o, float* __restrict__ lse, int H,
-                  int Sq, int Sk, float scale, long qsb, long qsh, long qss,
-                  long ksb, long ksh, long kss, long vsb, long vsh, long vss,
-                  long osb, long osh, long oss) {
-  constexpr int LD = D + 8;
-  constexpr int DS = D / ST_SLICES;  // columns of D per warp
-  constexpr int KS = DS / 16;        // k steps of Q.K^T per warp
-  constexpr int DT = DS / 8;         // output column tiles per warp
-  constexpr int NT = ST_BK / 8;      // score column tiles
+__host__ __device__ constexpr int sf_tile_bytes() { return sw128_bytes<D, SF_BK>(); }
+
+template <int D>
+__host__ __device__ constexpr int sf_slot_bytes() {
+  return (sf_tile_bytes<D>() + SF_BK * 4 + 1023) / 1024 * 1024;
+}
+
+template <int D>
+__host__ __device__ constexpr int sf_smem_bytes(int stages) {
+  return 1024 + sf_q_bytes<D>() + stages * sf_slot_bytes<D>();
+}
+
+// The slots the plan takes: as many as fit, at most SF_MAX_STAGES.
+template <int D>
+__host__ int sf_stages() {
+  const int n = (SF_SMEM_MAX - SF_STATIC - 1024 - sf_q_bytes<D>()) /
+                sf_slot_bytes<D>();
+  return n < SF_MAX_STAGES ? n : SF_MAX_STAGES;
+}
+
+// tq, tk, tv: tensor maps of q, k and v as (D, S, H, B) arrays, boxes of
+// 64 columns x 64 rows, 128-byte swizzled.
+template <int D>
+__global__ void __launch_bounds__(SF_THREADS, 1)
+stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const float* __restrict__ bias, bf16* __restrict__ o,
+                  float* __restrict__ lse, int H, int Sq, int Sk, float scale,
+                  int stages, long osb, long osh, long oss) {
+  constexpr int DH = D / 2;                  // output columns a warpgroup
+  constexpr int NW = DH < 64 ? DH : 64;      // columns a P.V wgmma
+  constexpr int NB = DH / NW;                // P.V wgmmas a 16-key chunk
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ks = Qs + ST_BQ * LD;
-  bf16* Vs = Ks + ST_BK * LD;
-  float* Sp = reinterpret_cast<float*>(Vs + ST_BK * LD);  // [8 warps][16][SLD]
+  __shared__ uint64_t full[SF_MAX_STAGES + 1];  // slots' jobs, then Q
+  __shared__ __align__(16) bf16 Ps[SF_BQ * SF_PLD];  // bf16(P) of a tile
+  __shared__ float xm[2][SF_BQ];  // each warpgroup's row maxima of a tile
+                                  // (at the end: its denominators)
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* Qs = reinterpret_cast<bf16*>(base);
+  unsigned char* ring = base + sf_q_bytes<D>();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, rw = (warp & 3) * 16;  // warpgroup, first row
   const int g = lane >> 2, t = lane & 3;
-  const int rg = warp / ST_SLICES, sl = warp % ST_SLICES;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * ST_BQ;
-  const bf16* qp = q + b * qsb + h * qsh;
-  const bf16* kp = k + b * ksb + h * ksh;
-  const bf16* vp = v + b * vsb + h * vsh;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * SF_BQ;
   const float* brow = bias ? bias + (long)b * Sk : nullptr;
+  const int nkt = (Sk + SF_BK - 1) / SF_BK, njobs = 2 * nkt;
 
-  load_tile<D, ST_BQ, ST_THREADS>(Qs, LD, qp, qss, q0, Sq, tid);
-  tile_barrier();
-  uint32_t qa[KS][4];
+  // job 2j: K tile j (TMA, one box a 64-column block, completing on
+  // full[slot]) and its bias row (cp.async, one commit group a job, empty
+  // without a bias); job 2j + 1: V tile j. Rows past Sk arrive zero-filled.
+  auto slot = [&](int i) { return ring + (i % stages) * sf_slot_bytes<D>(); };
+  auto issue = [&](int i) {
+    if (i < njobs) {
+      unsigned char* sl = slot(i);
+      const int j = i >> 1;
+      if (tid == 0) {
+        uint64_t* bar = full + i % stages;
+        mbar_expect(bar, sf_tile_bytes<D>());
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    load_a(qa[kk], Qs, LD, rg * 16, sl * DS + kk * 16, lane);
+        for (int c = 0; c < D / 64; ++c)
+          tma_load_4d(sl + c * SF_BK * 128, (i & 1) ? &tv : &tk, bar, c * 64,
+                      j * SF_BK, h, b);
+      }
+      if (brow && !(i & 1))
+        load_row_f32<SF_BK, SF_THREADS>(
+            reinterpret_cast<float*>(sl + sf_tile_bytes<D>()), brow,
+            j * SF_BK, Sk, tid);
+    }
+    ring_commit();  // an empty group past the last job keeps the count
+  };
 
-  float acc[DT][4];
+  if (tid == 0) {
+    for (int i = 0; i <= stages; ++i) mbar_init(full + i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    uint64_t* qbar = full + stages;
+    mbar_expect(qbar, sf_q_bytes<D>());
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+    for (int c = 0; c < D / 64; ++c)
+      tma_load_4d(base + c * SF_BQ * 128, &tq, qbar, c * 64, q0, h, b);
+  }
+  for (int i = 0; i < stages - 1; ++i) issue(i);
+  mbar_wait(full + stages, 0);
+
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float* my_sp = Sp + warp * 16 * ST_SLD;
+  float acc[NB][NW / 2];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < NW / 2; ++e) acc[nb][e] = 0.f;
+  uint32_t pa[SF_NC][4] = {};
 
-  const int nkt = (Sk + ST_BK - 1) / ST_BK;
-  for (int j = 0; j < nkt; ++j) {
-    __syncthreads();  // previous tile's K, V and partial scores are consumed
-    load_tile<D, ST_BK, ST_THREADS>(Ks, LD, kp, kss, j * ST_BK, Sk, tid);
-    load_tile<D, ST_BK, ST_THREADS>(Vs, LD, vp, vss, j * ST_BK, Sk, tid);
-    tile_barrier();
+  for (int i = 0; i < njobs; ++i) {
+    ring_wait_upto(stages - 2);  // this thread's share of the bias row
+    mbar_wait(full + i % stages, (i / stages) & 1);
+    __syncthreads();  // job i has landed; job i-1's slot is free
+    issue(i + stages - 1);
+    const int j = i >> 1;
+    const unsigned char* sl = slot(i);
+    const int nc = min(SF_NC, (Sk - j * SF_BK + 15) / 16);
 
-    float s[NT][4];
+    if (!(i & 1)) {
+      // scores of the 64 rows against this warpgroup's 32 keys of the tile,
+      // up to the next multiple of 16 past Sk: this warp's 16 rows,
+      // s[4 u + e] for 8-key group u
+      const int ncw = min(2, max(0, nc - 2 * wg));  // its 16-key chunks
+      const bf16* Kw = reinterpret_cast<const bf16*>(sl + wg * 32 * 128);
+      float s[32];
+      if (ncw == 1) wgmma_qk<D, 16, SF_BQ, SF_BK>(s, Qs, 0, Kw);
+      if (ncw == 2) wgmma_qk<D, 32, SF_BQ, SF_BK>(s, Qs, 0, Kw);
+      const float* Bs =
+          reinterpret_cast<const float*>(sl + sf_tile_bytes<D>());
+      const bool plain = !brow && (j + 1) * SF_BK <= Sk;
+      float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      for (int u = 0; u < 4; ++u) {
+        float* x = s + 4 * u;
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t bk[2];
-        load_b_nk(bk, Ks, LD, nt * 8, sl * DS + kk * 16, lane);
-        mma16816(s[nt], qa[kk], bk);
+        for (int e = 0; e < 2; ++e) {
+          const int col = wg * 32 + u * 8 + 2 * t + e;
+          float bb = 0.f;
+          if (!plain) {
+            bb = j * SF_BK + col < Sk ? (brow ? Bs[col] : 0.f) : -INFINITY;
+          }
+          // chunks past the last product hold no scores at all
+          x[e] = u < 2 * ncw ? fmaf(x[e], scale, bb) : -INFINITY;
+          x[2 + e] = u < 2 * ncw ? fmaf(x[2 + e], scale, bb) : -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(x[0], x[1]));
+        mx1 = fmaxf(mx1, fmaxf(x[2], x[3]));
       }
-      const int c = nt * 8 + 2 * t;
-      my_sp[g * ST_SLD + c] = s[nt][0];
-      my_sp[g * ST_SLD + c + 1] = s[nt][1];
-      my_sp[(g + 8) * ST_SLD + c] = s[nt][2];
-      my_sp[(g + 8) * ST_SLD + c + 1] = s[nt][3];
-    }
-    __syncthreads();
-
-    // full scores of this row group: the D-slice partials summed in a fixed
-    // order, so all four warps of the group hold bit-identical values
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = nt * 8 + 2 * t;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-      for (int w = 0; w < ST_SLICES; ++w) {
-        const float* ps = Sp + (rg * ST_SLICES + w) * 16 * ST_SLD;
-        a0 += ps[g * ST_SLD + c];
-        a1 += ps[g * ST_SLD + c + 1];
-        a2 += ps[(g + 8) * ST_SLD + c];
-        a3 += ps[(g + 8) * ST_SLD + c + 1];
+      // the row max over both halves, read in the same order by both
+      // warpgroups, so both hold the same m
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      if (t == 0) {
+        xm[wg][rw + g] = mx0;
+        xm[wg][rw + g + 8] = mx1;
       }
-      s[nt][0] = a0;
-      s[nt][1] = a1;
-      s[nt][2] = a2;
-      s[nt][3] = a3;
-      logits_epilogue(s[nt], j * ST_BK + nt * 8, lane, Sk, scale, brow);
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float corr0 = expf(m0 - mn0), corr1 = expf(m1 - mn1);
-    float sum0 = 0.f, sum1 = 0.f;
+      __syncthreads();
+      const float mn0 = fmaxf(m0, fmaxf(xm[0][rw + g], xm[1][rw + g]));
+      const float mn1 =
+          fmaxf(m1, fmaxf(xm[0][rw + g + 8], xm[1][rw + g + 8]));
+      const float c0 = ex2((m0 - mn0) * LOG2E), c1 = ex2((m1 - mn1) * LOG2E);
+      float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      sum0 += s[nt][0] + s[nt][1];
-      sum1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * corr0 + quad_sum(sum0);
-    l1 = l1 * corr1 + quad_sum(sum1);
-    m0 = mn0;
-    m1 = mn1;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      acc[dt][0] *= corr0;
-      acc[dt][1] *= corr0;
-      acc[dt][2] *= corr1;
-      acc[dt][3] *= corr1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < ST_BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t bv[2];
-        load_b_kn(bv, Vs, LD, kk * 16, sl * DS + dt * 8, lane);
-        mma16816(acc[dt], pa, bv);
+      for (int u = 0; u < 4; ++u) {
+        float* x = s + 4 * u;
+        x[0] = ex2((x[0] - mn0) * LOG2E);
+        x[1] = ex2((x[1] - mn0) * LOG2E);
+        x[2] = ex2((x[2] - mn1) * LOG2E);
+        x[3] = ex2((x[3] - mn1) * LOG2E);
+        sum0 += x[0] + x[1];
+        sum1 += x[2] + x[3];
+        // bf16(P) of this half into the shared 64 x 64 tile
+        const int col = wg * 32 + u * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(Ps + (rw + g) * SF_PLD + col) =
+            pack_bf16(x[0], x[1]);
+        *reinterpret_cast<uint32_t*>(Ps + (rw + g + 8) * SF_PLD + col) =
+            pack_bf16(x[2], x[3]);
       }
+      // this warpgroup's part of the denominator (the halves are summed
+      // once, at the end)
+      l0 = l0 * c0 + quad_sum(sum0);
+      l1 = l1 * c1 + quad_sum(sum1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < NW / 2; e += 4) {
+          acc[nb][e] *= c0;
+          acc[nb][e + 1] *= c0;
+          acc[nb][e + 2] *= c1;
+          acc[nb][e + 3] *= c1;
+        }
+      __syncthreads();  // both halves of P are in the tile
+      load_a_rows<SF_BK>(pa, Ps, SF_PLD, rw, lane);
+    } else {
+      // acc += bf16(P) . V over this warpgroup's D/2 columns: V chunk c (16
+      // keys) of swizzle atom a (64 columns) at a * 64 rows * 128 + c * 2048
+      const unsigned char* Vs = sl;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < SF_NC; ++c) {
+        if (c < nc) {
+#pragma unroll
+          for (int nb = 0; nb < NB; ++nb) {
+            const int col = wg * DH + nb * NW;  // first output column
+            const uint64_t dv = desc_sw128_mn(
+                Vs + (col / 64) * SF_BK * 128 + (col % 64) * 2 + c * 2048,
+                SF_BK * 128);
+            if constexpr (NW == 64)
+              wgmma_rs64(acc[nb], pa[c], dv);
+            else
+              wgmma_rs32(acc[nb], pa[c], dv);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();  // the slot is overwritten after the next barrier
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+#pragma unroll
+      for (int c = 0; c < SF_NC; ++c) fence_regs(pa[c]);
     }
   }
+  ring_wait_upto(0);
 
+  // the denominator: the two warpgroups' parts, summed in the same order
+  // by both
+  if (t == 0) {
+    xm[wg][rw + g] = l0;
+    xm[wg][rw + g + 8] = l1;
+  }
+  __syncthreads();
+  l0 = xm[0][rw + g] + xm[1][rw + g];
+  l1 = xm[0][rw + g + 8] + xm[1][rw + g + 8];
   bf16* op = o + b * osb + h * osh;
-  const int r0 = q0 + rg * 16 + g, r1 = r0 + 8;
+  const int r0 = q0 + rw + g, r1 = r0 + 8;
+  const float il0 = __frcp_rn(l0), il1 = __frcp_rn(l1);
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = sl * DS + dt * 8 + 2 * t;
-    if (r0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(op + (long)r0 * oss + col) =
-          __floats2bfloat162_rn(acc[dt][0] / l0, acc[dt][1] / l0);
-    if (r1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(op + (long)r1 * oss + col) =
-          __floats2bfloat162_rn(acc[dt][2] / l1, acc[dt][3] / l1);
-  }
-  if (sl == 0 && t == 0) {
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int jn = 0; jn < NW / 8; ++jn) {
+      const int col = wg * DH + nb * NW + jn * 8 + 2 * t;
+      const float* a = acc[nb] + 4 * jn;
+      if (r0 < Sq) store_bf16x2(op + (long)r0 * oss + col, a[0], a[1], il0);
+      if (r1 < Sq) store_bf16x2(op + (long)r1 * oss + col, a[2], a[3], il1);
+    }
+  if (wg == 0 && t == 0) {
     float* lp = lse + ((long)b * H + h) * Sq;
     if (r0 < Sq) lp[r0] = m0 + logf(l0);
     if (r1 < Sq) lp[r1] = m1 + logf(l1);
   }
 }
 
+constexpr int HV_BAD_PLAN = -2;
+
+// A tensor map of one (B, H, S, D) bf16 operand with element strides
+// st[0..2] (batch, head, row), boxes of 64 columns x 64 rows.
+static int stream_tmap(CUtensorMap* map, const void* x, int B, int H, int S,
+                       int D, const long* st) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, SF_BK, 1, 1};
+  return make_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides,
+                   box);
+}
+
 template <int D>
-cudaError_t launch_stream(const void* q, const void* k, const void* v,
-                          const float* bias, void* o, float* lse, int B,
-                          int H, int Sq, int Sk, float scale, const long* st,
-                          cudaStream_t stream) {
-  const size_t smem = (size_t)(ST_BQ + 2 * ST_BK) * (D + 8) * sizeof(bf16) +
-                      (size_t)(ST_THREADS / 32) * 16 * ST_SLD * sizeof(float);
+int launch_stream(const void* q, const void* k, const void* v,
+                  const float* bias, void* o, float* lse, int B, int H,
+                  int Sq, int Sk, int stages, int smem, float scale,
+                  const long* st, cudaStream_t stream) {
+  static_assert(SF_BQ == SF_BK, "one box shape serves Q, K and V");
+  if (stages != sf_stages<D>() || smem != sf_smem_bytes<D>(stages) ||
+      smem + SF_STATIC > SF_SMEM_MAX)
+    return HV_BAD_PLAN;
+  CUtensorMap tq, tk, tv;
+  int rc = stream_tmap(&tq, q, B, H, Sq, D, st);
+  if (!rc) rc = stream_tmap(&tk, k, B, H, Sk, D, st + 3);
+  if (!rc) rc = stream_tmap(&tv, v, B, H, Sk, D, st + 6);
+  if (rc) return rc;
   cudaError_t err = cudaFuncSetAttribute(
       stream_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + ST_BQ - 1) / ST_BQ, H, B);
-  stream_fwd_kernel<D><<<grid, ST_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bias, static_cast<bf16*>(o), lse, H, Sq,
-      Sk, scale, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], st[9], st[10], st[11]);
+  const dim3 grid((Sq + SF_BQ - 1) / SF_BQ, H, B);
+  stream_fwd_kernel<D><<<grid, SF_THREADS, smem, stream>>>(
+      tq, tk, tv, bias, static_cast<bf16*>(o), lse, H, Sq, Sk, scale, stages,
+      st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
@@ -207,22 +360,26 @@ cudaError_t launch_stream(const void* q, const void* k, const void* v,
 
 // Plain C entry point. `strides` holds 12 element strides: (batch, head,
 // row) for q, k, v and o in that order; the last dimension is contiguous.
-// `lse` is a contiguous (B, H, Sq) fp32 buffer. Returns a cudaError_t, or
-// -1 for an unsupported head dim.
+// `lse` is a contiguous (B, H, Sq) fp32 buffer. `stages` and `smem` are the
+// launch plan of flash_attention.py::_stream_plan. Returns a cudaError_t,
+// -1 for an unsupported head dim, -2 for a plan the kernel does not take.
 extern "C" int hv_stream_fwd(const void* q, const void* k, const void* v,
                              const float* bias, void* o, float* lse, int B,
-                             int H, int Sq, int Sk, int D, float scale,
-                             const long* strides, void* stream) {
+                             int H, int Sq, int Sk, int D, int stages,
+                             int smem, float scale, const long* strides,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return hv::launch_stream<64>(q, k, v, bias, o, lse, B, H, Sq, Sk, scale, strides, s);
-    case 128: return hv::launch_stream<128>(q, k, v, bias, o, lse, B, H, Sq, Sk, scale, strides, s);
-    case 256: return hv::launch_stream<256>(q, k, v, bias, o, lse, B, H, Sq, Sk, scale, strides, s);
-    case 512: return hv::launch_stream<512>(q, k, v, bias, o, lse, B, H, Sq, Sk, scale, strides, s);
+    case 64: return hv::launch_stream<64>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
+    case 128: return hv::launch_stream<128>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
+    case 256: return hv::launch_stream<256>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
+    case 512: return hv::launch_stream<512>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
     default: return -1;
   }
 }
 
 extern "C" const char* hv_stream_error_string(int code) {
-  return code < 0 ? "unsupported head dim" : cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (code == -1) return "unsupported head dim";
+  if (code == hv::HV_BAD_PLAN) return "launch plan not taken by the kernel";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -14,7 +14,8 @@ ported here as hand-written CUDA (``hivae_tpu_torch/csrc``):
   shared bytes) from ``_full_block_plan``.
 * ``stream_attention`` replaces ``_stream_fwd_kernel``
   (``_stream_fwd_impl`` / ``stream_fwd_lse``): the SD-VAE mid-block
-  attention, (B, 1, 1024, 512), returning O and the per-row LSE.
+  attention, (B, 1, 1024, 512), returning O and the per-row LSE, with a
+  launch plan (ring slots, shared bytes) from ``_stream_plan``.
   Source note and bound: ``csrc/flash_stream.cu``.
 * ``stream_attention_bwd_dq`` and ``stream_attention_bwd_dkv`` replace
   ``_stream_dq_kernel`` and ``_stream_dkv_kernel`` (``stream_bwd``)
@@ -303,6 +304,44 @@ def _full_block_plan(sq: int, sk: int, d: int) -> FullBlockPlan:
         bwd_smem=2 * FULL_BLOCK_ROWS * row + FULL_BLOCK_STAGES * bwd_slot)
 
 
+# launch plan of the streaming forward (csrc/flash_stream.cu): 64 query rows
+# a CTA, K and V tiles of 64 keys as separate jobs through a ring of slots
+STREAM_ROWS = 64
+STREAM_TILE = 64
+STREAM_MAX_STAGES = 4
+# static shared bytes of the streaming forward (``SF_STATIC``): its
+# mbarriers, the bf16 P tile (64 rows of 72) and two rows of fp32 partials
+STREAM_STATIC = 8 * (STREAM_MAX_STAGES + 1) + STREAM_ROWS * 72 * 2 + \
+    2 * STREAM_ROWS * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """Launch plan of the streaming forward: ``stages`` ring slots, each one
+    128-byte-swizzled K or V tile of ``STREAM_TILE`` keys and a bias row,
+    behind the swizzled Q tile of ``STREAM_ROWS`` rows; ``smem`` bytes in
+    all."""
+    stages: int
+    smem: int
+
+
+def _round_kb(x):
+    return -(-x // 1024) * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_plan(d: int) -> StreamPlan:
+    """The plan at head dim ``d`` (``sf_stages`` and ``sf_smem_bytes`` in
+    flash_stream.cu): as many slots as fit one block's shared memory beside
+    the static ``STREAM_STATIC`` bytes, at most ``STREAM_MAX_STAGES``. The
+    sequence lengths do not change it."""
+    q_bytes = _sw128_bytes(d, STREAM_ROWS)
+    slot = _round_kb(_sw128_bytes(d, STREAM_TILE) + STREAM_TILE * 4)
+    stages = min(STREAM_MAX_STAGES,
+                 (SMEM_PER_BLOCK - STREAM_STATIC - 1024 - q_bytes) // slot)
+    return StreamPlan(stages=stages, smem=1024 + q_bytes + stages * slot)
+
+
 def _fn(lib_name, sym, n_ptr, n_int, n_float=1):
     """The C entry point ``sym`` of ``csrc/<lib_name>.cu`` (n_ptr pointers,
     n_int ints, n_float floats (the scale, ...), the strides and the stream)
@@ -335,7 +374,7 @@ def _full_block_delta_fn():
 
 @functools.lru_cache(maxsize=None)
 def _stream_fn():
-    return _fn("flash_stream", "hv_stream_fwd", 6, 5)
+    return _fn("flash_stream", "hv_stream_fwd", 6, 7)
 
 
 @functools.lru_cache(maxsize=None)
@@ -449,11 +488,13 @@ full_block_attention_bwd.launches = 0
 def _stream_fwd(q, k, v, bias, scale):
     _check("stream_attention", q, k, v, bias, _STREAM_DIMS)
     b, h, sq, d = q.shape
+    plan = _stream_plan(d)
     out = _empty_out(q)
     lse = _row_stats(q)
     _launch("stream_attention", _stream_fn(), _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(out), _ptr(lse), b, h, sq, k.shape[2], d,
-            float(scale), _strides(q, k, v, out), _stream_of(q))
+            plan.stages, plan.smem, float(scale), _strides(q, k, v, out),
+            _stream_of(q))
     stream_attention.launches += 1
     return out, lse[..., None]
 

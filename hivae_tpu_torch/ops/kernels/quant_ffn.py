@@ -12,7 +12,9 @@ scales ``sx`` (M, 1) and per-output-channel int8 weights, it computes
 
 and returns ``(yq, sy)``, the FFN-down's int8 input, so the (M, N) GELU
 output never reaches device memory. The hand-written kernel is
-``hivae_tpu_torch/csrc/quant_ffn.cu`` (source note and bound there).
+``hivae_tpu_torch/csrc/quant_ffn.cu`` (source note and bound there): one
+pass over K on ``wgmma``, the row maximum shared across a thread-block
+cluster along N, with the launch plan from ``_ffn_plan``.
 
 The weight is stored as the port's quantisation table stores every dense
 weight: ``w8`` (N, K) int8, row-major, the layout of a ``torch.nn.Linear``
@@ -29,6 +31,7 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Tuple
 
@@ -37,6 +40,21 @@ import torch
 from . import _build
 
 LANE = 128  # K and N multiples of this (the JAX gate; also the kernel's tiles)
+
+# launch plan of csrc/quant_ffn.cu: 64 rows x 512 columns a CTA, a cluster
+# of at most 8 CTAs (the portable size) along N, a 3-slot ring of 64 + 512
+# rows of 128 bytes of K, 1024-byte aligned
+FFN_ROWS = 64
+FFN_COLS = 512
+FFN_MAX_CLUSTER = 8
+FFN_STAGES = 3
+FFN_SMEM = 1024 + FFN_STAGES * (FFN_ROWS + FFN_COLS) * LANE
+# its static shared bytes: the mbarriers, two warpgroups' row maxima, every
+# cluster CTA's row maxima by row-block parity, the row scales, and the
+# CTA's (ws, bias) columns
+FFN_STATIC = (8 * FFN_STAGES + 4 * 2 * FFN_ROWS
+              + 4 * 2 * FFN_MAX_CLUSTER * FFN_ROWS + 4 * FFN_ROWS
+              + 8 * FFN_COLS)
 
 
 def supports(m: int, k: int, n: int) -> bool:
@@ -95,11 +113,36 @@ def fused_ffn_up_quant_plain(xq: torch.Tensor, sx: torch.Tensor,
     return requant_rows(gelu_tanh(y))
 
 
+@dataclasses.dataclass(frozen=True)
+class FfnPlan:
+    """Launch plan of the FFN-up kernel: a cluster of ``cluster`` CTAs along
+    N, each ``rows`` x ``cols`` a chunk, shares the row maximum of its rows;
+    a CTA takes ``chunks`` column chunks (``chunks`` > 1 only where N is
+    wider than one portable cluster, and then the earlier chunks are
+    computed twice), with ``smem`` bytes of dynamic shared memory. The
+    clusters are persistent: the C entry point launches as many as the card
+    holds at once, at most one for each block of ``rows`` rows, and they
+    walk the row blocks."""
+    cluster: int
+    rows: int
+    cols: int
+    chunks: int
+    smem: int
+
+
+def _ffn_plan(m: int, k: int, n: int) -> FfnPlan:
+    """The plan ``hv_quant_ffn_up`` takes at (M, K, N) (``ffn_cluster`` and
+    ``ffn_chunks`` in csrc/quant_ffn.cu). M and K do not change it."""
+    cluster = min(FFN_MAX_CLUSTER, -(-n // FFN_COLS))
+    return FfnPlan(cluster=cluster, rows=FFN_ROWS, cols=FFN_COLS,
+                   chunks=-(-n // (FFN_COLS * cluster)), smem=FFN_SMEM)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     lib = _build.load("quant_ffn")
     fn = lib.hv_quant_ffn_up
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.hv_quant_ffn_error_string
@@ -142,11 +185,12 @@ def fused_ffn_up_quant(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
     n = w8.shape[0]
     yq = torch.empty((m, n), dtype=torch.int8, device=xq.device)
     sy = torch.empty((m, 1), dtype=torch.float32, device=xq.device)
+    plan = _ffn_plan(m, k, n)
     fn, err = _kernel_fn()
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     rc = fn(*(ctypes.c_void_p(t.data_ptr())
               for t in (xq, sx, w8, wscale, bias, yq, sy)), m, k, n,
-            ctypes.c_void_p(stream))
+            plan.cluster, plan.chunks, plan.smem, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"fused_ffn_up_quant launch failed: "
                            f"{err(rc).decode()}")

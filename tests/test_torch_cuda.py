@@ -135,6 +135,56 @@ def test_stream_kernel_matches_plain(shape, masked):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("masked", [False, True])
+def test_stream_kernel_every_head_dim(d, masked):
+    """Every head dim the kernel takes, ragged Sq and Sk (300 = 4.7 tiles),
+    Sq != Sk, and under the mask a fully masked key row (batch 0), whose O
+    is the uniform average and whose LSE is the plain version's."""
+    _cuda_or_skip()
+    q = _qkv((2, 2, 300, d), seed=30)[0]
+    _, k, v = _qkv((2, 2, 300, d), seed=31, sk=173)
+    scale = d ** -0.5
+    bias = _bias(2, 173, full_row=0) if masked else None
+    out, lse = tfa.stream_attention(q, k, v, scale=scale, bias=bias)
+    wo, wl = tfa.stream_attention_plain(q, k, v, scale=scale, bias=bias)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+    assert _err(out, wo) <= ATOL
+    assert _err(lse, wl) <= LSE_ATOL
+    if masked:
+        uniform = v[0].float().mean(dim=1, keepdim=True)
+        assert _err(out[0], uniform.expand_as(out[0])) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
+def test_stream_kernel_lse_feeds_the_backward(d):
+    """The kernel's O and LSE through the streaming backward kernels against
+    the plain forward's O and LSE through the plain backward (masked keys,
+    no fully masked row: a row with no key has no LSE, ROADMAP Queue 3)."""
+    _cuda_or_skip()
+    shape = (2, 2, 320, d)
+    q, k, v = _qkv(shape, seed=32)
+    do = _qkv(shape, seed=33)[0]
+    scale = d ** -0.5
+    bias = _bias(2, 320)
+    out, lse = tfa.stream_attention(q, k, v, scale=scale, bias=bias)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = tfa.stream_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale,
+                                     bias=bias)
+    dk, dv = tfa.stream_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                          scale=scale, bias=bias)
+    wo, wl = tfa.stream_attention_plain(q, k, v, scale=scale, bias=bias)
+    want = tfa.stream_attention_bwd_plain(q, k, v, do, wo, wl, scale=scale,
+                                          bias=bias)
+    torch.cuda.synchronize()
+    for g, w in zip((dq, dk, dv), want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= BWD_RTOL
+
+
+@pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take():
     _cuda_or_skip()
     q, k, v = _qkv((1, 2, 300, 64), seed=13)
@@ -269,6 +319,20 @@ def _ffn_inputs(m, k, n, seed):
     return xq, sx, w8, ws, bias
 
 
+def _ffn_plain(xq, sx, w8, ws, bias):
+    """The plain version on the card; fewer than 17 rows (``torch._int_mm``
+    needs more) are padded with zero rows, which change no other row."""
+    from hivae_tpu_torch.ops.kernels import quant_ffn as tqf
+    m = xq.shape[0]
+    if m > 16:
+        return tqf.fused_ffn_up_quant_plain(xq, sx, w8, ws, bias)
+    pad = 17 - m
+    xq = torch.cat([xq, xq.new_zeros((pad, xq.shape[1]))])
+    sx = torch.cat([sx, sx.new_ones((pad, 1))])
+    yq, sy = tqf.fused_ffn_up_quant_plain(xq, sx, w8, ws, bias)
+    return yq[:m], sy[:m]
+
+
 def _int8_agreement(yq, sy, wq, ws):
     """(max |yq - want|, share of elements off by one, max relative error of
     the scales, relative L2 error of the dequantised values)."""
@@ -279,9 +343,14 @@ def _int8_agreement(yq, sy, wq, ws):
     return d.max().item(), (d == 1).float().mean().item(), rel_s, l2
 
 
+# the int8 clip's three FFN-up shapes
+FFN_FLAGSHIP = [(4256, 1024, 4096), (8192, 1024, 4096), (4096, 1024, 4096)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(4256, 1024, 4096), (8192, 1024, 4096),
-                                   (4096, 1024, 4096), (70, 128, 512)])
+@pytest.mark.parametrize("m,k,n", FFN_FLAGSHIP + [
+    (70, 128, 512), (1, 1024, 4096), (70, 1024, 4096), (200, 1024, 4096),
+    (4256, 1024, 8192), (130, 256, 640)])
 def test_quant_ffn_kernel_matches_plain(m, k, n):
     """int8 within +-1 everywhere and off by one in at most 0.1% of the
     elements, scales within 1e-6 relative, dequantised values within 1e-3
@@ -293,7 +362,7 @@ def test_quant_ffn_kernel_matches_plain(m, k, n):
     args = _ffn_inputs(m, k, n, seed=19)
     before = tqf.fused_ffn_up_quant.launches
     yq, sy = tqf.fused_ffn_up_quant(*args)
-    wq, ws = tqf.fused_ffn_up_quant_plain(*args)
+    wq, ws = _ffn_plain(*args)
     torch.cuda.synchronize()
     assert tqf.fused_ffn_up_quant.launches == before + 1
     assert yq.dtype == torch.int8 and yq.shape == (m, n) and sy.shape == (m, 1)
@@ -309,6 +378,33 @@ def test_quant_ffn_kernel_rejects_unaligned():
     xq, sx, w8, ws, bias = _ffn_inputs(64, 96, 512, seed=20)
     with pytest.raises(ValueError, match="multiples"):
         tqf.fused_ffn_up_quant(xq, sx, w8, ws, bias)
+
+
+@pytest.mark.cuda
+def test_quant_ffn_kernel_rejects_unaligned_n():
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops.kernels import quant_ffn as tqf
+    xq, sx, w8, ws, bias = _ffn_inputs(64, 128, 200, seed=20)
+    with pytest.raises(ValueError, match="multiples"):
+        tqf.fused_ffn_up_quant(xq, sx, w8, ws, bias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", FFN_FLAGSHIP + [(4256, 1024, 8192),
+                                                  (200, 1024, 4096)])
+def test_quant_ffn_kernel_is_bit_exact(m, k, n):
+    """Two launches give the same yq and sy, and both are the plain
+    version's bits: the cluster's row maximum does not depend on the order
+    of its partials, and the epilogue spells out the plain roundings."""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops.kernels import quant_ffn as tqf
+    args = _ffn_inputs(m, k, n, seed=21)
+    first = tqf.fused_ffn_up_quant(*args)
+    again = tqf.fused_ffn_up_quant(*args)
+    want = tqf.fused_ffn_up_quant_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert all(torch.equal(a, b) for a, b in zip(first, want))
 
 
 def _norms(d, seed):

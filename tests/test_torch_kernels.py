@@ -15,6 +15,7 @@ import torch
 from hivae_tpu.ops.pallas import flash_attention as jfa
 from hivae_tpu_torch.ops import attention as tattn
 from hivae_tpu_torch.ops.kernels import flash_attention as tfa
+from hivae_tpu_torch.ops.kernels import quant_ffn as tqf
 
 ATOL = 2e-5
 
@@ -254,3 +255,96 @@ def test_kernel_p_matches_softmax_within_one_bf16_step():
     assert (got == want).float().mean().item() >= 0.999
     # batch 1 is fully masked: P = 1 / Sk on every key, bit for bit
     assert bool((got[1] == torch.tensor(1.0 / sk).to(torch.bfloat16)).all())
+
+
+# -- the launch plans of the FFN-up and streaming forward kernels ----------
+
+# (M, K, N): the int8 clip's three FFN-up shapes and every shape of the
+# card tests and chip_smoke.py's checks
+FFN_SHAPES = [(4256, 1024, 4096), (8192, 1024, 4096), (4096, 1024, 4096),
+              (70, 128, 512), (1, 1024, 4096), (70, 1024, 4096),
+              (200, 1024, 4096), (4256, 1024, 8192), (130, 256, 640)]
+
+
+def _check_ffn_plan(m, k, n):
+    assert tqf.supports(m, k, n)
+    plan = tqf._ffn_plan(m, k, n)
+    # a legal cluster: at most the portable 8 CTAs
+    assert 1 <= plan.cluster <= tqf.FFN_MAX_CLUSTER
+    # CTA r of the cluster owns columns [(ch * cluster + r) * cols, + cols)
+    # of chunk ch: the slices tile [0, N) and no chunk lies wholly past N
+    span = plan.cluster * plan.cols
+    assert (plan.chunks - 1) * span < n <= plan.chunks * span
+    cover = torch.zeros(plan.chunks * span, dtype=torch.int64)
+    for ch in range(plan.chunks):
+        for r in range(plan.cluster):
+            c0 = (ch * plan.cluster + r) * plan.cols
+            cover[c0:c0 + plan.cols] += 1
+    assert bool((cover == 1).all())
+    # N > one cluster's 8 x 512 columns is the only case with a second chunk
+    assert (plan.chunks > 1) == (n > tqf.FFN_MAX_CLUSTER * tqf.FFN_COLS)
+    # the ring and the static barriers, row maxima, scales and columns fit
+    # one block
+    assert plan.smem + tqf.FFN_STATIC <= tfa.SMEM_PER_BLOCK
+    assert plan.rows == 64 and plan.cols % tqf.LANE == 0
+
+
+@pytest.mark.parametrize("m,k,n", FFN_SHAPES)
+def test_ffn_plan_covers_n(m, k, n):
+    """The FFN-up's launch plan at each shape the port runs or checks: a
+    legal cluster, column slices that cover N exactly once, and shared
+    memory within one block's 227 KB."""
+    _check_ffn_plan(m, k, n)
+
+
+def test_ffn_plan_covers_every_admitted_n():
+    """The same at every N that ``supports`` admits up to 4 clusters wide
+    (N a multiple of 128 up to 16384), at K 1024."""
+    for n in range(128, 16384 + 1, 128):
+        _check_ffn_plan(64, 1024, n)
+
+
+@pytest.mark.parametrize("d", tfa._STREAM_DIMS)
+def test_stream_plan_fits_shared_memory(d):
+    """The streaming forward's plan at each head dim: the swizzled Q tile,
+    ring slots of one swizzled 64-key tile and its bias row, and the static
+    P tile within one block's 227 KB, at least two slots (one landing while one computes),
+    and no room left for another slot below the cap."""
+    plan = tfa._stream_plan(d)
+    q_bytes = tfa._sw128_bytes(d, tfa.STREAM_ROWS)
+    slot = -(-(tfa._sw128_bytes(d, tfa.STREAM_TILE) + 4 * tfa.STREAM_TILE)
+             // 1024) * 1024
+    assert plan.smem == 1024 + q_bytes + plan.stages * slot
+    # plus the static mbarriers, P tile and row partials
+    assert plan.smem + tfa.STREAM_STATIC <= tfa.SMEM_PER_BLOCK
+    assert 2 <= plan.stages <= tfa.STREAM_MAX_STAGES
+    assert (plan.stages == tfa.STREAM_MAX_STAGES
+            or plan.smem + tfa.STREAM_STATIC + slot > tfa.SMEM_PER_BLOCK)
+
+
+def _stream_kernel_lse(s, scale, bias):
+    """The streaming kernel's LSE emulated in torch: natural-unit logits
+    t = fma(s, scale, bias) (rounded once, emulated in fp64), m = max t,
+    l = sum 2^((t - m) log2 e), LSE = m + log(l) in fp32."""
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    t = (s.double() * torch.tensor(scale, dtype=torch.float32).double()
+         + bias.double()[:, None, None, :]).float()
+    m = t.amax(dim=-1, keepdim=True)
+    l = torch.exp2((t - m) * log2e).sum(dim=-1, keepdim=True)
+    return m + torch.log(l)
+
+
+def test_stream_kernel_lse_matches_plain():
+    """The streaming kernel's softmax form gives the plain version's LSE to
+    within the card's tolerance (1e-3), and on a fully masked key row (bias
+    -1e30 on every key) exactly: m stays -1e30, every p is 1."""
+    b, h, sq, sk, d = 2, 2, 40, 300, 64
+    q, k, v = (torch.from_numpy(x) for x in _qkv((b, h, sq, d), seed=42,
+                                                    sk=sk))
+    bias = torch.from_numpy(_bias(b, sk, seed=43, full_row=1))
+    scale = d ** -0.5
+    s = torch.matmul(q, k.transpose(-1, -2))
+    got = _stream_kernel_lse(s, scale, bias)
+    _, want = tfa.stream_attention_plain(q, k, v, scale=scale, bias=bias)
+    assert (got - want).abs().max().item() <= 1e-3
+    assert torch.equal(got[1], want[1])
