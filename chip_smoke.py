@@ -22,13 +22,25 @@ Phases (any failure exits non-zero without the final result line):
    and a ragged 200, N 8192 past one portable cluster), with its
    epilogue's floor counted from its SASS; the backward kernels at every
    training shape for
-   N = 4 and N = 1 clips, plus masked cases. Each kernel, its plain
+   N = 4 and N = 1 clips, plus masked cases; the streaming backward (its
+   delta pre-pass, dQ and dK/dV kernels) at run B's shape and at
+   ``STREAM_BWD_CHECKS`` (D 64 and 128 at 2048 tokens, masked cases with a
+   fully masked key block that must get no gradient), each launched twice
+   and held to the same bits. Each kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
    ``F.scaled_dot_product_attention`` forward plus backward minus its
    forward; for the qk-norm kernel two ``F.layer_norm`` and one SDPA; for the
    FFN kernel ``torch._int_mm`` of its GEMM alone) are timed with CUDA
    events;
+   2b. ``sdpa`` in fp32 and fp16 above 256^2 logits, which has no kernel
+   on the card: it must take the counted plain path (``sdpa_plain``, one
+   count a call) and launch no kernel; bf16 operands in a layout the
+   kernels cannot read, which ``sdpa`` copies and sends to the kernel; an
+   fp32 ``AutoencoderKL`` encoding one clip (its attention through
+   ``sdpa_plain`` only); ``quant_dense`` and ``fused_quant_ffn`` at 1, 16
+   and 17 rows against the same calls on the CPU. On every main path
+   below, ``sdpa_plain`` must count 0;
 3. build the full-width flagship AMD_N (``configs/amd/amd_n_t1d512_spatial.json``)
    and the SD-VAE in bf16 on seeded random weights and reconstruct one
    synthetic 17 x 3 x 256 x 256 clip at ``sample_step=10`` through
@@ -61,7 +73,7 @@ Phases (any failure exits non-zero without the final result line):
 5. training run B: N = 1 with the perceptual loss (weight 0.5, seeded
    random LPIPS weights) and both mask ratios at 0.5, one warm-up step and
    2 timed steps with exact launch counts (now with the streaming backward
-   kernels), the same plain-step check, then a checkpoint save, a resume
+   kernels and their delta pre-pass), the same plain-step check, then a checkpoint save, a resume
    in a new trainer, and one more step from each that must agree bit for
    bit;
 6. print the card's name and power limit, one JSON line of per-kernel
@@ -75,8 +87,9 @@ deterministic algorithms. ``--profile DIR`` also writes a
 int8 clip to ``DIR/profile_clip_int8.txt`` and of one run-A training step
 to ``DIR/profile_train.txt``. ``--parent DIR`` builds the kernels of
 another checkout too (the parent commit unpacked with ``git archive``) and
-times its full-block forward, qk-norm forward, backward, streaming forward
-and int8 FFN-up in phase 2 beside this checkout's, in the same process.
+times its full-block forward, qk-norm forward, backward, streaming forward,
+streaming backward (dQ and dK/dV) and int8 FFN-up in phase 2 beside this
+checkout's, in the same process.
 """
 
 from __future__ import annotations
@@ -167,6 +180,18 @@ FULL_BLOCK_CHECKS = [
 # training: clips per step in runs A and B, timed steps, frames per clip
 RUN_A_CLIPS, RUN_A_STEPS = 4, 3
 RUN_B_CLIPS, RUN_B_STEPS = 1, 2
+# check-only streaming backward cases (label, q shape, masked): the old
+# masked serving-width case, 16 heads of 64 (the DiT width) past the
+# full-block limit, D 128, and the shape of
+# ``benchmarks/bench_attention.py --b 2 --h 8 --s 2048 --d 64 --grad``; a
+# masked case also masks the key block STREAM_MASKED_KEYS in every row
+STREAM_BWD_CHECKS = [
+    ("SD-VAE mid-block, masked", (4, 1, 1024, 512), True),
+    ("DiT width, 2048 tokens", (4, 16, 2048, 64), False),
+    ("D 128, 2048 tokens", (2, 8, 2048, 128), False),
+    ("bench_attention --grad, masked", (2, 8, 2048, 64), True),
+]
+STREAM_MASKED_KEYS = slice(64, 128)
 # Gradients of bf16 attention, held relative to their largest element: both
 # sides round P and dS to bf16 from sums taken in another order, and the
 # full-block kernel takes delta = rowsum(dO * O) from the bf16 output where
@@ -391,29 +416,33 @@ def check_bwd_kernels(fa, failures, parent=None):
              f" plain {plain_ms:.4f} ms  sdpa bwd {lib_ms:.4f} ms  bound "
              f"{max(bytes_ms, ops_ms):.4f} ms")
 
-    dq_cases, dkv_cases = [], []
-    for label, shape, per_step, clips in [
+    dq_cases, dkv_cases, sdeltas = [], [], []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, shape, per_step, clips, masked in [
             ("SD-VAE decoder mid-block N=1", (16, 1, 1024, 512), 1,
-             RUN_B_CLIPS),
-            ("SD-VAE mid-block, masked", (4, 1, 1024, 512), 0, 0)]:
+             RUN_B_CLIPS, False)] + [
+            (lab, shape, 0, 0, masked)
+            for lab, shape, masked in STREAM_BWD_CHECKS]:
         q, k, v, do = (rand(shape) for _ in range(4))
         scale = shape[3] ** -0.5
         bias = None
-        if per_step == 0:
-            # a masked key row and a fully masked key block, in rows that
-            # attend to some key: the streaming backward takes P from the
-            # LSE, as the TPU kernels do, and a row with no key to attend
-            # to has no LSE that keeps its 1/l at -1e30
+        if masked:
+            # masked keys and a fully masked key block, in rows that attend
+            # to some key: the streaming backward takes P from the LSE, as
+            # the TPU kernels do, and a row with no key to attend to has no
+            # LSE that keeps its 1/l at -1e30
             bias = masked_bias(shape[0], shape[2], full_row=False)
-            bias[:, 64:96] = -1e30
-        out, lse = fa.stream_attention(q, k, v, scale=scale, bias=bias)
-        delta = (do.float() * out.float()).sum(-1)
-        dq = fa.stream_attention_bwd_dq(q, k, v, do, lse, delta, scale=scale,
-                                        bias=bias)
-        dk, dv = fa.stream_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                             scale=scale, bias=bias)
-        want = fa.stream_attention_bwd_plain(q, k, v, do, out, lse,
-                                             scale=scale, bias=bias)
+            bias[:, STREAM_MASKED_KEYS] = -1e30
+        kw = dict(scale=scale, bias=bias)
+        out, lse = fa.stream_attention(q, k, v, **kw)
+        delta = fa.stream_attention_delta(do, out)
+        dq = fa.stream_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.stream_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        again = (fa.stream_attention_delta(do, out),
+                 fa.stream_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                 *fa.stream_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        want = fa.stream_attention_bwd_plain(q, k, v, do, out, lse, **kw)
+        want_delta = fa._delta(do, out)
         torch.cuda.synchronize()
         errs = [_rel_err(g, w) for g, w in zip((dq, dk, dv), want)]
         abs_errs = [_abs_err(g, w) for g, w in zip((dq, dk, dv), want)]
@@ -421,36 +450,73 @@ def check_bwd_kernels(fa, failures, parent=None):
         if not (finite and max(errs) <= BWD_RTOL):
             failures.append(f"stream_bwd {label}: rel err dq/dk/dv {errs} "
                             f"finite {finite}")
-        if bias is not None and max(dk[:, :, 64:96].abs().max().item(),
-                                    dv[:, :, 64:96].abs().max().item()) != 0:
+        if not all(torch.equal(a, b) for a, b in
+                   zip((delta, dq, dk, dv), again)):
+            failures.append(f"stream_bwd {label}: two launches differ")
+        if bias is not None and max(
+                dk[:, :, STREAM_MASKED_KEYS].abs().max().item(),
+                dv[:, :, STREAM_MASKED_KEYS].abs().max().item()) != 0:
             failures.append(f"stream_bwd {label}: a fully masked key block "
                             f"got a gradient")
+        d_err = _abs_err(delta, want_delta)
+        d_scale = (do.float().abs() * out.float().abs()).sum(-1).max().item()
+        if not d_err <= DELTA_RTOL * d_scale:
+            failures.append(f"stream_delta {label}: max|err| {d_err} (scale "
+                            f"{d_scale})")
         mask = None if bias is None else bias.to(q.dtype)[:, None, None, :]
+        iters = 20
         dq_ms = _time_ms(lambda: fa.stream_attention_bwd_dq(
-            q, k, v, do, lse, delta, scale=scale, bias=bias), 10)
+            q, k, v, do, lse, delta, **kw), iters)
         dkv_ms = _time_ms(lambda: fa.stream_attention_bwd_dkv(
-            q, k, v, do, lse, delta, scale=scale, bias=bias), 10)
+            q, k, v, do, lse, delta, **kw), iters)
+        d_ms = _time_ms(lambda: fa.stream_attention_delta(do, out), iters)
+        d_plain = _time_ms(lambda: fa._delta(do, out), iters)
         plain_ms = _time_ms(lambda: fa.stream_attention_bwd_plain(
-            q, k, v, do, out, lse, scale=scale, bias=bias), 5)
-        lib_ms = _library_bwd_ms(q, k, v, do, mask, scale, 10)
+            q, k, v, do, out, lse, **kw), 5)
+        lib_ms = _library_bwd_ms(q, k, v, do, mask, scale, iters)
+        parent_dq = parent_dkv = None
+        if parent is not None:
+            parent_dq = _time_ms(lambda: parent.stream_attention_bwd_dq(
+                q, k, v, do, lse, delta, **kw), iters)
+            parent_dkv = _time_ms(lambda: parent.stream_attention_bwd_dkv(
+                q, k, v, do, lse, delta, **kw), iters)
+        plan = fa._stream_bwd_plan(shape[3])
+        ctas = -(-shape[2] // plan.rows) * shape[0] * shape[1] * plan.cluster
         common = dict(label=label, shape=list(shape), clips=clips,
                       per_step=per_step, weight=per_step, plain_ms=plain_ms,
-                      library_ms=lib_ms)
+                      library_ms=lib_ms, plan=dataclasses.asdict(plan),
+                      ctas=ctas, waves=ctas / sms)
         b_ms, o_ms = _bound(shape, bias is not None, True, tensors=5,
                             stats=1, flop_factor=6)
         dq_cases.append(dict(common, max_abs_err=abs_errs[0],
-                             max_rel_err=errs[0], ms=dq_ms, bytes_ms=b_ms,
+                             max_rel_err=errs[0], ms=dq_ms,
+                             parent_ms=parent_dq, bytes_ms=b_ms,
                              ops_ms=o_ms))
         b_ms2, o_ms2 = _bound(shape, bias is not None, True, tensors=6,
                               stats=1, flop_factor=8)
         dkv_cases.append(dict(common, max_abs_err=max(abs_errs[1:]),
                               max_rel_err=max(errs[1:]), ms=dkv_ms,
-                              bytes_ms=b_ms2, ops_ms=o_ms2))
+                              parent_ms=parent_dkv, bytes_ms=b_ms2,
+                              ops_ms=o_ms2))
+        b, h, sq, d = shape
+        # dO and O read once, delta written; 2 B H Sq D fp32 operations
+        d_bytes = 2 * b * h * sq * d * 2 + b * h * sq * 4
+        sdeltas.append(dict(label=label, shape=list(shape), weight=per_step,
+                            max_abs_err=d_err, ms=d_ms, plain_ms=d_plain,
+                            library_ms=None,
+                            bytes_ms=d_bytes / PEAK_HBM_BYTES * 1e3,
+                            ops_ms=2 * b * h * sq * d / PEAK_FP32_FLOPS * 1e3))
         _log(f"  stream_bwd {label} {shape}: rel err dq {errs[0]:.3g} dk "
-             f"{errs[1]:.3g} dv {errs[2]:.3g}  dq kernel {dq_ms:.4f} ms "
-             f"(bound {max(b_ms, o_ms):.4f})  dkv kernel {dkv_ms:.4f} ms "
-             f"(bound {max(b_ms2, o_ms2):.4f})  plain {plain_ms:.4f} ms  "
-             f"sdpa bwd {lib_ms:.4f} ms")
+             f"{errs[1]:.3g} dv {errs[2]:.3g}, delta {d_err:.3g}  dq kernel "
+             f"{dq_ms:.4f} ms (parent {parent_dq}, bound "
+             f"{max(b_ms, o_ms):.4f})  dkv kernel {dkv_ms:.4f} ms (parent "
+             f"{parent_dkv}, bound {max(b_ms2, o_ms2):.4f})  delta "
+             f"{d_ms:.4f} ms (plain {d_plain:.4f})  sum "
+             f"{d_ms + dq_ms + dkv_ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa "
+             f"bwd {lib_ms:.4f} ms  ({plan.rows} rows a CTA, cluster "
+             f"{plan.cluster}, {plan.stages} "
+             f"slots, {plan.smem} B, {ctas} "
+             f"CTAs, {ctas / sms:.2f} waves of one a SM on {sms} SMs)")
 
     src = "hivae_tpu_torch/csrc/"
     tpu = "hivae_tpu/ops/pallas/flash_attention.py:"
@@ -464,9 +530,13 @@ def check_bwd_kernels(fa, failures, parent=None):
     # under the backward's record
     bwd["delta"] = record("full_block_attention_delta",
                           "flash_full_block_bwd.cu", "188", deltas)
-    return [bwd,
-            record("stream_attention_bwd_dq", "flash_stream_bwd.cu", "512",
-                   dq_cases),
+    dq_rec = record("stream_attention_bwd_dq", "flash_stream_bwd.cu", "512",
+                    dq_cases)
+    # the streaming backward's delta pre-pass: its own launch and counter,
+    # listed under the dQ record (the JAX package computes delta in XLA)
+    dq_rec["delta"] = record("stream_attention_delta", "flash_stream_bwd.cu",
+                             "512", sdeltas)
+    return [bwd, dq_rec,
             record("stream_attention_bwd_dkv", "flash_stream_bwd.cu", "552",
                    dkv_cases)]
 
@@ -873,6 +943,124 @@ def check_quant_ffn(qf, failures, parent=None):
             "cases": cases, "epilogue_sass_per_element": per_elem}
 
 
+# sdpa above 256^2 logits in dtypes the kernels do not take (label, q
+# shape, masked): the gate sends them to the plain path
+SDPA_DTYPE_CASES = [("object encoder width", (2, 16, 260, 64), True),
+                    ("SD-VAE mid-block", (4, 1, 1024, 512), False)]
+# int8 layers at row counts around torch._int_mm's least M (17)
+INT8_SMALL_M = (1, 16, 17)
+
+
+def check_repairs(failures):
+    """Phase 2b. ``sdpa`` in fp32 and fp16 above 256^2 logits against its
+    plain path, launching no kernel and counted once in ``sdpa_plain``;
+    bf16 in a layout the kernels cannot read, copied and launched; an fp32
+    ``AutoencoderKL`` encoding one clip; ``quant_dense`` and
+    ``fused_quant_ffn`` at M 1, 16 and 17 on the card against the same
+    calls on the CPU (their plain versions)."""
+    import torch
+    from hivae_tpu_torch.models import vae as vae_mod
+    from hivae_tpu_torch.ops import attention as attn_ops
+    from hivae_tpu_torch.ops import quant as quant_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    for dtype in (torch.float32, torch.float16):
+        for label, shape, masked in SDPA_DTYPE_CASES:
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(3))
+            mask = None
+            if masked:
+                mask = torch.rand((shape[0], shape[2]), generator=gen,
+                                  device="cuda") > 0.3
+            route = attn_ops.kernel_route(q, k, v)
+            _zero_counts()
+            got = attn_ops.sdpa(q, k, v, key_mask=mask)
+            launched = {n: c for n, c in _read_counts().items() if c}
+            want = attn_ops._sdpa_plain(q, k, v, shape[3] ** -0.5, mask)
+            torch.cuda.synchronize()
+            err = _abs_err(got, want)
+            ok = (route == "plain" and launched == {"sdpa_plain": 1}
+                  and got.dtype == dtype and bool(torch.isfinite(got).all())
+                  and err <= KERNEL_ATOL)
+            _log(f"  sdpa {dtype} {label} {shape}: route {route}, launches "
+                 f"{launched}, max|err| vs plain {err:.3g}")
+            if not ok:
+                failures.append(f"sdpa {dtype} {label}: route {route}, "
+                                f"launches {launched}, err {err}")
+
+    # bf16 operands whose rows the kernels cannot read (every other column
+    # of a wider tensor): sdpa copies them to the kernels' layout and
+    # launches the kernel its shape picks
+    for label, shape, masked in SDPA_DTYPE_CASES:
+        q, k, v = (torch.randn(shape[:3] + (2 * shape[3],), generator=gen,
+                               device="cuda").bfloat16()[..., ::2]
+                   for _ in range(3))
+        route = attn_ops.kernel_route(q, k, v)
+        _zero_counts()
+        got = attn_ops.sdpa(q, k, v)
+        launched = {n: c for n, c in _read_counts().items() if c}
+        want = attn_ops._sdpa_plain(q, k, v, shape[3] ** -0.5, None)
+        torch.cuda.synchronize()
+        err = _abs_err(got, want)
+        kernel = ("full_block_attention" if route == "full_block"
+                  else "stream_attention")
+        _log(f"  sdpa bf16 strided {label} {shape}: route {route}, launches "
+             f"{launched}, max|err| vs plain {err:.3g}")
+        if not (route != "plain" and launched == {kernel: 1}
+                and err <= KERNEL_ATOL):
+            failures.append(f"sdpa bf16 strided {label}: route {route}, "
+                            f"launches {launched}, err {err}")
+
+    torch.manual_seed(SEED + 6)
+    vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
+                                dtype=torch.float32).eval()
+    rgb, _ = synthetic_clip()
+    _zero_counts()
+    lat = vae_mod.vae_encode(vae, torch.from_numpy(rgb).cuda()[None])
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in _read_counts().items() if c}
+    want_shape = (1, WINDOW + 1, vae.cfg.latent_channels, SIZE // 8,
+                  SIZE // 8)
+    _log(f"  fp32 AutoencoderKL encode: latents {tuple(lat.shape)} "
+         f"{lat.dtype}, finite {bool(torch.isfinite(lat).all())}, launches "
+         f"{launched}")
+    if tuple(lat.shape) != want_shape or lat.dtype != torch.float32 or \
+            not bool(torch.isfinite(lat).all()) or \
+            set(launched) != {"sdpa_plain"}:
+        failures.append(f"fp32 AutoencoderKL encode: {tuple(lat.shape)} "
+                        f"{lat.dtype}, launches {launched}")
+    del vae, lat
+
+    def entry(n, k):
+        w = torch.randn((n, k), generator=gen, device="cuda") / k ** 0.5
+        w8, ws = quant_ops._quantize_kernel(w)
+        return {"w8": w8, "scale": ws,
+                "bias": 0.1 * torch.randn((n,), generator=gen, device="cuda")}
+
+    def cpu(e):
+        return {n: t.cpu() for n, t in e.items()}
+    up, down = entry(FFN_N, FFN_K), entry(FFN_K, FFN_N)
+    for m in INT8_SMALL_M:
+        x = torch.randn((m, FFN_K), generator=gen, device="cuda").bfloat16()
+        _zero_counts()
+        got = [quant_ops.quant_dense(x, up["w8"], up["scale"], up["bias"]),
+               quant_ops.fused_quant_ffn(x, up, down)]
+        ffn_launches = _read_counts()["fused_ffn_up_quant"]
+        want = [quant_ops.quant_dense(x.cpu(), up["w8"].cpu(),
+                                      up["scale"].cpu(), up["bias"].cpu()),
+                quant_ops.fused_quant_ffn(x.cpu(), cpu(up), cpu(down))]
+        torch.cuda.synchronize()
+        rel = [((g.float().cpu() - w.float()).norm() / w.float().norm()).item()
+               for g, w in zip(got, want)]
+        _log(f"  int8 M={m}: quant_dense rel L2 {rel[0]:.3g}, "
+             f"fused_quant_ffn rel L2 {rel[1]:.3g}, FFN-up launches "
+             f"{ffn_launches}")
+        if not (max(rel) <= FFN_DEQUANT_RTOL and ffn_launches == 1 and
+                all(bool(torch.isfinite(g).all()) for g in got)):
+            failures.append(f"int8 M={m}: rel L2 {rel}, FFN-up launches "
+                            f"{ffn_launches}")
+
+
 def summarise(rec, launches):
     """One kernel's line entry. Times and bounds are per launch, averaged
     over the launch mix of the path the kernel's weights describe (the clip
@@ -1127,17 +1315,20 @@ def run_int8_clip(models, bf16_clip, bf16_latency, args, failures):
 
 COUNTERS = ("full_block_attention", "full_block_attention_qknorm",
             "full_block_attention_bwd", "full_block_attention_delta",
-            "stream_attention",
+            "stream_attention", "stream_attention_delta",
             "stream_attention_bwd_dq", "stream_attention_bwd_dkv",
-            "fused_ffn_up_quant")
+            "fused_ffn_up_quant", "sdpa_plain")
 
 
 def _wrappers():
-    """Each counted kernel wrapper by its counter's name."""
+    """Each counted kernel wrapper by its counter's name, and ``sdpa``'s
+    counted plain path for a call no kernel takes (``sdpa_plain``: 0 on
+    every main path)."""
+    from hivae_tpu_torch.ops import attention as attn_ops
     from hivae_tpu_torch.ops.kernels import flash_attention as fa
     from hivae_tpu_torch.ops.kernels import quant_ffn as qf
-    return {name: getattr(qf if name == "fused_ffn_up_quant" else fa, name)
-            for name in COUNTERS}
+    mods = {"fused_ffn_up_quant": qf, "sdpa_plain": attn_ops}
+    return {name: getattr(mods.get(name, fa), name) for name in COUNTERS}
 
 
 def _no_launches():
@@ -1204,13 +1395,15 @@ def _expected_step_launches(cfg, perceptual: bool):
     encoder's layers and the DiT's two joint blocks per layer run the
     full-block kernels, the DiT's forward twice under remat; each of the 4
     VAE encodes runs one streaming forward, and the perceptual leg's decode
-    one more streaming forward and its two backward kernels."""
+    one more streaming forward and its backward: the delta pre-pass and the
+    dQ and dK/dV kernels."""
     enc, dit = cfg.object_enc_num_layers, 2 * cfg.diffusion_num_layers
     return dict(_no_launches(),
                 full_block_attention=enc + dit * (2 if cfg.remat else 1),
                 full_block_attention_bwd=enc + dit,
                 full_block_attention_delta=enc + dit,
                 stream_attention=4 + int(perceptual),
+                stream_attention_delta=int(perceptual),
                 stream_attention_bwd_dq=int(perceptual),
                 stream_attention_bwd_dkv=int(perceptual))
 
@@ -1437,8 +1630,8 @@ def main() -> int:
                     help="another checkout (e.g. the parent commit unpacked "
                          "under _archive/): build its kernels too and time "
                          "its full-block forward, qk-norm forward, "
-                         "backward, streaming forward and int8 FFN-up "
-                         "beside these")
+                         "backward, streaming forward and backward and "
+                         "int8 FFN-up beside these")
     args = ap.parse_args()
 
     import torch
@@ -1478,6 +1671,9 @@ def main() -> int:
                + [check_qknorm(fa, failures, parent),
                   check_quant_ffn(qf, failures, parent_qf)]
                + check_bwd_kernels(fa, failures, parent=parent))
+    _log("phase 2b: sdpa in fp32 and fp16, an fp32 VAE encode, int8 at "
+         "M <= 17")
+    check_repairs(failures)
 
     _log("phase 3: full-width AMD_N + SD-VAE clip reconstruction")
     serving = build_serving_models()

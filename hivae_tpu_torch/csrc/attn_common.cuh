@@ -32,51 +32,10 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Two floats rounded to bf16, `lo` in the low half (the lower k index).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v = __halves2bfloat162(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment of rows [r0, r0+16) and columns [c0, c0+16) of a row-major
-// shared tile with leading dimension ld.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* T, int ld,
-                                       int r0, int c0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = T + (r0 + g) * ld + c0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragment with B(k, n) = T[n0 + n][k0 + k]: keys stored row-major, used
-// for Q.K^T (n runs over keys, k over the head dim).
-__device__ __forceinline__ void load_b_nk(uint32_t b[2], const bf16* T,
-                                          int ld, int n0, int k0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = T + (n0 + g) * ld + k0 + 2 * t;
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B fragment with B(k, n) = T[k0 + k][n0 + n]: values stored row-major,
-// used for P.V (k runs over keys, n over the head dim).
-__device__ __forceinline__ void load_b_kn(uint32_t b[2], const bf16* T,
-                                          int ld, int k0, int n0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = T + (k0 + 2 * t) * ld + n0 + g;
-  b[0] = pack_bf16(p[0], p[ld]);
-  b[1] = pack_bf16(p[8 * ld], p[9 * ld]);
 }
 
 // 16 bytes global -> shared without passing through registers (cp.async,
@@ -90,19 +49,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
-// Waits for this thread's cp.async copies, then for the whole CTA: after it
-// every tile issued by load_tile is in shared memory.
-__device__ __forceinline__ void tile_barrier() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  __syncthreads();
-}
-
 // Rows [row0, row0 + NROWS) of an (S, D) bf16 matrix whose rows are `rs`
 // elements apart, into a shared tile with leading dimension ld; rows at or
 // past S are zero-filled so that ragged edges contribute nothing. Every
 // copy of the tile is issued before any completes (asynchronous cp.async),
-// so the tile costs one memory latency, not one per copy; call
-// tile_barrier() before reading it.
+// so the tile costs one memory latency, not one per copy; wait for the
+// copies and synchronise the CTA before reading it.
 template <int D, int NROWS, int NTHREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
                                           long rs, int row0, int S, int tid) {
@@ -130,6 +82,41 @@ __device__ __forceinline__ T* head_ptr(T* base, Rows r, int b, int h) {
   return base + b * r.b + h * r.h;
 }
 
+// delta = rowsum(dO * O) in fp32 of row `row` of the (B, H, Sq) rows of
+// dout and out (bf16, D columns): 8 lanes a row, lane & 7 reads 16-byte
+// chunks of both rows, a 3-step shuffle sums them and every lane of the 8
+// returns the sum. The whole warp calls it; a lane with row >= rows reads
+// nothing and adds 0.
+template <int D>
+__device__ __forceinline__ float row_delta(const bf16* dout, const bf16* out,
+                                           long row, long rows, int H, int Sq,
+                                           Rows sdo, Rows so) {
+  const int sub = threadIdx.x & 7;
+  float acc = 0.f;
+  if (row < rows) {
+    const int s = (int)(row % Sq), h = (int)(row / Sq % H), b = (int)(row / Sq / H);
+    const bf16* dp = head_ptr(dout, sdo, b, h) + s * sdo.s;
+    const bf16* op = head_ptr(out, so, b, h) + s * so.s;
+#pragma unroll
+    for (int c = sub * 8; c < D; c += 64) {
+      const uint4 x = *reinterpret_cast<const uint4*>(dp + c);
+      const uint4 y = *reinterpret_cast<const uint4*>(op + c);
+      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xf = __bfloat1622float2(xp[e]);
+        const float2 yf = __bfloat1622float2(yp[e]);
+        acc = fmaf(xf.x, yf.x, acc);
+        acc = fmaf(xf.y, yf.y, acc);
+      }
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  return acc + __shfl_xor_sync(0xffffffffu, acc, 4);
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -138,26 +125,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Scale, key bias and ragged-key mask for one C tile of logits whose first
-// column is key `col0`: c[0..1] belong to row g, c[2..3] to row g + 8.
-__device__ __forceinline__ void logits_epilogue(float c[4], int col0,
-                                                int lane, int Sk, float scale,
-                                                const float* bias_row) {
-  const int t = lane & 3;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int col = col0 + 2 * t + e;
-    if (col < Sk) {
-      const float b = bias_row ? bias_row[col] : 0.f;
-      c[e] = c[e] * scale + b;
-      c[2 + e] = c[2 + e] * scale + b;
-    } else {
-      c[e] = -INFINITY;
-      c[2 + e] = -INFINITY;
-    }
-  }
 }
 
 // Two bf16 values of the fp32 accumulator pair (c0, c1) scaled by s, stored
@@ -646,6 +613,82 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters (sm_90): rank, the cluster-wide barrier and stores
+// into a peer CTA's shared memory (distributed shared memory).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives, then waits; a thread
+// alternates the two. The release / acquire pair orders each thread's
+// shared-memory accesses before its arrival against every access after
+// the wait, cluster-wide.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` in the CTA of cluster rank `rank`.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  return remote;
+}
+
+// Stores v at the same shared address in the CTA of cluster rank `rank`.
+__device__ __forceinline__ void st_peer(float* p, uint32_t rank, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(peer_addr(p, rank)),
+               "f"(v)
+               : "memory");
+}
+
+// One arrival, with release at cluster scope, on the mbarrier at the
+// shared::cluster address `addr` (a peer CTA's, from peer_addr): the
+// arriving thread's earlier shared-memory accesses, remote stores included,
+// happen before the phase it completes is observed.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          addr)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: after it, what the arrivals of
+// the completed phase released (from any CTA of the cluster) is visible.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+}
+
+// Four floats stored asynchronously at the shared::cluster address `addr`
+// (16-byte aligned, in a peer CTA), their 16 bytes reported to that CTA's
+// mbarrier at `bar` (complete_tx, as a TMA copy reports): the storing
+// thread does not wait for them.
+__device__ __forceinline__ void st_async_v4(uint32_t addr, const float* v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
       : "memory");
 }
 

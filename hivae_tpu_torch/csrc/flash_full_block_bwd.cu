@@ -327,8 +327,8 @@ full_block_bwd_kernel(const FbbArgs a) {
     fbb_dkv<D>(a, smem_raw, blockIdx.x - a.nqb);
 }
 
-// delta = rowsum(dO * O) in fp32 and 1/l for every row: 8 lanes a row,
-// 16-byte loads of both bf16 rows, a 3-step shuffle sum.
+// delta = rowsum(dO * O) in fp32 (row_delta: 8 lanes a row, 16-byte loads
+// of both bf16 rows) and 1/l for every row.
 constexpr int DELTA_THREADS = 256;
 
 template <int D>
@@ -339,32 +339,8 @@ full_block_delta_kernel(const bf16* __restrict__ dout,
                         float* __restrict__ inv_l, int H, int Sq, long rows,
                         Rows sdo, Rows so) {
   const long row = ((long)blockIdx.x * DELTA_THREADS + threadIdx.x) >> 3;
-  const int sub = threadIdx.x & 7;
-  const bool valid = row < rows;
-  float acc = 0.f;
-  if (valid) {
-    const int s = (int)(row % Sq), h = (int)(row / Sq % H), b = (int)(row / Sq / H);
-    const bf16* dp = head_ptr(dout, sdo, b, h) + s * sdo.s;
-    const bf16* op = head_ptr(out, so, b, h) + s * so.s;
-#pragma unroll
-    for (int c = sub * 8; c < D; c += 64) {
-      const uint4 x = *reinterpret_cast<const uint4*>(dp + c);
-      const uint4 y = *reinterpret_cast<const uint4*>(op + c);
-      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
-      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 xf = __bfloat1622float2(xp[e]);
-        const float2 yf = __bfloat1622float2(yp[e]);
-        acc = fmaf(xf.x, yf.x, acc);
-        acc = fmaf(xf.y, yf.y, acc);
-      }
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-  if (valid && sub == 0) {
+  const float acc = row_delta<D>(dout, out, row, rows, H, Sq, sdo, so);
+  if (row < rows && (threadIdx.x & 7) == 0) {
     delta[row] = acc;
     inv_l[row] = __frcp_rn(l[row]);
   }

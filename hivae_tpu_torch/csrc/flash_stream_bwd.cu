@@ -1,407 +1,959 @@
-// Streaming attention backward for Hopper (sm_90a): two kernels, one for dQ
-// and one for dK and dV, bf16 in and out, fp32 accumulation, from the
-// forward's per-row LSE and delta = rowsum(dO * O) (FlashAttention-2).
+// Streaming attention backward for Hopper (sm_90a): a kernel for dQ, one
+// for dK and dV, and a pre-pass for delta = rowsum(dO * O), bf16 in and
+// out, fp32 accumulation, from the forward's natural-log LSE
+// (FlashAttention-2).
 //
 // Replaces hivae_tpu/ops/pallas/flash_attention.py::_stream_dq_kernel and
 // ::_stream_dkv_kernel (driven by stream_bwd): P = exp(s - lse);
 // dP = dO . V^T; dS = P * (dP - delta); dQ = bf16(dS) . K * scale over KV
 // tiles; dV = bf16(P)^T . dO and dK = bf16(dS)^T . Q * scale over query
-// tiles.
+// tiles. The JAX package computes delta in XLA; here stream_delta_kernel
+// reads dO and O once (8 lanes a row, 16-byte loads).
 //
-// Design. On the training path these kernels run the SD-VAE decoder's
-// mid-block attention inside the perceptual loss: (B, H, S, D) =
-// (16, 1, 1024, 512). As in the forward (flash_stream.cu), D = 512 is the
-// hard part: a 16-row fp32 accumulator over all of D is 256 registers per
-// lane, and dK/dV need two of them. So each CTA of 8 warps is 2 row groups
-// x 4 D-slices of D/4 = 128 columns. Every score needs Q.K^T and dO.V^T
-// over the whole of D: each warp forms the products over its own slice,
-// the 4 partial tiles of a row group are summed through shared memory in a
-// fixed order (so the four warps hold bit-identical scores, and the sum is
-// deterministic), and each warp then multiplies P or dS by its own slice.
-//   * dQ CTA: 32 query rows; walks the KV tiles of 32 keys. Per lane: a dQ
-//     accumulator of 16 x 128 (64 registers).
-//   * dK/dV CTA: 32 keys; walks the query tiles of 32 rows. Per lane: dK and
-//     dV accumulators of 16 x 128 each (128 registers).
-// A key past Sk gives P = 0 in the dQ kernel and is never stored by the
-// dK/dV kernel; a query row past Sq has its LSE set to +inf, so its P is 0.
-// A key masked by the -1e30 bias has P = exp(-1e30 - lse) = 0 wherever
-// its row attends to any real key, so a fully masked key block adds nothing.
-// Shared memory per CTA: Q, dO, K and V tiles (32 x (D + 8) bf16 each) and
-// two sets of partial score tiles: 166 KB at D = 512, one CTA per SM.
+// Bound on the H100 SXM at the training shape (16, 1, 1024, 512), the
+// SD-VAE decoder's mid-block inside the perceptual loss: dQ does
+// 6*B*H*S^2*D = 51.5 GFLOP (0.052 ms at 989 TFLOP/s) over 4 bf16 tensors
+// plus LSE and delta (0.020 ms at 3.35 TB/s); dK/dV does 8*B*H*S^2*D =
+// 68.7 GFLOP (0.069 ms) over 6 tensors (0.030 ms). Both are bound by
+// operations.
 //
-// Bound on the H100 SXM at (16, 1, 1024, 512): dQ does 6*B*H*S^2*D = 51.5
-// GFLOP (0.052 ms at 989 TFLOP/s) over 4 bf16 tensors plus LSE and delta
-// (0.020 ms at 3.35 TB/s); dK/dV does 8*B*H*S^2*D = 68.7 GFLOP (0.069 ms)
-// over 6 tensors (0.030 ms). Both are bound by operations. These simple
-// kernels issue mma.sync from registers with one buffer per tile, and loads
-// do not overlap compute; wgmma and TMA are later work.
+// What the design has to meet. A CTA owns a block of keys (dK/dV) or
+// query rows (dQ) and walks 64-row tiles of the other side; wgmma takes 64
+// rows a warpgroup. At D = 512 the dK and dV accumulators of 64 keys are
+// 2 x 64 x 512 x 4 B = 256 KB, the whole register file of an SM (65,536 x
+// 4 B); for dQ, the resident Q and dO (128 KB) and one K and one V tile
+// (128 KB) pass the 227 KB of shared memory a block. So at D = 512 both
+// kernels run as a cluster of 2 CTAs along D: CTA rank r owns columns
+// [256 r, 256 r + 256) of every operand and output, and reads only those
+// (the split adds no load). Each forms partial products S = Q.K^T and
+// dP = dO.V^T over its half; the two 64 x 64 fp32 partials are exchanged
+// through distributed shared memory (each thread's fragments as 16-byte
+// chunks into the peer's tile at its mapa address) and each CTA adds the
+// peer's partial to its own. IEEE addition commutes, so both CTAs hold
+// bit-identical S and dP with no recomputation, and every gradient element
+// is still written by one CTA in a fixed order (no atomics: two runs give
+// the same bits). Two mbarriers a CTA carry the hand-off: `landed`
+// completes when the peer's partials are here, stored by st.async, whose
+// bytes the mbarrier counts as it counts a TMA copy's (complete_tx), so no
+// thread waits on its remote stores; `freed` when each of the peer's
+// threads has arrived (release at cluster scope) after reading what this
+// CTA stored there, which the next tile's partial overwrites (the tile is
+// single-buffered). Other versions, each timed in its own run against the
+// parent: plain remote stores with barrier.cluster took 1.11x (dQ) and
+// 1.16x (dK/dV) this one's time; the same with per-thread mbarrier arrivals
+// 1.09x and 1.08x; `freed` arrived per warp as soon as P is read 1.07x and
+// 1.06x. With the exchange compiled out (wrong values, the same work
+// otherwise) the barrier.cluster version took 0.46x and 0.80x its own
+// time; the per-thread-arrival version with only its waits compiled out
+// 0.94x and 0.94x: the remote stores held the threads, and st.async takes
+// them off.
+//
+// Two shapes of CTA (sb_split):
+//   * D = 256 and 512: 64 keys or rows a CTA and roles for its two
+//     warpgroups. WG0 forms the score tile and P, writes P as fp32 to a
+//     shared 64 x 64 tile (at D = 512 over the summed exchange tile), WG1
+//     forms dP, reads P and forms dS. dK/dV CTA: WG0 computes S^T = K.Q^T
+//     and dV += bf16(P^T) . dO, WG1 dP^T = V.dO^T and dK += bf16(dS^T) . Q,
+//     each with its accumulator of 64 x 256 (128 registers a thread). dQ
+//     CTA: WG0 computes S = Q.K^T, WG1 dP = dO.V^T and dQ += bf16(dS) . K
+//     (handing dS through shared memory to both warpgroups for half the
+//     columns each, or both forming dS from shared P and dP tiles,
+//     measured 6-8% slower). A 64 x 256 accumulator is
+//     all a warpgroup's registers can hold beside the score tile, so 64
+//     rows do not split over two warpgroups' products.
+//   * D = 64 and 128: 128 keys or rows a CTA, 64 a warpgroup; each
+//     warpgroup forms S, dP, P and dS of its own rows in registers and runs
+//     every product itself (dK and dV of 64 keys at D = 128: 64 KB), with
+//     no hand-off. The walked tile serves twice the rows; at D = 64 and
+//     128 the version with roles took 1.3-2.5x as long.
+// Both shapes share the ring (SbRing), the resident loads (sb_load_pair),
+// the gradient products (sb_grad) and the bf16 store (sb_store).
+// Products: S and dP on wgmma from shared memory (both operands 128-byte
+// swizzled, K-major); P^T, dS^T or dS as the register A operand of the
+// gradient products, whose B tile (dO, Q or K) is read MN-major from the
+// same swizzled tile.
+// Loads: K and V (dK/dV) or Q and dO (dQ) are resident; the walked tiles
+// travel by TMA into a ring of SB_STAGES slots completed on mbarriers (the
+// next tile lands while one computes), with the per-tile fp32 rows (lse and
+// delta, or the key bias) by cp.async beside them.
+//
+// Shared memory at D = 512 (per CTA, D/2 = 256 columns): two resident
+// 64 x 256 bf16 tiles (64 KB), 2 slots of two tiles (128 KB), two 64 x 64
+// fp32 exchange tiles (32 KB; P is written over the score tile once it is
+// summed) and 1 KB of alignment: 225 KB, one CTA a SM. The launch plan
+// (rows, cluster, columns, slots, bytes) is
+// flash_attention.py::_stream_bwd_plan, which the CPU tests check; the C
+// entry points refuse any other.
+//
+// Masks: a key past Sk or a query row past Sq gets P = 0 (TMA zero-fills
+// its tile rows; nothing is stored for it). A key masked by the -1e30 bias
+// has P = exp(-1e30 - lse) = 0 wherever its row attends to any real key, so
+// a fully masked key block gets no gradient. A row with no real key keeps
+// the TPU kernels' behaviour (its lse has lost the log-denominator).
 #include "attn_common.cuh"
 
 namespace hv {
 
-constexpr int SB_BQ = 32;        // query rows per tile (2 row groups of 16)
-constexpr int SB_BK = 32;        // keys per tile (2 row groups of 16)
-constexpr int SB_SLICES = 4;     // D-slices per row group
-constexpr int SB_THREADS = 256;  // 8 warps
-constexpr int SB_SLD = 32 + 4;   // leading dim of the partial-score tiles
+constexpr int SB_ROWS = 64;        // keys or query rows of a CTA with roles
+constexpr int SB_TILE = 64;        // rows of a walked tile
+constexpr int SB_NC = SB_TILE / 16;
+constexpr int SB_THREADS = 256;    // two consumer warpgroups
+constexpr int SB_STAGES = 2;       // ring slots
+constexpr int SB_SMEM_MAX = 232448;
+constexpr int HV_BAD_PLAN = -2;
+
+template <int D>
+__host__ __device__ constexpr int sb_cluster() { return D == 512 ? 2 : 1; }
+
+template <int D>
+__host__ __device__ constexpr int sb_cols() { return D / sb_cluster<D>(); }
+
+// One 128-byte-swizzled 64-row tile of this CTA's columns.
+template <int D>
+__host__ __device__ constexpr int sb_tile_bytes() {
+  return sw128_bytes<sb_cols<D>(), SB_TILE>();
+}
+
+// At D <= 128 a CTA takes 128 rows, 64 a warpgroup, and each warpgroup
+// forms its own rows' S, dP, P and dS (no hand-off); at D >= 256, 64 rows
+// shared by the two warpgroups' roles.
+template <int D>
+__host__ __device__ constexpr bool sb_split() { return D >= 256; }
+
+template <int D>
+__host__ __device__ constexpr int sb_rows() { return sb_split<D>() ? 64 : 128; }
+
+// Dynamic shared bytes from a 1024-byte aligned base (both kernels): 2
+// resident tiles of sb_rows rows, SB_STAGES slots of 2 walked tiles, and
+// with the roles one fp32 64 x 64 tile a cluster CTA.
+template <int D>
+__host__ __device__ constexpr int sb_smem_bytes() {
+  return 1024 + 2 * sw128_bytes<sb_cols<D>(), sb_rows<D>()>() +
+         2 * SB_STAGES * sb_tile_bytes<D>() +
+         (sb_split<D>() ? sb_cluster<D>() * SB_ROWS * 64 * 4 : 0);
+}
+
+// A warpgroup's 64 x 64 fp32 C fragments in shared memory, by thread: the
+// 32 values of warpgroup thread lt (0..127) at lt * 32, as 8 chunks of 4
+// (chunk k: rows g and g + 8 of columns 8k + 2t, +1), chunk k at slot
+// k ^ (lt % 8), so the 8 threads of a 16-byte access phase touch distinct
+// banks. The same thread of either warpgroup finds its own positions.
+__device__ __forceinline__ int frag_off(int lt, int k) {
+  return lt * 32 + ((k ^ (lt & 7)) << 2);
+}
+
+__device__ __forceinline__ void store_frag(float* tile, int lt,
+                                           const float (&x)[32]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    *reinterpret_cast<float4*>(tile + frag_off(lt, k)) =
+        make_float4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
+}
+
+__device__ __forceinline__ float4 load_chunk(const float* tile, int lt,
+                                             int k) {
+  return *reinterpret_cast<const float4*>(tile + frag_off(lt, k));
+}
 
 struct SbArgs {
-  const bf16 *q, *k, *v, *dout;
   const float *bias, *lse, *delta;
   bf16 *dq, *dk, *dv;
-  Rows sq, sk, sv, sdo, sdq, sdk, sdv;
+  Rows sdq, sdk, sdv;
   int H, Sq, Sk;
   float scale;
 };
 
-// Sum of the 4 D-slice partials of row group rg for this lane's C-tile
-// positions, in slice order: s[nt] becomes the full product.
-__device__ __forceinline__ void sum_slices(float s[4][4], const float* part,
-                                           int rg, int lane) {
-  const int g = lane >> 2, t = lane & 3;
+// The exchange of a 2-CTA cluster: this CTA's fp32 tiles (tile 0 of S,
+// tile 1 of dP), two mbarriers, and their peers' addresses. `landed`
+// completes when the peer's partials (32 KB, st.async with complete_tx)
+// have arrived here, `freed` (256 arrivals) when the peer's threads have
+// read what this CTA stored there.
+struct Xch {
+  uint64_t* landed;
+  uint64_t* freed;
+  uint32_t peer_tile, peer_landed, peer_freed;
+};
+
+constexpr int SB_XBYTES = 2 * 64 * 64 * 4;  // both partials of a tile
+
+// Tile j: this thread's partial x (its warpgroup's 64 x 64 fp32 C
+// fragments) into the peer's tile at its own positions (frag_off), once
+// the peer has read the previous one; then, once the peer's partials have
+// landed here, x += the peer's. Both CTAs add the same two numbers.
+__device__ __forceinline__ void exchange_add(float (&x)[32], const float* mine,
+                                             const Xch& e, int tid, int j) {
+  const int lt = tid & 127;
+  if (tid == 0) mbar_expect(e.landed, SB_XBYTES);  // this tile's phase
+  if (j > 0) mbar_wait_cluster(e.freed, (j - 1) & 1);
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+  for (int k = 0; k < 8; ++k)
+    st_async_v4(e.peer_tile + 4 * frag_off(lt, k), x + 4 * k, e.peer_landed);
+  mbar_wait_cluster(e.landed, j & 1);
 #pragma unroll
-    for (int w = 0; w < SB_SLICES; ++w) {
-      const float* ps = part + (rg * SB_SLICES + w) * 16 * SB_SLD;
-      a0 += ps[g * SB_SLD + c];
-      a1 += ps[g * SB_SLD + c + 1];
-      a2 += ps[(g + 8) * SB_SLD + c];
-      a3 += ps[(g + 8) * SB_SLD + c + 1];
+  for (int k = 0; k < 8; ++k) {
+    const float4 a = load_chunk(mine, lt, k);
+    x[4 * k] += a.x;
+    x[4 * k + 1] += a.y;
+    x[4 * k + 2] += a.z;
+    x[4 * k + 3] += a.w;
+  }
+}
+
+// P = exp(t - lse) with t = s * scale + bias, in base 2.
+__device__ __forceinline__ float sb_p(float s, float scale, float bias,
+                                      float lse) {
+  return ex2((fmaf(s, scale, bias) - lse) * LOG2E);
+}
+
+// The dynamic shared memory from its first 1024-byte boundary (the
+// 128-byte swizzle repeats every 1024 bytes).
+__device__ __forceinline__ unsigned char* sb_base(unsigned char* smem_raw) {
+  return smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+}
+
+// The mbarriers of a CTA: full[0, SB_STAGES) the ring's slots,
+// full[SB_STAGES] the resident tiles; with a cluster (xbar not null) the
+// exchange's `landed` (one arrival plus the peer's bytes) and `freed`
+// (SB_THREADS arrivals).
+__device__ __forceinline__ void sb_init(uint64_t* full, uint64_t* xbar,
+                                        int tid) {
+  if (tid == 0) {
+    for (int i = 0; i <= SB_STAGES; ++i) mbar_init(full + i, 1);
+    if (xbar) {
+      mbar_init(xbar, 1);
+      mbar_init(xbar + 1, SB_THREADS);
     }
-    s[nt][0] = a0;
-    s[nt][1] = a1;
-    s[nt][2] = a2;
-    s[nt][3] = a3;
+    mbar_fence_init();
   }
+  __syncthreads();
 }
 
-__device__ __forceinline__ void store_partial(float* my, const float s[4][4],
-                                              int lane) {
-  const int g = lane >> 2, t = lane & 3;
+// Rows [r0, r0 + ROWS) and this CTA's DC columns from c0 of the tensor maps
+// m0 and m1 into two swizzled ROWS-row tiles at dst and right after it, by
+// TMA completing on bar, 64-row boxes (thread 0 only): the resident tiles
+// (ROWS = sb_rows) or one ring job (ROWS = SB_TILE).
+template <int DC, int ROWS>
+__device__ __forceinline__ void sb_load_pair(unsigned char* dst,
+                                             const CUtensorMap* m0,
+                                             const CUtensorMap* m1,
+                                             uint64_t* bar, int c0, int r0,
+                                             int h, int b) {
+  constexpr int TB = sw128_bytes<DC, ROWS>();
+  mbar_expect(bar, 2 * TB);
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int c = nt * 8 + 2 * t;
-    my[g * SB_SLD + c] = s[nt][0];
-    my[g * SB_SLD + c + 1] = s[nt][1];
-    my[(g + 8) * SB_SLD + c] = s[nt][2];
-    my[(g + 8) * SB_SLD + c + 1] = s[nt][3];
-  }
-}
-
-// Partial products over this warp's D-slice: s = A1 . B1^T and
-// dp = A2 . B2^T for the 16 rows r0.. of A (row-major tiles A1, A2) and the
-// 32 rows of B (row-major tiles B1, B2).
-template <int D>
-__device__ __forceinline__ void slice_products(float s[4][4], float dp[4][4],
-                                               const bf16* A1, const bf16* A2,
-                                               const bf16* B1, const bf16* B2,
-                                               int r0, int c0, int lane) {
-  constexpr int LD = D + 8;
-  constexpr int KS = D / SB_SLICES / 16;
+  for (int c = 0; c < DC / 64; ++c)
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] =
-        dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    uint32_t a1[4], a2[4];
-    load_a(a1, A1, LD, r0, c0 + kk * 16, lane);
-    load_a(a2, A2, LD, r0, c0 + kk * 16, lane);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      uint32_t b1[2], b2[2];
-      load_b_nk(b1, B1, LD, nt * 8, c0 + kk * 16, lane);
-      mma16816(s[nt], a1, b1);
-      load_b_nk(b2, B2, LD, nt * 8, c0 + kk * 16, lane);
-      mma16816(dp[nt], a2, b2);
+    for (int half = 0; half < ROWS / 64; ++half) {
+      const int off = c * ROWS * 128 + half * 64 * 128;
+      tma_load_4d(dst + off, m0, bar, c0 + c * 64, r0 + 64 * half, h, b);
+      tma_load_4d(dst + TB + off, m1, bar, c0 + c * 64, r0 + 64 * half, h, b);
     }
-  }
 }
 
+// The walked side of a CTA: a ring of SB_STAGES slots, each two 64-row
+// tiles (of maps m0 and m1, this CTA's DC columns from c0) that travel by
+// TMA onto full[slot], with up to two fp32 rows (src0, src1, n long; null
+// for none) that travel by cp.async into rows[slot] beside them.
+template <int DC>
+struct SbRing {
+  static constexpr int TB = sw128_bytes<DC, SB_TILE>();
+  unsigned char* slots;
+  uint64_t* full;
+  float (*rows)[2][SB_TILE];
+  const CUtensorMap *m0, *m1;
+  const float *src0, *src1;
+  int jobs, n, c0, h, b;
+
+  __device__ unsigned char* slot(int i) const {
+    return slots + (i % SB_STAGES) * 2 * TB;
+  }
+  // Job i, one cp.async commit group (an empty one past the last job keeps
+  // the count).
+  __device__ void issue(int i, int tid) const {
+    if (i < jobs) {
+      const int st = i % SB_STAGES;
+      if (tid == 0)
+        sb_load_pair<DC, SB_TILE>(slot(i), m0, m1, full + st, c0,
+                                  i * SB_TILE, h, b);
+      if (src0)
+        load_row_f32<SB_TILE, SB_THREADS>(rows[st][0], src0, i * SB_TILE, n,
+                                          tid);
+      if (src1)
+        load_row_f32<SB_TILE, SB_THREADS>(rows[st][1], src1, i * SB_TILE, n,
+                                          tid);
+    }
+    ring_commit();
+  }
+  __device__ void start(int tid) const {
+    for (int i = 0; i < SB_STAGES - 1; ++i) issue(i, tid);
+  }
+  // Waits for job i (its tiles, and this thread's share of its rows), then,
+  // with job i-1's slot free behind a CTA barrier, issues job
+  // i + SB_STAGES - 1; returns job i's slot.
+  __device__ const unsigned char* next(int i, int tid) const {
+    ring_wait_upto(SB_STAGES - 2);
+    mbar_wait(full + i % SB_STAGES, (i / SB_STAGES) & 1);
+    __syncthreads();
+    issue(i + SB_STAGES - 1, tid);
+    return slot(i);
+  }
+};
+
+template <int NB>
+__device__ __forceinline__ void zero_acc(float (&acc)[NB][32]) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[nb][e] = 0.f;
+}
+
+template <int NB>
+__device__ __forceinline__ void fence_acc(float (&acc)[NB][32]) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+}
+
+// A warpgroup's 64 x 64 fp32 C tile x as the register A operand of a
+// gradient product: 4 chunks of 16 columns in bf16.
+__device__ __forceinline__ void sb_frags(uint32_t (&fr)[SB_NC][4],
+                                         const float (&x)[32]) {
+#pragma unroll
+  for (int c = 0; c < SB_NC; ++c) c_to_a(fr[c], x + 8 * c, x + 8 * c + 4);
+}
+
+// acc += bf16(x) . B issued on wgmma, B the walked 64-row tile at Bt read
+// MN-major: its 64-column block nb, 16-row chunk c at nb * 64 rows * 128 +
+// c * 2048. The caller fences, commits and waits.
+template <int NB>
+__device__ __forceinline__ void sb_grad_issue(float (&acc)[NB][32],
+                                              const uint32_t (&fr)[SB_NC][4],
+                                              const unsigned char* Bt) {
+#pragma unroll
+  for (int c = 0; c < SB_NC; ++c)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      wgmma_rs64(acc[nb], fr[c],
+                 desc_sw128_mn(Bt + nb * SB_TILE * 128 + c * 2048,
+                               SB_TILE * 128));
+}
+
+// acc += bf16(x) . B (sb_grad_issue), waited for: the slot holding B is
+// overwritten after the next CTA barrier.
+template <int NB>
+__device__ __forceinline__ void sb_grad(float (&acc)[NB][32],
+                                        const float (&x)[32],
+                                        const unsigned char* Bt) {
+  uint32_t fr[SB_NC][4];
+  sb_frags(fr, x);
+  fence_acc(acc);
+  wgmma_fence();
+  sb_grad_issue(acc, fr, Bt);
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_acc(acc);
+#pragma unroll
+  for (int c = 0; c < SB_NC; ++c) fence_regs(fr[c]);
+}
+
+// A warpgroup's NB 64-column blocks of fp32 accumulators times sc, as bf16
+// into p (rows rs elements apart) from column c0: its rows r0 and r1 (those
+// of this thread's fragments), each where v0 or v1.
+template <int NB>
+__device__ __forceinline__ void sb_store(bf16* p, long rs,
+                                         const float (&acc)[NB][32], int r0,
+                                         bool v0, int r1, bool v1, int c0,
+                                         int t, float sc) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      const int col = c0 + nb * 64 + jn * 8 + 2 * t;
+      const float* x = acc[nb] + 4 * jn;
+      if (v0) store_bf16x2(p + (long)r0 * rs + col, x[0], x[1], sc);
+      if (v1) store_bf16x2(p + (long)r1 * rs + col, x[2], x[3], sc);
+    }
+}
+
+// The tensor maps: q, k, v and dout as (D, S, H, B) arrays, boxes of 64
+// columns x 64 rows, 128-byte swizzled.
 template <int D>
-__global__ void __launch_bounds__(SB_THREADS)
-stream_bwd_dq_kernel(const SbArgs a) {
-  constexpr int LD = D + 8;
-  constexpr int DS = D / SB_SLICES;
-  constexpr int DT = DS / 8;
+__global__ void __launch_bounds__(SB_THREADS, 1)
+stream_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const SbArgs a) {
+  constexpr int CL = sb_cluster<D>(), DC = sb_cols<D>(), NB = DC / 64;
+  constexpr int TB = sb_tile_bytes<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Os = Qs + SB_BQ * LD;
-  bf16* Ks = Os + SB_BQ * LD;
-  bf16* Vs = Ks + SB_BK * LD;
-  float* Sp = reinterpret_cast<float*>(Vs + SB_BK * LD);  // [8][16][SLD]
-  float* Dp = Sp + (SB_THREADS / 32) * 16 * SB_SLD;
+  __shared__ uint64_t full[SB_STAGES + 1];  // slots' jobs, then K and V
+  __shared__ uint64_t xbar[2];  // the exchange's landed and freed
+  __shared__ float rows[SB_STAGES][2][SB_TILE];  // lse, delta of a slot
+  unsigned char* base = sb_base(smem_raw);
+  const bf16* Ks = reinterpret_cast<const bf16*>(base);
+  const bf16* Vs = reinterpret_cast<const bf16*>(base + TB);
+  // tile 0: S^T (the peer's partial, then P^T); tile 1 (cluster): dP^T
+  float* X = reinterpret_cast<float*>(base + 2 * TB + 2 * SB_STAGES * TB);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, rw = (warp & 3) * 16;
   const int g = lane >> 2, t = lane & 3;
-  const int rg = warp / SB_SLICES, sl = warp % SB_SLICES;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * SB_BQ;
-  const bf16* kp = head_ptr(a.k, a.sk, b, h);
-  const bf16* vp = head_ptr(a.v, a.sv, b, h);
-  const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
-
-  load_tile<D, SB_BQ, SB_THREADS>(Qs, LD, head_ptr(a.q, a.sq, b, h), a.sq.s,
-                                  q0, a.Sq, tid);
-  load_tile<D, SB_BQ, SB_THREADS>(Os, LD, head_ptr(a.dout, a.sdo, b, h),
-                                  a.sdo.s, q0, a.Sq, tid);
-  const int r0 = q0 + rg * 16 + g, r1 = r0 + 8;
+  const uint32_t rank = CL > 1 ? cluster_rank() : 0;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = (blockIdx.x / CL) * SB_ROWS;
+  const int c0 = rank * DC;  // first column of this CTA's slice of D
   const long rb = ((long)b * a.H + h) * a.Sq;
-  const float lse0 = r0 < a.Sq ? a.lse[rb + r0] : INFINITY;
-  const float lse1 = r1 < a.Sq ? a.lse[rb + r1] : INFINITY;
-  const float d0 = r0 < a.Sq ? a.delta[rb + r0] : 0.f;
-  const float d1 = r1 < a.Sq ? a.delta[rb + r1] : 0.f;
+  const int nqt = (a.Sq + SB_TILE - 1) / SB_TILE;
+  float* mine = X + (CL > 1 ? wg : 0) * SB_ROWS * 64;
+  Xch xch{xbar, xbar + 1, 0, 0, 0};
+  if constexpr (CL > 1)
+    xch = Xch{xbar, xbar + 1, peer_addr(mine, rank ^ 1),
+              peer_addr(xbar, rank ^ 1), peer_addr(xbar + 1, rank ^ 1)};
+  // job i: Q and dO tile i and their lse and delta rows
+  const SbRing<DC> ring{base + 2 * TB, full, rows, &tq, &tdo, a.lse + rb,
+                        a.delta + rb, nqt, a.Sq, c0, h, b};
 
-  float acc[DT][4];
+  sb_init(full, CL > 1 ? xbar : nullptr, tid);
+  if (tid == 0)
+    sb_load_pair<DC, SB_ROWS>(base, &tk, &tv, full + SB_STAGES, c0, k0, h, b);
+  ring.start(tid);
+  if constexpr (CL > 1) {  // the peer runs and its mbarriers are set up
+    cluster_arrive();
+    cluster_wait();
+  }
+  const int kr0 = k0 + rw + g, kr1 = kr0 + 8;
+  const bool kv0 = kr0 < a.Sk, kv1 = kr1 < a.Sk;
+  const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
+  const float bk0 = brow && kv0 ? brow[kr0] : 0.f;
+  const float bk1 = brow && kv1 ? brow[kr1] : 0.f;
+  mbar_wait(full + SB_STAGES, 0);
+
+  float acc[NB][32];  // WG0: dV, WG1: dK (this CTA's columns)
+  zero_acc(acc);
+
+  for (int i = 0; i < nqt; ++i) {
+    const int st = i % SB_STAGES;
+    const unsigned char* sl = ring.next(i, tid);
+    const bf16* Qt = reinterpret_cast<const bf16*>(sl);
+    const bf16* Ot = reinterpret_cast<const bf16*>(sl + TB);
+
+    // WG0: S^T = K.Q^T; WG1: dP^T = V.dO^T (rows keys, columns queries)
+    float x[32];
+    if (wg == 0)
+      wgmma_qk<DC, 64, SB_ROWS, SB_TILE>(x, Ks, 0, Qt);
+    else
+      wgmma_qk<DC, 64, SB_ROWS, SB_TILE>(x, Vs, 0, Ot);
+    if constexpr (CL > 1) exchange_add(x, mine, xch, tid, i);
+
+    const float* lse = rows[st][0];
+    const float* dlt = rows[st][1];
+    if (wg == 0) {
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  float* my_sp = Sp + warp * 16 * SB_SLD;
-  float* my_dp = Dp + warp * 16 * SB_SLD;
-
-  const int nkt = (a.Sk + SB_BK - 1) / SB_BK;
-  for (int j = 0; j < nkt; ++j) {
-    __syncthreads();  // the previous tile's K, V and partials are consumed
-    load_tile<D, SB_BK, SB_THREADS>(Ks, LD, kp, a.sk.s, j * SB_BK, a.Sk, tid);
-    load_tile<D, SB_BK, SB_THREADS>(Vs, LD, vp, a.sv.s, j * SB_BK, a.Sk, tid);
-    tile_barrier();
-
-    float s[4][4], dp[4][4];
-    slice_products<D>(s, dp, Qs, Os, Ks, Vs, rg * 16, sl * DS, lane);
-    store_partial(my_sp, s, lane);
-    store_partial(my_dp, dp, lane);
-    __syncthreads();
-    sum_slices(s, Sp, rg, lane);
-    sum_slices(dp, Dp, rg, lane);
-
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      logits_epilogue(s[nt], j * SB_BK + nt * 8, lane, a.Sk, a.scale, brow);
-      s[nt][0] = expf(s[nt][0] - lse0) * (dp[nt][0] - d0);
-      s[nt][1] = expf(s[nt][1] - lse0) * (dp[nt][1] - d0);
-      s[nt][2] = expf(s[nt][2] - lse1) * (dp[nt][2] - d1);
-      s[nt][3] = expf(s[nt][3] - lse1) * (dp[nt][3] - d1);
+        for (int e = 0; e < 2; ++e) {
+          const int qc = 8 * j + 2 * t + e;
+          const bool qv = i * SB_TILE + qc < a.Sq;
+          x[4 * j + e] =
+              qv && kv0 ? sb_p(x[4 * j + e], a.scale, bk0, lse[qc]) : 0.f;
+          x[4 * j + 2 + e] =
+              qv && kv1 ? sb_p(x[4 * j + 2 + e], a.scale, bk1, lse[qc]) : 0.f;
+        }
+      }
+      store_frag(X, tid & 127, x);
     }
+    __syncthreads();  // P^T is in tile 0
+    if (wg == 1) {
 #pragma unroll
-    for (int kk = 0; kk < SB_BK / 16; ++kk) {
-      uint32_t dsa[4];
-      c_to_a(dsa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t bk[2];
-        load_b_kn(bk, Ks, LD, kk * 16, sl * DS + dt * 8, lane);
-        mma16816(acc[dt], dsa, bk);
+      for (int j = 0; j < 8; ++j) {
+        const int qc = 8 * j + 2 * t;
+        const float4 p = load_chunk(X, tid & 127, j);
+        x[4 * j] = p.x * (x[4 * j] - dlt[qc]);
+        x[4 * j + 1] = p.y * (x[4 * j + 1] - dlt[qc + 1]);
+        x[4 * j + 2] = p.z * (x[4 * j + 2] - dlt[qc]);
+        x[4 * j + 3] = p.w * (x[4 * j + 3] - dlt[qc + 1]);
       }
     }
-  }
 
-  bf16* dqp = head_ptr(a.dq, a.sdq, b, h);
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = sl * DS + dt * 8 + 2 * t;
-    if (r0 < a.Sq) store_bf16x2(dqp + (long)r0 * a.sdq.s + col, acc[dt][0], acc[dt][1], a.scale);
-    if (r1 < a.Sq) store_bf16x2(dqp + (long)r1 * a.sdq.s + col, acc[dt][2], acc[dt][3], a.scale);
+    // WG0: dV += bf16(P^T) . dO; WG1: dK += bf16(dS^T) . Q
+    sb_grad(acc, x, wg == 0 ? sl + TB : sl);
+    if constexpr (CL > 1) mbar_arrive_remote(xch.peer_freed);  // read all
   }
+  ring_wait_upto(0);
+  // no CTA exits while its peer may still arrive on its mbarriers
+  if constexpr (CL > 1) mbar_wait_cluster(xch.freed, (nqt - 1) & 1);
+
+  if (wg == 0)
+    sb_store(head_ptr(a.dv, a.sdv, b, h), a.sdv.s, acc, kr0, kv0, kr1, kv1,
+             c0, t, 1.f);
+  else
+    sb_store(head_ptr(a.dk, a.sdk, b, h), a.sdk.s, acc, kr0, kv0, kr1, kv1,
+             c0, t, a.scale);
 }
 
 template <int D>
-__global__ void __launch_bounds__(SB_THREADS)
-stream_bwd_dkv_kernel(const SbArgs a) {
-  constexpr int LD = D + 8;
-  constexpr int DS = D / SB_SLICES;
-  constexpr int DT = DS / 8;
+__global__ void __launch_bounds__(SB_THREADS, 1)
+stream_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const SbArgs a) {
+  constexpr int CL = sb_cluster<D>(), DC = sb_cols<D>(), NB = DC / 64;
+  constexpr int TB = sb_tile_bytes<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = Ks + SB_BK * LD;
-  bf16* Qs = Vs + SB_BK * LD;
-  bf16* Os = Qs + SB_BQ * LD;
-  float* Sp = reinterpret_cast<float*>(Os + SB_BQ * LD);
-  float* Dp = Sp + (SB_THREADS / 32) * 16 * SB_SLD;
-  float* st_lse = Dp + (SB_THREADS / 32) * 16 * SB_SLD;
-  float* st_d = st_lse + SB_BQ;
+  __shared__ uint64_t full[SB_STAGES + 1];  // slots' jobs, then Q and dO
+  __shared__ uint64_t xbar[2];  // the exchange's landed and freed
+  __shared__ float rows[SB_STAGES][2][SB_TILE];  // a slot's key bias
+  unsigned char* base = sb_base(smem_raw);
+  const bf16* Qs = reinterpret_cast<const bf16*>(base);
+  const bf16* Os = reinterpret_cast<const bf16*>(base + TB);
+  // tile 0: S (the peer's partial, then P); tile 1 (cluster): dP
+  float* X = reinterpret_cast<float*>(base + 2 * TB + 2 * SB_STAGES * TB);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, rw = (warp & 3) * 16;
   const int g = lane >> 2, t = lane & 3;
-  const int rg = warp / SB_SLICES, sl = warp % SB_SLICES;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * SB_BK;
-  const bf16* qp = head_ptr(a.q, a.sq, b, h);
-  const bf16* op = head_ptr(a.dout, a.sdo, b, h);
-  const long rb = ((long)b * a.H + h) * a.Sq;
+  const uint32_t rank = CL > 1 ? cluster_rank() : 0;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = (blockIdx.x / CL) * SB_ROWS;
+  const int c0 = rank * DC;
+  const int nkt = (a.Sk + SB_TILE - 1) / SB_TILE;
+  const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
+  float* mine = X + (CL > 1 ? wg : 0) * SB_ROWS * 64;
+  Xch xch{xbar, xbar + 1, 0, 0, 0};
+  if constexpr (CL > 1)
+    xch = Xch{xbar, xbar + 1, peer_addr(mine, rank ^ 1),
+              peer_addr(xbar, rank ^ 1), peer_addr(xbar + 1, rank ^ 1)};
+  // job j: K and V tile j and its bias row
+  const SbRing<DC> ring{base + 2 * TB, full, rows, &tk, &tv, brow, nullptr,
+                        nkt, a.Sk, c0, h, b};
 
-  load_tile<D, SB_BK, SB_THREADS>(Ks, LD, head_ptr(a.k, a.sk, b, h), a.sk.s,
-                                  k0, a.Sk, tid);
-  load_tile<D, SB_BK, SB_THREADS>(Vs, LD, head_ptr(a.v, a.sv, b, h), a.sv.s,
-                                  k0, a.Sk, tid);
-  const int kr0 = k0 + rg * 16 + g, kr1 = kr0 + 8;
-  const bool kv0 = kr0 < a.Sk, kv1 = kr1 < a.Sk;
-  const float bk0 = kv0 && a.bias ? a.bias[(long)b * a.Sk + kr0] : 0.f;
-  const float bk1 = kv1 && a.bias ? a.bias[(long)b * a.Sk + kr1] : 0.f;
-
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    dka[dt][0] = dka[dt][1] = dka[dt][2] = dka[dt][3] = 0.f;
-    dva[dt][0] = dva[dt][1] = dva[dt][2] = dva[dt][3] = 0.f;
+  sb_init(full, CL > 1 ? xbar : nullptr, tid);
+  if (tid == 0)
+    sb_load_pair<DC, SB_ROWS>(base, &tq, &tdo, full + SB_STAGES, c0, q0, h,
+                              b);
+  ring.start(tid);
+  if constexpr (CL > 1) {  // the peer runs and its mbarriers are set up
+    cluster_arrive();
+    cluster_wait();
   }
-  float* my_sp = Sp + warp * 16 * SB_SLD;
-  float* my_dp = Dp + warp * 16 * SB_SLD;
+  const int r0 = q0 + rw + g, r1 = r0 + 8;
+  const long rb = ((long)b * a.H + h) * a.Sq;
+  // WG0 needs each row's lse, WG1 its delta
+  const float* stat = wg == 0 ? a.lse : a.delta;
+  const float st0 = r0 < a.Sq ? stat[rb + r0] : 0.f;
+  const float st1 = r1 < a.Sq ? stat[rb + r1] : 0.f;
+  mbar_wait(full + SB_STAGES, 0);
 
-  const int nqt = (a.Sq + SB_BQ - 1) / SB_BQ;
-  for (int i = 0; i < nqt; ++i) {
-    __syncthreads();  // the previous Q/dO tile, partials and stats are consumed
-    load_tile<D, SB_BQ, SB_THREADS>(Qs, LD, qp, a.sq.s, i * SB_BQ, a.Sq, tid);
-    load_tile<D, SB_BQ, SB_THREADS>(Os, LD, op, a.sdo.s, i * SB_BQ, a.Sq, tid);
-    if (tid < SB_BQ) {
-      const int r = i * SB_BQ + tid;
-      st_lse[tid] = r < a.Sq ? a.lse[rb + r] : INFINITY;
-      st_d[tid] = r < a.Sq ? a.delta[rb + r] : 0.f;
-    }
-    tile_barrier();
+  float acc[NB][32];  // WG1: dQ (this CTA's columns)
+  zero_acc(acc);
 
-    // transposed tiles: rows are this row group's keys, columns queries
-    float s[4][4], dp[4][4];
-    slice_products<D>(s, dp, Ks, Vs, Qs, Os, rg * 16, sl * DS, lane);
-    store_partial(my_sp, s, lane);
-    store_partial(my_dp, dp, lane);
-    __syncthreads();
-    sum_slices(s, Sp, rg, lane);
-    sum_slices(dp, Dp, rg, lane);
+  for (int j = 0; j < nkt; ++j) {
+    const int st = j % SB_STAGES;
+    const unsigned char* sl = ring.next(j, tid);
+    const bf16* Kt = reinterpret_cast<const bf16*>(sl);
+    const bf16* Vt = reinterpret_cast<const bf16*>(sl + TB);
 
+    // WG0: S = Q.K^T; WG1: dP = dO.V^T
+    float x[32];
+    if (wg == 0)
+      wgmma_qk<DC, 64, SB_ROWS, SB_TILE>(x, Qs, 0, Kt);
+    else
+      wgmma_qk<DC, 64, SB_ROWS, SB_TILE>(x, Os, 0, Vt);
+    if constexpr (CL > 1) exchange_add(x, mine, xch, tid, j);
+
+    if (wg == 0) {
+      const float* bs = rows[st][0];
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
+      for (int u = 0; u < 8; ++u) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kc = 8 * u + 2 * t + e;
+          const bool kv = j * SB_TILE + kc < a.Sk;
+          const float bb = brow ? bs[kc] : 0.f;
+          x[4 * u + e] = kv ? sb_p(x[4 * u + e], a.scale, bb, st0) : 0.f;
+          x[4 * u + 2 + e] = kv ? sb_p(x[4 * u + 2 + e], a.scale, bb, st1) : 0.f;
+        }
+      }
+      store_frag(X, tid & 127, x);
+    }
+    __syncthreads();  // P is in tile 0
+    if (wg == 1) {
+      // dS = P (dP - delta); dQ += bf16(dS) . K, K read MN-major
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float4 p = load_chunk(X, tid & 127, u);
+        x[4 * u] = p.x * (x[4 * u] - st0);
+        x[4 * u + 1] = p.y * (x[4 * u + 1] - st0);
+        x[4 * u + 2] = p.z * (x[4 * u + 2] - st1);
+        x[4 * u + 3] = p.w * (x[4 * u + 3] - st1);
+      }
+      sb_grad(acc, x, sl);
+    }
+    if constexpr (CL > 1) mbar_arrive_remote(xch.peer_freed);  // read all
+  }
+  ring_wait_upto(0);
+  // no CTA exits while its peer may still arrive on its mbarriers
+  if constexpr (CL > 1) mbar_wait_cluster(xch.freed, (nkt - 1) & 1);
+
+  if (wg == 1)
+    sb_store(head_ptr(a.dq, a.sdq, b, h), a.sdq.s, acc, r0, r0 < a.Sq, r1,
+             r1 < a.Sq, c0, t, a.scale);
+}
+
+// Both products of a warpgroup's 64 rows against a walked 64-row tile,
+// over D: d1 = A1.B1^T and d2 = A2.B2^T (A tiles of AROWS rows from row
+// a_row0, swizzled K-major, as wgmma_qk), issued together, then waited for.
+template <int D, int AROWS>
+__device__ __forceinline__ void wgmma_qk2(float (&d1)[32], const bf16* A1,
+                                          const bf16* B1, float (&d2)[32],
+                                          const bf16* A2, const bf16* B2,
+                                          int a_row0) {
+  const unsigned char* a1 = reinterpret_cast<const unsigned char*>(A1) + a_row0 * 128;
+  const unsigned char* a2 = reinterpret_cast<const unsigned char*>(A2) + a_row0 * 128;
+  const unsigned char* b1 = reinterpret_cast<const unsigned char*>(B1);
+  const unsigned char* b2 = reinterpret_cast<const unsigned char*>(B2);
+  fence_regs(d1);
+  fence_regs(d2);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int ao = (kk / 4) * AROWS * 128 + (kk % 4) * 32;
+    const int bo = (kk / 4) * SB_TILE * 128 + (kk % 4) * 32;
+    wgmma_ss<64>(d1, desc_sw128(a1 + ao), desc_sw128(b1 + bo), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int ao = (kk / 4) * AROWS * 128 + (kk % 4) * 32;
+    const int bo = (kk / 4) * SB_TILE * 128 + (kk % 4) * 32;
+    wgmma_ss<64>(d2, desc_sw128(a2 + ao), desc_sw128(b2 + bo), kk > 0);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(d1);
+  fence_regs(d2);
+}
+
+// dK/dV at D <= 128: 128 keys a CTA, warpgroup w owns keys 64 w.. and
+// forms S^T, dP^T, P^T and dS^T of them itself, then dV += bf16(P^T) . dO
+// and dK += bf16(dS^T) . Q, all in registers.
+template <int D>
+__global__ void __launch_bounds__(SB_THREADS, 1)
+stream_bwd_dkv_rows_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const SbArgs a) {
+  constexpr int NB = D / 64, TB = sw128_bytes<D, SB_TILE>();
+  constexpr int OB = sw128_bytes<D, 128>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t full[SB_STAGES + 1];  // slots' jobs, then K and V
+  __shared__ float rows[SB_STAGES][2][SB_TILE];  // lse, delta of a slot
+  unsigned char* base = sb_base(smem_raw);
+  const bf16* Ks = reinterpret_cast<const bf16*>(base);
+  const bf16* Vs = reinterpret_cast<const bf16*>(base + OB);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, rw = (warp & 3) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * 128;
+  const long rb = ((long)b * a.H + h) * a.Sq;
+  const int nqt = (a.Sq + SB_TILE - 1) / SB_TILE;
+  const SbRing<D> ring{base + 2 * OB, full, rows, &tq, &tdo, a.lse + rb,
+                       a.delta + rb, nqt, a.Sq, 0, h, b};
+
+  sb_init(full, nullptr, tid);
+  if (tid == 0)
+    sb_load_pair<D, 128>(base, &tk, &tv, full + SB_STAGES, 0, k0, h, b);
+  ring.start(tid);
+  const int kr0 = k0 + 64 * wg + rw + g, kr1 = kr0 + 8;
+  const bool kv0 = kr0 < a.Sk, kv1 = kr1 < a.Sk;
+  const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
+  const float bk0 = brow && kv0 ? brow[kr0] : 0.f;
+  const float bk1 = brow && kv1 ? brow[kr1] : 0.f;
+  mbar_wait(full + SB_STAGES, 0);
+
+  float dva[NB][32], dka[NB][32];
+  zero_acc(dva);
+  zero_acc(dka);
+
+  for (int i = 0; i < nqt; ++i) {
+    const int st = i % SB_STAGES;
+    const unsigned char* sl = ring.next(i, tid);
+    const bf16* Qt = reinterpret_cast<const bf16*>(sl);
+    const bf16* Ot = reinterpret_cast<const bf16*>(sl + TB);
+
+    float s[32], dp[32];  // S^T = K.Q^T and dP^T = V.dO^T of this WG's keys
+    wgmma_qk2<D, 128>(s, Ks, Qt, dp, Vs, Ot, 64 * wg);
+    const float* lse = rows[st][0];
+    const float* dlt = rows[st][1];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int qc = nt * 8 + 2 * t + e;
-        const float lq = st_lse[qc], dlt = st_d[qc];
-        const float p0 = kv0 ? expf(s[nt][e] * a.scale + bk0 - lq) : 0.f;
-        const float p1 = kv1 ? expf(s[nt][2 + e] * a.scale + bk1 - lq) : 0.f;
-        s[nt][e] = p0;
-        s[nt][2 + e] = p1;
-        dp[nt][e] = p0 * (dp[nt][e] - dlt);
-        dp[nt][2 + e] = p1 * (dp[nt][2 + e] - dlt);
+        const int qc = 8 * j + 2 * t + e;
+        const bool qv = i * SB_TILE + qc < a.Sq;
+        const float p0 = qv && kv0 ? sb_p(s[4 * j + e], a.scale, bk0, lse[qc]) : 0.f;
+        const float p1 = qv && kv1 ? sb_p(s[4 * j + 2 + e], a.scale, bk1, lse[qc]) : 0.f;
+        s[4 * j + e] = p0;
+        s[4 * j + 2 + e] = p1;
+        dp[4 * j + e] = p0 * (dp[4 * j + e] - dlt[qc]);
+        dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dlt[qc]);
       }
-    }
+    // dV += bf16(P^T) . dO and dK += bf16(dS^T) . Q in one commit group
+    uint32_t fp[SB_NC][4], fd[SB_NC][4];
+    sb_frags(fp, s);
+    sb_frags(fd, dp);
+    fence_acc(dva);
+    fence_acc(dka);
+    wgmma_fence();
+    sb_grad_issue(dva, fp, sl + TB);
+    sb_grad_issue(dka, fd, sl);
+    wgmma_commit();
+    wgmma_wait_all();  // the slot is overwritten after the next barrier
+    fence_acc(dva);
+    fence_acc(dka);
 #pragma unroll
-    for (int kk = 0; kk < SB_BQ / 16; ++kk) {
-      uint32_t pa[4], dsa[4];
-      c_to_a(pa, s[2 * kk], s[2 * kk + 1]);
-      c_to_a(dsa, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        uint32_t bo[2], bq[2];
-        load_b_kn(bo, Os, LD, kk * 16, sl * DS + dt * 8, lane);
-        mma16816(dva[dt], pa, bo);
-        load_b_kn(bq, Qs, LD, kk * 16, sl * DS + dt * 8, lane);
-        mma16816(dka[dt], dsa, bq);
-      }
+    for (int c = 0; c < SB_NC; ++c) {
+      fence_regs(fp[c]);
+      fence_regs(fd[c]);
     }
   }
+  ring_wait_upto(0);
 
-  bf16* dkp = head_ptr(a.dk, a.sdk, b, h);
-  bf16* dvp = head_ptr(a.dv, a.sdv, b, h);
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = sl * DS + dt * 8 + 2 * t;
-    if (kv0) {
-      store_bf16x2(dkp + (long)kr0 * a.sdk.s + col, dka[dt][0], dka[dt][1], a.scale);
-      store_bf16x2(dvp + (long)kr0 * a.sdv.s + col, dva[dt][0], dva[dt][1], 1.f);
-    }
-    if (kv1) {
-      store_bf16x2(dkp + (long)kr1 * a.sdk.s + col, dka[dt][2], dka[dt][3], a.scale);
-      store_bf16x2(dvp + (long)kr1 * a.sdv.s + col, dva[dt][2], dva[dt][3], 1.f);
-    }
-  }
+  sb_store(head_ptr(a.dk, a.sdk, b, h), a.sdk.s, dka, kr0, kv0, kr1, kv1, 0,
+           t, a.scale);
+  sb_store(head_ptr(a.dv, a.sdv, b, h), a.sdv.s, dva, kr0, kv0, kr1, kv1, 0,
+           t, 1.f);
 }
 
-constexpr size_t sb_smem(int D) {
-  return (size_t)(2 * SB_BQ + 2 * SB_BK) * (D + 8) * sizeof(bf16) +
-         2 * (size_t)(SB_THREADS / 32) * 16 * SB_SLD * sizeof(float) +
-         2 * SB_BQ * sizeof(float);
+// dQ at D <= 128: 128 query rows a CTA, warpgroup w owns rows 64 w.. and
+// forms S, dP, P and dS of them itself, then dQ += bf16(dS) . K.
+template <int D>
+__global__ void __launch_bounds__(SB_THREADS, 1)
+stream_bwd_dq_rows_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const SbArgs a) {
+  constexpr int NB = D / 64, TB = sw128_bytes<D, SB_TILE>();
+  constexpr int OB = sw128_bytes<D, 128>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ uint64_t full[SB_STAGES + 1];  // slots' jobs, then Q and dO
+  __shared__ float rows[SB_STAGES][2][SB_TILE];  // a slot's key bias
+  unsigned char* base = sb_base(smem_raw);
+  const bf16* Qs = reinterpret_cast<const bf16*>(base);
+  const bf16* Os = reinterpret_cast<const bf16*>(base + OB);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, rw = (warp & 3) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 128;
+  const int nkt = (a.Sk + SB_TILE - 1) / SB_TILE;
+  const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
+  const SbRing<D> ring{base + 2 * OB, full, rows, &tk, &tv, brow, nullptr,
+                       nkt, a.Sk, 0, h, b};
+
+  sb_init(full, nullptr, tid);
+  if (tid == 0)
+    sb_load_pair<D, 128>(base, &tq, &tdo, full + SB_STAGES, 0, q0, h, b);
+  ring.start(tid);
+  const int r0 = q0 + 64 * wg + rw + g, r1 = r0 + 8;
+  const long rb = ((long)b * a.H + h) * a.Sq;
+  const float lse0 = r0 < a.Sq ? a.lse[rb + r0] : 0.f;
+  const float lse1 = r1 < a.Sq ? a.lse[rb + r1] : 0.f;
+  const float d0 = r0 < a.Sq ? a.delta[rb + r0] : 0.f;
+  const float d1 = r1 < a.Sq ? a.delta[rb + r1] : 0.f;
+  mbar_wait(full + SB_STAGES, 0);
+
+  float acc[NB][32];
+  zero_acc(acc);
+
+  for (int j = 0; j < nkt; ++j) {
+    const int st = j % SB_STAGES;
+    const unsigned char* sl = ring.next(j, tid);
+    const bf16* Kt = reinterpret_cast<const bf16*>(sl);
+    const bf16* Vt = reinterpret_cast<const bf16*>(sl + TB);
+
+    float s[32], dp[32];  // S = Q.K^T and dP = dO.V^T of this WG's rows
+    wgmma_qk2<D, 128>(s, Qs, Kt, dp, Os, Vt, 64 * wg);
+    const float* bs = rows[st][0];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kc = 8 * u + 2 * t + e;
+        const bool kv = j * SB_TILE + kc < a.Sk;
+        const float bb = brow ? bs[kc] : 0.f;
+        const float p0 = kv ? sb_p(s[4 * u + e], a.scale, bb, lse0) : 0.f;
+        const float p1 = kv ? sb_p(s[4 * u + 2 + e], a.scale, bb, lse1) : 0.f;
+        dp[4 * u + e] = p0 * (dp[4 * u + e] - d0);
+        dp[4 * u + 2 + e] = p1 * (dp[4 * u + 2 + e] - d1);
+      }
+    sb_grad(acc, dp, sl);  // dQ += bf16(dS) . K
+  }
+  ring_wait_upto(0);
+
+  sb_store(head_ptr(a.dq, a.sdq, b, h), a.sdq.s, acc, r0, r0 < a.Sq, r1,
+           r1 < a.Sq, 0, t, a.scale);
+}
+
+// delta = rowsum(dO * O) in fp32 for every row (row_delta, as the
+// full-block backward's pre-pass computes it, without 1/l).
+constexpr int SD_THREADS = 256;
+
+template <int D>
+__global__ void __launch_bounds__(SD_THREADS)
+stream_delta_kernel(const bf16* __restrict__ dout,
+                    const bf16* __restrict__ out, float* __restrict__ delta,
+                    int H, int Sq, long rows, Rows sdo, Rows so) {
+  const long row = ((long)blockIdx.x * SD_THREADS + threadIdx.x) >> 3;
+  const float acc = row_delta<D>(dout, out, row, rows, H, Sq, sdo, so);
+  if (row < rows && (threadIdx.x & 7) == 0) delta[row] = acc;
+}
+
+// A tensor map of one (B, H, S, D) bf16 operand with element strides
+// st[0..2] (batch, head, row), boxes of 64 columns x 64 rows.
+static int sb_tmap(CUtensorMap* map, const void* x, int B, int H, int S,
+                   int D, const long* st) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, SB_TILE, 1, 1};
+  return make_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides,
+                   box);
 }
 
 template <int D>
-cudaError_t launch_stream_bwd(const SbArgs& a, int B, bool dkv,
-                              cudaStream_t stream) {
-  const size_t smem = sb_smem(D);
-  if (!dkv) {
-    cudaError_t err = cudaFuncSetAttribute(
-        stream_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sq + SB_BQ - 1) / SB_BQ, a.H, B);
-    stream_bwd_dq_kernel<D><<<grid, SB_THREADS, smem, stream>>>(a);
-  } else {
-    cudaError_t err = cudaFuncSetAttribute(
-        stream_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((a.Sk + SB_BK - 1) / SB_BK, a.H, B);
-    stream_bwd_dkv_kernel<D><<<grid, SB_THREADS, smem, stream>>>(a);
-  }
+int launch_stream_bwd(bool dkv, const void* q, const void* k, const void* v,
+                      const void* dout, const SbArgs& a, int B,
+                      const long* st, int cluster, int stages, int smem,
+                      cudaStream_t stream) {
+  static_assert(SB_ROWS == SB_TILE, "one box shape serves every operand");
+  if (cluster != sb_cluster<D>() || stages != SB_STAGES ||
+      smem != sb_smem_bytes<D>() || smem > SB_SMEM_MAX)
+    return HV_BAD_PLAN;
+  CUtensorMap tq, tk, tv, tdo;
+  int rc = sb_tmap(&tq, q, B, a.H, a.Sq, D, st);
+  if (!rc) rc = sb_tmap(&tk, k, B, a.H, a.Sk, D, st + 3);
+  if (!rc) rc = sb_tmap(&tv, v, B, a.H, a.Sk, D, st + 6);
+  if (!rc) rc = sb_tmap(&tdo, dout, B, a.H, a.Sq, D, st + 9);
+  if (rc) return rc;
+  void (*kern)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, SbArgs);
+  if constexpr (sb_split<D>())
+    kern = dkv ? stream_bwd_dkv_kernel<D> : stream_bwd_dq_kernel<D>;
+  else
+    kern = dkv ? stream_bwd_dkv_rows_kernel<D> : stream_bwd_dq_rows_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = ((dkv ? a.Sk : a.Sq) + sb_rows<D>() - 1) / sb_rows<D>();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks * cluster, a.H, B);
+  cfg.blockDim = dim3(SB_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, tq, tk, tv, tdo, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-int stream_bwd(const void* q, const void* k, const void* v, const float* bias,
-               const void* dout, const float* lse, const float* delta,
-               void* dq, void* dk, void* dv, int B, int H, int Sq, int Sk,
-               int D, float scale, const long* st, bool dkv, void* stream) {
+int stream_bwd(bool dkv, const void* q, const void* k, const void* v,
+               const float* bias, const void* dout, const float* lse,
+               const float* delta, void* dq, void* dk, void* dv, int B, int H,
+               int Sq, int Sk, int D, int cluster, int stages, int smem,
+               float scale, const long* st, void* stream) {
   SbArgs a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
   a.bias = bias;
   a.lse = lse;
   a.delta = delta;
   a.dq = static_cast<bf16*>(dq);
   a.dk = static_cast<bf16*>(dk);
   a.dv = static_cast<bf16*>(dv);
-  Rows* rows[7] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq, &a.sdk, &a.sdv};
-  for (int i = 0; i < 7; ++i) *rows[i] = Rows{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  a.sdq = Rows{st[12], st[13], st[14]};
+  a.sdk = Rows{st[15], st[16], st[17]};
+  a.sdv = Rows{st[18], st[19], st[20]};
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: return launch_stream_bwd<64>(a, B, dkv, s);
-    case 128: return launch_stream_bwd<128>(a, B, dkv, s);
-    case 256: return launch_stream_bwd<256>(a, B, dkv, s);
-    case 512: return launch_stream_bwd<512>(a, B, dkv, s);
+    case 64: return launch_stream_bwd<64>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
+    case 128: return launch_stream_bwd<128>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
+    case 256: return launch_stream_bwd<256>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
+    case 512: return launch_stream_bwd<512>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
     default: return -1;
   }
+}
+
+template <int D>
+int launch_delta(const void* dout, const void* out, float* delta, int B,
+                 int H, int Sq, const long* st, cudaStream_t stream) {
+  const long rows = (long)B * H * Sq;
+  const long blocks = (rows * 8 + SD_THREADS - 1) / SD_THREADS;
+  stream_delta_kernel<D><<<(unsigned)blocks, SD_THREADS, 0, stream>>>(
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(out), delta, H,
+      Sq, rows, Rows{st[0], st[1], st[2]}, Rows{st[3], st[4], st[5]});
+  return cudaGetLastError();
 }
 
 }  // namespace hv
 
 // Plain C entry points. `strides` holds 21 element strides: (batch, head,
-// row) for q, k, v, dout, dq, dk and dv in that order (the dQ kernel reads
-// the dq triple only, the dK/dV kernel the dk and dv triples); the last
-// dimension of each is contiguous. `lse` and `delta` are contiguous
-// (B, H, Sq) fp32. Each returns a cudaError_t, or -1 for an unsupported
-// head dim.
+// row) for q, k, v, dout, dq, dk and dv in that order (the dQ kernel writes
+// dq only, the dK/dV kernel dk and dv); the last dimension of each is
+// contiguous. `lse` and `delta` are contiguous (B, H, Sq) fp32; `bias` is
+// null or a contiguous (B, Sk) fp32 key bias. `cluster`, `stages` and
+// `smem` are the launch plan of flash_attention.py::_stream_bwd_plan.
+// hv_stream_delta: `strides` holds 6, (batch, head, row) of dout and out;
+// writes a contiguous (B, H, Sq) fp32 `delta`. Each returns a cudaError_t,
+// -1 for an unsupported head dim, -2 for a plan the kernel does not take.
 extern "C" int hv_stream_bwd_dq(const void* q, const void* k, const void* v,
                                 const float* bias, const void* dout,
                                 const float* lse, const float* delta,
                                 void* dq, int B, int H, int Sq, int Sk, int D,
+                                int cluster, int stages, int smem,
                                 float scale, const long* strides,
                                 void* stream) {
-  return hv::stream_bwd(q, k, v, bias, dout, lse, delta, dq, nullptr,
-                        nullptr, B, H, Sq, Sk, D, scale, strides, false,
-                        stream);
+  return hv::stream_bwd(false, q, k, v, bias, dout, lse, delta, dq, nullptr,
+                        nullptr, B, H, Sq, Sk, D, cluster, stages, smem,
+                        scale, strides, stream);
 }
 
 extern "C" int hv_stream_bwd_dkv(const void* q, const void* k, const void* v,
                                  const float* bias, const void* dout,
                                  const float* lse, const float* delta,
                                  void* dk, void* dv, int B, int H, int Sq,
-                                 int Sk, int D, float scale,
-                                 const long* strides, void* stream) {
-  return hv::stream_bwd(q, k, v, bias, dout, lse, delta, nullptr, dk, dv, B,
-                        H, Sq, Sk, D, scale, strides, true, stream);
+                                 int Sk, int D, int cluster, int stages,
+                                 int smem, float scale, const long* strides,
+                                 void* stream) {
+  return hv::stream_bwd(true, q, k, v, bias, dout, lse, delta, nullptr, dk,
+                        dv, B, H, Sq, Sk, D, cluster, stages, smem, scale,
+                        strides, stream);
+}
+
+extern "C" int hv_stream_delta(const void* dout, const void* out,
+                               float* delta, int B, int H, int Sq, int D,
+                               const long* strides, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return hv::launch_delta<64>(dout, out, delta, B, H, Sq, strides, s);
+    case 128: return hv::launch_delta<128>(dout, out, delta, B, H, Sq, strides, s);
+    case 256: return hv::launch_delta<256>(dout, out, delta, B, H, Sq, strides, s);
+    case 512: return hv::launch_delta<512>(dout, out, delta, B, H, Sq, strides, s);
+    default: return -1;
+  }
 }
 
 extern "C" const char* hv_stream_bwd_error_string(int code) {
-  return code < 0 ? "unsupported head dim" : cudaGetErrorString(static_cast<cudaError_t>(code));
+  if (code == -1) return "unsupported head dim";
+  if (code == hv::HV_BAD_PLAN) return "launch plan not taken by the kernel";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

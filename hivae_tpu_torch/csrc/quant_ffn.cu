@@ -187,29 +187,6 @@ __device__ __forceinline__ int8_t requant(float y, float s, float r) {
   return static_cast<int8_t>(fminf(fmaxf(rintf(q), -127.f), 127.f));
 }
 
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// Stores v at the same shared address in the CTA of cluster rank `rank`.
-__device__ __forceinline__ void st_peer(float* p, uint32_t rank, float v) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(remote), "f"(v)
-               : "memory");
-}
-
 // grid (cluster, clusters), cluster (cluster, 1, 1): a persistent cluster
 // takes row blocks blockIdx.y, blockIdx.y + gridDim.y, ... of 64 rows; CTA
 // rank r of the cluster owns columns [(ch * cluster + r) * 512, + 512) of

@@ -9,7 +9,13 @@ Dispatch on (B, H, S, D) arrays, the same rule as the JAX package:
     not ported;
   * above: a hand-written kernel (``ops/kernels/flash_attention.py``) - the
     full-block kernel while ``full_block_fits`` holds, the streaming kernel
-    beyond it.
+    beyond it - where that kernel takes the operands (``kernel_route``): on
+    a CPU tensor always (the kernels' plain versions take any dtype), on
+    the card only in bf16 at the kernel's head dims (an operand whose rows
+    the kernel cannot read is copied to a layout it can). Any other call
+    above 256^2 logits (fp32, fp16, another head dim) has no kernel here,
+    where the TPU kernels take it: it takes the plain path through
+    ``sdpa_plain``, which counts it in ``sdpa_plain.launches``.
 
 The (B, Sk) key mask enters the kernels as an additive fp32 bias of
 ``MASK_NEG``, so a fully masked row degrades to uniform attention over its
@@ -64,6 +70,46 @@ def _sdpa_plain(q, k, v, scale, key_mask):
     return torch.matmul(probs.to(q.dtype).float(), v.float()).to(q.dtype)
 
 
+def _kernel_kind(q_shape, k_shape) -> Optional[str]:
+    """The kernel the JAX package's rule picks for these shapes, or None
+    for its XLA path: None up to 256^2 logits or with D not a multiple of
+    8, else "full_block" while ``full_block_fits`` holds and "stream"
+    beyond it."""
+    if not (q_shape[2] * k_shape[2] > KERNEL_MIN_LOGITS
+            and q_shape[3] % MIN_ALIGN == 0):
+        return None
+    return "full_block" if full_block_fits(q_shape, k_shape) else "stream"
+
+
+def kernel_route(q: torch.Tensor, k: torch.Tensor,
+                 v: Optional[torch.Tensor] = None) -> str:
+    """The path ``sdpa`` takes for q (B, H, Sq, D) and k (B, H, Sk, D):
+    "full_block", "stream" or "plain". The kernel ``_kernel_kind`` picks,
+    on a CPU tensor always (its plain version takes any dtype) and
+    elsewhere only where that kernel takes the operands (``fa.takes``:
+    dtype and head dim; any layout, which ``sdpa`` copies where the kernel
+    cannot read it), else "plain". ``v`` defaults to ``k``'s shape."""
+    kind = _kernel_kind(q.shape, k.shape)
+    if kind is None:
+        return "plain"
+    if q.device.type == "cpu" or fa.takes(kind, q, k, k if v is None else v):
+        return kind
+    return "plain"
+
+
+def sdpa_plain(q, k, v, scale, key_mask):
+    """The plain path for a call above 256^2 logits that no kernel takes on
+    its device (fp32, fp16, a head dim off the kernels' lists), where the
+    JAX package runs a Pallas kernel: counted in ``sdpa_plain.launches`` as
+    the kernel wrappers count their launches, so a run sees attention that
+    left the kernels."""
+    sdpa_plain.launches += 1
+    return _sdpa_plain(q, k, v, scale, key_mask)
+
+
+sdpa_plain.launches = 0
+
+
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          scale: Optional[float] = None,
          key_mask: Optional[torch.Tensor] = None,
@@ -74,23 +120,25 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     each (D,), applied to the raw q and k."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    kernel = (q.shape[2] * k.shape[2] > KERNEL_MIN_LOGITS
-              and q.shape[3] % MIN_ALIGN == 0)
+    route = kernel_route(q, k, v)
     bias = None
-    if kernel and key_mask is not None:
-        bias = torch.zeros(key_mask.shape, dtype=torch.float32,
-                           device=key_mask.device)
-        bias = bias.masked_fill(~key_mask, MASK_NEG)
-    fits = kernel and full_block_fits(q.shape, k.shape)
+    if route != "plain":
+        q, k, v = (fa.kernel_layout(x) for x in (q, k, v))
+        if key_mask is not None:
+            bias = torch.zeros(key_mask.shape, dtype=torch.float32,
+                               device=key_mask.device)
+            bias = bias.masked_fill(~key_mask, MASK_NEG)
     if qk_norm is not None:
-        if fits and QKNORM_FUSE:
+        if route == "full_block" and QKNORM_FUSE:
             return fa.full_block_attention_qknorm(
                 q, k, v, *qk_norm, scale=scale, eps=qk_norm_eps, bias=bias)
         gq, bq, gk, bk = qk_norm
         q = qk_layernorm(q, gq, bq, qk_norm_eps)
         k = qk_layernorm(k, gk, bk, qk_norm_eps)
-    if fits:
+    if route == "full_block":
         return fa.full_block_attention(q, k, v, scale=scale, bias=bias)
-    if kernel:
+    if route == "stream":
         return fa.stream_attention(q, k, v, scale=scale, bias=bias)[0]
+    if _kernel_kind(q.shape, k.shape) is not None:  # no kernel takes it
+        return sdpa_plain(q, k, v, scale, key_mask)
     return _sdpa_plain(q, k, v, scale, key_mask)

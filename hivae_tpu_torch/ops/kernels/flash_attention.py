@@ -18,8 +18,12 @@ ported here as hand-written CUDA (``hivae_tpu_torch/csrc``):
   launch plan (ring slots, shared bytes) from ``_stream_plan``.
   Source note and bound: ``csrc/flash_stream.cu``.
 * ``stream_attention_bwd_dq`` and ``stream_attention_bwd_dkv`` replace
-  ``_stream_dq_kernel`` and ``_stream_dkv_kernel`` (``stream_bwd``)
-  (``csrc/flash_stream_bwd.cu``).
+  ``_stream_dq_kernel`` and ``_stream_dkv_kernel`` (``stream_bwd``), with
+  a launch plan (rows a CTA, a 2-CTA cluster along D at D = 512, ring
+  slots, shared bytes) from ``_stream_bwd_plan``; before them
+  ``stream_attention_delta``, a pre-pass kernel in the same source that
+  computes delta = rowsum(dO * O), the port's own (the JAX package leaves
+  it to XLA). Source note and bound: ``csrc/flash_stream_bwd.cu``.
 * ``full_block_attention_qknorm`` replaces ``_fwd_kernel_qknorm``
   (``_flash_qknorm_fwd_impl``): the full-block forward on raw q and k with
   the per-head LayerNorm (``qk_layernorm``) applied to each tile inside the
@@ -37,9 +41,13 @@ gradient, as in the JAX package. Each wrapper runs its plain version for a
 tensor on the CPU (the tests; autograd differentiates it there) and
 launches its kernel for a CUDA tensor, or raises; there is no fallback from
 one to the other. ``<wrapper>.launches`` counts kernel launches: forward and
-backward kernels have separate counters. The ``*_bwd_plain`` functions
-write each backward out by hand, as the TPU kernels compute it, so that the
-card and the tests can hold the backward kernels against them.
+backward kernels have separate counters. ``takes`` says which operands a
+kernel takes (dtype, shape, head dim); ``ops.attention.sdpa``'s gate asks
+it and copies an operand the kernel cannot read with ``kernel_layout``, and
+the wrappers raise with the same reasons, the layout among them. The
+``*_bwd_plain`` functions write each backward out by hand, as the TPU
+kernels compute it, so that the card and the tests can hold the backward
+kernels against them.
 """
 
 from __future__ import annotations
@@ -162,25 +170,51 @@ def stream_attention_bwd_plain(q, k, v, do, out, lse, *, scale: float,
 # ---------------------------------------------------------------------------
 
 
-def _check(name, q, k, v, bias, dims):
+_KERNEL_DIMS = {"full_block": _FULL_BLOCK_DIMS, "stream": _STREAM_DIMS}
+
+
+def _refusal(kind, q, k, v, layout=True):
+    """Why the ``kind`` kernel ("full_block" or "stream") does not take q,
+    k, v, as (exception type, message), or None when it does: bf16, (B, H,
+    S, D) with (where ``layout``) a contiguous last dim and 16-byte aligned
+    rows, k and v of one shape matching q's batch, heads and head dim, D
+    among the kernel's head dims. The device is not looked at."""
+    for x in (q, k, v):
+        if x.dtype not in _KERNEL_DTYPES:
+            return TypeError, f"the CUDA kernel takes bfloat16, got {x.dtype}"
+        if x.dim() != 4 or (layout and not _aligned(x)):
+            return ValueError, (f"want (B, H, S, D) with a contiguous last "
+                                f"dim and 16-byte aligned rows, got "
+                                f"{tuple(x.shape)} strides {x.stride()}")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        return ValueError, (f"shape mismatch q {tuple(q.shape)} "
+                            f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    if d not in _KERNEL_DIMS[kind]:
+        return ValueError, f"head dim {d} not in {_KERNEL_DIMS[kind]}"
+    return None
+
+
+def takes(kind: str, q: torch.Tensor, k: torch.Tensor,
+          v: torch.Tensor) -> bool:
+    """True when the ``kind`` kernel ("full_block" or "stream") takes these
+    operands (dtype, shape, head dim) once ``kernel_layout`` has copied
+    each to a layout it reads: the condition under which its wrappers
+    launch rather than raise, for a tensor on a CUDA card. The gate of
+    ``ops.attention.sdpa`` asks this."""
+    return _refusal(kind, q, k, v, layout=False) is None
+
+
+def _check(name, q, k, v, bias, kind):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     for x in (q, k, v):
         if x.device != q.device:
             raise ValueError(f"{name}: q, k, v must share one device")
-        if x.dtype not in _KERNEL_DTYPES:
-            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, "
-                            f"got {x.dtype}")
-        if x.dim() != 4 or not _aligned(x):
-            raise ValueError(f"{name}: want (B, H, S, D) with a contiguous "
-                             f"last dim and 16-byte aligned rows, got "
-                             f"{tuple(x.shape)} strides {x.stride()}")
-    b, h, _, d = q.shape
-    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
-        raise ValueError(f"{name}: shape mismatch q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in dims:
-        raise ValueError(f"{name}: head dim {d} not in {dims}")
+    refusal = _refusal(kind, q, k, v)
+    if refusal is not None:
+        raise refusal[0](f"{name}: {refusal[1]}")
+    b = q.shape[0]
     if bias is not None and (bias.dtype != torch.float32 or
                              bias.shape != (b, k.shape[2]) or
                              not bias.is_contiguous() or
@@ -194,9 +228,9 @@ def _aligned(x):
             and x.data_ptr() % 16 == 0)
 
 
-def _kernel_layout(x):
+def kernel_layout(x):
     """x itself when the kernels can read it, else a contiguous copy (an
-    incoming gradient may have any strides)."""
+    incoming gradient or a caller's view may have any strides)."""
     return x if _aligned(x) else x.contiguous()
 
 
@@ -342,6 +376,55 @@ def _stream_plan(d: int) -> StreamPlan:
     return StreamPlan(stages=stages, smem=1024 + q_bytes + stages * slot)
 
 
+# launch plan of the streaming backward (csrc/flash_stream_bwd.cu): walked
+# tiles of 64 rows through a ring of STREAM_BWD_STAGES slots; at D <= 128
+# a CTA owns 128 keys (dK/dV) or query rows (dQ), 64 a warpgroup; from
+# D = 256 on it owns 64, which its two warpgroups share by roles (S and P;
+# dP and dS) through an fp32 64 x 64 tile, and at D = 512 a cluster of 2
+# CTAs splits the head dim
+STREAM_BWD_TILE = 64
+STREAM_BWD_STAGES = 2
+STREAM_BWD_SPLIT_DIM = 256
+STREAM_BWD_CLUSTER_DIM = 512
+# static shared bytes (the ring's and the cluster exchange's mbarriers and
+# the fp32 rows of each slot: lse and delta for dK/dV, the key bias for dQ),
+# the larger of the two kernels'
+STREAM_BWD_STATIC = 8 * (STREAM_BWD_STAGES + 3) + \
+    STREAM_BWD_STAGES * 2 * STREAM_BWD_TILE * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamBwdPlan:
+    """Launch plan of the streaming backward kernels (dQ and dK/dV alike):
+    ``rows`` keys or query rows a CTA; a cluster of ``cluster`` CTAs along
+    D, each holding ``cols`` columns of every operand; ``stages`` ring
+    slots of two walked 64-row tiles; ``smem`` dynamic shared bytes."""
+    rows: int
+    cluster: int
+    cols: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_bwd_plan(d: int) -> StreamBwdPlan:
+    """The plan at head dim ``d`` (``sb_rows``, ``sb_cluster``, ``sb_cols``
+    and ``sb_smem_bytes`` in flash_stream_bwd.cu): 1 KB to align the base,
+    two resident swizzled tiles of ``rows`` rows, ``stages`` slots of two
+    walked ones, and with the roles (d >= 256) one fp32 64 x 64 tile a
+    cluster CTA (P; at D = 512 the exchange tiles of S and dP). The
+    sequence lengths do not change it."""
+    split = d >= STREAM_BWD_SPLIT_DIM
+    rows = STREAM_BWD_TILE if split else 2 * STREAM_BWD_TILE
+    cluster = 2 if d == STREAM_BWD_CLUSTER_DIM else 1
+    cols = d // cluster
+    smem = (1024 + 2 * _sw128_bytes(cols, rows)
+            + 2 * STREAM_BWD_STAGES * _sw128_bytes(cols, STREAM_BWD_TILE)
+            + (cluster * STREAM_BWD_TILE * 64 * 4 if split else 0))
+    return StreamBwdPlan(rows=rows, cluster=cluster, cols=cols,
+                         stages=STREAM_BWD_STAGES, smem=smem)
+
+
 def _fn(lib_name, sym, n_ptr, n_int, n_float=1):
     """The C entry point ``sym`` of ``csrc/<lib_name>.cu`` (n_ptr pointers,
     n_int ints, n_float floats (the scale, ...), the strides and the stream)
@@ -379,12 +462,17 @@ def _stream_fn():
 
 @functools.lru_cache(maxsize=None)
 def _stream_dq_fn():
-    return _fn("flash_stream_bwd", "hv_stream_bwd_dq", 8, 5)
+    return _fn("flash_stream_bwd", "hv_stream_bwd_dq", 8, 8)
 
 
 @functools.lru_cache(maxsize=None)
 def _stream_dkv_fn():
-    return _fn("flash_stream_bwd", "hv_stream_bwd_dkv", 9, 5)
+    return _fn("flash_stream_bwd", "hv_stream_bwd_dkv", 9, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_delta_fn():
+    return _fn("flash_stream_bwd", "hv_stream_delta", 3, 4, 0)
 
 
 def _launch(name, fn_err, *args):
@@ -412,7 +500,7 @@ def _full_block_fwd(q, k, v, bias, scale, stats):
     """Forward launch -> (out, m, l); m and l (the row max of the base-2
     logits and the softmax denominator, (B, H, Sq) fp32, the backward
     kernel's inputs) only when ``stats``, else None."""
-    _check("full_block_attention", q, k, v, bias, _FULL_BLOCK_DIMS)
+    _check("full_block_attention", q, k, v, bias, "full_block")
     m, l = (_row_stats(q), _row_stats(q)) if stats else (None, None)
     out = _launch_full_block("full_block_attention", q, k, v, bias, None, m,
                              l, scale, 0.0)
@@ -422,7 +510,7 @@ def _full_block_fwd(q, k, v, bias, scale, stats):
 
 def _full_block_qknorm_fwd(q, k, v, norms, bias, scale, eps):
     """qk-norm forward launch -> out; ``norms`` = (gq, bq, gk, bk)."""
-    _check("full_block_attention_qknorm", q, k, v, bias, _FULL_BLOCK_DIMS)
+    _check("full_block_attention_qknorm", q, k, v, bias, "full_block")
     d = q.shape[3]
     for x in norms:
         if x.shape != (d,) or x.device != q.device:
@@ -466,8 +554,8 @@ def full_block_attention_bwd(q, k, v, do, out, m, l, *, scale: float,
     """Backward kernels: (dq, dk, dv) from the output cotangent ``do``, the
     forward's ``out`` and its row statistics ``m``, ``l`` (B, H, Sq): the
     delta pre-pass, then one backward launch."""
-    _check("full_block_attention_bwd", q, k, v, bias, _FULL_BLOCK_DIMS)
-    do = _kernel_layout(do)
+    _check("full_block_attention_bwd", q, k, v, bias, "full_block")
+    do = kernel_layout(do)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     plan = _full_block_plan(sq, sk, d)
@@ -486,7 +574,7 @@ full_block_attention_bwd.launches = 0
 
 
 def _stream_fwd(q, k, v, bias, scale):
-    _check("stream_attention", q, k, v, bias, _STREAM_DIMS)
+    _check("stream_attention", q, k, v, bias, "stream")
     b, h, sq, d = q.shape
     plan = _stream_plan(d)
     out = _empty_out(q)
@@ -499,25 +587,58 @@ def _stream_fwd(q, k, v, bias, scale):
     return out, lse[..., None]
 
 
+def stream_attention_delta(do: torch.Tensor, out: torch.Tensor
+                           ) -> torch.Tensor:
+    """Pre-pass kernel of the streaming backward: delta = rowsum(dO * O),
+    contiguous (B, H, Sq) fp32, from the bf16 (B, H, Sq, D) ``do`` and the
+    forward's ``out``. Its plain version is ``_delta``, which a CPU tensor
+    gets."""
+    if do.device.type == "cpu":
+        return _delta(do, out)
+    if do.device.type != "cuda":
+        raise ValueError(f"stream_attention_delta: no kernel for device "
+                         f"{do.device}")
+    if do.dtype not in _KERNEL_DTYPES or out.dtype != do.dtype or \
+            do.shape != out.shape or do.dim() != 4 or \
+            do.shape[3] not in _STREAM_DIMS or \
+            not (_aligned(do) and _aligned(out)):
+        raise ValueError(f"stream_attention_delta: want bf16 (B, H, Sq, D) "
+                         f"do and out, D in {_STREAM_DIMS}, with 16-byte "
+                         f"aligned rows")
+    b, h, sq, d = do.shape
+    delta = _row_stats(do)
+    _launch("stream_attention_delta", _stream_delta_fn(), _ptr(do),
+            _ptr(out), _ptr(delta), b, h, sq, d, _strides(do, out),
+            _stream_of(do))
+    stream_attention_delta.launches += 1
+    return delta
+
+
+stream_attention_delta.launches = 0
+
+
 def _stream_bwd_args(name, q, k, v, do, lse, delta, bias):
-    _check(name, q, k, v, bias, _STREAM_DIMS)
+    _check(name, q, k, v, bias, "stream")
     b, h, sq, d = q.shape
     lse = lse.reshape(b, h, sq).contiguous()
-    return _kernel_layout(do), lse, delta.reshape(b, h, sq).contiguous()
+    return kernel_layout(do), lse, delta.reshape(b, h, sq).contiguous()
 
 
 def stream_attention_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
                             bias: Optional[torch.Tensor] = None):
     """dQ kernel: dq from the cotangent ``do``, the forward's ``lse`` and
-    ``delta`` = rowsum(dO * O), each (B, H, Sq) or (B, H, Sq, 1) fp32."""
+    ``delta`` = rowsum(dO * O), each (B, H, Sq) or (B, H, Sq, 1) fp32 (a
+    ring hop may pass global ones), under ``_stream_bwd_plan``."""
     do, lse, delta = _stream_bwd_args("stream_attention_bwd_dq", q, k, v, do,
                                       lse, delta, bias)
     b, h, sq, d = q.shape
+    plan = _stream_bwd_plan(d)
     dq = _empty_out(q)
     _launch("stream_attention_bwd_dq", _stream_dq_fn(), _ptr(q), _ptr(k),
             _ptr(v), _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
-            b, h, sq, k.shape[2], d, float(scale),
-            _strides(q, k, v, do, dq, None, None), _stream_of(q))
+            b, h, sq, k.shape[2], d, plan.cluster, plan.stages, plan.smem,
+            float(scale), _strides(q, k, v, do, dq, None, None),
+            _stream_of(q))
     stream_attention_bwd_dq.launches += 1
     return dq
 
@@ -531,10 +652,12 @@ def stream_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
     do, lse, delta = _stream_bwd_args("stream_attention_bwd_dkv", q, k, v,
                                       do, lse, delta, bias)
     b, h, sq, d = q.shape
+    plan = _stream_bwd_plan(d)
     dk, dv = _empty_out(k), _empty_out(v)
     _launch("stream_attention_bwd_dkv", _stream_dkv_fn(), _ptr(q), _ptr(k),
             _ptr(v), _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
-            _ptr(dv), b, h, sq, k.shape[2], d, float(scale),
+            _ptr(dv), b, h, sq, k.shape[2], d, plan.cluster, plan.stages,
+            plan.smem, float(scale),
             _strides(q, k, v, do, None, dk, dv), _stream_of(q))
     stream_attention_bwd_dkv.launches += 1
     return dk, dv
@@ -604,8 +727,8 @@ class _Stream(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        do = _kernel_layout(do)
-        delta = _delta(do, out)
+        do = kernel_layout(do)
+        delta = stream_attention_delta(do, out)
         kw = dict(scale=ctx.scale, bias=bias)
         dq = stream_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = stream_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)

@@ -65,12 +65,21 @@ def supports(m: int, k: int, n: int) -> bool:
     return m > 0 and k > 0 and n > 0 and k % LANE == 0 and n % LANE == 0
 
 
+# fewest rows torch._int_mm takes on the card (cuBLASLt int8 needs M > 16)
+INT8_MM_MIN_ROWS = 17
+
+
 def int8_mm(a: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     """Exact int32 (M, N) = a (M, K) int8 @ w8 (N, K) int8 transposed, via
     ``torch._int_mm`` (cuBLASLt int8 on the card, which takes the weight's
     transpose column-major, as it is here, and needs M > 16 and K, N
-    multiples of 8)."""
-    return torch._int_mm(a.contiguous(), w8.t())
+    multiples of 8). Fewer than ``INT8_MM_MIN_ROWS`` rows are padded with
+    zero rows, which change no other row, and the result is sliced back."""
+    m = a.shape[0]
+    if m >= INT8_MM_MIN_ROWS:
+        return torch._int_mm(a.contiguous(), w8.t())
+    pad = a.new_zeros((INT8_MM_MIN_ROWS - m, a.shape[1]))
+    return torch._int_mm(torch.cat([a, pad]), w8.t())[:m]
 
 
 def int8_scale(absmax: torch.Tensor) -> torch.Tensor:

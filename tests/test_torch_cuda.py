@@ -254,7 +254,9 @@ def test_full_block_kernels_are_deterministic(shape, sk, masked):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,masked", [
     ((16, 1, 1024, 512), False), ((4, 1, 1024, 512), True),
-    ((1, 2, 600, 64), True), ((2, 1, 300, 256), True)])
+    ((1, 2, 600, 64), True), ((2, 1, 300, 256), True),
+    ((4, 16, 2048, 64), False), ((2, 8, 2048, 128), False),
+    ((2, 8, 2048, 64), True), ((1, 3, 333, 128), True)])
 def test_stream_bwd_kernels_match_plain(shape, masked):
     _cuda_or_skip()
     q, k, v = _qkv(shape, seed=16)
@@ -294,14 +296,14 @@ def test_sdpa_gradient_runs_the_backward_kernels(shape):
     from hivae_tpu_torch.ops import attention as tattn
     q, k, v = [x.requires_grad_() for x in _qkv(shape, seed=18)]
     counters = [tfa.full_block_attention_bwd, tfa.stream_attention_bwd_dq,
-                tfa.stream_attention_bwd_dkv]
+                tfa.stream_attention_bwd_dkv, tfa.stream_attention_delta]
     before = [c.launches for c in counters]
     out = tattn.sdpa(q, k, v)
     assert out.grad_fn is not None
     out.float().square().sum().backward()
     torch.cuda.synchronize()
     ran = [c.launches - b for c, b in zip(counters, before)]
-    assert ran == ([1, 0, 0] if shape[3] == 64 else [0, 1, 1])
+    assert ran == ([1, 0, 0, 0] if shape[3] == 64 else [0, 1, 1, 1])
     assert all(x.grad is not None and bool(torch.isfinite(x.grad).all())
                for x in (q, k, v))
 
@@ -484,3 +486,154 @@ def test_sdpa_qknorm_fuse_launches_the_fused_kernel(monkeypatch):
     torch.cuda.synchronize()
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 0]
     assert _err(got, want) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", [
+    ((16, 1, 1024, 512), False), ((2, 8, 2048, 64), True),
+    ((2, 2, 700, 128), True), ((2, 1, 300, 256), False)])
+def test_stream_bwd_kernels_are_deterministic(shape, masked):
+    """Two launches of the delta, dQ and dK/dV kernels on the same inputs
+    give the same bits (no atomics; at D = 512 both cluster CTAs add the
+    same two partials)."""
+    _cuda_or_skip()
+    q, k, v = _qkv(shape, seed=34)
+    do = _qkv(shape, seed=35)[0]
+    scale = shape[3] ** -0.5
+    bias = _bias(shape[0], shape[2]) if masked else None
+    out, lse = tfa.stream_attention(q, k, v, scale=scale, bias=bias)
+    runs = []
+    for _ in range(2):
+        delta = tfa.stream_attention_delta(do, out)
+        runs.append((delta, tfa.stream_attention_bwd_dq(
+            q, k, v, do, lse, delta, scale=scale, bias=bias))
+            + tfa.stream_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                           scale=scale, bias=bias))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_stream_bwd_cluster_plan_is_the_one_launched(monkeypatch):
+    """At D = 512 the plan is a cluster of 2 CTAs of 256 columns, and the
+    kernels launch under it; any other plan is refused by the C entry
+    points, not run."""
+    import dataclasses
+    _cuda_or_skip()
+    plan = tfa._stream_bwd_plan(512)
+    assert (plan.cluster, plan.cols, plan.rows) == (2, 256, 64)
+    shape = (2, 1, 256, 512)
+    q, k, v = _qkv(shape, seed=36)
+    do = _qkv(shape, seed=37)[0]
+    out, lse = tfa.stream_attention(q, k, v, scale=0.05)
+    delta = tfa.stream_attention_delta(do, out)
+    n = tfa.stream_attention_bwd_dq.launches
+    tfa.stream_attention_bwd_dq(q, k, v, do, lse, delta, scale=0.05)
+    assert tfa.stream_attention_bwd_dq.launches == n + 1
+    for other in (dataclasses.replace(plan, cluster=1, cols=512),
+                  dataclasses.replace(plan, smem=plan.smem - 1024)):
+        monkeypatch.setattr(tfa, "_stream_bwd_plan", lambda d: other)
+        for fn in (tfa.stream_attention_bwd_dq, tfa.stream_attention_bwd_dkv):
+            with pytest.raises(RuntimeError, match="launch plan"):
+                fn(q, k, v, do, lse, delta, scale=0.05)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 300, 64), (3, 2, 129, 512),
+                                   (2, 2, 70, 128), (1, 1, 65, 256)])
+def test_stream_delta_kernel_matches_plain(shape):
+    """delta = rowsum(dO * O): fp32 sums in another order (rtol 1e-5 of
+    the row's |dO| . |O|), one launch."""
+    _cuda_or_skip()
+    do, out, _ = _qkv(shape, seed=38)
+    n = tfa.stream_attention_delta.launches
+    delta = tfa.stream_attention_delta(do, out)
+    want = tfa._delta(do, out)
+    torch.cuda.synchronize()
+    assert tfa.stream_attention_delta.launches == n + 1
+    scale = (do.float().abs() * out.float().abs()).sum(-1)
+    assert bool(((delta - want).abs() <= 1e-5 * scale + 1e-6).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+@pytest.mark.parametrize("shape,masked", [((2, 16, 260, 64), True),
+                                          ((4, 1, 1024, 512), False)])
+def test_sdpa_off_the_kernel_dtypes_takes_the_plain_path(dtype, shape,
+                                                         masked):
+    """fp32 and fp16 above 256^2 logits: ``sdpa`` raises no more; it takes
+    the plain path (no kernel launch, one count of ``sdpa_plain``) and
+    returns its values."""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops import attention as tattn
+    q, k, v = (x.to(dtype) for x in _qkv(shape, seed=39))
+    mask = None
+    if masked:
+        mask = torch.from_numpy(
+            np.random.RandomState(40).rand(shape[0], shape[2]) > 0.3).cuda()
+    counters = [tfa.full_block_attention, tfa.stream_attention,
+                tattn.sdpa_plain]
+    before = [c.launches for c in counters]
+    got = tattn.sdpa(q, k, v, key_mask=mask)
+    want = tattn._sdpa_plain(q, k, v, shape[3] ** -0.5, mask)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == before[:2] + [before[2] + 1]
+    assert got.dtype == dtype
+    assert _err(got, want) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,kernel", [
+    ((2, 16, 260, 64), "full_block_attention"),
+    ((4, 1, 1024, 512), "stream_attention")])
+def test_sdpa_copies_a_layout_the_kernels_cannot_read(shape, kernel):
+    """bf16 operands with a strided last dim (every other column of a
+    wider tensor): ``sdpa`` copies them to the kernels' layout and launches
+    the kernel its shape picks, with the plain path's values."""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops import attention as tattn
+    wide = [x.repeat_interleave(2, dim=-1)
+            for x in _qkv(shape, seed=42)]
+    q, k, v = (x[..., ::2] for x in wide)
+    counter = getattr(tfa, kernel)
+    before = [counter.launches, tattn.sdpa_plain.launches]
+    got = tattn.sdpa(q, k, v)
+    want = tattn._sdpa_plain(q, k, v, shape[3] ** -0.5, None)
+    torch.cuda.synchronize()
+    assert [counter.launches, tattn.sdpa_plain.launches] == [
+        before[0] + 1, before[1]]
+    assert _err(got, want) <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 16, 17])
+def test_int8_layers_at_few_rows(m):
+    """``quant_dense`` and ``fused_quant_ffn`` at M 1, 16 (padded inside
+    ``int8_mm`` for torch._int_mm) and 17 on the card against the same
+    calls on the CPU (their plain versions): relative L2 within 1e-3 (the
+    FFN-up kernel may be one int8 step off its plain version on a few
+    elements)."""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops import quant as tq
+    rng = np.random.RandomState(41 + m)
+
+    def entry(n, k):
+        w = torch.from_numpy((rng.randn(n, k) / np.sqrt(k)).astype(np.float32))
+        w8, ws = tq._quantize_kernel(w.cuda())
+        b = torch.from_numpy((0.1 * rng.randn(n)).astype(np.float32)).cuda()
+        return {"w8": w8, "scale": ws, "bias": b}
+
+    up, down = entry(4096, 1024), entry(1024, 4096)
+    x = torch.from_numpy(rng.randn(m, 1024).astype(np.float32)).cuda()
+    x = x.bfloat16()
+    got = [tq.quant_dense(x, up["w8"], up["scale"], up["bias"]),
+           tq.fused_quant_ffn(x, up, down)]
+    cpu = [{n: t.cpu() for n, t in e.items()} for e in (up, down)]
+    want = [tq.quant_dense(x.cpu(), cpu[0]["w8"], cpu[0]["scale"],
+                           cpu[0]["bias"]),
+            tq.fused_quant_ffn(x.cpu(), *cpu)]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        rel = (g.float().cpu() - w.float()).norm() / w.float().norm()
+        assert rel.item() <= 1e-3

@@ -348,3 +348,105 @@ def test_stream_kernel_lse_matches_plain():
     _, want = tfa.stream_attention_plain(q, k, v, scale=scale, bias=bias)
     assert (got - want).abs().max().item() <= 1e-3
     assert torch.equal(got[1], want[1])
+
+
+# -- the sdpa gate, the streaming backward's plan, small-M int8 ------------
+
+# (kernel, shape) above 256^2 logits that each kernel takes in bf16: the
+# full-block kernel's head dims at the object encoder's S, the streaming
+# kernel's past ``full_block_fits``
+ROUTED = ([("full_block", (2, 4, 260, d)) for d in tfa._FULL_BLOCK_DIMS]
+          + [("stream", (1, 4, 2048, 64))]
+          + [("stream", (2, 1, 1024, d)) for d in (128, 256, 512)])
+
+
+@pytest.mark.parametrize("kind,shape", ROUTED)
+def test_kernel_route_off_the_cpu(kind, shape):
+    """On a tensor off the CPU (``meta`` stands in for the card) the gate
+    sends bf16 to the kernel ``full_block_fits`` picks, at every head dim
+    that kernel takes, and fp32 and fp16 to the plain path; a layout the
+    kernel does not read (a strided last dim) still goes to the kernel,
+    which ``sdpa`` hands a copy in its layout."""
+    for dtype, want in [(torch.bfloat16, kind), (torch.float32, "plain"),
+                        (torch.float16, "plain")]:
+        x = torch.empty(shape, device="meta", dtype=dtype)
+        assert tattn.kernel_route(x, x, x) == want
+        assert tfa.takes(kind, x, x, x) == (dtype == torch.bfloat16)
+    wide = torch.empty(shape[:3] + (2 * shape[3],), device="meta",
+                       dtype=torch.bfloat16)[..., ::2]
+    assert tattn.kernel_route(wide, wide, wide) == kind
+    assert tfa.kernel_layout(wide).stride(-1) == 1
+
+
+def test_kernel_route_head_dim_and_cpu():
+    """bf16 at D = 80, S = 260 (a multiple of 8 that no kernel takes) goes
+    plain off the CPU; on the CPU the routes stay the dispatch rule's (the
+    kernels' plain versions take any dtype and head dim), and up to 256^2
+    logits every tensor goes plain."""
+    x = torch.empty((2, 4, 260, 80), device="meta", dtype=torch.bfloat16)
+    assert tattn.kernel_route(x, x, x) == "plain"
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for shape, want in [((2, 4, 260, 80), "full_block"),
+                            ((17, 1, 1024, 512), "stream"),
+                            ((1, 2, 300, 48), "full_block"),
+                            ((256, 16, 16, 64), "plain"),
+                            ((2, 4, 260, 20), "plain")]:
+            y = torch.zeros(shape[:2] + (1, shape[3]), dtype=dtype
+                            ).expand(shape)
+            assert tattn.kernel_route(y, y, y) == want, (shape, dtype)
+
+
+def test_sdpa_counts_the_calls_no_kernel_takes():
+    """Off the CPU, a call above 256^2 logits that no kernel takes (fp32,
+    fp16, bf16 at D = 80) runs the plain path through ``sdpa_plain`` and
+    adds one to ``sdpa_plain.launches``; a call the size rule sends to the
+    plain path, and any call on the CPU, adds nothing."""
+    cases = [((2, 4, 260, 64), torch.float32, 1),
+             ((2, 1, 1024, 512), torch.float16, 1),
+             ((2, 4, 260, 80), torch.bfloat16, 1),
+             ((256, 16, 16, 64), torch.float32, 0)]
+    for shape, dtype, counted in cases:
+        x = torch.empty(shape, device="meta", dtype=dtype)
+        mask = torch.empty(shape[:1] + shape[2:3], device="meta",
+                           dtype=torch.bool)
+        n = tattn.sdpa_plain.launches
+        out = tattn.sdpa(x, x, x, key_mask=mask)
+        assert out.shape == shape and out.dtype == dtype
+        assert tattn.sdpa_plain.launches == n + counted, (shape, dtype)
+    x = torch.zeros((1, 2, 300, 48))
+    n = tattn.sdpa_plain.launches
+    tattn.sdpa(x, x, x)
+    assert tattn.sdpa_plain.launches == n
+
+
+@pytest.mark.parametrize("d", tfa._STREAM_DIMS)
+def test_stream_bwd_plan_fits_shared_memory(d):
+    """The streaming backward's plan at each head dim: 128 rows a CTA (64
+    a warpgroup) below D = 256, 64 shared by roles from there, a cluster
+    of 2 along D only at D = 512, each CTA's columns at most 256; two
+    resident swizzled tiles, ring slots of two walked 64-row ones, with
+    the roles one fp32 64 x 64 tile a cluster CTA, and the static
+    mbarriers and rows within one block's 232,448 bytes, with at least two
+    slots (one landing while one computes)."""
+    plan = tfa._stream_bwd_plan(d)
+    assert plan.rows == (64 if d >= 256 else 128)
+    assert plan.cluster == (2 if d == 512 else 1)
+    assert plan.cols * plan.cluster == d and plan.cols <= 256
+    tile = tfa._sw128_bytes(plan.cols, tfa.STREAM_BWD_TILE)
+    fp32 = plan.cluster * 64 * 64 * 4 if d >= 256 else 0
+    assert plan.smem == (1024 + 2 * tfa._sw128_bytes(plan.cols, plan.rows)
+                         + 2 * plan.stages * tile + fp32)
+    assert plan.smem + tfa.STREAM_BWD_STATIC <= tfa.SMEM_PER_BLOCK == 232_448
+    assert plan.stages >= 2
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 200])
+def test_int8_mm_is_exact_at_any_row_count(m):
+    """``int8_mm`` equals the exact int32 product at M 1, 16 (padded to 17
+    rows for torch._int_mm), 17 and 200."""
+    rng = np.random.RandomState(m)
+    a = torch.from_numpy(rng.randint(-127, 128, (m, 256)).astype(np.int8))
+    w = torch.from_numpy(rng.randint(-127, 128, (384, 256)).astype(np.int8))
+    got = tqf.int8_mm(a, w)
+    assert got.dtype == torch.int32 and got.shape == (m, 384)
+    assert torch.equal(got, a.int() @ w.int().t())

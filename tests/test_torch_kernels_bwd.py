@@ -170,3 +170,26 @@ def test_backward_kernels_raise_off_the_card(fn, args):
     with pytest.raises(ValueError, match="no kernel"):
         fn(*([x] * args), scale=0.125)
     assert fn.launches == before
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_stream_delta_plain_matches_jax(dtype):
+    """``_delta`` (the delta pre-pass kernel's plain version, which
+    ``stream_attention_delta`` runs on a CPU tensor) against the JAX
+    ``stream_bwd``'s delta, sum(g.astype(f32) * out.astype(f32), -1), on
+    the same numpy inputs (bf16-rounded where the dtype is bf16)."""
+    g, out = _arrays((2, 3, 70, 64), 2, seed=21)
+    if dtype == "bfloat16":
+        g, out = (np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+                  for x in (g, out))
+    jdt = jnp.float32 if dtype == np.float32 else jnp.bfloat16
+    want = np.asarray(jnp.sum(jnp.asarray(g, jdt).astype(jnp.float32)
+                              * jnp.asarray(out, jdt).astype(jnp.float32),
+                              axis=-1))
+    tdt = torch.float32 if dtype == np.float32 else torch.bfloat16
+    tg, tout = (torch.from_numpy(x).to(tdt) for x in (g, out))
+    got = tfa._delta(tg, tout)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 70)
+    assert got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-6)
+    assert torch.equal(tfa.stream_attention_delta(tg, tout), got)
