@@ -44,7 +44,7 @@ Phases (any failure exits non-zero without the final result line):
 3. build the full-width flagship AMD_N (``configs/amd/amd_n_t1d512_spatial.json``)
    and the SD-VAE in bf16 on seeded random weights and reconstruct one
    synthetic 17 x 3 x 256 x 256 clip at ``sample_step=10`` through
-   ``AMDReconstructionPipeline.sample``: one warm-up, then a timed run with
+   ``AMDReconstructionPipeline.sample_pixels``: one warm-up, then a timed run with
    the kernels' launch counters set to 0 just before and read just after
    (248 full-block and 3 streaming launches per clip). The decoded clip
    must be finite before quantisation, uint8 of the expected shape, and
@@ -54,7 +54,28 @@ Phases (any failure exits non-zero without the final result line):
    of the fused qk-norm kernel, none of the plain full-block one, 3
    streaming; it must agree with phase 3's clip; then both clips timed in
    turns, 4 of each;
-   3b. (run after 3c, since it strips the models' float weights) the int8
+   3d-3h. the serving paths on the same models, each one warm-up run
+   and one timed run with exact launch counts (``sdpa_plain`` 0), uint8 of
+   the expected shape, finite before quantisation, and in agreement with
+   the same run on the plain attention versions (phase 3's tolerances):
+   3d. the clip with the Heun solver (two DiT calls a step);
+   3e. the clip with camera and object mask ratios 0.5 (the camera joint
+   block at 128 + 256 tokens; the object encoder at 4 + 128 tokens, below
+   the kernels' 256^2 logits);
+   3f. the windowed long-video reconstruction of a 38-frame clip (two
+   windows and a ragged tail of 5), then of 257 frames (``max_frames``
+   256, 16 windows) in its own timed run, with its peak device memory
+   (finite output and counts only);
+   3g. the cross-video clip (camera motion of one clip, appearance of
+   another; only the camera stream in the DiT);
+   3h. the GT-motion ablation over 2 windows;
+   3i. the checkpoint round trip: the flagship's weights written as a
+   reference-named ``.safetensors`` (a writer of this script's own),
+   loaded by ``load_pretrain_partial`` and by the CLI's ``load_amd`` with
+   the flagship config, both equal to the live weights; where OpenCV
+   imports, ``python -m hivae_tpu_torch.cli.amd_inference`` end to end on
+   an mp4 written here (its frame count, shape and launches);
+   3b. (run after 3c-3i, since it strips the models' float weights) the int8
    clip through ``AMDReconstructionPipeline(vae, amd, quant="int8")`` on
    the same weights: 360 fused FFN-up launches (36 FFNs x 10 Euler steps),
    248 full-block and 3 streaming; uint8, finite before quantisation, and
@@ -102,6 +123,7 @@ import subprocess
 import sys
 import math
 import re
+import struct
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -110,6 +132,13 @@ SEED = 0
 WINDOW = 16
 SIZE = 256
 SAMPLE_STEP = 10
+# the serving paths of phases 3e-3h: mask ratios of the masked clip, the
+# long clips' frames (reference + 2 windows + a ragged tail of 5; then
+# max_frames 256 + the reference), the GT-motion ablation's windows
+MASK_RATIO = 0.5
+LONG_FRAMES = 38
+LONG_MAX_FRAMES = 256
+GT_WINDOWS = 2
 
 # H100 SXM published dense peaks (NVIDIA data sheet), at a 700 W limit
 PEAK_BF16_FLOPS = 989e12
@@ -166,6 +195,9 @@ STREAM_CHECKS = [
      True),
     ("D 64", (4, 8, 1024, 64), False),
     ("D 256", (4, 2, 1024, 256), True),
+    # the long path's VAE encodes and decode (phase 3f), 3 launches each
+    ("SD-VAE mid-block, long clip (F 38)", (38, 1, 1024, 512), False),
+    ("SD-VAE mid-block, long clip (F 257)", (257, 1, 1024, 512), False),
 ]
 # check-only full-block cases (label, q shape, Sk or None, weight 0,
 # masked): a fully masked key row; the largest shape ``full_block_fits``
@@ -175,6 +207,10 @@ FULL_BLOCK_CHECKS = [
     ("largest full-block shape", (4, 16, 1024, 64), None, 0, False),
     ("Sq 300, Sk 700", (2, 4, 300, 64), 700, 0, False),
     ("Sq 300, Sk 700, masked", (2, 4, 300, 64), 700, 0, True),
+    # the masked clip's camera joint block (phase 3e): 128 kept sites + 256
+    # patches, 12 x 10 launches a clip there
+    ("DiT camera joint, masked clip (S 384)", (16, 16, 384, 64), None, 0,
+     False),
 ]
 
 # training: clips per step in runs A and B, timed steps, frames per clip
@@ -1087,19 +1123,21 @@ def summarise(rec, launches):
     return rec
 
 
-def synthetic_clip(seed: int = SEED):
-    """(17, 3, 256, 256) RGB in [-1, 1] (drifting smooth colour waves with
-    seeded noise) and its grey clip (ITU-R 601 luma in all 3 channels)."""
+def synthetic_clip(seed: int = SEED, frames: int = None):
+    """(frames, 3, 256, 256) RGB in [-1, 1] (smooth colour waves, drawn
+    anew each frame, with seeded noise; 17 frames by default) and its grey
+    clip (ITU-R 601 luma in all 3 channels)."""
     import numpy as np
+    frames = WINDOW + 1 if frames is None else frames
     rng = np.random.RandomState(seed)
     yy, xx = np.meshgrid(np.linspace(0, 1, SIZE), np.linspace(0, 1, SIZE),
                          indexing="ij")
-    frames = []
-    for t in range(WINDOW + 1):
+    clip = []
+    for t in range(frames):
         chans = [np.sin(2 * np.pi * (f * xx + g * yy) + 0.3 * t + ph)
                  for f, g, ph in rng.uniform(0.5, 3.0, (3, 3))]
-        frames.append(np.stack(chans))
-    rgb = np.stack(frames) * 0.8 + 0.1 * rng.randn(WINDOW + 1, 3, SIZE, SIZE)
+        clip.append(np.stack(chans))
+    rgb = np.stack(clip) * 0.8 + 0.1 * rng.randn(frames, 3, SIZE, SIZE)
     rgb = np.clip(rgb, -1, 1).astype(np.float32)
     luma = np.tensordot(np.array([0.299, 0.587, 0.114], np.float32), rgb,
                         axes=([0], [1]))
@@ -1128,39 +1166,35 @@ def build_serving_models():
     return amd, vae
 
 
-def _timed_clip(pipe, label, failures, want_launches):
-    """One warm-up clip, then a timed one with the launch counters set to 0
-    just before and read just after. Checks the uint8 shape, finite decoded
-    pixels before quantisation (the decoder's last conv, observed from
-    outside the port) and the launches. Returns (clip fn, clip, launches,
-    latency s)."""
+def _timed_path(label, run, vae, want_shape, want_launches, failures,
+                warm: bool = True):
+    """One warm-up run of ``run`` (unless ``warm`` is False), then a timed
+    one with the launch counters set to 0 just before and read just after.
+    Checks the uint8 shape, finite decoded pixels before quantisation (the
+    decoder's last conv, observed from outside the port) and the launches
+    (every counter not in ``want_launches`` must read 0). Returns (output,
+    launches, latency s)."""
     import torch
-    rgb, grey = synthetic_clip()
-    pixels = torch.from_numpy(rgb).cuda()
-    grey = torch.from_numpy(grey).cuda()
     decoded = []
-    hook = pipe.vae.decoder.conv_out.register_forward_hook(
+    hook = vae.decoder.conv_out.register_forward_hook(
         lambda _m, _i, out: decoded.append(torch.isfinite(out).all()))
+    try:
+        if warm:
+            run()
+            torch.cuda.synchronize()
+        decoded.clear()
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        latency = time.perf_counter() - t0
+        launches = _read_counts()
+    finally:
+        hook.remove()
 
-    def clip():
-        gen = torch.Generator(device="cuda").manual_seed(SEED)
-        return pipe.sample(pixels, grey, video_sample_step=SAMPLE_STEP,
-                           generator=gen)
-
-    clip()  # warm-up
-    torch.cuda.synchronize()
-    decoded.clear()
-    _zero_counts()
-    t0 = time.perf_counter()
-    out = clip()
-    torch.cuda.synchronize()
-    latency = time.perf_counter() - t0
-    launches = _read_counts()
-    hook.remove()
-
-    if tuple(out.shape) != (WINDOW + 1, 3, SIZE, SIZE) or \
-            out.dtype != torch.uint8:
-        failures.append(f"{label}: got {tuple(out.shape)} {out.dtype}")
+    if tuple(out.shape) != tuple(want_shape) or out.dtype != torch.uint8:
+        failures.append(f"{label}: got {tuple(out.shape)} {out.dtype}, want "
+                        f"{tuple(want_shape)} uint8")
     if not (decoded and all(bool(x) for x in decoded)):
         failures.append(f"{label}: decoded pixels not finite before "
                         "quantisation")
@@ -1168,10 +1202,31 @@ def _timed_clip(pipe, label, failures, want_launches):
     if launches != want:
         failures.append(f"{label}: launches {launches}, want {want}")
     o = out.float()
+    frames = want_shape[0] - 1
     _log(f"  {label} {tuple(out.shape)} {out.dtype}: mean {o.mean():.2f} std "
          f"{o.std():.2f}; latency {latency * 1e3:.2f} ms, "
-         f"{WINDOW / latency:.2f} reconstructed frames/s; launches "
+         f"{frames / latency:.2f} reconstructed frames/s; launches "
          f"{ {k: v for k, v in launches.items() if v} }")
+    return out, launches, latency
+
+
+def _timed_clip(pipe, label, failures, want_launches):
+    """Phase 3's clip through ``pipe.sample_pixels`` (``_timed_path``).
+    Returns (clip fn, clip, launches, latency s)."""
+    import torch
+    rgb, grey = synthetic_clip()
+    pixels = torch.from_numpy(rgb).cuda()
+    grey = torch.from_numpy(grey).cuda()
+
+    def clip():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        return pipe.sample_pixels(pixels, grey,
+                                  video_sample_step=SAMPLE_STEP,
+                                  generator=gen)
+
+    out, launches, latency = _timed_path(
+        label, clip, pipe.vae, (WINDOW + 1, 3, SIZE, SIZE), want_launches,
+        failures)
     return clip, out, launches, latency
 
 
@@ -1247,6 +1302,242 @@ def run_qknorm_clip(models, bf16_clip, failures):
          + " ".join(f"{x:.2f}" for x in turns[True])
          + f" (median {statistics.median(turns[True]):.2f})")
     return launches, latency
+
+
+def _serving_launches(cfg):
+    """Kernel launches of each serving path of phases 3d-3h at
+    ``SAMPLE_STEP`` steps: the object encoder's layers at 4 + 256 tokens
+    and the DiT's object and camera joint blocks per layer and velocity
+    call run the full-block kernel, each VAE encode and decode one
+    streaming forward. Masked (ratio 0.5), the object encoder runs at 4 +
+    128 tokens on the plain path (below 256^2 logits, as the JAX package's
+    XLA path) and the camera joint block at 128 + 256. The cross clip runs
+    the camera stream only and encodes the camera clip (grey) and the
+    appearance clip once each; the long path 3 windows of 38 frames (2 and
+    the ragged tail) and 16 of 257, one encode of the clip, RGB and grey,
+    and one decode; the GT-motion ablation per window 8 layers on the
+    window, 8 on its reference frame and the object stream only, with one
+    encode and one decode of the whole clip."""
+    enc, dit = cfg.object_enc_num_layers, cfg.diffusion_num_layers
+    clip = enc + 2 * dit * SAMPLE_STEP
+
+    def windows(frames):
+        return -(-(frames - 1) // WINDOW)
+
+    def fb(n):
+        return dict(full_block_attention=n, stream_attention=3)
+    return {"clip_heun": fb(enc + 2 * dit * 2 * SAMPLE_STEP),
+            "clip_masked": fb(2 * dit * SAMPLE_STEP),
+            "long": fb(windows(LONG_FRAMES) * clip),
+            "long_257": fb(windows(LONG_MAX_FRAMES + 1) * clip),
+            "cross": fb(dit * SAMPLE_STEP),
+            "gt_motion": dict(full_block_attention=GT_WINDOWS * (
+                2 * enc + dit * SAMPLE_STEP), stream_attention=2)}
+
+
+def run_serving_paths(models, failures):
+    """Phases 3d-3h. Returns the launches of each path's timed run."""
+    import torch
+    from hivae_tpu_torch.pipelines import (AMDCrossVideoPipeline,
+                                           AMDReconstructionPipeline,
+                                           GTMotionAblationPipeline)
+
+    amd, vae = models
+    want = _serving_launches(amd.cfg)
+    paths = {}
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+
+    def cuda(*arrays):
+        return [torch.from_numpy(a).cuda() for a in arrays]
+
+    def check(name, label, run, frames):
+        out, paths[name], _ = _timed_path(label, run, vae,
+                                          (frames, 3, SIZE, SIZE),
+                                          want[name], failures)
+        with _plain_kernels():
+            ref = run()
+        _clip_diff(f"{label} vs the same run on the plain attention "
+                   "versions", out, ref, failures)
+
+    rgb, grey = cuda(*synthetic_clip())
+    pipe = AMDReconstructionPipeline(vae, amd, window=WINDOW)
+    _log("phase 3d: the clip with the Heun solver")
+    check("clip_heun", "Heun clip", lambda: pipe.sample_pixels(
+        rgb, grey, SAMPLE_STEP, gen(), solver="heun"), WINDOW + 1)
+    _log(f"phase 3e: the clip with mask ratios {MASK_RATIO}")
+    check("clip_masked", "masked clip", lambda: pipe.sample_pixels(
+        rgb, grey, SAMPLE_STEP, gen(), camera_mask_ratio=MASK_RATIO,
+        object_mask_ratio=MASK_RATIO), WINDOW + 1)
+
+    _log(f"phase 3f: long-video reconstruction, {LONG_FRAMES} frames, then "
+         f"{LONG_MAX_FRAMES + 1}")
+    lrgb, lgrey = cuda(*synthetic_clip(SEED + 20, LONG_FRAMES))
+    check("long", f"long clip ({LONG_FRAMES} frames)",
+          lambda: pipe.sample_long_pixels(lrgb, lgrey, SAMPLE_STEP,
+                                          generator=gen()), LONG_FRAMES)
+    del lrgb, lgrey
+    frgb, fgrey = cuda(*synthetic_clip(SEED + 21, LONG_MAX_FRAMES + 1))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, paths["long_257"], _ = _timed_path(
+        f"long clip ({LONG_MAX_FRAMES + 1} frames)",
+        lambda: pipe.sample_long_pixels(frgb, fgrey, SAMPLE_STEP,
+                                        generator=gen()),
+        vae, (LONG_MAX_FRAMES + 1, 3, SIZE, SIZE), want["long_257"],
+        failures, warm=False)
+    _log(f"  long clip ({LONG_MAX_FRAMES + 1} frames): peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+         f"(torch.cuda.max_memory_allocated, models included)")
+    del frgb, fgrey
+    torch.cuda.empty_cache()
+
+    _log("phase 3g: cross-video motion transfer")
+    crgb, cgrey = cuda(*synthetic_clip(SEED + 22))
+    cpipe = AMDCrossVideoPipeline(vae, amd, window=WINDOW)
+    check("cross", "cross clip", lambda: cpipe.sample_cross_pixels(
+        crgb, rgb, cgrey, SAMPLE_STEP, gen()), WINDOW + 1)
+
+    _log(f"phase 3h: GT-motion ablation, {GT_WINDOWS} windows")
+    (gpix,) = cuda(synthetic_clip(SEED + 23, GT_WINDOWS * WINDOW + 1)[0])
+    gpipe = GTMotionAblationPipeline(vae, amd, window=WINDOW)
+    check("gt_motion", "GT-motion ablation", lambda: gpipe.reconstruct_pixels(
+        gpix, GT_WINDOWS, SAMPLE_STEP, gen()), GT_WINDOWS * WINDOW + 1)
+    return paths
+
+
+# torch dtype -> safetensors dtype name
+_ST_DTYPES = {"torch.bfloat16": "BF16", "torch.float32": "F32",
+              "torch.float16": "F16"}
+
+
+def write_safetensors(path, state):
+    """Write ``state`` (name -> tensor) as a ``.safetensors`` file: an
+    8-byte little-endian header length, the JSON header (each tensor's
+    dtype, shape and byte range), padded to 8 bytes, then each tensor's
+    raw little-endian bytes."""
+    import torch
+    header, offset = {}, 0
+    for name, v in state.items():
+        n = v.numel() * v.element_size()
+        header[name] = {"dtype": _ST_DTYPES[str(v.dtype)],
+                        "shape": list(v.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for v in state.values():
+            f.write(v.detach().contiguous().cpu().reshape(-1).view(
+                torch.uint8).numpy().tobytes())
+
+
+def _reference_named(model):
+    """The model's state dict as the reference names and lays it out: each
+    ``PatchEmbed`` Linear (O, I*p*p) as a stride-p conv (O, I, p, p)."""
+    from hivae_tpu_torch.models.blocks import PatchEmbed
+    state = dict(model.state_dict())
+    for name, mod in model.named_modules():
+        if isinstance(mod, PatchEmbed):
+            key = f"{name}.proj.weight"
+            p = mod.patch_size
+            state[key] = state[key].reshape(state[key].shape[0], -1, p, p)
+    return state
+
+
+def run_checkpoint_roundtrip(models, failures):
+    """Phase 3i. Returns the CLI run's launches, or None where OpenCV does
+    not import (the mp4 leg does not run)."""
+    import argparse
+    import shutil
+    import torch
+    from hivae_tpu_torch.cli import amd_inference
+    from hivae_tpu_torch.cli import common as cli_common
+    from hivae_tpu_torch.models import amd as amd_mod
+    from hivae_tpu_torch.training import checkpoint as ckpt_lib
+
+    amd, _ = models
+    live = amd.state_dict()
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, "amd_n.safetensors")
+
+    def differing(model):
+        return [k for k, v in model.state_dict().items()
+                if not torch.equal(v, live[k])]
+    try:
+        t0 = time.perf_counter()
+        write_safetensors(path, _reference_named(amd))
+        write_s = time.perf_counter() - t0
+        fresh = amd_mod.AMDModelNew(amd.cfg, device="cuda",
+                                    dtype=torch.bfloat16).eval()
+        t0 = time.perf_counter()
+        report = ckpt_lib.load_pretrain_partial(fresh, path)
+        load_s = time.perf_counter() - t0
+        diff = differing(fresh)
+        _log(f"  reference-named checkpoint {os.path.getsize(path) / 2**30:.3f}"
+             f" GiB written in {write_s:.1f} s, loaded in {load_s:.1f} s: "
+             f"missing {len(report['missing'])}, unused "
+             f"{len(report['unused'])}, tensors differing {len(diff)}")
+        if report["missing"] or report["unused"] or diff:
+            failures.append(f"checkpoint round trip: report {report}, "
+                            f"differing {diff[:5]}")
+        del fresh
+        args = argparse.Namespace(model_type="AMD_N", amd_config=CONFIG,
+                                  amd_ckpt=path, video_frames=WINDOW)
+        cli_model = cli_common.load_amd(args, "cuda")
+        diff = differing(cli_model)
+        _log(f"  cli load_amd with {os.path.relpath(CONFIG, ROOT)}: tensors "
+             f"differing {len(diff)}")
+        if diff or cli_model.cfg != amd.cfg.replace(video_frames=WINDOW):
+            failures.append(f"cli load_amd: differing {diff[:5]}")
+        del cli_model
+
+        try:
+            import cv2  # noqa: F401  (the mp4 leg reads and writes with it)
+        except ImportError as e:
+            _log(f"  mp4 leg not run: OpenCV does not import on this machine "
+                 f"({e}); the device half of every path ran in phases 3-3h")
+            return None
+        from hivae_tpu_torch.data import video as vio
+        videos, out_dir = (os.path.join(work, d) for d in ("videos", "out"))
+        os.makedirs(videos)
+        rgb, _ = synthetic_clip(SEED + 30, WINDOW + 4)
+        frames = ((rgb.transpose(0, 2, 3, 1) + 1.0) * 127.5).clip(0, 255)
+        vio.write_video(os.path.join(videos, "synthetic.mp4"),
+                        frames.astype("uint8"), fps=8)
+        cli_steps = 2
+        _zero_counts()
+        t0 = time.perf_counter()
+        rc = amd_inference.main([
+            "--amd_config", CONFIG, "--amd_ckpt", path, "--video_dir",
+            videos, "--output_dir", out_dir, "--sample_step",
+            str(cli_steps)])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = _read_counts()
+        out = os.path.join(out_dir, "synthetic_recon.mp4")
+        total = vio.video_metadata(out)[0] if os.path.exists(out) else 0
+        shape = vio.read_video_frames(out, range(total)).shape if total \
+            else None
+        enc = amd.cfg.object_enc_num_layers
+        want = dict(_no_launches(), full_block_attention=(
+            enc + 2 * amd.cfg.diffusion_num_layers * cli_steps),
+            stream_attention=3)
+        _log(f"  python -m hivae_tpu_torch.cli.amd_inference: rc {rc}, "
+             f"{out} frames {shape}, {cli_s:.1f} s with model build; "
+             f"launches { {k: v for k, v in launches.items() if v} }")
+        if rc != 0 or shape != (WINDOW + 1, SIZE, SIZE, 3) or \
+                launches != want:
+            failures.append(f"amd_inference cli: rc {rc}, frames {shape}, "
+                            f"launches {launches}, want {want}")
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def _model_bytes(*mods):
@@ -1681,6 +1972,11 @@ def main() -> int:
     paths["clip"], latency, bf16_clip = run_clip(serving, args, failures)
     _log("phase 3c: the same clip with the fused qk-norm kernel")
     paths["clip_qknorm"], _ = run_qknorm_clip(serving, bf16_clip, failures)
+    paths.update(run_serving_paths(serving, failures))
+    _log("phase 3i: checkpoint round trip and the inference CLI")
+    cli_launches = run_checkpoint_roundtrip(serving, failures)
+    if cli_launches is not None:
+        paths["cli_mp4"] = cli_launches
     _log("phase 3b: the int8 (w8a8) clip")
     paths["clip_int8"], _ = run_int8_clip(serving, bf16_clip, latency,
                                           args, failures)

@@ -1,0 +1,89 @@
+"""What the inference CLIs share: the model flags, the AMD model built
+from a JAX-schema ``config.json`` with its checkpoint, and the SD-VAE."""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import json
+import os
+
+import torch
+
+from ..models import amd as amd_mod
+from ..models import vae as vae_mod
+from ..training import checkpoint as ckpt_lib
+from ..utils.checkpoint_io import load_safetensors, normalize_vae_keys
+
+# The SD-VAE the CLIs build (the SD-VAE's published configuration)
+VAE_CONFIG = vae_mod.VAEConfig()
+
+
+def add_model_args(p: argparse.ArgumentParser, frames: int = 16) -> None:
+    p.add_argument("--amd_config", type=str, required=True,
+                   help="config.json written at training time")
+    p.add_argument("--amd_ckpt", type=str, required=True,
+                   help="a checkpoint of the port's trainer (a "
+                        "checkpoint-N directory or the directory holding "
+                        "them) or a reference-named .safetensors")
+    p.add_argument("--vae_ckpt", type=str, default=None,
+                   help="SD-VAE .safetensors (diffusers names, old or new)")
+    p.add_argument("--video_frames", type=int, default=frames,
+                   help="sampling window")
+    p.add_argument("--model_type", type=str, default="AMD_N")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; cuda (the default) never falls back "
+                        "to the CPU")
+
+
+def load_amd(args, device, dtype: torch.dtype = torch.bfloat16
+             ) -> amd_mod.AMDModelNew:
+    """The AMD model of ``args.amd_config`` (its window set to
+    ``args.video_frames``) with the weights of ``args.amd_ckpt``, in
+    ``dtype``; ``args.use_ema`` (where the CLI has it) takes a trainer
+    checkpoint's EMA weights."""
+    if args.model_type != "AMD_N":
+        raise NotImplementedError(
+            f"--model_type {args.model_type}: the port serves AMD_N "
+            "(AMDModelNew) only; the dual-encoder AMDModel and the other "
+            "factories are not ported yet (ROADMAP.md Queue 1 #6)")
+    with open(args.amd_config) as f:
+        cfg = amd_mod.AMDConfig.from_dict(json.load(f))
+    cfg = cfg.replace(video_frames=args.video_frames)
+    model = amd_mod.AMDModelNew(cfg, device=device, dtype=dtype).eval()
+    if args.amd_ckpt.endswith(".safetensors"):
+        report = ckpt_lib.load_pretrain_partial(model, args.amd_ckpt)
+        print(f"converted torch checkpoint; missing={len(report['missing'])}")
+    else:
+        model.load_state_dict(ckpt_lib.load_trained_params(
+            args.amd_ckpt, getattr(args, "use_ema", False)), strict=True)
+    return model
+
+
+def build_vae(args, device, dtype: torch.dtype = torch.bfloat16
+              ) -> vae_mod.AutoencoderKL:
+    """The SD-VAE, with the weights of ``args.vae_ckpt`` when given (else
+    its random initialisation)."""
+    vae = vae_mod.AutoencoderKL(VAE_CONFIG, device=device, dtype=dtype).eval()
+    if args.vae_ckpt:
+        ckpt_lib.load_state_partial(
+            vae, normalize_vae_keys(load_safetensors(args.vae_ckpt)))
+    return vae
+
+
+def sample_size(amd: amd_mod.AMDModelNew, vae: vae_mod.AutoencoderKL) -> int:
+    """The pixel size whose latents the model takes: its latent height
+    times the VAE's downsampling."""
+    return amd.cfg.image_height * 2 ** (len(vae.cfg.block_out_channels) - 1)
+
+
+def draws(device, seed: int) -> amd_mod.DrawSource:
+    """The draw source of one video: a generator on ``device`` seeded with
+    ``seed`` (the video's index)."""
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def mp4s(video_dir: str):
+    """The mp4 files under ``video_dir``, recursively, in sorted order."""
+    return sorted(glob.glob(os.path.join(video_dir, "**", "*.mp4"),
+                            recursive=True))

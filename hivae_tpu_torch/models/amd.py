@@ -1,6 +1,8 @@
 """AMD_N: frequency-decoupled motion autoencoding with a rectified-flow DiT
-decoder (port of ``AMDModelNew`` with its training forward, ``sample`` and
-``_euler_decode`` of ``hivae_tpu/models/amd.py``).
+decoder (port of ``AMDModelNew``, its training forward and the sampling
+drivers ``sample``, ``decode``, ``sample_with_refimg_motion``,
+``sample_cross``, ``extract_motion`` and ``_euler_decode`` of
+``hivae_tpu/models/amd.py``).
 
 The camera stream is the temporal-cross encoder on the low-pass (grey)
 band, the object stream the spatial encoder on RGB, the decoder
@@ -13,14 +15,17 @@ no effect here.
 Every random draw of the training forward (mask-ratio jitter, token
 permutations, timesteps, flow noise) can be injected through
 ``TrainDraws``; what is not injected is drawn from the caller's
-``torch.Generator`` in the JAX package's order.
+``torch.Generator`` in the JAX package's order. The sampling drivers draw
+through ``SampleDraws``: from a generator, or replayed from tensors drawn
+elsewhere.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -91,6 +96,9 @@ class AMDConfig:
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
+    def replace(self, **kw) -> "AMDConfig":
+        return dataclasses.replace(self, **kw)
+
 
 @dataclasses.dataclass
 class TrainDraws:
@@ -107,6 +115,52 @@ class TrainDraws:
     object_u: Optional[torch.Tensor] = None
     camera_perm: Optional[torch.Tensor] = None
     object_perm: Optional[torch.Tensor] = None
+
+
+class SampleDraws:
+    """The random tensors of a sampling call, taken in the order the call
+    asks for them: the uniform draws that order the kept tokens of a
+    static-ratio mask (camera before object) and the ODE start noise. Each
+    is drawn from ``generator`` or, with ``replay``, is the next tensor of
+    that list (draws made elsewhere, such as the JAX package's from its
+    keys), which must have the shape asked for."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 replay: Optional[Sequence[Any]] = None):
+        self.generator = generator
+        self.replay = None if replay is None else list(replay)
+
+    def _next(self, shape, device, dtype) -> torch.Tensor:
+        if not self.replay:
+            raise ValueError(f"no replayed draw left for shape {shape}")
+        t = self.replay.pop(0)
+        t = t if torch.is_tensor(t) else torch.from_numpy(np.array(t))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"replayed draw has shape {tuple(t.shape)}, "
+                             f"the call asks for {tuple(shape)}")
+        return t.to(device=device, dtype=dtype)
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        if self.replay is not None:
+            return self._next(shape, device, torch.float32)
+        return torch.rand(shape, generator=self.generator, device=device)
+
+    def normal(self, shape, dtype, device) -> torch.Tensor:
+        if self.replay is not None:
+            return self._next(shape, device, dtype)
+        return torch.randn(shape, generator=self.generator, dtype=dtype,
+                           device=device)
+
+
+DrawSource = Union[None, torch.Generator, SampleDraws]
+
+
+def sample_draws(generator: DrawSource) -> SampleDraws:
+    """``generator`` (None, a ``torch.Generator`` or ``SampleDraws``) as
+    ``SampleDraws``."""
+    if isinstance(generator, SampleDraws):
+        return generator
+    return SampleDraws(generator)
 
 
 def _band_split(x_nthw: torch.Tensor, d_low: float, d_high: float
@@ -183,12 +237,16 @@ class AMDModelNew(nn.Module):
 
     def encode(self, video, ref_img, video_grey=None, ref_img_grey=None,
                camera_mask_ratio=None, object_mask_ratio=None,
-               low_cut: float = 0.6, high_cut: float = 0.6, *,
-               camera_perm=None, object_perm=None, generator=None):
+               low_cut: float = 0.6, high_cut: float = 0.6,
+               *, camera_perm=None, object_perm=None,
+               camera_u=None, object_u=None, generator=None):
         """-> (camera_target (N,T,S,Dc), object_source (N*T,L,Do),
         object_target (N*T,L,Do)); video/ref_img: (N,T,C,H,W) latents.
-        With a ``camera_mask_ratio`` (0-d tensor) a fourth entry, the
-        camera site keep-mask (N, S), follows."""
+        A ratio given as a 0-d tensor is the training jitter (``*_perm``
+        the shuffles); with a tensor ``camera_mask_ratio`` a fourth entry,
+        the camera site keep-mask (N, S), follows. A float ratio drops
+        tokens (``camera_u`` (N, S) and ``object_u`` (N*2T, L) the uniform
+        draws that order them)."""
         c = self.cfg
         n, t = video.shape[:2]
         refimg_and_video = torch.cat([ref_img, video], dim=1)
@@ -203,19 +261,28 @@ class AMDModelNew(nn.Module):
         camera_target = object_source = object_target = site_mask = None
         if c.use_camera:
             camera_target = self.camera_motion_encoder(
-                lf_video, camera_mask_ratio, perm=camera_perm,
+                lf_video, camera_mask_ratio, perm=camera_perm, u=camera_u,
                 generator=generator)
             if isinstance(camera_target, tuple):
                 camera_target, site_mask = camera_target
         if c.use_object:
             om = self.object_motion_encoder(
                 refimg_and_video, object_mask_ratio, perm=object_perm,
-                generator=generator)
+                u=object_u, generator=generator)
             object_source = om[:, :t].reshape((n * t,) + om.shape[2:])
             object_target = om[:, t:].reshape((n * t,) + om.shape[2:])
         if site_mask is not None:
             return camera_target, object_source, object_target, site_mask
         return camera_target, object_source, object_target
+
+    def extract_motion(self, video, mask_ratio: Optional[float] = None, *,
+                       u=None, generator=None):
+        """Object-motion tokens (N, T, L, D) of ``video`` (N, T, C, H, W)
+        latents; a float ``mask_ratio`` drops that share of the encoder's
+        patch tokens (``u`` (N*T, patches) the uniform draw that orders
+        them), the GT-motion ablation's knob."""
+        return self.object_motion_encoder(video, mask_ratio, u=u,
+                                          generator=generator)
 
     def velocity(self, image_hidden_states, timestep, camera_target=None,
                  object_source=None, object_target=None,
@@ -300,10 +367,16 @@ def AMD_N(device: Optional[Union[str, torch.device]] = None,
 
 
 def _euler_decode(model: AMDModelNew, zi, z0, motions, sample_step: int,
-                  start_step: int, z1=None, quant_table=None):
-    """Euler-walk the DiT from ``start_step`` down to step 0. With a
+                  start_step: int, z1=None, solver: str = "euler",
+                  quant_table=None):
+    """ODE-walk the DiT from ``start_step`` down to step 0 with ``solver``
+    ("euler", or "heun": two velocity calls a step). Below the full range
+    the walk starts from the partially noised target ``z1``. With a
     ``quant_table`` (``ops.quant.quantize_params`` of the model) the
     velocity calls run the table's layers in int8."""
+    solvers = {"euler": rf.euler_sample, "heun": rf.heun_sample}
+    if solver not in solvers:
+        raise ValueError(f"unknown solver {solver!r}; use 'euler' or 'heun'")
     num_steps = model.cfg.scheduler_num_step
     step_seq = rf.sample_step_sequence(sample_step, start_step, num_steps)
     z_start = rf.euler_start(z0, z1, start_step, num_steps)
@@ -312,36 +385,172 @@ def _euler_decode(model: AMDModelNew, zi, z0, motions, sample_step: int,
         return model.velocity(torch.cat([zi, zt], dim=1), tstep, **motions)
 
     with quant_ops.maybe_quantized(model, quant_table):
-        return rf.euler_sample(vel_fn, z_start, step_seq)
+        return solvers[solver](vel_fn, z_start, step_seq)
+
+
+def _sites(latents: torch.Tensor, cfg: AMDConfig) -> int:
+    """Patch tokens of one (.., C, h, w) latent frame."""
+    p = cfg.image_patch_size
+    return (latents.shape[-2] // p) * (latents.shape[-1] // p)
+
+
+def _static(ratio) -> Optional[float]:
+    return None if ratio is None else float(ratio)
+
+
+def _unflat(x: torch.Tensor, n: int, t: int) -> torch.Tensor:
+    return x.reshape((n, t) + x.shape[1:])
 
 
 @torch.no_grad()
 def sample(model: AMDModelNew, video, ref_img, video_grey=None,
            ref_img_grey=None, sample_step: int = 50,
            start_step: Optional[int] = None,
-           generator: Optional[torch.Generator] = None,
-           noise: Optional[torch.Tensor] = None, quant_table=None):
+           camera_mask_ratio: Optional[float] = None,
+           object_mask_ratio: Optional[float] = None, camera_mask=None,
+           solver: str = "euler", generator: DrawSource = None,
+           quant_table=None):
     """Reconstruction: motion from ``video`` (N,T,C,H,W latents), then an
-    Euler decode from noise. The start noise is ``noise`` (N*T,C,H,W) when
-    given, else drawn from ``generator``. ``quant_table`` runs the Euler
-    loop's velocity calls in int8; the motion encoding stays in the compute
-    dtype. Returns (zi, sample, zj), each (N,T,C,H,W)."""
+    ODE decode from noise. The mask ratios (floats) drop that share of each
+    encoder's tokens. ``camera_mask``, the optical-flow camera mask of a
+    ``use_mask`` model, is refused: no model the port builds has
+    ``use_mask``. Draws come from ``generator`` (a ``torch.Generator`` or
+    ``SampleDraws``): the camera and object mask uniforms, then the start
+    noise (N*T,C,H,W). ``quant_table`` runs the ODE loop's velocity calls
+    in int8; the motion encoding stays in the compute dtype. Returns (zi,
+    sample, zj), each (N,T,C,H,W)."""
+    if camera_mask is not None:
+        raise NotImplementedError(
+            "camera_mask needs a use_mask model, which is not ported yet "
+            "(ROADMAP.md Queue 1 #4)")
     cfg = model.cfg
+    draws = sample_draws(generator)
     n, t = video.shape[:2]
     start = cfg.scheduler_num_step if start_step is None else start_step
+    camera_mask_ratio = _static(camera_mask_ratio)
+    object_mask_ratio = _static(object_mask_ratio)
+    sites, dev = _sites(video, cfg), video.device
+    camera_u = object_u = None
+    if camera_mask_ratio is not None and cfg.use_camera:
+        camera_u = draws.uniform((n, sites), dev)
+    if object_mask_ratio is not None and cfg.use_object:
+        object_u = draws.uniform((n * 2 * t, sites), dev)
     camera_target, object_source, object_target = model.encode(
-        video, ref_img, video_grey, ref_img_grey)
+        video, ref_img, video_grey, ref_img_grey, camera_mask_ratio,
+        object_mask_ratio, camera_u=camera_u, object_u=object_u)
     motions = dict(camera_target=camera_target, object_source=object_source,
                    object_target=object_target)
     zi = ref_img.reshape((n * t,) + ref_img.shape[2:])
     zj = video.reshape((n * t,) + video.shape[2:])
-    if noise is None:
-        noise = torch.randn(zj.shape, generator=generator, dtype=zj.dtype,
-                            device=zj.device)
-    zt = _euler_decode(model, zi, noise.to(zj), motions, sample_step, start,
-                       z1=zj, quant_table=quant_table)
+    noise = draws.normal(zj.shape, zj.dtype, zj.device)
+    zt = _euler_decode(model, zi, noise, motions, sample_step, start,
+                       z1=zj, solver=solver, quant_table=quant_table)
+    return _unflat(zi, n, t), _unflat(zt, n, t), _unflat(zj, n, t)
 
-    def unflat(x):
-        return x.reshape((n, t) + x.shape[1:])
 
-    return unflat(zi), unflat(zt), unflat(zj)
+@torch.no_grad()
+def decode(model: AMDModelNew, ref_img, motions: Dict[str, torch.Tensor],
+           frames: int, sample_step: int = 50,
+           start_step: Optional[int] = None, video=None,
+           solver: str = "euler", generator: DrawSource = None,
+           quant_table=None) -> torch.Tensor:
+    """Video latents (N, frames, C, H, W) from a reference frame and motion
+    tokens (``motions``: the ``velocity`` keywords). A single reference
+    frame (N, 1, C, H, W) is tiled to ``frames``; a clip must already have
+    ``frames``. ``video``, the target latents, seeds the walk when
+    ``start_step`` is below the scheduler's range."""
+    n, t = ref_img.shape[:2]
+    if t == 1 and frames > 1:
+        ref_img = ref_img.expand((n, frames) + ref_img.shape[2:])
+        t = frames
+    if t != frames:
+        raise ValueError(f"decode: ref_img carries {t} frames but "
+                         f"frames={frames}; pass a single frame (tiled here) "
+                         "or a matching clip")
+    start = model.cfg.scheduler_num_step if start_step is None else start_step
+    zi = ref_img.reshape((n * t,) + ref_img.shape[2:])
+    z1 = None if video is None else video.reshape((n * t,) + video.shape[2:])
+    z0 = sample_draws(generator).normal(zi.shape, zi.dtype, zi.device)
+    zt = _euler_decode(model, zi, z0, motions, sample_step, start, z1=z1,
+                       solver=solver, quant_table=quant_table)
+    return _unflat(zt, n, t)
+
+
+@torch.no_grad()
+def sample_with_refimg_motion(model: AMDModelNew, ref_img, motion,
+                              sample_step: int = 10, solver: str = "euler",
+                              mask_ratio: Optional[float] = None,
+                              generator: DrawSource = None,
+                              quant_table=None):
+    """Image + motion tokens -> video latents: the source motion extracted
+    from the reference frame ``ref_img`` (N, C, H, W), the given ``motion``
+    (N, F, L, D) as the target, both in the object stream. ``mask_ratio``
+    masks the source extraction; its uniform is drawn (before the start
+    noise) only then. Returns (zi, sample), each (N, F, C, H, W)."""
+    n, t, l, d = motion.shape
+    draws = sample_draws(generator)
+    u = None
+    if mask_ratio is not None:
+        u = draws.uniform((n, _sites(ref_img, model.cfg)), ref_img.device)
+    src = model.extract_motion(ref_img[:, None], mask_ratio, u=u)
+    motions = dict(object_source=src.expand(n, t, l, d).reshape(n * t, l, d),
+                   object_target=motion.reshape(n * t, l, d))
+    zi = ref_img[:, None].expand((n, t) + ref_img.shape[1:]).reshape(
+        (n * t,) + ref_img.shape[1:])
+    z0 = draws.normal(zi.shape, zi.dtype, zi.device)
+    zt = _euler_decode(model, zi, z0, motions, sample_step,
+                       model.cfg.scheduler_num_step, solver=solver,
+                       quant_table=quant_table)
+    return _unflat(zi, n, t), _unflat(zt, n, t)
+
+
+@torch.no_grad()
+def sample_cross(model: AMDModelNew, video_1, video_2, ref_img,
+                 video_grey_1=None, sample_step: int = 50,
+                 start_step: Optional[int] = None,
+                 camera_mask_ratio: Optional[float] = None,
+                 solver: str = "euler", generator: DrawSource = None,
+                 quant_table=None):
+    """Cross-video motion transfer: camera motion from the low band (cutoff
+    0.5) of ``video_1`` (its grey clip under ``use_grey``), appearance from
+    ``ref_img``; only the camera stream drives the DiT, and ``video_2``
+    seeds the walk below the full range. The JAX package's
+    ``video_grey_2``, ``ref_img_grey`` and ``object_mask_ratio`` are
+    accepted there and read by nothing, so they are not taken here.
+    Returns (zi, sample, zj), each (N, T, C, H, W)."""
+    cfg = model.cfg
+    draws = sample_draws(generator)
+    n, t = video_1.shape[:2]
+    start = cfg.scheduler_num_step if start_step is None else start_step
+    lf_video, _ = _band_split(video_grey_1 if cfg.use_grey else video_1,
+                              0.5, 0.5)
+    camera_mask_ratio = _static(camera_mask_ratio)
+    u = None
+    if camera_mask_ratio is not None:
+        u = draws.uniform((n, _sites(video_1, cfg)), video_1.device)
+    camera_target = model.camera_motion_encoder(lf_video, camera_mask_ratio,
+                                                u=u)
+    zi = ref_img.reshape((n * t,) + ref_img.shape[2:])
+    zj = video_2.reshape((n * t,) + video_2.shape[2:])
+    z0 = draws.normal(zj.shape, zj.dtype, zj.device)
+    zt = _euler_decode(model, zi, z0, dict(camera_target=camera_target),
+                       sample_step, start, z1=zj, solver=solver,
+                       quant_table=quant_table)
+    return _unflat(zi, n, t), _unflat(zt, n, t), _unflat(zj, n, t)
+
+
+@torch.no_grad()
+def extract_motion(model: AMDModelNew, video,
+                   mask_ratio: Optional[float] = None,
+                   generator: DrawSource = None) -> torch.Tensor:
+    """Frozen-model object-motion extraction (N, T, L, D); a ``mask_ratio``
+    needs ``generator`` (or ``SampleDraws``) for its token draw."""
+    u = None
+    if mask_ratio is not None:
+        if generator is None:
+            raise ValueError("extract_motion(mask_ratio=...) needs "
+                             "generator=")
+        n, t = video.shape[:2]
+        u = sample_draws(generator).uniform(
+            (n * t, _sites(video, model.cfg)), video.device)
+    return model.extract_motion(video, mask_ratio, u=u)

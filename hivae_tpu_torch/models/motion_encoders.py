@@ -7,16 +7,17 @@
   * ``MotionEncoderTemporalCross`` - camera branch: per-site temporal
     query tokens cross-attend to the per-pixel temporal tubes (S = frames).
 
-Token masking is the training path's per-step jitter branch (a ratio given
-as a tensor): tokens are shuffled at full length and the dropped ones are
-hidden as attention keys (``shuffle_mask_tokens``). The JAX package's
-static-ratio branch, which gathers a shorter sequence, is not ported and a
-Python float ratio raises.
+Token masking has the JAX package's two branches. A ratio given as a 0-d
+tensor is the training path's per-step jitter: tokens are shuffled at full
+length and the dropped ones are hidden as attention keys
+(``shuffle_mask_tokens``). A Python float is the serving knob: a random
+subset of ``int(L * (1 - ratio))`` tokens is kept and the rest dropped, so
+the sequence gets shorter (``random_mask_tokens``).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -50,11 +51,22 @@ def shuffle_mask_tokens(x: torch.Tensor, mask_ratio: torch.Tensor,
     return x, keep.expand(n, length)
 
 
-def _check_ratio(mask_ratio):
-    if not torch.is_tensor(mask_ratio):
-        raise NotImplementedError(
-            "static-ratio token dropping is not ported: pass the ratio as a "
-            "0-d tensor (the per-step jitter branch)")
+def random_mask_tokens(x: torch.Tensor, mask_ratio: float, axis: int = 1,
+                       *, u: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> torch.Tensor:
+    """Keep ``int(L * (1 - mask_ratio))`` of the L tokens along ``axis`` of
+    ``x``, a random subset per sample in the order of a stable argsort of
+    the uniform draw ``u`` (N, L) (drawn from ``generator`` when not
+    given). Returns the kept tokens only."""
+    n, length = x.shape[0], x.shape[axis]
+    len_keep = int(length * (1 - mask_ratio))
+    if u is None:
+        u = torch.rand((n, length), generator=generator, device=x.device)
+    keep = torch.argsort(u.to(x.device), dim=1, stable=True)[:, :len_keep]
+    idx = keep.reshape((n,) + (1,) * (axis - 1) + (len_keep,) +
+                       (1,) * (x.dim() - axis - 1))
+    return torch.take_along_dim(x, idx, dim=axis)
 
 
 class MotionEncoderSpatial(nn.Module):
@@ -86,24 +98,27 @@ class MotionEncoderSpatial(nn.Module):
                          if need_norm_out else nn.Identity())
 
     def forward(self, video: torch.Tensor,
-                mask_ratio: Optional[torch.Tensor] = None, *,
+                mask_ratio: Optional[Union[float, torch.Tensor]] = None, *,
                 perm: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``mask_ratio`` (0-d tensor) shuffles the patch tokens (``perm``
+        """A 0-d tensor ``mask_ratio`` shuffles the patch tokens (``perm``
         (N*T, L) or drawn from ``generator``) and hides the dropped ones as
-        attention keys."""
+        attention keys; a float drops them (``u`` (N*T, L) the uniform draw
+        that orders them, or drawn from ``generator``)."""
         n, t, c, h, w = video.shape
         mtok = self.motion_embed(self.motion_token)
         mtok = mtok.expand(n * t, -1, -1)
         x = self.patch_embed(video.reshape(n * t, c, h, w)) + self.pos
         key_mask = None
-        if mask_ratio is not None:
-            _check_ratio(mask_ratio)
+        if torch.is_tensor(mask_ratio):
             x, keep = shuffle_mask_tokens(x, mask_ratio, perm=perm,
                                           generator=generator)
             key_mask = torch.cat(
                 [torch.ones((n * t, self.motion_token_num), dtype=torch.bool,
                             device=x.device), keep], dim=1)
+        elif mask_ratio is not None:
+            x = random_mask_tokens(x, mask_ratio, u=u, generator=generator)
         hstate = torch.cat([mtok, x], dim=1)
         for blk in self.transformer_blocks:
             hstate = blk(hstate, key_mask)
@@ -114,8 +129,9 @@ class MotionEncoderSpatial(nn.Module):
 
 class MotionEncoderTemporalCross(nn.Module):
     """(N, T, C, H, W) low-pass video -> camera tokens (N, T, S, channel),
-    one token per spatial site per frame; with a ``mask_ratio`` ->
-    (tokens, site_keep (N, S) bool), the sites shuffled."""
+    one token per spatial site per frame; with a 0-d tensor ``mask_ratio``
+    -> (tokens, site_keep (N, S) bool), the sites shuffled; with a float,
+    only the kept sites' tokens (S = int(sites * (1 - ratio)))."""
 
     def __init__(self, img_height: int = 32, img_width: int = 32,
                  img_inchannel: int = 4, img_patch_size: int = 2,
@@ -147,21 +163,25 @@ class MotionEncoderTemporalCross(nn.Module):
                          if need_norm_out else nn.Identity())
 
     def forward(self, video: torch.Tensor,
-                mask_ratio: Optional[torch.Tensor] = None, *,
+                mask_ratio: Optional[Union[float, torch.Tensor]] = None, *,
                 perm: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
         n, t, c, h, w = video.shape
         hidden, ltok = self.hidden, self.motion_token_num
         x = self.patch_embed(video.reshape(n * t, c, h, w)) + self.spos
-        s = x.shape[1]
-        x = x.reshape(n, t, s, hidden) + self.tpos[None, :t, None, :]
+        x = x.reshape(n, t, x.shape[1], hidden) + self.tpos[None, :t, None, :]
         site_keep = None
-        if mask_ratio is not None:
+        # the sites are masked, shared across time
+        if torch.is_tensor(mask_ratio):
             # every site stays (each is its own batch row here); the dropped
             # ones are flagged for the DiT's key mask
-            _check_ratio(mask_ratio)
             x, site_keep = shuffle_mask_tokens(x, mask_ratio, axis=2,
                                                perm=perm, generator=generator)
+        elif mask_ratio is not None:
+            x = random_mask_tokens(x, mask_ratio, axis=2, u=u,
+                                   generator=generator)
+        s = x.shape[2]
 
         mtok = self.motion_embed(self.motion_token)
         mtok = mtok[:, None].expand(n, s, ltok, hidden)

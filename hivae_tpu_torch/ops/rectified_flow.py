@@ -68,6 +68,18 @@ def sample_step_sequence(sample_steps: int, start_step: Optional[int] = None,
     return seq[::-1].copy()
 
 
+def scheduler_step_sequence(sample_steps: int,
+                            start_step: Optional[int] = None,
+                            num_steps: int = DEFAULT_NUM_STEPS) -> np.ndarray:
+    """``np.linspace(0, start_step, steps)`` as integers, high->low (the
+    step sequence of the reference's ``RectifiedFlow.sample_loop``)."""
+    if start_step is None:
+        start_step = num_steps
+    seq = np.linspace(0, start_step, num=sample_steps, endpoint=True,
+                      dtype=np.int64)
+    return seq[::-1].copy()
+
+
 def euler_sample(velocity_fn: Callable[[torch.Tensor, torch.Tensor],
                                        torch.Tensor],
                  z0: torch.Tensor, step_seq: Sequence[int]) -> torch.Tensor:
@@ -78,4 +90,24 @@ def euler_sample(velocity_fn: Callable[[torch.Tensor, torch.Tensor],
         t = torch.full((z.shape[0],), float(step), dtype=torch.float32,
                        device=z.device)
         z = z + velocity_fn(z, t) * dt
+    return z
+
+
+def heun_sample(velocity_fn: Callable[[torch.Tensor, torch.Tensor],
+                                      torch.Tensor],
+                z0: torch.Tensor, step_seq: Sequence[int]) -> torch.Tensor:
+    """Heun (2nd-order) integration of ``velocity_fn(z, timestep)`` from
+    ``z0``: two velocity calls a step, the predictor evaluated at the next
+    step of the sequence and, on the last step, at step 0."""
+    dt = 1.0 / len(step_seq)
+    nxt = list(step_seq[1:]) + [0]
+    z = z0
+
+    def at(step):
+        return torch.full((z.shape[0],), float(step), dtype=torch.float32,
+                          device=z.device)
+    for step, step_next in zip(step_seq, nxt):
+        v1 = velocity_fn(z, at(step))
+        v2 = velocity_fn(z + v1 * dt, at(step_next))
+        z = z + dt * 0.5 * (v1 + v2)
     return z

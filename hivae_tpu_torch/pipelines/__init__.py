@@ -1,3 +1,5 @@
-from .pipeline import AMDReconstructionPipeline, reconstruct_clip
+from .pipeline import (AMDCrossVideoPipeline, AMDReconstructionPipeline,
+                       GTMotionAblationPipeline, reconstruct_clip)
 
-__all__ = ["AMDReconstructionPipeline", "reconstruct_clip"]
+__all__ = ["AMDCrossVideoPipeline", "AMDReconstructionPipeline",
+           "GTMotionAblationPipeline", "reconstruct_clip"]

@@ -1,75 +1,172 @@
-"""Single-window clip reconstruction (port of ``_recon_clip`` and
-``AMDReconstructionPipeline.sample`` of ``hivae_tpu/pipelines/pipeline.py``)
-on tensors: SD-VAE encode of the RGB (and grey) frames, AMD motion
-extraction and Euler decode of the 16 targets from the reference frame,
-SD-VAE decode to uint8. ``quant="int8"`` serves the Euler loop's DiT and the
-VAE decode in w8a8 (``ops/quant.py``). Reading and writing mp4 files is not
-ported yet.
+"""Inference pipelines (port of the AMD pipelines of
+``hivae_tpu/pipelines/pipeline.py``): clip reconstruction, windowed
+long-video reconstruction, cross-video motion transfer and the GT-motion
+ablation.
+
+Each pipeline has two entries per path. The file entry (``sample``,
+``sample_long``, ``sample_cross``, ``reconstruct``) reads an mp4 on the host
+(``data/video.py``, OpenCV), runs the device half and writes an mp4 when
+given a path. The device half (``sample_pixels``, ``sample_long_pixels``,
+``sample_cross_pixels``, ``reconstruct_pixels``) takes (F+1, 3, H, W) pixels
+in [-1, 1], frame 0 the reference, and returns the uint8 clip on the
+models' device: SD-VAE encode, AMD motion extraction and ODE decode, SD-VAE
+decode. ``quant="int8"`` serves the ODE loop's DiT and the VAE decode in
+w8a8 (``ops/quant.py``).
+
+Randomness comes from ``generator``: a ``torch.Generator`` on the models'
+device, or ``models.amd.SampleDraws`` to replay draws made elsewhere. A
+path takes its draws window by window in the order ``models.amd`` documents.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..data import video as vio
 from ..models import amd as amd_mod
 from ..models import vae as vae_mod
 from ..ops import quant as quant_ops
 
 # Each table covers exactly the modules its quantised leg runs: the DiT for
-# the Euler loop, the decoder for the decode leg (the encode stays in the
+# the ODE loop, the decoder for the decode leg (the encode stays in the
 # compute dtype, so stripping the decoder's weights leaves it whole).
 QUANT_SCOPES = {"dit": ("diffusion_transformer",), "vae": ("decoder",)}
+
+
+def _dtype(amd: amd_mod.AMDModelNew) -> torch.dtype:
+    return amd.diffusion_transformer.proj_out.weight.dtype
+
+
+def _encode(vae: vae_mod.AutoencoderKL, amd: amd_mod.AMDModelNew,
+            pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(F+1, 3, H, W) pixels -> (reference (1, 1, C, h, w), targets
+    (1, F, C, h, w)) latents in the DiT's dtype."""
+    z = vae_mod.vae_encode(vae, pixels[None]).to(_dtype(amd))
+    return z[:, :1], z[:, 1:]
+
+
+def _grey_needed(amd, grey):
+    if amd.cfg.use_grey and grey is None:
+        raise ValueError("the model uses grey frames: pass grey=")
 
 
 @torch.no_grad()
 def reconstruct_clip(vae: vae_mod.AutoencoderKL, amd: amd_mod.AMDModelNew,
                      pixels: torch.Tensor, grey: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None,
-                     sample_step: int = 20,
-                     noise: Optional[torch.Tensor] = None,
-                     quant_table=None, vae_quant_table=None) -> torch.Tensor:
+                     generator: amd_mod.DrawSource = None,
+                     sample_step: int = 20, *,
+                     camera_mask_ratio: Optional[float] = None,
+                     object_mask_ratio: Optional[float] = None,
+                     solver: str = "euler", quant_table=None,
+                     vae_quant_table=None) -> torch.Tensor:
     """(F+1, 3, H, W) pixels in [-1, 1] (frame 0 is the reference) ->
     reconstructed (F+1, 3, H, W) uint8. ``grey`` is the grey clip, needed
-    when the model's config has ``use_grey``. The Euler start noise is
-    ``noise`` (F, C, h, w) when given, else drawn from ``generator``.
-    ``quant_table`` / ``vae_quant_table`` (``ops.quant.quantize_params`` of
-    ``amd`` and ``vae``) run the Euler loop and the decode in int8."""
-    z = vae_mod.vae_encode(vae, pixels[None])[0]
-    refimg_z, gt = z[:1], z[1:][None]
-    ref = refimg_z[:, None].expand(gt.shape)
+    when the model's config has ``use_grey``. The mask uniforms and the
+    start noise (F, C, h, w) come from ``generator``. ``quant_table`` /
+    ``vae_quant_table`` (``ops.quant.quantize_params`` of ``amd`` and
+    ``vae``) run the ODE loop and the decode in int8."""
+    _grey_needed(amd, grey)
+    ref, gt = _encode(vae, amd, pixels)
     grey_kw = {}
     if amd.cfg.use_grey:
-        if grey is None:
-            raise ValueError("the model uses grey frames: pass grey=")
-        gz = vae_mod.vae_encode(vae, grey[None])[0]
-        grey_kw = dict(video_grey=gz[1:][None],
-                       ref_img_grey=gz[:1][None].expand(gt.shape))
-    gt = gt.to(amd.diffusion_transformer.proj_out.weight.dtype)
-    _, video_pre, _ = amd_mod.sample(amd, gt, ref.to(gt), sample_step=sample_step,
-                                     generator=generator, noise=noise,
-                                     quant_table=quant_table,
-                                     **{k: v.to(gt) for k, v in grey_kw.items()})
-    result = torch.cat([refimg_z[None].to(video_pre), video_pre], dim=1)
+        gref, ggt = _encode(vae, amd, grey)
+        grey_kw = dict(video_grey=ggt, ref_img_grey=gref.expand(gt.shape))
+    _, video_pre, _ = amd_mod.sample(
+        amd, gt, ref.expand(gt.shape), sample_step=sample_step,
+        camera_mask_ratio=camera_mask_ratio,
+        object_mask_ratio=object_mask_ratio, solver=solver,
+        generator=generator, quant_table=quant_table, **grey_kw)
+    result = torch.cat([ref, video_pre], dim=1)
     return vae_mod.vae_decode_rgb(vae, result, quant_table=vae_quant_table)[0]
 
 
-class AMDReconstructionPipeline:
-    """Single-window video reconstruction through the motion bottleneck.
+@torch.no_grad()
+def cross_clip(vae: vae_mod.AutoencoderKL, amd: amd_mod.AMDModelNew,
+               pix1: torch.Tensor, pix2: torch.Tensor,
+               grey1: Optional[torch.Tensor] = None,
+               generator: amd_mod.DrawSource = None, sample_step: int = 20,
+               *, quant_table=None, vae_quant_table=None) -> torch.Tensor:
+    """Motion transfer: the camera motion of clip 1 (its grey clip
+    ``grey1`` under ``use_grey``), the appearance of clip 2's frame 0 ->
+    (F+1, 3, H, W) uint8. Clip 1 is encoded once (grey or RGB, whichever
+    drives the camera stream), clip 2 once (its reference frame and the
+    targets that seed a partial walk)."""
+    _grey_needed(amd, grey1)
+    _, cam = _encode(vae, amd, grey1 if amd.cfg.use_grey else pix1)
+    ref2, gt2 = _encode(vae, amd, pix2)
+    _, video_pre, _ = amd_mod.sample_cross(
+        amd, cam, gt2, ref2.expand(gt2.shape), video_grey_1=cam,
+        sample_step=sample_step, generator=generator,
+        quant_table=quant_table)
+    result = torch.cat([ref2, video_pre], dim=1)
+    return vae_mod.vae_decode_rgb(vae, result, quant_table=vae_quant_table)[0]
 
-    ``quant="int8"`` quantises the DiT's and the VAE decoder's large layers
+
+@torch.no_grad()
+def long_recon_window(amd: amd_mod.AMDModelNew, cur_gt, prev_img,
+                      grey_cur_gt=None, grey_prev_img=None, *,
+                      sample_step: int, mask_ratio: Optional[float] = None,
+                      drop_prev_img: bool = False, solver: str = "euler",
+                      generator: amd_mod.DrawSource = None,
+                      quant_table=None) -> torch.Tensor:
+    """One W-frame window of the long-video reconstruction: the targets
+    ``cur_gt`` (N, W, C, h, w) reconstructed from ``prev_img`` (N, C, h, w)
+    as the reference frame (zeroed by ``drop_prev_img``); ``mask_ratio``
+    masks both motion encoders. Returns the window's latents."""
+    ref = prev_img[:, None].expand(cur_gt.shape)
+    if drop_prev_img:
+        ref = torch.zeros_like(ref)
+    kw = {}
+    if amd.cfg.use_grey:
+        kw = dict(video_grey=grey_cur_gt,
+                  ref_img_grey=grey_prev_img[:, None].expand(cur_gt.shape))
+    return amd_mod.sample(
+        amd, cur_gt, ref, sample_step=sample_step,
+        camera_mask_ratio=mask_ratio, object_mask_ratio=mask_ratio,
+        solver=solver, generator=generator, quant_table=quant_table,
+        **kw)[1]
+
+
+@torch.no_grad()
+def gt_motion_window(amd: amd_mod.AMDModelNew, cur_gt, m2v_ref, *,
+                     sample_step: int, mask_ratio: Optional[float] = None,
+                     generator: amd_mod.DrawSource = None,
+                     quant_table=None) -> torch.Tensor:
+    """One GT-motion ablation window: object motion extracted from the
+    targets ``cur_gt`` (N, W, C, h, w) (masked by ``mask_ratio``), decoded
+    from the reference frame ``m2v_ref`` (N, C, h, w). The mask uniforms
+    are drawn only when masking."""
+    draws = amd_mod.sample_draws(generator)
+    u = None
+    if mask_ratio is not None:
+        n, t = cur_gt.shape[:2]
+        u = draws.uniform((n * t, amd_mod._sites(cur_gt, amd.cfg)),
+                          cur_gt.device)
+    motion = amd.extract_motion(cur_gt, mask_ratio, u=u)
+    return amd_mod.sample_with_refimg_motion(
+        amd, m2v_ref, motion, sample_step=sample_step,
+        mask_ratio=mask_ratio, generator=draws, quant_table=quant_table)[1]
+
+
+class _Serving:
+    """The models, their device and the int8 tables. ``quant="int8"``
+    quantises the DiT's and the VAE decoder's large layers
     (``ops.quant.quantize_params`` with ``QUANT_SCOPES``) and strips their
     float weights from ``amd`` and ``vae`` in place, so the serving models
-    hold int8 and scales where the tables cover them; every clip then runs
-    the Euler loop and the decode in int8."""
+    hold int8 and scales where the tables cover them."""
 
     def __init__(self, vae: vae_mod.AutoencoderKL, amd: amd_mod.AMDModelNew,
-                 window: int = 16, quant: Optional[str] = None):
+                 window: int = 16, sample_size: int = 256,
+                 quant: Optional[str] = None):
         if quant not in (None, "int8"):
             raise ValueError(f"unknown quant mode {quant!r}; use 'int8' or "
                              "None")
         self.vae, self.amd, self.window = vae, amd, window
+        self.sample_size = sample_size
+        self.device = amd.diffusion_transformer.proj_out.weight.device
         self.quant_table = self.vae_quant_table = None
         if quant == "int8":
             self.quant_table = quant_ops.quantize_params(
@@ -79,16 +176,222 @@ class AMDReconstructionPipeline:
             quant_ops.strip_quantized(amd, self.quant_table)
             quant_ops.strip_quantized(vae, self.vae_quant_table)
 
-    def sample(self, pixels: torch.Tensor, grey: Optional[torch.Tensor] = None,
-               video_sample_step: int = 20,
-               generator: Optional[torch.Generator] = None,
-               noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(window+1, 3, H, W) clip in [-1, 1] -> the reconstructed clip as
-        uint8 of the same shape."""
+    def _tensor(self, x) -> Optional[torch.Tensor]:
+        return None if x is None else torch.as_tensor(x).to(self.device)
+
+    def _pixels(self, frames: np.ndarray):
+        """uint8 (F, H, W, 3) frames -> pixels and, for a grey model, grey
+        pixels (F, 3, size, size) in [-1, 1]."""
+        pixels = vio.pixel_transform(frames, self.sample_size)
+        grey = None
+        if self.amd.cfg.use_grey:
+            grey = vio.pixel_transform(vio.to_grayscale(frames),
+                                       self.sample_size)
+        return pixels, grey
+
+    def _load_clip(self, video_path: str, fps: int):
+        """window+1 frames of ``video_path`` sampled at ``fps`` ->
+        (pixels, grey or None)."""
+        total, video_fps = vio.video_metadata(video_path)
+        idx = vio.sample_frames_with_fps(total, video_fps, self.window + 1,
+                                         fps, start_index=0)
+        return self._pixels(vio.read_video_frames(video_path, idx))
+
+    @staticmethod
+    def _finish(out: torch.Tensor, output_path: Optional[str],
+                fps: float) -> np.ndarray:
+        out = out.cpu().numpy()
+        if output_path:
+            vio.write_video(output_path, out, fps=fps)
+        return out
+
+
+class AMDReconstructionPipeline(_Serving):
+    """Single-window and windowed long-video reconstruction through the
+    motion bottleneck. Whether grey frames are read follows the model's
+    ``use_grey``."""
+
+    def sample(self, video_path: str, output_path: Optional[str] = None,
+               video_sample_step: int = 20, fps: int = 8,
+               object_mask_ratio: Optional[float] = None,
+               camera_mask_ratio: Optional[float] = None,
+               generator: amd_mod.DrawSource = None,
+               solver: str = "euler") -> np.ndarray:
+        """window+1 frames of the video sampled at ``fps`` -> the
+        reconstructed clip (F+1, 3, H, W) uint8, written as an mp4 when
+        ``output_path`` is given. ``solver="heun"`` takes two DiT calls a
+        step."""
+        pixels, grey = self._load_clip(video_path, fps)
+        out = self.sample_pixels(
+            pixels, grey, video_sample_step, generator=generator,
+            camera_mask_ratio=camera_mask_ratio,
+            object_mask_ratio=object_mask_ratio, solver=solver)
+        return self._finish(out, output_path, fps)
+
+    def sample_pixels(self, pixels, grey=None, video_sample_step: int = 20,
+                      generator: amd_mod.DrawSource = None, *,
+                      camera_mask_ratio: Optional[float] = None,
+                      object_mask_ratio: Optional[float] = None,
+                      solver: str = "euler") -> torch.Tensor:
+        """The device half of ``sample``: (window+1, 3, H, W) pixels in
+        [-1, 1] (and grey pixels for a grey model) -> the reconstructed clip
+        as uint8 of the same shape on the models' device."""
         if pixels.shape[0] != self.window + 1:
             raise ValueError(f"expected {self.window + 1} frames (reference "
                              f"+ window), got {pixels.shape[0]}")
-        return reconstruct_clip(self.vae, self.amd, pixels, grey, generator,
-                                video_sample_step, noise,
-                                quant_table=self.quant_table,
-                                vae_quant_table=self.vae_quant_table)
+        return reconstruct_clip(
+            self.vae, self.amd, self._tensor(pixels), self._tensor(grey),
+            generator, video_sample_step,
+            camera_mask_ratio=camera_mask_ratio,
+            object_mask_ratio=object_mask_ratio, solver=solver,
+            quant_table=self.quant_table,
+            vae_quant_table=self.vae_quant_table)
+
+    def sample_long(self, video_path: str, output_path: Optional[str] = None,
+                    video_sample_step: int = 4,
+                    mask_ratio: Optional[float] = None, fps: int = 30,
+                    drop_prev_img: bool = False, max_frames: int = 256,
+                    generator: amd_mod.DrawSource = None,
+                    solver: str = "euler") -> np.ndarray:
+        """Windowed autoregressive long-video reconstruction of up to
+        ``max_frames`` + 1 consecutive frames (no fps resampling; ``fps``
+        is the written file's); see ``sample_long_pixels``."""
+        total, _ = vio.video_metadata(video_path)
+        frames = vio.read_video_frames(video_path,
+                                       np.arange(min(total, max_frames + 1)))
+        pixels, grey = self._pixels(frames)
+        out = self.sample_long_pixels(
+            pixels, grey, video_sample_step, mask_ratio=mask_ratio,
+            drop_prev_img=drop_prev_img, generator=generator, solver=solver)
+        return self._finish(out, output_path, fps)
+
+    def sample_long_pixels(self, pixels, grey=None,
+                           video_sample_step: int = 4,
+                           mask_ratio: Optional[float] = None,
+                           drop_prev_img: bool = False,
+                           generator: amd_mod.DrawSource = None,
+                           solver: str = "euler") -> torch.Tensor:
+        """The device half of ``sample_long``: (F+1, 3, H, W) consecutive
+        pixels -> (F+1, 3, H, W) uint8. The clip is VAE-encoded once and
+        decoded once; in between, W = ``window`` target frames at a time
+        are reconstructed, each window's reference frame the previous
+        window's last generated latent (window 0: frame 0's).
+
+        As in the JAX package: ``mask_ratio`` masks both motion encoders,
+        ``0.0`` meaning off; ``drop_prev_img`` zeroes the reference; a
+        ragged tail re-runs the last W frames and its overlap replaces the
+        earlier predictions, so the output has as many frames as the input;
+        under ``use_grey`` window 0's grey reference is the grey frame 0
+        and later windows' the grey target frame before the window."""
+        mask_ratio = mask_ratio or None
+        w = self.window
+        pixels, grey = self._tensor(pixels), self._tensor(grey)
+        _grey_needed(self.amd, grey)
+        ref_z, gt_z = _encode(self.vae, self.amd, pixels)
+        grey_ref = grey_gt = None
+        if self.amd.cfg.use_grey:
+            grey_ref, grey_gt = _encode(self.vae, self.amd, grey)
+        t = gt_z.shape[1]
+        if t < w:
+            raise ValueError(
+                f"sample_long needs at least window+1={w + 1} frames; the "
+                f"clip has {t + 1} (use sample() for single short clips)")
+        draws = amd_mod.sample_draws(generator)
+
+        def window(s, e, prev):
+            grey_prev = None
+            if grey_gt is not None:
+                grey_prev = grey_ref[:, 0] if s == 0 else grey_gt[:, s - 1]
+            return long_recon_window(
+                self.amd, gt_z[:, s:e], prev,
+                None if grey_gt is None else grey_gt[:, s:e], grey_prev,
+                sample_step=video_sample_step, mask_ratio=mask_ratio,
+                drop_prev_img=drop_prev_img, solver=solver, generator=draws,
+                quant_table=self.quant_table)
+
+        pre = None
+        for s in range(0, t - t % w, w):
+            prev = ref_z[:, 0] if pre is None else pre[:, -1]
+            win = window(s, s + w, prev)
+            pre = win if pre is None else torch.cat([pre, win], dim=1)
+        if t % w:
+            s = t - w
+            win = window(s, t, pre[:, -1])
+            pre = torch.cat([pre[:, :s], win], dim=1)
+        result = torch.cat([ref_z, pre], dim=1)
+        return vae_mod.vae_decode_rgb(self.vae, result,
+                                      quant_table=self.vae_quant_table)[0]
+
+
+class AMDCrossVideoPipeline(AMDReconstructionPipeline):
+    """Motion from ``video_path_1``, appearance from ``video_path_2``."""
+
+    def sample_cross(self, video_path_1: str, video_path_2: str,
+                     output_path: Optional[str] = None,
+                     video_sample_step: int = 20, fps: int = 8,
+                     generator: amd_mod.DrawSource = None) -> np.ndarray:
+        pix1, grey1 = self._load_clip(video_path_1, fps)
+        pix2, _ = self._load_clip(video_path_2, fps)
+        out = self.sample_cross_pixels(pix1, pix2, grey1, video_sample_step,
+                                       generator)
+        return self._finish(out, output_path, fps)
+
+    def sample_cross_pixels(self, pix1, pix2, grey1=None,
+                            video_sample_step: int = 20,
+                            generator: amd_mod.DrawSource = None
+                            ) -> torch.Tensor:
+        """The device half of ``sample_cross`` (``cross_clip``)."""
+        return cross_clip(self.vae, self.amd, self._tensor(pix1),
+                          self._tensor(pix2), self._tensor(grey1), generator,
+                          video_sample_step, quant_table=self.quant_table,
+                          vae_quant_table=self.vae_quant_table)
+
+
+class GTMotionAblationPipeline(_Serving):
+    """Windowed GT-motion reconstruction ablation: object-motion tokens
+    extracted from each W-frame window of the clip (optionally masked) and
+    decoded chained on the previous window's last generated frame, which
+    isolates the decoder from a motion generator."""
+
+    def reconstruct(self, video_path: str, output_path: Optional[str] = None,
+                    num_windows: int = 2, video_sample_step: int = 10,
+                    fps: int = 8, generator: amd_mod.DrawSource = None,
+                    mask_ratio: Optional[float] = None) -> np.ndarray:
+        """``num_windows`` * W + 1 frames of the video sampled at ``fps``;
+        ``mask_ratio`` is the share of motion tokens dropped at
+        extraction."""
+        total, video_fps = vio.video_metadata(video_path)
+        idx = vio.sample_frames_with_fps(total, video_fps,
+                                         num_windows * self.window + 1, fps,
+                                         start_index=0)
+        pixels = vio.pixel_transform(vio.read_video_frames(video_path, idx),
+                                     self.sample_size)
+        out = self.reconstruct_pixels(pixels, num_windows, video_sample_step,
+                                      generator, mask_ratio)
+        return self._finish(out, output_path, fps)
+
+    def reconstruct_pixels(self, pixels, num_windows: int = 2,
+                           video_sample_step: int = 10,
+                           generator: amd_mod.DrawSource = None,
+                           mask_ratio: Optional[float] = None
+                           ) -> torch.Tensor:
+        """The device half of ``reconstruct``: (num_windows * W + 1, 3, H,
+        W) pixels -> uint8 of the same shape; one VAE encode and one decode
+        of the whole clip."""
+        w = self.window
+        if pixels.shape[0] != num_windows * w + 1:
+            raise ValueError(f"expected {num_windows * w + 1} frames, got "
+                             f"{pixels.shape[0]}")
+        ref_z, gt_z = _encode(self.vae, self.amd, self._tensor(pixels))
+        draws = amd_mod.sample_draws(generator)
+        pre = None
+        for i in range(num_windows):
+            m2v_ref = ref_z[:, 0] if pre is None else pre[:, -1]
+            win = gt_motion_window(
+                self.amd, gt_z[:, i * w:(i + 1) * w], m2v_ref,
+                sample_step=video_sample_step, mask_ratio=mask_ratio,
+                generator=draws, quant_table=self.quant_table)
+            pre = win if pre is None else torch.cat([pre, win], dim=1)
+        result = torch.cat([ref_z, pre], dim=1)
+        return vae_mod.vae_decode_rgb(self.vae, result,
+                                      quant_table=self.vae_quant_table)[0]

@@ -1,12 +1,17 @@
-"""Checkpoint save, rotate and resume (port of ``CheckpointManager`` and
-the helpers of ``hivae_tpu/training/checkpoint.py``).
+"""Checkpoint save, rotate, resume and load for inference (port of
+``CheckpointManager``, ``load_pretrain_partial`` and the helpers of
+``hivae_tpu/training/checkpoint.py``).
 
 Each checkpoint is a ``checkpoint-{step}`` directory holding one
 ``torch.save`` file of the train state (parameters, optimizer state, EMA and
 step); the newest is found by the same ``checkpoint-(\\d+)`` pattern, and
 only the ``max_to_keep`` newest are kept. Writes go to a temporary name
-first, so a checkpoint directory is either complete or absent. Orbax
-checkpoints of the JAX package are not read.
+first, so a checkpoint directory is either complete or absent.
+
+For inference, ``load_trained_params`` reads the parameters (or their EMA)
+of such a checkpoint and ``load_pretrain_partial`` a reference-named
+``.safetensors`` state dict. Orbax checkpoints of the JAX package cannot
+be read without JAX and are refused.
 """
 
 from __future__ import annotations
@@ -17,9 +22,15 @@ import shutil
 from typing import Any, Dict, Optional
 
 import torch
+from torch import nn
+
+from ..utils.checkpoint_io import load_safetensors
 
 _CKPT_RE = re.compile(r"checkpoint-(\d+)")
 STATE_FILE = "state.pt"
+# files an Orbax checkpoint directory holds (the JAX package's format)
+_ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt",
+                  "checkpoint")
 
 
 def find_latest_checkpoint(directory: str) -> Optional[str]:
@@ -74,3 +85,75 @@ class CheckpointManager:
         for s in (steps[:-self.max_to_keep] if self.max_to_keep else []):
             shutil.rmtree(os.path.join(self.directory, f"checkpoint-{s}"),
                           ignore_errors=True)
+
+
+def _state_file(path: str) -> str:
+    """The ``state.pt`` of a checkpoint directory, or of the newest
+    ``checkpoint-{step}`` under ``path``; refuses an Orbax directory."""
+    path = find_latest_checkpoint(path) or path
+    state = os.path.join(path, STATE_FILE)
+    if os.path.isfile(state):
+        return state
+    if os.path.isdir(path) and any(
+            os.path.exists(os.path.join(path, m)) for m in _ORBAX_MARKERS):
+        raise ValueError(
+            f"{path} is an Orbax checkpoint (the JAX package's format), "
+            "which cannot be read without JAX; pass the port trainer's "
+            "checkpoint directory or a reference-named .safetensors file")
+    raise FileNotFoundError(f"no {STATE_FILE} in {path} or in a "
+                            "checkpoint-{step} directory under it")
+
+
+def load_trained_params(path: str, use_ema: bool = False
+                        ) -> Dict[str, torch.Tensor]:
+    """The parameters of a trainer checkpoint (a ``checkpoint-{step}``
+    directory, or the directory holding them: the newest is read), on the
+    CPU. ``use_ema`` takes the EMA of the parameters; a checkpoint trained
+    without one falls back to the parameters, with a printed note."""
+    state = torch.load(_state_file(path), map_location="cpu",
+                       weights_only=True)
+    if use_ema:
+        if state.get("ema_params") is not None:
+            print("using EMA weights")
+            return state["ema_params"]
+        print("no EMA tree in checkpoint; using live params")
+    return state["params"]
+
+
+def load_pretrain_partial(model: nn.Module, path: str,
+                          skip_patterns: tuple = ()) -> Dict[str, list]:
+    """Load a reference-named ``.safetensors`` state dict into ``model``
+    (``load_state_partial``)."""
+    return load_state_partial(model, load_safetensors(path), skip_patterns)
+
+
+def load_state_partial(model: nn.Module, state: Dict[str, torch.Tensor],
+                       skip_patterns: tuple = ()) -> Dict[str, list]:
+    """Load a reference-named state dict into ``model`` in place, leaving
+    keys that contain any of ``skip_patterns`` (and those ``state`` lacks)
+    at their current values. A stride-p patchify convolution (O, I, p, p)
+    fills a ``PatchEmbed`` Linear (O, I*p*p): the port's patch layout is
+    channel-major, as the convolution's weight flattens. Returns
+    {"missing": model keys not loaded, "unused": keys of ``state`` not
+    used}."""
+    state = {k: v for k, v in state.items()
+             if not any(p in k for p in skip_patterns)}
+    target = model.state_dict()
+    missing, loaded = [], {}
+    for key, cur in target.items():
+        if key not in state:
+            missing.append(key)
+            continue
+        src = state[key]
+        if src.shape != cur.shape:
+            if src.dim() == 4 and cur.dim() == 2 and \
+                    src.reshape(src.shape[0], -1).shape == cur.shape:
+                src = src.reshape(cur.shape)
+            else:
+                raise ValueError(f"shape mismatch for {key}: file "
+                                 f"{tuple(src.shape)} vs model "
+                                 f"{tuple(cur.shape)}")
+        loaded[key] = src.to(cur.dtype)
+    model.load_state_dict(loaded, strict=False)
+    return {"missing": missing,
+            "unused": [k for k in state if k not in loaded]}

@@ -66,7 +66,10 @@ FULL_BLOCK_CASES = (
     + [((2, 3, 100, d), None, True) for d in (32, 96, 128)]
     + [((2, 4, 300, 64), 700, m) for m in (False, True)]
     + [((32, 8, 260, 64), None, False), ((16, 16, 266, 64), None, False),
-       ((16, 16, 512, 64), None, False), ((16, 16, 512, 64), None, True)])
+       ((16, 16, 512, 64), None, False), ((16, 16, 512, 64), None, True)]
+    # the camera joint block of a clip sampled with camera mask ratio 0.5:
+    # 128 kept sites + 256 patches
+    + [((16, 16, 384, 64), None, False), ((2, 16, 384, 64), None, True)])
 
 
 def _case(shape, sk, masked, seed):
@@ -637,3 +640,31 @@ def test_int8_layers_at_few_rows(m):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
         rel = (g.float().cpu() - w.float()).norm() / w.float().norm()
         assert rel.item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,route", [
+    # camera mask ratio 0.5: the camera joint block at 128 + 256 tokens
+    ((2, 16, 384, 64), "full_block"),
+    # object mask ratio 0.5: the object encoder at 4 + 128 tokens, below
+    # 256^2 logits, where the JAX package also takes its XLA path
+    ((2, 8, 132, 64), "plain")])
+def test_sdpa_routes_the_masked_clip_shapes(shape, route):
+    """The masked clip's new attention shapes in bf16: the camera joint
+    block launches the full-block kernel; the shortened object encoder
+    takes the uncounted plain path (not ``sdpa_plain``)."""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops import attention as tattn
+    q, k, v = _qkv(shape, seed=44)
+    mask = torch.from_numpy(
+        np.random.RandomState(45).rand(shape[0], shape[2]) > 0.3).cuda()
+    counters = [tfa.full_block_attention, tfa.stream_attention,
+                tattn.sdpa_plain]
+    before = [c.launches for c in counters]
+    assert tattn.kernel_route(q, k, v) == route
+    got = tattn.sdpa(q, k, v, key_mask=mask)
+    want = tattn._sdpa_plain(q, k, v, shape[3] ** -0.5, mask)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == ([1, 0, 0] if route == "full_block" else [0, 0, 0])
+    assert _err(got, want) <= ATOL

@@ -76,7 +76,7 @@ def test_reconstruct_clip_matches_jax(stacks):
     noise = np.array(jax.random.normal(knoise, (FRAMES, 4, 16, 16)))
     got = reconstruct_clip(tvae_mod, tamd_mod, torch.from_numpy(pixels),
                            torch.from_numpy(grey), sample_step=2,
-                           noise=torch.from_numpy(noise))
+                           generator=tamd.SampleDraws(replay=[noise]))
     assert got.dtype == torch.uint8 and got.shape == want.shape
     diff = np.abs(got.numpy().astype(int) - want.astype(int))
     assert diff.max() <= 1 and (diff == 0).mean() > 0.99
@@ -86,13 +86,14 @@ def test_pipeline_sample_uses_generator_and_checks_frames(stacks):
     *_, tvae_mod, tamd_mod = stacks
     pixels, grey = _clip(4)
     pipe = AMDReconstructionPipeline(tvae_mod, tamd_mod, window=FRAMES)
-    out = [pipe.sample(torch.from_numpy(pixels), torch.from_numpy(grey),
-                       video_sample_step=1,
-                       generator=torch.Generator().manual_seed(0))
+    out = [pipe.sample_pixels(torch.from_numpy(pixels),
+                              torch.from_numpy(grey), video_sample_step=1,
+                              generator=torch.Generator().manual_seed(0))
            for _ in range(2)]
     assert out[0].shape == (FRAMES + 1, 3, SIZE, SIZE)
     assert torch.equal(out[0], out[1])
     with pytest.raises(ValueError, match="frames"):
-        pipe.sample(torch.from_numpy(pixels[:-1]), torch.from_numpy(grey))
+        pipe.sample_pixels(torch.from_numpy(pixels[:-1]),
+                           torch.from_numpy(grey))
     with pytest.raises(ValueError, match="grey"):
         reconstruct_clip(tvae_mod, tamd_mod, torch.from_numpy(pixels))

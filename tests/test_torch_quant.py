@@ -626,7 +626,8 @@ def test_int8_clip_matches_jax(stacks, monkeypatch):
     calls, fused = _record_int8_calls(monkeypatch, tables)
     got = tpipe.reconstruct_clip(
         tvae_mod, tamd_mod, _t(pixels), _t(grey), sample_step=2,
-        noise=noise, quant_table=tables[0], vae_quant_table=tables[1])
+        generator=tamd.SampleDraws(replay=[noise]), quant_table=tables[0],
+        vae_quant_table=tables[1])
 
     def mapped(path):
         return flax_path_to_torch_key(
@@ -662,9 +663,11 @@ def test_int8_pipeline_strips_and_matches_its_tables(stacks, monkeypatch):
     pixels, grey = _clip(4)
     noise = _t(np.random.RandomState(5).randn(FRAMES, 4, 16, 16).astype(
         np.float32))
-    got = pipe.sample(_t(pixels), _t(grey), video_sample_step=2, noise=noise)
+    got = pipe.sample_pixels(_t(pixels), _t(grey), video_sample_step=2,
+                             generator=tamd.SampleDraws(replay=[noise]))
     want = tpipe.reconstruct_clip(
-        tvae_mod, tamd_mod, _t(pixels), _t(grey), sample_step=2, noise=noise,
+        tvae_mod, tamd_mod, _t(pixels), _t(grey), sample_step=2,
+        generator=tamd.SampleDraws(replay=[noise]),
         quant_table=tq.quantize_params(tamd_mod),
         vae_quant_table=tq.quantize_params(tvae_mod, scope=("decoder",)))
     assert torch.equal(got, want)
