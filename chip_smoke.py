@@ -91,13 +91,37 @@ Phases (any failure exits non-zero without the final result line):
    counts; finite loss and grad_norm, parameters that moved, and one step
    with the plain attention versions in place of the kernels from the same
    state, batch and draws (loss and gradient against the kernel step);
+   4b. one run-A step (loss and gradients, no update) under no remat and
+   under each remat policy (``full``, ``dots``, ``dots_sans_ffn``,
+   ``dots_offload``) from the same state, batch and draws: exact launches,
+   loss within ``REMAT_LOSS_RTOL`` of ``full``'s and gradient cosine at
+   least ``REMAT_GRAD_COS``, with each one's time and peak memory (a policy
+   that does not fit at N = 4 runs at N = 2, with ``full`` again there);
 5. training run B: N = 1 with the perceptual loss (weight 0.5, seeded
    random LPIPS weights) and both mask ratios at 0.5, one warm-up step and
    2 timed steps with exact launch counts (now with the streaming backward
-   kernels and their delta pre-pass), the same plain-step check, then a checkpoint save, a resume
-   in a new trainer, and one more step from each that must agree bit for
-   bit;
-6. print the card's name and power limit, one JSON line of per-kernel
+   kernels and their delta pre-pass), the same plain-step check, then a
+   checkpoint save, a resume in a new trainer, and one more step from each
+   that must agree bit for bit;
+   5b. ``AMDTrainer.validate`` on N = 4 clips at ``sample_step=2``: exact
+   launches, uint8 of its shape, and agreement with its run on the plain
+   attention versions (phase 3's tolerances);
+6. one training step (after a warm-up) of each config variant of
+   ``VARIANTS``, at N = 4 with remat ``full``: ``use_camera_down`` with
+   ``need_motion_transformer`` (the camera joint block at 16 + 256 tokens)
+   and ``diffusion_model_type="default"`` (the TempMotion DiT, one joint
+   block a layer); exact launches and the plain-step check of run A;
+7. the training CLI, ``hivae_tpu_torch.cli.train_amd``, in this process on
+   8 synthetic 256² mp4s written here (a textured pan under a moving
+   disc): the flagship JSON at N = 4, bf16, remat, 3 steps with a
+   checkpoint at step 2 (its ``config.json``, ``args.txt`` and
+   checkpoints checked), then, with step 3's checkpoint removed, a resume
+   that must start at step 2 and end at step 4, then ``cli.amd_inference``
+   on the checkpoint it wrote and one of the mp4s. Exact launches, steps/s,
+   clips/s, frames/s, peak memory, the loader's host time a batch alone and
+   ``fit``'s wait on it a step (its one-batch prefetch should hide it);
+   7b. the CLI with ``--use_mask true`` (flow masks on the host), 2 steps;
+8. print the card's name and power limit, one JSON line of per-kernel
    numbers, and as the last line the device record.
 
 Float32 matmuls and convolutions run without TF32 here
@@ -105,8 +129,12 @@ Float32 matmuls and convolutions run without TF32 here
 ``torch.backends.cudnn.allow_tf32`` both False), and cuDNN picks
 deterministic algorithms. ``--profile DIR`` also writes a
 ``torch.profiler`` table of one clip to ``DIR/profile_clip.txt``, of one
-int8 clip to ``DIR/profile_clip_int8.txt`` and of one run-A training step
-to ``DIR/profile_train.txt``. ``--parent DIR`` builds the kernels of
+int8 clip to ``DIR/profile_clip_int8.txt``, of one run-A training step
+to ``DIR/profile_train.txt``, of one ``validate`` call to
+``DIR/profile_validate.txt``, of one step of the ``default`` DiT to
+``DIR/profile_train_default_dit.txt`` and of one CLI step (the CLI's own
+``--profile_steps 1`` window, two more steps resumed from step 4) to
+``DIR/profile_train_cli.txt``. ``--parent DIR`` builds the kernels of
 another checkout too (the parent commit unpacked with ``git archive``) and
 times its full-block forward, qk-norm forward, backward, streaming forward,
 streaming backward (dQ and dK/dV) and int8 FFN-up in phase 2 beside this
@@ -211,6 +239,10 @@ FULL_BLOCK_CHECKS = [
     # patches, 12 x 10 launches a clip there
     ("DiT camera joint, masked clip (S 384)", (16, 16, 384, 64), None, 0,
      False),
+    # the camera_down variant's camera joint block (phase 6): 16 sites of
+    # the 8x8 camera grid + 256 patches, at N = 4 clips
+    ("DiT camera joint, camera_down step (S 272)", (64, 16, 272, 64), None,
+     0, False),
 ]
 
 # training: clips per step in runs A and B, timed steps, frames per clip
@@ -243,6 +275,28 @@ DELTA_RTOL = 1e-5
 # leaves the 696 M-element gradient pointing the same way.
 STEP_LOSS_RTOL = 1e-2
 STEP_GRAD_COS = 0.99
+# A remat policy changes what the backward keeps, not what it computes:
+# against remat full from the same state, batch and draws, only the order
+# of bf16 roundings in the recomputed matmuls may differ.
+REMAT_LOSS_RTOL = 1e-5
+REMAT_GRAD_COS = 0.9999
+REMAT_POLICIES = (None, "full", "dots", "dots_sans_ffn", "dots_offload")
+# the training CLI (phase 7): synthetic mp4s, clips a step, steps before
+# and after the resume, steps of the use_mask run (7b)
+CLI_VIDEOS, CLI_VIDEO_FRAMES = 8, 24
+CLI_STEPS, CLI_SAVE_EVERY, CLI_RESUME_TO, CLI_MASK_STEPS = 3, 2, 4, 2
+# the config variants trained for one step in phase 6, each with the
+# modules its training forward does not run (no gradient; as in the JAX
+# package, the motion transformer serves extract_motion and refimg-motion
+# sampling, and the TempMotion DiT reads no camera stream)
+VARIANTS = {
+    "camera_down_motion_transformer": (
+        dict(use_camera_down=True, need_motion_transformer=True),
+        ("motion_transformer.",)),
+    "default_dit": (dict(diffusion_model_type="default"),
+                    ("camera_motion_encoder.",)),
+}
+VALIDATE_STEPS = 2
 
 
 def full_block_bwd_cases(clips):
@@ -1454,7 +1508,6 @@ def run_checkpoint_roundtrip(models, failures):
     import argparse
     import shutil
     import torch
-    from hivae_tpu_torch.cli import amd_inference
     from hivae_tpu_torch.cli import common as cli_common
     from hivae_tpu_torch.models import amd as amd_mod
     from hivae_tpu_torch.training import checkpoint as ckpt_lib
@@ -1510,34 +1563,44 @@ def run_checkpoint_roundtrip(models, failures):
         frames = ((rgb.transpose(0, 2, 3, 1) + 1.0) * 127.5).clip(0, 255)
         vio.write_video(os.path.join(videos, "synthetic.mp4"),
                         frames.astype("uint8"), fps=8)
-        cli_steps = 2
-        _zero_counts()
-        t0 = time.perf_counter()
-        rc = amd_inference.main([
-            "--amd_config", CONFIG, "--amd_ckpt", path, "--video_dir",
-            videos, "--output_dir", out_dir, "--sample_step",
-            str(cli_steps)])
-        torch.cuda.synchronize()
-        cli_s = time.perf_counter() - t0
-        launches = _read_counts()
-        out = os.path.join(out_dir, "synthetic_recon.mp4")
-        total = vio.video_metadata(out)[0] if os.path.exists(out) else 0
-        shape = vio.read_video_frames(out, range(total)).shape if total \
-            else None
-        enc = amd.cfg.object_enc_num_layers
-        want = dict(_no_launches(), full_block_attention=(
-            enc + 2 * amd.cfg.diffusion_num_layers * cli_steps),
-            stream_attention=3)
-        _log(f"  python -m hivae_tpu_torch.cli.amd_inference: rc {rc}, "
-             f"{out} frames {shape}, {cli_s:.1f} s with model build; "
-             f"launches { {k: v for k, v in launches.items() if v} }")
-        if rc != 0 or shape != (WINDOW + 1, SIZE, SIZE, 3) or \
-                launches != want:
-            failures.append(f"amd_inference cli: rc {rc}, frames {shape}, "
-                            f"launches {launches}, want {want}")
-        return launches
+        return run_inference_cli(CONFIG, path, videos, out_dir, amd.cfg,
+                                 failures)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def run_inference_cli(config, ckpt, videos, out_dir, cfg, failures,
+                      label="python -m hivae_tpu_torch.cli.amd_inference"):
+    """``cli.amd_inference`` at 2 Euler steps on the one mp4 in
+    ``videos``: its exit code, the output's frames and shape, and exact
+    launches. Returns the launches."""
+    import torch
+    from hivae_tpu_torch.cli import amd_inference
+    from hivae_tpu_torch.data import video as vio
+
+    cli_steps = 2
+    name = os.path.splitext(os.listdir(videos)[0])[0]
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc = amd_inference.main([
+        "--amd_config", config, "--amd_ckpt", ckpt, "--video_dir", videos,
+        "--output_dir", out_dir, "--sample_step", str(cli_steps)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = _read_counts()
+    out = os.path.join(out_dir, f"{name}_recon.mp4")
+    total = vio.video_metadata(out)[0] if os.path.exists(out) else 0
+    shape = vio.read_video_frames(out, range(total)).shape if total \
+        else None
+    want = dict(_no_launches(), full_block_attention=(
+        cfg.object_enc_num_layers + 2 * cfg.diffusion_num_layers * cli_steps),
+        stream_attention=3)
+    _log(f"  {label}: rc {rc}, {out} frames {shape}, {cli_s:.1f} s with "
+         f"model build; launches { {k: v for k, v in launches.items() if v} }")
+    if rc != 0 or shape != (WINDOW + 1, SIZE, SIZE, 3) or launches != want:
+        failures.append(f"{label}: rc {rc}, frames {shape}, launches "
+                        f"{launches}, want {want}")
+    return launches
 
 
 def _model_bytes(*mods):
@@ -1681,16 +1744,20 @@ def build_training_models():
     return amd, vae, lpips
 
 
-def _expected_step_launches(cfg, perceptual: bool):
-    """Kernel launches of one training step of the flagship: the object
-    encoder's layers and the DiT's two joint blocks per layer run the
-    full-block kernels, the DiT's forward twice under remat; each of the 4
-    VAE encodes runs one streaming forward, and the perceptual leg's decode
-    one more streaming forward and its backward: the delta pre-pass and the
-    dQ and dK/dV kernels."""
-    enc, dit = cfg.object_enc_num_layers, 2 * cfg.diffusion_num_layers
+def _expected_step_launches(cfg, perceptual: bool, remat=None):
+    """Kernel launches of one training step of the flagship or a variant:
+    the object encoder's layers and the DiT's joint blocks (two a layer in
+    the spatial DiT, one in the ``default`` TempMotion DiT) run the
+    full-block kernels, the DiT's forward twice under remat (``remat``,
+    else the config's); each of the 4 VAE encodes runs one streaming
+    forward, and the perceptual leg's decode one more streaming forward and
+    its backward: the delta pre-pass and the dQ and dK/dV kernels."""
+    remat = cfg.remat if remat is None else remat
+    joints = 1 if cfg.diffusion_model_type == "default" else \
+        int(cfg.use_object) + int(cfg.use_camera)
+    enc, dit = cfg.object_enc_num_layers, joints * cfg.diffusion_num_layers
     return dict(_no_launches(),
-                full_block_attention=enc + dit * (2 if cfg.remat else 1),
+                full_block_attention=enc + dit * (2 if remat else 1),
                 full_block_attention_bwd=enc + dit,
                 full_block_attention_delta=enc + dit,
                 stream_attention=4 + int(perceptual),
@@ -1701,8 +1768,12 @@ def _expected_step_launches(cfg, perceptual: bool):
 
 def run_training(fa, models, failures, *, label, clips, steps,
                  perceptual=False, mask_ratio=None, resume_check=False,
-                 profile_dir=None):
-    """Phases 4 and 5. Returns (launches in the timed steps, step ms)."""
+                 profile_dir=None, profile_name="profile_train.txt",
+                 unused=()):
+    """Phases 4, 5 and 6. Every parameter must move in the timed steps,
+    except those under the ``unused`` name prefixes, which the training
+    forward does not run. Returns (launches in the timed steps, step
+    ms)."""
     import dataclasses
     import shutil
     import torch
@@ -1724,12 +1795,14 @@ def run_training(fa, models, failures, *, label, clips, steps,
     batch = trainer._to_device(batch_from_clips([p[0] for p in pairs],
                                                 [p[1] for p in pairs]))
     params = list(trainer.state.params.values())
+    trained = [p for n, p in trainer.state.params.items()
+               if not n.startswith(tuple(unused))] if unused else params
 
     t0 = time.perf_counter()
     trainer.train_step(batch)   # warm-up
     torch.cuda.synchronize()
     _log(f"  {label}: warm-up step {time.perf_counter() - t0:.2f} s")
-    before = [p.detach().clone() for p in params]
+    before = [p.detach().clone() for p in trained]
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.perf_counter()
@@ -1745,10 +1818,11 @@ def run_training(fa, models, failures, *, label, clips, steps,
     for m in metrics:
         if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
             failures.append(f"{label}: non-finite metrics {m}")
-    moved = sum(bool((p.detach() != b).any()) for p, b in zip(params, before))
-    if moved != len(params):
-        failures.append(f"{label}: {len(params) - moved} of {len(params)} "
-                        f"parameter tensors did not change")
+    moved = sum(bool((p.detach() != b).any()) for p, b in zip(trained,
+                                                              before))
+    if moved != len(trained):
+        failures.append(f"{label}: {len(trained) - moved} of {len(trained)} "
+                        f"trained parameter tensors did not change")
     del before
     frames = clips * WINDOW
     _log(f"  {label}: {steps} steps, losses "
@@ -1780,7 +1854,7 @@ def run_training(fa, models, failures, *, label, clips, steps,
                         f"gradient cosine {cos}")
 
     if profile_dir:
-        profile_step(trainer, batch, profile_dir)
+        profile_step(trainer, batch, profile_dir, profile_name)
 
     if resume_check:
         t0 = time.perf_counter()
@@ -1811,32 +1885,11 @@ def run_training(fa, models, failures, *, label, clips, steps,
     return launches, step_s * 1e3
 
 
-def profile_step(trainer, batch, out_dir):
-    """One training step under torch.profiler: the kernel table by device
-    time and the device's busy share of the step's wall time, written to
-    DIR/profile_train.txt."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.train_step(batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    busy_us = sum(e.self_device_time_total for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    line = (f"profiled training step wall {wall * 1e3:.2f} ms, device busy "
-            f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e6 / wall:.1f}%)")
-    _log("  " + line)
-    path = os.path.join(out_dir, "profile_train.txt")
-    with open(path, "w") as f:
-        f.write(f"card: {_card_line()}\n{line}\n\n")
-        f.write(events.table(sort_by="self_device_time_total",
-                             row_limit=50))
-    _log(f"  profile written to {path}")
+def profile_step(trainer, batch, out_dir, filename="profile_train.txt"):
+    """One training step under torch.profiler (``profile_call``), written
+    to DIR/``filename``."""
+    profile_call(lambda: trainer.train_step(batch), out_dir, filename,
+                 "training step")
 
 
 def profile_clip(pipe, clip, out_dir, filename="profile_clip.txt"):
@@ -1913,10 +1966,468 @@ def profile_clip(pipe, clip, out_dir, filename="profile_clip.txt"):
     _log(f"  profile written to {path}")
 
 
+def run_remat_policies(models, failures):
+    """Phase 4b: one run-A step (loss and gradients, no update) under no
+    remat and each remat policy, from the same state, batch and draws;
+    each against ``full``. A policy that does not fit at N = 4 clips runs
+    at N = 2 (with ``full`` again there). Returns {path: launches}."""
+    import shutil
+    import torch
+    from hivae_tpu_torch.training.trainer import (AMDTrainer, TrainConfig,
+                                                  batch_from_clips)
+
+    amd, vae, _ = models
+    dit = amd.diffusion_transformer
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_remat")
+    trainer = AMDTrainer(amd, vae, TrainConfig(
+        output_dir=work, mixed_precision="bf16", mu_dtype="bf16", seed=SEED))
+    dev = torch.device("cuda")
+
+    def step(policy, batch, draws):
+        """One warm-up call (the allocator's and, for ``dots_offload``,
+        the pinned host pool's growth), then the timed call."""
+        dit.remat, dit.remat_policy = policy is not None, policy or "full"
+        trainer.loss_and_grads(batch, draws)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rest = torch.cuda.memory_allocated()
+        _zero_counts()
+        t0 = time.perf_counter()
+        metrics, grads = trainer.loss_and_grads(batch, draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (metrics["loss"].item(), grads, ms, _read_counts(),
+                torch.cuda.max_memory_allocated(), rest)
+
+    done, paths = {}, {}
+    try:
+        for clips in (RUN_A_CLIPS, 2):
+            todo = [p for p in REMAT_POLICIES if p not in done]
+            if not todo:
+                break
+            pairs = [synthetic_clip(SEED + 10 + i) for i in range(clips)]
+            batch = trainer._to_device(batch_from_clips(
+                [p[0] for p in pairs], [p[1] for p in pairs]))
+            draws = trainer.draw(batch)
+            ref = None
+            for policy in ["full"] + [p for p in todo if p != "full"]:
+                name = policy or "none"
+                try:
+                    loss, grads, ms, launches, peak, rest = step(
+                        policy, batch, draws)
+                except torch.cuda.OutOfMemoryError:
+                    torch.cuda.empty_cache()
+                    _log(f"  remat {name}: out of memory at N={clips}")
+                    continue
+                want = dict(_expected_step_launches(
+                    amd.cfg, False, remat=policy is not None))
+                if launches != want:
+                    failures.append(f"remat {name} N={clips}: launches "
+                                    f"{launches}, want {want}")
+                if ref is None:
+                    ref = (loss, [g.cpu() for g in grads])
+                    rel, cos = 0.0, 1.0
+                else:
+                    rel = abs(loss - ref[0]) / abs(ref[0])
+                    dot = na = nb = 0.0
+                    for g, r in zip(grads, ref[1]):
+                        r = r.to(dev)
+                        dot += (g * r).sum().item()
+                        na += g.square().sum().item()
+                        nb += r.square().sum().item()
+                    cos = dot / math.sqrt(na * nb)
+                del grads
+                if policy != "full" or clips == RUN_A_CLIPS:
+                    done[policy] = clips
+                    paths[f"remat_{name}"] = launches
+                _log(f"  remat {name}, N={clips}: loss {loss:.6f} (rel "
+                     f"{rel:.3g} to full), gradient cosine {cos:.7f}, step "
+                     f"(loss and gradients) {ms:.2f} ms, peak "
+                     f"{peak / 2**30:.2f} GiB ({(peak - rest) / 2**30:.2f} "
+                     f"above the resting {rest / 2**30:.2f})")
+                if not (rel <= REMAT_LOSS_RTOL and cos >= REMAT_GRAD_COS):
+                    failures.append(f"remat {name} N={clips}: loss rel {rel},"
+                                    f" gradient cosine {cos}")
+            del batch, draws, ref
+        missing = [p or "none" for p in REMAT_POLICIES if p not in done]
+        if missing:
+            failures.append(f"remat policies {missing} did not fit at N=2")
+    finally:
+        dit.remat, dit.remat_policy = amd.cfg.remat, amd.cfg.remat_policy
+        del trainer
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return paths
+
+
+def run_validate(models, failures, profile_dir=None):
+    """Phase 5b: ``AMDTrainer.validate`` on N = 4 clips at
+    ``sample_step=2``: exact launches, uint8 of its shape, and agreement
+    with the same call on the plain attention versions. Returns the
+    launches."""
+    import shutil
+    import torch
+    from hivae_tpu_torch.training.trainer import (AMDTrainer, TrainConfig,
+                                                  batch_from_clips)
+
+    amd, vae, _ = models
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_val")
+    trainer = AMDTrainer(amd, vae, TrainConfig(
+        output_dir=work, mixed_precision="bf16", seed=SEED))
+    pairs = [synthetic_clip(SEED + 40 + i) for i in range(RUN_A_CLIPS)]
+    batch = batch_from_clips([p[0] for p in pairs], [p[1] for p in pairs])
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        out = trainer.validate(batch, sample_step=VALIDATE_STEPS,
+                               generator=gen)
+        torch.cuda.synchronize()
+        return out
+
+    try:
+        run()   # warm-up
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = run()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_counts()
+        with _plain_kernels():
+            ref = run()
+        cfg = amd.cfg
+        want = dict(_no_launches(), full_block_attention=(
+            cfg.object_enc_num_layers +
+            2 * cfg.diffusion_num_layers * VALIDATE_STEPS),
+            stream_attention=(4 if cfg.use_grey else 2) + 1)
+        shape = (RUN_A_CLIPS, WINDOW, 3, SIZE, SIZE)
+        _log(f"  validate, N={RUN_A_CLIPS}, sample_step {VALIDATE_STEPS}: "
+             f"{ms:.2f} ms, out {out.shape} {out.dtype}, launches "
+             f"{ {k: v for k, v in launches.items() if v} }")
+        if launches != want or out.shape != shape or out.dtype.name != \
+                "uint8":
+            failures.append(f"validate: launches {launches}, want {want}, "
+                            f"out {out.shape} {out.dtype}")
+        _clip_diff("validate vs its plain-attention run",
+                   torch.from_numpy(out), torch.from_numpy(ref), failures)
+        if profile_dir:
+            profile_call(run, profile_dir, "profile_validate.txt",
+                         "validate")
+    finally:
+        del trainer
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
+def build_variant(over):
+    """The flagship's config with ``over`` (remat full, from the JSON),
+    fp32 master weights on the card, seeded random weights."""
+    import torch
+    from hivae_tpu_torch.models import amd as amd_mod
+
+    with open(CONFIG) as f:
+        cfg = amd_mod.AMDConfig.from_dict(json.load(f)).replace(**over)
+    torch.manual_seed(SEED + 3)
+    return amd_mod.AMDModelNew(cfg, device="cuda", dtype=torch.float32)
+
+
+def write_training_videos(directory, count=CLI_VIDEOS,
+                          frames=CLI_VIDEO_FRAMES):
+    """``count`` mp4s of ``frames`` 256² frames at 8 fps: a blocky texture
+    panning a few pixels a frame under a disc moving the other way, so
+    that the optical-flow camera masks are not trivial."""
+    import numpy as np
+    from hivae_tpu_torch.data import video as vio
+
+    os.makedirs(directory, exist_ok=True)
+    yy, xx = np.mgrid[:SIZE, :SIZE]
+    for i in range(count):
+        rng = np.random.RandomState(SEED + 100 + i)
+        pan = 2 + i % 4
+        width = SIZE + pan * frames
+        tex = rng.randint(0, 256, (SIZE // 8, width // 8 + 1, 3))
+        tex = np.kron(tex, np.ones((8, 8, 1))).astype(np.uint8)
+        cy, cx = rng.randint(SIZE // 4, 3 * SIZE // 4, 2)
+        vy, vx = rng.randint(-6, 7, 2)
+        clip = []
+        for t in range(frames):
+            f = tex[:, t * pan:t * pan + SIZE].copy()
+            disc = (yy - cy - vy * t) ** 2 + (xx - cx + (pan + 3) * t) ** 2
+            f[disc < (SIZE // 10) ** 2] = (240, 40 + 20 * i, 60)
+            clip.append(f)
+        vio.write_video(os.path.join(directory, f"train{i}.mp4"),
+                        np.stack(clip), fps=8)
+
+
+class _cli_timing:
+    """Records, while the training CLI runs: the host time at each step's
+    start (``AMDTrainer._step``), the end of ``fit`` (after a device
+    synchronise) and its metrics, and each wait of ``fit`` on the loader
+    (``train_amd.batch_stream``)."""
+
+    def __enter__(self):
+        import torch
+        from hivae_tpu_torch.cli import train_amd
+        from hivae_tpu_torch.training import trainer as trainer_mod
+
+        cls = trainer_mod.AMDTrainer
+        self.saved = (cls._step, cls.fit, cls.save, train_amd.batch_stream)
+        step, fit, save, stream = self.saved
+        self.starts, self.waits, self.end, self.metrics = [], [], None, None
+        self.saves = []
+
+        def timed_save(trainer, *a, **kw):
+            t0 = time.perf_counter()
+            out = save(trainer, *a, **kw)
+            self.saves.append((t0, time.perf_counter()))
+            return out
+
+        def timed_step(trainer, *a, **kw):
+            self.starts.append(time.perf_counter())
+            return step(trainer, *a, **kw)
+
+        def timed_fit(trainer, *a, **kw):
+            out = fit(trainer, *a, **kw)
+            torch.cuda.synchronize()
+            self.end, self.metrics = time.perf_counter(), out
+            return out
+
+        def timed_stream(loader):
+            it = stream(loader)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it)
+                self.waits.append(time.perf_counter() - t0)
+                yield batch
+
+        cls._step, cls.fit, cls.save = timed_step, timed_fit, timed_save
+        train_amd.batch_stream = timed_stream
+        return self
+
+    def periods(self):
+        """Host time from each step's start to the next one's (the last:
+        to the end of ``fit``), less the checkpoint saves inside it."""
+        ends = self.starts[1:] + [self.end]
+        return [b - a - sum(s1 - s0 for s0, s1 in self.saves
+                            if a <= s0 < b)
+                for a, b in zip(self.starts, ends)]
+
+    def __exit__(self, *exc):
+        from hivae_tpu_torch.cli import train_amd
+        from hivae_tpu_torch.training import trainer as trainer_mod
+
+        cls = trainer_mod.AMDTrainer
+        cls._step, cls.fit, cls.save, train_amd.batch_stream = self.saved
+        return False
+
+
+def _loader_ms(argv):
+    """Host ms a batch of the CLI's loader alone (one epoch, its worker
+    threads as the CLI sets them)."""
+    from hivae_tpu_torch.cli import train_amd
+
+    args = train_amd.parse_args(argv)
+    loader = train_amd.build_loader(args, train_amd.build_config(args))
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def run_cli(argv, label, steps, failures):
+    """``python -m hivae_tpu_torch.cli.train_amd`` in this process, its
+    standard output echoed: exit code, exact launches of ``steps`` steps,
+    finite final metrics. Returns (launches, stdout, record)."""
+    import contextlib
+    import gc
+    import io
+    import torch
+    from hivae_tpu_torch.cli import train_amd
+
+    args = train_amd.parse_args(argv)
+    cfg, n = train_amd.build_config(args), args.train_batch_size
+    buf = io.StringIO()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with _cli_timing() as timing, contextlib.redirect_stdout(buf):
+        rc = train_amd.main(argv)
+    wall = time.perf_counter() - t0
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    out = buf.getvalue()
+    for line in out.splitlines():
+        _log(f"    | {line}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    periods = timing.periods()
+    later = sorted(periods[1:] or periods)
+    steady = later[(len(later) - 1) // 2]
+    waits = timing.waits[1:len(periods)]
+    wait = sum(waits) / len(waits) if waits else 0.0
+    rec = dict(step_ms=steady * 1e3, steps_per_s=1 / steady,
+               clips_per_s=n / steady, frames_per_s=n * WINDOW / steady,
+               peak_gib=peak / 2**30, first_wait_ms=timing.waits[0] * 1e3,
+               wait_ms=wait * 1e3, wall_s=wall)
+    _log(f"  {label}: rc {rc}, {len(periods)} steps, step periods less "
+         f"saves {[round(p * 1e3, 2) for p in periods]} ms (saves "
+         f"{[round(b - a, 2) for a, b in timing.saves]} s; median after "
+         f"the first step {rec['step_ms']:.2f} ms: "
+         f"{rec['steps_per_s']:.3f} steps/s, "
+         f"{rec['clips_per_s']:.3f} clips/s, {rec['frames_per_s']:.2f} "
+         f"frames/s), peak {rec['peak_gib']:.2f} GiB; fit waited on the "
+         f"loader {rec['first_wait_ms']:.1f} ms for the first batch and "
+         f"{rec['wait_ms']:.2f} ms a step after it "
+         f"({100 * wait / steady:.2f}% of a step); {wall:.1f} s with model "
+         f"build and saves; launches "
+         f"{ {k: v for k, v in launches.items() if v} }")
+    want = {k: v * steps for k, v in
+            _expected_step_launches(cfg, False).items()}
+    metrics = timing.metrics or {}
+    if rc != 0 or len(periods) != steps or launches != want or not all(
+            math.isfinite(metrics.get(k, math.nan))
+            for k in ("loss", "grad_norm")):
+        failures.append(f"{label}: rc {rc}, steps {len(periods)}, metrics "
+                        f"{metrics}, launches {launches}, want {want}")
+    return launches, out, rec
+
+
+def run_train_cli(failures, profile_dir=None):
+    """Phases 7 and 7b: the training CLI on synthetic mp4s (flagship JSON,
+    N = 4, bf16, remat), a resume from step 2's checkpoint, the inference
+    CLI on the checkpoint it wrote, then the flags' flagship with
+    ``--use_mask true``. Returns {path: launches}."""
+    import shutil
+    import torch
+    from hivae_tpu_torch.cli import train_amd
+
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    videos = os.path.join(work, "videos")
+    exp = os.path.join(work, "exp")
+    run_dir = os.path.join(exp, "cli")
+    ckpts = os.path.join(run_dir, "checkpoints")
+    common = ["--video_dir", videos, "--output_dir", exp,
+              "--train_batch_size", str(RUN_A_CLIPS), "--mp", "bf16",
+              "--remat", "true", "--mu_dtype", "bf16", "--seed", str(SEED),
+              "--save_checkpoint_interval_step", str(CLI_SAVE_EVERY)]
+    base = common + ["--exp_name", "cli", "--amd_config", CONFIG]
+    paths = {}
+    try:
+        try:
+            import torch.utils.tensorboard  # noqa: F401
+            _log("  torch.utils.tensorboard imports here: the CLI logs to "
+                 "TensorBoard")
+        except ImportError as e:
+            _log(f"  torch.utils.tensorboard does not import here ({e}): the "
+                 f"CLI logs to stdout")
+        t0 = time.perf_counter()
+        write_training_videos(videos)
+        _log(f"  {CLI_VIDEOS} synthetic mp4s of {CLI_VIDEO_FRAMES} frames "
+             f"written in {time.perf_counter() - t0:.1f} s")
+
+        argv = base + ["--max_train_steps", str(CLI_STEPS)]
+        _log(f"  the CLI's loader alone: {_loader_ms(argv):.1f} host ms a "
+             f"batch of {RUN_A_CLIPS} clips (decode, transform, grey twins)")
+        paths["train_cli"], _, _ = run_cli(
+            argv, "train_amd, 3 steps", CLI_STEPS, failures)
+        cfg = train_amd.build_config(train_amd.parse_args(argv))
+        with open(os.path.join(run_dir, "config.json")) as f:
+            written = json.load(f)
+        saved = sorted(os.listdir(ckpts))
+        ok = written == cfg.to_dict() and os.path.exists(
+            os.path.join(run_dir, "args.txt")) and saved == [
+            f"checkpoint-{CLI_SAVE_EVERY}", f"checkpoint-{CLI_STEPS}"]
+        _log(f"  config.json equals the flagship config: "
+             f"{written == cfg.to_dict()}; checkpoints {saved}")
+        if not ok:
+            failures.append(f"train_amd outputs: checkpoints {saved}, "
+                            f"config equal {written == cfg.to_dict()}")
+
+        # as if the run had stopped after step 2's checkpoint
+        shutil.rmtree(os.path.join(ckpts, f"checkpoint-{CLI_STEPS}"))
+        argv = base + ["--max_train_steps", str(CLI_RESUME_TO),
+                       "--resume_training", "true"]
+        paths["train_cli_resume"], out, _ = run_cli(
+            argv, "train_amd, resumed to step 4",
+            CLI_RESUME_TO - CLI_SAVE_EVERY, failures)
+        last = os.path.join(ckpts, f"checkpoint-{CLI_RESUME_TO}", "state.pt")
+        step = torch.load(last, mmap=True, weights_only=True)["step"] \
+            if os.path.exists(last) else None
+        if f"resumed at step {CLI_SAVE_EVERY}" not in out or \
+                step != CLI_RESUME_TO:
+            failures.append(f"train_amd resume: state step {step}, output "
+                            f"{out[-300:]!r}")
+
+        one = os.path.join(work, "one")
+        os.makedirs(one)
+        shutil.copy(os.path.join(videos, "train0.mp4"), one)
+        paths["cli_mp4_trained"] = run_inference_cli(
+            os.path.join(run_dir, "config.json"), ckpts, one,
+            os.path.join(work, "recon"), cfg, failures,
+            label="amd_inference on the trained checkpoint")
+
+        if profile_dir:
+            argv = base + ["--max_train_steps", str(CLI_RESUME_TO + 2),
+                           "--resume_training", "true", "--profile_steps",
+                           "1"]
+            run_cli(argv, "train_amd under its profiler (step 6)", 2,
+                    failures)
+            table = os.path.join(run_dir, "profile", "table.txt")
+            os.makedirs(profile_dir, exist_ok=True)
+            dest = os.path.join(profile_dir, "profile_train_cli.txt")
+            with open(table) as src, open(dest, "w") as f:
+                f.write(f"card: {_card_line()}\n{src.read()}")
+            _log(f"  CLI step profile written to {dest}")
+        shutil.rmtree(exp, ignore_errors=True)
+
+        _log(f"phase 7b: the training CLI with --use_mask true, "
+             f"{CLI_MASK_STEPS} steps")
+        argv = common + ["--exp_name", "mask", "--use_mask", "true",
+                         "--max_train_steps", str(CLI_MASK_STEPS)]
+        _log(f"  the loader alone with flow masks: {_loader_ms(argv):.1f} "
+             f"host ms a batch")
+        paths["train_cli_mask"], _, _ = run_cli(
+            argv, "train_amd --use_mask true", CLI_MASK_STEPS, failures)
+        written = train_amd.build_config(train_amd.parse_args(argv))
+        if not written.use_mask:
+            failures.append("train_amd --use_mask: the config has no mask")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
+def profile_call(fn, out_dir, filename, label):
+    """One call of ``fn`` under torch.profiler: the device's busy share of
+    its wall time and the kernel table, written to DIR/``filename``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    line = (f"profiled {label} wall {wall * 1e3:.2f} ms, device busy "
+            f"{busy_us / 1e3:.2f} ms ({100 * busy_us / 1e6 / wall:.1f}%)")
+    _log("  " + line)
+    path = os.path.join(out_dir, filename)
+    with open(path, "w") as f:
+        f.write(f"card: {_card_line()}\n{line}\n\n")
+        f.write(events.table(sort_by="self_device_time_total",
+                             row_limit=50))
+    _log(f"  profile written to {path}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile one clip and write the table here")
+                    help="also write torch.profiler tables and the kernels "
+                         "line (kernels.json) here")
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout (e.g. the parent commit unpacked "
                          "under _archive/): build its kernels too and time "
@@ -1989,6 +2500,8 @@ def main() -> int:
         fa, models, failures, label="run A", clips=RUN_A_CLIPS,
         steps=RUN_A_STEPS, profile_dir=args.profile)
     torch.cuda.empty_cache()
+    _log("phase 4b: one run-A step under each remat policy")
+    paths.update(run_remat_policies(models, failures))
 
     _log(f"phase 5: training run B, N={RUN_B_CLIPS}, perceptual loss, "
          f"mask ratios 0.5")
@@ -1996,8 +2509,30 @@ def main() -> int:
         fa, models, failures, label="run B", clips=RUN_B_CLIPS,
         steps=RUN_B_STEPS, perceptual=True, mask_ratio=0.5,
         resume_check=True)
+    torch.cuda.empty_cache()
+    _log(f"phase 5b: validate, N={RUN_A_CLIPS}, sample_step "
+         f"{VALIDATE_STEPS}")
+    paths["validate"] = run_validate(models, failures, args.profile)
+    _, vae, lpips = models
     del models
     torch.cuda.empty_cache()
+
+    for name, (over, unused) in VARIANTS.items():
+        _log(f"phase 6: one training step of the {name} variant {over}, "
+             f"N={RUN_A_CLIPS}")
+        amd = build_variant(over)
+        profile = args.profile if name == "default_dit" else None
+        paths[f"train_{name}"], _ = run_training(
+            fa, (amd, vae, lpips), failures, label=name, clips=RUN_A_CLIPS,
+            steps=1, unused=unused, profile_dir=profile,
+            profile_name=f"profile_train_{name}.txt")
+        del amd
+        torch.cuda.empty_cache()
+    del vae, lpips
+    torch.cuda.empty_cache()
+
+    _log(f"phase 7: the training CLI on {CLI_VIDEOS} mp4s, N={RUN_A_CLIPS}")
+    paths.update(run_train_cli(failures, args.profile))
 
     for rec in records + [r["delta"] for r in records if "delta" in r]:
         if not any(p[rec["name"]] for p in paths.values()):
@@ -2012,8 +2547,13 @@ def main() -> int:
     for r in records:
         if "delta" in r:
             summarise(r["delta"], launches(r["delta"]["name"]))
-    print(json.dumps({"kernels": [summarise(r, launches(r["name"]))
-                                  for r in records]}))
+    line = json.dumps({"kernels": [summarise(r, launches(r["name"]))
+                                   for r in records]})
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        with open(os.path.join(args.profile, "kernels.json"), "w") as f:
+            f.write(f"{card}\n{line}\n")
+    print(line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

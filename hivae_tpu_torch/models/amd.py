@@ -1,16 +1,24 @@
 """AMD_N: frequency-decoupled motion autoencoding with a rectified-flow DiT
-decoder (port of ``AMDModelNew``, its training forward and the sampling
-drivers ``sample``, ``decode``, ``sample_with_refimg_motion``,
+decoder (port of ``CameraDown``, ``AMDModelNew``, its training forward and
+the sampling drivers ``sample``, ``decode``, ``sample_with_refimg_motion``,
 ``sample_cross``, ``extract_motion`` and ``_euler_decode`` of
 ``hivae_tpu/models/amd.py``).
 
 The camera stream is the temporal-cross encoder on the low-pass (grey)
 band, the object stream the spatial encoder on RGB, the decoder
-``VelocityDiTImgSpatialTempMotion``. ``AMDConfig`` keeps the JAX package's
-schema so its ``config.json`` files load unchanged. ``remat`` (policy
-``full``) checkpoints the DiT layers under autograd; the options that only
-shape JAX compilation (``scan_layers``, ``attn_impl``) are accepted and have
-no effect here.
+``VelocityDiTImgSpatialTempMotion`` (``diffusion_model_type="spatial"``) or
+``VelocityDiTTempMotion`` (``"default"``, object stream only). The config
+flags the JAX ``AMDModelNew`` builds are built here too: ``use_camera_down``
+(the camera encoder on a 4x smaller grid), ``need_motion_transformer`` (the
+motion-sequence transformer of ``extract_motion`` and refimg-motion
+sampling) and ``use_mask`` (the optical-flow camera mask on the low band).
+``use_regularizers`` is accepted and has no effect, as in the JAX
+``AMDModelNew``: only the dual-encoder ``AMDModel`` reads it (ROADMAP.md
+Queue 1 #6). ``AMDConfig`` keeps the JAX package's schema so its
+``config.json`` files load unchanged. ``remat`` checkpoints the DiT layers
+under autograd with ``remat_policy``; the options that only shape JAX
+compilation (``scan_layers``, ``attn_impl``) are accepted and have no effect
+here.
 
 Every random draw of the training forward (mask-ratio jitter, token
 permutations, timesteps, flow noise) can be injected through
@@ -27,6 +35,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..losses.losses import l2
@@ -34,8 +43,9 @@ from ..ops import frequency
 from ..ops import quant as quant_ops
 from ..ops import rectified_flow as rf
 from ..utils.device import resolve_device
-from .dit import VelocityDiTImgSpatialTempMotion
-from .motion_encoders import MotionEncoderSpatial, MotionEncoderTemporalCross
+from .dit import VelocityDiTImgSpatialTempMotion, VelocityDiTTempMotion
+from .motion_encoders import (MotionEncoderSpatial, MotionEncoderTemporalCross,
+                              MotionSequenceTransformer)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,18 +183,17 @@ def _band_split(x_nthw: torch.Tensor, d_low: float, d_high: float
     return low.transpose(1, 2), high.transpose(1, 2)
 
 
-def _check_supported(c: AMDConfig) -> None:
-    unported = {"diffusion_model_type": c.diffusion_model_type != "spatial",
-                "use_camera_down": c.use_camera_down,
-                "use_mask": c.use_mask,
-                "use_regularizers": c.use_regularizers,
-                "need_motion_transformer": c.need_motion_transformer}
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(
-            f"AMDModelNew: {bad} are not ported yet; the port runs "
-            "diffusion_model_type='spatial' without camera_down, mask, "
-            "regularizers or motion transformer")
+class CameraDown(nn.Module):
+    """Strided conv + max-pool camera downsampler: (B, C, H, W) ->
+    (B, 4, H/4, W/4)."""
+
+    def __init__(self, in_channels: int = 4):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, 16, 3, stride=2, padding=1)
+        self.conv2 = nn.Conv2d(16, 4, 3, stride=1, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(self.conv2(self.conv1(x)), 2, 2)
 
 
 class AMDModelNew(nn.Module):
@@ -194,13 +203,17 @@ class AMDModelNew(nn.Module):
                  device: Optional[Union[str, torch.device]] = None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        _check_supported(cfg)
+        if cfg.diffusion_model_type not in ("default", "spatial"):
+            raise ValueError(f"diffusion_model_type "
+                             f"{cfg.diffusion_model_type!r}")
         self.cfg = c = cfg
         dev = resolve_device(device)
+        down = 4 if c.use_camera_down else 1
         with torch.device(dev):
             if c.use_camera:
                 self.camera_motion_encoder = MotionEncoderTemporalCross(
-                    img_height=c.image_height, img_width=c.image_width,
+                    img_height=c.image_height // down,
+                    img_width=c.image_width // down,
                     img_inchannel=c.image_inchannel,
                     img_patch_size=c.image_patch_size,
                     motion_token_num=c.camera_motion_token_num,
@@ -218,30 +231,56 @@ class AMDModelNew(nn.Module):
                     need_norm_out=c.motion_need_norm_out,
                     heads=c.enc_nhead, head_dim=c.enc_ndim,
                     num_layers=c.object_enc_num_layers)
-            self.diffusion_transformer = VelocityDiTImgSpatialTempMotion(
-                heads=c.diffusion_attn_num_heads,
-                head_dim=c.diffusion_attn_head_dim,
-                out_channels=c.diffusion_out_channels,
-                num_layers=c.diffusion_num_layers,
-                image_height=c.image_height, image_width=c.image_width,
-                image_patch_size=c.image_patch_size,
-                image_in_channels=c.image_inchannel * 2,
-                motion_token_num=c.motion_token_num,
-                motion_target_num_frame=c.video_frames,
-                use_camera=c.use_camera, use_object=c.use_object,
-                camera_motion_in_channels=c.camera_motion_token_channel,
-                object_motion_in_channels=c.object_motion_token_channel,
-                remat=c.remat, remat_policy=c.remat_policy)
+            if c.use_camera_down:
+                self.camera_down = CameraDown(c.image_inchannel)
+            if c.need_motion_transformer:
+                self.motion_transformer = MotionSequenceTransformer(
+                    motion_token_num=c.motion_token_num,
+                    motion_token_channel=c.motion_token_channel,
+                    heads=c.motion_transformer_attn_num_heads,
+                    head_dim=c.motion_transformer_attn_head_dim,
+                    num_layers=c.motion_transformer_num_layers)
+            dit_kw = dict(heads=c.diffusion_attn_num_heads,
+                          head_dim=c.diffusion_attn_head_dim,
+                          out_channels=c.diffusion_out_channels,
+                          num_layers=c.diffusion_num_layers,
+                          image_height=c.image_height,
+                          image_width=c.image_width,
+                          image_patch_size=c.image_patch_size,
+                          image_in_channels=c.image_inchannel * 2,
+                          motion_target_num_frame=c.video_frames,
+                          object_motion_in_channels=
+                          c.object_motion_token_channel,
+                          remat=c.remat, remat_policy=c.remat_policy)
+            if c.diffusion_model_type == "default":
+                self.diffusion_transformer = VelocityDiTTempMotion(**dit_kw)
+            else:
+                self.diffusion_transformer = VelocityDiTImgSpatialTempMotion(
+                    motion_token_num=c.motion_token_num,
+                    use_camera=c.use_camera, use_object=c.use_object,
+                    camera_motion_in_channels=c.camera_motion_token_channel,
+                    **dit_kw)
         # position tables are built on the host; move them with the weights
         self.to(device=dev, dtype=dtype)
+
+    def camera_input(self, lf_video: torch.Tensor) -> torch.Tensor:
+        """The camera encoder's input from a low-band video (N,T,C,H,W):
+        ``CameraDown`` per frame under ``use_camera_down``."""
+        if not self.cfg.use_camera_down:
+            return lf_video
+        n, t = lf_video.shape[:2]
+        b = self.camera_down(lf_video.reshape((n * t,) + lf_video.shape[2:]))
+        return b.reshape((n, t) + b.shape[1:])
 
     def encode(self, video, ref_img, video_grey=None, ref_img_grey=None,
                camera_mask_ratio=None, object_mask_ratio=None,
                low_cut: float = 0.6, high_cut: float = 0.6,
-               *, camera_perm=None, object_perm=None,
+               camera_mask=None, *, camera_perm=None, object_perm=None,
                camera_u=None, object_u=None, generator=None):
         """-> (camera_target (N,T,S,Dc), object_source (N*T,L,Do),
         object_target (N*T,L,Do)); video/ref_img: (N,T,C,H,W) latents.
+        Under ``use_mask`` the low band of [ref, video] is multiplied by
+        ``camera_mask`` (N, 2T, C, h, w) before the camera encoder.
         A ratio given as a 0-d tensor is the training jitter (``*_perm``
         the shuffles); with a tensor ``camera_mask_ratio`` a fourth entry,
         the camera site keep-mask (N, S), follows. A float ratio drops
@@ -254,17 +293,30 @@ class AMDModelNew(nn.Module):
             grey = (torch.cat([ref_img_grey, video_grey], dim=1)
                     if c.use_grey else refimg_and_video)
             lf, _ = _band_split(grey, low_cut, high_cut)
+            if c.use_mask and camera_mask is not None:
+                lf = lf * camera_mask.to(lf)
             lf_video = lf[:, t:]
         else:
+            if c.use_mask:
+                raise ValueError(
+                    "cfg.use_mask=True requires cfg.use_filter=True: the "
+                    "camera_mask multiplies the low-frequency band, which "
+                    "only exists under the FFT split")
             lf_video = video_grey if c.use_grey else video
 
         camera_target = object_source = object_target = site_mask = None
         if c.use_camera:
             camera_target = self.camera_motion_encoder(
-                lf_video, camera_mask_ratio, perm=camera_perm, u=camera_u,
-                generator=generator)
+                self.camera_input(lf_video), camera_mask_ratio,
+                perm=camera_perm, u=camera_u, generator=generator)
             if isinstance(camera_target, tuple):
                 camera_target, site_mask = camera_target
+            # the camera-only variant transforms its target motion here; the
+            # two-stream model runs the transformer in extract_motion and
+            # refimg-motion sampling only
+            if (c.need_motion_transformer and not c.use_object and
+                    not c.extract_motion_with_motion_transformer):
+                camera_target = self.motion_transformer(camera_target)
         if c.use_object:
             om = self.object_motion_encoder(
                 refimg_and_video, object_mask_ratio, perm=object_perm,
@@ -280,13 +332,25 @@ class AMDModelNew(nn.Module):
         """Object-motion tokens (N, T, L, D) of ``video`` (N, T, C, H, W)
         latents; a float ``mask_ratio`` drops that share of the encoder's
         patch tokens (``u`` (N*T, patches) the uniform draw that orders
-        them), the GT-motion ablation's knob."""
-        return self.object_motion_encoder(video, mask_ratio, u=u,
-                                          generator=generator)
+        them), the GT-motion ablation's knob. With
+        ``extract_motion_with_motion_transformer`` the tokens then run
+        through the motion transformer."""
+        motion = self.object_motion_encoder(video, mask_ratio, u=u,
+                                            generator=generator)
+        if (self.cfg.need_motion_transformer and
+                self.cfg.extract_motion_with_motion_transformer):
+            motion = self.motion_transformer(motion)
+        return motion
 
     def velocity(self, image_hidden_states, timestep, camera_target=None,
                  object_source=None, object_target=None,
                  camera_site_mask=None):
+        if self.cfg.diffusion_model_type == "default":
+            # the TempMotion DiT has no camera stream
+            return self.diffusion_transformer(
+                image_hidden_states, timestep,
+                object_motion_source=object_source,
+                object_motion_target=object_target)
         return self.diffusion_transformer(
             image_hidden_states, timestep,
             camera_motion_target=camera_target,
@@ -296,19 +360,25 @@ class AMDModelNew(nn.Module):
 
     def forward(self, video, ref_img, video_grey=None, ref_img_grey=None,
                 camera_mask_ratio=None, object_mask_ratio=None,
-                return_meta_info: bool = False, *,
+                return_meta_info: bool = False, camera_mask=None, *,
                 draws: Optional[TrainDraws] = None,
                 generator: Optional[torch.Generator] = None):
         """Training forward (JAX ``AMDModelNew.__call__``): the mask-ratio
         jitter (camera ``(0.6 + 0.4u) r``, object ``0.5u r``), motion
         encoding with band cutoffs (0.6, 0.5), a rectified-flow train tuple
-        at per-clip timesteps, the DiT velocity and the l2 losses.
-        Returns (pre, vel, loss_dict); ``return_meta_info`` adds zi, zj, zt,
-        pre, rec_zj and time_step to the dict."""
+        at per-clip timesteps (per-frame for the ``default`` DiT), the DiT
+        velocity and the l2 losses. A ``use_mask`` model needs the
+        dataset's ``camera_mask``. Returns (pre, vel, loss_dict);
+        ``return_meta_info`` adds zi, zj, zt, pre, rec_zj and time_step to
+        the dict."""
         c = self.cfg
         d = draws or TrainDraws()
         n, t = video.shape[:2]
         dev = video.device
+        if c.use_mask and camera_mask is None:
+            raise ValueError(
+                "cfg.use_mask=True: the training forward requires the "
+                "dataset's optical-flow camera_mask")
 
         def uniform(u):
             if u is None:
@@ -323,6 +393,7 @@ class AMDModelNew(nn.Module):
         encoded = self.encode(video, ref_img, video_grey, ref_img_grey,
                               camera_mask_ratio, object_mask_ratio,
                               low_cut=0.6, high_cut=0.5,
+                              camera_mask=camera_mask,
                               camera_perm=d.camera_perm,
                               object_perm=d.object_perm, generator=generator)
         camera_target, object_source, object_target = encoded[:3]
@@ -332,9 +403,7 @@ class AMDModelNew(nn.Module):
         zj = video.reshape((n * t,) + video.shape[2:])
         time_step = d.time_step
         if time_step is None:
-            time_step = torch.randint(0, c.scheduler_num_step + 1, (n,),
-                                      generator=generator, device=dev)
-            time_step = time_step.repeat_interleave(t)
+            time_step = draw_time_steps(c, n, t, generator, dev)
         time_step = time_step.to(dev)
         z0 = d.z0
         if z0 is None:
@@ -355,6 +424,27 @@ class AMDModelNew(nn.Module):
             loss_dict.update(zi=zi, zj=zj, zt=zt, pre=pre, rec_zj=rec_zj,
                              time_step=time_step)
         return pre, vel, loss_dict
+
+
+def draw_time_steps(cfg: AMDConfig, n: int, t: int,
+                    generator: Optional[torch.Generator], device
+                    ) -> torch.Tensor:
+    """The training timesteps (N*T,) in [0, num_steps]: one per clip,
+    repeated over its frames, or one per frame for the ``default`` DiT."""
+    hi = cfg.scheduler_num_step + 1
+    if cfg.diffusion_model_type == "default":
+        return torch.randint(0, hi, (n * t,), generator=generator,
+                             device=device)
+    steps = torch.randint(0, hi, (n,), generator=generator, device=device)
+    return steps.repeat_interleave(t)
+
+
+def camera_sites(shape: Sequence[int], cfg: AMDConfig) -> int:
+    """Camera-encoder sites of a latent frame whose shape ends in (h, w)
+    (on the 4x smaller grid under ``use_camera_down``)."""
+    down = 4 if cfg.use_camera_down else 1
+    p = cfg.image_patch_size
+    return (shape[-2] // down // p) * (shape[-1] // down // p)
 
 
 def AMD_N(device: Optional[Union[str, torch.device]] = None,
@@ -412,32 +502,33 @@ def sample(model: AMDModelNew, video, ref_img, video_grey=None,
            quant_table=None):
     """Reconstruction: motion from ``video`` (N,T,C,H,W latents), then an
     ODE decode from noise. The mask ratios (floats) drop that share of each
-    encoder's tokens. ``camera_mask``, the optical-flow camera mask of a
-    ``use_mask`` model, is refused: no model the port builds has
-    ``use_mask``. Draws come from ``generator`` (a ``torch.Generator`` or
-    ``SampleDraws``): the camera and object mask uniforms, then the start
-    noise (N*T,C,H,W). ``quant_table`` runs the ODE loop's velocity calls
-    in int8; the motion encoding stays in the compute dtype. Returns (zi,
-    sample, zj), each (N,T,C,H,W)."""
-    if camera_mask is not None:
-        raise NotImplementedError(
-            "camera_mask needs a use_mask model, which is not ported yet "
-            "(ROADMAP.md Queue 1 #4)")
+    encoder's tokens. ``camera_mask`` (N,2T,C,h,w), the optical-flow camera
+    mask, is read by a ``use_mask`` model and refused by any other (the JAX
+    package ignores it there). Draws come from ``generator`` (a
+    ``torch.Generator`` or ``SampleDraws``): the camera and object mask
+    uniforms, then the start noise (N*T,C,H,W). ``quant_table`` runs the
+    ODE loop's velocity calls in int8; the motion encoding stays in the
+    compute dtype. Returns (zi, sample, zj), each (N,T,C,H,W)."""
     cfg = model.cfg
+    if camera_mask is not None and not cfg.use_mask:
+        raise NotImplementedError(
+            "camera_mask is read only by a use_mask model; this model has "
+            "use_mask=False")
     draws = sample_draws(generator)
     n, t = video.shape[:2]
     start = cfg.scheduler_num_step if start_step is None else start_step
     camera_mask_ratio = _static(camera_mask_ratio)
     object_mask_ratio = _static(object_mask_ratio)
-    sites, dev = _sites(video, cfg), video.device
+    dev = video.device
     camera_u = object_u = None
     if camera_mask_ratio is not None and cfg.use_camera:
-        camera_u = draws.uniform((n, sites), dev)
+        camera_u = draws.uniform((n, camera_sites(video.shape, cfg)), dev)
     if object_mask_ratio is not None and cfg.use_object:
-        object_u = draws.uniform((n * 2 * t, sites), dev)
+        object_u = draws.uniform((n * 2 * t, _sites(video, cfg)), dev)
     camera_target, object_source, object_target = model.encode(
         video, ref_img, video_grey, ref_img_grey, camera_mask_ratio,
-        object_mask_ratio, camera_u=camera_u, object_u=object_u)
+        object_mask_ratio, camera_mask=camera_mask, camera_u=camera_u,
+        object_u=object_u)
     motions = dict(camera_target=camera_target, object_source=object_source,
                    object_target=object_target)
     zi = ref_img.reshape((n * t,) + ref_img.shape[2:])
@@ -484,15 +575,22 @@ def sample_with_refimg_motion(model: AMDModelNew, ref_img, motion,
                               quant_table=None):
     """Image + motion tokens -> video latents: the source motion extracted
     from the reference frame ``ref_img`` (N, C, H, W), the given ``motion``
-    (N, F, L, D) as the target, both in the object stream. ``mask_ratio``
-    masks the source extraction; its uniform is drawn (before the start
-    noise) only then. Returns (zi, sample), each (N, F, C, H, W)."""
+    (N, F, L, D) as the target, both in the object stream; with
+    ``need_motion_transformer`` the target runs through the motion
+    transformer unless ``extract_motion`` already applies it (to the
+    source). ``mask_ratio`` masks the source extraction; its uniform is
+    drawn (before the start noise) only then. Returns (zi, sample), each
+    (N, F, C, H, W)."""
+    cfg = model.cfg
     n, t, l, d = motion.shape
     draws = sample_draws(generator)
     u = None
     if mask_ratio is not None:
-        u = draws.uniform((n, _sites(ref_img, model.cfg)), ref_img.device)
+        u = draws.uniform((n, _sites(ref_img, cfg)), ref_img.device)
     src = model.extract_motion(ref_img[:, None], mask_ratio, u=u)
+    if (cfg.need_motion_transformer and
+            not cfg.extract_motion_with_motion_transformer):
+        motion = model.motion_transformer(motion)
     motions = dict(object_source=src.expand(n, t, l, d).reshape(n * t, l, d),
                    object_target=motion.reshape(n * t, l, d))
     zi = ref_img[:, None].expand((n, t) + ref_img.shape[1:]).reshape(
@@ -512,7 +610,8 @@ def sample_cross(model: AMDModelNew, video_1, video_2, ref_img,
                  solver: str = "euler", generator: DrawSource = None,
                  quant_table=None):
     """Cross-video motion transfer: camera motion from the low band (cutoff
-    0.5) of ``video_1`` (its grey clip under ``use_grey``), appearance from
+    0.5) of ``video_1`` (its grey clip under ``use_grey``; through
+    ``CameraDown`` under ``use_camera_down``), appearance from
     ``ref_img``; only the camera stream drives the DiT, and ``video_2``
     seeds the walk below the full range. The JAX package's
     ``video_grey_2``, ``ref_img_grey`` and ``object_mask_ratio`` are
@@ -527,9 +626,10 @@ def sample_cross(model: AMDModelNew, video_1, video_2, ref_img,
     camera_mask_ratio = _static(camera_mask_ratio)
     u = None
     if camera_mask_ratio is not None:
-        u = draws.uniform((n, _sites(video_1, cfg)), video_1.device)
-    camera_target = model.camera_motion_encoder(lf_video, camera_mask_ratio,
-                                                u=u)
+        u = draws.uniform((n, camera_sites(video_1.shape, cfg)),
+                          video_1.device)
+    camera_target = model.camera_motion_encoder(
+        model.camera_input(lf_video), camera_mask_ratio, u=u)
     zi = ref_img.reshape((n * t,) + ref_img.shape[2:])
     zj = video_2.reshape((n * t,) + video_2.shape[2:])
     z0 = draws.normal(zj.shape, zj.dtype, zj.device)

@@ -6,6 +6,9 @@
     full-block kernel.
   * ``MotionEncoderTemporalCross`` - camera branch: per-site temporal
     query tokens cross-attend to the per-pixel temporal tubes (S = frames).
+  * ``MotionSequenceTransformer`` - self-attention over a clip's flattened
+    F x L motion tokens (64 at the flagship: plain attention), for a model
+    with ``need_motion_transformer``.
 
 Token masking has the JAX package's two branches. A ratio given as a 0-d
 tensor is the training path's per-step jitter: tokens are shuffled at full
@@ -200,3 +203,35 @@ class MotionEncoderTemporalCross(nn.Module):
         mtok = self.norm_out(self.proj_out(self.norm_final(mtok)))
         out = mtok.reshape(n, s, t, self.motion_channel).transpose(1, 2)
         return out if site_keep is None else (out, site_keep)
+
+
+class MotionSequenceTransformer(nn.Module):
+    """Motion tokens (N, F, L, D) -> (N, F, L, D): embedded, given 1-D
+    positions over the flattened F*L sequence, N self-attention layers,
+    projected back to D."""
+
+    def __init__(self, motion_token_num: int = 4,
+                 motion_token_channel: int = 128, motion_frames: int = 128,
+                 heads: int = 16, head_dim: int = 64, num_layers: int = 8):
+        super().__init__()
+        hidden = heads * head_dim
+        self.hidden, self.motion_token_channel = hidden, motion_token_channel
+        self.embed = nn.Linear(motion_token_channel, hidden)
+        self.register_buffer(
+            "pos", _table(emb_ops.get_1d_sincos_pos_embed(
+                hidden, motion_token_num * motion_frames))[None],
+            persistent=False)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(hidden, heads, head_dim)
+             for _ in range(num_layers)])
+        self.norm_final = nn.LayerNorm(hidden, eps=1e-5)
+        self.proj_out = nn.Linear(hidden, motion_token_channel)
+
+    def forward(self, motion: torch.Tensor) -> torch.Tensor:
+        n, f, l, _ = motion.shape
+        x = self.embed(motion).reshape(n, f * l, self.hidden) + \
+            self.pos[:, :f * l]
+        for blk in self.transformer_blocks:
+            x = blk(x)
+        x = self.proj_out(self.norm_final(x))
+        return x.reshape(n, f, l, self.motion_token_channel)

@@ -8,7 +8,9 @@ step); the newest is found by the same ``checkpoint-(\\d+)`` pattern, and
 only the ``max_to_keep`` newest are kept. Writes go to a temporary name
 first, so a checkpoint directory is either complete or absent.
 
-For inference, ``load_trained_params`` reads the parameters (or their EMA)
+``save_config``/``load_config`` write and read the model's
+``config.json`` beside the checkpoints. For inference,
+``load_trained_params`` reads the parameters (or their EMA)
 of such a checkpoint and ``load_pretrain_partial`` a reference-named
 ``.safetensors`` state dict. Orbax checkpoints of the JAX package cannot
 be read without JAX and are refused.
@@ -16,6 +18,7 @@ be read without JAX and are refused.
 
 from __future__ import annotations
 
+import json
 import os
 import re
 import shutil
@@ -31,6 +34,22 @@ STATE_FILE = "state.pt"
 # files an Orbax checkpoint directory holds (the JAX package's format)
 _ORBAX_MARKERS = ("_CHECKPOINT_METADATA", "_METADATA", "manifest.ocdbt",
                   "checkpoint")
+
+
+def save_config(config: Dict[str, Any], directory: str,
+                name: str = "config.json") -> None:
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, name), "w") as f:
+        json.dump(config, f, indent=2, default=str)
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    """The config dict of ``path`` (a file, or a directory holding
+    ``config.json``)."""
+    if os.path.isdir(path):
+        path = os.path.join(path, "config.json")
+    with open(path) as f:
+        return json.load(f)
 
 
 def find_latest_checkpoint(directory: str) -> Optional[str]:

@@ -21,12 +21,19 @@ with ``(config.seed, state.step)`` (the counterpart of the JAX step's
 continues. ``draw`` returns them as ``StepDraws``, and ``train_step`` takes
 them as an input, so a caller can replay one step exactly.
 
-``TrainConfig`` keeps the JAX package's fields. ``mesh_shape``,
-``profile_steps``, ``profile_start``, ``transfer_dtype``, ``sync_every`` and
-``eval_every`` are accepted and have no effect on one card: there is no
-mesh, the profiler is driven from outside (``chip_smoke.py --profile``), a
-batch is moved to the card as given, and each step's loss is read on the
-host.
+``TrainConfig`` keeps the JAX package's fields. ``mesh_shape`` and
+``sync_every`` are accepted and have no effect on one card (there is no
+mesh, and each step's loss is read on the host), and ``fit`` does not read
+``eval_every``, as in the JAX package: a caller runs ``validate``.
+``transfer_dtype="bf16"`` sends fp32 batch arrays to the card as bf16.
+``fit`` copies batch N+1 to the card (from pinned memory, non-blocking)
+before it reads step N's loss on the host, so the loader's work for the
+next batch overlaps the device's step. ``profile_steps`` > 0 records that
+many steps from ``profile_start`` with ``torch.profiler`` into
+``<output_dir>/profile`` (a Chrome trace and a table by device time).
+Scalars go to a duck-typed ``tb_writer`` (``add_scalar``, ``add_images``,
+``add_video``) as ``train/<key>``; ``validate`` adds image and video
+panels.
 """
 
 from __future__ import annotations
@@ -95,10 +102,11 @@ class AMDTrainer:
     """Trains an ``AMDModelNew`` (fp32 parameters) against a frozen VAE on
     batches of pixel clips: dicts with ``videos`` and ``ref_img``
     (N, T, 3, H, W) in [-1, 1], plus ``grey_videos`` and ``ref_grey_img``
-    when the model's config has ``use_grey``."""
+    when the model's config has ``use_grey`` and the latent-resolution
+    ``camera_mask`` (N, 2T, C, h, w) when it has ``use_mask``."""
 
     def __init__(self, model: amd_mod.AMDModelNew, vae: vae_mod.AutoencoderKL,
-                 config: TrainConfig, lpips=None):
+                 config: TrainConfig, lpips=None, tb_writer=None):
         bad = [n for n, p in model.named_parameters()
                if p.dtype != torch.float32]
         if bad:
@@ -107,8 +115,12 @@ class AMDTrainer:
                              f"dtype=torch.float32)")
         if config.nan_policy not in ("none", "halt", "skip"):
             raise ValueError(f"nan_policy {config.nan_policy!r}")
+        if config.transfer_dtype not in ("fp32", "bf16"):
+            raise ValueError(f"transfer_dtype {config.transfer_dtype!r}")
         self.model, self.vae, self.lpips, self.config = (model, vae, lpips,
                                                          config)
+        self.tb = tb_writer
+        self._profiler = None
         self.device = next(model.parameters()).device
         params = dict(model.named_parameters())
         tx = make_optimizer(
@@ -128,9 +140,21 @@ class AMDTrainer:
     # -- one step --------------------------------------------------------------
 
     def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
-                                   else v).to(self.device)
-                for k, v in batch.items() if not isinstance(v, list)}
+        """The batch's arrays on the card: from pinned host memory,
+        non-blocking, fp32 ones as bf16 under ``transfer_dtype="bf16"``."""
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, list):
+                continue
+            x = v if torch.is_tensor(v) else torch.from_numpy(np.asarray(v))
+            if self.config.transfer_dtype == "bf16" and \
+                    x.dtype == torch.float32:
+                x = x.to(torch.bfloat16)
+            if self.device.type == "cuda" and x.device.type == "cpu":
+                out[k] = x.pin_memory().to(self.device, non_blocking=True)
+            else:
+                out[k] = x.to(self.device)
+        return out
 
     def draw(self, batch) -> StepDraws:
         """This step's draws, from the generator of (seed, state.step)."""
@@ -143,13 +167,14 @@ class AMDTrainer:
         keys = _ENCODED if mcfg.use_grey else _ENCODED[:2]
         posterior = {k: torch.randn(lat, generator=gen, device=self.device)
                      for k in keys}
-        sites = (h // f // mcfg.image_patch_size) * \
-            (w // f // mcfg.image_patch_size)
+        grid = (h // f, w // f)
+        sites = (grid[0] // mcfg.image_patch_size) * \
+            (grid[1] // mcfg.image_patch_size)
 
         def uniform():
             return torch.rand((), generator=gen, device=self.device)
 
-        def perm(rows):
+        def perm(rows, sites):
             noise = torch.rand((rows, sites), generator=gen,
                                device=self.device)
             return torch.argsort(noise, dim=1, stable=True)
@@ -160,12 +185,10 @@ class AMDTrainer:
         if cfg.object_mask_ratio is not None:
             d.object_u = uniform()
         if cfg.camera_mask_ratio is not None:
-            d.camera_perm = perm(n)
+            d.camera_perm = perm(n, amd_mod.camera_sites(grid, mcfg))
         if cfg.object_mask_ratio is not None:
-            d.object_perm = perm(n * 2 * t)
-        steps = torch.randint(0, mcfg.scheduler_num_step + 1, (n,),
-                              generator=gen, device=self.device)
-        d.time_step = steps.repeat_interleave(t)
+            d.object_perm = perm(n * 2 * t, sites)
+        d.time_step = amd_mod.draw_time_steps(mcfg, n, t, gen, self.device)
         d.z0 = torch.randn(lat, generator=gen, device=self.device)
         return StepDraws(posterior, d)
 
@@ -192,6 +215,8 @@ class AMDTrainer:
             _, _, loss_dict = self.model(
                 lat["videos"], lat["ref_img"], lat.get("grey_videos"),
                 lat.get("ref_grey_img"), return_meta_info=use_lpips,
+                camera_mask=(batch["camera_mask"]
+                             if self.model.cfg.use_mask else None),
                 draws=draws.model, **ratio)
             loss = loss_dict["loss"]
             if use_lpips:
@@ -210,25 +235,58 @@ class AMDTrainer:
                  for p, g in zip(params, grads)]
         return {k: v.detach().float() for k, v in loss_dict.items()}, grads
 
-    def train_step(self, batch, draws: Optional[StepDraws] = None
-                   ) -> Dict[str, float]:
-        """One optimizer step on a pixel batch -> metrics (floats)."""
-        batch = self._to_device(batch)
+    def _step(self, batch, draws: Optional[StepDraws] = None
+              ) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a batch already on the card -> metrics as
+        0-d tensors; the host waits on the card only under
+        ``nan_policy="skip"``."""
         if draws is None:
             draws = self.draw(batch)
         metrics, grads = self.loss_and_grads(batch, draws)
         metrics["grad_norm"] = global_norm(grads)
-        finite = bool(torch.isfinite(metrics["loss"]) &
-                      torch.isfinite(metrics["grad_norm"]))
-        if finite or self.config.nan_policy != "skip":
-            self.state.apply_gradients(grads)
-        out = {k: float(v) for k, v in metrics.items()}
         if self.config.nan_policy == "skip":
-            out["nan_skipped"] = 0.0 if finite else 1.0
+            finite = bool(torch.isfinite(metrics["loss"]) &
+                          torch.isfinite(metrics["grad_norm"]))
+            if finite:
+                self.state.apply_gradients(grads)
+            metrics["nan_skipped"] = torch.tensor(0.0 if finite else 1.0)
+        else:
+            self.state.apply_gradients(grads)
         self.global_step += 1
-        return out
+        return metrics
+
+    def train_step(self, batch, draws: Optional[StepDraws] = None
+                   ) -> Dict[str, float]:
+        """One optimizer step on a pixel batch -> metrics (floats)."""
+        metrics = self._step(self._to_device(batch), draws)
+        return {k: float(v) for k, v in metrics.items()}
 
     # -- loop ----------------------------------------------------------------
+
+    def _start_profile(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=acts)
+        self._profiler.__enter__()
+
+    def _stop_profile(self) -> None:
+        """Write ``<output_dir>/profile/trace.json`` and ``table.txt``
+        (the ops by device time, else by host time)."""
+        prof, self._profiler = self._profiler, None
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.__exit__(None, None, None)
+        out = os.path.join(self.config.output_dir, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        sort = ("self_device_time_total" if self.device.type == "cuda"
+                else "self_cpu_time_total")
+        with open(os.path.join(out, "table.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by=sort, row_limit=50))
+        print(f"profiler trace written to {out}")
 
     def fit(self, batches: Iterable[Dict[str, np.ndarray]],
             max_steps: Optional[int] = None) -> Dict[str, float]:
@@ -236,17 +294,29 @@ class AMDTrainer:
         limit = max_steps or cfg.max_steps
         last: Dict[str, float] = {}
         t0 = time.perf_counter()
-        for batch in batches:
-            if self.global_step >= limit:
-                break
-            metrics = self.train_step(batch)
+        it = iter(batches)
+        batch = next(it, None)
+        device_batch = None if batch is None else self._to_device(batch)
+        while device_batch is not None and self.global_step < limit:
+            host_batch = batch
+            if cfg.profile_steps and self.global_step == cfg.profile_start:
+                self._start_profile()
+            step_metrics = self._step(device_batch)
+            # the next batch goes to the card before this step's loss is
+            # read on the host
+            batch = next(it, None) if self.global_step < limit else None
+            device_batch = None if batch is None else self._to_device(batch)
+            if cfg.profile_steps and self.global_step == \
+                    cfg.profile_start + cfg.profile_steps:
+                self._stop_profile()
+            metrics = {k: float(v) for k, v in step_metrics.items()}
             finite = np.isfinite(metrics["loss"])
             if cfg.nan_policy == "halt" and not finite:
                 os.makedirs(cfg.output_dir, exist_ok=True)
                 dump = os.path.join(cfg.output_dir,
                                     f"nan_batch_step{self.global_step}.npz")
                 np.savez(dump, **{k: np.asarray(torch.as_tensor(v).cpu())
-                                  for k, v in batch.items()
+                                  for k, v in host_batch.items()
                                   if not isinstance(v, list)})
                 raise FloatingPointError(
                     f"non-finite loss {metrics['loss']} at step "
@@ -261,8 +331,11 @@ class AMDTrainer:
                 t0 = time.perf_counter()
                 last = dict(metrics, steps_per_sec=cfg.log_every /
                             max(dt, 1e-9))
+                self._log(last)
             if self.global_step % cfg.save_every == 0:
                 self.save()
+        if self._profiler is not None:   # the loop ended inside the window
+            self._stop_profile()
         return last
 
     def save(self) -> str:
@@ -274,6 +347,70 @@ class AMDTrainer:
         self.state.load_state_dict(
             self.ckpt.restore(path, map_location=self.device))
         self.global_step = self.state.step
+
+    def _log(self, metrics: Dict[str, float]) -> None:
+        if self.tb is not None:
+            for k, v in metrics.items():
+                self.tb.add_scalar(f"train/{k}", v, self.global_step)
+
+    # -- validation ----------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _eval_weights(self):
+        """The model carries the EMA weights inside, where tracked."""
+        ema = self.state.ema_params
+        if ema is None:
+            yield
+            return
+        live = {k: p.detach().clone() for k, p in self.state.params.items()}
+        with torch.no_grad():
+            for k, p in self.state.params.items():
+                p.copy_(ema[k])
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for k, p in self.state.params.items():
+                    p.copy_(live[k])
+
+    @torch.no_grad()
+    def validate(self, batch, sample_step: int = 2,
+                 generator: amd_mod.DrawSource = None,
+                 grid_path: Optional[str] = None) -> np.ndarray:
+        """Reconstruct a pixel batch: posterior-mode encodes, ``sample``
+        with the EMA weights where tracked (its draws from ``generator``,
+        by default a generator seeded with 0), the VAE decode; optionally
+        a grid mp4 at ``grid_path`` and writer panels. Returns the decoded
+        clips, uint8 (N, T, C, H, W)."""
+        batch = self._to_device(batch)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        mcfg = self.model.cfg
+        keys = _ENCODED if mcfg.use_grey else _ENCODED[:2]
+        lat = {k: vae_mod.vae_encode(self.vae, batch[k]).float()
+               for k in keys}
+        kwargs = {}
+        if mcfg.use_mask and "camera_mask" in batch:
+            kwargs["camera_mask"] = batch["camera_mask"]
+        with self._eval_weights(), self._autocast():
+            _, sample_z, _ = amd_mod.sample(
+                self.model, lat["videos"], lat["ref_img"],
+                lat.get("grey_videos"), lat.get("ref_grey_img"),
+                sample_step=sample_step, generator=generator, **kwargs)
+        video = vae_mod.vae_decode(self.vae, sample_z.float())
+        out = vae_mod.latents_to_rgb(video).cpu().numpy()
+        if grid_path is not None:
+            from ..data.video import save_videos_grid
+
+            save_videos_grid(grid_path, out)
+        if self.tb is not None:
+            self.tb.add_images("val/first_frame_pred", out[:, 0],
+                               self.global_step)
+            gt = vae_mod.latents_to_rgb(batch["videos"]).cpu().numpy()
+            self.tb.add_images("val/first_frame_gt", gt[:, 0],
+                               self.global_step)
+            self.tb.add_video("val/video_pred", out, self.global_step, fps=8)
+        return out
 
 
 def batch_from_clips(clips: List[np.ndarray],

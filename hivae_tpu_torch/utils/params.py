@@ -9,7 +9,13 @@ ones. Layouts:
   * Conv kernel  (kh,kw,I,O) -> Conv2d weight (O,I,kh,kw)
   * LayerNorm/GroupNorm ``scale`` -> ``weight``
   * the ``nn.scan``-stacked ``layers/{object,camera,spatial}_block`` tree
-    (``scan_layers=True``, leading dim L) -> per-layer ModuleList entries.
+    (``scan_layers=True``, leading dim L) -> per-layer ModuleList entries,
+    for both velocity DiTs (the TempMotion DiT stacks ``object_block``
+    only).
+
+The modules of the config flags carry the JAX names too
+(``camera_down/conv{1,2}``, ``motion_transformer/{embed,blocks_i,
+norm_final,proj_out}``), so the same rules cover them.
 
 Input is the flax tree as nested mappings of numpy arrays (with or without
 the top-level ``params`` collection). ``lpips_flax_to_torch`` maps the

@@ -254,8 +254,10 @@ def test_amd_n_factory_matches_jax():
 
 
 def test_amd_rejects_unported_options():
-    with pytest.raises(NotImplementedError):
-        tamd.AMDModelNew(tamd.AMDConfig(diffusion_model_type="default"),
+    """``AMDModelNew`` builds the ``default`` and ``spatial`` DiTs, as the
+    JAX package's does; any other type is refused, as there."""
+    with pytest.raises(ValueError, match="diffusion_model_type"):
+        tamd.AMDModelNew(tamd.AMDConfig(diffusion_model_type="dual"),
                          device="cpu")
 
 

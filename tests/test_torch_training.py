@@ -442,16 +442,6 @@ def test_remat_gives_identical_gradients(tiny):
         assert torch.equal(g, grads[1][name]), name
 
 
-def test_remat_policies_other_than_full_raise(tiny):
-    _, params, cfg, _ = tiny
-    model = _port_model(params, cfg, remat=True, remat_policy="dots")
-    lat = [torch.from_numpy(x) for x in _latents(8)]
-    with pytest.raises(NotImplementedError, match="dots"):
-        model(*lat, draws=_draws(9).port(False))
-    with torch.no_grad():   # serving does not checkpoint, so it runs
-        model(*lat, draws=_draws(9).port(False))
-
-
 # -- (j) the trainer on the CPU ---------------------------------------------
 
 
