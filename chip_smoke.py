@@ -121,7 +121,45 @@ Phases (any failure exits non-zero without the final result line):
    clips/s, frames/s, peak memory, the loader's host time a batch alone and
    ``fit``'s wait on it a step (its one-batch prefetch should hide it);
    7b. the CLI with ``--use_mask true`` (flow masks on the host), 2 steps;
-8. print the card's name and power limit, one JSON line of per-kernel
+8. parallelism. NCCL refuses two ranks on one device, so the ranks are
+   processes that share this card over gloo (``spawn_ranks``: this script
+   with ``--rank-phase``, a time limit each), whose collectives the port
+   stages through pinned host memory; no time here is a collective's on a
+   cluster, and no scaling is measured.
+   8a. the ring's two hop kinds timed at 512, 1024 and 2048 local tokens
+   (this card's crossover), then ``sequence_sharded_sdpa`` at
+   (1, 16, 4096, 64) over rings of 2 and 4 ranks (2048 and 1024 local
+   tokens: kernel hops), unmasked and with a whole local block masked:
+   exact launches on each rank (P streaming forwards, one delta pre-pass,
+   P dQ and P dK/dV), the ranks' outputs and gradients bit-equal, and
+   held to one process's ``sdpa`` on the whole sequence and to the plain
+   version;
+   8b. the flagship training step on the mesh (2, 1, 1), 2 clips a rank,
+   against one process's step on the 4 clips and the same draws (loss
+   within ``STEP_LOSS_RTOL``, gradient cosine at least ``STEP_GRAD_COS``),
+   exact launches, ``sdpa_plain`` 0, the ranks' parameters bit-equal
+   after the update;
+   8c. the same on the mesh (1, 1, 2) with ``attn_impl="ring"`` (2 clips:
+   every attention of the step rings, 92 calls, all plain hops at the
+   17-frame window); then one sampling call at the 64-frame window of
+   ``benchmarks/bench_longwindow.py`` (flagship widths) with the VAE
+   encodes and decode, under ring over 2 ranks with the launches its
+   sites' local blocks give, against the same call under ``auto`` in one
+   process (phase 3's tolerances);
+   8d. the FSDP step on the mesh (1, 2, 1) (FSDP2's collectives on CUDA
+   tensors through gloo), as 8b without the bit-equality of unsharded
+   parameters, then a checkpoint save of the sharded state: its peak
+   device memory above what each rank held (at most twice the largest
+   whole tensor: the state is gathered one tensor at a time into rank 0's
+   host memory); ``init_distributed`` on its default backend on CUDA
+   (NCCL) at world size 1;
+   8e. ``python -m hivae_tpu_torch.cli.train_amd --mesh 2,1,1
+   --dist_backend gloo`` in 2 processes for 2 steps on phase 7's mp4s,
+   then ``cli.amd_inference`` in this process on its checkpoint, and in
+   2 processes with the config's ``attn_impl`` set to ``ring``: exact
+   ring calls from the shapes, ``sdpa_plain`` 0, rank 0 alone writes, and
+   its frames against the one-process run's (phase 3's tolerances);
+9. print the card's name and power limit, one JSON line of per-kernel
    numbers, and as the last line the device record.
 
 Float32 matmuls and convolutions run without TF32 here
@@ -226,6 +264,9 @@ STREAM_CHECKS = [
     # the long path's VAE encodes and decode (phase 3f), 3 launches each
     ("SD-VAE mid-block, long clip (F 38)", (38, 1, 1024, 512), False),
     ("SD-VAE mid-block, long clip (F 257)", (257, 1, 1024, 512), False),
+    # the ring's kernel hops of phase 8a: 4096 tokens over 2 and 4 ranks
+    ("ring hop, P 2 (2048 local tokens)", (1, 16, 2048, 64), False),
+    ("ring hop, P 4 (1024 local tokens), masked", (1, 16, 1024, 64), True),
 ]
 # check-only full-block cases (label, q shape, Sk or None, weight 0,
 # masked): a fully masked key row; the largest shape ``full_block_fits``
@@ -258,6 +299,9 @@ STREAM_BWD_CHECKS = [
     ("DiT width, 2048 tokens", (4, 16, 2048, 64), False),
     ("D 128, 2048 tokens", (2, 8, 2048, 128), False),
     ("bench_attention --grad, masked", (2, 8, 2048, 64), True),
+    # the ring's kernel hops of phase 8a (a hop's dQ and dK/dV)
+    ("ring hop, P 2 (2048 local tokens)", (1, 16, 2048, 64), False),
+    ("ring hop, P 4 (1024 local tokens), masked", (1, 16, 1024, 64), True),
 ]
 STREAM_MASKED_KEYS = slice(64, 128)
 # Gradients of bf16 attention, held relative to their largest element: both
@@ -2396,6 +2440,813 @@ def run_train_cli(failures, profile_dir=None):
     return paths
 
 
+# -- phase 8: parallelism over ranks that share the one card ------------------
+#
+# NCCL refuses two ranks on one device, so the multi-rank phases run their
+# ranks as processes on this card over gloo, whose collectives the port
+# stages through pinned host memory (parallel/comm.py). They run the ring's
+# kernel hops at real shapes and check the data-parallel, ring and FSDP
+# steps against one process's; no time they print is a collective's on a
+# cluster.
+
+# sequence_sharded_sdpa at the kernel-hop shapes: 4096 tokens over rings of
+# 2 and 4 ranks (2048 and 1024 local tokens, at or past _FLASH_MIN_LOCAL)
+RING_SHAPE = (1, 16, 4096, 64)
+RING_SIZES = (2, 4)
+# local tokens at which a kernel hop and a plain hop are timed (the ring's
+# hop crossover on this card)
+HOP_TOKENS = (512, 1024, 2048)
+# global batches of the data-parallel (2, 1, 1) and ring (1, 1, 2) steps,
+# and the FSDP (1, 2, 1) step
+PAR_DP_CLIPS, PAR_RING_CLIPS, PAR_FSDP_CLIPS = 4, 2, 2
+# the long window of benchmarks/bench_longwindow.py (flagship widths) and
+# its Euler steps here
+LONG_WINDOW, LONG_WINDOW_STEPS = 64, 2
+RANK_TIMEOUT = 600
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(phase, world, workdir, cmd=None, env=None,
+                timeout=RANK_TIMEOUT):
+    """Run ``world`` processes of ``phase`` (this script's ``--rank-phase``,
+    or ``cmd``), each on this card, its output in ``workdir``; kill them
+    all after ``timeout`` s. Returns [(exit code, output, result dict or
+    None)] by rank."""
+    os.makedirs(workdir, exist_ok=True)
+    port = _free_port()
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            log = open(os.path.join(workdir, f"{phase}_rank{r}.log"), "w")
+            logs.append(log)
+            argv = cmd or [sys.executable, os.path.abspath(__file__),
+                           "--rank-phase", phase, "--workdir", workdir]
+            penv = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                        LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                        MASTER_PORT=str(port), **(env or {}))
+            procs.append(subprocess.Popen(argv, stdout=log,
+                                          stderr=subprocess.STDOUT,
+                                          env=penv, cwd=ROOT))
+        deadline = time.perf_counter() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        _log(f"  {phase}: ranks ran past {timeout} s; killed")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    out = []
+    for r, p in enumerate(procs):
+        with open(os.path.join(workdir, f"{phase}_rank{r}.log")) as f:
+            text = f.read()
+        res = os.path.join(workdir, f"{phase}_rank{r}.json")
+        result = None
+        if os.path.exists(res):
+            with open(res) as f:
+                result = json.load(f)
+        out.append((p.returncode, text, result))
+    return out
+
+
+def _rank_results(label, ranks, failures):
+    """Each rank's result dict; a rank that failed, or left no result,
+    fails the phase with the end of its output."""
+    results = []
+    for r, (rc, text, res) in enumerate(ranks):
+        if res is None:
+            failures.append(f"{label}: rank {r} exited {rc}, no result:\n"
+                            f"{text[-3000:]}")
+            continue
+        failures.extend(f"{label} (rank {r}): {f}" for f in res["failures"])
+        if rc != 0 and not res["failures"]:
+            failures.append(f"{label}: rank {r} exited {rc}:\n{text[-3000:]}")
+        results.append(res)
+    return results
+
+
+def _bits_digest(tensors):
+    """SHA-256 of the tensors' bytes, in order (for bit-equality across
+    ranks)."""
+    import hashlib
+    import torch
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _cosine(a, b):
+    dot = sum((x.float() * y.float()).sum() for x, y in zip(a, b)).item()
+    na = sum(x.float().square().sum() for x in a).item() ** 0.5
+    nb = sum(y.float().square().sum() for y in b).item() ** 0.5
+    return dot / (na * nb)
+
+
+def _ring_mask(s, world, device):
+    """A (1, s) key mask that drops the whole second local block of a ring
+    of ``world``: that hop merges with weight 0."""
+    import torch
+    keep = torch.ones((1, s), dtype=torch.bool, device=device)
+    blk = s // world
+    keep[:, blk:2 * blk] = False
+    return keep
+
+
+def rank_ring_hops(res):
+    """Phase 8a, one rank: ``sequence_sharded_sdpa`` at RING_SHAPE over a
+    ring of every rank, unmasked and with a whole local block masked:
+    exact launches on this rank (a streaming forward a hop, one delta
+    pre-pass, a dQ and a dK/dV kernel a hop), every rank's output and
+    gradients bit-equal, and on rank 0 held to one process's ``sdpa`` on
+    the whole sequence (the streaming kernel and its backward) and to the
+    plain version."""
+    import torch
+    import torch.distributed as dist
+    from hivae_tpu_torch.ops import attention as attn_ops
+    from hivae_tpu_torch.ops.kernels import flash_attention as fa
+    from hivae_tpu_torch.parallel.mesh import create_mesh
+    from hivae_tpu_torch.parallel.ring_attention import sequence_sharded_sdpa
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh = create_mesh((1, 1, world), device_type="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    res["counts"], res["ms"] = _no_launches(), {}
+    # warm-up: the ring's first rotations set up gloo's pairs
+    warm = [x.clone().requires_grad_() for x in (q, k, v)]
+    sequence_sharded_sdpa(*warm, mesh).backward(do)
+    torch.cuda.synchronize()
+    del warm
+    for masked in (False, True):
+        label = f"P {world}, {'masked' if masked else 'unmasked'}"
+        mask = _ring_mask(RING_SHAPE[2], world, "cuda") if masked else None
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        _zero_counts()
+        sequence_sharded_sdpa.calls.update(kernel=0, plain=0)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sequence_sharded_sdpa(*xs, mesh, key_mask=mask)
+        out.backward(do)
+        torch.cuda.synchronize()
+        res["ms"][label] = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()
+        for name, n in counts.items():
+            res["counts"][name] += n
+        want = dict(_no_launches(), stream_attention=world,
+                    stream_attention_delta=1,
+                    stream_attention_bwd_dq=world,
+                    stream_attention_bwd_dkv=world)
+        if counts != want or sequence_sharded_sdpa.calls != {"kernel": 1,
+                                                             "plain": 0}:
+            res["failures"].append(f"ring {label}: launches {counts}, want "
+                                   f"{want}; ring calls "
+                                   f"{sequence_sharded_sdpa.calls}")
+        got = [out] + [x.grad for x in xs]
+        digests = [None] * world
+        dist.all_gather_object(digests, _bits_digest(got))
+        if len(set(digests)) != 1:
+            res["failures"].append(f"ring {label}: ranks' outputs or "
+                                   f"gradients differ")
+        if rank != 0:
+            continue
+        ref = [x.clone().requires_grad_() for x in (q, k, v)]
+        o1 = attn_ops.sdpa(*ref, key_mask=mask, implementation="auto")
+        o1.backward(do)
+        pl = [x.clone().requires_grad_() for x in (q, k, v)]
+        bias = None if mask is None else torch.zeros(
+            mask.shape, device="cuda").masked_fill(~mask, -1e30)
+        o2 = fa.stream_attention_plain(*pl, scale=RING_SHAPE[3] ** -0.5,
+                                       bias=bias)[0]
+        o2.backward(do)
+        for name, want_t in (("one-process sdpa", [o1] + [x.grad for x in
+                                                          ref]),
+                             ("plain version", [o2] + [x.grad for x in
+                                                       pl])):
+            err = _abs_err(got[0], want_t[0])
+            rel = [_rel_err(g, w) for g, w in zip(got[1:], want_t[1:])]
+            res.setdefault("errors", {})[f"{label} vs {name}"] = [err] + rel
+            if not (err <= KERNEL_ATOL and max(rel) <= BWD_RTOL):
+                res["failures"].append(
+                    f"ring {label} vs {name}: out max|err| {err}, gradient "
+                    f"rel err {rel}")
+        del ref, pl, o1, o2
+    res["calls"] = dict(sequence_sharded_sdpa.calls)
+
+
+def _expected_ring_step_calls(cfg, remat=None):
+    """Ring calls of one training step (all attention of the step rings: 4
+    VAE encodes, every encoder layer, the DiT's three attentions a layer,
+    twice under remat)."""
+    remat = cfg.remat if remat is None else remat
+    joints = 1 if cfg.diffusion_model_type == "default" else \
+        int(cfg.use_object) + int(cfg.use_camera)
+    dit = (joints + 1) * cfg.diffusion_num_layers
+    return 4 + cfg.object_enc_num_layers + cfg.camera_enc_num_layers + \
+        dit * (2 if remat else 1)
+
+
+def _par_batch(trainer, clips):
+    from hivae_tpu_torch.training.trainer import batch_from_clips
+    pairs = [synthetic_clip(SEED + 10 + i) for i in range(clips)]
+    return trainer._to_device(batch_from_clips([p[0] for p in pairs],
+                                               [p[1] for p in pairs]))
+
+
+def _par_trainer(amd, vae, mesh, workdir):
+    from hivae_tpu_torch.training.trainer import AMDTrainer, TrainConfig
+    tc = TrainConfig(output_dir=os.path.join(workdir, "trainer"),
+                     learning_rate=1e-4, weight_decay=1e-2,
+                     max_grad_norm=1.0, mixed_precision="bf16",
+                     mu_dtype="bf16", seed=SEED)
+    return AMDTrainer(amd, vae, tc, mesh=mesh)
+
+
+def _step_against_reference(res, label, amd, vae, mesh, clips, workdir,
+                            ring_calls=None):
+    """One training step on ``mesh`` (each rank its rows of a global batch
+    of ``clips``, the global batch's draws) against one process's step on
+    the whole batch and the same draws, computed first on the same weights
+    (on rank 0; on every rank where ``mesh`` shards the parameters, so
+    that each holds the reference of its shards): loss within
+    STEP_LOSS_RTOL and gradient cosine at least STEP_GRAD_COS, exact
+    launches (``ring_calls``: every attention rings, no kernel) and,
+    unsharded, every rank's parameters bit-equal after the update."""
+    import torch
+    import torch.distributed as dist
+    from hivae_tpu_torch.parallel import comm
+    from hivae_tpu_torch.parallel.mesh import local_mesh
+    from hivae_tpu_torch.parallel.ring_attention import sequence_sharded_sdpa
+    from hivae_tpu_torch.parallel.sharding import batch_rows, local, part_of
+
+    rank = dist.get_rank()
+    sharded = mesh.shape["fsdp"] > 1
+    ref = None
+    if rank == 0 or sharded:
+        # a ring config on one rank runs auto attention (with a warning)
+        one = _par_trainer(amd, vae, local_mesh(), workdir)
+        batch = _par_batch(one, clips)
+        m1, g1 = one.loss_and_grads(batch, one.draw(batch))
+        ref = (m1["loss"].item(), [g.detach() for g in g1])
+        del one, batch, g1
+        torch.cuda.empty_cache()
+    dist.barrier()
+    trainer = _par_trainer(amd, vae, mesh, workdir)
+    batch = _par_batch(trainer, clips)
+    rows = batch_rows(trainer.mesh, clips)
+    batch = {k: v[rows] for k, v in batch.items()}
+    draws = trainer.draw(batch)
+    _zero_counts()
+    sequence_sharded_sdpa.calls.update(kernel=0, plain=0)
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics, grads = trainer.loss_and_grads(batch, draws)
+    torch.cuda.synchronize()
+    res["ms"] = (time.perf_counter() - t0) * 1e3
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["counts"] = counts = _read_counts()
+    res["calls"] = dict(sequence_sharded_sdpa.calls)
+    if ring_calls is None:
+        want = _expected_step_launches(amd.cfg, False)
+        want_calls = {"kernel": 0, "plain": 0}
+    else:
+        want, want_calls = _no_launches(), {"kernel": 0, "plain": ring_calls}
+    if counts != want or res["calls"] != want_calls:
+        res["failures"].append(f"{label}: launches {counts}, want {want}; "
+                               f"ring calls {res['calls']}, want "
+                               f"{want_calls}")
+    res["loss"] = metrics["loss"].item()
+    if ref is not None:
+        # the cosine from each rank's parts (whole tensors when unsharded)
+        sums = torch.zeros(3, dtype=torch.float64,
+                           device=local(grads[0]).device)
+        for g, rg in zip(grads, ref[1]):
+            a, b = local(g).double(), part_of(rg, g).double()
+            sums += torch.stack([(a * b).sum(), a.square().sum(),
+                                 b.square().sum()])
+        if sharded:
+            comm.all_reduce_([sums], mesh.group("fsdp"))
+        dot, na, nb = sums.tolist()
+        rel = abs(res["loss"] - ref[0]) / abs(ref[0])
+        cos = dot / (na * nb) ** 0.5
+        res.update(loss_rel=rel, grad_cos=cos, ref_loss=ref[0])
+        if not (rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS):
+            res["failures"].append(f"{label}: loss rel {rel}, gradient "
+                                   f"cosine {cos} against one process")
+    del ref
+    trainer.state.apply_gradients(grads)
+    if sharded:
+        del grads
+        _save_peak(res, label, trainer)
+    else:
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, _bits_digest(
+            list(trainer.state.params.values())))
+        res["params_equal"] = len(set(digests)) == 1
+        if not res["params_equal"]:
+            res["failures"].append(f"{label}: the ranks' parameters differ "
+                                   f"after the step")
+        del grads
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+
+def _save_peak(res, label, trainer):
+    """Phase 8d: ``trainer.save()`` of the sharded state. Its peak device
+    memory above what this rank held before must stay within twice the
+    largest whole tensor of the state (``gather_to_first`` gathers one
+    tensor at a time into rank 0's host memory; a gather of the whole
+    state to every rank would add the state's size)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    path = trainer.save()
+    torch.cuda.synchronize()
+    res["save_s"] = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated() - base
+    largest = max(p.numel() * p.element_size()
+                  for p in trainer.state.params.values())
+    res.update(save_peak_extra_gib=extra / 2 ** 30,
+               largest_tensor_gib=largest / 2 ** 30)
+    if path is not None:
+        res["state_gib"] = os.path.getsize(
+            os.path.join(path, "state.pt")) / 2 ** 30
+    if extra > 2 * largest:
+        res["failures"].append(f"{label}: a save took {extra} bytes of "
+                               f"device memory, over twice the largest "
+                               f"tensor ({largest})")
+
+
+def _training_models(over=None):
+    import torch
+    from hivae_tpu_torch.models import amd as amd_mod
+    from hivae_tpu_torch.models import vae as vae_mod
+
+    with open(CONFIG) as f:
+        cfg = amd_mod.AMDConfig.from_dict(json.load(f))
+    torch.manual_seed(SEED + 2)
+    amd = amd_mod.AMDModelNew(cfg.replace(**(over or {})), device="cuda",
+                              dtype=torch.float32)
+    vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
+                                dtype=torch.bfloat16).eval()
+    vae.requires_grad_(False)
+    return amd, vae
+
+
+def _long_window_sites(cfg, world):
+    """(site, tokens a call, calls) of one long-window sampling call with
+    the VAE encodes and decode: the attentions whose local block reaches
+    ``_FLASH_MIN_LOCAL`` run kernel hops."""
+    lat = cfg.image_height * cfg.image_width // cfg.image_patch_size ** 2
+    steps, layers = LONG_WINDOW_STEPS, cfg.diffusion_num_layers
+    return [("VAE mid-block (4 encodes, 1 decode)", 1024, 5),
+            ("object encoder", cfg.object_motion_token_num + lat,
+             cfg.object_enc_num_layers),
+            ("camera encoder", cfg.video_frames, cfg.camera_enc_num_layers),
+            ("DiT object joint", 2 * cfg.object_motion_token_num + 2 + lat,
+             layers * steps),
+            ("DiT camera joint", 2 * lat, layers * steps),
+            ("DiT temporal", cfg.video_frames, layers * steps)]
+
+
+def rank_long_window(res, vae):
+    """Phase 8c, second part: one sampling call at the long window of
+    ``benchmarks/bench_longwindow.py`` (flagship widths, 64 frames, 64
+    camera tokens) with ring attention over 2 ranks: the VAE encodes, the
+    sampler and the decode, with the launches the sites' local blocks
+    give (a kernel-hop call: P streaming forwards), against the same call
+    with ``auto`` attention in one process (rank 0; CLIP_MEAN_ATOL and
+    CLIP_P99_ATOL)."""
+    import torch
+    import torch.distributed as dist
+    from hivae_tpu_torch.models import amd as amd_mod
+    from hivae_tpu_torch.models import vae as vae_mod
+    from hivae_tpu_torch.ops import attention as attn_ops
+    from hivae_tpu_torch.parallel.mesh import create_mesh
+    from hivae_tpu_torch.parallel.ring_attention import (
+        _FLASH_MIN_LOCAL, sequence_sharded_sdpa)
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    cfg = amd_mod.AMDConfig(
+        enc_nhead=8, enc_ndim=64, diffusion_attn_head_dim=64,
+        diffusion_attn_num_heads=16, diffusion_out_channels=4,
+        use_filter=True, use_grey=True, video_frames=LONG_WINDOW,
+        camera_motion_token_num=LONG_WINDOW, camera_motion_token_channel=16,
+        object_motion_token_num=4, object_motion_token_channel=512,
+        motion_token_channel=512, diffusion_num_layers=12,
+        diffusion_model_type="spatial", attn_impl="ring")
+    torch.manual_seed(SEED + 3)
+    amd = amd_mod.AMDModelNew(cfg, device="cuda", dtype=torch.bfloat16).eval()
+    sites = _long_window_sites(cfg, world)
+    kernel_calls = sum(n for _, s, n in sites
+                       if s // world >= _FLASH_MIN_LOCAL)
+    plain_calls = sum(n for _, s, n in sites) - kernel_calls
+    res["sites"] = [(name, s, s // world, n) for name, s, n in sites]
+    rgb, grey = synthetic_clip(SEED + 60, frames=LONG_WINDOW + 1)
+
+    def run():
+        with torch.no_grad():
+            pix = torch.from_numpy(rgb).cuda()[None]
+            gpix = torch.from_numpy(grey).cuda()[None]
+            lat = [vae_mod.vae_encode(vae, x) for x in (
+                pix[:, 1:], pix[:, :1].expand_as(pix[:, 1:]), gpix[:, 1:],
+                gpix[:, :1].expand_as(gpix[:, 1:]))]
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+            _, z, _ = amd_mod.sample(amd, *lat,
+                                     sample_step=LONG_WINDOW_STEPS,
+                                     generator=gen)
+            return vae_mod.latents_to_rgb(vae_mod.vae_decode(vae, z.float()))
+
+    attn_ops.install_attn_impl(cfg, create_mesh((1, 1, world),
+                                                device_type="cuda"))
+    _zero_counts()
+    sequence_sharded_sdpa.calls.update(kernel=0, plain=0)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    res["ms"] = (time.perf_counter() - t0) * 1e3
+    res["counts"] = counts = _read_counts()
+    res["calls"] = dict(sequence_sharded_sdpa.calls)
+    want = dict(_no_launches(), stream_attention=world * kernel_calls)
+    want_calls = {"kernel": kernel_calls, "plain": plain_calls}
+    if counts != want or res["calls"] != want_calls:
+        res["failures"].append(f"long window: launches {counts}, want "
+                               f"{want}; ring calls {res['calls']}, want "
+                               f"{want_calls}")
+    res["shape"] = list(out.shape)
+    if rank == 0:
+        attn_ops.set_default_implementation("auto")
+        want_out = run()
+        diff = (out.int() - want_out.int()).abs().float()
+        res["mean_diff"] = diff.mean().item()
+        res["p99_diff"] = torch.quantile(diff.flatten()[::7], 0.99).item()
+        if not (res["mean_diff"] <= CLIP_MEAN_ATOL and
+                res["p99_diff"] <= CLIP_P99_ATOL):
+            res["failures"].append(f"long window vs auto: mean "
+                                   f"{res['mean_diff']} p99 "
+                                   f"{res['p99_diff']}")
+    del amd
+    torch.cuda.empty_cache()
+
+
+def rank_parallel_steps(res, workdir):
+    """On 2 ranks, phases 8a (ring of 2), 8b (data parallel), 8c (ring
+    step and long window) and 8d (the FSDP step)."""
+    import torch
+    import torch.distributed as dist
+    from hivae_tpu_torch.parallel.mesh import create_mesh
+
+    sub = res.setdefault("phases", {})
+    failures = res["failures"]
+
+    def phase(name, fn, *args):
+        # an error ends this rank (the others then fail in their next
+        # collective), since its peers' collectives would no longer match
+        import traceback
+        r = {"failures": []}
+        print(f"rank {dist.get_rank()}: {name}", flush=True)
+        try:
+            fn(r, *args)
+        except Exception:
+            r["failures"].append(traceback.format_exc())
+            raise
+        finally:
+            sub[name] = r
+            failures.extend(f"{name}: {f}" for f in r["failures"])
+
+    def mesh(shape):
+        return create_mesh(shape, device_type="cuda")
+
+    amd, vae = _training_models()
+    phase("ring_hops", rank_ring_hops)
+    phase("dp_step", _step_against_reference, "data-parallel step (2, 1, 1)",
+          amd, vae, mesh((2, 1, 1)), PAR_DP_CLIPS, workdir)
+    del amd
+    torch.cuda.empty_cache()
+    amd, _ = _training_models(dict(attn_impl="ring"))
+    phase("ring_step", _step_against_reference, "ring step (1, 1, 2)", amd,
+          vae, mesh((1, 1, 2)), PAR_RING_CLIPS, workdir,
+          _expected_ring_step_calls(amd.cfg))
+    del amd
+    torch.cuda.empty_cache()
+    phase("long_window", rank_long_window, vae)
+    # FSDP2's own collectives (all-gather, reduce-scatter) take CUDA
+    # tensors through gloo here; sharding.gather_to_first/part_of avoid DTensor's
+    # functional collectives, which crash in gloo's CUDA path
+    amd, _ = _training_models()
+    phase("fsdp_step", _step_against_reference, "FSDP step (1, 2, 1)", amd,
+          vae, mesh((1, 2, 1)), PAR_FSDP_CLIPS, workdir)
+
+
+def rank_nccl_init(res):
+    """Phase 8d, first part: ``init_distributed`` with its default backend
+    on CUDA (NCCL) at world size 1: an all-reduce and the mesh."""
+    import torch
+    import torch.distributed as dist
+    from hivae_tpu_torch.parallel.mesh import create_mesh, init_distributed
+
+    rank, world, dev = init_distributed()
+    x = torch.full((8,), 3.0, device=dev)
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    mesh = create_mesh()
+    res.update(backend=str(dist.get_backend()), world=world,
+               device=str(dev), mesh=mesh.shape)
+    if res["backend"] != "nccl" or x.sum().item() != 24.0 or \
+            mesh.shape != {"data": 1, "fsdp": 1, "tensor": 1}:
+        res["failures"].append(f"NCCL init: {res}, all-reduce sum "
+                               f"{x.sum().item()}")
+
+
+def rank_ring_serve(res, workdir):
+    """Phase 8e, last part: one rank of ``cli.amd_inference`` (argv in
+    ``<workdir>/serve_argv.json``) under a 2-rank launch with a ``ring``
+    config: its ring calls against the attention calls whose sequences
+    divide by the ring (kernel hops where the local block reaches
+    ``_FLASH_MIN_LOCAL``), no ``sdpa_plain``, rank 0 alone writes; rank 0
+    saves the frames it hands to the mp4 writer as ``serve_frames.npy``."""
+    import numpy as np
+    from hivae_tpu_torch.cli import amd_inference
+    from hivae_tpu_torch.data import video as vio
+    from hivae_tpu_torch.ops import attention as attn_ops
+    from hivae_tpu_torch.parallel import ring_attention as ra
+
+    with open(os.path.join(workdir, "serve_argv.json")) as f:
+        argv = json.load(f)
+    want = {"kernel": 0, "plain": 0}
+    route = attn_ops.kernel_route
+
+    def counted_route(q, k, v=None, implementation=None):
+        if q.shape[2] % 2 == 0 and k.shape[2] % 2 == 0:
+            want["kernel" if q.shape[2] // 2 >= ra._FLASH_MIN_LOCAL
+                 else "plain"] += 1
+        return route(q, k, v, implementation)
+    attn_ops.kernel_route = counted_route
+    frames = {}
+    write = vio.write_video
+
+    def record(path, video, *a, **k):
+        frames[os.path.basename(path)] = np.asarray(video)
+        return write(path, video, *a, **k)
+    vio.write_video = record
+    _zero_counts()
+    ra.sequence_sharded_sdpa.calls.update(kernel=0, plain=0)
+    t0 = time.perf_counter()
+    rc = amd_inference.main(argv)
+    res.update(rc=rc, s=time.perf_counter() - t0,
+               calls=dict(ra.sequence_sharded_sdpa.calls), want_calls=want,
+               counts=_read_counts(), wrote=sorted(frames))
+    first = os.environ["RANK"] == "0"
+    if rc != 0 or res["calls"] != want or not sum(want.values()) or \
+            res["counts"]["sdpa_plain"] or len(frames) != int(first):
+        res["failures"].append(f"ring serve: rc {rc}, ring calls "
+                               f"{res['calls']}, want {want}, launches "
+                               f"{res['counts']}, wrote {sorted(frames)}")
+    for video in frames.values():
+        np.save(os.path.join(workdir, "serve_frames.npy"), video)
+
+
+def rank_main(args) -> int:
+    """One rank of a phase-8 process group (``--rank-phase``): this card,
+    gloo from torchrun's variables (NCCL for ``nccl``); writes
+    ``<workdir>/<phase>_rank<r>.json``."""
+    import faulthandler
+    import traceback
+    import torch
+    import torch.distributed as dist
+
+    faulthandler.enable()   # a crash in native code still shows where
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.set_device(0)
+    rank = int(os.environ["RANK"])
+    res = {"failures": []}
+    try:
+        if args.rank_phase == "nccl":
+            rank_nccl_init(res)
+        elif args.rank_phase == "serve":   # the CLI starts its own group
+            rank_ring_serve(res, args.workdir)
+        else:
+            dist.init_process_group(
+                "gloo", init_method="env://",
+                world_size=int(os.environ["WORLD_SIZE"]), rank=rank)
+            if args.rank_phase == "ring_hops":
+                rank_ring_hops(res)
+            else:
+                rank_parallel_steps(res, args.workdir)
+    except Exception:
+        res["failures"].append(traceback.format_exc())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    with open(os.path.join(args.workdir,
+                           f"{args.rank_phase}_rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 1 if res["failures"] else 0
+
+
+def time_hops(fa):
+    """The ring's two hop kinds at HOP_TOKENS local tokens (a block of 16
+    heads of 64, q against one visiting block): forward and backward ms
+    with CUDA events, back to back. Returns {tokens: {...}}."""
+    import torch
+    from hivae_tpu_torch.parallel import ring_attention as ra
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    table = {}
+    for s in HOP_TOKENS:
+        shape = (1, 16, s, 64)
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16) for _ in range(4))
+        scale = 64 ** -0.5
+        out, lse = fa.stream_attention(q, k, v, scale=scale)
+        delta = fa.stream_attention_delta(do, out)
+        dfp = (do.float() * out.float()).sum(-1, keepdim=True)
+        row = dict(
+            kernel_fwd=_time_ms(lambda: ra._hop_fwd_kernel(q, k, v, None,
+                                                           scale), 20),
+            plain_fwd=_time_ms(lambda: ra._hop_fwd_plain(q, k, v, None,
+                                                         scale), 20),
+            kernel_bwd=_time_ms(lambda: ra._hop_bwd_kernel(
+                q, k, v, None, do, lse, delta, scale), 20),
+            plain_bwd=_time_ms(lambda: ra._hop_bwd_plain(
+                q, k, v, None, do, lse, dfp, scale), 20))
+        table[s] = row
+        _log(f"  hop at {s} local tokens {shape}: kernel fwd "
+             f"{row['kernel_fwd']:.4f} ms, plain fwd {row['plain_fwd']:.4f}"
+             f" ms; kernel bwd (dQ + dK/dV) {row['kernel_bwd']:.4f} ms, "
+             f"plain bwd {row['plain_bwd']:.4f} ms")
+    return table
+
+
+def _log_phases(result):
+    """Log rank 0's sub-phases of phase 8 -> {path: launches}."""
+    paths = {}
+    for name, sub in result["phases"].items():
+        _log(f"  {name}: " + ", ".join(f"{k} {v}" for k, v in sub.items()
+                                       if k not in ("failures", "counts")))
+        for f in sub["failures"]:
+            _log(f"  {name} FAILED: {f}")
+        if "counts" in sub:
+            _log(f"  {name}: launches "
+                 f"{ {k: n for k, n in sub['counts'].items() if n} }")
+            paths[f"par_{name}"] = sub["counts"]
+    return paths
+
+
+def run_parallel(fa, failures):
+    """Phase 8. Returns {path: launches} of rank 0's runs."""
+    import shutil
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_par")
+    shutil.rmtree(work, ignore_errors=True)
+    paths = {}
+    try:
+        _log(f"phase 8: parallelism; the ranks are processes sharing this "
+             f"card over gloo (NCCL refuses two ranks on one device): no "
+             f"time here is a collective's on a cluster")
+        _log("phase 8a: ring hops at their kernel and plain shapes")
+        time_hops(fa)
+        t0 = time.perf_counter()
+        ranks = spawn_ranks("steps", 2, work)
+        res = _rank_results("phase 8 (2 ranks)", ranks, failures)
+        _log(f"  2 ranks: {time.perf_counter() - t0:.1f} s with process "
+             f"start and model builds")
+        if res:
+            paths.update(_log_phases(res[0]))
+            save = res[-1]["phases"].get("fsdp_step", {})
+            _log(f"  fsdp_step save (rank {len(res) - 1}): peak extra "
+                 f"{save.get('save_peak_extra_gib')} GiB, "
+                 f"{save.get('save_s')} s")
+        t0 = time.perf_counter()
+        res = _rank_results("phase 8a (4 ranks)",
+                            spawn_ranks("ring_hops", 4, work), failures)
+        _log(f"  ring of 4: {time.perf_counter() - t0:.1f} s with process "
+             f"start")
+        if res:
+            _log(f"  ring of 4 (rank 0): ms {res[0]['ms']}, errors "
+                 f"{res[0].get('errors')}")
+            paths["par_ring_hops_4"] = res[0]["counts"]
+        _log("phase 8d: init_distributed on its default backend (NCCL) at "
+             "world size 1")
+        res = _rank_results("phase 8d (NCCL)", spawn_ranks("nccl", 1, work),
+                            failures)
+        if res:
+            _log(f"  NCCL: {res[0]}")
+        _log("phase 8e: the training CLI on 2 ranks, --mesh 2,1,1 (gloo)")
+        paths.update(run_parallel_cli(work, failures))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
+def run_parallel_cli(work, failures):
+    """Phase 8e: ``python -m hivae_tpu_torch.cli.train_amd --mesh 2,1,1
+    --dist_backend gloo`` in 2 processes on phase 7's synthetic mp4s, 2
+    steps at a global batch of RUN_A_CLIPS, then ``cli.amd_inference`` in
+    this process on the checkpoint it wrote, and in 2 processes with its
+    config's ``attn_impl`` set to ``ring`` (``rank_ring_serve``), whose
+    frames are held to this process's."""
+    import shutil
+    import numpy as np
+    import torch
+    from hivae_tpu_torch.cli import train_amd
+    from hivae_tpu_torch.data import video as vio
+
+    videos = os.path.join(work, "videos")
+    exp = os.path.join(work, "exp")
+    ckpts = os.path.join(exp, "mesh", "checkpoints")
+    write_training_videos(videos)
+    argv = ["--video_dir", videos, "--output_dir", exp, "--exp_name", "mesh",
+            "--amd_config", CONFIG, "--train_batch_size", str(RUN_A_CLIPS),
+            "--mp", "bf16", "--remat", "true", "--mu_dtype", "bf16",
+            "--seed", str(SEED), "--max_train_steps", "2",
+            "--save_checkpoint_interval_step", "2", "--mesh", "2,1,1",
+            "--dist_backend", "gloo"]
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("cli", 2, work, cmd=[
+        sys.executable, "-m", "hivae_tpu_torch.cli.train_amd"] + argv)
+    wall = time.perf_counter() - t0
+    for r, (rc, text, _) in enumerate(ranks):
+        if rc != 0:
+            failures.append(f"train_amd --mesh 2,1,1: rank {r} exited {rc}:"
+                            f"\n{text[-3000:]}")
+    out0 = ranks[0][1]
+    final = [l for l in out0.splitlines() if l.startswith("final metrics")]
+    _log(f"  2 ranks, 2 steps: {wall:.1f} s with process start, model "
+         f"build and checkpoint; {final[-1] if final else 'no metrics'}")
+    if not final or any("final metrics" in t for _, t, _ in ranks[1:]) or \
+            sorted(os.listdir(ckpts)) != ["checkpoint-2"]:
+        failures.append(f"train_amd --mesh 2,1,1: rank 0 output "
+                        f"{out0[-500:]!r}")
+        return {}
+    one = os.path.join(work, "one")
+    os.makedirs(one)
+    shutil.copy(os.path.join(videos, "train0.mp4"), one)
+    cfg = train_amd.build_config(train_amd.parse_args(argv))
+    config = os.path.join(exp, "mesh", "config.json")
+    frames = {}
+    write = vio.write_video
+
+    def record(path, video, *a, **k):
+        frames["one"] = torch.from_numpy(np.asarray(video).copy())
+        return write(path, video, *a, **k)
+    vio.write_video = record
+    try:
+        launches = run_inference_cli(
+            config, ckpts, one, os.path.join(work, "recon"), cfg, failures,
+            label="amd_inference on the 2-rank checkpoint")
+    finally:
+        vio.write_video = write
+
+    # the same checkpoint served by 2 ranks with a ring config
+    with open(config) as f:
+        ring_cfg = dict(json.load(f), attn_impl="ring")
+    ring_config = os.path.join(work, "config_ring.json")
+    with open(ring_config, "w") as f:
+        json.dump(ring_cfg, f)
+    with open(os.path.join(work, "serve_argv.json"), "w") as f:
+        json.dump(["--amd_config", ring_config, "--amd_ckpt", ckpts,
+                   "--video_dir", one, "--output_dir",
+                   os.path.join(work, "recon_ring"), "--sample_step", "2",
+                   "--dist_backend", "gloo"], f)
+    t0 = time.perf_counter()
+    res = _rank_results("phase 8e (ring serve)",
+                        spawn_ranks("serve", 2, work), failures)
+    _log(f"  amd_inference, ring config, 2 ranks: "
+         f"{time.perf_counter() - t0:.1f} s with process start and model "
+         f"build; " + "; ".join(
+             f"rank {r}: ring calls {x.get('calls')}, wrote {x.get('wrote')}"
+             for r, x in enumerate(res)))
+    got = os.path.join(work, "serve_frames.npy")
+    if "one" in frames and os.path.exists(got):
+        _clip_diff("ring serve (2 ranks) vs one process",
+                   torch.from_numpy(np.load(got)), frames["one"], failures)
+    else:
+        failures.append("phase 8e (ring serve): no frames to compare")
+    return {"cli_mp4_mesh_trained": launches}
+
+
 def profile_call(fn, out_dir, filename, label):
     """One call of ``fn`` under torch.profiler: the device's busy share of
     its wall time and the kernel table, written to DIR/``filename``."""
@@ -2434,12 +3285,18 @@ def main() -> int:
                          "its full-block forward, qk-norm forward, "
                          "backward, streaming forward and backward and "
                          "int8 FFN-up beside these")
+    ap.add_argument("--rank-phase",
+                    choices=["steps", "ring_hops", "nccl", "serve"],
+                    help=argparse.SUPPRESS)   # one rank of phase 8
+    ap.add_argument("--workdir", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         _log("chip_smoke: no CUDA device; this script runs on an NVIDIA card")
         return 2
+    if args.rank_phase:
+        return rank_main(args)
     sys.path.insert(0, ROOT)
     from hivae_tpu_torch.ops.kernels import _build
     from hivae_tpu_torch.ops.kernels import flash_attention as fa
@@ -2533,6 +3390,9 @@ def main() -> int:
 
     _log(f"phase 7: the training CLI on {CLI_VIDEOS} mp4s, N={RUN_A_CLIPS}")
     paths.update(run_train_cli(failures, args.profile))
+    torch.cuda.empty_cache()
+
+    paths.update(run_parallel(fa, failures))
 
     for rec in records + [r["delta"] for r in records if "delta" in r]:
         if not any(p[rec["name"]] for p in paths.values()):

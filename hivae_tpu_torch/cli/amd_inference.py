@@ -8,7 +8,13 @@ the JAX package's ``amd_inference.py``, with the same flags and
         --amd_ckpt out/checkpoints --video_dir videos [--long] [--device cpu]
 
 A video that fails is reported and skipped; the exit code is 1 when any
-did.
+did. The config's ``attn_impl`` is installed for every attention call; with
+``ring``, launch one process a card (``torchrun`` or ``HIVAE_MULTIHOST=1``,
+``--dist_backend`` for the process group): the ring spans every rank and
+rank 0 writes the mp4s. The ranks sample each video together, so under a
+launch a video that fails ends the run instead of being skipped: the rank
+exits with the error, and its peers' next collective fails (``torchrun``
+ends them at once).
 """
 
 from __future__ import annotations
@@ -18,14 +24,20 @@ import os
 import sys
 import traceback
 
+import torch.distributed as dist
+
 from ..pipelines import AMDReconstructionPipeline
-from ..utils.device import resolve_device
 from . import common
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     common.add_model_args(p)
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=[None, "nccl", "gloo"],
+                   help="process group backend of a multi-rank launch "
+                        "(torchrun or HIVAE_MULTIHOST=1): nccl on CUDA and "
+                        "gloo on the CPU by default")
     p.add_argument("--video_dir", type=str, required=True)
     p.add_argument("--output_dir", type=str, default="output")
     p.add_argument("--sample_step", type=int, default=10)
@@ -54,7 +66,14 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    device = common.start(args)
+    try:
+        return run(args, device)
+    finally:
+        common.finish()
+
+
+def run(args, device) -> int:
     model = common.load_amd(args, device)
     vae = common.build_vae(args, device)
     pipe = AMDReconstructionPipeline(
@@ -63,10 +82,12 @@ def main(argv=None) -> int:
 
     os.makedirs(args.output_dir, exist_ok=True)
     videos = common.mp4s(args.video_dir)
+    launched = dist.is_initialized() and dist.get_world_size() > 1
     failed = 0
     for i, vp in enumerate(videos):
         name = os.path.splitext(os.path.basename(vp))[0]
-        out = os.path.join(args.output_dir, f"{name}_recon.mp4")
+        out = os.path.join(args.output_dir, f"{name}_recon.mp4") \
+            if common.writes_files() else None
         gen = common.draws(device, i)
         try:
             if args.long:
@@ -80,8 +101,10 @@ def main(argv=None) -> int:
                 pipe.sample(vp, out, video_sample_step=args.sample_step,
                             fps=args.fps, generator=gen, solver=args.solver)
             print(f"[{i + 1}/{len(videos)}] {vp} -> {out}")
-        except Exception as e:  # report, and go on with the next video
-            failed += 1
+        except Exception as e:
+            if launched:   # the peers wait in this video's collectives
+                raise
+            failed += 1    # report, and go on with the next video
             traceback.print_exc()
             print(f"[{i + 1}/{len(videos)}] FAILED {vp}: {e}")
     return 1 if failed else 0

@@ -1,10 +1,24 @@
 """Train AMD_N from a directory of mp4 files with the port (the counterpart
 of the JAX package's ``train_amd.py``: the same flags, names and defaults,
-plus ``--device``).
+plus ``--device`` and ``--dist_backend``).
 
     python -m hivae_tpu_torch.cli.train_amd --video_dir videos \
         --amd_config configs/amd/amd_n_t1d512_spatial.json \
         --output_dir exp --exp_name amd [--device cpu]
+
+Over several ranks (one process a card): ``torchrun --nproc_per_node N -m
+hivae_tpu_torch.cli.train_amd ... --mesh d,f,t``, or ``HIVAE_MULTIHOST=1``
+with ``HIVAE_COORDINATOR``/``HIVAE_NUM_PROCESSES``/``HIVAE_PROCESS_ID`` on
+each process (the JAX CLI's variables; ``LOCAL_RANK`` picks the card).
+``--mesh`` (default: every rank on ``data``) must multiply to the number
+of ranks; ``--train_batch_size`` is the global batch, which must divide by
+data * fsdp, and each rank loads its share (the loader's shard of the
+videos). ``--attn_impl`` (auto, xla, pallas, ring; with ``--amd_config``, the
+config's ``attn_impl``) is installed for every attention call; ``ring``
+shards the attention sequences over ``tensor``. NCCL is the
+backend on CUDA unless ``--dist_backend gloo`` asks for gloo (ranks that
+share one card). Rank 0 alone writes ``config.json``, ``args.txt``, the
+tracker and the checkpoints.
 
 The model comes from ``--amd_config`` or from the flags, with fp32 master
 weights; ``--mp bf16`` (and ``fp16``) computes under bf16 autocast and
@@ -14,10 +28,9 @@ with checkpoints under ``checkpoints/``, saves once more at the end and
 prints the final metrics. Scalars go to TensorBoard (``tracker/``) where
 ``torch.utils.tensorboard`` imports, else to stdout.
 
-Refused, each with the ROADMAP.md item that ports it: ``--mesh`` and
-``HIVAE_MULTIHOST=1`` (Queue 1 #5), ``--attn_impl`` other than ``auto``
-(Queue 1 #5: ring attention; the port picks kernels per call) and
-``--model_type`` other than ``AMD_N`` (Queue 1 #6).
+Refused, each with the ROADMAP.md item that ports it: a mesh with
+``tensor > 1`` and no ring attention (weight tensor parallelism, Queue 1
+#5b) and ``--model_type`` other than ``AMD_N`` (Queue 1 #6).
 """
 
 from __future__ import annotations
@@ -26,11 +39,15 @@ import argparse
 import json
 import os
 import sys
+from typing import Optional
 
 import torch
+import torch.distributed
 
 from ..data.datasets import DataLoader, RandomPairDataset, VideoClipDataset
 from ..models import amd as amd_mod
+from ..parallel import mesh as mesh_lib
+from ..parallel.sharding import check_mesh
 from ..training import checkpoint as ckpt_lib
 from ..training.trainer import AMDTrainer, TrainConfig
 from ..utils.device import resolve_device
@@ -87,7 +104,8 @@ def parse_args(argv=None):
                    help="non-finite loss: halt = dump the batch and raise, "
                         "skip = drop the step and continue")
     p.add_argument("--mesh", type=str, default=None,
-                   help="refused: one card (ROADMAP.md Queue 1 #5)")
+                   help="d,f,t: the (data, fsdp, tensor) mesh of ranks; "
+                        "default every rank on data")
     # model
     p.add_argument("--model_type", type=str, default="AMD_N")
     p.add_argument("--amd_config", type=str, default=None)
@@ -137,7 +155,10 @@ def parse_args(argv=None):
                    help="accepted; the port's layers are unrolled")
     p.add_argument("--attn_impl", type=str, default="auto",
                    choices=["auto", "xla", "pallas", "ring"],
-                   help="auto only: the port picks a kernel per call")
+                   help="auto: kernels above 256^2 logits; xla: plain "
+                        "attention; pallas: kernels wherever one takes the "
+                        "call; ring: sequences sharded over the mesh's "
+                        "tensor axis")
     # data
     p.add_argument("--dataset", type=str, default="AMDConsecutiveVideo")
     p.add_argument("--video_dir", type=str, required=True)
@@ -150,19 +171,21 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda (the default) never falls back "
                         "to the CPU")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=[None, "nccl", "gloo"],
+                   help="process group backend over several ranks: nccl on "
+                        "CUDA and gloo on the CPU by default")
     return p.parse_args(argv)
+
+
+def mesh_shape(args):
+    """``--mesh`` as a tuple, or None."""
+    return tuple(int(x) for x in args.mesh.split(",")) if args.mesh \
+        else None
 
 
 def check_supported(args) -> None:
     """Refuse what the port does not run yet, naming where it is queued."""
-    if args.mesh or os.environ.get("HIVAE_MULTIHOST") == "1":
-        raise NotImplementedError(
-            "--mesh / HIVAE_MULTIHOST=1: the port trains on one card; "
-            "data and model parallelism are ROADMAP.md Queue 1 #5")
-    if args.attn_impl != "auto":
-        raise NotImplementedError(
-            f"--attn_impl {args.attn_impl}: the port picks its attention "
-            "kernel per call (auto); ring attention is ROADMAP.md Queue 1 #5")
     if args.model_type != "AMD_N":
         raise NotImplementedError(
             f"--model_type {args.model_type}: the port trains AMD_N "
@@ -200,8 +223,18 @@ def build_config(args) -> amd_mod.AMDConfig:
         diffusion_num_layers=args.diffusion_num_layers)
 
 
-def build_loader(args, cfg: amd_mod.AMDConfig) -> DataLoader:
-    """The dataset of ``--dataset`` over ``--video_dir`` and its loader."""
+def build_loader(args, cfg: amd_mod.AMDConfig,
+                 mesh: Optional[mesh_lib.Mesh] = None) -> DataLoader:
+    """The dataset of ``--dataset`` over ``--video_dir`` and this rank's
+    loader: its share of the global ``--train_batch_size`` from its shard
+    of the videos (ranks of one ``tensor`` group load the same; default:
+    one rank)."""
+    mesh = mesh or mesh_lib.local_mesh()
+    dp = mesh.dp_size
+    if args.train_batch_size % dp:
+        raise ValueError(
+            f"batch size {args.train_batch_size} must be divisible by the "
+            f"data-parallel extent {dp} (mesh {dict(mesh.shape)})")
     dataset = DATASETS[args.dataset](
         args.video_dir, sample_n_frames=args.video_frames,
         sample_size=args.sample_size, target_fps=args.sample_fps,
@@ -209,13 +242,14 @@ def build_loader(args, cfg: amd_mod.AMDConfig) -> DataLoader:
         mask_video_ratio=args.mask_video_ratio,
         mask_latent_size=(cfg.image_height, cfg.image_width),
         mask_latent_channels=cfg.image_inchannel, seed=args.seed)
-    return DataLoader(dataset, args.train_batch_size,
+    return DataLoader(dataset, args.train_batch_size // dp,
                       num_workers=args.dataloader_num_workers,
-                      seed=args.seed)
+                      seed=args.seed, shard_id=mesh.dp_index, num_shards=dp)
 
 
 def train_config(args, out_dir: str) -> TrainConfig:
     return TrainConfig(
+        mesh_shape=mesh_shape(args),
         output_dir=out_dir, learning_rate=args.learning_rate,
         warmup_steps=args.lr_warmup_steps, lr_schedule=args.lr_scheduler,
         weight_decay=args.adam_weight_decay,
@@ -267,33 +301,49 @@ def batch_stream(loader: DataLoader):
 def main(argv=None) -> int:
     args = parse_args(argv)
     check_supported(args)
-    device = resolve_device(args.device)
+    cfg = build_config(args)
+    shape = mesh_shape(args)
+    if shape is not None:
+        check_mesh(dict(zip(mesh_lib.AXES, shape)), cfg.attn_impl)
+    if not mesh_lib.launched():
+        return train(args, cfg, resolve_device(args.device))
+    _, _, device = mesh_lib.init_distributed(args.dist_backend, args.device)
+    try:
+        return train(args, cfg, device)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def train(args, cfg: amd_mod.AMDConfig, device: torch.device) -> int:
+    """Build the model, the VAE, this rank's loader and the trainer on the
+    mesh of ``--mesh``; train, save and print the final metrics."""
+    mesh = mesh_lib.create_mesh(mesh_shape(args), device_type=device.type)
     out_dir = os.path.join(args.output_dir, args.exp_name)
     os.makedirs(out_dir, exist_ok=True)
-
-    cfg = build_config(args)
     torch.manual_seed(args.seed)
     model = amd_mod.AMDModelNew(cfg, device=device, dtype=torch.float32)
     if args.pretrain_path:
         report = ckpt_lib.load_pretrain_partial(model, args.pretrain_path)
         print(f"loaded pretrain: {len(report['missing'])} missing keys")
-    ckpt_lib.save_config(cfg.to_dict(), out_dir)
-    save_args(args, out_dir)
-    print_param_num(args.model_type, model)
+    if mesh.is_first:
+        ckpt_lib.save_config(cfg.to_dict(), out_dir)
+        save_args(args, out_dir)
+        print_param_num(args.model_type, model)
     vae = common.build_vae(args, device, torch.float32 if args.mp == "no"
                            else torch.bfloat16)
     vae.requires_grad_(False)
 
-    loader = build_loader(args, cfg)
-    writer = make_writer(out_dir)
+    loader = build_loader(args, cfg, mesh)
+    writer = make_writer(out_dir) if mesh.is_first else None
     trainer = AMDTrainer(model, vae, train_config(args, out_dir),
-                         tb_writer=writer)
-    if trainer.global_step:
+                         tb_writer=writer, mesh=mesh)
+    if trainer.global_step and mesh.is_first:
         print(f"resumed at step {trainer.global_step}")
     metrics = trainer.fit(batch_stream(loader))
     trainer.save()
-    writer.close()
-    print("final metrics:", metrics)
+    if mesh.is_first:
+        writer.close()
+        print("final metrics:", metrics)
     return 0
 
 

@@ -16,9 +16,11 @@ sampling) and ``use_mask`` (the optical-flow camera mask on the low band).
 ``AMDModelNew``: only the dual-encoder ``AMDModel`` reads it (ROADMAP.md
 Queue 1 #6). ``AMDConfig`` keeps the JAX package's schema so its
 ``config.json`` files load unchanged. ``remat`` checkpoints the DiT layers
-under autograd with ``remat_policy``; the options that only shape JAX
-compilation (``scan_layers``, ``attn_impl``) are accepted and have no effect
-here.
+under autograd with ``remat_policy``; ``attn_impl`` (auto, xla, pallas,
+ring) is installed process-wide by the trainer and the inference CLIs
+(``ops.attention.install_attn_impl``), as in the JAX package;
+``scan_layers``, which only shapes JAX compilation, is accepted and has no
+effect here.
 
 Every random draw of the training forward (mask-ratio jitter, token
 permutations, timesteps, flow noise) can be injected through
@@ -96,7 +98,7 @@ class AMDConfig:
     remat: bool = False
     remat_policy: str = "full"
     scan_layers: bool = False
-    attn_impl: str = "auto"
+    attn_impl: str = "auto"        # see ops.attention.install_attn_impl
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "AMDConfig":
@@ -262,6 +264,23 @@ class AMDModelNew(nn.Module):
                     **dit_kw)
         # position tables are built on the host; move them with the weights
         self.to(device=dev, dtype=dtype)
+
+    # the methods the samplers call in place of forward; under FSDP2 each
+    # gathers the root's parameters as a forward does
+    fsdp_forward_methods = ("encode", "velocity", "extract_motion",
+                            "camera_input")
+
+    def fsdp_units(self):
+        """The modules FSDP2 shards as units of their own (before the model
+        itself): every motion-encoder block and every DiT block."""
+        for name in ("camera_motion_encoder", "object_motion_encoder",
+                     "motion_transformer"):
+            if hasattr(self, name):
+                yield from getattr(self, name).transformer_blocks
+        dit = self.diffusion_transformer
+        for name in ("camera_transformer_blocks", "object_transformer_blocks",
+                     "spatial_blocks"):
+            yield from getattr(dit, name, ())
 
     def camera_input(self, lf_video: torch.Tensor) -> torch.Tensor:
         """The camera encoder's input from a low-band video (N,T,C,H,W):

@@ -154,15 +154,35 @@ def full_block_attention_bwd_plain(q, k, v, do, *, scale: float,
     return _grads_from_p(p, dp, delta, q, k, v, do, scale)
 
 
+def _stream_grads_plain(q, k, v, do, lse, delta, scale, bias):
+    """(dq, dk, dv) from a given ``lse`` and ``delta`` ((B, H, Sq) or
+    (B, H, Sq, 1) fp32), as the TPU kernels compute them: P = exp(s -
+    lse)."""
+    stat = q.shape[:3] + (1,)
+    p = torch.exp(_logits(q, k, scale, bias) - lse.reshape(stat))
+    dp = torch.matmul(_f(do), _f(v).transpose(-1, -2))
+    return _grads_from_p(p, dp, delta.reshape(stat), q, k, v, do, scale)
+
+
 def stream_attention_bwd_plain(q, k, v, do, out, lse, *, scale: float,
                                bias: Optional[torch.Tensor] = None):
     """(dq, dk, dv) of ``stream_attention_plain``'s output from the
     forward's ``out`` and ``lse`` (B, H, Sq, 1), as the TPU kernels compute
     them: P = exp(s - lse), delta = rowsum(dO * O)."""
-    p = torch.exp(_logits(q, k, scale, bias) - lse)
-    dp = torch.matmul(_f(do), _f(v).transpose(-1, -2))
     delta = (_f(do) * _f(out)).sum(dim=-1, keepdim=True)
-    return _grads_from_p(p, dp, delta, q, k, v, do, scale)
+    return _stream_grads_plain(q, k, v, do, lse, delta, scale, bias)
+
+
+def stream_attention_bwd_dq_plain(q, k, v, do, lse, delta, *, scale: float,
+                                  bias: Optional[torch.Tensor] = None):
+    """dq of the dQ kernel from a given ``lse`` and ``delta``."""
+    return _stream_grads_plain(q, k, v, do, lse, delta, scale, bias)[0]
+
+
+def stream_attention_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
+                                   bias: Optional[torch.Tensor] = None):
+    """(dk, dv) of the dK/dV kernel from a given ``lse`` and ``delta``."""
+    return _stream_grads_plain(q, k, v, do, lse, delta, scale, bias)[1:]
 
 
 # ---------------------------------------------------------------------------
@@ -628,7 +648,8 @@ def stream_attention_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
                             bias: Optional[torch.Tensor] = None):
     """dQ kernel: dq from the cotangent ``do``, the forward's ``lse`` and
     ``delta`` = rowsum(dO * O), each (B, H, Sq) or (B, H, Sq, 1) fp32 (a
-    ring hop may pass global ones), under ``_stream_bwd_plan``."""
+    ring hop passes global ones), under ``_stream_bwd_plan``. Its plain
+    version is ``stream_attention_bwd_dq_plain``."""
     do, lse, delta = _stream_bwd_args("stream_attention_bwd_dq", q, k, v, do,
                                       lse, delta, bias)
     b, h, sq, d = q.shape
@@ -648,7 +669,8 @@ stream_attention_bwd_dq.launches = 0
 
 def stream_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
                              bias: Optional[torch.Tensor] = None):
-    """dK/dV kernel: (dk, dv), inputs as ``stream_attention_bwd_dq``."""
+    """dK/dV kernel: (dk, dv), inputs as ``stream_attention_bwd_dq``. Its
+    plain version is ``stream_attention_bwd_dkv_plain``."""
     do, lse, delta = _stream_bwd_args("stream_attention_bwd_dkv", q, k, v,
                                       do, lse, delta, bias)
     b, h, sq, d = q.shape

@@ -19,6 +19,15 @@ Schedules: ``constant`` (with an optional linear warm-up from 0) and
 ``cosine`` (optax ``warmup_cosine_decay_schedule`` from 0 to 0), evaluated in
 fp32 as optax evaluates them. The parameters are updated in place (the JAX
 package's state is immutable and its step donates the buffers instead).
+
+Sharded parameters (FSDP2 DTensors over the mesh's ``fsdp`` axis): the
+optimizer, the moments and the EMA live on each rank's local shards
+(``parallel.sharding.local``), and ``global_norm`` sums the squares over
+the shards of ``norm_group`` before the square root, so the clip decision
+and the trainer's finite check come out the same on every rank.
+``full_state_dict`` gathers the whole state to rank 0's host memory for a
+checkpoint and ``load_state_dict`` takes whole tensors and keeps this
+rank's part.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import gather_to_first, local, part_of
 
 _F = np.float32
 
@@ -61,11 +72,16 @@ def make_schedule(learning_rate: float, warmup_steps: int = 0,
     raise ValueError(schedule)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+def global_norm(tensors: List[torch.Tensor], group=None) -> torch.Tensor:
     """sqrt of the sum of squares over every element, fp32 (optax
-    ``global_norm``)."""
-    return torch.sqrt(torch.stack([t.float().square().sum()
-                                   for t in tensors]).sum())
+    ``global_norm``); with ``group``, the tensors are this rank's shards
+    and the sums of squares are added over the group first."""
+    sq = torch.stack([local(t).float().square().sum() for t in tensors]).sum()
+    if group is not None:
+        from ..parallel import comm
+
+        comm.all_reduce_([sq], group)
+    return torch.sqrt(sq)
 
 
 class AdamW:
@@ -77,8 +93,12 @@ class AdamW:
                  schedule: str = "constant", weight_decay: float = 1e-2,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  max_grad_norm: float = 1.0, accumulate_steps: int = 1,
-                 mu_dtype: Optional[torch.dtype] = None):
-        self.params = list(params)
+                 mu_dtype: Optional[torch.dtype] = None, norm_group=None):
+        # the parameters as given (DTensors where sharded) and their local
+        # parts, which the update writes in place
+        self.shards = list(params)
+        self.params = [local(p) for p in self.shards]
+        self.norm_group = norm_group
         self.lr = make_schedule(learning_rate, warmup_steps, total_steps,
                                 schedule)
         self.weight_decay, self.b1, self.b2, self.eps = (weight_decay, b1,
@@ -95,7 +115,7 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
-        grads = [g.float() for g in grads]
+        grads = [local(g).float() for g in grads]
         if self.k > 1:
             n = self.mini_step
             for a, g in zip(self.acc, grads):
@@ -110,7 +130,7 @@ class AdamW:
         self._update(grads)
 
     def _update(self, grads):
-        norm = global_norm(grads)
+        norm = global_norm(grads, self.norm_group)
         if not bool(norm < self.max_grad_norm):
             grads = [(g / norm) * self.max_grad_norm for g in grads]
         lr = self.lr(self.count)
@@ -134,12 +154,40 @@ class AdamW:
         return {"count": self.count, "mini_step": self.mini_step,
                 "mu": self.mu, "nu": self.nu, "acc": self.acc}
 
+    def full_state_dict(self) -> Optional[Dict]:
+        """``state_dict`` with every moment whole, on rank 0 (gathered into
+        its host memory where the parameters are sharded); None on the
+        other ranks. Every rank must call it."""
+        def whole(parts):
+            return None if parts is None else [
+                gather_to_first(t, p) for t, p in zip(parts, self.shards)]
+        state = {"count": self.count, "mini_step": self.mini_step,
+                 "mu": whole(self.mu), "nu": whole(self.nu),
+                 "acc": whole(self.acc)}
+        return state if _first() else None
+
     def load_state_dict(self, state: Dict) -> None:
+        """Load a state of whole tensors; this rank keeps its part."""
         self.count, self.mini_step = state["count"], state["mini_step"]
         for name in ("mu", "nu", "acc"):
             if state[name] is not None:
-                for dst, src in zip(getattr(self, name), state[name]):
-                    dst.copy_(src)
+                for dst, src, p in zip(getattr(self, name), state[name],
+                                       self.shards):
+                    dst.copy_(_part(src, dst, p))
+
+
+def _first() -> bool:
+    """True on rank 0, or in a process with no process group."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _part(whole: torch.Tensor, dst: torch.Tensor,
+          like: torch.Tensor) -> torch.Tensor:
+    """This rank's part of the whole tensor ``whole`` in ``like``'s layout,
+    on ``dst``'s device."""
+    return part_of(whole.to(dst.device), like)
 
 
 def make_optimizer(params: List[torch.Tensor], learning_rate: float = 1e-4,
@@ -147,11 +195,13 @@ def make_optimizer(params: List[torch.Tensor], learning_rate: float = 1e-4,
                    schedule: str = "constant", weight_decay: float = 1e-2,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                    max_grad_norm: float = 1.0, accumulate_steps: int = 1,
-                   mu_dtype: Optional[torch.dtype] = None) -> AdamW:
-    """The JAX package's ``make_optimizer`` signature, over ``params``."""
+                   mu_dtype: Optional[torch.dtype] = None,
+                   norm_group=None) -> AdamW:
+    """The JAX package's ``make_optimizer`` signature, over ``params``;
+    ``norm_group``: the group whose shards ``global_norm`` adds up."""
     return AdamW(params, learning_rate, warmup_steps, total_steps, schedule,
                  weight_decay, b1, b2, eps, max_grad_norm, accumulate_steps,
-                 mu_dtype)
+                 mu_dtype, norm_group)
 
 
 class TrainState:
@@ -164,7 +214,8 @@ class TrainState:
         self.params = params
         self.tx = tx
         self.ema_decay = ema_decay
-        self.ema_params = ({k: p.detach().clone() for k, p in params.items()}
+        self.ema_params = ({k: local(p).detach().clone()
+                            for k, p in params.items()}
                            if ema_decay > 0 else None)
 
     @torch.no_grad()
@@ -174,21 +225,42 @@ class TrainState:
             d = self.ema_decay
             for k, p in self.params.items():
                 e = self.ema_params[k]
-                e.copy_(e * d + p.to(e.dtype) * (1.0 - d))
+                e.copy_(e * d + local(p).to(e.dtype) * (1.0 - d))
         self.step += 1
 
     def state_dict(self) -> Dict:
+        """This rank's state (on one rank: all of it)."""
         return {"step": self.step,
-                "params": {k: p.detach() for k, p in self.params.items()},
+                "params": {k: local(p).detach()
+                           for k, p in self.params.items()},
                 "opt_state": self.tx.state_dict(),
                 "ema_params": self.ema_params}
 
     @torch.no_grad()
+    def full_state_dict(self) -> Optional[Dict]:
+        """The whole state on rank 0: ``state_dict`` with every sharded
+        tensor gathered into rank 0's host memory, one tensor at a time, so
+        no rank holds more device memory than its part; None on the other
+        ranks. Every rank must call it."""
+        ema = self.ema_params
+        state = {"step": self.step,
+                 "params": {k: gather_to_first(local(p).detach(), p)
+                            for k, p in self.params.items()},
+                 "opt_state": self.tx.full_state_dict(),
+                 "ema_params": None if ema is None else {
+                     k: gather_to_first(e, self.params[k])
+                     for k, e in ema.items()}}
+        return state if _first() else None
+
+    @torch.no_grad()
     def load_state_dict(self, state: Dict) -> None:
+        """Load a whole state (``full_state_dict``'s, or one rank's of an
+        unsharded run); each rank keeps its part."""
         self.step = state["step"]
         for k, p in self.params.items():
-            p.copy_(state["params"][k])
+            dst = local(p)
+            dst.copy_(_part(state["params"][k], dst, p))
         self.tx.load_state_dict(state["opt_state"])
         if self.ema_params is not None:
             for k, e in self.ema_params.items():
-                e.copy_(state["ema_params"][k])
+                e.copy_(_part(state["ema_params"][k], e, self.params[k]))

@@ -21,10 +21,27 @@ with ``(config.seed, state.step)`` (the counterpart of the JAX step's
 continues. ``draw`` returns them as ``StepDraws``, and ``train_step`` takes
 them as an input, so a caller can replay one step exactly.
 
-``TrainConfig`` keeps the JAX package's fields. ``mesh_shape`` and
-``sync_every`` are accepted and have no effect on one card (there is no
-mesh, and each step's loss is read on the host), and ``fit`` does not read
-``eval_every``, as in the JAX package: a caller runs ``validate``.
+Parallelism. ``mesh_shape`` (d, f, t) builds the mesh over the ranks of
+the process group (``parallel.create_mesh``; None: every rank on ``data``,
+one rank without a process group), or the caller passes ``mesh``. The
+model is sharded over ``fsdp`` (``parallel.shard_model``: FSDP2, HSDP over
+(data, fsdp)) and the config's ``attn_impl`` installed with the ring over
+``tensor`` (``ops.attention.install_attn_impl``: a ring of one rank warns
+and runs ``auto``). Each rank trains on its rows of the
+global batch (the batches it is given) and draws the *global* batch's
+``StepDraws`` from the step's generator, keeping its rows
+(``parallel.batch_rows``), so a step at any mesh equals the one-card step
+on the same global batch up to the order of reductions. Gradients are
+averaged over (data, fsdp): FSDP2's reduce-scatter where sharded, else an
+explicit all-reduce of the gradient list (on one rank nothing moves and
+the gradients are those of ``torch.autograd.grad``, as before). Metrics
+are means over the mesh; rank 0 alone logs and writes checkpoints (the
+whole state, gathered; ``training/checkpoint.py``).
+
+``TrainConfig`` keeps the JAX package's fields. ``sync_every`` is accepted
+and has no effect (each step's loss is read on the host), and ``fit`` does
+not read ``eval_every``, as in the JAX package: a caller runs
+``validate``.
 ``transfer_dtype="bf16"`` sends fp32 batch arrays to the card as bf16.
 ``fit`` copies batch N+1 to the card (from pinned memory, non-blocking)
 before it reads step N's loss on the host, so the loader's work for the
@@ -46,9 +63,14 @@ from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models import amd as amd_mod
 from ..models import vae as vae_mod
+from ..ops import attention as attn_ops
+from ..parallel import comm
+from ..parallel.mesh import Mesh, create_mesh
+from ..parallel.sharding import batch_rows, local, shard_model
 from . import checkpoint as ckpt_lib
 from .train_state import TrainState, global_norm, make_optimizer
 
@@ -106,7 +128,8 @@ class AMDTrainer:
     ``camera_mask`` (N, 2T, C, h, w) when it has ``use_mask``."""
 
     def __init__(self, model: amd_mod.AMDModelNew, vae: vae_mod.AutoencoderKL,
-                 config: TrainConfig, lpips=None, tb_writer=None):
+                 config: TrainConfig, lpips=None, tb_writer=None,
+                 mesh: Optional[Mesh] = None):
         bad = [n for n, p in model.named_parameters()
                if p.dtype != torch.float32]
         if bad:
@@ -122,13 +145,19 @@ class AMDTrainer:
         self.tb = tb_writer
         self._profiler = None
         self.device = next(model.parameters()).device
+        self.mesh = mesh or create_mesh(config.mesh_shape,
+                                        device_type=self.device.type)
+        self._fsdp = self.mesh.shape["fsdp"] > 1
+        shard_model(model, self.mesh)
+        attn_ops.install_attn_impl(model.cfg, self.mesh)
         params = dict(model.named_parameters())
         tx = make_optimizer(
             list(params.values()), config.learning_rate, config.warmup_steps,
             config.max_steps, config.lr_schedule, config.weight_decay,
             max_grad_norm=config.max_grad_norm,
             accumulate_steps=config.accumulate_steps,
-            mu_dtype=torch.bfloat16 if config.mu_dtype == "bf16" else None)
+            mu_dtype=torch.bfloat16 if config.mu_dtype == "bf16" else None,
+            norm_group=self.mesh.group("fsdp") if self._fsdp else None)
         self.state = TrainState(params, tx, ema_decay=config.ema_decay)
         self.ckpt = ckpt_lib.CheckpointManager(
             os.path.join(config.output_dir, "checkpoints"),
@@ -157,11 +186,14 @@ class AMDTrainer:
         return out
 
     def draw(self, batch) -> StepDraws:
-        """This step's draws, from the generator of (seed, state.step)."""
+        """This step's draws for the *global* batch (this rank's rows times
+        the mesh's data-parallel extent), from the generator of (seed,
+        state.step); ``loss_and_grads`` keeps this rank's rows."""
         cfg, mcfg = self.config, self.model.cfg
         gen = torch.Generator(device=self.device)
         gen.manual_seed(cfg.seed * 1_000_003 + self.state.step)
         n, t, _, h, w = batch["videos"].shape
+        n *= self.mesh.dp_size
         f = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
         lat = (n * t, self.vae.cfg.latent_channels, h // f, w // f)
         keys = _ENCODED if mcfg.use_grey else _ENCODED[:2]
@@ -198,8 +230,65 @@ class AMDTrainer:
                                   dtype=torch.bfloat16)
         return contextlib.nullcontext()
 
+    def _rows(self, draws: StepDraws, n: int) -> StepDraws:
+        """This rank's rows of the global ``draws`` for a batch of ``n``
+        clips a rank (each draw's leading dim is a multiple of the global
+        clip count, clip-major; the mask-ratio uniforms are shared)."""
+        if self.mesh.dp_size == 1:
+            return draws
+        total = n * self.mesh.dp_size
+        rows = batch_rows(self.mesh, total)
+
+        def keep(x):
+            if x is None or x.dim() == 0:
+                return x
+            k = x.shape[0] // total
+            return x[rows.start * k:rows.stop * k]
+
+        model = amd_mod.TrainDraws(**{
+            f.name: keep(getattr(draws.model, f.name))
+            for f in dataclasses.fields(amd_mod.TrainDraws)})
+        return StepDraws({k: keep(v) for k, v in draws.posterior.items()},
+                         model)
+
+    def _reduce_grads(self, loss, params) -> List[torch.Tensor]:
+        """fp32 gradients of ``loss``, averaged over the mesh's (data,
+        fsdp) ranks: FSDP2's reduce-scatter under ``.backward()`` where the
+        parameters are sharded, else ``torch.autograd.grad`` and (with more
+        than one such rank) an all-reduce."""
+        if self._fsdp:
+            for p in params:
+                p.grad = None
+            loss.backward()
+            grads = [p.grad for p in params]
+            for p in params:
+                p.grad = None
+        else:
+            grads = list(torch.autograd.grad(loss, params,
+                                             allow_unused=True))
+        grads = [torch.zeros_like(p) if g is None else g.float()
+                 for p, g in zip(params, grads)]
+        if not self._fsdp and self.mesh.dp_group is not None:
+            comm.all_reduce_(grads, self.mesh.dp_group)
+            for g in grads:
+                g.div_(self.mesh.dp_size)
+        return grads
+
+    def _mean_metrics(self, metrics: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """Each metric's mean over the mesh's (data, fsdp) ranks."""
+        if self.mesh.dp_group is None:
+            return metrics
+        keys = sorted(metrics)
+        vals = torch.stack([metrics[k] for k in keys])
+        comm.all_reduce_([vals], self.mesh.dp_group)
+        vals /= self.mesh.dp_size
+        return dict(zip(keys, vals.unbind()))
+
     def loss_and_grads(self, batch, draws: StepDraws):
-        """(loss_dict of fp32 scalars, fp32 grads in parameter order)."""
+        """(loss_dict of fp32 scalars, fp32 grads in parameter order), each
+        the mean over the mesh; ``draws`` are the global batch's."""
+        draws = self._rows(draws, batch["videos"].shape[0])
         cfg = self.config
         with torch.no_grad():
             lat = {k: vae_mod.vae_encode(self.vae, batch[k],
@@ -229,11 +318,9 @@ class AMDTrainer:
                 loss_dict = {k: v for k, v in loss_dict.items()
                              if v.dim() == 0}
                 loss_dict.update(lpips_loss=p_loss, loss=loss)
-        params = list(self.state.params.values())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g.float()
-                 for p, g in zip(params, grads)]
-        return {k: v.detach().float() for k, v in loss_dict.items()}, grads
+        grads = self._reduce_grads(loss, list(self.state.params.values()))
+        return self._mean_metrics({k: v.detach().float()
+                                   for k, v in loss_dict.items()}), grads
 
     def _step(self, batch, draws: Optional[StepDraws] = None
               ) -> Dict[str, torch.Tensor]:
@@ -243,7 +330,8 @@ class AMDTrainer:
         if draws is None:
             draws = self.draw(batch)
         metrics, grads = self.loss_and_grads(batch, draws)
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = global_norm(
+            grads, self.mesh.group("fsdp") if self._fsdp else None)
         if self.config.nan_policy == "skip":
             finite = bool(torch.isfinite(metrics["loss"]) &
                           torch.isfinite(metrics["grad_norm"]))
@@ -313,8 +401,10 @@ class AMDTrainer:
             finite = np.isfinite(metrics["loss"])
             if cfg.nan_policy == "halt" and not finite:
                 os.makedirs(cfg.output_dir, exist_ok=True)
-                dump = os.path.join(cfg.output_dir,
-                                    f"nan_batch_step{self.global_step}.npz")
+                rank = f"_rank{dist.get_rank()}" if self.mesh.size > 1 else ""
+                dump = os.path.join(
+                    cfg.output_dir,
+                    f"nan_batch_step{self.global_step}{rank}.npz")
                 np.savez(dump, **{k: np.asarray(torch.as_tensor(v).cpu())
                                   for k, v in host_batch.items()
                                   if not isinstance(v, list)})
@@ -338,18 +428,28 @@ class AMDTrainer:
             self._stop_profile()
         return last
 
-    def save(self) -> str:
-        """Write ``checkpoint-{global_step}`` (rotating old ones)."""
-        return self.ckpt.save(self.global_step, self.state.state_dict())
+    def save(self) -> Optional[str]:
+        """Write ``checkpoint-{global_step}`` (rotating old ones): the whole
+        state, its sharded tensors gathered into rank 0's host memory
+        (every rank takes part), written by rank 0 while the others wait at
+        a barrier. Returns the path on rank 0, else None."""
+        state = self.state.full_state_dict()
+        path = None
+        if self.mesh.is_first:
+            path = self.ckpt.save(self.global_step, state)
+        if self.mesh.size > 1:
+            dist.barrier()
+        return path
 
     def restore(self, path: Optional[str] = None) -> None:
-        """Load the newest checkpoint (or ``path``) into the live state."""
-        self.state.load_state_dict(
-            self.ckpt.restore(path, map_location=self.device))
+        """Load the newest checkpoint (or ``path``) into the live state;
+        each rank keeps its part of the whole state."""
+        self.state.load_state_dict(self.ckpt.restore(
+            path, map_location="cpu" if self._fsdp else self.device))
         self.global_step = self.state.step
 
     def _log(self, metrics: Dict[str, float]) -> None:
-        if self.tb is not None:
+        if self.tb is not None and self.mesh.is_first:
             for k, v in metrics.items():
                 self.tb.add_scalar(f"train/{k}", v, self.global_step)
 
@@ -357,21 +457,27 @@ class AMDTrainer:
 
     @contextlib.contextmanager
     def _eval_weights(self):
-        """The model carries the EMA weights inside, where tracked."""
+        """The model carries the EMA weights inside, where tracked. A
+        sharded model is resharded on the way out: FSDP2 keeps its root's
+        gathered parameters after a forward, which would carry the EMA
+        weights into the next training step."""
         ema = self.state.ema_params
-        if ema is None:
-            yield
-            return
-        live = {k: p.detach().clone() for k, p in self.state.params.items()}
-        with torch.no_grad():
-            for k, p in self.state.params.items():
-                p.copy_(ema[k])
+        parts = {k: local(p) for k, p in self.state.params.items()}
+        live = None
+        if ema is not None:
+            live = {k: p.detach().clone() for k, p in parts.items()}
+            with torch.no_grad():
+                for k, p in parts.items():
+                    p.copy_(ema[k])
         try:
             yield
         finally:
-            with torch.no_grad():
-                for k, p in self.state.params.items():
-                    p.copy_(live[k])
+            if self._fsdp:
+                self.model.reshard()
+            if live is not None:
+                with torch.no_grad():
+                    for k, p in parts.items():
+                        p.copy_(live[k])
 
     @torch.no_grad()
     def validate(self, batch, sample_step: int = 2,
