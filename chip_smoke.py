@@ -26,7 +26,12 @@ Phases (any failure exits non-zero without the final result line):
    delta pre-pass, dQ and dK/dV kernels) at run B's shape and at
    ``STREAM_BWD_CHECKS`` (D 64 and 128 at 2048 tokens, masked cases with a
    fully masked key block that must get no gradient), each launched twice
-   and held to the same bits. Each kernel, its plain
+   and held to the same bits. The dual-encoder AMD family adds full-block
+   forward and backward check cases at its shapes: S 268 (the encoders),
+   282 (the DiT's joint block), 416 (the dual DiT's temporal motion
+   block), 538 (AMD_S_RecSplit), AMD_L's 16-head encoders and its D 96
+   DiT (masked too), and the training shapes at N = 4; and an FFN-up case
+   at M 4512 (the int8 AMD_S clip). Each kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
    ``F.scaled_dot_product_attention`` forward plus backward minus its
@@ -84,6 +89,21 @@ Phases (any failure exits non-zero without the final result line):
    for how each reference is held); its distance and PSNR to phase 3's
    bf16 clip and the serving models' device memory, bf16 against stripped
    int8, are printed;
+3j. (run after 3b) the dual-encoder AMD family on a fresh bf16 SD-VAE (seeded random
+   weights, ``AMD_S``/``AMD_L`` factories with ``use_filter`` and
+   ``use_grey``): the AMD_S clip (136 full-block launches: 2 x 8 encoder
+   layers and 12 DiT joint blocks x 10 steps; 3 streaming), the
+   diff-motion clip (camera motion of another clip; 136 / 4, and it must
+   differ from the clip), the refimg-motion path through one GT-motion
+   window (136 / 2), the clip with the ``dual`` DiT (256 / 3: its temporal
+   motion block over 416 tokens adds one launch a layer) and with the
+   ``spatial`` DiT (136 / 3), each one warm-up and one timed run with
+   exact launches and against its plain-attention run (phase 3's
+   tolerances); AMD_S_RecSplit's forward on seeded latents (28 launches,
+   within ``REC_REL_L2`` of its plain run);
+   3k. the int8 AMD_S clip (+ 120 FFN-up launches), against its plain
+   FFN-up run;
+   3l. the AMD_L clip (1011.2 M; 176 / 3) with its peak device memory;
 4. training run A, the flagship script's settings on one card: AMD_N with
    fp32 master weights and bf16 compute, remat ``full``, AdamW (lr 1e-4,
    decay 1e-2, clip 1.0, bf16 first moment) on N = 4 synthetic clips with
@@ -111,6 +131,11 @@ Phases (any failure exits non-zero without the final result line):
    ``need_motion_transformer`` (the camera joint block at 16 + 256 tokens)
    and ``diffusion_model_type="default"`` (the TempMotion DiT, one joint
    block a layer); exact launches and the plain-step check of run A;
+6b. training steps of the dual-encoder family, remat ``full``, each after
+   a warm-up with exact launches and the plain-step check of run A: AMD_S
+   at N = 4 (2 timed steps), AMD_S with ``use_regularizers`` (``KLloss``
+   finite) and with the ``dual`` DiT (one step each), AMD_L at N = 1 (one
+   step);
 7. the training CLI, ``hivae_tpu_torch.cli.train_amd``, in this process on
    8 synthetic 256² mp4s written here (a textured pan under a moving
    disc): the flagship JSON at N = 4, bf16, remat, 3 steps with a
@@ -121,6 +146,10 @@ Phases (any failure exits non-zero without the final result line):
    clips/s, frames/s, peak memory, the loader's host time a batch alone and
    ``fit``'s wait on it a step (its one-batch prefetch should hide it);
    7b. the CLI with ``--use_mask true`` (flow masks on the host), 2 steps;
+   7c. the CLI with ``--model_type AMD_S`` (AMD_S's config as
+   ``--amd_config``), 2 steps, then on its checkpoint ``cli.amd_inference
+   --model_type AMD_S`` and ``cli.amd_inference_single --diff_motion``
+   (exact launches, the mp4s' frames);
 8. parallelism. NCCL refuses two ranks on one device, so the ranks are
    processes that share this card over gloo (``spawn_ranks``: this script
    with ``--rank-phase``, a time limit each), whose collectives the port
@@ -284,6 +313,25 @@ FULL_BLOCK_CHECKS = [
     # the 8x8 camera grid + 256 patches, at N = 4 clips
     ("DiT camera joint, camera_down step (S 272)", (64, 16, 272, 64), None,
      0, False),
+] + [
+    # the dual-encoder AMD family (phases 3j-3l, 6b, 7c): the pair-temporal
+    # encoders (12 tokens + 256 patches over 2T frames), the default DiT's
+    # joint block (2 * 12 + 2 motion tokens + 256 patches), the dual DiT's
+    # temporal motion block (T * 26 tokens a clip), AMD_S_RecSplit's
+    # reconstruction blocks (256 + 256 + 26), AMD_L's encoders (16 heads)
+    # and DiT (16 heads of 96); serving shapes, then the training ones at
+    # N = 4 (AMD_L's step runs at N = 1, its serving shapes)
+    (label, shape, None, 0, masked) for label, shape, masked in (
+        ("AMD_S encoders (S 268)", (32, 8, 268, 64), False),
+        ("AMD_S DiT joint (S 282)", (16, 16, 282, 64), False),
+        ("dual DiT motion temporal (S 416)", (1, 16, 416, 64), False),
+        ("AMD_S_RecSplit (S 538)", (16, 16, 538, 64), False),
+        ("AMD_L encoders (S 268)", (32, 16, 268, 64), False),
+        ("AMD_L DiT joint (S 282, D 96)", (16, 16, 282, 96), False),
+        ("AMD_L DiT joint, masked (D 96)", (4, 16, 282, 96), True),
+        ("AMD_S encoders N=4", (128, 8, 268, 64), False),
+        ("AMD_S DiT joint N=4", (64, 16, 282, 64), False),
+        ("dual DiT motion temporal N=4", (4, 16, 416, 64), False))
 ]
 
 # training: clips per step in runs A and B, timed steps, frames per clip
@@ -944,7 +992,9 @@ def _ffn_bound(m, k, n):
 # wider than one portable cluster of 8 CTAs x 512 columns
 FFN_CHECKS = [("one row", 1, FFN_N), ("70 rows", 70, FFN_N),
               ("200 rows (ragged)", 200, FFN_N),
-              ("N 8192 (two column chunks)", 16 * 266, 2 * FFN_N)]
+              ("N 8192 (two column chunks)", 16 * 266, 2 * FFN_N),
+              # the AMD_S int8 clip's DiT joint block (phase 3k)
+              ("AMD_S DiT joint, M 4512", 16 * 282, FFN_N)]
 # SASS opcodes by the pipe that issues them, for the epilogue's floor
 SASS_PIPES = {"fp32": ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL",
                        "FCHK"),
@@ -1614,7 +1664,8 @@ def run_checkpoint_roundtrip(models, failures):
 
 
 def run_inference_cli(config, ckpt, videos, out_dir, cfg, failures,
-                      label="python -m hivae_tpu_torch.cli.amd_inference"):
+                      label="python -m hivae_tpu_torch.cli.amd_inference",
+                      model_type="AMD_N"):
     """``cli.amd_inference`` at 2 Euler steps on the one mp4 in
     ``videos``: its exit code, the output's frames and shape, and exact
     launches. Returns the launches."""
@@ -1628,7 +1679,8 @@ def run_inference_cli(config, ckpt, videos, out_dir, cfg, failures,
     t0 = time.perf_counter()
     rc = amd_inference.main([
         "--amd_config", config, "--amd_ckpt", ckpt, "--video_dir", videos,
-        "--output_dir", out_dir, "--sample_step", str(cli_steps)])
+        "--output_dir", out_dir, "--sample_step", str(cli_steps),
+        "--model_type", model_type])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = _read_counts()
@@ -1636,9 +1688,12 @@ def run_inference_cli(config, ckpt, videos, out_dir, cfg, failures,
     total = vio.video_metadata(out)[0] if os.path.exists(out) else 0
     shape = vio.read_video_frames(out, range(total)).shape if total \
         else None
-    want = dict(_no_launches(), full_block_attention=(
-        cfg.object_enc_num_layers + 2 * cfg.diffusion_num_layers * cli_steps),
-        stream_attention=3)
+    if model_type == "AMD_N":
+        want = dict(_no_launches(), full_block_attention=(
+            cfg.object_enc_num_layers + 2 * cfg.diffusion_num_layers *
+            cli_steps), stream_attention=3)
+    else:
+        want = dict(_no_launches(), **_dual_launches(cfg, cli_steps))
     _log(f"  {label}: rc {rc}, {out} frames {shape}, {cli_s:.1f} s with "
          f"model build; launches { {k: v for k, v in launches.items() if v} }")
     if rc != 0 or shape != (WINDOW + 1, SIZE, SIZE, 3) or launches != want:
@@ -1709,6 +1764,210 @@ def run_int8_clip(models, bf16_clip, bf16_latency, args, failures):
     if args.profile:
         profile_clip(pipe, clip, args.profile, "profile_clip_int8.txt")
     return launches, latency
+
+
+# -- the dual-encoder AMD family (phases 3j-3l) --------------------------------
+
+# AMD_S and AMD_L as the JAX package's factories build them, with the band
+# filters and grey streams of the flagship's serving path
+FAMILY_KW = dict(use_filter=True, use_grey=True)
+# AMD_S_RecSplit's forward against its run on the plain attention versions:
+# relative L2 distance of the predicted latents (bf16 activations through
+# 8 encoder and 12 reconstruction layers; P rounded at other points)
+REC_REL_L2 = 2e-2
+
+
+# phase 6b: (label, factory, config over FAMILY_KW, clips, timed steps),
+# each after a warm-up step and with the plain-step check, remat full
+FAMILY_STEPS = [("AMD_S", "AMD_S", {}, RUN_A_CLIPS, 2),
+                ("AMD_S_kl", "AMD_S", dict(use_regularizers=True),
+                 RUN_A_CLIPS, 1),
+                ("AMD_S_dual", "AMD_S", dict(diffusion_model_type="dual"),
+                 RUN_A_CLIPS, 1),
+                ("AMD_L", "AMD_L", {}, 1, 1)]
+
+
+def _dual_launches(cfg, steps=SAMPLE_STEP, encodes=2, decodes=1,
+                   encoders=True):
+    """Launches of one clip of a dual-encoder AMDModel: each encoder layer
+    (12 + 256 tokens over 2T frames) and each joint block of the DiT (26 +
+    256 tokens; the dual DiT adds its temporal motion block over T * 26
+    tokens, the spatial DiT a per-pixel block over T = 16 tokens, which
+    stays plain) run the full-block kernel, each VAE encode and decode one
+    streaming forward."""
+    per_layer = 2 if cfg.diffusion_model_type == "dual" else 1
+    enc = cfg.object_enc_num_layers + cfg.camera_enc_num_layers
+    return dict(full_block_attention=(enc if encoders else 0) + per_layer *
+                cfg.diffusion_num_layers * steps,
+                stream_attention=encodes + decodes)
+
+
+def build_family_model(name, dtype, seed, **over):
+    """``models.amd.AMD_MODELS[name]`` at full width on the card, seeded
+    random weights."""
+    import torch
+    from hivae_tpu_torch.models import amd as amd_mod
+
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    model = amd_mod.AMD_MODELS[name](device="cuda", dtype=dtype,
+                                     **dict(FAMILY_KW, **over))
+    n = sum(p.numel() for p in model.parameters())
+    _log(f"  {name} {over or ''}: {n / 1e6:.1f} M params, {dtype}, built "
+         f"in {time.perf_counter() - t0:.1f} s")
+    return model.eval() if dtype == torch.bfloat16 else model
+
+
+def run_amd_family(failures):
+    """Phases 3j-3l: AMD_S (the clip, the diff-motion clip, the GT-motion
+    ablation over one window, the clip with the ``dual`` and with the
+    ``spatial`` DiT, AMD_S_RecSplit's forward, then the int8 clip) and
+    AMD_L (one clip and its peak memory), on a fresh bf16 SD-VAE. Each
+    timed run has exact launches (``sdpa_plain`` 0) and agrees with its run
+    on the plain attention versions. Returns {path: launches}."""
+    import gc
+    import torch
+    from hivae_tpu_torch.models import vae as vae_mod
+    from hivae_tpu_torch.pipelines import (AMDDiffMotionPipeline,
+                                           AMDReconstructionPipeline,
+                                           GTMotionAblationPipeline)
+
+    bf16 = torch.bfloat16
+    torch.manual_seed(SEED)
+    vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
+                                dtype=bf16).eval()
+    paths = {}
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+
+    rgb, grey = (torch.from_numpy(a).cuda() for a in synthetic_clip())
+    crgb, cgrey = (torch.from_numpy(a).cuda()
+                   for a in synthetic_clip(SEED + 22))
+    clip_shape = (WINDOW + 1, 3, SIZE, SIZE)
+
+    def check(name, label, run, want, shape=clip_shape):
+        out, paths[name], latency = _timed_path(label, run, vae, shape, want,
+                                                failures)
+        with _plain_kernels():
+            ref = run()
+        _clip_diff(f"{label} vs the same run on the plain attention "
+                   "versions", out, ref, failures)
+        return out, latency
+
+    _log("phase 3j: AMD_S (dual-encoder AMDModel), bf16")
+    amd = build_family_model("AMD_S", bf16, SEED)
+    pipe = AMDReconstructionPipeline(vae, amd, window=WINDOW)
+    clip, s_latency = check(
+        "amd_s_clip", "AMD_S clip", lambda: pipe.sample_pixels(
+            rgb, grey, SAMPLE_STEP, gen()), _dual_launches(amd.cfg))
+    dpipe = AMDDiffMotionPipeline(vae, amd, window=WINDOW)
+    diff, _ = check(
+        "amd_s_diff_motion", "AMD_S diff-motion clip (camera from another "
+        "clip)", lambda: dpipe.sample_diff_pixels(rgb, grey, cgrey,
+                                                  SAMPLE_STEP, gen()),
+        _dual_launches(amd.cfg, encodes=3))
+    moved, _ = _clip_diff("AMD_S diff-motion clip vs AMD_S clip", diff, clip)
+    if not moved > 0:
+        failures.append("AMD_S diff-motion clip equals the clip: the camera "
+                        "clip moved nothing")
+    (gpix,) = (torch.from_numpy(synthetic_clip(SEED + 23)[0]).cuda(),)
+    gpipe = GTMotionAblationPipeline(vae, amd, window=WINDOW)
+    enc = amd.cfg.object_enc_num_layers
+    want = _dual_launches(amd.cfg, encodes=1, encoders=False)
+    # the window's extraction and the (ref, ref) pair's, object encoder
+    want["full_block_attention"] += 2 * enc
+    check("amd_s_refimg", "AMD_S refimg-motion window (GT-motion ablation)",
+          lambda: gpipe.reconstruct_pixels(gpix, 1, SAMPLE_STEP, gen()),
+          want)
+    for dit in ("dual", "spatial"):
+        variant = build_family_model("AMD_S", bf16, SEED,
+                                     diffusion_model_type=dit)
+        vpipe = AMDReconstructionPipeline(vae, variant, window=WINDOW)
+        check(f"amd_s_{dit}", f"AMD_S clip, {dit} DiT",
+              lambda: vpipe.sample_pixels(rgb, grey, SAMPLE_STEP, gen()),
+              _dual_launches(variant.cfg))
+        del variant, vpipe
+    rec_split(failures, paths)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _log("phase 3k: the int8 AMD_S clip")
+    pipe = AMDReconstructionPipeline(vae, amd, window=WINDOW, quant="int8")
+    _log(f"  int8 tables: DiT {len(pipe.quant_table)} layers, VAE decoder "
+         f"{len(pipe.vae_quant_table)}")
+    want = dict(_dual_launches(amd.cfg), fused_ffn_up_quant=(
+        amd.cfg.diffusion_num_layers * SAMPLE_STEP))
+    run = lambda: pipe.sample_pixels(rgb, grey, SAMPLE_STEP, gen())  # noqa
+    out, paths["amd_s_int8"], latency = _timed_path(
+        "AMD_S int8 clip", run, vae, clip_shape, want, failures)
+    with _plain_kernels(("fused_ffn_up_quant",)):
+        ref = run()
+    _clip_diff("AMD_S int8 clip vs the same with the plain FFN-up version",
+               out, ref, failures)
+    _clip_diff("AMD_S int8 clip vs the AMD_S bf16 clip (random weights)",
+               out, clip)
+    _log(f"  latency: AMD_S bf16 clip {s_latency * 1e3:.2f} ms, int8 clip "
+         f"{latency * 1e3:.2f} ms")
+    del amd, pipe, dpipe, gpipe, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _log("phase 3l: AMD_L, bf16")
+    torch.manual_seed(SEED)
+    vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
+                                dtype=bf16).eval()
+    amd = build_family_model("AMD_L", bf16, SEED)
+    pipe = AMDReconstructionPipeline(vae, amd, window=WINDOW)
+    torch.cuda.reset_peak_memory_stats()
+    check("amd_l_clip", "AMD_L clip", lambda: pipe.sample_pixels(
+        rgb, grey, SAMPLE_STEP, gen()), _dual_launches(amd.cfg))
+    _log(f"  AMD_L clip: peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+         f"(torch.cuda.max_memory_allocated, models included; its plain "
+         f"reference run included)")
+    del amd, pipe, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def rec_split(failures, paths):
+    """AMD_S_RecSplit's forward (no timestep; 8 + 8 encoder layers and 12
+    reconstruction layers over 256 + 256 + 26 tokens) on seeded latents:
+    exact launches, finite, and within ``REC_REL_L2`` of its run on the
+    plain attention versions."""
+    import torch
+
+    rec = build_family_model("AMD_S_RecSplit", torch.bfloat16, SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    video, ref = (torch.randn((1, WINDOW, 4, 32, 32), generator=g,
+                              device="cuda", dtype=torch.bfloat16)
+                  for _ in range(2))
+    ref = ref[:, :1].expand(video.shape)
+    with torch.no_grad():
+        rec(video, ref)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        pre, losses = rec(video, ref)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        paths["amd_s_recsplit"] = launches = _read_counts()
+        with _plain_kernels():
+            want_pre, _ = rec(video, ref)
+    want = dict(_no_launches(), full_block_attention=(
+        rec.cfg.object_enc_num_layers * 2 + rec.cfg.diffusion_num_layers))
+    dist = ((pre.float() - want_pre.float()).norm() /
+            want_pre.float().norm()).item()
+    finite = bool(torch.isfinite(pre).all())
+    _log(f"  AMD_S_RecSplit forward {tuple(pre.shape)}: {ms:.2f} ms, "
+         f"rec_loss {losses['rec_loss'].item():.5f}, rel L2 vs the plain "
+         f"attention run {dist:.3g}; launches "
+         f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != want or not finite or not dist <= REC_REL_L2:
+        failures.append(f"AMD_S_RecSplit: launches {launches}, want {want}, "
+                        f"finite {finite}, rel L2 {dist}")
 
 
 COUNTERS = ("full_block_attention", "full_block_attention_qknorm",
@@ -1788,23 +2047,32 @@ def build_training_models():
     return amd, vae, lpips
 
 
-def _expected_step_launches(cfg, perceptual: bool, remat=None):
+def _expected_step_launches(cfg, perceptual: bool, remat=None,
+                            dual: bool = False):
     """Kernel launches of one training step of the flagship or a variant:
     the object encoder's layers and the DiT's joint blocks (two a layer in
     the spatial DiT, one in the ``default`` TempMotion DiT) run the
     full-block kernels, the DiT's forward twice under remat (``remat``,
-    else the config's); each of the 4 VAE encodes runs one streaming
-    forward, and the perceptual leg's decode one more streaming forward and
-    its backward: the delta pre-pass and the dQ and dK/dV kernels."""
+    else the config's); each VAE encode (4 with grey clips, else 2) runs
+    one streaming forward, and the perceptual leg's decode one more
+    streaming forward and its backward: the delta pre-pass and the dQ and
+    dK/dV kernels. ``dual``: the dual-encoder AMDModel, whose two encoders'
+    layers and each DiT layer's joint block (and the dual DiT's temporal
+    motion block) run the full-block kernels."""
     remat = cfg.remat if remat is None else remat
-    joints = 1 if cfg.diffusion_model_type == "default" else \
-        int(cfg.use_object) + int(cfg.use_camera)
-    enc, dit = cfg.object_enc_num_layers, joints * cfg.diffusion_num_layers
+    if dual:
+        enc = cfg.object_enc_num_layers + cfg.camera_enc_num_layers
+        joints = 2 if cfg.diffusion_model_type == "dual" else 1
+    else:
+        enc = cfg.object_enc_num_layers
+        joints = 1 if cfg.diffusion_model_type == "default" else \
+            int(cfg.use_object) + int(cfg.use_camera)
+    dit = joints * cfg.diffusion_num_layers
     return dict(_no_launches(),
                 full_block_attention=enc + dit * (2 if remat else 1),
                 full_block_attention_bwd=enc + dit,
                 full_block_attention_delta=enc + dit,
-                stream_attention=4 + int(perceptual),
+                stream_attention=(4 if cfg.use_grey else 2) + int(perceptual),
                 stream_attention_delta=int(perceptual),
                 stream_attention_bwd_dq=int(perceptual),
                 stream_attention_bwd_dkv=int(perceptual))
@@ -1821,10 +2089,12 @@ def run_training(fa, models, failures, *, label, clips, steps,
     import dataclasses
     import shutil
     import torch
+    from hivae_tpu_torch.models.amd import AMDModel
     from hivae_tpu_torch.training.trainer import (AMDTrainer, TrainConfig,
                                                   batch_from_clips)
 
     amd, vae, lpips = models
+    dual = isinstance(amd, AMDModel)
     ckpt_dir = os.path.join(ROOT, "hivae_tpu_torch", "build",
                             "chip_smoke_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
@@ -1856,12 +2126,13 @@ def run_training(fa, models, failures, *, label, clips, steps,
     launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
     want = {k: v * steps for k, v in
-            _expected_step_launches(amd.cfg, perceptual).items()}
+            _expected_step_launches(amd.cfg, perceptual, dual=dual).items()}
     if launches != want:
         failures.append(f"{label}: launches {launches}, want {want}")
     for m in metrics:
-        if not all(math.isfinite(m[k]) for k in ("loss", "grad_norm")):
-            failures.append(f"{label}: non-finite metrics {m}")
+        if not all(math.isfinite(v) for v in m.values()) or (
+                dual and amd.cfg.use_regularizers and "KLloss" not in m):
+            failures.append(f"{label}: metrics {m}")
     moved = sum(bool((p.detach() != b).any()) for p, b in zip(trained,
                                                               before))
     if moved != len(trained):
@@ -2287,6 +2558,7 @@ def run_cli(argv, label, steps, failures):
 
     args = train_amd.parse_args(argv)
     cfg, n = train_amd.build_config(args), args.train_batch_size
+    dual = args.model_type != "AMD_N"
     buf = io.StringIO()
     gc.collect()
     torch.cuda.empty_cache()
@@ -2325,7 +2597,7 @@ def run_cli(argv, label, steps, failures):
          f"build and saves; launches "
          f"{ {k: v for k, v in launches.items() if v} }")
     want = {k: v * steps for k, v in
-            _expected_step_launches(cfg, False).items()}
+            _expected_step_launches(cfg, False, dual=dual).items()}
     metrics = timing.metrics or {}
     if rc != 0 or len(periods) != steps or launches != want or not all(
             math.isfinite(metrics.get(k, math.nan))
@@ -2435,8 +2707,67 @@ def run_train_cli(failures, profile_dir=None):
         written = train_amd.build_config(train_amd.parse_args(argv))
         if not written.use_mask:
             failures.append("train_amd --use_mask: the config has no mask")
+        paths.update(run_amd_s_cli(common, work, videos, failures))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
+def run_amd_s_cli(common, work, videos, failures):
+    """Phase 7c: ``cli.train_amd --model_type AMD_S`` (AMD_S's factory
+    config as ``--amd_config``) for ``CLI_MASK_STEPS`` steps on phase 7's
+    mp4s, then on its checkpoint ``cli.amd_inference --model_type AMD_S``
+    and ``cli.amd_inference_single --diff_motion``. Returns {path:
+    launches}."""
+    import torch
+    from hivae_tpu_torch.cli import amd_inference_single
+    from hivae_tpu_torch.data import video as vio
+    from hivae_tpu_torch.models import amd as amd_mod
+
+    _log(f"phase 7c: the training CLI with --model_type AMD_S, "
+         f"{CLI_MASK_STEPS} steps, then its checkpoint served")
+    paths = {}
+    config = os.path.join(work, "amd_s.json")
+    cfg = amd_mod.AMD_S(device="meta", remat=True, **FAMILY_KW).cfg
+    with open(config, "w") as f:
+        json.dump(cfg.to_dict(), f)
+    argv = common + ["--exp_name", "amd_s", "--model_type", "AMD_S",
+                     "--amd_config", config,
+                     "--max_train_steps", str(CLI_MASK_STEPS)]
+    paths["train_cli_amd_s"], _, _ = run_cli(
+        argv, "train_amd --model_type AMD_S", CLI_MASK_STEPS, failures)
+    run_dir = os.path.join(work, "exp", "amd_s")
+    ckpts = os.path.join(run_dir, "checkpoints")
+    one = os.path.join(work, "one")
+    paths["cli_mp4_amd_s"] = run_inference_cli(
+        os.path.join(run_dir, "config.json"), ckpts, one,
+        os.path.join(work, "recon_amd_s"), cfg, failures,
+        label="amd_inference --model_type AMD_S on the trained checkpoint",
+        model_type="AMD_S")
+
+    cli_steps = 2
+    out = os.path.join(work, "diff_motion.mp4")
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc = amd_inference_single.main([
+        "--amd_config", os.path.join(run_dir, "config.json"), "--amd_ckpt",
+        ckpts, "--model_type", "AMD_S", "--diff_motion", "--video_path_1",
+        os.path.join(videos, "train1.mp4"), "--video_path_2",
+        os.path.join(videos, "train0.mp4"), "--output_path", out,
+        "--sample_step", str(cli_steps)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    paths["cli_diff_motion"] = launches = _read_counts()
+    total = vio.video_metadata(out)[0] if os.path.exists(out) else 0
+    shape = vio.read_video_frames(out, range(total)).shape if total \
+        else None
+    want = dict(_no_launches(), **_dual_launches(cfg, cli_steps, encodes=3))
+    _log(f"  amd_inference_single --diff_motion: rc {rc}, {out} frames "
+         f"{shape}, {cli_s:.1f} s with model build; launches "
+         f"{ {k: v for k, v in launches.items() if v} }")
+    if rc != 0 or shape != (WINDOW + 1, SIZE, SIZE, 3) or launches != want:
+        failures.append(f"amd_inference_single --diff_motion: rc {rc}, "
+                        f"frames {shape}, launches {launches}, want {want}")
     return paths
 
 
@@ -3350,6 +3681,7 @@ def main() -> int:
                                           args, failures)
     del serving
     torch.cuda.empty_cache()
+    paths.update(run_amd_family(failures))
 
     _log(f"phase 4: training run A, N={RUN_A_CLIPS}, MSE loss")
     models = build_training_models()
@@ -3383,6 +3715,16 @@ def main() -> int:
             fa, (amd, vae, lpips), failures, label=name, clips=RUN_A_CLIPS,
             steps=1, unused=unused, profile_dir=profile,
             profile_name=f"profile_train_{name}.txt")
+        del amd
+        torch.cuda.empty_cache()
+    for label, name, over, clips, steps in FAMILY_STEPS:
+        _log(f"phase 6b: training {name} {over}, N={clips}, {steps} timed "
+             f"step(s)")
+        amd = build_family_model(name, torch.float32, SEED + 3, remat=True,
+                                 **over)
+        paths[f"train_{label}"], _ = run_training(
+            fa, (amd, vae, lpips), failures, label=label, clips=clips,
+            steps=steps)
         del amd
         torch.cuda.empty_cache()
     del vae, lpips

@@ -36,7 +36,9 @@ def add_model_args(p: argparse.ArgumentParser, frames: int = 16) -> None:
                    help="SD-VAE .safetensors (diffusers names, old or new)")
     p.add_argument("--video_frames", type=int, default=frames,
                    help="sampling window")
-    p.add_argument("--model_type", type=str, default="AMD_N")
+    p.add_argument("--model_type", type=str, default="AMD_N",
+                   help="AMD_N: AMDModelNew; any other (AMD_S, AMD_L): the "
+                        "dual-encoder AMDModel of the config")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda (the default) never falls back "
                         "to the CPU")
@@ -78,23 +80,21 @@ def _seeded(device):
         yield
 
 
-def load_amd(args, device, dtype: torch.dtype = torch.bfloat16
-             ) -> amd_mod.AMDModelNew:
+def load_amd(args, device, dtype: torch.dtype = torch.bfloat16):
     """The AMD model of ``args.amd_config`` (its window set to
     ``args.video_frames``) with the weights of ``args.amd_ckpt``, in
-    ``dtype``; ``args.use_ema`` (where the CLI has it) takes a trainer
-    checkpoint's EMA weights. The config's ``attn_impl`` is installed
-    (``ring``: a ring of every rank, or ``auto`` with a warning on one)."""
-    if args.model_type != "AMD_N":
-        raise NotImplementedError(
-            f"--model_type {args.model_type}: the port serves AMD_N "
-            "(AMDModelNew) only; the dual-encoder AMDModel and the other "
-            "factories are not ported yet (ROADMAP.md Queue 1 #6)")
+    ``dtype``: ``AMDModelNew`` for ``--model_type AMD_N``, the dual-encoder
+    ``AMDModel`` for any other (AMD_S, AMD_L), as the JAX CLIs build it.
+    ``args.use_ema`` (where the CLI has it) takes a trainer checkpoint's
+    EMA weights. The config's ``attn_impl`` is installed (``ring``: a ring
+    of every rank, or ``auto`` with a warning on one)."""
     with open(args.amd_config) as f:
         cfg = amd_mod.AMDConfig.from_dict(json.load(f))
     cfg = cfg.replace(video_frames=args.video_frames)
+    cls = amd_mod.AMDModelNew if args.model_type == "AMD_N" \
+        else amd_mod.AMDModel
     with _seeded(device):
-        model = amd_mod.AMDModelNew(cfg, device=device, dtype=dtype).eval()
+        model = cls(cfg, device=device, dtype=dtype).eval()
     if args.amd_ckpt.endswith(".safetensors"):
         report = ckpt_lib.load_pretrain_partial(model, args.amd_ckpt)
         print(f"converted torch checkpoint; missing={len(report['missing'])}")
@@ -118,7 +118,7 @@ def build_vae(args, device, dtype: torch.dtype = torch.bfloat16
     return vae
 
 
-def sample_size(amd: amd_mod.AMDModelNew, vae: vae_mod.AutoencoderKL) -> int:
+def sample_size(amd, vae: vae_mod.AutoencoderKL) -> int:
     """The pixel size whose latents the model takes: its latent height
     times the VAE's downsampling."""
     return amd.cfg.image_height * 2 ** (len(vae.cfg.block_out_channels) - 1)

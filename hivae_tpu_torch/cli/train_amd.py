@@ -1,6 +1,6 @@
-"""Train AMD_N from a directory of mp4 files with the port (the counterpart
-of the JAX package's ``train_amd.py``: the same flags, names and defaults,
-plus ``--device`` and ``--dist_backend``).
+"""Train an AMD model from a directory of mp4 files with the port (the
+counterpart of the JAX package's ``train_amd.py``: the same flags, names
+and defaults, plus ``--device`` and ``--dist_backend``).
 
     python -m hivae_tpu_torch.cli.train_amd --video_dir videos \
         --amd_config configs/amd/amd_n_t1d512_spatial.json \
@@ -20,17 +20,21 @@ backend on CUDA unless ``--dist_backend gloo`` asks for gloo (ranks that
 share one card). Rank 0 alone writes ``config.json``, ``args.txt``, the
 tracker and the checkpoints.
 
-The model comes from ``--amd_config`` or from the flags, with fp32 master
-weights; ``--mp bf16`` (and ``fp16``) computes under bf16 autocast and
+The model comes from ``--amd_config`` (``AMDModelNew`` for ``--model_type
+AMD_N``, the dual-encoder ``AMDModel`` for any other) or from the flags
+(``AMD_N``, ``AMD_S`` and ``AMD_L`` at the flags' widths, any other name of
+``models.amd.AMD_MODELS`` through its factory, as the JAX CLI builds
+them), with fp32 master weights; ``--mp bf16`` (and ``fp16``) computes under bf16 autocast and
 holds the SD-VAE in bf16, ``--mp no`` computes in fp32. The run writes
 ``config.json`` and ``args.txt`` to ``<output_dir>/<exp_name>``, trains
 with checkpoints under ``checkpoints/``, saves once more at the end and
 prints the final metrics. Scalars go to TensorBoard (``tracker/``) where
 ``torch.utils.tensorboard`` imports, else to stdout.
 
-Refused, each with the ROADMAP.md item that ports it: a mesh with
-``tensor > 1`` and no ring attention (weight tensor parallelism, Queue 1
-#5b) and ``--model_type`` other than ``AMD_N`` (Queue 1 #6).
+Refused: a mesh with ``tensor > 1`` and no ring attention (weight tensor
+parallelism, ROADMAP.md Queue 1 #5b), and ``AMD_S_Rec``/``AMD_S_RecSplit``
+(``AMDModelRec`` has a forward and a loss only; the JAX trainer cannot run
+it either).
 """
 
 from __future__ import annotations
@@ -107,7 +111,10 @@ def parse_args(argv=None):
                    help="d,f,t: the (data, fsdp, tensor) mesh of ranks; "
                         "default every rank on data")
     # model
-    p.add_argument("--model_type", type=str, default="AMD_N")
+    p.add_argument("--model_type", type=str, default="AMD_N",
+                   help="AMD_N, AMD_S, AMD_L (the flags' widths) or another "
+                        "factory of AMD_MODELS; AMD_S_Rec and "
+                        "AMD_S_RecSplit are refused")
     p.add_argument("--amd_config", type=str, default=None)
     p.add_argument("--pretrain_path", type=str, default=None)
     p.add_argument("--video_frames", type=int, default=16)
@@ -185,12 +192,39 @@ def mesh_shape(args):
 
 
 def check_supported(args) -> None:
-    """Refuse what the port does not run yet, naming where it is queued."""
-    if args.model_type != "AMD_N":
+    """Refuse a model the trainer cannot run: ``AMDModelRec``, whose
+    forward takes no timestep and no ``return_meta_info``."""
+    if args.model_type not in amd_mod.AMD_MODELS:
+        raise ValueError(f"--model_type {args.model_type}: one of "
+                         f"{sorted(amd_mod.AMD_MODELS)}")
+    if args.model_type in ("AMD_S_Rec", "AMD_S_RecSplit"):
         raise NotImplementedError(
-            f"--model_type {args.model_type}: the port trains AMD_N "
-            "(AMDModelNew) only; the other AMD models are ROADMAP.md "
-            "Queue 1 #6")
+            f"--model_type {args.model_type}: AMDModelRec has a forward and "
+            "a loss only (no timestep draws, no return_meta_info), so the "
+            "trainer cannot train it; the JAX package's trainer fails on it "
+            "the same way")
+
+
+# the widths the factories fix, which a factory build does not take from
+# the flags
+_FACTORY_WIDTHS = ("enc_nhead", "enc_ndim", "diffusion_attn_head_dim",
+                   "diffusion_attn_num_heads", "diffusion_out_channels",
+                   "diffusion_num_layers")
+
+
+def build_model(args, cfg: amd_mod.AMDConfig, device):
+    """The model of ``--model_type`` with fp32 weights: from
+    ``--amd_config``, ``AMDModelNew`` for AMD_N and ``AMDModel`` for any
+    other; from the flags, AMD_N, AMD_S and AMD_L at the flags' widths and
+    any other name through its factory, which fixes its widths."""
+    kw = dict(device=device, dtype=torch.float32)
+    name = args.model_type
+    if args.amd_config or name in ("AMD_N", "AMD_S", "AMD_L"):
+        cls = amd_mod.AMDModelNew if name == "AMD_N" else amd_mod.AMDModel
+        return cls(cfg, **kw)
+    over = {k: v for k, v in cfg.to_dict().items()
+            if k not in _FACTORY_WIDTHS}
+    return amd_mod.AMD_MODELS[name](**kw, **over)
 
 
 def build_config(args) -> amd_mod.AMDConfig:
@@ -321,7 +355,8 @@ def train(args, cfg: amd_mod.AMDConfig, device: torch.device) -> int:
     out_dir = os.path.join(args.output_dir, args.exp_name)
     os.makedirs(out_dir, exist_ok=True)
     torch.manual_seed(args.seed)
-    model = amd_mod.AMDModelNew(cfg, device=device, dtype=torch.float32)
+    model = build_model(args, cfg, device)
+    cfg = model.cfg
     if args.pretrain_path:
         report = ckpt_lib.load_pretrain_partial(model, args.pretrain_path)
         print(f"loaded pretrain: {len(report['missing'])} missing keys")

@@ -258,3 +258,32 @@ class DiTBlock(nn.Module):
         x = x + gate * self.attn1(h)
         h, gate = self.norm2(x, temb)
         return x + gate * self.ff(h)
+
+
+class MotionTemporalBlock(nn.Module):
+    """Self-attention block over a temporal motion axis: AdaLN-Zero
+    conditioned on ``temb`` with ``use_adaln`` (``cond_dim`` its width),
+    else a pre-LN block whose gates are the constant 1."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 use_adaln: bool = False, cond_dim: Optional[int] = None,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.use_adaln = use_adaln
+        if use_adaln:
+            self.norm1 = AdaLNZeroSingle(dim, cond_dim)
+            self.norm2 = AdaLNZeroSingle(dim, cond_dim)
+        else:
+            self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+            self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, temb=None):
+        if self.use_adaln:
+            h, gate = self.norm1(x, temb)
+            x = x + gate * self.attn1(h)
+            h, gate = self.norm2(x, temb)
+            return x + gate * self.ff(h)
+        x = x + self.attn1(self.norm1(x))
+        return x + self.ff(self.norm2(x))

@@ -1,6 +1,8 @@
-"""Velocity DiTs of AMD_N (port of ``VelocityDiTImgSpatialTempMotion``,
-``VelocityDiTTempMotion``, the ``_DiTBase`` head and the remat policies of
-``hivae_tpu/models/dit.py``), layers unrolled.
+"""Velocity and reconstruction DiTs (port of
+``VelocityDiTImgSpatialTempMotion``, ``VelocityDiTTempMotion``,
+``VelocityDiT``, ``VelocityDiTImgSpatial``, ``VelocityDiTDualStream``,
+``ReconstructionDiT``, ``ReconstructionDiTSplit``, the ``_DiTBase`` head and
+the remat policies of ``hivae_tpu/models/dit.py``), layers unrolled.
 
 ``VelocityDiTImgSpatialTempMotion`` (``diffusion_model_type="spatial"``):
 each layer runs an object joint block ([10 motion tokens, 256 patches] at
@@ -9,6 +11,20 @@ the flagship: full-block kernel), a camera joint block ([256 site tokens,
 (S = frames: plain attention). ``VelocityDiTTempMotion`` (``"default"``):
 each layer is one object joint block per frame, the image tokens carrying
 a temporal position; it has no camera stream.
+
+The dual-encoder ``AMDModel``'s decoders: ``VelocityDiT`` (``default``)
+runs one joint block a layer over [2L + 2 motion tokens, the patches]
+(282 tokens at AMD_S widths: full-block kernel); ``plus`` sums the camera
+and object streams, ``decouple`` runs the camera stream through layers
+[0, 8) and the object stream through [6, L), as the reference does.
+``VelocityDiTImgSpatial`` (``spatial``) adds a per-pixel temporal
+``DiTBlock`` (S = frames: plain attention) after each joint block.
+``VelocityDiTDualStream`` (``dual``) runs a ``MotionTemporalBlock`` over a
+clip's T * (2L + 2) motion tokens (416 at AMD_S widths: full-block kernel)
+before each joint block. ``ReconstructionDiT`` and
+``ReconstructionDiTSplit`` (``AMDModelRec``) take no timestep: plain
+self-attention blocks over the image and motion tokens (538 in the split
+form at AMD_S widths).
 
 ``remat=True`` is the counterpart of the JAX package's ``nn.remat`` of a
 layer: under autograd each layer of the loop runs inside
@@ -44,7 +60,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops import embeddings as emb_ops
-from .blocks import (AdaLayerNorm, DiTBlock, JointTransformerBlock, PatchEmbed,
+from .blocks import (AdaLayerNorm, BasicTransformerBlock, DiTBlock,
+                     JointTransformerBlock, MotionTemporalBlock, PatchEmbed,
                      TimestepEmbedding)
 
 REMAT_POLICIES = ("full", "dots", "dots_sans_ffn", "dots_offload")
@@ -335,3 +352,334 @@ class VelocityDiTTempMotion(_DiTBase):
         for blk in self.object_transformer_blocks:
             motion, img = self._run_layer(blk, motion, img, emb)
         return self._head(img, emb, hi, wi)
+
+
+def check_token_counts(camera_tokens: int, object_tokens: int) -> None:
+    """The dual-encoder DiTs give the camera and the object tokens the same
+    positions, so the two counts must be equal (the JAX package fails there
+    on a broadcast)."""
+    if camera_tokens != object_tokens:
+        raise ValueError(
+            f"the camera stream has {camera_tokens} motion tokens and the "
+            f"object stream {object_tokens}: the dual-encoder AMDModel's DiT "
+            f"takes its positions from the camera tokens and adds them to "
+            f"the object tokens, so set camera_motion_token_num equal to "
+            f"object_motion_token_num")
+
+
+class _MotionTokenDiT(_DiTBase):
+    """A DiT whose motion streams share one embedding and the reference's
+    [source token, source, target token, target] layout, with the position
+    table of that layout; the image tokens carry the 2-D positions only
+    unless a subclass adds frame positions."""
+
+    def __init__(self, heads, head_dim, out_channels, image_height,
+                 image_width, image_patch_size, image_in_channels,
+                 motion_in_channels, time_embed_dim, motion_target_num_frame,
+                 remat, remat_policy, token_init: str = "zeros"):
+        super().__init__(heads, head_dim, out_channels, image_height,
+                         image_width, image_patch_size, image_in_channels,
+                         time_embed_dim, motion_target_num_frame, remat,
+                         remat_policy)
+        self.motion_patch_embed = nn.Linear(motion_in_channels, self.hidden)
+        init = torch.zeros if token_init == "zeros" else \
+            (lambda *shape: 0.02 * torch.randn(*shape))
+        self.source_token = nn.Parameter(init(1, 1, self.hidden))
+        self.target_token = nn.Parameter(init(1, 1, self.hidden))
+
+    def _tokens(self, n: int):
+        """(source token, target token), each (n, 1, hidden)."""
+        return (self.source_token.expand(n, 1, self.hidden),
+                self.target_token.expand(n, 1, self.hidden))
+
+    def _mpos(self, length: int, like: torch.Tensor) -> torch.Tensor:
+        return _pos1d(self.hidden, length).to(like)
+
+    def _pair(self, source, target) -> torch.Tensor:
+        """[source token, source, target token, target] + 1-D positions."""
+        s_tok, t_tok = self._tokens(source.shape[0])
+        motion = torch.cat([s_tok, self.motion_patch_embed(source), t_tok,
+                            self.motion_patch_embed(target)], dim=1)
+        return motion + self._mpos(motion.shape[1], motion)
+
+    def _decoupled(self, run, img, camera_target, camera_source,
+                   object_source, camera_until: int, object_from: int,
+                   num_layers: int) -> torch.Tensor:
+        """``decouple``: the camera stream ([source token, source, target
+        token, target], or [target token, target] without a source) through
+        layers [0, ``camera_until``), then, with an object stream, the
+        object stream through [``object_from``, L) with the camera pass's
+        special tokens; ``run(layers, motion, img)`` runs layers. The object
+        target is built from the object source, as the reference builds it
+        (kept for the behaviour of its checkpoints). Returns the image
+        tokens."""
+        l = camera_target.shape[1]
+        msl = 2 * l + 2
+        mpos = self._mpos(msl, img)
+        s_tok, t_tok = self._tokens(img.shape[0])
+        cam_tgt = self.motion_patch_embed(camera_target)
+        if camera_source is not None:
+            cam = torch.cat([s_tok, self.motion_patch_embed(camera_source),
+                             t_tok, cam_tgt], dim=1) + mpos
+        else:
+            cam = torch.cat([t_tok, cam_tgt], dim=1) + mpos[:, :l + 1]
+        if object_source is None:
+            return run(range(num_layers), cam, img)[1]
+        obj_src = self.motion_patch_embed(object_source) + mpos[:, 1:l + 1]
+        obj_tgt = obj_src + mpos[:, l + 2:msl]
+        motion, img = run(range(min(camera_until, num_layers)), cam, img)
+        if camera_source is not None:
+            s_tok, t_tok = motion[:, 0:1], motion[:, l + 1:l + 2]
+        else:
+            t_tok = motion[:, 0:1]
+        motion = torch.cat([s_tok, obj_src, t_tok, obj_tgt], dim=1)
+        return run(range(min(object_from, num_layers), num_layers), motion,
+                   img)[1]
+
+
+def sum_streams(a, b):
+    """The camera and object streams summed; either may be None (the
+    refimg-motion path carries its tokens in one stream)."""
+    if a is None or b is None:
+        return b if a is None else a
+    check_token_counts(a.shape[1], b.shape[1])
+    return a + b
+
+
+class VelocityDiT(_MotionTokenDiT):
+    """One joint block a layer over the motion and image tokens (the
+    dual-encoder ``default`` DiT). ``plus`` sums the camera and object
+    streams (either may ride alone); ``decouple`` runs the camera stream
+    through layers [0, ``camera_layers``) and the object stream, which
+    takes the camera pass's special tokens, through [``object_from``, L):
+    the reference's layer ranges, which overlap."""
+
+    def __init__(self, heads: int = 20, head_dim: int = 64,
+                 out_channels: int = 4, num_layers: int = 12,
+                 image_height: int = 32, image_width: int = 32,
+                 image_patch_size: int = 2, image_in_channels: int = 4,
+                 motion_in_channels: int = 128, time_embed_dim: int = 512,
+                 motion_type: str = "decouple", camera_layers: int = 8,
+                 object_from: int = 6, remat: bool = False,
+                 remat_policy: str = "full"):
+        super().__init__(heads, head_dim, out_channels, image_height,
+                         image_width, image_patch_size, image_in_channels,
+                         motion_in_channels, time_embed_dim, 1, remat,
+                         remat_policy)
+        self.motion_type = motion_type
+        self.camera_layers, self.object_from = camera_layers, object_from
+        self.transformer_blocks = self._blocks(JointTransformerBlock,
+                                               num_layers)
+        self._build_head()
+
+    def forward(self, camera_motion_target, image_hidden_states, timestep,
+                camera_motion_source=None, object_motion_source=None,
+                object_motion_target=None):
+        hi, wi = image_hidden_states.shape[-2:]
+        l = camera_motion_target.shape[1]
+        if object_motion_source is not None:
+            check_token_counts(l, object_motion_source.shape[1])
+        emb = self.time_embedding(timestep)
+        img = self.image_patch_embed(image_hidden_states) + self.pos2d
+        blocks = self.transformer_blocks
+
+        def run(layers, motion, img):
+            for i in layers:
+                motion, img = self._run_layer(blocks[i], motion, img, emb)
+            return motion, img
+
+        if self.motion_type == "plus":
+            motion = self._pair(sum_streams(camera_motion_source,
+                                            object_motion_source),
+                                sum_streams(camera_motion_target,
+                                            object_motion_target))
+            img = run(range(len(blocks)), motion, img)[1]
+        else:
+            img = self._decoupled(run, img, camera_motion_target,
+                                  camera_motion_source, object_motion_source,
+                                  self.camera_layers, self.object_from,
+                                  len(blocks))
+        return self._head(img, emb, hi, wi)
+
+
+class VelocityDiTImgSpatial(_MotionTokenDiT):
+    """A joint block and a per-pixel temporal ``DiTBlock`` a layer, the
+    image tokens carrying frame positions (the dual-encoder ``spatial``
+    DiT). ``plus`` feeds the object tokens only, as the reference does;
+    ``decouple`` runs the camera stream through layers [0,
+    ``camera_until``) and the object stream through [``object_from``,
+    L)."""
+
+    def __init__(self, heads: int = 20, head_dim: int = 64,
+                 out_channels: int = 4, num_layers: int = 12,
+                 image_height: int = 32, image_width: int = 32,
+                 image_patch_size: int = 2, image_in_channels: int = 4,
+                 motion_in_channels: int = 128, time_embed_dim: int = 512,
+                 motion_type: str = "plus", motion_target_num_frame: int = 16,
+                 camera_until: int = 6, object_from: int = 6,
+                 remat: bool = False, remat_policy: str = "full"):
+        super().__init__(heads, head_dim, out_channels, image_height,
+                         image_width, image_patch_size, image_in_channels,
+                         motion_in_channels, time_embed_dim,
+                         motion_target_num_frame, remat, remat_policy)
+        self.motion_type = motion_type
+        self.camera_until, self.object_from = camera_until, object_from
+        self.transformer_blocks = self._blocks(JointTransformerBlock,
+                                               num_layers)
+        self.spatial_blocks = self._blocks(DiTBlock, num_layers)
+        self._build_head()
+
+    def _layer(self, i, motion, img, emb, emb_s):
+        """Layer i: the joint block, then the per-pixel temporal block."""
+        n_t, s, hidden = img.shape
+        t = self.frames
+        n = n_t // t
+        motion, img = self.transformer_blocks[i](motion, img, emb)
+        img = img.reshape(n, t, s, hidden).transpose(1, 2).reshape(
+            n * s, t, hidden)
+        img = self.spatial_blocks[i](img, emb_s)
+        img = img.reshape(n, s, t, hidden).transpose(1, 2).reshape(
+            n_t, s, hidden)
+        return motion, img
+
+    def forward(self, camera_motion_target, image_hidden_states, timestep,
+                camera_motion_source=None, object_motion_source=None,
+                object_motion_target=None):
+        n_t, _, hi, wi = image_hidden_states.shape
+        n = n_t // self.frames
+        s = hi * wi // self.patch ** 2
+        l = camera_motion_target.shape[1]
+        if object_motion_source is not None:
+            check_token_counts(l, object_motion_source.shape[1])
+        num_layers = len(self.spatial_blocks)
+        emb = self.time_embedding(timestep)
+        emb_s = emb.reshape(n, self.frames, -1)[:, 0:1, :].expand(
+            n, s, emb.shape[-1]).reshape(n * s, -1)
+        img = self._image_tokens(image_hidden_states)
+
+        def run(layers, motion, img):
+            for i in layers:
+                motion, img = self._run_layer(self._layer, i, motion, img,
+                                              emb, emb_s)
+            return motion, img
+
+        if self.motion_type == "plus":
+            # the reference feeds the object tokens only here
+            motion = self._pair(object_motion_source, object_motion_target)
+            img = run(range(num_layers), motion, img)[1]
+        else:
+            img = self._decoupled(run, img, camera_motion_target,
+                                  camera_motion_source, object_motion_source,
+                                  self.camera_until, self.object_from,
+                                  num_layers)
+        return self._head(img, emb, hi, wi)
+
+
+class VelocityDiTDualStream(_MotionTokenDiT):
+    """A ``MotionTemporalBlock`` over each clip's T * (2L + 2) motion
+    tokens (AdaLN on the clip's first-frame timestep embedding), then a
+    joint block over each frame's motion and image tokens, a layer (the
+    dual-encoder ``dual`` DiT). Its special tokens start from N(0, 0.02)."""
+
+    def __init__(self, heads: int = 20, head_dim: int = 64,
+                 out_channels: int = 4, num_layers: int = 12,
+                 image_height: int = 32, image_width: int = 32,
+                 image_patch_size: int = 2, image_in_channels: int = 4,
+                 motion_in_channels: int = 128, time_embed_dim: int = 512,
+                 motion_target_num_frame: int = 16, remat: bool = False,
+                 remat_policy: str = "full"):
+        super().__init__(heads, head_dim, out_channels, image_height,
+                         image_width, image_patch_size, image_in_channels,
+                         motion_in_channels, time_embed_dim,
+                         motion_target_num_frame, remat, remat_policy,
+                         token_init="normal")
+        self.motion_blocks = nn.ModuleList(
+            [MotionTemporalBlock(self.hidden, heads, head_dim,
+                                 use_adaln=True, cond_dim=time_embed_dim)
+             for _ in range(num_layers)])
+        self.transformer_blocks = self._blocks(JointTransformerBlock,
+                                               num_layers)
+        self._build_head()
+
+    def _layer(self, i, motion, img, emb, emb_m):
+        n_t, hidden = img.shape[0], self.hidden
+        n = n_t // self.frames
+        motion = self.motion_blocks[i](motion, emb_m)
+        motion, img = self.transformer_blocks[i](
+            motion.reshape(n_t, -1, hidden), img, emb)
+        return motion.reshape(n, -1, hidden), img
+
+    def forward(self, motion_source, motion_target, image_hidden_states,
+                timestep):
+        n_t, _, hi, wi = image_hidden_states.shape
+        t = self.frames
+        n = n_t // t
+        emb = self.time_embedding(timestep)
+        emb_m = emb.reshape(n, t, -1)[:, 0]
+        img = self.image_patch_embed(image_hidden_states) + self.pos2d
+        motion = self._pair(motion_source, motion_target)
+        motion = motion.reshape(n, -1, self.hidden)
+        motion = motion + self._mpos(motion.shape[1], motion)
+        for i in range(len(self.transformer_blocks)):
+            motion, img = self._run_layer(self._layer, i, motion, img, emb,
+                                          emb_m)
+        return self._head(img, emb, hi, wi)
+
+
+class ReconstructionDiT(nn.Module):
+    """Timestep-free reconstruction transformer of ``AMDModelRec``:
+    self-attention blocks over [image patches, source token, source motion,
+    target token, target motion], a LayerNorm and a projection of the
+    image tokens. ``split`` embeds zi and zt with patch embeddings of their
+    own (``ReconstructionDiTSplit``): [zt patches, zi patches, motion]."""
+
+    def __init__(self, heads: int = 20, head_dim: int = 64,
+                 out_channels: int = 4, num_layers: int = 12,
+                 image_height: int = 32, image_width: int = 32,
+                 image_patch_size: int = 2, image_in_channels: int = 4,
+                 motion_in_channels: int = 128, split: bool = False):
+        super().__init__()
+        hidden = heads * head_dim
+        self.hidden, self.split = hidden, split
+        self.patch, self.out_channels = image_patch_size, out_channels
+        self.motion_patch_embed = nn.Linear(motion_in_channels, hidden)
+        if split:
+            self.zi_image_patch_embed = PatchEmbed(
+                image_patch_size, image_in_channels // 2, hidden)
+            self.zt_image_patch_embed = PatchEmbed(
+                image_patch_size, image_in_channels // 2, hidden)
+        else:
+            self.image_patch_embed = PatchEmbed(image_patch_size,
+                                                image_in_channels, hidden)
+        self.register_buffer("pos2d", _pos2d(hidden, image_height,
+                                             image_width, image_patch_size),
+                             persistent=False)
+        self.source_token = nn.Parameter(torch.zeros(1, 1, hidden))
+        self.target_token = nn.Parameter(torch.zeros(1, 1, hidden))
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(hidden, heads, head_dim)
+             for _ in range(num_layers)])
+        self.norm_final = nn.LayerNorm(hidden, eps=1e-5)
+        self.proj_out = nn.Linear(hidden, image_patch_size ** 2 * out_channels)
+
+    def forward(self, motion_source, motion_target, image_hidden_states):
+        n, ci, hi, wi = image_hidden_states.shape
+        hidden = self.hidden
+        motion = torch.cat(
+            [self.source_token.expand(n, 1, hidden),
+             self.motion_patch_embed(motion_source),
+             self.target_token.expand(n, 1, hidden),
+             self.motion_patch_embed(motion_target)], dim=1)
+        motion = motion + _pos1d(hidden, motion.shape[1]).to(motion)
+        if self.split:
+            zi = self.zi_image_patch_embed(image_hidden_states[:, :ci // 2])
+            zt = self.zt_image_patch_embed(image_hidden_states[:, ci // 2:])
+            img = [zt + self.pos2d, zi + self.pos2d]
+        else:
+            img = [self.image_patch_embed(image_hidden_states) + self.pos2d]
+        isl = img[0].shape[1]
+        x = torch.cat(img + [motion], dim=1)
+        for blk in self.transformer_blocks:
+            x = blk(x)
+        x = self.proj_out(self.norm_final(x[:, :isl]))
+        return unpatchify(x, hi, wi, self.patch, self.out_channels)

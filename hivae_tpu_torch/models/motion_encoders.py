@@ -4,6 +4,12 @@
     prepended to each frame's patch tokens, N self-attention layers, tokens
     projected out. At the flagship's 4 + 256 tokens its attention runs the
     full-block kernel.
+  * ``MotionEncoderSpatialTemporal`` - the dual-encoder ``AMDModel``'s
+    encoder: as the spatial one over cat(reference frames, target frames)
+    on T, and after each block a ``MotionTemporalBlock`` mixes each target
+    token over the target half's frames (S = T/2: plain attention). At
+    AMD_S widths each block attends over 12 + 256 tokens (full-block
+    kernel).
   * ``MotionEncoderTemporalCross`` - camera branch: per-site temporal
     query tokens cross-attend to the per-pixel temporal tubes (S = frames).
   * ``MotionSequenceTransformer`` - self-attention over a clip's flattened
@@ -26,7 +32,8 @@ import torch
 from torch import nn
 
 from ..ops import embeddings as emb_ops
-from .blocks import BasicCrossTransformerBlock, BasicTransformerBlock, PatchEmbed
+from .blocks import (BasicCrossTransformerBlock, BasicTransformerBlock,
+                     MotionTemporalBlock, PatchEmbed)
 
 
 def _table(arr) -> torch.Tensor:
@@ -128,6 +135,84 @@ class MotionEncoderSpatial(nn.Module):
         mtok = self.norm_final(hstate[:, :self.motion_token_num])
         mtok = self.norm_out(self.proj_out(mtok))
         return mtok.reshape(n, t, self.motion_token_num, self.motion_channel)
+
+
+class MotionEncoderSpatialTemporal(nn.Module):
+    """(N, 2T', C, H, W) = cat(reference frames, target frames) on T ->
+    motion tokens (N, 2T', L, motion_channel). The target half's tokens
+    carry a 1-D position over ``video_frames * L`` entries, and each
+    self-attention block is followed by a ``MotionTemporalBlock`` over the
+    target half's frames, one sequence a token."""
+
+    def __init__(self, img_height: int = 32, img_width: int = 32,
+                 img_inchannel: int = 4, img_patch_size: int = 2,
+                 motion_token_num: int = 12, motion_channel: int = 128,
+                 need_norm_out: bool = True, video_frames: int = 16,
+                 heads: int = 12, head_dim: int = 64, num_layers: int = 8):
+        super().__init__()
+        hidden = heads * head_dim
+        self.hidden = hidden
+        self.motion_token_num, self.motion_channel = motion_token_num, motion_channel
+        self.motion_token = nn.Parameter(
+            0.02 * torch.randn(1, motion_token_num, motion_channel))
+        self.motion_embed = nn.Linear(motion_channel, hidden)
+        self.patch_embed = PatchEmbed(img_patch_size, img_inchannel, hidden)
+        grid = (img_height // img_patch_size, img_width // img_patch_size)
+        self.register_buffer(
+            "pos", _table(emb_ops.get_2d_sincos_pos_embed(hidden, grid))[None],
+            persistent=False)
+        self.register_buffer(
+            "tpos", _table(emb_ops.get_1d_sincos_pos_embed(
+                hidden, video_frames * motion_token_num))[None],
+            persistent=False)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(hidden, heads, head_dim)
+             for _ in range(num_layers)])
+        self.motion_blocks = nn.ModuleList(
+            [MotionTemporalBlock(hidden, heads, head_dim)
+             for _ in range(num_layers)])
+        self.norm_final = nn.LayerNorm(hidden, eps=1e-5)
+        self.proj_out = nn.Linear(hidden, motion_channel)
+        self.norm_out = (nn.LayerNorm(motion_channel, eps=1e-5,
+                                      elementwise_affine=False)
+                         if need_norm_out else nn.Identity())
+
+    def forward(self, video: torch.Tensor,
+                mask_ratio: Optional[Union[float, torch.Tensor]] = None, *,
+                perm: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Masking as ``MotionEncoderSpatial``'s, over the patch tokens of
+        every frame (``perm``/``u`` (N*2T', patches))."""
+        n, t, c, h, w = video.shape
+        half, ltok, hidden = t // 2, self.motion_token_num, self.hidden
+        mtok = self.motion_embed(self.motion_token)[None].expand(
+            n, t, ltok, hidden)
+        src, tgt = mtok[:, :half], mtok[:, half:]
+        tgt = (tgt.reshape(n, half * ltok, hidden) +
+               self.tpos[:, :half * ltok]).reshape(n, half, ltok, hidden)
+        mtok = torch.cat([src, tgt], dim=1).reshape(n * t, ltok, hidden)
+        x = self.patch_embed(video.reshape(n * t, c, h, w)) + self.pos
+        key_mask = None
+        if torch.is_tensor(mask_ratio):
+            x, keep = shuffle_mask_tokens(x, mask_ratio, perm=perm,
+                                          generator=generator)
+            key_mask = torch.cat(
+                [torch.ones((n * t, ltok), dtype=torch.bool,
+                            device=x.device), keep], dim=1)
+        elif mask_ratio is not None:
+            x = random_mask_tokens(x, mask_ratio, u=u, generator=generator)
+        hstate = torch.cat([mtok, x], dim=1)
+        for blk, temporal in zip(self.transformer_blocks, self.motion_blocks):
+            hstate = blk(hstate, key_mask)
+            mtok = hstate[:, :ltok].reshape(n, t, ltok, hidden)
+            src, tgt = mtok[:, :half], mtok[:, half:]
+            tt = tgt.transpose(1, 2).reshape(n * ltok, half, hidden)
+            tgt = temporal(tt).reshape(n, ltok, half, hidden).transpose(1, 2)
+            mtok = torch.cat([src, tgt], dim=1).reshape(n * t, ltok, hidden)
+            hstate = torch.cat([mtok, hstate[:, ltok:]], dim=1)
+        mtok = self.norm_out(self.proj_out(self.norm_final(hstate[:, :ltok])))
+        return mtok.reshape(n, t, ltok, self.motion_channel)
 
 
 class MotionEncoderTemporalCross(nn.Module):

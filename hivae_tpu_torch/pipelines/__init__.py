@@ -1,5 +1,7 @@
-from .pipeline import (AMDCrossVideoPipeline, AMDReconstructionPipeline,
-                       GTMotionAblationPipeline, reconstruct_clip)
+from .pipeline import (AMDCrossVideoPipeline, AMDDiffMotionPipeline,
+                       AMDReconstructionPipeline, GTMotionAblationPipeline,
+                       reconstruct_clip)
 
-__all__ = ["AMDCrossVideoPipeline", "AMDReconstructionPipeline",
-           "GTMotionAblationPipeline", "reconstruct_clip"]
+__all__ = ["AMDCrossVideoPipeline", "AMDDiffMotionPipeline",
+           "AMDReconstructionPipeline", "GTMotionAblationPipeline",
+           "reconstruct_clip"]

@@ -1,17 +1,21 @@
 """Inference pipelines (port of the AMD pipelines of
 ``hivae_tpu/pipelines/pipeline.py``): clip reconstruction, windowed
-long-video reconstruction, cross-video motion transfer and the GT-motion
-ablation.
+long-video reconstruction, cross-video motion transfer, the diff-motion
+reconstruction (camera motion from another clip; the dual-encoder
+``AMDModel`` only) and the GT-motion ablation.
 
 Each pipeline has two entries per path. The file entry (``sample``,
-``sample_long``, ``sample_cross``, ``reconstruct``) reads an mp4 on the host
-(``data/video.py``, OpenCV), runs the device half and writes an mp4 when
-given a path. The device half (``sample_pixels``, ``sample_long_pixels``,
-``sample_cross_pixels``, ``reconstruct_pixels``) takes (F+1, 3, H, W) pixels
-in [-1, 1], frame 0 the reference, and returns the uint8 clip on the
-models' device: SD-VAE encode, AMD motion extraction and ODE decode, SD-VAE
-decode. ``quant="int8"`` serves the ODE loop's DiT and the VAE decode in
-w8a8 (``ops/quant.py``).
+``sample_long``, ``sample_cross``, ``sample_diff``, ``reconstruct``) reads
+an mp4 on the host (``data/video.py``, OpenCV), runs the device half and
+writes an mp4 when given a path. The device half (``sample_pixels``,
+``sample_long_pixels``, ``sample_cross_pixels``, ``sample_diff_pixels``,
+``reconstruct_pixels``) takes (F+1, 3, H, W) pixels in [-1, 1], frame 0 the
+reference, and returns the uint8 clip on the models' device: SD-VAE
+encode, AMD motion extraction and ODE decode, SD-VAE decode. The models
+are ``AMDModelNew`` or ``AMDModel`` (the reconstruction, long-video and
+GT-motion paths take either; the dual-encoder model reads one mask ratio,
+the camera one). ``quant="int8"`` serves the ODE loop's DiT and the VAE
+decode in w8a8 (``ops/quant.py``).
 
 Randomness comes from ``generator``: a ``torch.Generator`` on the models'
 device, or ``models.amd.SampleDraws`` to replay draws made elsewhere. A
@@ -36,7 +40,7 @@ from ..ops import quant as quant_ops
 QUANT_SCOPES = {"dit": ("diffusion_transformer",), "vae": ("decoder",)}
 
 
-def _dtype(amd: amd_mod.AMDModelNew) -> torch.dtype:
+def _dtype(amd) -> torch.dtype:
     return amd.diffusion_transformer.proj_out.weight.dtype
 
 
@@ -106,6 +110,30 @@ def cross_clip(vae: vae_mod.AutoencoderKL, amd: amd_mod.AMDModelNew,
 
 
 @torch.no_grad()
+def diff_motion_clip(vae: vae_mod.AutoencoderKL, amd: amd_mod.AMDModel,
+                     pixels: torch.Tensor, grey: Optional[torch.Tensor],
+                     camera_pixels: torch.Tensor,
+                     generator: amd_mod.DrawSource = None,
+                     sample_step: int = 20, *, quant_table=None,
+                     vae_quant_table=None) -> torch.Tensor:
+    """Reconstruction of ``pixels`` (F+1, 3, H, W) with the camera stream's
+    motion taken from ``camera_pixels`` (the camera clip's grey frames for a
+    ``use_grey`` model) -> (F+1, 3, H, W) uint8. Encodes: the subject, its
+    grey clip (``use_grey``), the camera clip; one decode."""
+    _grey_needed(amd, grey)
+    ref, gt = _encode(vae, amd, pixels)
+    gref, ggt = _encode(vae, amd, grey) if amd.cfg.use_grey else (ref, gt)
+    _, cam = _encode(vae, amd, camera_pixels)
+    _, video_pre, _ = amd_mod.sample_diff_motion(
+        amd, gt, ref.expand(gt.shape), video_grey=ggt,
+        ref_img_grey=gref.expand(gt.shape), camera_video_grey=cam,
+        sample_step=sample_step, generator=generator,
+        quant_table=quant_table)
+    result = torch.cat([ref, video_pre], dim=1)
+    return vae_mod.vae_decode_rgb(vae, result, quant_table=vae_quant_table)[0]
+
+
+@torch.no_grad()
 def long_recon_window(amd: amd_mod.AMDModelNew, cur_gt, prev_img,
                       grey_cur_gt=None, grey_prev_img=None, *,
                       sample_step: int, mask_ratio: Optional[float] = None,
@@ -115,7 +143,8 @@ def long_recon_window(amd: amd_mod.AMDModelNew, cur_gt, prev_img,
     """One W-frame window of the long-video reconstruction: the targets
     ``cur_gt`` (N, W, C, h, w) reconstructed from ``prev_img`` (N, C, h, w)
     as the reference frame (zeroed by ``drop_prev_img``); ``mask_ratio``
-    masks both motion encoders. Returns the window's latents."""
+    masks both motion encoders (the dual-encoder model's one ratio).
+    Returns the window's latents."""
     ref = prev_img[:, None].expand(cur_gt.shape)
     if drop_prev_img:
         ref = torch.zeros_like(ref)
@@ -345,6 +374,44 @@ class AMDCrossVideoPipeline(AMDReconstructionPipeline):
                           self._tensor(pix2), self._tensor(grey1), generator,
                           video_sample_step, quant_table=self.quant_table,
                           vae_quant_table=self.vae_quant_table)
+
+
+class AMDDiffMotionPipeline(AMDReconstructionPipeline):
+    """Reconstruct ``video_path`` with the camera stream's motion taken from
+    ``camera_video_path`` (``models.amd.sample_diff_motion``; the
+    dual-encoder ``AMDModel`` only)."""
+
+    def __init__(self, vae, amd, *args, **kw):
+        if not isinstance(amd, amd_mod.AMDModel):
+            raise TypeError("AMDDiffMotionPipeline needs the dual-encoder "
+                            "AMDModel (AMD_S or AMD_L), not "
+                            f"{type(amd).__name__}")
+        super().__init__(vae, amd, *args, **kw)
+
+    def sample_diff(self, video_path: str, camera_video_path: str,
+                    output_path: Optional[str] = None,
+                    video_sample_step: int = 20, fps: int = 8,
+                    generator: amd_mod.DrawSource = None) -> np.ndarray:
+        """window+1 frames of each video sampled at ``fps``; the camera
+        clip's grey frames drive a ``use_grey`` model's camera stream, its
+        RGB frames any other's."""
+        pixels, grey = self._load_clip(video_path, fps)
+        cam_pixels, cam_grey = self._load_clip(camera_video_path, fps)
+        out = self.sample_diff_pixels(
+            pixels, grey, cam_pixels if cam_grey is None else cam_grey,
+            video_sample_step, generator)
+        return self._finish(out, output_path, fps)
+
+    def sample_diff_pixels(self, pixels, grey, camera_pixels,
+                           video_sample_step: int = 20,
+                           generator: amd_mod.DrawSource = None
+                           ) -> torch.Tensor:
+        """The device half of ``sample_diff`` (``diff_motion_clip``)."""
+        return diff_motion_clip(
+            self.vae, self.amd, self._tensor(pixels), self._tensor(grey),
+            self._tensor(camera_pixels), generator, video_sample_step,
+            quant_table=self.quant_table,
+            vae_quant_table=self.vae_quant_table)
 
 
 class GTMotionAblationPipeline(_Serving):

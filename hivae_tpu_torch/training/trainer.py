@@ -114,22 +114,35 @@ class TrainConfig:
 @dataclasses.dataclass
 class StepDraws:
     """The random draws of one step: the posterior noise of each VAE
-    encode (keyed as the batch) and the model forward's draws."""
+    encode (keyed as the batch) and the model forward's draws (with the KL
+    posterior noises of a dual-encoder model)."""
 
     posterior: Dict[str, torch.Tensor]
     model: amd_mod.TrainDraws
 
 
 class AMDTrainer:
-    """Trains an ``AMDModelNew`` (fp32 parameters) against a frozen VAE on
-    batches of pixel clips: dicts with ``videos`` and ``ref_img``
-    (N, T, 3, H, W) in [-1, 1], plus ``grey_videos`` and ``ref_grey_img``
-    when the model's config has ``use_grey`` and the latent-resolution
-    ``camera_mask`` (N, 2T, C, h, w) when it has ``use_mask``."""
+    """Trains an ``AMDModelNew`` or a dual-encoder ``AMDModel`` (fp32
+    parameters) against a frozen VAE on batches of pixel clips: dicts with
+    ``videos`` and ``ref_img`` (N, T, 3, H, W) in [-1, 1], plus
+    ``grey_videos`` and ``ref_grey_img`` when the model's config has
+    ``use_grey`` and the latent-resolution ``camera_mask`` (N, 2T, C, h, w)
+    when it has ``use_mask``. As in the JAX package, the mask ratios reach
+    ``AMDModelNew`` only, and an ``AMDModel`` with ``use_regularizers``
+    draws its KL posterior noises each step (``KLloss`` in the metrics).
+    ``AMDModelRec`` is refused: its forward takes no timestep draws and no
+    ``return_meta_info``, so the JAX trainer cannot run it either."""
 
-    def __init__(self, model: amd_mod.AMDModelNew, vae: vae_mod.AutoencoderKL,
+    def __init__(self, model, vae: vae_mod.AutoencoderKL,
                  config: TrainConfig, lpips=None, tb_writer=None,
                  mesh: Optional[Mesh] = None):
+        if not isinstance(model, (amd_mod.AMDModelNew, amd_mod.AMDModel)):
+            raise TypeError(
+                f"AMDTrainer trains AMDModelNew or AMDModel, not "
+                f"{type(model).__name__}: AMDModelRec (AMD_S_Rec, "
+                f"AMD_S_RecSplit) has a forward and a loss only, without "
+                f"the timestep draws and return_meta_info the step passes, "
+                f"as in the JAX package's trainer")
         bad = [n for n, p in model.named_parameters()
                if p.dtype != torch.float32]
         if bad:
@@ -142,6 +155,7 @@ class AMDTrainer:
             raise ValueError(f"transfer_dtype {config.transfer_dtype!r}")
         self.model, self.vae, self.lpips, self.config = (model, vae, lpips,
                                                          config)
+        self._dual = isinstance(model, amd_mod.AMDModel)
         self.tb = tb_writer
         self._profiler = None
         self.device = next(model.parameters()).device
@@ -212,14 +226,20 @@ class AMDTrainer:
             return torch.argsort(noise, dim=1, stable=True)
 
         d = amd_mod.TrainDraws()
-        if cfg.camera_mask_ratio is not None:
-            d.camera_u = uniform()
-        if cfg.object_mask_ratio is not None:
-            d.object_u = uniform()
-        if cfg.camera_mask_ratio is not None:
-            d.camera_perm = perm(n, amd_mod.camera_sites(grid, mcfg))
-        if cfg.object_mask_ratio is not None:
-            d.object_perm = perm(n * 2 * t, sites)
+        if self._dual:
+            if mcfg.use_regularizers:
+                d.object_kl, d.camera_kl = (
+                    torch.randn(shape, generator=gen, device=self.device)
+                    for shape in self.model.kl_shapes(n, t))
+        else:
+            if cfg.camera_mask_ratio is not None:
+                d.camera_u = uniform()
+            if cfg.object_mask_ratio is not None:
+                d.object_u = uniform()
+            if cfg.camera_mask_ratio is not None:
+                d.camera_perm = perm(n, amd_mod.camera_sites(grid, mcfg))
+            if cfg.object_mask_ratio is not None:
+                d.object_perm = perm(n * 2 * t, sites)
         d.time_step = amd_mod.draw_time_steps(mcfg, n, t, gen, self.device)
         d.z0 = torch.randn(lat, generator=gen, device=self.device)
         return StepDraws(posterior, d)
@@ -296,7 +316,8 @@ class AMDTrainer:
                    for k in draws.posterior}
         use_lpips = cfg.perceptual_weight > 0 and self.lpips is not None
         ratio = {}
-        for name in ("camera_mask_ratio", "object_mask_ratio"):
+        for name in () if self._dual else ("camera_mask_ratio",
+                                            "object_mask_ratio"):
             r = getattr(cfg, name)
             ratio[name] = None if r is None else torch.tensor(
                 r, dtype=torch.float32, device=self.device)

@@ -39,6 +39,7 @@ _RULES: List[Tuple[str, str]] = [
     (r"\bobject_blocks_(\d+)\b", r"object_transformer_blocks.\1"),
     (r"\bcamera_blocks_(\d+)\b", r"camera_transformer_blocks.\1"),
     (r"\bspatial_blocks_(\d+)\b", r"spatial_blocks.\1"),
+    (r"\bmotion_blocks_(\d+)\b", r"motion_blocks.\1"),
     (r"\bresnets_(\d+)\b", r"resnets.\1"),
     (r"\battentions_(\d+)\b", r"attentions.\1"),
     (r"\bdownsamplers_(\d+)\b", r"downsamplers.\1"),

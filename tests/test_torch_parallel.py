@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import __graft_entry__ as graft
+from hivae_tpu.models import amd as jamd
 from hivae_tpu.parallel import create_mesh as jax_create_mesh
 from hivae_tpu.parallel import sharding as jshard
 from hivae_tpu_torch.models import amd as tamd
@@ -102,7 +103,31 @@ def tiny_paths():
     ((2, 2, 2), 2 ** 16), ((1, 8, 1), 2 ** 16), ((1, 2, 1), 2 ** 10),
     ((1, 1, 4), 2 ** 10), ((2, 2, 2), 2 ** 8)])
 def test_infer_param_sharding_matches_jax(tiny_paths, shape, min_size):
-    paths, port = tiny_paths
+    _rule_matches_jax(*tiny_paths, shape, min_size)
+
+
+def test_infer_param_sharding_matches_jax_on_amd_s_tiny():
+    """The dual-encoder AMDModel (the pair-temporal encoders' motion
+    blocks, the KL maps, the dual-stream DiT's temporal motion blocks) at
+    the tiny widths, one mesh."""
+    from test_torch_amd_family import TINY
+
+    jmod = jamd.AMDModel(cfg=jamd.AMDConfig(
+        **TINY, use_filter=True, use_regularizers=True,
+        diffusion_model_type="dual"))
+    v = jnp.zeros((1, 4, 4, 16, 16))
+    key = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda: jmod.init(
+        {"params": key, "noise": key, "noise_kl": key}, v, v))
+    leaves = jax.tree_util.tree_flatten_with_path(shapes)[0]
+    model = tamd.AMDModel(tamd.AMDConfig.from_dict(jmod.cfg.to_dict()),
+                          device="meta")
+    port = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    _rule_matches_jax([(jshard._path_str(kp), tuple(x.shape))
+                       for kp, x in leaves], port, (1, 2, 1), 2 ** 10)
+
+
+def _rule_matches_jax(paths, port, shape, min_size):
     jmesh = jax_create_mesh(shape)
     tmesh_shape = dict(zip(tmesh.AXES, shape))
     sharded = 0

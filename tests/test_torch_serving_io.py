@@ -206,6 +206,26 @@ def serving_files(amd, tiny_vae, tmp_path_factory):
     return d
 
 
+@pytest.fixture(scope="module")
+def dual_files(tiny_vae, serving_files, tmp_path_factory):
+    """config.json and a trainer checkpoint of a tiny dual-encoder
+    AMDModel (``test_torch_amd_family.TINY``, grey and band filters on,
+    the spatial DiT), beside ``serving_files``' videos and VAE."""
+    from test_torch_amd_family import TINY
+
+    d = tmp_path_factory.mktemp("dual_cli")
+    cfg = tamd.AMDConfig(**dict(TINY, video_frames=W), use_filter=True,
+                         use_grey=True, diffusion_model_type="spatial")
+    with open(d / "config.json", "w") as f:
+        json.dump(cfg.to_dict(), f)
+    torch.manual_seed(5)
+    AMDTrainer(tamd.AMDModel(cfg, device="cpu"), tiny_vae, TrainConfig(
+        output_dir=str(d / "run"), mixed_precision="no")).save()
+    for name in ("videos", "vae.safetensors"):
+        (d / name).symlink_to(serving_files / name)
+    return d
+
+
 def _model_args(files, ckpt="run/checkpoints", *extra):
     return ["--amd_config", str(files / "config.json"),
             "--amd_ckpt", str(files / ckpt),
@@ -267,10 +287,16 @@ def test_amd_inference_cli(serving_files, tiny_cli_vae, no_safetensors_package,
     assert got.shape == (frames, SIZE, SIZE, 3)
 
 
-def test_cli_refuses_unported_models_and_orbax(serving_files, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 #6"):
-        amd_inference.main(_model_args(serving_files) + [
-            "--model_type", "AMD_S", "--video_dir", str(tmp_path)])
+def test_cli_refuses_unported_models_and_orbax(dual_files, serving_files,
+                                               tiny_cli_vae, tmp_path):
+    """``--model_type AMD_S`` serves the dual-encoder AMDModel's checkpoint
+    (the one mp4 written, the broken file reported); an Orbax checkpoint is
+    refused."""
+    out = tmp_path / "dual"
+    assert amd_inference.main(_model_args(dual_files) + [
+        "--model_type", "AMD_S", "--video_dir", str(dual_files / "videos"),
+        "--output_dir", str(out), "--sample_step", "1"]) == 1
+    assert tvio.video_metadata(str(out / "a_recon.mp4"))[0] == W + 1
     orbax = tmp_path / "orbax" / "checkpoint-5"
     orbax.mkdir(parents=True)
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")
@@ -279,16 +305,26 @@ def test_cli_refuses_unported_models_and_orbax(serving_files, tmp_path):
             "--video_dir", str(tmp_path)])
 
 
-def test_amd_inference_single_cli(serving_files, tiny_cli_vae, tmp_path):
+def test_amd_inference_single_cli(serving_files, dual_files, tiny_cli_vae,
+                                  tmp_path):
+    """The cross clip on AMD_N; ``--diff_motion`` on the dual-encoder
+    AMDModel (``--model_type AMD_S``) writes the diff-motion mp4 (video 2
+    the subject, video 1 the camera source) and is refused on AMD_N, as
+    the JAX CLI refuses it."""
     out = str(tmp_path / "cross.mp4")
     vid = str(serving_files / "videos" / "a.mp4")
-    args = _model_args(serving_files) + [
-        "--video_path_1", vid, "--video_path_2", vid, "--output_path", out,
-        "--sample_step", "1"]
-    assert amd_inference_single.main(args) == 0
+    args = ["--video_path_1", vid, "--video_path_2", vid, "--output_path",
+            out, "--sample_step", "1"]
+    assert amd_inference_single.main(_model_args(serving_files) + args) == 0
     assert tvio.video_metadata(out)[0] == W + 1
     with pytest.raises(SystemExit, match="dual-encoder AMDModel"):
-        amd_inference_single.main(args + ["--diff_motion"])
+        amd_inference_single.main(_model_args(serving_files) + args +
+                                  ["--diff_motion"])
+    out = str(tmp_path / "diff.mp4")
+    args[args.index("--output_path") + 1] = out
+    assert amd_inference_single.main(_model_args(dual_files) + args + [
+        "--model_type", "AMD_S", "--diff_motion"]) == 0
+    assert tvio.video_metadata(out)[0] == W + 1
 
 
 def test_extract_motion_cli_chunks(amd, serving_files, tiny_cli_vae,
