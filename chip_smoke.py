@@ -19,7 +19,8 @@ Phases (any failure exits non-zero without the final result line):
    forward at the serving shape and check-only cases (a fully masked key
    row, D 64 and 256); the int8 fused FFN-up + GELU + requantise kernel at
    the three FFN row counts of the int8 clip and check-only cases (M 1, 70
-   and a ragged 200, N 8192 past one portable cluster), with its
+   and a ragged 200, N 8192 past one portable cluster, and M 68, the A2M
+   head's rows, which must give its plain version's bits), with its
    epilogue's floor counted from its SASS; the backward kernels at every
    training shape for
    N = 4 and N = 1 clips, plus masked cases; the streaming backward (its
@@ -80,7 +81,31 @@ Phases (any failure exits non-zero without the final result line):
    the flagship config, both equal to the live weights; where OpenCV
    imports, ``python -m hivae_tpu_torch.cli.amd_inference`` end to end on
    an mp4 written here (its frame count, shape and launches);
-   3b. (run after 3c-3i, since it strips the models' float weights) the int8
+   3m. audio to video (after 3i, on the same AMD_N and SD-VAE): the
+   flagship A2M head (``configs/a2m/cross_audio_t1d512_l16_dim1024.yaml``
+   with ``motion_num_token`` set to AMD_N's 4 object tokens, 361.2 M,
+   bf16, seeded random weights) and ``ImageAudio2VideoPipeline`` on a
+   seeded reference frame and a synthetic (41, 50, 384) whisper embedding
+   (two windows of 16 and a ragged tail of 8) at the CLI's 8 motion and 20
+   video steps: one warm-up and one timed run with exact launches (752
+   full-block: the object encoder on the 8 padded reference frames, then
+   a window each on its reference frame and 12 DiT joint blocks x 20
+   steps; 2 streaming; the A2M attentions stay plain and uncounted,
+   ``sdpa_plain`` 0), the windows' times (CUDA events) and the peak
+   device memory, against its run on the plain attention versions (phase
+   3's tolerances); one run with ``need_motion_extract_model`` (8 more
+   encoder launches a window after the first; window 0 bit-equal, later
+   windows moved); ``cli.get_whisper_emb`` on a synthetic mp4 and its
+   wav, then ``cli.a2v_inference`` end to end on reference-named
+   ``.safetensors`` of both models written here, with ``--audio_wav``:
+   the container read back (frames and size by OpenCV, an audio stream
+   in it) and exact launches at 2 steps; the shipped yaml as it is (1
+   token a frame) must end in the port's token-count ``ValueError``. After
+   3b, on the models built again from their seeds: the int8 A2V clip with
+   all three tables (DiT, VAE decoder, A2M; + 1824 fused FFN-up launches,
+   128 a window from the A2M head), against its run with the plain FFN-up
+   version and, as 3b, its run on all plain versions;
+   3b. (run after 3c-3i and 3m, since it strips the models' float weights) the int8
    clip through ``AMDReconstructionPipeline(vae, amd, quant="int8")`` on
    the same weights: 360 fused FFN-up launches (36 FFNs x 10 Euler steps),
    248 full-block and 3 streaming; uint8, finite before quantisation, and
@@ -275,6 +300,22 @@ FFN_CASES = [("DiT object joint", 16 * 266, 12 * SAMPLE_STEP),
              ("DiT camera joint", 16 * 512, 12 * SAMPLE_STEP),
              ("DiT per-pixel temporal", 256 * 16, 12 * SAMPLE_STEP)]
 FFN_K, FFN_N = 1024, 4096
+
+# phase 3m, audio to video: the flagship A2M head (the shipped yaml with
+# motion_num_token set to AMD_N's 4 object tokens) on a synthetic whisper
+# embedding of 41 frames (the reference's and 40 driven: two windows of 16
+# and a ragged tail), the CLI's step counts, 8 reference frames
+A2M_CONFIG = os.path.join(ROOT, "configs", "a2m",
+                          "cross_audio_t1d512_l16_dim1024.yaml")
+A2V_FRAMES = 41
+A2V_MOTION_STEPS, A2V_VIDEO_STEPS = 8, 20
+A2V_REF_FRAMES = 8
+A2V_FPS = 25
+WAV_RATE = 16000
+# the A2M FFN's rows: 4 tokens of the reference and of 16 frames
+A2M_FFN_ROWS = 4 * (WINDOW + 1)
+# the CLI leg's step counts (its launches exact at these)
+A2V_CLI_STEPS = 2
 
 # (name, q shape, launches per clip at sample_step=10)
 FULL_BLOCK_CASES = [
@@ -994,7 +1035,12 @@ FFN_CHECKS = [("one row", 1, FFN_N), ("70 rows", 70, FFN_N),
               ("200 rows (ragged)", 200, FFN_N),
               ("N 8192 (two column chunks)", 16 * 266, 2 * FFN_N),
               # the AMD_S int8 clip's DiT joint block (phase 3k)
-              ("AMD_S DiT joint, M 4512", 16 * 282, FFN_N)]
+              ("AMD_S DiT joint, M 4512", 16 * 282, FFN_N),
+              # the A2M head's FFNs on the int8 A2V path (phase 3m): the
+              # reference's and 16 frames' 4 tokens, held bit-equal
+              ("A2M joint, M 68", A2M_FFN_ROWS, FFN_N)]
+# check cases that must give the plain version's bits exactly
+FFN_EXACT = ("A2M joint, M 68",)
 # SASS opcodes by the pipe that issues them, for the epilogue's floor
 SASS_PIPES = {"fp32": ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL",
                        "FCHK"),
@@ -1090,6 +1136,10 @@ def check_quant_ffn(qf, failures, parent=None):
         rel_s = ((sy - wsy).abs() / wsy).max().item()
         want = wq.float() * wsy
         l2 = ((yq.float() * sy - want).norm() / want.norm()).item()
+        exact = label in FFN_EXACT
+        if exact and not (worst == 0 and torch.equal(sy, wsy)):
+            failures.append(f"fused_ffn_up_quant {label}: not bit-equal to "
+                            f"its plain version (max step {worst})")
         if not (worst <= FFN_MAX_STEP and off <= FFN_OFF_BY_ONE_SHARE
                 and rel_s <= FFN_SCALE_RTOL and l2 <= FFN_DEQUANT_RTOL):
             failures.append(f"fused_ffn_up_quant {label} M={m} N={n}: max "
@@ -1764,6 +1814,361 @@ def run_int8_clip(models, bf16_clip, bf16_latency, args, failures):
     if args.profile:
         profile_clip(pipe, clip, args.profile, "profile_clip_int8.txt")
     return launches, latency
+
+
+# -- audio to video (phase 3m) --------------------------------------------------
+
+
+def a2m_spec():
+    """The shipped flagship A2M spec {model_type, model}."""
+    from hivae_tpu_torch.cli import a2v_inference
+    return a2v_inference.load_spec(A2M_CONFIG)
+
+
+def build_a2m(tokens, seed=SEED + 40):
+    """The flagship A2M head with ``motion_num_token`` = ``tokens`` and no
+    other field changed, bf16 on the card, seeded random weights."""
+    import torch
+    from hivae_tpu_torch.cli import a2v_inference
+
+    spec = a2m_spec()
+    spec = dict(spec, model=dict(spec["model"], motion_num_token=tokens))
+    torch.manual_seed(seed)
+    t0 = time.perf_counter()
+    a2m = a2v_inference.build_a2m(spec, "cuda", torch.bfloat16).eval()
+    n = sum(p.numel() for p in a2m.parameters())
+    _log(f"  A2M head ({spec['model_type']}, motion_num_token {tokens}): "
+         f"{n / 1e6:.1f} M params, bf16, built in "
+         f"{time.perf_counter() - t0:.1f} s")
+    return a2m
+
+
+def a2v_inputs():
+    """The reference frame's pixels (3, 256, 256) in [-1, 1] and a
+    synthetic whisper embedding (A2V_FRAMES, 50, 384) from a numpy seed,
+    on the card."""
+    import numpy as np
+    import torch
+    spec = a2m_spec()["model"]
+    rng = np.random.RandomState(SEED + 41)
+    emb = rng.randn(A2V_FRAMES, spec["audio_block"],
+                    spec["audio_inchannel"]).astype(np.float32)
+    pixels = synthetic_clip(SEED + 42, 1)[0][0]
+    return torch.from_numpy(pixels).cuda(), torch.from_numpy(emb).cuda()
+
+
+def _a2v_launches(amd_cfg, a2m_cfg=None, frames=A2V_FRAMES - 1,
+                  video_steps=A2V_VIDEO_STEPS,
+                  motion_steps=A2V_MOTION_STEPS, extract=False,
+                  int8=False):
+    """Launches of one A2V run over ``frames`` driven frames: the object
+    encoder's layers (4 + 256 tokens) once on the 8 padded reference
+    frames, once a window on its reference frame and, with
+    ``need_motion_extract_model``, once more a window after the first on
+    the previous 8 generated latents; the DiT's object joint block (4 + 4
+    + 256 tokens) per layer and video step of each window (the camera
+    stream is off, the per-pixel temporal blocks' 16 tokens stay plain);
+    one streaming forward for the VAE encode of the reference frames and
+    one for the decode of the clip. The A2M head's attentions (68 tokens;
+    4 queries against 32 keys) stay plain and uncounted. In int8 the
+    fused FFN-up runs in each A2M block (self- and cross-attention) per
+    motion step and in the DiT's object joint and temporal blocks per
+    video step."""
+    enc, dit = amd_cfg.object_enc_num_layers, amd_cfg.diffusion_num_layers
+    windows = -(-frames // WINDOW)
+    out = dict(full_block_attention=enc + windows * (enc + dit * video_steps)
+               + extract * (windows - 1) * enc, stream_attention=2)
+    if int8:
+        out["fused_ffn_up_quant"] = windows * (
+            2 * a2m_cfg.diffusion_num_layers * motion_steps
+            + 2 * dit * video_steps)
+    return out
+
+
+class _window_times:
+    """CUDA events around each ``pipeline.a2v_window`` call: the windows'
+    device spans of the run inside, read after it synchronised."""
+
+    def __enter__(self):
+        import torch
+        from hivae_tpu_torch.pipelines import pipeline as pipe_mod
+        self.mod, self.fn, self.events = pipe_mod, pipe_mod.a2v_window, []
+
+        def timed(*a, **k):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = self.fn(*a, **k)
+            end.record()
+            self.events.append((start, end))
+            return out
+        pipe_mod.a2v_window = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.a2v_window = self.fn
+
+    def ms(self):
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def _has_audio(path):
+    """True when the container at ``path`` carries an audio stream: an
+    AVI's 'auds' stream header and its 01wb chunks, or an mp4's 'soun'
+    handler."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if path.endswith(".avi"):
+        return b"auds" in data and b"01wb" in data
+    return b"soun" in data
+
+
+def write_wav(path, seconds, seed=SEED + 43):
+    """A seeded 16 kHz 16-bit mono wav of ``seconds`` (a tone and noise)."""
+    import wave
+    import numpy as np
+    n = int(round(seconds * WAV_RATE))
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / WAV_RATE
+    pcm = (6000 * np.sin(2 * np.pi * 180 * t) + 2000 * rng.randn(n))
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(WAV_RATE)
+        w.writeframes(np.clip(pcm, -32768, 32767).astype("<i2").tobytes())
+
+
+def run_a2v(models, card, failures):
+    """Phase 3m (bf16, on phase 3's AMD_N and SD-VAE): the A2V clip through
+    ``ImageAudio2VideoPipeline.sample_pixels`` (one warm-up, one timed run
+    with exact launches and the windows' times, against its run on the
+    plain attention versions), one run with ``need_motion_extract_model``,
+    then the CLIs (``run_a2v_cli``). Returns {path: launches}."""
+    import torch
+    from hivae_tpu_torch.pipelines import ImageAudio2VideoPipeline
+
+    amd, vae = models
+    a2m = build_a2m(amd.cfg.object_motion_token_num)
+    pixels, emb = a2v_inputs()
+    shape = (A2V_FRAMES, 3, SIZE, SIZE)
+    paths = {}
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(SEED)
+
+    def pipe(**kw):
+        return ImageAudio2VideoPipeline(
+            vae, amd, a2m, window=WINDOW, a2m_ref_num_frame=A2V_REF_FRAMES,
+            sample_size=SIZE, **kw)
+
+    bf16 = pipe()
+
+    def run():
+        return bf16.sample_pixels(pixels, emb, A2V_MOTION_STEPS,
+                                  A2V_VIDEO_STEPS, gen())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with _window_times() as windows:
+        out, paths["a2v"], latency = _timed_path(
+            "A2V clip (bf16)", run, vae, shape, _a2v_launches(amd.cfg),
+            failures)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    win = windows.ms()[-3:]
+    _log(f"  A2V clip (bf16): {latency * 1e3:.2f} ms, "
+         f"{(A2V_FRAMES - 1) / latency:.2f} generated frames/s; windows "
+         f"(CUDA events) {' '.join(f'{w:.2f}' for w in win)} ms; peak "
+         f"device memory {peak:.2f} GiB (models included); {card}")
+    with _plain_kernels():
+        ref = run()
+    _clip_diff("A2V clip vs the same run on the plain attention versions",
+               out, ref, failures)
+    del ref
+
+    extract = pipe(need_motion_extract_model=True)
+    reex, paths["a2v_motion_extract"], _ = _timed_path(
+        "A2V clip, need_motion_extract_model", lambda: extract.sample_pixels(
+            pixels, emb, A2V_MOTION_STEPS, A2V_VIDEO_STEPS, gen()), vae,
+        shape, _a2v_launches(amd.cfg, extract=True), failures, warm=False)
+    # window 0 has no generated video to re-extract from: its frames (and
+    # the reference's) are the same run's; later windows differ
+    first = WINDOW + 1
+    same = torch.equal(reex[:first], out[:first])
+    moved, _ = _clip_diff("A2V clip with need_motion_extract_model vs "
+                          "without, windows after the first", reex[first:],
+                          out[first:])
+    if not (same and moved > 0):
+        failures.append(f"need_motion_extract_model: window 0 equal {same}, "
+                        f"later windows' distance {moved}")
+    del reex, extract, bf16
+    paths.update(run_a2v_cli(amd, a2m, failures))
+    del a2m
+    torch.cuda.empty_cache()
+    return paths, out, latency
+
+
+def run_a2v_cli(amd, a2m, failures):
+    """Phase 3m, the CLIs: ``cli.get_whisper_emb`` on a synthetic mp4 and
+    its wav, then ``cli.a2v_inference`` end to end on reference-named
+    ``.safetensors`` of AMD_N and of the A2M head written here from the
+    random weights, with ``--audio_wav``: the container read back (frame
+    count and size by OpenCV, an audio stream in it) and exact launches;
+    then the shipped A2M yaml as it is (``motion_num_token`` 1 against
+    AMD_N's 4 tokens a frame), which must end in the port's ValueError.
+    Returns {path: launches}."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from hivae_tpu_torch.cli import a2v_inference, get_whisper_emb
+    from hivae_tpu_torch.data import video as vio
+
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_a2v")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "videos"))
+    try:
+        import cv2
+        rgb, _ = synthetic_clip(SEED + 44, A2V_FRAMES)
+        frames = ((rgb.transpose(0, 2, 3, 1) + 1) * 127.5).clip(0, 255)
+        mp4 = os.path.join(work, "videos", "talk.mp4")
+        vio.write_video(mp4, frames.astype(np.uint8), fps=A2V_FPS)
+        wav = os.path.join(work, "videos", "talk.wav")
+        write_wav(wav, A2V_FRAMES / A2V_FPS)
+        ref_png = os.path.join(work, "ref.png")
+        cv2.imwrite(ref_png, cv2.cvtColor(frames[0].astype(np.uint8),
+                                          cv2.COLOR_RGB2BGR))
+        t0 = time.perf_counter()
+        rc = get_whisper_emb.main(["--video_dir", os.path.join(work, "videos"),
+                                   "--output_dir", work])
+        emb = np.load(os.path.join(work, "talk.npy"))
+        spec = a2m_spec()["model"]
+        want = (A2V_FRAMES, spec["audio_block"], spec["audio_inchannel"])
+        _log(f"  cli.get_whisper_emb: rc {rc}, {emb.shape} {emb.dtype}, "
+             f"finite {bool(np.isfinite(emb).all())}, "
+             f"{time.perf_counter() - t0:.1f} s")
+        if rc != 0 or emb.shape != want or not np.isfinite(emb).all():
+            failures.append(f"cli.get_whisper_emb: rc {rc}, {emb.shape}")
+
+        amd_st, a2m_st = (os.path.join(work, f) for f in (
+            "amd_n.safetensors", "a2m.safetensors"))
+        write_safetensors(amd_st, _reference_named(amd))
+        write_safetensors(a2m_st, _reference_named(a2m))
+        a2m_json = os.path.join(work, "a2m.json")
+        with open(a2m_json, "w") as f:
+            json.dump(dict(a2m_spec(), model=a2m.cfg.to_dict()), f)
+        out = os.path.join(work, "out", "talk.mp4")
+        argv = ["--amd_config", CONFIG, "--amd_ckpt", amd_st,
+                "--a2m_ckpt", a2m_st, "--ref_image", ref_png,
+                "--audio_emb", os.path.join(work, "talk.npy"),
+                "--audio_wav", wav, "--output", out,
+                "--motion_sample_step", str(A2V_CLI_STEPS),
+                "--video_sample_step", str(A2V_CLI_STEPS)]
+        printed = io.StringIO()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = a2v_inference.main(argv + ["--a2m_config", a2m_json])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        launches = _read_counts()
+        line = [x for x in printed.getvalue().splitlines()
+                if x.startswith("generated")]
+        written = line[0].split(" -> ")[1].split(" (")[0] if line else None
+        total = size = None
+        if written and os.path.exists(written):
+            cap = cv2.VideoCapture(written)
+            total = int(cap.get(cv2.CAP_PROP_FRAME_COUNT))
+            size = (int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+                    int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)))
+            cap.release()
+        audio = bool(written) and _has_audio(written)
+        want = dict(_no_launches(), **_a2v_launches(
+            amd.cfg, video_steps=A2V_CLI_STEPS, motion_steps=A2V_CLI_STEPS))
+        _log(f"  cli.a2v_inference: rc {rc}, printed {line}, read back "
+             f"{total} frames of {size}, audio stream {audio}, "
+             f"{cli_s:.1f} s with the models' load; launches "
+             f"{ {k: v for k, v in launches.items() if v} }")
+        if not (rc == 0 and total == A2V_FRAMES and size == (SIZE, SIZE)
+                and audio and launches == want):
+            failures.append(f"cli.a2v_inference: rc {rc}, {line}, frames "
+                            f"{total} {size}, audio {audio}, launches "
+                            f"{launches}, want {want}")
+
+        # the shipped yaml as it is: 1 token a frame in its position table
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                a2v_inference.main(argv + ["--a2m_config", A2M_CONFIG,
+                                           "--output",
+                                           os.path.join(work, "x.mp4")])
+            err = None
+        except ValueError as e:
+            err = str(e)
+        _log(f"  cli.a2v_inference with {os.path.relpath(A2M_CONFIG, ROOT)} "
+             f"as shipped: ValueError {err!r}")
+        if not err or "motion_num_token 1" not in err:
+            failures.append(f"shipped A2M config: no token-count ValueError "
+                            f"({err!r})")
+        return {"a2v_cli": launches}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_a2v_int8(bf16_latency, card, failures):
+    """Phase 3m, the int8 leg (after phase 3b, on AMD_N, the SD-VAE and the
+    A2M head built again from their seeds): the A2V clip in bf16 (the int8
+    run's yardstick), then through ``ImageAudio2VideoPipeline(quant=
+    "int8")`` with all three tables (warm-up, timed run with exact
+    launches), held to its run with the plain FFN-up version (phase 3's
+    tolerances) and, as phase 3b holds the int8 clip, to its run on all
+    plain versions within ``CLIP_INT8_NOISE_RATIO`` times that run's
+    distance from bf16. Returns {path: launches}."""
+    import gc
+    import torch
+    from hivae_tpu_torch.pipelines import ImageAudio2VideoPipeline
+
+    amd, vae = build_serving_models()
+    a2m = build_a2m(amd.cfg.object_motion_token_num)
+    pixels, emb = a2v_inputs()
+
+    def run(pipe):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        return pipe.sample_pixels(pixels, emb, A2V_MOTION_STEPS,
+                                  A2V_VIDEO_STEPS, gen)
+    kw = dict(window=WINDOW, a2m_ref_num_frame=A2V_REF_FRAMES,
+              sample_size=SIZE)
+    bf16 = run(ImageAudio2VideoPipeline(vae, amd, a2m, **kw))
+    t0 = time.perf_counter()
+    pipe = ImageAudio2VideoPipeline(vae, amd, a2m, quant="int8", **kw)
+    torch.cuda.synchronize()
+    _log(f"  int8 tables: DiT {len(pipe.quant_table)}, VAE decoder "
+         f"{len(pipe.vae_quant_table)}, A2M {len(pipe.a2m_quant_table)} "
+         f"layers, built and stripped in {time.perf_counter() - t0:.2f} s")
+    shape = (A2V_FRAMES, 3, SIZE, SIZE)
+    out, launches, latency = _timed_path(
+        "A2V clip (int8)", lambda: run(pipe), vae, shape,
+        _a2v_launches(amd.cfg, a2m.cfg, int8=True), failures)
+    with _plain_kernels(("fused_ffn_up_quant",)):
+        ref = run(pipe)
+    _clip_diff("int8 A2V clip vs the same with the plain FFN-up version",
+               out, ref, failures)
+    with _plain_kernels():
+        ref = run(pipe)
+    to_plain, _ = _clip_diff("int8 A2V clip vs the int8 A2V clip on all "
+                             "plain versions", out, ref)
+    noise, _ = _clip_diff("int8 A2V clip on all plain versions vs the bf16 "
+                          "A2V clip", ref, bf16)
+    if not to_plain <= CLIP_INT8_NOISE_RATIO * noise:
+        failures.append(f"int8 A2V clip vs all plain versions: mean "
+                        f"{to_plain}, more than {CLIP_INT8_NOISE_RATIO} x "
+                        f"their run's distance {noise} from the bf16 clip")
+    _log(f"  A2V clip latency: bf16 {bf16_latency * 1e3:.2f} ms "
+         f"({(A2V_FRAMES - 1) / bf16_latency:.2f} frames/s), int8 "
+         f"{latency * 1e3:.2f} ms ({(A2V_FRAMES - 1) / latency:.2f} "
+         f"frames/s); {card}")
+    del amd, vae, a2m, pipe, out, ref, bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"a2v_int8": launches}
 
 
 # -- the dual-encoder AMD family (phases 3j-3l) --------------------------------
@@ -3676,11 +4081,16 @@ def main() -> int:
     cli_launches = run_checkpoint_roundtrip(serving, failures)
     if cli_launches is not None:
         paths["cli_mp4"] = cli_launches
+    _log("phase 3m: audio to video, the flagship A2M head and AMD_N")
+    a2v_paths, _, a2v_latency = run_a2v(serving, card, failures)
+    paths.update(a2v_paths)
     _log("phase 3b: the int8 (w8a8) clip")
     paths["clip_int8"], _ = run_int8_clip(serving, bf16_clip, latency,
                                           args, failures)
     del serving
     torch.cuda.empty_cache()
+    _log("phase 3m: the int8 A2V clip")
+    paths.update(run_a2v_int8(a2v_latency, card, failures))
     paths.update(run_amd_family(failures))
 
     _log(f"phase 4: training run A, N={RUN_A_CLIPS}, MSE loss")

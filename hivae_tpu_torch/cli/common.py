@@ -37,8 +37,9 @@ def add_model_args(p: argparse.ArgumentParser, frames: int = 16) -> None:
     p.add_argument("--video_frames", type=int, default=frames,
                    help="sampling window")
     p.add_argument("--model_type", type=str, default="AMD_N",
-                   help="AMD_N: AMDModelNew; any other (AMD_S, AMD_L): the "
-                        "dual-encoder AMDModel of the config")
+                   help="the class its factory builds, on the config: "
+                        "AMDModelNew for AMD_N and AMD_S_Camera, the "
+                        "dual-encoder AMDModel for AMD_S and AMD_L")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda (the default) never falls back "
                         "to the CPU")
@@ -83,16 +84,21 @@ def _seeded(device):
 def load_amd(args, device, dtype: torch.dtype = torch.bfloat16):
     """The AMD model of ``args.amd_config`` (its window set to
     ``args.video_frames``) with the weights of ``args.amd_ckpt``, in
-    ``dtype``: ``AMDModelNew`` for ``--model_type AMD_N``, the dual-encoder
-    ``AMDModel`` for any other (AMD_S, AMD_L), as the JAX CLIs build it.
-    ``args.use_ema`` (where the CLI has it) takes a trainer checkpoint's
+    ``dtype``: the class ``models.amd.AMD_MODELS[--model_type]`` builds
+    (``AMDModelNew`` for AMD_N and AMD_S_Camera, the dual-encoder
+    ``AMDModel`` for AMD_S and AMD_L), so that a checkpoint the trainer
+    wrote for the type loads. (The JAX CLIs build ``AMDModel`` for every
+    type but AMD_N, AMD_S_Camera included, which its trainer builds as
+    ``AMDModelNew``.) ``args.use_ema`` (where the CLI has it) takes a trainer checkpoint's
     EMA weights. The config's ``attn_impl`` is installed (``ring``: a ring
     of every rank, or ``auto`` with a warning on one)."""
     with open(args.amd_config) as f:
         cfg = amd_mod.AMDConfig.from_dict(json.load(f))
     cfg = cfg.replace(video_frames=args.video_frames)
-    cls = amd_mod.AMDModelNew if args.model_type == "AMD_N" \
-        else amd_mod.AMDModel
+    if args.model_type not in amd_mod.AMD_CLASSES:
+        raise ValueError(f"--model_type {args.model_type}: one of "
+                         f"{sorted(amd_mod.AMD_CLASSES)}")
+    cls = amd_mod.AMD_CLASSES[args.model_type]
     with _seeded(device):
         model = cls(cfg, device=device, dtype=dtype).eval()
     if args.amd_ckpt.endswith(".safetensors"):

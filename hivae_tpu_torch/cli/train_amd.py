@@ -20,8 +20,9 @@ backend on CUDA unless ``--dist_backend gloo`` asks for gloo (ranks that
 share one card). Rank 0 alone writes ``config.json``, ``args.txt``, the
 tracker and the checkpoints.
 
-The model comes from ``--amd_config`` (``AMDModelNew`` for ``--model_type
-AMD_N``, the dual-encoder ``AMDModel`` for any other) or from the flags
+The model comes from ``--amd_config`` (the class the factory of
+``--model_type`` builds: ``AMDModelNew`` for AMD_N and AMD_S_Camera, the
+dual-encoder ``AMDModel`` for AMD_S and AMD_L) or from the flags
 (``AMD_N``, ``AMD_S`` and ``AMD_L`` at the flags' widths, any other name of
 ``models.amd.AMD_MODELS`` through its factory, as the JAX CLI builds
 them), with fp32 master weights; ``--mp bf16`` (and ``fp16``) computes under bf16 autocast and
@@ -214,14 +215,14 @@ _FACTORY_WIDTHS = ("enc_nhead", "enc_ndim", "diffusion_attn_head_dim",
 
 def build_model(args, cfg: amd_mod.AMDConfig, device):
     """The model of ``--model_type`` with fp32 weights: from
-    ``--amd_config``, ``AMDModelNew`` for AMD_N and ``AMDModel`` for any
-    other; from the flags, AMD_N, AMD_S and AMD_L at the flags' widths and
-    any other name through its factory, which fixes its widths."""
+    ``--amd_config``, the class its factory builds
+    (``models.amd.AMD_CLASSES``); from the flags, AMD_N, AMD_S and AMD_L
+    at the flags' widths and any other name through its factory, which
+    fixes its widths."""
     kw = dict(device=device, dtype=torch.float32)
     name = args.model_type
     if args.amd_config or name in ("AMD_N", "AMD_S", "AMD_L"):
-        cls = amd_mod.AMDModelNew if name == "AMD_N" else amd_mod.AMDModel
-        return cls(cfg, **kw)
+        return amd_mod.AMD_CLASSES[name](cfg, **kw)
     over = {k: v for k, v in cfg.to_dict().items()
             if k not in _FACTORY_WIDTHS}
     return amd_mod.AMD_MODELS[name](**kw, **over)

@@ -152,12 +152,16 @@ def to_hwc_frames(frames: np.ndarray) -> np.ndarray:
 def write_video(path: str, frames: np.ndarray, fps: float = 8.0,
                 audio_path: Optional[str] = None,
                 audio_start: float = 0.0) -> str:
-    """(F,C,H,W) or (F,H,W,C) uint8 -> mp4 via OpenCV. Returns the path
-    written. Muxing an audio track (``audio_path``) is not ported."""
+    """(F,C,H,W) or (F,H,W,C) uint8 -> mp4 via OpenCV. With
+    ``audio_path`` the [audio_start, audio_start + F / fps) seconds of that
+    wav are muxed in (``data/av_mux.py``: an mp4 through ffmpeg where the
+    binary is on PATH, else an AVI, so the extension may change). Returns
+    the path written."""
     if audio_path is not None:
-        raise NotImplementedError(
-            "write_video(audio_path=...): audio muxing is not ported yet "
-            "(ROADMAP.md Queue 1 #7)")
+        from .av_mux import export_video_with_audio
+
+        return export_video_with_audio(path, frames, fps, audio_path,
+                                       audio_start)
     import cv2
 
     frames = to_hwc_frames(frames)

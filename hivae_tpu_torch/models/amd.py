@@ -4,6 +4,8 @@ rectified-flow DiT decoder (port of ``CameraDown``, ``AMDModelNew``,
 ``AMD_MODELS``, and the sampling drivers ``sample``, ``decode``,
 ``sample_with_refimg_motion``, ``sample_cross``, ``sample_diff_motion``,
 ``extract_motion`` and ``_euler_decode`` of ``hivae_tpu/models/amd.py``).
+``AMD_CLASSES`` names the class each factory builds, which a model type's
+``config.json`` is loaded into.
 
 ``AMDModelNew`` (AMD_N, and AMD_S_Camera with the object stream off): the
 camera stream is the temporal-cross encoder on the low-pass (grey) band,
@@ -918,6 +920,17 @@ AMD_MODELS = {
     "AMD_L": AMD_L,
     "AMD_S_Rec": AMD_S_Rec,
     "AMD_S_RecSplit": AMD_S_RecSplit,
+}
+
+# the class each factory of AMD_MODELS builds, for a model whose config
+# comes from a config.json rather than from the factory's fixed widths
+AMD_CLASSES = {
+    "AMD_S": AMDModel,
+    "AMD_S_Camera": AMDModelNew,
+    "AMD_N": AMDModelNew,
+    "AMD_L": AMDModel,
+    "AMD_S_Rec": AMDModelRec,
+    "AMD_S_RecSplit": functools.partial(AMDModelRec, is_split=True),
 }
 
 

@@ -1,5 +1,5 @@
-"""Transformer blocks of the clip-reconstruction path (port of
-``hivae_tpu/models/blocks.py``).
+"""Transformer blocks of the clip-reconstruction path and of the A2M
+head (port of ``hivae_tpu/models/blocks.py``).
 
 Parameter names follow the reference's diffusers modules (``to_out.0``,
 ``net.0.proj``, ``net.2``), which ``utils/params.py`` maps the JAX trees
@@ -287,3 +287,87 @@ class MotionTemporalBlock(nn.Module):
             return x + gate * self.ff(h)
         x = x + self.attn1(self.norm1(x))
         return x + self.ff(self.norm2(x))
+
+
+class A2MMotionSelfAttnBlock(nn.Module):
+    """A2M joint self-attention over [ref_motion; motion] with two-stream
+    AdaLN-Zero (qk-norm on). Streams: motion (N, F*L, D), ref (N, L, D).
+    Returns (motion, ref_motion)."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, cond_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = AdaLNZero(dim, cond_dim)
+        self.attn = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm2 = AdaLNZero(dim, cond_dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, motion, ref_motion, temb):
+        l = ref_motion.shape[1]
+        m, r, gate, r_gate = self.norm1(motion, ref_motion, temb)
+        out = self.attn(torch.cat([r, m], dim=1))
+        motion = motion + gate * out[:, l:]
+        ref_motion = ref_motion + r_gate * out[:, :l]
+
+        m, r, gate, r_gate = self.norm2(motion, ref_motion, temb)
+        out = self.ff(torch.cat([r, m], dim=1))
+        motion = motion + gate * out[:, l:]
+        ref_motion = ref_motion + r_gate * out[:, :l]
+        return motion, ref_motion
+
+
+class A2MCrossAttnBlock(nn.Module):
+    """Per-frame cross-attention of the A2M head: motion (N, F*L, D) and
+    ref (N, L, D) are re-batched to (N*(F+1), L, D) frames, each attending
+    to its own condition window ((N, F+1, W, D) or (N*(F+1), W, D)); no
+    qk-norm on the cross-attention. Returns (motion, ref_motion)."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, cond_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = AdaLNZero(dim, cond_dim)
+        self.attn = Attention(dim, heads, head_dim, qk_norm=False,
+                              qkv_bias=qkv_bias)
+        self.norm2 = AdaLNZero(dim, cond_dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, motion, ref_motion, condition, temb):
+        n, fl, d = motion.shape
+        l = ref_motion.shape[1]
+        f1 = fl // l + 1  # frames + the reference
+        if condition.dim() == 4:
+            condition = condition.reshape((-1,) + condition.shape[2:])
+        m, r, gate, r_gate = self.norm1(motion, ref_motion, temb)
+        joint = torch.cat([r, m], dim=1).reshape(n * f1, l, d)
+        out = self.attn(joint, condition).reshape(n, f1 * l, d)
+        motion = motion + gate * out[:, l:]
+        ref_motion = ref_motion + r_gate * out[:, :l]
+
+        m, r, gate, r_gate = self.norm2(motion, ref_motion, temb)
+        out = self.ff(torch.cat([r, m], dim=1))
+        motion = motion + gate * out[:, l:]
+        ref_motion = ref_motion + r_gate * out[:, :l]
+        return motion, ref_motion
+
+
+class AudioFeatureWindowMlp(nn.Module):
+    """(N, F, M, C) audio features -> (N, F, window, outdim): three ReLU
+    linears on each frame's flattened (M*C) features, a reshape to the
+    window, then a LayerNorm (eps 1e-5)."""
+
+    def __init__(self, in_features: int, intermediate_dim: int,
+                 window_size: int, outdim: int):
+        super().__init__()
+        self.window_size, self.outdim = window_size, outdim
+        self.ff1 = nn.Linear(in_features, intermediate_dim)
+        self.ff2 = nn.Linear(intermediate_dim, intermediate_dim)
+        self.ff3 = nn.Linear(intermediate_dim, window_size * outdim)
+        self.norm = nn.LayerNorm(outdim, eps=1e-5)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        n, f = audio.shape[:2]
+        x = audio.reshape(n, f, -1).to(self.ff1.weight.dtype)
+        x = F.relu(self.ff1(x))
+        x = F.relu(self.ff2(x))
+        x = F.relu(self.ff3(x))
+        return self.norm(x.reshape(n, f, self.window_size, self.outdim))

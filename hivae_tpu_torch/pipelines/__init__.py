@@ -1,7 +1,7 @@
 from .pipeline import (AMDCrossVideoPipeline, AMDDiffMotionPipeline,
                        AMDReconstructionPipeline, GTMotionAblationPipeline,
-                       reconstruct_clip)
+                       ImageAudio2VideoPipeline, reconstruct_clip)
 
 __all__ = ["AMDCrossVideoPipeline", "AMDDiffMotionPipeline",
            "AMDReconstructionPipeline", "GTMotionAblationPipeline",
-           "reconstruct_clip"]
+           "ImageAudio2VideoPipeline", "reconstruct_clip"]

@@ -1,8 +1,10 @@
-"""Inference pipelines (port of the AMD pipelines of
-``hivae_tpu/pipelines/pipeline.py``): clip reconstruction, windowed
-long-video reconstruction, cross-video motion transfer, the diff-motion
-reconstruction (camera motion from another clip; the dual-encoder
-``AMDModel`` only) and the GT-motion ablation.
+"""Inference pipelines (port of ``hivae_tpu/pipelines/pipeline.py``): clip
+reconstruction, windowed long-video reconstruction, cross-video motion
+transfer, the diff-motion reconstruction (camera motion from another clip;
+the dual-encoder ``AMDModel`` only), the GT-motion ablation and
+audio-to-video generation (``ImageAudio2VideoPipeline``: a reference image
+and per-frame audio embeddings, W-frame windows of A2M motion sampling and
+AMD decoding chained autoregressively).
 
 Each pipeline has two entries per path. The file entry (``sample``,
 ``sample_long``, ``sample_cross``, ``sample_diff``, ``reconstruct``) reads
@@ -15,7 +17,8 @@ encode, AMD motion extraction and ODE decode, SD-VAE decode. The models
 are ``AMDModelNew`` or ``AMDModel`` (the reconstruction, long-video and
 GT-motion paths take either; the dual-encoder model reads one mask ratio,
 the camera one). ``quant="int8"`` serves the ODE loop's DiT and the VAE
-decode in w8a8 (``ops/quant.py``).
+decode in w8a8 (``ops/quant.py``), and the A2M head's ODE loop where it
+has layers the int8 predicate takes.
 
 Randomness comes from ``generator``: a ``torch.Generator`` on the models'
 device, or ``models.amd.SampleDraws`` to replay draws made elsewhere. A
@@ -24,20 +27,47 @@ path takes its draws window by window in the order ``models.amd`` documents.
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..data import video as vio
+from ..models import a2m as a2m_mod
 from ..models import amd as amd_mod
 from ..models import vae as vae_mod
 from ..ops import quant as quant_ops
 
 # Each table covers exactly the modules its quantised leg runs: the DiT for
 # the ODE loop, the decoder for the decode leg (the encode stays in the
-# compute dtype, so stripping the decoder's weights leaves it whole).
-QUANT_SCOPES = {"dit": ("diffusion_transformer",), "vae": ("decoder",)}
+# compute dtype, so stripping the decoder's weights leaves it whole), the
+# A2M head's denoiser for its ODE loop (its audio encoder runs once a
+# window, outside the loop).
+QUANT_SCOPES = {"dit": ("diffusion_transformer",), "vae": ("decoder",),
+                "a2m": ("diffusion",)}
+
+
+def build_quant_table(quant: Optional[str], model, scope: str,
+                      allow_empty: bool = False):
+    """``quant="int8"``: the int8 table of ``model``'s layers under
+    ``QUANT_SCOPES[scope]`` (``ops.quant.quantize_params``), else None.
+    With ``allow_empty`` a model none of whose layers the size predicate
+    takes (a small A2M head) serves in its compute dtype, with a warning,
+    instead of raising."""
+    if quant is None:
+        return None
+    if quant != "int8":
+        raise ValueError(f"unknown quant mode {quant!r}; use 'int8' or None")
+    try:
+        return quant_ops.quantize_params(model, scope=QUANT_SCOPES[scope])
+    except ValueError as e:
+        if allow_empty and "matched no kernels" in str(e):
+            warnings.warn(
+                f"quant: no {scope} layers clear the int8 size predicate; "
+                "that leg serves in the compute dtype", stacklevel=2)
+            return None
+        raise
 
 
 def _dtype(amd) -> torch.dtype:
@@ -180,6 +210,29 @@ def gt_motion_window(amd: amd_mod.AMDModelNew, cur_gt, m2v_ref, *,
         mask_ratio=mask_ratio, generator=draws, quant_table=quant_table)[1]
 
 
+@torch.no_grad()
+def a2v_window(amd: amd_mod.AMDModelNew,
+               a2m: a2m_mod.A2MModelCrossAttnAudio, ref_motion, audio,
+               ref_audio, m2v_ref, *, motion_steps: int, video_steps: int,
+               generator: amd_mod.DrawSource = None, quant_table=None,
+               a2m_quant_table=None):
+    """One audio-to-video window: the A2M head samples the window's motion
+    tokens from ``audio`` (N, W, M, D), conditioned on the last reference
+    frame's tokens and audio (``ref_motion`` (N, R, L, D), ``ref_audio``
+    (N, R, M, D)); the AMD model decodes them from the reference latent
+    ``m2v_ref`` (N, C, h, w). Draws: the A2M start noise, then the AMD
+    one. Returns (motion (N, W, L, D), video latents (N, W, C, h, w))."""
+    draws = amd_mod.sample_draws(generator)
+    motion_pre = a2m_mod.sample(
+        a2m, ref_motion[:, -1], frames=audio.shape[1],
+        sample_step=motion_steps, audio=audio, ref_audio=ref_audio[:, -1],
+        generator=draws, quant_table=a2m_quant_table)
+    _, video_pre = amd_mod.sample_with_refimg_motion(
+        amd, m2v_ref, motion_pre, sample_step=video_steps, generator=draws,
+        quant_table=quant_table)
+    return motion_pre, video_pre
+
+
 class _Serving:
     """The models, their device and the int8 tables. ``quant="int8"``
     quantises the DiT's and the VAE decoder's large layers
@@ -190,20 +243,15 @@ class _Serving:
     def __init__(self, vae: vae_mod.AutoencoderKL, amd: amd_mod.AMDModelNew,
                  window: int = 16, sample_size: int = 256,
                  quant: Optional[str] = None):
-        if quant not in (None, "int8"):
-            raise ValueError(f"unknown quant mode {quant!r}; use 'int8' or "
-                             "None")
         self.vae, self.amd, self.window = vae, amd, window
         self.sample_size = sample_size
         self.device = amd.diffusion_transformer.proj_out.weight.device
-        self.quant_table = self.vae_quant_table = None
-        if quant == "int8":
-            self.quant_table = quant_ops.quantize_params(
-                amd, scope=QUANT_SCOPES["dit"])
-            self.vae_quant_table = quant_ops.quantize_params(
-                vae, scope=QUANT_SCOPES["vae"])
-            quant_ops.strip_quantized(amd, self.quant_table)
-            quant_ops.strip_quantized(vae, self.vae_quant_table)
+        self.quant_table = build_quant_table(quant, amd, "dit")
+        self.vae_quant_table = build_quant_table(quant, vae, "vae")
+        for model, table in ((amd, self.quant_table),
+                             (vae, self.vae_quant_table)):
+            if table:
+                quant_ops.strip_quantized(model, table)
 
     def _tensor(self, x) -> Optional[torch.Tensor]:
         return None if x is None else torch.as_tensor(x).to(self.device)
@@ -462,3 +510,145 @@ class GTMotionAblationPipeline(_Serving):
         result = torch.cat([ref_z, pre], dim=1)
         return vae_mod.vae_decode_rgb(self.vae, result,
                                       quant_table=self.vae_quant_table)[0]
+
+
+class ImageAudio2VideoPipeline(_Serving):
+    """Windowed autoregressive audio-driven video generation: each W-frame
+    window's reference is the previous window's last R motion tokens (or,
+    with ``need_motion_extract_model``, tokens re-extracted from its last R
+    generated latents) and R audio frames; the A2M head samples the
+    window's motion and the AMD model decodes it from the last generated
+    latent. A ragged tail re-runs the last W frames of the audio and its
+    overlap replaces the earlier windows' frames.
+
+    ``quant="int8"`` serves three legs in w8a8 and strips their float
+    weights: the AMD DiT's ODE loop, the VAE decode and the A2M head's ODE
+    loop (``allow_empty``: a head too small for the int8 predicate serves
+    in its compute dtype). Motion extraction, the audio encoding and the
+    VAE encode stay in the compute dtype."""
+
+    def __init__(self, vae: vae_mod.AutoencoderKL, amd: amd_mod.AMDModelNew,
+                 a2m: a2m_mod.A2MModelCrossAttnAudio, window: int = 16,
+                 a2m_ref_num_frame: int = 8, sample_size: int = 256,
+                 need_motion_extract_model: bool = False,
+                 quant: Optional[str] = None):
+        if window < a2m_ref_num_frame:
+            raise ValueError(f"window {window} < a2m_ref_num_frame "
+                             f"{a2m_ref_num_frame}")
+        super().__init__(vae, amd, window, sample_size, quant)
+        self.a2m = a2m
+        self.ref_frames = a2m_ref_num_frame
+        self.need_motion_extract_model = need_motion_extract_model
+        self.a2m_quant_table = build_quant_table(quant, a2m, "a2m",
+                                                 allow_empty=True)
+        if self.a2m_quant_table:
+            quant_ops.strip_quantized(a2m, self.a2m_quant_table)
+
+    def _pad_ref(self, x: torch.Tensor) -> torch.Tensor:
+        """The last R frames of ``x`` (N, F, ...), left-padded with zero
+        frames to R."""
+        r = self.ref_frames
+        if x.shape[1] >= r:
+            return x[:, -r:]
+        pad = x.new_zeros((x.shape[0], r - x.shape[1]) + x.shape[2:])
+        return torch.cat([pad, x], dim=1)
+
+    def _extract(self, latents: torch.Tensor) -> torch.Tensor:
+        return amd_mod.extract_motion(self.amd, latents)
+
+    @torch.no_grad()
+    def predict(self, ref_img, ref_audio, audio,
+                motion_sample_step: int = 4, video_sample_step: int = 4,
+                generator: amd_mod.DrawSource = None) -> torch.Tensor:
+        """ref_img (N, F0, 3, H, W) pixels in [-1, 1], ref_audio (N, F0, M,
+        D), audio (N, T, M, D) -> video latents (N, T+1, C, h, w), the
+        reference frame's first. Each window draws the A2M start noise,
+        then the AMD one (``a2v_window``)."""
+        w, r = self.window, self.ref_frames
+        ref_img, ref_audio, audio = (self._tensor(x) for x in (
+            ref_img, ref_audio, audio))
+        total = audio.shape[1]
+        if total < w:
+            raise ValueError(f"the audio has {total} frames; a window needs "
+                             f"{w}")
+        draws = amd_mod.sample_draws(generator)
+        ref_z = vae_mod.vae_encode(self.vae, self._pad_ref(ref_img)).to(
+            _dtype(self.amd))
+
+        def window(ref_motion, s, e, cur_ref_audio, m2v_ref):
+            return a2v_window(
+                self.amd, self.a2m, ref_motion, audio[:, s:e], cur_ref_audio,
+                m2v_ref, motion_steps=motion_sample_step,
+                video_steps=video_sample_step, generator=draws,
+                quant_table=self.quant_table,
+                a2m_quant_table=self.a2m_quant_table)
+
+        pre_motion = pre_video = None
+        for s in range(0, total - total % w, w):
+            if s == 0:
+                ref_motion = self._extract(ref_z)
+                cur_ref_audio = self._pad_ref(ref_audio)
+                m2v_ref = ref_z[:, -1]
+            else:
+                ref_motion = (self._extract(pre_video[:, -r:])
+                              if self.need_motion_extract_model
+                              else pre_motion[:, -r:])
+                cur_ref_audio = audio[:, s - r:s]
+                m2v_ref = pre_video[:, -1]
+            motion_pre, video_pre = window(ref_motion, s, s + w,
+                                           cur_ref_audio, m2v_ref)
+            pre_motion = motion_pre if pre_motion is None else torch.cat(
+                [pre_motion, motion_pre], dim=1)
+            pre_video = video_pre if pre_video is None else torch.cat(
+                [pre_video, video_pre], dim=1)
+        if total % w:
+            s = total - w
+            ref_motion = (self._extract(pre_video[:, s - r:s])
+                          if self.need_motion_extract_model
+                          else pre_motion[:, s - r:s])
+            motion_pre, video_pre = window(ref_motion, s, total,
+                                           audio[:, s - r:s],
+                                           pre_video[:, s - 1])
+            pre_motion = torch.cat([pre_motion[:, :s], motion_pre], dim=1)
+            pre_video = torch.cat([pre_video[:, :s], video_pre], dim=1)
+        return torch.cat([ref_z[:, -1:], pre_video], dim=1)
+
+    def sample_pixels(self, pixels, audio_emb, motion_sample_step: int = 8,
+                      video_sample_step: int = 20,
+                      generator: amd_mod.DrawSource = None,
+                      max_frames: Optional[int] = None) -> torch.Tensor:
+        """The device half of ``sample``: the reference frame's pixels (3,
+        H, W) in [-1, 1] and the embeddings (T+1, M, D), the first the
+        reference frame's (at most ``max_frames`` of them) -> the video
+        (T+1, 3, H, W) uint8 on the models' device, the reference frame's
+        reconstruction first."""
+        emb = self._tensor(audio_emb)[None]
+        if max_frames is not None:
+            emb = emb[:, :max_frames]
+        latents = self.predict(self._tensor(pixels)[None, None], emb[:, :1],
+                               emb[:, 1:], motion_sample_step,
+                               video_sample_step, generator=generator)
+        return vae_mod.vae_decode_rgb(self.vae, latents,
+                                      quant_table=self.vae_quant_table)[0]
+
+    def sample(self, refimg_path: str, audio_emb: np.ndarray,
+               output_path: Optional[str] = None,
+               motion_sample_step: int = 8, video_sample_step: int = 20,
+               fps: int = 25, generator: amd_mod.DrawSource = None,
+               max_frames: Optional[int] = None,
+               audio_path: Optional[str] = None) -> np.ndarray:
+        """A reference image file and whisper embeddings (T+1, M, D) -> the
+        generated video (T+1, 3, H, W) uint8, written to ``output_path``
+        when given, with ``audio_path``'s wav muxed in (without ffmpeg the
+        file is an AVI: call ``data.video.write_video`` on the result for
+        the path written). ``max_frames`` caps the embeddings used."""
+        import cv2
+
+        frame = cv2.cvtColor(cv2.imread(refimg_path), cv2.COLOR_BGR2RGB)
+        pixels = vio.pixel_transform(frame[None], self.sample_size)[0]
+        out = self.sample_pixels(pixels, audio_emb, motion_sample_step,
+                                 video_sample_step, generator, max_frames)
+        out = out.cpu().numpy()
+        if output_path:
+            vio.write_video(output_path, out, fps=fps, audio_path=audio_path)
+        return out

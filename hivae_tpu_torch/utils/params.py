@@ -15,7 +15,10 @@ ones. Layouts:
 
 The modules of the config flags carry the JAX names too
 (``camera_down/conv{1,2}``, ``motion_transformer/{embed,blocks_i,
-norm_final,proj_out}``), so the same rules cover them.
+norm_final,proj_out}``), so the same rules cover them, and so do the A2M
+head's (``audio_encoder/{ff1,ff2,ff3,norm}``, ``diffusion/{motion,audio,
+pose}_blocks_i``, the embeddings, ``norm_final``, ``norm_out``,
+``proj_out``).
 
 Input is the flax tree as nested mappings of numpy arrays (with or without
 the top-level ``params`` collection). ``lpips_flax_to_torch`` maps the
@@ -40,6 +43,8 @@ _RULES: List[Tuple[str, str]] = [
     (r"\bcamera_blocks_(\d+)\b", r"camera_transformer_blocks.\1"),
     (r"\bspatial_blocks_(\d+)\b", r"spatial_blocks.\1"),
     (r"\bmotion_blocks_(\d+)\b", r"motion_blocks.\1"),
+    (r"\baudio_blocks_(\d+)\b", r"audio_blocks.\1"),
+    (r"\bpose_blocks_(\d+)\b", r"pose_blocks.\1"),
     (r"\bresnets_(\d+)\b", r"resnets.\1"),
     (r"\battentions_(\d+)\b", r"attentions.\1"),
     (r"\bdownsamplers_(\d+)\b", r"downsamplers.\1"),

@@ -396,11 +396,13 @@ def test_quant_ffn_kernel_rejects_unaligned_n():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", FFN_FLAGSHIP + [(4256, 1024, 8192),
-                                                  (200, 1024, 4096)])
+                                                  (200, 1024, 4096),
+                                                  (68, 1024, 4096)])
 def test_quant_ffn_kernel_is_bit_exact(m, k, n):
     """Two launches give the same yq and sy, and both are the plain
     version's bits: the cluster's row maximum does not depend on the order
-    of its partials, and the epilogue spells out the plain roundings."""
+    of its partials, and the epilogue spells out the plain roundings. M 68
+    is the A2M head's FFN (4 tokens of the reference and 16 frames)."""
     _cuda_or_skip()
     from hivae_tpu_torch.ops.kernels import quant_ffn as tqf
     args = _ffn_inputs(m, k, n, seed=21)

@@ -10,12 +10,14 @@ Frame indices and transformed pixels are exact.
 """
 
 import random
+import shutil
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy.io import wavfile
 
 import test_torch_serving as common
 from hivae_tpu.data import video as jvio
@@ -99,7 +101,7 @@ def _port_amd(stacks, grey=True):
     return mod.eval()
 
 
-def test_video_io_matches_jax(videos, tmp_path):
+def test_video_io_matches_jax(videos, tmp_path, monkeypatch):
     path = videos["long"]
     assert tvio.video_metadata(path) == jvio.video_metadata(path)
     for args in [(100, 30.0, 17, 8), (12, 8.0, 5, 8), (3, 25.0, 9, 8)]:
@@ -121,8 +123,17 @@ def test_video_io_matches_jax(videos, tmp_path):
     out = tvio.write_video(str(tmp_path / "w.mp4"), frames.transpose(
         0, 3, 1, 2))
     assert tvio.video_metadata(out)[0] == W + 1
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        tvio.write_video(str(tmp_path / "a.mp4"), frames, audio_path="x.wav")
+    # with a wav, the audio is muxed in (an AVI where ffmpeg is missing),
+    # byte for byte as the JAX package writes it, at the path returned
+    wav = str(tmp_path / "x.wav")
+    wavfile.write(wav, 16000, (3000 * np.random.RandomState(1).randn(
+        16000)).astype(np.int16))
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    got = tvio.write_video(str(tmp_path / "a.mp4"), frames, audio_path=wav)
+    want = jvio.write_video(str(tmp_path / "j.mp4"), frames, audio_path=wav)
+    assert got == str(tmp_path / "a.avi") and want == str(tmp_path / "j.avi")
+    with open(got, "rb") as g, open(want, "rb") as w:
+        assert g.read() == w.read()
 
 
 def test_reconstruction_pipeline_sample_matches_jax(stacks, videos, tmp_path,
