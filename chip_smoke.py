@@ -32,7 +32,10 @@ Phases (any failure exits non-zero without the final result line):
    282 (the DiT's joint block), 416 (the dual DiT's temporal motion
    block), 538 (AMD_S_RecSplit), AMD_L's 16-head encoders and its D 96
    DiT (masked too), and the training shapes at N = 4; and an FFN-up case
-   at M 4512 (the int8 AMD_S clip). Each kernel, its plain
+   at M 4512 (the int8 AMD_S clip). The other A2M heads add the grid
+   head's joint block, S 528 at N = 1 and 4, forward and backward, and an
+   FFN-up case at M 84 (the LearnableToken head's joint block). Each
+   kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
    ``F.scaled_dot_product_attention`` forward plus backward minus its
@@ -105,6 +108,25 @@ Phases (any failure exits non-zero without the final result line):
    all three tables (DiT, VAE decoder, A2M; + 1824 fused FFN-up launches,
    128 a window from the A2M head), against its run with the plain FFN-up
    version and, as 3b, its run on all plain versions;
+   3n. (after 3m, on the same models) the A2V clip of 3m with the
+   ``A2MModel_LearnableToken`` and ``A2MModel_SimpleAdaLN`` heads (the
+   flagship yaml with only ``model_type`` swapped; 201.6 M and 151.2 M):
+   exact launches (752 / 2: their own attentions, 84 tokens, stay plain),
+   against their runs on the plain attention versions (3m's gates); after
+   3m's int8 leg, LearnableToken's int8 A2V clip on the models built
+   again (+ 1632 fused FFN-up: 64 a window from the head, one FFN a
+   layer), gated as 3m's;
+   3o. the grid head (``A2MModelMlp`` at the ``A2MConfig`` defaults,
+   194.7 M, seeded): ``sample_grid`` in bf16 at N = 1 and 10 steps (80
+   full-block launches over 528 tokens, within ``GRID_REL_L2`` of its
+   plain-attention run), then its loss at N = 4, fp32 weights under bf16
+   autocast, forward and backward (8 forward, 8 delta and 8 backward
+   launches; loss and gradient against the plain versions as run A);
+   3p. ``cli.vis`` on the shipped PosePre yaml as json (542.5 M, fp32 as
+   the JAX CLI) over 4 synthetic pose mp4s and embeddings of 17 frames:
+   the grid video's shape and dtype, finite decoded pixels, no kernel
+   launch and exactly 2 ``sdpa_plain`` calls (the fp32 VAE's encode and
+   decode mid-block attentions, which no kernel takes);
    3b. (run after 3c-3i and 3m, since it strips the models' float weights) the int8
    clip through ``AMDReconstructionPipeline(vae, amd, quant="int8")`` on
    the same weights: 360 fused FFN-up launches (36 FFNs x 10 Euler steps),
@@ -175,11 +197,22 @@ Phases (any failure exits non-zero without the final result line):
    ``--amd_config``), 2 steps, then on its checkpoint ``cli.amd_inference
    --model_type AMD_S`` and ``cli.amd_inference_single --diff_motion``
    (exact launches, the mp4s' frames);
+   7d. ``hivae_tpu_torch.cli.train_a2m`` in this process: the flagship A2M
+   head at AMD_N's 4 tokens (fp32 weights, bf16 autocast) on a frozen
+   bf16 AMD_N (a reference-named ``.safetensors`` written here) and
+   SD-VAE, a ``.pkl`` index of phase 7's mp4s with seeded embeddings and a
+   pose stream, N = 4 clips of 16 frames: 3 steps (checkpoints at 2 and
+   3), a resume to step 4, then ``cli.a2v_inference`` on the checkpoint
+   it wrote; exact launches (a step: 16 full-block for the two
+   ``extract_motion`` calls, 4 streaming for the four VAE encodes), step
+   ms, clips/s and peak memory;
 8. parallelism. NCCL refuses two ranks on one device, so the ranks are
    processes that share this card over gloo (``spawn_ranks``: this script
    with ``--rank-phase``, a time limit each), whose collectives the port
    stages through pinned host memory; no time here is a collective's on a
-   cluster, and no scaling is measured.
+   cluster, and no scaling is measured. Its models keep the flagship's
+   widths at ``PAR_DEPTH`` (4 encoder layers each, 4 DiT layers), since
+   these host-staged collectives take time in step with the parameters.
    8a. the ring's two hop kinds timed at 512, 1024 and 2048 local tokens
    (this card's crossover), then ``sequence_sharded_sdpa`` at
    (1, 16, 4096, 64) over rings of 2 and 4 ranks (2048 and 1024 local
@@ -188,18 +221,18 @@ Phases (any failure exits non-zero without the final result line):
    P dQ and P dK/dV), the ranks' outputs and gradients bit-equal, and
    held to one process's ``sdpa`` on the whole sequence and to the plain
    version;
-   8b. the flagship training step on the mesh (2, 1, 1), 2 clips a rank,
+   8b. the flagship's training step on the mesh (2, 1, 1), 2 clips a rank,
    against one process's step on the 4 clips and the same draws (loss
    within ``STEP_LOSS_RTOL``, gradient cosine at least ``STEP_GRAD_COS``),
    exact launches, ``sdpa_plain`` 0, the ranks' parameters bit-equal
    after the update;
    8c. the same on the mesh (1, 1, 2) with ``attn_impl="ring"`` (2 clips:
-   every attention of the step rings, 92 calls, all plain hops at the
+   every attention of the step rings, 36 calls, all plain hops at the
    17-frame window); then one sampling call at the 64-frame window of
-   ``benchmarks/bench_longwindow.py`` (flagship widths) with the VAE
-   encodes and decode, under ring over 2 ranks with the launches its
-   sites' local blocks give, against the same call under ``auto`` in one
-   process (phase 3's tolerances);
+   ``benchmarks/bench_longwindow.py`` (flagship widths, ``PAR_DEPTH``)
+   with the VAE encodes and decode, under ring over 2 ranks with the
+   launches its sites' local blocks give, against the same call under
+   ``auto`` in one process (phase 3's tolerances);
    8d. the FSDP step on the mesh (1, 2, 1) (FSDP2's collectives on CUDA
    tensors through gloo), as 8b without the bit-equality of unsharded
    parameters, then a checkpoint save of the sharded state: its peak
@@ -316,6 +349,31 @@ WAV_RATE = 16000
 A2M_FFN_ROWS = 4 * (WINDOW + 1)
 # the CLI leg's step counts (its launches exact at these)
 A2V_CLI_STEPS = 2
+# phases 3n-3p, the other A2M heads: LearnableToken and SimpleAdaLN (the
+# flagship yaml with only model_type swapped, at AMD_N's 4 tokens) on
+# phase 3m's A2V clip, LearnableToken's int8 leg too; the grid head at the
+# A2MConfig defaults (16 x 64, 8 layers, 128-channel 4 x 4 grids, 32^2
+# latents in 2 x 2 patches): sample_grid over GRID_FRAMES frames at
+# GRID_STEPS steps and its loss at GRID_LOSS_CLIPS clips; cli.vis on the
+# shipped PosePre yaml, VIS_PAIRS embeddings and pose mp4s of VIS_FRAMES
+A2M_HEAD_TYPES = {"A2MModel_LearnableToken": "learnable_token",
+                  "A2MModel_SimpleAdaLN": "simple_adaln"}
+A2M_POSEPRE_CONFIG = os.path.join(
+    ROOT, "configs", "a2m", "cross_audio_posepre_t1d512_l16_dim1024.yaml")
+GRID_FRAMES, GRID_STEPS, GRID_LOSS_CLIPS = 16, 10, 4
+# the grid head's joint block: 16 frames of 4 x 4 motion patches, 16 x 16
+# image patches and 16 audio tokens
+GRID_TOKENS = GRID_FRAMES * 16 + 256 + GRID_FRAMES
+# a sampled grid against its run on the plain attention versions (bf16
+# activations through 8 layers and 10 Euler steps): relative L2 distance
+GRID_REL_L2 = 2e-2
+VIS_PAIRS, VIS_FRAMES = 4, 17
+# the LearnableToken head's FFN rows a clip: 4 tokens of 16 frames and of
+# the reference, and the 16 audio tokens
+A2M_JOINT_FFN_ROWS = 4 * (WINDOW + 1) + WINDOW
+# phase 7d, cli.train_a2m: clips a step, steps, then one resumed step; the
+# CLI's serving leg at A2V_CLI_STEPS
+A2M_TRAIN_CLIPS, A2M_TRAIN_STEPS = 4, 3
 
 # (name, q shape, launches per clip at sample_step=10)
 FULL_BLOCK_CASES = [
@@ -372,7 +430,11 @@ FULL_BLOCK_CHECKS = [
         ("AMD_L DiT joint, masked (D 96)", (4, 16, 282, 96), True),
         ("AMD_S encoders N=4", (128, 8, 268, 64), False),
         ("AMD_S DiT joint N=4", (64, 16, 282, 64), False),
-        ("dual DiT motion temporal N=4", (4, 16, 416, 64), False))
+        ("dual DiT motion temporal N=4", (4, 16, 416, 64), False),
+        # the A2M grid head's joint block (phase 3o): sample_grid at N = 1
+        # and its loss at N = 4
+        ("A2M grid joint (S 528)", (1, 16, 528, 64), False),
+        ("A2M grid joint N=4 (S 528)", (4, 16, 528, 64), False))
 ]
 
 # training: clips per step in runs A and B, timed steps, frames per clip
@@ -1038,7 +1100,11 @@ FFN_CHECKS = [("one row", 1, FFN_N), ("70 rows", 70, FFN_N),
               ("AMD_S DiT joint, M 4512", 16 * 282, FFN_N),
               # the A2M head's FFNs on the int8 A2V path (phase 3m): the
               # reference's and 16 frames' 4 tokens, held bit-equal
-              ("A2M joint, M 68", A2M_FFN_ROWS, FFN_N)]
+              ("A2M joint, M 68", A2M_FFN_ROWS, FFN_N),
+              # the LearnableToken head's joint block on its int8 A2V
+              # path (phase 3n): 4 tokens of 17 frames and 16 audio tokens
+              ("A2M LearnableToken joint, M 84", A2M_JOINT_FFN_ROWS,
+               FFN_N)]
 # check cases that must give the plain version's bits exactly
 FFN_EXACT = ("A2M joint, M 68",)
 # SASS opcodes by the pipe that issues them, for the epilogue's floor
@@ -1825,14 +1891,17 @@ def a2m_spec():
     return a2v_inference.load_spec(A2M_CONFIG)
 
 
-def build_a2m(tokens, seed=SEED + 40):
+def build_a2m(tokens, seed=SEED + 40, model_type=None):
     """The flagship A2M head with ``motion_num_token`` = ``tokens`` and no
-    other field changed, bf16 on the card, seeded random weights."""
+    other field changed (``model_type`` swapped where given), bf16 on the
+    card, seeded random weights."""
     import torch
     from hivae_tpu_torch.cli import a2v_inference
 
     spec = a2m_spec()
     spec = dict(spec, model=dict(spec["model"], motion_num_token=tokens))
+    if model_type:
+        spec["model_type"] = model_type
     torch.manual_seed(seed)
     t0 = time.perf_counter()
     a2m = a2v_inference.build_a2m(spec, "cuda", torch.bfloat16).eval()
@@ -1860,7 +1929,7 @@ def a2v_inputs():
 def _a2v_launches(amd_cfg, a2m_cfg=None, frames=A2V_FRAMES - 1,
                   video_steps=A2V_VIDEO_STEPS,
                   motion_steps=A2V_MOTION_STEPS, extract=False,
-                  int8=False):
+                  int8=False, a2m_ffns=2):
     """Launches of one A2V run over ``frames`` driven frames: the object
     encoder's layers (4 + 256 tokens) once on the 8 padded reference
     frames, once a window on its reference frame and, with
@@ -1871,16 +1940,17 @@ def _a2v_launches(amd_cfg, a2m_cfg=None, frames=A2V_FRAMES - 1,
     one streaming forward for the VAE encode of the reference frames and
     one for the decode of the clip. The A2M head's attentions (68 tokens;
     4 queries against 32 keys) stay plain and uncounted. In int8 the
-    fused FFN-up runs in each A2M block (self- and cross-attention) per
-    motion step and in the DiT's object joint and temporal blocks per
-    video step."""
+    fused FFN-up runs in each of the A2M head's ``a2m_ffns`` FFNs a layer
+    (the cross head's self- and cross-attention blocks: 2; the
+    LearnableToken head's joint block: 1) per motion step and in the
+    DiT's object joint and temporal blocks per video step."""
     enc, dit = amd_cfg.object_enc_num_layers, amd_cfg.diffusion_num_layers
     windows = -(-frames // WINDOW)
     out = dict(full_block_attention=enc + windows * (enc + dit * video_steps)
                + extract * (windows - 1) * enc, stream_attention=2)
     if int8:
         out["fused_ffn_up_quant"] = windows * (
-            2 * a2m_cfg.diffusion_num_layers * motion_steps
+            a2m_ffns * a2m_cfg.diffusion_num_layers * motion_steps
             + 2 * dit * video_steps)
     return out
 
@@ -2113,21 +2183,24 @@ def run_a2v_cli(amd, a2m, failures):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def run_a2v_int8(bf16_latency, card, failures):
-    """Phase 3m, the int8 leg (after phase 3b, on AMD_N, the SD-VAE and the
-    A2M head built again from their seeds): the A2V clip in bf16 (the int8
-    run's yardstick), then through ``ImageAudio2VideoPipeline(quant=
-    "int8")`` with all three tables (warm-up, timed run with exact
-    launches), held to its run with the plain FFN-up version (phase 3's
-    tolerances) and, as phase 3b holds the int8 clip, to its run on all
-    plain versions within ``CLIP_INT8_NOISE_RATIO`` times that run's
-    distance from bf16. Returns {path: launches}."""
+def run_a2v_int8(bf16_latency, card, failures, model_type=None):
+    """Phase 3m (and 3n with ``model_type`` A2MModel_LearnableToken), the
+    int8 leg (after phase 3b, on AMD_N, the SD-VAE and the A2M head built
+    again from their seeds): the A2V clip in bf16 (the int8 run's
+    yardstick), then through ``ImageAudio2VideoPipeline(quant="int8")``
+    with all three tables (warm-up, timed run with exact launches), held
+    to its run with the plain FFN-up version (phase 3's tolerances) and,
+    as phase 3b holds the int8 clip, to its run on all plain versions
+    within ``CLIP_INT8_NOISE_RATIO`` times that run's distance from bf16.
+    Returns {path: launches}."""
     import gc
     import torch
     from hivae_tpu_torch.pipelines import ImageAudio2VideoPipeline
 
     amd, vae = build_serving_models()
-    a2m = build_a2m(amd.cfg.object_motion_token_num)
+    a2m = build_a2m(amd.cfg.object_motion_token_num, model_type=model_type)
+    label = "A2V clip" if model_type is None else f"A2V clip, {model_type}"
+    joint = model_type in A2M_HEAD_TYPES
     pixels, emb = a2v_inputs()
 
     def run(pipe):
@@ -2136,7 +2209,12 @@ def run_a2v_int8(bf16_latency, card, failures):
                                   A2V_VIDEO_STEPS, gen)
     kw = dict(window=WINDOW, a2m_ref_num_frame=A2V_REF_FRAMES,
               sample_size=SIZE)
+    if bf16_latency is None:
+        t0 = time.perf_counter()
     bf16 = run(ImageAudio2VideoPipeline(vae, amd, a2m, **kw))
+    if bf16_latency is None:
+        torch.cuda.synchronize()
+        bf16_latency = time.perf_counter() - t0
     t0 = time.perf_counter()
     pipe = ImageAudio2VideoPipeline(vae, amd, a2m, quant="int8", **kw)
     torch.cuda.synchronize()
@@ -2145,30 +2223,269 @@ def run_a2v_int8(bf16_latency, card, failures):
          f"layers, built and stripped in {time.perf_counter() - t0:.2f} s")
     shape = (A2V_FRAMES, 3, SIZE, SIZE)
     out, launches, latency = _timed_path(
-        "A2V clip (int8)", lambda: run(pipe), vae, shape,
-        _a2v_launches(amd.cfg, a2m.cfg, int8=True), failures)
+        f"{label} (int8)", lambda: run(pipe), vae, shape,
+        _a2v_launches(amd.cfg, a2m.cfg, int8=True,
+                      a2m_ffns=1 if joint else 2), failures)
     with _plain_kernels(("fused_ffn_up_quant",)):
         ref = run(pipe)
-    _clip_diff("int8 A2V clip vs the same with the plain FFN-up version",
+    _clip_diff(f"int8 {label} vs the same with the plain FFN-up version",
                out, ref, failures)
     with _plain_kernels():
         ref = run(pipe)
-    to_plain, _ = _clip_diff("int8 A2V clip vs the int8 A2V clip on all "
-                             "plain versions", out, ref)
-    noise, _ = _clip_diff("int8 A2V clip on all plain versions vs the bf16 "
-                          "A2V clip", ref, bf16)
+    to_plain, _ = _clip_diff(f"int8 {label} vs the same on all plain "
+                             "versions", out, ref)
+    noise, _ = _clip_diff(f"int8 {label} on all plain versions vs the bf16 "
+                          "run", ref, bf16)
     if not to_plain <= CLIP_INT8_NOISE_RATIO * noise:
-        failures.append(f"int8 A2V clip vs all plain versions: mean "
+        failures.append(f"int8 {label} vs all plain versions: mean "
                         f"{to_plain}, more than {CLIP_INT8_NOISE_RATIO} x "
                         f"their run's distance {noise} from the bf16 clip")
-    _log(f"  A2V clip latency: bf16 {bf16_latency * 1e3:.2f} ms "
+    _log(f"  {label} latency: bf16 {bf16_latency * 1e3:.2f} ms "
          f"({(A2V_FRAMES - 1) / bf16_latency:.2f} frames/s), int8 "
          f"{latency * 1e3:.2f} ms ({(A2V_FRAMES - 1) / latency:.2f} "
          f"frames/s); {card}")
     del amd, vae, a2m, pipe, out, ref, bf16
     gc.collect()
     torch.cuda.empty_cache()
-    return {"a2v_int8": launches}
+    return {"a2v_int8" if model_type is None else
+            f"a2v_int8_{A2M_HEAD_TYPES[model_type]}": launches}
+
+
+# -- the other A2M heads (phases 3n-3p) ---------------------------------------
+
+
+def run_a2v_heads(models, card, failures):
+    """Phase 3n (bf16, on phase 3's AMD_N and SD-VAE): phase 3m's A2V clip
+    with each head of ``A2M_HEAD_TYPES`` (the flagship yaml with only
+    ``model_type`` swapped): one warm-up and one timed run with exact
+    launches (the heads' own attentions, 84 tokens, stay plain and
+    uncounted), against its run on the plain attention versions (phase
+    3's tolerances). Returns {path: launches}."""
+    import torch
+    from hivae_tpu_torch.pipelines import ImageAudio2VideoPipeline
+
+    amd, vae = models
+    pixels, emb = a2v_inputs()
+    shape = (A2V_FRAMES, 3, SIZE, SIZE)
+    paths = {}
+    for model_type, short in A2M_HEAD_TYPES.items():
+        a2m = build_a2m(amd.cfg.object_motion_token_num,
+                        model_type=model_type)
+        pipe = ImageAudio2VideoPipeline(
+            vae, amd, a2m, window=WINDOW, a2m_ref_num_frame=A2V_REF_FRAMES,
+            sample_size=SIZE)
+
+        def run():
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            return pipe.sample_pixels(pixels, emb, A2V_MOTION_STEPS,
+                                      A2V_VIDEO_STEPS, gen)
+        label = f"A2V clip, {model_type} (bf16)"
+        out, paths[f"a2v_{short}"], latency = _timed_path(
+            label, run, vae, shape, _a2v_launches(amd.cfg), failures)
+        _log(f"  {label}: {latency * 1e3:.2f} ms, "
+             f"{(A2V_FRAMES - 1) / latency:.2f} generated frames/s; {card}")
+        with _plain_kernels():
+            ref = run()
+        _clip_diff(f"{label} vs the same on the plain attention versions",
+                   out, ref, failures)
+        del a2m, pipe, out, ref
+        torch.cuda.empty_cache()
+    return paths
+
+
+def _grid_inputs(n, gen):
+    """Reference image latents (n, 4, 32, 32) and whisper-like features
+    (n, GRID_FRAMES, 50, 384) on the card."""
+    import torch
+    return (torch.randn((n, 4, 32, 32), generator=gen, device="cuda"),
+            torch.randn((n, GRID_FRAMES, 50, 384), generator=gen,
+                        device="cuda"))
+
+
+def run_grid_head(card, failures):
+    """Phase 3o: the grid head (``A2MModelMlp`` at the ``A2MConfig``
+    defaults, seeded random weights). ``sample_grid`` in bf16 at N = 1,
+    GRID_STEPS steps: one warm-up and one timed run with exact launches
+    (a full-block forward a layer and step over GRID_TOKENS tokens),
+    finite, within GRID_REL_L2 of its run on the plain attention versions.
+    Then its training loss at N = GRID_LOSS_CLIPS with fp32 weights under
+    bf16 autocast, forward and backward (timestep and noise fixed): exact
+    launches (a forward, a delta pre-pass and a backward a layer) and,
+    against the same on the plain versions, loss within STEP_LOSS_RTOL and
+    gradient cosine at least STEP_GRAD_COS. Returns {path: launches}."""
+    import torch
+    from hivae_tpu_torch.models import a2m as a2m_mod
+
+    cfg = a2m_mod.A2MConfig()
+    layers = cfg.diffusion_num_layers
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 50)
+    torch.manual_seed(SEED + 50)
+    head = a2m_mod.A2MModelMlp(cfg, device="cuda", dtype=torch.float32)
+    n = sum(p.numel() for p in head.parameters())
+    _log(f"  grid head (A2MModelMlp, A2MConfig defaults): {n / 1e6:.1f} M "
+         f"params, joint block over {GRID_TOKENS} tokens")
+    paths = {}
+
+    sampler = a2m_mod.A2MModelMlp(cfg, device="cuda", dtype=torch.bfloat16)
+    sampler.load_state_dict(head.state_dict())
+    sampler.eval()
+    ref_img, audio = _grid_inputs(1, gen)
+
+    def sample():
+        g = torch.Generator(device="cuda").manual_seed(SEED + 51)
+        return a2m_mod.sample_grid(sampler, ref_img, audio,
+                                   sample_step=GRID_STEPS, generator=g)
+    sample()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = sample()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    paths["grid_sample"] = launches = _read_counts()
+    want = dict(_no_launches(), full_block_attention=layers * GRID_STEPS)
+    with _plain_kernels():
+        ref = sample()
+    rel = ((out - ref).norm() / ref.norm()).item()
+    shape = (1, GRID_FRAMES, cfg.motion_in_channel, cfg.motion_height,
+             cfg.motion_width)
+    finite = bool(torch.isfinite(out).all())
+    _log(f"  sample_grid (bf16, N=1, {GRID_STEPS} steps) "
+         f"{tuple(out.shape)}: {ms:.2f} ms; vs plain attention rel L2 "
+         f"{rel:.3g}; finite {finite}; launches "
+         f"{ {k: v for k, v in launches.items() if v} }; {card}")
+    if not (launches == want and tuple(out.shape) == shape and finite
+            and rel <= GRID_REL_L2):
+        failures.append(f"sample_grid: launches {launches} want {want}, "
+                        f"shape {tuple(out.shape)}, finite {finite}, rel "
+                        f"{rel}")
+    del sampler, out, ref
+
+    nb = GRID_LOSS_CLIPS
+    ref_img, audio = _grid_inputs(nb, gen)
+    motion = torch.randn((nb,) + shape[1:], generator=gen, device="cuda")
+    noise = torch.randn(motion.shape, generator=gen, device="cuda")
+    ts = torch.randint(0, cfg.num_step + 1, (nb,), generator=gen,
+                       device="cuda")
+    params = list(head.parameters())
+
+    def loss_and_grads():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = head(motion, ref_img, audio, time_step=ts,
+                        noise=noise)["loss"]
+        return loss.detach(), torch.autograd.grad(loss, params)
+    loss_and_grads()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    lk, gk = loss_and_grads()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    paths["grid_loss"] = launches = _read_counts()
+    want = dict(_no_launches(), full_block_attention=layers,
+                full_block_attention_delta=layers,
+                full_block_attention_bwd=layers)
+    with _plain_kernels():
+        lp, gp = loss_and_grads()
+    rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    dot = sum((a.float() * b.float()).sum() for a, b in zip(gk, gp)).item()
+    nk = sum(a.float().square().sum() for a in gk).item() ** 0.5
+    npl = sum(b.float().square().sum() for b in gp).item() ** 0.5
+    cos = dot / (nk * npl)
+    _log(f"  grid head loss, forward and backward (N={nb}): {ms:.2f} ms; "
+         f"loss {lk.item():.6f} vs plain {lp.item():.6f} (rel {rel:.3g}), "
+         f"grad norm {nk:.5f} vs {npl:.5f}, cosine {cos:.6f}; launches "
+         f"{ {k: v for k, v in launches.items() if v} }")
+    if not (launches == want and rel <= STEP_LOSS_RTOL
+            and cos >= STEP_GRAD_COS):
+        failures.append(f"grid head loss: launches {launches} want {want}, "
+                        f"loss rel {rel}, gradient cosine {cos}")
+    del head, gk, gp
+    torch.cuda.empty_cache()
+    return paths
+
+
+def run_vis_cli(card, failures):
+    """Phase 3p: ``python -m hivae_tpu_torch.cli.vis`` in this process on
+    the shipped PosePre yaml written out as json (random weights from seed
+    0), VIS_PAIRS synthetic pose mp4s and embeddings of VIS_FRAMES + 3
+    frames. fp32 as the JAX CLI: no kernel takes an fp32 call, so the
+    SD-VAE's two mid-block attentions (the reference poses' encode, the
+    predicted poses' decode) run ``sdpa_plain``, 2 calls exactly, and no
+    kernel launches. The video handed to the writer: (VIS_FRAMES, 3, 256,
+    VIS_PAIRS x 256) uint8, the decoded pixels finite before
+    quantisation. Returns {path: launches}."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from hivae_tpu_torch.cli import a2v_inference, vis
+    from hivae_tpu_torch.data import video as vio
+    from hivae_tpu_torch.models import vae as vae_mod
+
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_vis")
+    shutil.rmtree(work, ignore_errors=True)
+    for sub in ("emb", "poses"):
+        os.makedirs(os.path.join(work, sub))
+    spec = a2v_inference.load_spec(A2M_POSEPRE_CONFIG)
+    cfg = spec["model"]
+    with open(os.path.join(work, "posepre.json"), "w") as f:
+        json.dump(spec, f)
+    write_training_videos(os.path.join(work, "poses"), count=VIS_PAIRS,
+                          frames=VIS_FRAMES + 3)
+    rng = np.random.RandomState(SEED + 60)
+    for i in range(VIS_PAIRS):
+        np.save(os.path.join(work, "emb", f"train{i}.npy"), rng.randn(
+            VIS_FRAMES + 3, cfg["audio_block"],
+            cfg["audio_inchannel"]).astype(np.float32))
+    written, finite = [], []
+    write, decode = vio.write_video, vae_mod.vae_decode
+
+    def record(path, video, *a, **k):
+        written.append(np.asarray(video))
+        return write(path, video, *a, **k)
+
+    def checked(*a, **k):
+        out = decode(*a, **k)
+        finite.append(bool(torch.isfinite(out).all()))
+        return out
+    out_path = os.path.join(work, "vis.mp4")
+    argv = ["--a2m_config", os.path.join(work, "posepre.json"),
+            "--audio_emb_dir", os.path.join(work, "emb"),
+            "--pose_video_dir", os.path.join(work, "poses"),
+            "--output_path", out_path, "--batch", str(VIS_PAIRS),
+            "--sample_frames", str(VIS_FRAMES)]
+    try:
+        vio.write_video, vae_mod.vae_decode = record, checked
+        np.random.seed(SEED)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = vis.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _read_counts()
+    finally:
+        vio.write_video, vae_mod.vae_decode = write, decode
+        shutil.rmtree(work, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = dict(_no_launches(), sdpa_plain=2)
+    shape = (VIS_FRAMES, 3, SIZE, VIS_PAIRS * SIZE)
+    got = tuple(written[0].shape) if written else None
+    _log(f"  cli.vis (PosePre yaml, fp32, {VIS_PAIRS} pairs of "
+         f"{VIS_FRAMES} frames): rc {rc}, grid {got} "
+         f"{written[0].dtype if written else None}, decoded finite "
+         f"{finite}; {wall:.1f} s with the models' build, peak "
+         f"{peak:.2f} GiB; launches "
+         f"{ {k: v for k, v in launches.items() if v} }; {card}")
+    if not (rc == 0 and got == shape and written[0].dtype == np.uint8
+            and finite == [True] and launches == want):
+        failures.append(f"cli.vis: rc {rc}, grid {got} want {shape}, "
+                        f"finite {finite}, launches {launches} want {want}")
+    torch.cuda.empty_cache()
+    return {"vis_cli": launches}
 
 
 # -- the dual-encoder AMD family (phases 3j-3l) --------------------------------
@@ -3176,6 +3493,167 @@ def run_amd_s_cli(common, work, videos, failures):
     return paths
 
 
+def run_train_a2m_cli(card, failures):
+    """Phase 7d: ``python -m hivae_tpu_torch.cli.train_a2m`` in this
+    process. An index (a ``.pkl`` of {video_path, audio_emb_path,
+    pose_path}, the JAX CLI's format) of phase 7's synthetic mp4s, seeded
+    embeddings and a second set of mp4s as the pose stream; a frozen
+    AMD_N (its random weights written as a reference-named
+    ``.safetensors``) and SD-VAE in bf16; the flagship head at AMD_N's 4
+    tokens with fp32 weights under bf16 autocast; N = A2M_TRAIN_CLIPS
+    clips of 16 frames. A2M_TRAIN_STEPS steps (a checkpoint at step 2 and
+    the final one), then a resume to one step more, then
+    ``cli.a2v_inference`` on the checkpoint it wrote. Each step runs the
+    object encoder's layers on the clip's and on the reference's latents
+    (full-block) and four VAE encodes (clip, reference, pose stream,
+    reference pose; streaming): launches exact; step ms (each step timed
+    to a device synchronise), clips/s and peak memory printed. Returns
+    {path: launches}."""
+    import contextlib
+    import io
+    import pickle
+    import shutil
+    import numpy as np
+    import torch
+    from hivae_tpu_torch.cli import a2v_inference, train_a2m
+
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build",
+                        "chip_smoke_a2m_train")
+    shutil.rmtree(work, ignore_errors=True)
+    videos, poses = (os.path.join(work, d) for d in ("videos", "poses"))
+    write_training_videos(videos)
+    write_training_videos(poses)
+    rng = np.random.RandomState(SEED + 70)
+    spec = a2m_spec()
+    model = spec["model"]
+    index = []
+    for i in range(CLI_VIDEOS):
+        emb = os.path.join(videos, f"train{i}.npy")
+        np.save(emb, rng.randn(CLI_VIDEO_FRAMES, model["audio_block"],
+                               model["audio_inchannel"]).astype(np.float32))
+        index.append({"video_path": os.path.join(videos, f"train{i}.mp4"),
+                      "audio_emb_path": emb,
+                      "pose_path": os.path.join(poses, f"train{i}.mp4")})
+    with open(os.path.join(work, "index.pkl"), "wb") as f:
+        pickle.dump(index, f)
+    amd, _ = build_serving_models()
+    enc_layers = amd.cfg.object_enc_num_layers
+    amd_cfg = amd.cfg
+    amd_st = os.path.join(work, "amd_n.safetensors")
+    write_safetensors(amd_st, _reference_named(amd))
+    del amd
+    torch.cuda.empty_cache()
+    a2m_json = os.path.join(work, "a2m.json")
+    with open(a2m_json, "w") as f:
+        json.dump(dict(spec, model=dict(
+            model, motion_num_token=amd_cfg.object_motion_token_num)), f)
+    argv = ["--a2m_config", a2m_json, "--amd_config", CONFIG,
+            "--amd_ckpt", amd_st, "--video_dir",
+            os.path.join(work, "index.pkl"), "--output_dir", work,
+            "--exp_name", "run", "--train_batch_size", str(A2M_TRAIN_CLIPS),
+            "--video_frames", str(WINDOW), "--save_checkpoint_interval_step",
+            "2", "--dataloader_num_workers", "4"]
+    step_fn = train_a2m.A2MTrainer.train_step
+    times = []
+
+    def timed(trainer, *a, **k):
+        t0 = time.perf_counter()
+        out = step_fn(trainer, *a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    per_step = dict(_no_launches(), full_block_attention=2 * enc_layers,
+                    stream_attention=4)
+    paths = {}
+    try:
+        train_a2m.A2MTrainer.train_step = timed
+        for label, steps, extra in (
+                ("train", A2M_TRAIN_STEPS, []),
+                ("resume", 1, ["--resume_training", "true"])):
+            total = A2M_TRAIN_STEPS + (label == "resume")
+            buf = io.StringIO()
+            times.clear()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_a2m.main(argv + ["--max_train_steps", str(total)]
+                                    + extra)
+            wall = time.perf_counter() - t0
+            launches = _read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            out = buf.getvalue()
+            paths[f"train_a2m_{label}"] = launches
+            want = {k: v * steps for k, v in per_step.items()}
+            ckpts = sorted(os.listdir(os.path.join(work, "run",
+                                                   "checkpoints")))
+            later = sorted(times[1:] or times)
+            step_s = later[(len(later) - 1) // 2]
+            final = [x for x in out.splitlines()
+                     if x.startswith("final metrics")]
+            _log(f"  cli.train_a2m ({label}): rc {rc}, {len(times)} steps "
+                 f"of {A2M_TRAIN_CLIPS} clips, step times "
+                 f"{[round(t * 1e3, 2) for t in times]} ms (median after "
+                 f"the first {step_s * 1e3:.2f} ms, "
+                 f"{A2M_TRAIN_CLIPS / step_s:.3f} clips/s), peak "
+                 f"{peak:.2f} GiB, {wall:.1f} s with the models' build and "
+                 f"saves; checkpoints {ckpts}; {final}; launches "
+                 f"{ {k: v for k, v in launches.items() if v} }; {card}")
+            resumed = label != "resume" or \
+                f"resumed at step {A2M_TRAIN_STEPS}" in out
+            if not (rc == 0 and len(times) == steps and launches == want
+                    and final and f"checkpoint-{total}" in ckpts
+                    and resumed):
+                failures.append(f"cli.train_a2m ({label}): rc {rc}, steps "
+                                f"{len(times)}, launches {launches} want "
+                                f"{want}, checkpoints {ckpts}, {final}, "
+                                f"resumed {resumed}")
+    finally:
+        train_a2m.A2MTrainer.train_step = step_fn
+
+    try:
+        import cv2
+        frames = ((synthetic_clip(SEED + 71, 1)[0][0].transpose(1, 2, 0)
+                   + 1) * 127.5).clip(0, 255).astype(np.uint8)
+        ref_png = os.path.join(work, "ref.png")
+        cv2.imwrite(ref_png, cv2.cvtColor(frames, cv2.COLOR_RGB2BGR))
+        # phase 3m's length: two windows and a tail past the 8 reference
+        # frames (a tail needs W + R driven frames before it)
+        talk = os.path.join(work, "talk.npy")
+        np.save(talk, rng.randn(A2V_FRAMES, model["audio_block"],
+                                model["audio_inchannel"]).astype(np.float32))
+        out_path = os.path.join(work, "out", "talk.mp4")
+        buf = io.StringIO()
+        _zero_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = a2v_inference.main([
+                "--amd_config", CONFIG, "--amd_ckpt", amd_st,
+                "--a2m_config", os.path.join(work, "run", "config.json"),
+                "--a2m_ckpt", os.path.join(work, "run", "checkpoints"),
+                "--ref_image", ref_png, "--audio_emb", talk,
+                "--output", out_path,
+                "--motion_sample_step", str(A2V_CLI_STEPS),
+                "--video_sample_step", str(A2V_CLI_STEPS)])
+        launches = _read_counts()
+        paths["train_a2m_served"] = launches
+        line = [x for x in buf.getvalue().splitlines()
+                if x.startswith("generated")]
+        want = dict(_no_launches(), **_a2v_launches(
+            amd_cfg, video_steps=A2V_CLI_STEPS, motion_steps=A2V_CLI_STEPS))
+        _log(f"  cli.a2v_inference on the trained checkpoint: rc {rc}, "
+             f"{line}, launches "
+             f"{ {k: v for k, v in launches.items() if v} }")
+        if not (rc == 0 and line and launches == want):
+            failures.append(f"cli.a2v_inference on the cli.train_a2m "
+                            f"checkpoint: rc {rc}, {line}, launches "
+                            f"{launches} want {want}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return paths
+
+
 # -- phase 8: parallelism over ranks that share the one card ------------------
 #
 # NCCL refuses two ranks on one device, so the multi-rank phases run their
@@ -3198,6 +3676,12 @@ PAR_DP_CLIPS, PAR_RING_CLIPS, PAR_FSDP_CLIPS = 4, 2, 2
 # the long window of benchmarks/bench_longwindow.py (flagship widths) and
 # its Euler steps here
 LONG_WINDOW, LONG_WINDOW_STEPS = 64, 2
+# phase 8's models keep the flagship's widths at a cut depth: its gloo
+# collectives move every gradient and checkpoint tensor through host
+# memory, so their time follows the parameter count, and phase 8 is where
+# the script's time limit is met (the full depth runs in phases 4-7)
+PAR_DEPTH = dict(object_enc_num_layers=4, camera_enc_num_layers=4,
+                 diffusion_num_layers=4)
 RANK_TIMEOUT = 600
 
 
@@ -3537,8 +4021,8 @@ def _training_models(over=None):
     with open(CONFIG) as f:
         cfg = amd_mod.AMDConfig.from_dict(json.load(f))
     torch.manual_seed(SEED + 2)
-    amd = amd_mod.AMDModelNew(cfg.replace(**(over or {})), device="cuda",
-                              dtype=torch.float32)
+    amd = amd_mod.AMDModelNew(cfg.replace(**PAR_DEPTH, **(over or {})),
+                              device="cuda", dtype=torch.float32)
     vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
                                 dtype=torch.bfloat16).eval()
     vae.requires_grad_(False)
@@ -3585,8 +4069,8 @@ def rank_long_window(res, vae):
         use_filter=True, use_grey=True, video_frames=LONG_WINDOW,
         camera_motion_token_num=LONG_WINDOW, camera_motion_token_channel=16,
         object_motion_token_num=4, object_motion_token_channel=512,
-        motion_token_channel=512, diffusion_num_layers=12,
-        diffusion_model_type="spatial", attn_impl="ring")
+        motion_token_channel=512, diffusion_model_type="spatial",
+        attn_impl="ring", **PAR_DEPTH)
     torch.manual_seed(SEED + 3)
     amd = amd_mod.AMDModelNew(cfg, device="cuda", dtype=torch.bfloat16).eval()
     sites = _long_window_sites(cfg, world)
@@ -3913,8 +4397,14 @@ def run_parallel_cli(work, failures):
     exp = os.path.join(work, "exp")
     ckpts = os.path.join(exp, "mesh", "checkpoints")
     write_training_videos(videos)
+    with open(CONFIG) as f:
+        par_cfg = dict(json.load(f), **PAR_DEPTH)
+    par_config = os.path.join(work, "config_par.json")
+    with open(par_config, "w") as f:
+        json.dump(par_cfg, f)
     argv = ["--video_dir", videos, "--output_dir", exp, "--exp_name", "mesh",
-            "--amd_config", CONFIG, "--train_batch_size", str(RUN_A_CLIPS),
+            "--amd_config", par_config,
+            "--train_batch_size", str(RUN_A_CLIPS),
             "--mp", "bf16", "--remat", "true", "--mu_dtype", "bf16",
             "--seed", str(SEED), "--max_train_steps", "2",
             "--save_checkpoint_interval_step", "2", "--mesh", "2,1,1",
@@ -4084,6 +4574,8 @@ def main() -> int:
     _log("phase 3m: audio to video, the flagship A2M head and AMD_N")
     a2v_paths, _, a2v_latency = run_a2v(serving, card, failures)
     paths.update(a2v_paths)
+    _log("phase 3n: A2V with the LearnableToken and SimpleAdaLN heads")
+    paths.update(run_a2v_heads(serving, card, failures))
     _log("phase 3b: the int8 (w8a8) clip")
     paths["clip_int8"], _ = run_int8_clip(serving, bf16_clip, latency,
                                           args, failures)
@@ -4091,6 +4583,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     _log("phase 3m: the int8 A2V clip")
     paths.update(run_a2v_int8(a2v_latency, card, failures))
+    _log("phase 3n: the int8 A2V clip with the LearnableToken head")
+    paths.update(run_a2v_int8(None, card, failures,
+                              model_type="A2MModel_LearnableToken"))
+    _log("phase 3o: the grid A2M head, sample_grid and its loss")
+    paths.update(run_grid_head(card, failures))
+    _log("phase 3p: cli.vis on the PosePre yaml (fp32)")
+    paths.update(run_vis_cli(card, failures))
     paths.update(run_amd_family(failures))
 
     _log(f"phase 4: training run A, N={RUN_A_CLIPS}, MSE loss")
@@ -4143,6 +4642,9 @@ def main() -> int:
     _log(f"phase 7: the training CLI on {CLI_VIDEOS} mp4s, N={RUN_A_CLIPS}")
     paths.update(run_train_cli(failures, args.profile))
     torch.cuda.empty_cache()
+    _log(f"phase 7d: cli.train_a2m, N={A2M_TRAIN_CLIPS}, then a resume and "
+         f"cli.a2v_inference on its checkpoint")
+    paths.update(run_train_a2m_cli(card, failures))
 
     paths.update(run_parallel(fa, failures))
 

@@ -11,11 +11,14 @@ given (the counterpart of the JAX package's ``a2v_inference.py``).
 The AMD model, the A2M head and the SD-VAE serve in bf16 on ``--device``
 (CUDA by default). The A2M spec is a json or yaml ``{model_type, model:
 {...}}``; its checkpoint a reference-named ``.safetensors`` file or a
-checkpoint directory of the port's trainer (an Orbax directory, the JAX
-package's format, is refused). Of the JAX trainer's ``model_type`` names
-the three cross-attention heads are built; the others are refused
-(ROADMAP.md Queue 1 #7b). Without ffmpeg on PATH the muxed file is an AVI;
-the path written is printed.
+checkpoint directory of the port's trainers (an Orbax directory, the JAX
+package's format, is refused). The pipeline hands the head audio only, so
+of the JAX trainer's ``model_type`` names the audio cross-attention head
+and the LearnableToken and SimpleAdaLN heads serve; the heads that
+condition on pose (``POSE_HEADS``) are refused with a ``ValueError``
+naming the missing input, where the JAX CLI fails in its initialisation.
+Without ffmpeg on PATH the muxed file is an AVI; the path written is
+printed.
 """
 
 from __future__ import annotations
@@ -35,13 +38,25 @@ from ..training import checkpoint as ckpt_lib
 from ..utils.device import resolve_device
 from . import common
 
-# the JAX trainer's model_type names (train_a2m.py) built here, by variant
-A2M_VARIANTS = {"A2MModel_CrossAtten_Audio": "audio",
-                "A2MModel_CrossAtten_Audio_Pose": "audio_pose",
-                "A2MModel_CrossAtten_Pose": "pose"}
-# the JAX trainer's other heads, not ported yet
-A2M_NOT_PORTED = ("A2MModel_LearnableToken", "A2MModel_SimpleAdaLN",
-                  "A2MModel_CrossAtten_Audio_PosePre")
+# the JAX trainer's model_type names (train_a2m.py), each the head built
+A2M_TYPES = {
+    "A2MModel_CrossAtten_Audio": lambda cfg, **kw:
+        a2m_mod.A2MModelCrossAttnAudio(cfg, "audio", **kw),
+    "A2MModel_CrossAtten_Audio_Pose": lambda cfg, **kw:
+        a2m_mod.A2MModelCrossAttnAudio(cfg, "audio_pose", **kw),
+    "A2MModel_CrossAtten_Pose": lambda cfg, **kw:
+        a2m_mod.A2MModelCrossAttnAudio(cfg, "pose", **kw),
+    "A2MModel_LearnableToken": lambda cfg, **kw:
+        a2m_mod.A2MModelLearnableToken(cfg, **kw),
+    "A2MModel_SimpleAdaLN": lambda cfg, **kw:
+        a2m_mod.A2MModelLearnableToken(cfg, simple_adaln=True, **kw),
+    "A2MModel_CrossAtten_Audio_PosePre": lambda cfg, **kw:
+        a2m_mod.A2MModelPosePre(cfg, **kw),
+}
+# the heads whose conditions read pose latents: the JAX CLIs initialise a
+# head with audio inputs only, which fails on these
+POSE_HEADS = ("A2MModel_CrossAtten_Audio_Pose", "A2MModel_CrossAtten_Pose",
+              "A2MModel_CrossAtten_Audio_PosePre")
 
 
 def parse_args(argv=None):
@@ -93,27 +108,31 @@ def load_spec(path: str) -> dict:
     return json.loads(text)
 
 
-def build_a2m(spec: dict, device, dtype: torch.dtype = torch.float32
-              ) -> a2m_mod.A2MModelCrossAttnAudio:
+def build_a2m(spec: dict, device, dtype: torch.dtype = torch.float32):
     """The A2M head a spec names, on ``device`` in ``dtype``."""
     model_type = spec["model_type"]
-    if model_type in A2M_NOT_PORTED:
-        raise NotImplementedError(
-            f"A2M model_type {model_type} is not ported yet (ROADMAP.md "
-            "Queue 1 #7b); the port builds " + ", ".join(A2M_VARIANTS))
-    if model_type not in A2M_VARIANTS:
+    if model_type not in A2M_TYPES:
         raise ValueError(f"A2M model_type {model_type}: one of "
-                         f"{sorted(A2M_VARIANTS)}")
+                         f"{sorted(A2M_TYPES)}")
     cfg = a2m_mod.A2MConfig.from_dict(spec.get("model", {}))
-    return a2m_mod.A2MModelCrossAttnAudio(cfg, A2M_VARIANTS[model_type],
-                                          device=device, dtype=dtype)
+    return A2M_TYPES[model_type](cfg, device=device, dtype=dtype)
 
 
-def load_a2m(args, device, dtype: torch.dtype = torch.bfloat16
-             ) -> a2m_mod.A2MModelCrossAttnAudio:
+def refuse_pose_heads(spec: dict, cli: str) -> None:
+    """A head that conditions on pose cannot serve or train from audio
+    alone: the JAX CLI fails on it in its initialisation (a None pose)."""
+    if spec["model_type"] in POSE_HEADS:
+        raise ValueError(
+            f"{cli}: A2M model_type {spec['model_type']} conditions on pose "
+            "latents (pose/ref_pose), and this path passes audio and "
+            "ref_audio only; the JAX CLI fails on it the same way")
+
+
+def load_a2m(args, device, dtype: torch.dtype = torch.bfloat16):
     """The A2M head of ``args.a2m_config`` with the weights of
     ``args.a2m_ckpt`` (``args.use_ema``: a trainer checkpoint's EMA)."""
     spec = load_spec(args.a2m_config)
+    refuse_pose_heads(spec, "a2v_inference")
     with common._seeded(device):
         model = build_a2m(spec, device, dtype).eval()
     if args.a2m_ckpt.endswith(".safetensors"):

@@ -1,7 +1,7 @@
 """Training datasets and a threaded prefetching loader on the host (the
 port's own copy of ``list_videos``, ``VideoClipDataset``,
-``RandomPairDataset``, ``_collate`` and ``DataLoader`` of
-``hivae_tpu/data/datasets.py``).
+``RandomPairDataset``, ``VideoAudioDataset``, ``VideoAudioRandomRefDataset``,
+``_collate`` and ``DataLoader`` of ``hivae_tpu/data/datasets.py``).
 
   * ``VideoClipDataset``: fps-resampled consecutive clips; frame 0 is the
     reference frame, repeated over the clip; optional grey twins and the
@@ -9,15 +9,17 @@ port's own copy of ``list_videos``, ``VideoClipDataset``,
     index.
   * ``RandomPairDataset``: random non-equal (reference, target) frame
     pairs.
+  * ``VideoAudioDataset``, ``VideoAudioRandomRefDataset``: clips with their
+    audio embeddings (and a pose stream) for A2M training, the reference
+    the frame before the clip or one drawn from outside it.
   * ``DataLoader``: a pool of threads and a bounded queue feeding stacked
     numpy batches in order. Threads, not worker processes: every sample
     draws from the dataset's one seeded ``random.Random``, and worker
     processes would each draw from a copy of it.
 
 Index sources: a directory searched for mp4s, a ``.pkl`` list, a ``.txt``
-of directories, or a ``.csv`` with a ``videos`` column. The audio and
-label datasets of the JAX package are not ported yet (ROADMAP.md Queue 1
-#7 and #8).
+of directories, or a ``.csv`` with a ``videos`` column. The label
+dataset of the JAX package is not ported yet (ROADMAP.md Queue 1 #8).
 """
 
 from __future__ import annotations
@@ -166,6 +168,78 @@ class RandomPairDataset(VideoClipDataset):
         pixels = vio.pixel_transform(frames, self.sample_size)
         return {"name": meta["name"], "ref_img": pixels[:n],
                 "videos": pixels[n:]}
+
+
+class VideoAudioDataset(VideoClipDataset):
+    """Clips with their per-frame audio embeddings (whisper ``.npy``, (T,
+    M, D)) for A2M training. Index entries {"video_path",
+    "audio_emb_path"[, "pose_path"]}: a ``pose_path`` mp4 adds the pose
+    stream, read at the same frames. The reference is the frame before
+    the clip: ``ref_video`` (its pixels repeated over the clip),
+    ``gt_video``, ``ref_audio``, ``gt_audio``, ``mask`` (N,) and, with a
+    pose stream, ``ref_pose`` and ``gt_pose``. A clip shorter than the
+    window is zero-padded after its frames and masked."""
+
+    def _sample_indices(self, usable: int):
+        """-> (index, mask): frame 0 of ``index`` is the reference, the
+        rest the clip."""
+        n = self.sample_n_frames
+        if usable >= n + 1:
+            start = self.rng.randint(0, usable - n - 1) if usable > n + 1 \
+                else 0
+            return np.arange(start, start + n + 1), np.ones((n,), np.float32)
+        mask = np.zeros((n,), np.float32)
+        mask[:max(usable - 1, 0)] = 1.0
+        return np.arange(usable), mask
+
+    def get_batch(self, idx: int) -> Dict[str, Any]:
+        meta = self.metadata[idx]
+        audio = np.load(meta["audio_emb_path"])
+        total, _ = vio.video_metadata(meta["video_path"])
+        n = self.sample_n_frames
+        index, mask = self._sample_indices(min(total, audio.shape[0]))
+
+        def pad_to(x, length):
+            if x.shape[0] >= length:
+                return x[:length]
+            pad = np.zeros((length - x.shape[0],) + x.shape[1:], x.dtype)
+            return np.concatenate([x, pad], axis=0)
+
+        pixels = pad_to(vio.pixel_transform(vio.read_video_frames(
+            meta["video_path"], index), self.sample_size), n + 1)
+        audio_clip = pad_to(audio[index].astype(np.float32), n + 1)
+        sample = {"name": meta["name"],
+                  "ref_video": np.repeat(pixels[:1], n, axis=0),
+                  "gt_video": pixels[1:], "ref_audio": audio_clip[0],
+                  "gt_audio": audio_clip[1:], "mask": mask}
+        if meta.get("pose_path"):
+            pose = pad_to(vio.pixel_transform(vio.read_video_frames(
+                meta["pose_path"], index), self.sample_size), n + 1)
+            sample["ref_pose"] = pose[0]
+            sample["gt_pose"] = pose[1:]
+        return sample
+
+
+class VideoAudioRandomRefDataset(VideoAudioDataset):
+    """``VideoAudioDataset`` with the reference frame (video, pose and
+    audio) drawn uniformly from outside the clip, or the clip's first
+    frame where no frame lies outside it."""
+
+    def _sample_indices(self, usable: int):
+        n = self.sample_n_frames
+        if usable >= n:
+            start = self.rng.randint(0, usable - n) if usable > n else 0
+            clip = np.arange(start, start + n)
+            mask = np.ones((n,), np.float32)
+        else:
+            clip = np.arange(max(usable, 1))
+            mask = np.zeros((n,), np.float32)
+            mask[:usable] = 1.0
+        outside = np.concatenate([np.arange(0, clip[0]),
+                                  np.arange(clip[-1] + 1, usable)])
+        ref = (int(outside[self.rng.randint(0, len(outside) - 1)])
+               if len(outside) else int(clip[0]))
+        return np.concatenate([[ref], clip]), mask
 
 
 def _collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:

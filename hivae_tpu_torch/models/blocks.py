@@ -1,5 +1,6 @@
 """Transformer blocks of the clip-reconstruction path and of the A2M
-head (port of ``hivae_tpu/models/blocks.py``).
+heads, with their audio feature MLPs (port of
+``hivae_tpu/models/blocks.py``).
 
 Parameter names follow the reference's diffusers modules (``to_out.0``,
 ``net.0.proj``, ``net.2``), which ``utils/params.py`` maps the JAX trees
@@ -162,6 +163,28 @@ class AdaLNZeroSingle(nn.Module):
         shift, scale, gate = self.linear(F.silu(temb)).chunk(3, dim=-1)
         return (modulate(self.norm(hidden), scale[:, None], shift[:, None]),
                 gate[:, None])
+
+
+class AdaLNZeroTriple(nn.Module):
+    """Three-stream AdaLN-Zero: one linear -> 9 chunks (shift, scale, gate
+    of the hidden stream, then of each condition), one shared affine
+    LayerNorm."""
+
+    def __init__(self, embed_dim: int, cond_dim: int):
+        super().__init__()
+        self.linear = nn.Linear(cond_dim, 9 * embed_dim)
+        self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
+
+    def forward(self, hidden, cond1, cond2, temb):
+        (shift, scale, gate, c1_shift, c1_scale, c1_gate, c2_shift, c2_scale,
+         c2_gate) = self.linear(F.silu(temb)).chunk(9, dim=-1)
+        hidden = modulate(self.norm(hidden), scale[:, None], shift[:, None])
+        cond1 = modulate(self.norm(cond1), c1_scale[:, None],
+                         c1_shift[:, None])
+        cond2 = modulate(self.norm(cond2), c2_scale[:, None],
+                         c2_shift[:, None])
+        return (hidden, cond1, cond2, gate[:, None], c1_gate[:, None],
+                c2_gate[:, None])
 
 
 class AdaLayerNorm(nn.Module):
@@ -348,6 +371,136 @@ class A2MCrossAttnBlock(nn.Module):
         motion = motion + gate * out[:, l:]
         ref_motion = ref_motion + r_gate * out[:, :l]
         return motion, ref_motion
+
+
+def _split3(out, hl: int, c1l: int):
+    return out[:, :hl], out[:, hl:hl + c1l], out[:, hl + c1l:]
+
+
+class JointBlock2Condition(nn.Module):
+    """Three-stream joint block: 9-way AdaLN-Zero, self-attention over
+    [hidden, cond1, cond2], per-stream gated residuals, the same for the
+    FF. Returns (hidden, cond1, cond2)."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, cond_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = AdaLNZeroTriple(dim, cond_dim)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm2 = AdaLNZeroTriple(dim, cond_dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, hidden, cond1, cond2, temb):
+        hl, c1l = hidden.shape[1], cond1.shape[1]
+        h, c1, c2, g, g1, g2 = self.norm1(hidden, cond1, cond2, temb)
+        o, o1, o2 = _split3(self.attn1(torch.cat([h, c1, c2], dim=1)), hl,
+                            c1l)
+        hidden, cond1, cond2 = hidden + g * o, cond1 + g1 * o1, \
+            cond2 + g2 * o2
+        h, c1, c2, g, g1, g2 = self.norm2(hidden, cond1, cond2, temb)
+        o, o1, o2 = _split3(self.ff(torch.cat([h, c1, c2], dim=1)), hl, c1l)
+        return hidden + g * o, cond1 + g1 * o1, cond2 + g2 * o2
+
+
+class JointBlock2ConditionSimple(nn.Module):
+    """Three-stream joint block with AdaLN-Zero on the hidden stream only;
+    the conditions take a plain pre-LN and ungated residuals."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, cond_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = AdaLNZeroSingle(dim, cond_dim)
+        self.norm1_condition1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1_condition2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm2 = AdaLNZeroSingle(dim, cond_dim)
+        self.norm2_condition1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2_condition2 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def forward(self, hidden, cond1, cond2, temb):
+        hl, c1l = hidden.shape[1], cond1.shape[1]
+        h, gate = self.norm1(hidden, temb)
+        joint = torch.cat([h, self.norm1_condition1(cond1),
+                           self.norm1_condition2(cond2)], dim=1)
+        o, o1, o2 = _split3(self.attn1(joint), hl, c1l)
+        hidden, cond1, cond2 = hidden + gate * o, cond1 + o1, cond2 + o2
+        h, gate = self.norm2(hidden, temb)
+        joint = torch.cat([h, self.norm2_condition1(cond1),
+                           self.norm2_condition2(cond2)], dim=1)
+        o, o1, o2 = _split3(self.ff(joint), hl, c1l)
+        return hidden + gate * o, cond1 + o1, cond2 + o2
+
+
+class A2PTemporalSpatialBlock(nn.Module):
+    """Pre-LN attention over time (each token's F frames), then over space
+    (each frame's L tokens), then the FF; (N, F, L, D) in and out."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, f, l, d = x.shape
+        xt = x.transpose(1, 2).reshape(n * l, f, d)
+        xt = xt + self.attn1(self.norm1(xt))
+        xs = xt.reshape(n, l, f, d).transpose(1, 2).reshape(n * f, l, d)
+        xs = xs + self.attn2(self.norm2(xs))
+        xs = xs + self.ff(self.norm3(xs))
+        return xs.reshape(n, f, l, d)
+
+
+class A2PCrossAudioBlock(nn.Module):
+    """Per-frame pre-LN cross-attention of the pose tokens (N, F, L, D) to
+    the frame's audio window (N, F, W, D), then the FF."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x: torch.Tensor, audio: torch.Tensor) -> torch.Tensor:
+        n, f, l, d = x.shape
+        xf = x.reshape(n * f, l, d)
+        xf = xf + self.attn1(self.norm1(xf),
+                             audio.reshape(n * f, audio.shape[2], d))
+        xf = xf + self.ff(self.norm2(xf))
+        return xf.reshape(n, f, l, d)
+
+
+class Mlp(nn.Module):
+    """timm-style MLP: fc1, exact (erf) GELU, fc2."""
+
+    def __init__(self, in_features: int, hidden_features: int,
+                 out_features: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, out_features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class AudioFeatureMlp(nn.Module):
+    """(N, F, M, C) audio features -> (N, F, outdim): each frame's
+    flattened (M*C) features through an ``Mlp`` of width ``outdim``."""
+
+    def __init__(self, in_features: int, outdim: int):
+        super().__init__()
+        self.mlp = Mlp(in_features, outdim, outdim)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        n, f = audio.shape[:2]
+        return self.mlp(audio.reshape(n, f, -1).to(self.mlp.fc1.weight.dtype))
 
 
 class AudioFeatureWindowMlp(nn.Module):

@@ -59,3 +59,31 @@ def get_2d_sincos_pos_embed(embed_dim: int,
     emb_h = _sincos_from_grid(embed_dim // 2, grid[0])
     emb_w = _sincos_from_grid(embed_dim // 2, grid[1])
     return np.concatenate([emb_h, emb_w], axis=1).astype(np.float32)
+
+
+@lru_cache(maxsize=64)
+def get_3d_sincos_pos_embed(embed_dim: int, spatial_size: Tuple[int, int],
+                            temporal_size: int,
+                            spatial_interpolation_scale: float = 1.0,
+                            temporal_interpolation_scale: float = 1.0
+                            ) -> np.ndarray:
+    """(T, H*W, embed_dim) table as diffusers' ``get_3d_sincos_pos_embed``:
+    the first quarter of the channels encodes time, the rest the 2-D
+    position (``spatial_size`` is (w, h))."""
+    assert embed_dim % 4 == 0
+    w, h = spatial_size
+    dim_spatial, dim_temporal = 3 * embed_dim // 4, embed_dim // 4
+    grid = np.meshgrid(
+        np.arange(w, dtype=np.float64) / spatial_interpolation_scale,
+        np.arange(h, dtype=np.float64) / spatial_interpolation_scale)
+    grid = np.stack(grid, axis=0).reshape([2, 1, h, w])
+    pos_spatial = np.concatenate(
+        [_sincos_from_grid(dim_spatial // 2, grid[0]),
+         _sincos_from_grid(dim_spatial // 2, grid[1])], axis=1)
+    pos_temporal = _sincos_from_grid(
+        dim_temporal, np.arange(temporal_size, dtype=np.float64)
+        / temporal_interpolation_scale)
+    pos_spatial = np.repeat(pos_spatial[np.newaxis], temporal_size, axis=0)
+    pos_temporal = np.repeat(pos_temporal[:, np.newaxis], h * w, axis=1)
+    return np.concatenate([pos_temporal, pos_spatial],
+                          axis=-1).astype(np.float32)

@@ -211,8 +211,7 @@ def gt_motion_window(amd: amd_mod.AMDModelNew, cur_gt, m2v_ref, *,
 
 
 @torch.no_grad()
-def a2v_window(amd: amd_mod.AMDModelNew,
-               a2m: a2m_mod.A2MModelCrossAttnAudio, ref_motion, audio,
+def a2v_window(amd: amd_mod.AMDModelNew, a2m, ref_motion, audio,
                ref_audio, m2v_ref, *, motion_steps: int, video_steps: int,
                generator: amd_mod.DrawSource = None, quant_table=None,
                a2m_quant_table=None):
@@ -519,7 +518,10 @@ class ImageAudio2VideoPipeline(_Serving):
     generated latents) and R audio frames; the A2M head samples the
     window's motion and the AMD model decodes it from the last generated
     latent. A ragged tail re-runs the last W frames of the audio and its
-    overlap replaces the earlier windows' frames.
+    overlap replaces the earlier windows' frames. The head is any A2M head
+    that samples from audio alone (``models.a2m.sample``: the audio
+    cross-attention head, LearnableToken, SimpleAdaLN); it is handed the
+    window's audio and the reference frame's, never pose.
 
     ``quant="int8"`` serves three legs in w8a8 and strips their float
     weights: the AMD DiT's ODE loop, the VAE decode and the A2M head's ODE
@@ -528,8 +530,8 @@ class ImageAudio2VideoPipeline(_Serving):
     VAE encode stay in the compute dtype."""
 
     def __init__(self, vae: vae_mod.AutoencoderKL, amd: amd_mod.AMDModelNew,
-                 a2m: a2m_mod.A2MModelCrossAttnAudio, window: int = 16,
-                 a2m_ref_num_frame: int = 8, sample_size: int = 256,
+                 a2m, window: int = 16, a2m_ref_num_frame: int = 8,
+                 sample_size: int = 256,
                  need_motion_extract_model: bool = False,
                  quant: Optional[str] = None):
         if window < a2m_ref_num_frame:

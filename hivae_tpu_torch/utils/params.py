@@ -16,8 +16,11 @@ ones. Layouts:
 The modules of the config flags carry the JAX names too
 (``camera_down/conv{1,2}``, ``motion_transformer/{embed,blocks_i,
 norm_final,proj_out}``), so the same rules cover them, and so do the A2M
-head's (``audio_encoder/{ff1,ff2,ff3,norm}``, ``diffusion/{motion,audio,
-pose}_blocks_i``, the embeddings, ``norm_final``, ``norm_out``,
+heads' (``audio_encoder/{ff1,ff2,ff3,norm}`` or ``audio_encoder/mlp/{fc1,
+fc2}``, ``diffusion/{motion,audio,pose}_blocks_i`` or ``diffusion/
+blocks_i``, ``pose_predictor/{temporal_spatial,audio}_blocks_i`` and its
+``pose_mask_token``, the embeddings (a ``PatchEmbed``'s ``proj`` keeps
+its channel-major patch layout), ``norm_final``, ``norm_out``,
 ``proj_out``).
 
 Input is the flax tree as nested mappings of numpy arrays (with or without
@@ -45,6 +48,8 @@ _RULES: List[Tuple[str, str]] = [
     (r"\bmotion_blocks_(\d+)\b", r"motion_blocks.\1"),
     (r"\baudio_blocks_(\d+)\b", r"audio_blocks.\1"),
     (r"\bpose_blocks_(\d+)\b", r"pose_blocks.\1"),
+    # `_` is a word character: \bspatial_blocks_ does not match in here
+    (r"\btemporal_spatial_blocks_(\d+)\b", r"temporal_spatial_blocks.\1"),
     (r"\bresnets_(\d+)\b", r"resnets.\1"),
     (r"\battentions_(\d+)\b", r"attentions.\1"),
     (r"\bdownsamplers_(\d+)\b", r"downsamplers.\1"),

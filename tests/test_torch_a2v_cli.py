@@ -17,9 +17,10 @@
     weights on a directory of mp4s with and without a wav beside them:
     equal ``.npy`` files;
   * the argument parsers: the same flags and defaults (the port adds
-    ``--device``); the A2M heads the port does not build yet are refused
-    naming ROADMAP 7b; ``--video_frames`` other than ``--window`` is
-    refused.
+    ``--device``); every head type of the JAX trainer is built, and the
+    CLI serves it or refuses it (the heads that condition on pose, with a
+    ``ValueError`` naming it) exactly where the JAX CLI's initialisation
+    fails; ``--video_frames`` other than ``--window`` is refused.
 """
 
 import json
@@ -45,6 +46,7 @@ from hivae_tpu.utils import misc as jmisc
 from hivae_tpu_torch.cli import a2v_inference, get_whisper_emb
 from hivae_tpu_torch.cli import common as cli_common
 from hivae_tpu_torch.data import video as tvio
+from hivae_tpu_torch.models import a2m as ta2m
 from hivae_tpu_torch.models import amd as tamd
 from hivae_tpu_torch.models import vae as tvae
 from test_torch_a2v import A2M_CFG, C, M, SIZE, VAE_CFG, W, stack  # noqa: F401
@@ -192,18 +194,51 @@ def test_a2v_cli_refusals(files, tmp_path):
     with pytest.raises(SystemExit, match="--video_frames 8 != --window 4"):
         a2v_inference.main(_argv(files, tmp_path / "x.mp4") + [
             "--video_frames", "8", "--device", "cpu"])
-    for model_type in a2v_inference.A2M_NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="Queue 1 #7b"):
-            a2v_inference.build_a2m({"model_type": model_type}, "cpu")
     with pytest.raises(ValueError, match="A2M model_type Nope"):
         a2v_inference.build_a2m({"model_type": "Nope"}, "cpu")
-    # every JAX trainer head is either built or refused as not ported
-    import train_a2m
+    # every JAX trainer head is built, and served or refused exactly where
+    # the JAX CLI fails: its load_a2m initialises the head on audio alone
     import inspect
-    names = set(__import__("re").findall(
-        r'"(A2MModel_\w+)"', inspect.getsource(train_a2m.build_a2m)))
-    assert names == set(a2v_inference.A2M_VARIANTS) | set(
-        a2v_inference.A2M_NOT_PORTED)
+    import re
+    import train_a2m
+    names = set(re.findall(r'"(A2MModel_\w+)"',
+                           inspect.getsource(train_a2m.build_a2m)))
+    assert names == set(a2v_inference.A2M_TYPES)
+    args = a2v_inference.parse_args(_argv(files, tmp_path / "x.mp4"))
+    x = np.zeros((1, W, M, C), np.float32)
+    for model_type in sorted(names):
+        spec = {"model_type": model_type, "model": dict(
+            A2M_CFG, pose_height=4, pose_width=4,
+            pose_predictor_attn_head_dim=8, pose_predictor_attn_num_heads=2,
+            pose_predictor_attn_num_layers=1)}
+        jmod, _ = train_a2m.build_a2m(spec, jnp.float32)
+        try:
+            jax.eval_shape(lambda: jmod.init(
+                {"params": common.KEY, "noise": common.KEY},
+                jnp.zeros((1, W, 4, 32)), jnp.zeros((1, 4, 32)),
+                audio=jnp.asarray(x), ref_audio=jnp.asarray(x[:, 0])))
+            jax_serves = True
+        except (TypeError, AttributeError):
+            jax_serves = False
+        head = a2v_inference.build_a2m(spec, "cpu")
+        spec_path = tmp_path / f"{model_type}.json"
+        spec_path.write_text(json.dumps(spec))
+        args.a2m_config = str(spec_path)
+        args.a2m_ckpt = str(tmp_path / "absent.safetensors")
+        if jax_serves:
+            assert model_type not in a2v_inference.POSE_HEADS
+            with torch.no_grad():
+                out = ta2m.sample(head, torch.zeros(1, 4, 32), W,
+                                  sample_step=1, audio=torch.from_numpy(x),
+                                  ref_audio=torch.from_numpy(x[:, 0]),
+                                  generator=torch.Generator().manual_seed(0))
+            assert out.shape == (1, W, 4, 32)
+            with pytest.raises(FileNotFoundError):   # past the refusal
+                a2v_inference.load_a2m(args, "cpu", torch.float32)
+        else:
+            assert model_type in a2v_inference.POSE_HEADS
+            with pytest.raises(ValueError, match="conditions on pose"):
+                a2v_inference.load_a2m(args, "cpu", torch.float32)
     # an Orbax directory (the JAX package's checkpoints) is refused
     (tmp_path / "orbax" / "checkpoint-1").mkdir(parents=True)
     (tmp_path / "orbax" / "checkpoint-1" / "_METADATA").write_text("{}")
