@@ -34,7 +34,13 @@ Phases (any failure exits non-zero without the final result line):
    DiT (masked too), and the training shapes at N = 4; and an FFN-up case
    at M 4512 (the int8 AMD_S clip). The other A2M heads add the grid
    head's joint block, S 528 at N = 1 and 4, forward and backward, and an
-   FFN-up case at M 84 (the LearnableToken head's joint block). Each
+   FFN-up case at M 84 (the LearnableToken head's joint block). The other
+   models add the T2M head's joint block at D 128 (S 269, 281 and 298,
+   N = 1, which serves and trains) and the MAE's decoder at D 32 (S 257,
+   N = 32 and 4) and MAE_L's encoder at mask 0 (D 64), forward and
+   backward, and the CNN motion AE's ``MapConv`` attention at D 640
+   ((16, 1, 1024, 640), masked too) on the streaming forward, delta, dQ
+   and dK/dV kernels. Each
    kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
@@ -127,6 +133,19 @@ Phases (any failure exits non-zero without the final result line):
    the grid video's shape and dtype, finite decoded pixels, no kernel
    launch and exactly 2 ``sdpa_plain`` calls (the fp32 VAE's encode and
    decode mid-block attentions, which no kernel takes);
+   3q. T2M ``sample`` (after 3n, on the same AMD_N and SD-VAE): the
+   default ``T2MConfig`` (3.0 B parameters, 2048 wide, 16 heads of 128,
+   20 layers) with AMD_N's 4 object tokens, bf16 on seeded weights built
+   on the card, on phase 3's clip's camera target and reference latents,
+   an int label and the text fallback's embedding; Euler and Heun at 10
+   steps, each timed with exact launches (200 / 400 full-block at (16,
+   16, 269, 128)), finite, its motion (sample - z0) within
+   ``T2M_MOTION_REL_L2`` of its plain run's;
+   3r. the CNN motion AE (forward and its loss's backward on 16 frames of
+   32 x 32 latents: ``MapConv``'s attention at (16, 1, 1024, 640) on the
+   streaming kernels, exactly one forward, delta, dQ and dK/dV launch and
+   no ``sdpa_plain``) and the six discriminators at their defaults (train
+   and eval: no launch), finite, expected shapes;
    3b. (run after 3c-3i and 3m, since it strips the models' float weights) the int8
    clip through ``AMDReconstructionPipeline(vae, amd, quant="int8")`` on
    the same weights: 360 fused FFN-up launches (36 FFNs x 10 Euler steps),
@@ -206,6 +225,18 @@ Phases (any failure exits non-zero without the final result line):
    it wrote; exact launches (a step: 16 full-block for the two
    ``extract_motion`` calls, 4 streaming for the four VAE encodes), step
    ms, clips/s and peak memory;
+   7e. T2M training on a tree of two class directories of mp4s: one
+   timed step of ``cli.train_t2m.T2MTrainer`` at full depth (20 layers),
+   N = 1, with its peak memory (fp32 weights and AdamW moments: 48 GB;
+   running out of the card's memory fails the phase), then the CLI in
+   this process at ``T2M_CLI_LAYERS`` layers, 2 steps and a resume to 3;
+   exact launches (8 + layers full-block forward, layers delta and
+   backward, 4 streaming a step);
+   7f. ``hivae_tpu_torch.cli.train_mae`` with MAE_L on 32 frames a step,
+   2 steps and a resume to 3 (8 full-block forward, delta and backward at
+   (32, 16, 257, 32) and 1 streaming a step), then ``reconstruct`` with
+   its checkpoint's weights (32 full-block) within ``MAE_REL_L2`` of its
+   plain run;
 8. parallelism. NCCL refuses two ranks on one device, so the ranks are
    processes that share this card over gloo (``spawn_ranks``: this script
    with ``--rank-phase``, a time limit each), whose collectives the port
@@ -374,6 +405,30 @@ A2M_JOINT_FFN_ROWS = 4 * (WINDOW + 1) + WINDOW
 # phase 7d, cli.train_a2m: clips a step, steps, then one resumed step; the
 # CLI's serving leg at A2V_CLI_STEPS
 A2M_TRAIN_CLIPS, A2M_TRAIN_STEPS = 4, 3
+# phases 3q, 3r, 7e and 7f, the other models: the T2M head at the default
+# T2MConfig widths with AMD_N's 4 object tokens a frame (its default 16 do
+# not pair with AMD_N: cli.train_t2m refuses them), sampled at T2M_STEPS
+# on an int label and on the text fallback's embedding; its training at
+# full depth and its CLI at T2M_CLI_LAYERS on T2M_VIDEOS mp4s in two class directories; MAE_L
+# trained at MAE_TRAIN_CLIPS frames a step, then reconstructing MAE_RECON
+T2M_OVERRIDES = {"object_token_num": 4}
+T2M_STEPS, T2M_LABEL = 10, 3
+T2M_TEXT = "a person waves at the camera"
+# A T2M sample against its run on the plain attention versions (bf16
+# through 20 layers and 10 steps), held on the motion the solver
+# integrated, sample - z0: the shared start noise z0 is most of a sample
+# and would hide a fault in the velocity. Relative L2 distance (measured
+# 0.0023-0.0033 on an H100 80GB HBM3 at 700 W).
+T2M_MOTION_REL_L2 = 1e-2
+# the text label must move that motion by this many times the largest
+# kernel-vs-plain distance of the same runs (measured 6.4x)
+T2M_LABEL_MOVES = 3
+# MAE_L's reconstruct against its plain-attention run (bf16 through 24
+# encoder and 8 decoder blocks): relative L2 distance of the latents
+MAE_REL_L2 = 1e-2
+T2M_CLI_LAYERS = 2
+T2M_VIDEOS, T2M_VIDEO_FRAMES = 4, 24
+MAE_TRAIN_CLIPS, MAE_VIDEO_FRAMES, MAE_RECON = 32, 4, 4
 
 # (name, q shape, launches per clip at sample_step=10)
 FULL_BLOCK_CASES = [
@@ -395,6 +450,10 @@ STREAM_CHECKS = [
     # the ring's kernel hops of phase 8a: 4096 tokens over 2 and 4 ranks
     ("ring hop, P 2 (2048 local tokens)", (1, 16, 2048, 64), False),
     ("ring hop, P 4 (1024 local tokens), masked", (1, 16, 1024, 64), True),
+    # the CNN motion AE's MapConv (phase 3r): 16 frames of 32 x 32 latents
+    # at 640 channels, one head
+    ("AE MapConv (D 640)", (16, 1, 1024, 640), False),
+    ("AE MapConv, masked (D 640)", (4, 1, 1024, 640), True),
 ]
 # check-only full-block cases (label, q shape, Sk or None, weight 0,
 # masked): a fully masked key row; the largest shape ``full_block_fits``
@@ -434,7 +493,21 @@ FULL_BLOCK_CHECKS = [
         # the A2M grid head's joint block (phase 3o): sample_grid at N = 1
         # and its loss at N = 4
         ("A2M grid joint (S 528)", (1, 16, 528, 64), False),
-        ("A2M grid joint N=4 (S 528)", (4, 16, 528, 64), False))
+        ("A2M grid joint N=4 (S 528)", (4, 16, 528, 64), False),
+        # the T2M head's joint block (phases 3q, 7e; N = 1 serves and
+        # trains): 16 x 128 over AMD_N's 4 + 1 + 8 motion tokens and 256
+        # patches, and at the default 16 object tokens, with and without an
+        # object source; the MAE decoder (16 x 32 over 1 + 256 tokens) at
+        # the training N = 32 (phase 7f) and MAE_L's encoder (16 x 64) and
+        # decoder at mask 0 on MAE_RECON frames
+        ("T2M joint (S 269, D 128)", (16, 16, 269, 128), False),
+        ("T2M joint, default tokens (S 281, D 128)", (16, 16, 281, 128),
+         False),
+        ("T2M joint, object source (S 298, D 128)", (16, 16, 298, 128),
+         False),
+        ("MAE decoder N=32 (S 257, D 32)", (32, 16, 257, 32), False),
+        ("MAE_L encoder, mask 0 (S 257, D 64)", (4, 16, 257, 64), False),
+        ("MAE decoder, mask 0 (S 257, D 32)", (4, 16, 257, 32), False))
 ]
 
 # training: clips per step in runs A and B, timed steps, frames per clip
@@ -453,6 +526,9 @@ STREAM_BWD_CHECKS = [
     # the ring's kernel hops of phase 8a (a hop's dQ and dK/dV)
     ("ring hop, P 2 (2048 local tokens)", (1, 16, 2048, 64), False),
     ("ring hop, P 4 (1024 local tokens), masked", (1, 16, 1024, 64), True),
+    # the CNN motion AE's loss backward (phase 3r)
+    ("AE MapConv (D 640)", (16, 1, 1024, 640), False),
+    ("AE MapConv, masked (D 640)", (4, 1, 1024, 640), True),
 ]
 STREAM_MASKED_KEYS = slice(64, 128)
 # Gradients of bf16 attention, held relative to their largest element: both
@@ -504,7 +580,14 @@ def full_block_bwd_cases(clips):
             (f"DiT camera joint N={clips}", (nt, 16, 512, 64), 12)]
 
 
+_T0 = time.perf_counter()
+
+
 def _log(msg: str) -> None:
+    """A line on stderr; a phase's first line carries the seconds since
+    the script started, so the log shows where its time went."""
+    if msg.startswith("phase "):
+        msg = f"{msg}  [{time.perf_counter() - _T0:.1f} s]"
     print(msg, file=sys.stderr, flush=True)
 
 
@@ -3167,16 +3250,17 @@ def build_variant(over):
 
 
 def write_training_videos(directory, count=CLI_VIDEOS,
-                          frames=CLI_VIDEO_FRAMES):
-    """``count`` mp4s of ``frames`` 256² frames at 8 fps: a blocky texture
-    panning a few pixels a frame under a disc moving the other way, so
-    that the optical-flow camera masks are not trivial."""
+                          frames=CLI_VIDEO_FRAMES, start=0):
+    """``count`` mp4s of ``frames`` 256² frames at 8 fps
+    (``train{start}.mp4`` on): a blocky texture panning a few pixels a
+    frame under a disc moving the other way, so that the optical-flow
+    camera masks are not trivial."""
     import numpy as np
     from hivae_tpu_torch.data import video as vio
 
     os.makedirs(directory, exist_ok=True)
     yy, xx = np.mgrid[:SIZE, :SIZE]
-    for i in range(count):
+    for i in range(start, start + count):
         rng = np.random.RandomState(SEED + 100 + i)
         pan = 2 + i % 4
         width = SIZE + pan * frames
@@ -3188,7 +3272,7 @@ def write_training_videos(directory, count=CLI_VIDEOS,
         for t in range(frames):
             f = tex[:, t * pan:t * pan + SIZE].copy()
             disc = (yy - cy - vy * t) ** 2 + (xx - cx + (pan + 3) * t) ** 2
-            f[disc < (SIZE // 10) ** 2] = (240, 40 + 20 * i, 60)
+            f[disc < (SIZE // 10) ** 2] = (240, (40 + 20 * i) % 256, 60)
             clip.append(f)
         vio.write_video(os.path.join(directory, f"train{i}.mp4"),
                         np.stack(clip), fps=8)
@@ -3650,6 +3734,473 @@ def run_train_a2m_cli(card, failures):
                             f"{launches} want {want}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return paths
+
+
+# -- phases 3q, 3r, 7e and 7f: the other models -------------------------------
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def run_t2m_sample(models, card, failures):
+    """Phase 3q: T2M ``sample`` on the card. The default ``T2MConfig``
+    (2048 wide, 16 heads of 128, 20 layers, ``time_embed_dim`` 768,
+    ``label_dim`` 512) with AMD_N's 4 object tokens (``T2M_OVERRIDES``), in
+    bf16 on seeded random weights built on the card; conditioned on the
+    camera target of phase 3's clip through AMD_N's ``encode`` (cut to 8
+    sites of 8 channels) and its reference latents, and on an int label
+    and on ``TextEncoder``'s fallback embedding of ``T2M_TEXT``. Euler and
+    Heun at ``T2M_STEPS``: one warm-up, then each run timed with exact
+    launches (a full-block forward at (16, 16, 269, 128) a layer and
+    velocity call; ``sdpa_plain`` 0), finite, and its integrated motion
+    (sample - z0) within ``T2M_MOTION_REL_L2`` of the same run's on the
+    plain attention versions. Returns {path: launches}."""
+    import torch
+    from hivae_tpu_torch.data.text import TextEncoder
+    from hivae_tpu_torch.models import t2m as t2m_mod
+    from hivae_tpu_torch.models import vae as vae_mod
+
+    amd, vae = models
+    cfg = t2m_mod.T2MConfig(**T2M_OVERRIDES)
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(SEED + 80)
+    t0 = time.perf_counter()
+    head = t2m_mod.Label2MotionDiffusionDecoder(
+        cfg, device="cuda", dtype=torch.bfloat16).eval()
+    build_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in head.parameters())
+    rgb, grey = synthetic_clip()
+    with torch.no_grad():
+        z, zg = (vae_mod.vae_encode(vae, torch.from_numpy(x)[None].cuda())
+                 for x in (rgb, grey))
+        ref = z[:, :1].expand(-1, WINDOW, -1, -1, -1)
+        cam_t = amd.encode(z[:, 1:], ref, zg[:, 1:],
+                           zg[:, :1].expand(-1, WINDOW, -1, -1, -1))[0]
+    cam = cam_t[:, :, :cfg.camera_token_num, :cfg.camera_channel]
+    tokens = cfg.object_token_num + 1 + cfg.camera_token_num + \
+        (cfg.refimg_height // cfg.refimg_patch_size) * \
+        (cfg.refimg_width // cfg.refimg_patch_size)
+    _log(f"  T2M head {n / 1e6:.1f} M params (bf16, built on the card in "
+         f"{build_s:.1f} s), joint block (16, 16, {tokens}, "
+         f"{cfg.attention_head_dim}); camera target {tuple(cam_t.shape)} "
+         f"cut to {tuple(cam.shape)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    z0 = torch.randn((WINDOW, cfg.object_token_num, cfg.object_channel),
+                     generator=gen, device="cuda")
+    label = torch.tensor([T2M_LABEL], device="cuda")
+    text = torch.from_numpy(TextEncoder(width=cfg.label_dim)(
+        [T2M_TEXT])[1]).cuda()
+    paths, outs, rels = {}, {}, []
+    for name, lab, solver, calls in (("t2m_euler", label, "euler", 1),
+                                     ("t2m_heun", label, "heun", 2),
+                                     ("t2m_text", text, "euler", 1)):
+        def run():
+            return t2m_mod.sample(head, lab, ref, cam,
+                                  sample_steps=T2M_STEPS, solver=solver,
+                                  z0=z0)
+        if not outs:
+            run()
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        paths[name] = launches = _read_counts()
+        want = dict(_no_launches(), full_block_attention=(
+            calls * cfg.num_layers * T2M_STEPS))
+        with _plain_kernels():
+            plain = run()
+        rel = _rel_l2(out - z0, plain - z0)
+        rels.append(rel)
+        finite = bool(torch.isfinite(out).all())
+        outs[name] = out
+        shape = (WINDOW, cfg.object_token_num, cfg.object_channel)
+        _log(f"  T2M sample {name} ({solver}, {T2M_STEPS} steps, N 1 of "
+             f"{WINDOW} frames): {ms:.2f} ms; motion (sample - z0) vs plain "
+             f"attention rel L2 {rel:.3g} (whole sample "
+             f"{_rel_l2(out, plain):.3g}); finite {finite}; launches "
+             f"{ {k: v for k, v in launches.items() if v} }; {card}")
+        if not (launches == want and tuple(out.shape) == shape and finite
+                and rel <= T2M_MOTION_REL_L2):
+            failures.append(f"T2M sample {name}: launches {launches} want "
+                            f"{want}, shape {tuple(out.shape)}, finite "
+                            f"{finite}, rel {rel}")
+    moved = _rel_l2(outs["t2m_text"] - z0, outs["t2m_euler"] - z0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _log(f"  T2M text vs int label: motion rel L2 {moved:.3g} apart "
+         f"({moved / max(rels):.3g}x the largest kernel-vs-plain distance, "
+         f"{T2M_LABEL_MOVES}x asked); peak {peak:.2f} GiB")
+    if not moved > T2M_LABEL_MOVES * max(rels):
+        failures.append(f"T2M sample: the text label moved the motion by "
+                        f"{moved}, within {T2M_LABEL_MOVES}x the rounding "
+                        f"noise {max(rels)}")
+    del head
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _write_t2m_inputs(work, layers):
+    """A T2M config json (``T2M_OVERRIDES`` at ``layers`` layers) under
+    ``work``; returns its path."""
+    path = os.path.join(work, f"t2m_{layers}.json")
+    with open(path, "w") as f:
+        json.dump(dict(T2M_OVERRIDES, num_layers=layers), f)
+    return path
+
+
+def _t2m_step_at_depth(train_t2m, base_argv, work, layers, card):
+    """One timed step of ``T2MTrainer`` (built by the CLI's ``build``) at
+    ``layers`` layers, N 1, after a warm-up step -> (launches, ms, peak
+    GiB, metrics)."""
+    import torch
+    from hivae_tpu_torch.data.datasets import DataLoader
+
+    args = train_t2m.parse_args(base_argv + [
+        "--t2m_config", _write_t2m_inputs(work, layers), "--exp_name",
+        f"depth{layers}", "--train_batch_size", "1"])
+    torch.cuda.reset_peak_memory_stats()
+    cfg, head, amd, vae, dataset = train_t2m.build(args, torch.device("cuda"))
+    trainer = train_t2m.T2MTrainer(head, amd, vae, args,
+                                   os.path.join(work, f"depth{layers}"))
+    batches = iter(DataLoader(dataset, 1, num_workers=2))
+    trainer.train_step(next(batches))
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(next(batches))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: float(v) for k, v in metrics.items()}
+    n = sum(p.numel() for p in head.parameters())
+    _log(f"  T2M training step at {layers} layers ({n / 1e6:.1f} M trained "
+         f"params, fp32 weights and AdamW moments, bf16 autocast; N 1 of "
+         f"{WINDOW} frames): {ms:.2f} ms, peak {peak:.2f} GiB, {metrics}; "
+         f"launches { {k: v for k, v in launches.items() if v} }; {card}")
+    return launches, ms, peak, metrics
+
+
+def run_train_t2m(card, failures):
+    """Phase 7e: T2M training. A tree of two class directories of
+    synthetic mp4s, the frozen AMD_N (its random weights written as a
+    reference-named ``.safetensors``) and SD-VAE in bf16, the head with
+    fp32 weights under bf16 autocast, N 1 of 16 frames. First one timed
+    step of ``cli.train_t2m.T2MTrainer`` at full depth (20 layers), with
+    its peak memory (an out-of-memory error fails the phase). Then the CLI
+    itself in this process at ``T2M_CLI_LAYERS`` layers (full width; its
+    checkpoints are 12 bytes a parameter): 2 steps (a checkpoint at step
+    2), then a resume to step 3. Each step: the object encoder's layers
+    and the head's joint blocks forward (full-block), the joint blocks'
+    delta and backward, four VAE encodes (streaming): launches exact,
+    ``sdpa_plain`` 0, metrics finite. Returns {path: launches}."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from hivae_tpu_torch.cli import train_t2m
+    from hivae_tpu_torch.models import t2m as t2m_mod
+
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_t2m")
+    shutil.rmtree(work, ignore_errors=True)
+    tree = os.path.join(work, "videos")
+    for i, cls in enumerate(("clsA", "clsB")):
+        write_training_videos(os.path.join(tree, cls), count=T2M_VIDEOS // 2,
+                              frames=T2M_VIDEO_FRAMES,
+                              start=i * T2M_VIDEOS // 2)
+    amd, _ = build_serving_models()
+    enc_layers = amd.cfg.object_enc_num_layers
+    amd_st = os.path.join(work, "amd_n.safetensors")
+    write_safetensors(amd_st, _reference_named(amd))
+    del amd, _
+    torch.cuda.empty_cache()
+    base = ["--amd_config", CONFIG, "--amd_ckpt", amd_st, "--video_dir",
+            tree, "--output_dir", work, "--video_frames", str(WINDOW),
+            "--dataloader_num_workers", "2"]
+
+    def per_step(layers):
+        return dict(_no_launches(), full_block_attention=enc_layers + layers,
+                    full_block_attention_bwd=layers,
+                    full_block_attention_delta=layers, stream_attention=4)
+    paths = {}
+    full = t2m_mod.T2MConfig().num_layers
+    try:
+        launches, ms, peak, metrics = _t2m_step_at_depth(
+            train_t2m, base, work, full, card)
+    except torch.OutOfMemoryError as e:
+        failures.append(f"T2M training step ({full} layers): out of the "
+                        f"card's memory ({str(e).splitlines()[0][:160]})")
+    else:
+        paths["train_t2m_step"] = launches
+        finite = all(math.isfinite(v) for v in metrics.values())
+        if not (launches == per_step(full) and finite):
+            failures.append(f"T2M training step ({full} layers): launches "
+                            f"{launches} want {per_step(full)}, metrics "
+                            f"{metrics}")
+    torch.cuda.empty_cache()
+
+    argv = base + ["--t2m_config", _write_t2m_inputs(work, T2M_CLI_LAYERS),
+                   "--exp_name", "run", "--train_batch_size", "1",
+                   "--save_checkpoint_interval_step", "2"]
+    try:
+        for label, steps, extra in (("train", 2, []),
+                                    ("resume", 1, ["--resume_training",
+                                                   "true"])):
+            total = 2 + (label == "resume")
+            buf = io.StringIO()
+            _zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_t2m.main(argv + ["--max_train_steps", str(total)]
+                                    + extra)
+            wall = time.perf_counter() - t0
+            launches = _read_counts()
+            out = buf.getvalue()
+            paths[f"train_t2m_{label}"] = launches
+            want = {k: v * steps for k, v in per_step(T2M_CLI_LAYERS).items()}
+            ckpts = sorted(os.listdir(os.path.join(work, "run",
+                                                   "checkpoints")))
+            final = [x for x in out.splitlines()
+                     if x.startswith("final metrics")]
+            resumed = label != "resume" or "resumed at step 2" in out
+            _log(f"  cli.train_t2m ({label}, {T2M_CLI_LAYERS} layers): rc "
+                 f"{rc}, {wall:.1f} s with the models' build and saves; "
+                 f"checkpoints {ckpts}; {final}; launches "
+                 f"{ {k: v for k, v in launches.items() if v} }")
+            if not (rc == 0 and launches == want and final and resumed
+                    and f"checkpoint-{total}" in ckpts
+                    and "nan" not in final[0]):
+                failures.append(f"cli.train_t2m ({label}): rc {rc}, "
+                                f"launches {launches} want {want}, "
+                                f"checkpoints {ckpts}, {final}, resumed "
+                                f"{resumed}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return paths
+
+
+def run_train_mae(card, failures):
+    """Phase 7f: ``python -m hivae_tpu_torch.cli.train_mae`` in this
+    process: MAE_L (328.1 M) with fp32 weights under bf16 autocast on a
+    bf16 SD-VAE, ``--train_batch_size`` MAE_TRAIN_CLIPS (one frame of each
+    of as many synthetic mp4s), mask ratio 0.75: 2 steps (a checkpoint at
+    step 2), then a resume to step 3; each step one VAE encode
+    (streaming), the decoder's 8 blocks at (32, 16, 257, 32) forward,
+    delta and backward (full-block), the encoder's 65 tokens plain:
+    launches exact, metrics finite, step time and peak memory printed.
+    Then ``reconstruct`` (mask ratio 0) of MAE_RECON latent frames with
+    the checkpoint's weights: the encoder at 257 tokens (D 64) and the
+    decoder on the full-block kernel, exact launches, within MAE_REL_L2 of
+    its run on the plain attention versions. Returns {path: launches}."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from hivae_tpu_torch.cli import train_mae
+    from hivae_tpu_torch.models import mae as mae_mod
+    from hivae_tpu_torch.models import vae as vae_mod
+    from hivae_tpu_torch.training import checkpoint as ckpt_lib
+
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_mae")
+    shutil.rmtree(work, ignore_errors=True)
+    videos = os.path.join(work, "videos")
+    write_training_videos(videos, count=MAE_TRAIN_CLIPS,
+                          frames=MAE_VIDEO_FRAMES)
+    argv = ["--video_dir", videos, "--model_type", "MAE_L",
+            "--train_batch_size", str(MAE_TRAIN_CLIPS), "--output_dir", work,
+            "--exp_name", "run", "--save_checkpoint_interval_step", "2",
+            "--lr_warmup_steps", "1", "--dataloader_num_workers", "4"]
+    dec = 8
+    per_step = dict(_no_launches(), full_block_attention=dec,
+                    full_block_attention_bwd=dec,
+                    full_block_attention_delta=dec, stream_attention=1)
+    step_fn = train_mae.MAETrainer.train_step
+    times = []
+
+    def timed(trainer, *a, **k):
+        t0 = time.perf_counter()
+        out = step_fn(trainer, *a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    paths = {}
+    try:
+        train_mae.MAETrainer.train_step = timed
+        for label, steps, extra in (("train", 2, []),
+                                    ("resume", 1, ["--resume_training",
+                                                   "true"])):
+            total = 2 + (label == "resume")
+            buf = io.StringIO()
+            times.clear()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = train_mae.main(argv + ["--max_train_steps", str(total)]
+                                    + extra)
+            wall = time.perf_counter() - t0
+            launches = _read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            out = buf.getvalue()
+            paths[f"train_mae_{label}"] = launches
+            want = {k: v * steps for k, v in per_step.items()}
+            ckpts = sorted(os.listdir(os.path.join(work, "run",
+                                                   "checkpoints")))
+            final = [x for x in out.splitlines()
+                     if x.startswith("final metrics")]
+            resumed = label != "resume" or "resumed at step 2" in out
+            _log(f"  cli.train_mae ({label}, MAE_L, N={MAE_TRAIN_CLIPS}): "
+                 f"rc {rc}, step times "
+                 f"{[round(t * 1e3, 2) for t in times]} ms, peak "
+                 f"{peak:.2f} GiB, {wall:.1f} s with the models' build and "
+                 f"saves; checkpoints {ckpts}; {final}; launches "
+                 f"{ {k: v for k, v in launches.items() if v} }; {card}")
+            if not (rc == 0 and len(times) == steps and launches == want
+                    and final and resumed and "nan" not in final[0]
+                    and f"checkpoint-{total}" in ckpts):
+                failures.append(f"cli.train_mae ({label}): rc {rc}, steps "
+                                f"{len(times)}, launches {launches} want "
+                                f"{want}, checkpoints {ckpts}, {final}, "
+                                f"resumed {resumed}")
+        model = mae_mod.MAE_L(device="cuda").eval()
+        model.load_state_dict(ckpt_lib.load_trained_params(
+            os.path.join(work, "run", "checkpoints")), strict=True)
+    finally:
+        train_mae.MAETrainer.train_step = step_fn
+        shutil.rmtree(work, ignore_errors=True)
+
+    vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
+                                dtype=torch.bfloat16).eval()
+    rgb, _ = synthetic_clip(SEED + 90, MAE_RECON)
+    with torch.no_grad():
+        imgs = vae_mod.vae_encode(vae, torch.from_numpy(rgb)[None].cuda())[0]
+    del vae
+
+    def recon():
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return model.reconstruct(imgs.float()).float()
+    recon()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = recon()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    paths["mae_reconstruct"] = launches = _read_counts()
+    want = dict(_no_launches(), full_block_attention=(
+        len(model.transformer_blocks) + len(model.decoder_blocks)))
+    with _plain_kernels():
+        plain = recon()
+    rel = _rel_l2(out, plain)
+    finite = bool(torch.isfinite(out).all())
+    _log(f"  MAE_L reconstruct of {MAE_RECON} latent frames "
+         f"{tuple(out.shape)}: {ms:.2f} ms; vs plain attention rel L2 "
+         f"{rel:.3g}; finite {finite}; launches "
+         f"{ {k: v for k, v in launches.items() if v} }")
+    if not (launches == want and finite and rel <= MAE_REL_L2
+            and out.shape == imgs.shape):
+        failures.append(f"MAE reconstruct: launches {launches} want {want}, "
+                        f"finite {finite}, rel {rel}, shape "
+                        f"{tuple(out.shape)}")
+    del model
+    torch.cuda.empty_cache()
+    return paths
+
+
+def run_other_models(card, failures):
+    """Phase 3r: the CNN motion AE and the discriminators at their default
+    widths, fp32 weights under bf16 autocast, on the card. The AE on a
+    16-frame clip of 32 x 32 latents, forward and its loss's backward:
+    finite, the clip's shape; its ``MapConv`` attends over the 32 x 32 grid
+    at 640 channels, (16, 1, 1024, 640), on the streaming kernels: one
+    forward, delta, dQ and dK/dV launch each, ``sdpa_plain`` 0 (its
+    16-token mid-block attentions stay plain, as in JAX's ``auto``). Each
+    discriminator forward
+    in ``train=True`` and ``train=False``, and the GAN losses of the
+    logits: finite, expected shapes, no launch, ``sdpa_plain`` 0. Returns
+    {path: launches}."""
+    import torch
+    from hivae_tpu_torch.losses import discriminator as disc
+    from hivae_tpu_torch.models import model_ae
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 95)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    torch.manual_seed(SEED + 95)
+    paths = {}
+    ae = model_ae.CNNMotionAE(device="cuda")
+    video = rand(1, WINDOW, 4, 32, 32)
+    params = list(ae.parameters())
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        pred = ae(video)
+        loss = ae.loss(pred, video)
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    paths["cnn_motion_ae"] = launches = _read_counts()
+    finite = bool(torch.isfinite(pred).all()) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
+    n = sum(p.numel() for p in params)
+    _log(f"  CNNMotionAE ({n / 1e6:.1f} M) forward and loss backward on "
+         f"(1, {WINDOW}, 4, 32, 32): {ms:.2f} ms (first call); loss "
+         f"{loss.item():.5f}; finite {finite}; launches "
+         f"{ {k: v for k, v in launches.items() if v} }; {card}")
+    want = dict(_no_launches(), stream_attention=1,
+                stream_attention_delta=1, stream_attention_bwd_dq=1,
+                stream_attention_bwd_dkv=1)
+    if not (launches == want and finite and pred.shape == video.shape):
+        failures.append(f"CNNMotionAE: launches {launches} want {want}, "
+                        f"finite {finite}, shape {tuple(pred.shape)}")
+    del ae, grads, pred
+    ts = torch.tensor([17.0, 250.0, 601.0, 999.0], device="cuda")
+    cases = (
+        ("NLayerDiscriminator", dict(in_channels=3), (rand(2, 3, 256, 256),),
+         (2, 1, 30, 30)),
+        ("NLayerDiscriminator3D", dict(in_channels=3),
+         (rand(1, 3, 32, 128, 128),), (1, 1, 2, 14, 14)),
+        ("Discriminator3DConv", dict(in_channels=4),
+         (rand(2, 4, WINDOW, 32, 32),), (2,)),
+        ("Discriminator2DConv", dict(in_channels=4), (rand(4, 4, 32, 32),),
+         (4,)),
+        ("Discriminator2DConvVel", dict(in_channels=8),
+         (rand(4, 8, 32, 32), ts), (4,)),
+        ("Discriminator2DAttn", dict(in_channels=8), (rand(4, 8, 32, 32), ts),
+         (4,)))
+    _zero_counts()
+    for name, kw, args, shape in cases:
+        model = getattr(disc, name)(device="cuda", **kw)
+        modes = (True, False) if name != "Discriminator2DAttn" else (None,)
+        outs = []
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            for train in modes:
+                extra = {} if train is None else dict(train=train)
+                outs.append(model(*args, **extra).float())
+        torch.cuda.synchronize()
+        losses = [disc.hinge_d_loss(outs[0], -outs[0]),
+                  disc.vanilla_d_loss(outs[0], -outs[0]),
+                  disc.generator_loss(outs[0])]
+        ok = all(tuple(o.shape) == shape and bool(torch.isfinite(o).all())
+                 for o in outs) and all(math.isfinite(x.item())
+                                        for x in losses)
+        n = sum(p.numel() for p in model.parameters())
+        _log(f"  {name} ({n / 1e6:.2f} M): out {tuple(outs[0].shape)} "
+             f"finite {ok}; hinge {losses[0].item():.4f}")
+        if not ok:
+            failures.append(f"{name}: shapes {[tuple(o.shape) for o in outs]}"
+                            f" want {shape}, or not finite")
+        del model
+    paths["discriminators"] = launches = _read_counts()
+    if launches != _no_launches():
+        failures.append(f"discriminators: launches {launches}, want none")
     torch.cuda.empty_cache()
     return paths
 
@@ -4576,6 +5127,9 @@ def main() -> int:
     paths.update(a2v_paths)
     _log("phase 3n: A2V with the LearnableToken and SimpleAdaLN heads")
     paths.update(run_a2v_heads(serving, card, failures))
+    _log("phase 3q: T2M sample at full width (20 layers, 16 x 128) on "
+         "AMD_N's camera tokens, an int and a text label")
+    paths.update(run_t2m_sample(serving, card, failures))
     _log("phase 3b: the int8 (w8a8) clip")
     paths["clip_int8"], _ = run_int8_clip(serving, bf16_clip, latency,
                                           args, failures)
@@ -4590,6 +5144,8 @@ def main() -> int:
     paths.update(run_grid_head(card, failures))
     _log("phase 3p: cli.vis on the PosePre yaml (fp32)")
     paths.update(run_vis_cli(card, failures))
+    _log("phase 3r: the CNN motion AE and the discriminators")
+    paths.update(run_other_models(card, failures))
     paths.update(run_amd_family(failures))
 
     _log(f"phase 4: training run A, N={RUN_A_CLIPS}, MSE loss")
@@ -4645,6 +5201,11 @@ def main() -> int:
     _log(f"phase 7d: cli.train_a2m, N={A2M_TRAIN_CLIPS}, then a resume and "
          f"cli.a2v_inference on its checkpoint")
     paths.update(run_train_a2m_cli(card, failures))
+    _log("phase 7e: T2M training, the step at full depth and cli.train_t2m")
+    paths.update(run_train_t2m(card, failures))
+    _log(f"phase 7f: cli.train_mae, MAE_L, N={MAE_TRAIN_CLIPS}, then "
+         f"reconstruct")
+    paths.update(run_train_mae(card, failures))
 
     paths.update(run_parallel(fa, failures))
 

@@ -1,7 +1,8 @@
-"""What the inference CLIs share: the model flags, the AMD model built
-from a JAX-schema ``config.json`` with its checkpoint (its ``attn_impl``
-installed for every attention call, as the JAX CLIs' ``load_amd`` does),
-the SD-VAE, and the process group of a multi-rank launch."""
+"""What the CLIs share: the model flags, the AMD model built from a
+JAX-schema ``config.json`` with its checkpoint (its ``attn_impl`` installed
+for every attention call, as the JAX CLIs' ``load_amd`` does), the SD-VAE,
+the process group of a multi-rank launch, and the trainer and loop of the
+single-card training CLIs (``train_a2m``, ``train_t2m``, ``train_mae``)."""
 
 from __future__ import annotations
 
@@ -11,13 +12,18 @@ import glob
 import json
 import os
 
+from typing import Dict, List, Optional
+
+import numpy as np
 import torch
 
+from ..data.datasets import DataLoader
 from ..models import amd as amd_mod
 from ..models import vae as vae_mod
 from ..ops.attention import install_attn_impl
 from ..parallel import mesh as mesh_lib
 from ..training import checkpoint as ckpt_lib
+from ..training.train_state import TrainState, global_norm, make_optimizer
 from ..utils.device import resolve_device
 from ..utils.checkpoint_io import load_safetensors, normalize_vae_keys
 
@@ -140,3 +146,109 @@ def mp4s(video_dir: str):
     """The mp4 files under ``video_dir``, recursively, in sorted order."""
     return sorted(glob.glob(os.path.join(video_dir, "**", "*.mp4"),
                             recursive=True))
+
+
+# -- the single-card training CLIs --------------------------------------------
+
+LOG_EVERY = 50         # steps between loss prints
+CHECKPOINTS_KEPT = 2   # the newest checkpoints kept, where no flag says
+
+
+class HeadTrainer:
+    """What the single-card training CLIs share: the trained module's fp32
+    parameters under AdamW (``make_optimizer``: the JAX package's schedule,
+    clipping and weight decay, ``schedule`` from its warm-up) with the
+    optional EMA, each step's generator, the optimizer step and the
+    checkpoints of ``<out_dir>/checkpoints`` (the newest ``keep``). A
+    subclass gives ``loss_and_grads(batch, draws)`` -> (metrics of fp32
+    scalars, fp32 grads in parameter order) of a batch on the device."""
+
+    def __init__(self, module: torch.nn.Module, args, out_dir: str,
+                 keep: int = CHECKPOINTS_KEPT, schedule: str = "constant"):
+        self.device = next(module.parameters()).device
+        self.seed = args.seed
+        self.autocast = args.mp in ("bf16", "fp16")
+        params = dict(module.named_parameters())
+        tx = make_optimizer(list(params.values()), args.learning_rate,
+                            args.lr_warmup_steps, args.max_train_steps,
+                            schedule=schedule)
+        self.state = TrainState(params, tx, ema_decay=args.ema_decay)
+        self.ckpt = ckpt_lib.CheckpointManager(
+            os.path.join(out_dir, "checkpoints"), keep)
+
+    def generator(self) -> torch.Generator:
+        """The generator of this step's draws, seeded by (seed, step)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.seed * 1_000_003 + self.state.step)
+        return gen
+
+    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
+                for k, v in batch.items() if not isinstance(v, list)}
+
+    def grads(self, loss: torch.Tensor) -> List[torch.Tensor]:
+        """fp32 gradients of ``loss`` in parameter order, zeros for a
+        parameter the loss does not reach."""
+        params = list(self.state.params.values())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        return [torch.zeros_like(p) if g is None else g.float()
+                for p, g in zip(params, grads)]
+
+    def loss_and_grads(self, batch, draws=None):
+        raise NotImplementedError
+
+    def train_step(self, batch, draws=None) -> Dict[str, torch.Tensor]:
+        """One optimizer step -> metrics (0-d tensors), ``grad_norm`` (the
+        global norm of the raw gradients) included."""
+        metrics, grads = self.loss_and_grads(self._to_device(batch), draws)
+        metrics["grad_norm"] = global_norm(grads)
+        self.state.apply_gradients(grads)
+        return metrics
+
+    def save(self) -> str:
+        return self.ckpt.save(self.state.step, self.state.state_dict())
+
+    def restore(self) -> None:
+        self.state.load_state_dict(self.ckpt.restore(
+            map_location=self.device))
+
+
+def training_loader(dataset, args) -> DataLoader:
+    """The loader of ``args.train_batch_size`` (last batch dropped); a
+    dataset that yields no batch is refused."""
+    loader = DataLoader(dataset, args.train_batch_size,
+                        num_workers=args.dataloader_num_workers)
+    if len(loader) == 0:
+        raise SystemExit(
+            "dataset yields ZERO batches (fewer usable items than "
+            "train_batch_size with drop_last): the training loop would spin "
+            "forever; shrink the batch or add data")
+    return loader
+
+
+def run_training_loop(trainer: HeadTrainer, loader: DataLoader, args
+                      ) -> Optional[Dict[str, torch.Tensor]]:
+    """``--resume_training`` from the newest checkpoint, then steps over
+    the loader's epochs up to ``--max_train_steps``: the loss printed every
+    ``LOG_EVERY`` steps, a checkpoint every
+    ``--save_checkpoint_interval_step`` and one at the end, and the final
+    metrics printed. Returns the last step's metrics (None for no step)."""
+    if args.resume_training and trainer.ckpt.latest_step() is not None:
+        trainer.restore()
+        print(f"resumed at step {trainer.state.step}")
+    step = trainer.state.step
+    metrics = None
+    while step < args.max_train_steps:
+        for batch in loader:
+            if step >= args.max_train_steps:
+                break
+            metrics = trainer.train_step(batch)
+            step = trainer.state.step
+            if step % LOG_EVERY == 0:
+                print(f"step {step}: loss={float(metrics['loss']):.4f}")
+            if step % args.save_checkpoint_interval_step == 0:
+                trainer.save()
+    trainer.save()
+    if metrics is not None:
+        print("final metrics:", {k: float(v) for k, v in metrics.items()})
+    return metrics

@@ -43,16 +43,13 @@ import argparse
 import dataclasses
 import os
 import sys
-from typing import Dict, List, Optional
+from typing import List, Optional
 
-import numpy as np
 import torch
 
-from ..data.datasets import (DataLoader, VideoAudioDataset,
-                             VideoAudioRandomRefDataset)
+from ..data.datasets import VideoAudioDataset, VideoAudioRandomRefDataset
 from ..models import vae as vae_mod
 from ..training import checkpoint as ckpt_lib
-from ..training.train_state import TrainState, global_norm, make_optimizer
 from ..utils.device import resolve_device
 from ..utils.misc import print_param_num
 from . import common
@@ -63,7 +60,6 @@ DATASETS = {"A2MVideoAudio": VideoAudioDataset,
             "A2MVideoAudioPoseRandomRef": VideoAudioRandomRefDataset}
 # heads whose training forward takes no pose keyword
 NO_POSE_KWARG = ("A2MModel_LearnableToken", "A2MModel_SimpleAdaLN")
-LOG_EVERY = 50
 
 
 def parse_args(argv=None):
@@ -139,27 +135,16 @@ class A2MDraws:
     z0: Optional[torch.Tensor] = None
 
 
-class A2MTrainer:
-    """The head (fp32 weights, trained), the frozen AMD model and VAE, the
-    optimizer state and the checkpoints of ``<out_dir>/checkpoints``."""
+class A2MTrainer(common.HeadTrainer):
+    """The head (fp32 weights, trained) and the frozen AMD model and VAE;
+    the optimizer state and the newest ``--checkpoint_total_limit``
+    checkpoints of ``<out_dir>/checkpoints`` (``common.HeadTrainer``)."""
 
     def __init__(self, head, amd, vae: vae_mod.AutoencoderKL, args,
                  out_dir: str):
+        super().__init__(head, args, out_dir,
+                         keep=args.checkpoint_total_limit)
         self.head, self.amd, self.vae = head, amd, vae
-        self.device = next(head.parameters()).device
-        self.seed = args.seed
-        self.autocast = args.mp in ("bf16", "fp16")
-        params = dict(head.named_parameters())
-        tx = make_optimizer(list(params.values()), args.learning_rate,
-                            args.lr_warmup_steps, args.max_train_steps)
-        self.state = TrainState(params, tx, ema_decay=args.ema_decay)
-        self.ckpt = ckpt_lib.CheckpointManager(
-            os.path.join(out_dir, "checkpoints"),
-            args.checkpoint_total_limit)
-
-    def _to_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(np.asarray(v)).to(self.device)
-                for k, v in batch.items() if not isinstance(v, list)}
 
     def _encode(self, pixels, noise, gen):
         """Posterior-sample latents of (N, T, 3, H, W) pixels, fp32."""
@@ -180,8 +165,7 @@ class A2MTrainer:
         batch on the device; unset ``draws`` come from the generator of
         (seed, step)."""
         d = draws or A2MDraws()
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.seed * 1_000_003 + self.state.step)
+        gen = self.generator()
         with torch.no_grad():
             gt_z = self._encode(batch["gt_video"], d.video, gen)
             # the reference is one frame repeated by the dataset: encoded
@@ -201,27 +185,8 @@ class A2MTrainer:
                            ref_audio=batch["ref_audio"], mask=batch["mask"],
                            timestep=d.timestep, z0=d.z0, generator=gen,
                            **pose_kw)
-        params = list(self.state.params.values())
-        grads = torch.autograd.grad(ld["loss"], params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g.float()
-                 for p, g in zip(params, grads)]
-        return {k: v.detach().float() for k, v in ld.items()}, grads
-
-    def train_step(self, batch, draws: Optional[A2MDraws] = None
-                   ) -> Dict[str, torch.Tensor]:
-        """One optimizer step -> metrics (0-d tensors), ``grad_norm``
-        included."""
-        metrics, grads = self.loss_and_grads(self._to_device(batch), draws)
-        metrics["grad_norm"] = global_norm(grads)
-        self.state.apply_gradients(grads)
-        return metrics
-
-    def save(self) -> str:
-        return self.ckpt.save(self.state.step, self.state.state_dict())
-
-    def restore(self) -> None:
-        self.state.load_state_dict(self.ckpt.restore(
-            map_location=self.device))
+        return ({k: v.detach().float() for k, v in ld.items()},
+                self.grads(ld["loss"]))
 
 
 def build(args, device: torch.device):
@@ -248,32 +213,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     os.makedirs(out_dir, exist_ok=True)
     ckpt_lib.save_config(spec, out_dir)
     print_param_num(spec["model_type"], head)
-    loader = DataLoader(dataset, args.train_batch_size,
-                        num_workers=args.dataloader_num_workers)
-    if len(loader) == 0:
-        raise SystemExit(
-            "dataset yields ZERO batches (fewer usable items than "
-            "train_batch_size with drop_last): the training loop would spin "
-            "forever; shrink the batch or add data")
-    trainer = A2MTrainer(head, amd, vae, args, out_dir)
-    if args.resume_training and trainer.ckpt.latest_step() is not None:
-        trainer.restore()
-        print(f"resumed at step {trainer.state.step}")
-    step = trainer.state.step
-    metrics = None
-    while step < args.max_train_steps:
-        for batch in loader:
-            if step >= args.max_train_steps:
-                break
-            metrics = trainer.train_step(batch)
-            step = trainer.state.step
-            if step % LOG_EVERY == 0:
-                print(f"step {step}: loss={float(metrics['loss']):.4f}")
-            if step % args.save_checkpoint_interval_step == 0:
-                trainer.save()
-    trainer.save()
-    if metrics is not None:
-        print("final metrics:", {k: float(v) for k, v in metrics.items()})
+    loader = common.training_loader(dataset, args)
+    common.run_training_loop(A2MTrainer(head, amd, vae, args, out_dir),
+                             loader, args)
     return 0
 
 

@@ -45,6 +45,14 @@
 // m64n16/32/48/64 up to the next multiple of 16 past Sk, and its P.V skips
 // the chunks past it. Rows past Sq are zero-filled and not stored.
 //
+// D = 640 (the CNN motion AE's MapConv, (B, 1, 1024, 640)): a 64 x 640 Q
+// tile is 80 KB and a 64-key K or V tile as much, so two slots would not
+// fit beside Q. There a K or V tile holds 32 keys (40 KB; three slots fit):
+// each warpgroup scores 16 keys of it (m64n16), P is a 64 x 32 tile and
+// P.V runs 2 chunks of 16 keys a tile into 5 m64n64 blocks of output
+// columns a warpgroup (160 accumulator registers a thread). The plan's
+// tile rows come from sf_bk, which the Python plan mirrors.
+//
 // Grid: ceil(Sq / 64) x H x B CTAs, 16 x 1 x 17 = 272 at the serving shape,
 // 2.06 waves of one CTA a SM on 132 SMs. The third wave is nearly empty, so
 // the launch takes about three CTA times where 2.06 would do; the plan does
@@ -55,15 +63,19 @@
 namespace hv {
 
 constexpr int SF_BQ = 64;        // query rows a CTA (one wgmma M)
-constexpr int SF_BK = 64;        // keys a K or V tile
-constexpr int SF_NC = SF_BK / 16;
+constexpr int SF_BK_MAX = 64;    // keys a K or V tile, at most
 constexpr int SF_THREADS = 256;  // two warpgroups
 constexpr int SF_MAX_STAGES = 4;
 constexpr int SF_SMEM_MAX = 232448;
-constexpr int SF_PLD = SF_BK + 8;  // row stride of the shared P tile
+constexpr int SF_PLD_MAX = SF_BK_MAX + 8;  // row stride of the P tile, at most
 // static shared bytes: the mbarriers, the P tile and the row partials
-constexpr int SF_STATIC = 8 * (SF_MAX_STAGES + 1) + SF_BQ * SF_PLD * 2 +
+constexpr int SF_STATIC = 8 * (SF_MAX_STAGES + 1) + SF_BQ * SF_PLD_MAX * 2 +
                           2 * SF_BQ * 4;
+
+// Keys a K or V tile: 64, or 32 past D = 512 (a 64-key tile would leave
+// room for one slot beside Q).
+template <int D>
+__host__ __device__ constexpr int sf_bk() { return D > 512 ? 32 : 64; }
 
 // Shared bytes, from a 1024-byte aligned base: the swizzled Q tile, then
 // `stages` slots of one swizzled K or V tile and a tile's fp32 bias row,
@@ -72,11 +84,13 @@ template <int D>
 __host__ __device__ constexpr int sf_q_bytes() { return sw128_bytes<D, SF_BQ>(); }
 
 template <int D>
-__host__ __device__ constexpr int sf_tile_bytes() { return sw128_bytes<D, SF_BK>(); }
+__host__ __device__ constexpr int sf_tile_bytes() {
+  return sw128_bytes<D, sf_bk<D>()>();
+}
 
 template <int D>
 __host__ __device__ constexpr int sf_slot_bytes() {
-  return (sf_tile_bytes<D>() + SF_BK * 4 + 1023) / 1024 * 1024;
+  return (sf_tile_bytes<D>() + sf_bk<D>() * 4 + 1023) / 1024 * 1024;
 }
 
 template <int D>
@@ -93,7 +107,7 @@ __host__ int sf_stages() {
 }
 
 // tq, tk, tv: tensor maps of q, k and v as (D, S, H, B) arrays, boxes of
-// 64 columns x 64 rows, 128-byte swizzled.
+// 64 columns x 64 rows (Q) or sf_bk rows (K, V), 128-byte swizzled.
 template <int D>
 __global__ void __launch_bounds__(SF_THREADS, 1)
 stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
@@ -105,9 +119,12 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int DH = D / 2;                  // output columns a warpgroup
   constexpr int NW = DH < 64 ? DH : 64;      // columns a P.V wgmma
   constexpr int NB = DH / NW;                // P.V wgmmas a 16-key chunk
+  constexpr int BK = sf_bk<D>(), NC = BK / 16, PLD = BK + 8;
+  constexpr int KW = BK / 2;                 // keys a warpgroup scores
+  constexpr int CW = KW / 16;                // its 16-key chunks
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t full[SF_MAX_STAGES + 1];  // slots' jobs, then Q
-  __shared__ __align__(16) bf16 Ps[SF_BQ * SF_PLD];  // bf16(P) of a tile
+  __shared__ __align__(16) bf16 Ps[SF_BQ * SF_PLD_MAX];  // bf16(P) of a tile
   __shared__ float xm[2][SF_BQ];  // each warpgroup's row maxima of a tile
                                   // (at the end: its denominators)
   unsigned char* base =
@@ -120,7 +137,7 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * SF_BQ;
   const float* brow = bias ? bias + (long)b * Sk : nullptr;
-  const int nkt = (Sk + SF_BK - 1) / SF_BK, njobs = 2 * nkt;
+  const int nkt = (Sk + BK - 1) / BK, njobs = 2 * nkt;
 
   // job 2j: K tile j (TMA, one box a 64-column block, completing on
   // full[slot]) and its bias row (cp.async, one commit group a job, empty
@@ -135,13 +152,13 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_expect(bar, sf_tile_bytes<D>());
 #pragma unroll
         for (int c = 0; c < D / 64; ++c)
-          tma_load_4d(sl + c * SF_BK * 128, (i & 1) ? &tv : &tk, bar, c * 64,
-                      j * SF_BK, h, b);
+          tma_load_4d(sl + c * BK * 128, (i & 1) ? &tv : &tk, bar, c * 64,
+                      j * BK, h, b);
       }
       if (brow && !(i & 1))
-        load_row_f32<SF_BK, SF_THREADS>(
-            reinterpret_cast<float*>(sl + sf_tile_bytes<D>()), brow,
-            j * SF_BK, Sk, tid);
+        load_row_f32<BK, SF_THREADS>(
+            reinterpret_cast<float*>(sl + sf_tile_bytes<D>()), brow, j * BK,
+            Sk, tid);
     }
     ring_commit();  // an empty group past the last job keeps the count
   };
@@ -167,7 +184,7 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int e = 0; e < NW / 2; ++e) acc[nb][e] = 0.f;
-  uint32_t pa[SF_NC][4] = {};
+  uint32_t pa[NC][4] = {};
 
   for (int i = 0; i < njobs; ++i) {
     ring_wait_upto(stages - 2);  // this thread's share of the bias row
@@ -176,30 +193,31 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     issue(i + stages - 1);
     const int j = i >> 1;
     const unsigned char* sl = slot(i);
-    const int nc = min(SF_NC, (Sk - j * SF_BK + 15) / 16);
+    const int nc = min(NC, (Sk - j * BK + 15) / 16);
 
     if (!(i & 1)) {
-      // scores of the 64 rows against this warpgroup's 32 keys of the tile,
+      // scores of the 64 rows against this warpgroup's KW keys of the tile,
       // up to the next multiple of 16 past Sk: this warp's 16 rows,
       // s[4 u + e] for 8-key group u
-      const int ncw = min(2, max(0, nc - 2 * wg));  // its 16-key chunks
-      const bf16* Kw = reinterpret_cast<const bf16*>(sl + wg * 32 * 128);
+      const int ncw = min(CW, max(0, nc - CW * wg));  // its 16-key chunks
+      const bf16* Kw = reinterpret_cast<const bf16*>(sl + wg * KW * 128);
       float s[32];
-      if (ncw == 1) wgmma_qk<D, 16, SF_BQ, SF_BK>(s, Qs, 0, Kw);
-      if (ncw == 2) wgmma_qk<D, 32, SF_BQ, SF_BK>(s, Qs, 0, Kw);
+      if (ncw == 1) wgmma_qk<D, 16, SF_BQ, BK>(s, Qs, 0, Kw);
+      if constexpr (CW == 2)
+        if (ncw == 2) wgmma_qk<D, 32, SF_BQ, BK>(s, Qs, 0, Kw);
       const float* Bs =
           reinterpret_cast<const float*>(sl + sf_tile_bytes<D>());
-      const bool plain = !brow && (j + 1) * SF_BK <= Sk;
+      const bool plain = !brow && (j + 1) * BK <= Sk;
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int u = 0; u < KW / 8; ++u) {
         float* x = s + 4 * u;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = wg * 32 + u * 8 + 2 * t + e;
+          const int col = wg * KW + u * 8 + 2 * t + e;
           float bb = 0.f;
           if (!plain) {
-            bb = j * SF_BK + col < Sk ? (brow ? Bs[col] : 0.f) : -INFINITY;
+            bb = j * BK + col < Sk ? (brow ? Bs[col] : 0.f) : -INFINITY;
           }
           // chunks past the last product hold no scores at all
           x[e] = u < 2 * ncw ? fmaf(x[e], scale, bb) : -INFINITY;
@@ -223,7 +241,7 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       const float c0 = ex2((m0 - mn0) * LOG2E), c1 = ex2((m1 - mn1) * LOG2E);
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
+      for (int u = 0; u < KW / 8; ++u) {
         float* x = s + 4 * u;
         x[0] = ex2((x[0] - mn0) * LOG2E);
         x[1] = ex2((x[1] - mn0) * LOG2E);
@@ -231,11 +249,11 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         x[3] = ex2((x[3] - mn1) * LOG2E);
         sum0 += x[0] + x[1];
         sum1 += x[2] + x[3];
-        // bf16(P) of this half into the shared 64 x 64 tile
-        const int col = wg * 32 + u * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(Ps + (rw + g) * SF_PLD + col) =
+        // bf16(P) of this half into the shared 64 x BK tile
+        const int col = wg * KW + u * 8 + 2 * t;
+        *reinterpret_cast<uint32_t*>(Ps + (rw + g) * PLD + col) =
             pack_bf16(x[0], x[1]);
-        *reinterpret_cast<uint32_t*>(Ps + (rw + g + 8) * SF_PLD + col) =
+        *reinterpret_cast<uint32_t*>(Ps + (rw + g + 8) * PLD + col) =
             pack_bf16(x[2], x[3]);
       }
       // this warpgroup's part of the denominator (the halves are summed
@@ -254,23 +272,23 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
           acc[nb][e + 3] *= c1;
         }
       __syncthreads();  // both halves of P are in the tile
-      load_a_rows<SF_BK>(pa, Ps, SF_PLD, rw, lane);
+      load_a_rows<BK>(pa, Ps, PLD, rw, lane);
     } else {
       // acc += bf16(P) . V over this warpgroup's D/2 columns: V chunk c (16
-      // keys) of swizzle atom a (64 columns) at a * 64 rows * 128 + c * 2048
+      // keys) of swizzle atom a (64 columns) at a * BK rows * 128 + c * 2048
       const unsigned char* Vs = sl;
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
       wgmma_fence();
 #pragma unroll
-      for (int c = 0; c < SF_NC; ++c) {
+      for (int c = 0; c < NC; ++c) {
         if (c < nc) {
 #pragma unroll
           for (int nb = 0; nb < NB; ++nb) {
             const int col = wg * DH + nb * NW;  // first output column
             const uint64_t dv = desc_sw128_mn(
-                Vs + (col / 64) * SF_BK * 128 + (col % 64) * 2 + c * 2048,
-                SF_BK * 128);
+                Vs + (col / 64) * BK * 128 + (col % 64) * 2 + c * 2048,
+                BK * 128);
             if constexpr (NW == 64)
               wgmma_rs64(acc[nb], pa[c], dv);
             else
@@ -283,7 +301,7 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
 #pragma unroll
-      for (int c = 0; c < SF_NC; ++c) fence_regs(pa[c]);
+      for (int c = 0; c < NC; ++c) fence_regs(pa[c]);
     }
   }
   ring_wait_upto(0);
@@ -319,14 +337,14 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 constexpr int HV_BAD_PLAN = -2;
 
 // A tensor map of one (B, H, S, D) bf16 operand with element strides
-// st[0..2] (batch, head, row), boxes of 64 columns x 64 rows.
+// st[0..2] (batch, head, row), boxes of 64 columns x `rows` rows.
 static int stream_tmap(CUtensorMap* map, const void* x, int B, int H, int S,
-                       int D, const long* st) {
+                       int D, const long* st, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, SF_BK, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   return make_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides,
                    box);
 }
@@ -336,14 +354,13 @@ int launch_stream(const void* q, const void* k, const void* v,
                   const float* bias, void* o, float* lse, int B, int H,
                   int Sq, int Sk, int stages, int smem, float scale,
                   const long* st, cudaStream_t stream) {
-  static_assert(SF_BQ == SF_BK, "one box shape serves Q, K and V");
   if (stages != sf_stages<D>() || smem != sf_smem_bytes<D>(stages) ||
       smem + SF_STATIC > SF_SMEM_MAX)
     return HV_BAD_PLAN;
   CUtensorMap tq, tk, tv;
-  int rc = stream_tmap(&tq, q, B, H, Sq, D, st);
-  if (!rc) rc = stream_tmap(&tk, k, B, H, Sk, D, st + 3);
-  if (!rc) rc = stream_tmap(&tv, v, B, H, Sk, D, st + 6);
+  int rc = stream_tmap(&tq, q, B, H, Sq, D, st, SF_BQ);
+  if (!rc) rc = stream_tmap(&tk, k, B, H, Sk, D, st + 3, sf_bk<D>());
+  if (!rc) rc = stream_tmap(&tv, v, B, H, Sk, D, st + 6, sf_bk<D>());
   if (rc) return rc;
   cudaError_t err = cudaFuncSetAttribute(
       stream_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -374,6 +391,7 @@ extern "C" int hv_stream_fwd(const void* q, const void* k, const void* v,
     case 128: return hv::launch_stream<128>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
     case 256: return hv::launch_stream<256>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
     case 512: return hv::launch_stream<512>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
+    case 640: return hv::launch_stream<640>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
     default: return -1;
   }
 }

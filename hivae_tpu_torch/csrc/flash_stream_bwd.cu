@@ -77,6 +77,13 @@
 // next tile lands while one computes), with the per-tile fp32 rows (lse and
 // delta, or the key bias) by cp.async beside them.
 //
+// D = 640 (the CNN motion AE's MapConv): the same cluster of 2, 320
+// columns a CTA (160 accumulator registers a thread). A 64-row walked tile
+// of 320 columns is 40 KB, so two resident tiles, two slots of two and the
+// exchange tiles would pass 227 KB; there the walked tile holds 32 rows
+// (sb_tile): S and dP are 64 x 32 (m64n32), the exchange tiles 64 x 32
+// fp32, and each gradient product runs 2 chunks of 16 rows: 177 KB.
+//
 // Shared memory at D = 512 (per CTA, D/2 = 256 columns): two resident
 // 64 x 256 bf16 tiles (64 KB), 2 slots of two tiles (128 KB), two 64 x 64
 // fp32 exchange tiles (32 KB; P is written over the score tile once it is
@@ -95,23 +102,26 @@
 namespace hv {
 
 constexpr int SB_ROWS = 64;        // keys or query rows of a CTA with roles
-constexpr int SB_TILE = 64;        // rows of a walked tile
-constexpr int SB_NC = SB_TILE / 16;
+constexpr int SB_TILE_MAX = 64;    // rows of a walked tile, at most
 constexpr int SB_THREADS = 256;    // two consumer warpgroups
 constexpr int SB_STAGES = 2;       // ring slots
 constexpr int SB_SMEM_MAX = 232448;
 constexpr int HV_BAD_PLAN = -2;
 
 template <int D>
-__host__ __device__ constexpr int sb_cluster() { return D == 512 ? 2 : 1; }
+__host__ __device__ constexpr int sb_cluster() { return D >= 512 ? 2 : 1; }
 
 template <int D>
 __host__ __device__ constexpr int sb_cols() { return D / sb_cluster<D>(); }
 
-// One 128-byte-swizzled 64-row tile of this CTA's columns.
+// Rows of a walked tile: 64, or 32 past D = 512.
+template <int D>
+__host__ __device__ constexpr int sb_tile() { return D > 512 ? 32 : 64; }
+
+// One 128-byte-swizzled walked tile of this CTA's columns.
 template <int D>
 __host__ __device__ constexpr int sb_tile_bytes() {
-  return sw128_bytes<sb_cols<D>(), SB_TILE>();
+  return sw128_bytes<sb_cols<D>(), sb_tile<D>()>();
 }
 
 // At D <= 128 a CTA takes 128 rows, 64 a warpgroup, and each warpgroup
@@ -125,34 +135,39 @@ __host__ __device__ constexpr int sb_rows() { return sb_split<D>() ? 64 : 128; }
 
 // Dynamic shared bytes from a 1024-byte aligned base (both kernels): 2
 // resident tiles of sb_rows rows, SB_STAGES slots of 2 walked tiles, and
-// with the roles one fp32 64 x 64 tile a cluster CTA.
+// with the roles one fp32 64 x sb_tile tile a cluster CTA.
 template <int D>
 __host__ __device__ constexpr int sb_smem_bytes() {
   return 1024 + 2 * sw128_bytes<sb_cols<D>(), sb_rows<D>()>() +
          2 * SB_STAGES * sb_tile_bytes<D>() +
-         (sb_split<D>() ? sb_cluster<D>() * SB_ROWS * 64 * 4 : 0);
+         (sb_split<D>() ? sb_cluster<D>() * SB_ROWS * sb_tile<D>() * 4 : 0);
 }
 
-// A warpgroup's 64 x 64 fp32 C fragments in shared memory, by thread: the
-// 32 values of warpgroup thread lt (0..127) at lt * 32, as 8 chunks of 4
-// (chunk k: rows g and g + 8 of columns 8k + 2t, +1), chunk k at slot
-// k ^ (lt % 8), so the 8 threads of a 16-byte access phase touch distinct
-// banks. The same thread of either warpgroup finds its own positions.
+// A warpgroup's 64 x T fp32 C fragments in shared memory, by thread: the
+// T / 2 values of warpgroup thread lt (0..127) at lt * T / 2, as T / 8
+// chunks of 4 (chunk k: rows g and g + 8 of columns 8k + 2t, +1), chunk k
+// at slot k ^ (lt % 8) (T = 64) or k ^ (lt / 2 % 4) (T = 32), so the 8
+// threads of a 16-byte access phase touch distinct banks. The same thread
+// of either warpgroup finds its own positions.
+template <int T>
 __device__ __forceinline__ int frag_off(int lt, int k) {
-  return lt * 32 + ((k ^ (lt & 7)) << 2);
+  const int sw = T == 64 ? (lt & 7) : ((lt >> 1) & 3);
+  return lt * (T / 2) + ((k ^ sw) << 2);
 }
 
+template <int T>
 __device__ __forceinline__ void store_frag(float* tile, int lt,
                                            const float (&x)[32]) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    *reinterpret_cast<float4*>(tile + frag_off(lt, k)) =
+  for (int k = 0; k < T / 8; ++k)
+    *reinterpret_cast<float4*>(tile + frag_off<T>(lt, k)) =
         make_float4(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3]);
 }
 
+template <int T>
 __device__ __forceinline__ float4 load_chunk(const float* tile, int lt,
                                              int k) {
-  return *reinterpret_cast<const float4*>(tile + frag_off(lt, k));
+  return *reinterpret_cast<const float4*>(tile + frag_off<T>(lt, k));
 }
 
 struct SbArgs {
@@ -165,7 +180,8 @@ struct SbArgs {
 
 // The exchange of a 2-CTA cluster: this CTA's fp32 tiles (tile 0 of S,
 // tile 1 of dP), two mbarriers, and their peers' addresses. `landed`
-// completes when the peer's partials (32 KB, st.async with complete_tx)
+// completes when the peer's partials (64 x T x 4 B each, st.async with
+// complete_tx)
 // have arrived here, `freed` (256 arrivals) when the peer's threads have
 // read what this CTA stored there.
 struct Xch {
@@ -174,24 +190,25 @@ struct Xch {
   uint32_t peer_tile, peer_landed, peer_freed;
 };
 
-constexpr int SB_XBYTES = 2 * 64 * 64 * 4;  // both partials of a tile
-
-// Tile j: this thread's partial x (its warpgroup's 64 x 64 fp32 C
+// Tile j: this thread's partial x (its warpgroup's 64 x T fp32 C
 // fragments) into the peer's tile at its own positions (frag_off), once
 // the peer has read the previous one; then, once the peer's partials have
 // landed here, x += the peer's. Both CTAs add the same two numbers.
+template <int T>
 __device__ __forceinline__ void exchange_add(float (&x)[32], const float* mine,
                                              const Xch& e, int tid, int j) {
+  constexpr int XBYTES = 2 * 64 * T * 4;  // both partials of a tile
   const int lt = tid & 127;
-  if (tid == 0) mbar_expect(e.landed, SB_XBYTES);  // this tile's phase
+  if (tid == 0) mbar_expect(e.landed, XBYTES);  // this tile's phase
   if (j > 0) mbar_wait_cluster(e.freed, (j - 1) & 1);
 #pragma unroll
-  for (int k = 0; k < 8; ++k)
-    st_async_v4(e.peer_tile + 4 * frag_off(lt, k), x + 4 * k, e.peer_landed);
+  for (int k = 0; k < T / 8; ++k)
+    st_async_v4(e.peer_tile + 4 * frag_off<T>(lt, k), x + 4 * k,
+                e.peer_landed);
   mbar_wait_cluster(e.landed, j & 1);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const float4 a = load_chunk(mine, lt, k);
+  for (int k = 0; k < T / 8; ++k) {
+    const float4 a = load_chunk<T>(mine, lt, k);
     x[4 * k] += a.x;
     x[4 * k + 1] += a.y;
     x[4 * k + 2] += a.z;
@@ -230,8 +247,8 @@ __device__ __forceinline__ void sb_init(uint64_t* full, uint64_t* xbar,
 
 // Rows [r0, r0 + ROWS) and this CTA's DC columns from c0 of the tensor maps
 // m0 and m1 into two swizzled ROWS-row tiles at dst and right after it, by
-// TMA completing on bar, 64-row boxes (thread 0 only): the resident tiles
-// (ROWS = sb_rows) or one ring job (ROWS = SB_TILE).
+// TMA completing on bar, boxes of min(ROWS, 64) rows (thread 0 only): the
+// resident tiles (ROWS = sb_rows) or one ring job (ROWS = sb_tile).
 template <int DC, int ROWS>
 __device__ __forceinline__ void sb_load_pair(unsigned char* dst,
                                              const CUtensorMap* m0,
@@ -239,27 +256,29 @@ __device__ __forceinline__ void sb_load_pair(unsigned char* dst,
                                              uint64_t* bar, int c0, int r0,
                                              int h, int b) {
   constexpr int TB = sw128_bytes<DC, ROWS>();
+  constexpr int BOX = ROWS < 64 ? ROWS : 64;
   mbar_expect(bar, 2 * TB);
 #pragma unroll
   for (int c = 0; c < DC / 64; ++c)
 #pragma unroll
-    for (int half = 0; half < ROWS / 64; ++half) {
-      const int off = c * ROWS * 128 + half * 64 * 128;
-      tma_load_4d(dst + off, m0, bar, c0 + c * 64, r0 + 64 * half, h, b);
-      tma_load_4d(dst + TB + off, m1, bar, c0 + c * 64, r0 + 64 * half, h, b);
+    for (int part = 0; part < ROWS / BOX; ++part) {
+      const int off = c * ROWS * 128 + part * BOX * 128;
+      tma_load_4d(dst + off, m0, bar, c0 + c * 64, r0 + BOX * part, h, b);
+      tma_load_4d(dst + TB + off, m1, bar, c0 + c * 64, r0 + BOX * part, h,
+                  b);
     }
 }
 
-// The walked side of a CTA: a ring of SB_STAGES slots, each two 64-row
+// The walked side of a CTA: a ring of SB_STAGES slots, each two T-row
 // tiles (of maps m0 and m1, this CTA's DC columns from c0) that travel by
 // TMA onto full[slot], with up to two fp32 rows (src0, src1, n long; null
 // for none) that travel by cp.async into rows[slot] beside them.
-template <int DC>
+template <int DC, int T>
 struct SbRing {
-  static constexpr int TB = sw128_bytes<DC, SB_TILE>();
+  static constexpr int TB = sw128_bytes<DC, T>();
   unsigned char* slots;
   uint64_t* full;
-  float (*rows)[2][SB_TILE];
+  float (*rows)[2][SB_TILE_MAX];
   const CUtensorMap *m0, *m1;
   const float *src0, *src1;
   int jobs, n, c0, h, b;
@@ -273,14 +292,11 @@ struct SbRing {
     if (i < jobs) {
       const int st = i % SB_STAGES;
       if (tid == 0)
-        sb_load_pair<DC, SB_TILE>(slot(i), m0, m1, full + st, c0,
-                                  i * SB_TILE, h, b);
+        sb_load_pair<DC, T>(slot(i), m0, m1, full + st, c0, i * T, h, b);
       if (src0)
-        load_row_f32<SB_TILE, SB_THREADS>(rows[st][0], src0, i * SB_TILE, n,
-                                          tid);
+        load_row_f32<T, SB_THREADS>(rows[st][0], src0, i * T, n, tid);
       if (src1)
-        load_row_f32<SB_TILE, SB_THREADS>(rows[st][1], src1, i * SB_TILE, n,
-                                          tid);
+        load_row_f32<T, SB_THREADS>(rows[st][1], src1, i * T, n, tid);
     }
     ring_commit();
   }
@@ -313,37 +329,39 @@ __device__ __forceinline__ void fence_acc(float (&acc)[NB][32]) {
   for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
 }
 
-// A warpgroup's 64 x 64 fp32 C tile x as the register A operand of a
-// gradient product: 4 chunks of 16 columns in bf16.
-__device__ __forceinline__ void sb_frags(uint32_t (&fr)[SB_NC][4],
+// A warpgroup's 64 x 16 NC fp32 C tile x as the register A operand of a
+// gradient product: NC chunks of 16 columns in bf16.
+template <int NC>
+__device__ __forceinline__ void sb_frags(uint32_t (&fr)[NC][4],
                                          const float (&x)[32]) {
 #pragma unroll
-  for (int c = 0; c < SB_NC; ++c) c_to_a(fr[c], x + 8 * c, x + 8 * c + 4);
+  for (int c = 0; c < NC; ++c) c_to_a(fr[c], x + 8 * c, x + 8 * c + 4);
 }
 
-// acc += bf16(x) . B issued on wgmma, B the walked 64-row tile at Bt read
-// MN-major: its 64-column block nb, 16-row chunk c at nb * 64 rows * 128 +
-// c * 2048. The caller fences, commits and waits.
-template <int NB>
+// acc += bf16(x) . B issued on wgmma, B the walked 16 NC-row tile at Bt
+// read MN-major: its 64-column block nb, 16-row chunk c at nb * 16 NC rows
+// * 128 + c * 2048. The caller fences, commits and waits.
+template <int NB, int NC>
 __device__ __forceinline__ void sb_grad_issue(float (&acc)[NB][32],
-                                              const uint32_t (&fr)[SB_NC][4],
+                                              const uint32_t (&fr)[NC][4],
                                               const unsigned char* Bt) {
 #pragma unroll
-  for (int c = 0; c < SB_NC; ++c)
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb)
       wgmma_rs64(acc[nb], fr[c],
-                 desc_sw128_mn(Bt + nb * SB_TILE * 128 + c * 2048,
-                               SB_TILE * 128));
+                 desc_sw128_mn(Bt + nb * 16 * NC * 128 + c * 2048,
+                               16 * NC * 128));
 }
 
-// acc += bf16(x) . B (sb_grad_issue), waited for: the slot holding B is
-// overwritten after the next CTA barrier.
-template <int NB>
+// acc += bf16(x) . B (sb_grad_issue) over the T rows of the walked tile,
+// waited for: the slot holding B is overwritten after the next CTA
+// barrier.
+template <int T, int NB>
 __device__ __forceinline__ void sb_grad(float (&acc)[NB][32],
                                         const float (&x)[32],
                                         const unsigned char* Bt) {
-  uint32_t fr[SB_NC][4];
+  uint32_t fr[T / 16][4];
   sb_frags(fr, x);
   fence_acc(acc);
   wgmma_fence();
@@ -352,7 +370,7 @@ __device__ __forceinline__ void sb_grad(float (&acc)[NB][32],
   wgmma_wait_all();
   fence_acc(acc);
 #pragma unroll
-  for (int c = 0; c < SB_NC; ++c) fence_regs(fr[c]);
+  for (int c = 0; c < T / 16; ++c) fence_regs(fr[c]);
 }
 
 // A warpgroup's NB 64-column blocks of fp32 accumulators times sc, as bf16
@@ -375,7 +393,8 @@ __device__ __forceinline__ void sb_store(bf16* p, long rs,
 }
 
 // The tensor maps: q, k, v and dout as (D, S, H, B) arrays, boxes of 64
-// columns x 64 rows, 128-byte swizzled.
+// columns x 64 rows (the resident side) or sb_tile rows (the walked side),
+// 128-byte swizzled.
 template <int D>
 __global__ void __launch_bounds__(SB_THREADS, 1)
 stream_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
@@ -384,16 +403,17 @@ stream_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tdo,
                       const SbArgs a) {
   constexpr int CL = sb_cluster<D>(), DC = sb_cols<D>(), NB = DC / 64;
-  constexpr int TB = sb_tile_bytes<D>();
+  constexpr int T = sb_tile<D>(), TB = sb_tile_bytes<D>();
+  constexpr int RB = sw128_bytes<DC, SB_ROWS>();  // a resident tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t full[SB_STAGES + 1];  // slots' jobs, then K and V
   __shared__ uint64_t xbar[2];  // the exchange's landed and freed
-  __shared__ float rows[SB_STAGES][2][SB_TILE];  // lse, delta of a slot
+  __shared__ float rows[SB_STAGES][2][SB_TILE_MAX];  // lse, delta of a slot
   unsigned char* base = sb_base(smem_raw);
   const bf16* Ks = reinterpret_cast<const bf16*>(base);
-  const bf16* Vs = reinterpret_cast<const bf16*>(base + TB);
+  const bf16* Vs = reinterpret_cast<const bf16*>(base + RB);
   // tile 0: S^T (the peer's partial, then P^T); tile 1 (cluster): dP^T
-  float* X = reinterpret_cast<float*>(base + 2 * TB + 2 * SB_STAGES * TB);
+  float* X = reinterpret_cast<float*>(base + 2 * RB + 2 * SB_STAGES * TB);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, rw = (warp & 3) * 16;
@@ -402,15 +422,15 @@ stream_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.z, h = blockIdx.y, k0 = (blockIdx.x / CL) * SB_ROWS;
   const int c0 = rank * DC;  // first column of this CTA's slice of D
   const long rb = ((long)b * a.H + h) * a.Sq;
-  const int nqt = (a.Sq + SB_TILE - 1) / SB_TILE;
-  float* mine = X + (CL > 1 ? wg : 0) * SB_ROWS * 64;
+  const int nqt = (a.Sq + T - 1) / T;
+  float* mine = X + (CL > 1 ? wg : 0) * SB_ROWS * T;
   Xch xch{xbar, xbar + 1, 0, 0, 0};
   if constexpr (CL > 1)
     xch = Xch{xbar, xbar + 1, peer_addr(mine, rank ^ 1),
               peer_addr(xbar, rank ^ 1), peer_addr(xbar + 1, rank ^ 1)};
   // job i: Q and dO tile i and their lse and delta rows
-  const SbRing<DC> ring{base + 2 * TB, full, rows, &tq, &tdo, a.lse + rb,
-                        a.delta + rb, nqt, a.Sq, c0, h, b};
+  const SbRing<DC, T> ring{base + 2 * RB, full, rows, &tq, &tdo, a.lse + rb,
+                           a.delta + rb, nqt, a.Sq, c0, h, b};
 
   sb_init(full, CL > 1 ? xbar : nullptr, tid);
   if (tid == 0)
@@ -439,34 +459,34 @@ stream_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     // WG0: S^T = K.Q^T; WG1: dP^T = V.dO^T (rows keys, columns queries)
     float x[32];
     if (wg == 0)
-      wgmma_qk<DC, 64, SB_ROWS, SB_TILE>(x, Ks, 0, Qt);
+      wgmma_qk<DC, T, SB_ROWS, T>(x, Ks, 0, Qt);
     else
-      wgmma_qk<DC, 64, SB_ROWS, SB_TILE>(x, Vs, 0, Ot);
-    if constexpr (CL > 1) exchange_add(x, mine, xch, tid, i);
+      wgmma_qk<DC, T, SB_ROWS, T>(x, Vs, 0, Ot);
+    if constexpr (CL > 1) exchange_add<T>(x, mine, xch, tid, i);
 
     const float* lse = rows[st][0];
     const float* dlt = rows[st][1];
     if (wg == 0) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < T / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int qc = 8 * j + 2 * t + e;
-          const bool qv = i * SB_TILE + qc < a.Sq;
+          const bool qv = i * T + qc < a.Sq;
           x[4 * j + e] =
               qv && kv0 ? sb_p(x[4 * j + e], a.scale, bk0, lse[qc]) : 0.f;
           x[4 * j + 2 + e] =
               qv && kv1 ? sb_p(x[4 * j + 2 + e], a.scale, bk1, lse[qc]) : 0.f;
         }
       }
-      store_frag(X, tid & 127, x);
+      store_frag<T>(X, tid & 127, x);
     }
     __syncthreads();  // P^T is in tile 0
     if (wg == 1) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < T / 8; ++j) {
         const int qc = 8 * j + 2 * t;
-        const float4 p = load_chunk(X, tid & 127, j);
+        const float4 p = load_chunk<T>(X, tid & 127, j);
         x[4 * j] = p.x * (x[4 * j] - dlt[qc]);
         x[4 * j + 1] = p.y * (x[4 * j + 1] - dlt[qc + 1]);
         x[4 * j + 2] = p.z * (x[4 * j + 2] - dlt[qc]);
@@ -475,7 +495,7 @@ stream_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     // WG0: dV += bf16(P^T) . dO; WG1: dK += bf16(dS^T) . Q
-    sb_grad(acc, x, wg == 0 ? sl + TB : sl);
+    sb_grad<T>(acc, x, wg == 0 ? sl + TB : sl);
     if constexpr (CL > 1) mbar_arrive_remote(xch.peer_freed);  // read all
   }
   ring_wait_upto(0);
@@ -498,16 +518,17 @@ stream_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
                      const SbArgs a) {
   constexpr int CL = sb_cluster<D>(), DC = sb_cols<D>(), NB = DC / 64;
-  constexpr int TB = sb_tile_bytes<D>();
+  constexpr int T = sb_tile<D>(), TB = sb_tile_bytes<D>();
+  constexpr int RB = sw128_bytes<DC, SB_ROWS>();  // a resident tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t full[SB_STAGES + 1];  // slots' jobs, then Q and dO
   __shared__ uint64_t xbar[2];  // the exchange's landed and freed
-  __shared__ float rows[SB_STAGES][2][SB_TILE];  // a slot's key bias
+  __shared__ float rows[SB_STAGES][2][SB_TILE_MAX];  // a slot's key bias
   unsigned char* base = sb_base(smem_raw);
   const bf16* Qs = reinterpret_cast<const bf16*>(base);
-  const bf16* Os = reinterpret_cast<const bf16*>(base + TB);
+  const bf16* Os = reinterpret_cast<const bf16*>(base + RB);
   // tile 0: S (the peer's partial, then P); tile 1 (cluster): dP
-  float* X = reinterpret_cast<float*>(base + 2 * TB + 2 * SB_STAGES * TB);
+  float* X = reinterpret_cast<float*>(base + 2 * RB + 2 * SB_STAGES * TB);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, rw = (warp & 3) * 16;
@@ -515,16 +536,16 @@ stream_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t rank = CL > 1 ? cluster_rank() : 0;
   const int b = blockIdx.z, h = blockIdx.y, q0 = (blockIdx.x / CL) * SB_ROWS;
   const int c0 = rank * DC;
-  const int nkt = (a.Sk + SB_TILE - 1) / SB_TILE;
+  const int nkt = (a.Sk + T - 1) / T;
   const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
-  float* mine = X + (CL > 1 ? wg : 0) * SB_ROWS * 64;
+  float* mine = X + (CL > 1 ? wg : 0) * SB_ROWS * T;
   Xch xch{xbar, xbar + 1, 0, 0, 0};
   if constexpr (CL > 1)
     xch = Xch{xbar, xbar + 1, peer_addr(mine, rank ^ 1),
               peer_addr(xbar, rank ^ 1), peer_addr(xbar + 1, rank ^ 1)};
   // job j: K and V tile j and its bias row
-  const SbRing<DC> ring{base + 2 * TB, full, rows, &tk, &tv, brow, nullptr,
-                        nkt, a.Sk, c0, h, b};
+  const SbRing<DC, T> ring{base + 2 * RB, full, rows, &tk, &tv, brow,
+                           nullptr, nkt, a.Sk, c0, h, b};
 
   sb_init(full, CL > 1 ? xbar : nullptr, tid);
   if (tid == 0)
@@ -555,38 +576,38 @@ stream_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     // WG0: S = Q.K^T; WG1: dP = dO.V^T
     float x[32];
     if (wg == 0)
-      wgmma_qk<DC, 64, SB_ROWS, SB_TILE>(x, Qs, 0, Kt);
+      wgmma_qk<DC, T, SB_ROWS, T>(x, Qs, 0, Kt);
     else
-      wgmma_qk<DC, 64, SB_ROWS, SB_TILE>(x, Os, 0, Vt);
-    if constexpr (CL > 1) exchange_add(x, mine, xch, tid, j);
+      wgmma_qk<DC, T, SB_ROWS, T>(x, Os, 0, Vt);
+    if constexpr (CL > 1) exchange_add<T>(x, mine, xch, tid, j);
 
     if (wg == 0) {
       const float* bs = rows[st][0];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
+      for (int u = 0; u < T / 8; ++u) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int kc = 8 * u + 2 * t + e;
-          const bool kv = j * SB_TILE + kc < a.Sk;
+          const bool kv = j * T + kc < a.Sk;
           const float bb = brow ? bs[kc] : 0.f;
           x[4 * u + e] = kv ? sb_p(x[4 * u + e], a.scale, bb, st0) : 0.f;
           x[4 * u + 2 + e] = kv ? sb_p(x[4 * u + 2 + e], a.scale, bb, st1) : 0.f;
         }
       }
-      store_frag(X, tid & 127, x);
+      store_frag<T>(X, tid & 127, x);
     }
     __syncthreads();  // P is in tile 0
     if (wg == 1) {
       // dS = P (dP - delta); dQ += bf16(dS) . K, K read MN-major
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const float4 p = load_chunk(X, tid & 127, u);
+      for (int u = 0; u < T / 8; ++u) {
+        const float4 p = load_chunk<T>(X, tid & 127, u);
         x[4 * u] = p.x * (x[4 * u] - st0);
         x[4 * u + 1] = p.y * (x[4 * u + 1] - st0);
         x[4 * u + 2] = p.z * (x[4 * u + 2] - st1);
         x[4 * u + 3] = p.w * (x[4 * u + 3] - st1);
       }
-      sb_grad(acc, x, sl);
+      sb_grad<T>(acc, x, sl);
     }
     if constexpr (CL > 1) mbar_arrive_remote(xch.peer_freed);  // read all
   }
@@ -617,13 +638,13 @@ __device__ __forceinline__ void wgmma_qk2(float (&d1)[32], const bf16* A1,
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int ao = (kk / 4) * AROWS * 128 + (kk % 4) * 32;
-    const int bo = (kk / 4) * SB_TILE * 128 + (kk % 4) * 32;
+    const int bo = (kk / 4) * SB_TILE_MAX * 128 + (kk % 4) * 32;
     wgmma_ss<64>(d1, desc_sw128(a1 + ao), desc_sw128(b1 + bo), kk > 0);
   }
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int ao = (kk / 4) * AROWS * 128 + (kk % 4) * 32;
-    const int bo = (kk / 4) * SB_TILE * 128 + (kk % 4) * 32;
+    const int bo = (kk / 4) * SB_TILE_MAX * 128 + (kk % 4) * 32;
     wgmma_ss<64>(d2, desc_sw128(a2 + ao), desc_sw128(b2 + bo), kk > 0);
   }
   wgmma_commit();
@@ -642,11 +663,11 @@ stream_bwd_dkv_rows_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tv,
                            const __grid_constant__ CUtensorMap tdo,
                            const SbArgs a) {
-  constexpr int NB = D / 64, TB = sw128_bytes<D, SB_TILE>();
+  constexpr int T = SB_TILE_MAX, NB = D / 64, TB = sw128_bytes<D, T>();
   constexpr int OB = sw128_bytes<D, 128>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t full[SB_STAGES + 1];  // slots' jobs, then K and V
-  __shared__ float rows[SB_STAGES][2][SB_TILE];  // lse, delta of a slot
+  __shared__ float rows[SB_STAGES][2][T];  // lse, delta of a slot
   unsigned char* base = sb_base(smem_raw);
   const bf16* Ks = reinterpret_cast<const bf16*>(base);
   const bf16* Vs = reinterpret_cast<const bf16*>(base + OB);
@@ -656,9 +677,9 @@ stream_bwd_dkv_rows_kernel(const __grid_constant__ CUtensorMap tq,
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * 128;
   const long rb = ((long)b * a.H + h) * a.Sq;
-  const int nqt = (a.Sq + SB_TILE - 1) / SB_TILE;
-  const SbRing<D> ring{base + 2 * OB, full, rows, &tq, &tdo, a.lse + rb,
-                       a.delta + rb, nqt, a.Sq, 0, h, b};
+  const int nqt = (a.Sq + T - 1) / T;
+  const SbRing<D, T> ring{base + 2 * OB, full, rows, &tq, &tdo, a.lse + rb,
+                          a.delta + rb, nqt, a.Sq, 0, h, b};
 
   sb_init(full, nullptr, tid);
   if (tid == 0)
@@ -690,7 +711,7 @@ stream_bwd_dkv_rows_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int qc = 8 * j + 2 * t + e;
-        const bool qv = i * SB_TILE + qc < a.Sq;
+        const bool qv = i * T + qc < a.Sq;
         const float p0 = qv && kv0 ? sb_p(s[4 * j + e], a.scale, bk0, lse[qc]) : 0.f;
         const float p1 = qv && kv1 ? sb_p(s[4 * j + 2 + e], a.scale, bk1, lse[qc]) : 0.f;
         s[4 * j + e] = p0;
@@ -699,7 +720,7 @@ stream_bwd_dkv_rows_kernel(const __grid_constant__ CUtensorMap tq,
         dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dlt[qc]);
       }
     // dV += bf16(P^T) . dO and dK += bf16(dS^T) . Q in one commit group
-    uint32_t fp[SB_NC][4], fd[SB_NC][4];
+    uint32_t fp[T / 16][4], fd[T / 16][4];
     sb_frags(fp, s);
     sb_frags(fd, dp);
     fence_acc(dva);
@@ -712,7 +733,7 @@ stream_bwd_dkv_rows_kernel(const __grid_constant__ CUtensorMap tq,
     fence_acc(dva);
     fence_acc(dka);
 #pragma unroll
-    for (int c = 0; c < SB_NC; ++c) {
+    for (int c = 0; c < T / 16; ++c) {
       fence_regs(fp[c]);
       fence_regs(fd[c]);
     }
@@ -734,11 +755,11 @@ stream_bwd_dq_rows_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
                           const SbArgs a) {
-  constexpr int NB = D / 64, TB = sw128_bytes<D, SB_TILE>();
+  constexpr int T = SB_TILE_MAX, NB = D / 64, TB = sw128_bytes<D, T>();
   constexpr int OB = sw128_bytes<D, 128>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t full[SB_STAGES + 1];  // slots' jobs, then Q and dO
-  __shared__ float rows[SB_STAGES][2][SB_TILE];  // a slot's key bias
+  __shared__ float rows[SB_STAGES][2][T];  // a slot's key bias
   unsigned char* base = sb_base(smem_raw);
   const bf16* Qs = reinterpret_cast<const bf16*>(base);
   const bf16* Os = reinterpret_cast<const bf16*>(base + OB);
@@ -747,10 +768,10 @@ stream_bwd_dq_rows_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = warp >> 2, rw = (warp & 3) * 16;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * 128;
-  const int nkt = (a.Sk + SB_TILE - 1) / SB_TILE;
+  const int nkt = (a.Sk + T - 1) / T;
   const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
-  const SbRing<D> ring{base + 2 * OB, full, rows, &tk, &tv, brow, nullptr,
-                       nkt, a.Sk, 0, h, b};
+  const SbRing<D, T> ring{base + 2 * OB, full, rows, &tk, &tv, brow, nullptr,
+                          nkt, a.Sk, 0, h, b};
 
   sb_init(full, nullptr, tid);
   if (tid == 0)
@@ -781,14 +802,14 @@ stream_bwd_dq_rows_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int kc = 8 * u + 2 * t + e;
-        const bool kv = j * SB_TILE + kc < a.Sk;
+        const bool kv = j * T + kc < a.Sk;
         const float bb = brow ? bs[kc] : 0.f;
         const float p0 = kv ? sb_p(s[4 * u + e], a.scale, bb, lse0) : 0.f;
         const float p1 = kv ? sb_p(s[4 * u + 2 + e], a.scale, bb, lse1) : 0.f;
         dp[4 * u + e] = p0 * (dp[4 * u + e] - d0);
         dp[4 * u + 2 + e] = p1 * (dp[4 * u + 2 + e] - d1);
       }
-    sb_grad(acc, dp, sl);  // dQ += bf16(dS) . K
+    sb_grad<T>(acc, dp, sl);  // dQ += bf16(dS) . K
   }
   ring_wait_upto(0);
 
@@ -811,14 +832,14 @@ stream_delta_kernel(const bf16* __restrict__ dout,
 }
 
 // A tensor map of one (B, H, S, D) bf16 operand with element strides
-// st[0..2] (batch, head, row), boxes of 64 columns x 64 rows.
+// st[0..2] (batch, head, row), boxes of 64 columns x `rows` rows.
 static int sb_tmap(CUtensorMap* map, const void* x, int B, int H, int S,
-                   int D, const long* st) {
+                   int D, const long* st, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, SB_TILE, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   return make_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides,
                    box);
 }
@@ -828,15 +849,16 @@ int launch_stream_bwd(bool dkv, const void* q, const void* k, const void* v,
                       const void* dout, const SbArgs& a, int B,
                       const long* st, int cluster, int stages, int smem,
                       cudaStream_t stream) {
-  static_assert(SB_ROWS == SB_TILE, "one box shape serves every operand");
   if (cluster != sb_cluster<D>() || stages != SB_STAGES ||
       smem != sb_smem_bytes<D>() || smem > SB_SMEM_MAX)
     return HV_BAD_PLAN;
   CUtensorMap tq, tk, tv, tdo;
-  int rc = sb_tmap(&tq, q, B, a.H, a.Sq, D, st);
-  if (!rc) rc = sb_tmap(&tk, k, B, a.H, a.Sk, D, st + 3);
-  if (!rc) rc = sb_tmap(&tv, v, B, a.H, a.Sk, D, st + 6);
-  if (!rc) rc = sb_tmap(&tdo, dout, B, a.H, a.Sq, D, st + 9);
+  // boxes of 64 rows for the resident side, sb_tile for the walked one
+  const int qbox = dkv ? sb_tile<D>() : 64, kbox = dkv ? 64 : sb_tile<D>();
+  int rc = sb_tmap(&tq, q, B, a.H, a.Sq, D, st, qbox);
+  if (!rc) rc = sb_tmap(&tk, k, B, a.H, a.Sk, D, st + 3, kbox);
+  if (!rc) rc = sb_tmap(&tv, v, B, a.H, a.Sk, D, st + 6, kbox);
+  if (!rc) rc = sb_tmap(&tdo, dout, B, a.H, a.Sq, D, st + 9, qbox);
   if (rc) return rc;
   void (*kern)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, SbArgs);
   if constexpr (sb_split<D>())
@@ -889,6 +911,7 @@ int stream_bwd(bool dkv, const void* q, const void* k, const void* v,
     case 128: return launch_stream_bwd<128>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
     case 256: return launch_stream_bwd<256>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
     case 512: return launch_stream_bwd<512>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
+    case 640: return launch_stream_bwd<640>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
     default: return -1;
   }
 }
@@ -948,6 +971,7 @@ extern "C" int hv_stream_delta(const void* dout, const void* out,
     case 128: return hv::launch_delta<128>(dout, out, delta, B, H, Sq, strides, s);
     case 256: return hv::launch_delta<256>(dout, out, delta, B, H, Sq, strides, s);
     case 512: return hv::launch_delta<512>(dout, out, delta, B, H, Sq, strides, s);
+    case 640: return hv::launch_delta<640>(dout, out, delta, B, H, Sq, strides, s);
     default: return -1;
   }
 }

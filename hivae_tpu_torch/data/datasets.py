@@ -12,14 +12,15 @@ port's own copy of ``list_videos``, ``VideoClipDataset``,
   * ``VideoAudioDataset``, ``VideoAudioRandomRefDataset``: clips with their
     audio embeddings (and a pose stream) for A2M training, the reference
     the frame before the clip or one drawn from outside it.
+  * ``LabelVideoDataset``: class-labelled clips for T2M training, the
+    label the index of the clip's parent directory name.
   * ``DataLoader``: a pool of threads and a bounded queue feeding stacked
     numpy batches in order. Threads, not worker processes: every sample
     draws from the dataset's one seeded ``random.Random``, and worker
     processes would each draw from a copy of it.
 
 Index sources: a directory searched for mp4s, a ``.pkl`` list, a ``.txt``
-of directories, or a ``.csv`` with a ``videos`` column. The label
-dataset of the JAX package is not ported yet (ROADMAP.md Queue 1 #8).
+of directories, or a ``.csv`` with a ``videos`` column.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import pickle
 import queue
 import random
 import threading
-from typing import Any, Dict, Iterator, List
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 from torch.utils.data import Dataset
@@ -240,6 +241,27 @@ class VideoAudioRandomRefDataset(VideoAudioDataset):
         ref = (int(outside[self.rng.randint(0, len(outside) - 1)])
                if len(outside) else int(clip[0]))
         return np.concatenate([[ref], clip]), mask
+
+
+class LabelVideoDataset(VideoClipDataset):
+    """Class-labelled clips: ``label`` (int32) is the index of the clip's
+    parent directory name in ``classes`` (default: the sorted names of
+    the index's parent directories; 0 for a name not among them)."""
+
+    def __init__(self, video_dir, classes: Optional[List[str]] = None, **kw):
+        super().__init__(video_dir, **kw)
+        if classes is None:
+            classes = sorted({os.path.basename(os.path.dirname(
+                m["video_path"])) for m in self.metadata})
+        self.classes = classes
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+
+    def get_batch(self, idx: int) -> Dict[str, Any]:
+        sample = super().get_batch(idx)
+        cls = os.path.basename(os.path.dirname(
+            self.metadata[idx]["video_path"]))
+        sample["label"] = np.int32(self.class_to_idx.get(cls, 0))
+        return sample
 
 
 def _collate(samples: List[Dict[str, Any]]) -> Dict[str, Any]:

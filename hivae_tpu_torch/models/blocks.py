@@ -83,15 +83,17 @@ class _GELUProj(nn.Module):
 
 class FeedForward(nn.Module):
     """MLP with tanh-approximate GELU; ``net.1`` is diffusers' dropout
-    slot, kept so the parameter names match."""
+    slot, kept so the parameter names match. The output is ``dim`` wide
+    unless ``out_dim`` is given."""
 
     def __init__(self, dim: int, inner_dim: Optional[int] = None,
-                 use_bias: bool = True):
+                 use_bias: bool = True, out_dim: Optional[int] = None):
         super().__init__()
         inner = inner_dim or 4 * dim
         self.net = nn.ModuleList([_GELUProj(dim, inner, use_bias),
                                   nn.Identity(),
-                                  nn.Linear(inner, dim, bias=use_bias)])
+                                  nn.Linear(inner, out_dim or dim,
+                                            bias=use_bias)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.net:

@@ -14,13 +14,16 @@ ported here as hand-written CUDA (``hivae_tpu_torch/csrc``):
   shared bytes) from ``_full_block_plan``.
 * ``stream_attention`` replaces ``_stream_fwd_kernel``
   (``_stream_fwd_impl`` / ``stream_fwd_lse``): the SD-VAE mid-block
-  attention, (B, 1, 1024, 512), returning O and the per-row LSE, with a
-  launch plan (ring slots, shared bytes) from ``_stream_plan``.
+  attention, (B, 1, 1024, 512), and the CNN motion AE's ``MapConv``
+  attention, (B, 1, 1024, 640), returning O and the per-row LSE, with a
+  launch plan (keys a tile, ring slots, shared bytes) from
+  ``_stream_plan``.
   Source note and bound: ``csrc/flash_stream.cu``.
 * ``stream_attention_bwd_dq`` and ``stream_attention_bwd_dkv`` replace
   ``_stream_dq_kernel`` and ``_stream_dkv_kernel`` (``stream_bwd``), with
-  a launch plan (rows a CTA, a 2-CTA cluster along D at D = 512, ring
-  slots, shared bytes) from ``_stream_bwd_plan``; before them
+  a launch plan (rows a CTA, a 2-CTA cluster along D from D = 512, rows
+  of a walked tile, ring slots, shared bytes) from ``_stream_bwd_plan``;
+  before them
   ``stream_attention_delta``, a pre-pass kernel in the same source that
   computes delta = rowsum(dO * O), the port's own (the JAX package leaves
   it to XLA). Source note and bound: ``csrc/flash_stream_bwd.cu``.
@@ -63,7 +66,7 @@ from . import _build
 
 _KERNEL_DTYPES = (torch.bfloat16,)
 _FULL_BLOCK_DIMS = (32, 64, 96, 128)
-_STREAM_DIMS = (64, 128, 256, 512)
+_STREAM_DIMS = (64, 128, 256, 512, 640)
 
 
 # ---------------------------------------------------------------------------
@@ -359,9 +362,11 @@ def _full_block_plan(sq: int, sk: int, d: int) -> FullBlockPlan:
 
 
 # launch plan of the streaming forward (csrc/flash_stream.cu): 64 query rows
-# a CTA, K and V tiles of 64 keys as separate jobs through a ring of slots
+# a CTA, K and V tiles of 64 keys (32 past D = 512, ``sf_bk``) as separate
+# jobs through a ring of slots
 STREAM_ROWS = 64
 STREAM_TILE = 64
+STREAM_TILE_WIDE = 32
 STREAM_MAX_STAGES = 4
 # static shared bytes of the streaming forward (``SF_STATIC``): its
 # mbarriers, the bf16 P tile (64 rows of 72) and two rows of fp32 partials
@@ -372,9 +377,9 @@ STREAM_STATIC = 8 * (STREAM_MAX_STAGES + 1) + STREAM_ROWS * 72 * 2 + \
 @dataclasses.dataclass(frozen=True)
 class StreamPlan:
     """Launch plan of the streaming forward: ``stages`` ring slots, each one
-    128-byte-swizzled K or V tile of ``STREAM_TILE`` keys and a bias row,
-    behind the swizzled Q tile of ``STREAM_ROWS`` rows; ``smem`` bytes in
-    all."""
+    128-byte-swizzled K or V tile of ``tile`` keys and a bias row, behind
+    the swizzled Q tile of ``STREAM_ROWS`` rows; ``smem`` bytes in all."""
+    tile: int
     stages: int
     smem: int
 
@@ -385,24 +390,29 @@ def _round_kb(x):
 
 @functools.lru_cache(maxsize=None)
 def _stream_plan(d: int) -> StreamPlan:
-    """The plan at head dim ``d`` (``sf_stages`` and ``sf_smem_bytes`` in
-    flash_stream.cu): as many slots as fit one block's shared memory beside
-    the static ``STREAM_STATIC`` bytes, at most ``STREAM_MAX_STAGES``. The
-    sequence lengths do not change it."""
+    """The plan at head dim ``d`` (``sf_bk``, ``sf_stages`` and
+    ``sf_smem_bytes`` in flash_stream.cu): tiles of ``STREAM_TILE`` keys,
+    ``STREAM_TILE_WIDE`` past D = 512 (where a 64-key slot would leave room
+    for one beside Q), and as many slots as fit one block's shared memory
+    beside the static ``STREAM_STATIC`` bytes, at most
+    ``STREAM_MAX_STAGES``. The sequence lengths do not change it."""
+    tile = STREAM_TILE_WIDE if d > 512 else STREAM_TILE
     q_bytes = _sw128_bytes(d, STREAM_ROWS)
-    slot = _round_kb(_sw128_bytes(d, STREAM_TILE) + STREAM_TILE * 4)
+    slot = _round_kb(_sw128_bytes(d, tile) + tile * 4)
     stages = min(STREAM_MAX_STAGES,
                  (SMEM_PER_BLOCK - STREAM_STATIC - 1024 - q_bytes) // slot)
-    return StreamPlan(stages=stages, smem=1024 + q_bytes + stages * slot)
+    return StreamPlan(tile=tile, stages=stages,
+                      smem=1024 + q_bytes + stages * slot)
 
 
 # launch plan of the streaming backward (csrc/flash_stream_bwd.cu): walked
-# tiles of 64 rows through a ring of STREAM_BWD_STAGES slots; at D <= 128
-# a CTA owns 128 keys (dK/dV) or query rows (dQ), 64 a warpgroup; from
-# D = 256 on it owns 64, which its two warpgroups share by roles (S and P;
-# dP and dS) through an fp32 64 x 64 tile, and at D = 512 a cluster of 2
-# CTAs splits the head dim
+# tiles of 64 rows (32 past D = 512) through a ring of STREAM_BWD_STAGES
+# slots; at D <= 128 a CTA owns 128 keys (dK/dV) or query rows (dQ), 64 a
+# warpgroup; from D = 256 on it owns 64, which its two warpgroups share by
+# roles (S and P; dP and dS) through an fp32 64 x tile tile, and from
+# D = 512 a cluster of 2 CTAs splits the head dim
 STREAM_BWD_TILE = 64
+STREAM_BWD_TILE_WIDE = 32
 STREAM_BWD_STAGES = 2
 STREAM_BWD_SPLIT_DIM = 256
 STREAM_BWD_CLUSTER_DIM = 512
@@ -418,30 +428,34 @@ class StreamBwdPlan:
     """Launch plan of the streaming backward kernels (dQ and dK/dV alike):
     ``rows`` keys or query rows a CTA; a cluster of ``cluster`` CTAs along
     D, each holding ``cols`` columns of every operand; ``stages`` ring
-    slots of two walked 64-row tiles; ``smem`` dynamic shared bytes."""
+    slots of two walked ``tile``-row tiles; ``smem`` dynamic shared
+    bytes."""
     rows: int
     cluster: int
     cols: int
+    tile: int
     stages: int
     smem: int
 
 
 @functools.lru_cache(maxsize=None)
 def _stream_bwd_plan(d: int) -> StreamBwdPlan:
-    """The plan at head dim ``d`` (``sb_rows``, ``sb_cluster``, ``sb_cols``
-    and ``sb_smem_bytes`` in flash_stream_bwd.cu): 1 KB to align the base,
-    two resident swizzled tiles of ``rows`` rows, ``stages`` slots of two
-    walked ones, and with the roles (d >= 256) one fp32 64 x 64 tile a
-    cluster CTA (P; at D = 512 the exchange tiles of S and dP). The
-    sequence lengths do not change it."""
+    """The plan at head dim ``d`` (``sb_rows``, ``sb_cluster``, ``sb_cols``,
+    ``sb_tile`` and ``sb_smem_bytes`` in flash_stream_bwd.cu): 1 KB to
+    align the base, two resident swizzled tiles of ``rows`` rows,
+    ``stages`` slots of two walked ones of ``tile`` rows (32 past D = 512,
+    where 64 would not fit), and with the roles (d >= 256) one fp32
+    64 x ``tile`` tile a cluster CTA (P; from D = 512 the exchange tiles of
+    S and dP). The sequence lengths do not change it."""
     split = d >= STREAM_BWD_SPLIT_DIM
     rows = STREAM_BWD_TILE if split else 2 * STREAM_BWD_TILE
-    cluster = 2 if d == STREAM_BWD_CLUSTER_DIM else 1
+    cluster = 2 if d >= STREAM_BWD_CLUSTER_DIM else 1
     cols = d // cluster
+    tile = STREAM_BWD_TILE_WIDE if d > 512 else STREAM_BWD_TILE
     smem = (1024 + 2 * _sw128_bytes(cols, rows)
-            + 2 * STREAM_BWD_STAGES * _sw128_bytes(cols, STREAM_BWD_TILE)
-            + (cluster * STREAM_BWD_TILE * 64 * 4 if split else 0))
-    return StreamBwdPlan(rows=rows, cluster=cluster, cols=cols,
+            + 2 * STREAM_BWD_STAGES * _sw128_bytes(cols, tile)
+            + (cluster * STREAM_BWD_TILE * tile * 4 if split else 0))
+    return StreamBwdPlan(rows=rows, cluster=cluster, cols=cols, tile=tile,
                          stages=STREAM_BWD_STAGES, smem=smem)
 
 

@@ -7,7 +7,12 @@ ones. Layouts:
 
   * Dense kernel (in, out)   -> Linear weight (out, in)   [transpose]
   * Conv kernel  (kh,kw,I,O) -> Conv2d weight (O,I,kh,kw)
-  * LayerNorm/GroupNorm ``scale`` -> ``weight``
+  * Conv kernel  (kd,kh,kw,I,O) -> Conv3d weight (O,I,kd,kh,kw)
+  * LayerNorm/GroupNorm/BatchNorm ``scale`` -> ``weight``
+  * ``batch_stats`` ``mean``/``var`` -> BatchNorm ``running_mean``/
+    ``running_var`` buffers
+  * raw parameters (``label_embedding``, ``motion_align_c``/``_o``,
+    ``cls_token``, ``mask_token``, ...) as they are
   * the ``nn.scan``-stacked ``layers/{object,camera,spatial}_block`` tree
     (``scan_layers=True``, leading dim L) -> per-layer ModuleList entries,
     for both velocity DiTs (the TempMotion DiT stacks ``object_block``
@@ -21,7 +26,10 @@ fc2}``, ``diffusion/{motion,audio,pose}_blocks_i`` or ``diffusion/
 blocks_i``, ``pose_predictor/{temporal_spatial,audio}_blocks_i`` and its
 ``pose_mask_token``, the embeddings (a ``PatchEmbed``'s ``proj`` keeps
 its channel-major patch layout), ``norm_final``, ``norm_out``,
-``proj_out``).
+``proj_out``), and the other models' (T2M's ``motion_blocks_i`` and
+``image_blocks_i``, the MAE's ``blocks_i`` and ``decoder_blocks_i``, the
+CNN motion AE's ``downblock_i``, ``upblock_i`` and ``map_i``, the
+discriminators' ``conv_i``/``norm_i``).
 
 Input is the flax tree as nested mappings of numpy arrays (with or without
 the top-level ``params`` collection). ``lpips_flax_to_torch`` maps the
@@ -56,6 +64,11 @@ _RULES: List[Tuple[str, str]] = [
     (r"\bupsamplers_(\d+)\b", r"upsamplers.\1"),
     (r"\bdown_blocks_(\d+)\b", r"down_blocks.\1"),
     (r"\bup_blocks_(\d+)\b", r"up_blocks.\1"),
+    (r"\bdownblock_(\d+)\b", r"downblock.\1"),
+    (r"\bupblock_(\d+)\b", r"upblock.\1"),
+    (r"\bmap_(\d+)\b", r"map.\1"),
+    (r"\bimage_blocks_(\d+)\b", r"image_blocks.\1"),
+    (r"\bdecoder_blocks_(\d+)\b", r"decoder_blocks.\1"),
     (r"\bnet_0\b", "net.0.proj"),
     (r"\bnet_2\b", "net.2"),
     (r"\bto_out\b", "to_out.0"),
@@ -112,16 +125,33 @@ def _torch_layout(leaf: str, arr: np.ndarray) -> np.ndarray:
             return arr.T
         if arr.ndim == 4:
             return arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 5:
+            return arr.transpose(4, 3, 0, 1, 2)
         raise ValueError(f"unexpected kernel rank {arr.ndim}")
     return arr
 
 
+# flax ``batch_stats`` leaf -> the BatchNorm buffer it fills
+_STATS_LEAF = {"mean": "running_mean", "var": "running_var"}
+
+
+def _leaves(params: Mapping[str, Any]):
+    """(path, array) of every parameter leaf, and of every ``batch_stats``
+    leaf under its buffer's name, of a tree with or without its
+    collections."""
+    if "params" in params and set(params) <= {"params", "batch_stats"}:
+        yield from _flatten(params["params"])
+        for path, arr in _flatten(params.get("batch_stats", {})):
+            yield path[:-1] + (_STATS_LEAF[path[-1]],), arr
+        return
+    yield from _flatten(params)
+
+
 def flax_to_torch(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree -> state dict for the port's matching module."""
-    if set(params.keys()) == {"params"}:
-        params = params["params"]
+    """Flax variables (``params``, optionally ``batch_stats``, or a bare
+    parameter tree) -> state dict for the port's matching module."""
     out: Dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(params):
+    for path, arr in _leaves(params):
         for p, a in _unstack(path, arr):
             key = flax_path_to_torch_key(p)
             if key in out:

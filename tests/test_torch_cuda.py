@@ -69,7 +69,13 @@ FULL_BLOCK_CASES = (
        ((16, 16, 512, 64), None, False), ((16, 16, 512, 64), None, True)]
     # the camera joint block of a clip sampled with camera mask ratio 0.5:
     # 128 kept sites + 256 patches
-    + [((16, 16, 384, 64), None, False), ((2, 16, 384, 64), None, True)])
+    + [((16, 16, 384, 64), None, False), ((2, 16, 384, 64), None, True)]
+    # the T2M head's joint block (16 x 128 heads over 4 + 1 + 8, 16 + 1 + 8
+    # or 2 * 16 + 2 + 8 motion tokens and 256 patches) and the MAE
+    # decoder's (16 x 32 over 1 + 256 tokens) and encoder's at mask 0
+    + [((2, 16, 269, 128), None, False), ((16, 16, 281, 128), None, False),
+       ((2, 16, 298, 128), None, True), ((4, 16, 257, 32), None, False),
+       ((4, 16, 257, 32), None, True), ((2, 16, 257, 64), None, False)])
 
 
 def _case(shape, sk, masked, seed):
@@ -122,7 +128,8 @@ def test_full_block_forward_plans_taken(shape, resident):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,masked", [
     ((17, 1, 1024, 512), False), ((1, 2, 600, 64), True),
-    ((2, 1, 300, 256), True)])
+    ((2, 1, 300, 256), True), ((16, 1, 1024, 640), False),
+    ((4, 1, 1024, 640), True)])
 def test_stream_kernel_matches_plain(shape, masked):
     _cuda_or_skip()
     q, k, v = _qkv(shape, seed=12)
@@ -138,7 +145,7 @@ def test_stream_kernel_matches_plain(shape, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("d", [64, 128, 256, 512, 640])
 @pytest.mark.parametrize("masked", [False, True])
 def test_stream_kernel_every_head_dim(d, masked):
     """Every head dim the kernel takes, ragged Sq and Sk (300 = 4.7 tiles),
@@ -161,7 +168,7 @@ def test_stream_kernel_every_head_dim(d, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("d", [64, 128, 256, 512, 640])
 def test_stream_kernel_lse_feeds_the_backward(d):
     """The kernel's O and LSE through the streaming backward kernels against
     the plain forward's O and LSE through the plain backward (masked keys,
@@ -238,7 +245,8 @@ def test_full_block_delta_kernel_matches_plain(shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,sk,masked", [
     ((16, 16, 512, 64), None, True), ((32, 8, 260, 64), None, False),
-    ((2, 4, 300, 64), 700, True), ((4, 16, 1024, 64), None, False)])
+    ((2, 4, 300, 64), 700, True), ((4, 16, 1024, 64), None, False),
+    ((2, 16, 281, 128), None, False), ((4, 16, 257, 32), None, True)])
 def test_full_block_kernels_are_deterministic(shape, sk, masked):
     """Two launches on the same inputs give the same bits, forward and
     backward (no atomics; every sum in a fixed order)."""
@@ -259,7 +267,11 @@ def test_full_block_kernels_are_deterministic(shape, sk, masked):
     ((16, 1, 1024, 512), False), ((4, 1, 1024, 512), True),
     ((1, 2, 600, 64), True), ((2, 1, 300, 256), True),
     ((4, 16, 2048, 64), False), ((2, 8, 2048, 128), False),
-    ((2, 8, 2048, 64), True), ((1, 3, 333, 128), True)])
+    ((2, 8, 2048, 64), True), ((1, 3, 333, 128), True),
+    # the CNN motion AE's MapConv at D 640 (32-row walked tiles), and a
+    # ragged S
+    ((16, 1, 1024, 640), False), ((4, 1, 1024, 640), True),
+    ((2, 1, 300, 640), True)])
 def test_stream_bwd_kernels_match_plain(shape, masked):
     _cuda_or_skip()
     q, k, v = _qkv(shape, seed=16)
@@ -291,7 +303,8 @@ def test_stream_bwd_kernels_match_plain(shape, masked):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 8, 260, 64), (2, 1, 1024, 512)])
+@pytest.mark.parametrize("shape", [(4, 8, 260, 64), (2, 1, 1024, 512),
+                                   (2, 1, 1024, 640)])
 def test_sdpa_gradient_runs_the_backward_kernels(shape):
     """On a CUDA tensor that requires grad, sdpa's output has a grad_fn and
     its backward launches the port's backward kernel(s), once each."""
@@ -496,10 +509,11 @@ def test_sdpa_qknorm_fuse_launches_the_fused_kernel(monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,masked", [
     ((16, 1, 1024, 512), False), ((2, 8, 2048, 64), True),
-    ((2, 2, 700, 128), True), ((2, 1, 300, 256), False)])
+    ((2, 2, 700, 128), True), ((2, 1, 300, 256), False),
+    ((4, 1, 1024, 640), True)])
 def test_stream_bwd_kernels_are_deterministic(shape, masked):
     """Two launches of the delta, dQ and dK/dV kernels on the same inputs
-    give the same bits (no atomics; at D = 512 both cluster CTAs add the
+    give the same bits (no atomics; from D = 512 both cluster CTAs add the
     same two partials)."""
     _cuda_or_skip()
     q, k, v = _qkv(shape, seed=34)
@@ -519,15 +533,18 @@ def test_stream_bwd_kernels_are_deterministic(shape, masked):
 
 
 @pytest.mark.cuda
-def test_stream_bwd_cluster_plan_is_the_one_launched(monkeypatch):
-    """At D = 512 the plan is a cluster of 2 CTAs of 256 columns, and the
-    kernels launch under it; any other plan is refused by the C entry
-    points, not run."""
+@pytest.mark.parametrize("d,cols,tile", [(512, 256, 64), (640, 320, 32)])
+def test_stream_bwd_cluster_plan_is_the_one_launched(monkeypatch, d, cols,
+                                                     tile):
+    """At D = 512 the plan is a cluster of 2 CTAs of 256 columns (at
+    D = 640 of 320, walking 32-row tiles), and the kernels launch under
+    it; any other plan is refused by the C entry points, not run."""
     import dataclasses
     _cuda_or_skip()
-    plan = tfa._stream_bwd_plan(512)
-    assert (plan.cluster, plan.cols, plan.rows) == (2, 256, 64)
-    shape = (2, 1, 256, 512)
+    plan = tfa._stream_bwd_plan(d)
+    assert (plan.cluster, plan.cols, plan.rows, plan.tile) == (2, cols, 64,
+                                                              tile)
+    shape = (2, 1, 256, d)
     q, k, v = _qkv(shape, seed=36)
     do = _qkv(shape, seed=37)[0]
     out, lse = tfa.stream_attention(q, k, v, scale=0.05)
@@ -535,7 +552,7 @@ def test_stream_bwd_cluster_plan_is_the_one_launched(monkeypatch):
     n = tfa.stream_attention_bwd_dq.launches
     tfa.stream_attention_bwd_dq(q, k, v, do, lse, delta, scale=0.05)
     assert tfa.stream_attention_bwd_dq.launches == n + 1
-    for other in (dataclasses.replace(plan, cluster=1, cols=512),
+    for other in (dataclasses.replace(plan, cluster=1, cols=d),
                   dataclasses.replace(plan, smem=plan.smem - 1024)):
         monkeypatch.setattr(tfa, "_stream_bwd_plan", lambda d: other)
         for fn in (tfa.stream_attention_bwd_dq, tfa.stream_attention_bwd_dkv):
@@ -546,7 +563,8 @@ def test_stream_bwd_cluster_plan_is_the_one_launched(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 4, 300, 64), (3, 2, 129, 512),
-                                   (2, 2, 70, 128), (1, 1, 65, 256)])
+                                   (2, 2, 70, 128), (1, 1, 65, 256),
+                                   (3, 1, 129, 640)])
 def test_stream_delta_kernel_matches_plain(shape):
     """delta = rowsum(dO * O): fp32 sums in another order (rtol 1e-5 of
     the row's |dO| . |O|), one launch."""

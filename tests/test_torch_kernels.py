@@ -307,12 +307,14 @@ def test_ffn_plan_covers_every_admitted_n():
 @pytest.mark.parametrize("d", tfa._STREAM_DIMS)
 def test_stream_plan_fits_shared_memory(d):
     """The streaming forward's plan at each head dim: the swizzled Q tile,
-    ring slots of one swizzled 64-key tile and its bias row, and the static
-    P tile within one block's 227 KB, at least two slots (one landing while one computes),
-    and no room left for another slot below the cap."""
+    ring slots of one swizzled 64-key tile (32 keys at D 640, where a 64-key
+    slot would leave room for one) and its bias row, and the static P tile
+    within one block's 227 KB, at least two slots (one landing while one
+    computes), and no room left for another slot below the cap."""
     plan = tfa._stream_plan(d)
+    assert plan.tile == (32 if d == 640 else tfa.STREAM_TILE)
     q_bytes = tfa._sw128_bytes(d, tfa.STREAM_ROWS)
-    slot = -(-(tfa._sw128_bytes(d, tfa.STREAM_TILE) + 4 * tfa.STREAM_TILE)
+    slot = -(-(tfa._sw128_bytes(d, plan.tile) + 4 * plan.tile)
              // 1024) * 1024
     assert plan.smem == 1024 + q_bytes + plan.stages * slot
     # plus the static mbarriers, P tile and row partials
@@ -423,17 +425,20 @@ def test_sdpa_counts_the_calls_no_kernel_takes():
 def test_stream_bwd_plan_fits_shared_memory(d):
     """The streaming backward's plan at each head dim: 128 rows a CTA (64
     a warpgroup) below D = 256, 64 shared by roles from there, a cluster
-    of 2 along D only at D = 512, each CTA's columns at most 256; two
-    resident swizzled tiles, ring slots of two walked 64-row ones, with
-    the roles one fp32 64 x 64 tile a cluster CTA, and the static
-    mbarriers and rows within one block's 232,448 bytes, with at least two
-    slots (one landing while one computes)."""
+    of 2 along D from D = 512, each CTA's columns at most 320 (5 blocks of
+    64: 160 accumulator registers a thread); two resident swizzled tiles,
+    ring slots of two walked 64-row ones (32-row at D 640), with the roles
+    one fp32 64 x tile tile a cluster CTA, and the static mbarriers and
+    rows within one block's 232,448 bytes, with at least two slots (one
+    landing while one computes)."""
     plan = tfa._stream_bwd_plan(d)
     assert plan.rows == (64 if d >= 256 else 128)
-    assert plan.cluster == (2 if d == 512 else 1)
-    assert plan.cols * plan.cluster == d and plan.cols <= 256
-    tile = tfa._sw128_bytes(plan.cols, tfa.STREAM_BWD_TILE)
-    fp32 = plan.cluster * 64 * 64 * 4 if d >= 256 else 0
+    assert plan.cluster == (2 if d >= 512 else 1)
+    assert plan.cols * plan.cluster == d and plan.cols <= 320
+    assert plan.cols % 64 == 0
+    assert plan.tile == (32 if d == 640 else tfa.STREAM_BWD_TILE)
+    tile = tfa._sw128_bytes(plan.cols, plan.tile)
+    fp32 = plan.cluster * 64 * plan.tile * 4 if d >= 256 else 0
     assert plan.smem == (1024 + 2 * tfa._sw128_bytes(plan.cols, plan.rows)
                          + 2 * plan.stages * tile + fp32)
     assert plan.smem + tfa.STREAM_BWD_STATIC <= tfa.SMEM_PER_BLOCK == 232_448
