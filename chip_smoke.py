@@ -40,7 +40,11 @@ Phases (any failure exits non-zero without the final result line):
    N = 32 and 4) and MAE_L's encoder at mask 0 (D 64), forward and
    backward, and the CNN motion AE's ``MapConv`` attention at D 640
    ((16, 1, 1024, 640), masked too) on the streaming forward, delta, dQ
-   and dK/dV kernels. Each
+   and dK/dV kernels. The long tail adds the streaming forward's fp32
+   variant at the fp32 SD-VAE's (16, 1, 1024, 512) and check cases (17
+   frames, masked and not, a fully masked key row, D 64 to 640 at ragged
+   lengths), held to its fp32 plain version within ``KERNEL_F32_ATOL``
+   and timed beside SDPA in fp32. Each
    kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
@@ -48,14 +52,16 @@ Phases (any failure exits non-zero without the final result line):
    forward; for the qk-norm kernel two ``F.layer_norm`` and one SDPA; for the
    FFN kernel ``torch._int_mm`` of its GEMM alone) are timed with CUDA
    events;
-   2b. ``sdpa`` in fp32 and fp16 above 256^2 logits, which has no kernel
-   on the card: it must take the counted plain path (``sdpa_plain``, one
-   count a call) and launch no kernel; bf16 operands in a layout the
-   kernels cannot read, which ``sdpa`` copies and sends to the kernel; an
-   fp32 ``AutoencoderKL`` encoding one clip (its attention through
-   ``sdpa_plain`` only); ``quant_dense`` and ``fused_quant_ffn`` at 1, 16
-   and 17 rows against the same calls on the CPU. On every main path
-   below, ``sdpa_plain`` must count 0;
+   2b. ``sdpa`` in fp32 and fp16 above 256^2 logits: fp32 at the SD-VAE
+   mid-block's shape with no gradient launches the fp32 streaming kernel
+   once; fp32 at the object encoder's full-block shape, fp32 with a
+   gradient and fp16 have no kernel on the card and must take the
+   counted plain path (``sdpa_plain``, one count a call) and launch no
+   kernel; bf16 operands in a layout the kernels cannot read, which the
+   kernel's wrapper copies; an fp32 ``AutoencoderKL`` encoding one clip
+   (one fp32 streaming launch, ``sdpa_plain`` 0); ``quant_dense`` and
+   ``fused_quant_ffn`` at 1, 16 and 17 rows against the same calls on
+   the CPU. On every main path below, ``sdpa_plain`` must count 0;
 3. build the full-width flagship AMD_N (``configs/amd/amd_n_t1d512_spatial.json``)
    and the SD-VAE in bf16 on seeded random weights and reconstruct one
    synthetic 17 x 3 x 256 x 256 clip at ``sample_step=10`` through
@@ -130,9 +136,20 @@ Phases (any failure exits non-zero without the final result line):
    launches; loss and gradient against the plain versions as run A);
    3p. ``cli.vis`` on the shipped PosePre yaml as json (542.5 M, fp32 as
    the JAX CLI) over 4 synthetic pose mp4s and embeddings of 17 frames:
-   the grid video's shape and dtype, finite decoded pixels, no kernel
-   launch and exactly 2 ``sdpa_plain`` calls (the fp32 VAE's encode and
-   decode mid-block attentions, which no kernel takes);
+   the grid video's shape and dtype, finite decoded pixels, exactly 2
+   fp32 streaming launches (the fp32 VAE's encode and decode mid-block
+   attentions), no other launch and ``sdpa_plain`` 0;
+   3s. ``cli.frequency_filter_decode`` (fp32 VAE) on a synthetic mp4,
+   ``fft`` and ``wavelet``: 3 and 5 fp32 streaming launches, nothing
+   else, each band within ``FREQ_MAX_LEVELS`` of its plain-attention run;
+   3t. ``cli.evaluate`` at full width (AMD_N and the SD-VAE in bf16) on
+   2 synthetic mp4s at 20 steps with seeded LPIPS weights: 488
+   full-block and 3 streaming launches a clip, finite PSNR, SSIM and
+   LPIPS within ``EVAL_*_ATOL`` of its plain-attention run;
+   3u. ``rope_attention``, ``VelocityDiTSplitInput`` and ``DiT2Condition``
+   in bf16 above 256^2 logits: 1, 2 and 2 full-block launches (the DiTs
+   at ``LONGTAIL_LAYERS``), within
+   ``LONGTAIL_REL_L2`` of their plain runs;
    3q. T2M ``sample`` (after 3n, on the same AMD_N and SD-VAE): the
    default ``T2MConfig`` (3.0 B parameters, 2048 wide, 16 heads of 128,
    20 layers) with AMD_N's 4 object tokens, bf16 on seeded weights built
@@ -146,6 +163,12 @@ Phases (any failure exits non-zero without the final result line):
    streaming kernels, exactly one forward, delta, dQ and dK/dV launch and
    no ``sdpa_plain``) and the six discriminators at their defaults (train
    and eval: no launch), finite, expected shapes;
+   3v. (after 3q, before 3b strips the models; then after 3b on models
+   built anew) ``cli.export_sampler``'s ``ClipSampler`` at full width,
+   bf16 and int8: exported with ``torch.export``, saved, loaded and run
+   on phase 3's clip and seeded noise; its uint8 frames against the live
+   module's and its launches equal to the live run's and to the clip's
+   formula at ``EXPORT_STEPS``;
    3b. (run after 3c-3i and 3m, since it strips the models' float weights) the int8
    clip through ``AMDReconstructionPipeline(vae, amd, quant="int8")`` on
    the same weights: 360 fused FFN-up launches (36 FFNs x 10 Euler steps),
@@ -204,20 +227,23 @@ Phases (any failure exits non-zero without the final result line):
    step);
 7. the training CLI, ``hivae_tpu_torch.cli.train_amd``, in this process on
    8 synthetic 256² mp4s written here (a textured pan under a moving
-   disc): the flagship JSON at N = 4, bf16, remat, 3 steps with a
+   disc): the flagship JSON at ``PAR_DEPTH`` (its widths), N = 4, bf16,
+   remat, 3 steps with a
    checkpoint at step 2 (its ``config.json``, ``args.txt`` and
    checkpoints checked), then, with step 3's checkpoint removed, a resume
    that must start at step 2 and end at step 4, then ``cli.amd_inference``
    on the checkpoint it wrote and one of the mp4s. Exact launches, steps/s,
    clips/s, frames/s, peak memory, the loader's host time a batch alone and
    ``fit``'s wait on it a step (its one-batch prefetch should hide it);
-   7b. the CLI with ``--use_mask true`` (flow masks on the host), 2 steps;
+   7b. the CLI with ``--use_mask true`` (flow masks on the host) at
+   ``PAR_DEPTH``, 2 steps;
    7c. the CLI with ``--model_type AMD_S`` (AMD_S's config as
    ``--amd_config``), 2 steps, then on its checkpoint ``cli.amd_inference
    --model_type AMD_S`` and ``cli.amd_inference_single --diff_motion``
    (exact launches, the mp4s' frames);
    7d. ``hivae_tpu_torch.cli.train_a2m`` in this process: the flagship A2M
-   head at AMD_N's 4 tokens (fp32 weights, bf16 autocast) on a frozen
+   head's widths at AMD_N's 4 tokens and ``A2M_CLI_LAYERS`` layers (fp32
+   weights, bf16 autocast) on a frozen
    bf16 AMD_N (a reference-named ``.safetensors`` written here) and
    SD-VAE, a ``.pkl`` index of phase 7's mp4s with seeded embeddings and a
    pose stream, N = 4 clips of 16 frames: 3 steps (checkpoints at 2 and
@@ -242,7 +268,7 @@ Phases (any failure exits non-zero without the final result line):
    with ``--rank-phase``, a time limit each), whose collectives the port
    stages through pinned host memory; no time here is a collective's on a
    cluster, and no scaling is measured. Its models keep the flagship's
-   widths at ``PAR_DEPTH`` (4 encoder layers each, 4 DiT layers), since
+   widths at ``PAR_DEPTH`` (2 encoder layers each, 2 DiT layers), since
    these host-staged collectives take time in step with the parameters.
    8a. the ring's two hop kinds timed at 512, 1024 and 2048 local tokens
    (this card's crossover), then ``sequence_sharded_sdpa`` at
@@ -258,8 +284,8 @@ Phases (any failure exits non-zero without the final result line):
    exact launches, ``sdpa_plain`` 0, the ranks' parameters bit-equal
    after the update;
    8c. the same on the mesh (1, 1, 2) with ``attn_impl="ring"`` (2 clips:
-   every attention of the step rings, 36 calls, all plain hops at the
-   17-frame window); then one sampling call at the 64-frame window of
+   every attention of the step rings, all plain hops at the 17-frame
+   window); then one sampling call at the 64-frame window of
    ``benchmarks/bench_longwindow.py`` (flagship widths, ``PAR_DEPTH``)
    with the VAE encodes and decode, under ring over 2 ranks with the
    launches its sites' local blocks give, against the same call under
@@ -332,6 +358,10 @@ PEAK_FP32_FLOPS = 67e12
 
 KERNEL_ATOL = 2e-2   # bf16 outputs of unit scale: P rounded at other points
 LSE_ATOL = 1e-3      # fp32 LSE, sums in another order
+# the fp32 streaming forward against its fp32 plain version: every product
+# a full fp32 one on both sides, only the order of the sums differs (about
+# 4e-7 on outputs and LSEs of unit scale; TF32 products would be ~1e-3)
+KERNEL_F32_ATOL = 1e-5
 # The kernel path and the plain path round P to bf16 at different points of
 # each softmax; over 10 Euler steps of a random-weight model that may move a
 # decoded pixel by a few uint8 levels. Mean |diff| stays well below one.
@@ -405,6 +435,10 @@ A2M_JOINT_FFN_ROWS = 4 * (WINDOW + 1) + WINDOW
 # phase 7d, cli.train_a2m: clips a step, steps, then one resumed step; the
 # CLI's serving leg at A2V_CLI_STEPS
 A2M_TRAIN_CLIPS, A2M_TRAIN_STEPS = 4, 3
+# phase 7d trains the flagship A2M head's widths at a cut depth (it has 8
+# layers): its fp32 checkpoints with the optimizer state were the bulk of
+# the phase, cut when phase 3v's exports took the script past 800 s
+A2M_CLI_LAYERS = 2
 # phases 3q, 3r, 7e and 7f, the other models: the T2M head at the default
 # T2MConfig widths with AMD_N's 4 object tokens a frame (its default 16 do
 # not pair with AMD_N: cli.train_t2m refuses them), sampled at T2M_STEPS
@@ -454,6 +488,21 @@ STREAM_CHECKS = [
     # at 640 channels, one head
     ("AE MapConv (D 640)", (16, 1, 1024, 640), False),
     ("AE MapConv, masked (D 640)", (4, 1, 1024, 640), True),
+]
+# the fp32 streaming forward (name, q shape, launches a path): the fp32
+# SD-VAE's mid-block at 16 frames (cli.vis's decode, cli.frequency_filter
+# _decode's encode and each band's decode), then check-only cases (label,
+# q shape, masked): 17 frames, masked and not, a fully masked key row, and
+# the other head dims at ragged lengths
+STREAM_F32_CASES = [("fp32 SD-VAE mid-block", (16, 1, 1024, 512), 1)]
+STREAM_F32_CHECKS = [
+    ("fp32 SD-VAE mid-block, 17 frames", (17, 1, 1024, 512), False),
+    ("fp32 SD-VAE mid-block, 17 frames, masked", (17, 1, 1024, 512), True),
+    ("fp32 SD-VAE mid-block, 16 frames, masked", (16, 1, 1024, 512), True),
+    ("fp32 D 64, Sq 1000", (2, 2, 1000, 64), True),
+    ("fp32 D 128", (2, 2, 1024, 128), False),
+    ("fp32 D 256, Sq 1030", (2, 1, 1030, 256), True),
+    ("fp32 D 640", (2, 1, 1024, 640), True),
 ]
 # check-only full-block cases (label, q shape, Sk or None, weight 0,
 # masked): a fully masked key row; the largest shape ``full_block_fits``
@@ -638,20 +687,22 @@ def _time_ms(fn, iters: int) -> float:
 
 
 def _bound(shape, with_bias: bool, with_lse: bool, tensors: int = 4,
-           stats: int = 0, flop_factor: int = 4, sk=None):
+           stats: int = 0, flop_factor: int = 4, sk=None, elem_bytes=2,
+           peak=PEAK_BF16_FLOPS):
     """(bytes ms, operations ms) of one attention call at the card's peaks.
-    Bytes: ``tensors`` bf16 tensors each read or written once, half of them
-    (B, H, Sq, D) and half (B, H, Sk, D) (forward: q, o and k, v), the fp32
-    bias row, the fp32 LSE and ``stats`` more fp32 (B, H, Sq) rows.
-    Operations: ``flop_factor``*B*H*Sq*Sk*D matmul flops (forward: 4, Q.K^T
-    and P.V) at the bf16 tensor-core peak."""
+    Bytes: ``tensors`` tensors of ``elem_bytes`` (bf16: 2) each read or
+    written once, half of them (B, H, Sq, D) and half (B, H, Sk, D)
+    (forward: q, o and k, v), the fp32 bias row, the fp32 LSE and ``stats``
+    more fp32 (B, H, Sq) rows. Operations: ``flop_factor``*B*H*Sq*Sk*D
+    matmul flops (forward: 4, Q.K^T and P.V) at ``peak`` (the bf16
+    tensor-core peak; for fp32 operands fp32's)."""
     b, h, s, d = shape
     sk = s if sk is None else sk
-    nbytes = tensors * b * h * (s + sk) * d
+    nbytes = tensors * b * h * (s + sk) * d * elem_bytes // 2
     nbytes += b * sk * 4 if with_bias else 0
     nbytes += b * h * s * 4 * ((1 if with_lse else 0) + stats)
     flops = flop_factor * b * h * s * sk * d
-    return nbytes / PEAK_HBM_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return nbytes / PEAK_HBM_BYTES * 1e3, flops / peak * 1e3
 
 
 def _library_bwd_ms(q, k, v, do, mask, scale, iters):
@@ -1039,7 +1090,81 @@ def check_kernels(fa, failures, parent=None):
                "hivae_tpu/ops/pallas/flash_attention.py:167", fb_cases),
         record("stream_attention", "hivae_tpu_torch/csrc/flash_stream.cu",
                "hivae_tpu/ops/pallas/flash_attention.py:468", st_cases),
+        record("stream_attention_f32",
+               "hivae_tpu_torch/csrc/flash_stream.cu",
+               "hivae_tpu/ops/pallas/flash_attention.py:468",
+               check_stream_f32(fa, failures, gen, sms)),
     ]
+
+
+def check_stream_f32(fa, failures, gen, sms):
+    """Phase 2, the fp32 streaming forward (``stream_attention_f32``) on
+    fp32 operands: against its fp32 plain version within KERNEL_F32_ATOL
+    (outputs and LSE), two launches to the same bits, a fully masked key
+    row as the uniform average, timed beside its plain version and SDPA in
+    fp32 (TF32 off, as this script sets it). Its bound: the fp32 bytes of
+    q, k, v, o and the LSE, and the flops at fp32's peak outside the tensor
+    cores, where it runs. Returns the cases."""
+    import torch
+    import torch.nn.functional as F
+
+    cases = []
+    for label, shape, weight, masked in [
+            (lab, shape, n, False) for lab, shape, n in STREAM_F32_CASES] + [
+            (lab, shape, 0, masked) for lab, shape, masked in
+            STREAM_F32_CHECKS]:
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(3))
+        scale = shape[3] ** -0.5
+        bias = None
+        if masked:
+            keep = torch.rand((shape[0], shape[2]), generator=gen,
+                              device="cuda") > 0.3
+            keep[0] = False   # one fully masked key row
+            bias = torch.where(keep, 0.0, -1e30).to(torch.float32)
+        kw = dict(scale=scale, bias=bias)
+        out, lse = fa.stream_attention_f32(q, k, v, **kw)
+        again, _ = fa.stream_attention_f32(q, k, v, **kw)
+        wo, wl = fa.stream_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = _abs_err(out, wo)
+        err_lse = (lse - wl).abs().max().item()
+        finite = bool(torch.isfinite(out).all() and torch.isfinite(lse).all())
+        if not torch.equal(out, again):
+            failures.append(f"stream fp32 {label}: two launches differ")
+        if masked:
+            err_u = (out[0].float() - v[0].float().mean(
+                dim=1, keepdim=True)).abs().max().item()
+            if not err_u <= KERNEL_F32_ATOL:
+                failures.append(f"stream fp32 {label}: masked row not "
+                                f"uniform ({err_u})")
+        if not (finite and out.dtype == torch.float32 and
+                err <= KERNEL_F32_ATOL and err_lse <= KERNEL_F32_ATOL):
+            failures.append(f"stream fp32 {label} {shape}: max|err| {err} "
+                            f"lse {err_lse} finite {finite}")
+        mask = None if bias is None else bias[:, None, None, :]
+        ms = _time_ms(lambda: fa.stream_attention_f32(q, k, v, **kw), 20)
+        plain_ms = _time_ms(lambda: fa.stream_attention_plain(q, k, v, **kw),
+                            10)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), 20)
+        bytes_ms, ops_ms = _bound(shape, masked, True, elem_bytes=4,
+                                  peak=PEAK_FP32_FLOPS)
+        plan = fa._stream_f32_plan(shape[3])
+        ctas = -(-shape[2] // fa.STREAM_F32_ROWS) * shape[0] * shape[1]
+        cases.append(dict(label=label, shape=list(shape), per_clip=weight,
+                          weight=weight, max_abs_err=max(err, err_lse),
+                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          parent_ms=None, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                          plan=dataclasses.asdict(plan), ctas=ctas,
+                          waves=ctas / sms))
+        _log(f"  stream fp32 {label} {shape}: max|err| O {err:.3g} LSE "
+             f"{err_lse:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+             f"sdpa fp32 {lib_ms:.4f} ms  bound {max(bytes_ms, ops_ms):.4f}"
+             f" ms (fp32 {ops_ms:.4f}, bytes {bytes_ms:.4f})  ({plan.tile}"
+             f"-key tiles, {plan.smem} B, {ctas} CTAs, {ctas / sms:.2f} "
+             f"waves)")
+    return cases
 
 
 def _load_kernels(root):
@@ -1334,11 +1459,25 @@ SDPA_DTYPE_CASES = [("object encoder width", (2, 16, 260, 64), True),
 INT8_SMALL_M = (1, 16, 17)
 
 
+def _sdpa_dtype_want(dtype, label, grad):
+    """(route, launches) ``sdpa`` must take in phase 2b: the fp32 call of
+    the SD-VAE mid-block's shape with no gradient to the fp32 streaming
+    kernel (one launch), every other fp32 or fp16 call to the counted plain
+    path."""
+    import torch
+    if dtype == torch.float32 and not grad and "mid-block" in label:
+        return "stream", {"stream_attention_f32": 1}
+    return "plain", {"sdpa_plain": 1}
+
+
 def check_repairs(failures):
     """Phase 2b. ``sdpa`` in fp32 and fp16 above 256^2 logits against its
-    plain path, launching no kernel and counted once in ``sdpa_plain``;
-    bf16 in a layout the kernels cannot read, copied and launched; an fp32
-    ``AutoencoderKL`` encoding one clip; ``quant_dense`` and
+    plain path: the fp32 SD-VAE mid-block without a gradient launches the
+    fp32 streaming kernel once; fp32 at the object encoder's full-block
+    shape, fp32 that needs a gradient, and fp16 launch no kernel and are
+    counted once in ``sdpa_plain``; bf16 in a layout the kernels cannot
+    read, copied and launched; an fp32 ``AutoencoderKL`` encoding one clip
+    (one fp32 streaming launch, ``sdpa_plain`` 0); ``quant_dense`` and
     ``fused_quant_ffn`` at M 1, 16 and 17 on the card against the same
     calls on the CPU (their plain versions)."""
     import torch
@@ -1347,10 +1486,11 @@ def check_repairs(failures):
     from hivae_tpu_torch.ops import quant as quant_ops
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    for dtype in (torch.float32, torch.float16):
+    for dtype, grad in ((torch.float32, False), (torch.float32, True),
+                        (torch.float16, False)):
         for label, shape, masked in SDPA_DTYPE_CASES:
             q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-                       .to(dtype) for _ in range(3))
+                       .to(dtype).requires_grad_(grad) for _ in range(3))
             mask = None
             if masked:
                 mask = torch.rand((shape[0], shape[2]), generator=gen,
@@ -1359,17 +1499,22 @@ def check_repairs(failures):
             _zero_counts()
             got = attn_ops.sdpa(q, k, v, key_mask=mask)
             launched = {n: c for n, c in _read_counts().items() if c}
-            want = attn_ops._sdpa_plain(q, k, v, shape[3] ** -0.5, mask)
+            with torch.no_grad():
+                want = attn_ops._sdpa_plain(q, k, v, shape[3] ** -0.5, mask)
             torch.cuda.synchronize()
-            err = _abs_err(got, want)
-            ok = (route == "plain" and launched == {"sdpa_plain": 1}
+            err = _abs_err(got.detach(), want)
+            want_route, want_launches = _sdpa_dtype_want(dtype, label, grad)
+            ok = (route == want_route and launched == want_launches
                   and got.dtype == dtype and bool(torch.isfinite(got).all())
                   and err <= KERNEL_ATOL)
-            _log(f"  sdpa {dtype} {label} {shape}: route {route}, launches "
-                 f"{launched}, max|err| vs plain {err:.3g}")
+            _log(f"  sdpa {dtype}{' (grad)' if grad else ''} {label} "
+                 f"{shape}: route {route}, launches {launched}, max|err| vs "
+                 f"plain {err:.3g}")
             if not ok:
-                failures.append(f"sdpa {dtype} {label}: route {route}, "
-                                f"launches {launched}, err {err}")
+                failures.append(f"sdpa {dtype} grad {grad} {label}: route "
+                                f"{route} want {want_route}, launches "
+                                f"{launched} want {want_launches}, err "
+                                f"{err}")
 
     # bf16 operands whose rows the kernels cannot read (every other column
     # of a wider tensor): sdpa copies them to the kernels' layout and
@@ -1409,7 +1554,7 @@ def check_repairs(failures):
          f"{launched}")
     if tuple(lat.shape) != want_shape or lat.dtype != torch.float32 or \
             not bool(torch.isfinite(lat).all()) or \
-            set(launched) != {"sdpa_plain"}:
+            launched != {"stream_attention_f32": 1}:
         failures.append(f"fp32 AutoencoderKL encode: {tuple(lat.shape)} "
                         f"{lat.dtype}, launches {launched}")
     del vae, lat
@@ -2492,10 +2637,10 @@ def run_vis_cli(card, failures):
     """Phase 3p: ``python -m hivae_tpu_torch.cli.vis`` in this process on
     the shipped PosePre yaml written out as json (random weights from seed
     0), VIS_PAIRS synthetic pose mp4s and embeddings of VIS_FRAMES + 3
-    frames. fp32 as the JAX CLI: no kernel takes an fp32 call, so the
-    SD-VAE's two mid-block attentions (the reference poses' encode, the
-    predicted poses' decode) run ``sdpa_plain``, 2 calls exactly, and no
-    kernel launches. The video handed to the writer: (VIS_FRAMES, 3, 256,
+    frames. fp32 as the JAX CLI: the SD-VAE's two mid-block attentions
+    (the reference poses' encode, the predicted poses' decode) launch the
+    fp32 streaming kernel, 2 launches exactly, ``sdpa_plain`` 0 and no
+    other kernel. The video handed to the writer: (VIS_FRAMES, 3, 256,
     VIS_PAIRS x 256) uint8, the decoded pixels finite before
     quantisation. Returns {path: launches}."""
     import contextlib
@@ -2554,7 +2699,7 @@ def run_vis_cli(card, failures):
         vio.write_video, vae_mod.vae_decode = write, decode
         shutil.rmtree(work, ignore_errors=True)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = dict(_no_launches(), sdpa_plain=2)
+    want = dict(_no_launches(), stream_attention_f32=2)
     shape = (VIS_FRAMES, 3, SIZE, VIS_PAIRS * SIZE)
     got = tuple(written[0].shape) if written else None
     _log(f"  cli.vis (PosePre yaml, fp32, {VIS_PAIRS} pairs of "
@@ -2569,6 +2714,334 @@ def run_vis_cli(card, failures):
                         f"finite {finite}, launches {launches} want {want}")
     torch.cuda.empty_cache()
     return {"vis_cli": launches}
+
+
+# -- the long tail (phases 3s-3v) ----------------------------------------------
+
+# cli.frequency_filter_decode: the fp32 kernel's bands against the plain
+# version's, in uint8 levels (fp32 sums in another order: a value on a
+# rounding edge may move one level)
+FREQ_MAX_LEVELS = 1
+# cli.evaluate on EVAL_VIDEOS clips at the JAX CLI's default 20 steps, bf16,
+# against its run on the plain attention versions (P rounded to bf16 at
+# other points over 20 Euler steps of random weights): PSNR in dB, SSIM and
+# LPIPS absolute
+EVAL_VIDEOS, EVAL_STEPS = 2, 20
+EVAL_PSNR_ATOL, EVAL_SSIM_ATOL, EVAL_LPIPS_ATOL = 0.25, 0.01, 0.01
+# the unused DiTs and rope_attention in bf16 against their plain runs; the
+# DiTs at their default widths and a cut depth (no model builds them)
+LONGTAIL_REL_L2 = 2e-2
+LONGTAIL_LAYERS = 2
+# cli.export_sampler's module, exported at full width: Euler steps. Cut
+# from the CLI's 10: torch.export's trace, save and load grow with the
+# graph (H100 80GB HBM3 host, bf16: 44,482 nodes at 10 steps traced in
+# 116.9 s, saved in 61.9, loaded in 83.5; 7,176 nodes at 1 step in 23.2,
+# 14.6 and 11.4), and at 10 steps the two exports alone would take
+# this script past its time limit; one step still runs the whole chain
+# (encode, motion, a velocity call, decode) through the kernels' ops
+EXPORT_STEPS = 1
+
+
+def _counted_run(fn):
+    """(fn(), launches): the counters set to 0 just before, read after."""
+    import torch
+    _zero_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _read_counts()
+
+
+def run_frequency_decode_cli(card, failures):
+    """Phase 3s: ``cli.frequency_filter_decode`` in this process on one
+    synthetic 256^2 mp4 of WINDOW frames, in ``fft`` and ``wavelet``
+    modes, the VAE in fp32 (seed 0) as the JAX CLI builds it: its
+    mid-block attention takes the fp32 streaming kernel, once for the
+    encode and once a band (3 and 5 launches), nothing else launches and
+    ``sdpa_plain`` reads 0; each band's frames within FREQ_MAX_LEVELS of
+    the same run on the plain attention version. Returns {path:
+    launches}."""
+    import contextlib
+    import io
+    import shutil
+    import numpy as np
+    import torch
+    from hivae_tpu_torch.cli import frequency_filter_decode as freqdec
+    from hivae_tpu_torch.data import video as vio
+
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_freq")
+    shutil.rmtree(work, ignore_errors=True)
+    write_training_videos(work, count=1, frames=WINDOW + 2)
+    paths, write = {}, vio.write_video
+    try:
+        for mode, bands in (("fft", 2), ("wavelet", 4)):
+            argv = ["--video_path", os.path.join(work, "train0.mp4"),
+                    "--output_dir", os.path.join(work, mode), "--frames",
+                    str(WINDOW), "--mode", mode]
+            runs = []
+            for plain in (False, True):
+                frames = []
+                vio.write_video = lambda path, video, *a, **k: (
+                    frames.append(np.asarray(video)), write(path, video, *a,
+                                                            **k))[1]
+                ctx = _plain_kernels() if plain else contextlib.nullcontext()
+                t0 = time.perf_counter()
+                with ctx, contextlib.redirect_stdout(io.StringIO()):
+                    _, launches = _counted_run(lambda: freqdec.main(argv))
+                runs.append((frames, launches, time.perf_counter() - t0))
+            (frames, launches, wall), (ref, _, _) = runs
+            want = dict(_no_launches(), stream_attention_f32=1 + bands)
+            diff = max(int(np.abs(a.astype(int) - b.astype(int)).max())
+                       for a, b in zip(frames, ref)) if ref else None
+            shapes = {tuple(f.shape) for f in frames}
+            _log(f"  cli.frequency_filter_decode --mode {mode}: {len(frames)}"
+                 f" bands {shapes} uint8, {wall:.1f} s with the VAE's build; "
+                 f"max|diff| vs plain attention {diff} levels; launches "
+                 f"{ {k: v for k, v in launches.items() if v} }; {card}")
+            if not (launches == want and len(frames) == bands == len(ref)
+                    and shapes == {(WINDOW, 3, SIZE, SIZE)}
+                    and diff <= FREQ_MAX_LEVELS):
+                failures.append(f"cli.frequency_filter_decode {mode}: "
+                                f"launches {launches} want {want}, {len(frames)}"
+                                f" bands {shapes}, max|diff| {diff}")
+            paths[f"frequency_decode_{mode}"] = launches
+    finally:
+        vio.write_video = write
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _eval_launches(cfg, clips, steps):
+    """``cli.evaluate``'s launches: per clip the object encoder's layers and
+    the DiT's two joint blocks a layer a step on the full-block kernel, and
+    three streaming forwards (the clip's encode, its grey encode, the
+    decode)."""
+    enc, dit = cfg.object_enc_num_layers, cfg.diffusion_num_layers
+    return dict(_no_launches(), full_block_attention=clips * (
+        enc + 2 * dit * steps), stream_attention=clips * 3)
+
+
+def run_evaluate_cli(card, failures):
+    """Phase 3t: ``cli.evaluate`` in this process at full width (AMD_N of
+    CONFIG and the SD-VAE in bf16, seeded random weights: the checkpoint
+    given holds no key of the model), on EVAL_VIDEOS synthetic mp4s at
+    EVAL_STEPS steps with seeded LPIPS weights written under torchvision's
+    and the LPIPS heads' names: exact launches, ``sdpa_plain`` 0, finite
+    metrics, ``num_videos`` EVAL_VIDEOS, and PSNR, SSIM and LPIPS within
+    their tolerances of the run on the plain attention versions. Returns
+    {path: launches}."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from hivae_tpu_torch.cli import evaluate
+    from hivae_tpu_torch.losses.lpips import LPIPS
+    from hivae_tpu_torch.models import amd as amd_mod
+
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build", "chip_smoke_eval")
+    shutil.rmtree(work, ignore_errors=True)
+    write_training_videos(os.path.join(work, "videos"), count=EVAL_VIDEOS,
+                          frames=WINDOW + 3)
+    write_safetensors(os.path.join(work, "none.safetensors"),
+                      {"no_key_of_the_model": torch.zeros(1)})
+    torch.manual_seed(SEED + 70)
+    state = LPIPS().state_dict()
+    write_safetensors(os.path.join(work, "vgg16.safetensors"),
+                      {k[len("net."):]: v for k, v in state.items()
+                       if k.startswith("net.")})
+    write_safetensors(os.path.join(work, "head.safetensors"),
+                      {f"lin{k}.model.1.weight": state[f"lin{k}.weight"].abs()
+                       for k in range(5)})
+    with open(CONFIG) as f:
+        cfg = amd_mod.AMDConfig.from_dict(json.load(f))
+    argv = ["--amd_config", CONFIG, "--amd_ckpt",
+            os.path.join(work, "none.safetensors"), "--video_dir",
+            os.path.join(work, "videos"), "--sample_step", str(EVAL_STEPS),
+            "--lpips_vgg", os.path.join(work, "vgg16.safetensors"),
+            "--lpips_head", os.path.join(work, "head.safetensors"),
+            "--output_json", os.path.join(work, "result.json")]
+    score, clip_s = evaluate.score_clip, []
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = score(*a, **k)
+        clip_s.append(time.perf_counter() - t0)
+        return out
+    try:
+        evaluate.score_clip = timed
+        results = []
+        for plain in (False, True):
+            ctx = _plain_kernels() if plain else contextlib.nullcontext()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with ctx, contextlib.redirect_stdout(out):
+                res, launches = _counted_run(lambda: evaluate.main(argv))
+            results.append((res, launches, time.perf_counter() - t0,
+                            out.getvalue()))
+            if not plain:
+                with open(os.path.join(work, "result.json")) as f:
+                    written = json.load(f)
+    finally:
+        evaluate.score_clip = score
+        shutil.rmtree(work, ignore_errors=True)
+    (res, launches, wall, text), (ref, _, ref_wall, _) = results
+    want = _eval_launches(cfg, EVAL_VIDEOS, EVAL_STEPS)
+    lines = [l for l in text.splitlines() if "PSNR" in l or "FAILED" in l]
+    _log(f"  cli.evaluate ({EVAL_VIDEOS} clips, {EVAL_STEPS} steps, bf16, "
+         f"LPIPS): {res}; {wall:.1f} s with the models' build (plain "
+         f"attention {ref_wall:.1f} s), a clip (read, encode, sample, "
+         f"decode, metrics) "
+         f"{', '.join(f'{x * 1e3:.1f}' for x in clip_s[:EVAL_VIDEOS])} ms "
+         f"(plain attention "
+         f"{', '.join(f'{x * 1e3:.1f}' for x in clip_s[EVAL_VIDEOS:])}); "
+         f"launches "
+         f"{ {k: v for k, v in launches.items() if v} }; {card}")
+    for line in lines:
+        _log(f"    {line}")
+    _log(f"  plain-attention run: {ref}")
+    close = all(res[k] is not None and ref[k] is not None and
+                math.isfinite(res[k]) and abs(res[k] - ref[k]) <= tol
+                for k, tol in (("psnr_mean", EVAL_PSNR_ATOL),
+                               ("ssim_mean", EVAL_SSIM_ATOL),
+                               ("lpips_mean", EVAL_LPIPS_ATOL)))
+    if not (launches == want and res["num_videos"] == EVAL_VIDEOS and close
+            and written == res):
+        failures.append(f"cli.evaluate: {res} vs plain {ref}, launches "
+                        f"{launches} want {want}, written {written}")
+    torch.cuda.empty_cache()
+    return {"evaluate_cli": launches}
+
+
+def run_longtail_blocks(card, failures):
+    """Phase 3u: the modules no model builds, in bf16 on the card at
+    widths and token counts above 256^2 logits, seeded: ``rope_attention``
+    at (2, 512, 16, 64), ``VelocityDiTSplitInput`` and ``DiT2Condition`` at
+    their default widths (20 heads of 64) and ``LONGTAIL_LAYERS`` layers on
+    32^2 latents with a 4 x 4 motion grid (528 tokens). Each launches the
+    full-block kernel (once, and once a layer; nothing else, ``sdpa_plain``
+    0), finite, within LONGTAIL_REL_L2 of its plain-attention run. Returns
+    {path: launches}."""
+    import torch
+    from hivae_tpu_torch.models import dit as dit_mod
+    from hivae_tpu_torch.ops import rope
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    torch.manual_seed(SEED + 81)
+    with torch.device("cuda"):
+        split = dit_mod.VelocityDiTSplitInput(
+            num_layers=LONGTAIL_LAYERS).to(torch.bfloat16).eval()
+        two = dit_mod.DiT2Condition(
+            num_layers=LONGTAIL_LAYERS).to(torch.bfloat16).eval()
+    t = torch.tensor([250.0, 750.0], device="cuda")
+    cases = [
+        ("rope_attention (2, 512, 16, 64)",
+         (randn(2, 512, 16, 64), randn(2, 512, 16, 64),
+          randn(2, 512, 16, 64)), rope.rope_attention, 1),
+        ("VelocityDiTSplitInput (528 tokens)",
+         (randn(2, 128, 4, 4), randn(2, 8, 32, 32), t), split,
+         LONGTAIL_LAYERS),
+        ("DiT2Condition (528 tokens)",
+         (randn(2, 4, 32, 32), randn(2, 4, 32, 32), randn(2, 128, 4, 4), t),
+         two, LONGTAIL_LAYERS)]
+    paths = {}
+    for label, args, fn, n in cases:
+        with torch.no_grad():
+            out, launches = _counted_run(lambda: fn(*args))
+            with _plain_kernels():
+                ref = fn(*args)
+        rel = _rel_l2(out, ref)
+        want = dict(_no_launches(), full_block_attention=n)
+        _log(f"  {label}: {tuple(out.shape)} {out.dtype}, rel L2 vs plain "
+             f"{rel:.3g}, launches "
+             f"{ {k: v for k, v in launches.items() if v} }; {card}")
+        if not (launches == want and bool(torch.isfinite(out).all())
+                and rel <= LONGTAIL_REL_L2):
+            failures.append(f"{label}: launches {launches} want {want}, "
+                            f"rel L2 {rel}")
+        paths[label.split(" ")[0]] = launches
+    del split, two
+    torch.cuda.empty_cache()
+    return paths
+
+
+def run_export_sampler(models, quant, card, failures):
+    """Phase 3v: ``cli.export_sampler``'s module at full width (AMD_N,
+    WINDOW frames at 256^2, EXPORT_STEPS steps; ``quant="int8"`` builds the
+    tables and strips the models' covered float weights): exported with
+    ``torch.export``, saved, loaded, and run on the same inputs (phase 3's
+    clip, its grey clip, seeded start noise) as the live module. The
+    loaded program's uint8 frames against the live run's (equal, or the
+    largest difference logged and gated by phase 3's tolerances), and its
+    launches of every kernel equal to the live run's and to the clip's
+    formula. Returns {path: launches}."""
+    import shutil
+    import torch
+    from hivae_tpu_torch.cli import export_sampler as ex
+
+    amd, vae = models
+    label = f"export_{quant or 'bf16'}"
+    work = os.path.join(ROOT, "hivae_tpu_torch", "build",
+                        "chip_smoke_export")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path = os.path.join(work, f"{label}.pt2")
+    rgb, grey = synthetic_clip()
+    _, _, noise = ex.example_inputs(amd, WINDOW, SIZE, "cuda", seed=SEED)
+    inputs = (torch.from_numpy(rgb).cuda(), torch.from_numpy(grey).cuda(),
+              noise)
+    try:
+        t0 = time.perf_counter()
+        sampler = ex.build_sampler(vae, amd, EXPORT_STEPS, quant)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = ex.export(sampler, inputs)
+        trace_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.export.save(program, path)
+        save_s, size = time.perf_counter() - t0, os.path.getsize(path)
+        del program
+        t0 = time.perf_counter()
+        loaded = torch.export.load(path).module()
+        load_s = time.perf_counter() - t0
+        ops = sorted({str(n.target) for n in loaded.graph.nodes
+                      if "hivae" in str(n.target)})
+        with torch.no_grad():
+            live, live_launches = _counted_run(lambda: sampler(*inputs))
+            t0 = time.perf_counter()
+            got, launches = _counted_run(lambda: loaded(*inputs))
+            run_s = time.perf_counter() - t0
+        nodes = len(loaded.graph.nodes)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cfg = amd.cfg
+    want = dict(_no_launches(), full_block_attention=(
+        cfg.object_enc_num_layers + 2 * cfg.diffusion_num_layers *
+        EXPORT_STEPS), stream_attention=3)
+    if quant:
+        want["fused_ffn_up_quant"] = 3 * cfg.diffusion_num_layers * \
+            EXPORT_STEPS
+    diff = (got.int() - live.int()).abs().max().item()
+    _log(f"  {label} ({EXPORT_STEPS} steps): built {build_s:.1f} s, traced "
+         f"{trace_s:.1f} s ({nodes} nodes; custom ops {ops}), saved "
+         f"{save_s:.1f} s ({size / 1e6:.1f} MB), loaded {load_s:.1f} s, "
+         f"run {run_s * 1e3:.1f} ms; output {tuple(got.shape)} {got.dtype}, "
+         f"max|diff| vs live {diff} levels; launches "
+         f"{ {k: v for k, v in launches.items() if v} }; {card}")
+    if diff:
+        _clip_diff(f"{label} vs live", got, live, failures)
+    if not (launches == live_launches == want and got.dtype == torch.uint8
+            and tuple(got.shape) == (WINDOW + 1, 3, SIZE, SIZE)):
+        failures.append(f"{label}: launches {launches} live {live_launches} "
+                        f"want {want}, {tuple(got.shape)} {got.dtype}")
+    del sampler, loaded
+    torch.cuda.empty_cache()
+    return {label: launches}
 
 
 # -- the dual-encoder AMD family (phases 3j-3l) --------------------------------
@@ -2777,7 +3250,8 @@ def rec_split(failures, paths):
 
 COUNTERS = ("full_block_attention", "full_block_attention_qknorm",
             "full_block_attention_bwd", "full_block_attention_delta",
-            "stream_attention", "stream_attention_delta",
+            "stream_attention", "stream_attention_f32",
+            "stream_attention_delta",
             "stream_attention_bwd_dq", "stream_attention_bwd_dkv",
             "fused_ffn_up_quant", "sdpa_plain")
 
@@ -3414,10 +3888,11 @@ def run_cli(argv, label, steps, failures):
 
 
 def run_train_cli(failures, profile_dir=None):
-    """Phases 7 and 7b: the training CLI on synthetic mp4s (flagship JSON,
-    N = 4, bf16, remat), a resume from step 2's checkpoint, the inference
-    CLI on the checkpoint it wrote, then the flags' flagship with
-    ``--use_mask true``. Returns {path: launches}."""
+    """Phases 7 and 7b: the training CLI on synthetic mp4s (flagship JSON
+    at ``PAR_DEPTH``, N = 4, bf16, remat), a resume from step 2's
+    checkpoint, the inference CLI on the checkpoint it wrote, then the
+    flags' flagship at ``PAR_DEPTH`` with ``--use_mask true``. Returns
+    {path: launches}."""
     import shutil
     import torch
     from hivae_tpu_torch.cli import train_amd
@@ -3432,9 +3907,15 @@ def run_train_cli(failures, profile_dir=None):
               "--train_batch_size", str(RUN_A_CLIPS), "--mp", "bf16",
               "--remat", "true", "--mu_dtype", "bf16", "--seed", str(SEED),
               "--save_checkpoint_interval_step", str(CLI_SAVE_EVERY)]
-    base = common + ["--exp_name", "cli", "--amd_config", CONFIG]
+    config = os.path.join(work, "config_cli.json")
+    base = common + ["--exp_name", "cli", "--amd_config", config]
     paths = {}
     try:
+        os.makedirs(work)
+        with open(CONFIG) as f:
+            cli_cfg = dict(json.load(f), **PAR_DEPTH)
+        with open(config, "w") as f:
+            json.dump(cli_cfg, f)
         try:
             import torch.utils.tensorboard  # noqa: F401
             _log("  torch.utils.tensorboard imports here: the CLI logs to "
@@ -3459,8 +3940,9 @@ def run_train_cli(failures, profile_dir=None):
         ok = written == cfg.to_dict() and os.path.exists(
             os.path.join(run_dir, "args.txt")) and saved == [
             f"checkpoint-{CLI_SAVE_EVERY}", f"checkpoint-{CLI_STEPS}"]
-        _log(f"  config.json equals the flagship config: "
-             f"{written == cfg.to_dict()}; checkpoints {saved}")
+        _log(f"  config.json equals its --amd_config (the flagship at "
+             f"{PAR_DEPTH}): {written == cfg.to_dict()}; checkpoints "
+             f"{saved}")
         if not ok:
             failures.append(f"train_amd outputs: checkpoints {saved}, "
                             f"config equal {written == cfg.to_dict()}")
@@ -3505,7 +3987,8 @@ def run_train_cli(failures, profile_dir=None):
         _log(f"phase 7b: the training CLI with --use_mask true, "
              f"{CLI_MASK_STEPS} steps")
         argv = common + ["--exp_name", "mask", "--use_mask", "true",
-                         "--max_train_steps", str(CLI_MASK_STEPS)]
+                         "--max_train_steps", str(CLI_MASK_STEPS)] + [
+            f"--{k}={v}" for k, v in PAR_DEPTH.items()]
         _log(f"  the loader alone with flow masks: {_loader_ms(argv):.1f} "
              f"host ms a batch")
         paths["train_cli_mask"], _, _ = run_cli(
@@ -3584,7 +4067,8 @@ def run_train_a2m_cli(card, failures):
     embeddings and a second set of mp4s as the pose stream; a frozen
     AMD_N (its random weights written as a reference-named
     ``.safetensors``) and SD-VAE in bf16; the flagship head at AMD_N's 4
-    tokens with fp32 weights under bf16 autocast; N = A2M_TRAIN_CLIPS
+    tokens and ``A2M_CLI_LAYERS`` layers (its widths) with fp32 weights
+    under bf16 autocast; N = A2M_TRAIN_CLIPS
     clips of 16 frames. A2M_TRAIN_STEPS steps (a checkpoint at step 2 and
     the final one), then a resume to one step more, then
     ``cli.a2v_inference`` on the checkpoint it wrote. Each step runs the
@@ -3630,7 +4114,8 @@ def run_train_a2m_cli(card, failures):
     a2m_json = os.path.join(work, "a2m.json")
     with open(a2m_json, "w") as f:
         json.dump(dict(spec, model=dict(
-            model, motion_num_token=amd_cfg.object_motion_token_num)), f)
+            model, motion_num_token=amd_cfg.object_motion_token_num,
+            diffusion_num_layers=A2M_CLI_LAYERS)), f)
     argv = ["--a2m_config", a2m_json, "--amd_config", CONFIG,
             "--amd_ckpt", amd_st, "--video_dir",
             os.path.join(work, "index.pkl"), "--output_dir", work,
@@ -4227,12 +4712,15 @@ PAR_DP_CLIPS, PAR_RING_CLIPS, PAR_FSDP_CLIPS = 4, 2, 2
 # the long window of benchmarks/bench_longwindow.py (flagship widths) and
 # its Euler steps here
 LONG_WINDOW, LONG_WINDOW_STEPS = 64, 2
-# phase 8's models keep the flagship's widths at a cut depth: its gloo
-# collectives move every gradient and checkpoint tensor through host
-# memory, so their time follows the parameter count, and phase 8 is where
-# the script's time limit is met (the full depth runs in phases 4-7)
-PAR_DEPTH = dict(object_enc_num_layers=4, camera_enc_num_layers=4,
-                 diffusion_num_layers=4)
+# phase 8's models, and phases 7 and 7b's (the training CLI), keep the
+# flagship's widths at a cut depth: phase 8's gloo collectives move every
+# gradient and checkpoint tensor through host memory, so their time
+# follows the parameter count, and the CLI writes full checkpoints with
+# the optimizer state (8 GB at full depth). Cut from 4 encoder and 4 DiT
+# layers (phase 8) and the full depth (phase 7) when phase 3v's exports
+# took the script past 800 s; the full depth trains in phases 4-6
+PAR_DEPTH = dict(object_enc_num_layers=2, camera_enc_num_layers=2,
+                 diffusion_num_layers=2)
 RANK_TIMEOUT = 600
 
 
@@ -5130,11 +5618,18 @@ def main() -> int:
     _log("phase 3q: T2M sample at full width (20 layers, 16 x 128) on "
          "AMD_N's camera tokens, an int and a text label")
     paths.update(run_t2m_sample(serving, card, failures))
+    _log(f"phase 3v: cli.export_sampler's module exported at full width "
+         f"(AMD_N, {WINDOW} frames, {EXPORT_STEPS} steps, bf16), saved, "
+         f"loaded and run against the live module")
+    paths.update(run_export_sampler(serving, None, card, failures))
     _log("phase 3b: the int8 (w8a8) clip")
     paths["clip_int8"], _ = run_int8_clip(serving, bf16_clip, latency,
                                           args, failures)
     del serving
     torch.cuda.empty_cache()
+    _log("phase 3v: the int8 export (--quant int8) on AMD_N built anew")
+    paths.update(run_export_sampler(build_serving_models(), "int8", card,
+                                    failures))
     _log("phase 3m: the int8 A2V clip")
     paths.update(run_a2v_int8(a2v_latency, card, failures))
     _log("phase 3n: the int8 A2V clip with the LearnableToken head")
@@ -5144,6 +5639,14 @@ def main() -> int:
     paths.update(run_grid_head(card, failures))
     _log("phase 3p: cli.vis on the PosePre yaml (fp32)")
     paths.update(run_vis_cli(card, failures))
+    _log("phase 3s: cli.frequency_filter_decode, fft and wavelet (fp32 VAE)")
+    paths.update(run_frequency_decode_cli(card, failures))
+    _log(f"phase 3t: cli.evaluate at full width, {EVAL_VIDEOS} clips, "
+         f"{EVAL_STEPS} steps, LPIPS")
+    paths.update(run_evaluate_cli(card, failures))
+    _log("phase 3u: rope_attention, VelocityDiTSplitInput and "
+         "DiT2Condition in bf16")
+    paths.update(run_longtail_blocks(card, failures))
     _log("phase 3r: the CNN motion AE and the discriminators")
     paths.update(run_other_models(card, failures))
     paths.update(run_amd_family(failures))

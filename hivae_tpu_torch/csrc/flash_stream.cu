@@ -1,5 +1,6 @@
 // Streaming (online-softmax) attention forward with LSE for Hopper
-// (sm_90a), bf16 in, bf16 out, fp32 log-sum-exp.
+// (sm_90a), bf16 in, bf16 out, fp32 log-sum-exp; and, below, its fp32
+// variant (stream_fwd_f32_kernel, hv_stream_fwd_f32).
 //
 // Replaces hivae_tpu/ops/pallas/flash_attention.py::_stream_fwd_kernel
 // (driven by _stream_fwd_impl / stream_fwd_lse): a loop over KV tiles with a
@@ -336,6 +337,260 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
 constexpr int HV_BAD_PLAN = -2;
 
+// ---------------------------------------------------------------------------
+// fp32 variant: the same function with fp32 Q, K, V, O and LSE, P kept in
+// fp32 for P.V, as the Pallas kernel computes it for fp32 operands (its
+// p.astype(v.dtype) is then the identity). It serves the fp32 SD-VAE
+// (``AutoencoderKL()`` builds in fp32): the mid-block attention,
+// (B, 1, 1024, 512), of ``cli.vis`` and ``cli.frequency_filter_decode``.
+//
+// Bound on the H100 SXM at (16, 1, 1024, 512): 4*B*H*S*S*D = 34.4 GFLOP,
+// 0.51 ms at the 67 TFLOP/s of fp32 outside the tensor cores (the rate
+// this kernel's arithmetic runs at), against 134 MB of q, k, v and o,
+// 0.040 ms at 3.35 TB/s: the bound is operations. (At the 495 TFLOP/s of
+// TF32 it would be 0.069 ms; this kernel does not use the tensor cores, so
+// that every product is a full fp32 one, as the plain version's.)
+//
+// Design: SIMT, correct first. A CTA of 256 threads takes 32 query rows of
+// one (batch, head) and walks the keys in tiles of 64 (32 past D = 512).
+// The Q tile and one K or V tile sit in shared memory with rows D + 4
+// floats apart (a 16-byte pad: consecutive rows start four banks apart, so
+// the float4 reads of eight neighbouring rows meet no bank conflict), 198
+// KB at D = 512: one CTA a SM. S = Q.K^T: thread (ty, tx) of a 16 x 16
+// grid sums rows ty + 16 i against keys tx + 16 j over float4 steps of D;
+// each row's 16 threads reduce the tile's maximum and sum by shuffles and
+// one of them keeps the row's running max, denominator and rescale factor
+// in shared memory; fp32 P goes to a shared tile. Then V replaces K in the
+// same buffer, and P.V runs with warp w owning output rows 4w..4w+3 and
+// lane l the float4 columns l + 32 c: the P values are warp-uniform reads
+// (broadcasts) and the V row a contiguous 512-byte read. The 32 x D output
+// accumulator lives in registers (64 a thread at D = 512, 80 at 640).
+// Tiles travel by cp.async, each a single group of copies in flight at
+// once: V's under the softmax, which needs no shared K or V; K's
+// otherwise alone (no room for a second K/V slot at D = 512).
+//
+// Softmax as the bf16 kernel: t = s * scale + bias, p = 2^((t - m) log2 e),
+// so a fully masked row keeps m = -1e30 and averages its keys uniformly;
+// keys past Sk are -inf and rows past Sq are zero-filled and not stored.
+// Grid: ceil(Sq / 32) x H x B, 512 CTAs at the serving shape.
+constexpr int SF32_BQ = 32;
+constexpr int SF32_THREADS = 256;
+
+template <int D>
+__host__ __device__ constexpr int sf32_bk() { return D > 512 ? 32 : 64; }
+
+// Shared bytes: Q (BQ rows) and one K/V tile (bk rows), rows D + 4 floats
+// apart, the fp32 P tile (rows bk + 4 apart) and three rows of statistics.
+template <int D>
+__host__ __device__ constexpr int sf32_smem_bytes() {
+  return ((SF32_BQ + sf32_bk<D>()) * (D + 4) +
+          SF32_BQ * (sf32_bk<D>() + 4) + 3 * SF32_BQ) * 4;
+}
+
+// Rows [r0, r0 + rows) of an fp32 (S, D) matrix whose rows are `ss`
+// elements apart into a shared tile of rows D + 4 floats apart, rows at or
+// past n zero-filled: every thread issues its share of 16-byte cp.async
+// copies and closes them as one group, so the whole tile is in flight at
+// once; wait for the group and synchronise before reading it.
+template <int D, int ROWS>
+__device__ __forceinline__ void sf32_load_rows(float* dst, const float* src,
+                                               long ss, int r0, int n) {
+  constexpr int NC4 = D / 4, LD = D + 4;
+  for (int i = threadIdx.x; i < ROWS * NC4; i += SF32_THREADS) {
+    const int r = i / NC4, c = i - r * NC4;
+    const bool valid = r0 + r < n;
+    cp_async16(dst + r * LD + 4 * c,
+               src + (valid ? (long)(r0 + r) * ss + 4 * c : 0), valid);
+  }
+  ring_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(SF32_THREADS, 1)
+stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ bias, float* __restrict__ o,
+                      float* __restrict__ lse, int H, int Sq, int Sk,
+                      float scale,
+                      long qsb, long qsh, long qss, long ksb, long ksh,
+                      long kss, long vsb, long vsh, long vss, long osb,
+                      long osh, long oss) {
+  constexpr int BQ = SF32_BQ, BK = sf32_bk<D>(), LD = D + 4, PLD = BK + 4;
+  constexpr int NC4 = D / 4;                // float4 columns of a row
+  constexpr int CPT = (NC4 + 31) / 32;      // of them a lane, in P.V
+  constexpr int SR = BQ / 16, SC = BK / 16;  // S entries a thread
+  extern __shared__ float4 sf32_smem[];
+  float* qs = reinterpret_cast<float*>(sf32_smem);
+  float* kv = qs + BQ * LD;
+  float* ps = kv + BK * LD;
+  float* row_m = ps + BQ * PLD;
+  float* row_l = row_m + BQ;
+  float* row_a = row_l + BQ;
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
+  const float* kp = k + b * ksb + h * ksh;
+  const float* vp = v + b * vsb + h * vsh;
+  const float* bp = bias ? bias + (long)b * Sk : nullptr;
+  const float sl = __fmul_rn(scale, LOG2E);
+
+  sf32_load_rows<D, BQ>(qs, q + b * qsb + h * qsh + (long)q0 * qss, qss, 0,
+                        Sq - q0);
+  sf32_load_rows<D, BK>(kv, kp, kss, 0, Sk);
+  if (tid < BQ) {
+    row_m[tid] = -INFINITY;
+    row_l[tid] = 0.f;
+  }
+  const int tx = tid & 15, ty = tid >> 4;   // S: 16 x 16 threads
+  const int lane = tid & 31, w = tid >> 5;  // P.V: rows 4w.., columns lane..
+  float4 acc[4][CPT];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int k0 = 0; k0 < Sk; k0 += BK) {
+    ring_wait_upto(0);  // this tile's K (and, at the first, Q)
+    __syncthreads();
+    float s[SR][SC];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d4 = 0; d4 < NC4; ++d4) {
+      float4 qa[SR], kb[SC];
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+        qa[i] = reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LD)[d4];
+#pragma unroll
+      for (int j = 0; j < SC; ++j)
+        kb[j] = reinterpret_cast<const float4*>(kv + (tx + 16 * j) * LD)[d4];
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
+        }
+    }
+    __syncthreads();  // K is consumed: V's copies run under the softmax
+    sf32_load_rows<D, BK>(kv, vp, vss, k0, Sk);
+    // online softmax in base 2; each row belongs to one half-warp
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+      const int row = ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int key = k0 + tx + 16 * j;
+        const float t = key < Sk
+            ? fmaf(s[i][j], sl, bp ? __fmul_rn(bp[key], LOG2E) : 0.f)
+            : -INFINITY;
+        s[i][j] = t;
+        mx = fmaxf(mx, t);
+      }
+#pragma unroll
+      for (int off = 8; off; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = row_m[row];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const float p = exp2f(s[i][j] - m_new);
+        ps[row * PLD + tx + 16 * j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 8; off; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (tx == 0) {
+        const float alpha = exp2f(m_old - m_new);  // 0 at the first tile
+        row_a[row] = alpha;
+        row_l[row] = fmaf(row_l[row], alpha, sum);
+        row_m[row] = m_new;
+      }
+    }
+    ring_wait_upto(0);
+    __syncthreads();  // V, P and the factors are in place
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = row_a[4 * w + r];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        acc[r][c].x *= a;
+        acc[r][c].y *= a;
+        acc[r][c].z *= a;
+        acc[r][c].w *= a;
+      }
+    }
+#pragma unroll 2
+    for (int kk = 0; kk < BK; ++kk) {
+      float p[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) p[r] = ps[(4 * w + r) * PLD + kk];
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        if (lane + 32 * c < NC4) {
+          const float4 vv =
+              reinterpret_cast<const float4*>(kv + kk * LD)[lane + 32 * c];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            acc[r][c].x = fmaf(p[r], vv.x, acc[r][c].x);
+            acc[r][c].y = fmaf(p[r], vv.y, acc[r][c].y);
+            acc[r][c].z = fmaf(p[r], vv.z, acc[r][c].z);
+            acc[r][c].w = fmaf(p[r], vv.w, acc[r][c].w);
+          }
+        }
+      }
+    }
+    __syncthreads();  // V is consumed: the next K's copies
+    if (k0 + BK < Sk) sf32_load_rows<D, BK>(kv, kp, kss, k0 + BK, Sk);
+  }
+  float* op = o + b * osb + h * osh;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = q0 + 4 * w + r;
+    if (row >= Sq) continue;
+    const float il = 1.f / row_l[4 * w + r];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c)
+      if (lane + 32 * c < NC4) {
+        float4 x = acc[r][c];
+        x.x *= il;
+        x.y *= il;
+        x.z *= il;
+        x.w *= il;
+        reinterpret_cast<float4*>(op + (long)row * oss)[lane + 32 * c] = x;
+      }
+  }
+  if (tid < BQ && q0 + tid < Sq)
+    lse[((long)b * H + h) * Sq + q0 + tid] =
+        (row_m[tid] + log2f(row_l[tid])) * 0.69314718055994531f;
+}
+
+template <int D>
+int launch_stream_f32(const float* q, const float* k, const float* v,
+                      const float* bias, float* o, float* lse, int B, int H,
+                      int Sq, int Sk, int bk, int smem, float scale,
+                      const long* st, cudaStream_t stream) {
+  if (bk != sf32_bk<D>() || smem != sf32_smem_bytes<D>() ||
+      smem > SF_SMEM_MAX)
+    return HV_BAD_PLAN;
+  cudaError_t err = cudaFuncSetAttribute(
+      stream_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + SF32_BQ - 1) / SF32_BQ, H, B);
+  stream_fwd_f32_kernel<D><<<grid, SF32_THREADS, smem, stream>>>(
+      q, k, v, bias, o, lse, H, Sq, Sk, scale, st[0], st[1], st[2], st[3],
+      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+  return cudaGetLastError();
+}
+
+
 // A tensor map of one (B, H, S, D) bf16 operand with element strides
 // st[0..2] (batch, head, row), boxes of 64 columns x `rows` rows.
 static int stream_tmap(CUtensorMap* map, const void* x, int B, int H, int S,
@@ -392,6 +647,28 @@ extern "C" int hv_stream_fwd(const void* q, const void* k, const void* v,
     case 256: return hv::launch_stream<256>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
     case 512: return hv::launch_stream<512>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
     case 640: return hv::launch_stream<640>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
+    default: return -1;
+  }
+}
+
+// fp32 entry point: as hv_stream_fwd with fp32 q, k, v and o; `bk` and
+// `smem` are the plan of flash_attention.py::_stream_f32_plan.
+extern "C" int hv_stream_fwd_f32(const void* q, const void* k, const void* v,
+                                 const float* bias, void* o, float* lse,
+                                 int B, int H, int Sq, int Sk, int D, int bk,
+                                 int smem, float scale, const long* strides,
+                                 void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v);
+  float* fo = static_cast<float*>(o);
+  switch (D) {
+    case 64: return hv::launch_stream_f32<64>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, bk, smem, scale, strides, s);
+    case 128: return hv::launch_stream_f32<128>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, bk, smem, scale, strides, s);
+    case 256: return hv::launch_stream_f32<256>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, bk, smem, scale, strides, s);
+    case 512: return hv::launch_stream_f32<512>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, bk, smem, scale, strides, s);
+    case 640: return hv::launch_stream_f32<640>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, bk, smem, scale, strides, s);
     default: return -1;
   }
 }

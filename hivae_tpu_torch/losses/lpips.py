@@ -4,12 +4,14 @@ relu4_3 and relu5_3, unit-normalised over channels, squared differences
 weighted by learned 1x1 heads, averaged over space and summed over the five
 taps. NCHW throughout; the VGG16 layers keep torchvision's
 ``features.<index>`` names and the heads are ``lin0``..``lin4``
-(``utils/params.lpips_flax_to_torch`` maps the JAX tree onto them).
+(``utils/params.lpips_flax_to_torch`` maps the JAX tree onto them;
+``lpips_state`` maps torchvision's VGG16 and the LPIPS ``vgg.pth`` heads).
 """
 
 from __future__ import annotations
 
-from typing import List
+import re
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -75,3 +77,16 @@ class LPIPS(nn.Module):
 def _unit_norm(f: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     return f / (torch.sqrt(torch.sum(torch.square(f), dim=1, keepdim=True))
                 + eps)
+
+
+def lpips_state(vgg: Dict[str, torch.Tensor],
+                head: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The ``LPIPS`` state dict from a torchvision VGG16 state dict
+    (``features.<i>.*``, under ``net.``) and, optionally, the LPIPS
+    ``vgg.pth`` heads (``lin<k>.model.1.weight``, as ``lin<k>.weight``).
+    Keys of neither kind (the VGG classifier) are passed on, unused."""
+    state = {f"net.{k}": v for k, v in vgg.items()}
+    for k, v in (head or {}).items():
+        state[re.sub(r"^lin(\d)\.model\.1\.", r"lin\1.", k)] = v
+    return state

@@ -61,6 +61,7 @@ from ..ops import quant as quant_ops
 from ..ops import rectified_flow as rf
 from ..ops.regularizers import diagonal_gaussian_regularize
 from ..utils.device import resolve_device
+from ..utils.misc import no_grad
 from .dit import (ReconstructionDiT, VelocityDiT, VelocityDiTDualStream,
                   VelocityDiTImgSpatial, VelocityDiTImgSpatialTempMotion,
                   VelocityDiTTempMotion, sum_streams)
@@ -989,7 +990,7 @@ def _dual_draws(model: "AMDModel", draws: SampleDraws, video,
     return out
 
 
-@torch.no_grad()
+@no_grad
 def sample(model: AMDModelNew, video, ref_img, video_grey=None,
            ref_img_grey=None, sample_step: int = 50,
            start_step: Optional[int] = None,

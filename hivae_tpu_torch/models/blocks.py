@@ -375,6 +375,98 @@ class A2MCrossAttnBlock(nn.Module):
         return motion, ref_motion
 
 
+class Any2MotionBlock(nn.Module):
+    """Motion denoiser block with a 3-D self-attention and two
+    cross-attentions (the reference's ``Any2MotionTransformerBlock``). x is
+    (B*F, L, D); the self-attention runs over each clip's flattened F*L
+    tokens, the cross-attentions (to ``refimg`` and ``extra``, no qk-norm)
+    frame by frame. No model of the repository builds it."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, cond_dim: int,
+                 motion_frames: int, qkv_bias: bool = True):
+        super().__init__()
+        self.motion_frames = motion_frames
+        for i in range(1, 5):
+            setattr(self, f"norm{i}", AdaLayerNorm(dim, cond_dim))
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.attn2 = Attention(dim, heads, head_dim, qk_norm=False,
+                               qkv_bias=qkv_bias)
+        self.attn3 = Attention(dim, heads, head_dim, qk_norm=False,
+                               qkv_bias=qkv_bias)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, refimg, extra, temb):
+        bf, l, d = x.shape
+        f = self.motion_frames
+        x = self.norm1(x, temb)
+        x3d = x.reshape(bf // f, f * l, d)
+        x = (x3d + self.attn1(x3d)).reshape(bf, l, d)
+        x = self.norm2(x, temb)
+        x = x + self.attn2(x, refimg)
+        x = self.norm3(x, temb)
+        x = x + self.attn3(x, extra)
+        x = self.norm4(x, temb)
+        return x + self.ff(x)
+
+
+class RefMotionRefImageBlock(nn.Module):
+    """Self-attention, then cross-attention to the reference motion and to
+    the reference image (no qk-norm on either), each behind a shift/scale
+    AdaLN (the reference's ``RefMotionRefImgeBlock``). No model of the
+    repository builds it."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, cond_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        for i in range(1, 5):
+            setattr(self, f"norm{i}", AdaLayerNorm(dim, cond_dim))
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.attn2 = Attention(dim, heads, head_dim, qk_norm=False,
+                               qkv_bias=qkv_bias)
+        self.attn3 = Attention(dim, heads, head_dim, qk_norm=False,
+                               qkv_bias=qkv_bias)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, refmotion, refimg, temb):
+        x = self.norm1(x, temb)
+        x = x + self.attn1(x)
+        x = self.norm2(x, temb)
+        x = x + self.attn2(x, refmotion)
+        x = self.norm3(x, temb)
+        x = x + self.attn3(x, refimg)
+        x = self.norm4(x, temb)
+        return x + self.ff(x)
+
+
+class MotionTransferBlock(nn.Module):
+    """Two-stream joint block with the hidden stream first in the
+    attention's concatenation and, as the reference's
+    ``MotionTrensferBlock`` does, the encoder stream first in the
+    feed-forward's (its outputs are then split at the hidden stream's
+    length all the same). Returns (hidden, encoder). No model of the
+    repository builds it."""
+
+    def __init__(self, dim: int, heads: int, head_dim: int, cond_dim: int,
+                 qkv_bias: bool = True):
+        super().__init__()
+        self.norm1 = AdaLNZero(dim, cond_dim)
+        self.attn1 = Attention(dim, heads, head_dim, qkv_bias=qkv_bias)
+        self.norm2 = AdaLNZero(dim, cond_dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, hidden, encoder, temb):
+        ml = hidden.shape[1]
+        h, e, gate, e_gate = self.norm1(hidden, encoder, temb)
+        out = self.attn1(torch.cat([h, e], dim=1))
+        hidden = hidden + gate * out[:, :ml]
+        encoder = encoder + e_gate * out[:, ml:]
+        h, e, gate, e_gate = self.norm2(hidden, encoder, temb)
+        out = self.ff(torch.cat([e, h], dim=1))
+        hidden = hidden + gate * out[:, :ml]
+        encoder = encoder + e_gate * out[:, ml:]
+        return hidden, encoder
+
+
 def _split3(out, hl: int, c1l: int):
     return out[:, :hl], out[:, hl:hl + c1l], out[:, hl + c1l:]
 
@@ -526,3 +618,22 @@ class AudioFeatureWindowMlp(nn.Module):
         x = F.relu(self.ff2(x))
         x = F.relu(self.ff3(x))
         return self.norm(x.reshape(n, f, self.window_size, self.outdim))
+
+
+class AudioToImageShapeMlp(nn.Module):
+    """(N, F, M, C) audio features -> (N, F, outchannel, out_height,
+    out_width): each frame's flattened features through an ``Mlp`` of
+    width outchannel * out_height * out_width. No model of the repository
+    builds it."""
+
+    def __init__(self, in_features: int, outchannel: int, out_height: int,
+                 out_width: int):
+        super().__init__()
+        self.shape = (outchannel, out_height, out_width)
+        outdim = outchannel * out_height * out_width
+        self.mlp = Mlp(in_features, outdim, outdim)
+
+    def forward(self, audio: torch.Tensor) -> torch.Tensor:
+        n, f = audio.shape[:2]
+        out = self.mlp(audio.reshape(n, f, -1).to(self.mlp.fc1.weight.dtype))
+        return out.reshape((n, f) + self.shape)

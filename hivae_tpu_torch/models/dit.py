@@ -1,8 +1,9 @@
 """Velocity and reconstruction DiTs (port of
 ``VelocityDiTImgSpatialTempMotion``, ``VelocityDiTTempMotion``,
 ``VelocityDiT``, ``VelocityDiTImgSpatial``, ``VelocityDiTDualStream``,
-``ReconstructionDiT``, ``ReconstructionDiTSplit``, the ``_DiTBase`` head and
-the remat policies of ``hivae_tpu/models/dit.py``), layers unrolled.
+``ReconstructionDiT``, ``ReconstructionDiTSplit``, ``VelocityDiTSplitInput``,
+``DiT2Condition``, the ``_DiTBase`` head and the remat policies of
+``hivae_tpu/models/dit.py``), layers unrolled.
 
 ``VelocityDiTImgSpatialTempMotion`` (``diffusion_model_type="spatial"``):
 each layer runs an object joint block ([10 motion tokens, 256 patches] at
@@ -24,7 +25,11 @@ clip's T * (2L + 2) motion tokens (416 at AMD_S widths: full-block kernel)
 before each joint block. ``ReconstructionDiT`` and
 ``ReconstructionDiTSplit`` (``AMDModelRec``) take no timestep: plain
 self-attention blocks over the image and motion tokens (538 in the split
-form at AMD_S widths).
+form at AMD_S widths). ``VelocityDiTSplitInput`` and ``DiT2Condition``,
+which no model of the repository builds, attend jointly over grid motion
+tokens and image patches (at 32^2 latents with patch 2: 512 patches of zi
+and zt, or 256 + 256 + the motion grid: the full-block kernel); they take
+no ``remat``.
 
 ``remat=True`` is the counterpart of the JAX package's ``nn.remat`` of a
 layer: under autograd each layer of the loop runs inside
@@ -61,8 +66,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..ops import embeddings as emb_ops
 from .blocks import (AdaLayerNorm, BasicTransformerBlock, DiTBlock,
-                     JointTransformerBlock, MotionTemporalBlock, PatchEmbed,
-                     TimestepEmbedding)
+                     JointBlock2Condition, JointTransformerBlock,
+                     MotionTemporalBlock, PatchEmbed, TimestepEmbedding)
 
 REMAT_POLICIES = ("full", "dots", "dots_sans_ffn", "dots_offload")
 
@@ -683,3 +688,124 @@ class ReconstructionDiT(nn.Module):
             x = blk(x)
         x = self.proj_out(self.norm_final(x[:, :isl]))
         return unpatchify(x, hi, wi, self.patch, self.out_channels)
+
+
+def _pos3d(hidden: int, grid: tuple, frames: int, length: int
+           ) -> torch.Tensor:
+    """The first ``length`` rows of the 3-D sincos table over ``grid``
+    ((w, h), diffusers' order) and ``frames`` frames, (1, length,
+    hidden)."""
+    table = emb_ops.get_3d_sincos_pos_embed(hidden, tuple(grid), frames)
+    return torch.from_numpy(table.reshape(1, -1, hidden)[:, :length].copy())
+
+
+class _GridDiT(nn.Module):
+    """The timestep embedding and AdaLN head of the grid-input DiTs."""
+
+    def __init__(self, heads: int, head_dim: int, out_channels: int,
+                 image_patch_size: int, time_embed_dim: int):
+        super().__init__()
+        self.hidden = hidden = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
+        self.time_embed_dim = time_embed_dim
+        self.out_channels, self.patch = out_channels, image_patch_size
+        self.time_embedding = TimestepEmbedding(hidden, time_embed_dim)
+        _DiTBase._build_head(self)
+
+    def _block_list(self, cls, num_layers: int) -> nn.ModuleList:
+        return nn.ModuleList([cls(self.hidden, self.heads, self.head_dim,
+                                  self.time_embed_dim)
+                              for _ in range(num_layers)])
+
+    _head = _DiTBase._head
+
+
+class VelocityDiTSplitInput(_GridDiT):
+    """Split zi/zt patch embeddings, grid motion tokens and 3-D positions
+    (the reference's ``AMDDiffusionTransformerModelSplitInput``): each
+    layer a joint block over [motion grid tokens, zi patches, zt patches];
+    the head reads the zt patches. The image positions are the first
+    2 * patches rows of a 2-frame 3-D table over the (w, h) patch grid.
+    ``image_hidden_states`` is (N, 2C, H, W): zi, then zt."""
+
+    def __init__(self, heads: int = 20, head_dim: int = 64,
+                 out_channels: int = 4, num_layers: int = 12,
+                 image_patch_size: int = 2, image_in_channels: int = 4,
+                 motion_in_channels: int = 128, motion_patch_size: int = 1,
+                 time_embed_dim: int = 512):
+        super().__init__(heads, head_dim, out_channels, image_patch_size,
+                         time_embed_dim)
+        hidden = self.hidden
+        self.motion_patch_embed = PatchEmbed(motion_patch_size,
+                                             motion_in_channels, hidden)
+        self.zi_patch_embed = PatchEmbed(image_patch_size, image_in_channels,
+                                         hidden)
+        self.zt_patch_embed = PatchEmbed(image_patch_size, image_in_channels,
+                                         hidden)
+        self.transformer_blocks = self._block_list(JointTransformerBlock,
+                                                   num_layers)
+
+    def forward(self, motion_hidden_states, image_hidden_states, timestep):
+        ci, hi, wi = image_hidden_states.shape[1:]
+        p = self.patch
+        isl = 2 * (hi // p) * (wi // p)
+        emb = self.time_embedding(timestep)
+        motion = self.motion_patch_embed(motion_hidden_states)
+        img = torch.cat(
+            [self.zi_patch_embed(image_hidden_states[:, :ci // 2]),
+             self.zt_patch_embed(image_hidden_states[:, ci // 2:])], dim=1)
+        img = img + _pos3d(self.hidden, (wi // p, hi // p), 2, isl).to(img)
+        for block in self.transformer_blocks:
+            motion, img = block(motion, img, emb)
+        return self._head(img[:, isl // 2:], emb, hi, wi)
+
+
+class DiT2Condition(_GridDiT):
+    """Three-stream DiT over the image, the reference image and grid motion
+    (the reference's ``DiffusionTransformerModel2Condition``): each layer a
+    ``JointBlock2Condition``; the head reads the image stream. As the JAX
+    package builds it, the image table is a 2-frame 3-D table over
+    (iph, iph) patches, whatever the width (the image takes its first
+    iph * ipw rows, the reference image the next as many), and the motion
+    table one of ``motion_frames`` frames over (mph, mph)."""
+
+    def __init__(self, heads: int = 20, head_dim: int = 64,
+                 out_channels: int = 4, num_layers: int = 12,
+                 image_patch_size: int = 2, image_in_channels: int = 4,
+                 motion_in_channels: int = 128, motion_patch_size: int = 1,
+                 motion_frames: int = 15, time_embed_dim: int = 512):
+        super().__init__(heads, head_dim, out_channels, image_patch_size,
+                         time_embed_dim)
+        hidden = self.hidden
+        self.motion_frames = motion_frames
+        self.motion_patch = motion_patch_size
+        self.image_patch_embed = PatchEmbed(image_patch_size,
+                                            image_in_channels, hidden)
+        self.refimg_patch_embed = PatchEmbed(image_patch_size,
+                                             image_in_channels, hidden)
+        self.motion_patch_embed = PatchEmbed(motion_patch_size,
+                                             motion_in_channels, hidden)
+        self.transformer_blocks = self._block_list(JointBlock2Condition,
+                                                   num_layers)
+
+    def forward(self, hidden_states, refimg_hidden_states,
+                motion_hidden_states, timestep):
+        hi, wi = hidden_states.shape[2:]
+        hm, wm = motion_hidden_states.shape[2:]
+        p, mp = self.patch, self.motion_patch
+        iph = hi // p
+        isl = iph * (wi // p)
+        mph = hm // mp
+        msl = mph * (wm // mp)
+        emb = self.time_embedding(timestep)
+        x = self.image_patch_embed(hidden_states)
+        ref = self.refimg_patch_embed(refimg_hidden_states)
+        motion = self.motion_patch_embed(motion_hidden_states)
+        img_pos = _pos3d(self.hidden, (iph, iph), 2, 2 * isl).to(x)
+        x = x + img_pos[:, :isl]
+        ref = ref + img_pos[:, isl:2 * isl]
+        motion = motion + _pos3d(self.hidden, (mph, mph), self.motion_frames,
+                                 msl).to(motion)
+        for block in self.transformer_blocks:
+            x, ref, motion = block(x, ref, motion, emb)
+        return self._head(x, emb, hi, wi)

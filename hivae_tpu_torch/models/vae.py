@@ -15,6 +15,7 @@ from torch import nn
 from ..ops import quant as quant_ops
 from ..ops.regularizers import DiagonalGaussian
 from ..utils.device import resolve_device
+from ..utils.misc import no_grad
 from .conv_blocks import DownEncoderBlock2D, UNetMidBlock2D, UpDecoderBlock2D
 
 SD_VAE_SCALE = 0.18215
@@ -107,7 +108,7 @@ def _dtype(vae: AutoencoderKL) -> torch.dtype:
     return vae.quant_conv.weight.dtype
 
 
-@torch.no_grad()
+@no_grad
 def vae_encode(vae: AutoencoderKL, video: torch.Tensor,
                generator: Optional[torch.Generator] = None,
                scale: float = SD_VAE_SCALE,
@@ -133,7 +134,7 @@ def decode_latents(vae: AutoencoderKL, latents: torch.Tensor,
     return vae.decode(latents.to(_dtype(vae)) / scale)
 
 
-@torch.no_grad()
+@no_grad
 def vae_decode(vae: AutoencoderKL, latents: torch.Tensor,
                scale: float = SD_VAE_SCALE, quant_table=None) -> torch.Tensor:
     """(N,T,latent,h,w) scaled latents -> (N,T,C,H,W) pixels in [-1, 1].

@@ -13,10 +13,13 @@
     full-block kernel while ``full_block_fits`` holds, the streaming kernel
     beyond it - where that kernel takes the operands (``kernel_route``): on
     a CPU tensor always (the kernels' plain versions take any dtype), on
-    the card only in bf16 at the kernel's head dims (an operand whose rows
-    the kernel cannot read is copied to a layout it can). Any other call
-    above 256^2 logits (fp32, fp16, another head dim) has no kernel here,
-    where the TPU kernels take it: it takes the plain path through
+    the card in bf16 at the kernel's head dims, and for the streaming
+    kernel also in fp32 where no gradient is needed (grad mode off, or no
+    operand requiring grad: its fp32 variant has no backward kernel). The
+    kernel's wrapper copies an operand whose rows it cannot read to a
+    layout it can. Any other call above 256^2 logits (fp16; fp32 on the
+    full-block shapes, or with a gradient; another head dim) has no kernel
+    here, where the TPU kernels take it: it takes the plain path through
     ``sdpa_plain``, which counts it in ``sdpa_plain.launches``;
   * ``xla``: the plain path, always (never counted: the JAX package runs
     XLA there too);
@@ -200,8 +203,9 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor,
     shards the shapes, else ``auto``'s route. The kernel ``_kernel_kind``
     picks, on a CPU tensor always (its plain version takes any dtype) and
     elsewhere only where that kernel takes the operands (``fa.takes``:
-    dtype and head dim; any layout, which ``sdpa`` copies where the kernel
-    cannot read it), else "plain". ``v`` defaults to ``k``'s shape."""
+    dtype, whether a gradient is needed, and head dim; any layout, which
+    the kernel's wrapper copies where the kernel cannot read it), else
+    "plain". ``v`` defaults to ``k``'s shape."""
     impl = _resolve(implementation)
     if impl == "ring":
         if _ring_applicable(q.shape, k.shape):
@@ -247,7 +251,6 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         impl = "auto"
     bias = None
     if route in ("full_block", "stream"):
-        q, k, v = (fa.kernel_layout(x) for x in (q, k, v))
         if key_mask is not None:
             bias = torch.zeros(key_mask.shape, dtype=torch.float32,
                                device=key_mask.device)

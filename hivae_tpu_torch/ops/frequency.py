@@ -3,6 +3,9 @@
 The Gaussian low-pass over centred normalised (T, H, W) frequencies is
 applied with ``torch.fft`` in fp32, the mask ``ifftshift``-ed once so it
 multiplies the unshifted spectrum directly; the high band is ``x - low``.
+``freq_3d_filter`` splits with a given centred mask; ``get_views`` and
+``generate_weight_sequence`` are the sliding temporal windows of a long
+video and their triangular blending weights.
 """
 
 from __future__ import annotations
@@ -53,3 +56,33 @@ def freq_3d_split(x: torch.Tensor, d_s: float, d_t: float
     spec = torch.fft.fftn(x.float(), dim=(-3, -2, -1))
     low = torch.fft.ifftn(spec * mask, dim=(-3, -2, -1)).real.to(x.dtype)
     return low, x - low
+
+
+def freq_3d_filter(x: torch.Tensor, lpf: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(low, high) bands of ``x`` (..., T, H, W) under a centred
+    (fftshift-convention) low-pass mask ``lpf`` (broadcast against x): the
+    reference's fftshift, mask, ifftshift chain with the shifts folded
+    into the mask. The sums run in fp32; both bands come back in x's
+    dtype."""
+    lpf3 = torch.fft.ifftshift(lpf.to(x.device), dim=(-3, -2, -1))
+    xf = x.float()
+    spec = torch.fft.fftn(xf, dim=(-3, -2, -1))
+    low = torch.fft.ifftn(spec * lpf3, dim=(-3, -2, -1)).real
+    return low.to(x.dtype), (xf - low).to(x.dtype)
+
+
+def get_views(video_length: int, window_size: int = 16, stride: int = 4):
+    """Sliding temporal windows [(start, end), ...] over a long video."""
+    num_blocks_time = (video_length - window_size) // stride + 1
+    return [(int(i * stride), int(i * stride) + window_size)
+            for i in range(num_blocks_time)]
+
+
+def generate_weight_sequence(n: int):
+    """Triangular blending weights of ``n`` overlapped windows."""
+    if n % 2 == 0:
+        m = n // 2
+        return list(range(1, m + 1)) + list(range(m, 0, -1))
+    m = (n + 1) // 2
+    return list(range(1, m)) + [m] + list(range(m - 1, 0, -1))

@@ -35,6 +35,16 @@ ported here as hand-written CUDA (``hivae_tpu_torch/csrc``):
   forward and backward kernels, as ``_flash_qknorm_vjp_bwd`` does, and
   gives gradients to q, k, v and the four norm parameters.
 
+``stream_attention`` also launches a sibling kernel for fp32 operands
+(``csrc/flash_stream.cu``, ``stream_fwd_f32_kernel``): the same function
+with fp32 Q, K, V, O and LSE and P kept in fp32 for P.V, as the Pallas
+kernel computes it at fp32 (the fp32 SD-VAE's mid-block attention). It
+has no backward kernel, so it takes a call only where no gradient is
+needed (grad mode off, or no operand requiring grad); an fp32 call that
+needs one, and every fp16 call, is refused here and takes
+``ops.attention``'s counted ``sdpa_plain``. Its launches count in
+``stream_attention_f32.launches``, apart from the bf16 kernel's.
+
 ``full_block_attention``, ``full_block_attention_qknorm`` and
 ``stream_attention`` are differentiable: on a
 CUDA tensor that requires grad they run a ``torch.autograd.Function`` whose
@@ -46,11 +56,25 @@ launches its kernel for a CUDA tensor, or raises; there is no fallback from
 one to the other. ``<wrapper>.launches`` counts kernel launches: forward and
 backward kernels have separate counters. ``takes`` says which operands a
 kernel takes (dtype, shape, head dim); ``ops.attention.sdpa``'s gate asks
-it and copies an operand the kernel cannot read with ``kernel_layout``, and
-the wrappers raise with the same reasons, the layout among them. The
+it, the wrappers copy an operand the kernel cannot read with
+``kernel_layout``, and the launches raise with the same reasons. The
 ``*_bwd_plain`` functions write each backward out by hand, as the TPU
 kernels compute it, so that the card and the tests can hold the backward
 kernels against them.
+
+The forward kernels are also ``torch.library`` custom ops
+(``torch.ops.hivae.full_block_attention``, ``..._qknorm``,
+``stream_attention``; the int8 FFN-up is ``torch.ops.hivae.ffn_up_quant``
+in ``quant_ffn.py``), which is how a call that needs no gradient reaches
+them: the CUDA implementation is the ``ctypes`` launch (it counts the
+launch, and copies an operand the kernel cannot read with
+``kernel_layout``, where it sees the real tensors), the CPU
+implementation is the plain version, and the fake (``register_fake``)
+gives the output's shape, dtype and strides only. So ``torch.export``
+traces a model through the kernels as graph nodes (an exported program
+launches them, and counts, when it runs), and a later ``torch.compile`` or
+CUDA graph can see them. The ``torch.autograd.Function``s of training
+launch the same kernels directly, as before.
 """
 
 from __future__ import annotations
@@ -64,7 +88,11 @@ import torch
 
 from . import _build
 
-_KERNEL_DTYPES = (torch.bfloat16,)
+# the dtypes each forward kernel takes; a call whose gradient is needed
+# takes the backward kernels too, which take bf16 only
+_KERNEL_DTYPES = {"full_block": (torch.bfloat16,),
+                  "stream": (torch.bfloat16, torch.float32)}
+_GRAD_DTYPES = (torch.bfloat16,)
 _FULL_BLOCK_DIMS = (32, 64, 96, 128)
 _STREAM_DIMS = (64, 128, 256, 512, 640)
 
@@ -196,15 +224,21 @@ def stream_attention_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 _KERNEL_DIMS = {"full_block": _FULL_BLOCK_DIMS, "stream": _STREAM_DIMS}
 
 
-def _refusal(kind, q, k, v, layout=True):
+def _refusal(kind, q, k, v, layout=True, grad=False):
     """Why the ``kind`` kernel ("full_block" or "stream") does not take q,
-    k, v, as (exception type, message), or None when it does: bf16, (B, H,
-    S, D) with (where ``layout``) a contiguous last dim and 16-byte aligned
-    rows, k and v of one shape matching q's batch, heads and head dim, D
-    among the kernel's head dims. The device is not looked at."""
+    k, v, as (exception type, message), or None when it does: one dtype
+    among the kernel's (bf16; the streaming forward also fp32, unless
+    ``grad``: a gradient needs the bf16 backward kernels), (B, H, S, D)
+    with (where ``layout``) a contiguous last dim and 16-byte aligned rows,
+    k and v of one shape matching q's batch, heads and head dim, D among
+    the kernel's head dims. The device is not looked at."""
+    dtypes = _GRAD_DTYPES if grad else _KERNEL_DTYPES[kind]
     for x in (q, k, v):
-        if x.dtype not in _KERNEL_DTYPES:
-            return TypeError, f"the CUDA kernel takes bfloat16, got {x.dtype}"
+        if x.dtype not in dtypes or x.dtype != q.dtype:
+            names = " or ".join(str(t)[6:] for t in dtypes)
+            return TypeError, (f"the CUDA kernel takes {names}"
+                               f"{' with a gradient' if grad else ''}, got "
+                               f"{x.dtype}")
         if x.dim() != 4 or (layout and not _aligned(x)):
             return ValueError, (f"want (B, H, S, D) with a contiguous last "
                                 f"dim and 16-byte aligned rows, got "
@@ -219,22 +253,26 @@ def _refusal(kind, q, k, v, layout=True):
 
 
 def takes(kind: str, q: torch.Tensor, k: torch.Tensor,
-          v: torch.Tensor) -> bool:
+          v: torch.Tensor, grad: Optional[bool] = None) -> bool:
     """True when the ``kind`` kernel ("full_block" or "stream") takes these
     operands (dtype, shape, head dim) once ``kernel_layout`` has copied
     each to a layout it reads: the condition under which its wrappers
-    launch rather than raise, for a tensor on a CUDA card. The gate of
+    launch rather than raise, for a tensor on a CUDA card. ``grad``
+    (default: whether autograd records the call, ``_needs_grad``) asks for
+    the backward kernels too, which refuse fp32. The gate of
     ``ops.attention.sdpa`` asks this."""
-    return _refusal(kind, q, k, v, layout=False) is None
+    if grad is None:
+        grad = _needs_grad(q, k, v)
+    return _refusal(kind, q, k, v, layout=False, grad=grad) is None
 
 
-def _check(name, q, k, v, bias, kind):
+def _check(name, q, k, v, bias, kind, grad=False):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
     for x in (q, k, v):
         if x.device != q.device:
             raise ValueError(f"{name}: q, k, v must share one device")
-    refusal = _refusal(kind, q, k, v)
+    refusal = _refusal(kind, q, k, v, grad=grad)
     if refusal is not None:
         raise refusal[0](f"{name}: {refusal[1]}")
     b = q.shape[0]
@@ -405,6 +443,32 @@ def _stream_plan(d: int) -> StreamPlan:
                       smem=1024 + q_bytes + stages * slot)
 
 
+# launch plan of the fp32 streaming forward (csrc/flash_stream.cu,
+# ``stream_fwd_f32_kernel``): 32 query rows a CTA, K and V tiles of 64 keys
+# (32 past D = 512) through one buffer, rows D + 4 floats apart
+STREAM_F32_ROWS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamF32Plan:
+    """Launch plan of the fp32 streaming forward: K/V tiles of ``tile``
+    keys, ``smem`` dynamic shared bytes (``sf32_bk`` and
+    ``sf32_smem_bytes``)."""
+    tile: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_f32_plan(d: int) -> StreamF32Plan:
+    """The plan at head dim ``d``: the Q tile and one K or V tile, rows
+    d + 4 floats apart, the fp32 P tile (rows tile + 4 apart) and three
+    fp32 rows of statistics (the running max, denominator and rescale)."""
+    tile = STREAM_TILE_WIDE if d > 512 else STREAM_TILE
+    rows = STREAM_F32_ROWS
+    smem = ((rows + tile) * (d + 4) + rows * (tile + 4) + 3 * rows) * 4
+    return StreamF32Plan(tile=tile, smem=smem)
+
+
 # launch plan of the streaming backward (csrc/flash_stream_bwd.cu): walked
 # tiles of 64 rows (32 past D = 512) through a ring of STREAM_BWD_STAGES
 # slots; at D <= 128 a CTA owns 128 keys (dK/dV) or query rows (dQ), 64 a
@@ -495,6 +559,11 @@ def _stream_fn():
 
 
 @functools.lru_cache(maxsize=None)
+def _stream_f32_fn():
+    return _fn("flash_stream", "hv_stream_fwd_f32", 6, 7)
+
+
+@functools.lru_cache(maxsize=None)
 def _stream_dq_fn():
     return _fn("flash_stream_bwd", "hv_stream_bwd_dq", 8, 8)
 
@@ -565,7 +634,7 @@ def full_block_attention_delta(do, out, l):
     if do.device.type != "cuda":
         raise ValueError(f"full_block_attention_delta: no kernel for device "
                          f"{do.device}")
-    if do.dtype not in _KERNEL_DTYPES or out.dtype != do.dtype or \
+    if do.dtype not in _GRAD_DTYPES or out.dtype != do.dtype or \
             do.shape != out.shape or not (_aligned(do) and _aligned(out)) \
             or l.shape != do.shape[:3] or not l.is_contiguous():
         raise ValueError("full_block_attention_delta: want bf16 (B, H, Sq, D) "
@@ -607,17 +676,26 @@ def full_block_attention_bwd(q, k, v, do, out, m, l, *, scale: float,
 full_block_attention_bwd.launches = 0
 
 
-def _stream_fwd(q, k, v, bias, scale):
-    _check("stream_attention", q, k, v, bias, "stream")
+def _stream_fwd(q, k, v, bias, scale, grad=False):
+    """Forward launch -> (out, lse (B, H, Sq, 1)): the bf16 kernel, or for
+    fp32 operands (``grad`` False only) the fp32 one."""
+    _check("stream_attention", q, k, v, bias, "stream", grad=grad)
     b, h, sq, d = q.shape
-    plan = _stream_plan(d)
     out = _empty_out(q)
     lse = _row_stats(q)
-    _launch("stream_attention", _stream_fn(), _ptr(q), _ptr(k), _ptr(v),
-            _ptr(bias), _ptr(out), _ptr(lse), b, h, sq, k.shape[2], d,
-            plan.stages, plan.smem, float(scale), _strides(q, k, v, out),
-            _stream_of(q))
-    stream_attention.launches += 1
+    if q.dtype == torch.float32:
+        plan = _stream_f32_plan(d)
+        fn, plan_args = _stream_f32_fn(), (plan.tile, plan.smem)
+    else:
+        plan = _stream_plan(d)
+        fn, plan_args = _stream_fn(), (plan.stages, plan.smem)
+    _launch("stream_attention", fn, _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
+            _ptr(out), _ptr(lse), b, h, sq, k.shape[2], d, *plan_args,
+            float(scale), _strides(q, k, v, out), _stream_of(q))
+    if q.dtype == torch.float32:
+        stream_attention_f32.launches += 1
+    else:
+        stream_attention.launches += 1
     return out, lse[..., None]
 
 
@@ -632,7 +710,7 @@ def stream_attention_delta(do: torch.Tensor, out: torch.Tensor
     if do.device.type != "cuda":
         raise ValueError(f"stream_attention_delta: no kernel for device "
                          f"{do.device}")
-    if do.dtype not in _KERNEL_DTYPES or out.dtype != do.dtype or \
+    if do.dtype not in _GRAD_DTYPES or out.dtype != do.dtype or \
             do.shape != out.shape or do.dim() != 4 or \
             do.shape[3] not in _STREAM_DIMS or \
             not (_aligned(do) and _aligned(out)):
@@ -652,7 +730,7 @@ stream_attention_delta.launches = 0
 
 
 def _stream_bwd_args(name, q, k, v, do, lse, delta, bias):
-    _check(name, q, k, v, bias, "stream")
+    _check(name, q, k, v, bias, "stream", grad=True)
     b, h, sq, d = q.shape
     lse = lse.reshape(b, h, sq).contiguous()
     return kernel_layout(do), lse, delta.reshape(b, h, sq).contiguous()
@@ -703,6 +781,81 @@ stream_attention_bwd_dkv.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# custom ops: the forward kernels in PyTorch's dispatcher
+# ---------------------------------------------------------------------------
+
+
+def _fake_out(q):
+    """An output of q's shape and dtype with the strides the implementation
+    on q's device gives it: the kernels' (B, Sq, H, D) storage on the card,
+    the plain version's contiguous (B, H, Sq, D) elsewhere."""
+    if q.device.type == "cuda":
+        return _empty_out(q)
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@torch.library.custom_op("hivae::full_block_attention", mutates_args=(),
+                         device_types="cuda")
+def _full_block_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: Optional[torch.Tensor], scale: float
+                   ) -> torch.Tensor:
+    q, k, v = (kernel_layout(x) for x in (q, k, v))
+    return _full_block_fwd(q, k, v, bias, scale, stats=False)[0]
+
+
+@_full_block_op.register_kernel("cpu")
+def _(q, k, v, bias, scale):
+    return full_block_attention_plain(q, k, v, scale=scale, bias=bias)
+
+
+@_full_block_op.register_fake
+def _(q, k, v, bias, scale):
+    return _fake_out(q)
+
+
+@torch.library.custom_op("hivae::full_block_attention_qknorm",
+                         mutates_args=(), device_types="cuda")
+def _full_block_qknorm_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          gq: torch.Tensor, bq: torch.Tensor,
+                          gk: torch.Tensor, bk: torch.Tensor,
+                          bias: Optional[torch.Tensor], scale: float,
+                          eps: float) -> torch.Tensor:
+    q, k, v = (kernel_layout(x) for x in (q, k, v))
+    return _full_block_qknorm_fwd(q, k, v, (gq, bq, gk, bk), bias, scale,
+                                  eps)
+
+
+@_full_block_qknorm_op.register_kernel("cpu")
+def _(q, k, v, gq, bq, gk, bk, bias, scale, eps):
+    return full_block_attention_qknorm_plain(q, k, v, gq, bq, gk, bk,
+                                             scale=scale, eps=eps, bias=bias)
+
+
+@_full_block_qknorm_op.register_fake
+def _(q, k, v, gq, bq, gk, bk, bias, scale, eps):
+    return _fake_out(q)
+
+
+@torch.library.custom_op("hivae::stream_attention", mutates_args=(),
+                         device_types="cuda")
+def _stream_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: Optional[torch.Tensor], scale: float
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    q, k, v = (kernel_layout(x) for x in (q, k, v))
+    return _stream_fwd(q, k, v, bias, scale)
+
+
+@_stream_op.register_kernel("cpu")
+def _(q, k, v, bias, scale):
+    return stream_attention_plain(q, k, v, scale=scale, bias=bias)
+
+
+@_stream_op.register_fake
+def _(q, k, v, bias, scale):
+    return _fake_out(q), q.new_empty(q.shape[:3] + (1,), dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
 
@@ -710,6 +863,7 @@ stream_attention_bwd_dkv.launches = 0
 class _FullBlock(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
+        q, k, v = (kernel_layout(x) for x in (q, k, v))
         out, m, l = _full_block_fwd(q, k, v, bias, scale, stats=True)
         ctx.save_for_backward(q, k, v, bias, out, m, l)
         ctx.scale = scale
@@ -730,6 +884,7 @@ class _FullBlockQKNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, gq, bq, gk, bk, scale, eps):
+        q, k, v = (kernel_layout(x) for x in (q, k, v))
         out = _full_block_qknorm_fwd(q, k, v, (gq, bq, gk, bk), bias, scale,
                                      eps)
         ctx.save_for_backward(q, k, v, bias, gq, bq, gk, bk)
@@ -754,7 +909,8 @@ class _FullBlockQKNorm(torch.autograd.Function):
 class _Stream(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
-        out, lse = _stream_fwd(q, k, v, bias, scale)
+        q, k, v = (kernel_layout(x) for x in (q, k, v))
+        out, lse = _stream_fwd(q, k, v, bias, scale, grad=True)
         ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.scale = scale
         ctx.mark_non_differentiable(lse)
@@ -775,17 +931,32 @@ def _needs_grad(*xs):
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
+def _on_a_device(name, q):
+    """Refuse a tensor neither on the CPU nor on a CUDA card (a fake
+    tensor of ``torch.export`` reports the device it stands for)."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {q.device}")
+
+
+# Each wrapper: with a gradient to record, the plain version on the CPU
+# (autograd differentiates it) and the ``torch.autograd.Function`` on the
+# card; without one, the custom op (the plain version on the CPU, the
+# kernel on the card, a fake while ``torch.export`` traces).
+
+
 def full_block_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, scale: float,
                          bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Full-block fused attention. q, k, v: (B, H, S, D); bias: optional
     (B, Sk) fp32 additive key bias (0 attend, -1e30 drop) -> (B, H, Sq, D).
     Differentiable in q, k and v."""
-    if q.device.type == "cpu":
-        return full_block_attention_plain(q, k, v, scale=scale, bias=bias)
     if _needs_grad(q, k, v):
+        if q.device.type == "cpu":
+            return full_block_attention_plain(q, k, v, scale=scale,
+                                              bias=bias)
         return _FullBlock.apply(q, k, v, bias, scale)
-    return _full_block_fwd(q, k, v, bias, scale, stats=False)[0]
+    _on_a_device("full_block_attention", q)
+    return _full_block_op(q, k, v, bias, float(scale))
 
 
 full_block_attention.launches = 0
@@ -801,14 +972,15 @@ def full_block_attention_qknorm(q: torch.Tensor, k: torch.Tensor,
     """Full-block attention on raw q and k with the per-head LayerNorm
     (``qk_layernorm`` with gamma/beta (D,) and ``eps``) fused into the
     kernel. Differentiable in q, k, v and the four norm parameters."""
-    if q.device.type == "cpu":
-        return full_block_attention_qknorm_plain(q, k, v, gq, bq, gk, bk,
-                                                 scale=scale, eps=eps,
-                                                 bias=bias)
     if _needs_grad(q, k, v, gq, bq, gk, bk):
+        if q.device.type == "cpu":
+            return full_block_attention_qknorm_plain(
+                q, k, v, gq, bq, gk, bk, scale=scale, eps=eps, bias=bias)
         return _FullBlockQKNorm.apply(q, k, v, bias, gq, bq, gk, bk, scale,
                                       eps)
-    return _full_block_qknorm_fwd(q, k, v, (gq, bq, gk, bk), bias, scale, eps)
+    _on_a_device("full_block_attention_qknorm", q)
+    return _full_block_qknorm_op(q, k, v, gq, bq, gk, bk, bias, float(scale),
+                                 float(eps))
 
 
 full_block_attention_qknorm.launches = 0
@@ -818,13 +990,31 @@ def stream_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float, bias: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming online-softmax attention -> (out (B, H, Sq, D),
-    lse (B, H, Sq, 1) fp32). ``out`` is differentiable in q, k and v;
+    lse (B, H, Sq, 1) fp32). ``out`` is differentiable in q, k and v (in
+    bf16: fp32 operands that need a gradient are refused on the card);
     ``lse`` carries no gradient."""
-    if q.device.type == "cpu":
-        return stream_attention_plain(q, k, v, scale=scale, bias=bias)
     if _needs_grad(q, k, v):
+        if q.device.type == "cpu":
+            return stream_attention_plain(q, k, v, scale=scale, bias=bias)
         return _Stream.apply(q, k, v, bias, scale)
-    return _stream_fwd(q, k, v, bias, scale)
+    _on_a_device("stream_attention", q)
+    return _stream_op(q, k, v, bias, float(scale))
 
 
 stream_attention.launches = 0
+
+
+def stream_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, scale: float, bias: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``stream_attention`` on fp32 operands, which launches the fp32
+    kernel on the card (no gradient: it has no backward kernel);
+    ``stream_attention_f32.launches`` counts that kernel's launches,
+    whichever of the two names was called. Its plain version is
+    ``stream_attention_plain``."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"stream_attention_f32: want fp32, got {q.dtype}")
+    return stream_attention(q, k, v, scale=scale, bias=bias)
+
+
+stream_attention_f32.launches = 0

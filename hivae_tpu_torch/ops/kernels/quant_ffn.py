@@ -23,7 +23,9 @@ cores and ``torch._int_mm`` take).
 
 ``fused_ffn_up_quant`` runs the plain version for tensors on the CPU and
 launches the kernel for CUDA tensors, or raises; there is no fallback from
-one to the other. It is forward-only, as in the JAX package (the int8 path
+one to the other. Both go through the ``torch.library`` custom op
+``torch.ops.hivae.ffn_up_quant``, so an exported int8 sampler keeps the
+kernel as a graph node. It is forward-only, as in the JAX package (the int8 path
 serves samplers, which never differentiate). ``fused_ffn_up_quant.launches``
 counts kernel launches.
 """
@@ -181,14 +183,11 @@ def _check(xq, sx, w8, wscale, bias):
                          f"multiples of {LANE}")
 
 
-def fused_ffn_up_quant(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
-                       wscale: torch.Tensor, bias: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(quantised x) -> int8 activations + per-row scales for the FFN-down;
-    arguments and result as ``fused_ffn_up_quant_plain``. The bias is
-    required (pass zeros for a layer without one)."""
-    if xq.device.type == "cpu":
-        return fused_ffn_up_quant_plain(xq, sx, w8, wscale, bias)
+@torch.library.custom_op("hivae::ffn_up_quant", mutates_args=(),
+                         device_types="cuda")
+def _ffn_up_op(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
+               wscale: torch.Tensor, bias: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     _check(xq, sx, w8, wscale, bias)
     m, k = xq.shape
     n = w8.shape[0]
@@ -205,6 +204,33 @@ def fused_ffn_up_quant(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
                            f"{err(rc).decode()}")
     fused_ffn_up_quant.launches += 1
     return yq, sy
+
+
+@_ffn_up_op.register_kernel("cpu")
+def _(xq, sx, w8, wscale, bias):
+    return fused_ffn_up_quant_plain(xq, sx, w8, wscale, bias)
+
+
+@_ffn_up_op.register_fake
+def _(xq, sx, w8, wscale, bias):
+    m, n = xq.shape[0], w8.shape[0]
+    return (xq.new_empty((m, n), dtype=torch.int8),
+            xq.new_empty((m, 1), dtype=torch.float32))
+
+
+def fused_ffn_up_quant(xq: torch.Tensor, sx: torch.Tensor, w8: torch.Tensor,
+                       wscale: torch.Tensor, bias: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(quantised x) -> int8 activations + per-row scales for the FFN-down;
+    arguments and result as ``fused_ffn_up_quant_plain``. The bias is
+    required (pass zeros for a layer without one). It runs the custom op
+    ``torch.ops.hivae.ffn_up_quant``: the plain version on the CPU, the
+    kernel on the card (its launch counted there), a fake (shapes and
+    dtypes) while ``torch.export`` traces."""
+    if xq.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_ffn_up_quant: no kernel for device "
+                         f"{xq.device}")
+    return _ffn_up_op(xq, sx, w8, wscale, bias)
 
 
 fused_ffn_up_quant.launches = 0

@@ -38,6 +38,7 @@ from ..models import a2m as a2m_mod
 from ..models import amd as amd_mod
 from ..models import vae as vae_mod
 from ..ops import quant as quant_ops
+from ..utils.misc import no_grad
 
 # Each table covers exactly the modules its quantised leg runs: the DiT for
 # the ODE loop, the decoder for the decode leg (the encode stays in the
@@ -87,7 +88,7 @@ def _grey_needed(amd, grey):
         raise ValueError("the model uses grey frames: pass grey=")
 
 
-@torch.no_grad()
+@no_grad
 def reconstruct_clip(vae: vae_mod.AutoencoderKL, amd: amd_mod.AMDModelNew,
                      pixels: torch.Tensor, grey: Optional[torch.Tensor] = None,
                      generator: amd_mod.DrawSource = None,

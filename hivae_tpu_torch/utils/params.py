@@ -16,7 +16,11 @@ ones. Layouts:
   * the ``nn.scan``-stacked ``layers/{object,camera,spatial}_block`` tree
     (``scan_layers=True``, leading dim L) -> per-layer ModuleList entries,
     for both velocity DiTs (the TempMotion DiT stacks ``object_block``
-    only).
+    only). This is the port's counterpart of the JAX package's
+    ``hivae_tpu/ops/quant.py::unstack_scanned``: a scanned tree bridges
+    to the same state dict as ``unstack_scanned`` of it, which a
+    ``scan_layers=False`` model loads (``test_torch_longtail_models.py``
+    holds the two equal), so there is no second copy of it here.
 
 The modules of the config flags carry the JAX names too
 (``camera_down/conv{1,2}``, ``motion_transformer/{embed,blocks_i,
@@ -29,7 +33,13 @@ its channel-major patch layout), ``norm_final``, ``norm_out``,
 ``proj_out``), and the other models' (T2M's ``motion_blocks_i`` and
 ``image_blocks_i``, the MAE's ``blocks_i`` and ``decoder_blocks_i``, the
 CNN motion AE's ``downblock_i``, ``upblock_i`` and ``map_i``, the
-discriminators' ``conv_i``/``norm_i``).
+discriminators' ``conv_i``/``norm_i``), and the blocks and DiTs no model
+builds (``Any2MotionBlock``'s and ``RefMotionRefImageBlock``'s
+``norm1``-``norm4`` and ``attn1``-``attn3``, ``MotionTransferBlock``,
+``AudioToImageShapeMlp``'s ``mlp/{fc1,fc2}``, ``VelocityDiTSplitInput``'s
+``{motion,zi,zt}_patch_embed`` and ``DiT2Condition``'s
+``{image,refimg,motion}_patch_embed`` with their ``blocks_i``): their
+names need no rule beyond these.
 
 Input is the flax tree as nested mappings of numpy arrays (with or without
 the top-level ``params`` collection). ``lpips_flax_to_torch`` maps the

@@ -585,25 +585,108 @@ def test_stream_delta_kernel_matches_plain(shape):
                                           ((4, 1, 1024, 512), False)])
 def test_sdpa_off_the_kernel_dtypes_takes_the_plain_path(dtype, shape,
                                                          masked):
-    """fp32 and fp16 above 256^2 logits: ``sdpa`` raises no more; it takes
-    the plain path (no kernel launch, one count of ``sdpa_plain``) and
-    returns its values."""
+    """fp32 and fp16 above 256^2 logits: ``sdpa`` raises no more. fp32 at
+    a streaming shape (the SD-VAE mid-block) launches the fp32 streaming
+    kernel; fp32 at a full-block shape and fp16 take the plain path (no
+    kernel launch, one count of ``sdpa_plain``); all return the plain
+    path's values."""
     _cuda_or_skip()
     from hivae_tpu_torch.ops import attention as tattn
-    q, k, v = (x.to(dtype) for x in _qkv(shape, seed=39))
+    q, k, v = (x.float().to(dtype) for x in _qkv(shape, seed=39))
     mask = None
     if masked:
         mask = torch.from_numpy(
             np.random.RandomState(40).rand(shape[0], shape[2]) > 0.3).cuda()
     counters = [tfa.full_block_attention, tfa.stream_attention,
-                tattn.sdpa_plain]
+                tfa.stream_attention_f32, tattn.sdpa_plain]
     before = [c.launches for c in counters]
     got = tattn.sdpa(q, k, v, key_mask=mask)
     want = tattn._sdpa_plain(q, k, v, shape[3] ** -0.5, mask)
     torch.cuda.synchronize()
-    assert [c.launches for c in counters] == before[:2] + [before[2] + 1]
+    f32_stream = dtype == torch.float32 and shape[3] == 512
+    assert [c.launches for c in counters] == before[:2] + [
+        before[2] + f32_stream, before[3] + (not f32_stream)]
     assert got.dtype == dtype
     assert _err(got, want) <= ATOL
+
+
+# fp32 streaming forward: every product a full fp32 one on both sides, only
+# the order of the sums differs
+F32_ATOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,masked", [
+    ((16, 1, 1024, 512), False), ((17, 1, 1024, 512), True),
+    ((3, 2, 333, 512), True), ((2, 2, 1000, 64), True),
+    ((2, 2, 1024, 128), False), ((2, 1, 1030, 256), True),
+    ((2, 1, 1024, 640), True)])
+def test_stream_f32_kernel_matches_plain(shape, masked):
+    """The fp32 variant against the fp32 plain version: outputs and LSE
+    within F32_ATOL, a fully masked key row (batch 0) the uniform average,
+    two launches to the same bits, counted in ``stream_attention_f32``."""
+    _cuda_or_skip()
+    q, k, v = (x.float() for x in _qkv(shape, seed=51))
+    bias = _bias(shape[0], shape[2], seed=52, full_row=0) if masked else None
+    n = tfa.stream_attention_f32.launches
+    out, lse = tfa.stream_attention(q, k, v, scale=shape[3] ** -0.5,
+                                    bias=bias)
+    again, _ = tfa.stream_attention_f32(q, k, v, scale=shape[3] ** -0.5,
+                                        bias=bias)
+    want, wl = tfa.stream_attention_plain(q, k, v, scale=shape[3] ** -0.5,
+                                          bias=bias)
+    torch.cuda.synchronize()
+    assert tfa.stream_attention_f32.launches == n + 2
+    assert out.dtype == torch.float32 and torch.equal(out, again)
+    assert _err(out, want) <= F32_ATOL and _err(lse, wl) <= F32_ATOL
+    if masked:
+        assert _err(out[0], v[0].mean(dim=1, keepdim=True)) <= F32_ATOL
+
+
+@pytest.mark.cuda
+def test_stream_f32_kernel_refuses_a_gradient():
+    """No fp32 backward kernel: an fp32 call that needs a gradient is
+    refused by the kernel (``sdpa`` sends it to ``sdpa_plain`` first)."""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops import attention as tattn
+    q, k, v = (x.float().requires_grad_() for x in
+               _qkv((2, 1, 1024, 512), seed=53))
+    with pytest.raises(TypeError, match="gradient"):
+        tfa.stream_attention(q, k, v, scale=0.05)
+    n = tattn.sdpa_plain.launches
+    tattn.sdpa(q, k, v).sum().backward()
+    assert tattn.sdpa_plain.launches == n + 1 and q.grad is not None
+
+
+@pytest.mark.cuda
+def test_exported_program_launches_the_kernels():
+    """A module exported with ``torch.export`` on the card keeps the
+    kernels as custom ops: the loaded program launches each once a call,
+    counted, with the live module's bits."""
+    _cuda_or_skip()
+    import io
+    from hivae_tpu_torch.ops import attention as tattn
+
+    class M(torch.nn.Module):
+        def forward(self, q, x):
+            return tattn.sdpa(q, q, q), tattn.sdpa(x, x, x)
+
+    q = _qkv((2, 4, 512, 64), seed=54)[0]
+    x = _qkv((2, 1, 1024, 512), seed=55)[0].float()
+    with torch.no_grad():
+        program = torch.export.export(M(), (q, x))
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    buf.seek(0)
+    loaded = torch.export.load(buf).module()
+    counters = [tfa.full_block_attention, tfa.stream_attention_f32]
+    before = [c.launches for c in counters]
+    with torch.no_grad():
+        got = loaded(q, x)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    want = M()(q, x)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -366,14 +366,22 @@ ROUTED = ([("full_block", (2, 4, 260, d)) for d in tfa._FULL_BLOCK_DIMS]
 def test_kernel_route_off_the_cpu(kind, shape):
     """On a tensor off the CPU (``meta`` stands in for the card) the gate
     sends bf16 to the kernel ``full_block_fits`` picks, at every head dim
-    that kernel takes, and fp32 and fp16 to the plain path; a layout the
-    kernel does not read (a strided last dim) still goes to the kernel,
-    which ``sdpa`` hands a copy in its layout."""
-    for dtype, want in [(torch.bfloat16, kind), (torch.float32, "plain"),
+    that kernel takes, fp32 to the streaming kernel's fp32 variant where
+    no gradient is needed and to the plain path otherwise (and on the
+    full-block shapes), and fp16 to the plain path; a layout the kernel
+    does not read (a strided last dim) still goes to the kernel, whose
+    wrapper copies it to its layout."""
+    fp32 = kind if kind == "stream" else "plain"
+    for dtype, want in [(torch.bfloat16, kind), (torch.float32, fp32),
                         (torch.float16, "plain")]:
         x = torch.empty(shape, device="meta", dtype=dtype)
         assert tattn.kernel_route(x, x, x) == want
-        assert tfa.takes(kind, x, x, x) == (dtype == torch.bfloat16)
+        assert tfa.takes(kind, x, x, x) == (want == kind)
+        g = x.requires_grad_() if dtype != torch.float16 else x
+        assert tattn.kernel_route(g, g, g) == (
+            kind if dtype == torch.bfloat16 else "plain")
+        with torch.no_grad():
+            assert tattn.kernel_route(g, g, g) == want
     wide = torch.empty(shape[:3] + (2 * shape[3],), device="meta",
                        dtype=torch.bfloat16)[..., ::2]
     assert tattn.kernel_route(wide, wide, wide) == kind

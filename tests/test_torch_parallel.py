@@ -243,10 +243,12 @@ def test_ring_routing_and_fallback(attn_state):
 def test_ring_kernel_hop_routing():
     """The ring's hop choice on ``meta`` tensors, which stand in for the
     card: under auto a bf16 block of 1024 local tokens or more takes the
-    kernel hop; one the kernel refuses (fp32, fp16, a head dim off its
-    list), where the JAX package runs its Pallas hop, takes the plain hop
-    and counts in ``sdpa_plain.launches``; under 1024 tokens the plain hop,
-    uncounted; a CPU tensor of any dtype the kernel hop's plain versions."""
+    kernel hop, and so does an fp32 one that needs no gradient (the
+    streaming forward's fp32 variant); one the kernels refuse (fp32 with a
+    gradient, fp16, a head dim off their list), where the JAX package runs
+    its Pallas hop, takes the plain hop and counts in
+    ``sdpa_plain.launches``; under 1024 tokens the plain hop, uncounted; a
+    CPU tensor of any dtype the kernel hop's plain versions."""
     from hivae_tpu_torch.parallel.ring_attention import _kernel_hop
 
     def blocks(s, d=64, dtype=torch.bfloat16):
@@ -258,7 +260,11 @@ def test_ring_kernel_hop_routing():
     assert not _kernel_hop(*blocks(512), "auto")
     assert not _kernel_hop(*blocks(512, dtype=torch.float32), "auto")
     assert A.sdpa_plain.launches == before
-    for args in (blocks(1024, dtype=torch.float32),
+    assert _kernel_hop(*blocks(1024, dtype=torch.float32), "auto")
+    assert A.sdpa_plain.launches == before
+    fp32_grad = torch.empty((1, 2, 1024, 64), device="meta",
+                            requires_grad=True)
+    for args in ((fp32_grad,) * 3,
                  blocks(2048, dtype=torch.float16), blocks(1024, d=72)):
         assert not _kernel_hop(*args, "auto")
     assert A.sdpa_plain.launches == before + 3
