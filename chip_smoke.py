@@ -44,7 +44,8 @@ Phases (any failure exits non-zero without the final result line):
    variant at the fp32 SD-VAE's (16, 1, 1024, 512) and check cases (17
    frames, masked and not, a fully masked key row, D 64 to 640 at ragged
    lengths), held to its fp32 plain version within ``KERNEL_F32_ATOL``
-   and timed beside SDPA in fp32. Each
+   and timed beside SDPA in fp32, its bound its three TF32 products at
+   TF32's peak. Each
    kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
@@ -318,9 +319,11 @@ to ``DIR/profile_train.txt``, of one ``validate`` call to
 ``--profile_steps 1`` window, two more steps resumed from step 4) to
 ``DIR/profile_train_cli.txt``. ``--parent DIR`` builds the kernels of
 another checkout too (the parent commit unpacked with ``git archive``) and
-times its full-block forward, qk-norm forward, backward, streaming forward,
-streaming backward (dQ and dK/dV) and int8 FFN-up in phase 2 beside this
-checkout's, in the same process.
+times its full-block forward, qk-norm forward, backward, streaming forward
+(bf16 and fp32), streaming backward (dQ and dK/dV) and int8 FFN-up in
+phase 2 beside this checkout's, in the same process; its custom ops stay
+out of torch's registry (``_LocalOp``), so this checkout's calls still
+reach this checkout's kernels.
 """
 
 from __future__ import annotations
@@ -355,12 +358,14 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 
 KERNEL_ATOL = 2e-2   # bf16 outputs of unit scale: P rounded at other points
 LSE_ATOL = 1e-3      # fp32 LSE, sums in another order
-# the fp32 streaming forward against its fp32 plain version: every product
-# a full fp32 one on both sides, only the order of the sums differs (about
-# 4e-7 on outputs and LSEs of unit scale; TF32 products would be ~1e-3)
+# the fp32 streaming forward against its fp32 plain version: three TF32
+# products (hi/lo split) on tensor cores that truncate as they accumulate,
+# against full fp32 ones (1-2e-6 on outputs and LSEs of unit scale; one
+# TF32 product would be ~2e-4)
 KERNEL_F32_ATOL = 1e-5
 # The kernel path and the plain path round P to bf16 at different points of
 # each softmax; over 10 Euler steps of a random-weight model that may move a
@@ -1093,18 +1098,20 @@ def check_kernels(fa, failures, parent=None):
         record("stream_attention_f32",
                "hivae_tpu_torch/csrc/flash_stream.cu",
                "hivae_tpu/ops/pallas/flash_attention.py:468",
-               check_stream_f32(fa, failures, gen, sms)),
+               check_stream_f32(fa, failures, gen, sms, parent)),
     ]
 
 
-def check_stream_f32(fa, failures, gen, sms):
+def check_stream_f32(fa, failures, gen, sms, parent=None):
     """Phase 2, the fp32 streaming forward (``stream_attention_f32``) on
     fp32 operands: against its fp32 plain version within KERNEL_F32_ATOL
     (outputs and LSE), two launches to the same bits, a fully masked key
-    row as the uniform average, timed beside its plain version and SDPA in
-    fp32 (TF32 off, as this script sets it). Its bound: the fp32 bytes of
-    q, k, v, o and the LSE, and the flops at fp32's peak outside the tensor
-    cores, where it runs. Returns the cases."""
+    row as the uniform average, timed beside its plain version, SDPA in
+    fp32 (TF32 off, as this script sets it) and ``parent``'s kernel. Its
+    bound: the fp32 bytes of q, k, v, o and the LSE, and its three TF32
+    products (the hi/lo split) at TF32's tensor-core peak; the flops at
+    fp32's peak outside the tensor cores are logged beside it. Returns the
+    cases."""
     import torch
     import torch.nn.functional as F
 
@@ -1148,32 +1155,66 @@ def check_stream_f32(fa, failures, gen, sms):
                             10)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale), 20)
+        parent_ms = None if parent is None else _time_ms(
+            lambda: parent.stream_attention_f32(q, k, v, **kw), 20)
         bytes_ms, ops_ms = _bound(shape, masked, True, elem_bytes=4,
-                                  peak=PEAK_FP32_FLOPS)
+                                  flop_factor=12, peak=PEAK_TF32_FLOPS)
+        simt_ms = _bound(shape, masked, True, elem_bytes=4,
+                         peak=PEAK_FP32_FLOPS)[1]
         plan = fa._stream_f32_plan(shape[3])
-        ctas = -(-shape[2] // fa.STREAM_F32_ROWS) * shape[0] * shape[1]
+        ctas = -(-shape[2] // plan.rows) * shape[0] * shape[1]
         cases.append(dict(label=label, shape=list(shape), per_clip=weight,
                           weight=weight, max_abs_err=max(err, err_lse),
                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          parent_ms=None, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                          parent_ms=parent_ms, bytes_ms=bytes_ms,
+                          ops_ms=ops_ms, fp32_simt_ms=simt_ms,
                           plan=dataclasses.asdict(plan), ctas=ctas,
                           waves=ctas / sms))
         _log(f"  stream fp32 {label} {shape}: max|err| O {err:.3g} LSE "
-             f"{err_lse:.3g}  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-             f"sdpa fp32 {lib_ms:.4f} ms  bound {max(bytes_ms, ops_ms):.4f}"
-             f" ms (fp32 {ops_ms:.4f}, bytes {bytes_ms:.4f})  ({plan.tile}"
-             f"-key tiles, {plan.smem} B, {ctas} CTAs, {ctas / sms:.2f} "
-             f"waves)")
+             f"{err_lse:.3g}  kernel {ms:.4f} ms  parent {parent_ms} ms  "
+             f"plain {plain_ms:.4f} ms  sdpa fp32 {lib_ms:.4f} ms  bound "
+             f"{max(bytes_ms, ops_ms):.4f} ms (3xTF32 {ops_ms:.4f}, bytes "
+             f"{bytes_ms:.4f}; fp32 outside the tensor cores {simt_ms:.4f})"
+             f"  ({plan.rows} rows, {plan.tile}-key tiles, {plan.stages} "
+             f"slots, {plan.smem} B, {ctas} CTAs, {ctas / sms:.2f} waves)")
     return cases
+
+
+class _LocalOp:
+    """Stands in for ``torch.library.custom_op`` while another checkout's
+    kernel modules import: their ops stay plain functions that launch that
+    checkout's kernels. Registered, they would replace this checkout's
+    ``torch.ops.hivae.*`` (torch lets a custom op be defined anew), and
+    every later call, this checkout's wrappers' included, would run the
+    other checkout's kernels. A call takes the implementation registered
+    for its first tensor's device."""
+
+    def __init__(self, fn):
+        self._impls = {"cuda": fn}
+
+    def __call__(self, *args, **kwargs):
+        return self._impls[args[0].device.type](*args, **kwargs)
+
+    def register_kernel(self, device, *args, **kwargs):
+        def register(fn):
+            self._impls[device] = fn
+            return fn
+        return register
+
+    def register_fake(self, fn):
+        return fn
 
 
 def _load_kernels(root):
     """``hivae_tpu_torch.ops.kernels`` ``flash_attention`` and ``quant_ffn``
     of the checkout at ``root``, imported as their own package
     (``parent_kernels``) so that they build and load that checkout's sources
-    into that checkout's build directory."""
+    into that checkout's build directory, with their custom ops kept out of
+    torch's registry (``_LocalOp``)."""
     import importlib
     import importlib.util
+    from unittest import mock
+    import torch
     kdir = os.path.join(os.path.abspath(root), "hivae_tpu_torch", "ops",
                         "kernels")
     spec = importlib.util.spec_from_file_location(
@@ -1182,8 +1223,10 @@ def _load_kernels(root):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["parent_kernels"] = mod
     spec.loader.exec_module(mod)
-    return (importlib.import_module("parent_kernels.flash_attention"),
-            importlib.import_module("parent_kernels.quant_ffn"))
+    with mock.patch.object(torch.library, "custom_op",
+                           lambda *a, **k: _LocalOp):
+        return (importlib.import_module("parent_kernels.flash_attention"),
+                importlib.import_module("parent_kernels.quant_ffn"))
 
 
 def _norm_params(gen, d):

@@ -339,70 +339,174 @@ constexpr int HV_BAD_PLAN = -2;
 
 // ---------------------------------------------------------------------------
 // fp32 variant: the same function with fp32 Q, K, V, O and LSE, P kept in
-// fp32 for P.V, as the Pallas kernel computes it for fp32 operands (its
-// p.astype(v.dtype) is then the identity). It serves the fp32 SD-VAE
-// (``AutoencoderKL()`` builds in fp32): the mid-block attention,
-// (B, 1, 1024, 512), of ``cli.vis`` and ``cli.frequency_filter_decode``.
+// fp32 for P.V, as hivae_tpu/ops/pallas/flash_attention.py::
+// _stream_fwd_kernel computes it for fp32 operands (its p.astype(v.dtype)
+// is then the identity). It serves the fp32 SD-VAE (``AutoencoderKL()``
+// builds in fp32): the mid-block attention, (B, 1, 1024, 512), of the fp32
+// VAE encode, ``cli.vis`` and ``cli.frequency_filter_decode``.
 //
-// Bound on the H100 SXM at (16, 1, 1024, 512): 4*B*H*S*S*D = 34.4 GFLOP,
-// 0.51 ms at the 67 TFLOP/s of fp32 outside the tensor cores (the rate
-// this kernel's arithmetic runs at), against 134 MB of q, k, v and o,
-// 0.040 ms at 3.35 TB/s: the bound is operations. (At the 495 TFLOP/s of
-// TF32 it would be 0.069 ms; this kernel does not use the tensor cores, so
-// that every product is a full fp32 one, as the plain version's.)
+// Bounds on the H100 SXM at (16, 1, 1024, 512), 4*B*H*S*S*D = 34.4 GFLOP
+// against 134 MB of q, k, v and o: 3 x 34.4 GFLOP at TF32's 494.7 TFLOP/s,
+// 0.208 ms, for the three tensor-core products below; 0.513 ms at the 67
+// TFLOP/s of fp32 outside the tensor cores (the SIMT kernel this one
+// replaced); 0.040 ms for the bytes at 3.35 TB/s. The bound is operations.
 //
-// Design: SIMT, correct first. A CTA of 256 threads takes 32 query rows of
-// one (batch, head) and walks the keys in tiles of 64 (32 past D = 512).
-// The Q tile and one K or V tile sit in shared memory with rows D + 4
-// floats apart (a 16-byte pad: consecutive rows start four banks apart, so
-// the float4 reads of eight neighbouring rows meet no bank conflict), 198
-// KB at D = 512: one CTA a SM. S = Q.K^T: thread (ty, tx) of a 16 x 16
-// grid sums rows ty + 16 i against keys tx + 16 j over float4 steps of D;
-// each row's 16 threads reduce the tile's maximum and sum by shuffles and
-// one of them keeps the row's running max, denominator and rescale factor
-// in shared memory; fp32 P goes to a shared tile. Then V replaces K in the
-// same buffer, and P.V runs with warp w owning output rows 4w..4w+3 and
-// lane l the float4 columns l + 32 c: the P values are warp-uniform reads
-// (broadcasts) and the V row a contiguous 512-byte read. The 32 x D output
-// accumulator lives in registers (64 a thread at D = 512, 80 at 640).
-// Tiles travel by cp.async, each a single group of copies in flight at
-// once: V's under the softmax, which needs no shared K or V; K's
-// otherwise alone (no room for a second K/V slot at D = 512).
+// Why three TF32 products and not one. TF32 keeps 10 mantissa bits, so one
+// product of tf32(q) and tf32(k) misses the fp32 gate (1e-5 against the
+// fp32 plain version) by 20x. Each operand x is split in registers into
+// hi = tf32(x) (cvt.rna.tf32.f32's rounding: to nearest, ties away) and
+// lo = x - hi, and x.y is taken as lo_x.hi_y + hi_x.lo_y + hi_x.hi_y (lo.lo
+// is below fp32's rounding). Against fp64, attention over 1024 keys of
+// N(0, 1):
+//                         D 64     D 512    D 640
+//   one TF32 product      2.0e-4   1.7e-4   1.9e-4
+//   three (hi/lo split)   6.6e-7   2.6e-7   3.4e-7
+//   plain fp32            8.2e-7   3.4e-7   2.9e-7
+// flash_attention.py::tf32_matmul models the split on the CPU and
+// tests/test_torch_longtail_ops.py holds both rows at D 512. The tensor
+// core truncates as it accumulates, so where a long sum would pile that up
+// the kernel keeps it short: S's small terms go to their own accumulator,
+// and each tile's P.V goes to a fresh one that reaches O by one fp32 FMA
+// (which also applies the tile's rescale). On the H100 at (16, 1, 1024,
+// 512) the output's error was 5e-6 summed over every tile into O, 1.2e-6
+// so kept.
+//
+// Design (the SIMT kernel was bound by four things; what this one does):
+// 1. No tensor cores: both products run as mma.sync m16n8k8 .tf32, three
+//    per product. (wgmma at .tf32 takes K-major operands only, and V lands
+//    with D contiguous, so it could not be P.V's B operand without a
+//    transpose in shared memory.) The split is integer and fp32 arithmetic
+//    (the conversion pipe would take 8 cycles a warp instruction), and
+//    each product is issued over four or eight independent accumulators
+//    before the next into the same one.
+// 2. Shared-memory reads per FMA: a warp computes a 32 x BK block of S
+//    (two 16-row A fragments of Q, each B fragment of K used for both) and
+//    a 32 x D/4 block of O (each V fragment used for both row tiles), with
+//    Q and K fragments read by ldmatrix (the .b16 8x8 form, one fp32 per
+//    lane: the tf32 A and B layouts).
+// 3. Exposed loads: K and V tiles travel as separate jobs (K_j, V_j,
+//    K_j+1, ...) through two slots, so each job is in flight while the one
+//    before it is computed: V_j under S_j and its softmax, K_j+1 under
+//    P_j.V_j. One lane a row hands the tile's rows to the bulk-copy engine
+//    (cp.async.bulk on an mbarrier): 3.5% faster on the H100 than cp.async
+//    pieces issued by every thread.
+// 4. 32 rows a CTA: now 64 (ceil(Sq / 64) x H x B CTAs, 256 at (16, 1,
+//    1024, 512), 1.94 waves on 132 SMs), so K and V are read half as often.
+//    At 17 frames the 272 CTAs take a third, nearly empty wave.
+//
+// Layout. 8 warps: warp w takes row half rh = w / 4 (32 rows, two m16
+// tiles) and quarter dq = w % 4 of D. For S it sums Q.K^T over its quarter
+// of D only; the four partial 32 x BK blocks of a row half meet in shared
+// memory (a 128-thread barrier), and warp dq of the half owns 8 of its
+// rows: it adds their four partials in a fixed order, keeps their running
+// max and denominator, and writes their P and rescale factor back for the
+// four warps (a second barrier; each warp doing all 32 rows itself was 8%
+// slower on the H100). For O it owns columns [dq D/4, (dq + 1) D/4) of its 32 rows
+// (D/4 accumulator registers a thread: 128 at D = 512). The C fragment of
+// m16n8 holds keys 2t, 2t+1 of a row and the A fragment of m16n8k8 wants
+// k t, t+4, so k index t is taken as key 2t and t+4 as key 2t+1, and V's B
+// fragment is read from rows 2t and 2t+1. Tiles sit in shared memory with
+// rows D + 4 floats apart: ldmatrix's eight 16-byte rows of Q or K, and
+// V's rows 2t, 2t+1 at column g, meet no bank conflict. A key tile holds
+// BK keys, 32 to D = 256, 16 at 512 and 8 at 640 (sf32_bk), so that the Q
+// tile, two slots, the exchange and P fit one block: 219 KB at D = 512;
+// the plan comes from flash_attention.py::_stream_f32_plan, which the CPU
+// tests check, and the C entry point refuses any other.
 //
 // Softmax as the bf16 kernel: t = s * scale + bias, p = 2^((t - m) log2 e),
 // so a fully masked row keeps m = -1e30 and averages its keys uniformly;
-// keys past Sk are -inf and rows past Sq are zero-filled and not stored.
-// Grid: ceil(Sq / 32) x H x B, 512 CTAs at the serving shape.
-constexpr int SF32_BQ = 32;
-constexpr int SF32_THREADS = 256;
+// keys past Sk are -inf (their K and V rows zeroed) and rows past Sq are
+// zero-filled and not stored. No atomics and a fixed order of sums: two
+// launches give the same bits.
+constexpr int SF32_BQ = 64;        // query rows a CTA
+constexpr int SF32_THREADS = 256;  // 2 row halves x 4 quarters of D
+constexpr int SF32_STAGES = 2;     // K/V slots
 
 template <int D>
-__host__ __device__ constexpr int sf32_bk() { return D > 512 ? 32 : 64; }
-
-// Shared bytes: Q (BQ rows) and one K/V tile (bk rows), rows D + 4 floats
-// apart, the fp32 P tile (rows bk + 4 apart) and three rows of statistics.
-template <int D>
-__host__ __device__ constexpr int sf32_smem_bytes() {
-  return ((SF32_BQ + sf32_bk<D>()) * (D + 4) +
-          SF32_BQ * (sf32_bk<D>() + 4) + 3 * SF32_BQ) * 4;
+__host__ __device__ constexpr int sf32_bk() {
+  return D <= 256 ? 32 : D <= 512 ? 16 : 8;
 }
 
-// Rows [r0, r0 + rows) of an fp32 (S, D) matrix whose rows are `ss`
+// One slot: a K or V tile of sf32_bk rows, D + 4 floats apart, then the
+// tile's fp32 bias row.
+template <int D>
+__host__ __device__ constexpr int sf32_slot_bytes() {
+  return (sf32_bk<D>() * (D + 4) + sf32_bk<D>()) * 4;
+}
+
+// Shared bytes: the Q tile, two slots, the exchange of partial scores
+// (each thread's sf32_bk fp32 S fragment values), the tile's P and a row
+// of rescale factors.
+template <int D>
+__host__ __device__ constexpr int sf32_smem_bytes() {
+  return SF32_BQ * (D + 4) * 4 + SF32_STAGES * sf32_slot_bytes<D>() +
+         (SF32_THREADS + SF32_BQ) * sf32_bk<D>() * 4 + SF32_BQ * 4;
+}
+
+// The first ROWS rows of an fp32 (S, D) matrix whose rows are `ss`
 // elements apart into a shared tile of rows D + 4 floats apart, rows at or
-// past n zero-filled: every thread issues its share of 16-byte cp.async
-// copies and closes them as one group, so the whole tile is in flight at
-// once; wait for the group and synchronise before reading it.
+// past n zero-filled, as this thread's share of 16-byte cp.async copies
+// (the caller closes the group).
 template <int D, int ROWS>
 __device__ __forceinline__ void sf32_load_rows(float* dst, const float* src,
-                                               long ss, int r0, int n) {
+                                               long ss, int n) {
   constexpr int NC4 = D / 4, LD = D + 4;
   for (int i = threadIdx.x; i < ROWS * NC4; i += SF32_THREADS) {
     const int r = i / NC4, c = i - r * NC4;
-    const bool valid = r0 + r < n;
-    cp_async16(dst + r * LD + 4 * c,
-               src + (valid ? (long)(r0 + r) * ss + 4 * c : 0), valid);
+    const bool valid = r < n;
+    cp_async16(dst + r * LD + 4 * c, src + (valid ? r * ss + 4 * c : 0),
+               valid);
   }
-  ring_commit();
+}
+
+// `bytes` (a multiple of 16) of contiguous global memory into shared
+// memory by the bulk-copy engine, completing on `bar` (one instruction a
+// row, where cp.async would take one a 16-byte piece and thread).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// x as hi + lo: hi = x rounded to TF32, to nearest with ties away from
+// zero (cvt.rna.tf32.f32's rounding, in integer operations: the conversion
+// pipe takes 8 cycles a warp instruction), its low 13 bits cleared so that
+// x - hi is exact; lo = x - hi, which the mma reads as TF32 by its top 19
+// bits (truncated: 2^-21 of x at most, below the fp32 gate by far).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a.b for a 16 x 8 x 8 TF32 product (PTX fragment layouts, g = lane
+// / 4, t = lane % 4: a = (g, k t), (g + 8, k t), (g, k t + 4),
+// (g + 8, k t + 4); b = (k t, n g), (k t + 4, n g); c as mma16816's). Not
+// volatile: independent products may be scheduled around each other.
+__device__ __forceinline__ void mma1688_tf32(float c[4], const uint32_t a[4],
+                                             const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a.b, the same product into a fresh accumulator.
+__device__ __forceinline__ void mma1688_tf32_z(float d[4],
+                                               const uint32_t a[4],
+                                               const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+__device__ __forceinline__ void sync_threads(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 template <int D>
@@ -415,160 +519,295 @@ stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       long qsb, long qsh, long qss, long ksb, long ksh,
                       long kss, long vsb, long vsh, long vss, long osb,
                       long osh, long oss) {
-  constexpr int BQ = SF32_BQ, BK = sf32_bk<D>(), LD = D + 4, PLD = BK + 4;
-  constexpr int NC4 = D / 4;                // float4 columns of a row
-  constexpr int CPT = (NC4 + 31) / 32;      // of them a lane, in P.V
-  constexpr int SR = BQ / 16, SC = BK / 16;  // S entries a thread
+  constexpr int BQ = SF32_BQ, BK = sf32_bk<D>(), LD = D + 4;
+  constexpr int DQ = D / 4;    // columns of a quarter of D
+  constexpr int NT = BK / 8;   // 8-key n tiles of S (k steps of P.V)
+  constexpr int NO = DQ / 8;   // 8-column n tiles of O (k steps of S) a warp
+  constexpr int SLOT = sf32_slot_bytes<D>() / 4;
+  static_assert(NO % 2 == 0 && (NO < 4 || NO % 4 == 0),
+                "S takes k steps in pairs, P.V n tiles in fours");
   extern __shared__ float4 sf32_smem[];
   float* qs = reinterpret_cast<float*>(sf32_smem);
-  float* kv = qs + BQ * LD;
-  float* ps = kv + BK * LD;
-  float* row_m = ps + BQ * PLD;
-  float* row_l = row_m + BQ;
-  float* row_a = row_l + BQ;
-  const int tid = threadIdx.x;
+  float* ring = qs + BQ * LD;
+  float* xs = ring + SF32_STAGES * SLOT;  // partial scores, [warp][value][lane]
+  float* ps = xs + SF32_THREADS * BK;      // P, [row half][value][lane]
+  float* rs = ps + BQ * BK;                // rescale, then l: [warp][row]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rh = warp >> 2, dq = warp & 3;
+  const int om = dq >> 1, oh = dq & 1;  // the m tile and half whose rows it owns
+  const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const float* kp = k + b * ksb + h * ksh;
   const float* vp = v + b * vsb + h * vsh;
-  const float* bp = bias ? bias + (long)b * Sk : nullptr;
+  const float* brow = bias ? bias + (long)b * Sk : nullptr;
   const float sl = __fmul_rn(scale, LOG2E);
+  const int njobs = 2 * ((Sk + BK - 1) / BK);
 
-  sf32_load_rows<D, BQ>(qs, q + b * qsb + h * qsh + (long)q0 * qss, qss, 0,
+  // job 2j: K tile j and its bias row; job 2j + 1: V tile j, into slot
+  // i % 2: warp 0 copies the tile's rows by the bulk-copy engine, one lane
+  // a row, completing on the slot's barrier; rows past Sk are zeroed
+  // instead, and the bias row travels by cp.async (one group a job, empty
+  // without a bias)
+  __shared__ uint64_t full[SF32_STAGES];
+  auto issue = [&](int i) {
+    if (i < njobs) {
+      float* dst = ring + (i & 1) * SLOT;
+      const int j = i >> 1, rows = min(BK, Sk - j * BK);
+      const float* src = (i & 1) ? vp + (long)j * BK * vss
+                                 : kp + (long)j * BK * kss;
+      const long ss = (i & 1) ? vss : kss;
+      if (warp == 0) {
+        if (lane == 0) mbar_expect(full + (i & 1), rows * D * 4);
+        __syncwarp();
+        if (lane < rows) {
+          fence_async_smem();  // the slot's last reads come first
+          bulk_load(dst + lane * LD, src + lane * ss, D * 4, full + (i & 1));
+        }
+      }
+      for (int x = tid; x < (BK - rows) * (D / 4); x += SF32_THREADS)
+        reinterpret_cast<float4*>(dst + (rows + x / (D / 4)) * LD)[x % (D / 4)] =
+            make_float4(0.f, 0.f, 0.f, 0.f);
+      if (brow && !(i & 1))
+        load_row_f32<BK, SF32_THREADS>(dst + BK * LD, brow, j * BK, Sk, tid);
+    }
+    ring_commit();
+  };
+  if (tid == 0) {
+    for (int i = 0; i < SF32_STAGES; ++i) mbar_init(full + i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  sf32_load_rows<D, BQ>(qs, q + b * qsb + h * qsh + (long)q0 * qss, qss,
                         Sq - q0);
-  sf32_load_rows<D, BK>(kv, kp, kss, 0, Sk);
-  if (tid < BQ) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.f;
-  }
-  const int tx = tid & 15, ty = tid >> 4;   // S: 16 x 16 threads
-  const int lane = tid & 31, w = tid >> 5;  // P.V: rows 4w.., columns lane..
-  float4 acc[4][CPT];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  issue(0);  // the first cp.async group holds Q too
 
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    ring_wait_upto(0);  // this tile's K (and, at the first, Q)
-    __syncthreads();
-    float s[SR][SC];
+  float acc[2][NO][4];  // O: [m tile][n tile][C fragment]
+  float s[2][NT][4];    // S (its hi.hi terms), then P: [m tile][n tile][C]
+  float sc[2][NT][4];   // S's small terms, lo.hi + hi.lo
+  float alpha[2][2];  // the tile's rescale of rows [m tile][g, g + 8]
+  float m_o = -INFINITY, l_o = 0.f;  // base-2 max, denominator of its rows
 #pragma unroll
-    for (int i = 0; i < SR; ++i)
+  for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-      for (int j = 0; j < SC; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d4 = 0; d4 < NC4; ++d4) {
-      float4 qa[SR], kb[SC];
+    for (int no = 0; no < NO; ++no)
 #pragma unroll
-      for (int i = 0; i < SR; ++i)
-        qa[i] = reinterpret_cast<const float4*>(qs + (ty + 16 * i) * LD)[d4];
-#pragma unroll
-      for (int j = 0; j < SC; ++j)
-        kb[j] = reinterpret_cast<const float4*>(kv + (tx + 16 * j) * LD)[d4];
-#pragma unroll
-      for (int i = 0; i < SR; ++i)
-#pragma unroll
-        for (int j = 0; j < SC; ++j) {
-          s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
-          s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
-          s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
-          s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
-        }
-    }
-    __syncthreads();  // K is consumed: V's copies run under the softmax
-    sf32_load_rows<D, BK>(kv, vp, vss, k0, Sk);
-    // online softmax in base 2; each row belongs to one half-warp
-#pragma unroll
-    for (int i = 0; i < SR; ++i) {
-      const int row = ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < SC; ++j) {
-        const int key = k0 + tx + 16 * j;
-        const float t = key < Sk
-            ? fmaf(s[i][j], sl, bp ? __fmul_rn(bp[key], LOG2E) : 0.f)
-            : -INFINITY;
-        s[i][j] = t;
-        mx = fmaxf(mx, t);
-      }
-#pragma unroll
-      for (int off = 8; off; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = row_m[row];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < SC; ++j) {
-        const float p = exp2f(s[i][j] - m_new);
-        ps[row * PLD + tx + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (tx == 0) {
-        const float alpha = exp2f(m_old - m_new);  // 0 at the first tile
-        row_a[row] = alpha;
-        row_l[row] = fmaf(row_l[row], alpha, sum);
-        row_m[row] = m_new;
-      }
-    }
-    ring_wait_upto(0);
-    __syncthreads();  // V, P and the factors are in place
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float a = row_a[4 * w + r];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        acc[r][c].x *= a;
-        acc[r][c].y *= a;
-        acc[r][c].z *= a;
-        acc[r][c].w *= a;
-      }
-    }
-#pragma unroll 2
-    for (int kk = 0; kk < BK; ++kk) {
-      float p[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) p[r] = ps[(4 * w + r) * PLD + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        if (lane + 32 * c < NC4) {
-          const float4 vv =
-              reinterpret_cast<const float4*>(kv + kk * LD)[lane + 32 * c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            acc[r][c].x = fmaf(p[r], vv.x, acc[r][c].x);
-            acc[r][c].y = fmaf(p[r], vv.y, acc[r][c].y);
-            acc[r][c].z = fmaf(p[r], vv.z, acc[r][c].z);
-            acc[r][c].w = fmaf(p[r], vv.w, acc[r][c].w);
-          }
-        }
-      }
-    }
-    __syncthreads();  // V is consumed: the next K's copies
-    if (k0 + BK < Sk) sf32_load_rows<D, BK>(kv, kp, kss, k0 + BK, Sk);
+      for (int e = 0; e < 4; ++e) acc[mt][no][e] = 0.f;
   }
+  // this lane's ldmatrix row: Q rows r + (lane & 7) + 8 ((lane >> 3) & 1),
+  // columns c + 4 (lane >> 4); K rows n + (lane & 7), columns c + 4 (lane >> 3)
+  const float* qa = qs + (32 * rh + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                    dq * DQ + (lane >> 4) * 4;
+  const int kb = (lane & 7) * LD + dq * DQ + (lane >> 3) * 4;
+
+  for (int i = 0; i < njobs; ++i) {
+    mbar_wait(full + (i & 1), (i >> 1) & 1);  // job i's rows
+    ring_wait_upto(0);  // its bias row (and, at the first, Q)
+    __syncthreads();    // ... for every thread; job i - 1's slot is free
+    issue(i + 1);
+    const float* sl_ = ring + (i & 1) * SLOT;
+    const int j = i >> 1;
+    if (!(i & 1)) {
+      // this warp's quarter of S = Q.K^T, two k steps of 8 at a time
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][nt][e] = sc[mt][nt][e] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < NO; kk += 2) {
+        uint32_t ah[2][2][4], al[2][2][4];  // [k step][m tile]
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            uint32_t r[4];
+            ldsm_x4(r, reinterpret_cast<const bf16*>(
+                           qa + mt * 16 * LD + (kk + ks) * 8));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(r[e]),
+                                                   ah[ks][mt][e], al[ks][mt][e]);
+          }
+        // two n tiles at a time, each product over four independent
+        // accumulators before the next into the same one
+#pragma unroll
+        for (int n0 = 0; n0 < NT; n0 += 2) {
+          constexpr int W = NT < 2 ? NT : 2;
+          uint32_t bh[2][W][2], bl[2][W][2];  // [k step][n tile][b0, b1]
+#pragma unroll
+          for (int nt = 0; nt < W; ++nt) {
+            uint32_t r[4];
+            ldsm_x4(r, reinterpret_cast<const bf16*>(
+                           sl_ + (n0 + nt) * 8 * LD + kb + kk * 8));
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              split_tf32(__uint_as_float(r[e]), bh[e >> 1][nt][e & 1],
+                         bl[e >> 1][nt][e & 1]);
+          }
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+            for (int term = 0; term < 3; ++term)
+#pragma unroll
+              for (int nt = 0; nt < W; ++nt)
+#pragma unroll
+                for (int mt = 0; mt < 2; ++mt) {
+                  if (term == 0)
+                    mma1688_tf32(sc[mt][n0 + nt], al[ks][mt], bh[ks][nt]);
+                  else if (term == 1)
+                    mma1688_tf32(sc[mt][n0 + nt], ah[ks][mt], bl[ks][nt]);
+                  else
+                    mma1688_tf32(s[mt][n0 + nt], ah[ks][mt], bh[ks][nt]);
+                }
+        }
+      }
+      // the four quarters of the row half meet in shared memory; warp dq
+      // of the row half then owns the softmax of rows 16 (dq / 2) + 8
+      // (dq % 2) + g: it adds those rows' four partials in a fixed order,
+      // keeps their running max and denominator, and writes their P and
+      // rescale factor for all four warps to read back
+      float* xw = xs + warp * BK * 32 + lane;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xw[((mt * NT + nt) * 4 + e) * 32] =
+                                          s[mt][nt][e] + sc[mt][nt][e];
+      sync_threads(1 + rh, 128);
+      {
+        const float* xr = xs + 4 * rh * BK * 32 + lane;
+        const float* bs = sl_ + BK * LD;
+        const bool plain = !brow && (j + 1) * BK <= Sk;
+        float u[NT][2];
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int x = ((om * NT + nt) * 4 + 2 * oh + e) * 32;
+            float y = ((xr[x] + xr[BK * 32 + x]) + xr[2 * BK * 32 + x]) +
+                      xr[3 * BK * 32 + x];
+            const int key = nt * 8 + 2 * t + e;
+            if (plain)
+              y *= sl;
+            else
+              y = j * BK + key < Sk
+                  ? fmaf(y, sl, brow ? __fmul_rn(bs[key], LOG2E) : 0.f)
+                  : -INFINITY;
+            u[nt][e] = y;
+            mx = fmaxf(mx, y);
+          }
+        mx = quad_max(mx);
+        const float m_new = fmaxf(m_o, mx);
+        const float a_o = ex2(m_o - m_new);  // 0 at the first tile
+        float sum = 0.f;
+        float* pw = ps + rh * BK * 32 + lane;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = ex2(u[nt][e] - m_new);
+            pw[((om * NT + nt) * 4 + 2 * oh + e) * 32] = p;
+            sum += p;
+          }
+        l_o = fmaf(l_o, a_o, quad_sum(sum));
+        m_o = m_new;
+        if (t == 0) rs[(rh * 4 + dq) * 8 + g] = a_o;
+      }
+      sync_threads(1 + rh, 128);
+      const float* pr = ps + rh * BK * 32 + lane;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[mt][nt][e] = pr[((mt * NT + nt) * 4 + e) * 32];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          alpha[mt][hf] = rs[(rh * 4 + 2 * mt + hf) * 8 + g];
+      }
+    } else {
+      // O = O * alpha + P.V over this warp's columns, four n tiles at a
+      // time: the tile's product goes into a fresh accumulator and reaches
+      // O by one fp32 FMA (the tensor core truncates as it accumulates;
+      // summed over every tile into O, that would cost about 10x fp32's
+      // error). k index t is key 2t, t + 4 key 2t + 1 of each 8-key step.
+      uint32_t ph[NT][2][4], pl[NT][2][4];  // [k step][m tile]
+#pragma unroll
+      for (int ks = 0; ks < NT; ++ks)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* p = s[mt][ks];
+          split_tf32(p[0], ph[ks][mt][0], pl[ks][mt][0]);
+          split_tf32(p[2], ph[ks][mt][1], pl[ks][mt][1]);
+          split_tf32(p[1], ph[ks][mt][2], pl[ks][mt][2]);
+          split_tf32(p[3], ph[ks][mt][3], pl[ks][mt][3]);
+        }
+      const float* vb = sl_ + 2 * t * LD + dq * DQ + g;
+#pragma unroll
+      for (int n0 = 0; n0 < NO; n0 += 4) {
+        constexpr int W = NO < 4 ? NO : 4;
+        float tmp[2][W][4];
+#pragma unroll
+        for (int ks = 0; ks < NT; ++ks) {
+          const float* vk = vb + ks * 8 * LD + n0 * 8;
+          uint32_t bh[W][2], bl[W][2];
+#pragma unroll
+          for (int no = 0; no < W; ++no) {
+            split_tf32(vk[no * 8], bh[no][0], bl[no][0]);
+            split_tf32(vk[LD + no * 8], bh[no][1], bl[no][1]);
+          }
+#pragma unroll
+          for (int term = 0; term < 3; ++term)
+#pragma unroll
+            for (int no = 0; no < W; ++no)
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                const uint32_t* a = term == 0 ? pl[ks][mt] : ph[ks][mt];
+                const uint32_t* bb = term == 1 ? bl[no] : bh[no];
+                if (ks == 0 && term == 0)
+                  mma1688_tf32_z(tmp[mt][no], a, bb);
+                else
+                  mma1688_tf32(tmp[mt][no], a, bb);
+              }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int no = 0; no < W; ++no)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[mt][n0 + no][e] = fmaf(acc[mt][n0 + no][e],
+                                         alpha[mt][e >> 1], tmp[mt][no][e]);
+      }
+    }
+  }
+  ring_wait_upto(0);
+  // each owner's denominators to the warps of its row half
+  if (t == 0) rs[(rh * 4 + dq) * 8 + g] = l_o;
+  sync_threads(1 + rh, 128);
+
   float* op = o + b * osb + h * osh;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + 4 * w + r;
-    if (row >= Sq) continue;
-    const float il = 1.f / row_l[4 * w + r];
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      if (lane + 32 * c < NC4) {
-        float4 x = acc[r][c];
-        x.x *= il;
-        x.y *= il;
-        x.z *= il;
-        x.w *= il;
-        reinterpret_cast<float4*>(op + (long)row * oss)[lane + 32 * c] = x;
-      }
-  }
-  if (tid < BQ && q0 + tid < Sq)
-    lse[((long)b * H + h) * Sq + q0 + tid] =
-        (row_m[tid] + log2f(row_l[tid])) * 0.69314718055994531f;
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + 32 * rh + 16 * mt + 8 * hf + g;
+      if (row >= Sq) continue;
+      const float il = 1.f / rs[(rh * 4 + 2 * mt + hf) * 8 + g];
+#pragma unroll
+      for (int no = 0; no < NO; ++no)
+        *reinterpret_cast<float2*>(op + (long)row * oss + dq * DQ + no * 8 +
+                                   2 * t) =
+            make_float2(acc[mt][no][2 * hf] * il,
+                        acc[mt][no][2 * hf + 1] * il);
+    }
+  const int row = q0 + 32 * rh + 16 * om + 8 * oh + g;
+  if (t == 0 && row < Sq)
+    lse[((long)b * H + h) * Sq + row] =
+        (m_o + log2f(l_o)) * 0.69314718055994531f;
 }
 
 template <int D>
@@ -589,7 +828,6 @@ int launch_stream_f32(const float* q, const float* k, const float* v,
       st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
-
 
 // A tensor map of one (B, H, S, D) bf16 operand with element strides
 // st[0..2] (batch, head, row), boxes of 64 columns x `rows` rows.

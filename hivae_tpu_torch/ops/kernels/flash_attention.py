@@ -38,10 +38,12 @@ ported here as hand-written CUDA (``hivae_tpu_torch/csrc``):
 ``stream_attention`` also launches a sibling kernel for fp32 operands
 (``csrc/flash_stream.cu``, ``stream_fwd_f32_kernel``): the same function
 with fp32 Q, K, V, O and LSE and P kept in fp32 for P.V, as the Pallas
-kernel computes it at fp32 (the fp32 SD-VAE's mid-block attention). It
-has no backward kernel, so it takes a call only where no gradient is
-needed (grad mode off, or no operand requiring grad); an fp32 call that
-needs one, and every fp16 call, is refused here and takes
+kernel computes it at fp32 (the fp32 SD-VAE's mid-block attention), each
+product on the tensor cores as three TF32 products of a hi/lo split
+(``tf32_matmul`` models it on the CPU). It has no backward kernel, so it
+takes a call only where no gradient is needed (grad mode off, or no
+operand requiring grad); an fp32 call that needs one, and every fp16
+call, is refused here and takes
 ``ops.attention``'s counted ``sdpa_plain``. Its launches count in
 ``stream_attention_f32.launches``, apart from the bf16 kernel's.
 
@@ -161,6 +163,35 @@ def stream_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     denom = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(_f(p.to(v.dtype)), _f(v)) / denom
     return out.to(q.dtype), m + torch.log(denom)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on fp32 ``x``, modelled on the bits as the fp32
+    streaming kernel rounds: the mantissa to 10 bits, ties away from zero
+    (add half a TF32 unit, 0x1000, then clear the low 13 bits). For the CPU
+    tests of that kernel's arithmetic; no kernel path calls it."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_rz(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` read as TF32 by the tensor core: its top 19 bits (the low
+    13 bits cleared)."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor,
+                products: int = 3) -> torch.Tensor:
+    """a @ b (fp32) as the fp32 streaming kernel's tensor cores form it:
+    with ``products`` 3, each operand split into hi = tf32_rna(x) and
+    lo = x - hi (read as TF32: ``tf32_rz``) and the sum
+    (lo.hi + hi.lo) + hi.hi; with 1, the single TF32 product hi.hi. Each
+    TF32 product is exact in fp32."""
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    if products == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32_rz(a - a_hi), tf32_rz(b - b_hi)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
 
 
 def _grads_from_p(p, dp, delta, q, k, v, do, scale):
@@ -444,29 +475,47 @@ def _stream_plan(d: int) -> StreamPlan:
 
 
 # launch plan of the fp32 streaming forward (csrc/flash_stream.cu,
-# ``stream_fwd_f32_kernel``): 32 query rows a CTA, K and V tiles of 64 keys
-# (32 past D = 512) through one buffer, rows D + 4 floats apart
-STREAM_F32_ROWS = 32
+# ``stream_fwd_f32_kernel``, 3xTF32 on the tensor cores): 64 query rows a
+# CTA of 8 warps, K and V tiles as separate jobs through two slots, rows
+# d + 4 floats apart, the exchange of partial scores (each thread's
+# ``tile`` fp32 S fragment values), P and the rows' rescale factors
+STREAM_F32_ROWS = 64
+STREAM_F32_THREADS = 256
+STREAM_F32_STAGES = 2
 
 
 @dataclasses.dataclass(frozen=True)
 class StreamF32Plan:
-    """Launch plan of the fp32 streaming forward: K/V tiles of ``tile``
-    keys, ``smem`` dynamic shared bytes (``sf32_bk`` and
-    ``sf32_smem_bytes``)."""
+    """Launch plan of the fp32 streaming forward: ``rows`` query rows a
+    CTA, ``stages`` slots of one K or V tile of ``tile`` keys, ``smem``
+    dynamic shared bytes (``sf32_bk`` and ``sf32_smem_bytes``)."""
+    rows: int
     tile: int
+    stages: int
     smem: int
+
+
+def _stream_f32_smem(d: int, tile: int) -> int:
+    """Shared bytes of the fp32 plan with ``tile``-key tiles: the Q tile,
+    two slots (a tile and its fp32 bias row), the exchange of partial
+    scores, the tile's P and a row of fp32 rescale factors."""
+    slot = (tile * (d + 4) + tile) * 4
+    return (STREAM_F32_ROWS * (d + 4) * 4 + STREAM_F32_STAGES * slot
+            + (STREAM_F32_THREADS + STREAM_F32_ROWS) * tile * 4
+            + STREAM_F32_ROWS * 4)
 
 
 @functools.lru_cache(maxsize=None)
 def _stream_f32_plan(d: int) -> StreamF32Plan:
-    """The plan at head dim ``d``: the Q tile and one K or V tile, rows
-    d + 4 floats apart, the fp32 P tile (rows tile + 4 apart) and three
-    fp32 rows of statistics (the running max, denominator and rescale)."""
-    tile = STREAM_TILE_WIDE if d > 512 else STREAM_TILE
-    rows = STREAM_F32_ROWS
-    smem = ((rows + tile) * (d + 4) + rows * (tile + 4) + 3 * rows) * 4
-    return StreamF32Plan(tile=tile, smem=smem)
+    """The plan at head dim ``d`` (``sf32_bk``): K/V tiles of 32 keys to
+    d = 256 (a wider tile's scores would take more registers than a thread
+    has beside the output), 16 at 512 and 8 at 640, so that the Q tile, two
+    slots, the exchange and P fit one block. The sequence lengths do not
+    change it."""
+    tile = 32 if d <= 256 else 16 if d <= 512 else 8
+    return StreamF32Plan(rows=STREAM_F32_ROWS, tile=tile,
+                         stages=STREAM_F32_STAGES,
+                         smem=_stream_f32_smem(d, tile))
 
 
 # launch plan of the streaming backward (csrc/flash_stream_bwd.cu): walked

@@ -610,8 +610,9 @@ def test_sdpa_off_the_kernel_dtypes_takes_the_plain_path(dtype, shape,
     assert _err(got, want) <= ATOL
 
 
-# fp32 streaming forward: every product a full fp32 one on both sides, only
-# the order of the sums differs
+# fp32 streaming forward: three TF32 products (hi/lo split) on tensor cores
+# that truncate as they accumulate, against full fp32 ones (1-2e-6); one
+# TF32 product would be ~2e-4
 F32_ATOL = 1e-5
 
 
@@ -620,7 +621,11 @@ F32_ATOL = 1e-5
     ((16, 1, 1024, 512), False), ((17, 1, 1024, 512), True),
     ((3, 2, 333, 512), True), ((2, 2, 1000, 64), True),
     ((2, 2, 1024, 128), False), ((2, 1, 1030, 256), True),
-    ((2, 1, 1024, 640), True)])
+    ((2, 1, 1024, 640), True),
+    # ragged against the 64-row CTA and the key tiles (64 / 32 / 16 / 8
+    # keys at D 128 / 256 / 512 / 640)
+    ((1, 2, 77, 512), True), ((2, 1, 100, 640), False),
+    ((1, 3, 70, 128), True), ((2, 1, 45, 256), False)])
 def test_stream_f32_kernel_matches_plain(shape, masked):
     """The fp32 variant against the fp32 plain version: outputs and LSE
     within F32_ATOL, a fully masked key row (batch 0) the uniform average,

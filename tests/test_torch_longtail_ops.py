@@ -286,14 +286,55 @@ def test_no_grad_calls_go_through_the_ops_and_grad_calls_do_not():
         **TOL)
 
 
+# keys a K or V tile of the fp32 streaming forward at each head dim, as its
+# source note (csrc/flash_stream.cu) states them
+F32_TILES = {64: 32, 128: 32, 256: 32, 512: 16, 640: 8}
+
+
 @pytest.mark.parametrize("d", tfa._STREAM_DIMS)
 def test_stream_f32_plan_fits_a_block(d):
-    """The fp32 streaming forward's plan at every streaming head dim: one
-    K/V tile of 64 keys (32 past D = 512, where 64 would not fit beside
-    the Q tile), within the card's shared memory a block."""
+    """The fp32 streaming forward's plan at every streaming head dim: 64
+    query rows a CTA and two slots of the K/V tile the source note states
+    (rows d + 4 floats apart, each with its bias row), beside the Q tile,
+    the exchange of partial scores, P and the rescale factors, within the
+    card's shared memory a block; below the 32-key cap, a tile of twice
+    the keys would not fit."""
     plan = tfa._stream_f32_plan(d)
-    assert plan.tile == (32 if d > 512 else 64)
+    assert (plan.rows, plan.stages, plan.tile) == (64, 2, F32_TILES[d])
+    assert plan.smem == (64 * (d + 4) + 2 * plan.tile * (d + 5)
+                         + (256 + 64) * plan.tile + 64) * 4
     assert plan.smem <= tfa.SMEM_PER_BLOCK
-    wider = ((tfa.STREAM_F32_ROWS + 64) * (d + 4)
-             + tfa.STREAM_F32_ROWS * 68 + 3 * tfa.STREAM_F32_ROWS) * 4
-    assert (wider > tfa.SMEM_PER_BLOCK) == (d > 512)
+    if plan.tile < 32:
+        assert tfa._stream_f32_smem(d, 2 * plan.tile) > tfa.SMEM_PER_BLOCK
+
+
+def test_tf32_split_meets_the_fp32_gate():
+    """Why the fp32 streaming kernel takes three TF32 products: with its
+    split (hi by ``tf32_rna``, the bits of ``cvt.rna.tf32.f32``, ties away
+    from zero; lo = x - hi as the tensor core reads it, ``tf32_rz``) in both
+    Q.K^T and P.V, attention at D 512 over 1024 keys of N(0, 1) is within
+    the fp32 gate (1e-5) of an fp64 reference; with one TF32 product it is
+    not."""
+    one = 1.0 + 2.0 ** -11   # halfway between two TF32 values
+    below = np.nextafter(np.float32(one), np.float32(0))
+    x = torch.tensor([one, -one, below, 3.0],
+                     dtype=torch.float32)
+    assert tfa.tf32_rna(x).tolist() == [1 + 2.0 ** -10, -1 - 2.0 ** -10,
+                                        1.0, 3.0]
+    assert tfa.tf32_rz(x).tolist() == [1.0, -1.0, 1.0, 3.0]
+    rng = np.random.RandomState(61)
+    q, k, v = (torch.from_numpy(rng.randn(1024, 512).astype(np.float32))
+               for _ in range(3))
+    scale = 512 ** -0.5
+
+    def attend(mm, q, k, v):
+        s = mm(q, k.T) * scale
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        return mm(p, v) / p.sum(-1, keepdim=True)
+
+    want = attend(torch.matmul, q.double(), k.double(), v.double())
+
+    def err(products):
+        got = attend(lambda a, b: tfa.tf32_matmul(a, b, products), q, k, v)
+        return (got.double() - want).abs().max().item()
+    assert err(3) <= 1e-5 < err(1)
