@@ -45,7 +45,17 @@ Phases (any failure exits non-zero without the final result line):
    frames, masked and not, a fully masked key row, D 64 to 640 at ragged
    lengths), held to its fp32 plain version within ``KERNEL_F32_ATOL``
    and timed beside SDPA in fp32, its bound its three TF32 products at
-   TF32's peak. Each
+   TF32's peak. The fp32 siblings with a gradient (``check_f32_kernels``)
+   add the fp32 full-block forward and its qk-norm variant, the fp32
+   full-block backward and its delta pre-pass at ``FULL_BLOCK_F32_CASES``
+   (the `--mp no` step's three sites at N = 2, a masked case with a fully
+   masked key row, Sq != Sk, D 32, 96 and 128), and the fp32 streaming
+   delta, dQ and dK/dV at (16, 1, 1024, 512) and ``STREAM_BWD_CHECKS``
+   (with its fully masked key block, which must get no gradient), each
+   within ``KERNEL_F32_ATOL`` x max(1, max|plain|) of its fp32 plain
+   version, launched twice to the same bits, and timed beside SDPA in fp32
+   and its plain version; with ``--parent`` the fp32 streaming forward
+   must give the parent's bits. Each
    kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
@@ -53,12 +63,14 @@ Phases (any failure exits non-zero without the final result line):
    forward; for the qk-norm kernel two ``F.layer_norm`` and one SDPA; for the
    FFN kernel ``torch._int_mm`` of its GEMM alone) are timed with CUDA
    events;
-   2b. ``sdpa`` in fp32 and fp16 above 256^2 logits: fp32 at the SD-VAE
-   mid-block's shape with no gradient launches the fp32 streaming kernel
-   once; fp32 at the object encoder's full-block shape, fp32 with a
-   gradient and fp16 have no kernel on the card and must take the
-   counted plain path (``sdpa_plain``, one count a call) and launch no
-   kernel; bf16 operands in a layout the kernels cannot read, which the
+   2b. ``sdpa`` in fp32 and fp16 above 256^2 logits: fp32 launches the
+   fp32 kernels of its shape's route once (the SD-VAE mid-block's the
+   streaming forward, the object encoder's the full-block forward) and,
+   with a gradient, the backward's delta pre-pass and kernels once each,
+   its gradients within the fp32 gate of the plain path's; fp16 has no
+   kernel on the card and must take the counted plain path
+   (``sdpa_plain``, one count a call) and launch no kernel; bf16
+   operands in a layout the kernels cannot read, which the
    kernel's wrapper copies; an fp32 ``AutoencoderKL`` encoding one clip
    (one fp32 streaming launch, ``sdpa_plain`` 0); ``quant_dense`` and
    ``fused_quant_ffn`` at 1, 16 and 17 rows against the same calls on
@@ -165,8 +177,8 @@ Phases (any failure exits non-zero without the final result line):
    no ``sdpa_plain``) and the six discriminators at their defaults (train
    and eval: no launch), finite, expected shapes;
    3v. (after 3q, before 3b strips the models; then after 3b on models
-   built anew) ``cli.export_sampler``'s ``ClipSampler`` at full width,
-   bf16 and int8: exported with ``torch.export``, saved, loaded and run
+   built anew, at ``EXPORT_INT8_DEPTH``) ``cli.export_sampler``'s
+   ``ClipSampler`` at full width, bf16 and int8: exported with ``torch.export``, saved, loaded and run
    on phase 3's clip and seeded noise; its uint8 frames against the live
    module's and its launches equal to the live run's and to the clip's
    formula at ``EXPORT_STEPS``;
@@ -216,6 +228,18 @@ Phases (any failure exits non-zero without the final result line):
    5b. ``AMDTrainer.validate`` on N = 4 clips at ``sample_step=2``: exact
    launches, uint8 of its shape, and agreement with its run on the plain
    attention versions (phase 3's tolerances);
+   5c. `--mp no` training, as ``cli.train_amd --mp no`` runs it: AMD_N
+   at full width and depth (fp32 weights, remat ``full``) computing in
+   fp32 on an fp32 SD-VAE: run F at N = 2 (a warm-up, 2 timed steps),
+   one step with the perceptual loss at N = 1 (the fp32 streaming
+   backward: 1 delta, 1 dQ, 1 dK/dV) and one under ``QKNORM_FUSE`` at N =
+   1 (the fp32 qk-norm forward); exact launches on the fp32 kernels
+   (``_expected_step_launches(..., f32=True)``), the bf16 counters and
+   ``sdpa_plain`` 0, loss within ``F32_STEP_LOSS_RTOL``, gradient
+   cosine at least ``F32_STEP_GRAD_COS`` and gradient relative L2 within
+   ``F32_STEP_GRAD_REL_L2`` of the same step on the plain attention
+   versions (the plain step with TF32 matmuls logged beside it as the
+   control the gate must reject), step ms and peak memory;
 6. one training step (after a warm-up) of each config variant of
    ``VARIANTS``, at N = 4 with remat ``full``: ``use_camera_down`` with
    ``need_motion_transformer`` (the camera joint block at 16 + 256 tokens)
@@ -258,11 +282,16 @@ Phases (any failure exits non-zero without the final result line):
    running out of the card's memory fails the phase), then the CLI in
    this process at ``T2M_CLI_LAYERS`` layers, 2 steps and a resume to 3;
    exact launches (8 + layers full-block forward, layers delta and
-   backward, 4 streaming a step);
+   backward, 4 streaming a step); then one `--mp no` step of
+   ``T2MTrainer`` at ``T2M_CLI_LAYERS`` (the head and its frozen AMD_N and
+   SD-VAE in fp32): the same launches on the fp32 kernels,
+   ``sdpa_plain`` 0;
    7f. ``hivae_tpu_torch.cli.train_mae`` with MAE_L on 32 frames a step,
    2 steps and a resume to 3 (8 full-block forward, delta and backward at
-   (32, 16, 257, 32) and 1 streaming a step), then ``reconstruct`` with
-   its checkpoint's weights (32 full-block) within ``MAE_REL_L2`` of its
+   (32, 16, 257, 32) and 1 streaming a step), one `--mp no` step of
+   ``MAETrainer`` (fp32 compute on an fp32 SD-VAE: the same launches on
+   the fp32 kernels, ``sdpa_plain`` 0), then ``reconstruct`` with its
+   checkpoint's weights (32 full-block) within ``MAE_REL_L2`` of its
    plain run;
 8. parallelism. NCCL refuses two ranks on one device, so the ranks are
    processes that share this card over gloo (``spawn_ranks``: this script
@@ -278,7 +307,10 @@ Phases (any failure exits non-zero without the final result line):
    exact launches on each rank (P streaming forwards, one delta pre-pass,
    P dQ and P dK/dV), the ranks' outputs and gradients bit-equal, and
    held to one process's ``sdpa`` on the whole sequence and to the plain
-   version;
+   version; on the ring of 2 also one fp32 call with a gradient on the
+   fp32 kernel hops (2 fp32 streaming forwards, 1 delta, 2 dQ, 2 dK/dV),
+   the ranks bit-equal, within the fp32 gate of one process's fp32
+   ``sdpa`` and of the plain version;
    8b. the flagship's training step on the mesh (2, 1, 1), 2 clips a rank,
    against one process's step on the 4 clips and the same draws (loss
    within ``STEP_LOSS_RTOL``, gradient cosine at least ``STEP_GRAD_COS``),
@@ -600,6 +632,14 @@ DELTA_RTOL = 1e-5
 # leaves the 696 M-element gradient pointing the same way.
 STEP_LOSS_RTOL = 1e-2
 STEP_GRAD_COS = 0.99
+# The same in fp32 (`--mp no`): the kernels' 3xTF32 products and sums in
+# another order against the plain versions' fp32 ones, ~1e-6 a call
+F32_STEP_LOSS_RTOL = 1e-3
+F32_STEP_GRAD_COS = 0.999
+# and the gradient's relative L2 distance, which the cosine is too coarse
+# to read: 1-2e-7 on the kernels on an H100, where the plain step with its
+# matmuls in TF32 (the control the step logs beside it) reads far above it
+F32_STEP_GRAD_REL_L2 = 1e-5
 # A remat policy changes what the backward keeps, not what it computes:
 # against remat full from the same state, batch and draws, only the order
 # of bf16 roundings in the recomputed matmuls may differ.
@@ -632,6 +672,27 @@ def full_block_bwd_cases(clips):
     return [(f"object encoder N={clips}", (2 * nt, 8, 260, 64), 8),
             (f"DiT object joint N={clips}", (nt, 16, 266, 64), 12),
             (f"DiT camera joint N={clips}", (nt, 16, 512, 64), 12)]
+
+
+# the fp32 full-block kernels' cases (label, q shape, Sk or None, forward
+# and backward launches a `--mp no` step of the flagship at N =
+# F32_STEP_CLIPS (the DiT's forward twice under remat), masked): its three
+# sites at that N, then check-only cases: a masked one with a fully masked
+# key row, Sq != Sk, and the other heads' widths (the T2M joint block at D
+# 128, the MAE decoder at D 32, MAE_L's encoder at mask 0 at D 64, AMD_L's
+# DiT at D 96, masked)
+F32_STEP_CLIPS = 2
+FULL_BLOCK_F32_CASES = [
+    (label, shape, None, n * (1 if "encoder" in label else 2), n, False)
+    for label, shape, n in full_block_bwd_cases(F32_STEP_CLIPS)] + [
+    ("DiT camera joint N=2, masked", (32, 16, 512, 64), None, 0, 0, True),
+    ("Sq 300, Sk 700, masked", (2, 4, 300, 64), 700, 0, 0, True),
+    ("T2M joint (S 269, D 128)", (16, 16, 269, 128), None, 0, 0, False),
+    ("MAE decoder N=32 (S 257, D 32)", (32, 16, 257, 32), None, 0, 0, False),
+    ("MAE_L encoder, mask 0 (S 257, D 64)", (4, 16, 257, 64), None, 0, 0,
+     False),
+    ("AMD_L DiT joint, masked (D 96)", (4, 16, 282, 96), None, 0, 0, True),
+]
 
 
 _T0 = time.perf_counter()
@@ -824,13 +885,14 @@ def check_bwd_kernels(fa, failures, parent=None):
         d_ms = _time_ms(lambda: fa.full_block_attention_delta(do, out, l), 20)
         d_plain = _time_ms(lambda: fa.full_block_attention_delta_plain(
             do, out, l), 20)
+        d_lib = _time_ms(lambda: torch.linalg.vecdot(do, out, dim=-1), 20)
         b, h, sq, d = shape
         # dO and O read once, l read, delta and 1/l written; 2 B H Sq D
         # fp32 operations
         d_bytes = (2 * b * h * sq * d * 2 + 3 * b * h * sq * 4)
         deltas.append(dict(label=label, shape=list(shape), weight=weight,
                            max_abs_err=d_err, ms=d_ms, plain_ms=d_plain,
-                           library_ms=None,
+                           library_ms=d_lib,
                            bytes_ms=d_bytes / PEAK_HBM_BYTES * 1e3,
                            ops_ms=2 * b * h * sq * d / PEAK_FP32_FLOPS * 1e3))
         _log(f"  full_block_bwd {label} {shape} Sk {kv[2]}: rel err dq "
@@ -895,6 +957,7 @@ def check_bwd_kernels(fa, failures, parent=None):
             q, k, v, do, lse, delta, **kw), iters)
         d_ms = _time_ms(lambda: fa.stream_attention_delta(do, out), iters)
         d_plain = _time_ms(lambda: fa._delta(do, out), iters)
+        d_lib = _time_ms(lambda: torch.linalg.vecdot(do, out, dim=-1), iters)
         plain_ms = _time_ms(lambda: fa.stream_attention_bwd_plain(
             q, k, v, do, out, lse, **kw), 5)
         lib_ms = _library_bwd_ms(q, k, v, do, mask, scale, iters)
@@ -927,7 +990,7 @@ def check_bwd_kernels(fa, failures, parent=None):
         d_bytes = 2 * b * h * sq * d * 2 + b * h * sq * 4
         sdeltas.append(dict(label=label, shape=list(shape), weight=per_step,
                             max_abs_err=d_err, ms=d_ms, plain_ms=d_plain,
-                            library_ms=None,
+                            library_ms=d_lib,
                             bytes_ms=d_bytes / PEAK_HBM_BYTES * 1e3,
                             ops_ms=2 * b * h * sq * d / PEAK_FP32_FLOPS * 1e3))
         _log(f"  stream_bwd {label} {shape}: rel err dq {errs[0]:.3g} dk "
@@ -1130,8 +1193,8 @@ def check_stream_f32(fa, failures, gen, sms, parent=None):
             keep[0] = False   # one fully masked key row
             bias = torch.where(keep, 0.0, -1e30).to(torch.float32)
         kw = dict(scale=scale, bias=bias)
-        out, lse = fa.stream_attention_f32(q, k, v, **kw)
-        again, _ = fa.stream_attention_f32(q, k, v, **kw)
+        out, lse = fa.stream_attention(q, k, v, **kw)
+        again, _ = fa.stream_attention(q, k, v, **kw)
         wo, wl = fa.stream_attention_plain(q, k, v, **kw)
         torch.cuda.synchronize()
         err = _abs_err(out, wo)
@@ -1150,13 +1213,21 @@ def check_stream_f32(fa, failures, gen, sms, parent=None):
             failures.append(f"stream fp32 {label} {shape}: max|err| {err} "
                             f"lse {err_lse} finite {finite}")
         mask = None if bias is None else bias[:, None, None, :]
-        ms = _time_ms(lambda: fa.stream_attention_f32(q, k, v, **kw), 20)
+        ms = _time_ms(lambda: fa.stream_attention(q, k, v, **kw), 20)
         plain_ms = _time_ms(lambda: fa.stream_attention_plain(q, k, v, **kw),
                             10)
         lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, scale=scale), 20)
-        parent_ms = None if parent is None else _time_ms(
-            lambda: parent.stream_attention_f32(q, k, v, **kw), 20)
+        parent_ms = None
+        if parent is not None:
+            # the kernel's code did not change with its TF32 helpers' move
+            # to attn_common.cuh: the parent's gives the same bits
+            pout, plse = parent.stream_attention(q, k, v, **kw)
+            if not (torch.equal(out, pout) and torch.equal(lse, plse)):
+                failures.append(f"stream fp32 {label}: the parent's kernel "
+                                f"gives other bits")
+            parent_ms = _time_ms(
+                lambda: parent.stream_attention(q, k, v, **kw), 20)
         bytes_ms, ops_ms = _bound(shape, masked, True, elem_bytes=4,
                                   flop_factor=12, peak=PEAK_TF32_FLOPS)
         simt_ms = _bound(shape, masked, True, elem_bytes=4,
@@ -1178,6 +1249,257 @@ def check_stream_f32(fa, failures, gen, sms, parent=None):
              f"  ({plan.rows} rows, {plan.tile}-key tiles, {plan.stages} "
              f"slots, {plan.smem} B, {ctas} CTAs, {ctas / sms:.2f} waves)")
     return cases
+
+
+def _f32_gate(got, want):
+    """(max|err|, whether it is within KERNEL_F32_ATOL * max(1, max|want|))
+    of an fp32 kernel's output against its fp32 plain version."""
+    err = _abs_err(got, want)
+    return err, err <= KERNEL_F32_ATOL * max(1.0, want.abs().max().item())
+
+
+def check_f32_kernels(fa, failures, sms):
+    """Phase 2, the fp32 full-block forward (and its qk-norm variant) and
+    the fp32 backward kernels (full-block backward and delta; streaming
+    delta, dQ and dK/dV) on fp32 operands, each against its fp32 plain
+    version (TF32 off, as this script sets it) within ``_f32_gate``,
+    launched twice to the same bits; a fully masked key row (full-block)
+    must give the uniform average and a fully masked key block (streaming)
+    no gradient. Each is timed beside its plain version and one PyTorch
+    call in fp32 (SDPA's forward; for a backward SDPA forward + backward
+    minus forward); its bound is its TF32 products (three a matmul) at
+    TF32's peak or its fp32 bytes, the larger. Returns the records."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def masked_bias(b, s, full_row):
+        keep = torch.rand((b, s), generator=gen, device="cuda") > 0.3
+        keep[:, 0] = True
+        if full_row:
+            keep[0] = False   # one fully masked key row
+        return torch.where(keep, 0.0, -1e30).to(torch.float32)
+
+    fwd, qkn, bwd, fdelta = [], [], [], []
+    for label, shape, sk, fwd_w, bwd_w, masked in FULL_BLOCK_F32_CASES:
+        kv = shape if sk is None else shape[:2] + (sk, shape[3])
+        q, k, v, do = rand(shape), rand(kv), rand(kv), rand(shape)
+        scale = shape[3] ** -0.5
+        bias = masked_bias(shape[0], kv[2], True) if masked else None
+        kw = dict(scale=scale, bias=bias)
+        out, m, l = fa._full_block_fwd(q, k, v, bias, scale, stats=True)
+        again = fa.full_block_attention(q, k, v, **kw)
+        want = fa.full_block_attention_plain(q, k, v, **kw)
+        norms = _norm_params(gen, shape[3])
+        qn = fa.full_block_attention_qknorm(q, k, v, *norms, **kw)
+        qn2 = fa.full_block_attention_qknorm(q, k, v, *norms, **kw)
+        qn_want = fa.full_block_attention_qknorm_plain(q, k, v, *norms, **kw)
+        grads = fa.full_block_attention_bwd(q, k, v, do, out, m, l, **kw)
+        grads2 = fa.full_block_attention_bwd(q, k, v, do, out, m, l, **kw)
+        gwant = fa.full_block_attention_bwd_plain(q, k, v, do, **kw)
+        delta, inv_l = fa.full_block_attention_delta(do, out, l)
+        delta2, _ = fa.full_block_attention_delta(do, out, l)
+        dwant, ilwant = fa.full_block_attention_delta_plain(do, out, l)
+        torch.cuda.synchronize()
+        err, ok = _f32_gate(out, want)
+        qerr, qok = _f32_gate(qn, qn_want)
+        gerrs = [_f32_gate(g, w) for g, w in zip(grads, gwant)]
+        derr, dok = _f32_gate(delta, dwant)
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (out, qn, delta, *grads))
+        if not (finite and ok and qok and all(g[1] for g in gerrs) and dok
+                and torch.equal(inv_l, ilwant)):
+            failures.append(f"full_block fp32 {label} {shape} Sk {kv[2]}: "
+                            f"max|err| out {err} qknorm {qerr} dq/dk/dv "
+                            f"{[g[0] for g in gerrs]} delta {derr}, 1/l "
+                            f"equal {torch.equal(inv_l, ilwant)}, finite "
+                            f"{finite}")
+        if not (torch.equal(out, again) and torch.equal(qn, qn2) and all(
+                torch.equal(a, b) for a, b in zip(grads, grads2)) and
+                torch.equal(delta, delta2)):
+            failures.append(f"full_block fp32 {label}: two launches differ")
+        if masked:
+            err_u = (out[0] - v[0].mean(dim=1, keepdim=True)).abs().max()
+            if not err_u.item() <= KERNEL_F32_ATOL:
+                failures.append(f"full_block fp32 {label}: masked row not "
+                                f"uniform ({err_u.item()})")
+        mask = None if bias is None else bias[:, None, None, :]
+        ms = _time_ms(lambda: fa.full_block_attention(q, k, v, **kw), 20)
+        plain_ms = _time_ms(lambda: fa.full_block_attention_plain(
+            q, k, v, **kw), 5)
+        lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, scale=scale), 20)
+        q_ms = _time_ms(lambda: fa.full_block_attention_qknorm(
+            q, k, v, *norms, **kw), 20)
+        q_plain = _time_ms(lambda: fa.full_block_attention_qknorm_plain(
+            q, k, v, *norms, **kw), 5)
+
+        def ln_sdpa():
+            d = shape[3]
+            qq = F.layer_norm(q, (d,), norms[0], norms[1], 1e-6)
+            kk = F.layer_norm(k, (d,), norms[2], norms[3], 1e-6)
+            return F.scaled_dot_product_attention(qq, kk, v, attn_mask=mask,
+                                                  scale=scale)
+        q_lib = _time_ms(ln_sdpa, 20)
+        b_ms = _time_ms(lambda: fa.full_block_attention_bwd(
+            q, k, v, do, out, m, l, **kw), 20)
+        b_plain = _time_ms(lambda: fa.full_block_attention_bwd_plain(
+            q, k, v, do, **kw), 5)
+        b_lib = _library_bwd_ms(q, k, v, do, mask, scale, 20)
+        d_ms = _time_ms(lambda: fa.full_block_attention_delta(do, out, l),
+                        20)
+        d_plain = _time_ms(lambda: fa.full_block_attention_delta_plain(
+            do, out, l), 20)
+        d_lib = _time_ms(lambda: torch.linalg.vecdot(do, out, dim=-1), 20)
+        f_bytes, f_ops = _bound(shape, masked, False, stats=2, sk=kv[2],
+                                flop_factor=12, elem_bytes=4,
+                                peak=PEAK_TF32_FLOPS)
+        b_bytes, b_ops = _bound(shape, masked, False, tensors=7, stats=3,
+                                sk=kv[2], flop_factor=30, elem_bytes=4,
+                                peak=PEAK_TF32_FLOPS)
+        b, h, sq, d = shape
+        common = dict(label=label, shape=list(shape), sk=kv[2])
+        fwd.append(dict(common, weight=fwd_w, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms,
+                        bytes_ms=f_bytes, ops_ms=f_ops))
+        qkn.append(dict(common, weight=fwd_w, max_abs_err=qerr, ms=q_ms,
+                        plain_ms=q_plain, library_ms=q_lib, bytes_ms=f_bytes,
+                        ops_ms=f_ops))
+        bwd.append(dict(common, weight=bwd_w,
+                        max_abs_err=max(g[0] for g in gerrs), ms=b_ms,
+                        plain_ms=b_plain, library_ms=b_lib,
+                        bytes_ms=b_bytes, ops_ms=b_ops,
+                        plan=dataclasses.asdict(fa._full_block_f32_plan(d))))
+        # dO and O read, l read, delta and 1/l written; 2 B H Sq D fp32 ops
+        fdelta.append(dict(common, weight=bwd_w, max_abs_err=derr, ms=d_ms,
+                           plain_ms=d_plain, library_ms=d_lib,
+                           bytes_ms=(2 * b * h * sq * d + 3 * b * h * sq)
+                           * 4 / PEAK_HBM_BYTES * 1e3,
+                           ops_ms=2 * b * h * sq * d / PEAK_FP32_FLOPS * 1e3))
+        _log(f"  full_block fp32 {label} {shape} Sk {kv[2]}: max|err| out "
+             f"{err:.3g} qknorm {qerr:.3g} dq/dk/dv "
+             f"{', '.join(f'{g[0]:.3g}' for g in gerrs)} delta {derr:.3g}; "
+             f"forward {ms:.4f} ms (plain "
+             f"{plain_ms:.4f}, sdpa fp32 {lib_ms:.4f}, bound "
+             f"{max(f_bytes, f_ops):.4f}); qknorm {q_ms:.4f} ms (plain "
+             f"{q_plain:.4f}, layer_norm + sdpa {q_lib:.4f}); backward "
+             f"{b_ms:.4f} ms with delta {d_ms:.4f} (vecdot {d_lib:.4f}; plain "
+             f"{b_plain:.4f}, sdpa fp32 bwd {b_lib:.4f}, bound "
+             f"{max(b_bytes, b_ops):.4f})")
+
+    dq_cases, dkv_cases, sdelta = [], [], []
+    for label, shape, weight, masked in [
+            ("SD-VAE decoder mid-block, perceptual leg (N=1)",
+             (16, 1, 1024, 512), 1, False)] + [
+            (lab, shape, 0, masked) for lab, shape, masked in
+            STREAM_BWD_CHECKS]:
+        q, k, v, do = (rand(shape) for _ in range(4))
+        scale = shape[3] ** -0.5
+        bias = None
+        if masked:
+            bias = masked_bias(shape[0], shape[2], False)
+            bias[:, STREAM_MASKED_KEYS] = -1e30
+        kw = dict(scale=scale, bias=bias)
+        out, lse = fa.stream_attention(q, k, v, **kw)
+        delta = fa.stream_attention_delta(do, out)
+        dq = fa.stream_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.stream_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        again = (fa.stream_attention_delta(do, out),
+                 fa.stream_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                 *fa.stream_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        want = fa.stream_attention_bwd_plain(q, k, v, do, out, lse, **kw)
+        dwant = fa._delta(do, out)
+        torch.cuda.synchronize()
+        gerrs = [_f32_gate(g, w) for g, w in zip((dq, dk, dv), want)]
+        derr, dok = _f32_gate(delta, dwant)
+        finite = all(bool(torch.isfinite(x).all()) for x in (dq, dk, dv))
+        if not (finite and dok and all(g[1] for g in gerrs)):
+            failures.append(f"stream_bwd fp32 {label} {shape}: max|err| "
+                            f"dq/dk/dv {[g[0] for g in gerrs]} delta {derr} "
+                            f"finite {finite}")
+        if not all(torch.equal(a, b) for a, b in
+                   zip((delta, dq, dk, dv), again)):
+            failures.append(f"stream_bwd fp32 {label}: two launches differ")
+        if bias is not None and max(
+                dk[:, :, STREAM_MASKED_KEYS].abs().max().item(),
+                dv[:, :, STREAM_MASKED_KEYS].abs().max().item()) != 0:
+            failures.append(f"stream_bwd fp32 {label}: a fully masked key "
+                            f"block got a gradient")
+        mask = None if bias is None else bias[:, None, None, :]
+        dq_ms = _time_ms(lambda: fa.stream_attention_bwd_dq(
+            q, k, v, do, lse, delta, **kw), 10)
+        dkv_ms = _time_ms(lambda: fa.stream_attention_bwd_dkv(
+            q, k, v, do, lse, delta, **kw), 10)
+        d_ms = _time_ms(lambda: fa.stream_attention_delta(do, out), 20)
+        d_plain = _time_ms(lambda: fa._delta(do, out), 20)
+        d_lib = _time_ms(lambda: torch.linalg.vecdot(do, out, dim=-1), 20)
+        plain_ms = _time_ms(lambda: fa.stream_attention_bwd_plain(
+            q, k, v, do, out, lse, **kw), 3)
+        lib_ms = _library_bwd_ms(q, k, v, do, mask, scale, 10)
+        plan = fa._stream_bwd_f32_plan(shape[3])
+        b, h, sq, d = shape
+        common = dict(label=label, shape=list(shape), weight=weight,
+                      plain_ms=plain_ms, library_ms=lib_ms)
+        q_bytes, q_ops = _bound(shape, masked, True, tensors=5, stats=1,
+                                flop_factor=18, elem_bytes=4,
+                                peak=PEAK_TF32_FLOPS)
+        k_bytes, k_ops = _bound(shape, masked, True, tensors=6, stats=1,
+                                flop_factor=24, elem_bytes=4,
+                                peak=PEAK_TF32_FLOPS)
+        ctas = {n: -(-sq // p.rows) * b * h for n, p in
+                (("dq", plan.dq), ("dkv", plan.dkv))}
+        dq_cases.append(dict(common, max_abs_err=gerrs[0][0], ms=dq_ms,
+                             bytes_ms=q_bytes,
+                             ops_ms=q_ops, plan=dataclasses.asdict(plan.dq),
+                             ctas=ctas["dq"], waves=ctas["dq"] / sms))
+        dkv_cases.append(dict(common, max_abs_err=max(g[0] for g in
+                                                      gerrs[1:]),
+                              ms=dkv_ms, bytes_ms=k_bytes, ops_ms=k_ops,
+                              plan=dataclasses.asdict(plan.dkv),
+                              ctas=ctas["dkv"], waves=ctas["dkv"] / sms))
+        sdelta.append(dict(label=label, shape=list(shape), weight=weight,
+                           max_abs_err=derr, ms=d_ms, plain_ms=d_plain,
+                           library_ms=d_lib,
+                           bytes_ms=(2 * b * h * sq * d + b * h * sq) * 4
+                           / PEAK_HBM_BYTES * 1e3,
+                           ops_ms=2 * b * h * sq * d / PEAK_FP32_FLOPS * 1e3))
+        _log(f"  stream_bwd fp32 {label} {shape}: max|err| dq/dk/dv "
+             f"{', '.join(f'{g[0]:.3g}' for g in gerrs)} delta {derr:.3g}; "
+             f"dq {dq_ms:.4f} ms (bound "
+             f"{max(q_bytes, q_ops):.4f}, {plan.dq.rows} rows, "
+             f"{plan.dq.tile}-row tiles, {ctas['dq']} CTAs) dkv "
+             f"{dkv_ms:.4f} ms (bound "
+             f"{max(k_bytes, k_ops):.4f}, {plan.dkv.rows} rows, "
+             f"{plan.dkv.tile}-row tiles, {ctas['dkv']} CTAs) delta "
+             f"{d_ms:.4f} ms (plain {d_plain:.4f}, vecdot {d_lib:.4f}); sum "
+             f"{dq_ms + dkv_ms + d_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"sdpa fp32 bwd {lib_ms:.4f} ms")
+
+    src = "hivae_tpu_torch/csrc/"
+    tpu = "hivae_tpu/ops/pallas/flash_attention.py:"
+
+    def record(name, source, line, cases):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": tpu + line, "cases": cases}
+    bwd_rec = record("full_block_attention_bwd_f32", "flash_full_block_bwd.cu",
+                     "188", bwd)
+    bwd_rec["delta"] = record("full_block_attention_delta_f32",
+                              "flash_full_block_bwd.cu", "188", fdelta)
+    dq_rec = record("stream_attention_bwd_dq_f32", "flash_stream_bwd.cu",
+                    "512", dq_cases)
+    dq_rec["delta"] = record("stream_attention_delta_f32",
+                             "flash_stream_bwd.cu", "512", sdelta)
+    return [record("full_block_attention_f32", "flash_full_block.cu", "167",
+                   fwd),
+            record("full_block_attention_qknorm_f32", "flash_full_block.cu",
+                   "140", qkn),
+            bwd_rec, dq_rec,
+            record("stream_attention_bwd_dkv_f32", "flash_stream_bwd.cu",
+                   "552", dkv_cases)]
 
 
 class _LocalOp:
@@ -1503,22 +1825,34 @@ INT8_SMALL_M = (1, 16, 17)
 
 
 def _sdpa_dtype_want(dtype, label, grad):
-    """(route, launches) ``sdpa`` must take in phase 2b: the fp32 call of
-    the SD-VAE mid-block's shape with no gradient to the fp32 streaming
-    kernel (one launch), every other fp32 or fp16 call to the counted plain
-    path."""
+    """(route, launches of the forward, launches of forward and backward)
+    ``sdpa`` must take in phase 2b: fp32 to the fp32 kernels of the route
+    its shape picks (the SD-VAE mid-block's the streaming kernels, the
+    object encoder's the full-block ones; with a gradient, the backward's
+    delta pre-pass and kernels too), fp16 to the counted plain path."""
     import torch
-    if dtype == torch.float32 and not grad and "mid-block" in label:
-        return "stream", {"stream_attention_f32": 1}
-    return "plain", {"sdpa_plain": 1}
+    if dtype != torch.float32:
+        return "plain", {"sdpa_plain": 1}, {"sdpa_plain": 1}
+    if "mid-block" in label:
+        fwd = {"stream_attention_f32": 1}
+        bwd = dict(fwd, stream_attention_delta_f32=1,
+                   stream_attention_bwd_dq_f32=1,
+                   stream_attention_bwd_dkv_f32=1)
+        return "stream", fwd, bwd if grad else fwd
+    fwd = {"full_block_attention_f32": 1}
+    bwd = dict(fwd, full_block_attention_delta_f32=1,
+               full_block_attention_bwd_f32=1)
+    return "full_block", fwd, bwd if grad else fwd
 
 
 def check_repairs(failures):
     """Phase 2b. ``sdpa`` in fp32 and fp16 above 256^2 logits against its
-    plain path: the fp32 SD-VAE mid-block without a gradient launches the
-    fp32 streaming kernel once; fp32 at the object encoder's full-block
-    shape, fp32 that needs a gradient, and fp16 launch no kernel and are
-    counted once in ``sdpa_plain``; bf16 in a layout the kernels cannot
+    plain path: fp32 launches the fp32 kernels of its shape's route once
+    (the SD-VAE mid-block the streaming forward, the object encoder the
+    full-block forward), and with a gradient the backward's delta
+    pre-pass and kernels once each, its gradients within ``_f32_gate`` of
+    the plain path's; fp16 launches no kernel and is counted once in
+    ``sdpa_plain``; bf16 in a layout the kernels cannot
     read, copied and launched; an fp32 ``AutoencoderKL`` encoding one clip
     (one fp32 streaming launch, ``sdpa_plain`` 0); ``quant_dense`` and
     ``fused_quant_ffn`` at M 1, 16 and 17 on the card against the same
@@ -1542,22 +1876,38 @@ def check_repairs(failures):
             _zero_counts()
             got = attn_ops.sdpa(q, k, v, key_mask=mask)
             launched = {n: c for n, c in _read_counts().items() if c}
+            gerr = []
+            if grad:
+                gout = torch.randn(shape, generator=gen, device="cuda")
+                grads = torch.autograd.grad(got, (q, k, v), gout)
+                ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+                want_g = torch.autograd.grad(attn_ops._sdpa_plain(
+                    *ref, shape[3] ** -0.5, mask), ref, gout)
+                gerr = [_f32_gate(g, w) for g, w in zip(grads, want_g)]
+            both = {n: c for n, c in _read_counts().items() if c}
             with torch.no_grad():
                 want = attn_ops._sdpa_plain(q, k, v, shape[3] ** -0.5, mask)
             torch.cuda.synchronize()
             err = _abs_err(got.detach(), want)
-            want_route, want_launches = _sdpa_dtype_want(dtype, label, grad)
-            ok = (route == want_route and launched == want_launches
-                  and got.dtype == dtype and bool(torch.isfinite(got).all())
-                  and err <= KERNEL_ATOL)
+            want_route, want_fwd, want_both = _sdpa_dtype_want(dtype, label,
+                                                               grad)
+            ok = (route == want_route and launched == want_fwd
+                  and both == want_both and got.dtype == dtype
+                  and bool(torch.isfinite(got).all())
+                  and err <= (KERNEL_F32_ATOL * max(1.0, want.abs().max()
+                                                    .item())
+                              if dtype == torch.float32 else KERNEL_ATOL)
+                  and all(g_ok for _, g_ok in gerr))
             _log(f"  sdpa {dtype}{' (grad)' if grad else ''} {label} "
-                 f"{shape}: route {route}, launches {launched}, max|err| vs "
-                 f"plain {err:.3g}")
+                 f"{shape}: route {route}, launches {launched} (with the "
+                 f"backward {both}), max|err| vs plain {err:.3g}"
+                 f"{f', gradients {[e for e, _ in gerr]}' if gerr else ''}")
             if not ok:
                 failures.append(f"sdpa {dtype} grad {grad} {label}: route "
                                 f"{route} want {want_route}, launches "
-                                f"{launched} want {want_launches}, err "
-                                f"{err}")
+                                f"{launched} want {want_fwd}, with the "
+                                f"backward {both} want {want_both}, err "
+                                f"{err}, gradients {gerr}")
 
     # bf16 operands whose rows the kernels cannot read (every other column
     # of a wider tensor): sdpa copies them to the kernels' layout and
@@ -1680,9 +2030,10 @@ def synthetic_clip(seed: int = SEED, frames: int = None):
     return rgb, grey
 
 
-def build_serving_models():
-    """Full-width flagship AMD_N and the SD-VAE in bf16, seeded random
-    weights, on the card."""
+def build_serving_models(depth=None):
+    """Full-width flagship AMD_N (its layer counts replaced by ``depth``,
+    where given) and the SD-VAE in bf16, seeded random weights, on the
+    card."""
     import torch
     from hivae_tpu_torch.models import amd as amd_mod
     from hivae_tpu_torch.models import vae as vae_mod
@@ -1691,7 +2042,8 @@ def build_serving_models():
         cfg = amd_mod.AMDConfig.from_dict(json.load(f))
     torch.manual_seed(SEED)
     t0 = time.perf_counter()
-    amd = amd_mod.AMDModelNew(cfg, device="cuda", dtype=torch.bfloat16).eval()
+    amd = amd_mod.AMDModelNew(cfg.replace(**(depth or {})), device="cuda",
+                              dtype=torch.bfloat16).eval()
     vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
                                 dtype=torch.bfloat16).eval()
     n_amd = sum(p.numel() for p in amd.parameters())
@@ -2781,8 +3133,14 @@ LONGTAIL_LAYERS = 2
 # 116.9 s, saved in 61.9, loaded in 83.5; 7,176 nodes at 1 step in 23.2,
 # 14.6 and 11.4), and at 10 steps the two exports alone would take
 # this script past its time limit; one step still runs the whole chain
-# (encode, motion, a velocity call, decode) through the kernels' ops
+# (encode, motion, a velocity call, decode) through the kernels' ops. The
+# int8 export runs AMD_N at full width and phase 8's depth, EXPORT_INT8_DEPTH
+# (2 + 2 encoder and 2 DiT layers): at full depth its 15,411 nodes took
+# 68.1 s to trace, 17.9 to save and 25.1 to load, the script's largest
+# phase, cut when the fp32 phases took it to 764.8 s
 EXPORT_STEPS = 1
+EXPORT_INT8_DEPTH = dict(object_enc_num_layers=2, camera_enc_num_layers=2,
+                         diffusion_num_layers=2)
 
 
 def _counted_run(fn):
@@ -3296,7 +3654,20 @@ COUNTERS = ("full_block_attention", "full_block_attention_qknorm",
             "stream_attention", "stream_attention_f32",
             "stream_attention_delta",
             "stream_attention_bwd_dq", "stream_attention_bwd_dkv",
+            "full_block_attention_f32", "full_block_attention_qknorm_f32",
+            "full_block_attention_bwd_f32", "full_block_attention_delta_f32",
+            "stream_attention_delta_f32", "stream_attention_bwd_dq_f32",
+            "stream_attention_bwd_dkv_f32",
             "fused_ffn_up_quant", "sdpa_plain")
+
+
+def _f32_counts(counts):
+    """A path's launches on the fp32 kernels: each named bf16 count moved
+    to its fp32 sibling's counter (``<name>_f32``)."""
+    moved = {k: v for k, v in counts.items() if v}
+    return dict(_no_launches(), **{
+        (k if k.endswith("_f32") else f"{k}_f32"): v
+        for k, v in moved.items()})
 
 
 def _wrappers():
@@ -3370,7 +3741,8 @@ def build_training_models():
 
 
 def _expected_step_launches(cfg, perceptual: bool, remat=None,
-                            dual: bool = False):
+                            dual: bool = False, f32: bool = False,
+                            qknorm: bool = False):
     """Kernel launches of one training step of the flagship or a variant:
     the object encoder's layers and the DiT's joint blocks (two a layer in
     the spatial DiT, one in the ``default`` TempMotion DiT) run the
@@ -3380,7 +3752,11 @@ def _expected_step_launches(cfg, perceptual: bool, remat=None,
     streaming forward and its backward: the delta pre-pass and the dQ and
     dK/dV kernels. ``dual``: the dual-encoder AMDModel, whose two encoders'
     layers and each DiT layer's joint block (and the dual DiT's temporal
-    motion block) run the full-block kernels."""
+    motion block) run the full-block kernels. ``f32``: a ``--mp no`` step
+    (fp32 compute, an fp32 SD-VAE), whose launches are the fp32 kernels'.
+    ``qknorm``: under ``QKNORM_FUSE``, the forward's calls launch the
+    fused qk-norm kernel, and each backward recomputes the unfused forward
+    before its delta and backward."""
     remat = cfg.remat if remat is None else remat
     if dual:
         enc = cfg.object_enc_num_layers + cfg.camera_enc_num_layers
@@ -3390,28 +3766,36 @@ def _expected_step_launches(cfg, perceptual: bool, remat=None,
         joints = 1 if cfg.diffusion_model_type == "default" else \
             int(cfg.use_object) + int(cfg.use_camera)
     dit = joints * cfg.diffusion_num_layers
-    return dict(_no_launches(),
-                full_block_attention=enc + dit * (2 if remat else 1),
-                full_block_attention_bwd=enc + dit,
-                full_block_attention_delta=enc + dit,
-                stream_attention=(4 if cfg.use_grey else 2) + int(perceptual),
-                stream_attention_delta=int(perceptual),
-                stream_attention_bwd_dq=int(perceptual),
-                stream_attention_bwd_dkv=int(perceptual))
+    forward = enc + dit * (2 if remat else 1)
+    counts = dict(_no_launches(),
+                  full_block_attention=enc + dit if qknorm else forward,
+                  full_block_attention_qknorm=forward if qknorm else 0,
+                  full_block_attention_bwd=enc + dit,
+                  full_block_attention_delta=enc + dit,
+                  stream_attention=(4 if cfg.use_grey else 2) +
+                  int(perceptual),
+                  stream_attention_delta=int(perceptual),
+                  stream_attention_bwd_dq=int(perceptual),
+                  stream_attention_bwd_dkv=int(perceptual))
+    return _f32_counts(counts) if f32 else counts
 
 
 def run_training(fa, models, failures, *, label, clips, steps,
                  perceptual=False, mask_ratio=None, resume_check=False,
                  profile_dir=None, profile_name="profile_train.txt",
-                 unused=()):
-    """Phases 4, 5 and 6. Every parameter must move in the timed steps,
-    except those under the ``unused`` name prefixes, which the training
-    forward does not run. Returns (launches in the timed steps, step
-    ms)."""
+                 unused=(), mp="bf16"):
+    """Phases 4, 5, 5c and 6. Every parameter must move in the timed
+    steps, except those under the ``unused`` name prefixes, which the
+    training forward does not run. ``mp`` "no": fp32 compute (the VAE of
+    ``models`` fp32 too), the fp32 kernels' launches, and the fp32 gates
+    against the plain-attention step. Under ``QKNORM_FUSE`` the launches
+    are the fused qk-norm kernel's. Returns (launches in the timed steps,
+    step ms)."""
     import dataclasses
     import shutil
     import torch
     from hivae_tpu_torch.models.amd import AMDModel
+    from hivae_tpu_torch.ops import attention as attn_ops
     from hivae_tpu_torch.training.trainer import (AMDTrainer, TrainConfig,
                                                   batch_from_clips)
 
@@ -3422,7 +3806,7 @@ def run_training(fa, models, failures, *, label, clips, steps,
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     tc = TrainConfig(output_dir=ckpt_dir, learning_rate=1e-4,
                      weight_decay=1e-2, max_grad_norm=1.0,
-                     mixed_precision="bf16", mu_dtype="bf16", seed=SEED,
+                     mixed_precision=mp, mu_dtype="bf16", seed=SEED,
                      perceptual_weight=0.5 if perceptual else 0.0,
                      camera_mask_ratio=mask_ratio,
                      object_mask_ratio=mask_ratio, checkpoint_total_limit=1)
@@ -3447,8 +3831,9 @@ def run_training(fa, models, failures, *, label, clips, steps,
     step_s = (time.perf_counter() - t0) / steps
     launches = _read_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {k: v * steps for k, v in
-            _expected_step_launches(amd.cfg, perceptual, dual=dual).items()}
+    want = {k: v * steps for k, v in _expected_step_launches(
+        amd.cfg, perceptual, dual=dual, f32=mp == "no",
+        qknorm=attn_ops.QKNORM_FUSE).items()}
     if launches != want:
         failures.append(f"{label}: launches {launches}, want {want}")
     for m in metrics:
@@ -3476,19 +3861,44 @@ def run_training(fa, models, failures, *, label, clips, steps,
     draws = trainer.draw(batch)
     mk, gk = trainer.loss_and_grads(batch, draws)
     with _plain_kernels():
-        mp, gp = trainer.loss_and_grads(batch, draws)
-    rel = abs(mk["loss"].item() - mp["loss"].item()) / abs(mp["loss"].item())
+        mp_, gp = trainer.loss_and_grads(batch, draws)
+    rel = abs(mk["loss"].item() - mp_["loss"].item()) / abs(
+        mp_["loss"].item())
     dot = sum((a * b).sum() for a, b in zip(gk, gp)).item()
     nk = sum(a.square().sum() for a in gk).item() ** 0.5
     npl = sum(b.square().sum() for b in gp).item() ** 0.5
     cos = dot / (nk * npl)
-    del gk, gp
+    grad_rel = sum((a - b).square().sum()
+                   for a, b in zip(gk, gp)).item() ** 0.5 / npl
+    del gk
+    control = ""
+    if mp == "no":
+        # the control: the plain step with its matmuls in TF32, which the
+        # gradient gate must reject
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with _plain_kernels():
+                mc, gc = trainer.loss_and_grads(batch, draws)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        ctl_rel = sum((a - b).square().sum()
+                      for a, b in zip(gc, gp)).item() ** 0.5 / npl
+        ctl_loss = abs(mc["loss"].item() - mp_["loss"].item()) / abs(
+            mp_["loss"].item())
+        del gc
+        control = (f"; control (plain, TF32 matmuls): loss rel "
+                   f"{ctl_loss:.3g}, gradient rel L2 {ctl_rel:.3g}")
+    del gp
     _log(f"  {label}: kernel step vs plain-attention step: loss "
-         f"{mk['loss'].item():.6f} vs {mp['loss'].item():.6f} (rel "
-         f"{rel:.3g}), grad norm {nk:.5f} vs {npl:.5f}, cosine {cos:.6f}")
-    if not (rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS):
+         f"{mk['loss'].item():.6f} vs {mp_['loss'].item():.6f} (rel "
+         f"{rel:.3g}), grad norm {nk:.5f} vs {npl:.5f}, cosine {cos:.6f}, "
+         f"gradient rel L2 {grad_rel:.3g}{control}")
+    loss_rtol, grad_cos, grad_l2 = (
+        (F32_STEP_LOSS_RTOL, F32_STEP_GRAD_COS, F32_STEP_GRAD_REL_L2)
+        if mp == "no" else (STEP_LOSS_RTOL, STEP_GRAD_COS, math.inf))
+    if not (rel <= loss_rtol and cos >= grad_cos and grad_rel <= grad_l2):
         failures.append(f"{label}: kernel vs plain step: loss rel {rel}, "
-                        f"gradient cosine {cos}")
+                        f"gradient cosine {cos}, rel L2 {grad_rel}")
 
     if profile_dir:
         profile_step(trainer, batch, profile_dir, profile_name)
@@ -3520,6 +3930,43 @@ def run_training(fa, models, failures, *, label, clips, steps,
         del live, resumed
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     return launches, step_s * 1e3
+
+
+def run_training_f32(fa, models, failures):
+    """Phase 5c: `--mp no` training of the flagship, as ``cli.train_amd
+    --mp no`` runs it: AMD_N's fp32 weights (``models``, full width and
+    depth, remat ``full``) computing in fp32 on an fp32 SD-VAE (built here
+    from its seed) and fp32 LPIPS. Run F at N = F32_STEP_CLIPS (a warm-up
+    and 2 timed steps), one step with the perceptual loss at N = 1 (the
+    fp32 streaming backward), one under ``QKNORM_FUSE`` at N = 1 (the fp32
+    qk-norm forward): each with exact launches on the fp32 kernels (the
+    bf16 counters and ``sdpa_plain`` 0) and held to its plain-attention
+    step within F32_STEP_LOSS_RTOL, F32_STEP_GRAD_COS and
+    F32_STEP_GRAD_REL_L2 (``run_training``). Returns {path: launches}."""
+    import contextlib
+    from unittest import mock
+    import torch
+    from hivae_tpu_torch.models import vae as vae_mod
+    from hivae_tpu_torch.ops import attention as attn_ops
+
+    amd, _, lpips = models
+    torch.manual_seed(SEED + 6)
+    vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
+                                dtype=torch.float32).eval()
+    vae.requires_grad_(False)
+    paths = {}
+    for path, label, clips, steps, perceptual, qknorm in (
+            ("train_F", "run F (--mp no)", F32_STEP_CLIPS, 2, False, False),
+            ("train_F_perceptual", "run F, perceptual loss", 1, 1, True,
+             False),
+            ("train_F_qknorm", "run F, QKNORM_FUSE", 1, 1, False, True)):
+        with (mock.patch.object(attn_ops, "QKNORM_FUSE", True) if qknorm
+              else contextlib.nullcontext()):
+            paths[path], _ = run_training(
+                fa, (amd, vae, lpips), failures, label=label, clips=clips,
+                steps=steps, perceptual=perceptual, mp="no")
+        torch.cuda.empty_cache()
+    return paths
 
 
 def profile_step(trainer, batch, out_dir, filename="profile_train.txt"):
@@ -4380,16 +4827,16 @@ def _write_t2m_inputs(work, layers):
     return path
 
 
-def _t2m_step_at_depth(train_t2m, base_argv, work, layers, card):
+def _t2m_step_at_depth(train_t2m, base_argv, work, layers, card, mp="bf16"):
     """One timed step of ``T2MTrainer`` (built by the CLI's ``build``) at
-    ``layers`` layers, N 1, after a warm-up step -> (launches, ms, peak
-    GiB, metrics)."""
+    ``layers`` layers, N 1, after a warm-up step, under ``--mp mp`` ->
+    (launches, ms, peak GiB, metrics)."""
     import torch
     from hivae_tpu_torch.data.datasets import DataLoader
 
     args = train_t2m.parse_args(base_argv + [
         "--t2m_config", _write_t2m_inputs(work, layers), "--exp_name",
-        f"depth{layers}", "--train_batch_size", "1"])
+        f"depth{layers}_{mp}", "--train_batch_size", "1", "--mp", mp])
     torch.cuda.reset_peak_memory_stats()
     cfg, head, amd, vae, dataset = train_t2m.build(args, torch.device("cuda"))
     trainer = train_t2m.T2MTrainer(head, amd, vae, args,
@@ -4407,7 +4854,7 @@ def _t2m_step_at_depth(train_t2m, base_argv, work, layers, card):
     metrics = {k: float(v) for k, v in metrics.items()}
     n = sum(p.numel() for p in head.parameters())
     _log(f"  T2M training step at {layers} layers ({n / 1e6:.1f} M trained "
-         f"params, fp32 weights and AdamW moments, bf16 autocast; N 1 of "
+         f"params, fp32 weights and AdamW moments, --mp {mp}; N 1 of "
          f"{WINDOW} frames): {ms:.2f} ms, peak {peak:.2f} GiB, {metrics}; "
          f"launches { {k: v for k, v in launches.items() if v} }; {card}")
     return launches, ms, peak, metrics
@@ -4506,6 +4953,16 @@ def run_train_t2m(card, failures):
                                 f"launches {launches} want {want}, "
                                 f"checkpoints {ckpts}, {final}, resumed "
                                 f"{resumed}")
+        # the `--mp no` step: the head computing in fp32 on the frozen
+        # AMD_N and SD-VAE in fp32, on the fp32 kernels
+        launches, ms, peak, metrics = _t2m_step_at_depth(
+            train_t2m, base, work, T2M_CLI_LAYERS, card, mp="no")
+        paths["train_t2m_mp_no"] = launches
+        want = _f32_counts(per_step(T2M_CLI_LAYERS))
+        if not (launches == want and
+                all(math.isfinite(v) for v in metrics.values())):
+            failures.append(f"T2M --mp no step: launches {launches} want "
+                            f"{want}, metrics {metrics}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4598,6 +5055,8 @@ def run_train_mae(card, failures):
         model = mae_mod.MAE_L(device="cuda").eval()
         model.load_state_dict(ckpt_lib.load_trained_params(
             os.path.join(work, "run", "checkpoints")), strict=True)
+        paths["train_mae_mp_no"] = _mae_step_mp_no(
+            train_mae, argv, work, _f32_counts(per_step), card, failures)
     finally:
         train_mae.MAETrainer.train_step = step_fn
         shutil.rmtree(work, ignore_errors=True)
@@ -4638,6 +5097,44 @@ def run_train_mae(card, failures):
     del model
     torch.cuda.empty_cache()
     return paths
+
+
+def _mae_step_mp_no(train_mae, argv, work, want, card, failures):
+    """One `--mp no` step of ``MAETrainer`` (built by the CLI's ``build``:
+    MAE_L computing in fp32 on an fp32 SD-VAE) on one batch of
+    MAE_TRAIN_CLIPS frames, after a warm-up step on the same batch: exact
+    launches ``want`` on the fp32 kernels, finite metrics, step ms and peak
+    memory logged -> launches."""
+    import torch
+    from hivae_tpu_torch.data.datasets import DataLoader
+
+    args = train_mae.parse_args(argv + ["--mp", "no", "--exp_name",
+                                        "mp_no"])
+    model, vae, dataset = train_mae.build(args, torch.device("cuda"))
+    trainer = train_mae.MAETrainer(model, vae, args,
+                                   os.path.join(work, "mp_no"))
+    batch = next(iter(DataLoader(dataset, MAE_TRAIN_CLIPS, num_workers=4)))
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = {k: float(v) for k, v in metrics.items()}
+    _log(f"  MAE_L --mp no step (N={MAE_TRAIN_CLIPS}, fp32 compute): "
+         f"{ms:.2f} ms, peak {peak:.2f} GiB, {metrics}; launches "
+         f"{ {k: v for k, v in launches.items() if v} }; {card}")
+    if not (launches == want and
+            all(math.isfinite(v) for v in metrics.values())):
+        failures.append(f"MAE --mp no step: launches {launches} want {want}, "
+                        f"metrics {metrics}")
+    del trainer, model, vae
+    torch.cuda.empty_cache()
+    return launches
 
 
 def run_other_models(card, failures):
@@ -4945,7 +5442,72 @@ def rank_ring_hops(res):
                     f"ring {label} vs {name}: out max|err| {err}, gradient "
                     f"rel err {rel}")
         del ref, pl, o1, o2
+    if world == 2:
+        _ring_f32_call(res, mesh, gen)
     res["calls"] = dict(sequence_sharded_sdpa.calls)
+
+
+def _ring_f32_call(res, mesh, gen):
+    """Phase 8a, ring of 2: one fp32 ``sequence_sharded_sdpa`` call with a
+    gradient at RING_SHAPE on the kernel hops (the fp32 streaming forward
+    a hop, one fp32 delta, an fp32 dQ and dK/dV a hop): exact launches,
+    the ranks bit-equal, and on rank 0 within ``_f32_gate`` of one
+    process's fp32 ``sdpa`` (its fp32 streaming kernels) and of the fp32
+    plain version."""
+    import torch
+    import torch.distributed as dist
+    from hivae_tpu_torch.ops import attention as attn_ops
+    from hivae_tpu_torch.ops.kernels import flash_attention as fa
+    from hivae_tpu_torch.parallel.ring_attention import sequence_sharded_sdpa
+
+    world = dist.get_world_size()
+    label = f"P {world}, fp32"
+    q, k, v, do = (torch.randn(RING_SHAPE, generator=gen, device="cuda")
+                   for _ in range(4))
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    _zero_counts()
+    sequence_sharded_sdpa.calls.update(kernel=0, plain=0)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sequence_sharded_sdpa(*xs, mesh)
+    out.backward(do)
+    torch.cuda.synchronize()
+    res["ms"][label] = (time.perf_counter() - t0) * 1e3
+    counts = _read_counts()
+    for name, n in counts.items():
+        res["counts"][name] += n
+    want = dict(_no_launches(), stream_attention_f32=world,
+                stream_attention_delta_f32=1,
+                stream_attention_bwd_dq_f32=world,
+                stream_attention_bwd_dkv_f32=world)
+    if counts != want or sequence_sharded_sdpa.calls != {"kernel": 1,
+                                                         "plain": 0}:
+        res["failures"].append(f"ring {label}: launches {counts}, want "
+                               f"{want}; ring calls "
+                               f"{sequence_sharded_sdpa.calls}")
+    got = [out] + [x.grad for x in xs]
+    digests = [None] * world
+    dist.all_gather_object(digests, _bits_digest(got))
+    if len(set(digests)) != 1:
+        res["failures"].append(f"ring {label}: ranks' outputs or gradients "
+                               f"differ")
+    if dist.get_rank() != 0:
+        return
+    ref = [x.clone().requires_grad_() for x in (q, k, v)]
+    o1 = attn_ops.sdpa(*ref, implementation="auto")
+    o1.backward(do)
+    pl = [x.clone().requires_grad_() for x in (q, k, v)]
+    o2 = fa.stream_attention_plain(*pl, scale=RING_SHAPE[3] ** -0.5)[0]
+    o2.backward(do)
+    for name, want_t in (("one-process sdpa", [o1] + [x.grad for x in ref]),
+                         ("plain version", [o2] + [x.grad for x in pl])):
+        gates = [_f32_gate(g, w) for g, w in zip(got, want_t)]
+        res.setdefault("errors", {})[f"{label} vs {name}"] = [
+            e for e, _ in gates]
+        if not all(ok for _, ok in gates):
+            res["failures"].append(f"ring {label} vs {name}: max|err| out, "
+                                   f"dq, dk, dv {[e for e, _ in gates]}")
 
 
 def _expected_ring_step_calls(cfg, remat=None):
@@ -5634,10 +6196,12 @@ def main() -> int:
         _log(f"  built the kernels of {args.parent}")
 
     _log("phase 2: kernels vs plain versions")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     records = (check_kernels(fa, failures, parent=parent)
                + [check_qknorm(fa, failures, parent),
                   check_quant_ffn(qf, failures, parent_qf)]
-               + check_bwd_kernels(fa, failures, parent=parent))
+               + check_bwd_kernels(fa, failures, parent=parent)
+               + check_f32_kernels(fa, failures, sms))
     _log("phase 2b: sdpa in fp32 and fp16, an fp32 VAE encode, int8 at "
          "M <= 17")
     check_repairs(failures)
@@ -5670,9 +6234,10 @@ def main() -> int:
                                           args, failures)
     del serving
     torch.cuda.empty_cache()
-    _log("phase 3v: the int8 export (--quant int8) on AMD_N built anew")
-    paths.update(run_export_sampler(build_serving_models(), "int8", card,
-                                    failures))
+    _log("phase 3v: the int8 export (--quant int8) on AMD_N built anew at "
+         "phase 8's depth")
+    paths.update(run_export_sampler(build_serving_models(EXPORT_INT8_DEPTH),
+                                    "int8", card, failures))
     _log("phase 3m: the int8 A2V clip")
     paths.update(run_a2v_int8(a2v_latency, card, failures))
     _log("phase 3n: the int8 A2V clip with the LearnableToken head")
@@ -5713,6 +6278,10 @@ def main() -> int:
     _log(f"phase 5b: validate, N={RUN_A_CLIPS}, sample_step "
          f"{VALIDATE_STEPS}")
     paths["validate"] = run_validate(models, failures, args.profile)
+    _log(f"phase 5c: --mp no training (fp32 compute, an fp32 SD-VAE), "
+         f"N={F32_STEP_CLIPS}, then the perceptual loss and QKNORM_FUSE "
+         f"at N=1")
+    paths.update(run_training_f32(fa, models, failures))
     _, vae, lpips = models
     del models
     torch.cuda.empty_cache()

@@ -18,10 +18,9 @@ The spec (json ``{model_type, model}``) must name
 ``A2MModel_CrossAtten_Audio_PosePre``; ``--a2m_ckpt`` is a reference-named
 ``.safetensors`` or a checkpoint directory of the port's trainer (random
 weights from seed 0 when omitted). Everything computes in fp32, as the
-JAX CLI does: the VAE's mid-block attentions (1024 tokens of 512) find no
-kernel in fp32 and run the counted plain path (``sdpa_plain``, one call
-each for the encode and the decode); the predictor's own attentions stay
-under 256^2 logits.
+JAX CLI does: the VAE's mid-block attentions (1024 tokens of 512) run
+the fp32 streaming kernel (one launch each for the encode and the decode);
+the predictor's own attentions stay under 256^2 logits.
 """
 
 from __future__ import annotations

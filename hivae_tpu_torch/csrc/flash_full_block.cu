@@ -66,7 +66,7 @@
 // the operation order of _ln_block), rounded to bf16, before Q.K^T. A
 // resident K tile is normalised once for both passes; a streamed one each
 // time it arrives.
-#include "attn_common.cuh"
+#include "attn_f32.cuh"
 
 namespace hv {
 
@@ -445,6 +445,288 @@ int launch_fwd(const void* q, const void* k, const void* v,
                                              st, stream);
 }
 
+// ---------------------------------------------------------------------------
+// fp32 variant (full_block_fwd_f32_kernel, hv_full_block_fwd_f32): the same
+// function with fp32 Q, K, V and O and P kept in fp32 for P.V, as
+// _fwd_kernel computes it for fp32 operands (its p.astype(v.dtype) is then
+// the identity), and its QKN variant (_fwd_kernel_qknorm at fp32).
+// It serves `--mp no` training and the fp32 frozen models the head
+// trainers run: the joint blocks and object encoder of the flagship (D 64,
+// S 260-512), the T2M joint block (D 128), the MAE (D 32 and 64).
+//
+// Bound on the H100 SXM at (8, 16, 260, 64): 4*B*H*S*S*D = 2.2 GFLOP of
+// matmul, three TF32 products each (the hi/lo split of attn_f32.cuh): 13.3
+// us at TF32's 494.7 TFLOP/s, against 34.6 MB of q, k, v and o, 10.3 us at
+// 3.35 TB/s: bound by operations. At fp32 the TPU kernel's rounding point
+// (bf16 of the normalised P) is the identity, so one online-softmax pass
+// over the keys computes the same O to within fp32 rounding: Q.K^T once.
+//
+// Design. A CTA of 8 warps takes FF_ROWS = 64 query rows of one (batch,
+// head) and keeps them in shared memory (rows D + 4 floats apart). Jobs
+// travel through a two-slot cp.async ring, one tile of FF_TILE = 32 keys
+// each: K_j, then V_j. A K job computes S = Q.K^T (f32_scores; the 16
+// blocks of 16 x 8 two a warp) into a shared 64 x 32 tile; then thread tid
+// takes row tid / 4, columns 8 (tid % 4).. of it: base-2 logits with
+// attn_logit2 fold into the row's online max m and denominator l (the
+// row's four threads meet by quad shuffles), the tile's P~ = 2^(x - m) is
+// written over S, and the row's rescale 2^(m_old - m) goes to a shared
+// column. A V job rescales the output rows by that column and adds P~.V
+// (f32_grad: each warp owns D/8 columns of the 64 rows, or D/4 of 32 rows
+// at D 32 and 96; each tile's product in a fresh accumulator). At the end
+// O = acc * (1/l). m and l are saved as the bf16 forward saves them
+// (base-2 m, l apart), so the fp32 backward forms P = 2^(x - m) / l.
+// Keys past Sk are -inf; rows past Sq are zero-filled and not stored; a
+// fully masked row (bias -1e30 on every key) averages its keys uniformly.
+// QKN: the Q tile once and each K tile as it lands are normalised in place
+// in shared memory by ln_rows_f32 (the operation order of _ln_block, fp32
+// throughout) before S.
+constexpr int FF_ROWS = 64;   // query rows a CTA
+constexpr int FF_TILE = 32;   // keys a K or V tile
+
+// Shared bytes: the Q tile, two slots of a K or V tile and its bias row,
+// the 64 x 32 S / P tile (rows FF_TILE + 8 floats apart), and two columns
+// of 64 rows (the tile's rescale, the final 1/l).
+template <int D>
+__host__ __device__ constexpr int ff_smem_bytes() {
+  return 4 * (FF_ROWS * (D + 4) + 2 * (FF_TILE * (D + 4) + FF_TILE) +
+              FF_ROWS * (FF_TILE + 8) + 2 * FF_ROWS);
+}
+
+// Per-head LayerNorm over D of the ROWS rows of a shared fp32 tile (rows
+// D + 4 floats apart), in place, as _ln_block (flax fast variance): fp32
+// sums of x and x^2, mean and mean of squares, var = max(mean2 - mean^2,
+// 0), mul = rsqrt(var + eps) * gamma, y = (x - mean) * mul + beta.
+// F32_THREADS / ROWS adjacent lanes share a row, each summing its D /
+// (F32_THREADS / ROWS) contiguous elements in order; the _rn intrinsics keep
+// the plain version's separate roundings. Rows past the sequence
+// (zero-filled) become beta; their logits are masked and their outputs not
+// stored.
+template <int D, int ROWS>
+__device__ __forceinline__ void ln_rows_f32(float* T, const float* gamma,
+                                            const float* beta, float eps,
+                                            int tid) {
+  constexpr int TPR = F32_THREADS / ROWS, CH = D / TPR;
+  static_assert(TPR * ROWS == F32_THREADS && CH * TPR == D && TPR <= 32,
+                "whole rows a lane group");
+  const int c0 = (tid % TPR) * CH;
+  float* x = T + (tid / TPR) * (D + 4) + c0;
+  float s = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+    s = __fadd_rn(s, x[i]);
+    s2 = __fadd_rn(s2, __fmul_rn(x[i], x[i]));
+  }
+#pragma unroll
+  for (int lane = 1; lane < TPR; lane <<= 1) {
+    s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, lane));
+    s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, lane));
+  }
+  const float mean = __fdiv_rn(s, (float)D), mean2 = __fdiv_rn(s2, (float)D);
+  const float var = fmaxf(__fsub_rn(mean2, __fmul_rn(mean, mean)), 0.f);
+  const float rs = rsqrtf(__fadd_rn(var, eps));
+#pragma unroll
+  for (int i = 0; i < CH; ++i)
+    x[i] = __fadd_rn(__fmul_rn(__fsub_rn(x[i], mean),
+                               __fmul_rn(rs, __ldg(gamma + c0 + i))),
+                     __ldg(beta + c0 + i));
+}
+
+template <int D, bool QKN>
+__global__ void __launch_bounds__(F32_THREADS, 2)
+full_block_fwd_f32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ bias,
+                          const float* __restrict__ norms, float eps,
+                          float* __restrict__ o, float* __restrict__ m_out,
+                          float* __restrict__ l_out, int H, int Sq, int Sk,
+                          float scale, long qsb, long qsh, long qss,
+                          long ksb, long ksh, long kss, long vsb, long vsh,
+                          long vss, long osb, long osh, long oss) {
+  constexpr int R = FF_ROWS, BT = FF_TILE, LD = D + 4, BTP = BT + 8;
+  constexpr int MT = R / 16, NT = BT / 8, BPW = MT * NT / F32_WARPS;
+  constexpr int CG = f32_col_groups<D>(), MG = F32_WARPS / CG;
+  constexpr int MTW = MT / MG, NCW = D / CG / 8, W = f32_chunk(NCW, MTW);
+  constexpr int SLOT = BT * LD + BT;
+  extern __shared__ float4 ff_smem[];
+  float* Qs = reinterpret_cast<float*>(ff_smem);
+  float* ring = Qs + R * LD;
+  float* XS = ring + 2 * SLOT;  // S, then P~, of the tile
+  float* RS = XS + R * BTP;     // the rows' rescale; RS + R: their 1/l
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * R;
+  const float* kp = k + b * ksb + h * ksh;
+  const float* vp = v + b * vsb + h * vsh;
+  const float* brow = bias ? bias + (long)b * Sk : nullptr;
+  const float sl2 = scale_log2(scale);
+  const int nkt = (Sk + BT - 1) / BT, njobs = 2 * nkt;
+
+  // job 2j: K tile j with its bias row; job 2j + 1: V tile j; into slot
+  // i % 2
+  auto issue = [&](int i) {
+    float* sl = ring + (i & 1) * SLOT;
+    const int j = i >> 1;
+    const bool isv = i & 1;
+    f32_load_tile<D, BT>(sl, isv ? vp : kp, isv ? vss : kss, j * BT, Sk, tid);
+    if (brow && !isv)
+      load_row_f32<BT, F32_THREADS>(sl + BT * LD, brow, j * BT, Sk, tid);
+    ring_commit();
+  };
+  // the Q tile rides in job 0's group
+  f32_load_tile<D, R>(Qs, q + b * qsb + h * qsh, qss, q0, Sq, tid);
+  issue(0);
+
+  // this thread's softmax row er and columns ec.. of each tile
+  const int er = tid >> 2, ec = (tid & 3) * 8;
+  float m = -INFINITY, l = 0.f;
+  float acc[MTW][NCW][4];
+#pragma unroll
+  for (int mm = 0; mm < MTW; ++mm)
+#pragma unroll
+    for (int n = 0; n < NCW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mm][n][e] = 0.f;
+  const int mt = warp * BPW / NT, nt0 = warp * BPW % NT;
+  const int mg = warp / CG, cg = warp % CG;
+  // scale this warp's output rows by the shared column c
+  auto scale_rows = [&](const float* c) {
+#pragma unroll
+    for (int mm = 0; mm < MTW; ++mm)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float a = c[16 * (mg * MTW + mm) + 8 * hf + g];
+#pragma unroll
+        for (int n = 0; n < NCW; ++n) {
+          acc[mm][n][2 * hf] *= a;
+          acc[mm][n][2 * hf + 1] *= a;
+        }
+      }
+  };
+
+  for (int i = 0; i < njobs; ++i) {
+    ring_wait_upto(0);
+    __syncthreads();  // job i has landed; job i - 1's slot is free
+    if (i + 1 < njobs) issue(i + 1);
+    float* sl = ring + (i & 1) * SLOT;
+    if (i & 1) {
+      // O = O * 2^(m_old - m) + P~.V over this warp's columns
+      scale_rows(RS);
+      f32_grad<MTW, NCW, W, BT, false>(acc, acc, XS + 16 * mg * MTW * BTP,
+                                       nullptr, BTP, sl + cg * (D / CG),
+                                       nullptr, LD, g, t);
+      continue;
+    }
+    const int j = i >> 1;
+    if constexpr (QKN) {
+      if (i == 0) ln_rows_f32<D, R>(Qs, norms, norms + D, eps, tid);
+      ln_rows_f32<D, BT>(sl, norms + 2 * D, norms + 3 * D, eps, tid);
+      __syncthreads();
+    }
+    {
+      float xb[BPW][4], xs[BPW][4];
+      f32_scores<BPW, D / 8>(xb, xs, Qs + 16 * mt * LD, sl + 8 * nt0 * LD,
+                             LD, g, t);
+      f32_store_blocks<BPW>(XS + 16 * mt * BTP + 8 * nt0, BTP, xb, xs, g, t);
+    }
+    __syncthreads();
+    float* xr = XS + er * BTP + ec;
+    const float4 x0 = *reinterpret_cast<const float4*>(xr);
+    const float4 x1 = *reinterpret_cast<const float4*>(xr + 4);
+    float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    const float* bs = sl + BT * LD;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int key = j * BT + ec + e;
+      x[e] = key < Sk ? attn_logit2(x[e], sl2,
+                                    bias_log2(brow ? bs[ec + e] : 0.f))
+                      : -INFINITY;
+    }
+    // the row's online max and denominator, P~ over the tile's S
+    float mx = x[0];
+#pragma unroll
+    for (int e = 1; e < 8; ++e) mx = fmaxf(mx, x[e]);
+    const float mn = fmaxf(m, quad_max(mx)), alpha = ex2(m - mn);
+    float sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      x[e] = ex2(x[e] - mn);
+      sum += x[e];
+    }
+    l = l * alpha + quad_sum(sum);
+    m = mn;
+    *reinterpret_cast<float4*>(xr) = make_float4(x[0], x[1], x[2], x[3]);
+    *reinterpret_cast<float4*>(xr + 4) = make_float4(x[4], x[5], x[6], x[7]);
+    if ((tid & 3) == 0) {
+      RS[er] = alpha;
+      if (j == nkt - 1) RS[R + er] = __frcp_rn(l);
+    }
+  }
+  scale_rows(RS + R);  // 1/l, written at the last K job
+
+  float* op = o + b * osb + h * osh;
+#pragma unroll
+  for (int mm = 0; mm < MTW; ++mm)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = q0 + 16 * (mg * MTW + mm) + 8 * hf + g;
+      if (row >= Sq) continue;
+#pragma unroll
+      for (int n = 0; n < NCW; ++n)
+        *reinterpret_cast<float2*>(op + (long)row * oss + cg * (D / CG) +
+                                   8 * n + 2 * t) =
+            make_float2(acc[mm][n][2 * hf], acc[mm][n][2 * hf + 1]);
+    }
+  // softmax statistics for the backward, as the bf16 forward saves them
+  const int row = q0 + er;
+  if (m_out && (tid & 3) == 0 && row < Sq) {
+    const long rb = ((long)b * H + h) * Sq;
+    m_out[rb + row] = m;
+    l_out[rb + row] = l;
+  }
+}
+
+// Takes only the plan flash_attention.py::_full_block_f32_plan returns.
+template <int D, bool QKN>
+int launch_full_block_f32(const float* q, const float* k, const float* v,
+                          const float* bias, const float* norms, float eps,
+                          float* o, float* m_out, float* l_out, int B, int H,
+                          int Sq, int Sk, int rows, int tile, int smem,
+                          float scale, const long* st, cudaStream_t stream) {
+  if (rows != FF_ROWS || tile != FF_TILE || smem != ff_smem_bytes<D>() ||
+      smem > SMEM_MAX)
+    return HV_BAD_PLAN;
+  cudaError_t err = cudaFuncSetAttribute(
+      full_block_fwd_f32_kernel<D, QKN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + FF_ROWS - 1) / FF_ROWS, H, B);
+  full_block_fwd_f32_kernel<D, QKN><<<grid, F32_THREADS, smem, stream>>>(
+      q, k, v, bias, norms, eps, o, m_out, l_out, H, Sq, Sk, scale, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+      st[11]);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_fwd_f32(const void* q, const void* k, const void* v,
+                   const float* bias, const float* norms, float eps, void* o,
+                   float* m_out, float* l_out, int B, int H, int Sq, int Sk,
+                   int rows, int tile, int smem, float scale, const long* st,
+                   cudaStream_t stream) {
+  const float *fq = static_cast<const float*>(q),
+              *fk = static_cast<const float*>(k),
+              *fv = static_cast<const float*>(v);
+  float* fo = static_cast<float*>(o);
+  return norms ? launch_full_block_f32<D, true>(
+                     fq, fk, fv, bias, norms, eps, fo, m_out, l_out, B, H,
+                     Sq, Sk, rows, tile, smem, scale, st, stream)
+               : launch_full_block_f32<D, false>(
+                     fq, fk, fv, bias, norms, eps, fo, m_out, l_out, B, H,
+                     Sq, Sk, rows, tile, smem, scale, st, stream);
+}
+
 }  // namespace hv
 
 // Plain C entry point. `strides` holds 12 element strides: (batch, head,
@@ -470,6 +752,27 @@ extern "C" int hv_full_block_fwd(const void* q, const void* k, const void* v,
     case 64: return hv::launch_fwd<64>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, stages, resident, smem, scale, strides, s);
     case 96: return hv::launch_fwd<96>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, stages, resident, smem, scale, strides, s);
     case 128: return hv::launch_fwd<128>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, stages, resident, smem, scale, strides, s);
+    default: return -1;
+  }
+}
+
+// fp32 entry point: as hv_full_block_fwd with fp32 q, k, v and o; `rows`,
+// `tile` and `smem` are the forward plan of
+// flash_attention.py::_full_block_f32_plan.
+extern "C" int hv_full_block_fwd_f32(const void* q, const void* k,
+                                     const void* v, const float* bias,
+                                     const float* norms, void* o,
+                                     float* m_out, float* l_out, int B, int H,
+                                     int Sq, int Sk, int D, int rows,
+                                     int tile, int smem, float scale,
+                                     float eps, const long* strides,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return hv::launch_fwd_f32<32>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, rows, tile, smem, scale, strides, s);
+    case 64: return hv::launch_fwd_f32<64>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, rows, tile, smem, scale, strides, s);
+    case 96: return hv::launch_fwd_f32<96>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, rows, tile, smem, scale, strides, s);
+    case 128: return hv::launch_fwd_f32<128>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, rows, tile, smem, scale, strides, s);
     default: return -1;
   }
 }

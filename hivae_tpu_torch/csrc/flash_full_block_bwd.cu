@@ -56,7 +56,7 @@
 // At the training shapes, D = 64: (64, 16, 512, 64) is 0.174 ms of tensor
 // time against 0.140 ms of memory (operations bound); (64, 16, 266, 64) and
 // (128, 8, 260, 64) are bound by bytes (~0.07 ms).
-#include "attn_common.cuh"
+#include "attn_f32.cuh"
 
 namespace hv {
 
@@ -381,6 +381,101 @@ int launch_delta(const bf16* dout, const bf16* out, const float* l,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32 variant (full_block_bwd_f32_kernel, hv_full_block_bwd_f32, and its
+// pre-pass full_block_delta_f32_kernel, hv_full_block_delta_f32): _bwd_kernel
+// at fp32, where its roundings of P (for dV) and dS (for dQ and dK) to the
+// operands' dtype are no-ops: P and dS stay fp32, every product is three
+// TF32 products of a hi/lo split (attn_f32.cuh), and P is formed from the
+// fp32 forward's m and 1/l with attn_p, as the bf16 kernel forms it.
+//
+// Bound on the H100 SXM at (32, 16, 512, 64), the camera joint block of an
+// N = 2 step: 10*B*H*Sq*Sk*D = 86 GFLOP, three TF32 products each, 0.521 ms
+// at 494.7 TFLOP/s, against 7 fp32 tensors and 3 rows, 0.080 ms at 3.35
+// TB/s: bound by operations. The kernel recomputes S and dP on both sides
+// (12, not 10, B*H*Sq*Sk*D), as the bf16 kernel does.
+//
+// Design: one launch, no atomics, as the bf16 kernel: ceil(Sq / R) dQ CTAs
+// then ceil(Sk / R) dK/dV CTAs along x, each an f32_grad_cta of 8 warps
+// (attn_f32.cuh has the steps). Where the bf16 kernel keeps 128 rows of Q
+// and dO (or K and V) as register fragments, at fp32 with hi/lo splits that
+// would be 4x the registers; here a CTA owns 64 rows (fg_rows at D <= 128),
+// keeps them in shared memory and splits each fragment as it is read, and
+// walks tiles of 32 rows (fg_tile). The dQ CTA's P and dS come from the
+// forward's m and 1/l of its rows and the bias of each walked key; the
+// dK/dV CTA's from the m, 1/l and delta rows that travel with each walked
+// query tile and the bias of its own keys. A key past Sk or a query row
+// past Sq gets P = dS = 0. Each CTA launch takes max(fg_smem) bytes (its
+// two kinds' plans, flash_attention.py::_full_block_f32_plan).
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+full_block_bwd_f32_kernel(const F32GradArgs a) {
+  extern __shared__ float4 fbf_dyn[];
+  float* smem = reinterpret_cast<float*>(fbf_dyn);
+  if ((int)blockIdx.x < a.nqb)
+    f32_grad_cta<D, fg_rows<D, 1>(), fg_tile<D, 1>(), false, false>(
+        a, smem, blockIdx.x);
+  else
+    f32_grad_cta<D, fg_rows<D, 2>(), fg_tile<D, 2>(), true, false>(
+        a, smem, blockIdx.x - a.nqb);
+}
+
+// delta = rowsum(dO * O) in fp32 (row_delta_f32: 8 lanes a row, 16-byte
+// loads of both fp32 rows) and 1/l for every row.
+template <int D>
+__global__ void __launch_bounds__(DELTA_THREADS)
+full_block_delta_f32_kernel(const float* __restrict__ dout,
+                            const float* __restrict__ out,
+                            const float* __restrict__ l,
+                            float* __restrict__ delta,
+                            float* __restrict__ inv_l, int H, int Sq,
+                            long rows, Rows sdo, Rows so) {
+  const long row = ((long)blockIdx.x * DELTA_THREADS + threadIdx.x) >> 3;
+  const float acc = row_delta_f32<D>(dout, out, row, rows, H, Sq, sdo, so);
+  if (row < rows && (threadIdx.x & 7) == 0) {
+    delta[row] = acc;
+    inv_l[row] = __frcp_rn(l[row]);
+  }
+}
+
+template <int D>
+constexpr int fbf_smem_bytes() {
+  return fg_smem<D, 1>() > fg_smem<D, 2>() ? fg_smem<D, 1>() : fg_smem<D, 2>();
+}
+
+// Takes only the plan flash_attention.py::_full_block_f32_plan returns.
+template <int D>
+int launch_full_block_bwd_f32(const F32GradArgs& a, int B, int dq_rows,
+                              int dkv_rows, int tile, int smem,
+                              cudaStream_t stream) {
+  if (dq_rows != fg_rows<D, 1>() || dkv_rows != fg_rows<D, 2>() ||
+      tile != fg_tile<D, 1>() || tile != fg_tile<D, 2>() ||
+      smem != fbf_smem_bytes<D>() || smem > SMEM_MAX ||
+      a.nqb != (a.Sq + dq_rows - 1) / dq_rows)
+    return HV_BAD_PLAN;
+  cudaError_t err = cudaFuncSetAttribute(
+      full_block_bwd_f32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int nkb = (a.Sk + dkv_rows - 1) / dkv_rows;
+  const dim3 grid(a.nqb + nkb, a.H, B);
+  full_block_bwd_f32_kernel<D><<<grid, F32_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_delta_f32(const float* dout, const float* out, const float* l,
+                     float* delta, float* inv_l, int B, int H, int Sq,
+                     const long* st, cudaStream_t stream) {
+  const long rows = (long)B * H * Sq;
+  const long blocks = (rows * 8 + DELTA_THREADS - 1) / DELTA_THREADS;
+  full_block_delta_f32_kernel<D>
+      <<<(unsigned)blocks, DELTA_THREADS, 0, stream>>>(
+          dout, out, l, delta, inv_l, H, Sq, rows, Rows{st[0], st[1], st[2]},
+          Rows{st[3], st[4], st[5]});
+  return cudaGetLastError();
+}
+
 }  // namespace hv
 
 // Plain C entry points. hv_full_block_delta: `strides` holds 6 element
@@ -444,6 +539,64 @@ extern "C" int hv_full_block_bwd(const void* q, const void* k, const void* v,
     case 64: return hv::launch_full_block_bwd<64>(a, B, smem, s);
     case 96: return hv::launch_full_block_bwd<96>(a, B, smem, s);
     case 128: return hv::launch_full_block_bwd<128>(a, B, smem, s);
+    default: return -1;
+  }
+}
+
+// fp32 entry points, as hv_full_block_delta and hv_full_block_bwd with
+// fp32 tensors; hv_full_block_bwd_f32 takes the backward plan of
+// flash_attention.py::_full_block_f32_plan (`dq_rows`, `dkv_rows`, `tile`,
+// `smem`).
+extern "C" int hv_full_block_delta_f32(const void* dout, const void* out,
+                                       const float* l, float* delta,
+                                       float* inv_l, int B, int H, int Sq,
+                                       int D, const long* st, void* stream) {
+  const float* d = static_cast<const float*>(dout);
+  const float* o = static_cast<const float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return hv::launch_delta_f32<32>(d, o, l, delta, inv_l, B, H, Sq, st, s);
+    case 64: return hv::launch_delta_f32<64>(d, o, l, delta, inv_l, B, H, Sq, st, s);
+    case 96: return hv::launch_delta_f32<96>(d, o, l, delta, inv_l, B, H, Sq, st, s);
+    case 128: return hv::launch_delta_f32<128>(d, o, l, delta, inv_l, B, H, Sq, st, s);
+    default: return -1;
+  }
+}
+
+extern "C" int hv_full_block_bwd_f32(const void* q, const void* k,
+                                     const void* v, const float* bias,
+                                     const void* dout, const float* m,
+                                     const float* inv_l, const float* delta,
+                                     void* dq, void* dk, void* dv, int B,
+                                     int H, int Sq, int Sk, int D,
+                                     int dq_rows, int dkv_rows, int tile,
+                                     int smem, float scale, const long* st,
+                                     void* stream) {
+  hv::F32GradArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout);
+  a.bias = bias;
+  a.s0 = m;
+  a.s1 = inv_l;
+  a.s2 = delta;
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  hv::Rows* rows[7] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq, &a.sdk, &a.sdv};
+  for (int i = 0; i < 7; ++i) *rows[i] = hv::Rows{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.nqb = dq_rows > 0 ? (Sq + dq_rows - 1) / dq_rows : 0;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return hv::launch_full_block_bwd_f32<32>(a, B, dq_rows, dkv_rows, tile, smem, s);
+    case 64: return hv::launch_full_block_bwd_f32<64>(a, B, dq_rows, dkv_rows, tile, smem, s);
+    case 96: return hv::launch_full_block_bwd_f32<96>(a, B, dq_rows, dkv_rows, tile, smem, s);
+    case 128: return hv::launch_full_block_bwd_f32<128>(a, B, dq_rows, dkv_rows, tile, smem, s);
     default: return -1;
   }
 }

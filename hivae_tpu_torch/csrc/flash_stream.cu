@@ -471,40 +471,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// x as hi + lo: hi = x rounded to TF32, to nearest with ties away from
-// zero (cvt.rna.tf32.f32's rounding, in integer operations: the conversion
-// pipe takes 8 cycles a warp instruction), its low 13 bits cleared so that
-// x - hi is exact; lo = x - hi, which the mma reads as TF32 by its top 19
-// bits (truncated: 2^-21 of x at most, below the fp32 gate by far).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// c += a.b for a 16 x 8 x 8 TF32 product (PTX fragment layouts, g = lane
-// / 4, t = lane % 4: a = (g, k t), (g + 8, k t), (g, k t + 4),
-// (g + 8, k t + 4); b = (k t, n g), (k t + 4, n g); c as mma16816's). Not
-// volatile: independent products may be scheduled around each other.
-__device__ __forceinline__ void mma1688_tf32(float c[4], const uint32_t a[4],
-                                             const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a.b, the same product into a fresh accumulator.
-__device__ __forceinline__ void mma1688_tf32_z(float d[4],
-                                               const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
-}
-
 __device__ __forceinline__ void sync_threads(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }

@@ -97,7 +97,7 @@
 // has P = exp(-1e30 - lse) = 0 wherever its row attends to any real key, so
 // a fully masked key block gets no gradient. A row with no real key keeps
 // the TPU kernels' behaviour (its lse has lost the log-denominator).
-#include "attn_common.cuh"
+#include "attn_f32.cuh"
 
 namespace hv {
 
@@ -927,6 +927,138 @@ int launch_delta(const void* dout, const void* out, float* delta, int B,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// fp32 variant (stream_bwd_dq_f32_kernel, stream_bwd_dkv_f32_kernel,
+// stream_delta_f32_kernel; hv_stream_bwd_dq_f32, hv_stream_bwd_dkv_f32,
+// hv_stream_delta_f32): _stream_dq_kernel and _stream_dkv_kernel at fp32,
+// where their roundings of P and dS are no-ops: P = exp(s - lse) from the
+// fp32 forward's natural-log LSE (stream_fwd_f32_kernel), kept in fp32 with
+// dS, every product three TF32 products of a hi/lo split (attn_f32.cuh). It
+// serves the perceptual loss's fp32 SD-VAE decode (D 512), the CNN motion
+// AE's MapConv (D 640) and the ring's fp32 hop (D 64) with a gradient.
+//
+// Bounds on the H100 SXM at (16, 1, 1024, 512): dQ 6*B*H*S^2*D = 51.5
+// GFLOP, three TF32 products each, 0.312 ms at 494.7 TFLOP/s (bytes: 4
+// fp32 tensors and 2 rows, 0.040 ms); dK/dV 8*B*H*S^2*D = 68.7 GFLOP,
+// 0.417 ms (6 tensors, 0.060 ms). Both bound by operations.
+//
+// Why the bf16 plan does not carry over. At D = 512 a dQ CTA's resident Q
+// and dO of 64 rows take 64 x 512 x 4 x 2 = 256 KB at fp32, above the 227
+// KB of a block before any walked tile, and the 2-CTA cluster along D
+// still leaves no room for the walked slots; the 64 x 512 fp32 dK and dV
+// accumulators would be 256 KB of registers. The split here: fewer
+// resident rows and narrower walked tiles, with the head dim split over
+// the warps instead of over a cluster. fg_rows gives each CTA at most 64
+// accumulator registers a thread: dQ 64 rows at D <= 256, 32 at 512, 16 at
+// 640; dK/dV 64 at D <= 128, 32 at 256, 16 at 512 and 640. fg_tile then
+// takes the widest walked tile that fits: 32 rows at D <= 128 (and dK/dV
+// at 256), 16 (dQ at 256, dK/dV at 512), 8 (dQ at 512, both at 640): 177-
+// 215 KB, one CTA a SM. Where a tile has fewer than 8 score blocks of
+// 16 x 8 (16 or 32 rows against 8 or 16), the warps split the head dim of
+// S and dP (2, 4 or 8 slices, summed in a fixed order) and each warp owns
+// D / 8 columns of the gradient. No cluster, no atomics: every gradient
+// element is written by one CTA in a fixed order, so two launches give the
+// same bits. Keys past Sk and query rows past Sq get P = dS = 0; a key
+// masked by the -1e30 bias has P = exp(-1e30 - lse) = 0 wherever its row
+// attends to a real key, so a fully masked key block gets no gradient, and
+// a row with no real key keeps the TPU kernels' behaviour, as the bf16
+// kernels do.
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+stream_bwd_dq_f32_kernel(const F32GradArgs a) {
+  extern __shared__ float4 sbf_smem[];
+  f32_grad_cta<D, fg_rows<D, 1>(), fg_tile<D, 1>(), false, true>(
+      a, reinterpret_cast<float*>(sbf_smem), blockIdx.x);
+}
+
+template <int D>
+__global__ void __launch_bounds__(F32_THREADS, 1)
+stream_bwd_dkv_f32_kernel(const F32GradArgs a) {
+  extern __shared__ float4 sbf_smem[];
+  f32_grad_cta<D, fg_rows<D, 2>(), fg_tile<D, 2>(), true, true>(
+      a, reinterpret_cast<float*>(sbf_smem), blockIdx.x);
+}
+
+template <int D>
+__global__ void __launch_bounds__(SD_THREADS)
+stream_delta_f32_kernel(const float* __restrict__ dout,
+                        const float* __restrict__ out,
+                        float* __restrict__ delta, int H, int Sq, long rows,
+                        Rows sdo, Rows so) {
+  const long row = ((long)blockIdx.x * SD_THREADS + threadIdx.x) >> 3;
+  const float acc = row_delta_f32<D>(dout, out, row, rows, H, Sq, sdo, so);
+  if (row < rows && (threadIdx.x & 7) == 0) delta[row] = acc;
+}
+
+// Takes only the plans flash_attention.py::_stream_bwd_f32_plan returns.
+template <int D, bool DKV>
+int launch_stream_bwd_f32(const F32GradArgs& a, int B, int rows, int tile,
+                          int smem, cudaStream_t stream) {
+  constexpr int NOUT = DKV ? 2 : 1;
+  if (rows != fg_rows<D, NOUT>() || tile != fg_tile<D, NOUT>() ||
+      smem != fg_smem<D, NOUT>() || smem > SB_SMEM_MAX)
+    return HV_BAD_PLAN;
+  void (*kern)(F32GradArgs) =
+      DKV ? stream_bwd_dkv_f32_kernel<D> : stream_bwd_dq_f32_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(((DKV ? a.Sk : a.Sq) + rows - 1) / rows, a.H, B);
+  kern<<<grid, F32_THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+int stream_bwd_f32(bool dkv, const void* q, const void* k, const void* v,
+                   const float* bias, const void* dout, const float* lse,
+                   const float* delta, void* dq, void* dk, void* dv, int B,
+                   int H, int Sq, int Sk, int D, int rows, int tile, int smem,
+                   float scale, const long* st, void* stream) {
+  F32GradArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout);
+  a.bias = bias;
+  a.s0 = lse;
+  a.s1 = nullptr;
+  a.s2 = delta;
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  Rows* rs[7] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq, &a.sdk, &a.sdv};
+  for (int i = 0; i < 7; ++i) *rs[i] = Rows{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.nqb = 0;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define HV_SBF(DD)                                                          \
+  case DD:                                                                  \
+    return dkv ? launch_stream_bwd_f32<DD, true>(a, B, rows, tile, smem, s) \
+               : launch_stream_bwd_f32<DD, false>(a, B, rows, tile, smem, s);
+  switch (D) {
+    HV_SBF(64)
+    HV_SBF(128)
+    HV_SBF(256)
+    HV_SBF(512)
+    HV_SBF(640)
+    default: return -1;
+  }
+#undef HV_SBF
+}
+
+template <int D>
+int launch_delta_f32(const void* dout, const void* out, float* delta, int B,
+                     int H, int Sq, const long* st, cudaStream_t stream) {
+  const long rows = (long)B * H * Sq;
+  const long blocks = (rows * 8 + SD_THREADS - 1) / SD_THREADS;
+  stream_delta_f32_kernel<D><<<(unsigned)blocks, SD_THREADS, 0, stream>>>(
+      static_cast<const float*>(dout), static_cast<const float*>(out), delta,
+      H, Sq, rows, Rows{st[0], st[1], st[2]}, Rows{st[3], st[4], st[5]});
+  return cudaGetLastError();
+}
+
 }  // namespace hv
 
 // Plain C entry points. `strides` holds 21 element strides: (batch, head,
@@ -972,6 +1104,48 @@ extern "C" int hv_stream_delta(const void* dout, const void* out,
     case 256: return hv::launch_delta<256>(dout, out, delta, B, H, Sq, strides, s);
     case 512: return hv::launch_delta<512>(dout, out, delta, B, H, Sq, strides, s);
     case 640: return hv::launch_delta<640>(dout, out, delta, B, H, Sq, strides, s);
+    default: return -1;
+  }
+}
+
+// fp32 entry points, as hv_stream_bwd_dq, hv_stream_bwd_dkv and
+// hv_stream_delta with fp32 tensors; `rows`, `tile` and `smem` are the dQ
+// or dK/dV plan of flash_attention.py::_stream_bwd_f32_plan.
+extern "C" int hv_stream_bwd_dq_f32(const void* q, const void* k,
+                                    const void* v, const float* bias,
+                                    const void* dout, const float* lse,
+                                    const float* delta, void* dq, int B,
+                                    int H, int Sq, int Sk, int D, int rows,
+                                    int tile, int smem, float scale,
+                                    const long* strides, void* stream) {
+  return hv::stream_bwd_f32(false, q, k, v, bias, dout, lse, delta, dq,
+                            nullptr, nullptr, B, H, Sq, Sk, D, rows, tile,
+                            smem, scale, strides, stream);
+}
+
+extern "C" int hv_stream_bwd_dkv_f32(const void* q, const void* k,
+                                     const void* v, const float* bias,
+                                     const void* dout, const float* lse,
+                                     const float* delta, void* dk, void* dv,
+                                     int B, int H, int Sq, int Sk, int D,
+                                     int rows, int tile, int smem,
+                                     float scale, const long* strides,
+                                     void* stream) {
+  return hv::stream_bwd_f32(true, q, k, v, bias, dout, lse, delta, nullptr,
+                            dk, dv, B, H, Sq, Sk, D, rows, tile, smem, scale,
+                            strides, stream);
+}
+
+extern "C" int hv_stream_delta_f32(const void* dout, const void* out,
+                                   float* delta, int B, int H, int Sq, int D,
+                                   const long* strides, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return hv::launch_delta_f32<64>(dout, out, delta, B, H, Sq, strides, s);
+    case 128: return hv::launch_delta_f32<128>(dout, out, delta, B, H, Sq, strides, s);
+    case 256: return hv::launch_delta_f32<256>(dout, out, delta, B, H, Sq, strides, s);
+    case 512: return hv::launch_delta_f32<512>(dout, out, delta, B, H, Sq, strides, s);
+    case 640: return hv::launch_delta_f32<640>(dout, out, delta, B, H, Sq, strides, s);
     default: return -1;
   }
 }

@@ -13,14 +13,13 @@
     full-block kernel while ``full_block_fits`` holds, the streaming kernel
     beyond it - where that kernel takes the operands (``kernel_route``): on
     a CPU tensor always (the kernels' plain versions take any dtype), on
-    the card in bf16 at the kernel's head dims, and for the streaming
-    kernel also in fp32 where no gradient is needed (grad mode off, or no
-    operand requiring grad: its fp32 variant has no backward kernel). The
-    kernel's wrapper copies an operand whose rows it cannot read to a
-    layout it can. Any other call above 256^2 logits (fp16; fp32 on the
-    full-block shapes, or with a gradient; another head dim) has no kernel
-    here, where the TPU kernels take it: it takes the plain path through
-    ``sdpa_plain``, which counts it in ``sdpa_plain.launches``;
+    the card in bf16 or fp32 at the kernel's head dims, with a gradient or
+    without (each kernel, backward kernels included, has an fp32 sibling).
+    The kernel's wrapper copies an operand whose rows it cannot read to a
+    layout it can. Any other call above 256^2 logits (fp16; a head dim off
+    the kernels' lists) has no kernel here, where the TPU kernels take it:
+    it takes the plain path through ``sdpa_plain``, which counts it in
+    ``sdpa_plain.launches``;
   * ``xla``: the plain path, always (never counted: the JAX package runs
     XLA there too);
   * ``pallas``: the kernel ``kernel_route`` picks at any size, even at or
@@ -221,10 +220,11 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor,
 
 def sdpa_plain(q, k, v, scale, key_mask):
     """The plain path for a call above 256^2 logits that no kernel takes on
-    its device (fp32, fp16, a head dim off the kernels' lists), where the
-    JAX package runs a Pallas kernel: counted in ``sdpa_plain.launches`` as
-    the kernel wrappers count their launches, so a run sees attention that
-    left the kernels."""
+    its device (fp16, a head dim off the kernels' lists; bf16 and fp32 at
+    the kernels' head dims take the kernels), where the JAX package runs a
+    Pallas kernel: counted in ``sdpa_plain.launches`` as the kernel
+    wrappers count their launches, so a run sees attention that left the
+    kernels."""
     sdpa_plain.launches += 1
     return _sdpa_plain(q, k, v, scale, key_mask)
 

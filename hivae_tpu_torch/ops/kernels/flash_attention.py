@@ -35,17 +35,28 @@ ported here as hand-written CUDA (``hivae_tpu_torch/csrc``):
   forward and backward kernels, as ``_flash_qknorm_vjp_bwd`` does, and
   gives gradients to q, k, v and the four norm parameters.
 
-``stream_attention`` also launches a sibling kernel for fp32 operands
-(``csrc/flash_stream.cu``, ``stream_fwd_f32_kernel``): the same function
-with fp32 Q, K, V, O and LSE and P kept in fp32 for P.V, as the Pallas
-kernel computes it at fp32 (the fp32 SD-VAE's mid-block attention), each
-product on the tensor cores as three TF32 products of a hi/lo split
-(``tf32_matmul`` models it on the CPU). It has no backward kernel, so it
-takes a call only where no gradient is needed (grad mode off, or no
-operand requiring grad); an fp32 call that needs one, and every fp16
-call, is refused here and takes
-``ops.attention``'s counted ``sdpa_plain``. Its launches count in
-``stream_attention_f32.launches``, apart from the bf16 kernel's.
+Every kernel has an fp32 sibling, launched for fp32 operands: the same
+function with fp32 inputs and outputs and P and dS kept in fp32, as the
+Pallas kernels compute it at fp32 (their casts to v's or q's dtype are then
+no-ops), each product on the tensor cores as three TF32 products of a
+hi/lo split (``tf32_matmul`` models it on the CPU). The streaming forward's
+(``csrc/flash_stream.cu``, ``stream_fwd_f32_kernel``, plan
+``_stream_f32_plan``) serves the fp32 SD-VAE's mid-block; the full-block
+forward's and its ``QKN`` variant (``full_block_fwd_f32_kernel``, plan
+``_full_block_f32_plan``), the full-block backward's and its delta
+pre-pass (``full_block_bwd_f32_kernel``, same plan) and the streaming
+backward's dQ, dK/dV and delta (``stream_bwd_*_f32_kernel``, plan
+``_stream_bwd_f32_plan``) serve ``--mp no`` training, the fp32 frozen
+models the head trainers run, the perceptual loss's fp32 decode and the
+ring's fp32 hops. Their design: ``csrc/attn_f32.cuh``. Each counts its
+launches apart from its bf16 sibling, in ``<wrapper>_f32.launches``
+(``stream_attention_f32``, ``full_block_attention_f32``,
+``full_block_attention_qknorm_f32``, ``full_block_attention_bwd_f32``,
+``full_block_attention_delta_f32``, ``stream_attention_bwd_dq_f32``,
+``stream_attention_bwd_dkv_f32``, ``stream_attention_delta_f32``): plain
+counters, not functions; the wrapper is called with fp32 operands. fp16
+has no kernel: ``takes`` refuses it, and ``ops.attention`` sends it to its
+counted ``sdpa_plain``.
 
 ``full_block_attention``, ``full_block_attention_qknorm`` and
 ``stream_attention`` are differentiable: on a
@@ -91,10 +102,10 @@ import torch
 from . import _build
 
 # the dtypes each forward kernel takes; a call whose gradient is needed
-# takes the backward kernels too, which take bf16 only
-_KERNEL_DTYPES = {"full_block": (torch.bfloat16,),
+# takes the backward kernels too, which take the same two
+_KERNEL_DTYPES = {"full_block": (torch.bfloat16, torch.float32),
                   "stream": (torch.bfloat16, torch.float32)}
-_GRAD_DTYPES = (torch.bfloat16,)
+_GRAD_DTYPES = (torch.bfloat16, torch.float32)
 _FULL_BLOCK_DIMS = (32, 64, 96, 128)
 _STREAM_DIMS = (64, 128, 256, 512, 640)
 
@@ -258,8 +269,8 @@ _KERNEL_DIMS = {"full_block": _FULL_BLOCK_DIMS, "stream": _STREAM_DIMS}
 def _refusal(kind, q, k, v, layout=True, grad=False):
     """Why the ``kind`` kernel ("full_block" or "stream") does not take q,
     k, v, as (exception type, message), or None when it does: one dtype
-    among the kernel's (bf16; the streaming forward also fp32, unless
-    ``grad``: a gradient needs the bf16 backward kernels), (B, H, S, D)
+    among the kernel's (bf16 or fp32, forward and, with ``grad``, backward
+    kernels alike; fp16 none), (B, H, S, D)
     with (where ``layout``) a contiguous last dim and 16-byte aligned rows,
     k and v of one shape matching q's batch, heads and head dim, D among
     the kernel's head dims. The device is not looked at."""
@@ -290,7 +301,7 @@ def takes(kind: str, q: torch.Tensor, k: torch.Tensor,
     each to a layout it reads: the condition under which its wrappers
     launch rather than raise, for a tensor on a CUDA card. ``grad``
     (default: whether autograd records the call, ``_needs_grad``) asks for
-    the backward kernels too, which refuse fp32. The gate of
+    the backward kernels too, which take the same dtypes. The gate of
     ``ops.attention.sdpa`` asks this."""
     if grad is None:
         grad = _needs_grad(q, k, v)
@@ -572,6 +583,97 @@ def _stream_bwd_plan(d: int) -> StreamBwdPlan:
                          stages=STREAM_BWD_STAGES, smem=smem)
 
 
+# launch plans of the fp32 full-block forward and of the fp32 backward
+# kernels (csrc/attn_f32.cuh, ``f32_grad_cta``): CTAs of 8 warps; the
+# forward takes 64 query rows against tiles of 32 keys, rows d + 4 floats
+# apart, its S / P tile rows 32 + 8 apart
+F32_THREADS = 256
+F32_WARPS = F32_THREADS // 32
+FULL_BLOCK_F32_ROWS = 64
+FULL_BLOCK_F32_TILE = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class F32GradPlan:
+    """Launch plan of one kind of fp32 backward CTA (``fg_rows``,
+    ``fg_tile``, ``fg_split`` and ``fg_smem`` in attn_f32.cuh): ``rows``
+    resident rows (query rows for dQ, keys for dK/dV), walked tiles of
+    ``tile`` rows, the score products split over ``split`` slices of the
+    head dim, ``smem`` dynamic shared bytes."""
+    rows: int
+    tile: int
+    split: int
+    smem: int
+
+
+def _f32_split(rows: int, tile: int) -> int:
+    blocks = rows // 16 * (tile // 8)
+    return 1 if blocks >= F32_WARPS else F32_WARPS // blocks
+
+
+def _f32_grad_smem(d: int, rows: int, tile: int) -> int:
+    """Shared bytes (``fg_smem_at``): the resident pair and 3 fp32 rows,
+    two slots of a walked pair and 3 fp32 rows, the X and Y partials."""
+    return 4 * (2 * rows * (d + 4) + 3 * rows
+                + 2 * (2 * tile * (d + 4) + 3 * tile)
+                + 2 * _f32_split(rows, tile) * rows * (tile + 8))
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_grad_plan(d: int, outputs: int) -> F32GradPlan:
+    """The plan of a CTA with ``outputs`` gradients (1: dQ; 2: dK and dV)
+    of head dim ``d``: 64, 32 or 16 rows, the most whose fp32 accumulators
+    take at most 64 registers a thread (16 at least), then walked tiles of
+    32, 16 or 8 rows, the widest that fit one block."""
+    per_thread = 16384 // (d * outputs)
+    rows = 64 if per_thread >= 64 else 32 if per_thread >= 32 else 16
+    tile = next(t for t in (32, 16, 8)
+                if _f32_grad_smem(d, rows, t) <= SMEM_PER_BLOCK)
+    return F32GradPlan(rows=rows, tile=tile, split=_f32_split(rows, tile),
+                       smem=_f32_grad_smem(d, rows, tile))
+
+
+@dataclasses.dataclass(frozen=True)
+class FullBlockF32Plan:
+    """Launch plan of the fp32 full-block kernels: the forward's ``rows``
+    query rows a CTA against tiles of ``tile`` keys in ``fwd_smem`` bytes
+    (``ff_smem_bytes``); the backward's dQ and dK/dV CTAs (``dq``,
+    ``dkv``), one launch of both in ``bwd_smem`` bytes, the larger."""
+    rows: int
+    tile: int
+    fwd_smem: int
+    dq: F32GradPlan
+    dkv: F32GradPlan
+    bwd_smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _full_block_f32_plan(d: int) -> FullBlockF32Plan:
+    """The fp32 full-block plan at head dim ``d``: the forward's Q tile,
+    two slots of a K or V tile and its bias row, the S / P tile and two
+    columns of row scales; the sequence lengths do not change it."""
+    rows, tile = FULL_BLOCK_F32_ROWS, FULL_BLOCK_F32_TILE
+    dq, dkv = _f32_grad_plan(d, 1), _f32_grad_plan(d, 2)
+    return FullBlockF32Plan(
+        rows=rows, tile=tile,
+        fwd_smem=4 * (rows * (d + 4) + 2 * (tile * (d + 4) + tile)
+                      + rows * (tile + 8) + 2 * rows),
+        dq=dq, dkv=dkv, bwd_smem=max(dq.smem, dkv.smem))
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamBwdF32Plan:
+    """Launch plans of the fp32 streaming dQ and dK/dV kernels."""
+    dq: F32GradPlan
+    dkv: F32GradPlan
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_bwd_f32_plan(d: int) -> StreamBwdF32Plan:
+    return StreamBwdF32Plan(dq=_f32_grad_plan(d, 1),
+                            dkv=_f32_grad_plan(d, 2))
+
+
 def _fn(lib_name, sym, n_ptr, n_int, n_float=1):
     """The C entry point ``sym`` of ``csrc/<lib_name>.cu`` (n_ptr pointers,
     n_int ints, n_float floats (the scale, ...), the strides and the stream)
@@ -627,6 +729,46 @@ def _stream_delta_fn():
     return _fn("flash_stream_bwd", "hv_stream_delta", 3, 4, 0)
 
 
+@functools.lru_cache(maxsize=None)
+def _full_block_f32_fn():
+    return _fn("flash_full_block", "hv_full_block_fwd_f32", 8, 8, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_block_bwd_f32_fn():
+    return _fn("flash_full_block_bwd", "hv_full_block_bwd_f32", 11, 9)
+
+
+@functools.lru_cache(maxsize=None)
+def _full_block_delta_f32_fn():
+    return _fn("flash_full_block_bwd", "hv_full_block_delta_f32", 5, 4, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_dq_f32_fn():
+    return _fn("flash_stream_bwd", "hv_stream_bwd_dq_f32", 8, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_dkv_f32_fn():
+    return _fn("flash_stream_bwd", "hv_stream_bwd_dkv_f32", 9, 8)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_delta_f32_fn():
+    return _fn("flash_stream_bwd", "hv_stream_delta_f32", 3, 4, 0)
+
+
+def _f32(x):
+    return x.dtype == torch.float32
+
+
+def _count(wrapper, wrapper_f32, x):
+    """One launch more on ``wrapper``'s counter, or on its fp32 sibling's
+    for fp32 operands."""
+    (wrapper_f32 if _f32(x) else wrapper).launches += 1
+
+
 def _launch(name, fn_err, *args):
     fn, err_str = fn_err
     rc = fn(*args)
@@ -635,16 +777,23 @@ def _launch(name, fn_err, *args):
 
 
 def _launch_full_block(name, q, k, v, bias, norms, m, l, scale, eps):
-    """One launch of the forward kernel under ``_full_block_plan`` -> out;
-    ``norms`` is None or the packed (4, D) qk-norm parameters."""
+    """One launch of the forward kernel under ``_full_block_plan`` (bf16)
+    or ``_full_block_f32_plan`` (fp32) -> out; ``norms`` is None or the
+    packed (4, D) qk-norm parameters."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    plan = _full_block_plan(sq, sk, d)
+    if _f32(q):
+        plan = _full_block_f32_plan(d)
+        fn, plan_args = _full_block_f32_fn(), (plan.rows, plan.tile,
+                                               plan.fwd_smem)
+    else:
+        plan = _full_block_plan(sq, sk, d)
+        fn, plan_args = _full_block_fn(), (plan.fwd_stages,
+                                           int(plan.resident), plan.fwd_smem)
     out = _empty_out(q)
-    _launch(name, _full_block_fn(), _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
-            _ptr(norms), _ptr(out), _ptr(m), _ptr(l), b, h, sq, sk, d,
-            plan.fwd_stages, int(plan.resident), plan.fwd_smem, float(scale),
-            float(eps), _strides(q, k, v, out), _stream_of(q))
+    _launch(name, fn, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(norms),
+            _ptr(out), _ptr(m), _ptr(l), b, h, sq, sk, d, *plan_args,
+            float(scale), float(eps), _strides(q, k, v, out), _stream_of(q))
     return out
 
 
@@ -656,7 +805,7 @@ def _full_block_fwd(q, k, v, bias, scale, stats):
     m, l = (_row_stats(q), _row_stats(q)) if stats else (None, None)
     out = _launch_full_block("full_block_attention", q, k, v, bias, None, m,
                              l, scale, 0.0)
-    full_block_attention.launches += 1
+    _count(full_block_attention, full_block_attention_f32, q)
     return out, m, l
 
 
@@ -672,13 +821,13 @@ def _full_block_qknorm_fwd(q, k, v, norms, bias, scale, eps):
     packed = torch.stack([x.detach().float() for x in norms]).contiguous()
     out = _launch_full_block("full_block_attention_qknorm", q, k, v, bias,
                              packed, None, None, scale, eps)
-    full_block_attention_qknorm.launches += 1
+    _count(full_block_attention_qknorm, full_block_attention_qknorm_f32, q)
     return out
 
 
 def full_block_attention_delta(do, out, l):
     """Pre-pass kernel of the full-block backward: (delta = rowsum(dO * O),
-    1/l), each (B, H, Sq) fp32, from the bf16 ``do`` and ``out``
+    1/l), each (B, H, Sq) fp32, from the bf16 or fp32 ``do`` and ``out``
     (B, H, Sq, D) and the forward's denominator ``l``."""
     if do.device.type != "cuda":
         raise ValueError(f"full_block_attention_delta: no kernel for device "
@@ -686,15 +835,16 @@ def full_block_attention_delta(do, out, l):
     if do.dtype not in _GRAD_DTYPES or out.dtype != do.dtype or \
             do.shape != out.shape or not (_aligned(do) and _aligned(out)) \
             or l.shape != do.shape[:3] or not l.is_contiguous():
-        raise ValueError("full_block_attention_delta: want bf16 (B, H, Sq, D) "
-                         "do and out with 16-byte aligned rows and a "
-                         "contiguous (B, H, Sq) l")
+        raise ValueError("full_block_attention_delta: want bf16 or fp32 "
+                         "(B, H, Sq, D) do and out with 16-byte aligned rows "
+                         "and a contiguous (B, H, Sq) l")
     b, h, sq, d = do.shape
     delta, inv_l = _row_stats(do), _row_stats(do)
-    _launch("full_block_attention_delta", _full_block_delta_fn(), _ptr(do),
-            _ptr(out), _ptr(l), _ptr(delta), _ptr(inv_l), b, h, sq, d,
-            _strides(do, out), _stream_of(do))
-    full_block_attention_delta.launches += 1
+    fn = _full_block_delta_f32_fn() if _f32(do) else _full_block_delta_fn()
+    _launch("full_block_attention_delta", fn, _ptr(do), _ptr(out), _ptr(l),
+            _ptr(delta), _ptr(inv_l), b, h, sq, d, _strides(do, out),
+            _stream_of(do))
+    _count(full_block_attention_delta, full_block_attention_delta_f32, do)
     return delta, inv_l
 
 
@@ -706,19 +856,26 @@ def full_block_attention_bwd(q, k, v, do, out, m, l, *, scale: float,
     """Backward kernels: (dq, dk, dv) from the output cotangent ``do``, the
     forward's ``out`` and its row statistics ``m``, ``l`` (B, H, Sq): the
     delta pre-pass, then one backward launch."""
-    _check("full_block_attention_bwd", q, k, v, bias, "full_block")
+    _check("full_block_attention_bwd", q, k, v, bias, "full_block",
+           grad=True)
     do = kernel_layout(do)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    plan = _full_block_plan(sq, sk, d)
+    if _f32(q):
+        plan = _full_block_f32_plan(d)
+        fn, plan_args = _full_block_bwd_f32_fn(), (
+            plan.dq.rows, plan.dkv.rows, plan.dq.tile, plan.bwd_smem)
+    else:
+        plan = _full_block_plan(sq, sk, d)
+        fn, plan_args = _full_block_bwd_fn(), (plan.bwd_stages,
+                                               plan.bwd_smem)
     delta, inv_l = full_block_attention_delta(do, out, l)
     dq, dk, dv = _empty_out(q), _empty_out(k), _empty_out(v)
-    _launch("full_block_attention_bwd", _full_block_bwd_fn(), _ptr(q),
-            _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(m), _ptr(inv_l),
-            _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv), b, h, sq, sk, d,
-            plan.bwd_stages, plan.bwd_smem, float(scale),
+    _launch("full_block_attention_bwd", fn, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(bias), _ptr(do), _ptr(m), _ptr(inv_l), _ptr(delta), _ptr(dq),
+            _ptr(dk), _ptr(dv), b, h, sq, sk, d, *plan_args, float(scale),
             _strides(q, k, v, do, dq, dk, dv), _stream_of(q))
-    full_block_attention_bwd.launches += 1
+    _count(full_block_attention_bwd, full_block_attention_bwd_f32, q)
     return dq, dk, dv
 
 
@@ -727,7 +884,7 @@ full_block_attention_bwd.launches = 0
 
 def _stream_fwd(q, k, v, bias, scale, grad=False):
     """Forward launch -> (out, lse (B, H, Sq, 1)): the bf16 kernel, or for
-    fp32 operands (``grad`` False only) the fp32 one."""
+    fp32 operands the fp32 one (whose LSE the fp32 backward takes)."""
     _check("stream_attention", q, k, v, bias, "stream", grad=grad)
     b, h, sq, d = q.shape
     out = _empty_out(q)
@@ -741,19 +898,16 @@ def _stream_fwd(q, k, v, bias, scale, grad=False):
     _launch("stream_attention", fn, _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
             _ptr(out), _ptr(lse), b, h, sq, k.shape[2], d, *plan_args,
             float(scale), _strides(q, k, v, out), _stream_of(q))
-    if q.dtype == torch.float32:
-        stream_attention_f32.launches += 1
-    else:
-        stream_attention.launches += 1
+    _count(stream_attention, stream_attention_f32, q)
     return out, lse[..., None]
 
 
 def stream_attention_delta(do: torch.Tensor, out: torch.Tensor
                            ) -> torch.Tensor:
     """Pre-pass kernel of the streaming backward: delta = rowsum(dO * O),
-    contiguous (B, H, Sq) fp32, from the bf16 (B, H, Sq, D) ``do`` and the
-    forward's ``out``. Its plain version is ``_delta``, which a CPU tensor
-    gets."""
+    contiguous (B, H, Sq) fp32, from the bf16 or fp32 (B, H, Sq, D) ``do``
+    and the forward's ``out``. Its plain version is ``_delta``, which a CPU
+    tensor gets."""
     if do.device.type == "cpu":
         return _delta(do, out)
     if do.device.type != "cuda":
@@ -763,19 +917,32 @@ def stream_attention_delta(do: torch.Tensor, out: torch.Tensor
             do.shape != out.shape or do.dim() != 4 or \
             do.shape[3] not in _STREAM_DIMS or \
             not (_aligned(do) and _aligned(out)):
-        raise ValueError(f"stream_attention_delta: want bf16 (B, H, Sq, D) "
-                         f"do and out, D in {_STREAM_DIMS}, with 16-byte "
-                         f"aligned rows")
+        raise ValueError(f"stream_attention_delta: want bf16 or fp32 "
+                         f"(B, H, Sq, D) do and out, D in {_STREAM_DIMS}, "
+                         f"with 16-byte aligned rows")
     b, h, sq, d = do.shape
     delta = _row_stats(do)
-    _launch("stream_attention_delta", _stream_delta_fn(), _ptr(do),
-            _ptr(out), _ptr(delta), b, h, sq, d, _strides(do, out),
-            _stream_of(do))
-    stream_attention_delta.launches += 1
+    fn = _stream_delta_f32_fn() if _f32(do) else _stream_delta_fn()
+    _launch("stream_attention_delta", fn, _ptr(do), _ptr(out), _ptr(delta),
+            b, h, sq, d, _strides(do, out), _stream_of(do))
+    _count(stream_attention_delta, stream_attention_delta_f32, do)
     return delta
 
 
 stream_attention_delta.launches = 0
+
+
+def _stream_bwd_launch(d, f32, dkv):
+    """(entry point, plan arguments) of the dQ (``dkv`` False) or dK/dV
+    kernel at head dim ``d``: bf16 (cluster, slots, shared bytes) or fp32
+    (rows, tile, shared bytes)."""
+    if f32:
+        plan = getattr(_stream_bwd_f32_plan(d), "dkv" if dkv else "dq")
+        return ((_stream_dkv_f32_fn if dkv else _stream_dq_f32_fn)(),
+                (plan.rows, plan.tile, plan.smem))
+    plan = _stream_bwd_plan(d)
+    return ((_stream_dkv_fn if dkv else _stream_dq_fn)(),
+            (plan.cluster, plan.stages, plan.smem))
 
 
 def _stream_bwd_args(name, q, k, v, do, lse, delta, bias):
@@ -789,19 +956,19 @@ def stream_attention_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
                             bias: Optional[torch.Tensor] = None):
     """dQ kernel: dq from the cotangent ``do``, the forward's ``lse`` and
     ``delta`` = rowsum(dO * O), each (B, H, Sq) or (B, H, Sq, 1) fp32 (a
-    ring hop passes global ones), under ``_stream_bwd_plan``. Its plain
-    version is ``stream_attention_bwd_dq_plain``."""
+    ring hop passes global ones), under ``_stream_bwd_plan`` (bf16) or
+    ``_stream_bwd_f32_plan`` (fp32). Its plain version is
+    ``stream_attention_bwd_dq_plain``."""
     do, lse, delta = _stream_bwd_args("stream_attention_bwd_dq", q, k, v, do,
                                       lse, delta, bias)
     b, h, sq, d = q.shape
-    plan = _stream_bwd_plan(d)
+    fn, plan_args = _stream_bwd_launch(d, _f32(q), dkv=False)
     dq = _empty_out(q)
-    _launch("stream_attention_bwd_dq", _stream_dq_fn(), _ptr(q), _ptr(k),
-            _ptr(v), _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
-            b, h, sq, k.shape[2], d, plan.cluster, plan.stages, plan.smem,
-            float(scale), _strides(q, k, v, do, dq, None, None),
-            _stream_of(q))
-    stream_attention_bwd_dq.launches += 1
+    _launch("stream_attention_bwd_dq", fn, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), b, h, sq,
+            k.shape[2], d, *plan_args, float(scale),
+            _strides(q, k, v, do, dq, None, None), _stream_of(q))
+    _count(stream_attention_bwd_dq, stream_attention_bwd_dq_f32, q)
     return dq
 
 
@@ -815,14 +982,13 @@ def stream_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
     do, lse, delta = _stream_bwd_args("stream_attention_bwd_dkv", q, k, v,
                                       do, lse, delta, bias)
     b, h, sq, d = q.shape
-    plan = _stream_bwd_plan(d)
+    fn, plan_args = _stream_bwd_launch(d, _f32(q), dkv=True)
     dk, dv = _empty_out(k), _empty_out(v)
-    _launch("stream_attention_bwd_dkv", _stream_dkv_fn(), _ptr(q), _ptr(k),
-            _ptr(v), _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
-            _ptr(dv), b, h, sq, k.shape[2], d, plan.cluster, plan.stages,
-            plan.smem, float(scale),
+    _launch("stream_attention_bwd_dkv", fn, _ptr(q), _ptr(k), _ptr(v),
+            _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
+            b, h, sq, k.shape[2], d, *plan_args, float(scale),
             _strides(q, k, v, do, None, dk, dv), _stream_of(q))
-    stream_attention_bwd_dkv.launches += 1
+    _count(stream_attention_bwd_dkv, stream_attention_bwd_dkv_f32, q)
     return dk, dv
 
 
@@ -1039,8 +1205,7 @@ def stream_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      scale: float, bias: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming online-softmax attention -> (out (B, H, Sq, D),
-    lse (B, H, Sq, 1) fp32). ``out`` is differentiable in q, k and v (in
-    bf16: fp32 operands that need a gradient are refused on the card);
+    lse (B, H, Sq, 1) fp32). ``out`` is differentiable in q, k and v;
     ``lse`` carries no gradient."""
     if _needs_grad(q, k, v):
         if q.device.type == "cpu":
@@ -1053,17 +1218,26 @@ def stream_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 stream_attention.launches = 0
 
 
-def stream_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, scale: float, bias: Optional[torch.Tensor] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``stream_attention`` on fp32 operands, which launches the fp32
-    kernel on the card (no gradient: it has no backward kernel);
-    ``stream_attention_f32.launches`` counts that kernel's launches,
-    whichever of the two names was called. Its plain version is
-    ``stream_attention_plain``."""
-    if q.dtype != torch.float32:
-        raise TypeError(f"stream_attention_f32: want fp32, got {q.dtype}")
-    return stream_attention(q, k, v, scale=scale, bias=bias)
+class _F32Launches:
+    """The launch count of an fp32 kernel, apart from its bf16 sibling's
+    (``<wrapper>.launches``): the wrapper called with fp32 operands adds
+    one to ``launches`` where it launches the fp32 kernel."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+    def __repr__(self):
+        return f"<{self.__name__}: {self.launches} launches>"
 
 
-stream_attention_f32.launches = 0
+stream_attention_f32 = _F32Launches("stream_attention_f32")
+full_block_attention_f32 = _F32Launches("full_block_attention_f32")
+full_block_attention_qknorm_f32 = _F32Launches(
+    "full_block_attention_qknorm_f32")
+full_block_attention_bwd_f32 = _F32Launches("full_block_attention_bwd_f32")
+full_block_attention_delta_f32 = _F32Launches(
+    "full_block_attention_delta_f32")
+stream_attention_delta_f32 = _F32Launches("stream_attention_delta_f32")
+stream_attention_bwd_dq_f32 = _F32Launches("stream_attention_bwd_dq_f32")
+stream_attention_bwd_dkv_f32 = _F32Launches("stream_attention_bwd_dkv_f32")

@@ -199,7 +199,7 @@ def test_kernels_reject_what_they_do_not_take():
     _cuda_or_skip()
     q, k, v = _qkv((1, 2, 300, 64), seed=13)
     with pytest.raises(TypeError):
-        tfa.full_block_attention(q.float(), k.float(), v.float(), scale=0.1)
+        tfa.full_block_attention(q.half(), k.half(), v.half(), scale=0.1)
     with pytest.raises(ValueError, match="head dim"):
         tfa.stream_attention(q[..., :48], k[..., :48], v[..., :48],
                              scale=0.1)
@@ -579,33 +579,37 @@ def test_stream_delta_kernel_matches_plain(shape):
     assert bool(((delta - want).abs() <= 1e-5 * scale + 1e-6).all())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
-@pytest.mark.parametrize("shape,masked", [((2, 16, 260, 64), True),
-                                          ((4, 1, 1024, 512), False)])
-def test_sdpa_off_the_kernel_dtypes_takes_the_plain_path(dtype, shape,
-                                                         masked):
-    """fp32 and fp16 above 256^2 logits: ``sdpa`` raises no more. fp32 at
-    a streaming shape (the SD-VAE mid-block) launches the fp32 streaming
-    kernel; fp32 at a full-block shape and fp16 take the plain path (no
-    kernel launch, one count of ``sdpa_plain``); all return the plain
-    path's values."""
-    _cuda_or_skip()
-    from hivae_tpu_torch.ops import attention as tattn
-    q, k, v = (x.float().to(dtype) for x in _qkv(shape, seed=39))
+SDPA_DTYPE_SHAPES = [((2, 16, 260, 64), True), ((4, 1, 1024, 512), False)]
+
+
+def _sdpa_case(shape, masked, dtype, grad=False):
+    q, k, v = (x.float().to(dtype).requires_grad_(grad)
+               for x in _qkv(shape, seed=39))
     mask = None
     if masked:
         mask = torch.from_numpy(
             np.random.RandomState(40).rand(shape[0], shape[2]) > 0.3).cuda()
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16])
+@pytest.mark.parametrize("shape,masked", SDPA_DTYPE_SHAPES)
+def test_sdpa_off_the_kernel_dtypes_takes_the_plain_path(dtype, shape,
+                                                         masked):
+    """fp16 above 256^2 logits: ``sdpa`` takes the plain path (no kernel
+    launch, one count of ``sdpa_plain``) and returns its values."""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops import attention as tattn
+    q, k, v, mask = _sdpa_case(shape, masked, dtype)
     counters = [tfa.full_block_attention, tfa.stream_attention,
-                tfa.stream_attention_f32, tattn.sdpa_plain]
+                tfa.full_block_attention_f32, tfa.stream_attention_f32,
+                tattn.sdpa_plain]
     before = [c.launches for c in counters]
     got = tattn.sdpa(q, k, v, key_mask=mask)
     want = tattn._sdpa_plain(q, k, v, shape[3] ** -0.5, mask)
     torch.cuda.synchronize()
-    f32_stream = dtype == torch.float32 and shape[3] == 512
-    assert [c.launches for c in counters] == before[:2] + [
-        before[2] + f32_stream, before[3] + (not f32_stream)]
+    assert [c.launches for c in counters] == before[:4] + [before[4] + 1]
     assert got.dtype == dtype
     assert _err(got, want) <= ATOL
 
@@ -636,8 +640,8 @@ def test_stream_f32_kernel_matches_plain(shape, masked):
     n = tfa.stream_attention_f32.launches
     out, lse = tfa.stream_attention(q, k, v, scale=shape[3] ** -0.5,
                                     bias=bias)
-    again, _ = tfa.stream_attention_f32(q, k, v, scale=shape[3] ** -0.5,
-                                        bias=bias)
+    again, _ = tfa.stream_attention(q, k, v, scale=shape[3] ** -0.5,
+                                    bias=bias)
     want, wl = tfa.stream_attention_plain(q, k, v, scale=shape[3] ** -0.5,
                                           bias=bias)
     torch.cuda.synchronize()
@@ -649,18 +653,156 @@ def test_stream_f32_kernel_matches_plain(shape, masked):
 
 
 @pytest.mark.cuda
-def test_stream_f32_kernel_refuses_a_gradient():
-    """No fp32 backward kernel: an fp32 call that needs a gradient is
-    refused by the kernel (``sdpa`` sends it to ``sdpa_plain`` first)."""
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("shape,masked", SDPA_DTYPE_SHAPES)
+def test_sdpa_routes_fp32_to_the_kernels(shape, masked, grad):
+    """fp32 above 256^2 logits: ``sdpa`` launches the fp32 kernels of the
+    route its shape picks (the full-block forward at the object encoder's,
+    the streaming forward at the SD-VAE mid-block's), and with a gradient
+    their delta pre-pass and backward, one each; ``sdpa_plain`` counts
+    nothing; the output and gradients within F32_ATOL x max(1, max|plain|)
+    of the plain path's."""
     _cuda_or_skip()
     from hivae_tpu_torch.ops import attention as tattn
-    q, k, v = (x.float().requires_grad_() for x in
-               _qkv((2, 1, 1024, 512), seed=53))
-    with pytest.raises(TypeError, match="gradient"):
-        tfa.stream_attention(q, k, v, scale=0.05)
-    n = tattn.sdpa_plain.launches
-    tattn.sdpa(q, k, v).sum().backward()
-    assert tattn.sdpa_plain.launches == n + 1 and q.grad is not None
+    q, k, v, mask = _sdpa_case(shape, masked, torch.float32, grad)
+    if shape[3] == 512:
+        names = ["stream_attention_f32", "stream_attention_delta_f32",
+                 "stream_attention_bwd_dq_f32", "stream_attention_bwd_dkv_f32"]
+    else:
+        names = ["full_block_attention_f32", "full_block_attention_delta_f32",
+                 "full_block_attention_bwd_f32"]
+    counters = [getattr(tfa, n) for n in names] + [tattn.sdpa_plain]
+    before = [c.launches for c in counters]
+    got = tattn.sdpa(q, k, v, key_mask=mask)
+    ref = [x.detach().clone().requires_grad_(grad) for x in (q, k, v)]
+    want = tattn._sdpa_plain(*ref, shape[3] ** -0.5, mask)
+    pairs = [(got, want)]
+    if grad:
+        do = torch.randn_like(got)
+        pairs += zip(torch.autograd.grad(got, (q, k, v), do),
+                     torch.autograd.grad(want, ref, do))
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == (
+        [1] * (len(names) if grad else 1)
+        + [0] * (0 if grad else len(names) - 1) + [0])
+    for g, w in pairs:
+        assert g.dtype == torch.float32
+        assert _err(g, w) <= F32_ATOL * max(1.0, w.abs().max().item())
+
+
+# (q shape, Sk or None, masked) of the fp32 full-block kernels: the main
+# path's sites at N = 2 (`--mp no`), ragged and Sq != Sk, every head dim, a
+# masked case with a fully masked key row (batch 0)
+FULL_BLOCK_F32_CASES = [
+    ((64, 8, 260, 64), None, False), ((32, 16, 266, 64), None, False),
+    ((32, 16, 512, 64), None, True), ((2, 4, 300, 64), 700, True),
+    ((2, 3, 65, 64), None, True), ((2, 2, 1, 64), 33, False),
+    ((3, 2, 100, 32), None, True), ((2, 2, 129, 96), None, True),
+    ((2, 16, 269, 128), None, False), ((1, 2, 70, 128), 150, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sk,masked", FULL_BLOCK_F32_CASES)
+def test_full_block_f32_kernels_match_plain(shape, sk, masked):
+    """The fp32 full-block forward, its qk-norm variant, the backward and
+    its delta pre-pass against their fp32 plain versions within F32_ATOL x
+    max(1, max|plain|): the forward's m and l as the plain logits give
+    them, a fully masked row the uniform average, two launches of each to
+    the same bits, counted on the fp32 counters."""
+    _cuda_or_skip()
+    q, k, v, bias = (None if x is None else x.float()
+                     for x in _case(shape, sk, masked, seed=56))
+    do = _qkv(shape, seed=57)[0].float()
+    rng = np.random.RandomState(58)
+    norms = [torch.from_numpy((m + sd * rng.randn(shape[3])).astype(
+        np.float32)).cuda() for m, sd in ((1, .5), (0, .3), (1, .5), (0, .3))]
+    scale = shape[3] ** -0.5
+    kw = dict(scale=scale, bias=bias)
+    counters = [tfa.full_block_attention_f32,
+                tfa.full_block_attention_qknorm_f32,
+                tfa.full_block_attention_bwd_f32,
+                tfa.full_block_attention_delta_f32]
+    before = [c.launches for c in counters]
+    out, m, l = tfa._full_block_fwd(q, k, v, bias, scale, stats=True)
+    again = tfa.full_block_attention(q, k, v, **kw)
+    qn = [tfa.full_block_attention_qknorm(q, k, v, *norms, **kw)
+          for _ in range(2)]
+    grads = [tfa.full_block_attention_bwd(q, k, v, do, out, m, l, **kw)
+             for _ in range(2)]
+    delta, inv_l = tfa.full_block_attention_delta(do, out, l)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2, 3]
+    assert torch.equal(out, again) and torch.equal(*qn)
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+    t = tfa._logits(q, k, scale, bias) * 1.4426950408889634
+    want_m = t.amax(dim=-1)
+    want_l = torch.exp2(t - want_m[..., None]).sum(dim=-1)
+    assert bool(((m - want_m).abs() <= F32_ATOL * (1 + want_m.abs())).all())
+    assert bool(((l - want_l).abs() <= F32_ATOL * want_l).all())
+    wd, wil = tfa.full_block_attention_delta_plain(do, out, l)
+    assert torch.equal(inv_l, wil)
+    for g, w in [(out, tfa.full_block_attention_plain(q, k, v, **kw)),
+                 (qn[0], tfa.full_block_attention_qknorm_plain(
+                     q, k, v, *norms, **kw)), (delta, wd)] + list(zip(
+                         grads[0], tfa.full_block_attention_bwd_plain(
+                             q, k, v, do, **kw))):
+        assert bool(torch.isfinite(g).all())
+        assert _err(g, w) <= F32_ATOL * max(1.0, w.abs().max().item())
+    if masked:
+        assert _err(out[0], v[0].mean(dim=1, keepdim=True)) <= F32_ATOL
+
+
+# (q shape, Sk or None, masked) of the fp32 streaming backward: every head
+# dim, ragged against its plans' rows and tiles, Sq != Sk; a masked case
+# masks the key block 64:128 in every row too (no row without a key)
+STREAM_BWD_F32_CASES = [
+    ((16, 1, 1024, 512), None, False), ((2, 1, 333, 512), 300, True),
+    ((4, 1, 1024, 640), None, True), ((1, 1, 100, 640), 77, False),
+    ((2, 2, 300, 256), None, True), ((2, 3, 190, 128), 260, True),
+    ((1, 16, 2048, 64), None, False), ((2, 2, 129, 64), None, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,sk,masked", STREAM_BWD_F32_CASES)
+def test_stream_bwd_f32_kernels_match_plain(shape, sk, masked):
+    """The fp32 streaming delta, dQ and dK/dV kernels from the fp32
+    forward's LSE against the fp32 plain backward within F32_ATOL x max(1,
+    max|plain|), two launches to the same bits, a fully masked key block
+    with no gradient, counted on the fp32 counters."""
+    _cuda_or_skip()
+    q, k, v = (x.float() for x in _qkv(shape, seed=59, sk=sk))
+    do = _qkv(shape, seed=60)[0].float()
+    scale = shape[3] ** -0.5
+    bias = None
+    if masked:
+        bias = _bias(shape[0], k.shape[2], seed=61)
+        bias[:, 0] = 0.0
+        bias[:, 64:128] = -1e30
+    kw = dict(scale=scale, bias=bias)
+    counters = [tfa.stream_attention_delta_f32,
+                tfa.stream_attention_bwd_dq_f32,
+                tfa.stream_attention_bwd_dkv_f32]
+    before = [c.launches for c in counters]
+    out, lse = tfa.stream_attention(q, k, v, **kw)
+    runs = []
+    for _ in range(2):
+        delta = tfa.stream_attention_delta(do, out)
+        runs.append((delta,
+                     tfa.stream_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                 **kw),
+                     *tfa.stream_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                   **kw)))
+    want = (tfa._delta(do, out),) + tfa.stream_attention_bwd_plain(
+        q, k, v, do, out, lse, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    for g, w in zip(runs[0], want):
+        assert bool(torch.isfinite(g).all())
+        assert _err(g, w) <= F32_ATOL * max(1.0, w.abs().max().item())
+    if masked and k.shape[2] > 128:
+        assert runs[0][2][:, :, 64:128].abs().max().item() == 0
+        assert runs[0][3][:, :, 64:128].abs().max().item() == 0
 
 
 @pytest.mark.cuda

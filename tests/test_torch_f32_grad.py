@@ -1,0 +1,230 @@
+"""The fp32 attention kernels with a gradient, on the CPU: their arithmetic,
+their launch plans and the dtypes their gate takes. The CUDA kernels
+themselves are held against their fp32 plain versions on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` phase 2.
+
+The arithmetic: a CPU model of each fp32 backward built from
+``tf32_matmul`` in the kernels' product order (three TF32 products of a
+hi/lo split a matmul; the score products' small terms beside the hi.hi
+sum, over the plan's k slices of the head dim, summed in order) and
+accumulation chunking (each walked tile's gradient product a fresh sum,
+added in tile order in fp32), against an fp64 reference. Gate: the card's,
+1e-5 x max(1, max|reference|); a model with one TF32 product a matmul
+must miss it."""
+
+import numpy as np
+import pytest
+import torch
+
+from hivae_tpu_torch.ops.kernels import flash_attention as tfa
+
+F32_ATOL = 1e-5
+LOG2E = 1.4426950408889634
+
+
+def _inputs(shape, sk, seed, masked):
+    rng = np.random.RandomState(seed)
+    b, h, sq, d = shape
+    q, do = (torch.from_numpy(rng.randn(b, h, sq, d).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.randn(b, h, sk, d).astype(np.float32))
+            for _ in range(2))
+    bias = None
+    if masked:
+        keep = rng.rand(b, sk) > 0.3
+        keep[:, 0] = True
+        bias = torch.from_numpy(np.where(keep, 0.0, -1e30).astype(np.float32))
+    return q, k, v, do, bias
+
+
+def _scores(a, b, products, split):
+    """a.b^T over the head dim in ``split`` slices, each slice's three TF32
+    products (small terms and hi.hi: ``tf32_matmul``), the slices summed in
+    order (the kernels' score products, ``fg_split``)."""
+    n = a.shape[-1] // split
+    out = None
+    for i in range(split):
+        part = tfa.tf32_matmul(a[..., i * n:(i + 1) * n],
+                               b[..., i * n:(i + 1) * n].transpose(-1, -2),
+                               products)
+        out = part if out is None else out + part
+    return out
+
+
+def _walked(a, b, tile, products):
+    """a.b over a's last dim in walked tiles of ``tile`` rows, each tile's
+    product into a fresh sum added to the running one in fp32 (the
+    kernels' gradient and output products)."""
+    out = None
+    for i in range(0, a.shape[-1], tile):
+        part = tfa.tf32_matmul(a[..., i:i + tile], b[..., i:i + tile, :],
+                               products)
+        out = part if out is None else out + part
+    return out
+
+
+def _full_block_model(q, k, v, do, scale, bias, products):
+    """(dq, dk, dv) as the fp32 full-block kernels form them: the
+    forward's one pass (base-2 row max m and denominator l, P~ = 2^(t - m)
+    times V over its 32-key tiles, O = P~.V * (1 / l)), delta =
+    rowsum(dO * O), P = 2^(t - m) / l, dS = P (dP - delta),
+    the dQ CTA's sums over 32-key tiles and the dK/dV CTA's over 32-row
+    query tiles (``_full_block_f32_plan``)."""
+    plan = tfa._full_block_f32_plan(q.shape[-1])
+    bl2 = 0.0 if bias is None else (bias * LOG2E)[:, None, None, :]
+    p = {}
+    for side, sp in (("dq", plan.dq), ("dkv", plan.dkv)):
+        t = _scores(q, k, products, sp.split) * (scale * LOG2E) + bl2
+        m = t.amax(-1, keepdim=True)
+        e = torch.exp2(t - m)
+        p[side] = e * (1.0 / e.sum(-1, keepdim=True))
+    t = _scores(q, k, products, 1) * (scale * LOG2E) + bl2
+    e = torch.exp2(t - t.amax(-1, keepdim=True))
+    out = _walked(e, v, plan.tile, products) * (1.0 / e.sum(-1, keepdim=True))
+    delta = (do * out).sum(-1, keepdim=True)
+    dp = {side: _scores(do, v, products, sp.split)
+          for side, sp in (("dq", plan.dq), ("dkv", plan.dkv))}
+    ds = {side: p[side] * (dp[side] - delta) for side in p}
+    dq = _walked(ds["dq"], k, plan.dq.tile, products) * scale
+    dk = _walked(ds["dkv"].transpose(-1, -2), q, plan.dkv.tile,
+                 products) * scale
+    dv = _walked(p["dkv"].transpose(-1, -2), do, plan.dkv.tile, products)
+    return dq, dk, dv
+
+
+def _stream_model(q, k, v, do, scale, bias, products):
+    """(dq, dk, dv) as the fp32 streaming kernels form them: the fp32
+    forward's natural-log LSE and output, P = exp(s * scale + bias - lse),
+    dS = P (dP - delta), the score products over the dQ and dK/dV plans' k
+    slices and the gradient sums over their walked tiles
+    (``_stream_bwd_f32_plan``)."""
+    plan = tfa._stream_bwd_f32_plan(q.shape[-1])
+    b = 0.0 if bias is None else bias[:, None, None, :]
+    logits = {side: _scores(q, k, products, sp.split) * scale + b
+              for side, sp in (("dq", plan.dq), ("dkv", plan.dkv))}
+    m = logits["dq"].amax(-1, keepdim=True)
+    e = torch.exp(logits["dq"] - m)
+    lse = m + torch.log(e.sum(-1, keepdim=True))
+    out = _walked(e, v, 16, products) / e.sum(-1, keepdim=True)
+    delta = (do * out).sum(-1, keepdim=True)
+    p = {side: torch.exp(x - lse) for side, x in logits.items()}
+    ds = {side: p[side] * (_scores(do, v, products, sp.split) - delta)
+          for side, sp in (("dq", plan.dq), ("dkv", plan.dkv))}
+    dq = _walked(ds["dq"], k, plan.dq.tile, products) * scale
+    dk = _walked(ds["dkv"].transpose(-1, -2), q, plan.dkv.tile,
+                 products) * scale
+    dv = _walked(p["dkv"].transpose(-1, -2), do, plan.dkv.tile, products)
+    return dq, dk, dv
+
+
+def _reference(kind, q, k, v, do, scale, bias):
+    q, k, v, do = (x.double() for x in (q, k, v, do))
+    bias = None if bias is None else bias.double()
+    if kind == "full_block":
+        return tfa.full_block_attention_bwd_plain(q, k, v, do, scale=scale,
+                                                  bias=bias)
+    out, lse = tfa.stream_attention_plain(q, k, v, scale=scale, bias=bias)
+    return tfa.stream_attention_bwd_plain(q, k, v, do, out, lse, scale=scale,
+                                          bias=bias)
+
+
+def _errors(got, want):
+    return [((g.double() - w).abs().max().item(),
+             F32_ATOL * max(1.0, w.abs().max().item()))
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("kind,shape,sk,masked", [
+    # a flagship joint block's head dim, a ragged last tile and a mask
+    ("full_block", (1, 2, 160, 64), 150, True),
+    # the SD-VAE mid-block's head dim: k slices of 128 columns, 8- and
+    # 16-row walked tiles
+    ("stream", (1, 1, 256, 512), 256, False),
+])
+def test_f32_bwd_model_meets_the_fp32_gate(kind, shape, sk, masked):
+    """Why the fp32 backward kernels take three TF32 products a matmul:
+    with the kernels' split and sums, dq, dk and dv are within the fp32
+    gate of an fp64 reference; with one TF32 product they are not."""
+    q, k, v, do, bias = _inputs(shape, sk, seed=sum(shape), masked=masked)
+    scale = shape[3] ** -0.5
+    want = _reference(kind, q, k, v, do, scale, bias)
+    model = _full_block_model if kind == "full_block" else _stream_model
+    three = _errors(model(q, k, v, do, scale, bias, 3), want)
+    one = _errors(model(q, k, v, do, scale, bias, 1), want)
+    assert all(err <= gate for err, gate in three), three
+    assert any(err > gate for err, gate in one), one
+
+
+@pytest.mark.parametrize("d", tfa._FULL_BLOCK_DIMS)
+def test_full_block_f32_plan_fits_a_block(d):
+    """The fp32 full-block plan at every full-block head dim: the forward's
+    64 query rows against 32-key tiles (the Q tile, two slots of a K or V
+    tile and its bias row, the S / P tile, rows d + 4 and 40 floats apart,
+    and two columns of 64 row scales), and the backward's dQ and dK/dV
+    CTAs of 64 rows walking 32-row tiles with unsplit score products (8
+    blocks of 16 x 8 or more), each within one block's shared memory, with
+    at most 64 accumulator registers a thread."""
+    plan = tfa._full_block_f32_plan(d)
+    assert (plan.rows, plan.tile) == (64, 32)
+    assert plan.fwd_smem == 4 * (64 * (d + 4) + 2 * (32 * (d + 4) + 32)
+                                 + 64 * 40 + 2 * 64)
+    for grad, outputs in ((plan.dq, 1), (plan.dkv, 2)):
+        assert (grad.rows, grad.tile, grad.split) == (64, 32, 1)
+        assert grad.rows * d * outputs <= 64 * tfa.F32_THREADS
+    assert plan.bwd_smem == max(plan.dq.smem, plan.dkv.smem)
+    assert max(plan.fwd_smem, plan.bwd_smem) <= tfa.SMEM_PER_BLOCK
+
+
+# (dQ rows, tile, k slices), (dK/dV rows, tile, k slices) by head dim, as
+# flash_stream_bwd.cu's note states them
+STREAM_BWD_F32 = {64: ((64, 32, 1), (64, 32, 1)),
+                  128: ((64, 32, 1), (64, 32, 1)),
+                  256: ((64, 16, 1), (32, 32, 1)),
+                  512: ((32, 8, 4), (16, 16, 4)),
+                  640: ((16, 8, 8), (16, 8, 8))}
+
+
+@pytest.mark.parametrize("d", tfa._STREAM_DIMS)
+def test_stream_bwd_f32_plan_fits_a_block(d):
+    """The fp32 streaming backward's plans at every streaming head dim: the
+    rows a CTA whose accumulators take at most 64 registers a thread (80
+    at D 640, at the 16-row floor), the widest walked tile that fits one
+    block beside the resident pair, the slots and the partial score tiles
+    (a tile of twice the rows would not), and the score products split
+    over D where a tile has fewer than 8 blocks."""
+    plan = tfa._stream_bwd_f32_plan(d)
+    for grad, outputs, want in ((plan.dq, 1, STREAM_BWD_F32[d][0]),
+                                (plan.dkv, 2, STREAM_BWD_F32[d][1])):
+        assert (grad.rows, grad.tile, grad.split) == want
+        assert grad.smem == tfa._f32_grad_smem(d, grad.rows, grad.tile)
+        assert grad.smem <= tfa.SMEM_PER_BLOCK
+        if grad.tile < 32:
+            assert tfa._f32_grad_smem(d, grad.rows, 2 * grad.tile) > \
+                tfa.SMEM_PER_BLOCK
+        assert grad.rows * d * outputs <= (80 if d == 640 else 64) * \
+            tfa.F32_THREADS
+        assert grad.split * (grad.rows // 16) * (grad.tile // 8) >= \
+            tfa.F32_WARPS
+
+
+@pytest.mark.parametrize("kind,shape", [("full_block", (2, 4, 260, 64)),
+                                        ("stream", (1, 1, 1024, 512))])
+def test_gate_takes_fp32_with_a_gradient(kind, shape):
+    """``takes`` (on ``meta`` tensors, which stand in for the card) and
+    ``_refusal``: fp32 and bf16 with a gradient and without for both
+    kinds; fp16 refused with the same message as before, the dtypes the
+    kernels take named."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.empty(shape, device="meta", dtype=dtype)
+        for grad in (False, True):
+            assert tfa.takes(kind, x, x, x, grad=grad)
+            assert tfa._refusal(kind, x, x, x, layout=False, grad=grad) \
+                is None
+        assert tfa.takes(kind, *(x.requires_grad_(),) * 3)
+    x = torch.empty(shape, device="meta", dtype=torch.float16)
+    for grad, suffix in ((False, ""), (True, " with a gradient")):
+        assert not tfa.takes(kind, x, x, x, grad=grad)
+        exc, msg = tfa._refusal(kind, x, x, x, layout=False, grad=grad)
+        assert exc is TypeError
+        assert msg == (f"the CUDA kernel takes bfloat16 or float32{suffix}, "
+                       f"got torch.float16")

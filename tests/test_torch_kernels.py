@@ -365,21 +365,18 @@ ROUTED = ([("full_block", (2, 4, 260, d)) for d in tfa._FULL_BLOCK_DIMS]
 @pytest.mark.parametrize("kind,shape", ROUTED)
 def test_kernel_route_off_the_cpu(kind, shape):
     """On a tensor off the CPU (``meta`` stands in for the card) the gate
-    sends bf16 to the kernel ``full_block_fits`` picks, at every head dim
-    that kernel takes, fp32 to the streaming kernel's fp32 variant where
-    no gradient is needed and to the plain path otherwise (and on the
-    full-block shapes), and fp16 to the plain path; a layout the kernel
-    does not read (a strided last dim) still goes to the kernel, whose
-    wrapper copies it to its layout."""
-    fp32 = kind if kind == "stream" else "plain"
-    for dtype, want in [(torch.bfloat16, kind), (torch.float32, fp32),
+    sends bf16 and fp32 to the kernel ``full_block_fits`` picks, with a
+    gradient or without (each kernel has an fp32 sibling, backward kernels
+    included), at every head dim that kernel takes, and fp16 to the plain
+    path; a layout the kernel does not read (a strided last dim) still goes
+    to the kernel, whose wrapper copies it to its layout."""
+    for dtype, want in [(torch.bfloat16, kind), (torch.float32, kind),
                         (torch.float16, "plain")]:
         x = torch.empty(shape, device="meta", dtype=dtype)
         assert tattn.kernel_route(x, x, x) == want
         assert tfa.takes(kind, x, x, x) == (want == kind)
         g = x.requires_grad_() if dtype != torch.float16 else x
-        assert tattn.kernel_route(g, g, g) == (
-            kind if dtype == torch.bfloat16 else "plain")
+        assert tattn.kernel_route(g, g, g) == want
         with torch.no_grad():
             assert tattn.kernel_route(g, g, g) == want
     wide = torch.empty(shape[:3] + (2 * shape[3],), device="meta",
@@ -407,11 +404,11 @@ def test_kernel_route_head_dim_and_cpu():
 
 
 def test_sdpa_counts_the_calls_no_kernel_takes():
-    """Off the CPU, a call above 256^2 logits that no kernel takes (fp32,
-    fp16, bf16 at D = 80) runs the plain path through ``sdpa_plain`` and
-    adds one to ``sdpa_plain.launches``; a call the size rule sends to the
-    plain path, and any call on the CPU, adds nothing."""
-    cases = [((2, 4, 260, 64), torch.float32, 1),
+    """Off the CPU, a call above 256^2 logits that no kernel takes (fp16
+    at either kernel's shape, bf16 at D = 80) runs the plain path through
+    ``sdpa_plain`` and adds one to ``sdpa_plain.launches``; a call the size
+    rule sends to the plain path, and any call on the CPU, adds nothing."""
+    cases = [((2, 4, 260, 64), torch.float16, 1),
              ((2, 1, 1024, 512), torch.float16, 1),
              ((2, 4, 260, 80), torch.bfloat16, 1),
              ((256, 16, 16, 64), torch.float32, 0)]

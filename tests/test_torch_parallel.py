@@ -188,7 +188,8 @@ ROUTES = {  # (S, D, dtype): route under auto, xla, pallas
     (16, 64, torch.bfloat16): ("plain", "plain", "full_block"),
     (300, 64, torch.bfloat16): ("full_block", "plain", "full_block"),
     (2048, 64, torch.bfloat16): ("stream", "plain", "stream"),
-    (300, 64, torch.float32): ("plain", "plain", "plain"),
+    (300, 64, torch.float32): ("full_block", "plain", "full_block"),
+    (300, 64, torch.float16): ("plain", "plain", "plain"),
     (300, 80, torch.bfloat16): ("plain", "plain", "plain"),
     (300, 12, torch.bfloat16): ("plain", "plain", "plain"),
 }
@@ -222,7 +223,7 @@ def test_ring_routing_and_fallback(attn_state):
     q, k = _meta(300)
     A.set_ring_context(None)
     with pytest.warns(UserWarning, match="no ring mesh"):
-        A.sdpa(*_meta(300, dtype=torch.float32)[:1] * 3,
+        A.sdpa(*_meta(300, dtype=torch.float16)[:1] * 3,
                implementation="ring")
     A.set_ring_context(_fake_mesh(1, 1, 4))
     assert A.kernel_route(q, k, k, "ring") == "ring"
@@ -230,7 +231,7 @@ def test_ring_routing_and_fallback(attn_state):
     # a shape
     A.set_ring_context(_fake_mesh(1, 1, 8))
     assert A.kernel_route(q, k, k, "ring") == "full_block"
-    x = _meta(300, dtype=torch.float32)[0]
+    x = _meta(300, dtype=torch.float16)[0]
     before = A.sdpa_plain.launches
     with pytest.warns(UserWarning, match="don't divide"):
         A.sdpa(x, x, x, implementation="ring")
@@ -243,12 +244,12 @@ def test_ring_routing_and_fallback(attn_state):
 def test_ring_kernel_hop_routing():
     """The ring's hop choice on ``meta`` tensors, which stand in for the
     card: under auto a bf16 block of 1024 local tokens or more takes the
-    kernel hop, and so does an fp32 one that needs no gradient (the
-    streaming forward's fp32 variant); one the kernels refuse (fp32 with a
-    gradient, fp16, a head dim off their list), where the JAX package runs
-    its Pallas hop, takes the plain hop and counts in
-    ``sdpa_plain.launches``; under 1024 tokens the plain hop, uncounted; a
-    CPU tensor of any dtype the kernel hop's plain versions."""
+    kernel hop, and so does an fp32 one, with a gradient or without (the
+    streaming kernels' fp32 siblings); one the kernels refuse (fp16, a head
+    dim off their list), where the JAX package runs its Pallas hop, takes
+    the plain hop and counts in ``sdpa_plain.launches``; under 1024 tokens
+    the plain hop, uncounted; a CPU tensor of any dtype the kernel hop's
+    plain versions."""
     from hivae_tpu_torch.parallel.ring_attention import _kernel_hop
 
     def blocks(s, d=64, dtype=torch.bfloat16):
@@ -264,14 +265,15 @@ def test_ring_kernel_hop_routing():
     assert A.sdpa_plain.launches == before
     fp32_grad = torch.empty((1, 2, 1024, 64), device="meta",
                             requires_grad=True)
-    for args in ((fp32_grad,) * 3,
-                 blocks(2048, dtype=torch.float16), blocks(1024, d=72)):
+    assert _kernel_hop(*(fp32_grad,) * 3, "auto")
+    assert A.sdpa_plain.launches == before
+    for args in (blocks(2048, dtype=torch.float16), blocks(1024, d=72)):
         assert not _kernel_hop(*args, "auto")
-    assert A.sdpa_plain.launches == before + 3
+    assert A.sdpa_plain.launches == before + 2
     assert _kernel_hop(*(torch.zeros(1, 2, 1024, 8),) * 3, "auto")
     assert _kernel_hop(*blocks(16), "flash")
     assert not _kernel_hop(*blocks(4096), "xla")
-    assert A.sdpa_plain.launches == before + 3
+    assert A.sdpa_plain.launches == before + 2
 
 
 def test_ring_refuses_a_group_that_is_not_the_mesh_axis():
