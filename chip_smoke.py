@@ -176,9 +176,9 @@ Phases (any failure exits non-zero without the final result line):
    streaming kernels, exactly one forward, delta, dQ and dK/dV launch and
    no ``sdpa_plain``) and the six discriminators at their defaults (train
    and eval: no launch), finite, expected shapes;
-   3v. (after 3q, before 3b strips the models; then after 3b on models
-   built anew, at ``EXPORT_INT8_DEPTH``) ``cli.export_sampler``'s
-   ``ClipSampler`` at full width, bf16 and int8: exported with ``torch.export``, saved, loaded and run
+   3v. (after 3b, on models built anew at full width and phase 8's
+   depth, ``EXPORT_DEPTH``) ``cli.export_sampler``'s
+   ``ClipSampler``, bf16 then int8: exported with ``torch.export``, saved, loaded and run
    on phase 3's clip and seeded noise; its uint8 frames against the live
    module's and its launches equal to the live run's and to the clip's
    formula at ``EXPORT_STEPS``;
@@ -615,6 +615,10 @@ STREAM_BWD_CHECKS = [
     # the CNN motion AE's loss backward (phase 3r)
     ("AE MapConv (D 640)", (16, 1, 1024, 640), False),
     ("AE MapConv, masked (D 640)", (4, 1, 1024, 640), True),
+    # ragged: the last 64-row block of a cluster and zero-filled walked rows
+    ("SD-VAE mid-block, ragged, masked (Sq 1000)", (2, 1, 1000, 512), True),
+    ("AE MapConv, ragged, masked (Sq 1000, D 640)", (2, 1, 1000, 640),
+     True),
 ]
 STREAM_MASKED_KEYS = slice(64, 128)
 # Gradients of bf16 attention, held relative to their largest element: both
@@ -1258,7 +1262,7 @@ def _f32_gate(got, want):
     return err, err <= KERNEL_F32_ATOL * max(1.0, want.abs().max().item())
 
 
-def check_f32_kernels(fa, failures, sms):
+def check_f32_kernels(fa, failures, sms, parent=None):
     """Phase 2, the fp32 full-block forward (and its qk-norm variant) and
     the fp32 backward kernels (full-block backward and delta; streaming
     delta, dQ and dK/dV) on fp32 operands, each against its fp32 plain
@@ -1268,7 +1272,12 @@ def check_f32_kernels(fa, failures, sms):
     no gradient. Each is timed beside its plain version and one PyTorch
     call in fp32 (SDPA's forward; for a backward SDPA forward + backward
     minus forward); its bound is its TF32 products (three a matmul) at
-    TF32's peak or its fp32 bytes, the larger. Returns the records."""
+    TF32's peak or its fp32 bytes, the larger. With ``parent`` (another
+    checkout's flash_attention module) the parent's fp32 full-block
+    forward, qk-norm forward and backward must give this checkout's bits
+    (their sources did not change), and the parent's streaming dQ and
+    dK/dV are timed beside these on the same inputs (``parent_ms``).
+    Returns the records."""
     import torch
     import torch.nn.functional as F
 
@@ -1304,6 +1313,20 @@ def check_f32_kernels(fa, failures, sms):
         delta, inv_l = fa.full_block_attention_delta(do, out, l)
         delta2, _ = fa.full_block_attention_delta(do, out, l)
         dwant, ilwant = fa.full_block_attention_delta_plain(do, out, l)
+        if parent is not None:
+            pout, pm, pl = parent._full_block_fwd(q, k, v, bias, scale,
+                                                  stats=True)
+            same = [torch.equal(a, b) for a, b in (
+                (out, pout), (m, pm), (l, pl),
+                (qn, parent.full_block_attention_qknorm(q, k, v, *norms,
+                                                        **kw)))]
+            same += [torch.equal(a, b) for a, b in zip(
+                grads, parent.full_block_attention_bwd(q, k, v, do, out, m,
+                                                       l, **kw))]
+            if not all(same):
+                failures.append(f"full_block fp32 {label}: the parent's "
+                                f"forward, qk-norm or backward gives other "
+                                f"bits ({same})")
         torch.cuda.synchronize()
         err, ok = _f32_gate(out, want)
         qerr, qok = _f32_gate(qn, qn_want)
@@ -1434,6 +1457,12 @@ def check_f32_kernels(fa, failures, sms):
             q, k, v, do, lse, delta, **kw), 10)
         dkv_ms = _time_ms(lambda: fa.stream_attention_bwd_dkv(
             q, k, v, do, lse, delta, **kw), 10)
+        parent_dq = parent_dkv = None
+        if parent is not None:
+            parent_dq = _time_ms(lambda: parent.stream_attention_bwd_dq(
+                q, k, v, do, lse, delta, **kw), 10)
+            parent_dkv = _time_ms(lambda: parent.stream_attention_bwd_dkv(
+                q, k, v, do, lse, delta, **kw), 10)
         d_ms = _time_ms(lambda: fa.stream_attention_delta(do, out), 20)
         d_plain = _time_ms(lambda: fa._delta(do, out), 20)
         d_lib = _time_ms(lambda: torch.linalg.vecdot(do, out, dim=-1), 20)
@@ -1450,17 +1479,23 @@ def check_f32_kernels(fa, failures, sms):
         k_bytes, k_ops = _bound(shape, masked, True, tensors=6, stats=1,
                                 flop_factor=24, elem_bytes=4,
                                 peak=PEAK_TF32_FLOPS)
-        ctas = {n: -(-sq // p.rows) * b * h for n, p in
+        # clusters of `cluster` CTAs (1 below D 512), one CTA a SM
+        clusters = {n: -(-sq // p.rows) * b * h for n, p in
+                    (("dq", plan.dq), ("dkv", plan.dkv))}
+        ctas = {n: clusters[n] * p.cluster for n, p in
                 (("dq", plan.dq), ("dkv", plan.dkv))}
         dq_cases.append(dict(common, max_abs_err=gerrs[0][0], ms=dq_ms,
-                             bytes_ms=q_bytes,
+                             parent_ms=parent_dq, bytes_ms=q_bytes,
                              ops_ms=q_ops, plan=dataclasses.asdict(plan.dq),
-                             ctas=ctas["dq"], waves=ctas["dq"] / sms))
+                             clusters=clusters["dq"], ctas=ctas["dq"],
+                             waves=ctas["dq"] / sms))
         dkv_cases.append(dict(common, max_abs_err=max(g[0] for g in
                                                       gerrs[1:]),
-                              ms=dkv_ms, bytes_ms=k_bytes, ops_ms=k_ops,
+                              ms=dkv_ms, parent_ms=parent_dkv,
+                              bytes_ms=k_bytes, ops_ms=k_ops,
                               plan=dataclasses.asdict(plan.dkv),
-                              ctas=ctas["dkv"], waves=ctas["dkv"] / sms))
+                              clusters=clusters["dkv"], ctas=ctas["dkv"],
+                              waves=ctas["dkv"] / sms))
         sdelta.append(dict(label=label, shape=list(shape), weight=weight,
                            max_abs_err=derr, ms=d_ms, plain_ms=d_plain,
                            library_ms=d_lib,
@@ -1469,12 +1504,13 @@ def check_f32_kernels(fa, failures, sms):
                            ops_ms=2 * b * h * sq * d / PEAK_FP32_FLOPS * 1e3))
         _log(f"  stream_bwd fp32 {label} {shape}: max|err| dq/dk/dv "
              f"{', '.join(f'{g[0]:.3g}' for g in gerrs)} delta {derr:.3g}; "
-             f"dq {dq_ms:.4f} ms (bound "
+             f"dq {dq_ms:.4f} ms (parent {parent_dq}, bound "
              f"{max(q_bytes, q_ops):.4f}, {plan.dq.rows} rows, "
-             f"{plan.dq.tile}-row tiles, {ctas['dq']} CTAs) dkv "
-             f"{dkv_ms:.4f} ms (bound "
-             f"{max(k_bytes, k_ops):.4f}, {plan.dkv.rows} rows, "
-             f"{plan.dkv.tile}-row tiles, {ctas['dkv']} CTAs) delta "
+             f"{plan.dq.tile}-row tiles, {ctas['dq']} CTAs in "
+             f"{clusters['dq']} clusters) dkv {dkv_ms:.4f} ms (parent "
+             f"{parent_dkv}, bound {max(k_bytes, k_ops):.4f}, "
+             f"{plan.dkv.rows} rows, {plan.dkv.tile}-row tiles, "
+             f"{ctas['dkv']} CTAs in {clusters['dkv']} clusters) delta "
              f"{d_ms:.4f} ms (plain {d_plain:.4f}, vecdot {d_lib:.4f}); sum "
              f"{dq_ms + dkv_ms + d_ms:.4f} ms, plain {plain_ms:.4f} ms, "
              f"sdpa fp32 bwd {lib_ms:.4f} ms")
@@ -3133,14 +3169,16 @@ LONGTAIL_LAYERS = 2
 # 116.9 s, saved in 61.9, loaded in 83.5; 7,176 nodes at 1 step in 23.2,
 # 14.6 and 11.4), and at 10 steps the two exports alone would take
 # this script past its time limit; one step still runs the whole chain
-# (encode, motion, a velocity call, decode) through the kernels' ops. The
-# int8 export runs AMD_N at full width and phase 8's depth, EXPORT_INT8_DEPTH
-# (2 + 2 encoder and 2 DiT layers): at full depth its 15,411 nodes took
-# 68.1 s to trace, 17.9 to save and 25.1 to load, the script's largest
-# phase, cut when the fp32 phases took it to 764.8 s
+# (encode, motion, a velocity call, decode) through the kernels' ops. Both
+# exports run AMD_N at full width and phase 8's depth, EXPORT_DEPTH (2 + 2
+# encoder and 2 DiT layers), on one model built for them: at full depth
+# the int8 export's 15,411 nodes took 68.1 s to trace, 17.9 to save and
+# 25.1 to load (cut when the fp32 phases took the script to 764.8 s), the
+# bf16 export's 7,177 nodes 17.1, 13.8 and 15.8 s (cut when the script
+# read 790.2 s, 10 s under its 800 s target)
 EXPORT_STEPS = 1
-EXPORT_INT8_DEPTH = dict(object_enc_num_layers=2, camera_enc_num_layers=2,
-                         diffusion_num_layers=2)
+EXPORT_DEPTH = dict(object_enc_num_layers=2, camera_enc_num_layers=2,
+                    diffusion_num_layers=2)
 
 
 def _counted_run(fn):
@@ -6201,7 +6239,7 @@ def main() -> int:
                + [check_qknorm(fa, failures, parent),
                   check_quant_ffn(qf, failures, parent_qf)]
                + check_bwd_kernels(fa, failures, parent=parent)
-               + check_f32_kernels(fa, failures, sms))
+               + check_f32_kernels(fa, failures, sms, parent))
     _log("phase 2b: sdpa in fp32 and fp16, an fp32 VAE encode, int8 at "
          "M <= 17")
     check_repairs(failures)
@@ -6225,19 +6263,19 @@ def main() -> int:
     _log("phase 3q: T2M sample at full width (20 layers, 16 x 128) on "
          "AMD_N's camera tokens, an int and a text label")
     paths.update(run_t2m_sample(serving, card, failures))
-    _log(f"phase 3v: cli.export_sampler's module exported at full width "
-         f"(AMD_N, {WINDOW} frames, {EXPORT_STEPS} steps, bf16), saved, "
-         f"loaded and run against the live module")
-    paths.update(run_export_sampler(serving, None, card, failures))
     _log("phase 3b: the int8 (w8a8) clip")
     paths["clip_int8"], _ = run_int8_clip(serving, bf16_clip, latency,
                                           args, failures)
     del serving
     torch.cuda.empty_cache()
-    _log("phase 3v: the int8 export (--quant int8) on AMD_N built anew at "
-         "phase 8's depth")
-    paths.update(run_export_sampler(build_serving_models(EXPORT_INT8_DEPTH),
-                                    "int8", card, failures))
+    _log(f"phase 3v: cli.export_sampler's module exported at full width "
+         f"and phase 8's depth (AMD_N built anew, {WINDOW} frames, "
+         f"{EXPORT_STEPS} steps), bf16 then int8 (--quant int8), saved, "
+         f"loaded and run against the live module")
+    export_models = build_serving_models(EXPORT_DEPTH)
+    paths.update(run_export_sampler(export_models, None, card, failures))
+    paths.update(run_export_sampler(export_models, "int8", card, failures))
+    del export_models
     _log("phase 3m: the int8 A2V clip")
     paths.update(run_a2v_int8(a2v_latency, card, failures))
     _log("phase 3n: the int8 A2V clip with the LearnableToken head")

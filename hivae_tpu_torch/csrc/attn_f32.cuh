@@ -1,8 +1,9 @@
 // fp32 attention on the tensor cores (sm_90a): the tile machinery of the
 // fp32 full-block forward (flash_full_block.cu), the fp32 full-block
 // backward (flash_full_block_bwd.cu) and the fp32 streaming backward
-// (flash_stream_bwd.cu). With fp32 operands the TPU kernels keep P and dS in
-// fp32 (their casts to v's or q's dtype are no-ops), and so do these.
+// (flash_stream_bwd.cu, whose cluster CTA at D >= 512 uses the fragment
+// and product helpers here). With fp32 operands the TPU kernels keep P and
+// dS in fp32 (their casts to v's or q's dtype are no-ops), and so do these.
 //
 // Every product runs as three TF32 mma.sync m16n8k8 of a hi/lo split
 // (split_tf32, mma1688_tf32 in attn_common.cuh; flash_stream.cu's note has
@@ -22,7 +23,10 @@
 // puts B's rows 2t and 2t + 1 at banks 8t + g and 8t + 4 + g, distinct
 // across the warp.
 //
-// The gradient CTA (f32_grad_cta), one design for every fp32 backward. A
+// The gradient CTA (f32_grad_cta): the fp32 full-block backward (#2f) at
+// every head dim and the fp32 streaming backward at D <= 256 only (from D
+// 512 the streaming dQ and dK/dV run flash_stream_bwd.cu's cluster CTA,
+// fc_cta, which splits D over 2 or 4 CTAs to keep 64 rows a CTA). A
 // CTA of 8 warps owns R rows of one side (query rows for dQ; keys for dK
 // and dV) and walks tiles of BT rows of the other through a two-slot
 // cp.async ring: the resident pair (Q and dO, or K and V) stays in shared

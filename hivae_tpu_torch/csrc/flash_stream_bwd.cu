@@ -937,46 +937,434 @@ int launch_delta(const void* dout, const void* out, float* delta, int B,
 // serves the perceptual loss's fp32 SD-VAE decode (D 512), the CNN motion
 // AE's MapConv (D 640) and the ring's fp32 hop (D 64) with a gradient.
 //
-// Bounds on the H100 SXM at (16, 1, 1024, 512): dQ 6*B*H*S^2*D = 51.5
-// GFLOP, three TF32 products each, 0.312 ms at 494.7 TFLOP/s (bytes: 4
-// fp32 tensors and 2 rows, 0.040 ms); dK/dV 8*B*H*S^2*D = 68.7 GFLOP,
-// 0.417 ms (6 tensors, 0.060 ms). Both bound by operations.
+// Bounds on the H100 SXM: at (16, 1, 1024, 512) dQ does 6*B*H*S^2*D = 51.5
+// GFLOP, three TF32 products each, 0.3126 ms at 494.7 TFLOP/s (bytes: q, k,
+// v, dO, dQ and 2 rows, 0.050 ms); dK/dV 8*B*H*S^2*D = 68.7 GFLOP, 0.4167
+// ms; at (16, 1, 1024, 640) 0.3907 and 0.5209 ms. Both bound by operations.
+// mma.sync m16n8k8 .tf32, which takes the A operand the threads split in
+// registers, runs at 288.8-312.6 TFLOP/s on the H100 alone (4 to 8
+// independent accumulators a warp, 8 or 16 warps a SM; 125.2 with one at 8
+// warps; scripts/mma_sync_rate.cu), so through it these products take at
+// least 0.49-0.54 (dQ) and 0.66-0.71 ms (dK/dV) at D 512.
 //
-// Why the bf16 plan does not carry over. At D = 512 a dQ CTA's resident Q
-// and dO of 64 rows take 64 x 512 x 4 x 2 = 256 KB at fp32, above the 227
-// KB of a block before any walked tile, and the 2-CTA cluster along D
-// still leaves no room for the walked slots; the 64 x 512 fp32 dK and dV
-// accumulators would be 256 KB of registers. The split here: fewer
-// resident rows and narrower walked tiles, with the head dim split over
-// the warps instead of over a cluster. fg_rows gives each CTA at most 64
-// accumulator registers a thread: dQ 64 rows at D <= 256, 32 at 512, 16 at
-// 640; dK/dV 64 at D <= 128, 32 at 256, 16 at 512 and 640. fg_tile then
-// takes the widest walked tile that fits: 32 rows at D <= 128 (and dK/dV
-// at 256), 16 (dQ at 256, dK/dV at 512), 8 (dQ at 512, both at 640): 177-
-// 215 KB, one CTA a SM. Where a tile has fewer than 8 score blocks of
-// 16 x 8 (16 or 32 rows against 8 or 16), the warps split the head dim of
-// S and dP (2, 4 or 8 slices, summed in a fixed order) and each warp owns
-// D / 8 columns of the gradient. No cluster, no atomics: every gradient
-// element is written by one CTA in a fixed order, so two launches give the
-// same bits. Keys past Sk and query rows past Sq get P = dS = 0; a key
-// masked by the -1e30 bias has P = exp(-1e30 - lse) = 0 wherever its row
-// attends to a real key, so a fully masked key block gets no gradient, and
-// a row with no real key keeps the TPU kernels' behaviour, as the bf16
-// kernels do.
+// D <= 256: attn_f32.cuh's gradient CTA (f32_grad_cta, its note).
+//
+// D >= FC_DIM (fc_cta): a cluster along D. One CTA's fp32 accumulators of
+// 64 rows x D take 64 (dQ) or 128 (dK and dV) registers a thread only up to
+// D 256, and a resident pair of 64 fp32 rows of D = 512 columns is 256 KB,
+// past the 227 KB of a block before any walked tile. So the gradient CTA,
+// which these head dims ran before, held 32 query rows (dQ) or 16 keys
+// (dK/dV) at D 512, 16 at 640, with 8- or 16-row walked tiles: every CTA
+// streamed its head's whole walked side, 2 (dQ) and 4 GiB (dK/dV) through
+// L2 a launch at (16, 1, 1024, 512), 5 GiB each at D 640. Here a cluster
+// of CL CTAs (fc_cluster: 2 at D 512, 4 at D 640) shares 64 rows: rank r
+// holds columns [r D / CL, (r + 1) D / CL) of every operand and output,
+// so its accumulators are 64 / 128
+// registers (D 512) or 40 / 80 (D 640), its resident pair 64 x D / CL, its
+// walked tiles D / CL wide: 16 rows at D 512, 32 at D 640 (fc_tile), one
+// CTA a SM. The walked side crosses L2 once for 64 rows: 1 GiB for either
+// kernel at (16, 1, 1024, 512), 1.25 GiB at D 640.
+// A walked tile, 8 warps, in four steps:
+//  1. scores: warps 0-3 form X = A1.B1^T (S; S^T = K.Q^T for dK/dV) of one
+//     16-row m tile each over the CTA's columns, warps 4-7 Y = A2.B2^T (dP;
+//     dP^T), hi.hi and the small terms in their own sums (f32_scores),
+//     added once: the CTA's partial, in registers.
+//  2. exchange: each thread stores its partial fragments (float4s, [n
+//     block][thread]) into this CTA's slot in every peer by st.async, whose
+//     bytes the peer's `landed` mbarrier counts (complete_tx), waits on its
+//     own `landed`, and sums its fragments over the cluster in rank order,
+//     its own from registers: ((p0 + p1) + p2) + p3, the same bits in
+//     every CTA. After a CTA barrier the sums go to the P and dS tiles
+//     (rows BT + 8 floats apart) over the slots; a CTA barrier. A slot is
+//     stored into again only after its owner has arrived on the storer's
+//     `freed` mbarrier, which it does once the tile's gradients are done
+//     (thread 0 after the next tile's first CTA barrier, release at
+//     cluster scope; CL - 1 arrivals a phase).
+//  3. P = exp(s scale + bias - lse) and dS = P (dP - delta), elementwise,
+//     written over them; a CTA barrier.
+//  4. gradients: warp w owns columns [w D / CL / 8, ...) of all 64 rows (D
+//     512; at 640, 40 columns of 32 rows): dQ += dS.K, or dK += dS^T.Q and
+//     dV += P^T.dO, each tile's product into a fresh sum (fc_grad).
+// No atomics, a fixed order of sums, every gradient element written by one
+// CTA: two launches give the same bits. Shared memory at D 512 (floats):
+// the resident pair 2 x 64 x 260 and 2 rows of 64; two slots of a walked
+// pair 2 x 16 x 260 and 2 rows of 16; the peer's slot 2 x 64 x 16, which
+// the P and dS tiles 2 x 64 x 24 overwrite once a CTA barrier shows it
+// read (`freed` is arrived after the tile's gradient): 212,736 B; at D 640
+// the three peers' slots (48 KB) take the tiles: 218,112 B. The plan is
+// flash_attention.py::_stream_bwd_f32_plan (F32ClusterPlan), which the CPU
+// tests check; the C entry points refuse any other.
+//
+// Versions, each timed against the parent (the gradient CTA) and this one in
+// one run by scripts/time_stream_bwd_f32.py on an H100 80GB HBM3 at 700 W,
+// dQ / dK/dV ms at (16, 1, 1024, 512), then at D 640 (the first of two
+// rounds, which agree within 2%): this one 1.3110 / 1.6409, 2.0227 /
+// 2.3919; the parent 1.6979 / 2.2024, 2.6377 / 2.9402. The exchange by
+// ld.shared::cluster after a barrier.cluster a tile: 1.4042 / 1.6780,
+// 2.2326 / 2.5131. The P and dS tiles beside the peer's slot at D 512 (one
+// CTA barrier fewer, `freed` arrived as soon as the slot is read): 1.3788
+// / 1.6539. A cluster of 4 at D 512 (128 columns, 32-row tiles): 1.8234 /
+// 2.1765. 16-row tiles at D 640: 2.5211 / 2.9294. Each TF32 product into
+// its own accumulator in both products: 1.3021 / 1.6841, 2.0671 / 2.7504
+// (dK/dV spills at D 640). What holds it back, from the same run's
+// versions with one part compiled out (wrong values, the rest the same):
+// without the exchange 1.2153 / 1.5069, 1.6540 / 2.0250; without the score
+// products 0.6382 / 0.9916, 1.5776 / 1.9277; without the gradient products
+// 1.0456 / 1.0833, 1.7069 / 1.7522; without the hi/lo split (hi = lo = x)
+// 1.1122 / 1.5963, 1.7832 / 2.1936. So at D 512 the score products take
+// ~0.66 ms (about half of mma.sync's rate: each warp's 16 x BT blocks over
+// D / CL, their fragments read from shared memory and split every tile,
+// since no plan leaves room for split copies), the gradients 0.27 / 0.56,
+// the split 0.20 / 0.04 and the exchange 0.10 / 0.13 (0.37 at D 640, with
+// 3 peers); the steps of a tile do not overlap, one CTA of 8 warps a SM.
+//
+// Masks as the bf16 kernels: keys past Sk and query rows past Sq get P =
+// dS = 0; a key masked by the -1e30 bias has P = exp(-1e30 - lse) = 0
+// wherever its row attends to a real key, so a fully masked key block gets
+// no gradient; a row with no real key keeps the TPU kernels' behaviour.
+// ---------------------------------------------------------------------------
+
+constexpr int FC_DIM = 512;   // head dims from here on run the cluster CTA
+constexpr int FC_ROWS = 64;   // resident rows of a cluster CTA
+
+// The cluster along D: 2 CTAs where each CTA's D / 2 columns are a
+// multiple of 32 and at most 256 (the dK and dV accumulators of 64 rows in
+// at most 128 registers a thread), else 4.
+template <int D>
+__host__ __device__ constexpr int fc_cluster() {
+  return (D / 2) % 32 == 0 && D / 2 <= 256 ? 2 : 4;
+}
+
+// Shared floats of a cluster CTA of dc columns walking tiles of `tile`
+// rows, the exchange aside: the resident pair (rows dc + 4 apart) and 2
+// fp32 rows of it, two slots of a walked pair and 2 fp32 rows of tile.
+__host__ __device__ constexpr int fc_base_floats(int dc, int tile) {
+  return 2 * FC_ROWS * (dc + 4) + 2 * FC_ROWS +
+         2 * (2 * tile * (dc + 4) + 2 * tile);
+}
+
+// The exchange: a slot for each peer's X and Y partials (2 x 64 x tile
+// floats), which the P and dS tiles (2 x 64 x (tile + 8)) overwrite once
+// the slots are read.
+__host__ __device__ constexpr int fc_recv_floats(int tile, int cl) {
+  return (cl - 1) * 2 * FC_ROWS * tile > 2 * FC_ROWS * (tile + 8)
+             ? (cl - 1) * 2 * FC_ROWS * tile
+             : 2 * FC_ROWS * (tile + 8);
+}
+
+__host__ __device__ constexpr int fc_smem_at(int dc, int tile, int cl) {
+  return 4 * (fc_base_floats(dc, tile) + fc_recv_floats(tile, cl));
+}
+
+// Walked rows a tile: 32 or 16, the most that fit one block.
+template <int D>
+__host__ __device__ constexpr int fc_tile() {
+  return fc_smem_at(D / fc_cluster<D>(), 32, fc_cluster<D>()) <= F32_SMEM_MAX
+             ? 32
+             : 16;
+}
+
+template <int D>
+__host__ __device__ constexpr int fc_smem() {
+  return fc_smem_at(D / fc_cluster<D>(), fc_tile<D>(), fc_cluster<D>());
+}
+
+// acc[m] += A.B over the BT rows of a walked tile, for each of a warp's MTW
+// 16-row tiles m of A (P or dS, rows lda apart, read k-permuted) against
+// its NCW 8-column n tiles of B (the walked tile's rows, ldb apart): m by
+// m, each m's product into a fresh accumulator added to acc[m] once, so
+// that A's fragments are split once a tile (attn_f32.cuh's f32_grad goes
+// n chunk by n chunk, whose fresh accumulators for all MTW m tiles would
+// here take as many registers as acc). With TWO, acc2 += A2.B2 alongside.
+template <int MTW, int NCW, int BT, bool TWO>
+__device__ __forceinline__ void fc_grad(float (&acc)[MTW][NCW][4],
+                                        float (&acc2)[MTW][NCW][4],
+                                        const float* A, const float* A2,
+                                        int lda, const float* B,
+                                        const float* B2, int ldb, int g,
+                                        int t) {
+#pragma unroll
+  for (int m = 0; m < MTW; ++m) {
+    float tmp[NCW][4], tmp2[NCW][4];
+#pragma unroll
+    for (int n = 0; n < NCW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tmp[n][e] = tmp2[n][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < BT / 8; ++ks) {
+      uint32_t ah[4], al[4], ch[4], cl[4];
+      f32_frag_a_perm(ah, al, A + 16 * m * lda + 8 * ks, lda, g, t);
+      if constexpr (TWO)
+        f32_frag_a_perm(ch, cl, A2 + 16 * m * lda + 8 * ks, lda, g, t);
+#pragma unroll
+      for (int n = 0; n < NCW; ++n) {
+        uint32_t bh[2], bl[2];
+        f32_frag_b_perm(bh, bl, B + 8 * ks * ldb + 8 * n, ldb, g, t);
+        mma3_tf32(tmp[n], ah, al, bh, bl);
+        if constexpr (TWO) {
+          f32_frag_b_perm(bh, bl, B2 + 8 * ks * ldb + 8 * n, ldb, g, t);
+          mma3_tf32(tmp2[n], ch, cl, bh, bl);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NCW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[m][n][e] += tmp[n][e];
+        if constexpr (TWO) acc2[m][n][e] += tmp2[n][e];
+      }
+  }
+}
+
+// One CTA of a cluster of the fp32 streaming backward at D >= FC_DIM: the
+// dQ (DKV false) or dK and dV (DKV true) of FC_ROWS rows, over this CTA's
+// D / CL columns of every operand and output.
+template <int D, bool DKV>
+__device__ __forceinline__ void fc_cta(const F32GradArgs& a, float* smem) {
+  constexpr int CL = fc_cluster<D>(), DC = D / CL, R = FC_ROWS;
+  constexpr int BT = fc_tile<D>(), LD = DC + 4, BTP = BT + 8, NT = BT / 8;
+  constexpr int CG = f32_col_groups<DC>(), MG = F32_WARPS / CG;
+  constexpr int MTW = R / 16 / MG, NCW = DC / CG / 8;
+  constexpr int TILE = BT * LD, SLOT = 2 * TILE + 2 * BT, PART = R * BTP;
+  static_assert(R / 16 * 2 == F32_WARPS && DC % 32 == 0 &&
+                    MTW * MG * 16 == R && NCW * CG * 8 == DC,
+                "plan");
+  float* A1 = smem;
+  float* A2 = A1 + R * LD;
+  float* ring = A2 + R * LD;
+  constexpr int XB = 2 * R * BT;  // floats of one CTA's partials
+  float* recv = ring + 2 * SLOT;  // the peers' partials, slot by rank; then
+  float* pds = recv;              // [X/P, Y/dS][R][BTP] over them
+  float* ST = recv + fc_recv_floats(BT, CL);  // 2 fp32 rows of R
+  __shared__ uint64_t xbar[2];  // landed: 1 arrival + the peers' bytes;
+                                // freed: CL - 1 arrivals
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t rank = cluster_rank();
+  const int b = blockIdx.z, h = blockIdx.y, r0 = (blockIdx.x / CL) * R;
+  const int c0 = rank * DC;  // this CTA's first column
+  const int nres = DKV ? a.Sk : a.Sq, nwalk = DKV ? a.Sq : a.Sk;
+  const float* ra1 = (DKV ? head_ptr(a.k, a.sk, b, h) : head_ptr(a.q, a.sq, b, h)) + c0;
+  const float* ra2 = (DKV ? head_ptr(a.v, a.sv, b, h) : head_ptr(a.dout, a.sdo, b, h)) + c0;
+  const float* wa1 = (DKV ? head_ptr(a.q, a.sq, b, h) : head_ptr(a.k, a.sk, b, h)) + c0;
+  const float* wa2 = (DKV ? head_ptr(a.dout, a.sdo, b, h) : head_ptr(a.v, a.sv, b, h)) + c0;
+  const long rs1 = DKV ? a.sk.s : a.sq.s, rs2 = DKV ? a.sv.s : a.sdo.s;
+  const long ws1 = DKV ? a.sq.s : a.sk.s, ws2 = DKV ? a.sdo.s : a.sv.s;
+  const long rb = ((long)b * a.H + h) * a.Sq;  // row statistics of (b, h)
+  const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
+  const int njobs = (nwalk + BT - 1) / BT;
+
+  // walked tile i into slot i % 2: its two tiles and its fp32 rows (dK/dV:
+  // the queries' lse and delta; dQ: the keys' bias)
+  auto issue = [&](int i) {
+    float* sl = ring + (i & 1) * SLOT;
+    f32_load_tile<DC, BT>(sl, wa1, ws1, i * BT, nwalk, tid);
+    f32_load_tile<DC, BT>(sl + TILE, wa2, ws2, i * BT, nwalk, tid);
+    float* rows = sl + 2 * TILE;
+    if constexpr (DKV) {
+      load_row_f32<BT, F32_THREADS>(rows, a.s0 + rb, i * BT, a.Sq, tid);
+      load_row_f32<BT, F32_THREADS>(rows + BT, a.s2 + rb, i * BT, a.Sq, tid);
+    } else {
+      if (brow) load_row_f32<BT, F32_THREADS>(rows, brow, i * BT, a.Sk, tid);
+    }
+    ring_commit();
+  };
+
+  // the resident pair and its fp32 rows (dQ: the rows' lse and delta;
+  // dK/dV: the keys' bias) ride in job 0's group
+  f32_load_tile<DC, R>(A1, ra1, rs1, r0, nres, tid);
+  f32_load_tile<DC, R>(A2, ra2, rs2, r0, nres, tid);
+  if constexpr (DKV) {
+    if (brow) load_row_f32<R, F32_THREADS>(ST, brow, r0, a.Sk, tid);
+  } else {
+    load_row_f32<R, F32_THREADS>(ST, a.s0 + rb, r0, a.Sq, tid);
+    load_row_f32<R, F32_THREADS>(ST + R, a.s2 + rb, r0, a.Sq, tid);
+  }
+  issue(0);
+  if (tid == 0) {
+    mbar_init(xbar, 1);
+    mbar_init(xbar + 1, CL - 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  cluster_arrive();
+  cluster_wait();  // every CTA of the cluster runs, its mbarriers set up
+  // this CTA's slot in the CTA of rank q: ranks in order, q's own left out
+  uint32_t prec[CL], pland[CL], pfree[CL];
+#pragma unroll
+  for (int q = 0; q < CL; ++q) {
+    const int slot = (int)rank < q ? rank : rank - 1;
+    prec[q] = peer_addr(recv + slot * XB, q);
+    pland[q] = peer_addr(xbar, q);
+    pfree[q] = peer_addr(xbar + 1, q);
+  }
+
+  float acc[MTW][NCW][4], acc2[MTW][NCW][4];
+#pragma unroll
+  for (int m = 0; m < MTW; ++m)
+#pragma unroll
+    for (int n = 0; n < NCW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = acc2[m][n][e] = 0.f;
+  // step 1: warps 0-3 X of m tile `mt`, warps 4-7 Y; step 3: columns
+  // [col, col + DC / CG) of rows 16 mg MTW..
+  const int xy = warp / 4, mt = warp % 4;
+  const int mg = warp / CG, col = (warp % CG) * (DC / CG);
+
+  for (int i = 0; i < njobs; ++i) {
+    ring_wait_upto(0);
+    __syncthreads();  // tile i has landed; tile i - 1's slot, P and dS free
+    if (tid == 0) {
+      if (i > 0) {  // the peers may push tile i into this CTA
+#pragma unroll
+        for (int q = 0; q < CL; ++q) {
+          if (q != (int)rank) mbar_arrive_remote(pfree[q]);
+        }
+      }
+      mbar_expect(xbar, (CL - 1) * XB * 4);
+    }
+    if (i + 1 < njobs) issue(i + 1);
+    const float* sl = ring + (i & 1) * SLOT;
+    const float* rows = sl + 2 * TILE;
+    float x[NT][4];
+    {
+      float big[NT][4], small[NT][4];
+      f32_scores<NT, DC / 8>(big, small, (xy ? A2 : A1) + 16 * mt * LD,
+                             sl + xy * TILE, LD, g, t);
+#pragma unroll
+      for (int nb = 0; nb < NT; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[nb][e] = big[nb][e] + small[nb][e];
+    }
+    if (i > 0) mbar_wait_cluster(xbar + 1, (i - 1) & 1);  // peers' slots free
+#pragma unroll
+    for (int q = 0; q < CL; ++q) {
+      if (q != (int)rank) {
+#pragma unroll
+        for (int nb = 0; nb < NT; ++nb)
+          st_async_v4(prec[q] + 16 * (nb * F32_THREADS + tid), x[nb],
+                      pland[q]);
+      }
+    }
+    mbar_wait_cluster(xbar, i & 1);  // the peers' partials of tile i
+    float s[NT][4];
+#pragma unroll
+    for (int q = 0; q < CL; ++q) {
+#pragma unroll
+      for (int nb = 0; nb < NT; ++nb) {
+        float v[4];
+        if (q == (int)rank) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = x[nb][e];
+        } else {
+          const float4 w = *reinterpret_cast<const float4*>(
+              recv + (q < (int)rank ? q : q - 1) * XB +
+              4 * (nb * F32_THREADS + tid));
+          v[0] = w.x; v[1] = w.y; v[2] = w.z; v[3] = w.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = q == 0 ? v[e] : s[nb][e] + v[e];
+      }
+    }
+    __syncthreads();  // the slots are read
+    {
+      float* p = pds + xy * PART + (16 * mt + g) * BTP + 2 * t;
+#pragma unroll
+      for (int nb = 0; nb < NT; ++nb) {
+        *reinterpret_cast<float2*>(p + 8 * nb) = make_float2(s[nb][0], s[nb][1]);
+        *reinterpret_cast<float2*>(p + 8 * BTP + 8 * nb) =
+            make_float2(s[nb][2], s[nb][3]);
+      }
+    }
+    __syncthreads();
+    // step 2: P and dS over the summed X and Y, in place
+    for (int e = tid; e < R * BT / 4; e += F32_THREADS) {
+      const int r = e / (BT / 4), c = 4 * (e % (BT / 4));
+      const float4 x = *reinterpret_cast<const float4*>(pds + r * BTP + c);
+      const float4 y =
+          *reinterpret_cast<const float4*>(pds + PART + r * BTP + c);
+      const float xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+      float p[4], ds[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p[j] = ds[j] = 0.f;
+        if (i * BT + c + j < nwalk) {
+          if constexpr (DKV) {
+            p[j] = sb_p(xs[j], a.scale, brow ? ST[r] : 0.f, rows[c + j]);
+            ds[j] = p[j] * (ys[j] - rows[BT + c + j]);
+          } else {
+            p[j] = sb_p(xs[j], a.scale, brow ? rows[c + j] : 0.f, ST[r]);
+            ds[j] = p[j] * (ys[j] - ST[R + r]);
+          }
+        }
+      }
+      if constexpr (DKV)
+        *reinterpret_cast<float4*>(pds + r * BTP + c) =
+            make_float4(p[0], p[1], p[2], p[3]);
+      *reinterpret_cast<float4*>(pds + PART + r * BTP + c) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();
+    // step 3: dQ += dS.K, or dK += dS^T.Q and dV += P^T.dO
+    fc_grad<MTW, NCW, BT, DKV>(acc, acc2, pds + PART + 16 * mg * MTW * BTP,
+                               pds + 16 * mg * MTW * BTP, BTP, sl + col,
+                               sl + TILE + col, LD, g, t);
+  }
+  // every push into this CTA and every arrival on its mbarriers has been
+  // waited for
+
+  float* o1;
+  float* o2 = nullptr;
+  long os1;
+  if constexpr (DKV) {
+    o1 = head_ptr(a.dk, a.sdk, b, h);
+    os1 = a.sdk.s;
+    o2 = head_ptr(a.dv, a.sdv, b, h);
+  } else {
+    o1 = head_ptr(a.dq, a.sdq, b, h);
+    os1 = a.sdq.s;
+  }
+#pragma unroll
+  for (int m = 0; m < MTW; ++m)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = r0 + 16 * (mg * MTW + m) + 8 * hf + g;
+      if (row >= nres) continue;
+#pragma unroll
+      for (int n = 0; n < NCW; ++n) {
+        const int c = c0 + col + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(o1 + (long)row * os1 + c) =
+            make_float2(acc[m][n][2 * hf] * a.scale,
+                        acc[m][n][2 * hf + 1] * a.scale);
+        if constexpr (DKV)
+          *reinterpret_cast<float2*>(o2 + (long)row * a.sdv.s + c) =
+              make_float2(acc2[m][n][2 * hf], acc2[m][n][2 * hf + 1]);
+      }
+    }
+}
+
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS, 1)
 stream_bwd_dq_f32_kernel(const F32GradArgs a) {
   extern __shared__ float4 sbf_smem[];
-  f32_grad_cta<D, fg_rows<D, 1>(), fg_tile<D, 1>(), false, true>(
-      a, reinterpret_cast<float*>(sbf_smem), blockIdx.x);
+  if constexpr (D >= FC_DIM)
+    fc_cta<D, false>(a, reinterpret_cast<float*>(sbf_smem));
+  else
+    f32_grad_cta<D, fg_rows<D, 1>(), fg_tile<D, 1>(), false, true>(
+        a, reinterpret_cast<float*>(sbf_smem), blockIdx.x);
 }
 
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS, 1)
 stream_bwd_dkv_f32_kernel(const F32GradArgs a) {
   extern __shared__ float4 sbf_smem[];
-  f32_grad_cta<D, fg_rows<D, 2>(), fg_tile<D, 2>(), true, true>(
-      a, reinterpret_cast<float*>(sbf_smem), blockIdx.x);
+  if constexpr (D >= FC_DIM)
+    fc_cta<D, true>(a, reinterpret_cast<float*>(sbf_smem));
+  else
+    f32_grad_cta<D, fg_rows<D, 2>(), fg_tile<D, 2>(), true, true>(
+        a, reinterpret_cast<float*>(sbf_smem), blockIdx.x);
 }
 
 template <int D>
@@ -990,29 +1378,48 @@ stream_delta_f32_kernel(const float* __restrict__ dout,
   if (row < rows && (threadIdx.x & 7) == 0) delta[row] = acc;
 }
 
-// Takes only the plans flash_attention.py::_stream_bwd_f32_plan returns.
+// Takes only the plans flash_attention.py::_stream_bwd_f32_plan returns:
+// below FC_DIM the gradient CTA's (cluster 1), from it the cluster CTA's.
 template <int D, bool DKV>
-int launch_stream_bwd_f32(const F32GradArgs& a, int B, int rows, int tile,
-                          int smem, cudaStream_t stream) {
+int launch_stream_bwd_f32(const F32GradArgs& a, int B, int cluster,
+                          int rows, int tile, int smem, cudaStream_t stream) {
   constexpr int NOUT = DKV ? 2 : 1;
-  if (rows != fg_rows<D, NOUT>() || tile != fg_tile<D, NOUT>() ||
-      smem != fg_smem<D, NOUT>() || smem > SB_SMEM_MAX)
+  constexpr bool CLU = D >= FC_DIM;
+  constexpr int CL = CLU ? fc_cluster<D>() : 1;
+  constexpr int R = CLU ? FC_ROWS : fg_rows<D, NOUT>();
+  constexpr int BT = CLU ? fc_tile<D>() : fg_tile<D, NOUT>();
+  constexpr int SM = CLU ? fc_smem<D>() : fg_smem<D, NOUT>();
+  if (cluster != CL || rows != R || tile != BT || smem != SM ||
+      smem > SB_SMEM_MAX)
     return HV_BAD_PLAN;
   void (*kern)(F32GradArgs) =
       DKV ? stream_bwd_dkv_f32_kernel<D> : stream_bwd_dq_f32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(((DKV ? a.Sk : a.Sq) + rows - 1) / rows, a.H, B);
-  kern<<<grid, F32_THREADS, smem, stream>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((DKV ? a.Sk : a.Sq) + R - 1) / R * CL, a.H, B);
+  cfg.blockDim = dim3(F32_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 int stream_bwd_f32(bool dkv, const void* q, const void* k, const void* v,
                    const float* bias, const void* dout, const float* lse,
                    const float* delta, void* dq, void* dk, void* dv, int B,
-                   int H, int Sq, int Sk, int D, int rows, int tile, int smem,
-                   float scale, const long* st, void* stream) {
+                   int H, int Sq, int Sk, int D, int cluster, int rows,
+                   int tile, int smem, float scale, const long* st,
+                   void* stream) {
   F32GradArgs a;
   a.q = static_cast<const float*>(q);
   a.k = static_cast<const float*>(k);
@@ -1035,8 +1442,10 @@ int stream_bwd_f32(bool dkv, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HV_SBF(DD)                                                          \
   case DD:                                                                  \
-    return dkv ? launch_stream_bwd_f32<DD, true>(a, B, rows, tile, smem, s) \
-               : launch_stream_bwd_f32<DD, false>(a, B, rows, tile, smem, s);
+    return dkv ? launch_stream_bwd_f32<DD, true>(a, B, cluster, rows, tile, \
+                                                 smem, s)                     \
+               : launch_stream_bwd_f32<DD, false>(a, B, cluster, rows, tile, \
+                                                  smem, s);
   switch (D) {
     HV_SBF(64)
     HV_SBF(128)
@@ -1109,18 +1518,18 @@ extern "C" int hv_stream_delta(const void* dout, const void* out,
 }
 
 // fp32 entry points, as hv_stream_bwd_dq, hv_stream_bwd_dkv and
-// hv_stream_delta with fp32 tensors; `rows`, `tile` and `smem` are the dQ
-// or dK/dV plan of flash_attention.py::_stream_bwd_f32_plan.
+// hv_stream_delta with fp32 tensors; `cluster`, `rows`, `tile` and `smem`
+// are the dQ or dK/dV plan of flash_attention.py::_stream_bwd_f32_plan.
 extern "C" int hv_stream_bwd_dq_f32(const void* q, const void* k,
                                     const void* v, const float* bias,
                                     const void* dout, const float* lse,
                                     const float* delta, void* dq, int B,
-                                    int H, int Sq, int Sk, int D, int rows,
-                                    int tile, int smem, float scale,
+                                    int H, int Sq, int Sk, int D, int cluster,
+                                    int rows, int tile, int smem, float scale,
                                     const long* strides, void* stream) {
   return hv::stream_bwd_f32(false, q, k, v, bias, dout, lse, delta, dq,
-                            nullptr, nullptr, B, H, Sq, Sk, D, rows, tile,
-                            smem, scale, strides, stream);
+                            nullptr, nullptr, B, H, Sq, Sk, D, cluster, rows,
+                            tile, smem, scale, strides, stream);
 }
 
 extern "C" int hv_stream_bwd_dkv_f32(const void* q, const void* k,
@@ -1128,12 +1537,12 @@ extern "C" int hv_stream_bwd_dkv_f32(const void* q, const void* k,
                                      const void* dout, const float* lse,
                                      const float* delta, void* dk, void* dv,
                                      int B, int H, int Sq, int Sk, int D,
-                                     int rows, int tile, int smem,
-                                     float scale, const long* strides,
-                                     void* stream) {
+                                     int cluster, int rows, int tile,
+                                     int smem, float scale,
+                                     const long* strides, void* stream) {
   return hv::stream_bwd_f32(true, q, k, v, bias, dout, lse, delta, nullptr,
-                            dk, dv, B, H, Sq, Sk, D, rows, tile, smem, scale,
-                            strides, stream);
+                            dk, dv, B, H, Sq, Sk, D, cluster, rows, tile,
+                            smem, scale, strides, stream);
 }
 
 extern "C" int hv_stream_delta_f32(const void* dout, const void* out,

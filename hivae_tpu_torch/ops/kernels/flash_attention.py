@@ -48,7 +48,9 @@ pre-pass (``full_block_bwd_f32_kernel``, same plan) and the streaming
 backward's dQ, dK/dV and delta (``stream_bwd_*_f32_kernel``, plan
 ``_stream_bwd_f32_plan``) serve ``--mp no`` training, the fp32 frozen
 models the head trainers run, the perceptual loss's fp32 decode and the
-ring's fp32 hops. Their design: ``csrc/attn_f32.cuh``. Each counts its
+ring's fp32 hops. Their design: ``csrc/attn_f32.cuh``; from D = 512 the
+streaming dQ and dK/dV run a cluster of 2 or 4 CTAs along D instead
+(``F32ClusterPlan``, ``csrc/flash_stream_bwd.cu``'s note). Each counts its
 launches apart from its bf16 sibling, in ``<wrapper>_f32.launches``
 (``stream_attention_f32``, ``full_block_attention_f32``,
 ``full_block_attention_qknorm_f32``, ``full_block_attention_bwd_f32``,
@@ -95,7 +97,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -599,11 +601,12 @@ class F32GradPlan:
     ``fg_tile``, ``fg_split`` and ``fg_smem`` in attn_f32.cuh): ``rows``
     resident rows (query rows for dQ, keys for dK/dV), walked tiles of
     ``tile`` rows, the score products split over ``split`` slices of the
-    head dim, ``smem`` dynamic shared bytes."""
+    head dim, ``smem`` dynamic shared bytes; one CTA a cluster."""
     rows: int
     tile: int
     split: int
     smem: int
+    cluster = 1
 
 
 def _f32_split(rows: int, tile: int) -> int:
@@ -661,15 +664,75 @@ def _full_block_f32_plan(d: int) -> FullBlockF32Plan:
         dq=dq, dkv=dkv, bwd_smem=max(dq.smem, dkv.smem))
 
 
+# the fp32 streaming backward from D = 512 on (csrc/flash_stream_bwd.cu,
+# ``fc_cta``): a cluster of CTAs along D, each 64 rows of its columns
+STREAM_BWD_F32_CLUSTER_DIM = 512
+STREAM_BWD_F32_CLUSTER_ROWS = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class F32ClusterPlan:
+    """Launch plan of the fp32 streaming backward's cluster CTA
+    (``fc_cluster``, ``fc_tile`` and ``fc_smem`` in flash_stream_bwd.cu):
+    a cluster of ``cluster`` CTAs along D, each holding ``cols`` columns of
+    every operand and output for ``rows`` resident rows; ``stages`` ring
+    slots of two walked ``tile``-row tiles; ``smem`` dynamic shared bytes.
+    The score products are summed over the cluster's ``split`` = cluster
+    column slices in rank order."""
+    cluster: int
+    cols: int
+    rows: int
+    tile: int
+    stages: int
+    smem: int
+
+    @property
+    def split(self) -> int:
+        return self.cluster
+
+
+def _f32_cluster_smem(cols: int, rows: int, tile: int, cluster: int) -> int:
+    """Shared bytes (``fc_smem_at``): the resident pair (rows cols + 4
+    floats apart) and 2 fp32 rows, two slots of a walked pair and 2 fp32
+    rows of tile, and a slot for each peer's X and Y partials (2 x rows x
+    tile), which the P and dS tiles (rows tile + 8 apart) overwrite."""
+    return 4 * (2 * rows * (cols + 4) + 2 * rows
+                + 2 * (2 * tile * (cols + 4) + 2 * tile)
+                + max((cluster - 1) * 2 * rows * tile,
+                      2 * rows * (tile + 8)))
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_cluster_plan(d: int) -> F32ClusterPlan:
+    """The cluster plan at head dim ``d`` >= 512, dQ and dK/dV alike: 2 CTAs
+    where each CTA's d / 2 columns are a multiple of 32 and at most 256
+    (the dK and dV accumulators of 64 rows in at most 128 registers a
+    thread), else 4; walked tiles of 32 rows, or 16 where 32 would not fit
+    one block."""
+    rows = STREAM_BWD_F32_CLUSTER_ROWS
+    cluster = 2 if (d // 2) % 32 == 0 and d // 2 <= 256 else 4
+    cols = d // cluster
+    tile = next(t for t in (32, 16)
+                if _f32_cluster_smem(cols, rows, t, cluster) <= SMEM_PER_BLOCK)
+    return F32ClusterPlan(cluster=cluster, cols=cols, rows=rows, tile=tile,
+                          stages=2,
+                          smem=_f32_cluster_smem(cols, rows, tile, cluster))
+
+
 @dataclasses.dataclass(frozen=True)
 class StreamBwdF32Plan:
-    """Launch plans of the fp32 streaming dQ and dK/dV kernels."""
-    dq: F32GradPlan
-    dkv: F32GradPlan
+    """Launch plans of the fp32 streaming dQ and dK/dV kernels: the
+    gradient CTA's (``F32GradPlan``, one CTA a cluster) below D = 512, the
+    cluster CTA's (``F32ClusterPlan``) from it."""
+    dq: Union[F32GradPlan, F32ClusterPlan]
+    dkv: Union[F32GradPlan, F32ClusterPlan]
 
 
 @functools.lru_cache(maxsize=None)
 def _stream_bwd_f32_plan(d: int) -> StreamBwdF32Plan:
+    if d >= STREAM_BWD_F32_CLUSTER_DIM:
+        plan = _f32_cluster_plan(d)
+        return StreamBwdF32Plan(dq=plan, dkv=plan)
     return StreamBwdF32Plan(dq=_f32_grad_plan(d, 1),
                             dkv=_f32_grad_plan(d, 2))
 
@@ -746,12 +809,12 @@ def _full_block_delta_f32_fn():
 
 @functools.lru_cache(maxsize=None)
 def _stream_dq_f32_fn():
-    return _fn("flash_stream_bwd", "hv_stream_bwd_dq_f32", 8, 8)
+    return _fn("flash_stream_bwd", "hv_stream_bwd_dq_f32", 8, 9)
 
 
 @functools.lru_cache(maxsize=None)
 def _stream_dkv_f32_fn():
-    return _fn("flash_stream_bwd", "hv_stream_bwd_dkv_f32", 9, 8)
+    return _fn("flash_stream_bwd", "hv_stream_bwd_dkv_f32", 9, 9)
 
 
 @functools.lru_cache(maxsize=None)
@@ -935,11 +998,11 @@ stream_attention_delta.launches = 0
 def _stream_bwd_launch(d, f32, dkv):
     """(entry point, plan arguments) of the dQ (``dkv`` False) or dK/dV
     kernel at head dim ``d``: bf16 (cluster, slots, shared bytes) or fp32
-    (rows, tile, shared bytes)."""
+    (cluster, rows, tile, shared bytes)."""
     if f32:
         plan = getattr(_stream_bwd_f32_plan(d), "dkv" if dkv else "dq")
         return ((_stream_dkv_f32_fn if dkv else _stream_dq_f32_fn)(),
-                (plan.rows, plan.tile, plan.smem))
+                (plan.cluster, plan.rows, plan.tile, plan.smem))
     plan = _stream_bwd_plan(d)
     return ((_stream_dkv_fn if dkv else _stream_dq_fn)(),
             (plan.cluster, plan.stages, plan.smem))

@@ -753,11 +753,15 @@ def test_full_block_f32_kernels_match_plain(shape, sk, masked):
 
 
 # (q shape, Sk or None, masked) of the fp32 streaming backward: every head
-# dim, ragged against its plans' rows and tiles, Sq != Sk; a masked case
-# masks the key block 64:128 in every row too (no row without a key)
+# dim, ragged against its plans' rows and tiles, Sq != Sk (at D 512 and
+# 640 against the cluster's 64-row blocks and 16- or 32-row walked tiles);
+# a masked case masks the key block 64:128 in every row too (no row without
+# a key)
 STREAM_BWD_F32_CASES = [
     ((16, 1, 1024, 512), None, False), ((2, 1, 333, 512), 300, True),
+    ((2, 1, 1000, 512), 1000, True),
     ((4, 1, 1024, 640), None, True), ((1, 1, 100, 640), 77, False),
+    ((2, 1, 1000, 640), 700, True),
     ((2, 2, 300, 256), None, True), ((2, 3, 190, 128), 260, True),
     ((1, 16, 2048, 64), None, False), ((2, 2, 129, 64), None, True)]
 

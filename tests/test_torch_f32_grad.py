@@ -96,7 +96,8 @@ def _stream_model(q, k, v, do, scale, bias, products):
     """(dq, dk, dv) as the fp32 streaming kernels form them: the fp32
     forward's natural-log LSE and output, P = exp(s * scale + bias - lse),
     dS = P (dP - delta), the score products over the dQ and dK/dV plans' k
-    slices and the gradient sums over their walked tiles
+    slices (from D 512 the cluster's column slices, one a CTA, added in
+    rank order) and the gradient sums over their walked tiles
     (``_stream_bwd_f32_plan``)."""
     plan = tfa._stream_bwd_f32_plan(q.shape[-1])
     b = 0.0 if bias is None else bias[:, None, None, :]
@@ -137,9 +138,12 @@ def _errors(got, want):
 @pytest.mark.parametrize("kind,shape,sk,masked", [
     # a flagship joint block's head dim, a ragged last tile and a mask
     ("full_block", (1, 2, 160, 64), 150, True),
-    # the SD-VAE mid-block's head dim: k slices of 128 columns, 8- and
-    # 16-row walked tiles
+    # the SD-VAE mid-block's head dim: a cluster of 2 slices of 256
+    # columns, 16-row walked tiles
     ("stream", (1, 1, 256, 512), 256, False),
+    # the CNN motion AE's: a cluster of 4 slices of 160 columns, 32-row
+    # walked tiles, ragged against the 64-row blocks
+    ("stream", (1, 1, 100, 640), 77, True),
 ])
 def test_f32_bwd_model_meets_the_fp32_gate(kind, shape, sk, masked):
     """Why the fp32 backward kernels take three TF32 products a matmul:
@@ -175,36 +179,60 @@ def test_full_block_f32_plan_fits_a_block(d):
     assert max(plan.fwd_smem, plan.bwd_smem) <= tfa.SMEM_PER_BLOCK
 
 
-# (dQ rows, tile, k slices), (dK/dV rows, tile, k slices) by head dim, as
-# flash_stream_bwd.cu's note states them
+# (dQ rows, tile, k slices), (dK/dV rows, tile, k slices) by head dim of
+# the gradient CTA (attn_f32.cuh), as flash_stream_bwd.cu's note states
+# them
 STREAM_BWD_F32 = {64: ((64, 32, 1), (64, 32, 1)),
                   128: ((64, 32, 1), (64, 32, 1)),
-                  256: ((64, 16, 1), (32, 32, 1)),
-                  512: ((32, 8, 4), (16, 16, 4)),
-                  640: ((16, 8, 8), (16, 8, 8))}
+                  256: ((64, 16, 1), (32, 32, 1))}
+# (cluster, columns a CTA, rows, walked tile, shared bytes, dQ and dK/dV
+# accumulator registers a thread) of the cluster CTA, dQ and dK/dV alike
+STREAM_BWD_F32_CLUSTER = {512: (2, 256, 64, 16, 212736, 64, 128),
+                          640: (4, 160, 64, 32, 218112, 40, 80)}
 
 
 @pytest.mark.parametrize("d", tfa._STREAM_DIMS)
 def test_stream_bwd_f32_plan_fits_a_block(d):
-    """The fp32 streaming backward's plans at every streaming head dim: the
-    rows a CTA whose accumulators take at most 64 registers a thread (80
-    at D 640, at the 16-row floor), the widest walked tile that fits one
+    """The fp32 streaming backward's plans at every streaming head dim.
+    Below D 512, the gradient CTA's: the rows a CTA whose accumulators take
+    at most 64 registers a thread, the widest walked tile that fits one
     block beside the resident pair, the slots and the partial score tiles
     (a tile of twice the rows would not), and the score products split
-    over D where a tile has fewer than 8 blocks."""
+    over D where a tile has fewer than 8 blocks. From D 512, the cluster
+    CTA's: 64 rows of D / cluster columns, the smallest cluster whose dK
+    and dV accumulators take at most 128 registers a thread, and the
+    widest walked tile (32 or 16 rows) that fits one block."""
     plan = tfa._stream_bwd_f32_plan(d)
-    for grad, outputs, want in ((plan.dq, 1, STREAM_BWD_F32[d][0]),
-                                (plan.dkv, 2, STREAM_BWD_F32[d][1])):
-        assert (grad.rows, grad.tile, grad.split) == want
-        assert grad.smem == tfa._f32_grad_smem(d, grad.rows, grad.tile)
-        assert grad.smem <= tfa.SMEM_PER_BLOCK
-        if grad.tile < 32:
-            assert tfa._f32_grad_smem(d, grad.rows, 2 * grad.tile) > \
-                tfa.SMEM_PER_BLOCK
-        assert grad.rows * d * outputs <= (80 if d == 640 else 64) * \
-            tfa.F32_THREADS
-        assert grad.split * (grad.rows // 16) * (grad.tile // 8) >= \
-            tfa.F32_WARPS
+    if d < tfa.STREAM_BWD_F32_CLUSTER_DIM:
+        for grad, outputs, want in ((plan.dq, 1, STREAM_BWD_F32[d][0]),
+                                    (plan.dkv, 2, STREAM_BWD_F32[d][1])):
+            assert (grad.rows, grad.tile, grad.split) == want
+            assert grad.smem == tfa._f32_grad_smem(d, grad.rows, grad.tile)
+            assert grad.smem <= tfa.SMEM_PER_BLOCK
+            if grad.tile < 32:
+                assert tfa._f32_grad_smem(d, grad.rows, 2 * grad.tile) > \
+                    tfa.SMEM_PER_BLOCK
+            assert grad.rows * d * outputs <= 64 * tfa.F32_THREADS
+            assert grad.split * (grad.rows // 16) * (grad.tile // 8) >= \
+                tfa.F32_WARPS
+        return
+    cluster, cols, rows, tile, smem, dq_regs, dkv_regs = \
+        STREAM_BWD_F32_CLUSTER[d]
+    assert plan.dq == plan.dkv
+    p = plan.dq
+    assert (p.cluster, p.cols, p.rows, p.tile, p.stages, p.smem) == (
+        cluster, cols, rows, tile, 2, smem)
+    assert p.split == cluster and cols * cluster == d and cols % 32 == 0
+    assert smem == tfa._f32_cluster_smem(cols, rows, tile, cluster) <= \
+        tfa.SMEM_PER_BLOCK
+    if tile < 32:
+        assert tfa._f32_cluster_smem(cols, rows, 2 * tile, cluster) > \
+            tfa.SMEM_PER_BLOCK
+    assert (rows * cols // tfa.F32_THREADS,
+            2 * rows * cols // tfa.F32_THREADS) == (dq_regs, dkv_regs)
+    assert dkv_regs <= 128
+    if cluster > 2:   # a smaller cluster would pass 128 registers
+        assert 2 * rows * (d // (cluster // 2)) // tfa.F32_THREADS > 128
 
 
 @pytest.mark.parametrize("kind,shape", [("full_block", (2, 4, 260, 64)),
