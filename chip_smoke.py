@@ -54,8 +54,10 @@ Phases (any failure exits non-zero without the final result line):
    (with its fully masked key block, which must get no gradient), each
    within ``KERNEL_F32_ATOL`` x max(1, max|plain|) of its fp32 plain
    version, launched twice to the same bits, and timed beside SDPA in fp32
-   and its plain version; with ``--parent`` the fp32 streaming forward
-   must give the parent's bits. Each
+   and its plain version; with ``--parent`` the fp32 streaming forward,
+   the full-block delta pre-pass and the streaming delta, dQ and dK/dV
+   must give the parent's bits, and the parent's fp32 full-block forward,
+   qk-norm forward and backward are timed beside these. Each
    kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
@@ -352,8 +354,9 @@ to ``DIR/profile_train.txt``, of one ``validate`` call to
 ``DIR/profile_train_cli.txt``. ``--parent DIR`` builds the kernels of
 another checkout too (the parent commit unpacked with ``git archive``) and
 times its full-block forward, qk-norm forward, backward, streaming forward
-(bf16 and fp32), streaming backward (dQ and dK/dV) and int8 FFN-up in
-phase 2 beside this checkout's, in the same process; its custom ops stay
+(bf16 and fp32), streaming backward (dQ and dK/dV), fp32 full-block
+forward, qk-norm forward and backward and int8 FFN-up in phase 2 beside
+this checkout's, in the same process; its custom ops stay
 out of torch's registry (``_LocalOp``), so this checkout's calls still
 reach this checkout's kernels.
 """
@@ -754,6 +757,35 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, key: str, n: int = 10):
+    """ms of device time a call of ``fn`` in kernels whose names hold
+    ``key``, from ``torch.profiler``'s CUDA activity over n calls after
+    one: the kernels alone, where CUDA events around calls that take less
+    device time than their launch path time the host. None where three
+    traces caught no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):   # a trace that caught no kernel is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if key in e.key:
+                t = getattr(e, "self_device_time_total", None)
+                us += e.self_cuda_time_total if t is None else t
+        if us > 0:
+            return us / n / 1e3
+    return None   # not measured: the profiler caught no such kernel
+
+
+def _ms_or_none(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
 
 
 def _bound(shape, with_bias: bool, with_lse: bool, tensors: int = 4,
@@ -1224,8 +1256,7 @@ def check_stream_f32(fa, failures, gen, sms, parent=None):
             q, k, v, attn_mask=mask, scale=scale), 20)
         parent_ms = None
         if parent is not None:
-            # the kernel's code did not change with its TF32 helpers' move
-            # to attn_common.cuh: the parent's gives the same bits
+            # the kernel's code is the parent's: the same bits
             pout, plse = parent.stream_attention(q, k, v, **kw)
             if not (torch.equal(out, pout) and torch.equal(lse, plse)):
                 failures.append(f"stream fp32 {label}: the parent's kernel "
@@ -1274,10 +1305,12 @@ def check_f32_kernels(fa, failures, sms, parent=None):
     minus forward); its bound is its TF32 products (three a matmul) at
     TF32's peak or its fp32 bytes, the larger. With ``parent`` (another
     checkout's flash_attention module) the parent's fp32 full-block
-    forward, qk-norm forward and backward must give this checkout's bits
-    (their sources did not change), and the parent's streaming dQ and
-    dK/dV are timed beside these on the same inputs (``parent_ms``).
-    Returns the records."""
+    forward, qk-norm forward and backward are timed beside these on the
+    same inputs (``parent_ms``), and the kernels whose code the parent
+    shares must give its bits: the full-block delta pre-pass and the
+    streaming delta, dQ and dK/dV. The full-block kernels' device time
+    alone (``_device_ms``) goes beside each, and the parent's
+    (``device_ms``, ``parent_device_ms``). Returns the records."""
     import torch
     import torch.nn.functional as F
 
@@ -1313,20 +1346,12 @@ def check_f32_kernels(fa, failures, sms, parent=None):
         delta, inv_l = fa.full_block_attention_delta(do, out, l)
         delta2, _ = fa.full_block_attention_delta(do, out, l)
         dwant, ilwant = fa.full_block_attention_delta_plain(do, out, l)
-        if parent is not None:
-            pout, pm, pl = parent._full_block_fwd(q, k, v, bias, scale,
-                                                  stats=True)
-            same = [torch.equal(a, b) for a, b in (
-                (out, pout), (m, pm), (l, pl),
-                (qn, parent.full_block_attention_qknorm(q, k, v, *norms,
-                                                        **kw)))]
-            same += [torch.equal(a, b) for a, b in zip(
-                grads, parent.full_block_attention_bwd(q, k, v, do, out, m,
-                                                       l, **kw))]
-            if not all(same):
-                failures.append(f"full_block fp32 {label}: the parent's "
-                                f"forward, qk-norm or backward gives other "
-                                f"bits ({same})")
+        if parent is not None and not all(
+                torch.equal(a, b) for a, b in zip(
+                    (delta, inv_l),
+                    parent.full_block_attention_delta(do, out, l))):
+            failures.append(f"full_block fp32 {label}: the parent's delta "
+                            f"pre-pass gives other bits")
         torch.cuda.synchronize()
         err, ok = _f32_gate(out, want)
         qerr, qok = _f32_gate(qn, qn_want)
@@ -1360,6 +1385,27 @@ def check_f32_kernels(fa, failures, sms, parent=None):
             q, k, v, *norms, **kw), 20)
         q_plain = _time_ms(lambda: fa.full_block_attention_qknorm_plain(
             q, k, v, *norms, **kw), 5)
+        p_ms = pq_ms = pb_ms = None
+        # the kernels' device time alone (this checkout's forward goes
+        # through its custom op, the parent's through a plain function:
+        # their launch paths differ, and small shapes time those)
+        calls = {"fwd": lambda mod: mod.full_block_attention(q, k, v, **kw),
+                 "qkn": lambda mod: mod.full_block_attention_qknorm(
+                     q, k, v, *norms, **kw),
+                 "bwd": lambda mod: mod.full_block_attention_bwd(
+                     q, k, v, do, out, m, l, **kw)}
+        dev = {n: _device_ms(lambda: c(fa), "full_block")
+               for n, c in calls.items()}
+        pdev = dict.fromkeys(calls)
+        if parent is not None:
+            p_ms = _time_ms(lambda: parent.full_block_attention(q, k, v,
+                                                                **kw), 20)
+            pq_ms = _time_ms(lambda: parent.full_block_attention_qknorm(
+                q, k, v, *norms, **kw), 20)
+            pb_ms = _time_ms(lambda: parent.full_block_attention_bwd(
+                q, k, v, do, out, m, l, **kw), 20)
+            pdev = {n: _device_ms(lambda: c(parent), "full_block")
+                    for n, c in calls.items()}
 
         def ln_sdpa():
             d = shape[3]
@@ -1387,14 +1433,18 @@ def check_f32_kernels(fa, failures, sms, parent=None):
         b, h, sq, d = shape
         common = dict(label=label, shape=list(shape), sk=kv[2])
         fwd.append(dict(common, weight=fwd_w, max_abs_err=err, ms=ms,
-                        plain_ms=plain_ms, library_ms=lib_ms,
-                        bytes_ms=f_bytes, ops_ms=f_ops))
+                        parent_ms=p_ms, device_ms=dev["fwd"],
+                        parent_device_ms=pdev["fwd"], plain_ms=plain_ms,
+                        library_ms=lib_ms, bytes_ms=f_bytes, ops_ms=f_ops))
         qkn.append(dict(common, weight=fwd_w, max_abs_err=qerr, ms=q_ms,
-                        plain_ms=q_plain, library_ms=q_lib, bytes_ms=f_bytes,
-                        ops_ms=f_ops))
+                        parent_ms=pq_ms, device_ms=dev["qkn"],
+                        parent_device_ms=pdev["qkn"], plain_ms=q_plain,
+                        library_ms=q_lib, bytes_ms=f_bytes, ops_ms=f_ops))
         bwd.append(dict(common, weight=bwd_w,
                         max_abs_err=max(g[0] for g in gerrs), ms=b_ms,
-                        plain_ms=b_plain, library_ms=b_lib,
+                        parent_ms=pb_ms, device_ms=dev["bwd"],
+                        parent_device_ms=pdev["bwd"], plain_ms=b_plain,
+                        library_ms=b_lib,
                         bytes_ms=b_bytes, ops_ms=b_ops,
                         plan=dataclasses.asdict(fa._full_block_f32_plan(d))))
         # dO and O read, l read, delta and 1/l written; 2 B H Sq D fp32 ops
@@ -1406,13 +1456,17 @@ def check_f32_kernels(fa, failures, sms, parent=None):
         _log(f"  full_block fp32 {label} {shape} Sk {kv[2]}: max|err| out "
              f"{err:.3g} qknorm {qerr:.3g} dq/dk/dv "
              f"{', '.join(f'{g[0]:.3g}' for g in gerrs)} delta {derr:.3g}; "
-             f"forward {ms:.4f} ms (plain "
+             f"forward {ms:.4f} ms (parent {p_ms}, plain "
              f"{plain_ms:.4f}, sdpa fp32 {lib_ms:.4f}, bound "
-             f"{max(f_bytes, f_ops):.4f}); qknorm {q_ms:.4f} ms (plain "
-             f"{q_plain:.4f}, layer_norm + sdpa {q_lib:.4f}); backward "
-             f"{b_ms:.4f} ms with delta {d_ms:.4f} (vecdot {d_lib:.4f}; plain "
+             f"{max(f_bytes, f_ops):.4f}); qknorm {q_ms:.4f} ms (parent "
+             f"{pq_ms}, plain {q_plain:.4f}, layer_norm + sdpa "
+             f"{q_lib:.4f}); backward {b_ms:.4f} ms (parent {pb_ms}) with "
+             f"delta {d_ms:.4f} (vecdot {d_lib:.4f}; plain "
              f"{b_plain:.4f}, sdpa fp32 bwd {b_lib:.4f}, bound "
-             f"{max(b_bytes, b_ops):.4f})")
+             f"{max(b_bytes, b_ops):.4f}); device time forward / qknorm "
+             f"/ backward with delta "
+             f"{' / '.join(_ms_or_none(dev[n]) for n in calls)} ms "
+             f"(parent {' / '.join(_ms_or_none(pdev[n]) for n in calls)})")
 
     dq_cases, dkv_cases, sdelta = [], [], []
     for label, shape, weight, masked in [
@@ -1447,6 +1501,16 @@ def check_f32_kernels(fa, failures, sms, parent=None):
         if not all(torch.equal(a, b) for a, b in
                    zip((delta, dq, dk, dv), again)):
             failures.append(f"stream_bwd fp32 {label}: two launches differ")
+        if parent is not None and not all(
+                torch.equal(a, b) for a, b in zip(
+                    (delta, dq, dk, dv),
+                    (parent.stream_attention_delta(do, out),
+                     parent.stream_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                    **kw),
+                     *parent.stream_attention_bwd_dkv(q, k, v, do, lse,
+                                                      delta, **kw)))):
+            failures.append(f"stream_bwd fp32 {label}: the parent's delta, "
+                            f"dq or dk/dv gives other bits")
         if bias is not None and max(
                 dk[:, :, STREAM_MASKED_KEYS].abs().max().item(),
                 dv[:, :, STREAM_MASKED_KEYS].abs().max().item()) != 0:

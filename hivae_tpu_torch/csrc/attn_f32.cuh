@@ -5,28 +5,38 @@
 // and product helpers here). With fp32 operands the TPU kernels keep P and
 // dS in fp32 (their casts to v's or q's dtype are no-ops), and so do these.
 //
-// Every product runs as three TF32 mma.sync m16n8k8 of a hi/lo split
-// (split_tf32, mma1688_tf32 in attn_common.cuh; flash_stream.cu's note has
-// the error table): a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi. The tensor core
-// truncates as it accumulates, so sums are kept short: the score products
-// keep the small terms in their own accumulator, added to the hi.hi sum once
-// at the end, and each walked tile's gradient (or output) product goes into
-// a fresh accumulator that reaches the running sum by one fp32 addition.
+// Every product runs as three TF32 products of a hi/lo split (split_tf32 in
+// attn_common.cuh; flash_stream.cu's note has the error table): a.b =
+// a_lo.b_hi + a_hi.b_lo + a_hi.b_hi. The tensor core truncates as it
+// accumulates, so sums are kept short: the score products keep the small
+// terms in their own accumulator, added to the hi.hi sum once at the end,
+// and each walked tile's gradient (or output) product goes into a fresh
+// accumulator that reaches the running sum by one fp32 addition.
 // flash_attention.py::tf32_matmul models the split on the CPU.
 //
-// Tiles sit in shared memory with rows D + 4 floats apart (D is a multiple
-// of 32, so a row starts 4 banks after the one above it): the fragment reads
-// of a score product, rows g and columns t of a lane, meet no bank
-// conflict. A gradient product's A operand (P or dS) comes from a C-layout
-// tile, so its k index is taken permuted: index t is column 2t and t + 4
-// column 2t + 1, which makes a lane's two A values of a row one float2 and
-// puts B's rows 2t and 2t + 1 at banks 8t + g and 8t + 4 + g, distinct
-// across the warp.
+// Two ways to run those products:
+//  * The full-block kernels (#1f, #2f, #3f) split every operand once a
+//    tile and multiply on TF32 wgmma (the "split once" section below): a
+//    raw tile is split by one pass of the CTA into hi and lo parts, K-major
+//    128-byte-swizzled tiles that wgmma reads through descriptors, and the
+//    products whose k runs over a tile's rows read a transposed copy (at
+//    .tf32 wgmma takes K-major operands only). Their bound is the TF32
+//    rate, 494.7 TFLOP/s for three products a matmul; the plans and the
+//    steps are in the two sources' notes.
+//  * The streaming backward at D <= 256 keeps the mma.sync m16n8k8 CTA
+//    below (f32_grad_cta), which splits each fragment as it reads it from
+//    tiles of rows D + 4 floats apart (the fragment reads of a score
+//    product, rows g and columns t of a lane, meet no bank conflict). A
+//    gradient product's A operand (P or dS) comes from a C-layout tile, so
+//    its k index is taken permuted: index t is column 2t and t + 4 column
+//    2t + 1, which makes a lane's two A values of a row one float2 and puts
+//    B's rows 2t and 2t + 1 at banks 8t + g and 8t + 4 + g, distinct across
+//    the warp. The full-block kernels' transposed copies store their k
+//    positions in the same order, so P and dS feed wgmma from registers.
 //
-// The gradient CTA (f32_grad_cta): the fp32 full-block backward (#2f) at
-// every head dim and the fp32 streaming backward at D <= 256 only (from D
-// 512 the streaming dQ and dK/dV run flash_stream_bwd.cu's cluster CTA,
-// fc_cta, which splits D over 2 or 4 CTAs to keep 64 rows a CTA). A
+// The gradient CTA (f32_grad_cta): the fp32 streaming backward at D <= 256
+// (from D 512 the streaming dQ and dK/dV run flash_stream_bwd.cu's cluster
+// CTA, fc_cta, which splits D over 2 or 4 CTAs to keep 64 rows a CTA). A
 // CTA of 8 warps owns R rows of one side (query rows for dQ; keys for dK
 // and dV) and walks tiles of BT rows of the other through a two-slot
 // cp.async ring: the resident pair (Q and dO, or K and V) stays in shared
@@ -37,11 +47,10 @@
 //     and where there are fewer than 8 blocks, the head dim too (WK slices
 //     of D, summed over the slices in a fixed order in step 2); partial
 //     sums go to shared tiles.
-//  2. every thread takes elements of the tile: P (as the forward forms it:
-//     base-2 with the forward's m and 1/l for the full-block kernels, or
-//     exp(s - lse) from the natural-log LSE for the streaming ones, as the
-//     TPU kernels do) and dS = P (dP - delta), written over the partials.
-//     A walked row past the sequence gets P = dS = 0.
+//  2. every thread takes elements of the tile: P (exp(s - lse) from the
+//     natural-log LSE, as the TPU kernels do) and dS = P (dP - delta),
+//     written over the partials. A walked row past the sequence gets
+//     P = dS = 0.
 //  3. gradients: each warp owns a slice of D columns for its rows and adds
 //     dS.B1 (dQ: dS.K; dK: dS^T.Q) and, for dK/dV, P.B2 (dV: P^T.dO).
 // The accumulators of R rows x D (x 2 for dK and dV) live in registers, so
@@ -251,6 +260,254 @@ __host__ __device__ constexpr int f32_chunk(int ncw, int mtw) {
 }
 
 // ---------------------------------------------------------------------------
+// Operands split once per tile, products on TF32 wgmma (the fp32 full-block
+// forward and backward). A tile lands raw (rows D floats apart) by cp.async;
+// one pass over it writes its hi and lo parts as K-major 128-byte-swizzled
+// tiles, in the layout the product reading them needs; every later read is
+// a wgmma descriptor, so no inner loop splits anything.
+// ---------------------------------------------------------------------------
+
+// Rows [row0, row0 + ROWS) of an fp32 (S, D) matrix whose rows are `ss`
+// elements apart into a shared tile of rows D floats apart, rows at or past
+// n zero-filled: this thread's share of the 16-byte cp.async copies of NT
+// threads (the caller commits the group).
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void f32_copy_rows(float* dst, const float* src,
+                                              long ss, int row0, int n,
+                                              int tid) {
+  constexpr int NC4 = D / 4;
+#pragma unroll 4
+  for (int i = tid; i < ROWS * NC4; i += NT) {
+    const int r = i / NC4, c = i - r * NC4;
+    const bool valid = row0 + r < n;
+    cp_async16(dst + r * D + 4 * c,
+               src + (valid ? (long)(row0 + r) * ss + 4 * c : 0), valid);
+  }
+}
+
+// Byte offset of 16-byte chunk c (k elements 4c..4c+3) of row r in a K-major
+// 128-byte-swizzled fp32 tile of NROWS rows: ceil(K / 32) column blocks of
+// NROWS x 128 bytes, chunk c % 8 of row r at chunk (c % 8) ^ (r % 8), as
+// load_tile_sw128 lays bf16 tiles out. Tiles start 1024-byte aligned.
+__device__ __forceinline__ int sw128_f32_off(int nrows, int r, int c) {
+  return (c >> 3) * nrows * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// The descriptor of k step kk (8 floats) of such a tile from row r0 (a
+// multiple of 8).
+__device__ __forceinline__ uint64_t desc_f32(const unsigned char* t,
+                                             int nrows, int r0, int kk) {
+  return desc_sw128(t + (kk >> 2) * nrows * 128 + r0 * 128 + (kk & 3) * 32);
+}
+
+__device__ __forceinline__ void split_tf32x4(const float4& x, float4& hi,
+                                             float4& lo) {
+  uint32_t h[4], l[4];
+  split_tf32(x.x, h[0], l[0]);
+  split_tf32(x.y, h[1], l[1]);
+  split_tf32(x.z, h[2], l[2]);
+  split_tf32(x.w, h[3], l[3]);
+  hi = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                   __uint_as_float(h[2]), __uint_as_float(h[3]));
+  lo = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                   __uint_as_float(l[2]), __uint_as_float(l[3]));
+}
+
+// The ROWS x D raw tile (rows D floats apart) as it is, K-major over D: the
+// A operand of a score product, or its B operand (the keys, or the walked
+// queries, as its N rows). Eight neighbouring threads take one row's
+// 128 bytes, which the swizzle keeps within one row: no bank conflict.
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void split_rows_tf32(unsigned char* hi,
+                                                unsigned char* lo,
+                                                const float* raw, int tid) {
+  constexpr int C = D / 4;
+#pragma unroll 4
+  for (int e = tid; e < ROWS * C; e += NT) {
+    const int r = e / C, c = e - r * C;
+    float4 h, l;
+    split_tf32x4(*reinterpret_cast<const float4*>(raw + r * D + 4 * c), h, l);
+    const int off = sw128_f32_off(ROWS, r, c);
+    *reinterpret_cast<float4*>(hi + off) = h;
+    *reinterpret_cast<float4*>(lo + off) = l;
+  }
+}
+
+// The transposed copy of a tile of ROWS rows x D, K-major over its rows:
+// the B operand of a product whose k runs over the tile's rows (P.V, dS.K,
+// dS^T.Q, P^T.dO), a tile of D rows (the product's columns) whose k
+// positions [p0, p0 + ROWS) hold the tile's rows in the order the A
+// operand reads them: its A comes from a score accumulator, whose columns
+// 2t and 2t + 1 of each 8 are k indices t and t + 4, so k position 8c + p
+// holds row 8c + 2p (p < 4) or 8c + 2(p - 4) + 1. Work item e of KC x DC
+// takes 4 positions (one 16-byte chunk kc) of 4 columns (chunk dc), four
+// neighbouring items neighbouring columns and the next four the other half
+// of the same 8 rows: it reads rows r0 + 2i, i < 4, at chunk dc and writes
+// the 4 x 4 transpose as four 16-byte chunks.
+struct TposeItem {
+  int dc, kc, r0;
+};
+
+__device__ __forceinline__ TposeItem tpose_item(int e, int dc4) {
+  const int rest = e >> 3;
+  const int kc = (rest / dc4) * 2 + ((e >> 2) & 1);
+  return {(rest % dc4) * 4 + (e & 3), kc, (kc >> 1) * 8 + (kc & 1)};
+}
+
+__device__ __forceinline__ void transpose4(const float4 (&x)[4],
+                                           float4 (&y)[4]) {
+  y[0] = make_float4(x[0].x, x[1].x, x[2].x, x[3].x);
+  y[1] = make_float4(x[0].y, x[1].y, x[2].y, x[3].y);
+  y[2] = make_float4(x[0].z, x[1].z, x[2].z, x[3].z);
+  y[3] = make_float4(x[0].w, x[1].w, x[2].w, x[3].w);
+}
+
+// That copy from the raw tile (rows D floats apart), split on the way.
+template <int ROWS, int D, int NT>
+__device__ __forceinline__ void split_cols_tf32(unsigned char* hi,
+                                                unsigned char* lo, int p0,
+                                                const float* raw, int tid) {
+  constexpr int KC = ROWS / 4, DC = D / 4;
+  static_assert(KC % 2 == 0 && DC % 4 == 0, "whole chunk groups");
+#pragma unroll 2
+  for (int e = tid; e < KC * DC; e += NT) {
+    const TposeItem it = tpose_item(e, DC / 4);
+    float4 x[4], xt[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(raw + (it.r0 + 2 * i) * D +
+                                              4 * it.dc);
+    transpose4(x, xt);
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      float4 h, l;
+      split_tf32x4(xt[dd], h, l);
+      const int off = sw128_f32_off(D, 4 * it.dc + dd, p0 / 4 + it.kc);
+      *reinterpret_cast<float4*>(hi + off) = h;
+      *reinterpret_cast<float4*>(lo + off) = l;
+    }
+  }
+}
+
+// That copy from the tile already split as it is (hi and lo parts, each at
+// its pointer in a K-major tile of SROWS rows): x = hi + lo exactly, so the
+// parts move unchanged.
+template <int ROWS, int D, int NT, int SROWS>
+__device__ __forceinline__ void transpose_tf32(unsigned char* hi,
+                                               unsigned char* lo, int p0,
+                                               const unsigned char* shi,
+                                               const unsigned char* slo,
+                                               int tid) {
+  constexpr int KC = ROWS / 4, DC = D / 4;
+  static_assert(KC % 2 == 0 && DC % 4 == 0, "whole chunk groups");
+#pragma unroll 2
+  for (int e = tid; e < KC * DC; e += NT) {
+    const TposeItem it = tpose_item(e, DC / 4);
+    float4 h[4], l[4], ht[4], lt[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int off = sw128_f32_off(SROWS, it.r0 + 2 * i, it.dc);
+      h[i] = *reinterpret_cast<const float4*>(shi + off);
+      l[i] = *reinterpret_cast<const float4*>(slo + off);
+    }
+    transpose4(h, ht);
+    transpose4(l, lt);
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      const int off = sw128_f32_off(D, 4 * it.dc + dd, p0 / 4 + it.kc);
+      *reinterpret_cast<float4*>(hi + off) = ht[dd];
+      *reinterpret_cast<float4*>(lo + off) = lt[dd];
+    }
+  }
+}
+
+// small (+)= A_lo.B_hi + A_hi.B_lo and big (+)= A_hi.B_hi over KS k steps
+// of the head dim from k step k0: A the warpgroup's 64 rows from row a0 of
+// a K-major tile of AROWS rows (hi and lo parts), B a K-major tile of N
+// rows. The small terms keep their own accumulator, added to big once by
+// the caller. Issued, not committed.
+template <int KS, int N, int AROWS>
+__device__ __forceinline__ void wg_scores_tf32(
+    float (&big)[N / 2], float (&small)[N / 2], const unsigned char* ah,
+    const unsigned char* al, int a0, const unsigned char* bh,
+    const unsigned char* bl, int k0) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int kk = k0 + ks;
+    const uint64_t dah = desc_f32(ah, AROWS, a0, kk);
+    const uint64_t dal = desc_f32(al, AROWS, a0, kk);
+    const uint64_t dbh = desc_f32(bh, N, 0, kk);
+    const uint64_t dbl = desc_f32(bl, N, 0, kk);
+    wgmma_tf32_ss<N>(small, dal, dbh, ks > 0);
+    wgmma_tf32_ss<N>(small, dah, dbl, 1);
+    wgmma_tf32_ss<N>(big, dah, dbh, ks > 0);
+  }
+}
+
+// The score products with B's two parts stacked in one K-major tile of
+// 2 BT rows (lo, then hi): wide (+)= A_hi.[B_lo; B_hi]^T, one wgmma of N =
+// 2 BT whose columns [0, BT) are the small term A_hi.B_lo and [BT, 2 BT)
+// the big sum, and narrow (+)= A_lo.B_hi, the other small term, in its own
+// accumulator; two wgmmas a k step, which read A_hi once and B_hi twice
+// where three of N = BT read A three times. The caller adds small =
+// A_hi.B_lo + A_lo.B_hi, then big + small. Issued, not committed.
+template <int KS, int BT, int AROWS>
+__device__ __forceinline__ void wg_scores2_tf32(
+    float (&wide)[BT], float (&narrow)[BT / 2], const unsigned char* ah,
+    const unsigned char* al, int a0, const unsigned char* b, int k0) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int kk = k0 + ks;
+    wgmma_tf32_ss<2 * BT>(wide, desc_f32(ah, AROWS, a0, kk),
+                          desc_f32(b, 2 * BT, 0, kk), ks > 0);
+    wgmma_tf32_ss<BT>(narrow, desc_f32(al, AROWS, a0, kk),
+                      desc_f32(b, 2 * BT, BT, kk), ks > 0);
+  }
+}
+
+// d = A.B into a fresh accumulator: A the KS k steps of register fragments
+// ah / al (hi and lo parts, wgmma_tf32_rs's layout), B the NC rows from row
+// c0 of a transposed K-major tile of TROWS rows (split_cols_tf32's), its k
+// steps from k0; per k step the three products, small terms first. Issued,
+// not committed.
+template <int KS, int NC, int TROWS>
+__device__ __forceinline__ void wg_product_tf32(
+    float (&d)[NC / 2], const uint32_t (&ah)[KS][4],
+    const uint32_t (&al)[KS][4], const unsigned char* bh,
+    const unsigned char* bl, int c0, int k0) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint64_t dbh = desc_f32(bh, TROWS, c0, k0 + ks);
+    const uint64_t dbl = desc_f32(bl, TROWS, c0, k0 + ks);
+    wgmma_tf32_rs<NC>(d, al[ks], dbh, ks > 0);
+    wgmma_tf32_rs<NC>(d, ah[ks], dbl, 1);
+    wgmma_tf32_rs<NC>(d, ah[ks], dbh, 1);
+  }
+}
+
+// The A operand of N / 8 k steps from a C-layout accumulator x of N
+// columns (P or dS), split: k step c reads columns 8c..8c+7, k index t as
+// column 2t and t + 4 as 2t + 1 (split_cols_tf32's order).
+template <int N>
+__device__ __forceinline__ void frag_from_acc(uint32_t (&h)[N / 8][4],
+                                              uint32_t (&l)[N / 8][4],
+                                              const float (&x)[N / 2]) {
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c) {
+    split_tf32(x[4 * c], h[c][0], l[c][0]);
+    split_tf32(x[4 * c + 2], h[c][1], l[c][1]);
+    split_tf32(x[4 * c + 1], h[c][2], l[c][2]);
+    split_tf32(x[4 * c + 3], h[c][3], l[c][3]);
+  }
+}
+
+template <int N, int M>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(f[i]);
+}
+
+// ---------------------------------------------------------------------------
 // Launch plans of the gradient CTA (flash_attention.py::_f32_grad_plan).
 // ---------------------------------------------------------------------------
 
@@ -304,21 +561,16 @@ struct F32GradArgs {
   float scale;
 };
 
-// P of a score x: the full-block kernels' attn_p with the forward's base-2
-// row max st0 and 1/l st1; the streaming kernels' exp(s * scale + bias -
-// lse) from the natural-log LSE st0 (sb_p's arithmetic).
-template <bool STREAM>
-__device__ __forceinline__ float fg_p(float x, float scale, float sl2,
-                                      float bias, float st0, float st1) {
-  if constexpr (STREAM)
-    return ex2((fmaf(x, scale, bias) - st0) * LOG2E);
-  else
-    return attn_p(x, sl2, bias_log2(bias), st0, st1);
+// P of a score x: exp(s * scale + bias - lse) from the natural-log LSE
+// (sb_p's arithmetic).
+__device__ __forceinline__ float fg_p(float x, float scale, float bias,
+                                      float lse) {
+  return ex2((fmaf(x, scale, bias) - lse) * LOG2E);
 }
 
-// One CTA of the fp32 backward: dQ of R query rows (DKV false) or dK and dV
-// of R keys (DKV true), block `blk` of its kind.
-template <int D, int R, int BT, bool DKV, bool STREAM>
+// One CTA of the fp32 streaming backward: dQ of R query rows (DKV false) or
+// dK and dV of R keys (DKV true), block `blk` of its kind.
+template <int D, int R, int BT, bool DKV>
 __device__ __forceinline__ void f32_grad_cta(const F32GradArgs& a,
                                              float* smem, int blk) {
   constexpr int LD = D + 4, BTP = BT + 8;
@@ -350,7 +602,6 @@ __device__ __forceinline__ void f32_grad_cta(const F32GradArgs& a,
   const long ws1 = DKV ? a.sq.s : a.sk.s, ws2 = DKV ? a.sdo.s : a.sv.s;
   const long rb = ((long)b * a.H + h) * a.Sq;  // row statistics of (b, h)
   const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
-  const float sl2 = scale_log2(a.scale);
   const int njobs = (nwalk + BT - 1) / BT;
 
   // walked tile i into slot i % 2: its two tiles and its fp32 rows (dK/dV:
@@ -362,8 +613,6 @@ __device__ __forceinline__ void f32_grad_cta(const F32GradArgs& a,
     float* rows = sl + 2 * TILE;
     if constexpr (DKV) {
       load_row_f32<BT, F32_THREADS>(rows, a.s0 + rb, i * BT, a.Sq, tid);
-      if (a.s1)
-        load_row_f32<BT, F32_THREADS>(rows + BT, a.s1 + rb, i * BT, a.Sq, tid);
       load_row_f32<BT, F32_THREADS>(rows + 2 * BT, a.s2 + rb, i * BT, a.Sq,
                                     tid);
     } else {
@@ -380,7 +629,6 @@ __device__ __forceinline__ void f32_grad_cta(const F32GradArgs& a,
     if (brow) load_row_f32<R, F32_THREADS>(ST, brow, r0, a.Sk, tid);
   } else {
     load_row_f32<R, F32_THREADS>(ST, a.s0 + rb, r0, a.Sq, tid);
-    if (a.s1) load_row_f32<R, F32_THREADS>(ST + R, a.s1 + rb, r0, a.Sq, tid);
     load_row_f32<R, F32_THREADS>(ST + 2 * R, a.s2 + rb, r0, a.Sq, tid);
   }
   issue(0);
@@ -430,12 +678,10 @@ __device__ __forceinline__ void f32_grad_cta(const F32GradArgs& a,
       float p = 0.f, ds = 0.f;
       if (i * BT + c < nwalk) {
         if constexpr (DKV) {
-          p = fg_p<STREAM>(x, a.scale, sl2, brow ? ST[r] : 0.f, rows[c],
-                           STREAM ? 0.f : rows[BT + c]);
+          p = fg_p(x, a.scale, brow ? ST[r] : 0.f, rows[c]);
           ds = p * (y - rows[2 * BT + c]);
         } else {
-          p = fg_p<STREAM>(x, a.scale, sl2, brow ? rows[c] : 0.f, ST[r],
-                           STREAM ? 0.f : ST[R + r]);
+          p = fg_p(x, a.scale, brow ? rows[c] : 0.f, ST[r]);
           ds = p * (y - ST[2 * R + r]);
         }
       }

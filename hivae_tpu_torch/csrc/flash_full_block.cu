@@ -452,69 +452,89 @@ int launch_fwd(const void* q, const void* k, const void* v,
 // the identity), and its QKN variant (_fwd_kernel_qknorm at fp32).
 // It serves `--mp no` training and the fp32 frozen models the head
 // trainers run: the joint blocks and object encoder of the flagship (D 64,
-// S 260-512), the T2M joint block (D 128), the MAE (D 32 and 64).
+// S 260-512), the T2M joint block (D 128), the MAE (D 32 and 64), AMD_L's
+// DiT (D 96).
 //
-// Bound on the H100 SXM at (8, 16, 260, 64): 4*B*H*S*S*D = 2.2 GFLOP of
-// matmul, three TF32 products each (the hi/lo split of attn_f32.cuh): 13.3
-// us at TF32's 494.7 TFLOP/s, against 34.6 MB of q, k, v and o, 10.3 us at
+// Bound on the H100 SXM at (32, 16, 512, 64): 4*B*H*S*S*D = 34.4 GFLOP of
+// matmul, three TF32 products each (a hi/lo split, attn_f32.cuh): 0.208 ms
+// at TF32's 494.7 TFLOP/s, against 67 MB of q, k, v and o, 0.020 ms at
 // 3.35 TB/s: bound by operations. At fp32 the TPU kernel's rounding point
 // (bf16 of the normalised P) is the identity, so one online-softmax pass
 // over the keys computes the same O to within fp32 rounding: Q.K^T once.
 //
-// Design. A CTA of 8 warps takes FF_ROWS = 64 query rows of one (batch,
-// head) and keeps them in shared memory (rows D + 4 floats apart). Jobs
-// travel through a two-slot cp.async ring, one tile of FF_TILE = 32 keys
-// each: K_j, then V_j. A K job computes S = Q.K^T (f32_scores; the 16
-// blocks of 16 x 8 two a warp) into a shared 64 x 32 tile; then thread tid
-// takes row tid / 4, columns 8 (tid % 4).. of it: base-2 logits with
-// attn_logit2 fold into the row's online max m and denominator l (the
-// row's four threads meet by quad shuffles), the tile's P~ = 2^(x - m) is
-// written over S, and the row's rescale 2^(m_old - m) goes to a shared
-// column. A V job rescales the output rows by that column and adds P~.V
-// (f32_grad: each warp owns D/8 columns of the 64 rows, or D/4 of 32 rows
-// at D 32 and 96; each tile's product in a fresh accumulator). At the end
-// O = acc * (1/l). m and l are saved as the bf16 forward saves them
-// (base-2 m, l apart), so the fp32 backward forms P = 2^(x - m) / l.
-// Keys past Sk are -inf; rows past Sq are zero-filled and not stored; a
-// fully masked row (bias -1e30 on every key) averages its keys uniformly.
-// QKN: the Q tile once and each K tile as it lands are normalised in place
-// in shared memory by ln_rows_f32 (the operation order of _ln_block, fp32
-// throughout) before S.
-constexpr int FF_ROWS = 64;   // query rows a CTA
-constexpr int FF_TILE = 32;   // keys a K or V tile
-
-// Shared bytes: the Q tile, two slots of a K or V tile and its bias row,
-// the 64 x 32 S / P tile (rows FF_TILE + 8 floats apart), and two columns
-// of 64 rows (the tile's rescale, the final 1/l).
+// Design (FF32 has the plan). A CTA of two warpgroups takes 128 query rows
+// of one (batch, head), 64 a warpgroup, and walks tiles of BK keys (64 at D
+// <= 64, else 32). Every operand is split into TF32 hi and lo parts once,
+// when it lands: Q once a CTA, each K and V tile once, by one pass of the
+// CTA over the raw tile (split_rows_tf32, split_cols_tf32); no product
+// splits anything. Both products run on TF32 wgmma, three a k step:
+//  * S = Q.K^T: SS, Q (128 x D) and the tile's K (BK x D), both K-major
+//    over D as they are stored, the small terms in their own accumulator;
+//    S stays in registers (the wgmma C layout), where the online softmax
+//    runs: base-2 logits with attn_logit2 (the tile's base-2 bias row, -inf
+//    past Sk, is written by the split pass), the row max and sum by quad
+//    shuffles, the running O rescaled by 2^(m_old - m).
+//  * O += P~.V: RS, P~ split in registers as the A operand (a C-layout
+//    column pair 2t, 2t + 1 is k index t, t + 4), V transposed into a
+//    K-major D x BK tile whose k positions follow that order
+//    (split_cols_tf32). Each tile's product goes into a fresh accumulator
+//    added to O once.
+// Overlap: the raw K and V of the next tile land by cp.async while this
+// one computes; where two split buffers fit (D < 128), the CTA splits the
+// next tile while this tile's P.V wgmmas run, and the two warpgroups'
+// products and softmax interleave on the SM. At D 128 one split buffer
+// fits beside Q: the split waits for P.V. At the end O = acc * (1/l); m
+// (base-2) and l are saved as the bf16 forward saves them, so the fp32
+// backward forms P = 2^(t - m) / l. Keys past Sk are -inf; rows past Sq
+// are zero-filled and not stored; a fully masked row (bias -1e30 on every
+// key) averages its keys uniformly. QKN: the raw Q tile once and each raw
+// K tile once are normalised in place by ln_rows_f32 (the operation order
+// of _ln_block, fp32 throughout) before they are split.
 template <int D>
-__host__ __device__ constexpr int ff_smem_bytes() {
-  return 4 * (FF_ROWS * (D + 4) + 2 * (FF_TILE * (D + 4) + FF_TILE) +
-              FF_ROWS * (FF_TILE + 8) + 2 * FF_ROWS);
-}
+struct FF32 {
+  static constexpr int WG = 2, THREADS = 128 * WG, ROWS = 64 * WG;
+  static constexpr int BK = D <= 64 ? 64 : 32;    // keys a tile
+  static constexpr int NSPLIT = D < 128 ? 2 : 1;  // split K / V^T buffers
+  static constexpr int Q = ROWS * D * 4;          // one part (hi or lo) of Q
+  static constexpr int KT = BK * D * 4;           // one part of K or of V^T
+  static constexpr int SPLIT = 4 * KT;            // K hi, lo, V^T hi, lo
+  static constexpr int RAW = 2 * KT + BK * 4;     // raw K, V, bias row
+  // from a 1024-byte aligned base: Q hi, Q lo, the split buffers, the raw
+  // tile, a base-2 bias row a split buffer
+  static constexpr int SMEM = 1024 + 2 * Q + NSPLIT * SPLIT + RAW +
+                              NSPLIT * BK * 4;
+};
 
-// Per-head LayerNorm over D of the ROWS rows of a shared fp32 tile (rows
-// D + 4 floats apart), in place, as _ln_block (flax fast variance): fp32
-// sums of x and x^2, mean and mean of squares, var = max(mean2 - mean^2,
-// 0), mul = rsqrt(var + eps) * gamma, y = (x - mean) * mul + beta.
-// F32_THREADS / ROWS adjacent lanes share a row, each summing its D /
-// (F32_THREADS / ROWS) contiguous elements in order; the _rn intrinsics keep
-// the plain version's separate roundings. Rows past the sequence
-// (zero-filled) become beta; their logits are masked and their outputs not
-// stored.
-template <int D, int ROWS>
+// Per-head LayerNorm over D of the ROWS rows of a shared fp32 tile (rows D
+// floats apart), in place, as _ln_block (flax fast variance): fp32 sums of
+// x and x^2, mean and mean of squares, var = max(mean2 - mean^2, 0), mul =
+// rsqrt(var + eps) * gamma, y = (x - mean) * mul + beta; the _rn
+// intrinsics keep the plain version's separate roundings. NT / ROWS
+// adjacent lanes share a row and hold it in registers, 16 bytes at a time:
+// lane l takes chunks l, l + TPR, ... of its row, starting TPR chunks
+// further on each row, so the 8 lanes of one 16-byte access phase meet
+// distinct banks. Rows past the sequence (zero-filled) become beta; their
+// logits are masked and their outputs not stored.
+template <int D, int ROWS, int NT>
 __device__ __forceinline__ void ln_rows_f32(float* T, const float* gamma,
                                             const float* beta, float eps,
                                             int tid) {
-  constexpr int TPR = F32_THREADS / ROWS, CH = D / TPR;
-  static_assert(TPR * ROWS == F32_THREADS && CH * TPR == D && TPR <= 32,
+  constexpr int TPR = NT / ROWS, C = D / 4, CH = C / TPR;
+  static_assert(TPR * ROWS == NT && CH * TPR == C && TPR <= 32,
                 "whole rows a lane group");
-  const int c0 = (tid % TPR) * CH;
-  float* x = T + (tid / TPR) * (D + 4) + c0;
+  const int r = tid / TPR, l = tid % TPR;
+  float4* x = reinterpret_cast<float4*>(T + r * D);
+  float4 v[CH];
   float s = 0.f, s2 = 0.f;
 #pragma unroll
   for (int i = 0; i < CH; ++i) {
-    s = __fadd_rn(s, x[i]);
-    s2 = __fadd_rn(s2, __fmul_rn(x[i], x[i]));
+    v[i] = x[(l + TPR * (i + r)) % C];
+    const float e[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s = __fadd_rn(s, e[j]);
+      s2 = __fadd_rn(s2, __fmul_rn(e[j], e[j]));
+    }
   }
 #pragma unroll
   for (int lane = 1; lane < TPR; lane <<= 1) {
@@ -525,14 +545,21 @@ __device__ __forceinline__ void ln_rows_f32(float* T, const float* gamma,
   const float var = fmaxf(__fsub_rn(mean2, __fmul_rn(mean, mean)), 0.f);
   const float rs = rsqrtf(__fadd_rn(var, eps));
 #pragma unroll
-  for (int i = 0; i < CH; ++i)
-    x[i] = __fadd_rn(__fmul_rn(__fsub_rn(x[i], mean),
-                               __fmul_rn(rs, __ldg(gamma + c0 + i))),
-                     __ldg(beta + c0 + i));
+  for (int i = 0; i < CH; ++i) {
+    const int c = (l + TPR * (i + r)) % C;
+    const float4 gm = __ldg(reinterpret_cast<const float4*>(gamma) + c);
+    const float4 bt = __ldg(reinterpret_cast<const float4*>(beta) + c);
+    auto y = [&](float xe, float ge, float be) {
+      return __fadd_rn(__fmul_rn(__fsub_rn(xe, mean), __fmul_rn(rs, ge)),
+                       be);
+    };
+    x[c] = make_float4(y(v[i].x, gm.x, bt.x), y(v[i].y, gm.y, bt.y),
+                       y(v[i].z, gm.z, bt.z), y(v[i].w, gm.w, bt.w));
+  }
 }
 
 template <int D, bool QKN>
-__global__ void __launch_bounds__(F32_THREADS, 2)
+__global__ void __launch_bounds__(FF32<D>::THREADS, 1)
 full_block_fwd_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -543,147 +570,183 @@ full_block_fwd_f32_kernel(const float* __restrict__ q,
                           float scale, long qsb, long qsh, long qss,
                           long ksb, long ksh, long kss, long vsb, long vsh,
                           long vss, long osb, long osh, long oss) {
-  constexpr int R = FF_ROWS, BT = FF_TILE, LD = D + 4, BTP = BT + 8;
-  constexpr int MT = R / 16, NT = BT / 8, BPW = MT * NT / F32_WARPS;
-  constexpr int CG = f32_col_groups<D>(), MG = F32_WARPS / CG;
-  constexpr int MTW = MT / MG, NCW = D / CG / 8, W = f32_chunk(NCW, MTW);
-  constexpr int SLOT = BT * LD + BT;
-  extern __shared__ float4 ff_smem[];
-  float* Qs = reinterpret_cast<float*>(ff_smem);
-  float* ring = Qs + R * LD;
-  float* XS = ring + 2 * SLOT;  // S, then P~, of the tile
-  float* RS = XS + R * BTP;     // the rows' rescale; RS + R: their 1/l
+  using P = FF32<D>;
+  constexpr int R = P::ROWS, BK = P::BK, NS = P::NSPLIT, NT = P::THREADS;
+  constexpr int KT = P::KT;
+  extern __shared__ __align__(16) unsigned char ff_smem[];
+  unsigned char* base = ff_smem + ((1024 - (smem_addr(ff_smem) & 1023)) & 1023);
+  unsigned char* Qh = base;
+  unsigned char* Ql = base + P::Q;
+  unsigned char* split = base + 2 * P::Q;
+  float* Kraw = reinterpret_cast<float*>(split + NS * P::SPLIT);
+  float* Vraw = Kraw + BK * D;
+  float* Braw = Vraw + BK * D;
+  float* BL = Braw + BK;  // NS rows of BK base-2 key biases
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, warp = tid >> 5, wg = warp >> 2;
+  const int g = (tid & 31) >> 2, t = tid & 3;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * R;
   const float* kp = k + b * ksb + h * ksh;
   const float* vp = v + b * vsb + h * vsh;
   const float* brow = bias ? bias + (long)b * Sk : nullptr;
   const float sl2 = scale_log2(scale);
-  const int nkt = (Sk + BT - 1) / BT, njobs = 2 * nkt;
+  const int nkt = (Sk + BK - 1) / BK;
 
-  // job 2j: K tile j with its bias row; job 2j + 1: V tile j; into slot
-  // i % 2
-  auto issue = [&](int i) {
-    float* sl = ring + (i & 1) * SLOT;
-    const int j = i >> 1;
-    const bool isv = i & 1;
-    f32_load_tile<D, BT>(sl, isv ? vp : kp, isv ? vss : kss, j * BT, Sk, tid);
-    if (brow && !isv)
-      load_row_f32<BT, F32_THREADS>(sl + BT * LD, brow, j * BT, Sk, tid);
+  // the raw K and V of tile j and its bias row
+  auto issue = [&](int j) {
+    f32_copy_rows<D, BK, NT>(Kraw, kp, kss, j * BK, Sk, tid);
+    f32_copy_rows<D, BK, NT>(Vraw, vp, vss, j * BK, Sk, tid);
+    if (brow) load_row_f32<BK, NT>(Braw, brow, j * BK, Sk, tid);
     ring_commit();
   };
-  // the Q tile rides in job 0's group
-  f32_load_tile<D, R>(Qs, q + b * qsb + h * qsh, qss, q0, Sq, tid);
-  issue(0);
-
-  // this thread's softmax row er and columns ec.. of each tile
-  const int er = tid >> 2, ec = (tid & 3) * 8;
-  float m = -INFINITY, l = 0.f;
-  float acc[MTW][NCW][4];
-#pragma unroll
-  for (int mm = 0; mm < MTW; ++mm)
-#pragma unroll
-    for (int n = 0; n < NCW; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mm][n][e] = 0.f;
-  const int mt = warp * BPW / NT, nt0 = warp * BPW % NT;
-  const int mg = warp / CG, cg = warp % CG;
-  // scale this warp's output rows by the shared column c
-  auto scale_rows = [&](const float* c) {
-#pragma unroll
-    for (int mm = 0; mm < MTW; ++mm)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const float a = c[16 * (mg * MTW + mm) + 8 * hf + g];
-#pragma unroll
-        for (int n = 0; n < NCW; ++n) {
-          acc[mm][n][2 * hf] *= a;
-          acc[mm][n][2 * hf + 1] *= a;
-        }
-      }
+  // raw tile j into split buffer j % NS: K as it is, V transposed, and
+  // the keys' base-2 bias (-inf past Sk)
+  auto split_kv = [&](int j) {
+    unsigned char* sb = split + (j % NS) * P::SPLIT;
+    split_rows_tf32<BK, D, NT>(sb, sb + KT, Kraw, tid);
+    split_cols_tf32<BK, D, NT>(sb + 2 * KT, sb + 3 * KT, 0, Vraw, tid);
+    for (int c = tid; c < BK; c += NT)
+      BL[(j % NS) * BK + c] =
+          j * BK + c < Sk ? bias_log2(brow ? Braw[c] : 0.f) : -INFINITY;
   };
 
-  for (int i = 0; i < njobs; ++i) {
-    ring_wait_upto(0);
-    __syncthreads();  // job i has landed; job i - 1's slot is free
-    if (i + 1 < njobs) issue(i + 1);
-    float* sl = ring + (i & 1) * SLOT;
-    if (i & 1) {
-      // O = O * 2^(m_old - m) + P~.V over this warp's columns
-      scale_rows(RS);
-      f32_grad<MTW, NCW, W, BT, false>(acc, acc, XS + 16 * mg * MTW * BTP,
-                                       nullptr, BTP, sl + cg * (D / CG),
-                                       nullptr, LD, g, t);
-      continue;
+  // the raw Q tile lands in the split buffers and rides in tile 0's group
+  float* Qraw = reinterpret_cast<float*>(split);
+  f32_copy_rows<D, R, NT>(Qraw, q + b * qsb + h * qsh, qss, q0, Sq, tid);
+  issue(0);
+  ring_wait_upto(0);
+  __syncthreads();
+  if constexpr (QKN) {
+    ln_rows_f32<D, R, NT>(Qraw, norms, norms + D, eps, tid);
+    ln_rows_f32<D, BK, NT>(Kraw, norms + 2 * D, norms + 3 * D, eps, tid);
+    __syncthreads();
+  }
+  split_rows_tf32<R, D, NT>(Qh, Ql, Qraw, tid);
+  __syncthreads();  // Q read before split buffer 0 is written over it
+  split_kv(0);
+  fence_async_smem();
+  __syncthreads();
+  if (nkt > 1) issue(1);
+
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[D / 2];  // O of the warp's rows g and g + 8 (C layout)
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    const unsigned char* sb = split + (j % NS) * P::SPLIT;
+    const float* bl = BL + (j % NS) * BK;
+    uint32_t ph[BK / 8][4], pl[BK / 8][4];
+    float tmp[D / 2];
+    {
+      float big[BK / 2], small[BK / 2];
+      fence_regs(big);
+      fence_regs(small);
+      wgmma_fence();
+      wg_scores_tf32<D / 8, BK, R>(big, small, Qh, Ql, 64 * wg, sb,
+                                   sb + KT, 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(big);
+      fence_regs(small);
+
+      // base-2 logits, the rows' online max and sum, P~ = 2^(t - m) in big
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < BK / 8; ++c) {
+        const float2 bb =
+            *reinterpret_cast<const float2*>(bl + 8 * c + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float be = e ? bb.y : bb.x;
+          float* x = big + 4 * c + e;
+          x[0] = attn_logit2(x[0] + small[4 * c + e], sl2, be);
+          x[2] = attn_logit2(x[2] + small[4 * c + 2 + e], sl2, be);
+          mx0 = fmaxf(mx0, x[0]);
+          mx1 = fmaxf(mx1, x[2]);
+        }
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0));
+      const float mn1 = fmaxf(m1, quad_max(mx1));
+      const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < BK / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* x = big + 4 * c + e;
+          x[0] = ex2(x[0] - mn0);
+          x[2] = ex2(x[2] - mn1);
+          s0 += x[0];
+          s1 += x[2];
+        }
+      l0 = l0 * al0 + quad_sum(s0);
+      l1 = l1 * al1 + quad_sum(s1);
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[e] *= (e & 2) ? al1 : al0;
+
+      // P~.V into a fresh accumulator, asynchronously
+      frag_from_acc<BK>(ph, pl, big);
+      fence_regs(tmp);
+      wgmma_fence();
+      wg_product_tf32<BK / 8, D, D>(tmp, ph, pl, sb + 2 * KT, sb + 3 * KT,
+                                    0, 0);
+      wgmma_commit();
     }
-    const int j = i >> 1;
-    if constexpr (QKN) {
-      if (i == 0) ln_rows_f32<D, R>(Qs, norms, norms + D, eps, tid);
-      ln_rows_f32<D, BT>(sl, norms + 2 * D, norms + 3 * D, eps, tid);
+    if (NS == 2 && j + 1 < nkt) {
+      // the next tile, split while P.V runs
+      ring_wait_upto(0);
       __syncthreads();
+      if constexpr (QKN) {
+        ln_rows_f32<D, BK, NT>(Kraw, norms + 2 * D, norms + 3 * D, eps, tid);
+        __syncthreads();
+      }
+      split_kv(j + 1);
+      fence_async_smem();
     }
     {
-      float xb[BPW][4], xs[BPW][4];
-      f32_scores<BPW, D / 8>(xb, xs, Qs + 16 * mt * LD, sl + 8 * nt0 * LD,
-                             LD, g, t);
-      f32_store_blocks<BPW>(XS + 16 * mt * BTP + 8 * nt0, BTP, xb, xs, g, t);
-    }
-    __syncthreads();
-    float* xr = XS + er * BTP + ec;
-    const float4 x0 = *reinterpret_cast<const float4*>(xr);
-    const float4 x1 = *reinterpret_cast<const float4*>(xr + 4);
-    float x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-    const float* bs = sl + BT * LD;
+      wgmma_wait_all();
+      fence_regs(tmp);
+      fence_frags(ph);
+      fence_frags(pl);
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const int key = j * BT + ec + e;
-      x[e] = key < Sk ? attn_logit2(x[e], sl2,
-                                    bias_log2(brow ? bs[ec + e] : 0.f))
-                      : -INFINITY;
+      for (int e = 0; e < D / 2; ++e) acc[e] += tmp[e];
     }
-    // the row's online max and denominator, P~ over the tile's S
-    float mx = x[0];
-#pragma unroll
-    for (int e = 1; e < 8; ++e) mx = fmaxf(mx, x[e]);
-    const float mn = fmaxf(m, quad_max(mx)), alpha = ex2(m - mn);
-    float sum = 0.f;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      x[e] = ex2(x[e] - mn);
-      sum += x[e];
+    if (NS == 1 && j + 1 < nkt) {
+      // one split buffer: the next tile once every warpgroup's P.V is done
+      ring_wait_upto(0);
+      __syncthreads();
+      if constexpr (QKN) {
+        ln_rows_f32<D, BK, NT>(Kraw, norms + 2 * D, norms + 3 * D, eps, tid);
+        __syncthreads();
+      }
+      split_kv(j + 1);
+      fence_async_smem();
     }
-    l = l * alpha + quad_sum(sum);
-    m = mn;
-    *reinterpret_cast<float4*>(xr) = make_float4(x[0], x[1], x[2], x[3]);
-    *reinterpret_cast<float4*>(xr + 4) = make_float4(x[4], x[5], x[6], x[7]);
-    if ((tid & 3) == 0) {
-      RS[er] = alpha;
-      if (j == nkt - 1) RS[R + er] = __frcp_rn(l);
-    }
+    __syncthreads();  // the raw tile is free; the split one is published
+    if (j + 2 < nkt) issue(j + 2);
   }
-  scale_rows(RS + R);  // 1/l, written at the last K job
 
+  const float il0 = __frcp_rn(l0), il1 = __frcp_rn(l1);
+  const int r0 = q0 + 16 * warp + g, r1 = r0 + 8;
   float* op = o + b * osb + h * osh;
 #pragma unroll
-  for (int mm = 0; mm < MTW; ++mm)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int row = q0 + 16 * (mg * MTW + mm) + 8 * hf + g;
-      if (row >= Sq) continue;
-#pragma unroll
-      for (int n = 0; n < NCW; ++n)
-        *reinterpret_cast<float2*>(op + (long)row * oss + cg * (D / CG) +
-                                   8 * n + 2 * t) =
-            make_float2(acc[mm][n][2 * hf], acc[mm][n][2 * hf + 1]);
-    }
+  for (int jn = 0; jn < D / 8; ++jn) {
+    const int col = 8 * jn + 2 * t;
+    if (r0 < Sq)
+      *reinterpret_cast<float2*>(op + (long)r0 * oss + col) =
+          make_float2(acc[4 * jn] * il0, acc[4 * jn + 1] * il0);
+    if (r1 < Sq)
+      *reinterpret_cast<float2*>(op + (long)r1 * oss + col) =
+          make_float2(acc[4 * jn + 2] * il1, acc[4 * jn + 3] * il1);
+  }
   // softmax statistics for the backward, as the bf16 forward saves them
-  const int row = q0 + er;
-  if (m_out && (tid & 3) == 0 && row < Sq) {
+  if (m_out && t == 0) {
     const long rb = ((long)b * H + h) * Sq;
-    m_out[rb + row] = m;
-    l_out[rb + row] = l;
+    if (r0 < Sq) { m_out[rb + r0] = m0; l_out[rb + r0] = l0; }
+    if (r1 < Sq) { m_out[rb + r1] = m1; l_out[rb + r1] = l1; }
   }
 }
 
@@ -694,15 +757,15 @@ int launch_full_block_f32(const float* q, const float* k, const float* v,
                           float* o, float* m_out, float* l_out, int B, int H,
                           int Sq, int Sk, int rows, int tile, int smem,
                           float scale, const long* st, cudaStream_t stream) {
-  if (rows != FF_ROWS || tile != FF_TILE || smem != ff_smem_bytes<D>() ||
-      smem > SMEM_MAX)
+  using P = FF32<D>;
+  if (rows != P::ROWS || tile != P::BK || smem != P::SMEM || smem > SMEM_MAX)
     return HV_BAD_PLAN;
   cudaError_t err = cudaFuncSetAttribute(
       full_block_fwd_f32_kernel<D, QKN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + FF_ROWS - 1) / FF_ROWS, H, B);
-  full_block_fwd_f32_kernel<D, QKN><<<grid, F32_THREADS, smem, stream>>>(
+  const dim3 grid((Sq + P::ROWS - 1) / P::ROWS, H, B);
+  full_block_fwd_f32_kernel<D, QKN><<<grid, P::THREADS, smem, stream>>>(
       q, k, v, bias, norms, eps, o, m_out, l_out, H, Sq, Sk, scale, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
       st[11]);

@@ -393,31 +393,382 @@ int launch_delta(const bf16* dout, const bf16* out, const float* l,
 // N = 2 step: 10*B*H*Sq*Sk*D = 86 GFLOP, three TF32 products each, 0.521 ms
 // at 494.7 TFLOP/s, against 7 fp32 tensors and 3 rows, 0.080 ms at 3.35
 // TB/s: bound by operations. The kernel recomputes S and dP on both sides
-// (12, not 10, B*H*Sq*Sk*D), as the bf16 kernel does.
+// (12, not 10, B*H*Sq*Sk*D), as the bf16 kernel does: no atomics, and two
+// launches give the same bits.
 //
-// Design: one launch, no atomics, as the bf16 kernel: ceil(Sq / R) dQ CTAs
-// then ceil(Sk / R) dK/dV CTAs along x, each an f32_grad_cta of 8 warps
-// (attn_f32.cuh has the steps). Where the bf16 kernel keeps 128 rows of Q
-// and dO (or K and V) as register fragments, at fp32 with hi/lo splits that
-// would be 4x the registers; here a CTA owns 64 rows (fg_rows at D <= 128),
-// keeps them in shared memory and splits each fragment as it is read, and
-// walks tiles of 32 rows (fg_tile). The dQ CTA's P and dS come from the
-// forward's m and 1/l of its rows and the bias of each walked key; the
-// dK/dV CTA's from the m, 1/l and delta rows that travel with each walked
-// query tile and the bias of its own keys. A key past Sk or a query row
-// past Sq gets P = dS = 0. Each CTA launch takes max(fg_smem) bytes (its
-// two kinds' plans, flash_attention.py::_full_block_f32_plan).
+// Design (FB32 has the plan): one launch, ceil(Sq / ROWS) dQ CTAs then
+// ceil(Sk / ROWS) dK/dV CTAs along x, each of two warpgroups (fb32_cta). A
+// dQ CTA keeps Q and dO resident, a dK/dV CTA K and V, each split into hi
+// and lo once a CTA, K-major over D. At D <= 64 the two warpgroups own 64
+// resident rows each (ROWS 128); from D 96, where 128 rows' hi and lo parts
+// would not fit, they share 64 rows and split D (DS 2): each computes the
+// score products over half the head dim, the two partial sums meet through
+// shared memory (added in warpgroup order, so both hold the same bits),
+// and each owns half of the output columns. The CTA walks tiles of BT
+// rows of the other side (K and V, or Q and dO): a tile's rows arrive in
+// registers (16-byte loads issued a tile ahead), each thread splits its
+// own rows into the copies the score products read as they are (the B
+// operands, K-major over D), and the CTA transposes those split parts into
+// the copies the gradient products read: B1^T (dQ: K^T; dK/dV: Q^T) and,
+// for dK/dV, B2^T (dO^T), k permuted as the P or dS accumulator gives it
+// (transpose_tf32). Per walked tile i, in each warpgroup:
+//  1. while tile i's score products run on TF32 wgmma (SS: X = A1.B1^T and
+//     Y = A2.B2^T, S and dP for dQ, S^T and dP^T for dK/dV, 64 x BT each,
+//     small terms in their own accumulators), the CTA writes tile i's
+//     transposed copies;
+//  2. P (attn_p, from the forward's base-2 m and 1/l) and dS = P (dP -
+//     delta), in registers; a walked row past the sequence gets P = dS = 0;
+//  3. gradients on TF32 wgmma (RS, P and dS split in registers as the A
+//     operand; each tile's product in a fresh accumulator added once): dQ
+//     += dS.K, or dV += P^T.dO then dK += dS^T.Q; the CTA splits tile
+//     i + 1 as it is while the first runs, and loads tile i + 2.
+// Two barriers a tile: after step 1 (the transposed copies published, the
+// copies as they are free) and after step 3. The score products are SS
+// wgmma of N = BT (32, or 16 from D 128), which the shared-memory reads of
+// A and B hold to 318 (N 32) and 189 (N 16) TFLOP/s with two warpgroups
+// on an SM, against 481 for the RS gradient products
+// (scripts/wgmma_tf32_rate.cu on an H100): the score products, 4 of the
+// CTA pair's 7 products a tile, take most of the time.
 template <int D>
-__global__ void __launch_bounds__(F32_THREADS, 1)
+struct FB32 {
+  static constexpr int THREADS = 256;
+  static constexpr int DS = D <= 64 ? 1 : 2;        // warpgroups sharing D
+  static constexpr int ROWS = 128 / DS;             // resident rows
+  static constexpr int BT = D <= 96 ? 32 : 16;      // walked rows a tile
+  static constexpr int COLS = D / DS;               // output columns of a
+                                                    // warpgroup
+  static constexpr int RES = ROWS * D * 4;          // one resident part
+  static constexpr int NAT = BT * D * 4;            // one walked part
+  // one part of the transposed tile: D rows, k positions [0, BT) for B1^T
+  // and [BT, 2 BT) for dK/dV's B2^T
+  static constexpr int TT = D * 128 * ((2 * BT + 31) / 32);
+  static constexpr int SPLIT = 4 * NAT + 2 * TT;
+  static constexpr int STATS = 3 * BT * 4;          // three fp32 rows
+  static constexpr int EX = DS == 2 ? 2 * BT * 128 * 4 : 0;  // partials
+  // from a 1024-byte aligned base: A1 hi, lo, A2 hi, lo; B1 hi, lo, B2 hi,
+  // lo, B^T hi, lo; the walked rows' statistics, and the next tile's as
+  // loaded; the score partials. The raw resident tiles land in the split
+  // region.
+  static constexpr int SMEM = 1024 + 4 * RES + SPLIT + 2 * STATS + EX;
+  static constexpr int LOADS = (BT * D / 4 + THREADS - 1) / THREADS;
+  static_assert(2 * RES <= SPLIT, "raw resident tiles fit the split region");
+};
+
+// A walked tile's rows [row0, row0 + BT) of two (S, D) fp32 matrices into
+// registers: this thread's 16-byte chunks, zero past n.
+template <int D, int BT, int NT, int LOADS>
+__device__ __forceinline__ void fb32_fetch(float4 (&w1)[LOADS],
+                                           float4 (&w2)[LOADS],
+                                           const float* a1, long s1,
+                                           const float* a2, long s2,
+                                           int row0, int n, int tid) {
+  constexpr int C4 = D / 4;
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    const int e = tid + u * NT, r = e / C4, c = e - r * C4;
+    const bool valid = e < BT * C4 && row0 + r < n;
+    const long row = valid ? row0 + r : 0;
+    w1[u] = valid ? __ldg(reinterpret_cast<const float4*>(a1 + row * s1 +
+                                                           4 * c))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+    w2[u] = valid ? __ldg(reinterpret_cast<const float4*>(a2 + row * s2 +
+                                                           4 * c))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// Those registers split as they are into the K-major tiles of the score
+// products' B operands: each of b1 and b2 a tile of 2 BT rows, the lo
+// parts in rows [0, BT), the hi parts in [BT, 2 BT) (wg_scores2_tf32).
+template <int D, int BT, int NT, int LOADS>
+__device__ __forceinline__ void fb32_split_natural(const float4 (&w1)[LOADS],
+                                                   const float4 (&w2)[LOADS],
+                                                   unsigned char* b1,
+                                                   unsigned char* b2,
+                                                   int tid) {
+  constexpr int C4 = D / 4;
+#pragma unroll
+  for (int u = 0; u < LOADS; ++u) {
+    const int e = tid + u * NT, r = e / C4, c = e - r * C4;
+    if (e < BT * C4) {
+      const int lo_off = sw128_f32_off(2 * BT, r, c);
+      const int hi_off = sw128_f32_off(2 * BT, BT + r, c);
+      float4 hi, lo;
+      split_tf32x4(w1[u], hi, lo);
+      *reinterpret_cast<float4*>(b1 + hi_off) = hi;
+      *reinterpret_cast<float4*>(b1 + lo_off) = lo;
+      split_tf32x4(w2[u], hi, lo);
+      *reinterpret_cast<float4*>(b2 + hi_off) = hi;
+      *reinterpret_cast<float4*>(b2 + lo_off) = lo;
+    }
+  }
+}
+
+// One CTA of the fp32 full-block backward: dQ of ROWS query rows (DKV
+// false) or dK and dV of ROWS keys (DKV true), block `blk` of its kind.
+template <int D, bool DKV>
+__device__ __forceinline__ void fb32_cta(const F32GradArgs& a,
+                                         unsigned char* base, int blk) {
+  using P = FB32<D>;
+  constexpr int R = P::ROWS, BT = P::BT, NT = P::THREADS, DS = P::DS;
+  constexpr int KS = BT / 8, RES = P::RES, NAT = P::NAT, COLS = P::COLS;
+  constexpr int LOADS = P::LOADS;
+  unsigned char* A1h = base;
+  unsigned char* A2h = base + 2 * RES;
+  unsigned char* sp = base + 4 * RES;
+  unsigned char* B1h = sp;
+  unsigned char* B2h = sp + 2 * NAT;
+  unsigned char* BTh = sp + 4 * NAT;
+  unsigned char* BTl = BTh + P::TT;
+  float* ST = reinterpret_cast<float*>(sp + P::SPLIT);
+  float* SR = ST + 3 * BT;  // the next tile's statistics as loaded
+  float* EX = SR + 3 * BT;  // DS 2: [warpgroup][partial][thread]
+
+  const int tid = threadIdx.x, warp = tid >> 5, wg = warp >> 2;
+  const int g = (tid & 31) >> 2, t = tid & 3, tw = tid & 127;
+  const int b = blockIdx.z, h = blockIdx.y, r0 = blk * R;
+  const int nres = DKV ? a.Sk : a.Sq, nwalk = DKV ? a.Sq : a.Sk;
+  const float* ra1 = DKV ? head_ptr(a.k, a.sk, b, h) : head_ptr(a.q, a.sq, b, h);
+  const float* ra2 = DKV ? head_ptr(a.v, a.sv, b, h) : head_ptr(a.dout, a.sdo, b, h);
+  const float* wa1 = DKV ? head_ptr(a.q, a.sq, b, h) : head_ptr(a.k, a.sk, b, h);
+  const float* wa2 = DKV ? head_ptr(a.dout, a.sdo, b, h) : head_ptr(a.v, a.sv, b, h);
+  const long rs1 = DKV ? a.sk.s : a.sq.s, rs2 = DKV ? a.sv.s : a.sdo.s;
+  const long ws1 = DKV ? a.sq.s : a.sk.s, ws2 = DKV ? a.sdo.s : a.sv.s;
+  const long rb = ((long)b * a.H + h) * a.Sq;  // row statistics of (b, h)
+  const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
+  const float sl2 = scale_log2(a.scale);
+  const int njobs = (nwalk + BT - 1) / BT;
+  // this warpgroup's rows of the resident tiles, its k steps of the score
+  // products and its output columns
+  const int arow = DS == 1 ? 64 * wg : 0;
+  const int k0 = DS == 1 ? 0 : wg * (D / 16);
+  const int c0 = DS == 1 ? 0 : wg * COLS;
+  // the statistic this thread loads with a walked tile (dK/dV: the
+  // queries' m, 1/l or delta; dQ: a key's bias)
+  const float* wsrc = nullptr;
+  if constexpr (DKV) {
+    if (tid < 3 * BT)
+      wsrc = (tid < BT ? a.s0 : tid < 2 * BT ? a.s1 : a.s2) + rb + tid % BT;
+  } else {
+    if (brow && tid < BT) wsrc = brow + tid;
+  }
+
+  // this thread's two resident rows (the C layout's g and g + 8 of its
+  // warp): dQ their m, 1/l and delta (m = +inf, 1/l = 0 past Sq); dK/dV
+  // their keys' base-2 bias (-inf past Sk)
+  const int lr0 = r0 + arow + 16 * (warp & 3) + g;
+  const int lr[2] = {lr0, lr0 + 8};
+  float rm[2] = {0.f, 0.f}, ril[2] = {0.f, 0.f}, rdl[2] = {0.f, 0.f};
+  float rbl[2] = {0.f, 0.f};
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const bool valid = lr[hf] < nres;
+    if constexpr (DKV) {
+      rbl[hf] = valid ? bias_log2(brow ? brow[lr[hf]] : 0.f) : -INFINITY;
+    } else {
+      rm[hf] = valid ? a.s0[rb + lr[hf]] : INFINITY;
+      ril[hf] = valid ? a.s1[rb + lr[hf]] : 0.f;
+      rdl[hf] = valid ? a.s2[rb + lr[hf]] : 0.f;
+    }
+  }
+
+  // the raw resident tiles land in the split region; split once, then
+  // walked tile 0 (its registers staged and split) and tile 1 loading
+  float4 w1[LOADS], w2[LOADS];
+  float wst;
+  float* Araw = reinterpret_cast<float*>(sp);
+  f32_copy_rows<D, R, NT>(Araw, ra1, rs1, r0, nres, tid);
+  f32_copy_rows<D, R, NT>(Araw + R * D, ra2, rs2, r0, nres, tid);
+  ring_commit();
+  fb32_fetch<D, BT, NT, LOADS>(w1, w2, wa1, ws1, wa2, ws2, 0, nwalk, tid);
+  wst = wsrc && tid % BT < nwalk ? __ldg(wsrc) : 0.f;
+  ring_wait_upto(0);
+  __syncthreads();
+  split_rows_tf32<R, D, NT>(A1h, A1h + RES, Araw, tid);
+  split_rows_tf32<R, D, NT>(A2h, A2h + RES, Araw + R * D, tid);
+  __syncthreads();  // the split region is free
+  if (tid < 3 * BT) SR[tid] = wst;
+  fb32_split_natural<D, BT, NT, LOADS>(w1, w2, B1h, B2h, tid);
+  if (njobs > 1) {
+    fb32_fetch<D, BT, NT, LOADS>(w1, w2, wa1, ws1, wa2, ws2, BT, nwalk, tid);
+    wst = wsrc && BT + tid % BT < nwalk ? __ldg(wsrc + BT) : 0.f;
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  float acc1[COLS / 2], acc2[COLS / 2];  // dQ or dK; dV
+#pragma unroll
+  for (int e = 0; e < COLS / 2; ++e) acc1[e] = acc2[e] = 0.f;
+
+  for (int i = 0; i < njobs; ++i) {
+    // 1. tile i's statistics (a row past the sequence masked: dQ base-2
+    // bias -inf, dK/dV m = +inf and 1/l = 0), then its score products,
+    // and its transposed copies while they run
+    if (tid < BT) {
+      const bool valid = i * BT + tid < nwalk;
+      if constexpr (DKV) {
+        ST[tid] = valid ? SR[tid] : INFINITY;
+        ST[BT + tid] = valid ? SR[BT + tid] : 0.f;
+        ST[2 * BT + tid] = valid ? SR[2 * BT + tid] : 0.f;
+      } else {
+        ST[tid] = valid ? bias_log2(brow ? SR[tid] : 0.f) : -INFINITY;
+      }
+    }
+    float xw[BT], xn[BT / 2], yw[BT], yn[BT / 2];
+    fence_regs(xw);
+    fence_regs(xn);
+    fence_regs(yw);
+    fence_regs(yn);
+    wgmma_fence();
+    wg_scores2_tf32<D / 8 / DS, BT, R>(xw, xn, A1h, A1h + RES, arow, B1h, k0);
+    wg_scores2_tf32<D / 8 / DS, BT, R>(yw, yn, A2h, A2h + RES, arow, B2h, k0);
+    wgmma_commit();
+    transpose_tf32<BT, D, NT, 2 * BT>(BTh, BTl, 0, B1h + BT * 128, B1h, tid);
+    if constexpr (DKV)
+      transpose_tf32<BT, D, NT, 2 * BT>(BTh, BTl, BT, B2h + BT * 128, B2h,
+                                        tid);
+    fence_async_smem();
+    wgmma_wait_all();
+    fence_regs(xw);
+    fence_regs(xn);
+    fence_regs(yw);
+    fence_regs(yn);
+    // X and Y: big + (the two small terms)
+    float xb[BT / 2], yb[BT / 2];
+#pragma unroll
+    for (int e = 0; e < BT / 2; ++e) {
+      xb[e] = xw[BT / 2 + e] + (xw[e] + xn[e]);
+      yb[e] = yw[BT / 2 + e] + (yw[e] + yn[e]);
+    }
+    if constexpr (DS == 2) {
+#pragma unroll
+      for (int e = 0; e < BT / 2; ++e) {
+        EX[(wg * BT + e) * 128 + tw] = xb[e];
+        EX[(wg * BT + BT / 2 + e) * 128 + tw] = yb[e];
+      }
+    }
+    __syncthreads();  // the transposed copies published; the copies as
+                      // they are and the statistics as loaded free
+    if (i + 1 < njobs && tid < 3 * BT) SR[tid] = wst;
+    if constexpr (DS == 2) {
+      // the other warpgroup's half of the head dim, added in warpgroup
+      // order
+#pragma unroll
+      for (int e = 0; e < BT / 2; ++e) {
+        const float xo = EX[((1 - wg) * BT + e) * 128 + tw];
+        const float yo = EX[((1 - wg) * BT + BT / 2 + e) * 128 + tw];
+        xb[e] = wg == 0 ? xb[e] + xo : xo + xb[e];
+        yb[e] = wg == 0 ? yb[e] + yo : yo + yb[e];
+      }
+    }
+    // 2. P into xb, dS into yb
+#pragma unroll
+    for (int c = 0; c < BT / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * c + 2 * t + e;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int x = 4 * c + 2 * hf + e;
+          float p, ds;
+          if constexpr (DKV) {
+            p = attn_p(xb[x], sl2, rbl[hf], ST[col], ST[BT + col]);
+            ds = p * (yb[x] - ST[2 * BT + col]);
+          } else {
+            p = attn_p(xb[x], sl2, ST[col], rm[hf], ril[hf]);
+            ds = p * (yb[x] - rdl[hf]);
+          }
+          xb[x] = p;
+          yb[x] = ds;
+        }
+      }
+    // 3. the gradient products: dQ += dS.K, or dV += P^T.dO then dK +=
+    // dS^T.Q, while tile i + 1 is split as it is and tile i + 2 loads
+    uint32_t fh[KS][4], fl[KS][4];
+    float tp[COLS / 2];
+    if constexpr (DKV)
+      frag_from_acc<BT>(fh, fl, xb);
+    else
+      frag_from_acc<BT>(fh, fl, yb);
+    fence_regs(tp);
+    wgmma_fence();
+    wg_product_tf32<KS, COLS, D>(tp, fh, fl, BTh, BTl, c0, DKV ? KS : 0);
+    wgmma_commit();
+    if (i + 1 < njobs) {
+      fb32_split_natural<D, BT, NT, LOADS>(w1, w2, B1h, B2h, tid);
+      fence_async_smem();
+    }
+    wgmma_wait_all();
+    fence_regs(tp);
+    fence_frags(fh);
+    fence_frags(fl);
+#pragma unroll
+    for (int e = 0; e < COLS / 2; ++e) {
+      if constexpr (DKV)
+        acc2[e] += tp[e];
+      else
+        acc1[e] += tp[e];
+    }
+    if constexpr (DKV) {
+      frag_from_acc<BT>(fh, fl, yb);
+      fence_regs(tp);
+      wgmma_fence();
+      wg_product_tf32<KS, COLS, D>(tp, fh, fl, BTh, BTl, c0, 0);
+      wgmma_commit();
+    }
+    if (i + 2 < njobs) {
+      const int row0 = (i + 2) * BT;
+      fb32_fetch<D, BT, NT, LOADS>(w1, w2, wa1, ws1, wa2, ws2, row0, nwalk,
+                                   tid);
+      wst = wsrc && row0 + tid % BT < nwalk ? __ldg(wsrc + row0) : 0.f;
+    }
+    if constexpr (DKV) {
+      wgmma_wait_all();
+      fence_regs(tp);
+      fence_frags(fh);
+      fence_frags(fl);
+#pragma unroll
+      for (int e = 0; e < COLS / 2; ++e) acc1[e] += tp[e];
+    }
+    __syncthreads();  // tile i + 1's copies published; tile i's free
+  }
+
+  float *o1, *o2 = nullptr;
+  long os1, os2 = 0;
+  if constexpr (DKV) {
+    o1 = head_ptr(a.dk, a.sdk, b, h);
+    os1 = a.sdk.s;
+    o2 = head_ptr(a.dv, a.sdv, b, h);
+    os2 = a.sdv.s;
+  } else {
+    o1 = head_ptr(a.dq, a.sdq, b, h);
+    os1 = a.sdq.s;
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (lr[hf] >= nres) continue;
+#pragma unroll
+    for (int jn = 0; jn < COLS / 8; ++jn) {
+      const int c = c0 + 8 * jn + 2 * t, x = 4 * jn + 2 * hf;
+      *reinterpret_cast<float2*>(o1 + (long)lr[hf] * os1 + c) =
+          make_float2(acc1[x] * a.scale, acc1[x + 1] * a.scale);
+      if constexpr (DKV)
+        *reinterpret_cast<float2*>(o2 + (long)lr[hf] * os2 + c) =
+            make_float2(acc2[x], acc2[x + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FB32<D>::THREADS, 1)
 full_block_bwd_f32_kernel(const F32GradArgs a) {
-  extern __shared__ float4 fbf_dyn[];
-  float* smem = reinterpret_cast<float*>(fbf_dyn);
+  extern __shared__ __align__(16) unsigned char fbf_smem[];
+  unsigned char* base =
+      fbf_smem + ((1024 - (smem_addr(fbf_smem) & 1023)) & 1023);
   if ((int)blockIdx.x < a.nqb)
-    f32_grad_cta<D, fg_rows<D, 1>(), fg_tile<D, 1>(), false, false>(
-        a, smem, blockIdx.x);
+    fb32_cta<D, false>(a, base, blockIdx.x);
   else
-    f32_grad_cta<D, fg_rows<D, 2>(), fg_tile<D, 2>(), true, false>(
-        a, smem, blockIdx.x - a.nqb);
+    fb32_cta<D, true>(a, base, blockIdx.x - a.nqb);
 }
 
 // delta = rowsum(dO * O) in fp32 (row_delta_f32: 8 lanes a row, 16-byte
@@ -438,19 +789,14 @@ full_block_delta_f32_kernel(const float* __restrict__ dout,
   }
 }
 
-template <int D>
-constexpr int fbf_smem_bytes() {
-  return fg_smem<D, 1>() > fg_smem<D, 2>() ? fg_smem<D, 1>() : fg_smem<D, 2>();
-}
-
 // Takes only the plan flash_attention.py::_full_block_f32_plan returns.
 template <int D>
 int launch_full_block_bwd_f32(const F32GradArgs& a, int B, int dq_rows,
                               int dkv_rows, int tile, int smem,
                               cudaStream_t stream) {
-  if (dq_rows != fg_rows<D, 1>() || dkv_rows != fg_rows<D, 2>() ||
-      tile != fg_tile<D, 1>() || tile != fg_tile<D, 2>() ||
-      smem != fbf_smem_bytes<D>() || smem > SMEM_MAX ||
+  using P = FB32<D>;
+  if (dq_rows != P::ROWS || dkv_rows != P::ROWS || tile != P::BT ||
+      smem != P::SMEM || smem > SMEM_MAX ||
       a.nqb != (a.Sq + dq_rows - 1) / dq_rows)
     return HV_BAD_PLAN;
   cudaError_t err = cudaFuncSetAttribute(
@@ -459,7 +805,7 @@ int launch_full_block_bwd_f32(const F32GradArgs& a, int B, int dq_rows,
   if (err != cudaSuccess) return err;
   const int nkb = (a.Sk + dkv_rows - 1) / dkv_rows;
   const dim3 grid(a.nqb + nkb, a.H, B);
-  full_block_bwd_f32_kernel<D><<<grid, F32_THREADS, smem, stream>>>(a);
+  full_block_bwd_f32_kernel<D><<<grid, P::THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

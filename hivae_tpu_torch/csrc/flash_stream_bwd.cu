@@ -1352,7 +1352,7 @@ stream_bwd_dq_f32_kernel(const F32GradArgs a) {
   if constexpr (D >= FC_DIM)
     fc_cta<D, false>(a, reinterpret_cast<float*>(sbf_smem));
   else
-    f32_grad_cta<D, fg_rows<D, 1>(), fg_tile<D, 1>(), false, true>(
+    f32_grad_cta<D, fg_rows<D, 1>(), fg_tile<D, 1>(), false>(
         a, reinterpret_cast<float*>(sbf_smem), blockIdx.x);
 }
 
@@ -1363,7 +1363,7 @@ stream_bwd_dkv_f32_kernel(const F32GradArgs a) {
   if constexpr (D >= FC_DIM)
     fc_cta<D, true>(a, reinterpret_cast<float*>(sbf_smem));
   else
-    f32_grad_cta<D, fg_rows<D, 2>(), fg_tile<D, 2>(), true, true>(
+    f32_grad_cta<D, fg_rows<D, 2>(), fg_tile<D, 2>(), true>(
         a, reinterpret_cast<float*>(sbf_smem), blockIdx.x);
 }
 

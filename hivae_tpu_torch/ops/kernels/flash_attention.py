@@ -585,14 +585,10 @@ def _stream_bwd_plan(d: int) -> StreamBwdPlan:
                          stages=STREAM_BWD_STAGES, smem=smem)
 
 
-# launch plans of the fp32 full-block forward and of the fp32 backward
-# kernels (csrc/attn_f32.cuh, ``f32_grad_cta``): CTAs of 8 warps; the
-# forward takes 64 query rows against tiles of 32 keys, rows d + 4 floats
-# apart, its S / P tile rows 32 + 8 apart
+# launch plans of the fp32 streaming backward's gradient CTA
+# (csrc/attn_f32.cuh, ``f32_grad_cta``): CTAs of 8 warps
 F32_THREADS = 256
 F32_WARPS = F32_THREADS // 32
-FULL_BLOCK_F32_ROWS = 64
-FULL_BLOCK_F32_TILE = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -638,30 +634,87 @@ def _f32_grad_plan(d: int, outputs: int) -> F32GradPlan:
 
 @dataclasses.dataclass(frozen=True)
 class FullBlockF32Plan:
-    """Launch plan of the fp32 full-block kernels: the forward's ``rows``
-    query rows a CTA against tiles of ``tile`` keys in ``fwd_smem`` bytes
-    (``ff_smem_bytes``); the backward's dQ and dK/dV CTAs (``dq``,
-    ``dkv``), one launch of both in ``bwd_smem`` bytes, the larger."""
+    """Launch plan of the fp32 full-block kernels on TF32 wgmma, operands
+    split once a tile (``FF32`` in csrc/flash_full_block.cu, ``FB32`` in
+    csrc/flash_full_block_bwd.cu), at head dim ``d``. The forward: ``rows``
+    query rows a CTA (two warpgroups of 64) against tiles of ``tile`` keys,
+    ``splits`` split K / V^T buffers (2: the next tile is split while this
+    one's P.V runs), one raw tile landing by cp.async, ``fwd_smem`` bytes.
+    The backward, one launch of dQ and dK/dV CTAs alike, two warpgroups
+    each: ``bwd_rows`` resident rows a CTA, 64 a warpgroup, or 64 shared by
+    both where ``d_split`` is 2 (each warpgroup half the head dim of the
+    score products and half the output columns); walked tiles of
+    ``bwd_tile`` rows, loaded into registers a tile ahead; ``bwd_smem``
+    bytes."""
+    d: int
     rows: int
     tile: int
+    splits: int
     fwd_smem: int
-    dq: F32GradPlan
-    dkv: F32GradPlan
+    bwd_rows: int
+    bwd_tile: int
+    d_split: int
     bwd_smem: int
+
+    @property
+    def fwd_regs(self) -> int:
+        """fp32 accumulator and fragment registers a thread at the
+        forward's peak: O (d / 2), and the larger of S's two sums (tile)
+        and P.V's fresh sum (d / 2) beside P~'s hi and lo (tile)."""
+        return self.d // 2 + max(self.tile, self.d // 2 + self.tile)
+
+    @property
+    def bwd_regs(self) -> int:
+        """The same for a dK/dV thread (the larger kind) while its
+        gradient products run: dK and dV and their fresh sums (cols / 2
+        each), P's and dS's hi and lo (2 x tile), and the next walked tile
+        in registers (its share of 2 x tile x d floats)."""
+        cols = self.d // self.d_split
+        loads = -(-self.bwd_tile * self.d // 4 // 256) * 4
+        return 2 * cols + 2 * self.bwd_tile + 2 * loads
+
+
+def _full_block_f32_fwd_smem(d: int, rows: int, tile: int,
+                             splits: int) -> int:
+    """``FF32::SMEM``: from a 1024-byte aligned base, Q's hi and lo parts,
+    the split buffers (K's and V^T's hi and lo), the raw K and V tiles and
+    bias row, and a base-2 bias row a split buffer."""
+    return (1024 + 2 * rows * d * 4 + splits * 4 * tile * d * 4
+            + 2 * tile * d * 4 + tile * 4 + splits * tile * 4)
+
+
+def _full_block_f32_bwd_smem(d: int, rows: int, tile: int,
+                             d_split: int) -> int:
+    """``FB32::SMEM``: from a 1024-byte aligned base, the resident pair's
+    hi and lo parts, the walked pair's, the transposed parts (d rows of
+    128-byte swizzle atoms holding 2 x tile k positions), the walked rows'
+    three statistics twice (this tile's, the next as loaded), and where the
+    warpgroups split d their score partials (2 warpgroups x 2 products x
+    64 x tile floats)."""
+    nat = tile * d * 4
+    tt = d * 128 * ((2 * tile + 31) // 32)
+    ex = 2 * tile * 128 * 4 if d_split == 2 else 0
+    return 1024 + 4 * rows * d * 4 + 4 * nat + 2 * tt + 2 * 3 * tile * 4 \
+        + ex
 
 
 @functools.lru_cache(maxsize=None)
 def _full_block_f32_plan(d: int) -> FullBlockF32Plan:
-    """The fp32 full-block plan at head dim ``d``: the forward's Q tile,
-    two slots of a K or V tile and its bias row, the S / P tile and two
-    columns of row scales; the sequence lengths do not change it."""
-    rows, tile = FULL_BLOCK_F32_ROWS, FULL_BLOCK_F32_TILE
-    dq, dkv = _f32_grad_plan(d, 1), _f32_grad_plan(d, 2)
+    """The fp32 full-block plan at head dim ``d`` (the sequence lengths do
+    not change it): the forward's 128 query rows against 64-key tiles at d
+    <= 64, else 32, with two split buffers where they fit (d < 128); the
+    backward's 128 resident rows at d <= 64, else 64 rows shared by both
+    warpgroups, walking 32-row tiles, 16 at d 128."""
+    rows = 128
+    tile = 64 if d <= 64 else 32
+    splits = 2 if d < 128 else 1
+    d_split = 1 if d <= 64 else 2
+    bwd_rows, bwd_tile = 128 // d_split, 32 if d <= 96 else 16
     return FullBlockF32Plan(
-        rows=rows, tile=tile,
-        fwd_smem=4 * (rows * (d + 4) + 2 * (tile * (d + 4) + tile)
-                      + rows * (tile + 8) + 2 * rows),
-        dq=dq, dkv=dkv, bwd_smem=max(dq.smem, dkv.smem))
+        d=d, rows=rows, tile=tile, splits=splits,
+        fwd_smem=_full_block_f32_fwd_smem(d, rows, tile, splits),
+        bwd_rows=bwd_rows, bwd_tile=bwd_tile, d_split=d_split,
+        bwd_smem=_full_block_f32_bwd_smem(d, bwd_rows, bwd_tile, d_split))
 
 
 # the fp32 streaming backward from D = 512 on (csrc/flash_stream_bwd.cu,
@@ -927,7 +980,7 @@ def full_block_attention_bwd(q, k, v, do, out, m, l, *, scale: float,
     if _f32(q):
         plan = _full_block_f32_plan(d)
         fn, plan_args = _full_block_bwd_f32_fn(), (
-            plan.dq.rows, plan.dkv.rows, plan.dq.tile, plan.bwd_smem)
+            plan.bwd_rows, plan.bwd_rows, plan.bwd_tile, plan.bwd_smem)
     else:
         plan = _full_block_plan(sq, sk, d)
         fn, plan_args = _full_block_bwd_fn(), (plan.bwd_stages,

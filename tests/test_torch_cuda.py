@@ -692,13 +692,22 @@ def test_sdpa_routes_fp32_to_the_kernels(shape, masked, grad):
 
 # (q shape, Sk or None, masked) of the fp32 full-block kernels: the main
 # path's sites at N = 2 (`--mp no`), ragged and Sq != Sk, every head dim, a
-# masked case with a fully masked key row (batch 0)
+# masked case with a fully masked key row (batch 0); then ragged against
+# the plan's blocks (``_full_block_f32_plan``): Sq one past and one short
+# of the forward's 128 rows and the backward's 128 (D 64) or 64 (D 128)
+# resident rows, Sk of the forward's 64 (D 64) or 32 (D 128) keys and the
+# backward's 32 or 16 walked rows; and Sq != Sk at D 96
 FULL_BLOCK_F32_CASES = [
     ((64, 8, 260, 64), None, False), ((32, 16, 266, 64), None, False),
     ((32, 16, 512, 64), None, True), ((2, 4, 300, 64), 700, True),
     ((2, 3, 65, 64), None, True), ((2, 2, 1, 64), 33, False),
     ((3, 2, 100, 32), None, True), ((2, 2, 129, 96), None, True),
-    ((2, 16, 269, 128), None, False), ((1, 2, 70, 128), 150, True)]
+    ((2, 16, 269, 128), None, False), ((1, 2, 70, 128), 150, True),
+    ((2, 2, 129, 64), 65, True), ((2, 2, 127, 64), 63, False),
+    ((2, 2, 129, 64), 31, False), ((2, 2, 127, 64), 33, True),
+    ((2, 2, 129, 128), 33, True), ((2, 2, 127, 128), 31, False),
+    ((2, 2, 65, 128), 17, False), ((2, 2, 63, 128), 15, True),
+    ((2, 3, 100, 96), 70, True)]
 
 
 @pytest.mark.cuda

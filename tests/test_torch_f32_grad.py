@@ -64,31 +64,28 @@ def _walked(a, b, tile, products):
 
 
 def _full_block_model(q, k, v, do, scale, bias, products):
-    """(dq, dk, dv) as the fp32 full-block kernels form them: the
-    forward's one pass (base-2 row max m and denominator l, P~ = 2^(t - m)
-    times V over its 32-key tiles, O = P~.V * (1 / l)), delta =
-    rowsum(dO * O), P = 2^(t - m) / l, dS = P (dP - delta),
-    the dQ CTA's sums over 32-key tiles and the dK/dV CTA's over 32-row
-    query tiles (``_full_block_f32_plan``)."""
+    """(dq, dk, dv) as the fp32 full-block kernels form them on TF32
+    wgmma: the forward's one pass (score products over the whole head dim,
+    base-2 row max m and denominator l, P~ = 2^(t - m) times V over its
+    ``tile``-key tiles, O = P~.V * (1 / l)), delta = rowsum(dO * O); the
+    backward's score products over ``d_split`` slices of the head dim
+    summed in order, P = 2^(t - m) * (1 / l), dS = P (dP - delta), the dQ
+    CTA's sums over ``bwd_tile``-key tiles and the dK/dV CTA's over
+    ``bwd_tile``-row query tiles (``_full_block_f32_plan``)."""
     plan = tfa._full_block_f32_plan(q.shape[-1])
     bl2 = 0.0 if bias is None else (bias * LOG2E)[:, None, None, :]
-    p = {}
-    for side, sp in (("dq", plan.dq), ("dkv", plan.dkv)):
-        t = _scores(q, k, products, sp.split) * (scale * LOG2E) + bl2
-        m = t.amax(-1, keepdim=True)
-        e = torch.exp2(t - m)
-        p[side] = e * (1.0 / e.sum(-1, keepdim=True))
     t = _scores(q, k, products, 1) * (scale * LOG2E) + bl2
-    e = torch.exp2(t - t.amax(-1, keepdim=True))
-    out = _walked(e, v, plan.tile, products) * (1.0 / e.sum(-1, keepdim=True))
+    m = t.amax(-1, keepdim=True)
+    e = torch.exp2(t - m)
+    inv_l = 1.0 / e.sum(-1, keepdim=True)
+    out = _walked(e, v, plan.tile, products) * inv_l
     delta = (do * out).sum(-1, keepdim=True)
-    dp = {side: _scores(do, v, products, sp.split)
-          for side, sp in (("dq", plan.dq), ("dkv", plan.dkv))}
-    ds = {side: p[side] * (dp[side] - delta) for side in p}
-    dq = _walked(ds["dq"], k, plan.dq.tile, products) * scale
-    dk = _walked(ds["dkv"].transpose(-1, -2), q, plan.dkv.tile,
-                 products) * scale
-    dv = _walked(p["dkv"].transpose(-1, -2), do, plan.dkv.tile, products)
+    tb = _scores(q, k, products, plan.d_split) * (scale * LOG2E) + bl2
+    p = torch.exp2(tb - m) * inv_l
+    ds = p * (_scores(do, v, products, plan.d_split) - delta)
+    dq = _walked(ds, k, plan.bwd_tile, products) * scale
+    dk = _walked(ds.transpose(-1, -2), q, plan.bwd_tile, products) * scale
+    dv = _walked(p.transpose(-1, -2), do, plan.bwd_tile, products)
     return dq, dk, dv
 
 
@@ -138,6 +135,8 @@ def _errors(got, want):
 @pytest.mark.parametrize("kind,shape,sk,masked", [
     # a flagship joint block's head dim, a ragged last tile and a mask
     ("full_block", (1, 2, 160, 64), 150, True),
+    # the T2M joint block's: the warpgroups split the head dim
+    ("full_block", (1, 2, 70, 128), 90, True),
     # the SD-VAE mid-block's head dim: a cluster of 2 slices of 256
     # columns, 16-row walked tiles
     ("stream", (1, 1, 256, 512), 256, False),
@@ -159,24 +158,54 @@ def test_f32_bwd_model_meets_the_fp32_gate(kind, shape, sk, masked):
     assert any(err > gate for err, gate in one), one
 
 
+# (query rows a CTA, keys a tile, split buffers, shared bytes) of the fp32
+# forward and (resident rows a CTA, walked rows a tile, warpgroups sharing
+# the head dim, shared bytes) of the fp32 backward by head dim, as the
+# sources' notes state them (FF32, FB32)
+FULL_BLOCK_F32 = {32: ((128, 64, 2, 116480), (128, 32, 1, 100096)),
+                  64: ((128, 64, 2, 231168), (128, 32, 1, 198400)),
+                  96: ((128, 32, 2, 222592), (64, 32, 2, 231168)),
+                  128: ((128, 32, 1, 230656), (64, 16, 2, 214400))}
+
+
 @pytest.mark.parametrize("d", tfa._FULL_BLOCK_DIMS)
 def test_full_block_f32_plan_fits_a_block(d):
-    """The fp32 full-block plan at every full-block head dim: the forward's
-    64 query rows against 32-key tiles (the Q tile, two slots of a K or V
-    tile and its bias row, the S / P tile, rows d + 4 and 40 floats apart,
-    and two columns of 64 row scales), and the backward's dQ and dK/dV
-    CTAs of 64 rows walking 32-row tiles with unsplit score products (8
-    blocks of 16 x 8 or more), each within one block's shared memory, with
-    at most 64 accumulator registers a thread."""
+    """The fp32 full-block plan at every full-block head dim. The forward:
+    two warpgroups of 64 query rows against tiles of 64 keys at d <= 64,
+    else 32; two split buffers (the next tile split while this one's P.V
+    runs) where they fit beside Q, one at d 128, where a second would not;
+    one raw tile; Q's, K's and V^T's hi and lo parts whole swizzle atoms.
+    The backward: two warpgroups of 64 resident rows each at d <= 64; from
+    d 96, where 128 rows' hi and lo parts would not fit, 64 rows shared by
+    both warpgroups, which split the head dim; walked tiles of 32 rows, 16
+    at d 128, where 32 would not fit; the raw resident pair within the
+    split region it lands in. Each within one block's shared memory, the
+    registers of the accumulators, fragments and staged loads at most 208
+    a thread of the 255 one may hold."""
     plan = tfa._full_block_f32_plan(d)
-    assert (plan.rows, plan.tile) == (64, 32)
-    assert plan.fwd_smem == 4 * (64 * (d + 4) + 2 * (32 * (d + 4) + 32)
-                                 + 64 * 40 + 2 * 64)
-    for grad, outputs in ((plan.dq, 1), (plan.dkv, 2)):
-        assert (grad.rows, grad.tile, grad.split) == (64, 32, 1)
-        assert grad.rows * d * outputs <= 64 * tfa.F32_THREADS
-    assert plan.bwd_smem == max(plan.dq.smem, plan.dkv.smem)
+    fwd, bwd = FULL_BLOCK_F32[d]
+    assert (plan.rows, plan.tile, plan.splits, plan.fwd_smem) == fwd
+    assert (plan.bwd_rows, plan.bwd_tile, plan.d_split, plan.bwd_smem) == bwd
     assert max(plan.fwd_smem, plan.bwd_smem) <= tfa.SMEM_PER_BLOCK
+    if plan.splits == 1:
+        assert tfa._full_block_f32_fwd_smem(d, plan.rows, plan.tile, 2) > \
+            tfa.SMEM_PER_BLOCK
+    if plan.d_split == 2:
+        assert tfa._full_block_f32_bwd_smem(d, 128, plan.bwd_tile, 1) > \
+            tfa.SMEM_PER_BLOCK
+    if plan.bwd_tile < 32:
+        assert tfa._full_block_f32_bwd_smem(d, plan.bwd_rows, 32,
+                                            plan.d_split) > \
+            tfa.SMEM_PER_BLOCK
+    assert plan.bwd_rows * plan.d_split == 128
+    # the forward's raw Q tile lands in the split buffers, the backward's
+    # raw resident pair in the split region
+    assert plan.rows * d * 4 <= plan.splits * 4 * plan.tile * d * 4
+    assert 2 * plan.bwd_rows * d * 4 <= 4 * plan.bwd_tile * d * 4 + \
+        2 * d * 128 * ((2 * plan.bwd_tile + 31) // 32)
+    assert (plan.tile * d * 4) % 1024 == 0 and (plan.rows * d * 4) % 1024 == 0
+    assert (d // plan.d_split) % 16 == 0
+    assert max(plan.fwd_regs, plan.bwd_regs) <= 208
 
 
 # (dQ rows, tile, k slices), (dK/dV rows, tile, k slices) by head dim of
