@@ -131,18 +131,22 @@ Phases (any failure exits non-zero without the final result line):
    the container read back (frames and size by OpenCV, an audio stream
    in it) and exact launches at 2 steps; the shipped yaml as it is (1
    token a frame) must end in the port's token-count ``ValueError``. After
-   3b, on the models built again from their seeds: the int8 A2V clip with
-   all three tables (DiT, VAE decoder, A2M; + 1824 fused FFN-up launches,
-   128 a window from the A2M head), against its run with the plain FFN-up
-   version and, as 3b, its run on all plain versions;
-   3n. (after 3m, on the same models) the A2V clip of 3m with the
-   ``A2MModel_LearnableToken`` and ``A2MModel_SimpleAdaLN`` heads (the
-   flagship yaml with only ``model_type`` swapped; 201.6 M and 151.2 M):
-   exact launches (752 / 2: their own attentions, 84 tokens, stay plain),
-   against their runs on the plain attention versions (3m's gates); after
-   3m's int8 leg, LearnableToken's int8 A2V clip on the models built
-   again (+ 1632 fused FFN-up: 64 a window from the head, one FFN a
-   layer), gated as 3m's;
+   3b, on the models built again from their seeds at full width and
+   ``INT8_A2V_DEPTH`` (AMD_N at ``EXPORT_DEPTH``, the head at
+   ``A2M_CLI_LAYERS``): the int8 A2V clip with all three tables (DiT, VAE
+   decoder, A2M; fused FFN-up launches from the layers: the head's two
+   FFNs a layer and motion step, the DiT's two a layer and video step),
+   against its run with the plain FFN-up version and, as 3b, its run on
+   all plain versions;
+   3n. (after 3m, on AMD_N at ``EXPORT_DEPTH`` and the SD-VAE) the A2V
+   clip of 3m with the ``A2MModel_LearnableToken`` and
+   ``A2MModel_SimpleAdaLN`` heads (the flagship yaml with ``model_type``
+   swapped, at ``A2M_CLI_LAYERS`` layers): exact launches (from the
+   depth, 2 streaming: their own attentions, 84 tokens, stay plain),
+   against their runs on the plain attention versions (3m's gates);
+   after 3m's int8 leg, LearnableToken's int8 A2V clip on the models
+   built again at ``INT8_A2V_DEPTH`` (one FFN a layer from the head),
+   gated as 3m's;
    3o. the grid head (``A2MModelMlp`` at the ``A2MConfig`` defaults,
    194.7 M, seeded): ``sample_grid`` in bf16 at N = 1 and 10 steps (80
    full-block launches over 528 tokens, within ``GRID_REL_L2`` of its
@@ -215,9 +219,10 @@ Phases (any failure exits non-zero without the final result line):
    counts; finite loss and grad_norm, parameters that moved, and one step
    with the plain attention versions in place of the kernels from the same
    state, batch and draws (loss and gradient against the kernel step);
-   4b. one run-A step (loss and gradients, no update) under no remat and
-   under each remat policy (``full``, ``dots``, ``dots_sans_ffn``,
-   ``dots_offload``) from the same state, batch and draws: exact launches,
+   4b. one run-A step (loss and gradients, no update; the flagship at
+   ``PAR_DEPTH``) under no remat and under each remat policy (``full``,
+   ``dots``, ``dots_sans_ffn``, ``dots_offload``) from the same state,
+   batch and draws: exact launches,
    loss within ``REMAT_LOSS_RTOL`` of ``full``'s and gradient cosine at
    least ``REMAT_GRAD_COS``, with each one's time and peak memory (a policy
    that does not fit at N = 4 runs at N = 2, with ``full`` again there);
@@ -231,20 +236,22 @@ Phases (any failure exits non-zero without the final result line):
    launches, uint8 of its shape, and agreement with its run on the plain
    attention versions (phase 3's tolerances);
    5c. `--mp no` training, as ``cli.train_amd --mp no`` runs it: AMD_N
-   at full width and depth (fp32 weights, remat ``full``) computing in
-   fp32 on an fp32 SD-VAE: run F at N = 2 (a warm-up, 2 timed steps),
-   one step with the perceptual loss at N = 1 (the fp32 streaming
-   backward: 1 delta, 1 dQ, 1 dK/dV) and one under ``QKNORM_FUSE`` at N =
-   1 (the fp32 qk-norm forward); exact launches on the fp32 kernels
-   (``_expected_step_launches(..., f32=True)``), the bf16 counters and
+   at full width and ``PAR_DEPTH`` (fp32 weights, remat ``full``)
+   computing in fp32 on an fp32 SD-VAE: run F at N = 2 (a warm-up, 2
+   timed steps), one step with the perceptual loss at N = 1 (the fp32
+   streaming backward: 1 delta, 1 dQ, 1 dK/dV) and one under
+   ``QKNORM_FUSE`` at N = 1 (the fp32 qk-norm forward); exact launches
+   on the fp32 kernels (``_expected_step_launches(..., f32=True)``), the
+   bf16 counters and
    ``sdpa_plain`` 0, loss within ``F32_STEP_LOSS_RTOL``, gradient
    cosine at least ``F32_STEP_GRAD_COS`` and gradient relative L2 within
    ``F32_STEP_GRAD_REL_L2`` of the same step on the plain attention
    versions (the plain step with TF32 matmuls logged beside it as the
    control the gate must reject), step ms and peak memory;
 6. one training step (after a warm-up) of each config variant of
-   ``VARIANTS``, at N = 4 with remat ``full``: ``use_camera_down`` with
-   ``need_motion_transformer`` (the camera joint block at 16 + 256 tokens)
+   ``VARIANTS``, at ``PAR_DEPTH`` and N = 4 with remat ``full``:
+   ``use_camera_down`` with ``need_motion_transformer`` (the camera joint
+   block at 16 + 256 tokens)
    and ``diffusion_model_type="default"`` (the TempMotion DiT, one joint
    block a layer); exact launches and the plain-step check of run A;
 6b. training steps of the dual-encoder family, remat ``full``, each after
@@ -337,7 +344,31 @@ Phases (any failure exits non-zero without the final result line):
    then ``cli.amd_inference`` in this process on its checkpoint, and in
    2 processes with the config's ``attn_impl`` set to ``ring``: exact
    ring calls from the shapes, ``sdpa_plain`` 0, rank 0 alone writes, and
-   its frames against the one-process run's (phase 3's tolerances);
+   its frames against the one-process run's (phase 3's tolerances); and
+   ``cli.train_amd --mesh 1,1,2`` (the weights split over ``tensor``) for
+   2 steps in phase 8g's ranks, rank 0 alone printing, launches a rank
+   exact, its checkpoint served by ``cli.amd_inference`` here;
+   8f. the flagship's step on the mesh (1, 1, 2) with the weights split
+   over ``tensor`` (``attn_impl`` auto: each rank's kernels on 8 of the
+   16 heads), bf16 (``STEP_LOSS_RTOL``, ``STEP_GRAD_COS``), then one
+   ``--mp no`` step on an fp32 SD-VAE (``TP_F32_LOSS_RTOL``,
+   ``TP_F32_GRAD_REL_L2``), each against one process's step on the same
+   global batch and draws: exact launches a rank, ``sdpa_plain`` 0, the
+   ranks' gathered parameters bit-equal; the bf16 step's checkpoint
+   resumed by one process bit for bit; in the 4-rank spawn of 8a, the
+   step on (1, 2, 2) (FSDP2 over (data, fsdp) on the split weights)
+   against one process's on rank 0;
+   8g. ``cli.train_a2m`` (phase 7d's index and head at
+   ``A2M_CLI_LAYERS``), ``cli.train_t2m`` (at ``T2M_CLI_LAYERS``) and
+   ``cli.train_mae`` (MAE_L) on 2 gloo ranks, 2 steps each, their
+   ``main`` called in turn in one spawn (``rank_clis``), which runs while
+   8d and 8e do: launches a rank exact, rank 0 alone prints, the ranks'
+   parameters equal; each first step run again in this process on the
+   ranks' global batch (their rows in rank order) from the same weights
+   and draws: its loss within ``HEAD_LOSS_RTOL``, its grad_norm and
+   gradients within ``HEAD_GRAD_RTOL`` of the ranks' averaged ones
+   (sketched: ``_sketch``); each 2-rank checkpoint resumed here with the
+   ranks' parameters;
 9. print the card's name and power limit, one JSON line of per-kernel
    numbers, and as the last line the device record.
 
@@ -2614,15 +2645,17 @@ def a2m_spec():
     return a2v_inference.load_spec(A2M_CONFIG)
 
 
-def build_a2m(tokens, seed=SEED + 40, model_type=None):
+def build_a2m(tokens, seed=SEED + 40, model_type=None, layers=None):
     """The flagship A2M head with ``motion_num_token`` = ``tokens`` and no
-    other field changed (``model_type`` swapped where given), bf16 on the
-    card, seeded random weights."""
+    other field changed (``model_type`` swapped, ``layers`` layers, where
+    given), bf16 on the card, seeded random weights."""
     import torch
     from hivae_tpu_torch.cli import a2v_inference
 
     spec = a2m_spec()
     spec = dict(spec, model=dict(spec["model"], motion_num_token=tokens))
+    if layers:
+        spec["model"]["diffusion_num_layers"] = layers
     if model_type:
         spec["model_type"] = model_type
     torch.manual_seed(seed)
@@ -2906,11 +2939,12 @@ def run_a2v_cli(amd, a2m, failures):
         shutil.rmtree(work, ignore_errors=True)
 
 
-def run_a2v_int8(bf16_latency, card, failures, model_type=None):
+def run_a2v_int8(card, failures, model_type=None):
     """Phase 3m (and 3n with ``model_type`` A2MModel_LearnableToken), the
     int8 leg (after phase 3b, on AMD_N, the SD-VAE and the A2M head built
-    again from their seeds): the A2V clip in bf16 (the int8 run's
-    yardstick), then through ``ImageAudio2VideoPipeline(quant="int8")``
+    again from their seeds, at full width and INT8_A2V_DEPTH): the A2V
+    clip in bf16 (the int8 run's yardstick), then through
+    ``ImageAudio2VideoPipeline(quant="int8")``
     with all three tables (warm-up, timed run with exact launches), held
     to its run with the plain FFN-up version (phase 3's tolerances) and,
     as phase 3b holds the int8 clip, to its run on all plain versions
@@ -2920,8 +2954,9 @@ def run_a2v_int8(bf16_latency, card, failures, model_type=None):
     import torch
     from hivae_tpu_torch.pipelines import ImageAudio2VideoPipeline
 
-    amd, vae = build_serving_models()
-    a2m = build_a2m(amd.cfg.object_motion_token_num, model_type=model_type)
+    amd, vae = build_serving_models(INT8_A2V_DEPTH)
+    a2m = build_a2m(amd.cfg.object_motion_token_num, model_type=model_type,
+                    layers=A2M_CLI_LAYERS)
     label = "A2V clip" if model_type is None else f"A2V clip, {model_type}"
     joint = model_type in A2M_HEAD_TYPES
     pixels, emb = a2v_inputs()
@@ -2932,12 +2967,10 @@ def run_a2v_int8(bf16_latency, card, failures, model_type=None):
                                   A2V_VIDEO_STEPS, gen)
     kw = dict(window=WINDOW, a2m_ref_num_frame=A2V_REF_FRAMES,
               sample_size=SIZE)
-    if bf16_latency is None:
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
     bf16 = run(ImageAudio2VideoPipeline(vae, amd, a2m, **kw))
-    if bf16_latency is None:
-        torch.cuda.synchronize()
-        bf16_latency = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    bf16_latency = time.perf_counter() - t0
     t0 = time.perf_counter()
     pipe = ImageAudio2VideoPipeline(vae, amd, a2m, quant="int8", **kw)
     torch.cuda.synchronize()
@@ -2978,9 +3011,11 @@ def run_a2v_int8(bf16_latency, card, failures, model_type=None):
 
 
 def run_a2v_heads(models, card, failures):
-    """Phase 3n (bf16, on phase 3's AMD_N and SD-VAE): phase 3m's A2V clip
-    with each head of ``A2M_HEAD_TYPES`` (the flagship yaml with only
-    ``model_type`` swapped): one warm-up and one timed run with exact
+    """Phase 3n (bf16, on ``models``: AMD_N at EXPORT_DEPTH and the
+    SD-VAE): phase 3m's A2V clip with each head of ``A2M_HEAD_TYPES`` (the
+    flagship yaml with ``model_type`` swapped, at A2M_CLI_LAYERS layers:
+    both cut from the full depth when the parallel phases 8e-8g took the
+    script to 934 s): one warm-up and one timed run with exact
     launches (the heads' own attentions, 84 tokens, stay plain and
     uncounted), against its run on the plain attention versions (phase
     3's tolerances). Returns {path: launches}."""
@@ -2993,7 +3028,7 @@ def run_a2v_heads(models, card, failures):
     paths = {}
     for model_type, short in A2M_HEAD_TYPES.items():
         a2m = build_a2m(amd.cfg.object_motion_token_num,
-                        model_type=model_type)
+                        model_type=model_type, layers=A2M_CLI_LAYERS)
         pipe = ImageAudio2VideoPipeline(
             vae, amd, a2m, window=WINDOW, a2m_ref_num_frame=A2V_REF_FRAMES,
             sample_size=SIZE)
@@ -3243,6 +3278,12 @@ LONGTAIL_LAYERS = 2
 EXPORT_STEPS = 1
 EXPORT_DEPTH = dict(object_enc_num_layers=2, camera_enc_num_layers=2,
                     diffusion_num_layers=2)
+# the int8 A2V clips (phases 3m, 3n) run AMD_N and the A2M heads at full
+# width and a cut depth: AMD_N at EXPORT_DEPTH, the heads at
+# A2M_CLI_LAYERS (cut from the full depth, 72 s of the script, when the
+# parallel phases 8e-8g took it to 934 s); phase 3m's bf16 A2V clip keeps
+# the full depth
+INT8_A2V_DEPTH = EXPORT_DEPTH
 
 
 def _counted_run(fn):
@@ -4036,10 +4077,11 @@ def run_training(fa, models, failures, *, label, clips, steps,
 
 def run_training_f32(fa, models, failures):
     """Phase 5c: `--mp no` training of the flagship, as ``cli.train_amd
-    --mp no`` runs it: AMD_N's fp32 weights (``models``, full width and
-    depth, remat ``full``) computing in fp32 on an fp32 SD-VAE (built here
-    from its seed) and fp32 LPIPS. Run F at N = F32_STEP_CLIPS (a warm-up
-    and 2 timed steps), one step with the perceptual loss at N = 1 (the
+    --mp no`` runs it: AMD_N's fp32 weights (``models``: full width at
+    ``PAR_DEPTH``, remat ``full``) computing in fp32 on an fp32 SD-VAE
+    (built here from its seed) and fp32 LPIPS. Run F at N =
+    F32_STEP_CLIPS (a warm-up and 2 timed steps), one step with the
+    perceptual loss at N = 1 (the
     fp32 streaming backward), one under ``QKNORM_FUSE`` at N = 1 (the fp32
     qk-norm forward): each with exact launches on the fp32 kernels (the
     bf16 counters and ``sdpa_plain`` 0) and held to its plain-attention
@@ -5351,6 +5393,13 @@ HOP_TOKENS = (512, 1024, 2048)
 # global batches of the data-parallel (2, 1, 1) and ring (1, 1, 2) steps,
 # and the FSDP (1, 2, 1) step
 PAR_DP_CLIPS, PAR_RING_CLIPS, PAR_FSDP_CLIPS = 4, 2, 2
+# the weight tensor-parallel (1, 1, 2) steps of phase 8f: bf16, then one
+# `--mp no` step, held to one process's step on the same global batch.
+# fp32: the row-parallel layers' partial products summed in another order
+# than one matmul's, ~1e-7 a layer
+PAR_TP_CLIPS = 2
+TP_F32_LOSS_RTOL = 1e-4
+TP_F32_GRAD_REL_L2 = 1e-5
 # the long window of benchmarks/bench_longwindow.py (flagship widths) and
 # its Euler steps here
 LONG_WINDOW, LONG_WINDOW_STEPS = 64, 2
@@ -5360,25 +5409,34 @@ LONG_WINDOW, LONG_WINDOW_STEPS = 64, 2
 # follows the parameter count, and the CLI writes full checkpoints with
 # the optimizer state (8 GB at full depth). Cut from 4 encoder and 4 DiT
 # layers (phase 8) and the full depth (phase 7) when phase 3v's exports
-# took the script past 800 s; the full depth trains in phases 4-6
+# took the script past 800 s; the full depth trains in phases 4 and 5.
+# Phases 4b (remat policies), 5c (`--mp no`) and 6 (variants) run at this
+# depth too since the parallel phases 8e-8g took the script to 934 s
 PAR_DEPTH = dict(object_enc_num_layers=2, camera_enc_num_layers=2,
                  diffusion_num_layers=2)
 RANK_TIMEOUT = 600
 
 
+_PORTS = set()   # the ports handed to spawns in this run
+
+
 def _free_port() -> int:
+    """A free port no other spawn of this run was given (two spawns may
+    work side by side)."""
     import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    while True:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        if port not in _PORTS:
+            _PORTS.add(port)
+            return port
 
 
-def spawn_ranks(phase, world, workdir, cmd=None, env=None,
-                timeout=RANK_TIMEOUT):
-    """Run ``world`` processes of ``phase`` (this script's ``--rank-phase``,
-    or ``cmd``), each on this card, its output in ``workdir``; kill them
-    all after ``timeout`` s. Returns [(exit code, output, result dict or
-    None)] by rank."""
+def start_ranks(phase, world, workdir, cmd=None, env=None):
+    """Start ``world`` processes of ``phase`` (this script's
+    ``--rank-phase``, or ``cmd``), each on this card, its output in
+    ``workdir`` -> a handle for ``wait_ranks``."""
     os.makedirs(workdir, exist_ok=True)
     port = _free_port()
     procs, logs = [], []
@@ -5394,9 +5452,20 @@ def spawn_ranks(phase, world, workdir, cmd=None, env=None,
             procs.append(subprocess.Popen(argv, stdout=log,
                                           stderr=subprocess.STDOUT,
                                           env=penv, cwd=ROOT))
-        deadline = time.perf_counter() + timeout
+    except BaseException:
+        wait_ranks((phase, workdir, procs, logs, time.perf_counter()), 0)
+        raise
+    return phase, workdir, procs, logs, time.perf_counter()
+
+
+def wait_ranks(handle, timeout=RANK_TIMEOUT):
+    """Wait for ``start_ranks``'s processes, killing them all ``timeout``
+    s after their start. Returns [(exit code, output, result dict or
+    None)] by rank."""
+    phase, workdir, procs, logs, t0 = handle
+    try:
         for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            p.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
     except subprocess.TimeoutExpired:
         _log(f"  {phase}: ranks ran past {timeout} s; killed")
     finally:
@@ -5417,6 +5486,13 @@ def spawn_ranks(phase, world, workdir, cmd=None, env=None,
                 result = json.load(f)
         out.append((p.returncode, text, result))
     return out
+
+
+def spawn_ranks(phase, world, workdir, cmd=None, env=None,
+                timeout=RANK_TIMEOUT):
+    """``start_ranks`` then ``wait_ranks``: [(exit code, output, result
+    dict or None)] by rank."""
+    return wait_ranks(start_ranks(phase, world, workdir, cmd, env), timeout)
 
 
 def _rank_results(label, ranks, failures):
@@ -5445,6 +5521,41 @@ def _bits_digest(tensors):
         h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
                  .tobytes())
     return h.hexdigest()
+
+
+def _sketch(tensors):
+    """Random projections of the tensors, one N(0, 1) vector each, seeded
+    by its index: the L2 distance of two lists' sketches estimates the
+    L2 distance of the tensors (a list of floats, cheap to send)."""
+    import torch
+    out = []
+    for i, t in enumerate(tensors):
+        gen = torch.Generator(device=t.device).manual_seed(SEED + i)
+        r = torch.randn(t.numel(), generator=gen, device=t.device)
+        out.append(float(torch.dot(t.detach().float().flatten(), r)))
+    return out
+
+
+def _sketch_rel(a, b):
+    """||a - b|| / ||b|| of two sketches (nan where one is missing)."""
+    import numpy as np
+    if not a or not b or len(a) != len(b):
+        return float("nan")
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _keep_grad_sketch(trainer, into):
+    """Have ``trainer``'s next gradients (the averaged ones, in parameter
+    order) sketched into ``into["grad_sketch"]``; returns the undo."""
+    grads = trainer.grads
+
+    def kept(loss):
+        g = grads(loss)
+        into["grad_sketch"] = _sketch(g)
+        return g
+    trainer.grads = kept
+    return lambda: trainer.__dict__.pop("grads", None)
 
 
 def _cosine(a, b):
@@ -5631,45 +5742,112 @@ def _par_batch(trainer, clips):
                                                [p[1] for p in pairs]))
 
 
-def _par_trainer(amd, vae, mesh, workdir):
+def _par_trainer(amd, vae, mesh, workdir, mp="bf16", out="trainer",
+                 resume=False):
     from hivae_tpu_torch.training.trainer import AMDTrainer, TrainConfig
-    tc = TrainConfig(output_dir=os.path.join(workdir, "trainer"),
+    tc = TrainConfig(output_dir=os.path.join(workdir, out),
                      learning_rate=1e-4, weight_decay=1e-2,
-                     max_grad_norm=1.0, mixed_precision="bf16",
-                     mu_dtype="bf16", seed=SEED)
+                     max_grad_norm=1.0, mixed_precision=mp,
+                     mu_dtype="bf16", seed=SEED, resume=resume)
     return AMDTrainer(amd, vae, tc, mesh=mesh)
 
 
+def _whole(part, like):
+    """The whole tensor of which ``part`` is this rank's part in ``like``'s
+    layout, on every rank (all-gathered over each split mesh dim)."""
+    import torch
+    from hivae_tpu_torch.parallel import comm
+    mesh = getattr(like, "device_mesh", None)
+    if mesh is None:
+        return part
+    out = part
+    for m, pl in reversed(list(enumerate(like.placements))):
+        if pl.is_shard():
+            d, size = pl.dim, like.shape[pl.dim]
+            chunk = -(-size // mesh.size(m))
+            pad = [0, 0] * (out.dim() - d - 1) + [0, chunk - out.shape[d]]
+            out = comm.all_gather(torch.nn.functional.pad(out, pad),
+                                  mesh.get_group(m), d).narrow(d, 0, size)
+    return out
+
+
+def _tp_checkpoint(res, label, trainer, workdir, mp, save):
+    """Phase 8f, after the tensor-parallel step: every rank's parameters,
+    gathered whole, bit-equal; with ``save``, ``trainer.save()`` (the
+    split weights gathered to rank 0, which writes) and on rank 0 that
+    checkpoint resumed by a one-process trainer on a model built anew, its
+    parameters bit-equal to the gathered ones."""
+    import torch
+    import torch.distributed as dist
+    from hivae_tpu_torch.parallel.mesh import local_mesh
+    from hivae_tpu_torch.parallel.sharding import local
+
+    whole = {k: _whole(local(p).detach(), p)
+             for k, p in trainer.state.params.items()}
+    digests = [None] * dist.get_world_size()
+    dist.all_gather_object(digests, _bits_digest(list(whole.values())))
+    res["params_equal"] = len(set(digests)) == 1
+    if save:
+        t0 = time.perf_counter()
+        trainer.save()
+        res["save_s"] = time.perf_counter() - t0
+    if save and dist.get_rank() == 0:
+        amd, _ = _training_models()
+        one = _par_trainer(amd, trainer.vae, local_mesh(), workdir, mp=mp,
+                           out=f"trainer_tp_{mp}", resume=True)
+        res["resumed_equal"] = one.global_step == 1 and all(
+            torch.equal(p.detach(), whole[k])
+            for k, p in one.state.params.items())
+        if not res["resumed_equal"]:
+            res["failures"].append(f"{label}: its checkpoint resumed in one "
+                                   f"process differs from the ranks' "
+                                   f"parameters")
+        del one, amd
+    if not res["params_equal"]:
+        res["failures"].append(f"{label}: the ranks' gathered parameters "
+                               f"differ after the step")
+    dist.barrier()
+
+
 def _step_against_reference(res, label, amd, vae, mesh, clips, workdir,
-                            ring_calls=None):
+                            ring_calls=None, mp="bf16", ref_everywhere=True,
+                            save=True):
     """One training step on ``mesh`` (each rank its rows of a global batch
     of ``clips``, the global batch's draws) against one process's step on
     the whole batch and the same draws, computed first on the same weights
-    (on rank 0; on every rank where ``mesh`` shards the parameters, so
-    that each holds the reference of its shards): loss within
-    STEP_LOSS_RTOL and gradient cosine at least STEP_GRAD_COS, exact
-    launches (``ring_calls``: every attention rings, no kernel) and,
-    unsharded, every rank's parameters bit-equal after the update."""
+    (on rank 0; on every rank where ``mesh`` shards the parameters, over
+    ``fsdp`` or, without the ring, over ``tensor``, so that each holds the
+    reference of its shards): loss within STEP_LOSS_RTOL and gradient
+    cosine at least STEP_GRAD_COS (``mp="no"``: loss within
+    TP_F32_LOSS_RTOL and gradient relative L2 within TP_F32_GRAD_REL_L2),
+    exact launches (``ring_calls``: every attention rings, no kernel) and,
+    unsharded, every rank's parameters bit-equal after the update; split
+    over ``tensor``, ``_tp_checkpoint`` (``save``: with its checkpoint
+    resumed in one process). ``ref_everywhere=False``: the
+    reference on rank 0 alone, against the gradients gathered whole (four
+    ranks on one card cannot each hold a reference step)."""
     import torch
     import torch.distributed as dist
-    from hivae_tpu_torch.parallel import comm
     from hivae_tpu_torch.parallel.mesh import local_mesh
     from hivae_tpu_torch.parallel.ring_attention import sequence_sharded_sdpa
     from hivae_tpu_torch.parallel.sharding import batch_rows, local, part_of
+    from hivae_tpu_torch.training.train_state import mesh_sum
 
     rank = dist.get_rank()
-    sharded = mesh.shape["fsdp"] > 1
+    split = mesh.shape["tensor"] > 1 and amd.cfg.attn_impl != "ring"
+    sharded = mesh.shape["fsdp"] > 1 or split
     ref = None
-    if rank == 0 or sharded:
+    if rank == 0 or (sharded and ref_everywhere):
         # a ring config on one rank runs auto attention (with a warning)
-        one = _par_trainer(amd, vae, local_mesh(), workdir)
+        one = _par_trainer(amd, vae, local_mesh(), workdir, mp=mp)
         batch = _par_batch(one, clips)
         m1, g1 = one.loss_and_grads(batch, one.draw(batch))
         ref = (m1["loss"].item(), [g.detach() for g in g1])
         del one, batch, g1
         torch.cuda.empty_cache()
     dist.barrier()
-    trainer = _par_trainer(amd, vae, mesh, workdir)
+    trainer = _par_trainer(amd, vae, mesh, workdir, mp=mp,
+                           out=f"trainer_tp_{mp}" if split else "trainer")
     batch = _par_batch(trainer, clips)
     rows = batch_rows(trainer.mesh, clips)
     batch = {k: v[rows] for k, v in batch.items()}
@@ -5683,11 +5861,12 @@ def _step_against_reference(res, label, amd, vae, mesh, clips, workdir,
     metrics, grads = trainer.loss_and_grads(batch, draws)
     torch.cuda.synchronize()
     res["ms"] = (time.perf_counter() - t0) * 1e3
+    res["clips_per_s"] = clips / res["ms"] * 1e3
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     res["counts"] = counts = _read_counts()
     res["calls"] = dict(sequence_sharded_sdpa.calls)
     if ring_calls is None:
-        want = _expected_step_launches(amd.cfg, False)
+        want = _expected_step_launches(amd.cfg, False, f32=mp == "no")
         want_calls = {"kernel": 0, "plain": 0}
     else:
         want, want_calls = _no_launches(), {"kernel": 0, "plain": ring_calls}
@@ -5696,26 +5875,41 @@ def _step_against_reference(res, label, amd, vae, mesh, clips, workdir,
                                f"ring calls {res['calls']}, want "
                                f"{want_calls}")
     res["loss"] = metrics["loss"].item()
+    gathered = sharded and not ref_everywhere
+    if gathered:    # every rank takes part; rank 0 compares
+        grads_cmp = [_whole(local(g), g) for g in grads]
     if ref is not None:
-        # the cosine from each rank's parts (whole tensors when unsharded)
-        sums = torch.zeros(3, dtype=torch.float64,
-                           device=local(grads[0]).device)
-        for g, rg in zip(grads, ref[1]):
+        # the cosine and distance from each rank's parts (whole tensors
+        # when unsharded or gathered), added over the mesh axes each is
+        # split on
+        rows = []
+        for g, rg in zip(grads_cmp if gathered else grads, ref[1]):
             a, b = local(g).double(), part_of(rg, g).double()
-            sums += torch.stack([(a * b).sum(), a.square().sum(),
-                                 b.square().sum()])
-        if sharded:
-            comm.all_reduce_([sums], mesh.group("fsdp"))
-        dot, na, nb = sums.tolist()
+            rows.append(torch.stack([(a * b).sum(), a.square().sum(),
+                                     b.square().sum(),
+                                     (a - b).square().sum()]))
+        likes = grads if sharded and not gathered else [None] * len(grads)
+        dot, na, nb, nd = mesh_sum(rows, likes).tolist()
         rel = abs(res["loss"] - ref[0]) / abs(ref[0])
         cos = dot / (na * nb) ** 0.5
-        res.update(loss_rel=rel, grad_cos=cos, ref_loss=ref[0])
-        if not (rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS):
+        rel_l2 = (nd / nb) ** 0.5
+        res.update(loss_rel=rel, grad_cos=cos, grad_rel_l2=rel_l2,
+                   ref_loss=ref[0])
+        ok = (rel <= TP_F32_LOSS_RTOL and rel_l2 <= TP_F32_GRAD_REL_L2
+              if mp == "no" else
+              rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS)
+        if not ok:
             res["failures"].append(f"{label}: loss rel {rel}, gradient "
-                                   f"cosine {cos} against one process")
+                                   f"cosine {cos}, relative L2 {rel_l2} "
+                                   f"against one process")
     del ref
+    if gathered:
+        del grads_cmp
     trainer.state.apply_gradients(grads)
-    if sharded:
+    if split:
+        del grads
+        _tp_checkpoint(res, label, trainer, workdir, mp, save)
+    elif sharded:
         del grads
         _save_peak(res, label, trainer)
     else:
@@ -5875,7 +6069,8 @@ def rank_long_window(res, vae):
 
 def rank_parallel_steps(res, workdir):
     """On 2 ranks, phases 8a (ring of 2), 8b (data parallel), 8c (ring
-    step and long window) and 8d (the FSDP step)."""
+    step and long window), 8d (the FSDP step) and 8f (the weight
+    tensor-parallel steps, bf16 and fp32)."""
     import torch
     import torch.distributed as dist
     from hivae_tpu_torch.parallel.mesh import create_mesh
@@ -5920,6 +6115,46 @@ def rank_parallel_steps(res, workdir):
     amd, _ = _training_models()
     phase("fsdp_step", _step_against_reference, "FSDP step (1, 2, 1)", amd,
           vae, mesh((1, 2, 1)), PAR_FSDP_CLIPS, workdir)
+    del amd
+    torch.cuda.empty_cache()
+    # phase 8f: the weights split over 'tensor' (attn_impl auto: the
+    # kernels on each rank's 8 of 16 heads), bf16, then `--mp no` on an
+    # fp32 SD-VAE
+    amd, _ = _training_models()
+    phase("tp_step", _step_against_reference,
+          "tensor-parallel step (1, 1, 2)", amd, vae, mesh((1, 1, 2)),
+          PAR_TP_CLIPS, workdir)
+    del amd, vae
+    torch.cuda.empty_cache()
+    from hivae_tpu_torch.models import vae as vae_mod
+    torch.manual_seed(SEED + 6)
+    vae32 = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
+                                  dtype=torch.float32).eval()
+    vae32.requires_grad_(False)
+    amd, _ = _training_models()
+    phase("tp_step_f32", _step_against_reference,
+          "tensor-parallel --mp no step (1, 1, 2)", amd, vae32,
+          mesh((1, 1, 2)), PAR_TP_CLIPS, workdir, None, "no", True, False)
+
+
+def rank_four(res, workdir):
+    """The 4-rank spawn: phase 8a's ring of 4, then phase 8f's (1, 2, 2)
+    step, FSDP2 over (data, fsdp) on the weights split over ``tensor``,
+    against one process's step on rank 0 (``fsdp_tp``)."""
+    import torch
+    from hivae_tpu_torch.parallel.mesh import create_mesh
+
+    rank_ring_hops(res)
+    torch.cuda.empty_cache()
+    sub = res["fsdp_tp"] = {"failures": []}
+    amd, vae = _training_models()
+    try:
+        _step_against_reference(
+            sub, "FSDP x tensor-parallel step (1, 2, 2)", amd, vae,
+            create_mesh((1, 2, 2), device_type="cuda"), PAR_TP_CLIPS,
+            workdir, ref_everywhere=False, save=False)
+    finally:
+        res["failures"].extend(sub["failures"])
 
 
 def rank_nccl_init(res):
@@ -6019,6 +6254,10 @@ def rank_main(args) -> int:
                 world_size=int(os.environ["WORLD_SIZE"]), rank=rank)
             if args.rank_phase == "ring_hops":
                 rank_ring_hops(res)
+            elif args.rank_phase == "four":
+                rank_four(res, args.workdir)
+            elif args.rank_phase == "clis":
+                rank_clis(res, args.workdir)
             else:
                 rank_parallel_steps(res, args.workdir)
     except Exception:
@@ -6090,37 +6329,53 @@ def run_parallel(fa, failures):
     try:
         _log(f"phase 8: parallelism; the ranks are processes sharing this "
              f"card over gloo (NCCL refuses two ranks on one device): no "
-             f"time here is a collective's on a cluster")
+             f"time here is a collective's on a cluster; {_card_line()}")
         _log("phase 8a: ring hops at their kernel and plain shapes")
         time_hops(fa)
+        # the 4-rank spawn works beside the 2-rank one: six processes
+        # share the card and the host, so both take longer than alone
         t0 = time.perf_counter()
-        ranks = spawn_ranks("steps", 2, work)
+        four = start_ranks("four", 4, work)
+        try:
+            ranks = spawn_ranks("steps", 2, work)
+        finally:
+            ranks_four = wait_ranks(four)
         res = _rank_results("phase 8 (2 ranks)", ranks, failures)
-        _log(f"  2 ranks: {time.perf_counter() - t0:.1f} s with process "
-             f"start and model builds")
+        _log(f"  2 and 4 ranks side by side: {time.perf_counter() - t0:.1f} "
+             f"s with process start and model builds")
         if res:
             paths.update(_log_phases(res[0]))
             save = res[-1]["phases"].get("fsdp_step", {})
             _log(f"  fsdp_step save (rank {len(res) - 1}): peak extra "
                  f"{save.get('save_peak_extra_gib')} GiB, "
                  f"{save.get('save_s')} s")
-        t0 = time.perf_counter()
-        res = _rank_results("phase 8a (4 ranks)",
-                            spawn_ranks("ring_hops", 4, work), failures)
-        _log(f"  ring of 4: {time.perf_counter() - t0:.1f} s with process "
-             f"start")
+        res = _rank_results("phase 8a, 8f (4 ranks)", ranks_four, failures)
         if res:
-            _log(f"  ring of 4 (rank 0): ms {res[0]['ms']}, errors "
+            _log(f"  ring of 4 (rank 0): ms {res[0].get('ms')}, errors "
                  f"{res[0].get('errors')}")
-            paths["par_ring_hops_4"] = res[0]["counts"]
-        _log("phase 8d: init_distributed on its default backend (NCCL) at "
-             "world size 1")
-        res = _rank_results("phase 8d (NCCL)", spawn_ranks("nccl", 1, work),
-                            failures)
-        if res:
-            _log(f"  NCCL: {res[0]}")
-        _log("phase 8e: the training CLI on 2 ranks, --mesh 2,1,1 (gloo)")
-        paths.update(run_parallel_cli(work, failures))
+            paths["par_ring_hops_4"] = res[0].get("counts", _no_launches())
+            paths.update(_log_phases({"phases": {
+                "fsdp_tp_step": res[0].get("fsdp_tp", {"failures": []})}}))
+        # phase 8g's ranks (with 8e's --mesh 1,1,2 run) work while 8d and
+        # the rest of 8e run: two groups of processes share the card and
+        # the host, so their times are longer than alone
+        _log("phase 8g: cli.train_a2m, cli.train_t2m and cli.train_mae on 2 "
+             "ranks (data parallel, gloo), after cli.train_amd --mesh 1,1,2; "
+             "started here, read after phase 8e")
+        clis = start_parallel_clis(os.path.join(work, "clis"))
+        try:
+            _log("phase 8d: init_distributed on its default backend (NCCL) "
+                 "at world size 1")
+            res = _rank_results("phase 8d (NCCL)",
+                                spawn_ranks("nccl", 1, work), failures)
+            if res:
+                _log(f"  NCCL: {res[0]}")
+            _log("phase 8e: the training CLI on 2 ranks, --mesh 2,1,1 "
+                 "(gloo)")
+            paths.update(run_parallel_cli(work, failures))
+        finally:
+            _log("phases 8e (--mesh 1,1,2) and 8g: the ranks' results")
+            paths.update(finish_parallel_clis(clis, _card_line(), failures))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return paths
@@ -6132,7 +6387,8 @@ def run_parallel_cli(work, failures):
     steps at a global batch of RUN_A_CLIPS, then ``cli.amd_inference`` in
     this process on the checkpoint it wrote, and in 2 processes with its
     config's ``attn_impl`` set to ``ring`` (``rank_ring_serve``), whose
-    frames are held to this process's."""
+    frames are held to this process's. (Its ``--mesh 1,1,2`` run goes
+    with phase 8g's ranks.)"""
     import shutil
     import numpy as np
     import torch
@@ -6219,6 +6475,317 @@ def run_parallel_cli(work, failures):
     return {"cli_mp4_mesh_trained": launches}
 
 
+# phase 8g: the head training CLIs over 2 ranks: global batches (A2M as
+# phase 7d, T2M 1 clip a rank, MAE_L as phase 7f), steps each; phase 8e's
+# `--mesh 1,1,2` training CLI goes first in the same ranks, at a global
+# batch of TP_CLI_CLIPS (both ranks of the tensor group take every row)
+HEAD_CLIS = ("a2m", "t2m", "mae")
+HEAD_STEPS = 2
+HEAD_LOSS_RTOL = 1e-2
+# the first step's grad_norm and averaged gradients (their sketches'
+# relative L2) against one process's: a sum the ranks do not divide, or
+# an average over the wrong group, is off by O(1) (the parameters after
+# one AdamW step cannot show it: its first update is g / |g|)
+HEAD_GRAD_RTOL = 1e-2
+TP_CLI_CLIPS = 2
+
+
+def _head_module(kind):
+    from hivae_tpu_torch.cli import train_a2m, train_amd, train_mae, train_t2m
+    return {"a2m": train_a2m, "t2m": train_t2m, "mae": train_mae,
+            "tp": train_amd}[kind]
+
+
+def _head_trainer_class(kind):
+    return getattr(_head_module(kind), f"{kind.upper()}Trainer")
+
+
+def _cli_inputs(work):
+    """Phase 8g's inputs under ``work``: phase 7d's A2M index (mp4s,
+    seeded embeddings, a pose stream) and head at A2M_CLI_LAYERS, phase
+    7e's T2M tree at T2M_CLI_LAYERS, phase 7f's MAE videos, one frozen
+    AMD_N as a reference-named ``.safetensors``, and phase 8e's flagship
+    config at ``PAR_DEPTH`` -> ({kind: argv}, {kind: launches a rank})."""
+    import pickle
+    import numpy as np
+    import torch
+    from hivae_tpu_torch.cli import train_amd
+
+    videos, poses = (os.path.join(work, d) for d in ("videos", "poses"))
+    write_training_videos(videos)
+    write_training_videos(poses)
+    rng = np.random.RandomState(SEED + 70)
+    spec = a2m_spec()
+    model = spec["model"]
+    index = []
+    for i in range(CLI_VIDEOS):
+        emb = os.path.join(videos, f"train{i}.npy")
+        np.save(emb, rng.randn(CLI_VIDEO_FRAMES, model["audio_block"],
+                               model["audio_inchannel"]).astype(np.float32))
+        index.append({"video_path": os.path.join(videos, f"train{i}.mp4"),
+                      "audio_emb_path": emb,
+                      "pose_path": os.path.join(poses, f"train{i}.mp4")})
+    with open(os.path.join(work, "index.pkl"), "wb") as f:
+        pickle.dump(index, f)
+    tree = os.path.join(work, "tree")
+    for i, cls in enumerate(("clsA", "clsB")):
+        write_training_videos(os.path.join(tree, cls), count=T2M_VIDEOS // 2,
+                              frames=T2M_VIDEO_FRAMES,
+                              start=i * T2M_VIDEOS // 2)
+    mae_videos = os.path.join(work, "mae_videos")
+    write_training_videos(mae_videos, count=MAE_TRAIN_CLIPS,
+                          frames=MAE_VIDEO_FRAMES)
+    amd, _ = build_serving_models()
+    cfg = amd.cfg
+    amd_st = os.path.join(work, "amd_n.safetensors")
+    write_safetensors(amd_st, _reference_named(amd))
+    del amd, _
+    torch.cuda.empty_cache()
+    a2m_json = os.path.join(work, "a2m.json")
+    with open(a2m_json, "w") as f:
+        json.dump(dict(spec, model=dict(
+            model, motion_num_token=cfg.object_motion_token_num,
+            diffusion_num_layers=A2M_CLI_LAYERS)), f)
+    with open(CONFIG) as f:
+        par_cfg = dict(json.load(f), **PAR_DEPTH)
+    par_config = os.path.join(work, "config_par.json")
+    with open(par_config, "w") as f:
+        json.dump(par_cfg, f)
+    run = ["--output_dir", work, "--max_train_steps", str(HEAD_STEPS),
+           "--save_checkpoint_interval_step", "1000",
+           "--dataloader_num_workers", "2", "--dist_backend", "gloo"]
+    frozen = ["--amd_config", CONFIG, "--amd_ckpt", amd_st,
+              "--video_frames", str(WINDOW)]
+    argv = {
+        "tp": ["--video_dir", videos, "--amd_config", par_config,
+               "--exp_name", "tp", "--train_batch_size", str(TP_CLI_CLIPS),
+               "--mp", "bf16", "--mu_dtype", "bf16", "--seed", str(SEED),
+               "--mesh", "1,1,2"] + run,
+        "a2m": ["--a2m_config", a2m_json, "--video_dir",
+                os.path.join(work, "index.pkl"), "--exp_name", "a2m",
+                "--train_batch_size", str(A2M_TRAIN_CLIPS)] + frozen + run,
+        "t2m": ["--video_dir", tree, "--exp_name", "t2m",
+                "--t2m_config", _write_t2m_inputs(work, T2M_CLI_LAYERS),
+                "--train_batch_size", "2"] + frozen + run,
+        "mae": ["--video_dir", mae_videos, "--model_type", "MAE_L",
+                "--exp_name", "mae", "--train_batch_size",
+                str(MAE_TRAIN_CLIPS), "--lr_warmup_steps", "1"] + run}
+    enc = cfg.object_enc_num_layers
+    tp_cfg = train_amd.build_config(train_amd.parse_args(argv["tp"]))
+    per_step = {
+        "tp": {k: v for k, v in
+               _expected_step_launches(tp_cfg, False).items() if v},
+        "a2m": dict(full_block_attention=2 * enc, stream_attention=4),
+        "t2m": dict(full_block_attention=enc + T2M_CLI_LAYERS,
+                    full_block_attention_bwd=T2M_CLI_LAYERS,
+                    full_block_attention_delta=T2M_CLI_LAYERS,
+                    stream_attention=4),
+        "mae": dict(full_block_attention=8, full_block_attention_bwd=8,
+                    full_block_attention_delta=8, stream_attention=1)}
+    return argv, per_step
+
+
+def rank_clis(res, workdir):
+    """Phases 8e (``--mesh 1,1,2``) and 8g, one rank: ``cli.train_amd``,
+    then ``cli.train_a2m``, ``cli.train_t2m`` and ``cli.train_mae``
+    ``main`` in turn, in the process group this rank started (argv in
+    ``<workdir>/clis_argv.json``): each run's exit code, launches and
+    whether it printed its final metrics; for the heads each step timed
+    to a device synchronise, the first step's rows of the batch saved
+    (rank order makes the global batch) with its metrics and a sketch of
+    its averaged gradients (``_sketch``), and a digest of the parameters
+    at the end."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    with open(os.path.join(workdir, "clis_argv.json")) as f:
+        argv, per_step = json.load(f)
+    rank = dist.get_rank()
+    for kind in ("tp",) + HEAD_CLIS:
+        rec = {"times": [], "failures": []}
+        res[kind] = rec
+        seen = {}
+        cls = None if kind == "tp" else _head_trainer_class(kind)
+        step_fn = None if cls is None else cls.train_step
+
+        def timed(trainer, batch, *a, **k):
+            undo = None
+            if not rec["times"]:
+                np.savez(os.path.join(workdir, f"{kind}_batch{rank}.npz"),
+                         **{n: np.asarray(v) for n, v in batch.items()
+                            if not isinstance(v, list)})
+                undo = _keep_grad_sketch(trainer, rec)
+            t0 = time.perf_counter()
+            out = step_fn(trainer, batch, *a, **k)
+            torch.cuda.synchronize()
+            rec["times"].append(time.perf_counter() - t0)
+            if undo is not None:
+                undo()
+            if "metrics" not in rec:
+                rec["metrics"] = {n: float(v) for n, v in out.items()}
+            seen["trainer"] = trainer
+            return out
+        if cls is not None:
+            cls.train_step = timed
+        buf = io.StringIO()
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rec["rc"] = _head_module(kind).main(argv[kind])
+            rec["s"] = time.perf_counter() - t0
+        finally:
+            if cls is not None:
+                cls.train_step = step_fn
+            print(buf.getvalue(), flush=True)
+        rec["printed"] = "final metrics" in buf.getvalue()
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        rec["counts"] = counts = _read_counts()
+        want = dict(_no_launches(), **{n: v * HEAD_STEPS
+                                       for n, v in per_step[kind].items()})
+        tr = seen.get("trainer")
+        rec["digest"] = None if tr is None else _bits_digest(
+            list(tr.state.params.values()))
+        if rec["rc"] != 0 or counts != want or \
+                (cls is not None and len(rec["times"]) != HEAD_STEPS):
+            rec["failures"].append(f"cli.train_{kind} (2 ranks): rc "
+                                   f"{rec['rc']}, steps {len(rec['times'])}"
+                                   f", launches {counts} want {want}")
+        res["failures"].extend(rec["failures"])
+        del seen, tr
+        torch.cuda.empty_cache()
+
+
+def start_parallel_clis(work):
+    """Write phase 8g's inputs and start its 2 ranks (``rank_clis``) ->
+    (handle, argv, launches a step)."""
+    argv, per_step = _cli_inputs(work)
+    with open(os.path.join(work, "clis_argv.json"), "w") as f:
+        json.dump([argv, per_step], f)
+    return start_ranks("clis", 2, work), argv, per_step
+
+
+def finish_parallel_clis(started, card, failures):
+    """Phases 8e (``--mesh 1,1,2``) and 8g, after ``start_parallel_clis``:
+    the 2 ranks' runs (launches a rank exact, rank 0 alone prints); the
+    ``--mesh 1,1,2`` checkpoint served by ``cli.amd_inference`` in this
+    process; each head CLI's first step run again here on the same global
+    batch (the ranks' rows in rank order), draws and initial weights:
+    its loss within HEAD_LOSS_RTOL of the ranks', its grad_norm and
+    gradients within HEAD_GRAD_RTOL of the ranks' averaged ones (both
+    ranks' the same bits), and its 2-rank checkpoint resumed here, the
+    parameters' digest the ranks'. Returns {path: launches}."""
+    import shutil
+    import numpy as np
+    import torch
+    from hivae_tpu_torch.cli import train_amd
+    from hivae_tpu_torch.training import checkpoint as ckpt_lib
+
+    handle, argv, _ = started
+    work = handle[1]
+    t0 = time.perf_counter()
+    ranks = wait_ranks(handle)
+    res = _rank_results("phases 8e, 8g (2 ranks)", ranks, failures)
+    _log(f"  2 ranks: {time.perf_counter() - t0:.1f} s after the other "
+         f"phase 8e runs, with process start, the models' builds and saves")
+    paths = {}
+    kinds = ("tp",) + HEAD_CLIS
+    if len(res) != 2 or any("counts" not in r.get(k, {})
+                            for r in res for k in kinds):
+        failures.append("phases 8e, 8g: a rank ended before its CLI runs: "
+                        f"{[sorted(r) for r in res]}")
+        return paths
+    r0, r1 = res[0]["tp"], res[1]["tp"]
+    paths["par_cli_tp"] = r0["counts"]
+    ckpts = os.path.join(work, "tp", "checkpoints")
+    found = sorted(os.listdir(ckpts)) if os.path.isdir(ckpts) else []
+    _log(f"  cli.train_amd --mesh 1,1,2, 2 ranks, {HEAD_STEPS} steps of "
+         f"{TP_CLI_CLIPS} clips: {r0['s']:.1f} s with the model build and "
+         f"checkpoint, peak {r0['peak_gib']:.2f} GiB a rank; launches a "
+         f"rank { {k: v for k, v in r0['counts'].items() if v} }; "
+         f"checkpoints {found}; {card}")
+    if not (r0["printed"] and not r1["printed"] and
+            found == [f"checkpoint-{HEAD_STEPS}"]):
+        failures.append(f"train_amd --mesh 1,1,2: rank 0 prints "
+                        f"{r0['printed']}, rank 1 {r1['printed']}, "
+                        f"checkpoints {found}")
+    else:
+        one = os.path.join(work, "one")
+        os.makedirs(one, exist_ok=True)
+        shutil.copy(os.path.join(work, "videos", "train0.mp4"), one)
+        paths["cli_mp4_tp_trained"] = run_inference_cli(
+            os.path.join(work, "tp", "config.json"), ckpts, one,
+            os.path.join(work, "recon_tp"),
+            train_amd.build_config(train_amd.parse_args(argv["tp"])),
+            failures, label="amd_inference on the --mesh 1,1,2 checkpoint")
+    for kind in HEAD_CLIS:
+        r0, r1 = res[0][kind], res[1][kind]
+        times = r0.get("times") or [float("nan")]
+        later = sorted(times[1:] or times)
+        step_s = later[(len(later) - 1) // 2]
+        clips = {"a2m": A2M_TRAIN_CLIPS, "t2m": 2,
+                 "mae": MAE_TRAIN_CLIPS}[kind]
+        paths[f"par_heads_{kind}"] = r0["counts"]
+        mod = _head_module(kind)
+        args = mod.parse_args(argv[kind] + ["--device", "cuda"])
+        batch = {}
+        for r in range(2):
+            with np.load(os.path.join(work, f"{kind}_batch{r}.npz")) as z:
+                for n in z.files:
+                    batch.setdefault(n, []).append(z[n])
+        batch = {n: np.concatenate(v) for n, v in batch.items()}
+        built = mod.build(args, torch.device("cuda"))
+        # (model, vae) of the MAE, (head, frozen AMD, vae) of the heads
+        modules = built[:2] if kind == "mae" else built[1:4]
+        one = _head_trainer_class(kind)(*modules, args,
+                                        os.path.join(work, f"ref_{kind}"))
+        mine = {}
+        undo = _keep_grad_sketch(one, mine)
+        metrics = one.train_step(batch)
+        undo()
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        want = r0.get("metrics", {}).get("loss", float("nan"))
+        rel = abs(loss - want) / abs(loss)
+        gn_rel = abs(gnorm - r0.get("metrics", {}).get(
+            "grad_norm", float("nan"))) / abs(gnorm)
+        g_rel = _sketch_rel(r0.get("grad_sketch"), mine.get("grad_sketch"))
+        same = r0.get("grad_sketch") == r1.get("grad_sketch")
+        one.state.load_state_dict(ckpt_lib.CheckpointManager(
+            os.path.join(work, kind, "checkpoints")).restore(
+                map_location="cuda"))
+        digest = _bits_digest(list(one.state.params.values()))
+        resumed = one.state.step == HEAD_STEPS and digest == r0["digest"]
+        _log(f"  cli.train_{kind}, 2 ranks of {clips // 2} clips: step "
+             f"times {[round(t * 1e3, 2) for t in times]} ms (median after "
+             f"the first {step_s * 1e3:.2f} ms, {clips / step_s:.3f} "
+             f"clips/s), peak {r0['peak_gib']:.2f} GiB a rank, "
+             f"{r0['s']:.1f} s with build and save; first loss {want} "
+             f"against one process's {loss} (rel {rel:.2e}), grad_norm "
+             f"rel {gn_rel:.2e}, averaged gradients' rel L2 {g_rel:.2e} "
+             f"(sketched; ranks' the same bits {same}); launches a "
+             f"rank { {k: v for k, v in r0['counts'].items() if v} }; "
+             f"checkpoint resumed here: {resumed}; {card}; gloo through "
+             f"host memory on one card, not NCCL")
+        if not (rel <= HEAD_LOSS_RTOL and gn_rel <= HEAD_GRAD_RTOL and
+                g_rel <= HEAD_GRAD_RTOL and same and resumed and
+                r0["printed"] and not r1["printed"] and
+                r0["digest"] == r1["digest"]):
+            failures.append(f"cli.train_{kind} (2 ranks): first loss {want} "
+                            f"against one process's {loss}, grad_norm rel "
+                            f"{gn_rel:.2e}, gradients' rel L2 {g_rel:.2e} "
+                            f"(ranks' equal {same}), resumed "
+                            f"{resumed}, rank 0 alone prints "
+                            f"{r0['printed'] and not r1['printed']}, ranks' "
+                            f"digests equal {r0['digest'] == r1['digest']}")
+        del one, built, modules
+        torch.cuda.empty_cache()
+    return paths
+
+
 def profile_call(fn, out_dir, filename, label):
     """One call of ``fn`` under torch.profiler: the device's busy share of
     its wall time and the kernel table, written to DIR/``filename``."""
@@ -6258,7 +6825,8 @@ def main() -> int:
                          "backward, streaming forward and backward and "
                          "int8 FFN-up beside these")
     ap.add_argument("--rank-phase",
-                    choices=["steps", "ring_hops", "nccl", "serve"],
+                    choices=["steps", "ring_hops", "four", "nccl", "serve",
+                             "clis"],
                     help=argparse.SUPPRESS)   # one rank of phase 8
     ap.add_argument("--workdir", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -6320,10 +6888,13 @@ def main() -> int:
     if cli_launches is not None:
         paths["cli_mp4"] = cli_launches
     _log("phase 3m: audio to video, the flagship A2M head and AMD_N")
-    a2v_paths, _, a2v_latency = run_a2v(serving, card, failures)
+    a2v_paths, _, _ = run_a2v(serving, card, failures)
     paths.update(a2v_paths)
-    _log("phase 3n: A2V with the LearnableToken and SimpleAdaLN heads")
-    paths.update(run_a2v_heads(serving, card, failures))
+    _log(f"phase 3n: A2V with the LearnableToken and SimpleAdaLN heads at "
+         f"{A2M_CLI_LAYERS} layers, AMD_N at {EXPORT_DEPTH}")
+    heads_models = build_serving_models(EXPORT_DEPTH)
+    paths.update(run_a2v_heads(heads_models, card, failures))
+    del heads_models
     _log("phase 3q: T2M sample at full width (20 layers, 16 x 128) on "
          "AMD_N's camera tokens, an int and a text label")
     paths.update(run_t2m_sample(serving, card, failures))
@@ -6340,10 +6911,11 @@ def main() -> int:
     paths.update(run_export_sampler(export_models, None, card, failures))
     paths.update(run_export_sampler(export_models, "int8", card, failures))
     del export_models
-    _log("phase 3m: the int8 A2V clip")
-    paths.update(run_a2v_int8(a2v_latency, card, failures))
+    _log("phase 3m: the int8 A2V clip (AMD_N and the head at a cut "
+         "depth)")
+    paths.update(run_a2v_int8(card, failures))
     _log("phase 3n: the int8 A2V clip with the LearnableToken head")
-    paths.update(run_a2v_int8(None, card, failures,
+    paths.update(run_a2v_int8(card, failures,
                               model_type="A2MModel_LearnableToken"))
     _log("phase 3o: the grid A2M head, sample_grid and its loss")
     paths.update(run_grid_head(card, failures))
@@ -6367,8 +6939,11 @@ def main() -> int:
         fa, models, failures, label="run A", clips=RUN_A_CLIPS,
         steps=RUN_A_STEPS, profile_dir=args.profile)
     torch.cuda.empty_cache()
-    _log("phase 4b: one run-A step under each remat policy")
-    paths.update(run_remat_policies(models, failures))
+    _log(f"phase 4b: one run-A step under each remat policy (the "
+         f"flagship at {PAR_DEPTH})")
+    paths.update(run_remat_policies((build_variant(PAR_DEPTH),) +
+                                    models[1:], failures))
+    torch.cuda.empty_cache()
 
     _log(f"phase 5: training run B, N={RUN_B_CLIPS}, perceptual loss, "
          f"mask ratios 0.5")
@@ -6380,18 +6955,19 @@ def main() -> int:
     _log(f"phase 5b: validate, N={RUN_A_CLIPS}, sample_step "
          f"{VALIDATE_STEPS}")
     paths["validate"] = run_validate(models, failures, args.profile)
-    _log(f"phase 5c: --mp no training (fp32 compute, an fp32 SD-VAE), "
-         f"N={F32_STEP_CLIPS}, then the perceptual loss and QKNORM_FUSE "
-         f"at N=1")
-    paths.update(run_training_f32(fa, models, failures))
+    _log(f"phase 5c: --mp no training (fp32 compute, an fp32 SD-VAE; the "
+         f"flagship at {PAR_DEPTH}), N={F32_STEP_CLIPS}, then the "
+         f"perceptual loss and QKNORM_FUSE at N=1")
+    paths.update(run_training_f32(fa, (build_variant(PAR_DEPTH),) +
+                                  models[1:], failures))
     _, vae, lpips = models
     del models
     torch.cuda.empty_cache()
 
     for name, (over, unused) in VARIANTS.items():
         _log(f"phase 6: one training step of the {name} variant {over}, "
-             f"N={RUN_A_CLIPS}")
-        amd = build_variant(over)
+             f"N={RUN_A_CLIPS}, at {PAR_DEPTH}")
+        amd = build_variant(dict(over, **PAR_DEPTH))
         profile = args.profile if name == "default_dit" else None
         paths[f"train_{name}"], _ = run_training(
             fa, (amd, vae, lpips), failures, label=name, clips=RUN_A_CLIPS,

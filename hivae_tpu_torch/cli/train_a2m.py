@@ -1,6 +1,6 @@
 """Train an audio-to-motion (A2M) head with the port (the counterpart of
 the JAX package's ``train_a2m.py``: the same flags, names and defaults,
-plus ``--device`` and ``--resume_training``).
+plus ``--device``, ``--resume_training`` and ``--dist_backend``).
 
     python -m hivae_tpu_torch.cli.train_a2m --a2m_config a2m.yaml \
         --amd_config config.json --amd_ckpt amd.safetensors \
@@ -27,8 +27,14 @@ prints the loss every 50 steps, saves a checkpoint every
 final metrics; ``cli.a2v_inference --a2m_config <run>/config.json
 --a2m_ckpt <run>/checkpoints`` serves it. ``--resume_training true``
 continues from the newest checkpoint (the JAX CLI always starts anew).
-One process on one card (the JAX CLI's data parallelism over hosts is
-ROADMAP.md Queue 1 #7c(ii)).
+
+Over several ranks (one process a card; data parallel, as the JAX CLI
+over hosts): ``torchrun --nproc_per_node N -m
+hivae_tpu_torch.cli.train_a2m ...`` or ``HIVAE_MULTIHOST=1`` with
+``HIVAE_COORDINATOR``/``HIVAE_NUM_PROCESSES``/``HIVAE_PROCESS_ID``;
+``--train_batch_size`` is the global batch, which the ranks must divide,
+each rank loading its share from its shard of the index; ``--dist_backend
+gloo`` where ranks share a card (``common.HeadTrainer``).
 
 Refused up front, where the JAX CLI fails later: the heads that condition
 on pose (``A2MModel_CrossAtten_Audio_Pose``, ``_Pose``, ``_PosePre``: its
@@ -50,7 +56,6 @@ import torch
 from ..data.datasets import VideoAudioDataset, VideoAudioRandomRefDataset
 from ..models import vae as vae_mod
 from ..training import checkpoint as ckpt_lib
-from ..utils.device import resolve_device
 from ..utils.misc import print_param_num
 from . import common
 from .a2v_inference import build_a2m, load_spec, refuse_pose_heads
@@ -101,6 +106,7 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda (the default) never falls back "
                         "to the CPU")
+    common.add_launch_args(p)
     return p.parse_args(argv)
 
 
@@ -125,7 +131,8 @@ class A2MDraws:
     of the clip's encode (N*F, C, h, w), of the reference frame's (N, C,
     h, w), of the pose stream's and of the reference pose's (with a pose
     stream), then the head's timestep (N,) and flow noise (N, F, L, D).
-    A field left None is drawn from the step's generator."""
+    The draws are the global batch's (each rank keeps its rows); a field
+    left None is drawn from the step's generator."""
 
     video: Optional[torch.Tensor] = None
     ref: Optional[torch.Tensor] = None
@@ -151,9 +158,8 @@ class A2MTrainer(common.HeadTrainer):
         f = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
         n, t, _, h, w = pixels.shape
         if noise is None:
-            noise = torch.randn((n * t, self.vae.cfg.latent_channels,
-                                 h // f, w // f), generator=gen,
-                                device=self.device)
+            noise = self.randn((n * t, self.vae.cfg.latent_channels,
+                                 h // f, w // f), gen)
         return vae_mod.vae_encode(self.vae, pixels, noise=noise).float()
 
     def _motion(self, latents):
@@ -161,10 +167,10 @@ class A2MTrainer(common.HeadTrainer):
         return self.amd.extract_motion(latents.to(dtype)).float()
 
     def loss_and_grads(self, batch, draws: Optional[A2MDraws] = None):
-        """(metrics of fp32 scalars, fp32 grads in parameter order) of a
-        batch on the device; unset ``draws`` come from the generator of
-        (seed, step)."""
-        d = draws or A2MDraws()
+        """(metrics of fp32 scalars, fp32 grads in parameter order) of
+        this rank's rows of a batch on the device; ``draws`` are the global
+        batch's, and unset ones come from the generator of (seed, step)."""
+        d = self.own_rows(draws or A2MDraws())
         gen = self.generator()
         with torch.no_grad():
             gt_z = self._encode(batch["gt_video"], d.video, gen)
@@ -179,12 +185,25 @@ class A2MTrainer(common.HeadTrainer):
                     pose=self._encode(batch["gt_pose"], d.pose, gen),
                     ref_pose=self._encode(batch["ref_pose"][:, None],
                                           d.ref_pose, gen)[:, 0])
+        # the head's flow draws, as its forward makes them (timestep,
+        # then noise), for the global batch
+        timestep = d.timestep
+        if timestep is None:
+            timestep = self.draw(lambda s: torch.randint(
+                0, self.head.cfg.num_step + 1, s, generator=gen,
+                device=self.device), motion_gt.shape[:1])
+        z0 = d.z0
+        if z0 is None:
+            z0 = self.randn(motion_gt.shape, gen, motion_gt.dtype)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.autocast):
             ld = self.head(motion_gt, ref_motion, audio=batch["gt_audio"],
                            ref_audio=batch["ref_audio"], mask=batch["mask"],
-                           timestep=d.timestep, z0=d.z0, generator=gen,
-                           **pose_kw)
+                           timestep=timestep, z0=z0, **pose_kw)
+        # the masked mean of this rank's frames, as its part of the
+        # global batch's masked mean
+        share = self.share(batch["mask"].sum())
+        ld = {k: v * share for k, v in ld.items()}
         return ({k: v.detach().float() for k, v in ld.items()},
                 self.grads(ld["loss"]))
 
@@ -207,15 +226,19 @@ def build(args, device: torch.device):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    spec, head, amd, vae, dataset = build(args, device)
-    out_dir = os.path.join(args.output_dir, args.exp_name)
-    os.makedirs(out_dir, exist_ok=True)
-    ckpt_lib.save_config(spec, out_dir)
-    print_param_num(spec["model_type"], head)
-    loader = common.training_loader(dataset, args)
-    common.run_training_loop(A2MTrainer(head, amd, vae, args, out_dir),
-                             loader, args)
+    device = common.start(args)
+    try:
+        spec, head, amd, vae, dataset = build(args, device)
+        out_dir = os.path.join(args.output_dir, args.exp_name)
+        os.makedirs(out_dir, exist_ok=True)
+        trainer = A2MTrainer(head, amd, vae, args, out_dir)
+        if trainer.mesh.is_first:
+            ckpt_lib.save_config(spec, out_dir)
+            print_param_num(spec["model_type"], head)
+        loader = common.training_loader(dataset, args, trainer.mesh)
+        common.run_training_loop(trainer, loader, args)
+    finally:
+        common.finish()
     return 0
 
 

@@ -13,9 +13,10 @@ each process (the JAX CLI's variables; ``LOCAL_RANK`` picks the card).
 ``--mesh`` (default: every rank on ``data``) must multiply to the number
 of ranks; ``--train_batch_size`` is the global batch, which must divide by
 data * fsdp, and each rank loads its share (the loader's shard of the
-videos). ``--attn_impl`` (auto, xla, pallas, ring; with ``--amd_config``, the
-config's ``attn_impl``) is installed for every attention call; ``ring``
-shards the attention sequences over ``tensor``. NCCL is the
+videos; ranks of one ``tensor`` group load the same). ``--attn_impl``
+(auto, xla, pallas, ring; with ``--amd_config``, the config's
+``attn_impl``) is installed for every attention call; ``ring`` shards
+the attention sequences over ``tensor``. NCCL is the
 backend on CUDA unless ``--dist_backend gloo`` asks for gloo (ranks that
 share one card). Rank 0 alone writes ``config.json``, ``args.txt``, the
 tracker and the checkpoints.
@@ -32,10 +33,12 @@ with checkpoints under ``checkpoints/``, saves once more at the end and
 prints the final metrics. Scalars go to TensorBoard (``tracker/``) where
 ``torch.utils.tensorboard`` imports, else to stdout.
 
-Refused: a mesh with ``tensor > 1`` and no ring attention (weight tensor
-parallelism, ROADMAP.md Queue 1 #5b), and ``AMD_S_Rec``/``AMD_S_RecSplit``
-(``AMDModelRec`` has a forward and a loss only; the JAX trainer cannot run
-it either).
+``--mesh d,f,t`` with t > 1 and no ring attention splits the weights over
+``tensor`` (Megatron column and row parallelism on the JAX package's
+rules, ``parallel/tensor_parallel.py``), with FSDP over ``fsdp`` on top.
+
+Refused: ``AMD_S_Rec``/``AMD_S_RecSplit`` (``AMDModelRec`` has a forward
+and a loss only; the JAX trainer cannot run it either).
 """
 
 from __future__ import annotations
@@ -47,15 +50,12 @@ import sys
 from typing import Optional
 
 import torch
-import torch.distributed
 
 from ..data.datasets import DataLoader, RandomPairDataset, VideoClipDataset
 from ..models import amd as amd_mod
 from ..parallel import mesh as mesh_lib
-from ..parallel.sharding import check_mesh
 from ..training import checkpoint as ckpt_lib
 from ..training.trainer import AMDTrainer, TrainConfig
-from ..utils.device import resolve_device
 from ..utils.misc import print_param_num, save_args
 from . import common
 
@@ -337,16 +337,11 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     check_supported(args)
     cfg = build_config(args)
-    shape = mesh_shape(args)
-    if shape is not None:
-        check_mesh(dict(zip(mesh_lib.AXES, shape)), cfg.attn_impl)
-    if not mesh_lib.launched():
-        return train(args, cfg, resolve_device(args.device))
-    _, _, device = mesh_lib.init_distributed(args.dist_backend, args.device)
+    device = common.start(args)
     try:
         return train(args, cfg, device)
     finally:
-        torch.distributed.destroy_process_group()
+        common.finish()
 
 
 def train(args, cfg: amd_mod.AMDConfig, device: torch.device) -> int:

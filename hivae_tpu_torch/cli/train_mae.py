@@ -1,6 +1,7 @@
 """Train the masked autoencoder (MAE) on frozen SD-VAE latents with the
 port (the counterpart of the JAX package's ``train_mae.py``: the same
-flags, names and defaults, plus ``--device`` and ``--resume_training``).
+flags, names and defaults, plus ``--device``, ``--resume_training`` and
+``--dist_backend``).
 
     python -m hivae_tpu_torch.cli.train_mae --video_dir videos/ \
         --model_type MAE_L --output_dir exp --exp_name mae [--device cpu]
@@ -15,9 +16,11 @@ every 50 steps, saves a checkpoint to ``<output_dir>/<exp_name>/
 checkpoints`` every
 ``--save_checkpoint_interval_step`` steps and at the end, and prints the
 final metrics; ``--resume_training true`` continues from the newest
-checkpoint (the JAX CLI always starts anew). One process on one card (the
-JAX CLI's data parallelism is ROADMAP.md Queue 1 #7c(ii)). A dataset that
-yields no batch is refused.
+checkpoint (the JAX CLI always starts anew). Over several ranks
+(``torchrun`` or ``HIVAE_MULTIHOST=1``, as ``cli.train_a2m``) it trains
+data parallel: ``--train_batch_size`` is the global batch and each rank
+loads its share from its shard of the videos (``common.HeadTrainer``). A
+dataset that yields no batch is refused.
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ import torch
 from ..data.datasets import VideoClipDataset
 from ..models import mae as mae_mod
 from ..models import vae as vae_mod
-from ..utils.device import resolve_device
 from ..utils.misc import print_param_num
 from . import common
 from .train_amd import str2bool
@@ -69,6 +71,7 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda (the default) never falls back "
                         "to the CPU")
+    common.add_launch_args(p)
     return p.parse_args(argv)
 
 
@@ -76,8 +79,8 @@ def parse_args(argv=None):
 class MAEDraws:
     """The draws of one step, in the JAX step's order: the posterior noise
     of the frames' encode (N, C, h, w), then the masking noise (N,
-    patches) uniform. A field left None is drawn from the step's
-    generator."""
+    patches) uniform. The draws are the global batch's (each rank keeps its
+    rows); a field left None is drawn from the step's generator."""
 
     video: Optional[torch.Tensor] = None
     mask: Optional[torch.Tensor] = None
@@ -101,24 +104,27 @@ class MAETrainer(common.HeadTrainer):
         f = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
         n, t, _, h, w = videos.shape
         if noise is None:
-            noise = torch.randn((n * t, self.vae.cfg.latent_channels,
-                                 h // f, w // f), generator=gen,
-                                device=self.device)
+            noise = self.randn((n * t, self.vae.cfg.latent_channels,
+                                h // f, w // f), gen)
         z = vae_mod.vae_encode(self.vae, videos, noise=noise).float()
         return z.reshape((-1,) + z.shape[2:])
 
     def loss_and_grads(self, batch, draws: Optional[MAEDraws] = None):
-        """(metrics of fp32 scalars, fp32 grads in parameter order) of a
-        batch on the device; unset ``draws`` come from the generator of
-        (seed, step)."""
-        d = draws or MAEDraws()
+        """(metrics of fp32 scalars, fp32 grads in parameter order) of
+        this rank's rows of a batch on the device; ``draws`` are the global
+        batch's, and unset ones come from the generator of (seed, step)."""
+        d = self.own_rows(draws or MAEDraws())
         gen = self.generator()
         with torch.no_grad():
             z = self.latents(batch["videos"], d.video, gen)
+        mask = d.mask
+        if mask is None:   # the model's masking draw, for the global batch
+            mask = self.draw(lambda s: torch.rand(
+                s, generator=gen, device=self.device),
+                (z.shape[0], self.model.num_patches))
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.autocast):
-            loss, _, _ = self.model(z, self.mask_ratio, noise=d.mask,
-                                    generator=gen)
+            loss, _, _ = self.model(z, self.mask_ratio, noise=mask)
         return {"loss": loss.detach().float()}, self.grads(loss)
 
 
@@ -139,14 +145,18 @@ def build(args, device: torch.device):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    model, vae, dataset = build(args, device)
-    out_dir = os.path.join(args.output_dir, args.exp_name)
-    os.makedirs(out_dir, exist_ok=True)
-    print_param_num(args.model_type, model)
-    loader = common.training_loader(dataset, args)
-    common.run_training_loop(MAETrainer(model, vae, args, out_dir), loader,
-                             args)
+    device = common.start(args)
+    try:
+        model, vae, dataset = build(args, device)
+        out_dir = os.path.join(args.output_dir, args.exp_name)
+        os.makedirs(out_dir, exist_ok=True)
+        trainer = MAETrainer(model, vae, args, out_dir)
+        if trainer.mesh.is_first:
+            print_param_num(args.model_type, model)
+        loader = common.training_loader(dataset, args, trainer.mesh)
+        common.run_training_loop(trainer, loader, args)
+    finally:
+        common.finish()
     return 0
 
 

@@ -1,6 +1,6 @@
 """Train the label-to-motion (T2M) head with the port (the counterpart of
 the JAX package's ``train_t2m.py``: the same flags, names and defaults,
-plus ``--device`` and ``--resume_training``).
+plus ``--device``, ``--resume_training`` and ``--dist_backend``).
 
     python -m hivae_tpu_torch.cli.train_t2m --amd_config config.json \
         --amd_ckpt amd.safetensors --video_dir ucf101/ --output_dir exp \
@@ -23,8 +23,10 @@ The run writes the ``T2MConfig`` as ``config.json`` to
 ``<output_dir>/<exp_name>``, prints the loss every 50 steps, saves a
 checkpoint every ``--save_checkpoint_interval_step`` steps and at the end,
 and prints the final metrics; ``--resume_training true`` continues from
-the newest checkpoint (the JAX CLI always starts anew). One process on one
-card (the JAX CLI's data parallelism is ROADMAP.md Queue 1 #7c(ii)).
+the newest checkpoint (the JAX CLI always starts anew). Over several
+ranks (``torchrun`` or ``HIVAE_MULTIHOST=1``, as ``cli.train_a2m``) it
+trains data parallel: ``--train_batch_size`` is the global batch and each
+rank loads its share from its shard of the tree (``common.HeadTrainer``).
 
 Refused up front with a ``ValueError`` naming the cause, where the JAX CLI
 fails: a frozen model other than AMD_N's ``AMDModelNew`` with both motion
@@ -52,8 +54,8 @@ from ..data.datasets import LabelVideoDataset
 from ..models import amd as amd_mod
 from ..models import t2m as t2m_mod
 from ..models import vae as vae_mod
+from ..parallel import comm
 from ..training import checkpoint as ckpt_lib
-from ..utils.device import resolve_device
 from ..utils.misc import print_param_num
 from . import common
 from .train_amd import str2bool
@@ -91,6 +93,7 @@ def parse_args(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; cuda (the default) never falls back "
                         "to the CPU")
+    common.add_launch_args(p)
     return p.parse_args(argv)
 
 
@@ -158,8 +161,9 @@ class T2MDraws:
     """The draws of one step, in the JAX step's order: the posterior noise
     of the clip's encode, of the reference's, of the grey clip's and of
     the grey reference's (each (N*T, C, h, w)), then the head's timestep
-    (N,) and flow noise (N*T, object_token_num, object_channel). A field
-    left None is drawn from the step's generator."""
+    (N,) and flow noise (N*T, object_token_num, object_channel). The draws
+    are the global batch's (each rank keeps its rows); a field left None
+    is drawn from the step's generator."""
 
     video: Optional[torch.Tensor] = None
     ref: Optional[torch.Tensor] = None
@@ -184,9 +188,8 @@ class T2MTrainer(common.HeadTrainer):
         f = 2 ** (len(self.vae.cfg.block_out_channels) - 1)
         n, t, _, h, w = pixels.shape
         if noise is None:
-            noise = torch.randn((n * t, self.vae.cfg.latent_channels,
-                                 h // f, w // f), generator=gen,
-                                device=self.device)
+            noise = self.randn((n * t, self.vae.cfg.latent_channels,
+                                 h // f, w // f), gen)
         return vae_mod.vae_encode(self.vae, pixels, noise=noise)
 
     def targets(self, batch, d: T2MDraws, gen):
@@ -205,27 +208,36 @@ class T2MTrainer(common.HeadTrainer):
         return cam, obj, ref.float()
 
     def loss_and_grads(self, batch, draws: Optional[T2MDraws] = None):
-        """(metrics of fp32 scalars, fp32 grads in parameter order) of a
-        batch on the device; unset ``draws`` come from the generator of
-        (seed, step)."""
-        d = draws or T2MDraws()
+        """(metrics of fp32 scalars, fp32 grads in parameter order) of
+        this rank's rows of a batch on the device; ``draws`` are the global
+        batch's, and unset ones come from the generator of (seed, step)."""
+        g = draws or T2MDraws()
+        d = self.own_rows(g)
         c = self.head.cfg
         gen = self.generator()
         with torch.no_grad():
             cam, obj, ref = self.targets(batch, d, gen)
-        n = cam.shape[0]
-        timestep = d.timestep
+        n, t = ref.shape[:2]
+        dp = self.mesh.dp_size
+        # the head's conditioning tile is the global batch's: the global
+        # timesteps and labels, and this rank's window of the N*T rows
+        timestep = g.timestep
         if timestep is None:
-            timestep = torch.randint(0, c.num_steps + 1, (n,), generator=gen,
-                                     device=self.device)
+            timestep = torch.randint(0, c.num_steps + 1, (n * dp,),
+                                     generator=gen, device=self.device)
         noise = d.noise
         if noise is None:
-            noise = torch.randn(obj.shape, generator=gen, device=self.device)
+            noise = self.randn(obj.shape, gen)
+        label, rows = batch["label"], None
+        if dp > 1:
+            label = comm.all_gather(label, self.mesh.dp_group, 0)
+            i = self.mesh.dp_index
+            rows = slice(i * n * t, (i + 1) * n * t)
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.autocast):
-            out = self.head(cam, obj, batch["label"], ref,
+            out = self.head(cam, obj, label, ref,
                             timestep.to(self.device).float(),
-                            noise=noise.to(self.device))
+                            noise=noise.to(self.device), rows=rows)
             loss = self.head.loss(out)
         return {"loss": loss.detach().float()}, self.grads(loss)
 
@@ -265,15 +277,19 @@ def build(args, device: torch.device):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    cfg, head, amd, vae, dataset = build(args, device)
-    out_dir = os.path.join(args.output_dir, args.exp_name)
-    os.makedirs(out_dir, exist_ok=True)
-    ckpt_lib.save_config(cfg.to_dict(), out_dir)
-    print_param_num("Label2MotionDiffusionDecoder", head)
-    loader = common.training_loader(dataset, args)
-    common.run_training_loop(T2MTrainer(head, amd, vae, args, out_dir),
-                             loader, args)
+    device = common.start(args)
+    try:
+        cfg, head, amd, vae, dataset = build(args, device)
+        out_dir = os.path.join(args.output_dir, args.exp_name)
+        os.makedirs(out_dir, exist_ok=True)
+        trainer = T2MTrainer(head, amd, vae, args, out_dir)
+        if trainer.mesh.is_first:
+            ckpt_lib.save_config(cfg.to_dict(), out_dir)
+            print_param_num("Label2MotionDiffusionDecoder", head)
+        loader = common.training_loader(dataset, args, trainer.mesh)
+        common.run_training_loop(trainer, loader, args)
+    finally:
+        common.finish()
     return 0
 
 

@@ -6,6 +6,11 @@ Parameter names follow the reference's diffusers modules (``to_out.0``,
 ``net.0.proj``, ``net.2``), which ``utils/params.py`` maps the JAX trees
 onto. Attention runs through ``ops.attention.sdpa`` on (B, H, S, D)
 tensors, so long sequences reach the hand-written kernels.
+
+``Attention``, ``FeedForward`` and ``Mlp`` split their weights over the
+mesh's ``tensor`` axis when ``parallel/tensor_parallel.py::shard_tensor``
+gives them ``.tp``: the column layers compute this rank's heads or hidden
+slice, the row layer sums the partial products over the group.
 """
 
 from __future__ import annotations
@@ -20,9 +25,11 @@ from ..ops import attention as attn_ops
 from ..ops import embeddings as emb_ops
 
 
-def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """(B, S, H * head_dim) -> (B, H, S, head_dim); H is read from the
+    width, so a rank's slice of the heads splits as the whole does."""
     b, s, _ = x.shape
-    return x.view(b, s, heads, -1).transpose(1, 2)
+    return x.view(b, s, -1, head_dim).transpose(1, 2)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -47,6 +54,8 @@ class Attention(nn.Module):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.eps, self.qk_norm = heads, eps, qk_norm
+        self.head_dim = head_dim
+        self.tp = None     # weight tensor parallelism (shard_tensor)
         self.to_q = nn.Linear(dim, inner, bias=qkv_bias)
         self.to_k = nn.Linear(dim, inner, bias=qkv_bias)
         self.to_v = nn.Linear(dim, inner, bias=qkv_bias)
@@ -57,17 +66,35 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
                 key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = x if context is None else context
-        q = _split_heads(self.to_q(x), self.heads)
-        k = _split_heads(self.to_k(ctx), self.heads)
-        v = _split_heads(self.to_v(ctx), self.heads)
         qk = None
         if self.qk_norm:
             qk = (self.norm_q.weight, self.norm_q.bias,
                   self.norm_k.weight, self.norm_k.bias)
+        if self.tp is not None:
+            return self._forward_tp(x, context, key_mask, qk)
+        ctx = x if context is None else context
+        q = _split_heads(self.to_q(x), self.head_dim)
+        k = _split_heads(self.to_k(ctx), self.head_dim)
+        v = _split_heads(self.to_v(ctx), self.head_dim)
         out = attn_ops.sdpa(q, k, v, key_mask=key_mask, qk_norm=qk,
                             qk_norm_eps=self.eps)
         return self.to_out[0](_merge_heads(out))
+
+    def _forward_tp(self, x, context, key_mask, qk):
+        """This rank's heads: q/k/v column parallel (their biases and the
+        per-head q/k norm whole, entered with the inputs), the output row
+        parallel."""
+        tp, lins = self.tp, (self.to_q, self.to_k, self.to_v)
+        x, context, *rest = tp.enter(x, context, *[l.bias for l in lins],
+                                     *(qk or ()))
+        ctx = x if context is None else context
+        q, k, v = (_split_heads(tp.column(lin, y, tp.part(b)),
+                                self.head_dim)
+                   for lin, y, b in zip(lins, (x, ctx, ctx), rest))
+        out = attn_ops.sdpa(q, k, v, key_mask=key_mask,
+                            qk_norm=tuple(rest[3:]) or None,
+                            qk_norm_eps=self.eps)
+        return tp.row(self.to_out[0], _merge_heads(out))
 
 
 class _GELUProj(nn.Module):
@@ -94,8 +121,15 @@ class FeedForward(nn.Module):
                                   nn.Identity(),
                                   nn.Linear(inner, out_dim or dim,
                                             bias=use_bias)])
+        self.tp = None     # weight tensor parallelism (shard_tensor)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:   # this rank's slice of the hidden width
+            proj = self.net[0].proj
+            x, b = self.tp.enter(x, proj.bias)
+            h = F.gelu(self.tp.column(proj, x, self.tp.part(b)),
+                       approximate="tanh")
+            return self.tp.row(self.net[2], h)
         for layer in self.net:
             x = layer(x)
         return x
@@ -579,8 +613,13 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
+        self.tp = None     # weight tensor parallelism (shard_tensor)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:   # this rank's slice of the hidden width
+            x, b = self.tp.enter(x, self.fc1.bias)
+            h = F.gelu(self.tp.column(self.fc1, x, self.tp.part(b)))
+            return self.tp.row(self.fc2, h)
         return self.fc2(F.gelu(self.fc1(x)))
 
 

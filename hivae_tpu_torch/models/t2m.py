@@ -19,7 +19,10 @@ Kept from the JAX package on purpose: the conditioning ``emb`` and the
 flow time are tiled frame-major over the N*T rows (``Tensor.repeat(t, 1)``:
 row r takes sample r % N), while the image, camera and object rows are
 batch-major (row i*T + j), so for N >= 2 a frame is conditioned on another
-sample's label and timestep, as a trained checkpoint expects.
+sample's label and timestep, as a trained checkpoint expects. Over
+data-parallel ranks the tile is the global batch's, as under the JAX
+package's sharded step: a rank passes the global labels and timesteps and
+``rows``, its window of the global N*T rows.
 
 The flow noise (``noise``) and ``sample``'s start noise (``z0``) are
 inputs; a missing one is drawn from the caller's generator.
@@ -131,8 +134,11 @@ class Label2MotionDiffusionDecoder(nn.Module):
                 ref_img, timestep, object_source_motion=None,
                 noise: Optional[torch.Tensor] = None,
                 object_noisy: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[slice] = None) -> Dict[str, torch.Tensor]:
+        """``rows``: the motion and image rows are rows ``rows`` of a
+        larger batch's N*T, whose ``label`` and ``timestep`` are given
+        (the frame-major tile then picks the global batch's sample)."""
         c = self.cfg
         dtype = self.dtype
         n, t = ref_img.shape[:2]
@@ -144,13 +150,19 @@ class Label2MotionDiffusionDecoder(nn.Module):
         timestep = timestep.float()
         temb = self.time_embedding(timestep)
         # frame-major tile: row r is sample r % n (see the module note)
-        emb = (temb + label_emb).repeat(t, 1)
+        if rows is None:
+            emb = (temb + label_emb).repeat(t, 1)
+        else:
+            pick = torch.arange(rows.start, rows.stop,
+                                device=temb.device) % temb.shape[0]
+            emb = (temb + label_emb)[pick]
 
         cam = camera_target_motion.reshape(
             (-1,) + camera_target_motion.shape[2:]).to(dtype)
         cam = self.camera_proj_in(cam)
 
-        step = (1.0 - timestep / c.num_steps)[:, None, None].repeat(t, 1, 1)
+        step = (1.0 - timestep / c.num_steps)[:, None, None]
+        step = step.repeat(t, 1, 1) if rows is None else step[pick]
         if object_noisy is not None:
             obj_zt = object_noisy
             vel_gt_object = torch.zeros_like(obj_zt)

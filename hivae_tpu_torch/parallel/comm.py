@@ -1,6 +1,6 @@
 """The collectives the port makes itself (the ring's rotations, its
-sequence all-gathers, the gradient and metric all-reduces, checkpoint
-gathers), on one process group each.
+sequence all-gathers, the gradient and metric all-reduces, weight tensor
+parallelism's sums, checkpoint gathers), on one process group each.
 
 What moves follows the group's backend: NCCL takes device tensors as they
 are; gloo cannot send device memory, so on a gloo group a CUDA tensor goes
@@ -10,7 +10,7 @@ NCCL refuses). The choice is made from the backend, never from an error.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -54,6 +54,41 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group,
         if t is not None:
             bucket.append(t)
             size += t.numel()
+
+
+def average_(tensors: Sequence[torch.Tensor], group) -> None:
+    """In-place mean of ``tensors`` over ``group``: ``all_reduce_``, then
+    a division by the group's size."""
+    all_reduce_(tensors, group)
+    n = dist.get_world_size(group)
+    for t in tensors:
+        t.div_(n)
+
+
+def average_metrics(metrics: Dict[str, torch.Tensor], group
+                    ) -> Dict[str, torch.Tensor]:
+    """Each 0-d metric's mean over ``group`` (None: one rank, the metrics
+    as they are), in one all-reduce."""
+    if group is None:
+        return metrics
+    keys = sorted(metrics)
+    vals = torch.stack([metrics[k] for k in keys])
+    average_([vals], group)
+    return dict(zip(keys, vals.unbind()))
+
+
+def all_reduce_fp32(tensors: Sequence[torch.Tensor], group
+                    ) -> List[torch.Tensor]:
+    """The sums of ``tensors`` (any float dtypes) over ``group``, added in
+    fp32 in one flat buffer and returned in each tensor's dtype (new
+    tensors; the inputs are left as they are)."""
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+    all_reduce_([flat], group)
+    out, off = [], 0
+    for t in tensors:
+        out.append(flat[off:off + t.numel()].view(t.shape).to(t.dtype))
+        off += t.numel()
+    return out
 
 
 def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:

@@ -14,17 +14,21 @@ dim order, as the JAX rule does).
   * ``fsdp`` (with ``mesh["fsdp"] > 1``): the largest still unsharded dim
     that divides, for a parameter of at least ``min_fsdp_size`` elements.
 
-``shard_model`` applies the ``fsdp`` part with FSDP2's ``fully_shard``
-over the (data, fsdp) sub-mesh (HSDP: replicated on ``data``, sharded on
-``fsdp``), one unit each module the model's ``fsdp_units()`` yields (the
-AMD model: every DiT and motion-encoder block) and the root; the
-rule's dim is the shard dim where it picks one, FSDP2's default (dim 0)
-elsewhere. With ``fsdp == 1`` the parameters stay replicated and the
-trainer all-reduces the gradients. The ``tensor`` axis carries the ring
-only: the port keeps the weights replicated over it, which gives the same
-math as the JAX package's weight TP. A mesh with ``tensor > 1`` and no
-ring (weight TP alone) is refused: the ``_TP_RULES`` as DTensor column and
-row parallelism are ROADMAP.md Queue 1 #5b.
+``shard_model`` applies the ``tensor`` part first, where the mesh has
+``tensor > 1`` and the model's ``attn_impl`` is not ``ring``:
+``parallel/tensor_parallel.py::shard_tensor`` splits the weights the
+``_TP_RULES`` name into Megatron column and row parallel layers. Under
+``ring`` the ``tensor`` axis carries the ring's sequence instead and the
+weights stay replicated over it, the same math as the JAX package's.
+Then the ``fsdp`` part, with FSDP2's
+``fully_shard`` over the (data, fsdp) sub-mesh (HSDP: replicated on
+``data``, sharded on ``fsdp``), one unit each module the model's
+``fsdp_units()`` yields (the AMD model: every DiT and motion-encoder
+block) and the root; the rule's dim is the shard dim where it picks one,
+FSDP2's default (dim 0) elsewhere; a weight already split over ``tensor``
+is sharded over (data, fsdp) on top (FSDP2 with tensor parallelism). With
+``fsdp == 1`` the parameters stay replicated over (data, fsdp) and the
+trainer all-reduces the gradients.
 """
 
 from __future__ import annotations
@@ -113,18 +117,6 @@ def batch_rows(mesh, n: int) -> slice:
     return slice(mesh.dp_index * per, (mesh.dp_index + 1) * per)
 
 
-def check_mesh(mesh, attn_impl: str) -> None:
-    """Refuse a mesh the port cannot run: ``tensor > 1`` without ring
-    attention (the JAX package's weight tensor parallelism alone)."""
-    if _extents(mesh).get("tensor", 1) > 1 and attn_impl != "ring":
-        raise NotImplementedError(
-            f"mesh {dict(_extents(mesh))} with attn_impl={attn_impl!r}: the "
-            "port's 'tensor' axis carries ring attention only; the JAX "
-            "package's weight tensor parallelism (_TP_RULES as DTensor "
-            "column/row parallelism) is ROADMAP.md Queue 1 #5b. Use "
-            "attn_impl='ring' or tensor extent 1")
-
-
 def shard_model(model: nn.Module, mesh) -> nn.Module:
     """FSDP2 over the (data, fsdp) sub-mesh where ``mesh["fsdp"] > 1``
     (in place; returns ``model``), else ``model`` unchanged. The model
@@ -132,21 +124,32 @@ def shard_model(model: nn.Module, mesh) -> nn.Module:
     sharded as units of their own before the model itself, and
     ``model.fsdp_forward_methods`` names the methods called in place of
     ``forward``, which gather the root's parameters as a forward does.
-    Refuses what ``check_mesh`` refuses, with the model config's
-    ``attn_impl``."""
-    cfg = getattr(model, "cfg", None)
-    check_mesh(mesh, getattr(cfg, "attn_impl", "auto"))
+    First, with ``mesh["tensor"] > 1`` and a model config's ``attn_impl``
+    other than ``ring``, the weights are split over ``tensor``
+    (``tensor_parallel.shard_tensor``)."""
+    impl = getattr(getattr(model, "cfg", None), "attn_impl", "auto")
+    if mesh.shape["tensor"] > 1 and impl != "ring":
+        from .tensor_parallel import shard_tensor
+
+        shard_tensor(model, mesh)
     if mesh.shape["fsdp"] == 1:
         return model
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     names = {id(p): n for n, p in model.named_parameters()}
-    ext = dict(mesh.shape, tensor=1)   # weights replicated over 'tensor'
 
     def placement(p):
+        # the rule on the mesh the weight lives on: a weight split over
+        # 'tensor' keeps that dim, a replicated one sees no 'tensor' axis
+        split = hasattr(p, "device_mesh")
+        ext = dict(mesh.shape, tensor=mesh.shape["tensor"] if split else 1)
         spec = infer_param_sharding(names[id(p)], tuple(p.shape), ext)
-        return Shard(spec.index("fsdp")) if "fsdp" in spec else None
+        if "fsdp" in spec:
+            return Shard(spec.index("fsdp"))
+        if split:   # below the rule's size: the dim 'tensor' leaves whole
+            return Shard(spec.index(None))
+        return None
 
     dp_mesh = mesh.submesh(("data", "fsdp"))
     for unit in list(model.fsdp_units()) + [model]:

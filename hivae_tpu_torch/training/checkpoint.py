@@ -7,9 +7,10 @@ Each checkpoint is a ``checkpoint-{step}`` directory holding one
 step); the newest is found by the same ``checkpoint-(\\d+)`` pattern, and
 only the ``max_to_keep`` newest are kept. Writes go to a temporary name
 first, so a checkpoint directory is either complete or absent. Over a mesh
-of ranks the trainer gathers the whole state to rank 0, which writes this
-same single file while the others wait (``AMDTrainer.save``), and each
-rank keeps its part when it restores one; so a checkpoint of any mesh
+of ranks the trainer gathers the whole state (FSDP's shards and the
+weights split over ``tensor``) to rank 0, which writes this same single
+file while the others wait (``AMDTrainer.save``), and each rank keeps its
+part when it restores one; so a checkpoint of any mesh
 resumes at any other, one card included. (The JAX package writes sharded
 Orbax checkpoints instead.)
 

@@ -20,11 +20,13 @@ Schedules: ``constant`` (with an optional linear warm-up from 0) and
 fp32 as optax evaluates them. The parameters are updated in place (the JAX
 package's state is immutable and its step donates the buffers instead).
 
-Sharded parameters (FSDP2 DTensors over the mesh's ``fsdp`` axis): the
-optimizer, the moments and the EMA live on each rank's local shards
-(``parallel.sharding.local``), and ``global_norm`` sums the squares over
-the shards of ``norm_group`` before the square root, so the clip decision
-and the trainer's finite check come out the same on every rank.
+Sharded parameters (DTensors: FSDP2's over the mesh's ``fsdp`` axis,
+weight tensor parallelism's over ``tensor``, or both): the optimizer, the
+moments and the EMA live on each rank's local shards
+(``parallel.sharding.local``), and ``global_norm`` adds each tensor's sum
+of squares over the groups of the mesh axes its parameter is split on
+(a replicated parameter counted once) before the square root, so the clip
+decision and the trainer's finite check come out the same on every rank.
 ``full_state_dict`` gathers the whole state to rank 0's host memory for a
 checkpoint and ``load_state_dict`` takes whole tensors and keeps this
 rank's part.
@@ -72,16 +74,50 @@ def make_schedule(learning_rate: float, warmup_steps: int = 0,
     raise ValueError(schedule)
 
 
-def global_norm(tensors: List[torch.Tensor], group=None) -> torch.Tensor:
-    """sqrt of the sum of squares over every element, fp32 (optax
-    ``global_norm``); with ``group``, the tensors are this rank's shards
-    and the sums of squares are added over the group first."""
-    sq = torch.stack([local(t).float().square().sum() for t in tensors]).sum()
-    if group is not None:
-        from ..parallel import comm
+def _split_axes(like) -> tuple:
+    """The mesh dims whose ``Shard`` placements split the DTensor
+    ``like``; () for a plain (replicated) tensor."""
+    mesh = getattr(like, "device_mesh", None)
+    if mesh is None:
+        return ()
+    return tuple(m for m, pl in enumerate(like.placements) if pl.is_shard())
 
-        comm.all_reduce_([sq], group)
-    return torch.sqrt(sq)
+
+def mesh_sum(values: List[torch.Tensor], likes) -> torch.Tensor:
+    """The sum over the mesh of ``values`` (one 0-d or 1-d tensor for each
+    tensor of ``likes``, computed on this rank's part of it): the values of
+    a tensor split over mesh axes are added over those axes' groups, those
+    of a replicated one are counted once. Every rank of the mesh must call
+    it."""
+    sums = {}   # mesh axis names -> (groups, [values])
+    for v, like in zip(values, likes):
+        dims = _split_axes(like)
+        key = tuple(like.device_mesh.mesh_dim_names[m] for m in dims) \
+            if dims else ()
+        groups = [like.device_mesh.get_group(m) for m in dims]
+        sums.setdefault(key, (groups, []))[1].append(v)
+    total = None
+    for key in sorted(sums):
+        groups, parts = sums[key]
+        part = torch.stack(parts).sum(0)
+        if groups:
+            from ..parallel import comm
+
+            for g in groups:
+                comm.all_reduce_([part], g)
+        total = part if total is None else total + part
+    return total
+
+
+def global_norm(tensors: List[torch.Tensor], likes=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every element, fp32 (optax
+    ``global_norm``). The tensors may be this rank's parts in the layouts
+    of ``likes`` (by default the tensors themselves): ``mesh_sum`` adds a
+    split tensor's sum of squares over the axes it is split on and counts
+    a replicated one once. Every rank of the mesh must call it."""
+    likes = tensors if likes is None else likes
+    return torch.sqrt(mesh_sum([local(t).float().square().sum()
+                                for t in tensors], likes))
 
 
 class AdamW:
@@ -93,12 +129,11 @@ class AdamW:
                  schedule: str = "constant", weight_decay: float = 1e-2,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  max_grad_norm: float = 1.0, accumulate_steps: int = 1,
-                 mu_dtype: Optional[torch.dtype] = None, norm_group=None):
+                 mu_dtype: Optional[torch.dtype] = None):
         # the parameters as given (DTensors where sharded) and their local
         # parts, which the update writes in place
         self.shards = list(params)
         self.params = [local(p) for p in self.shards]
-        self.norm_group = norm_group
         self.lr = make_schedule(learning_rate, warmup_steps, total_steps,
                                 schedule)
         self.weight_decay, self.b1, self.b2, self.eps = (weight_decay, b1,
@@ -130,7 +165,7 @@ class AdamW:
         self._update(grads)
 
     def _update(self, grads):
-        norm = global_norm(grads, self.norm_group)
+        norm = global_norm(grads, self.shards)
         if not bool(norm < self.max_grad_norm):
             grads = [(g / norm) * self.max_grad_norm for g in grads]
         lr = self.lr(self.count)
@@ -195,13 +230,12 @@ def make_optimizer(params: List[torch.Tensor], learning_rate: float = 1e-4,
                    schedule: str = "constant", weight_decay: float = 1e-2,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                    max_grad_norm: float = 1.0, accumulate_steps: int = 1,
-                   mu_dtype: Optional[torch.dtype] = None,
-                   norm_group=None) -> AdamW:
-    """The JAX package's ``make_optimizer`` signature, over ``params``;
-    ``norm_group``: the group whose shards ``global_norm`` adds up."""
+                   mu_dtype: Optional[torch.dtype] = None) -> AdamW:
+    """The JAX package's ``make_optimizer`` signature, over ``params``
+    (DTensors where sharded: ``global_norm`` reads their layouts)."""
     return AdamW(params, learning_rate, warmup_steps, total_steps, schedule,
                  weight_decay, b1, b2, eps, max_grad_norm, accumulate_steps,
-                 mu_dtype, norm_group)
+                 mu_dtype)
 
 
 class TrainState:

@@ -24,19 +24,25 @@ them as an input, so a caller can replay one step exactly.
 Parallelism. ``mesh_shape`` (d, f, t) builds the mesh over the ranks of
 the process group (``parallel.create_mesh``; None: every rank on ``data``,
 one rank without a process group), or the caller passes ``mesh``. The
-model is sharded over ``fsdp`` (``parallel.shard_model``: FSDP2, HSDP over
-(data, fsdp)) and the config's ``attn_impl`` installed with the ring over
-``tensor`` (``ops.attention.install_attn_impl``: a ring of one rank warns
-and runs ``auto``). Each rank trains on its rows of the
+model is sharded (``parallel.shard_model``): its weights over ``tensor``
+(Megatron column and row parallelism, ``parallel/tensor_parallel.py``)
+unless the config's ``attn_impl`` is ``ring``, and over ``fsdp`` (FSDP2,
+HSDP over (data, fsdp)); the config's ``attn_impl`` is installed with the
+ring over ``tensor`` (``ops.attention.install_attn_impl``: a ring of one
+rank warns and runs ``auto``). Each rank trains on its rows of the
 global batch (the batches it is given) and draws the *global* batch's
 ``StepDraws`` from the step's generator, keeping its rows
 (``parallel.batch_rows``), so a step at any mesh equals the one-card step
 on the same global batch up to the order of reductions. Gradients are
 averaged over (data, fsdp): FSDP2's reduce-scatter where sharded, else an
 explicit all-reduce of the gradient list (on one rank nothing moves and
-the gradients are those of ``torch.autograd.grad``, as before). Metrics
-are means over the mesh; rank 0 alone logs and writes checkpoints (the
-whole state, gathered; ``training/checkpoint.py``).
+the gradients are those of ``torch.autograd.grad``, as before); the ranks
+of one ``tensor`` group take the same rows, and the split layers sum
+their partial products and input gradients over it. ``grad_norm`` adds
+each parameter's sum of squares over the axes it is split on, once for a
+replicated one. Metrics are means over the mesh; rank 0 alone logs and
+writes checkpoints (the whole state, gathered;
+``training/checkpoint.py``).
 
 ``TrainConfig`` keeps the JAX package's fields. ``sync_every`` is accepted
 and has no effect (each step's loss is read on the host), and ``fit`` does
@@ -170,8 +176,7 @@ class AMDTrainer:
             config.max_steps, config.lr_schedule, config.weight_decay,
             max_grad_norm=config.max_grad_norm,
             accumulate_steps=config.accumulate_steps,
-            mu_dtype=torch.bfloat16 if config.mu_dtype == "bf16" else None,
-            norm_group=self.mesh.group("fsdp") if self._fsdp else None)
+            mu_dtype=torch.bfloat16 if config.mu_dtype == "bf16" else None)
         self.state = TrainState(params, tx, ema_decay=config.ema_decay)
         self.ckpt = ckpt_lib.CheckpointManager(
             os.path.join(config.output_dir, "checkpoints"),
@@ -289,21 +294,10 @@ class AMDTrainer:
         grads = [torch.zeros_like(p) if g is None else g.float()
                  for p, g in zip(params, grads)]
         if not self._fsdp and self.mesh.dp_group is not None:
-            comm.all_reduce_(grads, self.mesh.dp_group)
-            for g in grads:
-                g.div_(self.mesh.dp_size)
+            # in place on the local parts (a DTensor's where the weights
+            # are split over 'tensor')
+            comm.average_([local(g) for g in grads], self.mesh.dp_group)
         return grads
-
-    def _mean_metrics(self, metrics: Dict[str, torch.Tensor]
-                      ) -> Dict[str, torch.Tensor]:
-        """Each metric's mean over the mesh's (data, fsdp) ranks."""
-        if self.mesh.dp_group is None:
-            return metrics
-        keys = sorted(metrics)
-        vals = torch.stack([metrics[k] for k in keys])
-        comm.all_reduce_([vals], self.mesh.dp_group)
-        vals /= self.mesh.dp_size
-        return dict(zip(keys, vals.unbind()))
 
     def loss_and_grads(self, batch, draws: StepDraws):
         """(loss_dict of fp32 scalars, fp32 grads in parameter order), each
@@ -340,8 +334,9 @@ class AMDTrainer:
                              if v.dim() == 0}
                 loss_dict.update(lpips_loss=p_loss, loss=loss)
         grads = self._reduce_grads(loss, list(self.state.params.values()))
-        return self._mean_metrics({k: v.detach().float()
-                                   for k, v in loss_dict.items()}), grads
+        return comm.average_metrics({k: v.detach().float()
+                                     for k, v in loss_dict.items()},
+                                    self.mesh.dp_group), grads
 
     def _step(self, batch, draws: Optional[StepDraws] = None
               ) -> Dict[str, torch.Tensor]:
@@ -352,7 +347,7 @@ class AMDTrainer:
             draws = self.draw(batch)
         metrics, grads = self.loss_and_grads(batch, draws)
         metrics["grad_norm"] = global_norm(
-            grads, self.mesh.group("fsdp") if self._fsdp else None)
+            grads, list(self.state.params.values()))
         if self.config.nan_policy == "skip":
             finite = bool(torch.isfinite(metrics["loss"]) &
                           torch.isfinite(metrics["grad_norm"]))

@@ -20,7 +20,7 @@ and tiny A2M heads whose tokens are AMD_N's object tokens):
     without a pose stream; the port refuses, with a ``ValueError``
     naming the cause, exactly where the JAX CLI fails;
   * the argument parser against ``train_a2m.py``'s (the port adds
-    ``--device`` and ``--resume_training``);
+    ``--device``, ``--resume_training`` and ``--dist_backend``);
   * the CLI end to end on mp4s, embeddings and a ``.pkl`` index: the
     LearnableToken head 2 steps with a checkpoint each step, a resume to
     step 3, then ``cli.a2v_inference`` serving the checkpoint it wrote;
@@ -322,7 +322,7 @@ def test_cli_args_match_jax(monkeypatch, extra):
     want = jtrain.parse_args()
     got = train_a2m.parse_args(REQUIRED + extra)
     assert vars(got) == dict(vars(want), device="cuda",
-                             resume_training=False)
+                             resume_training=False, dist_backend=None)
 
 
 # -- the CLI end to end --------------------------------------------------------

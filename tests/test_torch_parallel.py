@@ -167,12 +167,31 @@ def test_batch_rows_match_batch_sharding():
         tshard.batch_rows(_fake_mesh(2, 2, 1), 6)
 
 
-def test_weight_tensor_parallelism_is_refused():
-    for impl in ("auto", "xla", "pallas"):
-        with pytest.raises(NotImplementedError, match="Queue 1 #5b"):
-            tshard.check_mesh(_fake_mesh(1, 1, 2), impl)
-    tshard.check_mesh(_fake_mesh(1, 1, 2), "ring")
-    tshard.check_mesh(_fake_mesh(2, 2, 1), "auto")
+def test_weight_tensor_parallelism_is_refused(tiny_paths):
+    """Named for the refusal it replaced: a 'tensor' extent is now taken
+    (``create_mesh`` refuses only a shape whose ranks are not the
+    process group's, or an extent below 1), and the tiny model's split
+    weights are the ones the JAX rule shards on 'tensor', on the same
+    dims."""
+    from hivae_tpu_torch.parallel import tensor_parallel as ttp
+
+    for shape in ((1, 1, 2), (2, 1, 2), (1, 2, 2)):
+        with pytest.raises(ValueError, match="the process group has 1"):
+            tmesh.create_mesh(shape)
+    with pytest.raises(ValueError, match="three positive extents"):
+        tmesh.create_mesh((2, 1, 0))
+    jmesh = jax_create_mesh((1, 1, 2))
+    want = {}
+    for path, fshape in tiny_paths[0]:
+        spec = tuple(jshard.infer_param_sharding(path, fshape, jmesh))
+        if "tensor" in spec:
+            name = flax_path_to_torch_key(tuple(path.split(".")[1:]))
+            want[name] = tshard._flax_dims(name, len(fshape)).index(
+                spec.index("tensor"))
+    cfg = tamd.AMDConfig.from_dict(
+        graft._flagship(tiny=True, frames=4).cfg.to_dict())
+    got, kept = ttp.tensor_plan(tamd.AMDModelNew(cfg, device="meta"), 2)
+    assert kept == [] and got == want and len(got) > 20
 
 
 # -- sdpa(implementation=) routing --------------------------------------------

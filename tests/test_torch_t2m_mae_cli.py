@@ -21,7 +21,7 @@ tiny SD-VAE; 32 x 32 frames, 16 x 16 latents):
     its parameters from ``eval_shape``), the port refuses every other type
     naming the cause, and a label past ``num_classes``;
   * the argument parsers against the JAX CLIs' (the port adds
-    ``--device`` and ``--resume_training``);
+    ``--device``, ``--resume_training`` and ``--dist_backend``);
   * both training CLIs end to end on synthetic mp4s (T2M on a tree of two
     class directories): 2 steps with a checkpoint each step, T2M's config
     written, a resume to step 3, and the ``SystemExit`` of a dataset that
@@ -285,7 +285,7 @@ def _jax_args(monkeypatch, module, argv):
     return module.parse_args()
 
 
-PORT_ONLY = dict(device="cuda", resume_training=False)
+PORT_ONLY = dict(device="cuda", resume_training=False, dist_backend=None)
 
 
 @pytest.mark.parametrize("extra", [[], [
