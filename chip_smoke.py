@@ -6,7 +6,9 @@
 Phases (any failure exits non-zero without the final result line):
 
 1. build the hand-written CUDA kernels from ``hivae_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once) into ``hivae_tpu_torch/build/``;
+   ``nvcc`` per library, all at once: each source, and each attention
+   source again with ``-DHV_F16`` for its fp16 forms) into
+   ``hivae_tpu_torch/build/``;
 2. hold each kernel against its plain PyTorch version: the forward
    kernels (bf16) at the shapes the clip-reconstruction path gives them,
    plus check-only cases (a masked camera case with a fully masked key row,
@@ -57,7 +59,14 @@ Phases (any failure exits non-zero without the final result line):
    and its plain version; with ``--parent`` the fp32 streaming forward,
    the full-block delta pre-pass and the streaming delta, dQ and dK/dV
    must give the parent's bits, and the parent's fp32 full-block forward,
-   qk-norm forward and backward are timed beside these. Each
+   qk-norm forward and backward are timed beside these. The fp16 forms
+   (``check_f16_kernels``) add the full-block forward and its
+   qk-norm variant at the clip's sites, the full-block backward and delta
+   at the fp16 step's, the streaming forward at the SD-VAE mid-block and
+   its delta, dQ and dK/dV at the perceptual leg's decode, all on fp16
+   operands, each within ``KERNEL_ATOL`` (``BWD_RTOL`` relative for
+   gradients) of its plain version, twice to the same bits, timed beside
+   SDPA in fp16. Each
    kernel, its plain
    version and one PyTorch call that computes the same function (a
    yardstick only: the port never calls it; for a backward, the time of
@@ -65,18 +74,26 @@ Phases (any failure exits non-zero without the final result line):
    forward; for the qk-norm kernel two ``F.layer_norm`` and one SDPA; for the
    FFN kernel ``torch._int_mm`` of its GEMM alone) are timed with CUDA
    events;
-   2b. ``sdpa`` in fp32 and fp16 above 256^2 logits: fp32 launches the
-   fp32 kernels of its shape's route once (the SD-VAE mid-block's the
+   2b. ``sdpa`` in fp32 and fp16 above 256^2 logits: each launches its
+   dtype's kernels of its shape's route once (the SD-VAE mid-block's the
    streaming forward, the object encoder's the full-block forward) and,
    with a gradient, the backward's delta pre-pass and kernels once each,
-   its gradients within the fp32 gate of the plain path's; fp16 has no
-   kernel on the card and must take the counted plain path
-   (``sdpa_plain``, one count a call) and launch no kernel; bf16
-   operands in a layout the kernels cannot read, which the
+   its gradients within ``_grad_gate`` of the plain path's, ``sdpa_plain``
+   0; bf16 operands in a layout the kernels cannot read, which the
    kernel's wrapper copies; an fp32 ``AutoencoderKL`` encoding one clip
    (one fp32 streaming launch, ``sdpa_plain`` 0); ``quant_dense`` and
    ``fused_quant_ffn`` at 1, 16 and 17 rows against the same calls on
-   the CPU. On every main path below, ``sdpa_plain`` must count 0;
+   the CPU;
+   2c. ``sdpa`` at head dims off the kernels' tiles (8, 24, 40,
+   72, 80, 136, 200, 320, 600) and on them (32 to 640), in bf16, fp16 and
+   fp32, forward and with a gradient, at (2, 4, 300, D) masked and not and
+   (2, 1, 2048, D): each call's route (full-block to D 128, streaming
+   beyond), exact launches on its dtype's counters, ``sdpa_plain`` 0, the
+   same bits twice, within ``KERNEL_ATOL`` (bf16, fp16) or
+   ``KERNEL_F32_ATOL`` x max(1, max|plain|) (fp32) of the plain path and
+   its gradients within ``_grad_gate``; the fused qk-norm route at D 40
+   and 72; one call at D 648, past every tile, counted once in
+   ``sdpa_plain``. On every main path below, ``sdpa_plain`` must count 0;
 3. build the full-width flagship AMD_N (``configs/amd/amd_n_t1d512_spatial.json``)
    and the SD-VAE in bf16 on seeded random weights and reconstruct one
    synthetic 17 x 3 x 256 x 256 clip at ``sample_step=10`` through
@@ -90,6 +107,11 @@ Phases (any failure exits non-zero without the final result line):
    of the fused qk-norm kernel, none of the plain full-block one, 3
    streaming; it must agree with phase 3's clip; then both clips timed in
    turns, 4 of each;
+   3w. the same clip on AMD_N and the SD-VAE built at full width
+   and depth in fp16 from phase 3's seed: 248 full-block and 3 streaming
+   launches of the fp16 forms, ``sdpa_plain`` 0, finite before
+   quantisation, against its run on the plain attention versions (phase
+   3's gates), with its latency and peak device memory;
    3d-3h. the serving paths on the same models, each one warm-up run
    and one timed run with exact launch counts (``sdpa_plain`` 0), uint8 of
    the expected shape, finite before quantisation, and in agreement with
@@ -226,8 +248,9 @@ Phases (any failure exits non-zero without the final result line):
    loss within ``REMAT_LOSS_RTOL`` of ``full``'s and gradient cosine at
    least ``REMAT_GRAD_COS``, with each one's time and peak memory (a policy
    that does not fit at N = 4 runs at N = 2, with ``full`` again there);
-5. training run B: N = 1 with the perceptual loss (weight 0.5, seeded
-   random LPIPS weights) and both mask ratios at 0.5, one warm-up step and
+5. training run B: the flagship at ``PAR_DEPTH``, N = 1 with the
+   perceptual loss (weight 0.5, seeded random LPIPS weights) and both mask
+   ratios at 0.5, one warm-up step and
    2 timed steps with exact launch counts (now with the streaming backward
    kernels and their delta pre-pass), the same plain-step check, then a
    checkpoint save, a resume in a new trainer, and one more step from each
@@ -248,6 +271,15 @@ Phases (any failure exits non-zero without the final result line):
    ``F32_STEP_GRAD_REL_L2`` of the same step on the plain attention
    versions (the plain step with TF32 matmuls logged beside it as the
    control the gate must reject), step ms and peak memory;
+   5d. fp16 training of AMD_N at full width and ``PAR_DEPTH``
+   (fp32 master weights computing under fp16 autocast, as the JAX
+   package's ``AMD_N(dtype=float16)`` computes over fp32 params) on an
+   fp16 SD-VAE: one loss and gradient at N = 2 (run A's launches on the
+   fp16 forms), then one with the perceptual loss under ``QKNORM_FUSE``
+   at N = 1 (the fp16 qk-norm forward, the streaming delta, dQ and dK/dV);
+   ``sdpa_plain`` 0, finite, loss within ``STEP_LOSS_RTOL`` and gradient
+   cosine at least ``STEP_GRAD_COS`` of the same call on the plain
+   attention versions, with its time and peak memory;
 6. one training step (after a warm-up) of each config variant of
    ``VARIANTS``, at ``PAR_DEPTH`` and N = 4 with remat ``full``:
    ``use_camera_down`` with ``need_motion_transformer`` (the camera joint
@@ -271,9 +303,9 @@ Phases (any failure exits non-zero without the final result line):
    ``fit``'s wait on it a step (its one-batch prefetch should hide it);
    7b. the CLI with ``--use_mask true`` (flow masks on the host) at
    ``PAR_DEPTH``, 2 steps;
-   7c. the CLI with ``--model_type AMD_S`` (AMD_S's config as
-   ``--amd_config``), 2 steps, then on its checkpoint ``cli.amd_inference
-   --model_type AMD_S`` and ``cli.amd_inference_single --diff_motion``
+   7c. the CLI with ``--model_type AMD_S`` (AMD_S's config at
+   ``PAR_DEPTH`` as ``--amd_config``), 2 steps, then on its checkpoint
+   ``cli.amd_inference --model_type AMD_S`` and ``cli.amd_inference_single --diff_motion``
    (exact launches, the mp4s' frames);
    7d. ``hivae_tpu_torch.cli.train_a2m`` in this process: the flagship A2M
    head's widths at AMD_N's 4 tokens and ``A2M_CLI_LAYERS`` layers (fp32
@@ -307,7 +339,7 @@ Phases (any failure exits non-zero without the final result line):
    with ``--rank-phase``, a time limit each), whose collectives the port
    stages through pinned host memory; no time here is a collective's on a
    cluster, and no scaling is measured. Its models keep the flagship's
-   widths at ``PAR_DEPTH`` (2 encoder layers each, 2 DiT layers), since
+   widths at ``PAR_DEPTH`` (1 encoder layer each, 1 DiT layer), since
    these host-staged collectives take time in step with the parameters.
    8a. the ring's two hop kinds timed at 512, 1024 and 2048 local tokens
    (this card's crossover), then ``sequence_sharded_sdpa`` at
@@ -1633,6 +1665,472 @@ def check_f32_kernels(fa, failures, sms, parent=None):
                    "552", dkv_cases)]
 
 
+# the fp16 forms' cases (label, q shape, weight: launches on the path the
+# record's time averages over): the forward and its qk-norm variant at the
+# fp16 clip's sites (phase 3w), the full-block backward and delta at the
+# fp16 step's (phase 5d: N 2 at PAR_DEPTH, one launch a site), the
+# streaming forward at the clip's SD-VAE mid-block and its backward at
+# the perceptual step's decode (N 1)
+F16_FWD_CASES = FULL_BLOCK_CASES
+F16_BWD_CASES = [(label, shape, 1) for label, shape, _ in
+                 full_block_bwd_cases(2)]
+F16_STREAM_CASES = STREAM_CASES
+F16_STREAM_BWD_CASES = [("SD-VAE decoder mid-block, perceptual leg (N=1)",
+                         (16, 1, 1024, 512), 1)]
+
+
+def check_f16_kernels(fa, failures):
+    """Phase 2, the fp16 forms (the 16-bit sources built with -DHV_F16):
+    the full-block forward, its qk-norm variant, backward and delta, the
+    streaming forward, delta, dQ and dK/dV on fp16 operands at the fp16
+    paths' shapes, each against its plain version on the same inputs
+    (``KERNEL_ATOL`` on outputs, ``BWD_RTOL`` relative on gradients,
+    ``DELTA_RTOL`` on delta, ``LSE_ATOL`` on the LSE), launched twice to the
+    same bits, and timed beside its plain version and SDPA in fp16; the
+    bound is its bf16-rate (fp16's is the same, 989 TFLOP/s) operations or
+    its fp16 bytes. Beside each, the device time (``_device_ms``) of the
+    fp16 form and of its bf16 sibling on the same values in bf16
+    (``device_ms``, ``bf16_device_ms``): CUDA events at these grids time
+    the launch path too. Returns the records."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device="cuda").half()
+
+    fwd, qkn, bwd, fdelta = [], [], [], []
+    for label, shape, weight in F16_FWD_CASES:
+        q, k, v = rand(shape), rand(shape), rand(shape)
+        scale = shape[3] ** -0.5
+        norms = _norm_params(gen, shape[3])
+        kw = dict(scale=scale, bias=None)
+        got = [fa.full_block_attention(q, k, v, **kw) for _ in range(2)]
+        qn = [fa.full_block_attention_qknorm(q, k, v, *norms, **kw)
+              for _ in range(2)]
+        want = fa.full_block_attention_plain(q, k, v, **kw)
+        qwant = fa.full_block_attention_qknorm_plain(q, k, v, *norms, **kw)
+        torch.cuda.synchronize()
+        err, qerr = _abs_err(got[0], want), _abs_err(qn[0], qwant)
+        if not (err <= KERNEL_ATOL and qerr <= KERNEL_ATOL and
+                torch.equal(*got) and torch.equal(*qn) and
+                bool(torch.isfinite(got[0]).all())):
+            failures.append(f"full_block fp16 {label}: max|err| {err} "
+                            f"qknorm {qerr}, bits equal "
+                            f"{torch.equal(*got)} {torch.equal(*qn)}")
+        f_bytes, f_ops = _bound(shape, False, False, stats=0)
+
+        def ln_sdpa():
+            d = shape[3]
+            qq = F.layer_norm(q, (d,), norms[0].half(), norms[1].half(), 1e-6)
+            kk = F.layer_norm(k, (d,), norms[2].half(), norms[3].half(), 1e-6)
+            return F.scaled_dot_product_attention(qq, kk, v, scale=scale)
+        common = dict(label=label, shape=list(shape), weight=weight,
+                      bytes_ms=f_bytes, ops_ms=f_ops)
+        qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+        dev = {"fwd": _device_ms(lambda: fa.full_block_attention(
+                   q, k, v, **kw), "full_block"),
+               "fwd_bf16": _device_ms(lambda: fa.full_block_attention(
+                   qb, kb, vb, **kw), "full_block"),
+               "qkn": _device_ms(lambda: fa.full_block_attention_qknorm(
+                   q, k, v, *norms, **kw), "full_block"),
+               "qkn_bf16": _device_ms(lambda: fa.full_block_attention_qknorm(
+                   qb, kb, vb, *norms, **kw), "full_block")}
+        fwd.append(dict(common, max_abs_err=err, device_ms=dev["fwd"],
+                        bf16_device_ms=dev["fwd_bf16"], ms=_time_ms(
+            lambda: fa.full_block_attention(q, k, v, **kw), 20),
+            plain_ms=_time_ms(lambda: fa.full_block_attention_plain(
+                q, k, v, **kw), 5),
+            library_ms=_time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=scale), 20)))
+        qkn.append(dict(common, max_abs_err=qerr, device_ms=dev["qkn"],
+                        bf16_device_ms=dev["qkn_bf16"], ms=_time_ms(
+            lambda: fa.full_block_attention_qknorm(q, k, v, *norms, **kw),
+            20), plain_ms=_time_ms(
+                lambda: fa.full_block_attention_qknorm_plain(
+                    q, k, v, *norms, **kw), 5),
+            library_ms=_time_ms(ln_sdpa, 20)))
+        _log(f"  full_block fp16 {label} {shape}: max|err| {err:.3g} "
+             f"qknorm {qerr:.3g}; forward {fwd[-1]['ms']:.4f} ms (plain "
+             f"{fwd[-1]['plain_ms']:.4f}, sdpa fp16 "
+             f"{fwd[-1]['library_ms']:.4f}, bound "
+             f"{max(f_bytes, f_ops):.4f}); qknorm {qkn[-1]['ms']:.4f} ms "
+             f"(plain {qkn[-1]['plain_ms']:.4f}, layer_norm + sdpa "
+             f"{qkn[-1]['library_ms']:.4f}); device time fp16 / bf16: "
+             f"forward {_ms_or_none(dev['fwd'])} / "
+             f"{_ms_or_none(dev['fwd_bf16'])}, qknorm "
+             f"{_ms_or_none(dev['qkn'])} / {_ms_or_none(dev['qkn_bf16'])} "
+             f"ms")
+
+    for label, shape, weight in F16_BWD_CASES:
+        q, k, v, do = (rand(shape) for _ in range(4))
+        scale = shape[3] ** -0.5
+        kw = dict(scale=scale, bias=None)
+        out, m, l = fa._full_block_fwd(q, k, v, None, scale, stats=True)
+        grads = [fa.full_block_attention_bwd(q, k, v, do, out, m, l, **kw)
+                 for _ in range(2)]
+        deltas = [fa.full_block_attention_delta(do, out, l)
+                  for _ in range(2)]
+        gwant = fa.full_block_attention_bwd_plain(q, k, v, do, **kw)
+        dwant, ilwant = fa.full_block_attention_delta_plain(do, out, l)
+        torch.cuda.synchronize()
+        gerrs = [_grad_gate(g, w) for g, w in zip(grads[0], gwant)]
+        dscale = (do.float().abs() * out.float().abs()).sum(-1)
+        dok = bool(((deltas[0][0] - dwant).abs()
+                    <= DELTA_RTOL * dscale + 1e-6).all())
+        derr = _abs_err(deltas[0][0], dwant)
+        if not (all(ok for _, ok in gerrs) and dok and
+                torch.equal(deltas[0][1], ilwant) and
+                all(torch.equal(a, b) for a, b in zip(*grads)) and
+                all(torch.equal(a, b) for a, b in zip(*deltas))):
+            failures.append(f"full_block_bwd fp16 {label}: dq/dk/dv "
+                            f"{[e for e, _ in gerrs]}, delta {derr}, bits "
+                            f"equal or 1/l off")
+        b_bytes, b_ops = _bound(shape, False, False, tensors=7, stats=3,
+                                flop_factor=10)
+        b_ms = _time_ms(lambda: fa.full_block_attention_bwd(
+            q, k, v, do, out, m, l, **kw), 20)
+        b_plain = _time_ms(lambda: fa.full_block_attention_bwd_plain(
+            q, k, v, do, **kw), 5)
+        b_lib = _library_bwd_ms(q, k, v, do, None, scale, 20)
+        qb, kb, vb, dob = (x.bfloat16() for x in (q, k, v, do))
+        ob, mb, lb = fa._full_block_fwd(qb, kb, vb, None, scale, stats=True)
+        b_dev = _device_ms(lambda: fa.full_block_attention_bwd(
+            q, k, v, do, out, m, l, **kw), "full_block")
+        b_dev_bf16 = _device_ms(lambda: fa.full_block_attention_bwd(
+            qb, kb, vb, dob, ob, mb, lb, **kw), "full_block")
+        d_ms = _time_ms(lambda: fa.full_block_attention_delta(do, out, l),
+                        20)
+        d_plain = _time_ms(lambda: fa.full_block_attention_delta_plain(
+            do, out, l), 20)
+        d_lib = _time_ms(lambda: torch.linalg.vecdot(do, out, dim=-1), 20)
+        b, h, sq, d = shape
+        bwd.append(dict(label=label, shape=list(shape), weight=weight,
+                        max_abs_err=max(e for e, _ in gerrs), ms=b_ms,
+                        device_ms=b_dev, bf16_device_ms=b_dev_bf16,
+                        plain_ms=b_plain, library_ms=b_lib,
+                        bytes_ms=b_bytes, ops_ms=b_ops))
+        fdelta.append(dict(label=label, shape=list(shape), weight=weight,
+                           max_abs_err=derr, ms=d_ms, plain_ms=d_plain,
+                           library_ms=d_lib,
+                           bytes_ms=(2 * b * h * sq * d * 2 + 3 * b * h * sq
+                                     * 4) / PEAK_HBM_BYTES * 1e3,
+                           ops_ms=2 * b * h * sq * d / PEAK_FP32_FLOPS
+                           * 1e3))
+        _log(f"  full_block_bwd fp16 {label} {shape}: max|err| dq/dk/dv "
+             f"{', '.join(f'{e:.3g}' for e, _ in gerrs)} delta {derr:.3g}; "
+             f"backward {b_ms:.4f} ms (plain {b_plain:.4f}, sdpa fp16 bwd "
+             f"{b_lib:.4f}, bound {max(b_bytes, b_ops):.4f}); delta "
+             f"{d_ms:.4f} ms (plain {d_plain:.4f}, vecdot {d_lib:.4f}); "
+             f"device time with delta fp16 / bf16 {_ms_or_none(b_dev)} / "
+             f"{_ms_or_none(b_dev_bf16)} ms")
+
+    sfwd, dq_cases, dkv_cases, sdelta = [], [], [], []
+    for label, shape, weight in F16_STREAM_CASES:
+        q, k, v = rand(shape), rand(shape), rand(shape)
+        scale = shape[3] ** -0.5
+        runs = [fa.stream_attention(q, k, v, scale=scale) for _ in range(2)]
+        wo, wl = fa.stream_attention_plain(q, k, v, scale=scale)
+        torch.cuda.synchronize()
+        err, lerr = _abs_err(runs[0][0], wo), _abs_err(runs[0][1], wl)
+        if not (err <= KERNEL_ATOL and lerr <= LSE_ATOL and
+                all(torch.equal(a, b) for a, b in zip(*runs))):
+            failures.append(f"stream fp16 {label}: max|err| {err} lse "
+                            f"{lerr}")
+        f_bytes, f_ops = _bound(shape, False, True)
+        sfwd.append(dict(label=label, shape=list(shape), weight=weight,
+                         max_abs_err=err, ms=_time_ms(
+                             lambda: fa.stream_attention(q, k, v,
+                                                         scale=scale), 10),
+                         plain_ms=_time_ms(lambda: fa.stream_attention_plain(
+                             q, k, v, scale=scale), 3),
+                         library_ms=_time_ms(
+                             lambda: F.scaled_dot_product_attention(
+                                 q, k, v, scale=scale), 10),
+                         bytes_ms=f_bytes, ops_ms=f_ops))
+        _log(f"  stream fp16 {label} {shape}: max|err| {err:.3g} lse "
+             f"{lerr:.3g}; {sfwd[-1]['ms']:.4f} ms (plain "
+             f"{sfwd[-1]['plain_ms']:.4f}, sdpa fp16 "
+             f"{sfwd[-1]['library_ms']:.4f}, bound "
+             f"{max(f_bytes, f_ops):.4f})")
+
+    for label, shape, weight in F16_STREAM_BWD_CASES:
+        q, k, v, do = (rand(shape) for _ in range(4))
+        scale = shape[3] ** -0.5
+        kw = dict(scale=scale, bias=None)
+        out, lse = fa.stream_attention(q, k, v, **kw)
+        runs = []
+        for _ in range(2):
+            delta = fa.stream_attention_delta(do, out)
+            runs.append((delta,
+                         fa.stream_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                    **kw),
+                         *fa.stream_attention_bwd_dkv(q, k, v, do, lse,
+                                                      delta, **kw)))
+        want = fa.stream_attention_bwd_plain(q, k, v, do, out, lse, **kw)
+        dwant = fa._delta(do, out)
+        torch.cuda.synchronize()
+        gerrs = [_grad_gate(g, w) for g, w in zip(runs[0][1:], want)]
+        dscale = (do.float().abs() * out.float().abs()).sum(-1)
+        derr = _abs_err(runs[0][0], dwant)
+        dok = bool(((runs[0][0] - dwant).abs()
+                    <= DELTA_RTOL * dscale + 1e-6).all())
+        if not (dok and all(ok for _, ok in gerrs) and
+                all(torch.equal(a, b) for a, b in zip(*runs))):
+            failures.append(f"stream_bwd fp16 {label}: dq/dk/dv "
+                            f"{[e for e, _ in gerrs]} delta {derr}")
+        delta = runs[0][0]
+        dq_ms = _time_ms(lambda: fa.stream_attention_bwd_dq(
+            q, k, v, do, lse, delta, **kw), 10)
+        dkv_ms = _time_ms(lambda: fa.stream_attention_bwd_dkv(
+            q, k, v, do, lse, delta, **kw), 10)
+        d_ms = _time_ms(lambda: fa.stream_attention_delta(do, out), 20)
+        d_plain = _time_ms(lambda: fa._delta(do, out), 20)
+        d_lib = _time_ms(lambda: torch.linalg.vecdot(do, out, dim=-1), 20)
+        plain_ms = _time_ms(lambda: fa.stream_attention_bwd_plain(
+            q, k, v, do, out, lse, **kw), 3)
+        lib_ms = _library_bwd_ms(q, k, v, do, None, scale, 10)
+        q_bytes, q_ops = _bound(shape, False, True, tensors=5, stats=1,
+                                flop_factor=6)
+        k_bytes, k_ops = _bound(shape, False, True, tensors=6, stats=1,
+                                flop_factor=8)
+        b, h, sq, d = shape
+        common = dict(label=label, shape=list(shape), weight=weight,
+                      plain_ms=plain_ms, library_ms=lib_ms)
+        dq_cases.append(dict(common, max_abs_err=gerrs[0][0], ms=dq_ms,
+                             bytes_ms=q_bytes, ops_ms=q_ops))
+        dkv_cases.append(dict(common, max_abs_err=max(e for e, _ in
+                                                      gerrs[1:]),
+                              ms=dkv_ms, bytes_ms=k_bytes, ops_ms=k_ops))
+        sdelta.append(dict(label=label, shape=list(shape), weight=weight,
+                           max_abs_err=derr, ms=d_ms, plain_ms=d_plain,
+                           library_ms=d_lib,
+                           bytes_ms=(2 * b * h * sq * d * 2 + b * h * sq * 4)
+                           / PEAK_HBM_BYTES * 1e3,
+                           ops_ms=2 * b * h * sq * d / PEAK_FP32_FLOPS
+                           * 1e3))
+        _log(f"  stream_bwd fp16 {label} {shape}: max|err| dq/dk/dv "
+             f"{', '.join(f'{e:.3g}' for e, _ in gerrs)} delta {derr:.3g}; "
+             f"dq {dq_ms:.4f} ms (bound {max(q_bytes, q_ops):.4f}) dkv "
+             f"{dkv_ms:.4f} ms (bound {max(k_bytes, k_ops):.4f}) delta "
+             f"{d_ms:.4f} ms (plain {d_plain:.4f}, vecdot {d_lib:.4f}); "
+             f"plain {plain_ms:.4f} ms, sdpa fp16 bwd {lib_ms:.4f} ms")
+
+    src = "hivae_tpu_torch/csrc/"
+    tpu = "hivae_tpu/ops/pallas/flash_attention.py:"
+
+    def record(name, source, line, cases):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": tpu + line, "cases": cases}
+    bwd_rec = record("full_block_attention_bwd_f16", "flash_full_block_bwd.cu",
+                     "188", bwd)
+    bwd_rec["delta"] = record("full_block_attention_delta_f16",
+                              "flash_full_block_bwd.cu", "188", fdelta)
+    dq_rec = record("stream_attention_bwd_dq_f16", "flash_stream_bwd.cu",
+                    "512", dq_cases)
+    dq_rec["delta"] = record("stream_attention_delta_f16",
+                             "flash_stream_bwd.cu", "512", sdelta)
+    return [record("full_block_attention_f16", "flash_full_block.cu", "167",
+                   fwd),
+            record("full_block_attention_qknorm_f16", "flash_full_block.cu",
+                   "140", qkn),
+            bwd_rec,
+            record("stream_attention_f16", "flash_stream.cu", "468", sfwd),
+            dq_rec,
+            record("stream_attention_bwd_dkv_f16", "flash_stream_bwd.cu",
+                   "552", dkv_cases)]
+
+
+# phase 2c: head dims off the kernels' tiles (each on the smallest tile >=
+# it) beside the tiles themselves, each through ``sdpa`` forward and with
+# a gradient in bf16, fp16 and fp32, at a full-block shape (masked and
+# not; the streaming kernels past D 128) and a streaming one; the fused
+# qk-norm route at two of them; D 648, past every tile, counted plain
+HEAD_DIMS_ODD = (8, 24, 40, 72, 80, 136, 200, 320, 600)
+HEAD_DIMS_TILES = (32, 64, 96, 128, 256, 512, 640)
+HEAD_DIM_QKNORM = (40, 72)
+HEAD_DIM_PLAIN = 648
+
+
+def check_head_dims(failures):
+    """Phase 2c. ``sdpa`` at every head dim of ``HEAD_DIMS_ODD`` and
+    ``HEAD_DIMS_TILES``, in bf16, fp16 and fp32, forward and with a
+    gradient, at (2, 4, 300, D) masked and not (the full-block kernels to D
+    128, the streaming ones beyond) and (2, 1, 2048, D) (the streaming
+    kernels): the route and exact launches on the dtype's counters
+    (forward; with a gradient forward, delta and backward), ``sdpa_plain``
+    0, the same bits twice, the output within ``KERNEL_ATOL`` (bf16, fp16)
+    or ``KERNEL_F32_ATOL`` x max(1, max|plain|) (fp32) of the plain path's
+    and the gradients within ``_grad_gate``; the fused qk-norm route at D
+    ``HEAD_DIM_QKNORM``; D 72 on the 96 tile and D 600 on the 640 tile
+    timed against the tile's own D (bf16, forward and backward, CUDA
+    events and device time); and one call at D 648, which no kernel takes,
+    counted once in ``sdpa_plain``. Returns the calls checked."""
+    import torch
+    from hivae_tpu_torch.ops import attention as attn_ops
+    from hivae_tpu_torch.ops.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    calls = 0
+
+    def run(fn, q, k, v, mask, do):
+        out = fn(q, k, v, mask)
+        if do is None:
+            return (out,)
+        return (out,) + torch.autograd.grad(out, (q, k, v), do)
+
+    def sdpa(q, k, v, mask):
+        return attn_ops.sdpa(q, k, v, key_mask=mask)
+
+    def plain(q, k, v, mask):
+        return attn_ops._sdpa_plain(q, k, v, q.shape[3] ** -0.5, mask)
+
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        sx = DTYPE_SUFFIX[str(dtype)]
+        worst, worst_g = 0.0, 0.0
+        for d in HEAD_DIMS_ODD + HEAD_DIMS_TILES:
+            for shape, masked in (((2, 4, 300, d), False),
+                                  ((2, 4, 300, d), True),
+                                  ((2, 1, 2048, d), False)):
+                for grad in (False, True):
+                    q, k, v = (torch.randn(shape, generator=gen,
+                                           device="cuda").to(dtype)
+                               .requires_grad_(grad) for _ in range(3))
+                    mask = None
+                    if masked:
+                        mask = torch.rand((shape[0], shape[2]), generator=gen,
+                                          device="cuda") > 0.3
+                        mask[:, 0] = True
+                    route = attn_ops.kernel_route(q, k, v)
+                    want_route = "full_block" if (
+                        attn_ops.full_block_fits(shape, shape) and d <= 128
+                    ) else "stream"
+                    do = torch.randn(shape, generator=gen,
+                                     device="cuda").to(dtype) if grad \
+                        else None
+                    _zero_counts()
+                    got = run(sdpa, q, k, v, mask, do)
+                    counts = {n: c for n, c in _read_counts().items() if c}
+                    again = run(sdpa, q, k, v, mask, do)
+                    ref = [x.detach().clone().requires_grad_(grad)
+                           for x in (q, k, v)]
+                    want = run(plain, *ref, mask, do)
+                    torch.cuda.synchronize()
+                    if route == "stream":
+                        names = ["stream_attention"] + (
+                            ["stream_attention_delta",
+                             "stream_attention_bwd_dq",
+                             "stream_attention_bwd_dkv"] if grad else [])
+                    else:
+                        names = ["full_block_attention"] + (
+                            ["full_block_attention_delta",
+                             "full_block_attention_bwd"] if grad else [])
+                    want_counts = {n + sx: 1 for n in names}
+                    out_err = _abs_err(got[0].detach(), want[0].detach())
+                    out_ok = out_err <= (
+                        KERNEL_F32_ATOL * max(1.0, want[0].abs().max().item())
+                        if dtype == torch.float32 else KERNEL_ATOL)
+                    gerr = [_grad_gate(g, w) for g, w in zip(got[1:],
+                                                             want[1:])]
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    finite = all(bool(torch.isfinite(x).all()) for x in got)
+                    worst = max(worst, out_err)
+                    worst_g = max([worst_g] + [e for e, _ in gerr])
+                    calls += 1
+                    if not (route == want_route and counts == want_counts
+                            and out_ok and all(ok for _, ok in gerr) and same
+                            and finite):
+                        failures.append(
+                            f"head dim {d} {dtype} {shape} masked {masked} "
+                            f"grad {grad}: route {route} (want "
+                            f"{want_route}), launches {counts} (want "
+                            f"{want_counts}), max|err| {out_err}, gradients "
+                            f"{[e for e, _ in gerr]}, same bits {same}, "
+                            f"finite {finite}")
+        for d in HEAD_DIM_QKNORM:
+            shape = (2, 4, 300, d)
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(3))
+            norms = _norm_params(gen, d)
+            attn_ops.QKNORM_FUSE = True
+            try:
+                _zero_counts()
+                got = attn_ops.sdpa(q, k, v, qk_norm=norms)
+                counts = {n: c for n, c in _read_counts().items() if c}
+                again = attn_ops.sdpa(q, k, v, qk_norm=norms)
+            finally:
+                attn_ops.QKNORM_FUSE = False
+            want = fa.full_block_attention_qknorm_plain(
+                q, k, v, *norms, scale=d ** -0.5)
+            torch.cuda.synchronize()
+            err = _abs_err(got, want)
+            ok = err <= (KERNEL_F32_ATOL * max(1.0, want.abs().max().item())
+                         if dtype == torch.float32 else KERNEL_ATOL)
+            calls += 1
+            if not (ok and torch.equal(got, again) and counts == {
+                    f"full_block_attention_qknorm{sx}": 1}):
+                failures.append(f"head dim {d} {dtype} qk-norm: launches "
+                                f"{counts}, max|err| {err}")
+        _log(f"  head dims {dtype}: {len(HEAD_DIMS_ODD + HEAD_DIMS_TILES)} "
+             f"dims x 3 shapes x (forward, gradient) and qk-norm at "
+             f"{HEAD_DIM_QKNORM}: worst max|err| output {worst:.3g}, "
+             f"gradients {worst_g:.3g}")
+
+    # an odd head dim against its tile's own: the full-block forward and
+    # backward (delta included) at the DiT's object joint site, the
+    # streaming forward and backward at the SD-VAE mid-block's, in bf16
+    for kind, base, pairs in (("full_block", (16, 16, 266), (72, 96)),
+                              ("stream", (16, 1, 1024), (600, 640))):
+        times = {}
+        for d in pairs:
+            q, k, v, do = (torch.randn(base + (d,), generator=gen,
+                                       device="cuda").bfloat16()
+                           for _ in range(4))
+            kw = dict(scale=d ** -0.5)
+            if kind == "full_block":
+                out, m, l = fa._full_block_fwd(q, k, v, None, kw["scale"],
+                                               stats=True)
+                fns = (lambda: fa.full_block_attention(q, k, v, **kw),
+                       lambda: fa.full_block_attention_bwd(
+                           q, k, v, do, out, m, l, **kw))
+            else:
+                out, lse = fa.stream_attention(q, k, v, **kw)
+                delta = fa.stream_attention_delta(do, out)
+
+                def bwd():
+                    fa.stream_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+                    fa.stream_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                **kw)
+                fns = (lambda: fa.stream_attention(q, k, v, **kw), bwd)
+            times[d] = [(_time_ms(f, 20), _device_ms(f, kind.split("_")[0]))
+                        for f in fns]
+        _log(f"  {kind} bf16 at {base} + (D,), D "
+             f"{pairs[0]} on the {pairs[1]} tile against D {pairs[1]}: "
+             + "; ".join(
+                 f"{name} {times[pairs[0]][i][0]:.4f} / "
+                 f"{times[pairs[1]][i][0]:.4f} ms (device "
+                 f"{_ms_or_none(times[pairs[0]][i][1])} / "
+                 f"{_ms_or_none(times[pairs[1]][i][1])})"
+                 for i, name in enumerate(("forward", "backward"))))
+
+    shape = (2, 4, 300, HEAD_DIM_PLAIN)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").half()
+               for _ in range(3))
+    _zero_counts()
+    got = attn_ops.sdpa(q, k, v)
+    counts = {n: c for n, c in _read_counts().items() if c}
+    err = _abs_err(got, attn_ops._sdpa_plain(q, k, v, shape[3] ** -0.5,
+                                             None))
+    calls += 1
+    _log(f"  D {HEAD_DIM_PLAIN} fp16 {shape}: route "
+         f"{attn_ops.kernel_route(q, k, v)}, launches {counts}, max|err| "
+         f"{err:.3g}")
+    if counts != {"sdpa_plain": 1} or err != 0:
+        failures.append(f"D {HEAD_DIM_PLAIN}: launches {counts}, err {err}")
+    return calls
+
+
 class _LocalOp:
     """Stands in for ``torch.library.custom_op`` while another checkout's
     kernel modules import: their ops stay plain functions that launch that
@@ -1957,33 +2455,43 @@ INT8_SMALL_M = (1, 16, 17)
 
 def _sdpa_dtype_want(dtype, label, grad):
     """(route, launches of the forward, launches of forward and backward)
-    ``sdpa`` must take in phase 2b: fp32 to the fp32 kernels of the route
-    its shape picks (the SD-VAE mid-block's the streaming kernels, the
-    object encoder's the full-block ones; with a gradient, the backward's
-    delta pre-pass and kernels too), fp16 to the counted plain path."""
-    import torch
-    if dtype != torch.float32:
-        return "plain", {"sdpa_plain": 1}, {"sdpa_plain": 1}
+    ``sdpa`` must take in phase 2b: fp32 and fp16 to their kernels
+    (``<name>_f32``, ``<name>_f16``) of the route its shape picks (the
+    SD-VAE mid-block's the streaming kernels, the object encoder's the
+    full-block ones; with a gradient, the backward's delta pre-pass and
+    kernels too)."""
+    sx = DTYPE_SUFFIX[str(dtype)]
     if "mid-block" in label:
-        fwd = {"stream_attention_f32": 1}
-        bwd = dict(fwd, stream_attention_delta_f32=1,
-                   stream_attention_bwd_dq_f32=1,
-                   stream_attention_bwd_dkv_f32=1)
+        fwd = {f"stream_attention{sx}": 1}
+        bwd = dict(fwd, **{f"stream_attention_delta{sx}": 1,
+                           f"stream_attention_bwd_dq{sx}": 1,
+                           f"stream_attention_bwd_dkv{sx}": 1})
         return "stream", fwd, bwd if grad else fwd
-    fwd = {"full_block_attention_f32": 1}
-    bwd = dict(fwd, full_block_attention_delta_f32=1,
-               full_block_attention_bwd_f32=1)
+    fwd = {f"full_block_attention{sx}": 1}
+    bwd = dict(fwd, **{f"full_block_attention_delta{sx}": 1,
+                       f"full_block_attention_bwd{sx}": 1})
     return "full_block", fwd, bwd if grad else fwd
+
+
+def _grad_gate(got, want):
+    """(max|err|, whether it is within the gate) of a kernel gradient
+    against its plain version's: fp32 ``_f32_gate``; bf16 and fp16
+    ``BWD_RTOL`` of the largest plain element (both round P and dS to the
+    dtype from sums taken in another order)."""
+    import torch
+    if want.dtype == torch.float32:
+        return _f32_gate(got, want)
+    err = _abs_err(got, want)
+    return err, err <= BWD_RTOL * max(want.float().abs().max().item(), 1e-6)
 
 
 def check_repairs(failures):
     """Phase 2b. ``sdpa`` in fp32 and fp16 above 256^2 logits against its
-    plain path: fp32 launches the fp32 kernels of its shape's route once
+    plain path: each launches its dtype's kernels of its shape's route once
     (the SD-VAE mid-block the streaming forward, the object encoder the
     full-block forward), and with a gradient the backward's delta
-    pre-pass and kernels once each, its gradients within ``_f32_gate`` of
-    the plain path's; fp16 launches no kernel and is counted once in
-    ``sdpa_plain``; bf16 in a layout the kernels cannot
+    pre-pass and kernels once each, its gradients within ``_grad_gate`` of
+    the plain path's, ``sdpa_plain`` 0; bf16 in a layout the kernels cannot
     read, copied and launched; an fp32 ``AutoencoderKL`` encoding one clip
     (one fp32 streaming launch, ``sdpa_plain`` 0); ``quant_dense`` and
     ``fused_quant_ffn`` at M 1, 16 and 17 on the card against the same
@@ -1995,7 +2503,7 @@ def check_repairs(failures):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     for dtype, grad in ((torch.float32, False), (torch.float32, True),
-                        (torch.float16, False)):
+                        (torch.float16, False), (torch.float16, True)):
         for label, shape, masked in SDPA_DTYPE_CASES:
             q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                        .to(dtype).requires_grad_(grad) for _ in range(3))
@@ -2014,7 +2522,7 @@ def check_repairs(failures):
                 ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
                 want_g = torch.autograd.grad(attn_ops._sdpa_plain(
                     *ref, shape[3] ** -0.5, mask), ref, gout)
-                gerr = [_f32_gate(g, w) for g, w in zip(grads, want_g)]
+                gerr = [_grad_gate(g, w) for g, w in zip(grads, want_g)]
             both = {n: c for n, c in _read_counts().items() if c}
             with torch.no_grad():
                 want = attn_ops._sdpa_plain(q, k, v, shape[3] ** -0.5, mask)
@@ -2161,26 +2669,27 @@ def synthetic_clip(seed: int = SEED, frames: int = None):
     return rgb, grey
 
 
-def build_serving_models(depth=None):
+def build_serving_models(depth=None, dtype=None):
     """Full-width flagship AMD_N (its layer counts replaced by ``depth``,
-    where given) and the SD-VAE in bf16, seeded random weights, on the
-    card."""
+    where given) and the SD-VAE in ``dtype`` (default bf16), seeded random
+    weights, on the card."""
     import torch
     from hivae_tpu_torch.models import amd as amd_mod
     from hivae_tpu_torch.models import vae as vae_mod
 
+    dtype = dtype or torch.bfloat16
     with open(CONFIG) as f:
         cfg = amd_mod.AMDConfig.from_dict(json.load(f))
     torch.manual_seed(SEED)
     t0 = time.perf_counter()
     amd = amd_mod.AMDModelNew(cfg.replace(**(depth or {})), device="cuda",
-                              dtype=torch.bfloat16).eval()
+                              dtype=dtype).eval()
     vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
-                                dtype=torch.bfloat16).eval()
+                                dtype=dtype).eval()
     n_amd = sum(p.numel() for p in amd.parameters())
     n_vae = sum(p.numel() for p in vae.parameters())
     _log(f"  AMD_N {n_amd / 1e6:.1f} M params, SD-VAE {n_vae / 1e6:.1f} M, "
-         f"bf16, built in {time.perf_counter() - t0:.1f} s")
+         f"{str(dtype)[6:]}, built in {time.perf_counter() - t0:.1f} s")
     return amd, vae
 
 
@@ -2283,6 +2792,32 @@ def run_clip(models, args, failures):
     if args.profile:
         profile_clip(pipe, clip, args.profile)
     return launches, latency, out
+
+
+def run_f16_clip(failures):
+    """Phase 3w: phase 3's clip on AMD_N and the SD-VAE built at full width
+    and depth in fp16 from phase 3's seed: every attention on the fp16
+    forms (248 full-block, 3 streaming; ``sdpa_plain`` 0), finite before
+    quantisation, against the same clip on the plain attention versions
+    (phase 3's gates); its latency and peak device memory. Returns
+    (launches, latency s)."""
+    import torch
+    from hivae_tpu_torch.pipelines import AMDReconstructionPipeline
+
+    amd, vae = build_serving_models(dtype=torch.float16)
+    pipe = AMDReconstructionPipeline(vae, amd, window=WINDOW)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    clip, out, launches, latency = _timed_clip(
+        pipe, "fp16 clip", failures,
+        dict(full_block_attention_f16=248, stream_attention_f16=3))
+    peak = torch.cuda.max_memory_allocated()
+    with _plain_kernels():
+        ref = clip()
+    _clip_diff("fp16 clip vs its plain-attention clip", out, ref, failures)
+    _log(f"  fp16 clip: peak device memory {peak / 2**30:.2f} GiB (models "
+         f"{_model_bytes(amd, vae) / 2**30:.2f} GiB)")
+    return launches, latency
 
 
 def run_qknorm_clip(models, bf16_clip, failures):
@@ -3269,15 +3804,17 @@ LONGTAIL_LAYERS = 2
 # 14.6 and 11.4), and at 10 steps the two exports alone would take
 # this script past its time limit; one step still runs the whole chain
 # (encode, motion, a velocity call, decode) through the kernels' ops. Both
-# exports run AMD_N at full width and phase 8's depth, EXPORT_DEPTH (2 + 2
-# encoder and 2 DiT layers), on one model built for them: at full depth
+# exports run AMD_N at full width and a cut depth, EXPORT_DEPTH, on one
+# model built for them: at full depth
 # the int8 export's 15,411 nodes took 68.1 s to trace, 17.9 to save and
 # 25.1 to load (cut when the fp32 phases took the script to 764.8 s), the
 # bf16 export's 7,177 nodes 17.1, 13.8 and 15.8 s (cut when the script
-# read 790.2 s, 10 s under its 800 s target)
+# read 790.2 s, 10 s under its 800 s target); then from 2 + 2 encoder and
+# 2 DiT layers to 1 + 1 and 1 (53.7 s of the script for both exports) when
+# the fp16 and head-dim phases took it to 830 s
 EXPORT_STEPS = 1
-EXPORT_DEPTH = dict(object_enc_num_layers=2, camera_enc_num_layers=2,
-                    diffusion_num_layers=2)
+EXPORT_DEPTH = dict(object_enc_num_layers=1, camera_enc_num_layers=1,
+                    diffusion_num_layers=1)
 # the int8 A2V clips (phases 3m, 3n) run AMD_N and the A2M heads at full
 # width and a cut depth: AMD_N at EXPORT_DEPTH, the heads at
 # A2M_CLI_LAYERS (cut from the full depth, 72 s of the script, when the
@@ -3801,16 +4338,28 @@ COUNTERS = ("full_block_attention", "full_block_attention_qknorm",
             "full_block_attention_bwd_f32", "full_block_attention_delta_f32",
             "stream_attention_delta_f32", "stream_attention_bwd_dq_f32",
             "stream_attention_bwd_dkv_f32",
+            "full_block_attention_f16", "full_block_attention_qknorm_f16",
+            "full_block_attention_bwd_f16", "full_block_attention_delta_f16",
+            "stream_attention_f16", "stream_attention_delta_f16",
+            "stream_attention_bwd_dq_f16", "stream_attention_bwd_dkv_f16",
             "fused_ffn_up_quant", "sdpa_plain")
+# the counter suffix of each kernel dtype's forms
+DTYPE_SUFFIX = {"torch.bfloat16": "", "torch.float16": "_f16",
+                "torch.float32": "_f32"}
+
+
+def _sibling_counts(counts, suffix):
+    """A path's launches on another dtype's kernels: each named bf16 count
+    moved to its sibling's counter (``<name>_f32``, ``<name>_f16``)."""
+    moved = {k: v for k, v in counts.items() if v}
+    return dict(_no_launches(), **{
+        (k if k.endswith(suffix) else f"{k}{suffix}"): v
+        for k, v in moved.items()})
 
 
 def _f32_counts(counts):
-    """A path's launches on the fp32 kernels: each named bf16 count moved
-    to its fp32 sibling's counter (``<name>_f32``)."""
-    moved = {k: v for k, v in counts.items() if v}
-    return dict(_no_launches(), **{
-        (k if k.endswith("_f32") else f"{k}_f32"): v
-        for k, v in moved.items()})
+    """A path's launches on the fp32 kernels (``_sibling_counts``)."""
+    return _sibling_counts(counts, "_f32")
 
 
 def _wrappers():
@@ -3885,7 +4434,7 @@ def build_training_models():
 
 def _expected_step_launches(cfg, perceptual: bool, remat=None,
                             dual: bool = False, f32: bool = False,
-                            qknorm: bool = False):
+                            qknorm: bool = False, f16: bool = False):
     """Kernel launches of one training step of the flagship or a variant:
     the object encoder's layers and the DiT's joint blocks (two a layer in
     the spatial DiT, one in the ``default`` TempMotion DiT) run the
@@ -3897,7 +4446,8 @@ def _expected_step_launches(cfg, perceptual: bool, remat=None,
     layers and each DiT layer's joint block (and the dual DiT's temporal
     motion block) run the full-block kernels. ``f32``: a ``--mp no`` step
     (fp32 compute, an fp32 SD-VAE), whose launches are the fp32 kernels'.
-    ``qknorm``: under ``QKNORM_FUSE``, the forward's calls launch the
+    ``f16``: an fp16 step (fp16 autocast, an fp16 SD-VAE), on the fp16
+    forms. ``qknorm``: under ``QKNORM_FUSE``, the forward's calls launch the
     fused qk-norm kernel, and each backward recomputes the unfused forward
     before its delta and backward."""
     remat = cfg.remat if remat is None else remat
@@ -3920,7 +4470,9 @@ def _expected_step_launches(cfg, perceptual: bool, remat=None,
                   stream_attention_delta=int(perceptual),
                   stream_attention_bwd_dq=int(perceptual),
                   stream_attention_bwd_dkv=int(perceptual))
-    return _f32_counts(counts) if f32 else counts
+    if f32:
+        return _f32_counts(counts)
+    return _sibling_counts(counts, "_f16") if f16 else counts
 
 
 def run_training(fa, models, failures, *, label, clips, steps,
@@ -4110,6 +4662,103 @@ def run_training_f32(fa, models, failures):
                 fa, (amd, vae, lpips), failures, label=label, clips=clips,
                 steps=steps, perceptual=perceptual, mp="no")
         torch.cuda.empty_cache()
+    return paths
+
+
+# phase 5d, fp16 training: clips of the step, then of the perceptual and
+# QKNORM_FUSE step
+F16_STEP_CLIPS = 2
+
+
+def _f16_step(amd, vae, lpips, failures, *, label, clips, perceptual,
+              qknorm):
+    """One fp16 loss and gradient of ``amd`` (fp32 master weights computing
+    under fp16 autocast, as the JAX package's ``AMD_N(dtype=float16)``
+    computes over fp32 params) on the fp16 ``vae``: a warm-up, then one
+    timed call with exact launches on the fp16 forms (``sdpa_plain`` 0),
+    finite, against the same call on the plain attention versions from the
+    same state, batch and draws (``STEP_LOSS_RTOL``, ``STEP_GRAD_COS``).
+    Returns the launches."""
+    import contextlib
+    from unittest import mock
+    import torch
+    from hivae_tpu_torch.ops import attention as attn_ops
+    from hivae_tpu_torch.training.trainer import (AMDTrainer, TrainConfig,
+                                                  batch_from_clips)
+
+    tc = TrainConfig(output_dir=os.path.join(ROOT, "hivae_tpu_torch",
+                                             "build", "chip_smoke_f16"),
+                     mixed_precision="bf16", seed=SEED,
+                     perceptual_weight=0.5 if perceptual else 0.0)
+    trainer = AMDTrainer(amd, vae, tc, lpips=lpips if perceptual else None)
+    trainer._autocast = lambda: torch.autocast(device_type="cuda",
+                                               dtype=torch.float16)
+    pairs = [synthetic_clip(SEED + 30 + i) for i in range(clips)]
+    batch = trainer._to_device(batch_from_clips([p[0] for p in pairs],
+                                                [p[1] for p in pairs]))
+    draws = trainer.draw(batch)
+    with (mock.patch.object(attn_ops, "QKNORM_FUSE", True) if qknorm
+          else contextlib.nullcontext()):
+        trainer.loss_and_grads(batch, draws)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t0 = time.perf_counter()
+        mk, gk = trainer.loss_and_grads(batch, draws)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with _plain_kernels():
+            mp_, gp = trainer.loss_and_grads(batch, draws)
+    want = _expected_step_launches(amd.cfg, perceptual, f16=True,
+                                   qknorm=qknorm)
+    if launches != want:
+        failures.append(f"{label}: launches {launches}, want {want}")
+    finite = all(math.isfinite(v.item()) for v in mk.values()) and all(
+        bool(torch.isfinite(g).all()) for g in gk)
+    rel = abs(mk["loss"].item() - mp_["loss"].item()) / abs(
+        mp_["loss"].item())
+    dot = sum((a * b).sum() for a, b in zip(gk, gp)).item()
+    nk = sum(a.square().sum() for a in gk).item() ** 0.5
+    npl = sum(b.square().sum() for b in gp).item() ** 0.5
+    cos = dot / (nk * npl)
+    _log(f"  {label}: loss and gradients {ms:.2f} ms, peak memory "
+         f"{peak / 2**30:.2f} GiB; loss {mk['loss'].item():.6f} vs plain "
+         f"{mp_['loss'].item():.6f} (rel {rel:.3g}), grad norm {nk:.5f} vs "
+         f"{npl:.5f}, cosine {cos:.6f}; launches "
+         f"{ {k: v for k, v in launches.items() if v} }")
+    if not (finite and rel <= STEP_LOSS_RTOL and cos >= STEP_GRAD_COS):
+        failures.append(f"{label}: finite {finite}, loss rel {rel}, "
+                        f"gradient cosine {cos}")
+    return launches
+
+
+def run_training_f16(amd, lpips, failures):
+    """Phase 5d: fp16 training of the flagship (``amd``: full width at
+    ``PAR_DEPTH``, fp32 master weights, remat ``full``) on an fp16 SD-VAE
+    built from its seed: one loss and gradient at N = F16_STEP_CLIPS (run
+    A's launches on the fp16 forward, backward, delta and streaming
+    forward kernels), then one at N = 1 with the perceptual loss under
+    ``QKNORM_FUSE`` (the fp16 qk-norm forward, and the streaming delta, dQ
+    and dK/dV of the decode); ``_f16_step``. Returns {path: launches}."""
+    import torch
+    from hivae_tpu_torch.models import vae as vae_mod
+
+    torch.manual_seed(SEED + 6)
+    vae = vae_mod.AutoencoderKL(vae_mod.VAEConfig(), device="cuda",
+                                dtype=torch.float16).eval()
+    vae.requires_grad_(False)
+    paths = {
+        "train_f16": _f16_step(amd, vae, lpips, failures,
+                               label="fp16 step", clips=F16_STEP_CLIPS,
+                               perceptual=False, qknorm=False),
+        "train_f16_perceptual_qknorm": _f16_step(
+            amd, vae, lpips, failures,
+            label="fp16 step, perceptual loss and QKNORM_FUSE", clips=1,
+            perceptual=True, qknorm=True)}
+    del vae
+    torch.cuda.empty_cache()
     return paths
 
 
@@ -4638,7 +5287,8 @@ def run_train_cli(failures, profile_dir=None):
 
 def run_amd_s_cli(common, work, videos, failures):
     """Phase 7c: ``cli.train_amd --model_type AMD_S`` (AMD_S's factory
-    config as ``--amd_config``) for ``CLI_MASK_STEPS`` steps on phase 7's
+    config at ``PAR_DEPTH`` as ``--amd_config``) for ``CLI_MASK_STEPS``
+    steps on phase 7's
     mp4s, then on its checkpoint ``cli.amd_inference --model_type AMD_S``
     and ``cli.amd_inference_single --diff_motion``. Returns {path:
     launches}."""
@@ -4651,7 +5301,8 @@ def run_amd_s_cli(common, work, videos, failures):
          f"{CLI_MASK_STEPS} steps, then its checkpoint served")
     paths = {}
     config = os.path.join(work, "amd_s.json")
-    cfg = amd_mod.AMD_S(device="meta", remat=True, **FAMILY_KW).cfg
+    cfg = amd_mod.AMD_S(device="meta", remat=True, **FAMILY_KW).cfg.replace(
+        **PAR_DEPTH)
     with open(config, "w") as f:
         json.dump(cfg.to_dict(), f)
     argv = common + ["--exp_name", "amd_s", "--model_type", "AMD_S",
@@ -5411,9 +6062,13 @@ LONG_WINDOW, LONG_WINDOW_STEPS = 64, 2
 # layers (phase 8) and the full depth (phase 7) when phase 3v's exports
 # took the script past 800 s; the full depth trains in phases 4 and 5.
 # Phases 4b (remat policies), 5c (`--mp no`) and 6 (variants) run at this
-# depth too since the parallel phases 8e-8g took the script to 934 s
-PAR_DEPTH = dict(object_enc_num_layers=2, camera_enc_num_layers=2,
-                 diffusion_num_layers=2)
+# depth too since the parallel phases 8e-8g took the script to 934 s; run
+# B (phase 5, its checkpoint resumed), 5d (fp16) and phase 7c's AMD_S CLI
+# since the fp16 and head-dim phases took it to 830 s, when the depth was
+# cut from 2 + 2 encoder and 2 DiT layers to 1 + 1 and 1 (phase 8 took
+# 185 s of it); the full depth trains in phase 4
+PAR_DEPTH = dict(object_enc_num_layers=1, camera_enc_num_layers=1,
+                 diffusion_num_layers=1)
 RANK_TIMEOUT = 600
 
 
@@ -6871,10 +7526,15 @@ def main() -> int:
                + [check_qknorm(fa, failures, parent),
                   check_quant_ffn(qf, failures, parent_qf)]
                + check_bwd_kernels(fa, failures, parent=parent)
-               + check_f32_kernels(fa, failures, sms, parent))
+               + check_f32_kernels(fa, failures, sms, parent)
+               + check_f16_kernels(fa, failures))
     _log("phase 2b: sdpa in fp32 and fp16, an fp32 VAE encode, int8 at "
          "M <= 17")
     check_repairs(failures)
+    _log(f"phase 2c: sdpa at head dims {HEAD_DIMS_ODD} and the tiles "
+         f"{HEAD_DIMS_TILES} in bf16, fp16 and fp32, D {HEAD_DIM_PLAIN} "
+         f"plain")
+    check_head_dims(failures)
 
     _log("phase 3: full-width AMD_N + SD-VAE clip reconstruction")
     serving = build_serving_models()
@@ -6882,6 +7542,9 @@ def main() -> int:
     paths["clip"], latency, bf16_clip = run_clip(serving, args, failures)
     _log("phase 3c: the same clip with the fused qk-norm kernel")
     paths["clip_qknorm"], _ = run_qknorm_clip(serving, bf16_clip, failures)
+    _log("phase 3w: the same clip with AMD_N and the SD-VAE in fp16")
+    paths["clip_f16"], _ = run_f16_clip(failures)
+    torch.cuda.empty_cache()
     paths.update(run_serving_paths(serving, failures))
     _log("phase 3i: checkpoint round trip and the inference CLI")
     cli_launches = run_checkpoint_roundtrip(serving, failures)
@@ -6904,7 +7567,7 @@ def main() -> int:
     del serving
     torch.cuda.empty_cache()
     _log(f"phase 3v: cli.export_sampler's module exported at full width "
-         f"and phase 8's depth (AMD_N built anew, {WINDOW} frames, "
+         f"and a cut depth (AMD_N built anew, {WINDOW} frames, "
          f"{EXPORT_STEPS} steps), bf16 then int8 (--quant int8), saved, "
          f"loaded and run against the live module")
     export_models = build_serving_models(EXPORT_DEPTH)
@@ -6946,11 +7609,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     _log(f"phase 5: training run B, N={RUN_B_CLIPS}, perceptual loss, "
-         f"mask ratios 0.5")
+         f"mask ratios 0.5, the flagship at {PAR_DEPTH}")
     paths["train_B"], _ = run_training(
-        fa, models, failures, label="run B", clips=RUN_B_CLIPS,
-        steps=RUN_B_STEPS, perceptual=True, mask_ratio=0.5,
-        resume_check=True)
+        fa, (build_variant(PAR_DEPTH),) + models[1:], failures,
+        label="run B", clips=RUN_B_CLIPS, steps=RUN_B_STEPS, perceptual=True,
+        mask_ratio=0.5, resume_check=True)
     torch.cuda.empty_cache()
     _log(f"phase 5b: validate, N={RUN_A_CLIPS}, sample_step "
          f"{VALIDATE_STEPS}")
@@ -6960,6 +7623,12 @@ def main() -> int:
          f"perceptual loss and QKNORM_FUSE at N=1")
     paths.update(run_training_f32(fa, (build_variant(PAR_DEPTH),) +
                                   models[1:], failures))
+    torch.cuda.empty_cache()
+    _log(f"phase 5d: fp16 training (fp16 autocast, an fp16 SD-VAE; the "
+         f"flagship at {PAR_DEPTH}), N={F16_STEP_CLIPS}, then the perceptual "
+         f"loss under QKNORM_FUSE at N=1")
+    paths.update(run_training_f16(build_variant(PAR_DEPTH), models[2],
+                                  failures))
     _, vae, lpips = models
     del models
     torch.cuda.empty_cache()

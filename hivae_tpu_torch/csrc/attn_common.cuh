@@ -1,10 +1,24 @@
-// Shared device helpers for the attention kernels: bf16 tensor-core MMA
+// Shared device helpers for the attention kernels: 16-bit tensor-core MMA
 // (mma.sync m16n8k16, fp32 accumulate) with the PTX-documented fragment
 // layouts, the TF32 products of the fp32 kernels (m16n8k8 on a hi/lo
 // split), wgmma, TMA and cluster helpers, and 16-byte tile loads from
 // global to shared memory.
 //
-// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16), with g = lane / 4 and
+// The 16-bit element type `e16` is bf16, or fp16 where the source is
+// compiled with -DHV_F16 (flash_attention.py builds each attention source
+// both ways, into libraries of their own): the two have the same size, the
+// same fragment layouts and the same mma / wgmma shapes, and differ only in
+// the instructions' type suffix (HV_E16), the conversions below and the
+// TMA element type, so one kernel source serves both.
+//
+// Head dims: a kernel is compiled for a tile width D (its template
+// argument) and serves every head dim hd <= D that is a multiple of 8 (the
+// caller's `hd`): loads fill the columns at or past hd with zeros (a row of
+// hd elements is a whole number of 16-byte chunks in 2-byte types and of
+// 32-byte chunks in fp32), so they add nothing to Q.K^T, dO.V^T or delta,
+// and stores write only the first hd columns.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16 / .f16), with g = lane / 4 and
 // t = lane % 4:
 //   A (16x16, row-major): reg0 = (row g,   k 2t..2t+1)  reg1 = (row g+8, k 2t..)
 //                         reg2 = (row g,   k 2t+8..)    reg3 = (row g+8, k 2t+8..)
@@ -17,26 +31,73 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace hv {
 
-using bf16 = __nv_bfloat16;
+#ifdef HV_F16
+using e16 = __half;
+using e16x2 = __half2;
+#define HV_E16 "f16"
+constexpr CUtensorMapDataType E16_TMAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+__device__ __forceinline__ e16x2 to_e16x2(float lo, float hi) {
+  return __floats2half2_rn(lo, hi);
+}
+__device__ __forceinline__ float2 from_e16x2(e16x2 v) {
+  return __half22float2(v);
+}
+__device__ __forceinline__ float from_e16(e16 x) { return __half2float(x); }
+__device__ __forceinline__ e16 to_e16(float x) { return __float2half_rn(x); }
+#else
+using e16 = __nv_bfloat16;
+using e16x2 = __nv_bfloat162;
+#define HV_E16 "bf16"
+constexpr CUtensorMapDataType E16_TMAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+__device__ __forceinline__ e16x2 to_e16x2(float lo, float hi) {
+  return __floats2bfloat162_rn(lo, hi);
+}
+__device__ __forceinline__ float2 from_e16x2(e16x2 v) {
+  return __bfloat1622float2(v);
+}
+__device__ __forceinline__ float from_e16(e16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ e16 to_e16(float x) { return __float2bfloat16_rn(x); }
+#endif
+
+// The tile width (template D) a kernel runs head dim d at: the smallest
+// of its widths >= d, or -1 where d is not a positive multiple of 8 or
+// passes the widest (flash_attention.py::tile_plan mirrors both lists).
+inline int pick_tile(int d, const int* tiles, int n) {
+  if (d <= 0 || d % 8) return -1;
+  for (int i = 0; i < n; ++i)
+    if (d <= tiles[i]) return tiles[i];
+  return -1;
+}
+
+inline int full_block_tile(int d) {
+  static const int tiles[] = {32, 64, 96, 128};
+  return pick_tile(d, tiles, 4);
+}
+
+inline int stream_tile(int d) {
+  static const int tiles[] = {64, 128, 256, 512, 640};
+  return pick_tile(d, tiles, 5);
+}
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
                                          const uint32_t b[2]) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "mma.sync.aligned.m16n8k16.row.col.f32." HV_E16 "." HV_E16 ".f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Two floats rounded to bf16, `lo` in the low half (the lower k index).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+// Two floats rounded to e16, `lo` in the low half (the lower k index).
+__device__ __forceinline__ uint32_t pack_e16(float lo, float hi) {
+  e16x2 v = to_e16x2(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -51,15 +112,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
-// Rows [row0, row0 + NROWS) of an (S, D) bf16 matrix whose rows are `rs`
-// elements apart, into a shared tile with leading dimension ld; rows at or
-// past S are zero-filled so that ragged edges contribute nothing. Every
+// Rows [row0, row0 + NROWS) of an (S, hd) e16 matrix whose rows are `rs`
+// elements apart, into a shared tile of D columns with leading dimension
+// ld; rows at or past S and columns at or past hd are zero-filled so that
+// ragged edges contribute nothing. Every
 // copy of the tile is issued before any completes (asynchronous cp.async),
 // so the tile costs one memory latency, not one per copy; wait for the
 // copies and synchronise the CTA before reading it.
 template <int D, int NROWS, int NTHREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
-                                          long rs, int row0, int S, int tid) {
+__device__ __forceinline__ void load_tile(e16* dst, int ld, const e16* src,
+                                          long rs, int row0, int S, int tid,
+                                          int hd) {
   constexpr int VPR = D / 8;  // 16-byte vectors per row
   static_assert((NROWS * VPR) % NTHREADS == 0, "tile not a whole number of "
                                                "copies per thread");
@@ -67,7 +130,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, const bf16* src,
   for (int it = 0; it < NROWS * VPR / NTHREADS; ++it) {
     const int i = tid + it * NTHREADS;
     const int r = i / VPR, c = (i % VPR) * 8;
-    const bool valid = row0 + r < S;
+    const bool valid = row0 + r < S && c < hd;
     cp_async16(dst + r * ld + c,
                src + (valid ? (long)(row0 + r) * rs + c : 0), valid);
   }
@@ -85,30 +148,31 @@ __device__ __forceinline__ T* head_ptr(T* base, Rows r, int b, int h) {
 }
 
 // delta = rowsum(dO * O) in fp32 of row `row` of the (B, H, Sq) rows of
-// dout and out (bf16, D columns): 8 lanes a row, lane & 7 reads 16-byte
-// chunks of both rows, a 3-step shuffle sums them and every lane of the 8
-// returns the sum. The whole warp calls it; a lane with row >= rows reads
-// nothing and adds 0.
+// dout and out (e16, hd <= D columns): 8 lanes a row, lane & 7 reads
+// 16-byte chunks of both rows, a 3-step shuffle sums them and every lane of
+// the 8 returns the sum. The whole warp calls it; a lane with row >= rows
+// reads nothing and adds 0.
 template <int D>
-__device__ __forceinline__ float row_delta(const bf16* dout, const bf16* out,
+__device__ __forceinline__ float row_delta(const e16* dout, const e16* out,
                                            long row, long rows, int H, int Sq,
-                                           Rows sdo, Rows so) {
+                                           Rows sdo, Rows so, int hd) {
   const int sub = threadIdx.x & 7;
   float acc = 0.f;
   if (row < rows) {
     const int s = (int)(row % Sq), h = (int)(row / Sq % H), b = (int)(row / Sq / H);
-    const bf16* dp = head_ptr(dout, sdo, b, h) + s * sdo.s;
-    const bf16* op = head_ptr(out, so, b, h) + s * so.s;
+    const e16* dp = head_ptr(dout, sdo, b, h) + s * sdo.s;
+    const e16* op = head_ptr(out, so, b, h) + s * so.s;
 #pragma unroll
     for (int c = sub * 8; c < D; c += 64) {
+      if (c >= hd) break;
       const uint4 x = *reinterpret_cast<const uint4*>(dp + c);
       const uint4 y = *reinterpret_cast<const uint4*>(op + c);
-      const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
-      const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+      const e16x2* xp = reinterpret_cast<const e16x2*>(&x);
+      const e16x2* yp = reinterpret_cast<const e16x2*>(&y);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float2 xf = __bfloat1622float2(xp[e]);
-        const float2 yf = __bfloat1622float2(yp[e]);
+        const float2 xf = from_e16x2(xp[e]);
+        const float2 yf = from_e16x2(yp[e]);
         acc = fmaf(xf.x, yf.x, acc);
         acc = fmaf(xf.y, yf.y, acc);
       }
@@ -129,21 +193,21 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Two bf16 values of the fp32 accumulator pair (c0, c1) scaled by s, stored
+// Two e16 values of the fp32 accumulator pair (c0, c1) scaled by s, stored
 // at p (4-byte aligned).
-__device__ __forceinline__ void store_bf16x2(bf16* p, float c0, float c1,
-                                             float s) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(c0 * s, c1 * s);
+__device__ __forceinline__ void store_e16x2(e16* p, float c0, float c1,
+                                            float s) {
+  *reinterpret_cast<e16x2*>(p) = to_e16x2(c0 * s, c1 * s);
 }
 
 // The A fragment over a 16-wide k step built from two adjacent fp32 C tiles
-// (columns k 0..7 in c_lo, 8..15 in c_hi), rounded to bf16.
+// (columns k 0..7 in c_lo, 8..15 in c_hi), rounded to e16.
 __device__ __forceinline__ void c_to_a(uint32_t a[4], const float c_lo[4],
                                        const float c_hi[4]) {
-  a[0] = pack_bf16(c_lo[0], c_lo[1]);
-  a[1] = pack_bf16(c_lo[2], c_lo[3]);
-  a[2] = pack_bf16(c_hi[0], c_hi[1]);
-  a[3] = pack_bf16(c_hi[2], c_hi[3]);
+  a[0] = pack_e16(c_lo[0], c_lo[1]);
+  a[1] = pack_e16(c_lo[2], c_lo[3]);
+  a[2] = pack_e16(c_hi[0], c_hi[1]);
+  a[3] = pack_e16(c_hi[2], c_hi[3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -199,13 +263,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // Matrix i lands in r[i] in the mma fragment layout: lane holds row
 // lane / 4, elements 2 (lane % 4) and 2 (lane % 4) + 1 (.trans: the
 // transposed matrix, i.e. column lane / 4, rows 2 (lane % 4) and + 1).
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const e16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const e16* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -311,9 +375,9 @@ __device__ __forceinline__ float attn_p(float s, float sl2, float bl2,
 template <int KS>
 __device__ __forceinline__ void mma_chunk_nk(float s[2][4],
                                              const uint32_t a[KS][4],
-                                             const bf16* T, int ld, int n0,
+                                             const e16* T, int ld, int n0,
                                              int lane) {
-  const bf16* p = T + n0 * ld + ldsm_off_b(lane, ld);
+  const e16* p = T + n0 * ld + ldsm_off_b(lane, ld);
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     uint32_t b[4];
@@ -329,9 +393,9 @@ __device__ __forceinline__ void mma_chunk_nk(float s[2][4],
 template <int D>
 __device__ __forceinline__ void mma_rows_kn(float acc[D / 8][4],
                                             const uint32_t a[4],
-                                            const bf16* T, int ld, int k0,
+                                            const e16* T, int ld, int k0,
                                             int lane) {
-  const bf16* p = T + k0 * ld + ldsm_off_a(lane, ld);
+  const e16* p = T + k0 * ld + ldsm_off_a(lane, ld);
 #pragma unroll
   for (int d2 = 0; d2 < D / 16; ++d2) {
     uint32_t b[4];
@@ -357,9 +421,9 @@ __host__ __device__ constexpr int sw128_bytes() {
 }
 
 template <int D, int NROWS, int NTHREADS>
-__device__ __forceinline__ void load_tile_sw128(bf16* dst, const bf16* src,
+__device__ __forceinline__ void load_tile_sw128(e16* dst, const e16* src,
                                                 long rs, int row0, int S,
-                                                int tid) {
+                                                int tid, int hd) {
   constexpr int VPR = D / 8;  // 16-byte vectors per row
   static_assert((NROWS * VPR) % NTHREADS == 0, "tile not a whole number of "
                                                "copies per thread");
@@ -368,7 +432,7 @@ __device__ __forceinline__ void load_tile_sw128(bf16* dst, const bf16* src,
   for (int it = 0; it < NROWS * VPR / NTHREADS; ++it) {
     const int i = tid + it * NTHREADS;
     const int r = i / VPR, c8 = i % VPR;
-    const bool valid = row0 + r < S;
+    const bool valid = row0 + r < S && c8 * 8 < hd;
     cp_async16(base + (c8 >> 3) * NROWS * 128 + r * 128 +
                    (((c8 & 7) ^ (r & 7)) << 4),
                src + (valid ? (long)(row0 + r) * rs + c8 * 8 : 0), valid);
@@ -431,7 +495,7 @@ __device__ __forceinline__ void wgmma_ss<16>(float (&d)[32], uint64_t a,
                                              uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." HV_E16 "." HV_E16 " "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
@@ -443,7 +507,7 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[32], uint64_t a,
                                              uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." HV_E16 "." HV_E16 " "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
@@ -458,7 +522,7 @@ __device__ __forceinline__ void wgmma_ss<48>(float (&d)[32], uint64_t a,
                                              uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32." HV_E16 "." HV_E16 " "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, "
       "0;\n}\n"
@@ -475,7 +539,7 @@ __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
                                              uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." HV_E16 "." HV_E16 " "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
       "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
@@ -506,7 +570,7 @@ __device__ __forceinline__ void wgmma_rs32(float (&d)[16], const uint32_t a[4],
                                            uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." HV_E16 "." HV_E16 " "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
@@ -522,7 +586,7 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t a[4],
                                            uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." HV_E16 "." HV_E16 " {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
       "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
@@ -541,8 +605,8 @@ __device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t a[4],
 // tile of QROWS rows, the warpgroup's first row at row q_row0; K: one of
 // KROWS rows) against the first N keys of K, then waited for.
 template <int D, int N, int QROWS, int KROWS>
-__device__ __forceinline__ void wgmma_qk(float (&d)[32], const bf16* Qs,
-                                         int q_row0, const bf16* Ks) {
+__device__ __forceinline__ void wgmma_qk(float (&d)[32], const e16* Qs,
+                                         int q_row0, const e16* Ks) {
   const unsigned char* qb = reinterpret_cast<const unsigned char*>(Qs) + q_row0 * 128;
   const unsigned char* kb = reinterpret_cast<const unsigned char*>(Ks);
   fence_regs(d);
@@ -744,9 +808,9 @@ __device__ __forceinline__ void wgmma_tf32_rs<128>(float (&d)[64],
 // The A fragments of rows [r0, r0 + 16) over all D columns of a shared tile.
 template <int D>
 __device__ __forceinline__ void load_a_rows(uint32_t a[D / 16][4],
-                                            const bf16* T, int ld, int r0,
+                                            const e16* T, int ld, int r0,
                                             int lane) {
-  const bf16* p = T + r0 * ld + ldsm_off_a(lane, ld);
+  const e16* p = T + r0 * ld + ldsm_off_a(lane, ld);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(a[kk], p + kk * 16);
 }

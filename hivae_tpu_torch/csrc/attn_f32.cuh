@@ -230,18 +230,19 @@ __device__ __forceinline__ void f32_grad(float (&acc)[MTW][NCW][4],
   }
 }
 
-// Rows [row0, row0 + ROWS) of an fp32 (S, D) matrix whose rows are `ss`
-// elements apart into a shared tile of rows D + 4 floats apart, rows at or
-// past n zero-filled: this thread's share of the 16-byte cp.async copies
-// (the caller commits the group).
+// Rows [row0, row0 + ROWS) and D columns of an fp32 matrix whose rows are
+// `ss` elements apart into a shared tile of rows D + 4 floats apart, rows
+// at or past n and columns at or past nc zero-filled (nc may be <= 0: a
+// slice wholly past the head dim): this thread's share of the 16-byte
+// cp.async copies (the caller commits the group).
 template <int D, int ROWS>
 __device__ __forceinline__ void f32_load_tile(float* dst, const float* src,
                                               long ss, int row0, int n,
-                                              int tid) {
+                                              int tid, int nc) {
   constexpr int NC4 = D / 4, LD = D + 4;
   for (int i = tid; i < ROWS * NC4; i += F32_THREADS) {
     const int r = i / NC4, c = i - r * NC4;
-    const bool valid = row0 + r < n;
+    const bool valid = row0 + r < n && 4 * c < nc;
     cp_async16(dst + r * LD + 4 * c,
                src + (valid ? (long)(row0 + r) * ss + 4 * c : 0), valid);
   }
@@ -267,19 +268,19 @@ __host__ __device__ constexpr int f32_chunk(int ncw, int mtw) {
 // a wgmma descriptor, so no inner loop splits anything.
 // ---------------------------------------------------------------------------
 
-// Rows [row0, row0 + ROWS) of an fp32 (S, D) matrix whose rows are `ss`
+// Rows [row0, row0 + ROWS) of an fp32 (S, hd) matrix whose rows are `ss`
 // elements apart into a shared tile of rows D floats apart, rows at or past
-// n zero-filled: this thread's share of the 16-byte cp.async copies of NT
-// threads (the caller commits the group).
+// n and columns at or past hd zero-filled: this thread's share of the
+// 16-byte cp.async copies of NT threads (the caller commits the group).
 template <int D, int ROWS, int NT>
 __device__ __forceinline__ void f32_copy_rows(float* dst, const float* src,
                                               long ss, int row0, int n,
-                                              int tid) {
+                                              int tid, int hd) {
   constexpr int NC4 = D / 4;
 #pragma unroll 4
   for (int i = tid; i < ROWS * NC4; i += NT) {
     const int r = i / NC4, c = i - r * NC4;
-    const bool valid = row0 + r < n;
+    const bool valid = row0 + r < n && 4 * c < hd;
     cp_async16(dst + r * D + 4 * c,
                src + (valid ? (long)(row0 + r) * ss + 4 * c : 0), valid);
   }
@@ -558,6 +559,7 @@ struct F32GradArgs {
   int H, Sq, Sk;
   int nqb;                       // dQ CTAs ahead of the dK/dV ones (a launch
                                  // of both)
+  int hd;                        // the head dim (<= the tile's D)
   float scale;
 };
 
@@ -608,8 +610,8 @@ __device__ __forceinline__ void f32_grad_cta(const F32GradArgs& a,
   // the queries' statistics; dQ: the keys' bias)
   auto issue = [&](int i) {
     float* sl = ring + (i & 1) * SLOT;
-    f32_load_tile<D, BT>(sl, wa1, ws1, i * BT, nwalk, tid);
-    f32_load_tile<D, BT>(sl + TILE, wa2, ws2, i * BT, nwalk, tid);
+    f32_load_tile<D, BT>(sl, wa1, ws1, i * BT, nwalk, tid, a.hd);
+    f32_load_tile<D, BT>(sl + TILE, wa2, ws2, i * BT, nwalk, tid, a.hd);
     float* rows = sl + 2 * TILE;
     if constexpr (DKV) {
       load_row_f32<BT, F32_THREADS>(rows, a.s0 + rb, i * BT, a.Sq, tid);
@@ -623,8 +625,8 @@ __device__ __forceinline__ void f32_grad_cta(const F32GradArgs& a,
 
   // the resident pair and its fp32 rows (dQ: the rows' statistics; dK/dV:
   // the keys' bias) ride in job 0's group
-  f32_load_tile<D, R>(A1, ra1, rs1, r0, nres, tid);
-  f32_load_tile<D, R>(A2, ra2, rs2, r0, nres, tid);
+  f32_load_tile<D, R>(A1, ra1, rs1, r0, nres, tid, a.hd);
+  f32_load_tile<D, R>(A2, ra2, rs2, r0, nres, tid, a.hd);
   if constexpr (DKV) {
     if (brow) load_row_f32<R, F32_THREADS>(ST, brow, r0, a.Sk, tid);
   } else {
@@ -715,6 +717,7 @@ __device__ __forceinline__ void f32_grad_cta(const F32GradArgs& a,
 #pragma unroll
       for (int n = 0; n < NCW; ++n) {
         const int c = cg * (D / CG) + 8 * n + 2 * t;
+        if (c >= a.hd) continue;
         *reinterpret_cast<float2*>(o1 + (long)row * os1 + c) =
             make_float2(acc[m][n][2 * hf] * a.scale,
                         acc[m][n][2 * hf + 1] * a.scale);
@@ -726,14 +729,14 @@ __device__ __forceinline__ void f32_grad_cta(const F32GradArgs& a,
 }
 
 // delta = rowsum(dO * O) in fp32 of row `row` of the (B, H, Sq) rows of
-// dout and out (fp32, D columns): 8 lanes a row, lane & 7 reads 16-byte
-// chunks of both rows (row_delta's layout), a 3-step shuffle sums them and
-// every lane of the 8 returns the sum.
+// dout and out (fp32, hd <= D columns): 8 lanes a row, lane & 7 reads
+// 16-byte chunks of both rows (row_delta's layout), a 3-step shuffle sums
+// them and every lane of the 8 returns the sum.
 template <int D>
 __device__ __forceinline__ float row_delta_f32(const float* dout,
                                                const float* out, long row,
                                                long rows, int H, int Sq,
-                                               Rows sdo, Rows so) {
+                                               Rows sdo, Rows so, int hd) {
   const int sub = threadIdx.x & 7;
   float acc = 0.f;
   if (row < rows) {
@@ -743,6 +746,7 @@ __device__ __forceinline__ float row_delta_f32(const float* dout,
     const float* op = head_ptr(out, so, b, h) + s * so.s;
 #pragma unroll
     for (int c = sub * 4; c < D; c += 32) {
+      if (c >= hd) break;
       const float4 x = *reinterpret_cast<const float4*>(dp + c);
       const float4 y = *reinterpret_cast<const float4*>(op + c);
       acc = fmaf(x.x, y.x, acc);

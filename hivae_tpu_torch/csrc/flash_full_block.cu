@@ -1,4 +1,5 @@
-// Full-block attention forward for Hopper (sm_90a), bf16 in, bf16 out.
+// Full-block attention forward for Hopper (sm_90a), bf16 (or fp16, built
+// with -DHV_F16: attn_common.cuh) in and out.
 //
 // Replaces hivae_tpu/ops/pallas/flash_attention.py::_fwd_kernel (driven by
 // _flash_fwd_impl): softmax(Q.K^T * scale + key_bias) . V over sequences of
@@ -105,15 +106,18 @@ __host__ __device__ constexpr int fb_smem_bytes(int stages) {
 // hivae_tpu/ops/pallas/flash_attention.py::_ln_block (flax fast variance):
 // fp32 sums of x and x^2, mean and mean of squares, var = max(mean2 -
 // mean^2, 0), mul = rsqrt(var + eps) * gamma, y = (x - mean) * mul + beta,
-// rounded to bf16. NTHREADS / NROWS adjacent lanes share a row, each
+// rounded to e16. NTHREADS / NROWS adjacent lanes share a row, each
 // summing its D / (NTHREADS / NROWS) contiguous elements in order; the _rn
 // intrinsics keep the plain version's separate roundings (no fused
-// multiply-add). Rows past the sequence (zero-filled) become beta; their
-// logits are masked and their outputs are not stored.
+// multiply-add). The mean and variance are over the hd real columns: the
+// zero-filled columns past hd add nothing to the sums, and with gamma and
+// beta zero-padded to D they stay zero. Rows past the sequence
+// (zero-filled) become beta; their logits are masked and their outputs are
+// not stored.
 template <int D, int NROWS, int NTHREADS>
-__device__ __forceinline__ void ln_rows_sw128(bf16* T, const float* gamma,
+__device__ __forceinline__ void ln_rows_sw128(e16* T, const float* gamma,
                                               const float* beta, float eps,
-                                              int tid) {
+                                              int tid, int hd) {
   constexpr int TPR = NTHREADS / NROWS;  // lanes a row
   constexpr int CH = D / 8 / TPR;        // 16-byte chunks a lane
   static_assert(TPR * NROWS == NTHREADS && CH * 8 * TPR == D,
@@ -128,10 +132,10 @@ __device__ __forceinline__ void ln_rows_sw128(bf16* T, const float* gamma,
 #pragma unroll
   for (int i = 0; i < CH; ++i) {
     const uint4 x = *chunk(c0 + i);
-    const bf16* e = reinterpret_cast<const bf16*>(&x);
+    const e16* e = reinterpret_cast<const e16*>(&x);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float f = __bfloat162float(e[j]);
+      const float f = from_e16(e[j]);
       s = __fadd_rn(s, f);
       s2 = __fadd_rn(s2, __fmul_rn(f, f));
     }
@@ -141,19 +145,19 @@ __device__ __forceinline__ void ln_rows_sw128(bf16* T, const float* gamma,
     s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, lane));
     s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, lane));
   }
-  const float mean = __fdiv_rn(s, (float)D), mean2 = __fdiv_rn(s2, (float)D);
+  const float mean = __fdiv_rn(s, (float)hd), mean2 = __fdiv_rn(s2, (float)hd);
   const float var = fmaxf(__fsub_rn(mean2, __fmul_rn(mean, mean)), 0.f);
   const float rs = rsqrtf(__fadd_rn(var, eps));
 #pragma unroll
   for (int i = 0; i < CH; ++i) {
     uint4 x = *chunk(c0 + i);
-    bf16* e = reinterpret_cast<bf16*>(&x);
+    e16* e = reinterpret_cast<e16*>(&x);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = (c0 + i) * 8 + j;
       const float mul = __fmul_rn(rs, __ldg(gamma + col));
-      e[j] = __float2bfloat16_rn(__fadd_rn(
-          __fmul_rn(__fsub_rn(__bfloat162float(e[j]), mean), mul),
+      e[j] = to_e16(__fadd_rn(
+          __fmul_rn(__fsub_rn(from_e16(e[j]), mean), mul),
           __ldg(beta + col)));
     }
     *chunk(c0 + i) = x;
@@ -161,32 +165,33 @@ __device__ __forceinline__ void ln_rows_sw128(bf16* T, const float* gamma,
 }
 
 // QKN: the qk-norm variant. q and k arrive raw; `norms` holds gamma_q,
-// beta_q, gamma_k, beta_k (D floats each) and `eps` the LayerNorm epsilon.
+// beta_q, gamma_k, beta_k (D floats each, zero past hd) and `eps` the
+// LayerNorm epsilon. hd: the head dim of q, k, v and o (<= D).
 template <int D, bool QKN>
 __global__ void __launch_bounds__(FB_THREADS, D <= 64 ? 2 : 1)
-full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
+full_block_fwd_kernel(const e16* __restrict__ q, const e16* __restrict__ k,
+                      const e16* __restrict__ v,
                       const float* __restrict__ bias,
                       const float* __restrict__ norms, float eps,
-                      bf16* __restrict__ o, float* __restrict__ m_out,
+                      e16* __restrict__ o, float* __restrict__ m_out,
                       float* __restrict__ l_out, int H, int Sq, int Sk,
-                      float scale, int stages, int resident, long qsb,
-                      long qsh, long qss, long ksb, long ksh, long kss,
-                      long vsb, long vsh, long vss, long osb, long osh,
-                      long oss) {
+                      float scale, int stages, int resident, int hd,
+                      long qsb, long qsh, long qss, long ksb, long ksh,
+                      long kss, long vsb, long vsh, long vss, long osb,
+                      long osh, long oss) {
   constexpr int NB = D / 32;  // 32-wide column blocks of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  bf16* Qs = reinterpret_cast<bf16*>(base);
+  e16* Qs = reinterpret_cast<e16*>(base);
   unsigned char* ring = base + fb_q_bytes<D>();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * FB_BQ;
-  const bf16* kp = k + b * ksb + h * ksh;
-  const bf16* vp = v + b * vsb + h * vsh;
+  const e16* kp = k + b * ksb + h * ksh;
+  const e16* vp = v + b * vsb + h * vsh;
   const float* brow = bias ? bias + (long)b * Sk : nullptr;
   const float sl2 = scale_log2(scale);
   const int nkt = (Sk + FB_BK - 1) / FB_BK, njobs = 2 * nkt;
@@ -200,8 +205,8 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     unsigned char* sl = slot(i);
     const int j = i < nkt ? i : i - nkt;
     if (i < nkt || !resident) {
-      load_tile_sw128<D, FB_BK, FB_THREADS>(reinterpret_cast<bf16*>(sl), kp,
-                                            kss, j * FB_BK, Sk, tid);
+      load_tile_sw128<D, FB_BK, FB_THREADS>(reinterpret_cast<e16*>(sl), kp,
+                                            kss, j * FB_BK, Sk, tid, hd);
       if (brow)
         load_row_f32<FB_BK, FB_THREADS>(
             reinterpret_cast<float*>(sl + 2 * fb_k_bytes<D>()), brow,
@@ -209,14 +214,14 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     if (i >= nkt)
       load_tile_sw128<D, FB_BK, FB_THREADS>(
-          reinterpret_cast<bf16*>(sl + fb_k_bytes<D>()), vp, vss, j * FB_BK,
-          Sk, tid);
+          reinterpret_cast<e16*>(sl + fb_k_bytes<D>()), vp, vss, j * FB_BK,
+          Sk, tid, hd);
     ring_commit();
   };
 
   // the Q tile rides in job 0's group
   load_tile_sw128<D, FB_BQ, FB_THREADS>(Qs, q + b * qsb + h * qsh, qss, q0,
-                                        Sq, tid);
+                                        Sq, tid, hd);
   int issued = 0;
   const int depth = resident ? njobs : stages - 1;
   for (; issued < depth && issued < njobs; ++issued) issue(issued);
@@ -242,11 +247,12 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // then publish them to wgmma
       const bool new_k = i < nkt || !resident;
       if (i == 0)
-        ln_rows_sw128<D, FB_BQ, FB_THREADS>(Qs, norms, norms + D, eps, tid);
+        ln_rows_sw128<D, FB_BQ, FB_THREADS>(Qs, norms, norms + D, eps, tid,
+                                            hd);
       if (new_k)
-        ln_rows_sw128<D, FB_BK, FB_THREADS>(reinterpret_cast<bf16*>(slot(i)),
+        ln_rows_sw128<D, FB_BK, FB_THREADS>(reinterpret_cast<e16*>(slot(i)),
                                             norms + 2 * D, norms + 3 * D, eps,
-                                            tid);
+                                            tid, hd);
       if (i == 0 || new_k) {
         fence_async_smem();
         __syncthreads();
@@ -255,7 +261,7 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (!wg_active) continue;
     const int j = i < nkt ? i : i - nkt;
     const unsigned char* sl = slot(i);
-    const bf16* Ks = reinterpret_cast<const bf16*>(sl);
+    const e16* Ks = reinterpret_cast<const e16*>(sl);
     const unsigned char* Vs = sl + fb_k_bytes<D>();
     const float* Bs = reinterpret_cast<const float*>(sl + 2 * fb_k_bytes<D>());
     const int nc = min(FB_NC, (Sk - j * FB_BK + 15) / 16);
@@ -341,8 +347,8 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         il1 = __frcp_rn(l1);
       }
     } else {
-      // pass 2: normalised bf16 probabilities times V, fp32 accumulation:
-      // P of chunk c, rounded to bf16, is the A operand (registers) of
+      // pass 2: normalised e16 probabilities times V, fp32 accumulation:
+      // P of chunk c, rounded to e16, is the A operand (registers) of
       // wgmma m64n32k16 against the chunk's 16 V rows (MN-major), issued
       // asynchronously while the next chunk's P is formed
       uint32_t pa[FB_NC][4] = {};
@@ -380,7 +386,7 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   if (!wg_active) return;
 
-  bf16* op = o + b * osb + h * osh;
+  e16* op = o + b * osb + h * osh;
   const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
@@ -388,8 +394,9 @@ full_block_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int jn = 0; jn < 4; ++jn) {
       const int col = nb * 32 + jn * 8 + 2 * t;
       const float* a = acc[nb] + 4 * jn;
-      if (r0 < Sq) store_bf16x2(op + (long)r0 * oss + col, a[0], a[1], 1.f);
-      if (r1 < Sq) store_bf16x2(op + (long)r1 * oss + col, a[2], a[3], 1.f);
+      if (col >= hd) continue;
+      if (r0 < Sq) store_e16x2(op + (long)r0 * oss + col, a[0], a[1], 1.f);
+      if (r1 < Sq) store_e16x2(op + (long)r1 * oss + col, a[2], a[3], 1.f);
     }
   // softmax statistics for the backward (m in base-2 units): every lane of
   // a quad holds them
@@ -410,8 +417,9 @@ template <int D, bool QKN>
 int launch_full_block(const void* q, const void* k, const void* v,
                       const float* bias, const float* norms, float eps,
                       void* o, float* m_out, float* l_out, int B, int H,
-                      int Sq, int Sk, int stages, int resident, int smem,
-                      float scale, const long* st, cudaStream_t stream) {
+                      int Sq, int Sk, int hd, int stages, int resident,
+                      int smem, float scale, const long* st,
+                      cudaStream_t stream) {
   const int nkt = (Sk + FB_BK - 1) / FB_BK;
   if (stages != (resident ? nkt : FB_STAGES) ||
       smem != fb_smem_bytes<D>(stages) || smem > SMEM_MAX)
@@ -422,10 +430,10 @@ int launch_full_block(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + FB_BQ - 1) / FB_BQ, H, B);
   full_block_fwd_kernel<D, QKN><<<grid, FB_THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bias, norms, eps, static_cast<bf16*>(o),
-      m_out, l_out, H, Sq, Sk, scale, stages, resident, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+      static_cast<const e16*>(q), static_cast<const e16*>(k),
+      static_cast<const e16*>(v), bias, norms, eps, static_cast<e16*>(o),
+      m_out, l_out, H, Sq, Sk, scale, stages, resident, hd, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
@@ -433,14 +441,14 @@ template <int D>
 int launch_fwd(const void* q, const void* k, const void* v,
                const float* bias, const float* norms, float eps, void* o,
                float* m_out, float* l_out, int B, int H, int Sq, int Sk,
-               int stages, int resident, int smem, float scale,
+               int hd, int stages, int resident, int smem, float scale,
                const long* st, cudaStream_t stream) {
   return norms ? launch_full_block<D, true>(q, k, v, bias, norms, eps, o,
-                                            m_out, l_out, B, H, Sq, Sk,
+                                            m_out, l_out, B, H, Sq, Sk, hd,
                                             stages, resident, smem, scale,
                                             st, stream)
                : launch_full_block<D, false>(q, k, v, bias, norms, eps, o,
-                                             m_out, l_out, B, H, Sq, Sk,
+                                             m_out, l_out, B, H, Sq, Sk, hd,
                                              stages, resident, smem, scale,
                                              st, stream);
 }
@@ -513,12 +521,14 @@ struct FF32 {
 // adjacent lanes share a row and hold it in registers, 16 bytes at a time:
 // lane l takes chunks l, l + TPR, ... of its row, starting TPR chunks
 // further on each row, so the 8 lanes of one 16-byte access phase meet
-// distinct banks. Rows past the sequence (zero-filled) become beta; their
-// logits are masked and their outputs not stored.
+// distinct banks. The mean and variance are over the hd real columns (the
+// zero-filled ones past hd add nothing; with gamma and beta zero-padded to
+// D they stay zero). Rows past the sequence (zero-filled) become beta;
+// their logits are masked and their outputs not stored.
 template <int D, int ROWS, int NT>
 __device__ __forceinline__ void ln_rows_f32(float* T, const float* gamma,
                                             const float* beta, float eps,
-                                            int tid) {
+                                            int tid, int hd) {
   constexpr int TPR = NT / ROWS, C = D / 4, CH = C / TPR;
   static_assert(TPR * ROWS == NT && CH * TPR == C && TPR <= 32,
                 "whole rows a lane group");
@@ -541,7 +551,7 @@ __device__ __forceinline__ void ln_rows_f32(float* T, const float* gamma,
     s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, lane));
     s2 = __fadd_rn(s2, __shfl_xor_sync(0xffffffffu, s2, lane));
   }
-  const float mean = __fdiv_rn(s, (float)D), mean2 = __fdiv_rn(s2, (float)D);
+  const float mean = __fdiv_rn(s, (float)hd), mean2 = __fdiv_rn(s2, (float)hd);
   const float var = fmaxf(__fsub_rn(mean2, __fmul_rn(mean, mean)), 0.f);
   const float rs = rsqrtf(__fadd_rn(var, eps));
 #pragma unroll
@@ -567,7 +577,7 @@ full_block_fwd_f32_kernel(const float* __restrict__ q,
                           const float* __restrict__ norms, float eps,
                           float* __restrict__ o, float* __restrict__ m_out,
                           float* __restrict__ l_out, int H, int Sq, int Sk,
-                          float scale, long qsb, long qsh, long qss,
+                          float scale, int hd, long qsb, long qsh, long qss,
                           long ksb, long ksh, long kss, long vsb, long vsh,
                           long vss, long osb, long osh, long oss) {
   using P = FF32<D>;
@@ -594,8 +604,8 @@ full_block_fwd_f32_kernel(const float* __restrict__ q,
 
   // the raw K and V of tile j and its bias row
   auto issue = [&](int j) {
-    f32_copy_rows<D, BK, NT>(Kraw, kp, kss, j * BK, Sk, tid);
-    f32_copy_rows<D, BK, NT>(Vraw, vp, vss, j * BK, Sk, tid);
+    f32_copy_rows<D, BK, NT>(Kraw, kp, kss, j * BK, Sk, tid, hd);
+    f32_copy_rows<D, BK, NT>(Vraw, vp, vss, j * BK, Sk, tid, hd);
     if (brow) load_row_f32<BK, NT>(Braw, brow, j * BK, Sk, tid);
     ring_commit();
   };
@@ -612,13 +622,14 @@ full_block_fwd_f32_kernel(const float* __restrict__ q,
 
   // the raw Q tile lands in the split buffers and rides in tile 0's group
   float* Qraw = reinterpret_cast<float*>(split);
-  f32_copy_rows<D, R, NT>(Qraw, q + b * qsb + h * qsh, qss, q0, Sq, tid);
+  f32_copy_rows<D, R, NT>(Qraw, q + b * qsb + h * qsh, qss, q0, Sq, tid,
+                          hd);
   issue(0);
   ring_wait_upto(0);
   __syncthreads();
   if constexpr (QKN) {
-    ln_rows_f32<D, R, NT>(Qraw, norms, norms + D, eps, tid);
-    ln_rows_f32<D, BK, NT>(Kraw, norms + 2 * D, norms + 3 * D, eps, tid);
+    ln_rows_f32<D, R, NT>(Qraw, norms, norms + D, eps, tid, hd);
+    ln_rows_f32<D, BK, NT>(Kraw, norms + 2 * D, norms + 3 * D, eps, tid, hd);
     __syncthreads();
   }
   split_rows_tf32<R, D, NT>(Qh, Ql, Qraw, tid);
@@ -700,7 +711,8 @@ full_block_fwd_f32_kernel(const float* __restrict__ q,
       ring_wait_upto(0);
       __syncthreads();
       if constexpr (QKN) {
-        ln_rows_f32<D, BK, NT>(Kraw, norms + 2 * D, norms + 3 * D, eps, tid);
+        ln_rows_f32<D, BK, NT>(Kraw, norms + 2 * D, norms + 3 * D, eps, tid,
+                               hd);
         __syncthreads();
       }
       split_kv(j + 1);
@@ -719,7 +731,8 @@ full_block_fwd_f32_kernel(const float* __restrict__ q,
       ring_wait_upto(0);
       __syncthreads();
       if constexpr (QKN) {
-        ln_rows_f32<D, BK, NT>(Kraw, norms + 2 * D, norms + 3 * D, eps, tid);
+        ln_rows_f32<D, BK, NT>(Kraw, norms + 2 * D, norms + 3 * D, eps, tid,
+                               hd);
         __syncthreads();
       }
       split_kv(j + 1);
@@ -735,6 +748,7 @@ full_block_fwd_f32_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int jn = 0; jn < D / 8; ++jn) {
     const int col = 8 * jn + 2 * t;
+    if (col >= hd) continue;
     if (r0 < Sq)
       *reinterpret_cast<float2*>(op + (long)r0 * oss + col) =
           make_float2(acc[4 * jn] * il0, acc[4 * jn + 1] * il0);
@@ -755,8 +769,9 @@ template <int D, bool QKN>
 int launch_full_block_f32(const float* q, const float* k, const float* v,
                           const float* bias, const float* norms, float eps,
                           float* o, float* m_out, float* l_out, int B, int H,
-                          int Sq, int Sk, int rows, int tile, int smem,
-                          float scale, const long* st, cudaStream_t stream) {
+                          int Sq, int Sk, int hd, int rows, int tile,
+                          int smem, float scale, const long* st,
+                          cudaStream_t stream) {
   using P = FF32<D>;
   if (rows != P::ROWS || tile != P::BK || smem != P::SMEM || smem > SMEM_MAX)
     return HV_BAD_PLAN;
@@ -766,9 +781,9 @@ int launch_full_block_f32(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + P::ROWS - 1) / P::ROWS, H, B);
   full_block_fwd_f32_kernel<D, QKN><<<grid, P::THREADS, smem, stream>>>(
-      q, k, v, bias, norms, eps, o, m_out, l_out, H, Sq, Sk, scale, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11]);
+      q, k, v, bias, norms, eps, o, m_out, l_out, H, Sq, Sk, scale, hd,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+      st[10], st[11]);
   return cudaGetLastError();
 }
 
@@ -776,32 +791,36 @@ template <int D>
 int launch_fwd_f32(const void* q, const void* k, const void* v,
                    const float* bias, const float* norms, float eps, void* o,
                    float* m_out, float* l_out, int B, int H, int Sq, int Sk,
-                   int rows, int tile, int smem, float scale, const long* st,
-                   cudaStream_t stream) {
+                   int hd, int rows, int tile, int smem, float scale,
+                   const long* st, cudaStream_t stream) {
   const float *fq = static_cast<const float*>(q),
               *fk = static_cast<const float*>(k),
               *fv = static_cast<const float*>(v);
   float* fo = static_cast<float*>(o);
   return norms ? launch_full_block_f32<D, true>(
                      fq, fk, fv, bias, norms, eps, fo, m_out, l_out, B, H,
-                     Sq, Sk, rows, tile, smem, scale, st, stream)
+                     Sq, Sk, hd, rows, tile, smem, scale, st, stream)
                : launch_full_block_f32<D, false>(
                      fq, fk, fv, bias, norms, eps, fo, m_out, l_out, B, H,
-                     Sq, Sk, rows, tile, smem, scale, st, stream);
+                     Sq, Sk, hd, rows, tile, smem, scale, st, stream);
 }
 
 }  // namespace hv
 
 // Plain C entry point. `strides` holds 12 element strides: (batch, head,
 // row) for q, k, v and o in that order; the last dimension is contiguous.
-// `norms` is null, or for the qk-norm variant (q and k raw) a contiguous
-// (4, D) fp32 array (gamma_q, beta_q, gamma_k, beta_k) with `eps` the
-// LayerNorm epsilon. `m_out` and `l_out` are null, or contiguous (B, H, Sq)
-// fp32 buffers that receive each row's base-2 logit max and softmax
-// denominator for the backward. `stages`, `resident` and `smem` are the
-// launch plan of flash_attention.py::_full_block_plan. Returns a
+// D is the head dim, any multiple of 8 up to 128: the kernel runs the
+// tile width hv::full_block_tile(D) (32, 64, 96 or 128; columns past D
+// zero-filled). `norms` is null, or for the qk-norm variant (q and k raw)
+// a contiguous (4, tile) fp32 array (gamma_q, beta_q, gamma_k, beta_k,
+// each zero past D) with `eps` the LayerNorm epsilon. `m_out` and `l_out`
+// are null, or contiguous (B, H, Sq) fp32 buffers that receive each row's
+// base-2 logit max and softmax denominator for the backward. `stages`,
+// `resident` and `smem` are the launch plan of
+// flash_attention.py::_full_block_plan at the tile width. Returns a
 // cudaError_t, -1 for an unsupported head dim, -2 for a plan the kernel
-// does not take.
+// does not take. Built with -DHV_F16, q, k, v and o are fp16 and the fp32
+// entry point is left out.
 extern "C" int hv_full_block_fwd(const void* q, const void* k, const void* v,
                                  const float* bias, const float* norms,
                                  void* o, float* m_out, float* l_out, int B,
@@ -810,18 +829,19 @@ extern "C" int hv_full_block_fwd(const void* q, const void* k, const void* v,
                                  float eps, const long* strides,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return hv::launch_fwd<32>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, stages, resident, smem, scale, strides, s);
-    case 64: return hv::launch_fwd<64>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, stages, resident, smem, scale, strides, s);
-    case 96: return hv::launch_fwd<96>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, stages, resident, smem, scale, strides, s);
-    case 128: return hv::launch_fwd<128>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, stages, resident, smem, scale, strides, s);
+  switch (hv::full_block_tile(D)) {
+    case 32: return hv::launch_fwd<32>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, D, stages, resident, smem, scale, strides, s);
+    case 64: return hv::launch_fwd<64>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, D, stages, resident, smem, scale, strides, s);
+    case 96: return hv::launch_fwd<96>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, D, stages, resident, smem, scale, strides, s);
+    case 128: return hv::launch_fwd<128>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, D, stages, resident, smem, scale, strides, s);
     default: return -1;
   }
 }
 
+#ifndef HV_F16
 // fp32 entry point: as hv_full_block_fwd with fp32 q, k, v and o; `rows`,
 // `tile` and `smem` are the forward plan of
-// flash_attention.py::_full_block_f32_plan.
+// flash_attention.py::_full_block_f32_plan at the tile width.
 extern "C" int hv_full_block_fwd_f32(const void* q, const void* k,
                                      const void* v, const float* bias,
                                      const float* norms, void* o,
@@ -831,14 +851,15 @@ extern "C" int hv_full_block_fwd_f32(const void* q, const void* k,
                                      float eps, const long* strides,
                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return hv::launch_fwd_f32<32>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, rows, tile, smem, scale, strides, s);
-    case 64: return hv::launch_fwd_f32<64>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, rows, tile, smem, scale, strides, s);
-    case 96: return hv::launch_fwd_f32<96>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, rows, tile, smem, scale, strides, s);
-    case 128: return hv::launch_fwd_f32<128>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, rows, tile, smem, scale, strides, s);
+  switch (hv::full_block_tile(D)) {
+    case 32: return hv::launch_fwd_f32<32>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, D, rows, tile, smem, scale, strides, s);
+    case 64: return hv::launch_fwd_f32<64>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, D, rows, tile, smem, scale, strides, s);
+    case 96: return hv::launch_fwd_f32<96>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, D, rows, tile, smem, scale, strides, s);
+    case 128: return hv::launch_fwd_f32<128>(q, k, v, bias, norms, eps, o, m_out, l_out, B, H, Sq, Sk, D, rows, tile, smem, scale, strides, s);
     default: return -1;
   }
 }
+#endif
 
 extern "C" const char* hv_full_block_error_string(int code) {
   if (code == -1) return "unsupported head dim";

@@ -1,5 +1,6 @@
 // Full-block attention backward for Hopper (sm_90a): dQ, dK and dV of
-// softmax(Q.K^T * scale + key_bias) . V, bf16 in and out, fp32 accumulation.
+// softmax(Q.K^T * scale + key_bias) . V, bf16 (or fp16, built with
+// -DHV_F16: attn_common.cuh) in and out, fp32 accumulation.
 //
 // Replaces hivae_tpu/ops/pallas/flash_attention.py::_bwd_kernel (driven by
 // _flash_bwd): recomputed P; dV = bf16(P)^T . dO; dP = dO . V^T;
@@ -67,11 +68,12 @@ constexpr int FBB_T = 64;                 // rows of one walked tile job
 constexpr int FBB_NC = FBB_T / 16;        // 16-wide chunks per tile
 
 struct FbbArgs {
-  const bf16 *q, *k, *v, *dout;
+  const e16 *q, *k, *v, *dout;
   const float *bias, *m, *il, *delta;
-  bf16 *dq, *dk, *dv;
+  e16 *dq, *dk, *dv;
   Rows sq, sk, sv, sdo, sdq, sdk, sdv;
   int H, Sq, Sk, nqb, stages;
+  int hd;  // the head dim (<= the tile's D)
   float scale;
 };
 
@@ -89,28 +91,28 @@ __device__ void fbb_dq(const FbbArgs& a, unsigned char* smem, int qb) {
   constexpr int KS = D / 16;
   constexpr int DT = D / 8;
   constexpr int TILE = FBB_T * LD;
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + FBB_ROWS * LD;
+  e16* Qs = reinterpret_cast<e16*>(smem);
+  e16* Os = Qs + FBB_ROWS * LD;
   unsigned char* ring = smem + fbb_own_bytes<D>();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, q0 = qb * FBB_ROWS;
-  const bf16* kp = head_ptr(a.k, a.sk, b, h);
-  const bf16* vp = head_ptr(a.v, a.sv, b, h);
+  const e16* kp = head_ptr(a.k, a.sk, b, h);
+  const e16* vp = head_ptr(a.v, a.sv, b, h);
   const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
   const float sl2 = scale_log2(a.scale);
   const int nkt = (a.Sk + FBB_T - 1) / FBB_T;
   const bool active = q0 + warp * 16 < a.Sq;
 
   auto slot = [&](int i) {
-    return reinterpret_cast<bf16*>(ring + (i % a.stages) * fbb_slot_bytes<D>());
+    return reinterpret_cast<e16*>(ring + (i % a.stages) * fbb_slot_bytes<D>());
   };
   auto issue = [&](int i) {  // K tile i, V tile i, their bias row
-    bf16* Ks = slot(i);
-    load_tile<D, FBB_T, FBB_THREADS>(Ks, LD, kp, a.sk.s, i * FBB_T, a.Sk, tid);
+    e16* Ks = slot(i);
+    load_tile<D, FBB_T, FBB_THREADS>(Ks, LD, kp, a.sk.s, i * FBB_T, a.Sk, tid, a.hd);
     load_tile<D, FBB_T, FBB_THREADS>(Ks + TILE, LD, vp, a.sv.s, i * FBB_T,
-                                     a.Sk, tid);
+                                     a.Sk, tid, a.hd);
     if (brow)
       load_row_f32<FBB_T, FBB_THREADS>(reinterpret_cast<float*>(Ks + 2 * TILE),
                                        brow, i * FBB_T, a.Sk, tid);
@@ -119,9 +121,9 @@ __device__ void fbb_dq(const FbbArgs& a, unsigned char* smem, int qb) {
 
   // the CTA's Q and dO rows ride in job 0's group
   load_tile<D, FBB_ROWS, FBB_THREADS>(Qs, LD, head_ptr(a.q, a.sq, b, h),
-                                      a.sq.s, q0, a.Sq, tid);
+                                      a.sq.s, q0, a.Sq, tid, a.hd);
   load_tile<D, FBB_ROWS, FBB_THREADS>(Os, LD, head_ptr(a.dout, a.sdo, b, h),
-                                      a.sdo.s, q0, a.Sq, tid);
+                                      a.sdo.s, q0, a.Sq, tid, a.hd);
   int issued = 0;
   for (; issued < a.stages - 1 && issued < nkt; ++issued) issue(issued);
 
@@ -149,8 +151,8 @@ __device__ void fbb_dq(const FbbArgs& a, unsigned char* smem, int qb) {
       load_a_rows<D>(da, Os, LD, warp * 16, lane);
     }
     if (!active) continue;
-    const bf16* Ks = slot(i);
-    const bf16* Vs = Ks + TILE;
+    const e16* Ks = slot(i);
+    const e16* Vs = Ks + TILE;
     const float* Bs = reinterpret_cast<const float*>(Ks + 2 * TILE);
     const int nc = min(FBB_NC, (a.Sk - i * FBB_T + 15) / 16);
 #pragma unroll
@@ -184,12 +186,13 @@ __device__ void fbb_dq(const FbbArgs& a, unsigned char* smem, int qb) {
   }
   if (!active) return;
 
-  bf16* dqp = head_ptr(a.dq, a.sdq, b, h);
+  e16* dqp = head_ptr(a.dq, a.sdq, b, h);
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
     const int col = dt * 8 + 2 * t;
-    if (r0 < a.Sq) store_bf16x2(dqp + (long)r0 * a.sdq.s + col, acc[dt][0], acc[dt][1], a.scale);
-    if (r1 < a.Sq) store_bf16x2(dqp + (long)r1 * a.sdq.s + col, acc[dt][2], acc[dt][3], a.scale);
+    if (col >= a.hd) continue;
+    if (r0 < a.Sq) store_e16x2(dqp + (long)r0 * a.sdq.s + col, acc[dt][0], acc[dt][1], a.scale);
+    if (r1 < a.Sq) store_e16x2(dqp + (long)r1 * a.sdq.s + col, acc[dt][2], acc[dt][3], a.scale);
   }
 }
 
@@ -199,30 +202,30 @@ __device__ void fbb_dkv(const FbbArgs& a, unsigned char* smem, int kb) {
   constexpr int KS = D / 16;
   constexpr int DT = D / 8;
   constexpr int TILE = FBB_T * LD;
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + FBB_ROWS * LD;
+  e16* Ks = reinterpret_cast<e16*>(smem);
+  e16* Vs = Ks + FBB_ROWS * LD;
   unsigned char* ring = smem + fbb_own_bytes<D>();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z, h = blockIdx.y, k0 = kb * FBB_ROWS;
-  const bf16* qp = head_ptr(a.q, a.sq, b, h);
-  const bf16* op = head_ptr(a.dout, a.sdo, b, h);
+  const e16* qp = head_ptr(a.q, a.sq, b, h);
+  const e16* op = head_ptr(a.dout, a.sdo, b, h);
   const long rb = ((long)b * a.H + h) * a.Sq;
   const float sl2 = scale_log2(a.scale);
   const int nqt = (a.Sq + FBB_T - 1) / FBB_T;
   const bool active = k0 + warp * 16 < a.Sk;
 
   auto slot = [&](int i) {
-    return reinterpret_cast<bf16*>(ring + (i % a.stages) * fbb_slot_bytes<D>());
+    return reinterpret_cast<e16*>(ring + (i % a.stages) * fbb_slot_bytes<D>());
   };
   // Q tile i, dO tile i and their m, 1/l and delta rows (zero past Sq: a
   // query row there has 1/l = 0, so P = 0, and zero Q and dO rows)
   auto issue = [&](int i) {
-    bf16* Qs = slot(i);
-    load_tile<D, FBB_T, FBB_THREADS>(Qs, LD, qp, a.sq.s, i * FBB_T, a.Sq, tid);
+    e16* Qs = slot(i);
+    load_tile<D, FBB_T, FBB_THREADS>(Qs, LD, qp, a.sq.s, i * FBB_T, a.Sq, tid, a.hd);
     load_tile<D, FBB_T, FBB_THREADS>(Qs + TILE, LD, op, a.sdo.s, i * FBB_T,
-                                     a.Sq, tid);
+                                     a.Sq, tid, a.hd);
     float* R = reinterpret_cast<float*>(Qs + 2 * TILE);
     load_row_f32<FBB_T, FBB_THREADS>(R, a.m + rb, i * FBB_T, a.Sq, tid);
     load_row_f32<FBB_T, FBB_THREADS>(R + FBB_T, a.il + rb, i * FBB_T, a.Sq, tid);
@@ -232,9 +235,9 @@ __device__ void fbb_dkv(const FbbArgs& a, unsigned char* smem, int kb) {
   };
 
   load_tile<D, FBB_ROWS, FBB_THREADS>(Ks, LD, head_ptr(a.k, a.sk, b, h),
-                                      a.sk.s, k0, a.Sk, tid);
+                                      a.sk.s, k0, a.Sk, tid, a.hd);
   load_tile<D, FBB_ROWS, FBB_THREADS>(Vs, LD, head_ptr(a.v, a.sv, b, h),
-                                      a.sv.s, k0, a.Sk, tid);
+                                      a.sv.s, k0, a.Sk, tid, a.hd);
   int issued = 0;
   for (; issued < a.stages - 1 && issued < nqt; ++issued) issue(issued);
 
@@ -261,8 +264,8 @@ __device__ void fbb_dkv(const FbbArgs& a, unsigned char* smem, int kb) {
       load_a_rows<D>(va, Vs, LD, warp * 16, lane);
     }
     if (!active) continue;
-    const bf16* Qs = slot(i);
-    const bf16* Os = Qs + TILE;
+    const e16* Qs = slot(i);
+    const e16* Os = Qs + TILE;
     const float* R = reinterpret_cast<const float*>(Qs + 2 * TILE);
     const int nc = min(FBB_NC, (a.Sq - i * FBB_T + 15) / 16);
 #pragma unroll
@@ -301,18 +304,19 @@ __device__ void fbb_dkv(const FbbArgs& a, unsigned char* smem, int kb) {
   }
   if (!active) return;
 
-  bf16* dkp = head_ptr(a.dk, a.sdk, b, h);
-  bf16* dvp = head_ptr(a.dv, a.sdv, b, h);
+  e16* dkp = head_ptr(a.dk, a.sdk, b, h);
+  e16* dvp = head_ptr(a.dv, a.sdv, b, h);
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) {
     const int col = dt * 8 + 2 * t;
+    if (col >= a.hd) continue;
     if (kr0 < a.Sk) {
-      store_bf16x2(dkp + (long)kr0 * a.sdk.s + col, dka[dt][0], dka[dt][1], a.scale);
-      store_bf16x2(dvp + (long)kr0 * a.sdv.s + col, dva[dt][0], dva[dt][1], 1.f);
+      store_e16x2(dkp + (long)kr0 * a.sdk.s + col, dka[dt][0], dka[dt][1], a.scale);
+      store_e16x2(dvp + (long)kr0 * a.sdv.s + col, dva[dt][0], dva[dt][1], 1.f);
     }
     if (kr1 < a.Sk) {
-      store_bf16x2(dkp + (long)kr1 * a.sdk.s + col, dka[dt][2], dka[dt][3], a.scale);
-      store_bf16x2(dvp + (long)kr1 * a.sdv.s + col, dva[dt][2], dva[dt][3], 1.f);
+      store_e16x2(dkp + (long)kr1 * a.sdk.s + col, dka[dt][2], dka[dt][3], a.scale);
+      store_e16x2(dvp + (long)kr1 * a.sdv.s + col, dva[dt][2], dva[dt][3], 1.f);
     }
   }
 }
@@ -333,13 +337,13 @@ constexpr int DELTA_THREADS = 256;
 
 template <int D>
 __global__ void __launch_bounds__(DELTA_THREADS)
-full_block_delta_kernel(const bf16* __restrict__ dout,
-                        const bf16* __restrict__ out,
+full_block_delta_kernel(const e16* __restrict__ dout,
+                        const e16* __restrict__ out,
                         const float* __restrict__ l, float* __restrict__ delta,
                         float* __restrict__ inv_l, int H, int Sq, long rows,
-                        Rows sdo, Rows so) {
+                        Rows sdo, Rows so, int hd) {
   const long row = ((long)blockIdx.x * DELTA_THREADS + threadIdx.x) >> 3;
-  const float acc = row_delta<D>(dout, out, row, rows, H, Sq, sdo, so);
+  const float acc = row_delta<D>(dout, out, row, rows, H, Sq, sdo, so, hd);
   if (row < rows && (threadIdx.x & 7) == 0) {
     delta[row] = acc;
     inv_l[row] = __frcp_rn(l[row]);
@@ -370,14 +374,14 @@ int launch_full_block_bwd(const FbbArgs& a, int B, int smem,
 }
 
 template <int D>
-int launch_delta(const bf16* dout, const bf16* out, const float* l,
-                 float* delta, float* inv_l, int B, int H, int Sq,
+int launch_delta(const e16* dout, const e16* out, const float* l,
+                 float* delta, float* inv_l, int B, int H, int Sq, int hd,
                  const long* st, cudaStream_t stream) {
   const long rows = (long)B * H * Sq;
   const long blocks = (rows * 8 + DELTA_THREADS - 1) / DELTA_THREADS;
   full_block_delta_kernel<D><<<(unsigned)blocks, DELTA_THREADS, 0, stream>>>(
       dout, out, l, delta, inv_l, H, Sq, rows, Rows{st[0], st[1], st[2]},
-      Rows{st[3], st[4], st[5]});
+      Rows{st[3], st[4], st[5]}, hd);
   return cudaGetLastError();
 }
 
@@ -454,19 +458,20 @@ struct FB32 {
   static_assert(2 * RES <= SPLIT, "raw resident tiles fit the split region");
 };
 
-// A walked tile's rows [row0, row0 + BT) of two (S, D) fp32 matrices into
-// registers: this thread's 16-byte chunks, zero past n.
+// A walked tile's rows [row0, row0 + BT) of two (S, hd) fp32 matrices into
+// registers as D columns: this thread's 16-byte chunks, zero past n and
+// past hd.
 template <int D, int BT, int NT, int LOADS>
 __device__ __forceinline__ void fb32_fetch(float4 (&w1)[LOADS],
                                            float4 (&w2)[LOADS],
                                            const float* a1, long s1,
                                            const float* a2, long s2,
-                                           int row0, int n, int tid) {
+                                           int row0, int n, int tid, int hd) {
   constexpr int C4 = D / 4;
 #pragma unroll
   for (int u = 0; u < LOADS; ++u) {
     const int e = tid + u * NT, r = e / C4, c = e - r * C4;
-    const bool valid = e < BT * C4 && row0 + r < n;
+    const bool valid = e < BT * C4 && row0 + r < n && 4 * c < hd;
     const long row = valid ? row0 + r : 0;
     w1[u] = valid ? __ldg(reinterpret_cast<const float4*>(a1 + row * s1 +
                                                            4 * c))
@@ -577,10 +582,11 @@ __device__ __forceinline__ void fb32_cta(const F32GradArgs& a,
   float4 w1[LOADS], w2[LOADS];
   float wst;
   float* Araw = reinterpret_cast<float*>(sp);
-  f32_copy_rows<D, R, NT>(Araw, ra1, rs1, r0, nres, tid);
-  f32_copy_rows<D, R, NT>(Araw + R * D, ra2, rs2, r0, nres, tid);
+  f32_copy_rows<D, R, NT>(Araw, ra1, rs1, r0, nres, tid, a.hd);
+  f32_copy_rows<D, R, NT>(Araw + R * D, ra2, rs2, r0, nres, tid, a.hd);
   ring_commit();
-  fb32_fetch<D, BT, NT, LOADS>(w1, w2, wa1, ws1, wa2, ws2, 0, nwalk, tid);
+  fb32_fetch<D, BT, NT, LOADS>(w1, w2, wa1, ws1, wa2, ws2, 0, nwalk, tid,
+                               a.hd);
   wst = wsrc && tid % BT < nwalk ? __ldg(wsrc) : 0.f;
   ring_wait_upto(0);
   __syncthreads();
@@ -590,7 +596,8 @@ __device__ __forceinline__ void fb32_cta(const F32GradArgs& a,
   if (tid < 3 * BT) SR[tid] = wst;
   fb32_split_natural<D, BT, NT, LOADS>(w1, w2, B1h, B2h, tid);
   if (njobs > 1) {
-    fb32_fetch<D, BT, NT, LOADS>(w1, w2, wa1, ws1, wa2, ws2, BT, nwalk, tid);
+    fb32_fetch<D, BT, NT, LOADS>(w1, w2, wa1, ws1, wa2, ws2, BT, nwalk, tid,
+                                 a.hd);
     wst = wsrc && BT + tid % BT < nwalk ? __ldg(wsrc + BT) : 0.f;
   }
   fence_async_smem();
@@ -719,7 +726,7 @@ __device__ __forceinline__ void fb32_cta(const F32GradArgs& a,
     if (i + 2 < njobs) {
       const int row0 = (i + 2) * BT;
       fb32_fetch<D, BT, NT, LOADS>(w1, w2, wa1, ws1, wa2, ws2, row0, nwalk,
-                                   tid);
+                                   tid, a.hd);
       wst = wsrc && row0 + tid % BT < nwalk ? __ldg(wsrc + row0) : 0.f;
     }
     if constexpr (DKV) {
@@ -750,6 +757,7 @@ __device__ __forceinline__ void fb32_cta(const F32GradArgs& a,
 #pragma unroll
     for (int jn = 0; jn < COLS / 8; ++jn) {
       const int c = c0 + 8 * jn + 2 * t, x = 4 * jn + 2 * hf;
+      if (c >= a.hd) continue;
       *reinterpret_cast<float2*>(o1 + (long)lr[hf] * os1 + c) =
           make_float2(acc1[x] * a.scale, acc1[x + 1] * a.scale);
       if constexpr (DKV)
@@ -780,9 +788,10 @@ full_block_delta_f32_kernel(const float* __restrict__ dout,
                             const float* __restrict__ l,
                             float* __restrict__ delta,
                             float* __restrict__ inv_l, int H, int Sq,
-                            long rows, Rows sdo, Rows so) {
+                            long rows, Rows sdo, Rows so, int hd) {
   const long row = ((long)blockIdx.x * DELTA_THREADS + threadIdx.x) >> 3;
-  const float acc = row_delta_f32<D>(dout, out, row, rows, H, Sq, sdo, so);
+  const float acc =
+      row_delta_f32<D>(dout, out, row, rows, H, Sq, sdo, so, hd);
   if (row < rows && (threadIdx.x & 7) == 0) {
     delta[row] = acc;
     inv_l[row] = __frcp_rn(l[row]);
@@ -812,41 +821,45 @@ int launch_full_block_bwd_f32(const F32GradArgs& a, int B, int dq_rows,
 template <int D>
 int launch_delta_f32(const float* dout, const float* out, const float* l,
                      float* delta, float* inv_l, int B, int H, int Sq,
-                     const long* st, cudaStream_t stream) {
+                     int hd, const long* st, cudaStream_t stream) {
   const long rows = (long)B * H * Sq;
   const long blocks = (rows * 8 + DELTA_THREADS - 1) / DELTA_THREADS;
   full_block_delta_f32_kernel<D>
       <<<(unsigned)blocks, DELTA_THREADS, 0, stream>>>(
           dout, out, l, delta, inv_l, H, Sq, rows, Rows{st[0], st[1], st[2]},
-          Rows{st[3], st[4], st[5]});
+          Rows{st[3], st[4], st[5]}, hd);
   return cudaGetLastError();
 }
 
 }  // namespace hv
 
-// Plain C entry points. hv_full_block_delta: `strides` holds 6 element
-// strides, (batch, head, row) of dout and out; `l` is the forward's
-// (B, H, Sq) fp32 denominator; writes contiguous (B, H, Sq) fp32 `delta`
-// and `inv_l`. hv_full_block_bwd: `strides` holds 21 element strides,
-// (batch, head, row) for q, k, v, dout, dq, dk and dv in that order; the
-// last dimension of each is contiguous. `m` (from hv_full_block_fwd),
-// `inv_l` and `delta` (from hv_full_block_delta) are contiguous (B, H, Sq)
-// fp32; `stages` and `smem` are the launch plan of
-// flash_attention.py::_full_block_plan. Both return a cudaError_t, -1 for
-// an unsupported head dim, -2 for a plan the kernel does not take.
+// Plain C entry points. D is the head dim, any multiple of 8 up to 128:
+// the kernels run the tile width hv::full_block_tile(D) (columns past D
+// zero-filled, never stored). hv_full_block_delta: `strides` holds 6
+// element strides, (batch, head, row) of dout and out; `l` is the
+// forward's (B, H, Sq) fp32 denominator; writes contiguous (B, H, Sq) fp32
+// `delta` and `inv_l`. hv_full_block_bwd: `strides` holds 21 element
+// strides, (batch, head, row) for q, k, v, dout, dq, dk and dv in that
+// order; the last dimension of each is contiguous. `m` (from
+// hv_full_block_fwd), `inv_l` and `delta` (from hv_full_block_delta) are
+// contiguous (B, H, Sq) fp32; `stages` and `smem` are the launch plan of
+// flash_attention.py::_full_block_plan at the tile width. Both return a
+// cudaError_t, -1 for an unsupported head dim, -2 for a plan the kernel
+// does not take. Built with -DHV_F16 the tensors are fp16 and the fp32
+// entry points are left out.
 extern "C" int hv_full_block_delta(const void* dout, const void* out,
                                    const float* l, float* delta,
                                    float* inv_l, int B, int H, int Sq, int D,
                                    const long* st, void* stream) {
-  using hv::bf16;
-  const bf16* d = static_cast<const bf16*>(dout);
-  const bf16* o = static_cast<const bf16*>(out);
+  using hv::e16;
+  const e16* d = static_cast<const e16*>(dout);
+  const e16* o = static_cast<const e16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return hv::launch_delta<32>(d, o, l, delta, inv_l, B, H, Sq, st, s);
-    case 64: return hv::launch_delta<64>(d, o, l, delta, inv_l, B, H, Sq, st, s);
-    case 96: return hv::launch_delta<96>(d, o, l, delta, inv_l, B, H, Sq, st, s);
-    case 128: return hv::launch_delta<128>(d, o, l, delta, inv_l, B, H, Sq, st, s);
+  switch (hv::full_block_tile(D)) {
+    case 32: return hv::launch_delta<32>(d, o, l, delta, inv_l, B, H, Sq, D, st, s);
+    case 64: return hv::launch_delta<64>(d, o, l, delta, inv_l, B, H, Sq, D, st, s);
+    case 96: return hv::launch_delta<96>(d, o, l, delta, inv_l, B, H, Sq, D, st, s);
+    case 128: return hv::launch_delta<128>(d, o, l, delta, inv_l, B, H, Sq, D, st, s);
     default: return -1;
   }
 }
@@ -858,19 +871,19 @@ extern "C" int hv_full_block_bwd(const void* q, const void* k, const void* v,
                                  void* dv, int B, int H, int Sq, int Sk, int D,
                                  int stages, int smem, float scale,
                                  const long* st, void* stream) {
-  using hv::bf16;
+  using hv::e16;
   hv::FbbArgs a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.dout = static_cast<const bf16*>(dout);
+  a.q = static_cast<const e16*>(q);
+  a.k = static_cast<const e16*>(k);
+  a.v = static_cast<const e16*>(v);
+  a.dout = static_cast<const e16*>(dout);
   a.bias = bias;
   a.m = m;
   a.il = inv_l;
   a.delta = delta;
-  a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
+  a.dq = static_cast<e16*>(dq);
+  a.dk = static_cast<e16*>(dk);
+  a.dv = static_cast<e16*>(dv);
   hv::Rows* rows[7] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq, &a.sdk, &a.sdv};
   for (int i = 0; i < 7; ++i) *rows[i] = hv::Rows{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
   a.H = H;
@@ -878,9 +891,10 @@ extern "C" int hv_full_block_bwd(const void* q, const void* k, const void* v,
   a.Sk = Sk;
   a.nqb = (Sq + hv::FBB_ROWS - 1) / hv::FBB_ROWS;
   a.stages = stages;
+  a.hd = D;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
+  switch (hv::full_block_tile(D)) {
     case 32: return hv::launch_full_block_bwd<32>(a, B, smem, s);
     case 64: return hv::launch_full_block_bwd<64>(a, B, smem, s);
     case 96: return hv::launch_full_block_bwd<96>(a, B, smem, s);
@@ -889,10 +903,11 @@ extern "C" int hv_full_block_bwd(const void* q, const void* k, const void* v,
   }
 }
 
+#ifndef HV_F16
 // fp32 entry points, as hv_full_block_delta and hv_full_block_bwd with
 // fp32 tensors; hv_full_block_bwd_f32 takes the backward plan of
-// flash_attention.py::_full_block_f32_plan (`dq_rows`, `dkv_rows`, `tile`,
-// `smem`).
+// flash_attention.py::_full_block_f32_plan at the tile width (`dq_rows`,
+// `dkv_rows`, `tile`, `smem`).
 extern "C" int hv_full_block_delta_f32(const void* dout, const void* out,
                                        const float* l, float* delta,
                                        float* inv_l, int B, int H, int Sq,
@@ -900,11 +915,11 @@ extern "C" int hv_full_block_delta_f32(const void* dout, const void* out,
   const float* d = static_cast<const float*>(dout);
   const float* o = static_cast<const float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32: return hv::launch_delta_f32<32>(d, o, l, delta, inv_l, B, H, Sq, st, s);
-    case 64: return hv::launch_delta_f32<64>(d, o, l, delta, inv_l, B, H, Sq, st, s);
-    case 96: return hv::launch_delta_f32<96>(d, o, l, delta, inv_l, B, H, Sq, st, s);
-    case 128: return hv::launch_delta_f32<128>(d, o, l, delta, inv_l, B, H, Sq, st, s);
+  switch (hv::full_block_tile(D)) {
+    case 32: return hv::launch_delta_f32<32>(d, o, l, delta, inv_l, B, H, Sq, D, st, s);
+    case 64: return hv::launch_delta_f32<64>(d, o, l, delta, inv_l, B, H, Sq, D, st, s);
+    case 96: return hv::launch_delta_f32<96>(d, o, l, delta, inv_l, B, H, Sq, D, st, s);
+    case 128: return hv::launch_delta_f32<128>(d, o, l, delta, inv_l, B, H, Sq, D, st, s);
     default: return -1;
   }
 }
@@ -936,9 +951,10 @@ extern "C" int hv_full_block_bwd_f32(const void* q, const void* k,
   a.Sq = Sq;
   a.Sk = Sk;
   a.nqb = dq_rows > 0 ? (Sq + dq_rows - 1) / dq_rows : 0;
+  a.hd = D;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
+  switch (hv::full_block_tile(D)) {
     case 32: return hv::launch_full_block_bwd_f32<32>(a, B, dq_rows, dkv_rows, tile, smem, s);
     case 64: return hv::launch_full_block_bwd_f32<64>(a, B, dq_rows, dkv_rows, tile, smem, s);
     case 96: return hv::launch_full_block_bwd_f32<96>(a, B, dq_rows, dkv_rows, tile, smem, s);
@@ -946,6 +962,7 @@ extern "C" int hv_full_block_bwd_f32(const void* q, const void* k,
     default: return -1;
   }
 }
+#endif
 
 extern "C" const char* hv_full_block_bwd_error_string(int code) {
   if (code == -1) return "unsupported head dim";

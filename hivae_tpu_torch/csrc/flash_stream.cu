@@ -1,6 +1,7 @@
 // Streaming (online-softmax) attention forward with LSE for Hopper
-// (sm_90a), bf16 in, bf16 out, fp32 log-sum-exp; and, below, its fp32
-// variant (stream_fwd_f32_kernel, hv_stream_fwd_f32).
+// (sm_90a), bf16 (or fp16, built with -DHV_F16: attn_common.cuh) in and
+// out, fp32 log-sum-exp; and, below, its fp32 variant
+// (stream_fwd_f32_kernel, hv_stream_fwd_f32).
 //
 // Replaces hivae_tpu/ops/pallas/flash_attention.py::_stream_fwd_kernel
 // (driven by _stream_fwd_impl / stream_fwd_lse): a loop over KV tiles with a
@@ -107,16 +108,17 @@ __host__ int sf_stages() {
   return n < SF_MAX_STAGES ? n : SF_MAX_STAGES;
 }
 
-// tq, tk, tv: tensor maps of q, k and v as (D, S, H, B) arrays, boxes of
-// 64 columns x 64 rows (Q) or sf_bk rows (K, V), 128-byte swizzled.
+// tq, tk, tv: tensor maps of q, k and v as (hd, S, H, B) arrays, boxes of
+// 64 columns x 64 rows (Q) or sf_bk rows (K, V), 128-byte swizzled; the
+// boxes' columns past hd (the head dim, <= D) read zeros.
 template <int D>
 __global__ void __launch_bounds__(SF_THREADS, 1)
 stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  const float* __restrict__ bias, bf16* __restrict__ o,
+                  const float* __restrict__ bias, e16* __restrict__ o,
                   float* __restrict__ lse, int H, int Sq, int Sk, float scale,
-                  int stages, long osb, long osh, long oss) {
+                  int stages, int hd, long osb, long osh, long oss) {
   constexpr int DH = D / 2;                  // output columns a warpgroup
   constexpr int NW = DH < 64 ? DH : 64;      // columns a P.V wgmma
   constexpr int NB = DH / NW;                // P.V wgmmas a 16-key chunk
@@ -125,12 +127,12 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   constexpr int CW = KW / 16;                // its 16-key chunks
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ uint64_t full[SF_MAX_STAGES + 1];  // slots' jobs, then Q
-  __shared__ __align__(16) bf16 Ps[SF_BQ * SF_PLD_MAX];  // bf16(P) of a tile
+  __shared__ __align__(16) e16 Ps[SF_BQ * SF_PLD_MAX];  // bf16(P) of a tile
   __shared__ float xm[2][SF_BQ];  // each warpgroup's row maxima of a tile
                                   // (at the end: its denominators)
   unsigned char* base =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  bf16* Qs = reinterpret_cast<bf16*>(base);
+  e16* Qs = reinterpret_cast<e16*>(base);
   unsigned char* ring = base + sf_q_bytes<D>();
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -201,7 +203,7 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       // up to the next multiple of 16 past Sk: this warp's 16 rows,
       // s[4 u + e] for 8-key group u
       const int ncw = min(CW, max(0, nc - CW * wg));  // its 16-key chunks
-      const bf16* Kw = reinterpret_cast<const bf16*>(sl + wg * KW * 128);
+      const e16* Kw = reinterpret_cast<const e16*>(sl + wg * KW * 128);
       float s[32];
       if (ncw == 1) wgmma_qk<D, 16, SF_BQ, BK>(s, Qs, 0, Kw);
       if constexpr (CW == 2)
@@ -253,9 +255,9 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         // bf16(P) of this half into the shared 64 x BK tile
         const int col = wg * KW + u * 8 + 2 * t;
         *reinterpret_cast<uint32_t*>(Ps + (rw + g) * PLD + col) =
-            pack_bf16(x[0], x[1]);
+            pack_e16(x[0], x[1]);
         *reinterpret_cast<uint32_t*>(Ps + (rw + g + 8) * PLD + col) =
-            pack_bf16(x[2], x[3]);
+            pack_e16(x[2], x[3]);
       }
       // this warpgroup's part of the denominator (the halves are summed
       // once, at the end)
@@ -316,7 +318,7 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
   __syncthreads();
   l0 = xm[0][rw + g] + xm[1][rw + g];
   l1 = xm[0][rw + g + 8] + xm[1][rw + g + 8];
-  bf16* op = o + b * osb + h * osh;
+  e16* op = o + b * osb + h * osh;
   const int r0 = q0 + rw + g, r1 = r0 + 8;
   const float il0 = __frcp_rn(l0), il1 = __frcp_rn(l1);
 #pragma unroll
@@ -325,8 +327,9 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     for (int jn = 0; jn < NW / 8; ++jn) {
       const int col = wg * DH + nb * NW + jn * 8 + 2 * t;
       const float* a = acc[nb] + 4 * jn;
-      if (r0 < Sq) store_bf16x2(op + (long)r0 * oss + col, a[0], a[1], il0);
-      if (r1 < Sq) store_bf16x2(op + (long)r1 * oss + col, a[2], a[3], il1);
+      if (col >= hd) continue;
+      if (r0 < Sq) store_e16x2(op + (long)r0 * oss + col, a[0], a[1], il0);
+      if (r1 < Sq) store_e16x2(op + (long)r1 * oss + col, a[2], a[3], il1);
     }
   if (wg == 0 && t == 0) {
     float* lp = lse + ((long)b * H + h) * Sq;
@@ -443,17 +446,17 @@ __host__ __device__ constexpr int sf32_smem_bytes() {
          (SF32_THREADS + SF32_BQ) * sf32_bk<D>() * 4 + SF32_BQ * 4;
 }
 
-// The first ROWS rows of an fp32 (S, D) matrix whose rows are `ss`
-// elements apart into a shared tile of rows D + 4 floats apart, rows at or
-// past n zero-filled, as this thread's share of 16-byte cp.async copies
-// (the caller closes the group).
+// The first ROWS rows of an fp32 (S, hd) matrix whose rows are `ss`
+// elements apart into a shared tile of D columns, rows D + 4 floats apart,
+// rows at or past n and columns at or past hd zero-filled, as this
+// thread's share of 16-byte cp.async copies (the caller closes the group).
 template <int D, int ROWS>
 __device__ __forceinline__ void sf32_load_rows(float* dst, const float* src,
-                                               long ss, int n) {
+                                               long ss, int n, int hd) {
   constexpr int NC4 = D / 4, LD = D + 4;
   for (int i = threadIdx.x; i < ROWS * NC4; i += SF32_THREADS) {
     const int r = i / NC4, c = i - r * NC4;
-    const bool valid = r < n;
+    const bool valid = r < n && 4 * c < hd;
     cp_async16(dst + r * LD + 4 * c, src + (valid ? r * ss + 4 * c : 0),
                valid);
   }
@@ -481,7 +484,7 @@ stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v,
                       const float* __restrict__ bias, float* __restrict__ o,
                       float* __restrict__ lse, int H, int Sq, int Sk,
-                      float scale,
+                      float scale, int hd,
                       long qsb, long qsh, long qss, long ksb, long ksh,
                       long kss, long vsb, long vsh, long vss, long osb,
                       long osh, long oss) {
@@ -510,10 +513,10 @@ stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int njobs = 2 * ((Sk + BK - 1) / BK);
 
   // job 2j: K tile j and its bias row; job 2j + 1: V tile j, into slot
-  // i % 2: warp 0 copies the tile's rows by the bulk-copy engine, one lane
-  // a row, completing on the slot's barrier; rows past Sk are zeroed
-  // instead, and the bias row travels by cp.async (one group a job, empty
-  // without a bias)
+  // i % 2: warp 0 copies the tile's rows (their hd columns) by the
+  // bulk-copy engine, one lane a row, completing on the slot's barrier;
+  // rows past Sk, and the columns past hd, are zeroed instead, and the bias
+  // row travels by cp.async (one group a job, empty without a bias)
   __shared__ uint64_t full[SF32_STAGES];
   auto issue = [&](int i) {
     if (i < njobs) {
@@ -523,16 +526,22 @@ stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  : kp + (long)j * BK * kss;
       const long ss = (i & 1) ? vss : kss;
       if (warp == 0) {
-        if (lane == 0) mbar_expect(full + (i & 1), rows * D * 4);
+        if (lane == 0) mbar_expect(full + (i & 1), rows * hd * 4);
         __syncwarp();
         if (lane < rows) {
           fence_async_smem();  // the slot's last reads come first
-          bulk_load(dst + lane * LD, src + lane * ss, D * 4, full + (i & 1));
+          bulk_load(dst + lane * LD, src + lane * ss, hd * 4, full + (i & 1));
         }
       }
       for (int x = tid; x < (BK - rows) * (D / 4); x += SF32_THREADS)
         reinterpret_cast<float4*>(dst + (rows + x / (D / 4)) * LD)[x % (D / 4)] =
             make_float4(0.f, 0.f, 0.f, 0.f);
+      if (hd < D) {
+        const int pad = (D - hd) / 4;  // 16-byte chunks past hd a row
+        for (int x = tid; x < rows * pad; x += SF32_THREADS)
+          reinterpret_cast<float4*>(dst + (x / pad) * LD + hd)[x % pad] =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
       if (brow && !(i & 1))
         load_row_f32<BK, SF32_THREADS>(dst + BK * LD, brow, j * BK, Sk, tid);
     }
@@ -544,7 +553,7 @@ stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
   sf32_load_rows<D, BQ>(qs, q + b * qsb + h * qsh + (long)q0 * qss, qss,
-                        Sq - q0);
+                        Sq - q0, hd);
   issue(0);  // the first cp.async group holds Q too
 
   float acc[2][NO][4];  // O: [m tile][n tile][C fragment]
@@ -588,7 +597,7 @@ stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int ks = 0; ks < 2; ++ks) {
             uint32_t r[4];
-            ldsm_x4(r, reinterpret_cast<const bf16*>(
+            ldsm_x4(r, reinterpret_cast<const e16*>(
                            qa + mt * 16 * LD + (kk + ks) * 8));
 #pragma unroll
             for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(r[e]),
@@ -603,7 +612,7 @@ stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int nt = 0; nt < W; ++nt) {
             uint32_t r[4];
-            ldsm_x4(r, reinterpret_cast<const bf16*>(
+            ldsm_x4(r, reinterpret_cast<const e16*>(
                            sl_ + (n0 + nt) * 8 * LD + kb + kk * 8));
 #pragma unroll
             for (int e = 0; e < 4; ++e)
@@ -764,11 +773,13 @@ stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (row >= Sq) continue;
       const float il = 1.f / rs[(rh * 4 + 2 * mt + hf) * 8 + g];
 #pragma unroll
-      for (int no = 0; no < NO; ++no)
-        *reinterpret_cast<float2*>(op + (long)row * oss + dq * DQ + no * 8 +
-                                   2 * t) =
-            make_float2(acc[mt][no][2 * hf] * il,
-                        acc[mt][no][2 * hf + 1] * il);
+      for (int no = 0; no < NO; ++no) {
+        const int col = dq * DQ + no * 8 + 2 * t;
+        if (col < hd)
+          *reinterpret_cast<float2*>(op + (long)row * oss + col) =
+              make_float2(acc[mt][no][2 * hf] * il,
+                          acc[mt][no][2 * hf + 1] * il);
+      }
     }
   const int row = q0 + 32 * rh + 16 * om + 8 * oh + g;
   if (t == 0 && row < Sq)
@@ -779,7 +790,7 @@ stream_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_stream_f32(const float* q, const float* k, const float* v,
                       const float* bias, float* o, float* lse, int B, int H,
-                      int Sq, int Sk, int bk, int smem, float scale,
+                      int Sq, int Sk, int hd, int bk, int smem, float scale,
                       const long* st, cudaStream_t stream) {
   if (bk != sf32_bk<D>() || smem != sf32_smem_bytes<D>() ||
       smem > SF_SMEM_MAX)
@@ -790,13 +801,14 @@ int launch_stream_f32(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + SF32_BQ - 1) / SF32_BQ, H, B);
   stream_fwd_f32_kernel<D><<<grid, SF32_THREADS, smem, stream>>>(
-      q, k, v, bias, o, lse, H, Sq, Sk, scale, st[0], st[1], st[2], st[3],
-      st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+      q, k, v, bias, o, lse, H, Sq, Sk, scale, hd, st[0], st[1], st[2],
+      st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
-// A tensor map of one (B, H, S, D) bf16 operand with element strides
-// st[0..2] (batch, head, row), boxes of 64 columns x `rows` rows.
+// A tensor map of one (B, H, S, D) e16 operand (D the head dim) with
+// element strides st[0..2] (batch, head, row), boxes of 64 columns x `rows`
+// rows; a box's columns past D read zeros.
 static int stream_tmap(CUtensorMap* map, const void* x, int B, int H, int S,
                        int D, const long* st, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
@@ -804,22 +816,21 @@ static int stream_tmap(CUtensorMap* map, const void* x, int B, int H, int S,
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  return make_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides,
-                   box);
+  return make_tmap(map, E16_TMAP, 4, x, dims, strides, box);
 }
 
 template <int D>
 int launch_stream(const void* q, const void* k, const void* v,
                   const float* bias, void* o, float* lse, int B, int H,
-                  int Sq, int Sk, int stages, int smem, float scale,
+                  int Sq, int Sk, int hd, int stages, int smem, float scale,
                   const long* st, cudaStream_t stream) {
   if (stages != sf_stages<D>() || smem != sf_smem_bytes<D>(stages) ||
       smem + SF_STATIC > SF_SMEM_MAX)
     return HV_BAD_PLAN;
   CUtensorMap tq, tk, tv;
-  int rc = stream_tmap(&tq, q, B, H, Sq, D, st, SF_BQ);
-  if (!rc) rc = stream_tmap(&tk, k, B, H, Sk, D, st + 3, sf_bk<D>());
-  if (!rc) rc = stream_tmap(&tv, v, B, H, Sk, D, st + 6, sf_bk<D>());
+  int rc = stream_tmap(&tq, q, B, H, Sq, hd, st, SF_BQ);
+  if (!rc) rc = stream_tmap(&tk, k, B, H, Sk, hd, st + 3, sf_bk<D>());
+  if (!rc) rc = stream_tmap(&tv, v, B, H, Sk, hd, st + 6, sf_bk<D>());
   if (rc) return rc;
   cudaError_t err = cudaFuncSetAttribute(
       stream_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -827,8 +838,8 @@ int launch_stream(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + SF_BQ - 1) / SF_BQ, H, B);
   stream_fwd_kernel<D><<<grid, SF_THREADS, smem, stream>>>(
-      tq, tk, tv, bias, static_cast<bf16*>(o), lse, H, Sq, Sk, scale, stages,
-      st[9], st[10], st[11]);
+      tq, tk, tv, bias, static_cast<e16*>(o), lse, H, Sq, Sk, scale, stages,
+      hd, st[9], st[10], st[11]);
   return cudaGetLastError();
 }
 
@@ -836,27 +847,34 @@ int launch_stream(const void* q, const void* k, const void* v,
 
 // Plain C entry point. `strides` holds 12 element strides: (batch, head,
 // row) for q, k, v and o in that order; the last dimension is contiguous.
-// `lse` is a contiguous (B, H, Sq) fp32 buffer. `stages` and `smem` are the
-// launch plan of flash_attention.py::_stream_plan. Returns a cudaError_t,
-// -1 for an unsupported head dim, -2 for a plan the kernel does not take.
+// D is the head dim, any multiple of 8 up to 640: the kernel runs the tile
+// width hv::stream_tile(D) (64, 128, 256, 512 or 640; columns past D read
+// as zeros, never stored). `lse` is a contiguous (B, H, Sq) fp32 buffer.
+// `stages` and `smem` are the launch plan of
+// flash_attention.py::_stream_plan at the tile width. Returns a
+// cudaError_t, -1 for an unsupported head dim, -2 for a plan the kernel
+// does not take. Built with -DHV_F16, q, k, v and o are fp16 and the fp32
+// entry point is left out.
 extern "C" int hv_stream_fwd(const void* q, const void* k, const void* v,
                              const float* bias, void* o, float* lse, int B,
                              int H, int Sq, int Sk, int D, int stages,
                              int smem, float scale, const long* strides,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return hv::launch_stream<64>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
-    case 128: return hv::launch_stream<128>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
-    case 256: return hv::launch_stream<256>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
-    case 512: return hv::launch_stream<512>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
-    case 640: return hv::launch_stream<640>(q, k, v, bias, o, lse, B, H, Sq, Sk, stages, smem, scale, strides, s);
+  switch (hv::stream_tile(D)) {
+    case 64: return hv::launch_stream<64>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, stages, smem, scale, strides, s);
+    case 128: return hv::launch_stream<128>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, stages, smem, scale, strides, s);
+    case 256: return hv::launch_stream<256>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, stages, smem, scale, strides, s);
+    case 512: return hv::launch_stream<512>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, stages, smem, scale, strides, s);
+    case 640: return hv::launch_stream<640>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, stages, smem, scale, strides, s);
     default: return -1;
   }
 }
 
+#ifndef HV_F16
 // fp32 entry point: as hv_stream_fwd with fp32 q, k, v and o; `bk` and
-// `smem` are the plan of flash_attention.py::_stream_f32_plan.
+// `smem` are the plan of flash_attention.py::_stream_f32_plan at the tile
+// width.
 extern "C" int hv_stream_fwd_f32(const void* q, const void* k, const void* v,
                                  const float* bias, void* o, float* lse,
                                  int B, int H, int Sq, int Sk, int D, int bk,
@@ -867,15 +885,16 @@ extern "C" int hv_stream_fwd_f32(const void* q, const void* k, const void* v,
               *fk = static_cast<const float*>(k),
               *fv = static_cast<const float*>(v);
   float* fo = static_cast<float*>(o);
-  switch (D) {
-    case 64: return hv::launch_stream_f32<64>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, bk, smem, scale, strides, s);
-    case 128: return hv::launch_stream_f32<128>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, bk, smem, scale, strides, s);
-    case 256: return hv::launch_stream_f32<256>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, bk, smem, scale, strides, s);
-    case 512: return hv::launch_stream_f32<512>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, bk, smem, scale, strides, s);
-    case 640: return hv::launch_stream_f32<640>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, bk, smem, scale, strides, s);
+  switch (hv::stream_tile(D)) {
+    case 64: return hv::launch_stream_f32<64>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, D, bk, smem, scale, strides, s);
+    case 128: return hv::launch_stream_f32<128>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, D, bk, smem, scale, strides, s);
+    case 256: return hv::launch_stream_f32<256>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, D, bk, smem, scale, strides, s);
+    case 512: return hv::launch_stream_f32<512>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, D, bk, smem, scale, strides, s);
+    case 640: return hv::launch_stream_f32<640>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, D, bk, smem, scale, strides, s);
     default: return -1;
   }
 }
+#endif
 
 extern "C" const char* hv_stream_error_string(int code) {
   if (code == -1) return "unsupported head dim";

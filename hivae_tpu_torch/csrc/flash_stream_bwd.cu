@@ -1,7 +1,7 @@
 // Streaming attention backward for Hopper (sm_90a): a kernel for dQ, one
-// for dK and dV, and a pre-pass for delta = rowsum(dO * O), bf16 in and
-// out, fp32 accumulation, from the forward's natural-log LSE
-// (FlashAttention-2).
+// for dK and dV, and a pre-pass for delta = rowsum(dO * O), bf16 (or
+// fp16, built with -DHV_F16: attn_common.cuh) in and out, fp32
+// accumulation, from the forward's natural-log LSE (FlashAttention-2).
 //
 // Replaces hivae_tpu/ops/pallas/flash_attention.py::_stream_dq_kernel and
 // ::_stream_dkv_kernel (driven by stream_bwd): P = exp(s - lse);
@@ -172,9 +172,10 @@ __device__ __forceinline__ float4 load_chunk(const float* tile, int lt,
 
 struct SbArgs {
   const float *bias, *lse, *delta;
-  bf16 *dq, *dk, *dv;
+  e16 *dq, *dk, *dv;
   Rows sdq, sdk, sdv;
   int H, Sq, Sk;
+  int hd;  // the head dim (<= the tile's D)
   float scale;
 };
 
@@ -373,22 +374,24 @@ __device__ __forceinline__ void sb_grad(float (&acc)[NB][32],
   for (int c = 0; c < T / 16; ++c) fence_regs(fr[c]);
 }
 
-// A warpgroup's NB 64-column blocks of fp32 accumulators times sc, as bf16
+// A warpgroup's NB 64-column blocks of fp32 accumulators times sc, as e16
 // into p (rows rs elements apart) from column c0: its rows r0 and r1 (those
-// of this thread's fragments), each where v0 or v1.
+// of this thread's fragments), each where v0 or v1, and the columns below
+// the head dim hd.
 template <int NB>
-__device__ __forceinline__ void sb_store(bf16* p, long rs,
+__device__ __forceinline__ void sb_store(e16* p, long rs,
                                          const float (&acc)[NB][32], int r0,
                                          bool v0, int r1, bool v1, int c0,
-                                         int t, float sc) {
+                                         int t, float sc, int hd) {
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
     for (int jn = 0; jn < 8; ++jn) {
       const int col = c0 + nb * 64 + jn * 8 + 2 * t;
       const float* x = acc[nb] + 4 * jn;
-      if (v0) store_bf16x2(p + (long)r0 * rs + col, x[0], x[1], sc);
-      if (v1) store_bf16x2(p + (long)r1 * rs + col, x[2], x[3], sc);
+      if (col >= hd) continue;
+      if (v0) store_e16x2(p + (long)r0 * rs + col, x[0], x[1], sc);
+      if (v1) store_e16x2(p + (long)r1 * rs + col, x[2], x[3], sc);
     }
 }
 
@@ -410,8 +413,8 @@ stream_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   __shared__ uint64_t xbar[2];  // the exchange's landed and freed
   __shared__ float rows[SB_STAGES][2][SB_TILE_MAX];  // lse, delta of a slot
   unsigned char* base = sb_base(smem_raw);
-  const bf16* Ks = reinterpret_cast<const bf16*>(base);
-  const bf16* Vs = reinterpret_cast<const bf16*>(base + RB);
+  const e16* Ks = reinterpret_cast<const e16*>(base);
+  const e16* Vs = reinterpret_cast<const e16*>(base + RB);
   // tile 0: S^T (the peer's partial, then P^T); tile 1 (cluster): dP^T
   float* X = reinterpret_cast<float*>(base + 2 * RB + 2 * SB_STAGES * TB);
 
@@ -453,8 +456,8 @@ stream_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < nqt; ++i) {
     const int st = i % SB_STAGES;
     const unsigned char* sl = ring.next(i, tid);
-    const bf16* Qt = reinterpret_cast<const bf16*>(sl);
-    const bf16* Ot = reinterpret_cast<const bf16*>(sl + TB);
+    const e16* Qt = reinterpret_cast<const e16*>(sl);
+    const e16* Ot = reinterpret_cast<const e16*>(sl + TB);
 
     // WG0: S^T = K.Q^T; WG1: dP^T = V.dO^T (rows keys, columns queries)
     float x[32];
@@ -504,10 +507,10 @@ stream_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (wg == 0)
     sb_store(head_ptr(a.dv, a.sdv, b, h), a.sdv.s, acc, kr0, kv0, kr1, kv1,
-             c0, t, 1.f);
+             c0, t, 1.f, a.hd);
   else
     sb_store(head_ptr(a.dk, a.sdk, b, h), a.sdk.s, acc, kr0, kv0, kr1, kv1,
-             c0, t, a.scale);
+             c0, t, a.scale, a.hd);
 }
 
 template <int D>
@@ -525,8 +528,8 @@ stream_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   __shared__ uint64_t xbar[2];  // the exchange's landed and freed
   __shared__ float rows[SB_STAGES][2][SB_TILE_MAX];  // a slot's key bias
   unsigned char* base = sb_base(smem_raw);
-  const bf16* Qs = reinterpret_cast<const bf16*>(base);
-  const bf16* Os = reinterpret_cast<const bf16*>(base + RB);
+  const e16* Qs = reinterpret_cast<const e16*>(base);
+  const e16* Os = reinterpret_cast<const e16*>(base + RB);
   // tile 0: S (the peer's partial, then P); tile 1 (cluster): dP
   float* X = reinterpret_cast<float*>(base + 2 * RB + 2 * SB_STAGES * TB);
 
@@ -570,8 +573,8 @@ stream_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   for (int j = 0; j < nkt; ++j) {
     const int st = j % SB_STAGES;
     const unsigned char* sl = ring.next(j, tid);
-    const bf16* Kt = reinterpret_cast<const bf16*>(sl);
-    const bf16* Vt = reinterpret_cast<const bf16*>(sl + TB);
+    const e16* Kt = reinterpret_cast<const e16*>(sl);
+    const e16* Vt = reinterpret_cast<const e16*>(sl + TB);
 
     // WG0: S = Q.K^T; WG1: dP = dO.V^T
     float x[32];
@@ -617,16 +620,16 @@ stream_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (wg == 1)
     sb_store(head_ptr(a.dq, a.sdq, b, h), a.sdq.s, acc, r0, r0 < a.Sq, r1,
-             r1 < a.Sq, c0, t, a.scale);
+             r1 < a.Sq, c0, t, a.scale, a.hd);
 }
 
 // Both products of a warpgroup's 64 rows against a walked 64-row tile,
 // over D: d1 = A1.B1^T and d2 = A2.B2^T (A tiles of AROWS rows from row
 // a_row0, swizzled K-major, as wgmma_qk), issued together, then waited for.
 template <int D, int AROWS>
-__device__ __forceinline__ void wgmma_qk2(float (&d1)[32], const bf16* A1,
-                                          const bf16* B1, float (&d2)[32],
-                                          const bf16* A2, const bf16* B2,
+__device__ __forceinline__ void wgmma_qk2(float (&d1)[32], const e16* A1,
+                                          const e16* B1, float (&d2)[32],
+                                          const e16* A2, const e16* B2,
                                           int a_row0) {
   const unsigned char* a1 = reinterpret_cast<const unsigned char*>(A1) + a_row0 * 128;
   const unsigned char* a2 = reinterpret_cast<const unsigned char*>(A2) + a_row0 * 128;
@@ -669,8 +672,8 @@ stream_bwd_dkv_rows_kernel(const __grid_constant__ CUtensorMap tq,
   __shared__ uint64_t full[SB_STAGES + 1];  // slots' jobs, then K and V
   __shared__ float rows[SB_STAGES][2][T];  // lse, delta of a slot
   unsigned char* base = sb_base(smem_raw);
-  const bf16* Ks = reinterpret_cast<const bf16*>(base);
-  const bf16* Vs = reinterpret_cast<const bf16*>(base + OB);
+  const e16* Ks = reinterpret_cast<const e16*>(base);
+  const e16* Vs = reinterpret_cast<const e16*>(base + OB);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, rw = (warp & 3) * 16;
@@ -699,8 +702,8 @@ stream_bwd_dkv_rows_kernel(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < nqt; ++i) {
     const int st = i % SB_STAGES;
     const unsigned char* sl = ring.next(i, tid);
-    const bf16* Qt = reinterpret_cast<const bf16*>(sl);
-    const bf16* Ot = reinterpret_cast<const bf16*>(sl + TB);
+    const e16* Qt = reinterpret_cast<const e16*>(sl);
+    const e16* Ot = reinterpret_cast<const e16*>(sl + TB);
 
     float s[32], dp[32];  // S^T = K.Q^T and dP^T = V.dO^T of this WG's keys
     wgmma_qk2<D, 128>(s, Ks, Qt, dp, Vs, Ot, 64 * wg);
@@ -741,9 +744,9 @@ stream_bwd_dkv_rows_kernel(const __grid_constant__ CUtensorMap tq,
   ring_wait_upto(0);
 
   sb_store(head_ptr(a.dk, a.sdk, b, h), a.sdk.s, dka, kr0, kv0, kr1, kv1, 0,
-           t, a.scale);
+           t, a.scale, a.hd);
   sb_store(head_ptr(a.dv, a.sdv, b, h), a.sdv.s, dva, kr0, kv0, kr1, kv1, 0,
-           t, 1.f);
+           t, 1.f, a.hd);
 }
 
 // dQ at D <= 128: 128 query rows a CTA, warpgroup w owns rows 64 w.. and
@@ -761,8 +764,8 @@ stream_bwd_dq_rows_kernel(const __grid_constant__ CUtensorMap tq,
   __shared__ uint64_t full[SB_STAGES + 1];  // slots' jobs, then Q and dO
   __shared__ float rows[SB_STAGES][2][T];  // a slot's key bias
   unsigned char* base = sb_base(smem_raw);
-  const bf16* Qs = reinterpret_cast<const bf16*>(base);
-  const bf16* Os = reinterpret_cast<const bf16*>(base + OB);
+  const e16* Qs = reinterpret_cast<const e16*>(base);
+  const e16* Os = reinterpret_cast<const e16*>(base + OB);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2, rw = (warp & 3) * 16;
@@ -791,8 +794,8 @@ stream_bwd_dq_rows_kernel(const __grid_constant__ CUtensorMap tq,
   for (int j = 0; j < nkt; ++j) {
     const int st = j % SB_STAGES;
     const unsigned char* sl = ring.next(j, tid);
-    const bf16* Kt = reinterpret_cast<const bf16*>(sl);
-    const bf16* Vt = reinterpret_cast<const bf16*>(sl + TB);
+    const e16* Kt = reinterpret_cast<const e16*>(sl);
+    const e16* Vt = reinterpret_cast<const e16*>(sl + TB);
 
     float s[32], dp[32];  // S = Q.K^T and dP = dO.V^T of this WG's rows
     wgmma_qk2<D, 128>(s, Qs, Kt, dp, Os, Vt, 64 * wg);
@@ -814,7 +817,7 @@ stream_bwd_dq_rows_kernel(const __grid_constant__ CUtensorMap tq,
   ring_wait_upto(0);
 
   sb_store(head_ptr(a.dq, a.sdq, b, h), a.sdq.s, acc, r0, r0 < a.Sq, r1,
-           r1 < a.Sq, 0, t, a.scale);
+           r1 < a.Sq, 0, t, a.scale, a.hd);
 }
 
 // delta = rowsum(dO * O) in fp32 for every row (row_delta, as the
@@ -823,16 +826,18 @@ constexpr int SD_THREADS = 256;
 
 template <int D>
 __global__ void __launch_bounds__(SD_THREADS)
-stream_delta_kernel(const bf16* __restrict__ dout,
-                    const bf16* __restrict__ out, float* __restrict__ delta,
-                    int H, int Sq, long rows, Rows sdo, Rows so) {
+stream_delta_kernel(const e16* __restrict__ dout,
+                    const e16* __restrict__ out, float* __restrict__ delta,
+                    int H, int Sq, long rows, Rows sdo, Rows so, int hd) {
   const long row = ((long)blockIdx.x * SD_THREADS + threadIdx.x) >> 3;
-  const float acc = row_delta<D>(dout, out, row, rows, H, Sq, sdo, so);
+  const float acc = row_delta<D>(dout, out, row, rows, H, Sq, sdo, so, hd);
   if (row < rows && (threadIdx.x & 7) == 0) delta[row] = acc;
 }
 
-// A tensor map of one (B, H, S, D) bf16 operand with element strides
-// st[0..2] (batch, head, row), boxes of 64 columns x `rows` rows.
+// A tensor map of one (B, H, S, D) e16 operand (D the head dim) with
+// element strides st[0..2] (batch, head, row), boxes of 64 columns x `rows`
+// rows; a box's columns past D read zeros (a cluster CTA's whole slice
+// where it lies past D).
 static int sb_tmap(CUtensorMap* map, const void* x, int B, int H, int S,
                    int D, const long* st, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
@@ -840,8 +845,7 @@ static int sb_tmap(CUtensorMap* map, const void* x, int B, int H, int S,
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
                                  (cuuint64_t)st[0] * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  return make_tmap(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides,
-                   box);
+  return make_tmap(map, E16_TMAP, 4, x, dims, strides, box);
 }
 
 template <int D>
@@ -855,10 +859,10 @@ int launch_stream_bwd(bool dkv, const void* q, const void* k, const void* v,
   CUtensorMap tq, tk, tv, tdo;
   // boxes of 64 rows for the resident side, sb_tile for the walked one
   const int qbox = dkv ? sb_tile<D>() : 64, kbox = dkv ? 64 : sb_tile<D>();
-  int rc = sb_tmap(&tq, q, B, a.H, a.Sq, D, st, qbox);
-  if (!rc) rc = sb_tmap(&tk, k, B, a.H, a.Sk, D, st + 3, kbox);
-  if (!rc) rc = sb_tmap(&tv, v, B, a.H, a.Sk, D, st + 6, kbox);
-  if (!rc) rc = sb_tmap(&tdo, dout, B, a.H, a.Sq, D, st + 9, qbox);
+  int rc = sb_tmap(&tq, q, B, a.H, a.Sq, a.hd, st, qbox);
+  if (!rc) rc = sb_tmap(&tk, k, B, a.H, a.Sk, a.hd, st + 3, kbox);
+  if (!rc) rc = sb_tmap(&tv, v, B, a.H, a.Sk, a.hd, st + 6, kbox);
+  if (!rc) rc = sb_tmap(&tdo, dout, B, a.H, a.Sq, a.hd, st + 9, qbox);
   if (rc) return rc;
   void (*kern)(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, SbArgs);
   if constexpr (sb_split<D>())
@@ -895,18 +899,19 @@ int stream_bwd(bool dkv, const void* q, const void* k, const void* v,
   a.bias = bias;
   a.lse = lse;
   a.delta = delta;
-  a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
+  a.dq = static_cast<e16*>(dq);
+  a.dk = static_cast<e16*>(dk);
+  a.dv = static_cast<e16*>(dv);
   a.sdq = Rows{st[12], st[13], st[14]};
   a.sdk = Rows{st[15], st[16], st[17]};
   a.sdv = Rows{st[18], st[19], st[20]};
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;
+  a.hd = D;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
+  switch (stream_tile(D)) {
     case 64: return launch_stream_bwd<64>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
     case 128: return launch_stream_bwd<128>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
     case 256: return launch_stream_bwd<256>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
@@ -918,12 +923,12 @@ int stream_bwd(bool dkv, const void* q, const void* k, const void* v,
 
 template <int D>
 int launch_delta(const void* dout, const void* out, float* delta, int B,
-                 int H, int Sq, const long* st, cudaStream_t stream) {
+                 int H, int Sq, int hd, const long* st, cudaStream_t stream) {
   const long rows = (long)B * H * Sq;
   const long blocks = (rows * 8 + SD_THREADS - 1) / SD_THREADS;
   stream_delta_kernel<D><<<(unsigned)blocks, SD_THREADS, 0, stream>>>(
-      static_cast<const bf16*>(dout), static_cast<const bf16*>(out), delta, H,
-      Sq, rows, Rows{st[0], st[1], st[2]}, Rows{st[3], st[4], st[5]});
+      static_cast<const e16*>(dout), static_cast<const e16*>(out), delta, H,
+      Sq, rows, Rows{st[0], st[1], st[2]}, Rows{st[3], st[4], st[5]}, hd);
   return cudaGetLastError();
 }
 
@@ -1160,8 +1165,9 @@ __device__ __forceinline__ void fc_cta(const F32GradArgs& a, float* smem) {
   // the queries' lse and delta; dQ: the keys' bias)
   auto issue = [&](int i) {
     float* sl = ring + (i & 1) * SLOT;
-    f32_load_tile<DC, BT>(sl, wa1, ws1, i * BT, nwalk, tid);
-    f32_load_tile<DC, BT>(sl + TILE, wa2, ws2, i * BT, nwalk, tid);
+    f32_load_tile<DC, BT>(sl, wa1, ws1, i * BT, nwalk, tid, a.hd - c0);
+    f32_load_tile<DC, BT>(sl + TILE, wa2, ws2, i * BT, nwalk, tid,
+                          a.hd - c0);
     float* rows = sl + 2 * TILE;
     if constexpr (DKV) {
       load_row_f32<BT, F32_THREADS>(rows, a.s0 + rb, i * BT, a.Sq, tid);
@@ -1174,8 +1180,8 @@ __device__ __forceinline__ void fc_cta(const F32GradArgs& a, float* smem) {
 
   // the resident pair and its fp32 rows (dQ: the rows' lse and delta;
   // dK/dV: the keys' bias) ride in job 0's group
-  f32_load_tile<DC, R>(A1, ra1, rs1, r0, nres, tid);
-  f32_load_tile<DC, R>(A2, ra2, rs2, r0, nres, tid);
+  f32_load_tile<DC, R>(A1, ra1, rs1, r0, nres, tid, a.hd - c0);
+  f32_load_tile<DC, R>(A2, ra2, rs2, r0, nres, tid, a.hd - c0);
   if constexpr (DKV) {
     if (brow) load_row_f32<R, F32_THREADS>(ST, brow, r0, a.Sk, tid);
   } else {
@@ -1335,6 +1341,7 @@ __device__ __forceinline__ void fc_cta(const F32GradArgs& a, float* smem) {
 #pragma unroll
       for (int n = 0; n < NCW; ++n) {
         const int c = c0 + col + 8 * n + 2 * t;
+        if (c >= a.hd) continue;
         *reinterpret_cast<float2*>(o1 + (long)row * os1 + c) =
             make_float2(acc[m][n][2 * hf] * a.scale,
                         acc[m][n][2 * hf + 1] * a.scale);
@@ -1372,9 +1379,10 @@ __global__ void __launch_bounds__(SD_THREADS)
 stream_delta_f32_kernel(const float* __restrict__ dout,
                         const float* __restrict__ out,
                         float* __restrict__ delta, int H, int Sq, long rows,
-                        Rows sdo, Rows so) {
+                        Rows sdo, Rows so, int hd) {
   const long row = ((long)blockIdx.x * SD_THREADS + threadIdx.x) >> 3;
-  const float acc = row_delta_f32<D>(dout, out, row, rows, H, Sq, sdo, so);
+  const float acc =
+      row_delta_f32<D>(dout, out, row, rows, H, Sq, sdo, so, hd);
   if (row < rows && (threadIdx.x & 7) == 0) delta[row] = acc;
 }
 
@@ -1414,6 +1422,7 @@ int launch_stream_bwd_f32(const F32GradArgs& a, int B, int cluster,
   return cudaGetLastError();
 }
 
+#ifndef HV_F16
 int stream_bwd_f32(bool dkv, const void* q, const void* k, const void* v,
                    const float* bias, const void* dout, const float* lse,
                    const float* delta, void* dq, void* dk, void* dv, int B,
@@ -1438,6 +1447,7 @@ int stream_bwd_f32(bool dkv, const void* q, const void* k, const void* v,
   a.Sq = Sq;
   a.Sk = Sk;
   a.nqb = 0;
+  a.hd = D;
   a.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HV_SBF(DD)                                                          \
@@ -1446,7 +1456,7 @@ int stream_bwd_f32(bool dkv, const void* q, const void* k, const void* v,
                                                  smem, s)                     \
                : launch_stream_bwd_f32<DD, false>(a, B, cluster, rows, tile, \
                                                   smem, s);
-  switch (D) {
+  switch (stream_tile(D)) {
     HV_SBF(64)
     HV_SBF(128)
     HV_SBF(256)
@@ -1456,15 +1466,17 @@ int stream_bwd_f32(bool dkv, const void* q, const void* k, const void* v,
   }
 #undef HV_SBF
 }
+#endif
 
 template <int D>
 int launch_delta_f32(const void* dout, const void* out, float* delta, int B,
-                     int H, int Sq, const long* st, cudaStream_t stream) {
+                     int H, int Sq, int hd, const long* st,
+                     cudaStream_t stream) {
   const long rows = (long)B * H * Sq;
   const long blocks = (rows * 8 + SD_THREADS - 1) / SD_THREADS;
   stream_delta_f32_kernel<D><<<(unsigned)blocks, SD_THREADS, 0, stream>>>(
       static_cast<const float*>(dout), static_cast<const float*>(out), delta,
-      H, Sq, rows, Rows{st[0], st[1], st[2]}, Rows{st[3], st[4], st[5]});
+      H, Sq, rows, Rows{st[0], st[1], st[2]}, Rows{st[3], st[4], st[5]}, hd);
   return cudaGetLastError();
 }
 
@@ -1473,12 +1485,16 @@ int launch_delta_f32(const void* dout, const void* out, float* delta, int B,
 // Plain C entry points. `strides` holds 21 element strides: (batch, head,
 // row) for q, k, v, dout, dq, dk and dv in that order (the dQ kernel writes
 // dq only, the dK/dV kernel dk and dv); the last dimension of each is
-// contiguous. `lse` and `delta` are contiguous (B, H, Sq) fp32; `bias` is
-// null or a contiguous (B, Sk) fp32 key bias. `cluster`, `stages` and
-// `smem` are the launch plan of flash_attention.py::_stream_bwd_plan.
-// hv_stream_delta: `strides` holds 6, (batch, head, row) of dout and out;
-// writes a contiguous (B, H, Sq) fp32 `delta`. Each returns a cudaError_t,
-// -1 for an unsupported head dim, -2 for a plan the kernel does not take.
+// contiguous. D is the head dim, any multiple of 8 up to 640: the kernels
+// run the tile width hv::stream_tile(D) (columns past D read as zeros,
+// never stored). `lse` and `delta` are contiguous (B, H, Sq) fp32; `bias`
+// is null or a contiguous (B, Sk) fp32 key bias. `cluster`, `stages` and
+// `smem` are the launch plan of flash_attention.py::_stream_bwd_plan at
+// the tile width. hv_stream_delta: `strides` holds 6, (batch, head, row)
+// of dout and out; writes a contiguous (B, H, Sq) fp32 `delta`. Each
+// returns a cudaError_t, -1 for an unsupported head dim, -2 for a plan the
+// kernel does not take. Built with -DHV_F16 the tensors are fp16 and the
+// fp32 entry points are left out.
 extern "C" int hv_stream_bwd_dq(const void* q, const void* k, const void* v,
                                 const float* bias, const void* dout,
                                 const float* lse, const float* delta,
@@ -1507,19 +1523,21 @@ extern "C" int hv_stream_delta(const void* dout, const void* out,
                                float* delta, int B, int H, int Sq, int D,
                                const long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return hv::launch_delta<64>(dout, out, delta, B, H, Sq, strides, s);
-    case 128: return hv::launch_delta<128>(dout, out, delta, B, H, Sq, strides, s);
-    case 256: return hv::launch_delta<256>(dout, out, delta, B, H, Sq, strides, s);
-    case 512: return hv::launch_delta<512>(dout, out, delta, B, H, Sq, strides, s);
-    case 640: return hv::launch_delta<640>(dout, out, delta, B, H, Sq, strides, s);
+  switch (hv::stream_tile(D)) {
+    case 64: return hv::launch_delta<64>(dout, out, delta, B, H, Sq, D, strides, s);
+    case 128: return hv::launch_delta<128>(dout, out, delta, B, H, Sq, D, strides, s);
+    case 256: return hv::launch_delta<256>(dout, out, delta, B, H, Sq, D, strides, s);
+    case 512: return hv::launch_delta<512>(dout, out, delta, B, H, Sq, D, strides, s);
+    case 640: return hv::launch_delta<640>(dout, out, delta, B, H, Sq, D, strides, s);
     default: return -1;
   }
 }
 
+#ifndef HV_F16
 // fp32 entry points, as hv_stream_bwd_dq, hv_stream_bwd_dkv and
 // hv_stream_delta with fp32 tensors; `cluster`, `rows`, `tile` and `smem`
-// are the dQ or dK/dV plan of flash_attention.py::_stream_bwd_f32_plan.
+// are the dQ or dK/dV plan of flash_attention.py::_stream_bwd_f32_plan at
+// the tile width.
 extern "C" int hv_stream_bwd_dq_f32(const void* q, const void* k,
                                     const void* v, const float* bias,
                                     const void* dout, const float* lse,
@@ -1549,15 +1567,16 @@ extern "C" int hv_stream_delta_f32(const void* dout, const void* out,
                                    float* delta, int B, int H, int Sq, int D,
                                    const long* strides, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return hv::launch_delta_f32<64>(dout, out, delta, B, H, Sq, strides, s);
-    case 128: return hv::launch_delta_f32<128>(dout, out, delta, B, H, Sq, strides, s);
-    case 256: return hv::launch_delta_f32<256>(dout, out, delta, B, H, Sq, strides, s);
-    case 512: return hv::launch_delta_f32<512>(dout, out, delta, B, H, Sq, strides, s);
-    case 640: return hv::launch_delta_f32<640>(dout, out, delta, B, H, Sq, strides, s);
+  switch (hv::stream_tile(D)) {
+    case 64: return hv::launch_delta_f32<64>(dout, out, delta, B, H, Sq, D, strides, s);
+    case 128: return hv::launch_delta_f32<128>(dout, out, delta, B, H, Sq, D, strides, s);
+    case 256: return hv::launch_delta_f32<256>(dout, out, delta, B, H, Sq, D, strides, s);
+    case 512: return hv::launch_delta_f32<512>(dout, out, delta, B, H, Sq, D, strides, s);
+    case 640: return hv::launch_delta_f32<640>(dout, out, delta, B, H, Sq, D, strides, s);
     default: return -1;
   }
 }
+#endif
 
 extern "C" const char* hv_stream_bwd_error_string(int code) {
   if (code == -1) return "unsupported head dim";

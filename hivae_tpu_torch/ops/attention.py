@@ -10,16 +10,18 @@
     accumulation) - the JAX package's XLA path; its head packing is an XLA
     layout trick with the same math and is not ported. Above: a
     hand-written kernel (``ops/kernels/flash_attention.py``) - the
-    full-block kernel while ``full_block_fits`` holds, the streaming kernel
-    beyond it - where that kernel takes the operands (``kernel_route``): on
-    a CPU tensor always (the kernels' plain versions take any dtype), on
-    the card in bf16 or fp32 at the kernel's head dims, with a gradient or
-    without (each kernel, backward kernels included, has an fp32 sibling).
-    The kernel's wrapper copies an operand whose rows it cannot read to a
-    layout it can. Any other call above 256^2 logits (fp16; a head dim off
-    the kernels' lists) has no kernel here, where the TPU kernels take it:
-    it takes the plain path through ``sdpa_plain``, which counts it in
-    ``sdpa_plain.launches``;
+    full-block kernel while ``full_block_fits`` holds and the head dim is
+    at most 128 (its widest tile), the streaming kernel beyond either -
+    where that kernel takes the operands (``kernel_route``): on a CPU
+    tensor always (the kernels' plain versions take any dtype), on the card
+    in bf16, fp16 or fp32 at every head dim that is a multiple of 8 up to
+    640, with a gradient or without (``fa.tile_plan``: a head dim runs on
+    the smallest tile of its kernel >= it, 32/64/96/128 full-block and
+    64/128/256/512/640 streaming, zero-filled past it). The kernel's
+    wrapper copies an operand whose rows it cannot read to a layout it can.
+    A call above 256^2 logits past D 640 has no kernel here, where the TPU
+    kernels take it: it takes the plain path through ``sdpa_plain``, which
+    counts it in ``sdpa_plain.launches``;
   * ``xla``: the plain path, always (never counted: the JAX package runs
     XLA there too);
   * ``pallas``: the kernel ``kernel_route`` picks at any size, even at or
@@ -175,14 +177,22 @@ def _sdpa_plain(q, k, v, scale, key_mask):
 
 def _kernel_kind(q_shape, k_shape, impl: str = "auto") -> Optional[str]:
     """The kernel the JAX package's rule for ``impl`` picks for these
-    shapes, or None for its XLA path: None under ``xla``, up to 256^2
-    logits under ``auto`` or with D not a multiple of 8, else "full_block"
-    while ``full_block_fits`` holds and "stream" beyond it."""
+    shapes, as the port serves it, or None for its XLA path: None under
+    ``xla``, up to 256^2 logits under ``auto`` or with D not a multiple of
+    8, else "full_block" while ``full_block_fits`` holds and D is at most
+    the full-block kernels' widest tile (128), and "stream" beyond either.
+    (The JAX rule also sends short sequences at D > 128 to its full-block
+    kernel, e.g. (1, 2, 300, 512); the port's streaming kernels compute the
+    same function there, apart from a row with no key at all, whose
+    gradient differs, and no path makes one.)"""
     min_logits = 0 if impl == "pallas" else KERNEL_MIN_LOGITS
     if impl == "xla" or not (q_shape[2] * k_shape[2] > min_logits
                              and q_shape[3] % MIN_ALIGN == 0):
         return None
-    return "full_block" if full_block_fits(q_shape, k_shape) else "stream"
+    if full_block_fits(q_shape, k_shape) and \
+            q_shape[3] <= fa.FULL_BLOCK_TILES[-1]:
+        return "full_block"
+    return "stream"
 
 
 def _resolve(implementation: Optional[str]) -> str:
@@ -200,11 +210,15 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor,
     under ``implementation`` (default: the installed one): "ring",
     "full_block", "stream" or "plain". ``ring`` where the installed ring
     shards the shapes, else ``auto``'s route. The kernel ``_kernel_kind``
-    picks, on a CPU tensor always (its plain version takes any dtype) and
-    elsewhere only where that kernel takes the operands (``fa.takes``:
-    dtype, whether a gradient is needed, and head dim; any layout, which
-    the kernel's wrapper copies where the kernel cannot read it), else
-    "plain". ``v`` defaults to ``k``'s shape."""
+    picks (full-block at D <= 128 while ``full_block_fits``, else
+    streaming), on a CPU tensor always (its plain version takes any dtype)
+    and elsewhere where that kernel takes the operands (``fa.takes``:
+    bf16, fp16 or fp32, with a gradient or without, D a multiple of 8 up to
+    640 on the streaming kernels' tiles 64/128/256/512/640 and up to 128 on
+    the full-block ones' 32/64/96/128; any layout, which the kernel's
+    wrapper copies where the kernel cannot read it), else "plain": past D
+    640, or a dtype no kernel takes (fp64). ``v`` defaults to ``k``'s
+    shape."""
     impl = _resolve(implementation)
     if impl == "ring":
         if _ring_applicable(q.shape, k.shape):
@@ -220,11 +234,11 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor,
 
 def sdpa_plain(q, k, v, scale, key_mask):
     """The plain path for a call above 256^2 logits that no kernel takes on
-    its device (fp16, a head dim off the kernels' lists; bf16 and fp32 at
-    the kernels' head dims take the kernels), where the JAX package runs a
-    Pallas kernel: counted in ``sdpa_plain.launches`` as the kernel
-    wrappers count their launches, so a run sees attention that left the
-    kernels."""
+    its device (a head dim past 640, the streaming kernels' widest tile, or
+    a dtype other than bf16, fp16 and fp32; every multiple of 8 up to 640
+    in those three takes a kernel), where the JAX package runs a Pallas
+    kernel: counted in ``sdpa_plain.launches`` as the kernel wrappers count
+    their launches, so a run sees attention that left the kernels."""
     sdpa_plain.launches += 1
     return _sdpa_plain(q, k, v, scale, key_mask)
 

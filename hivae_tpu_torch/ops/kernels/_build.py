@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface and loaded with
-``ctypes``. Libraries are built on first use into ``hivae_tpu_torch/build/``
-(git-ignored), named by a hash of their sources so an edited kernel is
-rebuilt, and all requested sources compile concurrently (one ``nvcc`` each).
+``ctypes``; each attention source is compiled twice, into ``<name>`` (its
+16-bit kernels in bf16, and its fp32 ones) and ``<name>_f16`` (with
+``-DHV_F16``: the 16-bit kernels in fp16 only). Libraries are built on first
+use into ``hivae_tpu_torch/build/`` (git-ignored), named by a hash of their
+sources and flags so an edited kernel is rebuilt, and all requested
+libraries compile concurrently (one ``nvcc`` each).
 Nothing here runs at import time: this module imports on machines without
 a GPU or a CUDA toolkit.
 """
@@ -24,8 +27,13 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNEL_SOURCES = ("flash_full_block", "flash_full_block_bwd", "flash_stream",
-                  "flash_stream_bwd", "quant_ffn")
+ATTENTION_SOURCES = ("flash_full_block", "flash_full_block_bwd",
+                     "flash_stream", "flash_stream_bwd")
+# every library by name: (its source under csrc/, its extra nvcc flags)
+LIBRARIES = dict(
+    {n: (n, ()) for n in ATTENTION_SOURCES + ("quant_ffn",)},
+    **{f"{n}_f16": (n, ("-DHV_F16",)) for n in ATTENTION_SOURCES})
+KERNEL_SOURCES = tuple(LIBRARIES)
 
 # nvcc's stderr per source from this process's builds (ptxas register and
 # shared-memory report); empty for a library found already built
@@ -45,18 +53,23 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _flags(name: str):
+    return [*NVCC_FLAGS, *LIBRARIES[name][1]]
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{LIBRARIES[name][0]}.cu"]:
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES,
           timeout: float = 900.0) -> Dict[str, Path]:
-    """Compile every named source that has no current library, all at once;
-    returns {name: library path}. Raises with nvcc's output on failure."""
+    """Compile every named library (``LIBRARIES``) that has no current
+    build, all at once; returns {name: library path}. Raises with nvcc's
+    output on failure."""
     names = list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
@@ -65,7 +78,8 @@ def build(names: Iterable[str] = KERNEL_SOURCES,
         if paths[n].exists():
             continue
         tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *_flags(n), "-o", str(tmp),
+               str(CSRC / f"{LIBRARIES[n][0]}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.PIPE, text=True), tmp)
     failed = []
@@ -89,7 +103,8 @@ def build(names: Iterable[str] = KERNEL_SOURCES,
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library ``name`` (``LIBRARIES``), building it if
+    needed."""
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))

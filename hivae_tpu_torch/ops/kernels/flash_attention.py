@@ -56,9 +56,25 @@ launches apart from its bf16 sibling, in ``<wrapper>_f32.launches``
 ``full_block_attention_qknorm_f32``, ``full_block_attention_bwd_f32``,
 ``full_block_attention_delta_f32``, ``stream_attention_bwd_dq_f32``,
 ``stream_attention_bwd_dkv_f32``, ``stream_attention_delta_f32``): plain
-counters, not functions; the wrapper is called with fp32 operands. fp16
-has no kernel: ``takes`` refuses it, and ``ops.attention`` sends it to its
-counted ``sdpa_plain``.
+counters, not functions; the wrapper is called with fp32 operands.
+
+fp16 runs the bf16 kernels' own designs: each attention source is built a
+second time with ``-DHV_F16`` (``_build.LIBRARIES``, ``<name>_f16``), which
+makes its 16-bit element type fp16 (the ``.f16`` forms of the same
+``mma.sync`` and ``wgmma`` shapes, fp16 TMA maps, P rounded to v's dtype and
+dS to q's, as the Pallas kernels round them). Each fp16 form counts its
+launches in ``<wrapper>_f16.launches`` (``full_block_attention_f16``, ...),
+as the fp32 siblings do.
+
+Head dims: each kernel is compiled for a few tile widths (``FULL_BLOCK_TILES``
+32, 64, 96, 128; ``STREAM_TILES`` 64, 128, 256, 512, 640) and runs a call at
+head dim D on the smallest tile >= D (``tile_plan``): its loads fill the
+columns past D with zeros and its stores write the first D, which is exact
+(zero columns add nothing to Q.K^T, dO.V^T or delta; ``scale`` stays the
+caller's). So every D % 8 == 0 up to 128 (full-block) or 640 (streaming)
+has a kernel, in bf16, fp16 and fp32, with a gradient or without; a call
+past 640 has none (``takes`` refuses it, and ``ops.attention`` counts it
+in ``sdpa_plain``).
 
 ``full_block_attention``, ``full_block_attention_qknorm`` and
 ``stream_attention`` are differentiable: on a
@@ -103,13 +119,26 @@ import torch
 
 from . import _build
 
-# the dtypes each forward kernel takes; a call whose gradient is needed
-# takes the backward kernels too, which take the same two
-_KERNEL_DTYPES = {"full_block": (torch.bfloat16, torch.float32),
-                  "stream": (torch.bfloat16, torch.float32)}
-_GRAD_DTYPES = (torch.bfloat16, torch.float32)
-_FULL_BLOCK_DIMS = (32, 64, 96, 128)
-_STREAM_DIMS = (64, 128, 256, 512, 640)
+# the dtypes every attention kernel takes, forward and backward alike: bf16
+# and fp16 on the 16-bit kernels (one library each), fp32 on their fp32
+# siblings
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# the head-dim tile widths each kind of kernel is compiled for
+FULL_BLOCK_TILES = (32, 64, 96, 128)
+STREAM_TILES = (64, 128, 256, 512, 640)
+_TILES = {"full_block": FULL_BLOCK_TILES, "stream": STREAM_TILES}
+
+
+def tile_plan(kind: str, dtype: torch.dtype, d: int) -> Optional[int]:
+    """The tile width the ``kind`` kernels ("full_block" or "stream"),
+    forward and backward alike, run a call at head dim ``d`` in ``dtype``
+    on: the smallest of their tiles >= d (``hv::full_block_tile`` /
+    ``hv::stream_tile`` in csrc/attn_common.cuh pick the same), or None
+    where no kernel takes the call (a dtype other than bf16, fp16 and fp32;
+    d not a positive multiple of 8, or past the widest tile)."""
+    if dtype not in KERNEL_DTYPES or d <= 0 or d % 8:
+        return None
+    return next((t for t in _TILES[kind] if d <= t), None)
 
 
 # ---------------------------------------------------------------------------
@@ -265,24 +294,20 @@ def stream_attention_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 # ---------------------------------------------------------------------------
 
 
-_KERNEL_DIMS = {"full_block": _FULL_BLOCK_DIMS, "stream": _STREAM_DIMS}
-
-
 def _refusal(kind, q, k, v, layout=True, grad=False):
     """Why the ``kind`` kernel ("full_block" or "stream") does not take q,
     k, v, as (exception type, message), or None when it does: one dtype
-    among the kernel's (bf16 or fp32, forward and, with ``grad``, backward
-    kernels alike; fp16 none), (B, H, S, D)
-    with (where ``layout``) a contiguous last dim and 16-byte aligned rows,
-    k and v of one shape matching q's batch, heads and head dim, D among
-    the kernel's head dims. The device is not looked at."""
-    dtypes = _GRAD_DTYPES if grad else _KERNEL_DTYPES[kind]
+    among bf16, fp16 and fp32 (forward and, with ``grad``, backward kernels
+    alike), (B, H, S, D) with (where ``layout``) a contiguous last dim and
+    16-byte aligned rows, k and v of one shape matching q's batch, heads and
+    head dim, and a tile for D (``tile_plan``: a multiple of 8 up to 128
+    full-block, 640 streaming). The device is not looked at."""
     for x in (q, k, v):
-        if x.dtype not in dtypes or x.dtype != q.dtype:
-            names = " or ".join(str(t)[6:] for t in dtypes)
-            return TypeError, (f"the CUDA kernel takes {names}"
+        if x.dtype not in KERNEL_DTYPES or x.dtype != q.dtype:
+            names = " or ".join(str(t)[6:] for t in KERNEL_DTYPES)
+            return TypeError, (f"the CUDA kernel takes one of {names}"
                                f"{' with a gradient' if grad else ''}, got "
-                               f"{x.dtype}")
+                               f"{x.dtype} (q {q.dtype})")
         if x.dim() != 4 or (layout and not _aligned(x)):
             return ValueError, (f"want (B, H, S, D) with a contiguous last "
                                 f"dim and 16-byte aligned rows, got "
@@ -291,8 +316,10 @@ def _refusal(kind, q, k, v, layout=True, grad=False):
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         return ValueError, (f"shape mismatch q {tuple(q.shape)} "
                             f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    if d not in _KERNEL_DIMS[kind]:
-        return ValueError, f"head dim {d} not in {_KERNEL_DIMS[kind]}"
+    if tile_plan(kind, q.dtype, d) is None:
+        return ValueError, (f"head dim {d}: the {kind} kernels take a "
+                            f"multiple of 8 up to {_TILES[kind][-1]} (tiles "
+                            f"{_TILES[kind]})")
     return None
 
 
@@ -303,8 +330,8 @@ def takes(kind: str, q: torch.Tensor, k: torch.Tensor,
     each to a layout it reads: the condition under which its wrappers
     launch rather than raise, for a tensor on a CUDA card. ``grad``
     (default: whether autograd records the call, ``_needs_grad``) asks for
-    the backward kernels too, which take the same dtypes. The gate of
-    ``ops.attention.sdpa`` asks this."""
+    the backward kernels too, which take the same dtypes and head dims. The
+    gate of ``ops.attention.sdpa`` asks this."""
     if grad is None:
         grad = _needs_grad(q, k, v)
     return _refusal(kind, q, k, v, layout=False, grad=grad) is None
@@ -791,98 +818,67 @@ def _stream_bwd_f32_plan(d: int) -> StreamBwdF32Plan:
 
 
 def _fn(lib_name, sym, n_ptr, n_int, n_float=1):
-    """The C entry point ``sym`` of ``csrc/<lib_name>.cu`` (n_ptr pointers,
+    """The C entry point ``sym`` of library ``lib_name`` (``_build.LIBRARIES``:
+    ``csrc/<source>.cu``, built as is or with -DHV_F16; n_ptr pointers,
     n_int ints, n_float floats (the scale, ...), the strides and the stream)
     and the library's error-string function
-    ``hv_<lib_name less "flash_">_error_string``."""
+    ``hv_<source less "flash_">_error_string``."""
     lib = _build.load(lib_name)
     fn = getattr(lib, sym)
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
         ctypes.c_float] * n_float + [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = getattr(lib, f"hv_{lib_name[6:]}_error_string")
+    source = _build.LIBRARIES[lib_name][0]
+    err = getattr(lib, f"hv_{source[6:]}_error_string")
     err.restype = ctypes.c_char_p
     return fn, err
 
 
-@functools.lru_cache(maxsize=None)
-def _full_block_fn():
-    return _fn("flash_full_block", "hv_full_block_fwd", 8, 8, 2)
+# each entry point: (source, symbol, pointers, ints, floats); a 16-bit entry
+# point is looked up in the fp16 library for fp16 operands
+_ENTRIES = {
+    "full_block": ("flash_full_block", "hv_full_block_fwd", 8, 8, 2),
+    "full_block_bwd": ("flash_full_block_bwd", "hv_full_block_bwd", 11, 7, 1),
+    "full_block_delta": ("flash_full_block_bwd", "hv_full_block_delta", 5, 4,
+                         0),
+    "stream": ("flash_stream", "hv_stream_fwd", 6, 7, 1),
+    "stream_dq": ("flash_stream_bwd", "hv_stream_bwd_dq", 8, 8, 1),
+    "stream_dkv": ("flash_stream_bwd", "hv_stream_bwd_dkv", 9, 8, 1),
+    "stream_delta": ("flash_stream_bwd", "hv_stream_delta", 3, 4, 0),
+    "full_block_f32": ("flash_full_block", "hv_full_block_fwd_f32", 8, 8, 2),
+    "full_block_bwd_f32": ("flash_full_block_bwd", "hv_full_block_bwd_f32",
+                           11, 9, 1),
+    "full_block_delta_f32": ("flash_full_block_bwd",
+                             "hv_full_block_delta_f32", 5, 4, 0),
+    "stream_f32": ("flash_stream", "hv_stream_fwd_f32", 6, 7, 1),
+    "stream_dq_f32": ("flash_stream_bwd", "hv_stream_bwd_dq_f32", 8, 9, 1),
+    "stream_dkv_f32": ("flash_stream_bwd", "hv_stream_bwd_dkv_f32", 9, 9, 1),
+    "stream_delta_f32": ("flash_stream_bwd", "hv_stream_delta_f32", 3, 4, 0),
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _full_block_bwd_fn():
-    return _fn("flash_full_block_bwd", "hv_full_block_bwd", 11, 7)
-
-
-@functools.lru_cache(maxsize=None)
-def _full_block_delta_fn():
-    return _fn("flash_full_block_bwd", "hv_full_block_delta", 5, 4, 0)
-
-
-@functools.lru_cache(maxsize=None)
-def _stream_fn():
-    return _fn("flash_stream", "hv_stream_fwd", 6, 7)
-
-
-@functools.lru_cache(maxsize=None)
-def _stream_f32_fn():
-    return _fn("flash_stream", "hv_stream_fwd_f32", 6, 7)
-
-
-@functools.lru_cache(maxsize=None)
-def _stream_dq_fn():
-    return _fn("flash_stream_bwd", "hv_stream_bwd_dq", 8, 8)
-
-
-@functools.lru_cache(maxsize=None)
-def _stream_dkv_fn():
-    return _fn("flash_stream_bwd", "hv_stream_bwd_dkv", 9, 8)
-
-
-@functools.lru_cache(maxsize=None)
-def _stream_delta_fn():
-    return _fn("flash_stream_bwd", "hv_stream_delta", 3, 4, 0)
-
-
-@functools.lru_cache(maxsize=None)
-def _full_block_f32_fn():
-    return _fn("flash_full_block", "hv_full_block_fwd_f32", 8, 8, 2)
-
-
-@functools.lru_cache(maxsize=None)
-def _full_block_bwd_f32_fn():
-    return _fn("flash_full_block_bwd", "hv_full_block_bwd_f32", 11, 9)
-
-
-@functools.lru_cache(maxsize=None)
-def _full_block_delta_f32_fn():
-    return _fn("flash_full_block_bwd", "hv_full_block_delta_f32", 5, 4, 0)
-
-
-@functools.lru_cache(maxsize=None)
-def _stream_dq_f32_fn():
-    return _fn("flash_stream_bwd", "hv_stream_bwd_dq_f32", 8, 9)
-
-
-@functools.lru_cache(maxsize=None)
-def _stream_dkv_f32_fn():
-    return _fn("flash_stream_bwd", "hv_stream_bwd_dkv_f32", 9, 9)
-
-
-@functools.lru_cache(maxsize=None)
-def _stream_delta_f32_fn():
-    return _fn("flash_stream_bwd", "hv_stream_delta_f32", 3, 4, 0)
+def _entry(name: str, dtype: torch.dtype):
+    """(entry point, error-string function) of ``_ENTRIES[name]`` for
+    operands of ``dtype``: the fp32 one (``<name>_f32``) for fp32, the
+    16-bit one from the bf16 library or, for fp16, the fp16 library."""
+    if dtype == torch.float32:
+        name += "_f32"
+    source, sym, n_ptr, n_int, n_float = _ENTRIES[name]
+    lib = source + "_f16" if dtype == torch.float16 else source
+    return _fn(lib, sym, n_ptr, n_int, n_float)
 
 
 def _f32(x):
     return x.dtype == torch.float32
 
 
-def _count(wrapper, wrapper_f32, x):
-    """One launch more on ``wrapper``'s counter, or on its fp32 sibling's
-    for fp32 operands."""
-    (wrapper_f32 if _f32(x) else wrapper).launches += 1
+def _count(wrapper, x):
+    """One launch more on ``wrapper``'s counter (bf16 operands), or on its
+    fp32 or fp16 sibling's (``<name>_f32``, ``<name>_f16``)."""
+    sibling = {torch.float32: "_f32", torch.float16: "_f16"}.get(x.dtype)
+    (globals()[wrapper.__name__ + sibling] if sibling else
+     wrapper).launches += 1
 
 
 def _launch(name, fn_err, *args):
@@ -893,19 +889,19 @@ def _launch(name, fn_err, *args):
 
 
 def _launch_full_block(name, q, k, v, bias, norms, m, l, scale, eps):
-    """One launch of the forward kernel under ``_full_block_plan`` (bf16)
-    or ``_full_block_f32_plan`` (fp32) -> out; ``norms`` is None or the
-    packed (4, D) qk-norm parameters."""
+    """One launch of the forward kernel under ``_full_block_plan`` (bf16,
+    fp16) or ``_full_block_f32_plan`` (fp32) at the head dim's tile -> out;
+    ``norms`` is None or the packed (4, tile) qk-norm parameters."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    tile = tile_plan("full_block", q.dtype, d)
     if _f32(q):
-        plan = _full_block_f32_plan(d)
-        fn, plan_args = _full_block_f32_fn(), (plan.rows, plan.tile,
-                                               plan.fwd_smem)
+        plan = _full_block_f32_plan(tile)
+        plan_args = (plan.rows, plan.tile, plan.fwd_smem)
     else:
-        plan = _full_block_plan(sq, sk, d)
-        fn, plan_args = _full_block_fn(), (plan.fwd_stages,
-                                           int(plan.resident), plan.fwd_smem)
+        plan = _full_block_plan(sq, sk, tile)
+        plan_args = (plan.fwd_stages, int(plan.resident), plan.fwd_smem)
+    fn = _entry("full_block", q.dtype)
     out = _empty_out(q)
     _launch(name, fn, _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(norms),
             _ptr(out), _ptr(m), _ptr(l), b, h, sq, sk, d, *plan_args,
@@ -921,12 +917,14 @@ def _full_block_fwd(q, k, v, bias, scale, stats):
     m, l = (_row_stats(q), _row_stats(q)) if stats else (None, None)
     out = _launch_full_block("full_block_attention", q, k, v, bias, None, m,
                              l, scale, 0.0)
-    _count(full_block_attention, full_block_attention_f32, q)
+    _count(full_block_attention, q)
     return out, m, l
 
 
 def _full_block_qknorm_fwd(q, k, v, norms, bias, scale, eps):
-    """qk-norm forward launch -> out; ``norms`` = (gq, bq, gk, bk)."""
+    """qk-norm forward launch -> out; ``norms`` = (gq, bq, gk, bk), packed
+    as fp32 (4, tile) rows zero-padded past D (the kernel's LayerNorm keeps
+    the padded columns zero and averages over D)."""
     _check("full_block_attention_qknorm", q, k, v, bias, "full_block")
     d = q.shape[3]
     for x in norms:
@@ -934,33 +932,37 @@ def _full_block_qknorm_fwd(q, k, v, norms, bias, scale, eps):
             raise ValueError(f"full_block_attention_qknorm: norm parameters "
                              f"must be ({d},) on {q.device}, got "
                              f"{tuple(x.shape)} on {x.device}")
-    packed = torch.stack([x.detach().float() for x in norms]).contiguous()
+    tile = tile_plan("full_block", q.dtype, d)
+    packed = torch.zeros((4, tile), dtype=torch.float32, device=q.device)
+    packed[:, :d] = torch.stack([x.detach().float() for x in norms])
     out = _launch_full_block("full_block_attention_qknorm", q, k, v, bias,
                              packed, None, None, scale, eps)
-    _count(full_block_attention_qknorm, full_block_attention_qknorm_f32, q)
+    _count(full_block_attention_qknorm, q)
     return out
 
 
 def full_block_attention_delta(do, out, l):
     """Pre-pass kernel of the full-block backward: (delta = rowsum(dO * O),
-    1/l), each (B, H, Sq) fp32, from the bf16 or fp32 ``do`` and ``out``
-    (B, H, Sq, D) and the forward's denominator ``l``."""
+    1/l), each (B, H, Sq) fp32, from the bf16, fp16 or fp32 ``do`` and
+    ``out`` (B, H, Sq, D) and the forward's denominator ``l``."""
     if do.device.type != "cuda":
         raise ValueError(f"full_block_attention_delta: no kernel for device "
                          f"{do.device}")
-    if do.dtype not in _GRAD_DTYPES or out.dtype != do.dtype or \
-            do.shape != out.shape or not (_aligned(do) and _aligned(out)) \
-            or l.shape != do.shape[:3] or not l.is_contiguous():
-        raise ValueError("full_block_attention_delta: want bf16 or fp32 "
-                         "(B, H, Sq, D) do and out with 16-byte aligned rows "
-                         "and a contiguous (B, H, Sq) l")
+    if do.dim() != 4 or out.dtype != do.dtype or do.shape != out.shape or \
+            tile_plan("full_block", do.dtype, do.shape[3]) is None or \
+            not (_aligned(do) and _aligned(out)) or \
+            l.shape != do.shape[:3] or not l.is_contiguous():
+        raise ValueError(f"full_block_attention_delta: want bf16, fp16 or "
+                         f"fp32 (B, H, Sq, D) do and out, D a multiple of 8 "
+                         f"up to {FULL_BLOCK_TILES[-1]}, with 16-byte "
+                         f"aligned rows and a contiguous (B, H, Sq) l")
     b, h, sq, d = do.shape
     delta, inv_l = _row_stats(do), _row_stats(do)
-    fn = _full_block_delta_f32_fn() if _f32(do) else _full_block_delta_fn()
-    _launch("full_block_attention_delta", fn, _ptr(do), _ptr(out), _ptr(l),
-            _ptr(delta), _ptr(inv_l), b, h, sq, d, _strides(do, out),
-            _stream_of(do))
-    _count(full_block_attention_delta, full_block_attention_delta_f32, do)
+    _launch("full_block_attention_delta", _entry("full_block_delta",
+                                                 do.dtype),
+            _ptr(do), _ptr(out), _ptr(l), _ptr(delta), _ptr(inv_l), b, h, sq,
+            d, _strides(do, out), _stream_of(do))
+    _count(full_block_attention_delta, do)
     return delta, inv_l
 
 
@@ -977,21 +979,22 @@ def full_block_attention_bwd(q, k, v, do, out, m, l, *, scale: float,
     do = kernel_layout(do)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    tile = tile_plan("full_block", q.dtype, d)
     if _f32(q):
-        plan = _full_block_f32_plan(d)
-        fn, plan_args = _full_block_bwd_f32_fn(), (
-            plan.bwd_rows, plan.bwd_rows, plan.bwd_tile, plan.bwd_smem)
+        plan = _full_block_f32_plan(tile)
+        plan_args = (plan.bwd_rows, plan.bwd_rows, plan.bwd_tile,
+                     plan.bwd_smem)
     else:
-        plan = _full_block_plan(sq, sk, d)
-        fn, plan_args = _full_block_bwd_fn(), (plan.bwd_stages,
-                                               plan.bwd_smem)
+        plan = _full_block_plan(sq, sk, tile)
+        plan_args = (plan.bwd_stages, plan.bwd_smem)
+    fn = _entry("full_block_bwd", q.dtype)
     delta, inv_l = full_block_attention_delta(do, out, l)
     dq, dk, dv = _empty_out(q), _empty_out(k), _empty_out(v)
     _launch("full_block_attention_bwd", fn, _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(do), _ptr(m), _ptr(inv_l), _ptr(delta), _ptr(dq),
             _ptr(dk), _ptr(dv), b, h, sq, sk, d, *plan_args, float(scale),
             _strides(q, k, v, do, dq, dk, dv), _stream_of(q))
-    _count(full_block_attention_bwd, full_block_attention_bwd_f32, q)
+    _count(full_block_attention_bwd, q)
     return dq, dk, dv
 
 
@@ -999,66 +1002,67 @@ full_block_attention_bwd.launches = 0
 
 
 def _stream_fwd(q, k, v, bias, scale, grad=False):
-    """Forward launch -> (out, lse (B, H, Sq, 1)): the bf16 kernel, or for
-    fp32 operands the fp32 one (whose LSE the fp32 backward takes)."""
+    """Forward launch -> (out, lse (B, H, Sq, 1)): the 16-bit kernel (bf16
+    or fp16), or for fp32 operands the fp32 one (whose LSE the fp32
+    backward takes), at the head dim's tile."""
     _check("stream_attention", q, k, v, bias, "stream", grad=grad)
     b, h, sq, d = q.shape
     out = _empty_out(q)
     lse = _row_stats(q)
+    tile = tile_plan("stream", q.dtype, d)
     if q.dtype == torch.float32:
-        plan = _stream_f32_plan(d)
-        fn, plan_args = _stream_f32_fn(), (plan.tile, plan.smem)
+        plan = _stream_f32_plan(tile)
+        plan_args = (plan.tile, plan.smem)
     else:
-        plan = _stream_plan(d)
-        fn, plan_args = _stream_fn(), (plan.stages, plan.smem)
-    _launch("stream_attention", fn, _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
+        plan = _stream_plan(tile)
+        plan_args = (plan.stages, plan.smem)
+    _launch("stream_attention", _entry("stream", q.dtype), _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
             _ptr(out), _ptr(lse), b, h, sq, k.shape[2], d, *plan_args,
             float(scale), _strides(q, k, v, out), _stream_of(q))
-    _count(stream_attention, stream_attention_f32, q)
+    _count(stream_attention, q)
     return out, lse[..., None]
 
 
 def stream_attention_delta(do: torch.Tensor, out: torch.Tensor
                            ) -> torch.Tensor:
     """Pre-pass kernel of the streaming backward: delta = rowsum(dO * O),
-    contiguous (B, H, Sq) fp32, from the bf16 or fp32 (B, H, Sq, D) ``do``
-    and the forward's ``out``. Its plain version is ``_delta``, which a CPU
-    tensor gets."""
+    contiguous (B, H, Sq) fp32, from the bf16, fp16 or fp32 (B, H, Sq, D)
+    ``do`` and the forward's ``out``. Its plain version is ``_delta``, which
+    a CPU tensor gets."""
     if do.device.type == "cpu":
         return _delta(do, out)
     if do.device.type != "cuda":
         raise ValueError(f"stream_attention_delta: no kernel for device "
                          f"{do.device}")
-    if do.dtype not in _GRAD_DTYPES or out.dtype != do.dtype or \
-            do.shape != out.shape or do.dim() != 4 or \
-            do.shape[3] not in _STREAM_DIMS or \
+    if do.dim() != 4 or out.dtype != do.dtype or do.shape != out.shape or \
+            tile_plan("stream", do.dtype, do.shape[3]) is None or \
             not (_aligned(do) and _aligned(out)):
-        raise ValueError(f"stream_attention_delta: want bf16 or fp32 "
-                         f"(B, H, Sq, D) do and out, D in {_STREAM_DIMS}, "
-                         f"with 16-byte aligned rows")
+        raise ValueError(f"stream_attention_delta: want bf16, fp16 or fp32 "
+                         f"(B, H, Sq, D) do and out, D a multiple of 8 up "
+                         f"to {STREAM_TILES[-1]}, with 16-byte aligned rows")
     b, h, sq, d = do.shape
     delta = _row_stats(do)
-    fn = _stream_delta_f32_fn() if _f32(do) else _stream_delta_fn()
-    _launch("stream_attention_delta", fn, _ptr(do), _ptr(out), _ptr(delta),
-            b, h, sq, d, _strides(do, out), _stream_of(do))
-    _count(stream_attention_delta, stream_attention_delta_f32, do)
+    _launch("stream_attention_delta", _entry("stream_delta", do.dtype),
+            _ptr(do), _ptr(out), _ptr(delta), b, h, sq, d, _strides(do, out),
+            _stream_of(do))
+    _count(stream_attention_delta, do)
     return delta
 
 
 stream_attention_delta.launches = 0
 
 
-def _stream_bwd_launch(d, f32, dkv):
+def _stream_bwd_launch(d, dtype, dkv):
     """(entry point, plan arguments) of the dQ (``dkv`` False) or dK/dV
-    kernel at head dim ``d``: bf16 (cluster, slots, shared bytes) or fp32
-    (cluster, rows, tile, shared bytes)."""
-    if f32:
-        plan = getattr(_stream_bwd_f32_plan(d), "dkv" if dkv else "dq")
-        return ((_stream_dkv_f32_fn if dkv else _stream_dq_f32_fn)(),
-                (plan.cluster, plan.rows, plan.tile, plan.smem))
-    plan = _stream_bwd_plan(d)
-    return ((_stream_dkv_fn if dkv else _stream_dq_fn)(),
-            (plan.cluster, plan.stages, plan.smem))
+    kernel at head dim ``d``'s tile: bf16 and fp16 (cluster, slots, shared
+    bytes) or fp32 (cluster, rows, tile, shared bytes)."""
+    tile = tile_plan("stream", dtype, d)
+    fn = _entry("stream_dkv" if dkv else "stream_dq", dtype)
+    if dtype == torch.float32:
+        plan = getattr(_stream_bwd_f32_plan(tile), "dkv" if dkv else "dq")
+        return fn, (plan.cluster, plan.rows, plan.tile, plan.smem)
+    plan = _stream_bwd_plan(tile)
+    return fn, (plan.cluster, plan.stages, plan.smem)
 
 
 def _stream_bwd_args(name, q, k, v, do, lse, delta, bias):
@@ -1072,19 +1076,19 @@ def stream_attention_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
                             bias: Optional[torch.Tensor] = None):
     """dQ kernel: dq from the cotangent ``do``, the forward's ``lse`` and
     ``delta`` = rowsum(dO * O), each (B, H, Sq) or (B, H, Sq, 1) fp32 (a
-    ring hop passes global ones), under ``_stream_bwd_plan`` (bf16) or
-    ``_stream_bwd_f32_plan`` (fp32). Its plain version is
-    ``stream_attention_bwd_dq_plain``."""
+    ring hop passes global ones), under ``_stream_bwd_plan`` (bf16, fp16)
+    or ``_stream_bwd_f32_plan`` (fp32) at the head dim's tile. Its plain
+    version is ``stream_attention_bwd_dq_plain``."""
     do, lse, delta = _stream_bwd_args("stream_attention_bwd_dq", q, k, v, do,
                                       lse, delta, bias)
     b, h, sq, d = q.shape
-    fn, plan_args = _stream_bwd_launch(d, _f32(q), dkv=False)
+    fn, plan_args = _stream_bwd_launch(d, q.dtype, dkv=False)
     dq = _empty_out(q)
     _launch("stream_attention_bwd_dq", fn, _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), b, h, sq,
             k.shape[2], d, *plan_args, float(scale),
             _strides(q, k, v, do, dq, None, None), _stream_of(q))
-    _count(stream_attention_bwd_dq, stream_attention_bwd_dq_f32, q)
+    _count(stream_attention_bwd_dq, q)
     return dq
 
 
@@ -1098,13 +1102,13 @@ def stream_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
     do, lse, delta = _stream_bwd_args("stream_attention_bwd_dkv", q, k, v,
                                       do, lse, delta, bias)
     b, h, sq, d = q.shape
-    fn, plan_args = _stream_bwd_launch(d, _f32(q), dkv=True)
+    fn, plan_args = _stream_bwd_launch(d, q.dtype, dkv=True)
     dk, dv = _empty_out(k), _empty_out(v)
     _launch("stream_attention_bwd_dkv", fn, _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
             b, h, sq, k.shape[2], d, *plan_args, float(scale),
             _strides(q, k, v, do, None, dk, dv), _stream_of(q))
-    _count(stream_attention_bwd_dkv, stream_attention_bwd_dkv_f32, q)
+    _count(stream_attention_bwd_dkv, q)
     return dk, dv
 
 
@@ -1334,10 +1338,10 @@ def stream_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 stream_attention.launches = 0
 
 
-class _F32Launches:
-    """The launch count of an fp32 kernel, apart from its bf16 sibling's
-    (``<wrapper>.launches``): the wrapper called with fp32 operands adds
-    one to ``launches`` where it launches the fp32 kernel."""
+class _Launches:
+    """The launch count of an fp32 (or fp16) kernel, apart from its bf16
+    sibling's (``<wrapper>.launches``): the wrapper called with fp32 (fp16)
+    operands adds one to ``launches`` where it launches that kernel."""
 
     def __init__(self, name: str):
         self.__name__ = name
@@ -1347,13 +1351,23 @@ class _F32Launches:
         return f"<{self.__name__}: {self.launches} launches>"
 
 
-stream_attention_f32 = _F32Launches("stream_attention_f32")
-full_block_attention_f32 = _F32Launches("full_block_attention_f32")
-full_block_attention_qknorm_f32 = _F32Launches(
+stream_attention_f32 = _Launches("stream_attention_f32")
+full_block_attention_f32 = _Launches("full_block_attention_f32")
+full_block_attention_qknorm_f32 = _Launches(
     "full_block_attention_qknorm_f32")
-full_block_attention_bwd_f32 = _F32Launches("full_block_attention_bwd_f32")
-full_block_attention_delta_f32 = _F32Launches(
+full_block_attention_bwd_f32 = _Launches("full_block_attention_bwd_f32")
+full_block_attention_delta_f32 = _Launches(
     "full_block_attention_delta_f32")
-stream_attention_delta_f32 = _F32Launches("stream_attention_delta_f32")
-stream_attention_bwd_dq_f32 = _F32Launches("stream_attention_bwd_dq_f32")
-stream_attention_bwd_dkv_f32 = _F32Launches("stream_attention_bwd_dkv_f32")
+stream_attention_delta_f32 = _Launches("stream_attention_delta_f32")
+stream_attention_bwd_dq_f32 = _Launches("stream_attention_bwd_dq_f32")
+stream_attention_bwd_dkv_f32 = _Launches("stream_attention_bwd_dkv_f32")
+full_block_attention_f16 = _Launches("full_block_attention_f16")
+full_block_attention_qknorm_f16 = _Launches(
+    "full_block_attention_qknorm_f16")
+full_block_attention_bwd_f16 = _Launches("full_block_attention_bwd_f16")
+full_block_attention_delta_f16 = _Launches(
+    "full_block_attention_delta_f16")
+stream_attention_f16 = _Launches("stream_attention_f16")
+stream_attention_delta_f16 = _Launches("stream_attention_delta_f16")
+stream_attention_bwd_dq_f16 = _Launches("stream_attention_bwd_dq_f16")
+stream_attention_bwd_dkv_f16 = _Launches("stream_attention_bwd_dkv_f16")

@@ -222,13 +222,14 @@ def _kernel_hop(q_l, k_l, v_l, impl: str) -> bool:
     """True when the ring's hops on these local blocks run the streaming
     kernels: always under "flash", never under "xla"; under "auto" from
     ``_FLASH_MIN_LOCAL`` local tokens where the kernel takes the operands
-    (on a CPU tensor always; on the card bf16 or fp32, with a gradient or
-    without: an fp32 hop takes the fp32 streaming forward, delta, dQ and
-    dK/dV kernels). An "auto" call of that size whose operands the kernel
-    refuses on its device (fp16, a head dim off its list), where the JAX
-    package runs its Pallas hop, takes the plain hop and is counted in
-    ``sdpa_plain.launches``, as ``sdpa`` counts the calls that no kernel
-    takes."""
+    (on a CPU tensor always; on the card bf16, fp16 or fp32 at any head
+    dim that is a multiple of 8 up to 640, with a gradient or without: an
+    fp32 hop takes the fp32 streaming forward, delta, dQ and dK/dV kernels,
+    an fp16 hop their fp16 forms, on ``fa.tile_plan``'s tile). An "auto"
+    call of that size whose operands the kernel refuses on its device (a
+    head dim past 640), where the JAX package runs its Pallas hop, takes
+    the plain hop and is counted in ``sdpa_plain.launches``, as ``sdpa``
+    counts the calls that no kernel takes."""
     if impl != "auto":
         return impl == "flash"
     if q_l.shape[2] < _FLASH_MIN_LOCAL:

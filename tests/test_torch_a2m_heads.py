@@ -460,8 +460,8 @@ def test_attention_routes_on_meta():
     """On the card (``meta`` stands in for it): the heads' own attentions
     at full width go plain, as the JAX package sends them to XLA; the
     grid head's joint block (16 x 16 motion patches, 256 image patches,
-    16 audio tokens) takes the full-block kernel in bf16 and fp32 and, in
-    fp16, no kernel."""
+    16 audio tokens) takes the full-block kernel in bf16, fp32 and fp16;
+    the same shape at D 648, past every kernel's tiles, no kernel."""
     plain = {
         "LearnableToken joint (64 + 4 + 16)": (4, 16, 84, 64),
         "A2P temporal (17 frames)": (4 * 256, 8, 17, 64),
@@ -473,7 +473,8 @@ def test_attention_routes_on_meta():
     assert _route((4, 16, 528, 64)) == "full_block"
     before = tattn.sdpa_plain.launches
     assert _route((4, 16, 528, 64), dtype=torch.float32) == "full_block"
-    assert _route((4, 16, 528, 64), dtype=torch.float16) == "plain"
+    assert _route((4, 16, 528, 64), dtype=torch.float16) == "full_block"
+    assert _route((4, 16, 528, 648), dtype=torch.float16) == "plain"
     assert tattn.sdpa_plain.launches == before
 
 

@@ -196,13 +196,19 @@ def test_stream_kernel_lse_feeds_the_backward(d):
 
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take():
+    """fp64 (no kernel's dtype), a head dim past the full-block kernels'
+    widest tile (128) and one past the streaming kernels' (640)."""
     _cuda_or_skip()
     q, k, v = _qkv((1, 2, 300, 64), seed=13)
     with pytest.raises(TypeError):
-        tfa.full_block_attention(q.half(), k.half(), v.half(), scale=0.1)
+        tfa.full_block_attention(q.double(), k.double(), v.double(),
+                                 scale=0.1)
+    wide = [x.repeat(1, 1, 1, 3) for x in (q, k, v)]   # D 192
     with pytest.raises(ValueError, match="head dim"):
-        tfa.stream_attention(q[..., :48], k[..., :48], v[..., :48],
-                             scale=0.1)
+        tfa.full_block_attention(*wide, scale=0.1)
+    wider = [torch.cat([x] * 10 + [x[..., :8]], dim=-1) for x in (q, k, v)]
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.stream_attention(*wider, scale=0.1)   # D 648
 
 
 @pytest.mark.cuda
@@ -597,13 +603,16 @@ def _sdpa_case(shape, masked, dtype, grad=False):
 @pytest.mark.parametrize("shape,masked", SDPA_DTYPE_SHAPES)
 def test_sdpa_off_the_kernel_dtypes_takes_the_plain_path(dtype, shape,
                                                          masked):
-    """fp16 above 256^2 logits: ``sdpa`` takes the plain path (no kernel
-    launch, one count of ``sdpa_plain``) and returns its values."""
+    """Above 256^2 logits past every kernel's head dims (D 648; every
+    multiple of 8 up to 640 in fp16, bf16 and fp32 has a kernel): ``sdpa``
+    takes the plain path (no kernel launch, one count of ``sdpa_plain``)
+    and returns its values."""
     _cuda_or_skip()
     from hivae_tpu_torch.ops import attention as tattn
+    shape = shape[:3] + (648,)
     q, k, v, mask = _sdpa_case(shape, masked, dtype)
     counters = [tfa.full_block_attention, tfa.stream_attention,
-                tfa.full_block_attention_f32, tfa.stream_attention_f32,
+                tfa.full_block_attention_f16, tfa.stream_attention_f16,
                 tattn.sdpa_plain]
     before = [c.launches for c in counters]
     got = tattn.sdpa(q, k, v, key_mask=mask)
@@ -931,3 +940,187 @@ def test_sdpa_routes_the_masked_clip_shapes(shape, route):
     launched = [c.launches - b for c, b in zip(counters, before)]
     assert launched == ([1, 0, 0] if route == "full_block" else [0, 0, 0])
     assert _err(got, want) <= ATOL
+
+
+# ---------------------------------------------------------------------------
+# fp16 (the 16-bit kernels built with -DHV_F16) and head dims off the
+# kernels' tiles (each runs on the smallest tile >= it, zero-filled past
+# it). Tolerances as above: bf16 and fp16 alike (fp16 has the finer
+# mantissa), fp32 F32_ATOL x max(1, max|plain|).
+# ---------------------------------------------------------------------------
+
+ODD_DIMS = (8, 24, 40, 72, 80, 136, 200, 320, 600)
+KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+_SUFFIX = {torch.bfloat16: "", torch.float16: "_f16", torch.float32: "_f32"}
+
+
+def _counter(name, dtype):
+    return getattr(tfa, name + _SUFFIX[dtype])
+
+
+def _ok(got, want, dtype, grad=False):
+    assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+    if dtype == torch.float32:
+        return _err(got, want) <= F32_ATOL * max(1.0, want.abs().max().item())
+    return (_rel(got, want) <= BWD_RTOL) if grad else \
+        _err(got, want) <= ATOL
+
+
+def _full_block_round(shape, dtype, masked, seed):
+    """The full-block forward, backward and delta at ``shape`` in
+    ``dtype`` against their plain versions, twice to the same bits, with
+    the launches on ``dtype``'s counters."""
+    q, k, v = (x.float().to(dtype) for x in _qkv(shape, seed=seed))
+    do = _qkv(shape, seed=seed + 1)[0].float().to(dtype)
+    bias = _bias(shape[0], shape[2], seed=seed + 2, full_row=0) \
+        if masked else None
+    kw = dict(scale=shape[3] ** -0.5, bias=bias)
+    names = ["full_block_attention", "full_block_attention_bwd",
+             "full_block_attention_delta"]
+    before = [_counter(n, dtype).launches for n in names]
+    runs = []
+    for _ in range(2):
+        out, m, l = tfa._full_block_fwd(q, k, v, bias, kw["scale"],
+                                        stats=True)
+        runs.append((out,) + tfa.full_block_attention_bwd(q, k, v, do, out,
+                                                          m, l, **kw))
+    want = (tfa.full_block_attention_plain(q, k, v, **kw),) + \
+        tfa.full_block_attention_bwd_plain(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert [_counter(n, dtype).launches - b
+            for n, b in zip(names, before)] == [2, 2, 2]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert _ok(runs[0][0], want[0], dtype)
+    for g, w in zip(runs[0][1:], want[1:]):
+        assert _ok(g, w, dtype, grad=True)
+
+
+def _stream_round(shape, dtype, masked, seed):
+    """The streaming forward (O and LSE), delta, dQ and dK/dV at ``shape``
+    in ``dtype`` against their plain versions, twice to the same bits,
+    with the launches on ``dtype``'s counters."""
+    q, k, v = (x.float().to(dtype) for x in _qkv(shape, seed=seed))
+    do = _qkv(shape, seed=seed + 1)[0].float().to(dtype)
+    bias = None
+    if masked:
+        bias = _bias(shape[0], shape[2], seed=seed + 2)
+        bias[:, 0] = 0.0
+    kw = dict(scale=shape[3] ** -0.5, bias=bias)
+    names = ["stream_attention", "stream_attention_delta",
+             "stream_attention_bwd_dq", "stream_attention_bwd_dkv"]
+    before = [_counter(n, dtype).launches for n in names]
+    runs = []
+    for _ in range(2):
+        out, lse = tfa.stream_attention(q, k, v, **kw)
+        delta = tfa.stream_attention_delta(do, out)
+        runs.append((out, lse, delta,
+                     tfa.stream_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                 **kw),
+                     *tfa.stream_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                   **kw)))
+    wo, wl = tfa.stream_attention_plain(q, k, v, **kw)
+    out, lse = runs[0][:2]
+    want = tfa.stream_attention_bwd_plain(q, k, v, do, out, lse, **kw)
+    torch.cuda.synchronize()
+    assert [_counter(n, dtype).launches - b
+            for n, b in zip(names, before)] == [2, 2, 2, 2]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert _ok(out, wo, dtype)
+    assert _err(lse, wl) <= (F32_ATOL if dtype == torch.float32
+                             else LSE_ATOL)
+    assert _err(runs[0][2], tfa._delta(do, out)) <= 1e-5 * max(
+        1.0, (do.float().abs() * out.float().abs()).sum(-1).max().item())
+    for g, w in zip(runs[0][3:], want):
+        assert _ok(g, w, dtype, grad=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("d", ODD_DIMS + (64, 128))
+def test_kernels_at_any_head_dim(d, dtype):
+    """Every head dim that is a multiple of 8 has a kernel: the full-block
+    forward, backward and delta at (2, 4, 300, d), masked, where d <= 128;
+    the streaming forward, delta, dQ and dK/dV at (2, 1, 1024, d), masked;
+    in bf16, fp16 and fp32, each against its plain version on the same
+    inputs, twice to the same bits."""
+    _cuda_or_skip()
+    assert tfa.tile_plan("stream", dtype, d) is not None
+    if d <= 128:
+        _full_block_round((2, 4, 300, d), dtype, True, seed=70)
+    _stream_round((2, 1, 1024, d), dtype, True, seed=73)
+
+
+# the main path's shapes in fp16: the flagship's full-block sites, the
+# T2M / MAE head dims, the SD-VAE mid-block and the motion AE's MapConv
+F16_CASES = [("full_block", (16, 16, 266, 64), False),
+             ("full_block", (16, 16, 512, 64), True),
+             ("full_block", (2, 16, 269, 128), False),
+             ("full_block", (4, 16, 257, 32), True),
+             ("stream", (17, 1, 1024, 512), False),
+             ("stream", (4, 1, 1024, 640), True),
+             ("stream", (1, 16, 2048, 64), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,masked", F16_CASES)
+def test_f16_kernels_match_plain(kind, shape, masked):
+    """The fp16 forms at the main path's shapes against their plain
+    versions, counted on the ``_f16`` counters, twice to the same bits."""
+    _cuda_or_skip()
+    (_full_block_round if kind == "full_block" else _stream_round)(
+        shape, torch.float16, masked, seed=80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("d", [40, 64, 72])
+def test_full_block_qknorm_kernel_any_head_dim(d, dtype):
+    """The fused qk-norm forward off its tiles (the LayerNorm over the real
+    d, the norms zero-padded to the tile) and in fp16, against its plain
+    version, counted on ``dtype``'s counter."""
+    _cuda_or_skip()
+    shape = (2, 4, 300, d)
+    q, k, v = (x.float().to(dtype) for x in _qkv(shape, seed=85))
+    norms = _norms(d, seed=86)
+    kw = dict(scale=d ** -0.5, bias=_bias(2, 300, seed=87))
+    counter = _counter("full_block_attention_qknorm", dtype)
+    before = counter.launches
+    got = tfa.full_block_attention_qknorm(q, k, v, *norms, **kw)
+    want = tfa.full_block_attention_qknorm_plain(q, k, v, *norms, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert _ok(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("shape", [(2, 16, 260, 72), (2, 1, 1024, 136)])
+def test_sdpa_routes_any_head_dim_and_fp16_to_the_kernels(shape, dtype):
+    """``sdpa`` with a gradient at a head dim off the tiles, in each dtype:
+    the route its shape picks, one forward, delta and backward launch on
+    ``dtype``'s counters, ``sdpa_plain`` 0, and the plain path's values."""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops import attention as tattn
+    q, k, v, mask = _sdpa_case(shape, True, dtype, grad=True)
+    stream = shape[2] == 1024
+    names = (["stream_attention", "stream_attention_delta",
+              "stream_attention_bwd_dq", "stream_attention_bwd_dkv"]
+             if stream else ["full_block_attention",
+                             "full_block_attention_delta",
+                             "full_block_attention_bwd"])
+    counters = [_counter(n, dtype) for n in names] + [tattn.sdpa_plain]
+    before = [c.launches for c in counters]
+    assert tattn.kernel_route(q, k, v) == ("stream" if stream
+                                           else "full_block")
+    got = tattn.sdpa(q, k, v, key_mask=mask)
+    ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    want = tattn._sdpa_plain(*ref, shape[3] ** -0.5, mask)
+    do = torch.randn_like(got)
+    grads = torch.autograd.grad(got, (q, k, v), do)
+    wgrads = torch.autograd.grad(want, ref, do)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [1] * len(names) + [0]
+    assert _ok(got, want.detach(), dtype)
+    for g, w in zip(grads, wgrads):
+        assert _ok(g, w, dtype, grad=True)

@@ -168,7 +168,7 @@ FULL_BLOCK_F32 = {32: ((128, 64, 2, 116480), (128, 32, 1, 100096)),
                   128: ((128, 32, 1, 230656), (64, 16, 2, 214400))}
 
 
-@pytest.mark.parametrize("d", tfa._FULL_BLOCK_DIMS)
+@pytest.mark.parametrize("d", tfa.FULL_BLOCK_TILES)
 def test_full_block_f32_plan_fits_a_block(d):
     """The fp32 full-block plan at every full-block head dim. The forward:
     two warpgroups of 64 query rows against tiles of 64 keys at d <= 64,
@@ -220,7 +220,7 @@ STREAM_BWD_F32_CLUSTER = {512: (2, 256, 64, 16, 212736, 64, 128),
                           640: (4, 160, 64, 32, 218112, 40, 80)}
 
 
-@pytest.mark.parametrize("d", tfa._STREAM_DIMS)
+@pytest.mark.parametrize("d", tfa.STREAM_TILES)
 def test_stream_bwd_f32_plan_fits_a_block(d):
     """The fp32 streaming backward's plans at every streaming head dim.
     Below D 512, the gradient CTA's: the rows a CTA whose accumulators take
@@ -268,20 +268,21 @@ def test_stream_bwd_f32_plan_fits_a_block(d):
                                         ("stream", (1, 1, 1024, 512))])
 def test_gate_takes_fp32_with_a_gradient(kind, shape):
     """``takes`` (on ``meta`` tensors, which stand in for the card) and
-    ``_refusal``: fp32 and bf16 with a gradient and without for both
-    kinds; fp16 refused with the same message as before, the dtypes the
-    kernels take named."""
-    for dtype in (torch.float32, torch.bfloat16):
+    ``_refusal``: fp32, bf16 and fp16 with a gradient and without for both
+    kinds; fp64 refused with one message, the dtypes the kernels take
+    named."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         x = torch.empty(shape, device="meta", dtype=dtype)
         for grad in (False, True):
             assert tfa.takes(kind, x, x, x, grad=grad)
             assert tfa._refusal(kind, x, x, x, layout=False, grad=grad) \
                 is None
         assert tfa.takes(kind, *(x.requires_grad_(),) * 3)
-    x = torch.empty(shape, device="meta", dtype=torch.float16)
+    x = torch.empty(shape, device="meta", dtype=torch.float64)
     for grad, suffix in ((False, ""), (True, " with a gradient")):
         assert not tfa.takes(kind, x, x, x, grad=grad)
         exc, msg = tfa._refusal(kind, x, x, x, layout=False, grad=grad)
         assert exc is TypeError
-        assert msg == (f"the CUDA kernel takes bfloat16 or float32{suffix}, "
-                       f"got torch.float16")
+        assert msg == (f"the CUDA kernel takes one of bfloat16 or float16 "
+                       f"or float32{suffix}, got torch.float64 (q "
+                       f"torch.float64)")

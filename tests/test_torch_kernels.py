@@ -188,7 +188,7 @@ def test_wrapper_raises_off_cpu_without_kernel(fn):
 SAMPLED_S = range(257, 1041, 7)
 
 
-@pytest.mark.parametrize("d", tfa._FULL_BLOCK_DIMS)
+@pytest.mark.parametrize("d", tfa.FULL_BLOCK_TILES)
 def test_full_block_plan_fits_shared_memory(d):
     """Every (Sq, Sk) that ``full_block_fits`` sends to the full-block
     kernels at head dim d, sampled over S in [257, 1040], gets a plan within
@@ -304,7 +304,7 @@ def test_ffn_plan_covers_every_admitted_n():
         _check_ffn_plan(64, 1024, n)
 
 
-@pytest.mark.parametrize("d", tfa._STREAM_DIMS)
+@pytest.mark.parametrize("d", tfa.STREAM_TILES)
 def test_stream_plan_fits_shared_memory(d):
     """The streaming forward's plan at each head dim: the swizzled Q tile,
     ring slots of one swizzled 64-key tile (32 keys at D 640, where a 64-key
@@ -354,10 +354,10 @@ def test_stream_kernel_lse_matches_plain():
 
 # -- the sdpa gate, the streaming backward's plan, small-M int8 ------------
 
-# (kernel, shape) above 256^2 logits that each kernel takes in bf16: the
-# full-block kernel's head dims at the object encoder's S, the streaming
+# (kernel, shape) above 256^2 logits that each kernel takes: the
+# full-block kernel's tiles at the object encoder's S, the streaming
 # kernel's past ``full_block_fits``
-ROUTED = ([("full_block", (2, 4, 260, d)) for d in tfa._FULL_BLOCK_DIMS]
+ROUTED = ([("full_block", (2, 4, 260, d)) for d in tfa.FULL_BLOCK_TILES]
           + [("stream", (1, 4, 2048, 64))]
           + [("stream", (2, 1, 1024, d)) for d in (128, 256, 512)])
 
@@ -365,20 +365,21 @@ ROUTED = ([("full_block", (2, 4, 260, d)) for d in tfa._FULL_BLOCK_DIMS]
 @pytest.mark.parametrize("kind,shape", ROUTED)
 def test_kernel_route_off_the_cpu(kind, shape):
     """On a tensor off the CPU (``meta`` stands in for the card) the gate
-    sends bf16 and fp32 to the kernel ``full_block_fits`` picks, with a
-    gradient or without (each kernel has an fp32 sibling, backward kernels
-    included), at every head dim that kernel takes, and fp16 to the plain
-    path; a layout the kernel does not read (a strided last dim) still goes
-    to the kernel, whose wrapper copies it to its layout."""
-    for dtype, want in [(torch.bfloat16, kind), (torch.float32, kind),
-                        (torch.float16, "plain")]:
-        x = torch.empty(shape, device="meta", dtype=dtype)
-        assert tattn.kernel_route(x, x, x) == want
-        assert tfa.takes(kind, x, x, x) == (want == kind)
-        g = x.requires_grad_() if dtype != torch.float16 else x
-        assert tattn.kernel_route(g, g, g) == want
-        with torch.no_grad():
+    sends bf16, fp16 and fp32 to the kernel ``full_block_fits`` picks, with
+    a gradient or without (each kernel has an fp16 form and an fp32
+    sibling, backward kernels included), at every head dim that kernel
+    takes; the same call at D 648, past every kernel's tiles, goes to the
+    plain path; a layout the kernel does not read (a strided last dim)
+    still goes to the kernel, whose wrapper copies it to its layout."""
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        for d, want in ((shape[3], kind), (648, "plain")):
+            x = torch.empty(shape[:3] + (d,), device="meta", dtype=dtype)
+            assert tattn.kernel_route(x, x, x) == want
+            assert tfa.takes(kind, x, x, x) == (want == kind)
+            g = x.requires_grad_()
             assert tattn.kernel_route(g, g, g) == want
+            with torch.no_grad():
+                assert tattn.kernel_route(g, g, g) == want
     wide = torch.empty(shape[:3] + (2 * shape[3],), device="meta",
                        dtype=torch.bfloat16)[..., ::2]
     assert tattn.kernel_route(wide, wide, wide) == kind
@@ -386,16 +387,20 @@ def test_kernel_route_off_the_cpu(kind, shape):
 
 
 def test_kernel_route_head_dim_and_cpu():
-    """bf16 at D = 80, S = 260 (a multiple of 8 that no kernel takes) goes
-    plain off the CPU; on the CPU the routes stay the dispatch rule's (the
-    kernels' plain versions take any dtype and head dim), and up to 256^2
-    logits every tensor goes plain."""
-    x = torch.empty((2, 4, 260, 80), device="meta", dtype=torch.bfloat16)
-    assert tattn.kernel_route(x, x, x) == "plain"
+    """Off the CPU, bf16 at D = 80, S = 260 (off the tiles) goes to the
+    full-block kernels (on their 96 tile), at D = 200 to the streaming ones
+    (past the full-block tiles), and at D = 648 (past every tile) plain; on
+    the CPU the routes stay the dispatch rule's (the kernels' plain
+    versions take any dtype and head dim), and up to 256^2 logits every
+    tensor goes plain."""
+    for d, want in ((80, "full_block"), (200, "stream"), (648, "plain")):
+        x = torch.empty((2, 4, 260, d), device="meta", dtype=torch.bfloat16)
+        assert tattn.kernel_route(x, x, x) == want, d
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
         for shape, want in [((2, 4, 260, 80), "full_block"),
                             ((17, 1, 1024, 512), "stream"),
                             ((1, 2, 300, 48), "full_block"),
+                            ((2, 4, 260, 648), "stream"),
                             ((256, 16, 16, 64), "plain"),
                             ((2, 4, 260, 20), "plain")]:
             y = torch.zeros(shape[:2] + (1, shape[3]), dtype=dtype
@@ -404,13 +409,14 @@ def test_kernel_route_head_dim_and_cpu():
 
 
 def test_sdpa_counts_the_calls_no_kernel_takes():
-    """Off the CPU, a call above 256^2 logits that no kernel takes (fp16
-    at either kernel's shape, bf16 at D = 80) runs the plain path through
-    ``sdpa_plain`` and adds one to ``sdpa_plain.launches``; a call the size
-    rule sends to the plain path, and any call on the CPU, adds nothing."""
-    cases = [((2, 4, 260, 64), torch.float16, 1),
-             ((2, 1, 1024, 512), torch.float16, 1),
-             ((2, 4, 260, 80), torch.bfloat16, 1),
+    """Off the CPU, a call above 256^2 logits that no kernel takes (D 648,
+    past every kernel's tiles, at either kernel's shape, in fp16 and bf16)
+    runs the plain path through ``sdpa_plain`` and adds one to
+    ``sdpa_plain.launches``; a call the size rule sends to the plain path,
+    and any call on the CPU, adds nothing."""
+    cases = [((2, 4, 260, 648), torch.float16, 1),
+             ((2, 1, 1024, 648), torch.float16, 1),
+             ((2, 4, 260, 648), torch.bfloat16, 1),
              ((256, 16, 16, 64), torch.float32, 0)]
     for shape, dtype, counted in cases:
         x = torch.empty(shape, device="meta", dtype=dtype)
@@ -426,7 +432,7 @@ def test_sdpa_counts_the_calls_no_kernel_takes():
     assert tattn.sdpa_plain.launches == n
 
 
-@pytest.mark.parametrize("d", tfa._STREAM_DIMS)
+@pytest.mark.parametrize("d", tfa.STREAM_TILES)
 def test_stream_bwd_plan_fits_shared_memory(d):
     """The streaming backward's plan at each head dim: 128 rows a CTA (64
     a warpgroup) below D = 256, 64 shared by roles from there, a cluster

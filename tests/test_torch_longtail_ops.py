@@ -291,7 +291,7 @@ def test_no_grad_calls_go_through_the_ops_and_grad_calls_do_not():
 F32_TILES = {64: 32, 128: 32, 256: 32, 512: 16, 640: 8}
 
 
-@pytest.mark.parametrize("d", tfa._STREAM_DIMS)
+@pytest.mark.parametrize("d", tfa.STREAM_TILES)
 def test_stream_f32_plan_fits_a_block(d):
     """The fp32 streaming forward's plan at every streaming head dim: 64
     query rows a CTA and two slots of the K/V tile the source note states
