@@ -92,8 +92,22 @@ Phases (any failure exits non-zero without the final result line):
    same bits twice, within ``KERNEL_ATOL`` (bf16, fp16) or
    ``KERNEL_F32_ATOL`` x max(1, max|plain|) (fp32) of the plain path and
    its gradients within ``_grad_gate``; the fused qk-norm route at D 40
-   and 72; one call at D 648, past every tile, counted once in
-   ``sdpa_plain``. On every main path below, ``sdpa_plain`` must count 0;
+   and 72; one call at D 2056, past every tile, counted once in
+   ``sdpa_plain``;
+   2d. the wide streaming kernels (head dims past 640, a cluster of CTAs
+   along D): ``sdpa`` at D 648, 776, 1024, 1288, 1536 and 2048 in bf16,
+   fp16 and fp32, forward and with a gradient, at (2, 2, 300, D) masked
+   and not and (2, 1, 1024, D), with phase 2c's gates on the wide
+   counters; the gradient of a row with no key where the JAX rule runs its
+   full-block kernel ((2, 2, 272, 136), (2, 2, 300, 512) and (2, 2, 300,
+   1024): the full-block plain version's autograd) and where it streams
+   ((1, 1, 2048, 136): the plain streaming backward); a port
+   ``AttentionBlock2D`` at 1024 channels over a 32 x 32 map in bf16,
+   forward and backward, against its plain-attention run; the wide
+   forward and dQ + dK/dV + delta timed at (4, 1, 1024, 1024) and (4, 1,
+   1024, 2048) in each dtype beside their bounds, plain versions and SDPA
+   (its backend named). On every main path below, ``sdpa_plain`` must
+   count 0;
 3. build the full-width flagship AMD_N (``configs/amd/amd_n_t1d512_spatial.json``)
    and the SD-VAE in bf16 on seeded random weights and reconstruct one
    synthetic 17 x 3 x 256 x 256 clip at ``sample_step=10`` through
@@ -794,9 +808,13 @@ def _ptxas_summary(log: str):
         m = re.search(r"Compiling entry function '_ZN2hv(\d+)(\w+)'", line)
         if m:
             d = re.search(r"ILi(\d+)E(Lb1E)?", m.group(2))
+            e = re.search(r"I(f|13__nv_bfloat16|6__half)(Lb([01])E)?E",
+                          m.group(2))
             kernel = m.group(2)[:int(m.group(1))] + (
                 f"<{d.group(1)}{', qknorm' if d.group(2) else ''}>" if d
-                else "")
+                else f"<{ {'f': 'fp32', '6__half': 'fp16'}.get(e.group(1), 'bf16')}"
+                f"{'' if not e.group(2) else ', dkv' if e.group(3) == '1' else ', dq'}>"
+                if e else "")
         elif "spill" in line:
             spill = line.strip()
         elif re.search(r"Used \d+ registers", line):
@@ -1946,11 +1964,11 @@ def check_f16_kernels(fa, failures):
 # it) beside the tiles themselves, each through ``sdpa`` forward and with
 # a gradient in bf16, fp16 and fp32, at a full-block shape (masked and
 # not; the streaming kernels past D 128) and a streaming one; the fused
-# qk-norm route at two of them; D 648, past every tile, counted plain
+# qk-norm route at two of them; D 2056, past every tile, counted plain
 HEAD_DIMS_ODD = (8, 24, 40, 72, 80, 136, 200, 320, 600)
 HEAD_DIMS_TILES = (32, 64, 96, 128, 256, 512, 640)
 HEAD_DIM_QKNORM = (40, 72)
-HEAD_DIM_PLAIN = 648
+HEAD_DIM_PLAIN = 2056
 
 
 def check_head_dims(failures):
@@ -1965,8 +1983,9 @@ def check_head_dims(failures):
     and the gradients within ``_grad_gate``; the fused qk-norm route at D
     ``HEAD_DIM_QKNORM``; D 72 on the 96 tile and D 600 on the 640 tile
     timed against the tile's own D (bf16, forward and backward, CUDA
-    events and device time); and one call at D 648, which no kernel takes,
-    counted once in ``sdpa_plain``. Returns the calls checked."""
+    events and device time); and one call at ``HEAD_DIM_PLAIN`` (2056),
+    which no kernel takes, counted once in ``sdpa_plain``. Returns the
+    calls checked."""
     import torch
     from hivae_tpu_torch.ops import attention as attn_ops
     from hivae_tpu_torch.ops.kernels import flash_attention as fa
@@ -2129,6 +2148,338 @@ def check_head_dims(failures):
     if counts != {"sdpa_plain": 1} or err != 0:
         failures.append(f"D {HEAD_DIM_PLAIN}: launches {counts}, err {err}")
     return calls
+
+
+# phase 2d: the wide streaming kernels (tiles 768 to 2048, a cluster of
+# tile / 256 CTAs along D) through ``sdpa``: head dims on and off their
+# tiles at phase 2c's shapes; the keyless row's gradient under both rules;
+# a model block at 1024 channels; times at two shapes
+HEAD_DIMS_WIDE = (648, 776, 1024, 1288, 1536, 2048)
+WIDE_KEYLESS = ((2, 2, 272, 136), (2, 2, 300, 512), (2, 2, 300, 1024),
+                (1, 1, 2048, 136))
+WIDE_BLOCK = (2, 1024, 32, 32)      # AttentionBlock2D: N, C, H, W
+WIDE_TIMED = ((4, 1, 1024, 1024), (4, 1, 1024, 2048))
+WIDE_NAMES = ("stream_attention", "stream_attention_delta",
+              "stream_attention_bwd_dq", "stream_attention_bwd_dkv")
+
+
+def _sdpa_backend(q, k, v, scale):
+    """The backend ``F.scaled_dot_product_attention`` picks for these
+    operands (``torch._fused_sdp_choice``)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, scale=scale)).name
+
+
+def _wide_sweep(failures, rand, gen):
+    """Phase 2d's ``sdpa`` sweep (``check_wide_head_dims``): returns its
+    launches."""
+    import torch
+    from hivae_tpu_torch.ops import attention as attn_ops
+
+    def run(fn, q, k, v, mask, do):
+        out = fn(q, k, v, mask)
+        if do is None:
+            return (out,)
+        return (out,) + torch.autograd.grad(out, (q, k, v), do)
+
+    def sdpa(q, k, v, mask):
+        return attn_ops.sdpa(q, k, v, key_mask=mask)
+
+    def plain(q, k, v, mask):
+        return attn_ops._sdpa_plain(q, k, v, q.shape[3] ** -0.5, mask)
+
+    sweep = _no_launches()
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        sx = DTYPE_SUFFIX[str(dtype)]
+        worst, worst_g = 0.0, 0.0
+        for d in HEAD_DIMS_WIDE:
+            for shape, masked in (((2, 2, 300, d), False),
+                                  ((2, 2, 300, d), True),
+                                  ((2, 1, 1024, d), False)):
+                for grad in (False, True):
+                    q, k, v = (rand(shape, dtype).requires_grad_(grad)
+                               for _ in range(3))
+                    mask = None
+                    if masked:
+                        mask = torch.rand((shape[0], shape[2]), generator=gen,
+                                          device="cuda") > 0.3
+                        mask[:, 0] = True
+                    do = rand(shape, dtype) if grad else None
+                    route = attn_ops.kernel_route(q, k, v)
+                    _zero_counts()
+                    got = run(sdpa, q, k, v, mask, do)
+                    counts = {n: c for n, c in _read_counts().items() if c}
+                    for n, c in counts.items():
+                        sweep[n] += c
+                    again = run(sdpa, q, k, v, mask, do)
+                    ref = [x.detach().clone().requires_grad_(grad)
+                           for x in (q, k, v)]
+                    want = run(plain, *ref, mask, do)
+                    torch.cuda.synchronize()
+                    names = WIDE_NAMES if grad else WIDE_NAMES[:1]
+                    want_counts = {f"{n}_wide{sx}": 1 for n in names}
+                    out_err = _abs_err(got[0].detach(), want[0].detach())
+                    out_ok = out_err <= (
+                        KERNEL_F32_ATOL * max(1.0, want[0].abs().max().item())
+                        if dtype == torch.float32 else KERNEL_ATOL)
+                    gerr = [_grad_gate(g, w) for g, w in zip(got[1:],
+                                                             want[1:])]
+                    same = all(torch.equal(a, b) for a, b in zip(got, again))
+                    finite = all(bool(torch.isfinite(x).all()) for x in got)
+                    worst = max(worst, out_err)
+                    worst_g = max([worst_g] + [e for e, _ in gerr])
+                    if not (route == "stream" and counts == want_counts
+                            and out_ok and all(ok for _, ok in gerr) and same
+                            and finite):
+                        failures.append(
+                            f"wide head dim {d} {dtype} {shape} masked "
+                            f"{masked} grad {grad}: route {route}, launches "
+                            f"{counts} (want {want_counts}), max|err| "
+                            f"{out_err}, gradients {[e for e, _ in gerr]}, "
+                            f"same bits {same}, finite {finite}")
+        _log(f"  wide head dims {dtype}: {HEAD_DIMS_WIDE} x 3 shapes x "
+             f"(forward, gradient): worst max|err| output {worst:.3g}, "
+             f"gradients {worst_g:.3g}")
+    return sweep
+
+
+def _wide_keyless(failures, rand, gen):
+    """Phase 2d's keyless rows (``check_wide_head_dims``)."""
+    import torch
+    from hivae_tpu_torch.ops import attention as attn_ops
+    from hivae_tpu_torch.ops.kernels import flash_attention as fa
+
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for shape in WIDE_KEYLESS:
+            q, k, v = (rand(shape, dtype).requires_grad_() for _ in range(3))
+            do = rand(shape, dtype)
+            mask = torch.rand((shape[0], shape[2]), generator=gen,
+                              device="cuda") > 0.3
+            mask[0] = False
+            full = attn_ops.full_block_fits(shape, shape)
+            got = attn_ops.sdpa(q, k, v, key_mask=mask,
+                                implementation="pallas")
+            grads = torch.autograd.grad(got, (q, k, v), do)
+            bias = torch.zeros(mask.shape, device="cuda").masked_fill(
+                ~mask, attn_ops.MASK_NEG)
+            kw = dict(scale=shape[3] ** -0.5, bias=bias)
+            if full:
+                ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+                wgrads = torch.autograd.grad(
+                    fa.full_block_attention_plain(*ref, **kw), ref, do)
+            else:
+                qd, kd, vd = (x.detach() for x in (q, k, v))
+                out, lse = fa.stream_attention(qd, kd, vd, **kw)
+                wgrads = fa.stream_attention_bwd_plain(qd, kd, vd, do, out,
+                                                       lse, **kw)
+            torch.cuda.synchronize()
+            gerr = [_grad_gate(g, w) for g, w in zip(grads, wgrads)]
+            _log(f"  keyless row {dtype} {shape} "
+                 f"({'full-block' if full else 'streaming'} rule): "
+                 f"gradients max|err| "
+                 f"{', '.join(f'{e:.3g}' for e, _ in gerr)}")
+            if not all(ok for _, ok in gerr):
+                failures.append(f"keyless row {dtype} {shape}: gradients "
+                                f"{[e for e, _ in gerr]}")
+
+
+def _wide_block(failures, rand):
+    """Phase 2d's ``AttentionBlock2D`` at 1024 channels
+    (``check_wide_head_dims``): returns its launches."""
+    import torch
+    from hivae_tpu_torch.models import conv_blocks
+
+    torch.manual_seed(SEED + 11)
+    _, c, h, w = WIDE_BLOCK
+    block = conv_blocks.AttentionBlock2D(c).cuda().bfloat16()
+    x = rand(WIDE_BLOCK, torch.bfloat16).requires_grad_()
+    dy = rand(WIDE_BLOCK, torch.bfloat16)
+    names, params = zip(("x", x), *block.named_parameters())
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    y = block(x)
+    grads = torch.autograd.grad(y, params, dy)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _read_counts()
+    with _plain_kernels(("stream_attention",)):
+        y_plain = block(x)
+        grads_plain = torch.autograd.grad(y_plain, params, dy)
+    torch.cuda.synchronize()
+    errs = [_grad_gate(y, y_plain)]
+    for name, g, gp in zip(names, grads, grads_plain):
+        if name == "to_k.bias":
+            # a shift of every key by one vector moves each row's logits by
+            # one constant: the softmax, and this gradient, are 0 but for
+            # rounding; held against the scale of to_k.weight's
+            err = _abs_err(g, gp)
+            errs.append((err, err <= BWD_RTOL * grads_plain[
+                names.index("to_k.weight")].float().abs().max().item()))
+        else:
+            errs.append(_grad_gate(g, gp))
+    want = dict(_no_launches(), **{f"{n}_wide": 1 for n in WIDE_NAMES})
+    _log(f"  AttentionBlock2D({c}) bf16 on {WIDE_BLOCK} (attention "
+         f"({WIDE_BLOCK[0]}, 1, {h * w}, {c})): forward and backward "
+         f"{ms:.2f} ms (first call); output and gradients max|err| against "
+         f"the plain run {max(e for e, _ in errs):.3g}; launches "
+         f"{ {k: n for k, n in launches.items() if n} }")
+    if not (launches == want and all(ok for _, ok in errs)):
+        failures.append(f"AttentionBlock2D({c}): launches {launches} want "
+                        f"{want}, errors {[e for e, _ in errs]}")
+    return launches
+
+
+def _wide_times(failures, rand, dtype):
+    """Phase 2d's times of the wide forms in ``dtype`` at ``WIDE_TIMED``
+    (``check_wide_head_dims``): {counter name: cases}."""
+    import torch
+    import torch.nn.functional as F
+    from hivae_tpu_torch.ops.kernels import flash_attention as fa
+
+    f32 = dtype == torch.float32
+    elem = 4 if f32 else 2
+    # fp32: three TF32 products a product, at TF32's peak
+    peak, terms = (PEAK_TF32_FLOPS, 3) if f32 else (PEAK_BF16_FLOPS, 1)
+    cases = {n: [] for n in WIDE_NAMES}
+    for shape in WIDE_TIMED:
+        q, k, v, do = (rand(shape, dtype) for _ in range(4))
+        scale = shape[3] ** -0.5
+        kw = dict(scale=scale)
+        out, lse = fa.stream_attention(q, k, v, **kw)
+        delta = fa.stream_attention_delta(do, out)
+        wo, _ = fa.stream_attention_plain(q, k, v, **kw)
+        want = fa.stream_attention_bwd_plain(q, k, v, do, out, lse, **kw)
+        dq = fa.stream_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = fa.stream_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        ferr = _abs_err(out, wo)
+        gerr = [_grad_gate(g, w) for g, w in zip((dq, dk, dv), want)]
+        derr = _abs_err(delta, fa._delta(do, out))
+        if not (all(ok for _, ok in gerr) and ferr <= (
+                KERNEL_F32_ATOL * max(1.0, wo.abs().max().item())
+                if f32 else KERNEL_ATOL)):
+            failures.append(f"wide {dtype} {shape}: output {ferr}, "
+                            f"gradients {[e for e, _ in gerr]}")
+        del want, dq, dk, dv
+
+        def bwd():
+            dl = fa.stream_attention_delta(do, out)
+            fa.stream_attention_bwd_dq(q, k, v, do, lse, dl, **kw)
+            fa.stream_attention_bwd_dkv(q, k, v, do, lse, dl, **kw)
+
+        def bwd_plain():
+            fa.stream_attention_bwd_plain(q, k, v, do, out, lse, **kw)
+        b, h, sq, d = shape
+        timed = {   # (kernel, plain version, library call, bound, error)
+            "stream_attention": (
+                lambda: fa.stream_attention(q, k, v, **kw),
+                lambda: fa.stream_attention_plain(q, k, v, **kw),
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                _bound(shape, False, True, elem_bytes=elem,
+                       flop_factor=4 * terms, peak=peak), ferr),
+            "stream_attention_bwd_dq": (
+                lambda: fa.stream_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   **kw), bwd_plain, None,
+                _bound(shape, False, True, tensors=5, stats=1,
+                       elem_bytes=elem, flop_factor=6 * terms, peak=peak),
+                gerr[0][0]),
+            "stream_attention_bwd_dkv": (
+                lambda: fa.stream_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                    **kw), bwd_plain, None,
+                _bound(shape, False, True, tensors=6, stats=1,
+                       elem_bytes=elem, flop_factor=8 * terms, peak=peak),
+                max(e for e, _ in gerr[1:])),
+            "stream_attention_delta": (
+                lambda: fa.stream_attention_delta(do, out),
+                lambda: fa._delta(do, out),
+                lambda: torch.linalg.vecdot(do, out, dim=-1),
+                ((2 * b * h * sq * d * elem + b * h * sq * 4)
+                 / PEAK_HBM_BYTES * 1e3,
+                 2 * b * h * sq * d / PEAK_FP32_FLOPS * 1e3), derr)}
+        lib_bwd = _library_bwd_ms(q, k, v, do, None, scale, 5)
+        backend = _sdpa_backend(q, k, v, scale)
+        fwd_dev = _device_ms(lambda: fa.stream_attention(q, k, v, **kw),
+                             "stream_fwd_wide")
+        bwd_ms = _time_ms(bwd, 10)
+        bwd_dev = _device_ms(bwd, "stream_")
+        for name, (fn, pfn, lfn, (bb, bo), err) in timed.items():
+            cases[name].append(dict(
+                label=str(list(shape)), shape=list(shape), weight=1,
+                max_abs_err=err, ms=_time_ms(fn, 10),
+                plain_ms=_time_ms(pfn, 3),
+                library_ms=_time_ms(lfn, 5) if lfn else lib_bwd,
+                bytes_ms=bb, ops_ms=bo, sdpa_backend=backend,
+                device_ms=fwd_dev if name == "stream_attention" else None,
+                bwd_ms=None if name == "stream_attention" else bwd_ms,
+                bwd_device_ms=None if name == "stream_attention"
+                else bwd_dev))
+        fw, dlc, dqc, dkc = (cases[n][-1] for n in WIDE_NAMES)
+        bwd_bound = sum(max(c["bytes_ms"], c["ops_ms"])
+                        for c in (dqc, dkc, dlc))
+        _log(f"  wide {dtype} {shape}, {d // 256}-CTA clusters: forward "
+             f"{fw['ms']:.4f} ms (device {_ms_or_none(fwd_dev)}; bound "
+             f"{max(fw['bytes_ms'], fw['ops_ms']):.4f}, plain "
+             f"{fw['plain_ms']:.4f}, SDPA {backend} "
+             f"{fw['library_ms']:.4f}); dQ + dK/dV + delta {bwd_ms:.4f} ms "
+             f"(device {_ms_or_none(bwd_dev)}; dQ {dqc['ms']:.4f}, dK/dV "
+             f"{dkc['ms']:.4f}, delta {dlc['ms']:.4f}; bound "
+             f"{bwd_bound:.4f}, plain {dqc['plain_ms']:.4f}, SDPA {backend} "
+             f"backward {lib_bwd:.4f})")
+    return {f"{n}_wide{DTYPE_SUFFIX[str(dtype)]}": c
+            for n, c in cases.items()}
+
+
+def check_wide_head_dims(failures):
+    """Phase 2d. ``sdpa`` at ``HEAD_DIMS_WIDE`` in bf16, fp16 and fp32,
+    forward and with a gradient, at (2, 2, 300, D) masked and not (the JAX
+    rule's full-block shapes: the streaming kernels with the full-block
+    flag) and (2, 1, 1024, D): the route ``stream``, exact launches on the
+    dtype's wide counters, ``sdpa_plain`` 0, the same bits twice, phase
+    2c's gates against the plain path. The keyless row's gradient
+    through ``sdpa(..., implementation="pallas")`` at ``WIDE_KEYLESS``
+    (batch 0 keyless): within ``_grad_gate`` of the full-block plain
+    version's autograd where ``full_block_fits`` holds, of the plain
+    streaming backward (from the kernels' O and LSE) where it does not. A
+    port ``AttentionBlock2D`` at 1024 channels over a 32 x 32 map in bf16,
+    forward and backward (its input's and parameters' gradients), against
+    the same with the plain streaming forward in place of the kernel
+    (``_grad_gate`` on each), with its launches. Each wide form timed at
+    ``WIDE_TIMED`` (forward; dQ, dK/dV and delta) by CUDA events and
+    device time, beside its bound, its plain version and SDPA (the backend
+    it picks named). Returns (the kernels line's records, {path:
+    launches})."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    paths = {"head_dims_wide": _wide_sweep(failures, rand, gen)}
+    _wide_keyless(failures, rand, gen)
+    paths["attention_block_1024"] = _wide_block(failures, rand)
+    cases = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        cases.update(_wide_times(failures, rand, dtype))
+
+    def record(name, source, line):
+        return {"name": name, "route": "cuda",
+                "source": "hivae_tpu_torch/csrc/" + source,
+                "replaces": "hivae_tpu/ops/pallas/flash_attention.py:" + line,
+                "cases": cases[name]}
+    records = []
+    for sx in ("", "_f16", "_f32"):
+        dq = record(f"stream_attention_bwd_dq_wide{sx}",
+                    "flash_stream_bwd.cu", "512")
+        dq["delta"] = record(f"stream_attention_delta_wide{sx}",
+                             "flash_stream_bwd.cu", "512")
+        records += [record(f"stream_attention_wide{sx}", "flash_stream.cu",
+                           "468"), dq,
+                    record(f"stream_attention_bwd_dkv_wide{sx}",
+                           "flash_stream_bwd.cu", "552")]
+    return records, paths
 
 
 class _LocalOp:
@@ -4342,6 +4693,11 @@ COUNTERS = ("full_block_attention", "full_block_attention_qknorm",
             "full_block_attention_bwd_f16", "full_block_attention_delta_f16",
             "stream_attention_f16", "stream_attention_delta_f16",
             "stream_attention_bwd_dq_f16", "stream_attention_bwd_dkv_f16",
+            *(f"{n}_wide{sx}" for n in ("stream_attention",
+                                        "stream_attention_delta",
+                                        "stream_attention_bwd_dq",
+                                        "stream_attention_bwd_dkv")
+              for sx in ("", "_f16", "_f32")),
             "fused_ffn_up_quant", "sdpa_plain")
 # the counter suffix of each kernel dtype's forms
 DTYPE_SUFFIX = {"torch.bfloat16": "", "torch.float16": "_f16",
@@ -7535,10 +7891,18 @@ def main() -> int:
          f"{HEAD_DIMS_TILES} in bf16, fp16 and fp32, D {HEAD_DIM_PLAIN} "
          f"plain")
     check_head_dims(failures)
+    _log(f"phase 2d: sdpa at head dims {HEAD_DIMS_WIDE} on the wide "
+         f"streaming kernels in bf16, fp16 and fp32, the keyless row's "
+         f"gradient, AttentionBlock2D at 1024 channels, times at "
+         f"{WIDE_TIMED}")
+    t0 = time.perf_counter()
+    wide_records, wide_paths = check_wide_head_dims(failures)
+    records += wide_records
+    _log(f"  phase 2d took {time.perf_counter() - t0:.1f} s")
 
     _log("phase 3: full-width AMD_N + SD-VAE clip reconstruction")
     serving = build_serving_models()
-    paths = {}
+    paths = dict(wide_paths)
     paths["clip"], latency, bf16_clip = run_clip(serving, args, failures)
     _log("phase 3c: the same clip with the fused qk-norm kernel")
     paths["clip_qknorm"], _ = run_qknorm_clip(serving, bf16_clip, failures)

@@ -81,9 +81,12 @@ inline int full_block_tile(int d) {
   return pick_tile(d, tiles, 4);
 }
 
+// Past 640 the tiles are the multiples of 256 up to 2048, each run by a
+// cluster of tile / 256 CTAs of 256 columns (attn_wide.cuh).
 inline int stream_tile(int d) {
-  static const int tiles[] = {64, 128, 256, 512, 640};
-  return pick_tile(d, tiles, 5);
+  static const int tiles[] = {64,  128,  256,  512,  640,  768,
+                              1024, 1280, 1536, 1792, 2048};
+  return pick_tile(d, tiles, 11);
 }
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
@@ -367,6 +370,25 @@ __device__ __forceinline__ float attn_logit2(float s, float sl2, float bl2) {
 __device__ __forceinline__ float attn_p(float s, float sl2, float bl2,
                                         float m_log2, float inv_l) {
   return ex2(attn_logit2(s, sl2, bl2) - m_log2) * inv_l;
+}
+
+// The streaming backward's P of a score s from the forward's natural-log
+// LSE: exp(s * scale + bias - lse), in base 2. A row with no real key (the
+// -1e30 key mask on every key) has every logit and its LSE at -1e30 in
+// fp32, so that gives P = 1 on every key; the TPU streaming kernels do the
+// same, and a caller of theirs gets it (keyless = 0). Where the JAX
+// package would run its full-block kernel instead, whose softmax gives
+// such a row the uniform 1 / Sk (the average its forward returned too),
+// the caller passes keyless = 1 / Sk, and a row whose LSE is at the mask's
+// level (at most KEYLESS_LSE, half of -1e30: a row with a real key has an
+// LSE of the scores' size) takes that P.
+constexpr float KEYLESS_LSE = -5e29f;
+
+__device__ __forceinline__ float stream_p(float s, float scale, float bias,
+                                          float lse, float keyless) {
+  return keyless > 0.f && lse <= KEYLESS_LSE
+             ? keyless
+             : ex2((fmaf(s, scale, bias) - lse) * LOG2E);
 }
 
 // Two 8-wide n tiles (one 16-wide chunk starting at row n0 of T, an (n, k)
@@ -941,6 +963,17 @@ __device__ __forceinline__ void st_peer(float* p, uint32_t rank, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(peer_addr(p, rank)),
                "f"(v)
                : "memory");
+}
+
+// Four floats from the shared::cluster address `addr` (16-byte aligned; a
+// peer CTA's, from peer_addr, or this CTA's own).
+__device__ __forceinline__ float4 ld_peer_v4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // One arrival, with release at cluster scope, on the mbarrier at the

@@ -561,14 +561,9 @@ struct F32GradArgs {
                                  // of both)
   int hd;                        // the head dim (<= the tile's D)
   float scale;
+  float keyless;                 // the streaming backward's stream_p: 0, or
+                                 // 1 / Sk (the full-block rule)
 };
-
-// P of a score x: exp(s * scale + bias - lse) from the natural-log LSE
-// (sb_p's arithmetic).
-__device__ __forceinline__ float fg_p(float x, float scale, float bias,
-                                      float lse) {
-  return ex2((fmaf(x, scale, bias) - lse) * LOG2E);
-}
 
 // One CTA of the fp32 streaming backward: dQ of R query rows (DKV false) or
 // dK and dV of R keys (DKV true), block `blk` of its kind.
@@ -680,10 +675,10 @@ __device__ __forceinline__ void f32_grad_cta(const F32GradArgs& a,
       float p = 0.f, ds = 0.f;
       if (i * BT + c < nwalk) {
         if constexpr (DKV) {
-          p = fg_p(x, a.scale, brow ? ST[r] : 0.f, rows[c]);
+          p = stream_p(x, a.scale, brow ? ST[r] : 0.f, rows[c], a.keyless);
           ds = p * (y - rows[2 * BT + c]);
         } else {
-          p = fg_p(x, a.scale, brow ? rows[c] : 0.f, ST[r]);
+          p = stream_p(x, a.scale, brow ? rows[c] : 0.f, ST[r], a.keyless);
           ds = p * (y - ST[2 * R + r]);
         }
       }

@@ -953,6 +953,7 @@ extern "C" int hv_full_block_bwd_f32(const void* q, const void* k,
   a.nqb = dq_rows > 0 ? (Sq + dq_rows - 1) / dq_rows : 0;
   a.hd = D;
   a.scale = scale;
+  a.keyless = 0.f;  // the full-block backward forms P from m and 1 / l
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hv::full_block_tile(D)) {
     case 32: return hv::launch_full_block_bwd_f32<32>(a, B, dq_rows, dkv_rows, tile, smem, s);

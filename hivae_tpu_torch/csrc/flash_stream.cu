@@ -1,7 +1,9 @@
 // Streaming (online-softmax) attention forward with LSE for Hopper
 // (sm_90a), bf16 (or fp16, built with -DHV_F16: attn_common.cuh) in and
 // out, fp32 log-sum-exp; and, below, its fp32 variant
-// (stream_fwd_f32_kernel, hv_stream_fwd_f32).
+// (stream_fwd_f32_kernel, hv_stream_fwd_f32) and, past D 640, the wide
+// forward (stream_fwd_wide_kernel, bf16, fp16 and fp32: a cluster of CTAs
+// along D, attn_wide.cuh).
 //
 // Replaces hivae_tpu/ops/pallas/flash_attention.py::_stream_fwd_kernel
 // (driven by _stream_fwd_impl / stream_fwd_lse): a loop over KV tiles with a
@@ -60,7 +62,7 @@
 // the launch takes about three CTA times where 2.06 would do; the plan does
 // not avoid it (a split over keys merged by LSE, or a persistent schedule,
 // would).
-#include "attn_common.cuh"
+#include "attn_wide.cuh"
 
 namespace hv {
 
@@ -843,13 +845,215 @@ int launch_stream(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Head dims past 640 (tiles 768 to 2048): stream_fwd_wide_kernel, a cluster
+// of tile / 256 CTAs along D (attn_wide.cuh's note), in bf16 (fp16 built
+// with -DHV_F16) and fp32. The same function as stream_fwd_kernel: the
+// natural-unit logits t = s * scale + bias, p = 2^((t - m) log2 e) with a
+// running max m and denominator l (a fully masked row keeps m = -1e30 and
+// p = 1 on every key, the uniform average), P rounded to v's dtype for
+// P.V, O = acc / l and LSE = m + log(l).
+//
+// Bound on the H100 SXM at (4, 1, 1024, 1024): 4*B*H*S*S*D = 17.2 GFLOP,
+// 17.4 us at 989 TFLOP/s in bf16 (34.7 us at TF32's 494.7, the rate this
+// kernel's products run at; three products for fp32: 104 us), against
+// 33.6 MB of q, k, v and o (10.0 us at 3.35 TB/s; fp32 20.0 us): bound by
+// operations.
+//
+// A CTA: 64 query rows of its 256 columns. A walked tile holds SW_TILE
+// keys of K and V (both, one cp.async group, two slots) and the keys' bias
+// row. Per tile: warp w forms the partial scores of m tile w % 4 and keys
+// 16 (w / 4).., into this CTA's partial tile; the cluster barrier; each
+// thread sums float4s of the partial tiles over the cluster in rank order
+// into the summed tile; a CTA barrier; warp w then takes the softmax of
+// its 16 rows over the tile's keys (the two warps of an m tile compute the
+// same, from the same bits), rescales its O block (its 128 columns) and
+// adds P.V. Shared bytes (sw_smem_bytes): Q, two slots, two partial tiles
+// and the summed one: 127,232 in bf16 and fp16, 225,536 in fp32.
+// ---------------------------------------------------------------------------
+constexpr int SW_TILE = 32;  // keys a walked tile
+
+template <typename T>
+__host__ __device__ constexpr int sw_slot_elems() {
+  return 2 * SW_TILE * wide_ld<T>() + SW_TILE * 4 / (int)sizeof(T);
+}
+
+template <typename T>
+__host__ __device__ constexpr int sw_smem_bytes() {
+  return (WIDE_ROWS * wide_ld<T>() + 2 * sw_slot_elems<T>()) *
+             (int)sizeof(T) +
+         (2 * WIDE_ROWS * SW_TILE + WIDE_ROWS * (SW_TILE + 4)) * 4;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+stream_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const float* __restrict__ bias,
+                       T* __restrict__ o, float* __restrict__ lse, int H,
+                       int Sq, int Sk, float scale, int hd, int cl, Rows sq,
+                       Rows sk, Rows sv, Rows so) {
+  constexpr int LD = wide_ld<T>(), R = WIDE_ROWS, BT = SW_TILE;
+  constexpr int BTP = BT + 4, KS = BT / 8, SLOT = sw_slot_elems<T>();
+  constexpr int NO = WIDE_OUT_COLS / 8;
+  extern __shared__ float4 sw_smem[];
+  T* Qs = reinterpret_cast<T*>(sw_smem);
+  T* ring = Qs + R * LD;
+  float* XP = reinterpret_cast<float*>(ring + 2 * SLOT);  // [2][R][BT]
+  float* SS = XP + 2 * R * BT;                            // [R][BTP]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp & 3, half = warp >> 2;
+  const int c0 = (int)cluster_rank() * WIDE_COLS;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = (blockIdx.x / cl) * R;
+  const T* kh = head_ptr(k, sk, b, h);
+  const T* vh = head_ptr(v, sv, b, h);
+  const float* brow = bias ? bias + (long)b * Sk : nullptr;
+  const int nkt = (Sk + BT - 1) / BT;
+
+  // tile j into slot j % 2: K, V and the keys' bias (one cp.async group)
+  auto issue = [&](int j) {
+    T* sl = ring + (j & 1) * SLOT;
+    wide_load<T, BT>(sl, kh, sk.s, j * BT, Sk, c0, hd, tid);
+    wide_load<T, BT>(sl + BT * LD, vh, sv.s, j * BT, Sk, c0, hd, tid);
+    if (brow)
+      load_row_f32<BT, WIDE_THREADS>(
+          reinterpret_cast<float*>(sl + 2 * BT * LD), brow, j * BT, Sk, tid);
+    ring_commit();
+  };
+  wide_load<T, R>(Qs, head_ptr(q, sq, b, h), sq.s, q0, Sq, c0, hd, tid);
+  issue(0);  // the first group holds Q too
+
+  const int r0 = 16 * mt + g, r1 = r0 + 8;  // this thread's rows
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[NO][4];  // O of rows r0, r1, columns 128 half + 8 n + 2t, + 1
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    ring_wait_upto(0);
+    __syncthreads();  // tile j has landed; tile j - 1's slot is free
+    if (j + 1 < nkt) issue(j + 1);
+    const T* Ks = ring + (j & 1) * SLOT;
+    const T* Vs = Ks + BT * LD;
+    const float* bs = reinterpret_cast<const float*>(Ks + 2 * BT * LD);
+    float* part = XP + (j & 1) * R * BT;
+    {
+      float x[2][4];
+      wide_scores<T, 2>(x, Qs + 16 * mt * LD, Ks + 16 * half * LD, g, t);
+      wide_store_blocks<2>(part + 16 * mt * BT + 16 * half, BT, x, g, t);
+    }
+    cluster_arrive();
+    cluster_wait();  // every CTA's partial scores of tile j are in place
+    for (int i = tid; i < R * BT / 4; i += WIDE_THREADS) {
+      const float4 s = wide_cluster_sum(part, i, cl);
+      *reinterpret_cast<float4*>(SS + (4 * i / BT) * BTP + 4 * i % BT) = s;
+    }
+    __syncthreads();
+
+    // the softmax of rows r0 and r1 over this lane's keys 8 ks + 2t, + 1
+    float u[2][KS][2];
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = 8 * ks + 2 * t + e;
+        float x0 = -INFINITY, x1 = -INFINITY;
+        if (j * BT + key < Sk) {
+          const float bb = brow ? bs[key] : 0.f;
+          x0 = fmaf(SS[r0 * BTP + key], scale, bb);
+          x1 = fmaf(SS[r1 * BTP + key], scale, bb);
+        }
+        u[0][ks][e] = x0;
+        u[1][ks][e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = ex2((m0 - mn0) * LOG2E), a1 = ex2((m1 - mn1) * LOG2E);
+    float sum0 = 0.f, sum1 = 0.f;
+    uint32_t ph[KS][4], pl[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      float p[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[0][e] = ex2((u[0][ks][e] - mn0) * LOG2E);
+        p[1][e] = ex2((u[1][ks][e] - mn1) * LOG2E);
+        sum0 += p[0][e];
+        sum1 += p[1][e];
+      }
+      // k permuted: index t is key 8 ks + 2t, t + 4 key 8 ks + 2t + 1
+      wide_split<T>(wide_round<T>(p[0][0]), ph[ks][0], pl[ks][0]);
+      wide_split<T>(wide_round<T>(p[1][0]), ph[ks][1], pl[ks][1]);
+      wide_split<T>(wide_round<T>(p[0][1]), ph[ks][2], pl[ks][2]);
+      wide_split<T>(wide_round<T>(p[1][1]), ph[ks][3], pl[ks][3]);
+    }
+    l0 = l0 * a0 + quad_sum(sum0);
+    l1 = l1 * a1 + quad_sum(sum1);
+    m0 = mn0;
+    m1 = mn1;
+    // O = O * a + P.V over this warp's 128 columns
+    wide_grad<T, NO, KS>(acc, ph, pl, Vs + WIDE_OUT_COLS * half, a0, a1, g,
+                         t);
+  }
+  ring_wait_upto(0);
+  cluster_arrive();
+  cluster_wait();  // no CTA leaves while a peer may read its partials
+
+  T* op = head_ptr(o, so, b, h);
+  const int gr0 = q0 + r0, gr1 = q0 + r1;
+  const float il0 = 1.f / l0, il1 = 1.f / l1;
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int col = c0 + WIDE_OUT_COLS * half + 8 * n + 2 * t;
+    if (col >= hd) continue;
+    if (gr0 < Sq)
+      wide_store2(op + (long)gr0 * so.s + col, acc[n][0] * il0,
+                  acc[n][1] * il0);
+    if (gr1 < Sq)
+      wide_store2(op + (long)gr1 * so.s + col, acc[n][2] * il1,
+                  acc[n][3] * il1);
+  }
+  if (c0 == 0 && half == 0 && t == 0) {
+    float* lp = lse + ((long)b * H + h) * Sq;
+    if (gr0 < Sq) lp[gr0] = m0 + logf(l0);
+    if (gr1 < Sq) lp[gr1] = m1 + logf(l1);
+  }
+}
+
+// Takes only the plan flash_attention.py::_stream_plan (bf16, fp16) or
+// _stream_f32_plan (fp32) returns at a wide tile: `walk` is the plan's
+// slots (16-bit) or keys a tile (fp32), as at the narrow tiles.
+template <typename T>
+int launch_stream_wide(const void* q, const void* k, const void* v,
+                       const float* bias, void* o, float* lse, int B, int H,
+                       int Sq, int Sk, int hd, int tile, int walk, int smem,
+                       float scale, const long* st, cudaStream_t stream) {
+  if (walk != (sizeof(T) == 4 ? SW_TILE : 2) || smem != sw_smem_bytes<T>() ||
+      smem > SF_SMEM_MAX)
+    return HV_BAD_PLAN;
+  const int cl = wide_cluster(tile);
+  return wide_launch(stream_fwd_wide_kernel<T>, (Sq + WIDE_ROWS - 1) / WIDE_ROWS,
+                     cl, H, B, smem, stream, static_cast<const T*>(q),
+                     static_cast<const T*>(k), static_cast<const T*>(v), bias,
+                     static_cast<T*>(o), lse, H, Sq, Sk, scale, hd, cl,
+                     Rows{st[0], st[1], st[2]}, Rows{st[3], st[4], st[5]},
+                     Rows{st[6], st[7], st[8]}, Rows{st[9], st[10], st[11]});
+}
+
 }  // namespace hv
 
 // Plain C entry point. `strides` holds 12 element strides: (batch, head,
 // row) for q, k, v and o in that order; the last dimension is contiguous.
-// D is the head dim, any multiple of 8 up to 640: the kernel runs the tile
-// width hv::stream_tile(D) (64, 128, 256, 512 or 640; columns past D read
-// as zeros, never stored). `lse` is a contiguous (B, H, Sq) fp32 buffer.
+// D is the head dim, any multiple of 8 up to 2048: the kernel runs the tile
+// width hv::stream_tile(D) (64, 128, 256, 512 or 640, or past 640 a
+// multiple of 256 up to 2048 on the wide kernel; columns past D read as
+// zeros, never stored). `lse` is a contiguous (B, H, Sq) fp32 buffer.
 // `stages` and `smem` are the launch plan of
 // flash_attention.py::_stream_plan at the tile width. Returns a
 // cudaError_t, -1 for an unsupported head dim, -2 for a plan the kernel
@@ -867,7 +1071,8 @@ extern "C" int hv_stream_fwd(const void* q, const void* k, const void* v,
     case 256: return hv::launch_stream<256>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, stages, smem, scale, strides, s);
     case 512: return hv::launch_stream<512>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, stages, smem, scale, strides, s);
     case 640: return hv::launch_stream<640>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, stages, smem, scale, strides, s);
-    default: return -1;
+    case -1: return -1;
+    default: return hv::launch_stream_wide<hv::e16>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, hv::stream_tile(D), stages, smem, scale, strides, s);
   }
 }
 
@@ -891,7 +1096,8 @@ extern "C" int hv_stream_fwd_f32(const void* q, const void* k, const void* v,
     case 256: return hv::launch_stream_f32<256>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, D, bk, smem, scale, strides, s);
     case 512: return hv::launch_stream_f32<512>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, D, bk, smem, scale, strides, s);
     case 640: return hv::launch_stream_f32<640>(fq, fk, fv, bias, fo, lse, B, H, Sq, Sk, D, bk, smem, scale, strides, s);
-    default: return -1;
+    case -1: return -1;
+    default: return hv::launch_stream_wide<float>(q, k, v, bias, o, lse, B, H, Sq, Sk, D, hv::stream_tile(D), bk, smem, scale, strides, s);
   }
 }
 #endif

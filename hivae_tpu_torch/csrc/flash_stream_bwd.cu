@@ -8,7 +8,9 @@
 // dP = dO . V^T; dS = P * (dP - delta); dQ = bf16(dS) . K * scale over KV
 // tiles; dV = bf16(P)^T . dO and dK = bf16(dS)^T . Q * scale over query
 // tiles. The JAX package computes delta in XLA; here stream_delta_kernel
-// reads dO and O once (8 lanes a row, 16-byte loads).
+// reads dO and O once (8 lanes a row, 16-byte loads). Past D 640 dQ and
+// dK/dV run stream_bwd_wide_kernel (bf16, fp16 and fp32: a cluster of CTAs
+// along D, attn_wide.cuh), below the fp32 variant.
 //
 // Bound on the H100 SXM at the training shape (16, 1, 1024, 512), the
 // SD-VAE decoder's mid-block inside the perceptual loss: dQ does
@@ -95,9 +97,13 @@
 // Masks: a key past Sk or a query row past Sq gets P = 0 (TMA zero-fills
 // its tile rows; nothing is stored for it). A key masked by the -1e30 bias
 // has P = exp(-1e30 - lse) = 0 wherever its row attends to any real key, so
-// a fully masked key block gets no gradient. A row with no real key keeps
-// the TPU kernels' behaviour (its lse has lost the log-denominator).
+// a fully masked key block gets no gradient. A row with no real key has
+// P = exp(s - lse) = 1 on every key, as the TPU streaming kernels have (its
+// lse has lost the log-denominator), or, where the caller asks for the
+// full-block rule (SbArgs::keyless, stream_p), the full-block softmax's
+// 1 / Sk.
 #include "attn_f32.cuh"
+#include "attn_wide.cuh"
 
 namespace hv {
 
@@ -177,6 +183,7 @@ struct SbArgs {
   int H, Sq, Sk;
   int hd;  // the head dim (<= the tile's D)
   float scale;
+  float keyless;  // stream_p's: 0, or 1 / Sk (the full-block rule)
 };
 
 // The exchange of a 2-CTA cluster: this CTA's fp32 tiles (tile 0 of S,
@@ -215,12 +222,6 @@ __device__ __forceinline__ void exchange_add(float (&x)[32], const float* mine,
     x[4 * k + 2] += a.z;
     x[4 * k + 3] += a.w;
   }
-}
-
-// P = exp(t - lse) with t = s * scale + bias, in base 2.
-__device__ __forceinline__ float sb_p(float s, float scale, float bias,
-                                      float lse) {
-  return ex2((fmaf(s, scale, bias) - lse) * LOG2E);
 }
 
 // The dynamic shared memory from its first 1024-byte boundary (the
@@ -476,10 +477,13 @@ stream_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         for (int e = 0; e < 2; ++e) {
           const int qc = 8 * j + 2 * t + e;
           const bool qv = i * T + qc < a.Sq;
-          x[4 * j + e] =
-              qv && kv0 ? sb_p(x[4 * j + e], a.scale, bk0, lse[qc]) : 0.f;
-          x[4 * j + 2 + e] =
-              qv && kv1 ? sb_p(x[4 * j + 2 + e], a.scale, bk1, lse[qc]) : 0.f;
+          x[4 * j + e] = qv && kv0 ? stream_p(x[4 * j + e], a.scale, bk0,
+                                              lse[qc], a.keyless)
+                                   : 0.f;
+          x[4 * j + 2 + e] = qv && kv1
+                                 ? stream_p(x[4 * j + 2 + e], a.scale, bk1,
+                                            lse[qc], a.keyless)
+                                 : 0.f;
         }
       }
       store_frag<T>(X, tid & 127, x);
@@ -593,8 +597,11 @@ stream_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
           const int kc = 8 * u + 2 * t + e;
           const bool kv = j * T + kc < a.Sk;
           const float bb = brow ? bs[kc] : 0.f;
-          x[4 * u + e] = kv ? sb_p(x[4 * u + e], a.scale, bb, st0) : 0.f;
-          x[4 * u + 2 + e] = kv ? sb_p(x[4 * u + 2 + e], a.scale, bb, st1) : 0.f;
+          x[4 * u + e] =
+              kv ? stream_p(x[4 * u + e], a.scale, bb, st0, a.keyless) : 0.f;
+          x[4 * u + 2 + e] =
+              kv ? stream_p(x[4 * u + 2 + e], a.scale, bb, st1, a.keyless)
+                 : 0.f;
         }
       }
       store_frag<T>(X, tid & 127, x);
@@ -715,8 +722,12 @@ stream_bwd_dkv_rows_kernel(const __grid_constant__ CUtensorMap tq,
       for (int e = 0; e < 2; ++e) {
         const int qc = 8 * j + 2 * t + e;
         const bool qv = i * T + qc < a.Sq;
-        const float p0 = qv && kv0 ? sb_p(s[4 * j + e], a.scale, bk0, lse[qc]) : 0.f;
-        const float p1 = qv && kv1 ? sb_p(s[4 * j + 2 + e], a.scale, bk1, lse[qc]) : 0.f;
+        const float p0 = qv && kv0 ? stream_p(s[4 * j + e], a.scale, bk0,
+                                              lse[qc], a.keyless)
+                                   : 0.f;
+        const float p1 = qv && kv1 ? stream_p(s[4 * j + 2 + e], a.scale, bk1,
+                                              lse[qc], a.keyless)
+                                   : 0.f;
         s[4 * j + e] = p0;
         s[4 * j + 2 + e] = p1;
         dp[4 * j + e] = p0 * (dp[4 * j + e] - dlt[qc]);
@@ -807,8 +818,11 @@ stream_bwd_dq_rows_kernel(const __grid_constant__ CUtensorMap tq,
         const int kc = 8 * u + 2 * t + e;
         const bool kv = j * T + kc < a.Sk;
         const float bb = brow ? bs[kc] : 0.f;
-        const float p0 = kv ? sb_p(s[4 * u + e], a.scale, bb, lse0) : 0.f;
-        const float p1 = kv ? sb_p(s[4 * u + 2 + e], a.scale, bb, lse1) : 0.f;
+        const float p0 =
+            kv ? stream_p(s[4 * u + e], a.scale, bb, lse0, a.keyless) : 0.f;
+        const float p1 =
+            kv ? stream_p(s[4 * u + 2 + e], a.scale, bb, lse1, a.keyless)
+               : 0.f;
         dp[4 * u + e] = p0 * (dp[4 * u + e] - d0);
         dp[4 * u + 2 + e] = p1 * (dp[4 * u + 2 + e] - d1);
       }
@@ -890,11 +904,288 @@ int launch_stream_bwd(bool dkv, const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Head dims past 640 (tiles 768 to 2048): stream_bwd_wide_kernel, dQ (DKV
+// false) or dK and dV (DKV true), a cluster of tile / 256 CTAs along D
+// (attn_wide.cuh's note), in bf16 (fp16 built with -DHV_F16) and fp32. The
+// same functions as the narrow kernels: P = exp(s - lse) from the
+// forward's natural-log LSE (stream_p: with keyless = 1 / Sk, the uniform
+// P of a row with no key), dS = P (dP - delta), dQ = dS.K * scale, dK =
+// dS^T.Q * scale, dV = P^T.dO, P rounded to dO's dtype and dS to q's.
+//
+// Bounds on the H100 SXM at (4, 1, 1024, 1024): dQ does 6*B*H*S^2*D =
+// 25.8 GFLOP (26.1 us at 989 TFLOP/s; 52.1 us at TF32's 494.7, the rate
+// this kernel's products run at; three products for fp32: 156 us) over q,
+// k, v, dO, dQ and two rows (10.0 us at 3.35 TB/s in bf16); dK/dV
+// 8*B*H*S^2*D = 34.4 GFLOP (34.7, 69.5 and 208 us) over six tensors. Both
+// bound by operations.
+//
+// A CTA: 64 resident rows (query rows for dQ with their lse and delta;
+// keys for dK/dV with their bias) of its 256 columns of the resident pair
+// (Q and dO; K and V); walked tiles of swb_tile rows (32 in bf16 and
+// fp16, 16 in fp32) of the walked pair (K and V; Q and dO) with their fp32
+// rows (the keys' bias; the queries' lse and delta) through two cp.async
+// slots. Per walked tile: warps 0-3 form the partial X = S (S^T for
+// dK/dV) of m tile w, warps 4-7 Y = dP (dP^T), into this CTA's partial
+// tiles; the cluster barrier; each thread sums float4s of X and Y over
+// the cluster in rank order and forms P and dS of them, into the P and dS
+// tiles; a CTA barrier; warp w adds the gradient products of its 16 rows
+// and 128 columns: dQ += dS.K, or dK += dS^T.Q and dV += P^T.dO. Shared
+// bytes (swb_smem_bytes): the resident pair and its rows, two slots, two
+// buffers of the X and Y partials, the P and dS tiles: 187,392 in bf16
+// and fp16, 227,072 in fp32.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__host__ __device__ constexpr int swb_tile() {
+  return sizeof(T) == 4 ? 16 : 32;
+}
+
+// One slot: the walked pair's two tiles, then two fp32 rows of swb_tile.
+template <typename T>
+__host__ __device__ constexpr int swb_slot_elems() {
+  return 2 * swb_tile<T>() * wide_ld<T>() + 2 * swb_tile<T>() * 4 /
+                                                (int)sizeof(T);
+}
+
+template <typename T>
+__host__ __device__ constexpr int swb_smem_bytes() {
+  return (2 * WIDE_ROWS * wide_ld<T>() + 2 * swb_slot_elems<T>()) *
+             (int)sizeof(T) +
+         (2 * WIDE_ROWS + 4 * WIDE_ROWS * swb_tile<T>() +
+          2 * WIDE_ROWS * (swb_tile<T>() + 4)) *
+             4;
+}
+
+struct WideArgs {
+  const void *q, *k, *v, *dout;
+  const float *bias, *lse, *delta;
+  void *dq, *dk, *dv;
+  Rows sq, sk, sv, sdo, sdq, sdk, sdv;
+  int H, Sq, Sk;
+  int hd;         // the head dim (<= the tile)
+  int cl;         // CTAs a cluster
+  float scale;
+  float keyless;  // stream_p's: 0, or 1 / Sk (the full-block rule)
+};
+
+template <typename T, bool DKV>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+stream_bwd_wide_kernel(const WideArgs a) {
+  constexpr int LD = wide_ld<T>(), R = WIDE_ROWS, BT = swb_tile<T>();
+  constexpr int BTP = BT + 4, KS = BT / 8, SLOT = swb_slot_elems<T>();
+  constexpr int NO = WIDE_OUT_COLS / 8;
+  extern __shared__ float4 swb_smem[];
+  T* A1 = reinterpret_cast<T*>(swb_smem);
+  T* A2 = A1 + R * LD;
+  T* ring = A2 + R * LD;
+  float* ST = reinterpret_cast<float*>(ring + 2 * SLOT);  // 2 rows of R
+  float* XP = ST + 2 * R;       // [2 buffers][X, Y][R][BT]
+  float* PD = XP + 4 * R * BT;  // [P, dS][R][BTP]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mt = warp & 3, xy = warp >> 2;  // scores: X or Y of m tile mt
+  const int ch = warp >> 2;                 // gradients: columns 128 ch..
+  const int c0 = (int)cluster_rank() * WIDE_COLS;
+  const int b = blockIdx.z, h = blockIdx.y, r0 = (blockIdx.x / a.cl) * R;
+  const int nres = DKV ? a.Sk : a.Sq, nwalk = DKV ? a.Sq : a.Sk;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  const T* ra1 = DKV ? head_ptr(k, a.sk, b, h) : head_ptr(q, a.sq, b, h);
+  const T* ra2 = DKV ? head_ptr(v, a.sv, b, h) : head_ptr(dout, a.sdo, b, h);
+  const T* wa1 = DKV ? head_ptr(q, a.sq, b, h) : head_ptr(k, a.sk, b, h);
+  const T* wa2 = DKV ? head_ptr(dout, a.sdo, b, h) : head_ptr(v, a.sv, b, h);
+  const long rs1 = DKV ? a.sk.s : a.sq.s, rs2 = DKV ? a.sv.s : a.sdo.s;
+  const long ws1 = DKV ? a.sq.s : a.sk.s, ws2 = DKV ? a.sdo.s : a.sv.s;
+  const long rb = ((long)b * a.H + h) * a.Sq;  // row statistics of (b, h)
+  const float* brow = a.bias ? a.bias + (long)b * a.Sk : nullptr;
+  const int njobs = (nwalk + BT - 1) / BT;
+
+  // walked tile i into slot i % 2: its two tiles and its fp32 rows (dK/dV:
+  // the queries' lse and delta; dQ: the keys' bias), one cp.async group
+  auto issue = [&](int i) {
+    T* sl = ring + (i & 1) * SLOT;
+    wide_load<T, BT>(sl, wa1, ws1, i * BT, nwalk, c0, a.hd, tid);
+    wide_load<T, BT>(sl + BT * LD, wa2, ws2, i * BT, nwalk, c0, a.hd, tid);
+    float* rows = reinterpret_cast<float*>(sl + 2 * BT * LD);
+    if constexpr (DKV) {
+      load_row_f32<BT, WIDE_THREADS>(rows, a.lse + rb, i * BT, a.Sq, tid);
+      load_row_f32<BT, WIDE_THREADS>(rows + BT, a.delta + rb, i * BT, a.Sq,
+                                     tid);
+    } else {
+      if (brow) load_row_f32<BT, WIDE_THREADS>(rows, brow, i * BT, a.Sk, tid);
+    }
+    ring_commit();
+  };
+  // the resident pair and its rows (dQ: lse and delta; dK/dV: the keys'
+  // bias) ride in job 0's group
+  wide_load<T, R>(A1, ra1, rs1, r0, nres, c0, a.hd, tid);
+  wide_load<T, R>(A2, ra2, rs2, r0, nres, c0, a.hd, tid);
+  if constexpr (DKV) {
+    if (brow) load_row_f32<R, WIDE_THREADS>(ST, brow, r0, a.Sk, tid);
+  } else {
+    load_row_f32<R, WIDE_THREADS>(ST, a.lse + rb, r0, a.Sq, tid);
+    load_row_f32<R, WIDE_THREADS>(ST + R, a.delta + rb, r0, a.Sq, tid);
+  }
+  issue(0);
+
+  float acc[NO][4], acc2[DKV ? NO : 1][4];  // dQ or dK; dV
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < (DKV ? NO : 1); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc2[n][e] = 0.f;
+
+  for (int i = 0; i < njobs; ++i) {
+    ring_wait_upto(0);
+    __syncthreads();  // tile i has landed; tile i - 1's slot, P and dS free
+    if (i + 1 < njobs) issue(i + 1);
+    const T* sl = ring + (i & 1) * SLOT;
+    const float* rows = reinterpret_cast<const float*>(sl + 2 * BT * LD);
+    float* part = XP + (i & 1) * 2 * R * BT;  // X, then Y
+    {
+      float x[KS][4];
+      wide_scores<T, KS>(x, (xy ? A2 : A1) + 16 * mt * LD, sl + xy * BT * LD,
+                         g, t);
+      wide_store_blocks<KS>(part + xy * R * BT + 16 * mt * BT, BT, x, g, t);
+    }
+    cluster_arrive();
+    cluster_wait();  // every CTA's partials of tile i are in place
+    // the cluster's X and Y in rank order, then P and dS, 4 elements a
+    // thread at a time
+    for (int e4 = tid; e4 < R * BT / 4; e4 += WIDE_THREADS) {
+      const int r = 4 * e4 / BT, c = 4 * e4 % BT;
+      const float4 xs = wide_cluster_sum(part, e4, a.cl);
+      const float4 ys = wide_cluster_sum(part + R * BT, e4, a.cl);
+      const float xv[4] = {xs.x, xs.y, xs.z, xs.w};
+      const float yv[4] = {ys.x, ys.y, ys.z, ys.w};
+      float p[4], ds[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        p[jj] = ds[jj] = 0.f;
+        const int w = i * BT + c + jj;  // the walked row
+        if constexpr (DKV) {
+          if (r0 + r < a.Sk && w < a.Sq) {
+            p[jj] = stream_p(xv[jj], a.scale, brow ? ST[r] : 0.f,
+                             rows[c + jj], a.keyless);
+            ds[jj] = p[jj] * (yv[jj] - rows[BT + c + jj]);
+          }
+        } else {
+          if (w < a.Sk) {
+            p[jj] = stream_p(xv[jj], a.scale, brow ? rows[c + jj] : 0.f,
+                             ST[r], a.keyless);
+            ds[jj] = p[jj] * (yv[jj] - ST[R + r]);
+          }
+        }
+      }
+      *reinterpret_cast<float4*>(PD + r * BTP + c) =
+          make_float4(wide_round<T>(p[0]), wide_round<T>(p[1]),
+                      wide_round<T>(p[2]), wide_round<T>(p[3]));
+      *reinterpret_cast<float4*>(PD + (R + r) * BTP + c) =
+          make_float4(wide_round<T>(ds[0]), wide_round<T>(ds[1]),
+                      wide_round<T>(ds[2]), wide_round<T>(ds[3]));
+    }
+    __syncthreads();
+    // dQ += dS.K, or dK += dS^T.Q and dV += P^T.dO: this warp's 16 rows
+    // and 128 columns
+    {
+      uint32_t fh[KS][4], fl[KS][4];
+      wide_frag_a<T, KS>(fh, fl, PD + (R + 16 * mt) * BTP, BTP, g, t);
+      wide_grad<T, NO, KS>(acc, fh, fl, sl + WIDE_OUT_COLS * ch, 1.f, 1.f, g,
+                           t);
+    }
+    if constexpr (DKV) {
+      uint32_t fh[KS][4], fl[KS][4];
+      wide_frag_a<T, KS>(fh, fl, PD + 16 * mt * BTP, BTP, g, t);
+      wide_grad<T, NO, KS>(acc2, fh, fl, sl + BT * LD + WIDE_OUT_COLS * ch,
+                           1.f, 1.f, g, t);
+    }
+  }
+  ring_wait_upto(0);
+  cluster_arrive();
+  cluster_wait();  // no CTA leaves while a peer may read its partials
+
+  T* o1 = static_cast<T*>(DKV ? a.dk : a.dq);
+  const Rows so1 = DKV ? a.sdk : a.sdq;
+  o1 = head_ptr(o1, so1, b, h);
+  T* o2 = DKV ? head_ptr(static_cast<T*>(a.dv), a.sdv, b, h) : nullptr;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = r0 + 16 * mt + 8 * hf + g;
+    if (row >= nres) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int col = c0 + WIDE_OUT_COLS * ch + 8 * n + 2 * t;
+      if (col >= a.hd) continue;
+      wide_store2(o1 + (long)row * so1.s + col, acc[n][2 * hf] * a.scale,
+                  acc[n][2 * hf + 1] * a.scale);
+      if constexpr (DKV)
+        wide_store2(o2 + (long)row * a.sdv.s + col, acc2[n][2 * hf],
+                    acc2[n][2 * hf + 1]);
+    }
+  }
+}
+
+// Takes only the plans flash_attention.py::_stream_bwd_plan (bf16, fp16:
+// cluster, 2 slots, shared bytes) and _stream_bwd_f32_plan (fp32: cluster,
+// 64 rows, the walked tile, shared bytes) return at a wide tile.
+template <typename T>
+int launch_stream_bwd_wide(bool dkv, const WideArgs& a, int B, int tile,
+                           int cluster, int rows, int walk, int smem,
+                           cudaStream_t stream) {
+  if (cluster != wide_cluster(tile) || rows != WIDE_ROWS ||
+      walk != (sizeof(T) == 4 ? swb_tile<T>() : SB_STAGES) ||
+      smem != swb_smem_bytes<T>() || smem > SB_SMEM_MAX)
+    return HV_BAD_PLAN;
+  WideArgs w = a;
+  w.cl = cluster;
+  const int blocks = ((dkv ? a.Sk : a.Sq) + WIDE_ROWS - 1) / WIDE_ROWS;
+  return dkv ? wide_launch(stream_bwd_wide_kernel<T, true>, blocks, cluster,
+                           a.H, B, smem, stream, w)
+             : wide_launch(stream_bwd_wide_kernel<T, false>, blocks, cluster,
+                           a.H, B, smem, stream, w);
+}
+
+inline WideArgs wide_args(const void* q, const void* k, const void* v,
+                   const float* bias, const void* dout, const float* lse,
+                   const float* delta, void* dq, void* dk, void* dv, int H,
+                   int Sq, int Sk, int D, float scale, int full,
+                   const long* st) {
+  WideArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.dout = dout;
+  a.bias = bias;
+  a.lse = lse;
+  a.delta = delta;
+  a.dq = dq;
+  a.dk = dk;
+  a.dv = dv;
+  Rows* rs[7] = {&a.sq, &a.sk, &a.sv, &a.sdo, &a.sdq, &a.sdk, &a.sdv};
+  for (int i = 0; i < 7; ++i)
+    *rs[i] = Rows{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.hd = D;
+  a.cl = 0;
+  a.scale = scale;
+  a.keyless = full ? 1.f / Sk : 0.f;
+  return a;
+}
+
 int stream_bwd(bool dkv, const void* q, const void* k, const void* v,
                const float* bias, const void* dout, const float* lse,
                const float* delta, void* dq, void* dk, void* dv, int B, int H,
                int Sq, int Sk, int D, int cluster, int stages, int smem,
-               float scale, const long* st, void* stream) {
+               int full, float scale, const long* st, void* stream) {
   SbArgs a;
   a.bias = bias;
   a.lse = lse;
@@ -910,6 +1201,7 @@ int stream_bwd(bool dkv, const void* q, const void* k, const void* v,
   a.Sk = Sk;
   a.hd = D;
   a.scale = scale;
+  a.keyless = full ? 1.f / Sk : 0.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (stream_tile(D)) {
     case 64: return launch_stream_bwd<64>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
@@ -917,7 +1209,11 @@ int stream_bwd(bool dkv, const void* q, const void* k, const void* v,
     case 256: return launch_stream_bwd<256>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
     case 512: return launch_stream_bwd<512>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
     case 640: return launch_stream_bwd<640>(dkv, q, k, v, dout, a, B, st, cluster, stages, smem, s);
-    default: return -1;
+    case -1: return -1;
+    default:
+      return launch_stream_bwd_wide<e16>(
+          dkv, wide_args(q, k, v, bias, dout, lse, delta, dq, dk, dv, H, Sq, Sk, D, scale, full, st),
+          B, stream_tile(D), cluster, WIDE_ROWS, stages, smem, s);
   }
 }
 
@@ -1026,7 +1322,8 @@ int launch_delta(const void* dout, const void* out, float* delta, int B,
 // Masks as the bf16 kernels: keys past Sk and query rows past Sq get P =
 // dS = 0; a key masked by the -1e30 bias has P = exp(-1e30 - lse) = 0
 // wherever its row attends to a real key, so a fully masked key block gets
-// no gradient; a row with no real key keeps the TPU kernels' behaviour.
+// no gradient; a row with no real key takes stream_p's rule
+// (F32GradArgs::keyless), as the bf16 kernels do.
 // ---------------------------------------------------------------------------
 
 constexpr int FC_DIM = 512;   // head dims from here on run the cluster CTA
@@ -1298,10 +1595,12 @@ __device__ __forceinline__ void fc_cta(const F32GradArgs& a, float* smem) {
         p[j] = ds[j] = 0.f;
         if (i * BT + c + j < nwalk) {
           if constexpr (DKV) {
-            p[j] = sb_p(xs[j], a.scale, brow ? ST[r] : 0.f, rows[c + j]);
+            p[j] = stream_p(xs[j], a.scale, brow ? ST[r] : 0.f, rows[c + j],
+                            a.keyless);
             ds[j] = p[j] * (ys[j] - rows[BT + c + j]);
           } else {
-            p[j] = sb_p(xs[j], a.scale, brow ? rows[c + j] : 0.f, ST[r]);
+            p[j] = stream_p(xs[j], a.scale, brow ? rows[c + j] : 0.f, ST[r],
+                            a.keyless);
             ds[j] = p[j] * (ys[j] - ST[R + r]);
           }
         }
@@ -1427,7 +1726,7 @@ int stream_bwd_f32(bool dkv, const void* q, const void* k, const void* v,
                    const float* bias, const void* dout, const float* lse,
                    const float* delta, void* dq, void* dk, void* dv, int B,
                    int H, int Sq, int Sk, int D, int cluster, int rows,
-                   int tile, int smem, float scale, const long* st,
+                   int tile, int smem, int full, float scale, const long* st,
                    void* stream) {
   F32GradArgs a;
   a.q = static_cast<const float*>(q);
@@ -1449,6 +1748,7 @@ int stream_bwd_f32(bool dkv, const void* q, const void* k, const void* v,
   a.nqb = 0;
   a.hd = D;
   a.scale = scale;
+  a.keyless = full ? 1.f / Sk : 0.f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define HV_SBF(DD)                                                          \
   case DD:                                                                  \
@@ -1462,7 +1762,11 @@ int stream_bwd_f32(bool dkv, const void* q, const void* k, const void* v,
     HV_SBF(256)
     HV_SBF(512)
     HV_SBF(640)
-    default: return -1;
+    case -1: return -1;
+    default:
+      return launch_stream_bwd_wide<float>(
+          dkv, wide_args(q, k, v, bias, dout, lse, delta, dq, dk, dv, H, Sq, Sk, D, scale, full, st),
+          B, stream_tile(D), cluster, rows, tile, smem, s);
   }
 #undef HV_SBF
 }
@@ -1485,12 +1789,15 @@ int launch_delta_f32(const void* dout, const void* out, float* delta, int B,
 // Plain C entry points. `strides` holds 21 element strides: (batch, head,
 // row) for q, k, v, dout, dq, dk and dv in that order (the dQ kernel writes
 // dq only, the dK/dV kernel dk and dv); the last dimension of each is
-// contiguous. D is the head dim, any multiple of 8 up to 640: the kernels
-// run the tile width hv::stream_tile(D) (columns past D read as zeros,
-// never stored). `lse` and `delta` are contiguous (B, H, Sq) fp32; `bias`
-// is null or a contiguous (B, Sk) fp32 key bias. `cluster`, `stages` and
-// `smem` are the launch plan of flash_attention.py::_stream_bwd_plan at
-// the tile width. hv_stream_delta: `strides` holds 6, (batch, head, row)
+// contiguous. D is the head dim, any multiple of 8 up to 2048: the kernels
+// run the tile width hv::stream_tile(D) (past 640 a multiple of 256, on the
+// wide kernels; columns past D read as zeros, never stored). `lse` and
+// `delta` are contiguous (B, H, Sq) fp32; `bias` is null or a contiguous
+// (B, Sk) fp32 key bias. `cluster`, `stages` and `smem` are the launch
+// plan of flash_attention.py::_stream_bwd_plan at the tile width. `full`
+// non-zero gives a row with no real key (its LSE at the -1e30 mask's
+// level) the full-block kernels' P = 1 / Sk on every key (stream_p): the
+// caller's choice, where the JAX rule would run its full-block kernel. hv_stream_delta: `strides` holds 6, (batch, head, row)
 // of dout and out; writes a contiguous (B, H, Sq) fp32 `delta`. Each
 // returns a cudaError_t, -1 for an unsupported head dim, -2 for a plan the
 // kernel does not take. Built with -DHV_F16 the tensors are fp16 and the
@@ -1499,11 +1806,11 @@ extern "C" int hv_stream_bwd_dq(const void* q, const void* k, const void* v,
                                 const float* bias, const void* dout,
                                 const float* lse, const float* delta,
                                 void* dq, int B, int H, int Sq, int Sk, int D,
-                                int cluster, int stages, int smem,
+                                int cluster, int stages, int smem, int full,
                                 float scale, const long* strides,
                                 void* stream) {
   return hv::stream_bwd(false, q, k, v, bias, dout, lse, delta, dq, nullptr,
-                        nullptr, B, H, Sq, Sk, D, cluster, stages, smem,
+                        nullptr, B, H, Sq, Sk, D, cluster, stages, smem, full,
                         scale, strides, stream);
 }
 
@@ -1512,11 +1819,11 @@ extern "C" int hv_stream_bwd_dkv(const void* q, const void* k, const void* v,
                                  const float* lse, const float* delta,
                                  void* dk, void* dv, int B, int H, int Sq,
                                  int Sk, int D, int cluster, int stages,
-                                 int smem, float scale, const long* strides,
-                                 void* stream) {
+                                 int smem, int full, float scale,
+                                 const long* strides, void* stream) {
   return hv::stream_bwd(true, q, k, v, bias, dout, lse, delta, nullptr, dk,
-                        dv, B, H, Sq, Sk, D, cluster, stages, smem, scale,
-                        strides, stream);
+                        dv, B, H, Sq, Sk, D, cluster, stages, smem, full,
+                        scale, strides, stream);
 }
 
 extern "C" int hv_stream_delta(const void* dout, const void* out,
@@ -1529,7 +1836,8 @@ extern "C" int hv_stream_delta(const void* dout, const void* out,
     case 256: return hv::launch_delta<256>(dout, out, delta, B, H, Sq, D, strides, s);
     case 512: return hv::launch_delta<512>(dout, out, delta, B, H, Sq, D, strides, s);
     case 640: return hv::launch_delta<640>(dout, out, delta, B, H, Sq, D, strides, s);
-    default: return -1;
+    case -1: return -1;
+    default: return hv::launch_delta<2048>(dout, out, delta, B, H, Sq, D, strides, s);
   }
 }
 
@@ -1543,11 +1851,12 @@ extern "C" int hv_stream_bwd_dq_f32(const void* q, const void* k,
                                     const void* dout, const float* lse,
                                     const float* delta, void* dq, int B,
                                     int H, int Sq, int Sk, int D, int cluster,
-                                    int rows, int tile, int smem, float scale,
-                                    const long* strides, void* stream) {
+                                    int rows, int tile, int smem, int full,
+                                    float scale, const long* strides,
+                                    void* stream) {
   return hv::stream_bwd_f32(false, q, k, v, bias, dout, lse, delta, dq,
                             nullptr, nullptr, B, H, Sq, Sk, D, cluster, rows,
-                            tile, smem, scale, strides, stream);
+                            tile, smem, full, scale, strides, stream);
 }
 
 extern "C" int hv_stream_bwd_dkv_f32(const void* q, const void* k,
@@ -1556,11 +1865,11 @@ extern "C" int hv_stream_bwd_dkv_f32(const void* q, const void* k,
                                      const float* delta, void* dk, void* dv,
                                      int B, int H, int Sq, int Sk, int D,
                                      int cluster, int rows, int tile,
-                                     int smem, float scale,
+                                     int smem, int full, float scale,
                                      const long* strides, void* stream) {
   return hv::stream_bwd_f32(true, q, k, v, bias, dout, lse, delta, nullptr,
                             dk, dv, B, H, Sq, Sk, D, cluster, rows, tile,
-                            smem, scale, strides, stream);
+                            smem, full, scale, strides, stream);
 }
 
 extern "C" int hv_stream_delta_f32(const void* dout, const void* out,
@@ -1573,7 +1882,8 @@ extern "C" int hv_stream_delta_f32(const void* dout, const void* out,
     case 256: return hv::launch_delta_f32<256>(dout, out, delta, B, H, Sq, D, strides, s);
     case 512: return hv::launch_delta_f32<512>(dout, out, delta, B, H, Sq, D, strides, s);
     case 640: return hv::launch_delta_f32<640>(dout, out, delta, B, H, Sq, D, strides, s);
-    default: return -1;
+    case -1: return -1;
+    default: return hv::launch_delta_f32<2048>(dout, out, delta, B, H, Sq, D, strides, s);
   }
 }
 #endif

@@ -15,13 +15,14 @@
     where that kernel takes the operands (``kernel_route``): on a CPU
     tensor always (the kernels' plain versions take any dtype), on the card
     in bf16, fp16 or fp32 at every head dim that is a multiple of 8 up to
-    640, with a gradient or without (``fa.tile_plan``: a head dim runs on
+    2048, with a gradient or without (``fa.tile_plan``: a head dim runs on
     the smallest tile of its kernel >= it, 32/64/96/128 full-block and
-    64/128/256/512/640 streaming, zero-filled past it). The kernel's
-    wrapper copies an operand whose rows it cannot read to a layout it can.
-    A call above 256^2 logits past D 640 has no kernel here, where the TPU
-    kernels take it: it takes the plain path through ``sdpa_plain``, which
-    counts it in ``sdpa_plain.launches``;
+    64/128/256/512/640 streaming, then the multiples of 256 to 2048 on the
+    wide streaming kernels, a cluster of CTAs along D; zero-filled past
+    it). The kernel's wrapper copies an operand whose rows it cannot read
+    to a layout it can. A call above 256^2 logits past D 2048 has no
+    kernel here, where the TPU kernels take it: it takes the plain path
+    through ``sdpa_plain``, which counts it in ``sdpa_plain.launches``;
   * ``xla``: the plain path, always (never counted: the JAX package runs
     XLA there too);
   * ``pallas``: the kernel ``kernel_route`` picks at any size, even at or
@@ -37,12 +38,14 @@
 
 The (B, Sk) key mask enters the kernels as an additive fp32 bias of
 ``MASK_NEG``, so a fully masked row degrades to uniform attention over its
-keys rather than NaN. The per-head q/k LayerNorm (flax fast variance) is
-applied before any kernel or ring, unless ``QKNORM_FUSE`` is True: then,
-where the full-block kernel takes the call, q and k go raw with their norm
-parameters to the fused qk-norm kernel (``full_block_attention_qknorm``),
-as the JAX package's ``_QKNORM_FUSE`` does; everywhere else they are
-normalised first.
+keys rather than NaN. Its gradient is that of the uniform average where the
+JAX rule runs its full-block kernel, the streaming kernels' otherwise
+(``fa.stream_attention``'s ``full_block``). The per-head q/k LayerNorm
+(flax fast variance) is applied before any kernel or ring, unless
+``QKNORM_FUSE`` is True: then, where the full-block kernel takes the call,
+q and k go raw with their norm parameters to the fused qk-norm kernel
+(``full_block_attention_qknorm``), as the JAX package's ``_QKNORM_FUSE``
+does; everywhere else they are normalised first.
 """
 
 from __future__ import annotations
@@ -183,8 +186,8 @@ def _kernel_kind(q_shape, k_shape, impl: str = "auto") -> Optional[str]:
     the full-block kernels' widest tile (128), and "stream" beyond either.
     (The JAX rule also sends short sequences at D > 128 to its full-block
     kernel, e.g. (1, 2, 300, 512); the port's streaming kernels compute the
-    same function there, apart from a row with no key at all, whose
-    gradient differs, and no path makes one.)"""
+    same function there, a row with no key at all included: ``sdpa`` tells
+    their backward so, ``stream_full_block``.)"""
     min_logits = 0 if impl == "pallas" else KERNEL_MIN_LOGITS
     if impl == "xla" or not (q_shape[2] * k_shape[2] > min_logits
                              and q_shape[3] % MIN_ALIGN == 0):
@@ -193,6 +196,16 @@ def _kernel_kind(q_shape, k_shape, impl: str = "auto") -> Optional[str]:
             q_shape[3] <= fa.FULL_BLOCK_TILES[-1]:
         return "full_block"
     return "stream"
+
+
+def stream_full_block(q_shape, k_shape, impl: str = "auto") -> bool:
+    """True where ``_kernel_kind`` sends a call to the streaming kernels
+    only because its head dim is past the full-block kernels' tiles: the
+    JAX rule runs its full-block kernel there, whose softmax gives a row
+    with no key the uniform P = 1 / Sk, and ``sdpa`` asks the streaming
+    backward for the same (``fa.stream_attention(full_block=True)``)."""
+    return (_kernel_kind(q_shape, k_shape, impl) == "stream"
+            and full_block_fits(q_shape, k_shape))
 
 
 def _resolve(implementation: Optional[str]) -> str:
@@ -214,11 +227,11 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor,
     streaming), on a CPU tensor always (its plain version takes any dtype)
     and elsewhere where that kernel takes the operands (``fa.takes``:
     bf16, fp16 or fp32, with a gradient or without, D a multiple of 8 up to
-    640 on the streaming kernels' tiles 64/128/256/512/640 and up to 128 on
-    the full-block ones' 32/64/96/128; any layout, which the kernel's
-    wrapper copies where the kernel cannot read it), else "plain": past D
-    640, or a dtype no kernel takes (fp64). ``v`` defaults to ``k``'s
-    shape."""
+    2048 on the streaming kernels' tiles 64/128/256/512/640 and the
+    multiples of 256 from 768, and up to 128 on the full-block ones'
+    32/64/96/128; any layout, which the kernel's wrapper copies where the
+    kernel cannot read it), else "plain": past D 2048, or a dtype no kernel
+    takes (fp64). ``v`` defaults to ``k``'s shape."""
     impl = _resolve(implementation)
     if impl == "ring":
         if _ring_applicable(q.shape, k.shape):
@@ -234,11 +247,12 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor,
 
 def sdpa_plain(q, k, v, scale, key_mask):
     """The plain path for a call above 256^2 logits that no kernel takes on
-    its device (a head dim past 640, the streaming kernels' widest tile, or
-    a dtype other than bf16, fp16 and fp32; every multiple of 8 up to 640
-    in those three takes a kernel), where the JAX package runs a Pallas
-    kernel: counted in ``sdpa_plain.launches`` as the kernel wrappers count
-    their launches, so a run sees attention that left the kernels."""
+    its device (a head dim past 2048, the streaming kernels' widest tile,
+    or a dtype other than bf16, fp16 and fp32; every multiple of 8 up to
+    2048 in those three takes a kernel), where the JAX package runs a
+    Pallas kernel: counted in ``sdpa_plain.launches`` as the kernel
+    wrappers count their launches, so a run sees attention that left the
+    kernels."""
     sdpa_plain.launches += 1
     return _sdpa_plain(q, k, v, scale, key_mask)
 
@@ -284,7 +298,9 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if route == "full_block":
         return fa.full_block_attention(q, k, v, scale=scale, bias=bias)
     if route == "stream":
-        return fa.stream_attention(q, k, v, scale=scale, bias=bias)[0]
+        return fa.stream_attention(
+            q, k, v, scale=scale, bias=bias,
+            full_block=stream_full_block(q.shape, k.shape, impl))[0]
     if _kernel_kind(q.shape, k.shape, impl) is not None:  # no kernel takes it
         return sdpa_plain(q, k, v, scale, key_mask)
     return _sdpa_plain(q, k, v, scale, key_mask)

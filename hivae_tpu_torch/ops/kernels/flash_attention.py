@@ -67,14 +67,29 @@ launches in ``<wrapper>_f16.launches`` (``full_block_attention_f16``, ...),
 as the fp32 siblings do.
 
 Head dims: each kernel is compiled for a few tile widths (``FULL_BLOCK_TILES``
-32, 64, 96, 128; ``STREAM_TILES`` 64, 128, 256, 512, 640) and runs a call at
-head dim D on the smallest tile >= D (``tile_plan``): its loads fill the
-columns past D with zeros and its stores write the first D, which is exact
-(zero columns add nothing to Q.K^T, dO.V^T or delta; ``scale`` stays the
-caller's). So every D % 8 == 0 up to 128 (full-block) or 640 (streaming)
-has a kernel, in bf16, fp16 and fp32, with a gradient or without; a call
-past 640 has none (``takes`` refuses it, and ``ops.attention`` counts it
-in ``sdpa_plain``).
+32, 64, 96, 128; ``STREAM_TILES`` 64, 128, 256, 512, 640, then 768 to 2048
+in steps of 256) and runs a call at head dim D on the smallest tile >= D
+(``tile_plan``): its loads fill the columns past D with zeros and its
+stores write the first D, which is exact (zero columns add nothing to
+Q.K^T, dO.V^T or delta; ``scale`` stays the caller's). So every D % 8 == 0
+up to 128 (full-block) or 2048 (streaming) has a kernel, in bf16, fp16 and
+fp32, with a gradient or without; a call past 2048 has none (``takes``
+refuses it, and ``ops.attention`` counts it in ``sdpa_plain``). The
+streaming tiles past 640 run the wide kernels (``csrc/attn_wide.cuh``): a
+cluster of tile / 256 CTAs along D, 256 columns each, one kernel per
+element type and direction whatever the tile (``WidePlan``), which count
+their launches apart, in ``<wrapper>_wide`` (``stream_attention_wide``,
+``stream_attention_delta_wide``, ``stream_attention_bwd_dq_wide``,
+``stream_attention_bwd_dkv_wide``, and each with ``_f16`` and ``_f32``).
+
+A row with no real key (the key mask drops every key): the streaming
+forward returns the uniform average over the keys, as the full-block one
+does, and its LSE is the mask's -1e30. The streaming backward forms P =
+exp(s - lse) = 1 on every key there, as the Pallas streaming kernels do;
+the full-block softmax gives 1 / Sk. ``stream_attention(full_block=True)``
+(which ``ops.attention.sdpa`` passes where the JAX rule runs its full-block
+kernel and the port streams only because D is past the full-block tiles)
+makes the backward kernels take 1 / Sk for such a row (``KEYLESS_LSE``).
 
 ``full_block_attention``, ``full_block_attention_qknorm`` and
 ``stream_attention`` are differentiable: on a
@@ -125,8 +140,15 @@ from . import _build
 KERNEL_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 # the head-dim tile widths each kind of kernel is compiled for
 FULL_BLOCK_TILES = (32, 64, 96, 128)
-STREAM_TILES = (64, 128, 256, 512, 640)
+STREAM_TILES = (64, 128, 256, 512, 640, 768, 1024, 1280, 1536, 1792, 2048)
 _TILES = {"full_block": FULL_BLOCK_TILES, "stream": STREAM_TILES}
+# the widest streaming tile a single CTA holds; the tiles past it run the
+# wide kernels, a cluster of tile / WIDE_COLS CTAs along D
+STREAM_NARROW_MAX = 640
+WIDE_COLS = 256
+# an LSE at or below this is a row with no real key (the -1e30 key mask on
+# every key): ``KEYLESS_LSE`` in csrc/attn_common.cuh
+KEYLESS_LSE = -5e29
 
 
 def tile_plan(kind: str, dtype: torch.dtype, d: int) -> Optional[int]:
@@ -195,10 +217,15 @@ def full_block_attention_qknorm_plain(q, k, v, gq, bq, gk, bk, *,
 
 def stream_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, scale: float,
-                           bias: Optional[torch.Tensor] = None
+                           bias: Optional[torch.Tensor] = None,
+                           full_block: bool = False
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, lse (B, H, Sq, 1) fp32): the unnormalised exp(s - max) cast to
-    v's dtype for P.V, divided by the fp32 row sum afterwards."""
+    v's dtype for P.V, divided by the fp32 row sum afterwards.
+    ``full_block`` is ``stream_attention``'s (its backward kernels' rule for
+    a row with no key), taken so that this function stands in for it: the
+    forward is the same under either rule, and its autograd gives such a
+    row the full-block rule's gradient."""
     logits = _logits(q, k, scale, bias)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
@@ -258,35 +285,47 @@ def full_block_attention_bwd_plain(q, k, v, do, *, scale: float,
     return _grads_from_p(p, dp, delta, q, k, v, do, scale)
 
 
-def _stream_grads_plain(q, k, v, do, lse, delta, scale, bias):
+def _stream_grads_plain(q, k, v, do, lse, delta, scale, bias,
+                        full_block=False):
     """(dq, dk, dv) from a given ``lse`` and ``delta`` ((B, H, Sq) or
     (B, H, Sq, 1) fp32), as the TPU kernels compute them: P = exp(s -
-    lse)."""
+    lse); with ``full_block``, a row whose LSE is at the key mask's level
+    (``KEYLESS_LSE``: no real key) takes the full-block softmax's 1 / Sk."""
     stat = q.shape[:3] + (1,)
-    p = torch.exp(_logits(q, k, scale, bias) - lse.reshape(stat))
+    lse = lse.reshape(stat)
+    p = torch.exp(_logits(q, k, scale, bias) - lse)
+    if full_block:
+        p = torch.where(lse <= KEYLESS_LSE, 1.0 / k.shape[2], p)
     dp = torch.matmul(_f(do), _f(v).transpose(-1, -2))
     return _grads_from_p(p, dp, delta.reshape(stat), q, k, v, do, scale)
 
 
 def stream_attention_bwd_plain(q, k, v, do, out, lse, *, scale: float,
-                               bias: Optional[torch.Tensor] = None):
+                               bias: Optional[torch.Tensor] = None,
+                               full_block: bool = False):
     """(dq, dk, dv) of ``stream_attention_plain``'s output from the
     forward's ``out`` and ``lse`` (B, H, Sq, 1), as the TPU kernels compute
-    them: P = exp(s - lse), delta = rowsum(dO * O)."""
+    them: P = exp(s - lse), delta = rowsum(dO * O); ``full_block`` as
+    ``_stream_grads_plain``'s."""
     delta = (_f(do) * _f(out)).sum(dim=-1, keepdim=True)
-    return _stream_grads_plain(q, k, v, do, lse, delta, scale, bias)
+    return _stream_grads_plain(q, k, v, do, lse, delta, scale, bias,
+                               full_block)
 
 
 def stream_attention_bwd_dq_plain(q, k, v, do, lse, delta, *, scale: float,
-                                  bias: Optional[torch.Tensor] = None):
+                                  bias: Optional[torch.Tensor] = None,
+                                  full_block: bool = False):
     """dq of the dQ kernel from a given ``lse`` and ``delta``."""
-    return _stream_grads_plain(q, k, v, do, lse, delta, scale, bias)[0]
+    return _stream_grads_plain(q, k, v, do, lse, delta, scale, bias,
+                               full_block)[0]
 
 
 def stream_attention_bwd_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
-                                   bias: Optional[torch.Tensor] = None):
+                                   bias: Optional[torch.Tensor] = None,
+                                   full_block: bool = False):
     """(dk, dv) of the dK/dV kernel from a given ``lse`` and ``delta``."""
-    return _stream_grads_plain(q, k, v, do, lse, delta, scale, bias)[1:]
+    return _stream_grads_plain(q, k, v, do, lse, delta, scale, bias,
+                               full_block)[1:]
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +340,7 @@ def _refusal(kind, q, k, v, layout=True, grad=False):
     alike), (B, H, S, D) with (where ``layout``) a contiguous last dim and
     16-byte aligned rows, k and v of one shape matching q's batch, heads and
     head dim, and a tile for D (``tile_plan``: a multiple of 8 up to 128
-    full-block, 640 streaming). The device is not looked at."""
+    full-block, 2048 streaming). The device is not looked at."""
     for x in (q, k, v):
         if x.dtype not in KERNEL_DTYPES or x.dtype != q.dtype:
             names = " or ".join(str(t)[6:] for t in KERNEL_DTYPES)
@@ -483,6 +522,65 @@ STREAM_STATIC = 8 * (STREAM_MAX_STAGES + 1) + STREAM_ROWS * 72 * 2 + \
     2 * STREAM_ROWS * 4
 
 
+# launch plans of the wide streaming kernels (csrc/attn_wide.cuh), the
+# tiles past STREAM_NARROW_MAX: a cluster of tile / WIDE_COLS CTAs of 8
+# warps, each WIDE_COLS columns of every operand for WIDE_ROWS resident
+# rows, walking tiles through two cp.async slots
+WIDE_ROWS = 64
+WIDE_STAGES = 2
+WIDE_MAX_CLUSTER = 8   # the portable cluster size
+WIDE_FWD_TILE = 32     # keys a walked tile of the forward (``SW_TILE``)
+# rows a walked tile of dQ and dK/dV, by element bytes (``swb_tile``)
+WIDE_BWD_TILE = {2: 32, 4: 16}
+
+
+@dataclasses.dataclass(frozen=True)
+class WidePlan:
+    """Launch plan of a wide streaming kernel (the forward's
+    ``sw_smem_bytes``, dQ's and dK/dV's ``swb_smem_bytes``): a cluster of
+    ``cluster`` CTAs along D, each holding ``cols`` columns of every
+    operand and output for ``rows`` resident rows; ``stages`` slots of the
+    walked ``tile``-row tiles (K and V, or Q and dO); ``smem`` dynamic
+    shared bytes."""
+    cluster: int
+    cols: int
+    rows: int
+    tile: int
+    stages: int
+    smem: int
+
+
+def _wide_ld(elem: int) -> int:
+    """Row stride, in elements, of a wide kernel's shared tile of
+    ``elem``-byte elements: WIDE_COLS and 16 bytes."""
+    return WIDE_COLS + 16 // elem
+
+
+def _wide_smem(elem: int, bwd: bool) -> int:
+    """Shared bytes of the wide forward (``bwd`` False: Q, two slots of a
+    K and a V tile and the keys' bias row, two buffers of the partial
+    scores and the summed tile) or of its dQ and dK/dV (the resident pair
+    and 2 fp32 rows of it, two slots of the walked pair and 2 fp32 rows,
+    two buffers of the X and Y partials, the P and dS tiles)."""
+    ld, r = _wide_ld(elem), WIDE_ROWS
+    if not bwd:
+        t = WIDE_FWD_TILE
+        return ((r * ld + 2 * (2 * t * ld + t * 4 // elem)) * elem
+                + (2 * r * t + r * (t + 4)) * 4)
+    t = WIDE_BWD_TILE[elem]
+    return ((2 * r * ld + 2 * (2 * t * ld + 2 * t * 4 // elem)) * elem
+            + (2 * r + 4 * r * t + 2 * r * (t + 4)) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_plan(d: int, elem: int, bwd: bool) -> WidePlan:
+    """The wide plan at tile ``d`` (a multiple of WIDE_COLS past 640) for
+    ``elem``-byte operands, forward or (``bwd``) dQ and dK/dV alike."""
+    return WidePlan(cluster=d // WIDE_COLS, cols=WIDE_COLS, rows=WIDE_ROWS,
+                    tile=WIDE_BWD_TILE[elem] if bwd else WIDE_FWD_TILE,
+                    stages=WIDE_STAGES, smem=_wide_smem(elem, bwd))
+
+
 @dataclasses.dataclass(frozen=True)
 class StreamPlan:
     """Launch plan of the streaming forward: ``stages`` ring slots, each one
@@ -498,13 +596,16 @@ def _round_kb(x):
 
 
 @functools.lru_cache(maxsize=None)
-def _stream_plan(d: int) -> StreamPlan:
+def _stream_plan(d: int) -> Union[StreamPlan, WidePlan]:
     """The plan at head dim ``d`` (``sf_bk``, ``sf_stages`` and
     ``sf_smem_bytes`` in flash_stream.cu): tiles of ``STREAM_TILE`` keys,
     ``STREAM_TILE_WIDE`` past D = 512 (where a 64-key slot would leave room
     for one beside Q), and as many slots as fit one block's shared memory
     beside the static ``STREAM_STATIC`` bytes, at most
-    ``STREAM_MAX_STAGES``. The sequence lengths do not change it."""
+    ``STREAM_MAX_STAGES``; past D = 640 the wide forward's (``WidePlan``).
+    The sequence lengths do not change it."""
+    if d > STREAM_NARROW_MAX:
+        return _wide_plan(d, 2, False)
     tile = STREAM_TILE_WIDE if d > 512 else STREAM_TILE
     q_bytes = _sw128_bytes(d, STREAM_ROWS)
     slot = _round_kb(_sw128_bytes(d, tile) + tile * 4)
@@ -546,12 +647,15 @@ def _stream_f32_smem(d: int, tile: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _stream_f32_plan(d: int) -> StreamF32Plan:
+def _stream_f32_plan(d: int) -> Union[StreamF32Plan, WidePlan]:
     """The plan at head dim ``d`` (``sf32_bk``): K/V tiles of 32 keys to
     d = 256 (a wider tile's scores would take more registers than a thread
     has beside the output), 16 at 512 and 8 at 640, so that the Q tile, two
-    slots, the exchange and P fit one block. The sequence lengths do not
-    change it."""
+    slots, the exchange and P fit one block; past D = 640 the wide
+    forward's at fp32 (``WidePlan``). The sequence lengths do not change
+    it."""
+    if d > STREAM_NARROW_MAX:
+        return _wide_plan(d, 4, False)
     tile = 32 if d <= 256 else 16 if d <= 512 else 8
     return StreamF32Plan(rows=STREAM_F32_ROWS, tile=tile,
                          stages=STREAM_F32_STAGES,
@@ -592,14 +696,17 @@ class StreamBwdPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def _stream_bwd_plan(d: int) -> StreamBwdPlan:
+def _stream_bwd_plan(d: int) -> Union[StreamBwdPlan, WidePlan]:
     """The plan at head dim ``d`` (``sb_rows``, ``sb_cluster``, ``sb_cols``,
     ``sb_tile`` and ``sb_smem_bytes`` in flash_stream_bwd.cu): 1 KB to
     align the base, two resident swizzled tiles of ``rows`` rows,
     ``stages`` slots of two walked ones of ``tile`` rows (32 past D = 512,
     where 64 would not fit), and with the roles (d >= 256) one fp32
     64 x ``tile`` tile a cluster CTA (P; from D = 512 the exchange tiles of
-    S and dP). The sequence lengths do not change it."""
+    S and dP); past D = 640 the wide dQ's and dK/dV's (``WidePlan``). The
+    sequence lengths do not change it."""
+    if d > STREAM_NARROW_MAX:
+        return _wide_plan(d, 2, True)
     split = d >= STREAM_BWD_SPLIT_DIM
     rows = STREAM_BWD_TILE if split else 2 * STREAM_BWD_TILE
     cluster = 2 if d >= STREAM_BWD_CLUSTER_DIM else 1
@@ -803,13 +910,17 @@ def _f32_cluster_plan(d: int) -> F32ClusterPlan:
 class StreamBwdF32Plan:
     """Launch plans of the fp32 streaming dQ and dK/dV kernels: the
     gradient CTA's (``F32GradPlan``, one CTA a cluster) below D = 512, the
-    cluster CTA's (``F32ClusterPlan``) from it."""
-    dq: Union[F32GradPlan, F32ClusterPlan]
-    dkv: Union[F32GradPlan, F32ClusterPlan]
+    cluster CTA's (``F32ClusterPlan``) at 512 and 640, the wide kernel's
+    (``WidePlan``) past 640."""
+    dq: Union[F32GradPlan, F32ClusterPlan, WidePlan]
+    dkv: Union[F32GradPlan, F32ClusterPlan, WidePlan]
 
 
 @functools.lru_cache(maxsize=None)
 def _stream_bwd_f32_plan(d: int) -> StreamBwdF32Plan:
+    if d > STREAM_NARROW_MAX:
+        plan = _wide_plan(d, 4, True)
+        return StreamBwdF32Plan(dq=plan, dkv=plan)
     if d >= STREAM_BWD_F32_CLUSTER_DIM:
         plan = _f32_cluster_plan(d)
         return StreamBwdF32Plan(dq=plan, dkv=plan)
@@ -842,8 +953,8 @@ _ENTRIES = {
     "full_block_delta": ("flash_full_block_bwd", "hv_full_block_delta", 5, 4,
                          0),
     "stream": ("flash_stream", "hv_stream_fwd", 6, 7, 1),
-    "stream_dq": ("flash_stream_bwd", "hv_stream_bwd_dq", 8, 8, 1),
-    "stream_dkv": ("flash_stream_bwd", "hv_stream_bwd_dkv", 9, 8, 1),
+    "stream_dq": ("flash_stream_bwd", "hv_stream_bwd_dq", 8, 9, 1),
+    "stream_dkv": ("flash_stream_bwd", "hv_stream_bwd_dkv", 9, 9, 1),
     "stream_delta": ("flash_stream_bwd", "hv_stream_delta", 3, 4, 0),
     "full_block_f32": ("flash_full_block", "hv_full_block_fwd_f32", 8, 8, 2),
     "full_block_bwd_f32": ("flash_full_block_bwd", "hv_full_block_bwd_f32",
@@ -851,8 +962,9 @@ _ENTRIES = {
     "full_block_delta_f32": ("flash_full_block_bwd",
                              "hv_full_block_delta_f32", 5, 4, 0),
     "stream_f32": ("flash_stream", "hv_stream_fwd_f32", 6, 7, 1),
-    "stream_dq_f32": ("flash_stream_bwd", "hv_stream_bwd_dq_f32", 8, 9, 1),
-    "stream_dkv_f32": ("flash_stream_bwd", "hv_stream_bwd_dkv_f32", 9, 9, 1),
+    "stream_dq_f32": ("flash_stream_bwd", "hv_stream_bwd_dq_f32", 8, 10, 1),
+    "stream_dkv_f32": ("flash_stream_bwd", "hv_stream_bwd_dkv_f32", 9, 10,
+                       1),
     "stream_delta_f32": ("flash_stream_bwd", "hv_stream_delta_f32", 3, 4, 0),
 }
 
@@ -873,12 +985,19 @@ def _f32(x):
     return x.dtype == torch.float32
 
 
-def _count(wrapper, x):
+def _count(wrapper, x, wide=False):
     """One launch more on ``wrapper``'s counter (bf16 operands), or on its
-    fp32 or fp16 sibling's (``<name>_f32``, ``<name>_f16``)."""
-    sibling = {torch.float32: "_f32", torch.float16: "_f16"}.get(x.dtype)
-    (globals()[wrapper.__name__ + sibling] if sibling else
-     wrapper).launches += 1
+    fp32 or fp16 sibling's (``<name>_f32``, ``<name>_f16``); a wide
+    kernel's (a tile past ``STREAM_NARROW_MAX``) on ``<name>_wide`` and its
+    siblings (``<name>_wide_f32``, ``<name>_wide_f16``)."""
+    name = wrapper.__name__ + ("_wide" if wide else "") + {
+        torch.float32: "_f32", torch.float16: "_f16"}.get(x.dtype, "")
+    (wrapper if name == wrapper.__name__ else globals()[name]).launches += 1
+
+
+def _wide(d, dtype):
+    """Whether head dim ``d`` runs a wide streaming kernel."""
+    return tile_plan("stream", dtype, d) > STREAM_NARROW_MAX
 
 
 def _launch(name, fn_err, *args):
@@ -1016,10 +1135,11 @@ def _stream_fwd(q, k, v, bias, scale, grad=False):
     else:
         plan = _stream_plan(tile)
         plan_args = (plan.stages, plan.smem)
-    _launch("stream_attention", _entry("stream", q.dtype), _ptr(q), _ptr(k), _ptr(v), _ptr(bias),
-            _ptr(out), _ptr(lse), b, h, sq, k.shape[2], d, *plan_args,
-            float(scale), _strides(q, k, v, out), _stream_of(q))
-    _count(stream_attention, q)
+    _launch("stream_attention", _entry("stream", q.dtype), _ptr(q), _ptr(k),
+            _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), b, h, sq, k.shape[2],
+            d, *plan_args, float(scale), _strides(q, k, v, out),
+            _stream_of(q))
+    _count(stream_attention, q, _wide(d, q.dtype))
     return out, lse[..., None]
 
 
@@ -1045,7 +1165,7 @@ def stream_attention_delta(do: torch.Tensor, out: torch.Tensor
     _launch("stream_attention_delta", _entry("stream_delta", do.dtype),
             _ptr(do), _ptr(out), _ptr(delta), b, h, sq, d, _strides(do, out),
             _stream_of(do))
-    _count(stream_attention_delta, do)
+    _count(stream_attention_delta, do, _wide(d, do.dtype))
     return delta
 
 
@@ -1073,12 +1193,14 @@ def _stream_bwd_args(name, q, k, v, do, lse, delta, bias):
 
 
 def stream_attention_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
-                            bias: Optional[torch.Tensor] = None):
+                            bias: Optional[torch.Tensor] = None,
+                            full_block: bool = False):
     """dQ kernel: dq from the cotangent ``do``, the forward's ``lse`` and
     ``delta`` = rowsum(dO * O), each (B, H, Sq) or (B, H, Sq, 1) fp32 (a
     ring hop passes global ones), under ``_stream_bwd_plan`` (bf16, fp16)
-    or ``_stream_bwd_f32_plan`` (fp32) at the head dim's tile. Its plain
-    version is ``stream_attention_bwd_dq_plain``."""
+    or ``_stream_bwd_f32_plan`` (fp32) at the head dim's tile; with
+    ``full_block``, P = 1 / Sk for a row with no real key (the full-block
+    rule). Its plain version is ``stream_attention_bwd_dq_plain``."""
     do, lse, delta = _stream_bwd_args("stream_attention_bwd_dq", q, k, v, do,
                                       lse, delta, bias)
     b, h, sq, d = q.shape
@@ -1086,9 +1208,9 @@ def stream_attention_bwd_dq(q, k, v, do, lse, delta, *, scale: float,
     dq = _empty_out(q)
     _launch("stream_attention_bwd_dq", fn, _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), b, h, sq,
-            k.shape[2], d, *plan_args, float(scale),
+            k.shape[2], d, *plan_args, int(full_block), float(scale),
             _strides(q, k, v, do, dq, None, None), _stream_of(q))
-    _count(stream_attention_bwd_dq, q)
+    _count(stream_attention_bwd_dq, q, _wide(d, q.dtype))
     return dq
 
 
@@ -1096,7 +1218,8 @@ stream_attention_bwd_dq.launches = 0
 
 
 def stream_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
-                             bias: Optional[torch.Tensor] = None):
+                             bias: Optional[torch.Tensor] = None,
+                             full_block: bool = False):
     """dK/dV kernel: (dk, dv), inputs as ``stream_attention_bwd_dq``. Its
     plain version is ``stream_attention_bwd_dkv_plain``."""
     do, lse, delta = _stream_bwd_args("stream_attention_bwd_dkv", q, k, v,
@@ -1106,9 +1229,9 @@ def stream_attention_bwd_dkv(q, k, v, do, lse, delta, *, scale: float,
     dk, dv = _empty_out(k), _empty_out(v)
     _launch("stream_attention_bwd_dkv", fn, _ptr(q), _ptr(k), _ptr(v),
             _ptr(bias), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv),
-            b, h, sq, k.shape[2], d, *plan_args, float(scale),
-            _strides(q, k, v, do, None, dk, dv), _stream_of(q))
-    _count(stream_attention_bwd_dkv, q)
+            b, h, sq, k.shape[2], d, *plan_args, int(full_block),
+            float(scale), _strides(q, k, v, do, None, dk, dv), _stream_of(q))
+    _count(stream_attention_bwd_dkv, q, _wide(d, q.dtype))
     return dk, dv
 
 
@@ -1243,11 +1366,11 @@ class _FullBlockQKNorm(torch.autograd.Function):
 
 class _Stream(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale):
+    def forward(ctx, q, k, v, bias, scale, full_block):
         q, k, v = (kernel_layout(x) for x in (q, k, v))
         out, lse = _stream_fwd(q, k, v, bias, scale, grad=True)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.full_block = scale, full_block
         ctx.mark_non_differentiable(lse)
         return out, lse
 
@@ -1256,10 +1379,10 @@ class _Stream(torch.autograd.Function):
         q, k, v, bias, out, lse = ctx.saved_tensors
         do = kernel_layout(do)
         delta = stream_attention_delta(do, out)
-        kw = dict(scale=ctx.scale, bias=bias)
+        kw = dict(scale=ctx.scale, bias=bias, full_block=ctx.full_block)
         dq = stream_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = stream_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def _needs_grad(*xs):
@@ -1322,15 +1445,20 @@ full_block_attention_qknorm.launches = 0
 
 
 def stream_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     scale: float, bias: Optional[torch.Tensor] = None
+                     scale: float, bias: Optional[torch.Tensor] = None,
+                     full_block: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Streaming online-softmax attention -> (out (B, H, Sq, D),
     lse (B, H, Sq, 1) fp32). ``out`` is differentiable in q, k and v;
-    ``lse`` carries no gradient."""
+    ``lse`` carries no gradient. ``full_block``: the backward kernels give
+    a row with no real key the full-block softmax's P = 1 / Sk (the
+    derivative of the uniform average the forward returns there) rather
+    than the streaming kernels' exp(s - lse) = 1; ``ops.attention.sdpa``
+    sets it where the JAX rule runs its full-block kernel."""
     if _needs_grad(q, k, v):
         if q.device.type == "cpu":
             return stream_attention_plain(q, k, v, scale=scale, bias=bias)
-        return _Stream.apply(q, k, v, bias, scale)
+        return _Stream.apply(q, k, v, bias, scale, bool(full_block))
     _on_a_device("stream_attention", q)
     return _stream_op(q, k, v, bias, float(scale))
 
@@ -1341,7 +1469,9 @@ stream_attention.launches = 0
 class _Launches:
     """The launch count of an fp32 (or fp16) kernel, apart from its bf16
     sibling's (``<wrapper>.launches``): the wrapper called with fp32 (fp16)
-    operands adds one to ``launches`` where it launches that kernel."""
+    operands adds one to ``launches`` where it launches that kernel; a wide
+    streaming kernel's likewise (``<wrapper>_wide``, bf16 operands, and its
+    ``_f16`` and ``_f32`` forms)."""
 
     def __init__(self, name: str):
         self.__name__ = name
@@ -1371,3 +1501,20 @@ stream_attention_f16 = _Launches("stream_attention_f16")
 stream_attention_delta_f16 = _Launches("stream_attention_delta_f16")
 stream_attention_bwd_dq_f16 = _Launches("stream_attention_bwd_dq_f16")
 stream_attention_bwd_dkv_f16 = _Launches("stream_attention_bwd_dkv_f16")
+# the wide streaming kernels' counters (tiles past STREAM_NARROW_MAX)
+stream_attention_wide = _Launches("stream_attention_wide")
+stream_attention_wide_f16 = _Launches("stream_attention_wide_f16")
+stream_attention_wide_f32 = _Launches("stream_attention_wide_f32")
+stream_attention_delta_wide = _Launches("stream_attention_delta_wide")
+stream_attention_delta_wide_f16 = _Launches("stream_attention_delta_wide_f16")
+stream_attention_delta_wide_f32 = _Launches("stream_attention_delta_wide_f32")
+stream_attention_bwd_dq_wide = _Launches("stream_attention_bwd_dq_wide")
+stream_attention_bwd_dq_wide_f16 = _Launches(
+    "stream_attention_bwd_dq_wide_f16")
+stream_attention_bwd_dq_wide_f32 = _Launches(
+    "stream_attention_bwd_dq_wide_f32")
+stream_attention_bwd_dkv_wide = _Launches("stream_attention_bwd_dkv_wide")
+stream_attention_bwd_dkv_wide_f16 = _Launches(
+    "stream_attention_bwd_dkv_wide_f16")
+stream_attention_bwd_dkv_wide_f32 = _Launches(
+    "stream_attention_bwd_dkv_wide_f32")

@@ -461,7 +461,7 @@ def test_attention_routes_on_meta():
     at full width go plain, as the JAX package sends them to XLA; the
     grid head's joint block (16 x 16 motion patches, 256 image patches,
     16 audio tokens) takes the full-block kernel in bf16, fp32 and fp16;
-    the same shape at D 648, past every kernel's tiles, no kernel."""
+    the same shape at D 2056, past every kernel's tiles, no kernel."""
     plain = {
         "LearnableToken joint (64 + 4 + 16)": (4, 16, 84, 64),
         "A2P temporal (17 frames)": (4 * 256, 8, 17, 64),
@@ -474,7 +474,7 @@ def test_attention_routes_on_meta():
     before = tattn.sdpa_plain.launches
     assert _route((4, 16, 528, 64), dtype=torch.float32) == "full_block"
     assert _route((4, 16, 528, 64), dtype=torch.float16) == "full_block"
-    assert _route((4, 16, 528, 648), dtype=torch.float16) == "plain"
+    assert _route((4, 16, 528, 2056), dtype=torch.float16) == "plain"
     assert tattn.sdpa_plain.launches == before
 
 

@@ -197,7 +197,7 @@ def test_stream_kernel_lse_feeds_the_backward(d):
 @pytest.mark.cuda
 def test_kernels_reject_what_they_do_not_take():
     """fp64 (no kernel's dtype), a head dim past the full-block kernels'
-    widest tile (128) and one past the streaming kernels' (640)."""
+    widest tile (128) and one past the streaming kernels' (2048)."""
     _cuda_or_skip()
     q, k, v = _qkv((1, 2, 300, 64), seed=13)
     with pytest.raises(TypeError):
@@ -206,9 +206,9 @@ def test_kernels_reject_what_they_do_not_take():
     wide = [x.repeat(1, 1, 1, 3) for x in (q, k, v)]   # D 192
     with pytest.raises(ValueError, match="head dim"):
         tfa.full_block_attention(*wide, scale=0.1)
-    wider = [torch.cat([x] * 10 + [x[..., :8]], dim=-1) for x in (q, k, v)]
+    wider = [torch.cat([x] * 32 + [x[..., :8]], dim=-1) for x in (q, k, v)]
     with pytest.raises(ValueError, match="head dim"):
-        tfa.stream_attention(*wider, scale=0.1)   # D 648
+        tfa.stream_attention(*wider, scale=0.1)   # D 2056
 
 
 @pytest.mark.cuda
@@ -603,13 +603,13 @@ def _sdpa_case(shape, masked, dtype, grad=False):
 @pytest.mark.parametrize("shape,masked", SDPA_DTYPE_SHAPES)
 def test_sdpa_off_the_kernel_dtypes_takes_the_plain_path(dtype, shape,
                                                          masked):
-    """Above 256^2 logits past every kernel's head dims (D 648; every
-    multiple of 8 up to 640 in fp16, bf16 and fp32 has a kernel): ``sdpa``
+    """Above 256^2 logits past every kernel's head dims (D 2056; every
+    multiple of 8 up to 2048 in fp16, bf16 and fp32 has a kernel): ``sdpa``
     takes the plain path (no kernel launch, one count of ``sdpa_plain``)
     and returns its values."""
     _cuda_or_skip()
     from hivae_tpu_torch.ops import attention as tattn
-    shape = shape[:3] + (648,)
+    shape = shape[:3] + (2056,)
     q, k, v, mask = _sdpa_case(shape, masked, dtype)
     counters = [tfa.full_block_attention, tfa.stream_attention,
                 tfa.full_block_attention_f16, tfa.stream_attention_f16,
@@ -1122,5 +1122,114 @@ def test_sdpa_routes_any_head_dim_and_fp16_to_the_kernels(shape, dtype):
     assert [c.launches - b for c, b in zip(counters, before)] == \
         [1] * len(names) + [0]
     assert _ok(got, want.detach(), dtype)
+    for g, w in zip(grads, wgrads):
+        assert _ok(g, w, dtype, grad=True)
+
+
+# ---------------------------------------------------------------------------
+# Head dims past 640: the wide streaming kernels (csrc/attn_wide.cuh, a
+# cluster of tile / 256 CTAs along D), at each wide tile and one head dim
+# off each, counted on their own ``_wide`` counters; and the gradient of a
+# row with no key where the JAX rule runs its full-block kernel.
+# Tolerances as above.
+# ---------------------------------------------------------------------------
+
+WIDE_DIMS = (768, 1024, 1280, 1536, 1792, 2048,
+             648, 776, 1032, 1288, 1544, 1800)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_wide_stream_kernels_match_plain(d, dtype):
+    """The wide forward (O, LSE), delta, dQ and dK/dV at (2, 2, 300, d),
+    masked with batch 0 keyless, against their plain versions: the forward
+    (the keyless row the uniform average), then the backward under the
+    full-block rule (``full_block``: P = 1 / Sk on the keyless row) twice
+    to the same bits, and once under the streaming one; each launch on the
+    dtype's wide counters, none on the narrow ones."""
+    _cuda_or_skip()
+    shape = (2, 2, 300, d)
+    q, k, v = (x.float().to(dtype) for x in _qkv(shape, seed=90))
+    do = _qkv(shape, seed=91)[0].float().to(dtype)
+    bias = _bias(2, 300, seed=92, full_row=0)
+    kw = dict(scale=d ** -0.5, bias=bias)
+    names = ["stream_attention", "stream_attention_delta",
+             "stream_attention_bwd_dq", "stream_attention_bwd_dkv"]
+    wide = [_counter(n + "_wide", dtype) for n in names]
+    narrow = [_counter(n, dtype) for n in names]
+    before = [c.launches for c in wide + narrow]
+    runs = []
+    for _ in range(2):
+        out, lse = tfa.stream_attention(q, k, v, **kw)
+        delta = tfa.stream_attention_delta(do, out)
+        dq = tfa.stream_attention_bwd_dq(q, k, v, do, lse, delta,
+                                         full_block=True, **kw)
+        runs.append((out, lse, delta, dq) + tfa.stream_attention_bwd_dkv(
+            q, k, v, do, lse, delta, full_block=True, **kw))
+    out, lse, delta = runs[0][:3]
+    streaming = (tfa.stream_attention_bwd_dq(q, k, v, do, lse, delta, **kw),
+                 *tfa.stream_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    wo, wl = tfa.stream_attention_plain(q, k, v, **kw)
+    want = tfa.stream_attention_bwd_plain(q, k, v, do, out, lse,
+                                          full_block=True, **kw)
+    want_s = tfa.stream_attention_bwd_plain(q, k, v, do, out, lse, **kw)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(wide + narrow, before)] == \
+        [2, 2, 3, 3, 0, 0, 0, 0]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert _ok(out, wo, dtype)
+    assert _ok(out[0], v[0].float().mean(dim=1, keepdim=True).expand_as(
+        out[0]).to(dtype), dtype)
+    assert _err(lse, wl) <= (F32_ATOL if dtype == torch.float32
+                             else LSE_ATOL)
+    assert _err(delta, tfa._delta(do, out)) <= 1e-5 * max(
+        1.0, (do.float().abs() * out.float().abs()).sum(-1).max().item())
+    for got, w in ((runs[0][3:], want), (streaming, want_s)):
+        for g, x in zip(got, w):
+            assert _ok(g, x, dtype, grad=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("shape", [(2, 2, 272, 136), (2, 2, 300, 512),
+                                   (2, 2, 300, 1024), (1, 1, 2048, 136)])
+def test_sdpa_keyless_row_gradient(shape, dtype):
+    """A row with no key (batch 0 of the key mask all dropped) through
+    ``sdpa(..., implementation="pallas")`` with a gradient. Where the JAX
+    rule runs its full-block kernel and the port streams only because D is
+    past 128 ((2, 2, 272, 136), (2, 2, 300, 512), (2, 2, 300, 1024)), the
+    card's gradients are the autograd of the full-block plain version (the
+    uniform average's; the key mask as an additive bias, as the kernels
+    take it: ``_sdpa_plain``'s masked_fill would give the keyless row's q
+    and k none). At (1, 1, 2048, 136), past ``full_block_fits``, the JAX
+    rule streams and the card keeps the streaming kernels' rule: it equals
+    the plain streaming backward."""
+    _cuda_or_skip()
+    from hivae_tpu_torch.ops import attention as tattn
+    q, k, v, _ = _sdpa_case(shape, False, dtype, grad=True)
+    mask = torch.from_numpy(
+        np.random.RandomState(93).rand(shape[0], shape[2]) > 0.3).cuda()
+    mask[0] = False
+    do = torch.randn(shape, device="cuda").to(dtype)
+    full = tattn.full_block_fits(shape, shape)
+    assert tattn.kernel_route(q, k, v, "pallas") == "stream"
+    assert tattn.stream_full_block(shape, shape, "pallas") == full
+    got = tattn.sdpa(q, k, v, key_mask=mask, implementation="pallas")
+    grads = torch.autograd.grad(got, (q, k, v), do)
+    bias = torch.zeros(mask.shape, device="cuda").masked_fill(
+        ~mask, tattn.MASK_NEG)
+    kw = dict(scale=shape[3] ** -0.5, bias=bias)
+    if full:
+        ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        want = tfa.full_block_attention_plain(*ref, **kw)
+        wgrads = torch.autograd.grad(want, ref, do)
+    else:
+        out, lse = tfa.stream_attention(q.detach(), k.detach(), v.detach(),
+                                        **kw)
+        wgrads = tfa.stream_attention_bwd_plain(q.detach(), k.detach(),
+                                                v.detach(), do, out, lse,
+                                                **kw)
+    torch.cuda.synchronize()
     for g, w in zip(grads, wgrads):
         assert _ok(g, w, dtype, grad=True)

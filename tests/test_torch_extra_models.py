@@ -279,7 +279,7 @@ def routes(monkeypatch):
         calls.append(("full_block", tuple(q.shape)))
         return torch.empty_like(q)
 
-    def stream(q, k, v, *, scale, bias=None):
+    def stream(q, k, v, *, scale, bias=None, full_block=False):
         calls.append(("stream", tuple(q.shape)))
         return torch.empty_like(q), torch.empty(q.shape[:3] + (1,),
                                                 device=q.device)

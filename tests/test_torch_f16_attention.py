@@ -202,8 +202,8 @@ def test_tile_plan_covers_every_head_dim(dtype):
     forward's tiles): the full-block tiles to 128, the streaming tiles to
     640; ``kernel_route`` (on ``meta``, which stands in for the card)
     sends a full-block shape there at D <= 128 and to the streaming
-    kernels beyond; D 648, a D not a multiple of 8 and fp64 are
-    refused."""
+    kernels beyond; D 2056 (past the widest streaming tile, 2048), a D not
+    a multiple of 8 and fp64 are refused."""
     for d in range(8, 641, 8):
         want_s = min(t for t in tfa.STREAM_TILES if t >= d)
         assert tfa.tile_plan("stream", dtype, d) == want_s
@@ -221,10 +221,10 @@ def test_tile_plan_covers_every_head_dim(dtype):
         assert tattn.kernel_route(g, g, g) == (
             "full_block" if d <= 128 else "stream")
     for kind in ("full_block", "stream"):
-        assert tfa.tile_plan(kind, dtype, 648) is None
+        assert tfa.tile_plan(kind, dtype, 2056) is None
         assert tfa.tile_plan(kind, dtype, 12) is None
         assert tfa.tile_plan(kind, torch.float64, 64) is None
-    x = torch.empty((2, 2, 260, 648), device="meta", dtype=dtype)
+    x = torch.empty((2, 2, 260, 2056), device="meta", dtype=dtype)
     assert tattn.kernel_route(x, x, x) == "plain"
 
 

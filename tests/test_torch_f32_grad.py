@@ -230,8 +230,23 @@ def test_stream_bwd_f32_plan_fits_a_block(d):
     over D where a tile has fewer than 8 blocks. From D 512, the cluster
     CTA's: 64 rows of D / cluster columns, the smallest cluster whose dK
     and dV accumulators take at most 128 registers a thread, and the
-    widest walked tile (32 or 16 rows) that fits one block."""
+    widest walked tile (32 or 16 rows) that fits one block. Past D 640, the
+    wide kernels' (dQ and dK/dV alike): a cluster of d / 256 CTAs of 256
+    columns (rows 260 floats apart) and 64 rows (the dK and dV
+    accumulators 128 registers a thread), two slots of a 16-row walked
+    pair with 2 fp32 rows, two buffers of the X and Y partials and the P
+    and dS tiles (rows 20 floats apart), within one block."""
     plan = tfa._stream_bwd_f32_plan(d)
+    if d > tfa.STREAM_NARROW_MAX:
+        assert plan.dq == plan.dkv
+        p = plan.dq
+        assert (p.cluster, p.cols, p.rows, p.tile, p.stages) == (
+            d // 256, 256, 64, 16, 2)
+        assert p.smem == (2 * 64 * 260 + 2 * 64 + 2 * (2 * 16 * 260 + 32)
+                          + 4 * 64 * 16 + 2 * 64 * 20) * 4 == 227_072
+        assert p.smem <= tfa.SMEM_PER_BLOCK
+        assert 2 * p.rows * p.cols // tfa.F32_THREADS == 128
+        return
     if d < tfa.STREAM_BWD_F32_CLUSTER_DIM:
         for grad, outputs, want in ((plan.dq, 1, STREAM_BWD_F32[d][0]),
                                     (plan.dkv, 2, STREAM_BWD_F32[d][1])):

@@ -103,7 +103,7 @@ def test_path_dispatch():
     seen = []
 
     def spy(name):
-        def fn(q, k, v, *, scale, bias=None):
+        def fn(q, k, v, *, scale, bias=None, full_block=False):
             seen.append((name, tuple(q.shape)))
             out = torch.zeros_like(q)
             return out if name == "full" else (out, None)
@@ -304,14 +304,31 @@ def test_ffn_plan_covers_every_admitted_n():
         _check_ffn_plan(64, 1024, n)
 
 
+def _check_wide_plan(plan, d, elem, bwd):
+    """A wide kernel's plan at tile d: a cluster of d / 256 CTAs (at most
+    the portable 8) of 256 columns and 64 rows, two slots of the walked
+    tile its source states, within one block's 232,448 bytes."""
+    assert plan == tfa.WidePlan(
+        cluster=d // 256, cols=256, rows=64,
+        tile=(16 if elem == 4 else 32) if bwd else 32, stages=2,
+        smem=tfa._wide_smem(elem, bwd))
+    assert 3 <= plan.cluster <= tfa.WIDE_MAX_CLUSTER == 8
+    assert plan.cols * plan.cluster == d
+    assert plan.smem <= tfa.SMEM_PER_BLOCK
+
+
 @pytest.mark.parametrize("d", tfa.STREAM_TILES)
 def test_stream_plan_fits_shared_memory(d):
     """The streaming forward's plan at each head dim: the swizzled Q tile,
     ring slots of one swizzled 64-key tile (32 keys at D 640, where a 64-key
     slot would leave room for one) and its bias row, and the static P tile
     within one block's 227 KB, at least two slots (one landing while one
-    computes), and no room left for another slot below the cap."""
+    computes), and no room left for another slot below the cap; past D 640
+    the wide forward's cluster plan."""
     plan = tfa._stream_plan(d)
+    if d > tfa.STREAM_NARROW_MAX:
+        _check_wide_plan(plan, d, 2, bwd=False)
+        return
     assert plan.tile == (32 if d == 640 else tfa.STREAM_TILE)
     q_bytes = tfa._sw128_bytes(d, tfa.STREAM_ROWS)
     slot = -(-(tfa._sw128_bytes(d, plan.tile) + 4 * plan.tile)
@@ -368,11 +385,11 @@ def test_kernel_route_off_the_cpu(kind, shape):
     sends bf16, fp16 and fp32 to the kernel ``full_block_fits`` picks, with
     a gradient or without (each kernel has an fp16 form and an fp32
     sibling, backward kernels included), at every head dim that kernel
-    takes; the same call at D 648, past every kernel's tiles, goes to the
+    takes; the same call at D 2056, past every kernel's tiles, goes to the
     plain path; a layout the kernel does not read (a strided last dim)
     still goes to the kernel, whose wrapper copies it to its layout."""
     for dtype in (torch.bfloat16, torch.float32, torch.float16):
-        for d, want in ((shape[3], kind), (648, "plain")):
+        for d, want in ((shape[3], kind), (2056, "plain")):
             x = torch.empty(shape[:3] + (d,), device="meta", dtype=dtype)
             assert tattn.kernel_route(x, x, x) == want
             assert tfa.takes(kind, x, x, x) == (want == kind)
@@ -389,11 +406,11 @@ def test_kernel_route_off_the_cpu(kind, shape):
 def test_kernel_route_head_dim_and_cpu():
     """Off the CPU, bf16 at D = 80, S = 260 (off the tiles) goes to the
     full-block kernels (on their 96 tile), at D = 200 to the streaming ones
-    (past the full-block tiles), and at D = 648 (past every tile) plain; on
+    (past the full-block tiles), and at D = 2056 (past every tile) plain; on
     the CPU the routes stay the dispatch rule's (the kernels' plain
     versions take any dtype and head dim), and up to 256^2 logits every
     tensor goes plain."""
-    for d, want in ((80, "full_block"), (200, "stream"), (648, "plain")):
+    for d, want in ((80, "full_block"), (200, "stream"), (2056, "plain")):
         x = torch.empty((2, 4, 260, d), device="meta", dtype=torch.bfloat16)
         assert tattn.kernel_route(x, x, x) == want, d
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
@@ -409,14 +426,14 @@ def test_kernel_route_head_dim_and_cpu():
 
 
 def test_sdpa_counts_the_calls_no_kernel_takes():
-    """Off the CPU, a call above 256^2 logits that no kernel takes (D 648,
+    """Off the CPU, a call above 256^2 logits that no kernel takes (D 2056,
     past every kernel's tiles, at either kernel's shape, in fp16 and bf16)
     runs the plain path through ``sdpa_plain`` and adds one to
     ``sdpa_plain.launches``; a call the size rule sends to the plain path,
     and any call on the CPU, adds nothing."""
-    cases = [((2, 4, 260, 648), torch.float16, 1),
-             ((2, 1, 1024, 648), torch.float16, 1),
-             ((2, 4, 260, 648), torch.bfloat16, 1),
+    cases = [((2, 4, 260, 2056), torch.float16, 1),
+             ((2, 1, 1024, 2056), torch.float16, 1),
+             ((2, 4, 260, 2056), torch.bfloat16, 1),
              ((256, 16, 16, 64), torch.float32, 0)]
     for shape, dtype, counted in cases:
         x = torch.empty(shape, device="meta", dtype=dtype)
@@ -441,8 +458,12 @@ def test_stream_bwd_plan_fits_shared_memory(d):
     ring slots of two walked 64-row ones (32-row at D 640), with the roles
     one fp32 64 x tile tile a cluster CTA, and the static mbarriers and
     rows within one block's 232,448 bytes, with at least two slots (one
-    landing while one computes)."""
+    landing while one computes); past D 640 the wide dQ's and dK/dV's
+    cluster plan."""
     plan = tfa._stream_bwd_plan(d)
+    if d > tfa.STREAM_NARROW_MAX:
+        _check_wide_plan(plan, d, 2, bwd=True)
+        return
     assert plan.rows == (64 if d >= 256 else 128)
     assert plan.cluster == (2 if d >= 512 else 1)
     assert plan.cols * plan.cluster == d and plan.cols <= 320

@@ -210,7 +210,7 @@ ROUTES = {  # (S, D, dtype): route under auto, xla, pallas
     (300, 64, torch.float32): ("full_block", "plain", "full_block"),
     (300, 64, torch.float16): ("full_block", "plain", "full_block"),
     (300, 80, torch.bfloat16): ("full_block", "plain", "full_block"),
-    (300, 648, torch.float16): ("plain", "plain", "plain"),
+    (300, 2056, torch.float16): ("plain", "plain", "plain"),
     (300, 12, torch.bfloat16): ("plain", "plain", "plain"),
 }
 
@@ -243,7 +243,7 @@ def test_ring_routing_and_fallback(attn_state):
     q, k = _meta(300)
     A.set_ring_context(None)
     with pytest.warns(UserWarning, match="no ring mesh"):
-        A.sdpa(*_meta(300, d=648, dtype=torch.float16)[:1] * 3,
+        A.sdpa(*_meta(300, d=2056, dtype=torch.float16)[:1] * 3,
                implementation="ring")
     A.set_ring_context(_fake_mesh(1, 1, 4))
     assert A.kernel_route(q, k, k, "ring") == "ring"
@@ -251,7 +251,7 @@ def test_ring_routing_and_fallback(attn_state):
     # a shape
     A.set_ring_context(_fake_mesh(1, 1, 8))
     assert A.kernel_route(q, k, k, "ring") == "full_block"
-    x = _meta(300, d=648, dtype=torch.float16)[0]
+    x = _meta(300, d=2056, dtype=torch.float16)[0]
     before = A.sdpa_plain.launches
     with pytest.warns(UserWarning, match="don't divide"):
         A.sdpa(x, x, x, implementation="ring")
@@ -267,7 +267,7 @@ def test_ring_kernel_hop_routing():
     kernel hop, and so does an fp32 one, with a gradient or without (the
     streaming kernels' fp32 siblings), and so does fp16 and a head dim off
     the tiles (their fp16 forms; D 72 on the 128 tile); one the kernels
-    refuse (D 648, past every tile), where the JAX package runs its Pallas
+    refuse (D 2056, past every tile), where the JAX package runs its Pallas
     hop, takes the plain hop and counts in ``sdpa_plain.launches``; under
     1024 tokens the plain hop, uncounted; a CPU tensor of any dtype the
     kernel hop's plain versions."""
@@ -291,8 +291,8 @@ def test_ring_kernel_hop_routing():
     for args in (blocks(2048, dtype=torch.float16), blocks(1024, d=72)):
         assert _kernel_hop(*args, "auto")
     assert A.sdpa_plain.launches == before
-    for args in (blocks(2048, d=648, dtype=torch.float16),
-                 blocks(1024, d=648)):
+    for args in (blocks(2048, d=2056, dtype=torch.float16),
+                 blocks(1024, d=2056)):
         assert not _kernel_hop(*args, "auto")
     assert A.sdpa_plain.launches == before + 2
     assert _kernel_hop(*(torch.zeros(1, 2, 1024, 8),) * 3, "auto")
