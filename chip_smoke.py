@@ -2331,9 +2331,10 @@ def _wide_block(failures, rand):
     return launches
 
 
-def _wide_times(failures, rand, dtype):
+def _wide_times(failures, rand, dtype, parent=None):
     """Phase 2d's times of the wide forms in ``dtype`` at ``WIDE_TIMED``
-    (``check_wide_head_dims``): {counter name: cases}."""
+    (``check_wide_head_dims``), with ``parent``'s forward timed before and
+    after this one's: {counter name: cases}."""
     import torch
     import torch.nn.functional as F
     from hivae_tpu_torch.ops.kernels import flash_attention as fa
@@ -2400,6 +2401,11 @@ def _wide_times(failures, rand, dtype):
                  2 * b * h * sq * d / PEAK_FP32_FLOPS * 1e3), derr)}
         lib_bwd = _library_bwd_ms(q, k, v, do, None, scale, 5)
         backend = _sdpa_backend(q, k, v, scale)
+        par = par_ms = par_dev = None
+        if parent is not None:
+            def par():
+                return parent.stream_attention(q, k, v, **kw)
+            par_ms = _time_ms(par, 10)
         fwd_dev = _device_ms(lambda: fa.stream_attention(q, k, v, **kw),
                              "stream_fwd_wide")
         bwd_ms = _time_ms(bwd, 10)
@@ -2416,10 +2422,15 @@ def _wide_times(failures, rand, dtype):
                 bwd_device_ms=None if name == "stream_attention"
                 else bwd_dev))
         fw, dlc, dqc, dkc = (cases[n][-1] for n in WIDE_NAMES)
+        if par is not None:
+            par_ms = (par_ms + _time_ms(par, 10)) / 2
+            par_dev = _device_ms(par, "stream_fwd_wide")
+            fw.update(parent_ms=par_ms, parent_device_ms=par_dev)
         bwd_bound = sum(max(c["bytes_ms"], c["ops_ms"])
                         for c in (dqc, dkc, dlc))
         _log(f"  wide {dtype} {shape}, {d // 256}-CTA clusters: forward "
-             f"{fw['ms']:.4f} ms (device {_ms_or_none(fwd_dev)}; bound "
+             f"{fw['ms']:.4f} ms (device {_ms_or_none(fwd_dev)}; parent "
+             f"{_ms_or_none(par_ms)}, device {_ms_or_none(par_dev)}; bound "
              f"{max(fw['bytes_ms'], fw['ops_ms']):.4f}, plain "
              f"{fw['plain_ms']:.4f}, SDPA {backend} "
              f"{fw['library_ms']:.4f}); dQ + dK/dV + delta {bwd_ms:.4f} ms "
@@ -2431,7 +2442,7 @@ def _wide_times(failures, rand, dtype):
             for n, c in cases.items()}
 
 
-def check_wide_head_dims(failures):
+def check_wide_head_dims(failures, parent=None):
     """Phase 2d. ``sdpa`` at ``HEAD_DIMS_WIDE`` in bf16, fp16 and fp32,
     forward and with a gradient, at (2, 2, 300, D) masked and not (the JAX
     rule's full-block shapes: the streaming kernels with the full-block
@@ -2448,9 +2459,12 @@ def check_wide_head_dims(failures):
     (``_grad_gate`` on each), with its launches. Each wide form timed at
     ``WIDE_TIMED`` (forward; dQ, dK/dV and delta) by CUDA events and
     device time, beside its bound, its plain version and SDPA (the backend
-    it picks named). Returns (the kernels line's records, {path:
-    launches})."""
+    it picks named), and the forward beside ``parent``'s (another
+    checkout's flash_attention module) where it is given; the clusters of
+    the forward the card holds at once at each wide cluster size. Returns
+    (the kernels line's records, {path: launches})."""
     import torch
+    from hivae_tpu_torch.ops.kernels import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
 
@@ -2462,7 +2476,11 @@ def check_wide_head_dims(failures):
     paths["attention_block_1024"] = _wide_block(failures, rand)
     cases = {}
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
-        cases.update(_wide_times(failures, rand, dtype))
+        active = {c: fa.wide_fwd_active_clusters(dtype, c)
+                  for c in fa.WIDE_CLUSTERS}
+        _log(f"  wide forward {dtype}: clusters the card holds at once, by "
+             f"cluster size: {active}")
+        cases.update(_wide_times(failures, rand, dtype, parent))
 
     def record(name, source, line):
         return {"name": name, "route": "cuda",
@@ -7896,7 +7914,7 @@ def main() -> int:
          f"gradient, AttentionBlock2D at 1024 channels, times at "
          f"{WIDE_TIMED}")
     t0 = time.perf_counter()
-    wide_records, wide_paths = check_wide_head_dims(failures)
+    wide_records, wide_paths = check_wide_head_dims(failures, parent)
     records += wide_records
     _log(f"  phase 2d took {time.perf_counter() - t0:.1f} s")
 

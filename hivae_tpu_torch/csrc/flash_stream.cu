@@ -855,195 +855,320 @@ int launch_stream(const void* q, const void* k, const void* v,
 // P.V, O = acc / l and LSE = m + log(l).
 //
 // Bound on the H100 SXM at (4, 1, 1024, 1024): 4*B*H*S*S*D = 17.2 GFLOP,
-// 17.4 us at 989 TFLOP/s in bf16 (34.7 us at TF32's 494.7, the rate this
-// kernel's products run at; three products for fp32: 104 us), against
-// 33.6 MB of q, k, v and o (10.0 us at 3.35 TB/s; fp32 20.0 us): bound by
-// operations.
+// 17.4 us at 989 TFLOP/s in bf16 (fp32: three TF32 products at 494.7,
+// 104 us), against 33.6 MB of q, k, v and o (10.0 us at 3.35 TB/s; fp32
+// 20.0 us): bound by operations.
 //
-// A CTA: 64 query rows of its 256 columns. A walked tile holds SW_TILE
-// keys of K and V (both, one cp.async group, two slots) and the keys' bias
-// row. Per tile: warp w forms the partial scores of m tile w % 4 and keys
-// 16 (w / 4).., into this CTA's partial tile; the cluster barrier; each
-// thread sums float4s of the partial tiles over the cluster in rank order
-// into the summed tile; a CTA barrier; warp w then takes the softmax of
-// its 16 rows over the tile's keys (the two warps of an m tile compute the
-// same, from the same bits), rescales its O block (its 128 columns) and
-// adds P.V. Shared bytes (sw_smem_bytes): Q, two slots, two partial tiles
-// and the summed one: 127,232 in bf16 and fp16, 225,536 in fp32.
+// Design. The first wide forward (a cluster barrier and every CTA summing
+// every peer's partial scores each 32-key tile, fragments read one element
+// a lane, TF32 mma.sync for every dtype) spent ~9.8k cycles a tile on the
+// H100 at (4, 1, 1024, 1024) in bf16: 43% in the products, 18% in the sum
+// (32% at 8 CTAs), 25% at the barrier and an exposed load. Here a CTA
+// holds 64 query rows of its 256 columns (8 warps) and walks tiles of 64
+// keys:
+//  1. Loads: Q once, then K_j and V_j as separate jobs through a ring of
+//     wf_slots slots (4 in 16 bits, 2 in fp32), each a TMA copy of the
+//     CTA's 256 columns (128-byte swizzled boxes) completing on the slot's
+//     mbarrier. A slot is refilled once the CTA has consumed its job, so
+//     K_j+1 and V_j+1 land while tile j is computed.
+//  2. Partial scores (wf_scores): 16-bit on wgmma m64n32k16, each
+//     warpgroup 32 keys for all 64 rows; fp32 on mma.sync m16n8k8 at TF32,
+//     three products of a hi/lo split, fragments read by ldmatrix and split
+//     as they are read (wgmma at .tf32 would need Q and each K tile split
+//     in shared memory: 128 KB more than a block has).
+//  3. Reduce-scatter by rows: row R of the tile belongs to the CTA r with
+//     wf_row0(r) <= R < wf_row0(r + 1). Each thread stores its partials of
+//     a row into the owner's slot for the sender's rank (st.async onto the
+//     owner's mbarrier: no cluster barrier, no CTA reads every partial).
+//  4. The owner (8 threads a row, 8 keys each) sums the row's cl partials
+//     in rank order, applies scale and bias, updates the running max and
+//     denominator, and stores P (rounded to v's dtype; fp32 keeps it) and
+//     the row's rescale factor into every CTA of the cluster, again by
+//     st.async onto an mbarrier.
+//  5. Each CTA, once the whole P has landed, rescales its output rows and
+//     adds P.V over its 256 columns (wf_pv): 16-bit on wgmma m64n64k16,
+//     P the register A operand (ldmatrix) and V read transposed, each
+//     warpgroup 128 columns; fp32 on mma.sync, three products, into a
+//     fresh sum that reaches O by one FMA.
+// The order in a CTA, tile j: the scores of tile j + 1; wait for P_j; send
+// tile j + 1's partials; P_j.V_j; the owner's part of tile j + 1. So the
+// partials' latency hides under P.V and P's under the next scores. The
+// exchange buffers alternate by tile parity in 16 bits; fp32 has room for
+// one of each (Q, a K and a V tile take 192 KB), which the same order keeps
+// safe: a CTA sends tile j + 1's partials only once all its threads have
+// read P_j (a CTA barrier), and an owner sends P_j+1 only once every
+// partial of tile j + 1 has reached it. At the end each owner sends its
+// rows' denominators (into the last K tile's slot, which no copy fills
+// again) and writes their LSE; O = acc / l. Every CTA uses the same bits
+// of P, the rescale factors and l, and every sum has a fixed order: two
+// launches give the same bits. Shared bytes (wf_smem_bytes): 219,728 in
+// 16 bits, 232,240 in fp32 (flash_attention.py::_wide_fwd_plan mirrors
+// them; the C entry point refuses any other plan).
 // ---------------------------------------------------------------------------
-constexpr int SW_TILE = 32;  // keys a walked tile
-
-template <typename T>
-__host__ __device__ constexpr int sw_slot_elems() {
-  return 2 * SW_TILE * wide_ld<T>() + SW_TILE * 4 / (int)sizeof(T);
-}
-
-template <typename T>
-__host__ __device__ constexpr int sw_smem_bytes() {
-  return (WIDE_ROWS * wide_ld<T>() + 2 * sw_slot_elems<T>()) *
-             (int)sizeof(T) +
-         (2 * WIDE_ROWS * SW_TILE + WIDE_ROWS * (SW_TILE + 4)) * 4;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(WIDE_THREADS, 1)
-stream_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const float* __restrict__ bias,
-                       T* __restrict__ o, float* __restrict__ lse, int H,
-                       int Sq, int Sk, float scale, int hd, int cl, Rows sq,
-                       Rows sk, Rows sv, Rows so) {
-  constexpr int LD = wide_ld<T>(), R = WIDE_ROWS, BT = SW_TILE;
-  constexpr int BTP = BT + 4, KS = BT / 8, SLOT = sw_slot_elems<T>();
-  constexpr int NO = WIDE_OUT_COLS / 8;
-  extern __shared__ float4 sw_smem[];
-  T* Qs = reinterpret_cast<T*>(sw_smem);
-  T* ring = Qs + R * LD;
-  float* XP = reinterpret_cast<float*>(ring + 2 * SLOT);  // [2][R][BT]
-  float* SS = XP + 2 * R * BT;                            // [R][BTP]
+stream_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const float* __restrict__ bias, T* __restrict__ o,
+                       float* __restrict__ lse, int H, int Sq, int Sk,
+                       float scale, int hd, int cl, Rows so) {
+  constexpr int NS = wf_slots<T>(), NB = wf_bufs<T>();
+  constexpr int TB = wf_tile_bytes<T>(), PR = wf_p_row<T>();
+  constexpr int BOXES = WIDE_COLS * (int)sizeof(T) / 128;
+  constexpr int BOXC = 128 / (int)sizeof(T);  // columns a box
+  constexpr int RECV = WF_RECV_BYTES / 4;      // floats a receive buffer
+  constexpr int P_TX = WIDE_ROWS * WF_KEYS * (int)sizeof(T) + WIDE_ROWS * 4;
+  extern __shared__ __align__(16) unsigned char wf_raw[];
+  unsigned char* base =
+      wf_raw + ((1024 - (smem_addr(wf_raw) & 1023)) & 1023);
+  const T* Qs = reinterpret_cast<const T*>(base);
+  unsigned char* ring = base + TB;
+  float* recv = reinterpret_cast<float*>(ring + NS * TB);  // [NB][RECV]
+  unsigned char* Pt = reinterpret_cast<unsigned char*>(recv + NB * RECV);
+  float* alpha = reinterpret_cast<float*>(Pt + NB * WIDE_ROWS * PR);
+  uint64_t* full = reinterpret_cast<uint64_t*>(alpha + NB * WIDE_ROWS);
+  uint64_t* qbar = full + NS;
+  uint64_t* sfull = qbar + 1;    // [NB] partials of this CTA's rows
+  uint64_t* pfull = sfull + NB;  // [NB] P and the rescale factors
+  uint64_t* lfull = pfull + NB;  // the denominators, at the end
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int mt = warp & 3, half = warp >> 2;
-  const int c0 = (int)cluster_rank() * WIDE_COLS;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = (blockIdx.x / cl) * R;
-  const T* kh = head_ptr(k, sk, b, h);
-  const T* vh = head_ptr(v, sv, b, h);
+  const int rank = (int)cluster_rank(), c0 = rank * WIDE_COLS;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = (blockIdx.x / cl) * WIDE_ROWS;
+  const int nkt = (Sk + WF_KEYS - 1) / WF_KEYS, njobs = 2 * nkt;
   const float* brow = bias ? bias + (long)b * Sk : nullptr;
-  const int nkt = (Sk + BT - 1) / BT;
+  // the rows this CTA owns, and this thread's share: row orow, keys 8 part..
+  const int own0 = wf_row0(rank, cl), nown = wf_row0(rank + 1, cl) - own0;
+  const int part = tid & 7;
+  const bool owner = (tid >> 3) < nown;
+  const int orow = own0 + (owner ? tid >> 3 : 0);
+  const int S_TX = cl * nown * WF_KEYS * 4;
 
-  // tile j into slot j % 2: K, V and the keys' bias (one cp.async group)
-  auto issue = [&](int j) {
-    T* sl = ring + (j & 1) * SLOT;
-    wide_load<T, BT>(sl, kh, sk.s, j * BT, Sk, c0, hd, tid);
-    wide_load<T, BT>(sl + BT * LD, vh, sv.s, j * BT, Sk, c0, hd, tid);
-    if (brow)
-      load_row_f32<BT, WIDE_THREADS>(
-          reinterpret_cast<float*>(sl + 2 * BT * LD), brow, j * BT, Sk, tid);
-    ring_commit();
+  // job i: K tile i / 2 (i even) or V tile i / 2 (odd) into slot i % NS
+  auto issue = [&](int i) {
+    if (i >= njobs) return;
+    unsigned char* sl = ring + (i % NS) * TB;
+    uint64_t* bar = full + i % NS;
+    mbar_expect(bar, TB);
+    for (int c = 0; c < BOXES; ++c)
+      tma_load_4d(sl + c * WIDE_ROWS * 128, (i & 1) ? &tv : &tk, bar,
+                  c0 + c * BOXC, (i >> 1) * WF_KEYS, h, b);
   };
-  wide_load<T, R>(Qs, head_ptr(q, sq, b, h), sq.s, q0, Sq, c0, hd, tid);
-  issue(0);  // the first group holds Q too
+  auto wait_job = [&](int i) { mbar_wait(full + i % NS, (i / NS) & 1); };
+  auto slot = [&](int i) {
+    return reinterpret_cast<const T*>(ring + (i % NS) * TB);
+  };
 
-  const int r0 = 16 * mt + g, r1 = r0 + 8;  // this thread's rows
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float acc[NO][4];  // O of rows r0, r1, columns 128 half + 8 n + 2t, + 1
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int j = 0; j < nkt; ++j) {
-    ring_wait_upto(0);
-    __syncthreads();  // tile j has landed; tile j - 1's slot is free
-    if (j + 1 < nkt) issue(j + 1);
-    const T* Ks = ring + (j & 1) * SLOT;
-    const T* Vs = Ks + BT * LD;
-    const float* bs = reinterpret_cast<const float*>(Ks + 2 * BT * LD);
-    float* part = XP + (j & 1) * R * BT;
-    {
-      float x[2][4];
-      wide_scores<T, 2>(x, Qs + 16 * mt * LD, Ks + 16 * half * LD, g, t);
-      wide_store_blocks<2>(part + 16 * mt * BT + 16 * half, BT, x, g, t);
+  if (tid == 0) {
+    for (int i = 0; i < wf_bars<T>(); ++i) mbar_init(full + i, 1);
+    mbar_fence_init();
+    for (int j = 0; j < NB && j < nkt; ++j) {
+      mbar_expect(sfull + j, S_TX);
+      mbar_expect(pfull + j, P_TX);
     }
-    cluster_arrive();
-    cluster_wait();  // every CTA's partial scores of tile j are in place
-    for (int i = tid; i < R * BT / 4; i += WIDE_THREADS) {
-      const float4 s = wide_cluster_sum(part, i, cl);
-      *reinterpret_cast<float4*>(SS + (4 * i / BT) * BTP + 4 * i % BT) = s;
-    }
-    __syncthreads();
-
-    // the softmax of rows r0 and r1 over this lane's keys 8 ks + 2t, + 1
-    float u[2][KS][2];
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = 8 * ks + 2 * t + e;
-        float x0 = -INFINITY, x1 = -INFINITY;
-        if (j * BT + key < Sk) {
-          const float bb = brow ? bs[key] : 0.f;
-          x0 = fmaf(SS[r0 * BTP + key], scale, bb);
-          x1 = fmaf(SS[r1 * BTP + key], scale, bb);
-        }
-        u[0][ks][e] = x0;
-        u[1][ks][e] = x1;
-        mx0 = fmaxf(mx0, x0);
-        mx1 = fmaxf(mx1, x1);
-      }
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float a0 = ex2((m0 - mn0) * LOG2E), a1 = ex2((m1 - mn1) * LOG2E);
-    float sum0 = 0.f, sum1 = 0.f;
-    uint32_t ph[KS][4], pl[KS][4];
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      float p[2][2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        p[0][e] = ex2((u[0][ks][e] - mn0) * LOG2E);
-        p[1][e] = ex2((u[1][ks][e] - mn1) * LOG2E);
-        sum0 += p[0][e];
-        sum1 += p[1][e];
-      }
-      // k permuted: index t is key 8 ks + 2t, t + 4 key 8 ks + 2t + 1
-      wide_split<T>(wide_round<T>(p[0][0]), ph[ks][0], pl[ks][0]);
-      wide_split<T>(wide_round<T>(p[1][0]), ph[ks][1], pl[ks][1]);
-      wide_split<T>(wide_round<T>(p[0][1]), ph[ks][2], pl[ks][2]);
-      wide_split<T>(wide_round<T>(p[1][1]), ph[ks][3], pl[ks][3]);
-    }
-    l0 = l0 * a0 + quad_sum(sum0);
-    l1 = l1 * a1 + quad_sum(sum1);
-    m0 = mn0;
-    m1 = mn1;
-    // O = O * a + P.V over this warp's 128 columns
-    wide_grad<T, NO, KS>(acc, ph, pl, Vs + WIDE_OUT_COLS * half, a0, a1, g,
-                         t);
+    mbar_expect(lfull, WIDE_ROWS * 4);
+    mbar_expect(qbar, TB);
+    for (int c = 0; c < BOXES; ++c)
+      tma_load_4d(base + c * WIDE_ROWS * 128, &tq, qbar, c0 + c * BOXC, q0,
+                  h, b);
+    for (int i = 0; i < NS; ++i) issue(i);
   }
-  ring_wait_upto(0);
   cluster_arrive();
-  cluster_wait();  // no CTA leaves while a peer may read its partials
+  cluster_wait();  // every CTA's mbarriers are set before any st.async
 
-  T* op = head_ptr(o, so, b, h);
-  const int gr0 = q0 + r0, gr1 = q0 + r1;
-  const float il0 = 1.f / l0, il1 = 1.f / l1;
+  // this thread's fragment rows R0, R1 (warp w: 16 (w % 4).., keys
+  // 32 (w / 4)..): their owners' slots for this rank, and those owners'
+  // partial-score mbarriers
+  const int R0 = 16 * (warp & 3) + g, R1 = R0 + 8;
+  uint32_t sd[2], sb[2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int col = c0 + WIDE_OUT_COLS * half + 8 * n + 2 * t;
-    if (col >= hd) continue;
-    if (gr0 < Sq)
-      wide_store2(op + (long)gr0 * so.s + col, acc[n][0] * il0,
-                  acc[n][1] * il0);
-    if (gr1 < Sq)
-      wide_store2(op + (long)gr1 * so.s + col, acc[n][2] * il1,
-                  acc[n][3] * il1);
+  for (int i = 0; i < 2; ++i) {
+    const int R = i ? R1 : R0;
+    int r = 0;
+    while (r + 1 < cl && wf_row0(r + 1, cl) <= R) ++r;
+    const int n = wf_row0(r + 1, cl) - wf_row0(r, cl);
+    sd[i] = peer_addr(recv + (rank * n + R - wf_row0(r, cl)) * WF_KEYS +
+                          32 * (warp >> 2) + 2 * t,
+                      r);
+    sb[i] = peer_addr(sfull, r);
   }
-  if (c0 == 0 && half == 0 && t == 0) {
-    float* lp = lse + ((long)b * H + h) * Sq;
-    if (gr0 < Sq) lp[gr0] = m0 + logf(l0);
-    if (gr1 < Sq) lp[gr1] = m1 + logf(l1);
+  // tile j's partial scores x to their owners
+  auto send_scores = [&](const float (&x)[32], int j) {
+    const uint32_t off = (j % NB) * WF_RECV_BYTES, boff = (j % NB) * 8;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      st_async_v2(sd[0] + off + 32 * n, x[4 * n], x[4 * n + 1],
+                  sb[0] + boff);
+      st_async_v2(sd[1] + off + 32 * n, x[4 * n + 2], x[4 * n + 3],
+                  sb[1] + boff);
+    }
+  };
+
+  // the owner's part of tile j: the owned row's running max m and
+  // denominator l; P and the rescale factor to every CTA. Every thread
+  // runs it (the shuffles take whole warps); owners alone read and send.
+  float m = -INFINITY, l = 0.f;
+  auto own = [&](int j) {
+    const int bj = j % NB;
+    float x[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int key = j * WF_KEYS + 8 * part + e;
+      x[e] = key < Sk ? (brow ? __ldg(brow + key) : 0.f) : -INFINITY;
+    }
+    mbar_wait_cluster(sfull + bj, (j / NB) & 1);
+    if (tid == 0 && j + NB < nkt) mbar_expect(sfull + bj, S_TX);
+    float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+    if (owner) {
+      const float* src = recv + bj * RECV + (orow - own0) * WF_KEYS + 8 * part;
+      s0 = *reinterpret_cast<const float4*>(src);
+      s1 = *reinterpret_cast<const float4*>(src + 4);
+      for (int r = 1; r < cl; ++r) {  // rank order
+        src += nown * WF_KEYS;
+        const float4 y0 = *reinterpret_cast<const float4*>(src);
+        const float4 y1 = *reinterpret_cast<const float4*>(src + 4);
+        s0.x += y0.x; s0.y += y0.y; s0.z += y0.z; s0.w += y0.w;
+        s1.x += y1.x; s1.y += y1.y; s1.z += y1.z; s1.w += y1.w;
+      }
+    }
+    const float s[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    float mx = -INFINITY;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      x[e] = fmaf(s[e], scale, x[e]);
+      mx = fmaxf(mx, x[e]);
+    }
+#pragma unroll
+    for (int d = 1; d < 8; d <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+    const float mn = fmaxf(m, mx), a = ex2((m - mn) * LOG2E);
+    float p[8], sum = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      p[e] = ex2((x[e] - mn) * LOG2E);
+      sum += p[e];
+    }
+#pragma unroll
+    for (int d = 1; d < 8; d <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, d);
+    l = l * a + sum;
+    m = mn;
+    if (owner) {
+      unsigned char* prow = Pt + (bj * WIDE_ROWS + orow) * PR +
+                            (sizeof(T) == 4 ? 0 : 16 * part);
+      for (int q = 0; q < cl; ++q) {
+        const uint32_t bar = peer_addr(pfull + bj, q);
+        wf_push_p(p, peer_addr(prow, q), bar, orow, part,
+                  static_cast<T*>(nullptr));
+        if (part == 0)
+          st_async_f32(peer_addr(alpha + bj * WIDE_ROWS + orow, q), a, bar);
+      }
+    }
+  };
+
+  float acc[2][32];
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[nb][e] = 0.f;
+  float x[32];
+  mbar_wait(qbar, 0);
+  wait_job(0);
+  wf_scores(x, Qs, slot(0), warp, lane);
+  __syncthreads();  // K_0 consumed
+  if (tid == 0) issue(NS);
+  send_scores(x, 0);
+  own(0);
+  for (int j = 0; j < nkt; ++j) {
+    const int bj = j % NB;
+    const bool next = j + 1 < nkt;
+    if (next) {
+      wait_job(2 * j + 2);
+      wf_scores(x, Qs, slot(2 * j + 2), warp, lane);
+      __syncthreads();  // K_j+1 consumed
+      if (tid == 0) issue(2 * j + 2 + NS);
+    }
+    mbar_wait_cluster(pfull + bj, (j / NB) & 1);
+    if (tid == 0 && j + NB < nkt) mbar_expect(pfull + bj, P_TX);
+    typename WfFrag<T>::type f;
+    wf_read_p(f, Pt + bj * WIDE_ROWS * PR, warp, lane);
+    const float a0 = alpha[bj * WIDE_ROWS + R0];
+    const float a1 = alpha[bj * WIDE_ROWS + R1];
+    if constexpr (NB == 1) __syncthreads();  // P_j read: its buffer is free
+    if (next) send_scores(x, j + 1);
+    wait_job(2 * j + 1);
+    wf_pv(acc, f, slot(2 * j + 1), a0, a1, warp, lane);
+    __syncthreads();  // V_j consumed
+    if (tid == 0) issue(2 * j + 1 + NS);
+    if (next) own(j + 1);
   }
+
+  // the owners' denominators to every CTA, into the last K tile's slot
+  // (every thread of every CTA has read it before sending that tile's
+  // partials), and their LSE
+  float* lrow = reinterpret_cast<float*>(ring + ((njobs - 2) % NS) * TB);
+  if (owner && part == 0) {
+    for (int q = 0; q < cl; ++q)
+      st_async_f32(peer_addr(lrow + orow, q), l, peer_addr(lfull, q));
+    if (q0 + orow < Sq) lse[((long)b * H + h) * Sq + q0 + orow] = m + logf(l);
+  }
+  mbar_wait_cluster(lfull, 0);
+  const float il0 = 1.f / lrow[R0], il1 = 1.f / lrow[R1];
+  T* op = head_ptr(o, so, b, h);
+  const int gr0 = q0 + R0, gr1 = q0 + R1;
+#pragma unroll
+  for (int nb = 0; nb < 2; ++nb)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = c0 + 128 * (warp >> 2) + 64 * nb + 8 * jj + 2 * t;
+      const float* a = acc[nb] + 4 * jj;
+      if (col >= hd) continue;
+      if (gr0 < Sq) wide_store2(op + (long)gr0 * so.s + col, a[0] * il0, a[1] * il0);
+      if (gr1 < Sq) wide_store2(op + (long)gr1 * so.s + col, a[2] * il1, a[3] * il1);
+    }
+  cluster_arrive();
+  cluster_wait();  // no CTA leaves while a peer may still store into it
 }
 
-// Takes only the plan flash_attention.py::_stream_plan (bf16, fp16) or
-// _stream_f32_plan (fp32) returns at a wide tile: `walk` is the plan's
-// slots (16-bit) or keys a tile (fp32), as at the narrow tiles.
+// A tensor map of one (B, H, S, hd) operand of T (element strides st[0..2]:
+// batch, head, row), boxes of 128 bytes x 64 rows, 128-byte swizzled; a
+// box's columns past hd read zeros.
+template <typename T>
+static int wide_tmap(CUtensorMap* map, const void* x, int B, int H, int S,
+                     int hd, const long* st) {
+  constexpr cuuint64_t E = sizeof(T);
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * E, (cuuint64_t)st[1] * E,
+                                 (cuuint64_t)st[0] * E};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / E), WIDE_ROWS, 1, 1};
+  return make_tmap(map,
+                   sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : E16_TMAP,
+                   4, x, dims, strides, box);
+}
+
+// Takes only the plan flash_attention.py::_wide_fwd_plan returns at a wide
+// tile: `walk` is its slots (16-bit) or keys a tile (fp32), the values the
+// narrow plans pass in the same place.
 template <typename T>
 int launch_stream_wide(const void* q, const void* k, const void* v,
                        const float* bias, void* o, float* lse, int B, int H,
                        int Sq, int Sk, int hd, int tile, int walk, int smem,
                        float scale, const long* st, cudaStream_t stream) {
-  if (walk != (sizeof(T) == 4 ? SW_TILE : 2) || smem != sw_smem_bytes<T>() ||
-      smem > SF_SMEM_MAX)
+  if (walk != (sizeof(T) == 4 ? WF_KEYS : wf_slots<T>()) ||
+      smem != wf_smem_bytes<T>() || smem > SF_SMEM_MAX)
     return HV_BAD_PLAN;
+  CUtensorMap tq, tk, tv;
+  int rc = wide_tmap<T>(&tq, q, B, H, Sq, hd, st);
+  if (!rc) rc = wide_tmap<T>(&tk, k, B, H, Sk, hd, st + 3);
+  if (!rc) rc = wide_tmap<T>(&tv, v, B, H, Sk, hd, st + 6);
+  if (rc) return rc;
   const int cl = wide_cluster(tile);
-  return wide_launch(stream_fwd_wide_kernel<T>, (Sq + WIDE_ROWS - 1) / WIDE_ROWS,
-                     cl, H, B, smem, stream, static_cast<const T*>(q),
-                     static_cast<const T*>(k), static_cast<const T*>(v), bias,
-                     static_cast<T*>(o), lse, H, Sq, Sk, scale, hd, cl,
-                     Rows{st[0], st[1], st[2]}, Rows{st[3], st[4], st[5]},
-                     Rows{st[6], st[7], st[8]}, Rows{st[9], st[10], st[11]});
+  return wide_launch(stream_fwd_wide_kernel<T>,
+                     (Sq + WIDE_ROWS - 1) / WIDE_ROWS, cl, H, B, smem, stream,
+                     tq, tk, tv, bias, static_cast<T*>(o), lse, H, Sq, Sk,
+                     scale, hd, cl, Rows{st[9], st[10], st[11]});
 }
 
 }  // namespace hv
@@ -1101,6 +1226,23 @@ extern "C" int hv_stream_fwd_f32(const void* q, const void* k, const void* v,
   }
 }
 #endif
+
+// How many clusters of `cluster` CTAs of the wide forward (16-bit, or fp32
+// where `fp32` is set) the card holds at once, at its plan's shared bytes
+// (cudaOccupancyMaxActiveClusters), into *count. Returns a cudaError_t.
+extern "C" int hv_stream_fwd_wide_clusters(int cluster, int fp32,
+                                           int* count) {
+#ifndef HV_F16
+  if (fp32)
+    return hv::wide_active_clusters(hv::stream_fwd_wide_kernel<float>,
+                                    cluster, hv::wf_smem_bytes<float>(),
+                                    count);
+#endif
+  if (fp32) return cudaErrorInvalidValue;
+  return hv::wide_active_clusters(hv::stream_fwd_wide_kernel<hv::e16>,
+                                  cluster, hv::wf_smem_bytes<hv::e16>(),
+                                  count);
+}
 
 extern "C" const char* hv_stream_error_string(int code) {
   if (code == -1) return "unsupported head dim";

@@ -77,8 +77,9 @@ fp32, with a gradient or without; a call past 2048 has none (``takes``
 refuses it, and ``ops.attention`` counts it in ``sdpa_plain``). The
 streaming tiles past 640 run the wide kernels (``csrc/attn_wide.cuh``): a
 cluster of tile / 256 CTAs along D, 256 columns each, one kernel per
-element type and direction whatever the tile (``WidePlan``), which count
-their launches apart, in ``<wrapper>_wide`` (``stream_attention_wide``,
+element type and direction whatever the tile (``WideFwdPlan`` for the
+forward, ``WidePlan`` for dQ and dK/dV), which count their launches
+apart, in ``<wrapper>_wide`` (``stream_attention_wide``,
 ``stream_attention_delta_wide``, ``stream_attention_bwd_dq_wide``,
 ``stream_attention_bwd_dkv_wide``, and each with ``_f16`` and ``_f32``).
 
@@ -524,24 +525,29 @@ STREAM_STATIC = 8 * (STREAM_MAX_STAGES + 1) + STREAM_ROWS * 72 * 2 + \
 
 # launch plans of the wide streaming kernels (csrc/attn_wide.cuh), the
 # tiles past STREAM_NARROW_MAX: a cluster of tile / WIDE_COLS CTAs of 8
-# warps, each WIDE_COLS columns of every operand for WIDE_ROWS resident
-# rows, walking tiles through two cp.async slots
+# warps, each WIDE_COLS columns of every operand for WIDE_ROWS resident rows
 WIDE_ROWS = 64
-WIDE_STAGES = 2
 WIDE_MAX_CLUSTER = 8   # the portable cluster size
-WIDE_FWD_TILE = 32     # keys a walked tile of the forward (``SW_TILE``)
-# rows a walked tile of dQ and dK/dV, by element bytes (``swb_tile``)
+WIDE_CLUSTERS = tuple(range(3, WIDE_MAX_CLUSTER + 1))
+# the wide forward (``stream_fwd_wide_kernel``): walked tiles of 64 keys
+# (``WF_KEYS``), K and V as separate TMA jobs through a ring of slots, and
+# sets of exchange buffers, by element bytes (``wf_slots``, ``wf_bufs``)
+WIDE_FWD_TILE = 64
+WIDE_FWD_SLOTS = {2: 4, 4: 2}
+WIDE_FWD_BUFFERS = {2: 2, 4: 1}
+# the wide dQ and dK/dV (``stream_bwd_wide_kernel``): two cp.async slots of
+# walked tiles of these rows, by element bytes (``swb_tile``)
+WIDE_STAGES = 2
 WIDE_BWD_TILE = {2: 32, 4: 16}
 
 
 @dataclasses.dataclass(frozen=True)
 class WidePlan:
-    """Launch plan of a wide streaming kernel (the forward's
-    ``sw_smem_bytes``, dQ's and dK/dV's ``swb_smem_bytes``): a cluster of
-    ``cluster`` CTAs along D, each holding ``cols`` columns of every
-    operand and output for ``rows`` resident rows; ``stages`` slots of the
-    walked ``tile``-row tiles (K and V, or Q and dO); ``smem`` dynamic
-    shared bytes."""
+    """Launch plan of the wide dQ and dK/dV (``swb_smem_bytes``): a
+    cluster of ``cluster`` CTAs along D, each holding ``cols`` columns of
+    every operand and output for ``rows`` resident rows; ``stages`` slots
+    of the walked ``tile``-row tiles (Q and dO, or K and V); ``smem``
+    dynamic shared bytes."""
     cluster: int
     cols: int
     rows: int
@@ -551,34 +557,95 @@ class WidePlan:
 
 
 def _wide_ld(elem: int) -> int:
-    """Row stride, in elements, of a wide kernel's shared tile of
+    """Row stride, in elements, of the wide backward's shared tiles of
     ``elem``-byte elements: WIDE_COLS and 16 bytes."""
     return WIDE_COLS + 16 // elem
 
 
-def _wide_smem(elem: int, bwd: bool) -> int:
-    """Shared bytes of the wide forward (``bwd`` False: Q, two slots of a
-    K and a V tile and the keys' bias row, two buffers of the partial
-    scores and the summed tile) or of its dQ and dK/dV (the resident pair
-    and 2 fp32 rows of it, two slots of the walked pair and 2 fp32 rows,
-    two buffers of the X and Y partials, the P and dS tiles)."""
-    ld, r = _wide_ld(elem), WIDE_ROWS
-    if not bwd:
-        t = WIDE_FWD_TILE
-        return ((r * ld + 2 * (2 * t * ld + t * 4 // elem)) * elem
-                + (2 * r * t + r * (t + 4)) * 4)
-    t = WIDE_BWD_TILE[elem]
+def _wide_smem(elem: int) -> int:
+    """Shared bytes of the wide dQ and dK/dV: the resident pair and 2 fp32
+    rows of it, two slots of the walked pair and 2 fp32 rows, two buffers
+    of the X and Y partials, the P and dS tiles."""
+    ld, r, t = _wide_ld(elem), WIDE_ROWS, WIDE_BWD_TILE[elem]
     return ((2 * r * ld + 2 * (2 * t * ld + 2 * t * 4 // elem)) * elem
             + (2 * r + 4 * r * t + 2 * r * (t + 4)) * 4)
 
 
 @functools.lru_cache(maxsize=None)
-def _wide_plan(d: int, elem: int, bwd: bool) -> WidePlan:
-    """The wide plan at tile ``d`` (a multiple of WIDE_COLS past 640) for
-    ``elem``-byte operands, forward or (``bwd``) dQ and dK/dV alike."""
+def _wide_plan(d: int, elem: int) -> WidePlan:
+    """The wide backward's plan at tile ``d`` (a multiple of WIDE_COLS past
+    640) for ``elem``-byte operands, dQ and dK/dV alike."""
     return WidePlan(cluster=d // WIDE_COLS, cols=WIDE_COLS, rows=WIDE_ROWS,
-                    tile=WIDE_BWD_TILE[elem] if bwd else WIDE_FWD_TILE,
-                    stages=WIDE_STAGES, smem=_wide_smem(elem, bwd))
+                    tile=WIDE_BWD_TILE[elem], stages=WIDE_STAGES,
+                    smem=_wide_smem(elem))
+
+
+def wide_fwd_rows(cluster: int) -> Tuple[int, ...]:
+    """The wide forward's exchange at ``cluster`` CTAs (``wf_row0``): CTA r
+    owns rows [rows[r], rows[r + 1]) of a walked tile's WIDE_ROWS rows,
+    sums their partial scores and sends their P to every CTA."""
+    return tuple(WIDE_ROWS * r // cluster for r in range(cluster + 1))
+
+
+def _wide_fwd_recv_rows() -> int:
+    """Rows of partial scores a wide-forward owner receives, at most over
+    the wide cluster sizes (``wf_recv_rows``): a slot of its rows from
+    each CTA."""
+    return max(c * max(b - a for a, b in zip(r, r[1:]))
+               for c in WIDE_CLUSTERS for r in [wide_fwd_rows(c)])
+
+
+@dataclasses.dataclass(frozen=True)
+class WideFwdPlan:
+    """Launch plan of the wide forward (``wf_smem_bytes`` in
+    csrc/attn_wide.cuh): a cluster of ``cluster`` CTAs along D, each
+    holding ``cols`` columns of Q, K, V and O for ``rows`` query rows;
+    walked tiles of ``tile`` keys, K and V as separate TMA jobs through
+    ``stages`` slots; ``buffers`` sets of the exchange (the partial scores
+    an owner receives, P, the rows' rescale factors); ``smem`` dynamic
+    shared bytes, 1 KB to align the base and the mbarriers included."""
+    cluster: int
+    cols: int
+    rows: int
+    tile: int
+    stages: int
+    buffers: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_fwd_plan(d: int, elem: int) -> WideFwdPlan:
+    """The wide forward's plan at tile ``d`` (a multiple of WIDE_COLS past
+    640) for ``elem``-byte operands: Q and ``stages`` K or V tiles of
+    WIDE_ROWS x WIDE_COLS, and per exchange buffer the received partials
+    (fp32), the P tile (16-bit rows of 64 keys padded by 16 bytes; fp32
+    unpadded) and the rows' fp32 rescale factors."""
+    stages, buffers = WIDE_FWD_SLOTS[elem], WIDE_FWD_BUFFERS[elem]
+    tile_bytes = WIDE_ROWS * WIDE_COLS * elem
+    p_row = WIDE_FWD_TILE * 4 if elem == 4 else WIDE_FWD_TILE * 2 + 16
+    buf = (_wide_fwd_recv_rows() * WIDE_FWD_TILE * 4 + WIDE_ROWS * p_row
+           + WIDE_ROWS * 4)
+    bars = stages + 2 + 2 * buffers
+    return WideFwdPlan(cluster=d // WIDE_COLS, cols=WIDE_COLS, rows=WIDE_ROWS,
+                       tile=WIDE_FWD_TILE, stages=stages, buffers=buffers,
+                       smem=1024 + (1 + stages) * tile_bytes + buffers * buf
+                       + 8 * bars)
+
+
+def wide_fwd_active_clusters(dtype: torch.dtype, cluster: int) -> int:
+    """How many clusters of ``cluster`` CTAs of the wide forward for
+    ``dtype`` operands the card holds at once, at its plan's shared bytes
+    (``hv_stream_fwd_wide_clusters``: cudaOccupancyMaxActiveClusters)."""
+    lib = _build.load("flash_stream_f16" if dtype == torch.float16
+                      else "flash_stream")
+    fn = lib.hv_stream_fwd_wide_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    count = ctypes.c_int(0)
+    rc = fn(cluster, int(dtype == torch.float32), ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"hv_stream_fwd_wide_clusters: error {rc}")
+    return count.value
 
 
 @dataclasses.dataclass(frozen=True)
@@ -596,16 +663,16 @@ def _round_kb(x):
 
 
 @functools.lru_cache(maxsize=None)
-def _stream_plan(d: int) -> Union[StreamPlan, WidePlan]:
+def _stream_plan(d: int) -> Union[StreamPlan, WideFwdPlan]:
     """The plan at head dim ``d`` (``sf_bk``, ``sf_stages`` and
     ``sf_smem_bytes`` in flash_stream.cu): tiles of ``STREAM_TILE`` keys,
     ``STREAM_TILE_WIDE`` past D = 512 (where a 64-key slot would leave room
     for one beside Q), and as many slots as fit one block's shared memory
     beside the static ``STREAM_STATIC`` bytes, at most
-    ``STREAM_MAX_STAGES``; past D = 640 the wide forward's (``WidePlan``).
-    The sequence lengths do not change it."""
+    ``STREAM_MAX_STAGES``; past D = 640 the wide forward's
+    (``WideFwdPlan``). The sequence lengths do not change it."""
     if d > STREAM_NARROW_MAX:
-        return _wide_plan(d, 2, False)
+        return _wide_fwd_plan(d, 2)
     tile = STREAM_TILE_WIDE if d > 512 else STREAM_TILE
     q_bytes = _sw128_bytes(d, STREAM_ROWS)
     slot = _round_kb(_sw128_bytes(d, tile) + tile * 4)
@@ -647,15 +714,15 @@ def _stream_f32_smem(d: int, tile: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _stream_f32_plan(d: int) -> Union[StreamF32Plan, WidePlan]:
+def _stream_f32_plan(d: int) -> Union[StreamF32Plan, WideFwdPlan]:
     """The plan at head dim ``d`` (``sf32_bk``): K/V tiles of 32 keys to
     d = 256 (a wider tile's scores would take more registers than a thread
     has beside the output), 16 at 512 and 8 at 640, so that the Q tile, two
     slots, the exchange and P fit one block; past D = 640 the wide
-    forward's at fp32 (``WidePlan``). The sequence lengths do not change
-    it."""
+    forward's at fp32 (``WideFwdPlan``). The sequence lengths do not
+    change it."""
     if d > STREAM_NARROW_MAX:
-        return _wide_plan(d, 4, False)
+        return _wide_fwd_plan(d, 4)
     tile = 32 if d <= 256 else 16 if d <= 512 else 8
     return StreamF32Plan(rows=STREAM_F32_ROWS, tile=tile,
                          stages=STREAM_F32_STAGES,
@@ -706,7 +773,7 @@ def _stream_bwd_plan(d: int) -> Union[StreamBwdPlan, WidePlan]:
     S and dP); past D = 640 the wide dQ's and dK/dV's (``WidePlan``). The
     sequence lengths do not change it."""
     if d > STREAM_NARROW_MAX:
-        return _wide_plan(d, 2, True)
+        return _wide_plan(d, 2)
     split = d >= STREAM_BWD_SPLIT_DIM
     rows = STREAM_BWD_TILE if split else 2 * STREAM_BWD_TILE
     cluster = 2 if d >= STREAM_BWD_CLUSTER_DIM else 1
@@ -919,7 +986,7 @@ class StreamBwdF32Plan:
 @functools.lru_cache(maxsize=None)
 def _stream_bwd_f32_plan(d: int) -> StreamBwdF32Plan:
     if d > STREAM_NARROW_MAX:
-        plan = _wide_plan(d, 4, True)
+        plan = _wide_plan(d, 4)
         return StreamBwdF32Plan(dq=plan, dkv=plan)
     if d >= STREAM_BWD_F32_CLUSTER_DIM:
         plan = _f32_cluster_plan(d)

@@ -1192,6 +1192,40 @@ def test_wide_stream_kernels_match_plain(d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", KERNEL_DTYPES)
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("sq", [1, 65])
+@pytest.mark.parametrize("sk", [1, 63, 65, 300])
+@pytest.mark.parametrize("d", [1032, 1784])
+def test_wide_forward_key_tails(d, sk, sq, masked, dtype):
+    """The wide forward at the tails of its 64-key walked tile (Sk 1, 63,
+    65, 300) with one query row and with 65 (a resident tile and one row
+    of the next), clusters of 5 and 7 CTAs (whose exchange splits the 64
+    rows unevenly), masked with batch 0 keyless and not: O and LSE against
+    the plain version, the keyless row the uniform average, the same bits
+    twice, two launches on the dtype's wide counter."""
+    _cuda_or_skip()
+    shape = (2, 2, sq, d)
+    q, k, v = (x.float().to(dtype) for x in _qkv(shape, seed=94, sk=sk))
+    bias = _bias(2, sk, seed=95, full_row=0) if masked else None
+    kw = dict(scale=d ** -0.5, bias=bias)
+    wide = _counter("stream_attention_wide", dtype)
+    before = wide.launches
+    runs = [tfa.stream_attention(q, k, v, **kw) for _ in range(2)]
+    wo, wl = tfa.stream_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert wide.launches - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out, lse = runs[0]
+    assert _ok(out, wo, dtype)
+    assert _err(lse, wl) <= (F32_ATOL if dtype == torch.float32
+                             else LSE_ATOL)
+    if masked:
+        assert _ok(out[0], v[0].float().mean(dim=1, keepdim=True).expand_as(
+            out[0]).to(dtype), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", KERNEL_DTYPES)
 @pytest.mark.parametrize("shape", [(2, 2, 272, 136), (2, 2, 300, 512),
                                    (2, 2, 300, 1024), (1, 1, 2048, 136)])
 def test_sdpa_keyless_row_gradient(shape, dtype):

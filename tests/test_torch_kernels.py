@@ -306,12 +306,19 @@ def test_ffn_plan_covers_every_admitted_n():
 
 def _check_wide_plan(plan, d, elem, bwd):
     """A wide kernel's plan at tile d: a cluster of d / 256 CTAs (at most
-    the portable 8) of 256 columns and 64 rows, two slots of the walked
-    tile its source states, within one block's 232,448 bytes."""
-    assert plan == tfa.WidePlan(
-        cluster=d // 256, cols=256, rows=64,
-        tile=(16 if elem == 4 else 32) if bwd else 32, stages=2,
-        smem=tfa._wide_smem(elem, bwd))
+    the portable 8) of 256 columns and 64 rows within one block's 232,448
+    bytes; the backward's two slots of the walked tile its source states,
+    the forward's 64-key tiles through four K or V slots and two sets of
+    exchange buffers in 16 bits (two and one in fp32)."""
+    if bwd:
+        assert plan == tfa.WidePlan(
+            cluster=d // 256, cols=256, rows=64, tile=16 if elem == 4 else 32,
+            stages=2, smem=tfa._wide_smem(elem))
+    else:
+        assert plan == tfa.WideFwdPlan(
+            cluster=d // 256, cols=256, rows=64, tile=64,
+            stages=2 if elem == 4 else 4, buffers=1 if elem == 4 else 2,
+            smem=tfa._wide_fwd_plan(d, elem).smem)
     assert 3 <= plan.cluster <= tfa.WIDE_MAX_CLUSTER == 8
     assert plan.cols * plan.cluster == d
     assert plan.smem <= tfa.SMEM_PER_BLOCK

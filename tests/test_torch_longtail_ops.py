@@ -299,15 +299,17 @@ def test_stream_f32_plan_fits_a_block(d):
     the exchange of partial scores, P and the rescale factors, within the
     card's shared memory a block; below the 32-key cap, a tile of twice
     the keys would not fit. Past D 640, the wide forward's: a cluster of
-    d / 256 CTAs of 256 columns (rows 260 floats apart), 64 query rows,
-    two slots of a 32-key K and V tile and its bias row, two buffers of the
-    64 x 32 partial scores and the summed tile (rows 36 floats apart)."""
+    d / 256 CTAs of 256 columns, 64 query rows, two slots of a 64-key K or
+    V tile beside Q (64 KB each), one set of exchange buffers (the partial
+    scores an owner receives, at most 70 rows of 64 keys; the 64 x 64 P;
+    the rows' rescale factors), six mbarriers and 1 KB to align the
+    base."""
     plan = tfa._stream_f32_plan(d)
     if d > tfa.STREAM_NARROW_MAX:
-        assert (plan.cluster, plan.cols, plan.rows, plan.stages,
-                plan.tile) == (d // 256, 256, 64, 2, 32)
-        assert plan.smem == (64 * 260 + 2 * (2 * 32 * 260 + 32)
-                             + 2 * 64 * 32 + 64 * 36) * 4 == 225_536
+        assert (plan.cluster, plan.cols, plan.rows, plan.stages, plan.tile,
+                plan.buffers) == (d // 256, 256, 64, 2, 64, 1)
+        assert plan.smem == (1024 + 3 * 64 * 256 * 4 + 70 * 64 * 4
+                             + 64 * 64 * 4 + 64 * 4 + 8 * 6) == 232_240
         assert plan.smem <= tfa.SMEM_PER_BLOCK
         return
     assert (plan.rows, plan.stages, plan.tile) == (64, 2, F32_TILES[d])

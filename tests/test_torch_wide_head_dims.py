@@ -288,18 +288,49 @@ def test_every_head_dim_to_2048_takes_the_streaming_kernels(dtype):
 def test_wide_plans_fit_a_block(d):
     """Each wide tile's plans (forward, dQ and dK/dV; bf16 and fp16 alike,
     fp32) within 232,448 shared bytes a block and a cluster of at most 8
-    CTAs (the portable size), d / 256 CTAs of 256 columns, two slots."""
-    plans = [tfa._stream_plan(d), tfa._stream_f32_plan(d),
-             tfa._stream_bwd_plan(d), tfa._stream_bwd_f32_plan(d).dq,
-             tfa._stream_bwd_f32_plan(d).dkv]
-    for plan in plans:
-        assert isinstance(plan, tfa.WidePlan)
+    CTAs (the portable size), d / 256 CTAs of 256 columns: the forward's
+    64-key tiles through 4 K or V slots and 2 sets of exchange buffers in
+    16 bits (2 and 1 in fp32), the backward's two slots."""
+    fwd = [tfa._stream_plan(d), tfa._stream_f32_plan(d)]
+    bwd = [tfa._stream_bwd_plan(d), tfa._stream_bwd_f32_plan(d).dq,
+           tfa._stream_bwd_f32_plan(d).dkv]
+    assert all(isinstance(p, tfa.WideFwdPlan) for p in fwd)
+    assert all(isinstance(p, tfa.WidePlan) for p in bwd)
+    for plan in fwd + bwd:
         assert plan.smem <= tfa.SMEM_PER_BLOCK == 232_448
         assert plan.cluster == d // 256 <= 8
-        assert (plan.cols, plan.rows, plan.stages) == (256, 64, 2)
-    assert [p.tile for p in plans] == [32, 32, 32, 16, 16]
-    assert [p.smem for p in plans] == [127_232, 225_536, 187_392, 227_072,
-                                       227_072]
+        assert (plan.cols, plan.rows) == (256, 64)
+    assert [(p.tile, p.stages, p.buffers) for p in fwd] == [(64, 4, 2),
+                                                            (64, 2, 1)]
+    assert [p.smem for p in fwd] == [219_728, 232_240]
+    assert [p.tile for p in bwd] == [32, 16, 16]
+    assert [p.stages for p in bwd] == [2, 2, 2]
+    assert [p.smem for p in bwd] == [187_392, 227_072, 227_072]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("d", WIDE_TILES)
+def test_wide_forward_exchange_covers_the_rows(d, dtype):
+    """The wide forward's plan at each wide tile and dtype fits 232,448
+    shared bytes, its cluster is d / 256 <= 8 CTAs, and its exchange
+    (``wide_fwd_rows``: CTA r owns rows [rows[r], rows[r + 1]) of a walked
+    tile) hands each of the 64 resident rows to exactly one CTA, each at
+    most 32 rows (8 threads a row of the 256) and at least one, and the
+    partial scores an owner receives (a slot of its rows from each CTA)
+    fit the plan's receive buffer of 70 rows."""
+    plan = (tfa._stream_f32_plan(d) if dtype == torch.float32
+            else tfa._stream_plan(d))
+    assert plan.smem <= tfa.SMEM_PER_BLOCK == 232_448
+    assert plan.cluster == d // 256 <= 8
+    assert plan.tile == 64 and plan.rows == 64
+    rows = tfa.wide_fwd_rows(plan.cluster)
+    owned = [r for a, b in zip(rows, rows[1:]) for r in range(a, b)]
+    assert owned == list(range(64))
+    sizes = [b - a for a, b in zip(rows, rows[1:])]
+    assert len(sizes) == plan.cluster and 1 <= min(sizes)
+    assert max(sizes) <= 256 // 8
+    assert plan.cluster * max(sizes) <= tfa._wide_fwd_recv_rows() == 70
 
 
 def test_off_tile_head_dim_zero_filled_is_exact():
